@@ -1,0 +1,338 @@
+// Context mixing, forward: the frame-banded affinity softmax and mix of the
+// context-pooled grounding model, for NVIDIA Hopper (sm_90a).
+//
+// Replaces the TPU kernel nafae_tpu/ops/pallas/fused_ctx.py::_fwd_kernel
+// (the forward of ctx_mix_pallas). Same function as the port's plain
+// version, nafae_torch/ops/kernels/ctx_mix.py::context_mix_plain:
+//
+//   for every video b, centre frame t, offset o in {-w..-1, 1..w}:
+//     nv_o      = fm[t+o] * fm[t]                        (halo frames: fm=0)
+//     S[r, s]   = v[t, r] . v[t+o, s] / temp,  -1e9 where rm[t+o, s] <= 0
+//     alpha     = softmax_s(S) * nv_o                    (row max subtracted;
+//                 an all-masked row gives the uniform 1/R over its R regions)
+//   u[t, r]     = sum_o sum_s alpha[r, s] v[t+o, s] / max(sum_o nv_o, 1)
+//
+// With bf16 input the products use the bf16 values and sum in f32, and alpha
+// is rounded to bf16 before the mix, as the reference's bf16 mode does
+// (preferred_element_type=f32 with bf16 operands). u is always f32.
+//
+// Design: one block per (video, centre frame), looping over the 2w offsets.
+// The centre frame [R, E] and, in turn, each valid neighbour frame are
+// staged in shared memory as f32 (rows padded to E+4 floats, so float4 reads
+// of distinct rows fall in distinct banks); vector loads need v_ext 16-byte
+// aligned. Scores: groups of 8 lanes compute 4 x 4 (r, s) tiles, splitting E
+// and summing by shuffles. Softmax: 8 lanes per row, all rows at once. Mix:
+// each thread owns 4 embedding columns of a quarter of the rows and keeps
+// those accumulators in registers across the offsets. Shared memory does not
+// grow with T, so long clips need no special path. Offsets whose nv_o is 0,
+// and invalid centre frames, are skipped: their contribution is exactly 0.
+//
+// Bound on an H100 SXM (config4 serving shapes B=16, T=20, R=20, E=256,
+// w=3, f32, every frame valid): it reads 8.5 MB of v_ext and writes 6.6 MB
+// of u (~4.5 us at 3.35 TB/s) and does 4*R*R*E flops per (b, t, o):
+// 0.79 GFLOP (~12 us at 67 TFLOP/s f32 on CUDA cores). So it is bound by
+// operations; f32 parity keeps it off the tensor cores (TF32 keeps ~3
+// digits). With bf16 input it reads 4.3 MB of v_ext and writes the same
+// 6.6 MB of u (~3.2 us), and the same flops on bf16 tensor cores at ~989
+// TFLOP/s take ~0.8 us: bound by bytes, at ~3.2 us. This version is far from that bound: each block walks the
+// offsets in sequence (stage, scores, softmax, mix, four barriers each) with
+// 2 blocks per SM (128 registers a thread), so latency, not the FMA units,
+// sets its time. PERF.md has its measured times.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+
+namespace {
+
+constexpr float kNeg = -1e9f;    // the reference's masked-logit fill (NEG)
+constexpr int kMaxThreads = 512;
+
+// alpha in the operand type of the mix product (identity for f32)
+__device__ __forceinline__ float as_operand(float x, const float*) {
+  return x;
+}
+__device__ __forceinline__ float as_operand(float x, const __nv_bfloat16*) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Four consecutive elements as f32 (16-byte f32 or 8-byte bf16 loads).
+__device__ __forceinline__ float4 load4(const float* p, int i) {
+  return reinterpret_cast<const float4*>(p)[i];
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int i) {
+  const uint2 raw = reinterpret_cast<const uint2*>(p)[i];
+  const float2 a = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
+  const float2 c = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
+  return make_float4(a.x, a.y, c.x, c.y);
+}
+
+// One frame [R, E] from global memory into shared rows of stride ld, as f32.
+// Unrolled so that several loads are in flight before the first store.
+template <typename Tin>
+__device__ __forceinline__ void stage_frame(float* __restrict__ dst,
+                                            const Tin* __restrict__ src,
+                                            int R, int E, int ld) {
+  const int n4 = (R * E) >> 2;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
+    const int flat = i << 2;
+    const int r = flat / E;
+    *reinterpret_cast<float4*>(dst + r * ld + (flat - r * E)) = load4(src, i);
+  }
+}
+
+// RB: R rounded up to a multiple of 8 (4 row groups of RB/4 rows each).
+template <typename Tin, int RB>
+__global__ void __launch_bounds__(kMaxThreads)
+ctx_mix_fwd_kernel(const Tin* __restrict__ v_ext,   // [B, T+2w, R, E]
+                   const float* __restrict__ fm_ext,  // [B, T+2w]
+                   const float* __restrict__ rm_ext,  // [B, T+2w, R] or null
+                   float* __restrict__ u,             // [B, T, R, E]
+                   int T, int R, int E, int w, float temp) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = E + 4;
+  float* vc = smem;             // [R][ld]  centre frame
+  float* vo = vc + R * ld;      // [R][ld]  neighbour frame
+  float* sc = vo + R * ld;      // [R][RB]  scores, then exps (row r, col s)
+  float* at = sc + R * RB;      // [R][RB]  alpha * nv transposed (row s, col r)
+  float* live = at + R * RB;    // [R]      region mask of the neighbour frame
+
+  const int t = blockIdx.x;
+  const int b = blockIdx.y;
+  const int t_ext = T + 2 * w;
+  const size_t frame = (size_t)R * E;
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const Tin* vb = v_ext + (size_t)b * t_ext * frame;
+  float* ub = u + ((size_t)b * T + t) * frame;
+
+  const float fm_c = fm[t + w];
+  if (fm_c == 0.f) {              // every nv_o is 0: the row is zero
+    for (int i = threadIdx.x; i < (int)frame; i += blockDim.x) ub[i] = 0.f;
+    return;
+  }
+  stage_frame(vc, vb + (size_t)(t + w) * frame, R, E, ld);
+
+  // the mix's thread layout: E/4 column groups x 4 row groups
+  constexpr int RPT = RB / 4;           // rows per thread
+  const int ncg = E >> 2;
+  const bool active = threadIdx.x < E;  // blockDim rounds E up to 32
+  const int cg = threadIdx.x % ncg;
+  const int rg = threadIdx.x / ncg;
+  float acc[RPT][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  float cnt = 0.f;
+
+  for (int oi = 0; oi < 2 * w; ++oi) {
+    const int tf = t + (oi < w ? oi : oi + 1);   // extended neighbour frame
+    const float nv = fm[tf] * fm_c;
+    cnt += nv;
+    if (nv == 0.f) continue;      // block-uniform
+    __syncthreads();              // the previous offset's readers are done
+    stage_frame(vo, vb + (size_t)tf * frame, R, E, ld);
+    if (threadIdx.x < R)
+      live[threadIdx.x] =
+          rm_ext ? rm_ext[((size_t)b * t_ext + tf) * R + threadIdx.x] : 1.f;
+    __syncthreads();
+
+    // Scores: each group of 8 lanes computes a 4 x 4 tile of (r, s); its
+    // lanes split E (lane j takes float4 columns j, j+8, ...: the 8 lanes
+    // read 128 contiguous bytes, conflict-free) and sum by shuffles. Eight
+    // 16-byte shared loads feed 64 FMAs.
+    {
+      const int j = threadIdx.x & 7;
+      const int tiles_1d = (R + 3) >> 2;
+      const int n_tiles = tiles_1d * tiles_1d;
+      const int e4 = E >> 2;
+      for (int base = 0; base < n_tiles; base += blockDim.x >> 3) {
+        const int tile = base + (threadIdx.x >> 3);
+        const int r0 = (tile / tiles_1d) * 4;
+        const int s0 = (tile % tiles_1d) * 4;
+        float d[4][4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) d[i][k] = 0.f;
+        if (tile < n_tiles) {     // uniform across the 8 lanes of a group
+          const float4* x[4];
+          const float4* y[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            x[i] = reinterpret_cast<const float4*>(vc + min(r0 + i, R - 1) * ld);
+            y[i] = reinterpret_cast<const float4*>(vo + min(s0 + i, R - 1) * ld);
+          }
+          for (int q = j; q < e4; q += 8) {
+            float4 a[4], c[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              a[i] = x[i][q];
+              c[i] = y[i][q];
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                d[i][k] = fmaf(a[i].x, c[k].x, d[i][k]);
+                d[i][k] = fmaf(a[i].y, c[k].y, d[i][k]);
+                d[i][k] = fmaf(a[i].z, c[k].z, d[i][k]);
+                d[i][k] = fmaf(a[i].w, c[k].w, d[i][k]);
+              }
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+#pragma unroll
+            for (int m = 4; m > 0; m >>= 1)
+              d[i][k] += __shfl_xor_sync(0xffffffffu, d[i][k], m);
+        if (j == 0 && tile < n_tiles) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int r = r0 + i, sidx = s0 + k;
+              if (r < R && sidx < R) {
+                float lg = d[i][k] / temp;
+                if (!(live[sidx] > 0.f)) lg = kNeg;
+                sc[r * RB + sidx] = lg;
+              }
+            }
+        }
+      }
+    }
+    __syncthreads();
+
+    // Softmax over s for every row r: 8 lanes per row (lane j takes s = j,
+    // j+8, j+16, j+24), so up to blockDim/8 rows run at once; the row max
+    // and sum reduce by shuffles within the 8 lanes. Rows R..RB-1 of the
+    // transposed alpha are zero.
+    {
+      const int j = threadIdx.x & 7;
+      for (int base = 0; base < RB; base += blockDim.x >> 3) {
+        const int r = base + (threadIdx.x >> 3);
+        float x[4];
+        float m = -CUDART_INF_F;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int sidx = j + 8 * k;
+          x[k] = (r < R && sidx < R) ? sc[r * RB + sidx] : -CUDART_INF_F;
+          m = fmaxf(m, x[k]);
+        }
+#pragma unroll
+        for (int k = 4; k > 0; k >>= 1)
+          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, k));
+        float ex[4];
+        float sum = 0.f;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          ex[k] = (r < R && j + 8 * k < R) ? expf(x[k] - m) : 0.f;
+          sum += ex[k];
+        }
+#pragma unroll
+        for (int k = 4; k > 0; k >>= 1)
+          sum += __shfl_xor_sync(0xffffffffu, sum, k);
+        if (r < RB) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int sidx = j + 8 * k;
+            if (sidx < R)
+              at[sidx * RB + r] =
+                  r < R ? as_operand(ex[k] / sum * nv, v_ext) : 0.f;
+          }
+        }
+      }
+    }
+    __syncthreads();
+
+    // Mix: thread (cg, rg) owns columns 4cg..4cg+3 and rows rg*RB/4 ..
+    // (rg+1)*RB/4 - 1. A warp shares rg, so its alpha reads are broadcasts
+    // and its neighbour-row reads are 512 contiguous bytes.
+    if (active) {
+      for (int s = 0; s < R; ++s) {
+        const float4 x = reinterpret_cast<const float4*>(vo + s * ld)[cg];
+        const float* ap = at + s * RB + rg * RPT;
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const float a = ap[i];
+          acc[i][0] = fmaf(a, x.x, acc[i][0]);
+          acc[i][1] = fmaf(a, x.y, acc[i][1]);
+          acc[i][2] = fmaf(a, x.z, acc[i][2]);
+          acc[i][3] = fmaf(a, x.w, acc[i][3]);
+        }
+      }
+    }
+  }
+
+  if (active) {
+    const float den = fmaxf(cnt, 1.f);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int r = rg * RPT + i;
+      if (r < R)
+        reinterpret_cast<float4*>(ub + (size_t)r * E)[cg] = make_float4(
+            acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den);
+    }
+  }
+}
+
+template <typename Tin, int RB>
+int launch(const void* v_ext, const float* fm_ext, const float* rm_ext,
+           float* u, int B, int T, int R, int E, int w, float temp,
+           size_t smem, cudaStream_t stream) {
+  auto kern = ctx_mix_fwd_kernel<Tin, RB>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int threads = ((E + 31) / 32) * 32;
+  kern<<<dim3(T, B), threads, smem, stream>>>(
+      static_cast<const Tin*>(v_ext), fm_ext, rm_ext, u, T, R, E, w, temp);
+  return (int)cudaGetLastError();
+}
+
+template <typename Tin>
+int dispatch(const void* v_ext, const float* fm_ext, const float* rm_ext,
+             float* u, int B, int T, int R, int E, int w, float temp,
+             size_t smem, cudaStream_t stream) {
+  switch ((R + 7) / 8) {
+    case 1: return launch<Tin, 8>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, stream);
+    case 2: return launch<Tin, 16>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, stream);
+    case 3: return launch<Tin, 24>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, stream);
+    default: return launch<Tin, 32>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, stream);
+  }
+}
+
+// Dynamic shared memory of one block, in bytes: at most 140,416 B (R = 32,
+// E = 512), within the 227 KB a Hopper block can opt into.
+size_t smem_bytes(int R, int E) {
+  const int rb = ((R + 7) / 8) * 8;
+  return (size_t)(2 * R * (E + 4) + 2 * R * rb + R) * sizeof(float);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
+// v_ext is float* when v_is_bf16 == 0, __nv_bfloat16* otherwise; rm_ext may
+// be null. All tensors are contiguous; v_ext is 16-byte aligned. Limits: 1 <= R <= 32, E a multiple
+// of 4 with 4 <= E <= 512, w >= 1, B <= 65535.
+int nafae_ctx_mix_fwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
+                      const float* rm_ext, float* u, int B, int T, int R,
+                      int E, int w, float temp, void* stream) {
+  if (R < 1 || R > 32 || E < 4 || E % 4 != 0 || E > kMaxThreads || w < 1 ||
+      B < 0 || B > 65535 || T < 0)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || T == 0) return 0;
+  const size_t smem = smem_bytes(R, E);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return v_is_bf16
+      ? dispatch<__nv_bfloat16>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, s)
+      : dispatch<float>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, s);
+}
+
+}  // extern "C"

@@ -1,0 +1,230 @@
+"""Grounding forward ops: similarity tensor, MIL pooling, context mixing.
+
+The port of `nafae_tpu/ops/grounding.py` that the serving forward needs
+(docs/MATH.md §Forward and §Contextual-similarity). Plain functions on
+tensors; the context mix dispatches to the CUDA kernel of
+`ops/kernels/ctx_mix.py` on the GPU.
+
+Conventions: masks are float (0/1). NEG = -1e9 is the masked-max/-softmax
+fill. Every product keeps an f32 output: with a bf16 compute dtype its
+operands are rounded to bf16 and multiplied in f32 (bf16 x bf16 products
+are exact in f32), which is the reference's preferred_element_type=f32
+contract; a bf16 torch product would round its output to bf16. f32 products
+need TF32 off, which `device.resolve_device` sets.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from nafae_torch.ops.kernels import ctx_mix as _ctx_mix
+
+NEG = -1e9
+
+
+def l2_normalize(x: torch.Tensor, dim: int = -1,
+                 eps: float = 1e-8) -> torch.Tensor:
+    return x * torch.rsqrt(torch.sum(x * x, dim=dim, keepdim=True) + eps)
+
+
+def _take_rows(emb: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """emb[ids] with `jnp.take(emb, ids, axis=0)`'s out-of-range rule: an id
+    in [-V, 0) wraps, any other id outside [0, V) gives a NaN row. Plain
+    indexing would instead fail (a device-side assert on CUDA)."""
+    v = emb.shape[0]
+    idx = torch.where(ids < 0, ids + v, ids)
+    ok = (idx >= 0) & (idx < v)
+    rows = emb[idx.clamp(0, v - 1)]
+    return torch.where(ok[..., None], rows, torch.nan)
+
+
+def embed_words(word_ids: torch.Tensor, emb: torch.Tensor,
+                m_sim: torch.Tensor | None = None) -> torch.Tensor:
+    """word_ids [B,K] int, emb [V,E] -> normalized ŵ [B,K,E].
+
+    m_sim [E,E] (model.similarity="bilinear"): the bilinear form ŵᵀ·M·v̂
+    folded into the word side, w̃ = ŵ@M."""
+    w = l2_normalize(_take_rows(emb, word_ids.long()))
+    if m_sim is not None:
+        w = torch.einsum("bke,ef->bkf", w, m_sim.float())
+    return w
+
+
+def _f32_operand(x: torch.Tensor, dtype) -> torch.Tensor:
+    return (x if dtype is None else x.to(dtype)).float()
+
+
+def project_regions(feats: torch.Tensor, w_v: torch.Tensor, b_v: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    """feats [B,T,R,D] -> normalized v̂ [B,T,R,E] f32, the [B·T·R, D]x[D, E]
+    product taken in `dtype` operands with f32 sums."""
+    b, t, r, d = feats.shape
+    f2 = _f32_operand(feats.reshape(b * t * r, d), dtype)
+    v = f2 @ _f32_operand(w_v, dtype)
+    v = v.reshape(b, t, r, -1) + b_v.float()
+    return l2_normalize(v)
+
+
+def project_params(params: dict, feats: torch.Tensor, dtype=torch.float32,
+                   feats_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Projection dispatch. The port runs the f32 and bf16 products; the
+    int8 forms (quantized params or pre-quantized features) come later."""
+    if (feats.dtype == torch.int8 or feats_scale is not None
+            or "w_v.q8" in params):
+        raise NotImplementedError(
+            "int8 projection (model.quantize=int8|int8pre) is not ported "
+            "yet; it comes with the int8 serving slice of the port")
+    return project_regions(feats, params["w_v"], params["b_v"], dtype=dtype)
+
+
+def _cast2(a: torch.Tensor, b: torch.Tensor, dtype):
+    """Cast both operands to the compute dtype, each independently (one may
+    already be in it)."""
+    if dtype is None:
+        return a, b
+    return a.to(dtype), b.to(dtype)
+
+
+def similarity_tensor(w_emb: torch.Tensor, v_emb: torch.Tensor,
+                      dtype=None) -> torch.Tensor:
+    """s[b,k,t,r] = ŵ[b,k]·v̂[b,t,r]: [B,K,E]x[B,T,R,E] -> [B,K,T,R] f32."""
+    w_emb, v_emb = _cast2(w_emb, v_emb, dtype)
+    return torch.einsum("bke,btre->bktr", w_emb.float(), v_emb.float())
+
+
+def mask_regions(s: torch.Tensor,
+                 region_mask: torch.Tensor | None) -> torch.Tensor:
+    """Fill invalid region slots with NEG so max/argmax/softmax ignore them.
+
+    s [..,K,T,R] (leading video axis first); region_mask [B,T,R] or None."""
+    if region_mask is None:
+        return s
+    extra = s.dim() - region_mask.dim() - 1
+    rm = region_mask.reshape(
+        region_mask.shape[:1] + (1,) * (extra + 1) + region_mask.shape[1:])
+    return torch.where(rm > 0, s, NEG)
+
+
+def frame_mil_max(s: torch.Tensor, frame_mask: torch.Tensor) -> torch.Tensor:
+    """MIL max over regions: a[..,k,t] = max_r s (invalid frames -> 0)."""
+    a = torch.amax(s, dim=-1)
+    return torch.where(frame_mask[..., None, :] > 0, a, 0.0)
+
+
+def frame_attention(frame_logits: torch.Tensor, frame_mask: torch.Tensor,
+                    temp: float, pool: str) -> torch.Tensor:
+    """β[..,t] from per-frame logits g[..,t] (docs/MATH.md step 5)."""
+    if pool == "mean":
+        denom = torch.clamp(frame_mask.sum(-1, keepdim=True), min=1.0)
+        return (frame_mask / denom).expand(frame_logits.shape)
+    logits = torch.where(frame_mask > 0, frame_logits / temp, NEG)
+    return torch.softmax(logits, dim=-1) * frame_mask
+
+
+def _masked_word_mean(x: torch.Tensor, word_mask: torch.Tensor) -> torch.Tensor:
+    """Masked mean over the word axis: x [..,K,T], word_mask [..,K] -> [..,T]."""
+    num = torch.sum(x * word_mask[..., None], dim=-2)
+    den = torch.clamp(word_mask.sum(-1), min=1.0)
+    return num / den[..., None]
+
+
+def learned_frame_logits(v_emb: torch.Tensor, frame_mask: torch.Tensor,
+                         region_mask: torch.Tensor | None,
+                         attn_w: torch.Tensor) -> torch.Tensor:
+    """Learned per-frame logits g[b,t] = v̄[b,t]·attn_w (frame_pool=
+    "learned"; bias-free), v̄ the masked mean of v̂ over valid regions."""
+    if region_mask is not None:
+        num = torch.sum(v_emb * region_mask[..., None].to(v_emb.dtype), dim=-2)
+        den = torch.clamp(region_mask.sum(-1), min=1.0)
+    else:
+        num = torch.sum(v_emb, dim=-2)
+        den = torch.tensor(float(v_emb.shape[-2]), device=v_emb.device)
+    vbar = num.float() / den[..., None]                          # [B,T,E]
+    g = torch.einsum("bte,e->bt", vbar, attn_w.float())
+    return g * frame_mask
+
+
+def video_scores(a: torch.Tensor, word_mask: torch.Tensor,
+                 frame_mask: torch.Tensor, temp: float, pool: str,
+                 frame_logits: torch.Tensor | None = None
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """a [..,K,T] -> (S [..], β [..,T]). frame_logits overrides g."""
+    g = frame_logits if frame_logits is not None \
+        else _masked_word_mean(a, word_mask)
+    beta = frame_attention(g, frame_mask, temp,
+                           "attention" if pool in ("context", "learned")
+                           else pool)
+    s_w = torch.sum(beta[..., None, :] * a, dim=-1)              # [.., K]
+    s = torch.sum(s_w * word_mask, dim=-1) / torch.clamp(
+        word_mask.sum(-1), min=1.0)
+    return s, beta
+
+
+def extend_for_window(v_emb: torch.Tensor, frame_mask: torch.Tensor,
+                      region_mask: torch.Tensor | None, window: int):
+    """(v_ext, fm_ext, rm_ext) extended by `window` zero halo frames on each
+    side (single device; halo frames are invalid, fm_ext = 0)."""
+    w = window
+    return (F.pad(v_emb, (0, 0, 0, 0, w, w)),
+            F.pad(frame_mask, (w, w)),
+            F.pad(region_mask, (0, 0, w, w))
+            if region_mask is not None else None)
+
+
+def context_mix(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
+                temp: float, dtype=None,
+                rm_ext: torch.Tensor | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Context-mixed region embeddings (u [B,T,R,E] f32, nbr_valid
+    [B,T,2w]): the CUDA kernel on the GPU, its plain version on the CPU
+    (ops/kernels/ctx_mix.py)."""
+    return _ctx_mix.ctx_mix(v_ext, fm_ext, window, temp, dtype=dtype,
+                            rm_ext=rm_ext)
+
+
+def ground_forward(params: dict, feats: torch.Tensor, word_ids: torch.Tensor,
+                   frame_mask: torch.Tensor, word_mask: torch.Tensor,
+                   temp: float = 0.1, pool: str = "attention",
+                   ctx_window: int = 0, ctx_temp: float = 0.1,
+                   compute_dtype=torch.float32,
+                   region_mask: torch.Tensor | None = None,
+                   feats_scale: torch.Tensor | None = None) -> dict:
+    """Full single-video forward pass (the serving path).
+
+    params: {"word_emb": [V,E], "w_v": [D,E], "b_v": [E]} (+ "attn_w" [E]
+    when pool="learned"; + "m_sim" [E,E] when model.similarity="bilinear").
+    region_mask [B,T,R]: fills invalid region slots with NEG before every
+    max; None = all regions of valid frames valid.
+    Returns dict with w_emb, v_emb, s, a, beta, score, and (if
+    ctx_window>0) u, nbr_valid, shat, ahat.
+    """
+    w_emb = embed_words(word_ids, params["word_emb"],
+                        m_sim=params.get("m_sim"))
+    v_emb = project_params(params, feats, dtype=compute_dtype,
+                           feats_scale=feats_scale)
+    cdt = (None if compute_dtype is None or compute_dtype == torch.float32
+           else compute_dtype)
+    s = mask_regions(similarity_tensor(w_emb, v_emb, dtype=cdt), region_mask)
+    a = frame_mil_max(s, frame_mask)
+    out = {"w_emb": w_emb, "v_emb": v_emb, "s": s, "a": a}
+    frame_logits = None
+    if ctx_window > 0:
+        w_ = ctx_window
+        v_ext, fm_ext, rm_ext = extend_for_window(v_emb, frame_mask,
+                                                  region_mask, w_)
+        u, nbr_valid = context_mix(v_ext, fm_ext, w_, ctx_temp, dtype=cdt,
+                                   rm_ext=rm_ext)
+        shat = mask_regions(similarity_tensor(w_emb, u, dtype=cdt),
+                            region_mask)
+        ahat = frame_mil_max(shat, frame_mask)
+        out.update(nbr_valid=nbr_valid, shat=shat, ahat=ahat, u=u)
+        if pool == "context":
+            frame_logits = _masked_word_mean(ahat, word_mask)
+    if pool == "learned":
+        frame_logits = learned_frame_logits(
+            v_emb, frame_mask, region_mask, params["attn_w"])
+    score, beta = video_scores(a, word_mask, frame_mask, temp, pool,
+                               frame_logits=frame_logits)
+    out.update(score=score, beta=beta)
+    return out

@@ -1,0 +1,443 @@
+"""Serving: batch grounding inference and its HTTP endpoint, on PyTorch.
+
+The port of `nafae_tpu/serve.py` (its AOT export and int8 paths come in
+later slices). The same forward that eval uses (ops/grounding.ground_forward,
+inside models/grounding.GroundingModel), packaged two ways:
+
+1. ``GroundingServer`` — an in-process batch-inference engine: pad ragged
+   segments to the config's [B,T,R,D] bucket, run one forward per batch,
+   return per-(word, frame) best boxes + scores + frame-attention weights
+   as JSON-able dicts.
+2. ``python -m nafae_torch.serve`` — a stdlib HTTP endpoint (POST /ground,
+   GET /healthz). Handler threads (ThreadingHTTPServer) parse and validate
+   requests and block on a future; ONE dispatcher thread owns the device
+   queue and coalesces segments across in-flight requests into full
+   batches, so N concurrent small requests cost ~ceil(total/B) forwards.
+   Requests are bounded (body bytes, segments per request, wall timeout).
+
+The JSON wire format, validation errors and HTTP codes are those of the
+JAX server, so clients of one serve the other.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures
+import json
+
+import numpy as np
+import torch
+
+from nafae_torch.config import Config
+from nafae_torch.data.vocab import vocab_from_config
+from nafae_torch.data.youcook2 import pad_sample
+from nafae_torch.device import resolve_device
+from nafae_torch.models.grounding import GroundingModel, params_from_jax
+from nafae_torch.ops.iou import select_boxes
+
+_TIMEOUT_ERRORS = (TimeoutError, concurrent.futures.TimeoutError)
+_LATER = ("comes in a later slice of the PyTorch port; serve this model "
+          "with nafae_tpu.serve meanwhile")
+
+
+# ---------------------------------------------------------------- inference
+
+
+def make_ground_fn(model: GroundingModel):
+    """The serving forward: batch tensors -> grounding dict.
+
+    Per (video, word, frame): the argmax region index (first index on
+    ties), its box, its similarity score, plus the frame-attention weights
+    beta [B,T] and the video score. The config's choices (pool form,
+    similarity form, ctx window, dtype) and the weights live in `model`."""
+
+    def fn(feats, boxes, word_ids, frame_mask, word_mask, region_mask):
+        out = model(feats, word_ids, frame_mask, word_mask,
+                    region_mask=region_mask)
+        s = out["s"].float()                              # [B,K,T,R]
+        best = torch.argmax(s, dim=-1)                    # [B,K,T]
+        return {
+            "region": best.to(torch.int32),
+            "score": torch.amax(s, dim=-1),
+            "box": select_boxes(best, boxes).float(),     # [B,K,T,4]
+            "beta": out["beta"].float(),                  # [B,T]
+            "video_score": out["score"].float(),          # [B]
+        }
+
+    return fn
+
+
+# ----------------------------------------------------------------- server
+
+
+class GroundingServer:
+    """Batch grounding inference over ragged request segments.
+
+    Pads each segment to the config's fixed [T,R,D] bucket, groups them
+    into batch_size batches (the final ragged batch is zero-padded to the
+    full batch and its padded rows dropped from the response, so every
+    forward sees one shape), and runs one forward per batch on `device`
+    ("cuda" by default; "cpu" on request)."""
+
+    def __init__(self, cfg: Config, params: dict,
+                 batch_size: int | None = None,
+                 device: str | torch.device | None = None):
+        if cfg.model.quantize in ("int8", "int8pre"):
+            raise NotImplementedError(
+                f"model.quantize={cfg.model.quantize!r} {_LATER}")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = GroundingModel.from_config(
+            cfg, params_from_jax(params, self.device)).eval()
+        self.batch_size = batch_size or cfg.data.batch_size
+        self.vocab = vocab_from_config(cfg.data)
+        self._fn = make_ground_fn(self.model)
+
+    # -- request handling
+
+    def _pad_segment(self, seg: dict) -> dict:
+        dc = self.cfg.data
+        if "feats_scale" in seg:
+            # pre-quantized request (extract --quantize int8 wire format):
+            # this f32 server dequantizes at ingest
+            feats = np.asarray(seg["feats"], np.int8)
+            sf = np.asarray(seg["feats_scale"], np.float32)
+            if sf.shape != feats.shape[:2]:
+                raise ValueError(
+                    f"feats_scale must be [T,R]={feats.shape[:2]}, "
+                    f"got {sf.shape}")
+            feats = feats.astype(np.float32) * sf[..., None]
+        else:
+            feats = np.asarray(seg["feats"], np.float32)
+        if feats.ndim != 3 or feats.shape[-1] != dc.feat_dim:
+            raise ValueError(
+                f"feats must be [T,R,{dc.feat_dim}], got {feats.shape}")
+        # over-length segments are rejected, not silently truncated
+        if feats.shape[0] > dc.max_frames:
+            raise ValueError(
+                f"segment has {feats.shape[0]} frames > max_frames="
+                f"{dc.max_frames}; split it or serve a larger bucket")
+        if feats.shape[1] > dc.num_regions:
+            raise ValueError(
+                f"segment has {feats.shape[1]} regions > num_regions="
+                f"{dc.num_regions}")
+        boxes = np.asarray(seg.get("boxes",
+                                   np.zeros(feats.shape[:2] + (4,))),
+                           np.float32)
+        if "word_ids" in seg:
+            word_ids = np.asarray(seg["word_ids"], np.int32)
+        elif "words" in seg:
+            ids = [self.vocab.lookup(w) for w in seg["words"]]
+            unknown = [w for w, i in zip(seg["words"], ids) if i is None]
+            if unknown:
+                raise ValueError(f"unknown object words: {unknown}")
+            word_ids = np.asarray(ids, np.int32)
+        elif "sentence" in seg:
+            word_ids = np.asarray(
+                self.vocab.extract(seg["sentence"]), np.int32)
+        else:
+            raise ValueError(
+                "segment needs one of: word_ids | words | sentence")
+        if word_ids.size == 0:
+            raise ValueError("segment has no known object words")
+        if word_ids.size > dc.max_words:
+            raise ValueError(
+                f"segment has {word_ids.size} object words > max_words="
+                f"{dc.max_words}")
+        rm = seg.get("region_mask")
+        if rm is not None:
+            rm = np.asarray(rm, np.float32)
+        return pad_sample(feats, boxes, word_ids, dc.max_frames,
+                          dc.num_regions, dc.max_words, region_mask=rm)
+
+    def ground_segments(self, segments: list[dict]) -> list[dict]:
+        """segments: [{feats [T,R,D], boxes [T,R,4]?, words|word_ids|
+        sentence, region_mask?}] -> per-segment grounding dicts."""
+        return self._ground_samples([self._pad_segment(s)
+                                     for s in segments])
+
+    def run_batch(self, batch: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+        """One full padded batch (numpy, [batch_size, ...]) through the
+        forward on the device -> numpy outputs."""
+        dev = self.device
+        t = {k: torch.from_numpy(v).to(dev, non_blocking=True)
+             for k, v in batch.items()}
+        with torch.inference_mode():
+            out = self._fn(t["feats"], t["boxes"], t["word_ids"],
+                           t["frame_mask"], t["word_mask"], t["region_mask"])
+        return {k: v.cpu().numpy() for k, v in out.items()}
+
+    def _ground_samples(self, samples: list[dict]) -> list[dict]:
+        """Run already-padded samples in batch_size chunks (the
+        dispatcher's entry point — one thread calls the device at a
+        time)."""
+        results: list[dict] = []
+        bs = self.batch_size
+        for lo in range(0, len(samples), bs):
+            chunk = samples[lo:lo + bs]
+            batch = {key: np.stack([s[key] for s in chunk])
+                     for key in chunk[0]}
+            n = len(chunk)
+            if n < bs:   # keep one batch shape: zero rows, dropped below
+                batch = {key: np.concatenate(
+                    [v, np.zeros((bs - n,) + v.shape[1:], v.dtype)])
+                    for key, v in batch.items()}
+            out = self.run_batch(batch)
+            for i in range(n):
+                results.append(self._to_response(
+                    {key: v[i] for key, v in out.items()},
+                    samples[lo + i]))
+        return results
+
+    def _to_response(self, out: dict, sample: dict) -> dict:
+        k_valid = sample["word_mask"] > 0
+        t_valid = sample["frame_mask"] > 0
+        words = []
+        for ki in np.nonzero(k_valid)[0]:
+            wid = int(sample["word_ids"][ki])
+            frames = [{
+                "frame": int(ti),
+                "region": int(out["region"][ki, ti]),
+                "box": [float(x) for x in out["box"][ki, ti]],
+                "score": float(out["score"][ki, ti]),
+            } for ti in np.nonzero(t_valid)[0]]
+            words.append({"word_id": wid,
+                          "word": self.vocab.classes[wid]
+                          if 0 <= wid < len(self.vocab.classes) else "?",
+                          "frames": frames})
+        return {"words": words,
+                "frame_weights": [float(b) for b, m in
+                                  zip(out["beta"], sample["frame_mask"])
+                                  if m > 0],
+                "video_score": float(out["video_score"])}
+
+    # -- HTTP front end: handler threads parse + validate, then hand padded
+    #    samples to ONE dispatcher thread that owns the device queue and
+    #    micro-batches across concurrent requests.
+
+    def serve_http(self, host: str = "127.0.0.1", port: int = 8000,
+                   ready_cb=None, max_request_bytes: int = 64 << 20,
+                   max_segments: int = 64, request_timeout: float = 120.0):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        server_ref = self
+        dispatcher = _BatchDispatcher(self)
+
+        class Handler(BaseHTTPRequestHandler):
+            timeout = 60                          # socket read timeout
+
+            def log_message(self, fmt, *args):   # quiet by default
+                pass
+
+            def _send(self, code: int, payload: dict):
+                body = json.dumps(payload).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def do_GET(self):
+                if self.path == "/healthz":
+                    self._send(200, {"ok": True,
+                                     "backend": server_ref.device.type,
+                                     "batch_size": server_ref.batch_size,
+                                     "queue_depth": dispatcher.depth()})
+                else:
+                    self._send(404, {"error": "not found"})
+
+            def do_POST(self):
+                if self.path != "/ground":
+                    self._send(404, {"error": "not found"})
+                    return
+                try:
+                    n = int(self.headers.get("Content-Length", 0))
+                except (TypeError, ValueError):
+                    self._send(400, {"error": "bad Content-Length"})
+                    return
+                if n <= 0:
+                    self._send(411, {"error": "Content-Length required"})
+                    return
+                if n > max_request_bytes:
+                    self._send(413, {
+                        "error": f"request body {n} bytes > limit "
+                                 f"{max_request_bytes}"})
+                    return
+                try:
+                    req = json.loads(self.rfile.read(n))
+                    segs = req["segments"]
+                    if not isinstance(segs, list) or not segs:
+                        raise ValueError("segments must be a non-empty list")
+                    if len(segs) > max_segments:
+                        raise ValueError(
+                            f"{len(segs)} segments > max_segments="
+                            f"{max_segments} per request")
+                    # validate/pad in the handler thread so a bad segment
+                    # 400s THIS request without failing coalesced peers
+                    samples = [server_ref._pad_segment(s) for s in segs]
+                except (KeyError, ValueError, TypeError) as e:
+                    self._send(400, {"error": str(e)})
+                    return
+                try:
+                    out = dispatcher.submit(samples, segs,
+                                            timeout=request_timeout)
+                except _TIMEOUT_ERRORS:
+                    self._send(503, {"error": "inference timed out"})
+                    return
+                except Exception as e:           # device-side failure
+                    self._send(500, {"error": str(e)})
+                    return
+                self._send(200, {"results": out})
+
+        class _Server(ThreadingHTTPServer):
+            daemon_threads = True
+
+        httpd = _Server((host, port), Handler)
+        if ready_cb is not None:
+            ready_cb(httpd)
+        try:
+            httpd.serve_forever()
+        finally:
+            httpd.server_close()
+            dispatcher.close()
+
+
+class _BatchDispatcher:
+    """Single device-owner thread + request queue with cross-request
+    micro-batching.
+
+    ``submit`` enqueues one request's padded samples and blocks on a
+    future; the dispatcher thread drains everything currently queued,
+    concatenates the samples, runs them through
+    ``GroundingServer._ground_samples`` (which chunks to the batch size),
+    and scatters per-request result slices back to each future.
+    """
+
+    def __init__(self, server: "GroundingServer"):
+        import queue
+        import threading
+
+        self._server = server
+        self._q: "queue.Queue" = queue.Queue()
+        self._closed = False
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="nafae-serve-dispatcher")
+        self._thread.start()
+
+    def depth(self) -> int:
+        return self._q.qsize()
+
+    def submit(self, samples: list[dict], segs: list[dict],
+               timeout: float | None = None) -> list[dict]:
+        from concurrent.futures import Future
+
+        if self._closed:
+            raise RuntimeError("dispatcher closed")
+        fut: Future = Future()
+        self._q.put((samples, segs, fut))
+        try:
+            return fut.result(timeout=timeout)
+        except _TIMEOUT_ERRORS:
+            fut.cancel()          # un-started work is dropped, not run
+            raise
+
+    def close(self):
+        self._closed = True
+        self._q.put(None)
+        self._thread.join(timeout=10)
+
+    def _run(self):
+        import queue
+
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            items = [item]
+            # coalesce whatever else is already queued (up to a few
+            # batches' worth — keep per-iteration latency bounded)
+            cap = 4 * self._server.batch_size
+            while sum(len(s) for s, _, _ in items) < cap:
+                try:
+                    nxt = self._q.get_nowait()
+                except queue.Empty:
+                    break
+                if nxt is None:
+                    self._q.put(None)     # re-post the close sentinel
+                    break
+                items.append(nxt)
+            items = [(s, g, f) for s, g, f in items
+                     if f.set_running_or_notify_cancel()]
+            if not items:
+                continue
+            flat = [s for ss, _, _ in items for s in ss]
+            try:
+                results = self._server._ground_samples(flat)
+            except Exception as e:
+                for _, _, fut in items:
+                    fut.set_exception(e)
+                continue
+            lo = 0
+            for ss, _, fut in items:
+                fut.set_result(results[lo:lo + len(ss)])
+                lo += len(ss)
+
+
+# -------------------------------------------------------------------- CLI
+
+
+def _load_params(cfg: Config, checkpoint: str | None, device):
+    from nafae_torch.utils.checkpoint import load_eval_params
+
+    params = load_eval_params(cfg, checkpoint, device=device)
+    if params is None:
+        raise FileNotFoundError(
+            f"no checkpoint in {checkpoint or cfg.train.ckpt_dir!r} — "
+            "refusing to serve randomly initialized parameters")
+    return params
+
+
+def main(argv=None):
+    import argparse
+
+    from nafae_torch.config import load_config
+
+    p = argparse.ArgumentParser("nafae_torch.serve")
+    p.add_argument("--preset", default="config1")
+    p.add_argument("--config", default=None)
+    p.add_argument("--override", nargs="*", action="extend", default=None)
+    p.add_argument("--checkpoint", default=None,
+                   help="converted params .npz (required)")
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    p.add_argument("--export", default=None, metavar="DIR",
+                   help="AOT export (not ported yet)")
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8000)
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--max-request-mb", type=int, default=64,
+                   help="reject request bodies larger than this (413)")
+    p.add_argument("--max-segments", type=int, default=64,
+                   help="reject requests with more segments (400)")
+    p.add_argument("--request-timeout", type=float, default=120.0,
+                   help="seconds before an in-flight request 503s")
+    args = p.parse_args(argv)
+    if args.export:
+        raise NotImplementedError(f"--export {_LATER}")
+    cfg = load_config(args.config, args.preset, args.override or [])
+    device = resolve_device(args.device)
+    params = _load_params(cfg, args.checkpoint, device)
+    srv = GroundingServer(cfg, params, batch_size=args.batch_size,
+                          device=device)
+
+    def ready(httpd):
+        print(json.dumps({"serving": f"http://{args.host}:{httpd.server_address[1]}",
+                          "backend": device.type}), flush=True)
+
+    srv.serve_http(args.host, args.port, ready_cb=ready,
+                   max_request_bytes=args.max_request_mb << 20,
+                   max_segments=args.max_segments,
+                   request_timeout=args.request_timeout)
+
+
+if __name__ == "__main__":
+    main()
