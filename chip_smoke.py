@@ -4,20 +4,29 @@
     python3 chip_smoke.py
 
 Needs one CUDA device, nvcc (the kernels are built from `nafae_torch/csrc`
-at first use) and nothing else: weights and requests are made from seeds.
-Phases, each of which fails loudly (exit code != 0):
+at first use) and nothing else: weights, requests and training data are
+made from seeds. Phases, each of which fails loudly (exit code != 0):
 
 1. card: prints the card's name and power limit and torch's CUDA version;
-2. build: compiles every kernel source and prints the build time;
-3. kernels against their plain PyTorch versions on the card, at the
-   serving path's shapes and at edge shapes, in f32 and bf16;
-4. serving (the main path): a config4 GroundingServer at full width, with
+2. build: compiles every kernel source (one nvcc each, all at once) and
+   prints the build time and each kernel's registers and spills;
+3. kernels against their plain PyTorch versions on the card, at the main
+   paths' shapes and at edge shapes, in f32 and bf16: K1f (u), K1fr (u and
+   alpha), K1b and K1br (dv_ext against autograd through the plain
+   version), and CtxMix end to end;
+4. serving (main path 1): a config4 GroundingServer at full width, with
    planted-signal oracle weights, answers synthetic requests in process
    and over HTTP, in f32 and bf16; the launch counts show that the path
-   went through every kernel, box accuracy must clear the planted-signal
-   bar, and one batch re-run on the CPU must agree;
-5. times from CUDA events (median of repeated runs after warm-up): each
-   kernel, its plain version, and one full serving batch.
+   went through K1f, box accuracy must clear the planted-signal bar, and
+   one batch re-run on the CPU must agree;
+5. training (main path 2): `nafae_torch.train.fit` on config4 at full
+   width over planted-signal features, 20 steps in f32 and 10 in bf16,
+   must lower the loss and launch K1fr and K1br once per step; with
+   ALPHA_RESIDUAL off, K1f and K1b once per step; the first steps'
+   metrics and one step's gradients must agree with a CPU re-run;
+6. times from CUDA events (median of repeated runs after warm-up): each
+   kernel, its plain version, one full serving batch and one training
+   step, with torch.profiler breakdowns.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -45,10 +54,33 @@ H100_BF16_FLOPS = 989e12        # bf16 on tensor cores, dense, same sheet
 SEED = 7
 NUM_SEGMENTS = 40               # 2.5 batches of 16: a ragged last batch
 ACC_BAR = 0.8                   # planted-signal box accuracy bar
+TRAIN_SEGMENTS = 64             # 4 batches of 16 a training epoch
+TRAIN_STEPS = {"float32": 20, "bfloat16": 10}
+CPU_STEPS = 3                   # steps re-run on the CPU
+# card against CPU, f32: metrics of the first steps (through two Adam
+# updates, whose m/sqrt(v) can turn a last-digit difference of a tiny
+# gradient into a full-size step) and one step's gradients (relative to
+# each parameter's largest entry)
+CPU_METRIC_TOL = (1e-3, 1e-6)
+CPU_GRAD_TOL = (1e-4, 1e-6)
+# the overrides of the training runs: warm up over 2 steps to lr 3e-3 and
+# refresh the k-means centers every 10 steps, so that a 20-step run moves
+TRAIN_OVERRIDES = ["train.lr=0.003", "train.warmup_steps=2",
+                   "loss.kmeans_interval=10", "train.log_every=1",
+                   "train.ckpt_every=1000000", "train.eval_every=1000000"]
+SOURCES = ("ctx_mix", "ctx_mix_bwd")    # nafae_torch/csrc/<name>.cu
 # kernel against plain, rtol and atol: the plain version rounds like the
 # kernel (bf16 operands, alpha rounded to bf16, f32 sums), so bf16 differs
 # only by the order of the sums and an occasional alpha rounded the other way
 CTX_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 1e-4)}
+# alpha of K1fr: f32 sums in another order; in bf16 a value may round to
+# the neighbouring bf16 number (one ulp is at most 2^-7 relative)
+ALPHA_TOL = {"float32": (1e-4, 1e-6), "bfloat16": (1e-2, 1e-6)}
+# dv_ext of K1b/K1br against autograd through the plain version: f32 sums
+# in another order; in bf16 the kernels round du_n, alpha and ds to bf16 as
+# the TPU kernels do, the plain autograd rounds at its casts instead, so
+# bf16 takes the reference tests' 2e-2
+GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2e-2)}
 
 
 def log(msg: str) -> None:
@@ -70,7 +102,7 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-# ------------------------------------------------------------- phase 3
+# ------------------------------------------------------------- kernels
 
 
 def ctx_inputs(torch, gen, b, t, r, e, w, device):
@@ -127,7 +159,100 @@ def check_ctx_mix(torch, device) -> dict[str, float]:
     return errs
 
 
-# ------------------------------------------------------------- phase 4
+def compare_grad_kernels(torch, vc, fm_ext, rm_ext, w, du, dt_name,
+                         case) -> dict[str, float]:
+    """K1fr (u, alpha), K1b and K1br (dv_ext) on vc (in the compute dtype)
+    against the plain version on the same card; fails beyond the limits,
+    returns the max |error| of each."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    dt = torch.bfloat16 if vc.dtype == torch.bfloat16 else None
+    u, alpha = K.launch_fwd(vc, fm_ext, w, 0.1, rm_ext, residual=True)
+    dv_rec = K.launch_bwd(vc, fm_ext, w, 0.1, rm_ext, du)
+    dv_res = K.launch_bwd(vc, fm_ext, w, 0.1, rm_ext, du, alpha)
+    torch.cuda.synchronize()
+    # the plain version in f32 from the same (rounded) values, with the
+    # compute dtype's rounding of the operands
+    vp = vc.float().requires_grad_()
+    up, _ = K.context_mix_plain(vp, fm_ext, w, 0.1, dtype=dt, rm_ext=rm_ext)
+    (dvp,) = torch.autograd.grad(up, vp, du)
+    ap = K.context_alpha_plain(vc, fm_ext, w, 0.1, rm_ext=rm_ext)
+    errs = {}
+    for name, got, want in (("ctx_mix_fwd_res", u, up.detach()),
+                            ("alpha", alpha, ap),
+                            ("ctx_mix_bwd", dv_rec, dvp),
+                            ("ctx_mix_bwd_res", dv_res, dvp)):
+        got, want = got.float(), want.float()
+        if not torch.isfinite(got).all():
+            fail(f"{name} gave non-finite values: {case}")
+        rtol, atol = (CTX_TOL if name == "ctx_mix_fwd_res" else
+                      ALPHA_TOL if name == "alpha" else GRAD_TOL)[dt_name]
+        errs[name] = (got - want).abs().max().item()
+        if not torch.allclose(got, want, rtol=rtol, atol=atol):
+            fail(f"{name} differs from the plain version by {errs[name]} "
+                 f"(rtol {rtol}, atol {atol}): {case}")
+    return errs
+
+
+def check_ctx_grad(torch, device) -> dict[str, float]:
+    """K1fr, K1b and K1br against the plain version on the card, at K1f's
+    shapes (config4's first; train_timings adds the real first training
+    batch): u and alpha of K1fr against the plain forward and softmax,
+    dv_ext of both backward routes against autograd through
+    context_mix_plain; then CtxMix end to end (u carries a grad_fn, one
+    launch of each kernel of its route). Returns the max errors by kernel
+    and dtype."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    cases = [(16, 20, 20, 256, 3, True),    # config4 shapes
+             (16, 20, 20, 256, 3, False),   # ... without a region mask
+             (16, 7, 20, 256, 3, True),     # ragged T
+             (16, 2, 20, 256, 3, True),     # w >= T
+             (3, 5, 32, 512, 2, True)]      # the kernels' widest R and E
+    errs = {}
+    for dt_name, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
+        worst = dict.fromkeys(("ctx_mix_fwd_res", "alpha", "ctx_mix_bwd",
+                               "ctx_mix_bwd_res"), 0.0)
+        for b, t, r, e, w, with_rm in cases:
+            v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, b, t, r, e, w,
+                                               device)
+            du = torch.randn(b, t, r, e, generator=gen).to(device)
+            got = compare_grad_kernels(
+                torch, v_ext.to(dt) if dt is not None else v_ext, fm_ext,
+                rm_ext if with_rm else None, w, du, dt_name,
+                f"{dt_name} B={b} T={t} R={r} E={e} w={w} rm={with_rm}")
+            worst = {k: max(worst[k], got[k]) for k in worst}
+        errs[dt_name] = worst
+        log(f"K1fr/K1b/K1br vs plain, {dt_name}: max |err| "
+            + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
+            + f" (u {CTX_TOL[dt_name]}, alpha {ALPHA_TOL[dt_name]}, dv "
+            f"{GRAD_TOL[dt_name]} as rtol, atol; {len(cases)} cases)")
+
+    # CtxMix end to end: the gradient route of each ALPHA_RESIDUAL setting
+    v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, 2, 6, 20, 256, 3, device)
+    for residual in (True, False):
+        K.ALPHA_RESIDUAL = residual
+        before = dict(K.launches)
+        v = v_ext.clone().requires_grad_()
+        u, _ = K.ctx_mix(v, fm_ext, 3, 0.1, rm_ext=rm_ext)
+        if u.grad_fn is None:
+            fail("ctx_mix on the card returned a u without a grad_fn")
+        u.sum().backward()
+        torch.cuda.synchronize()
+        want = ({"ctx_mix_fwd_res", "ctx_mix_bwd_res"} if residual
+                else {"ctx_mix_fwd", "ctx_mix_bwd"})
+        got = {k for k in K.launches if K.launches[k] != before[k]}
+        if got != want or any(K.launches[k] - before[k] != 1 for k in want):
+            fail(f"CtxMix (ALPHA_RESIDUAL={residual}) launched "
+                 f"{ {k: K.launches[k] - before[k] for k in K.launches} }")
+    K.ALPHA_RESIDUAL = True
+    log("CtxMix: u carries a grad_fn; backward launched K1fr+K1br "
+        "(residual) and K1f+K1b (recompute), once each")
+    return errs
+
+
+# ------------------------------------------------------------- serving
 
 
 def make_requests(root: str):
@@ -302,7 +427,144 @@ def check_cpu_rerun(torch, cfg, params, srv, segs) -> None:
         f"weight diff| {worst:.3e} (limit 1e-4)")
 
 
-# ------------------------------------------------------------- phase 5
+# ------------------------------------------------------------- training
+
+
+def make_train_data(root: str) -> None:
+    """Planted-signal config4-width training segments (K up to 8 words)."""
+    from nafae_torch.data.synthetic import generate_synthetic_dataset
+
+    generate_synthetic_dataset(root, "train", num_segments=TRAIN_SEGMENTS,
+                               feat_dim=2048, num_regions=20, max_frames=20,
+                               max_words=8, seed=SEED)
+
+
+def train_cfg(root: str, ckpt: str, dtype: str, steps: int):
+    from nafae_torch.config import load_config
+
+    return load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
+        f"data.root={root}", f"train.ckpt_dir={ckpt}", f"model.dtype={dtype}",
+        f"train.steps={steps}"])
+
+
+def zero_counts(K) -> None:
+    for k in K.launches:
+        K.launches[k] = 0
+
+
+def run_fit(torch, cfg, device="cuda") -> list[dict]:
+    """nafae_torch.train.fit as a user calls it; the per-step metrics."""
+    from nafae_torch.train import fit
+
+    logs = []
+    fit(cfg, device=device, log_fn=logs.append)
+    if len(logs) != cfg.train.steps:
+        fail(f"fit logged {len(logs)} of {cfg.train.steps} steps")
+    for m in logs:
+        if not all(np.isfinite(v) for v in m.values()):
+            fail(f"training step {m['step']} gave non-finite metrics: {m}")
+    return logs
+
+
+def train(torch, root: str, tmp: str) -> dict:
+    """The training main path: fit in f32 and bf16 (K1fr + K1br once a
+    step), then with ALPHA_RESIDUAL off (K1f + K1b once a step). Each run
+    is read with the launch counts zeroed just before it."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    out = {}
+    for dt, steps in TRAIN_STEPS.items():
+        cfg = train_cfg(root, os.path.join(tmp, f"ck_{dt}"), dt, steps)
+        zero_counts(K)                          # main path starts here
+        t0 = time.perf_counter()
+        logs = run_fit(torch, cfg)
+        wall = time.perf_counter() - t0
+        counts = dict(K.launches)               # ... and ends here
+        want = {"ctx_mix_fwd": 0, "ctx_mix_fwd_res": steps,
+                "ctx_mix_bwd": 0, "ctx_mix_bwd_res": steps}
+        if counts != want:
+            fail(f"{dt} training launched {counts}, expected {want}")
+        first = statistics.mean(m["loss"] for m in logs[:3])
+        last = statistics.mean(m["loss"] for m in logs[-3:])
+        log(f"trained config4 {steps} steps ({dt}) in {wall:.2f} s incl. "
+            f"set-up: loss {logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f} "
+            f"(mean of first 3 {first:.5f}, last 3 {last:.5f}); launches "
+            f"{counts}")
+        if not last < first:
+            fail(f"{dt} training did not lower the loss: {first} -> {last}")
+        out[dt] = {"logs": logs, "launches": counts}
+
+    K.ALPHA_RESIDUAL = False
+    try:
+        steps = CPU_STEPS
+        cfg = train_cfg(root, os.path.join(tmp, "ck_recompute"), "float32",
+                        steps)
+        zero_counts(K)                          # main path starts here
+        run_fit(torch, cfg)
+        counts = dict(K.launches)               # ... and ends here
+    finally:
+        K.ALPHA_RESIDUAL = True
+    want = {"ctx_mix_fwd": steps, "ctx_mix_fwd_res": 0,
+            "ctx_mix_bwd": steps, "ctx_mix_bwd_res": 0}
+    if counts != want:
+        fail(f"training with ALPHA_RESIDUAL off launched {counts}, "
+             f"expected {want}")
+    log(f"trained {steps} steps with ALPHA_RESIDUAL off: launches {counts}")
+    out["recompute"] = {"launches": counts}
+    return out
+
+
+def check_train_cpu_rerun(torch, root: str, tmp: str, logs: list[dict]):
+    """The first CPU_STEPS steps re-run on the CPU (same data, same seed)
+    against the card's f32 run; and one step's gradients, card against CPU,
+    from the same initial state and batch."""
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.train import TrainState, batch_to_device, compute_losses
+
+    cfg = train_cfg(root, os.path.join(tmp, "ck_cpu"), "float32", CPU_STEPS)
+    cpu_logs = run_fit(torch, cfg, device="cpu")
+    rtol, atol = CPU_METRIC_TOL
+    worst = 0.0
+    for g, c in zip(logs[:CPU_STEPS], cpu_logs):
+        for k in c:
+            if k in ("frames_per_sec", "ts"):
+                continue
+            if not np.isclose(g[k], c[k], rtol=rtol, atol=atol):
+                fail(f"step {c['step']} {k}: card {g[k]} vs CPU {c[k]}")
+            if k != "step":
+                worst = max(worst, abs(g[k] - c[k]) / max(abs(c[k]), 1e-30))
+    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
+    batch = next(iter(BatchLoader(ds, 16, shuffle=True, seed=0)))
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        state = TrainState.create(cfg, device=dev)
+        params = {k: v.detach().requires_grad_()
+                  for k, v in state.params.items()}
+        total, _ = compute_losses(params, state.centers,
+                                  batch_to_device(batch, torch.device(dev)),
+                                  cfg)
+        names = sorted(params)
+        gs = torch.autograd.grad(total, [params[k] for k in names])
+        grads[dev] = {k: g.cpu() for k, g in zip(names, gs)}
+    grtol, gatol = CPU_GRAD_TOL
+    gworst = 0.0
+    for k, gc in grads["cpu"].items():
+        scale = gc.abs().max().item()
+        err = (grads["cuda"][k] - gc).abs().max().item()
+        if not torch.allclose(grads["cuda"][k], gc, rtol=grtol,
+                              atol=gatol * max(scale, 1e-30)):
+            fail(f"gradient of {k}: card and CPU differ by {err} "
+                 f"(largest entry {scale})")
+        gworst = max(gworst, err / max(scale, 1e-30))
+    log(f"CPU re-run of the first {CPU_STEPS} f32 training steps: metrics "
+        f"agree, max relative diff {worst:.3e} (limit rtol {rtol}, atol "
+        f"{atol}); one step's gradients agree, max |diff| / largest entry "
+        f"{gworst:.3e} (limit rtol {grtol}, atol {gatol} x largest entry)")
+    return {"metric_rel_diff": worst, "grad_rel_diff": gworst}
+
+
+# ------------------------------------------------------------- times
 
 
 def device_ms(torch, fn, reps: int = 10, runs: int = 21) -> float:
@@ -334,8 +596,9 @@ def device_ms(torch, fn, reps: int = 10, runs: int = 21) -> float:
 
 
 def profile_forward(torch, fn, reps: int = 5):
-    """Device time per forward by kernel name, from torch.profiler (CUPTI):
-    ([(name, us per forward)] largest first, total device ms per forward)."""
+    """Device time per call by kernel name, from torch.profiler (CUPTI):
+    ([(name, us per call)] largest first, total device ms per call, device
+    operations per call)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -345,36 +608,63 @@ def profile_forward(torch, fn, reps: int = 5):
             fn()
         torch.cuda.synchronize()
     per = {}
+    count = 0
     for ev in prof.events():
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             per[ev.name] = (per.get(ev.name, 0.0)
                             + ev.time_range.elapsed_us() / reps)
+            count += 1
     if not per:
         fail("torch.profiler recorded no device time")
     top = sorted(per.items(), key=lambda kv: -kv[1])
-    return [(name[:80], us) for name, us in top[:8]], sum(per.values()) / 1e3
+    return ([(name[:80], us) for name, us in top[:8]],
+            sum(per.values()) / 1e3, count / reps)
 
 
-def ctx_bound_ms(torch, v_ext, fm_ext, rm_ext, w) -> tuple[float, str]:
-    """Least time for K1f on these inputs: inputs read once and u written
-    once, over the memory rate; 4·R·R·E flops for each (video, centre
-    frame, offset) with both frames valid (what the kernel computes), over
-    the peak rate for the operands' type: f32 CUDA cores for f32, bf16
-    tensor cores for bf16."""
+def ctx_bound_ms(torch, v_ext, fm_ext, rm_ext, w, flops_per_pair: int,
+                 more_bytes: int) -> tuple[float, str]:
+    """Least time for a context-mix kernel on these inputs: v_ext and the
+    masks read once plus `more_bytes` (the kernel's other inputs and its
+    outputs, each moved once), over the memory rate; flops_per_pair·R·R·E
+    flops for each (video, centre frame, offset) with both frames valid
+    (what the function needs: 4 for the forward, 8 for K1br, 10 for K1b),
+    over the peak rate for the operands' type: f32 CUDA cores for f32,
+    bf16 tensor cores for bf16."""
     b, t_ext, r, e = v_ext.shape
     t = t_ext - 2 * w
-    nbytes = (v_ext.numel() * v_ext.element_size()
-              + fm_ext.numel() * 4 + (rm_ext.numel() * 4 if rm_ext is not None
-                                      else 0) + b * t * r * e * 4)
+    nbytes = (v_ext.numel() * v_ext.element_size() + fm_ext.numel() * 4
+              + (rm_ext.numel() * 4 if rm_ext is not None else 0)
+              + more_bytes)
     fm_c = fm_ext[:, w:w + t]
     live = sum(int((fm_ext[:, w + o:w + o + t] * fm_c).count_nonzero())
                for o in range(-w, w + 1) if o != 0)
-    flops = 4 * r * r * e * live
+    flops = flops_per_pair * r * r * e * live
     peak = (H100_BF16_FLOPS if v_ext.dtype == torch.bfloat16
             else H100_F32_FLOPS)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def fwd_bound_ms(torch, v_ext, fm_ext, rm_ext, w, residual=False):
+    """K1f (u written) or K1fr (u and alpha written)."""
+    b, t_ext, r, e = v_ext.shape
+    t = t_ext - 2 * w
+    more = b * t * r * e * 4
+    if residual:
+        more += b * t * 2 * w * r * r * v_ext.element_size()
+    return ctx_bound_ms(torch, v_ext, fm_ext, rm_ext, w, 4, more)
+
+
+def bwd_bound_ms(torch, v_ext, fm_ext, rm_ext, w, residual):
+    """K1br (alpha and du read, dv written) or K1b (du read, dv written)."""
+    b, t_ext, r, e = v_ext.shape
+    t = t_ext - 2 * w
+    more = b * t * r * e * 4 + b * t_ext * r * e * 4
+    if residual:
+        more += b * t * 2 * w * r * r * v_ext.element_size()
+    return ctx_bound_ms(torch, v_ext, fm_ext, rm_ext, w,
+                        8 if residual else 10, more)
 
 
 def timings(torch, srv, segs) -> dict:
@@ -400,22 +690,23 @@ def timings(torch, srv, segs) -> dict:
         for tag, fm in (("", fm_ext), ("_dense", dense_fm)):
             for dt_tag, v in (("", v_ext), ("_bf16", v_ext.to(torch.bfloat16))):
                 res["ms" + tag + dt_tag] = device_ms(
-                    torch, lambda: K.launch_kernel(v, fm, w, temp, rm_ext))
+                    torch, lambda: K.launch_fwd(v, fm, w, temp, rm_ext))
                 res["plain_ms" + tag + dt_tag] = device_ms(
                     torch, lambda: K.context_mix_plain(v, fm, w, temp,
                                                        rm_ext=rm_ext))
                 res["bound_ms" + tag + dt_tag], res["bound_by" + tag + dt_tag] \
-                    = ctx_bound_ms(torch, v, fm, rm_ext, w)
+                    = fwd_bound_ms(torch, v, fm, rm_ext, w)
         res["batch_device_ms"] = device_ms(torch, lambda: srv._fn(
             tb["feats"], tb["boxes"], tb["word_ids"], tb["frame_mask"],
             tb["word_mask"], tb["region_mask"]))
-        res["kernels_by_device_time"], res["device_busy_ms"] = profile_forward(
+        (res["kernels_by_device_time"], res["device_busy_ms"],
+         _) = profile_forward(
             torch, lambda: srv._fn(tb["feats"], tb["boxes"], tb["word_ids"],
                                    tb["frame_mask"], tb["word_mask"],
                                    tb["region_mask"]))
-    K.launches = 0
+    zero_counts(K)
     srv.run_batch(batch)
-    res["launches_per_batch"] = K.launches
+    res["launches_per_batch"] = K.launches["ctx_mix_fwd"]
     # one full batch as a caller sees it: host arrays in, host arrays out
     runs = []
     for i in range(25):
@@ -432,6 +723,118 @@ def timings(torch, srv, segs) -> dict:
                      "R": int(v_ext.shape[2]), "E": int(v_ext.shape[3]),
                      "w": w}
     return res
+
+
+def train_timings(torch, root: str, tmp: str) -> dict:
+    """On the first training batch (config4, B=16, T=20, its own masks),
+    from the initial params: device times of K1fr, K1b and K1br and of
+    their plain versions (autograd through context_mix_plain: its forward,
+    which keeps its residuals, and its backward alone) in f32 and bf16;
+    then one training step in f32 and bf16: CUDA events around the step,
+    host to host (numpy batch in, metrics ready), and torch.profiler's
+    device busy time and kernels by device time."""
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.ops import grounding as TG
+    from nafae_torch.ops.kernels import ctx_mix as K
+    from nafae_torch.train import (TrainState, batch_to_device,
+                                   make_optimizer, train_step)
+
+    dev = torch.device("cuda")
+    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
+    batch = next(iter(BatchLoader(ds, 16, shuffle=True, seed=0)))
+    tb = batch_to_device(batch, dev)
+    cfg = train_cfg(root, os.path.join(tmp, "ck_time"), "float32", 1000)
+    state = TrainState.create(cfg, device=dev)
+    w, temp = cfg.loss.ctx_window, cfg.loss.ctx_temp
+    with torch.no_grad():
+        v_emb = TG.project_regions(tb["feats"], state.params["w_v"],
+                                   state.params["b_v"])
+        v32, fm_ext, rm_ext = TG.extend_for_window(
+            v_emb, tb["frame_mask"], tb["region_mask"], w)
+    b, t_ext, r, e = v32.shape
+    du = torch.randn(b, t_ext - 2 * w, r, e,
+                     generator=torch.Generator().manual_seed(SEED)).to(dev)
+    res = {"shapes": {"B": b, "T": t_ext - 2 * w, "R": r, "E": e, "w": w}}
+    for tag, v in (("", v32), ("_bf16", v32.to(torch.bfloat16))):
+        dt_name = "bfloat16" if tag else "float32"
+        res["errs" + tag] = compare_grad_kernels(
+            torch, v, fm_ext, rm_ext, w, du, dt_name,
+            f"{dt_name}, the first training batch")
+        _, alpha = K.launch_fwd(v, fm_ext, w, temp, rm_ext, residual=True)
+        res["fwd_res_ms" + tag] = device_ms(torch, lambda: K.launch_fwd(
+            v, fm_ext, w, temp, rm_ext, residual=True))
+        res["bwd_ms" + tag] = device_ms(torch, lambda: K.launch_bwd(
+            v, fm_ext, w, temp, rm_ext, du))
+        res["bwd_res_ms" + tag] = device_ms(torch, lambda: K.launch_bwd(
+            v, fm_ext, w, temp, rm_ext, du, alpha))
+        vp = v.detach().clone().requires_grad_()
+        res["plain_fwd_res_ms" + tag] = profile_forward(
+            torch, lambda: K.context_mix_plain(vp, fm_ext, w, temp,
+                                               rm_ext=rm_ext))[1]
+        up, _ = K.context_mix_plain(vp, fm_ext, w, temp, rm_ext=rm_ext)
+        res["plain_bwd_ms" + tag] = profile_forward(
+            torch, lambda: torch.autograd.grad(up, vp, du,
+                                               retain_graph=True))[1]
+        for key, bound in (
+                ("fwd_res", fwd_bound_ms(torch, v, fm_ext, rm_ext, w, True)),
+                ("bwd", bwd_bound_ms(torch, v, fm_ext, rm_ext, w, False)),
+                ("bwd_res", bwd_bound_ms(torch, v, fm_ext, rm_ext, w, True))):
+            res[key + "_bound_ms" + tag], res[key + "_bound_by" + tag] = bound
+
+    frames = b * (t_ext - 2 * w)
+    for dt in TRAIN_STEPS:
+        cfg = train_cfg(root, os.path.join(tmp, "ck_time"), dt, 1000)
+        tx = make_optimizer(cfg)
+        st = TrainState.create(cfg, device=dev)
+        for _ in range(3):
+            st, _ = train_step(st, batch_to_device(batch, dev), cfg, tx)
+        torch.cuda.synchronize()
+        host, events = [], []
+        for _ in range(12):
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            a.record()
+            st, m = train_step(st, batch_to_device(batch, dev), cfg, tx)
+            z.record()
+            float(m["loss"])                    # metrics ready on the host
+            host.append((time.perf_counter() - t0) * 1e3)
+            events.append(a.elapsed_time(z))
+        resident, h2d = [], []
+        for _ in range(12):
+            t0 = time.perf_counter()
+            st, m = train_step(st, tb, cfg, tx)
+            float(m["loss"])
+            resident.append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            batch_to_device(batch, dev)
+            torch.cuda.synchronize()
+            h2d.append((time.perf_counter() - t0) * 1e3)
+        top, busy, ops = profile_forward(
+            torch, lambda: train_step(st, tb, cfg, tx))
+        tag = "" if dt == "float32" else "_bf16"
+        res["step_host_ms_resident" + tag] = statistics.median(resident)
+        res["step_h2d_ms" + tag] = statistics.median(h2d)
+        res["step_device_ops" + tag] = ops
+        res["step_event_ms" + tag] = statistics.median(events)
+        res["step_host_ms" + tag] = statistics.median(host)
+        res["step_device_busy_ms" + tag] = busy
+        res["step_kernels" + tag] = top
+        res["frames_per_s_event" + tag] = frames / res["step_event_ms" + tag] * 1e3
+        res["frames_per_s_host" + tag] = frames / res["step_host_ms" + tag] * 1e3
+    return res
+
+
+def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
+                 by, **more) -> dict:
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "launches_per_step_or_batch": per, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain, "bound_ms": bound, "bound_by": by,
+            # no single PyTorch call computes the banded group-softmax mix
+            # or its gradient
+            "library_ms": None, **more}
 
 
 # -------------------------------------------------------------------- main
@@ -451,32 +854,40 @@ def main() -> None:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    _build.load("ctx_mix")
-    log(f"built ctx_mix in {time.perf_counter() - t0:.1f} s")
-    usage = [ln.strip() for ln in _build.build_log("ctx_mix").splitlines()
-             if "registers" in ln or "spill" in ln]
-    log("ctx_mix ptxas: " + " | ".join(usage))
+    _build.build_all(SOURCES)
+    log(f"built {', '.join(SOURCES)} in {time.perf_counter() - t0:.1f} s "
+        "(one nvcc each, in parallel)")
+    for name in SOURCES:
+        usage = [ln.strip() for ln in _build.build_log(name).splitlines()
+                 if "registers" in ln or "spill" in ln]
+        log(f"{name} ptxas: " + " | ".join(usage))
 
     errs = check_ctx_mix(torch, torch.device("cuda"))
+    gerrs = check_ctx_grad(torch, torch.device("cuda"))
 
     def cfg_of(dt):
         return load_config(preset_name="config4",
                            overrides=[f"model.dtype={dt}"])
 
     params = oracle_params()
-    with tempfile.TemporaryDirectory() as root:
-        segs, gts = make_requests(root)
-    K.launches = 0                                  # main path starts here
-    served = serve(torch, cfg_of, params, segs, gts)
-    launches = K.launches                           # ... and ends here
-    log(f"main path: ctx_mix launched {launches} times")
-    if launches == 0:
-        fail("the serving path never launched the ctx_mix kernel")
+    with tempfile.TemporaryDirectory() as tmp:
+        segs, gts = make_requests(tmp)
+        zero_counts(K)                              # serving starts here
+        served = serve(torch, cfg_of, params, segs, gts)
+        serve_counts = dict(K.launches)             # ... and ends here
+        log(f"serving: launches {serve_counts}")
+        if serve_counts["ctx_mix_fwd"] == 0:
+            fail("the serving path never launched the ctx_mix kernel")
+        srv32 = served["float32"][0]
+        check_cpu_rerun(torch, cfg_of("float32"), params, srv32, segs)
 
-    srv32 = served["float32"][0]
-    check_cpu_rerun(torch, cfg_of("float32"), params, srv32, segs)
+        make_train_data(tmp)
+        trained = train(torch, tmp, tmp)
+        cpu = check_train_cpu_rerun(torch, tmp, tmp,
+                                    trained["float32"]["logs"])
 
-    tm = timings(torch, srv32, segs)
+        tm = timings(torch, srv32, segs)
+        tt = train_timings(torch, tmp, tmp)
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
         f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}); bf16 kernel "
@@ -494,47 +905,106 @@ def main() -> None:
         f"{tm['batch_device_ms']:.4f} ms = {tm['frames_per_s_device']:.0f} "
         f"frames/s; host to host {tm['batch_host_ms']:.4f} ms = "
         f"{tm['frames_per_s_host']:.0f} frames/s — {card}")
+    for tag, dt in (("", "f32"), ("_bf16", "bf16")):
+        log(f"K1fr/K1b/K1br vs plain on the first training batch, {dt}: "
+            "max |err| " + ", ".join(f"{k} {v:.3e}"
+                                     for k, v in tt["errs" + tag].items()))
+        log(f"training batch {tt['shapes']}, {dt}: K1fr "
+            f"{tt['fwd_res_ms' + tag]:.4f} ms (bound "
+            f"{tt['fwd_res_bound_ms' + tag]:.4f}, "
+            f"{tt['fwd_res_bound_by' + tag]}; plain forward under autograd "
+            f"{tt['plain_fwd_res_ms' + tag]:.4f}); K1br "
+            f"{tt['bwd_res_ms' + tag]:.4f} ms (bound "
+            f"{tt['bwd_res_bound_ms' + tag]:.4f}, "
+            f"{tt['bwd_res_bound_by' + tag]}); K1b {tt['bwd_ms' + tag]:.4f} "
+            f"ms (bound {tt['bwd_bound_ms' + tag]:.4f}, "
+            f"{tt['bwd_bound_by' + tag]}); plain backward "
+            f"{tt['plain_bwd_ms' + tag]:.4f} ms — {card}")
+        log(f"training step ({dt}, config4 B=16 T=20): CUDA events "
+            f"{tt['step_event_ms' + tag]:.4f} ms = "
+            f"{tt['frames_per_s_event' + tag]:.0f} frames/s; host to host "
+            f"{tt['step_host_ms' + tag]:.4f} ms = "
+            f"{tt['frames_per_s_host' + tag]:.0f} frames/s; device busy "
+            f"{tt['step_device_busy_ms' + tag]:.4f} ms (torch.profiler) "
+            f"in {tt['step_device_ops' + tag]:.0f} device operations; of "
+            f"the host time: the batch's copy to the card alone "
+            f"{tt['step_h2d_ms' + tag]:.4f} ms, the step on a resident "
+            f"batch {tt['step_host_ms_resident' + tag]:.4f} ms — {card}")
+        log(f"device time per training step ({dt}) by kernel: "
+            + "; ".join(f"{us:.1f} us {name}"
+                        for name, us in tt["step_kernels" + tag]))
 
-    print(json.dumps({"kernels": [{
-        "name": "ctx_mix_fwd",
-        "route": "cuda",
-        "source": "nafae_torch/csrc/ctx_mix.cu",
-        "replaces": "nafae_tpu/ops/pallas/fused_ctx.py:157",  # _fwd_kernel
-        "launches": launches,
-        "launches_per_batch": tm["launches_per_batch"],
-        # f32, the default dtype; every *_bf16 key is the same number for
-        # bf16 input, every *_dense key with every frame of the batch valid
-        "max_abs_err": errs["float32"],
-        "max_abs_err_bf16": errs["bfloat16"],
-        "ms": tm["ms"],
-        "plain_ms": tm["plain_ms"],
-        "bound_ms": tm["bound_ms"],
-        "bound_by": tm["bound_by"],
-        # no single PyTorch call computes the banded group-softmax mix
-        "library_ms": None,
-        "ms_bf16": tm["ms_bf16"],
-        "plain_ms_bf16": tm["plain_ms_bf16"],
-        "bound_ms_bf16": tm["bound_ms_bf16"],
-        "bound_by_bf16": tm["bound_by_bf16"],
-        "ms_dense": tm["ms_dense"],
-        "plain_ms_dense": tm["plain_ms_dense"],
-        "bound_ms_dense": tm["bound_ms_dense"],
-        "bound_by_dense": tm["bound_by_dense"],
-        "ms_dense_bf16": tm["ms_dense_bf16"],
-        "plain_ms_dense_bf16": tm["plain_ms_dense_bf16"],
-        "bound_ms_dense_bf16": tm["bound_ms_dense_bf16"],
-        "bound_by_dense_bf16": tm["bound_by_dense_bf16"],
-        "shapes": tm["shapes"],
-    }], "serving": {
-        "batch_device_ms": tm["batch_device_ms"],
-        "batch_host_ms": tm["batch_host_ms"],
-        "frames_per_batch": tm["batch_frames"],
-        "frames_per_s_device": tm["frames_per_s_device"],
-        "frames_per_s_host": tm["frames_per_s_host"],
-        "device_busy_ms": tm["device_busy_ms"],
-        "device_idle_share_host": 1.0 - tm["device_busy_ms"]
-        / tm["batch_host_ms"],
-    }}), flush=True)
+    f32, steps = trained["float32"]["launches"], TRAIN_STEPS["float32"]
+    rec = trained["recompute"]["launches"]
+    print(json.dumps({"kernels": [
+        kernel_entry(
+            "ctx_mix_fwd", "nafae_torch/csrc/ctx_mix.cu",
+            "nafae_tpu/ops/pallas/fused_ctx.py:157",        # _fwd_kernel
+            serve_counts["ctx_mix_fwd"], tm["launches_per_batch"],
+            errs["float32"], tm["ms"], tm["plain_ms"], tm["bound_ms"],
+            tm["bound_by"],
+            # f32, the default dtype; every *_bf16 key is the same number
+            # for bf16 input, every *_dense key with every frame valid
+            max_abs_err_bf16=errs["bfloat16"], ms_bf16=tm["ms_bf16"],
+            plain_ms_bf16=tm["plain_ms_bf16"],
+            bound_ms_bf16=tm["bound_ms_bf16"],
+            bound_by_bf16=tm["bound_by_bf16"], ms_dense=tm["ms_dense"],
+            plain_ms_dense=tm["plain_ms_dense"],
+            bound_ms_dense=tm["bound_ms_dense"],
+            bound_by_dense=tm["bound_by_dense"],
+            ms_dense_bf16=tm["ms_dense_bf16"],
+            plain_ms_dense_bf16=tm["plain_ms_dense_bf16"],
+            bound_ms_dense_bf16=tm["bound_ms_dense_bf16"],
+            bound_by_dense_bf16=tm["bound_by_dense_bf16"],
+            shapes=tm["shapes"], path="serving"),
+        *(kernel_entry(
+            name, src, rep, launches, launches / n,
+            max(gerrs["float32"][name], tt["errs"][name]),
+            tt[key + "_ms"], tt["plain_" + pkey + "_ms"],
+            tt[key + "_bound_ms"], tt[key + "_bound_by"],
+            max_abs_err_bf16=max(gerrs["bfloat16"][name],
+                                 tt["errs_bf16"][name]),
+            ms_bf16=tt[key + "_ms_bf16"],
+            plain_ms_bf16=tt["plain_" + pkey + "_ms_bf16"],
+            bound_ms_bf16=tt[key + "_bound_ms_bf16"],
+            bound_by_bf16=tt[key + "_bound_by_bf16"],
+            shapes=tt["shapes"], path=path)
+          for name, src, rep, launches, n, key, pkey, path in (
+              ("ctx_mix_fwd_res", "nafae_torch/csrc/ctx_mix.cu",
+               "nafae_tpu/ops/pallas/fused_ctx.py:177",   # _fwd_kernel_res
+               f32["ctx_mix_fwd_res"], steps, "fwd_res", "fwd_res",
+               "training f32"),
+              ("ctx_mix_bwd", "nafae_torch/csrc/ctx_mix_bwd.cu",
+               "nafae_tpu/ops/pallas/fused_ctx.py:203",   # _bwd_kernel
+               rec["ctx_mix_bwd"], CPU_STEPS, "bwd", "bwd",
+               "training f32, ALPHA_RESIDUAL off"),
+              ("ctx_mix_bwd_res", "nafae_torch/csrc/ctx_mix_bwd.cu",
+               "nafae_tpu/ops/pallas/fused_ctx.py:256",   # _bwd_kernel_res
+               f32["ctx_mix_bwd_res"], steps, "bwd_res", "bwd",
+               "training f32")))],
+        "serving": {
+            "batch_device_ms": tm["batch_device_ms"],
+            "batch_host_ms": tm["batch_host_ms"],
+            "frames_per_batch": tm["batch_frames"],
+            "frames_per_s_device": tm["frames_per_s_device"],
+            "frames_per_s_host": tm["frames_per_s_host"],
+            "device_busy_ms": tm["device_busy_ms"],
+            "device_idle_share_host": 1.0 - tm["device_busy_ms"]
+            / tm["batch_host_ms"]},
+        "training": {
+            **{k: v for k, v in tt.items()
+               if k.startswith(("step_", "frames_per_s")) and
+               "kernels" not in k},
+            "device_idle_share_host": 1.0 - tt["step_device_busy_ms"]
+            / tt["step_host_ms"],
+            "device_idle_share_host_bf16": 1.0 - tt["step_device_busy_ms_bf16"]
+            / tt["step_host_ms_bf16"],
+            "loss_first_last_f32": [trained["float32"]["logs"][0]["loss"],
+                                    trained["float32"]["logs"][-1]["loss"]],
+            "loss_first_last_bf16": [trained["bfloat16"]["logs"][0]["loss"],
+                                     trained["bfloat16"]["logs"][-1]["loss"]],
+            "cpu_rerun": cpu},
+    }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -1,9 +1,10 @@
 // Context mixing, forward: the frame-banded affinity softmax and mix of the
 // context-pooled grounding model, for NVIDIA Hopper (sm_90a).
 //
-// Replaces the TPU kernel nafae_tpu/ops/pallas/fused_ctx.py::_fwd_kernel
-// (the forward of ctx_mix_pallas). Same function as the port's plain
-// version, nafae_torch/ops/kernels/ctx_mix.py::context_mix_plain:
+// Replaces the TPU kernels nafae_tpu/ops/pallas/fused_ctx.py::_fwd_kernel
+// (the forward of ctx_mix_pallas, K1f) and ::_fwd_kernel_res (K1fr, the same
+// forward storing alpha as the backward's residual). Same function as the
+// port's plain version, nafae_torch/ops/kernels/ctx_mix.py::context_mix_plain:
 //
 //   for every video b, centre frame t, offset o in {-w..-1, 1..w}:
 //     nv_o      = fm[t+o] * fm[t]                        (halo frames: fm=0)
@@ -15,6 +16,12 @@
 // With bf16 input the products use the bf16 values and sum in f32, and alpha
 // is rounded to bf16 before the mix, as the reference's bf16 mode does
 // (preferred_element_type=f32 with bf16 operands). u is always f32.
+//
+// K1fr: with a non-null `alpha` the kernel also stores alpha (softmax * nv_o,
+// in the input dtype, exactly the values the mix used) as [B, T, 2w, R, R],
+// zeros for offsets whose nv_o is 0 and for invalid centre frames. This is
+// the port's own compact layout, not the TPU's tile-padded slab: 3.1 MB at
+// config4 in f32, one extra write of ~1 us at 3.35 TB/s.
 //
 // Design: one block per (video, centre frame), looping over the 2w offsets.
 // The centre frame [R, E] and, in turn, each valid neighbour frame are
@@ -39,50 +46,11 @@
 // 2 blocks per SM (128 registers a thread), so latency, not the FMA units,
 // sets its time. PERF.md has its measured times.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "ctx_mix_common.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e9f;    // the reference's masked-logit fill (NEG)
-constexpr int kMaxThreads = 512;
-
-// alpha in the operand type of the mix product (identity for f32)
-__device__ __forceinline__ float as_operand(float x, const float*) {
-  return x;
-}
-__device__ __forceinline__ float as_operand(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// Four consecutive elements as f32 (16-byte f32 or 8-byte bf16 loads).
-__device__ __forceinline__ float4 load4(const float* p, int i) {
-  return reinterpret_cast<const float4*>(p)[i];
-}
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int i) {
-  const uint2 raw = reinterpret_cast<const uint2*>(p)[i];
-  const float2 a = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 c = __bfloat1622float2(
-      *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  return make_float4(a.x, a.y, c.x, c.y);
-}
-
-// One frame [R, E] from global memory into shared rows of stride ld, as f32.
-// Unrolled so that several loads are in flight before the first store.
-template <typename Tin>
-__device__ __forceinline__ void stage_frame(float* __restrict__ dst,
-                                            const Tin* __restrict__ src,
-                                            int R, int E, int ld) {
-  const int n4 = (R * E) >> 2;
-#pragma unroll 4
-  for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-    const int flat = i << 2;
-    const int r = flat / E;
-    *reinterpret_cast<float4*>(dst + r * ld + (flat - r * E)) = load4(src, i);
-  }
-}
+using namespace nafae_ctx;
 
 // RB: R rounded up to a multiple of 8 (4 row groups of RB/4 rows each).
 template <typename Tin, int RB>
@@ -91,12 +59,13 @@ ctx_mix_fwd_kernel(const Tin* __restrict__ v_ext,   // [B, T+2w, R, E]
                    const float* __restrict__ fm_ext,  // [B, T+2w]
                    const float* __restrict__ rm_ext,  // [B, T+2w, R] or null
                    float* __restrict__ u,             // [B, T, R, E]
+                   Tin* __restrict__ alpha,           // [B, T, 2w, R, R] or null
                    int T, int R, int E, int w, float temp) {
   extern __shared__ __align__(16) float smem[];
   const int ld = E + 4;
   float* vc = smem;             // [R][ld]  centre frame
   float* vo = vc + R * ld;      // [R][ld]  neighbour frame
-  float* sc = vo + R * ld;      // [R][RB]  scores, then exps (row r, col s)
+  float* sc = vo + R * ld;      // [R][RB]  scores (row r, col s)
   float* at = sc + R * RB;      // [R][RB]  alpha * nv transposed (row s, col r)
   float* live = at + R * RB;    // [R]      region mask of the neighbour frame
 
@@ -104,16 +73,23 @@ ctx_mix_fwd_kernel(const Tin* __restrict__ v_ext,   // [B, T+2w, R, E]
   const int b = blockIdx.y;
   const int t_ext = T + 2 * w;
   const size_t frame = (size_t)R * E;
+  const size_t rr = (size_t)R * R;
   const float* fm = fm_ext + (size_t)b * t_ext;
   const Tin* vb = v_ext + (size_t)b * t_ext * frame;
   float* ub = u + ((size_t)b * T + t) * frame;
+  Tin* ab = alpha ? alpha + ((size_t)b * T + t) * 2 * w * rr : nullptr;
 
   const float fm_c = fm[t + w];
   if (fm_c == 0.f) {              // every nv_o is 0: the row is zero
     for (int i = threadIdx.x; i < (int)frame; i += blockDim.x) ub[i] = 0.f;
+    if (ab)
+      for (int i = threadIdx.x; i < 2 * w * (int)rr; i += blockDim.x)
+        store_as(ab + i, 0.f);
     return;
   }
   stage_frame(vc, vb + (size_t)(t + w) * frame, R, E, ld);
+  // columns R..RB-1 of the transposed alpha stay zero: the mix reads them
+  for (int i = threadIdx.x; i < R * RB; i += blockDim.x) at[i] = 0.f;
 
   // the mix's thread layout: E/4 column groups x 4 row groups
   constexpr int RPT = RB / 4;           // rows per thread
@@ -131,7 +107,12 @@ ctx_mix_fwd_kernel(const Tin* __restrict__ v_ext,   // [B, T+2w, R, E]
     const int tf = t + (oi < w ? oi : oi + 1);   // extended neighbour frame
     const float nv = fm[tf] * fm_c;
     cnt += nv;
-    if (nv == 0.f) continue;      // block-uniform
+    if (nv == 0.f) {              // block-uniform
+      if (ab)
+        for (int i = threadIdx.x; i < (int)rr; i += blockDim.x)
+          store_as(ab + oi * rr + i, 0.f);
+      continue;
+    }
     __syncthreads();              // the previous offset's readers are done
     stage_frame(vo, vb + (size_t)tf * frame, R, E, ld);
     if (threadIdx.x < R)
@@ -139,115 +120,21 @@ ctx_mix_fwd_kernel(const Tin* __restrict__ v_ext,   // [B, T+2w, R, E]
           rm_ext ? rm_ext[((size_t)b * t_ext + tf) * R + threadIdx.x] : 1.f;
     __syncthreads();
 
-    // Scores: each group of 8 lanes computes a 4 x 4 tile of (r, s); its
-    // lanes split E (lane j takes float4 columns j, j+8, ...: the 8 lanes
-    // read 128 contiguous bytes, conflict-free) and sum by shuffles. Eight
-    // 16-byte shared loads feed 64 FMAs.
-    {
-      const int j = threadIdx.x & 7;
-      const int tiles_1d = (R + 3) >> 2;
-      const int n_tiles = tiles_1d * tiles_1d;
-      const int e4 = E >> 2;
-      for (int base = 0; base < n_tiles; base += blockDim.x >> 3) {
-        const int tile = base + (threadIdx.x >> 3);
-        const int r0 = (tile / tiles_1d) * 4;
-        const int s0 = (tile % tiles_1d) * 4;
-        float d[4][4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) d[i][k] = 0.f;
-        if (tile < n_tiles) {     // uniform across the 8 lanes of a group
-          const float4* x[4];
-          const float4* y[4];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            x[i] = reinterpret_cast<const float4*>(vc + min(r0 + i, R - 1) * ld);
-            y[i] = reinterpret_cast<const float4*>(vo + min(s0 + i, R - 1) * ld);
-          }
-          for (int q = j; q < e4; q += 8) {
-            float4 a[4], c[4];
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              a[i] = x[i][q];
-              c[i] = y[i][q];
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i)
-#pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                d[i][k] = fmaf(a[i].x, c[k].x, d[i][k]);
-                d[i][k] = fmaf(a[i].y, c[k].y, d[i][k]);
-                d[i][k] = fmaf(a[i].z, c[k].z, d[i][k]);
-                d[i][k] = fmaf(a[i].w, c[k].w, d[i][k]);
-              }
-          }
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k)
-#pragma unroll
-            for (int m = 4; m > 0; m >>= 1)
-              d[i][k] += __shfl_xor_sync(0xffffffffu, d[i][k], m);
-        if (j == 0 && tile < n_tiles) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-#pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int r = r0 + i, sidx = s0 + k;
-              if (r < R && sidx < R) {
-                float lg = d[i][k] / temp;
-                if (!(live[sidx] > 0.f)) lg = kNeg;
-                sc[r * RB + sidx] = lg;
-              }
-            }
-        }
-      }
-    }
+    tile_products(vc, vo, R, E, ld, [&](int r, int s, float d) {
+      sc[r * RB + s] = live[s] > 0.f ? d / temp : kNeg;
+    });
     __syncthreads();
 
-    // Softmax over s for every row r: 8 lanes per row (lane j takes s = j,
-    // j+8, j+16, j+24), so up to blockDim/8 rows run at once; the row max
-    // and sum reduce by shuffles within the 8 lanes. Rows R..RB-1 of the
-    // transposed alpha are zero.
-    {
-      const int j = threadIdx.x & 7;
-      for (int base = 0; base < RB; base += blockDim.x >> 3) {
-        const int r = base + (threadIdx.x >> 3);
-        float x[4];
-        float m = -CUDART_INF_F;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int sidx = j + 8 * k;
-          x[k] = (r < R && sidx < R) ? sc[r * RB + sidx] : -CUDART_INF_F;
-          m = fmaxf(m, x[k]);
-        }
-#pragma unroll
-        for (int k = 4; k > 0; k >>= 1)
-          m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, k));
-        float ex[4];
-        float sum = 0.f;
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          ex[k] = (r < R && j + 8 * k < R) ? expf(x[k] - m) : 0.f;
-          sum += ex[k];
-        }
-#pragma unroll
-        for (int k = 4; k > 0; k >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, k);
-        if (r < RB) {
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            const int sidx = j + 8 * k;
-            if (sidx < R)
-              at[sidx * RB + r] =
-                  r < R ? as_operand(ex[k] / sum * nv, v_ext) : 0.f;
-          }
-        }
-      }
-    }
+    row_softmax(sc, RB, R, [&](int r, int s, float p) {
+      at[s * RB + r] = as_operand(p * nv, v_ext);
+    });
     __syncthreads();
+
+    if (ab)                       // K1fr: the residual, row-major (r, s)
+      for (int i = threadIdx.x; i < (int)rr; i += blockDim.x) {
+        const int r = i / R;
+        store_as(ab + oi * rr + i, at[(i - r * R) * RB + r]);
+      }
 
     // Mix: thread (cg, rg) owns columns 4cg..4cg+3 and rows rg*RB/4 ..
     // (rg+1)*RB/4 - 1. A warp shares rg, so its alpha reads are broadcasts
@@ -282,27 +169,28 @@ ctx_mix_fwd_kernel(const Tin* __restrict__ v_ext,   // [B, T+2w, R, E]
 
 template <typename Tin, int RB>
 int launch(const void* v_ext, const float* fm_ext, const float* rm_ext,
-           float* u, int B, int T, int R, int E, int w, float temp,
-           size_t smem, cudaStream_t stream) {
+           float* u, void* alpha, int B, int T, int R, int E, int w,
+           float temp, size_t smem, cudaStream_t stream) {
   auto kern = ctx_mix_fwd_kernel<Tin, RB>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int threads = ((E + 31) / 32) * 32;
   kern<<<dim3(T, B), threads, smem, stream>>>(
-      static_cast<const Tin*>(v_ext), fm_ext, rm_ext, u, T, R, E, w, temp);
+      static_cast<const Tin*>(v_ext), fm_ext, rm_ext, u,
+      static_cast<Tin*>(alpha), T, R, E, w, temp);
   return (int)cudaGetLastError();
 }
 
 template <typename Tin>
 int dispatch(const void* v_ext, const float* fm_ext, const float* rm_ext,
-             float* u, int B, int T, int R, int E, int w, float temp,
-             size_t smem, cudaStream_t stream) {
+             float* u, void* alpha, int B, int T, int R, int E, int w,
+             float temp, size_t smem, cudaStream_t stream) {
   switch ((R + 7) / 8) {
-    case 1: return launch<Tin, 8>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, stream);
-    case 2: return launch<Tin, 16>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, stream);
-    case 3: return launch<Tin, 24>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, stream);
-    default: return launch<Tin, 32>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, stream);
+    case 1: return launch<Tin, 8>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, stream);
+    case 2: return launch<Tin, 16>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, stream);
+    case 3: return launch<Tin, 24>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, stream);
+    default: return launch<Tin, 32>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, stream);
   }
 }
 
@@ -319,11 +207,13 @@ extern "C" {
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
 // v_ext is float* when v_is_bf16 == 0, __nv_bfloat16* otherwise; rm_ext may
-// be null. All tensors are contiguous; v_ext is 16-byte aligned. Limits: 1 <= R <= 32, E a multiple
-// of 4 with 4 <= E <= 512, w >= 1, B <= 65535.
+// be null; alpha, of v_ext's type, is null for K1f and the [B, T, 2w, R, R]
+// residual for K1fr. All tensors are contiguous; v_ext is 16-byte aligned.
+// Limits: 1 <= R <= 32, E a multiple of 4 with 4 <= E <= 512, w >= 1,
+// B <= 65535.
 int nafae_ctx_mix_fwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
-                      const float* rm_ext, float* u, int B, int T, int R,
-                      int E, int w, float temp, void* stream) {
+                      const float* rm_ext, float* u, void* alpha, int B,
+                      int T, int R, int E, int w, float temp, void* stream) {
   if (R < 1 || R > 32 || E < 4 || E % 4 != 0 || E > kMaxThreads || w < 1 ||
       B < 0 || B > 65535 || T < 0)
     return (int)cudaErrorInvalidValue;
@@ -331,8 +221,8 @@ int nafae_ctx_mix_fwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
   const size_t smem = smem_bytes(R, E);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return v_is_bf16
-      ? dispatch<__nv_bfloat16>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, s)
-      : dispatch<float>(v_ext, fm_ext, rm_ext, u, B, T, R, E, w, temp, smem, s);
+      ? dispatch<__nv_bfloat16>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, s)
+      : dispatch<float>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, s);
 }
 
 }  // extern "C"

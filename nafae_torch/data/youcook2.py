@@ -1,13 +1,85 @@
-"""Segment padding: one ragged segment -> fixed [T,R,D]/[K] buckets + masks.
+"""YouCook2 segment dataset: per-segment feature files -> padded samples.
 
-The port's copy of `pad_sample` from `nafae_tpu/data/youcook2.py`; the
-serving path pads every request segment with it, exactly as the JAX
-server does. All arrays are numpy; device transfer happens in the caller.
+The port's copy of `nafae_tpu/data/youcook2.py`: `SegmentDataset` reads the
+same index and `.npz` files and pads them with `pad_sample` (which the
+serving path also uses on every request segment). All arrays are numpy;
+device transfer happens in the caller.
+
+On-disk layout (written by the JAX package's extractor or by
+`data/synthetic.py`):
+  root/split/index.jsonl   — one JSON per segment: id, file, num_frames, num_words
+  root/split/<id>.npz      — feats [T,R,D] (f16/f32, or int8 + feats_scale
+                             [T,R]), boxes [T,R,4], word_ids [K],
+                             gt_boxes [K,T,4], gt_mask [K,T] (eval),
+                             region_mask [T,R] (optional)
+int8 feature files are dequantized on load; passing them through as int8
+(`keep_int8`, the int8pre serving path) is not ported yet.
 """
 
 from __future__ import annotations
 
+import json
+import os
+
 import numpy as np
+
+
+class SegmentDataset:
+    def __init__(self, root: str, split: str, max_frames: int, num_regions: int,
+                 feat_dim: int, max_words: int, with_gt: bool = False,
+                 frame_buckets: tuple = (), transfer_dtype: str = "float32",
+                 keep_int8: bool = False):
+        if keep_int8:
+            raise NotImplementedError(
+                "keep_int8 (model.quantize=int8pre) is not ported yet; it "
+                "comes with the int8 serving slice of the port")
+        self.transfer_dtype = np.dtype(transfer_dtype)
+        self.dir = os.path.join(root, split)
+        self.max_frames = max_frames
+        # ascending UNIQUE bucket sizes; () = single bucket at max_frames
+        self.frame_buckets = tuple(sorted({b for b in frame_buckets
+                                           if b <= max_frames})) or (max_frames,)
+        self.num_regions = num_regions
+        self.feat_dim = feat_dim
+        self.max_words = max_words
+        self.with_gt = with_gt
+        with open(os.path.join(self.dir, "index.jsonl")) as f:
+            self.index = [json.loads(ln) for ln in f if ln.strip()]
+
+    def __len__(self) -> int:
+        return len(self.index)
+
+    def bucket_of(self, i: int) -> int:
+        """Smallest bucket T that fits segment i (last bucket if none do)."""
+        t = self.index[i].get("num_frames", self.max_frames)
+        for b in self.frame_buckets:
+            if t <= b:
+                return b
+        return self.frame_buckets[-1]
+
+    def __getitem__(self, i: int) -> dict[str, np.ndarray]:
+        meta = self.index[i]
+        with np.load(os.path.join(self.dir, meta["file"])) as z:
+            fz = z["feats"]
+            if fz.dtype == np.int8 and "feats_scale" in z.files:
+                feats = (fz.astype(np.float32) * z["feats_scale"][..., None]
+                         ).astype(self.transfer_dtype)
+            else:
+                feats = fz.astype(self.transfer_dtype)
+            sample = pad_sample(
+                feats=feats,
+                boxes=z["boxes"].astype(np.float32),
+                word_ids=z["word_ids"].astype(np.int32),
+                max_frames=self.bucket_of(i),
+                num_regions=self.num_regions,
+                max_words=self.max_words,
+                gt_boxes=z["gt_boxes"].astype(np.float32) if self.with_gt else None,
+                gt_mask=z["gt_mask"].astype(np.float32) if self.with_gt else None,
+                region_mask=(z["region_mask"].astype(np.float32)
+                             if "region_mask" in z.files else None),
+            )
+        sample["segment_id"] = np.int32(i)
+        return sample
 
 
 def pad_sample(feats: np.ndarray, boxes: np.ndarray, word_ids: np.ndarray,

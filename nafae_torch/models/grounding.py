@@ -86,6 +86,43 @@ def params_from_jax(np_params: dict, device: str | torch.device
             for k, v in np_params.items()}
 
 
+def state_from_jax(jax_state, device: str | torch.device):
+    """The JAX package's training state -> the port's `train.TrainState`.
+
+    jax_state: a `nafae_tpu.train.TrainState` whose leaves are numpy arrays
+    (`jax.tree.map(np.asarray, state)`): step, params, centers, the k-means
+    bank, and the optax state, read by its field names — adam's `count`,
+    `mu` and `nu`, or sgd's `trace` beside its schedule's `count`. Both
+    packages can then start from one point: JAX's initial draws come from
+    `jax.random`, which the port does not reproduce."""
+    from nafae_torch.train import TrainState
+
+    def put(x):
+        return None if x is None else params_from_jax({"x": x}, device)["x"]
+
+    opt = {}
+
+    def walk(node):               # optax states are named tuples
+        fields = getattr(node, "_fields", ())
+        if "mu" in fields and "nu" in fields:
+            opt.update(count=int(node.count), mu=params_from_jax(
+                node.mu, device), nu=params_from_jax(node.nu, device))
+        elif "trace" in fields:
+            opt["trace"] = params_from_jax(node.trace, device)
+        elif "count" in fields:
+            opt.setdefault("count", int(node.count))
+        elif isinstance(node, (tuple, list)):
+            for child in node:
+                walk(child)
+
+    walk(jax_state.opt_state)
+    return TrainState(step=int(jax_state.step),
+                      params=params_from_jax(jax_state.params, device),
+                      opt_state=opt, centers=put(jax_state.centers),
+                      bank=put(jax_state.bank),
+                      bank_valid=put(jax_state.bank_valid))
+
+
 class GroundingModel(nn.Module):
     """Holds the parameters; `forward` is ops.grounding.ground_forward with
     the model config's choices baked in."""

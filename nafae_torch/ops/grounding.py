@@ -1,9 +1,10 @@
-"""Grounding forward ops: similarity tensor, MIL pooling, context mixing.
+"""Grounding forward ops: similarity tensor, MIL pooling, context mixing,
+cross-batch scores.
 
-The port of `nafae_tpu/ops/grounding.py` that the serving forward needs
-(docs/MATH.md §Forward and §Contextual-similarity). Plain functions on
-tensors; the context mix dispatches to the CUDA kernel of
-`ops/kernels/ctx_mix.py` on the GPU.
+The port of `nafae_tpu/ops/grounding.py` that serving and the training step
+need (docs/MATH.md §Forward and §Contextual-similarity). Plain functions on
+tensors, differentiable by autograd; the context mix dispatches to the CUDA
+kernels of `ops/kernels/ctx_mix.py` on the GPU.
 
 Conventions: masks are float (0/1). NEG = -1e9 is the masked-max/-softmax
 fill. Every product keeps an f32 output: with a bf16 compute dtype its
@@ -66,6 +67,49 @@ def project_regions(feats: torch.Tensor, w_v: torch.Tensor, b_v: torch.Tensor,
     return l2_normalize(v)
 
 
+class ProjectRegionsFused(torch.autograd.Function):
+    """project_regions + the cast to the compute dtype, with the normalize
+    BACKWARD run in the compute dtype (the JAX package's
+    `project_regions_fused`, train.PROJ_FUSED; reduced-precision mode only).
+
+    Same forward as `project_regions(...).to(dtype)`. The backward keeps
+    the compute-dtype output and the [N,1] f32 inverse norms as residuals
+    and computes dv = (g - v̂ (g·v̂)) inv with f32 row sums, rounds dv to the
+    compute dtype and feeds the dW/db products from it. feats is data: it
+    gets no gradient."""
+
+    @staticmethod
+    def forward(ctx, feats, w_v, b_v, dtype):
+        b, t, r, d = feats.shape
+        f2 = feats.reshape(b * t * r, d).to(dtype)
+        v = f2.float() @ w_v.to(dtype).float() + b_v.float()       # [N,E]
+        inv = torch.rsqrt(torch.sum(v * v, dim=-1, keepdim=True) + 1e-8)
+        vhat = (v * inv).to(dtype)
+        ctx.save_for_backward(f2, vhat, inv)
+        ctx.dtype = dtype
+        return vhat.reshape(b, t, r, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        f2, vhat, inv = ctx.saved_tensors
+        n, e = vhat.shape
+        g2 = g.reshape(n, e).to(ctx.dtype).float()
+        vh = vhat.float()
+        gd = torch.sum(g2 * vh, dim=-1, keepdim=True)               # [N,1]
+        dv32 = (g2 - vh * gd) * inv
+        dv = dv32.to(ctx.dtype).float()
+        dw = f2.float().T @ dv                                      # [D,E]
+        db = dv32.sum(0)
+        return None, dw, db, None
+
+
+def project_regions_fused(feats: torch.Tensor, w_v: torch.Tensor,
+                          b_v: torch.Tensor, dtype) -> torch.Tensor:
+    """feats [B,T,R,D] -> normalized v̂ [B,T,R,E] in `dtype` (see
+    ProjectRegionsFused)."""
+    return ProjectRegionsFused.apply(feats, w_v, b_v, dtype)
+
+
 def project_params(params: dict, feats: torch.Tensor, dtype=torch.float32,
                    feats_scale: torch.Tensor | None = None) -> torch.Tensor:
     """Projection dispatch. The port runs the f32 and bf16 products; the
@@ -106,8 +150,19 @@ def mask_regions(s: torch.Tensor,
     return torch.where(rm > 0, s, NEG)
 
 
+def argmax_regions_2d(s: torch.Tensor) -> torch.Tensor:
+    """argmax_r of the [B,K,T,R] similarity, first index on ties (the JAX
+    package's [R, B·K·T] relayout is a TPU layout choice; the selection is
+    the same)."""
+    b, k, t, r = s.shape
+    return torch.argmax(s.reshape(b * k * t, r), dim=-1).reshape(b, k, t)
+
+
 def frame_mil_max(s: torch.Tensor, frame_mask: torch.Tensor) -> torch.Tensor:
-    """MIL max over regions: a[..,k,t] = max_r s (invalid frames -> 0)."""
+    """MIL max over regions: a[..,k,t] = max_r s (invalid frames -> 0).
+    torch.amax splits the gradient evenly between tied maxima, as JAX's max
+    does (torch.max(dim) would send it all to one index): a valid frame
+    whose regions are all masked has R tied NEG entries."""
     a = torch.amax(s, dim=-1)
     return torch.where(frame_mask[..., None, :] > 0, a, 0.0)
 
@@ -181,6 +236,54 @@ def context_mix(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
     (ops/kernels/ctx_mix.py)."""
     return _ctx_mix.ctx_mix(v_ext, fm_ext, window, temp, dtype=dtype,
                             rm_ext=rm_ext)
+
+
+def _cross_sim(we: torch.Tensor, ve: torch.Tensor) -> torch.Tensor:
+    """[J,K,E]x[I,T,R,E] -> [I,J,K,T,R] f32."""
+    return torch.einsum("jke,itre->ijktr", we.float(), ve.float())
+
+
+def cross_scores(w_emb: torch.Tensor, word_mask: torch.Tensor,
+                 v_emb: torch.Tensor, frame_mask: torch.Tensor,
+                 temp: float, pool: str,
+                 ctx_window: int = 0, ctx_temp: float = 0.1,
+                 impl: str = "jnp", dtype=None,
+                 region_mask: torch.Tensor | None = None,
+                 u: torch.Tensor | None = None,
+                 frame_logits: torch.Tensor | None = None) -> torch.Tensor:
+    """Full B×B score matrix S[i,j] = score(video i, sentence j) for the
+    ranking loss, as einsums over the [I,J,K,T,R] cross tensor (the JAX
+    package's impl="jnp"). impl="pallas", the fused cross-MIL kernels
+    K3a/K3b (`ops/pallas/fused_ground.py`), is not ported yet.
+    u: precomputed context-mixed embeddings (context_mix on the same
+    v_emb and masks), so the train step runs the context mix once.
+    frame_logits: precomputed sentence-independent per-frame logits [I,T]
+    (pool="learned"), broadcast over sentences j."""
+    if impl == "pallas":
+        raise NotImplementedError(
+            "cross_scores impl='pallas' needs the fused cross-MIL kernels "
+            "K3a/K3b (nafae_tpu/ops/pallas/fused_ground.py), which the port "
+            "has not ported yet; use impl='jnp'")
+    fm = frame_mask[:, None, :]                               # [I,1,T]
+    wm = word_mask[None, :, :]                                # [1,J,K]
+    g_learned = (frame_logits[:, None, :]
+                 if frame_logits is not None else None)
+    ctx_pool = pool == "context" and ctx_window > 0
+    if ctx_pool and u is None:
+        v_ext, fm_ext, rm_ext = extend_for_window(v_emb, frame_mask,
+                                                  region_mask, ctx_window)
+        u, _ = context_mix(v_ext, fm_ext, ctx_window, ctx_temp,
+                           dtype=dtype, rm_ext=rm_ext)
+    we, ve = _cast2(w_emb, v_emb, dtype)
+    s = mask_regions(_cross_sim(we, ve), region_mask)        # [I,J,K,T,R]
+    a = frame_mil_max(s, fm)                                  # [I,J,K,T]
+    frame_logits = g_learned
+    if ctx_pool:
+        we2, ue = _cast2(w_emb, u, dtype)
+        shat = mask_regions(_cross_sim(we2, ue), region_mask)
+        ahat = frame_mil_max(shat, fm)
+        frame_logits = _masked_word_mean(ahat, wm)
+    return video_scores(a, wm, fm, temp, pool, frame_logits=frame_logits)[0]
 
 
 def ground_forward(params: dict, feats: torch.Tensor, word_ids: torch.Tensor,

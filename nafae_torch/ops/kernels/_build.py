@@ -3,9 +3,11 @@
 Each `nafae_torch/csrc/<name>.cu` is compiled at first use by nvcc into
 `build/nafae_torch_kernels/lib<name>_<hash>.so` at the root of the
 checkout, for `sm_90a` (Hopper), with a plain C interface that the kernel
-modules bind with ctypes. The hash covers the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded. Nothing
-here runs at import time: this module is imported on machines without nvcc.
+modules bind with ctypes. The hash covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source is rebuilt and a stale
+library is never loaded. `build_all` starts one nvcc per source, all at
+once. Nothing here runs at import time: this module is imported on
+machines without nvcc.
 """
 
 from __future__ import annotations
@@ -41,27 +43,46 @@ def _nvcc() -> str:
 def library_path(name: str) -> Path:
     src = CSRC / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> None:
+    """Builds every csrc/<name>.cu of `names` that is not built yet, one
+    nvcc each, all started together; raises if any build fails."""
+    with _lock:
+        todo = [n for n in names if not library_path(n).exists()]
+        if not todo:
+            return
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        procs = {}
+        for name in todo:
+            tmp = library_path(name).with_suffix(f".{os.getpid()}.tmp")
+            procs[name] = (tmp, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for name, (tmp, proc) in procs.items():
+            log, _ = proc.communicate()
+            out = library_path(name)
+            out.with_suffix(".log").write_text(log)
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed on csrc/{name}.cu "
+                              f"(exit {proc.returncode}):\n{log}")
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent reader never sees half
+        if failed:
+            raise RuntimeError("\n".join(failed))
 
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
     """The built library of csrc/<name>.cu (built first if needed)."""
-    out = library_path(name)
-    with _lock:
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            out.with_suffix(".log").write_text(proc.stdout)
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(f"nvcc failed on csrc/{name}.cu "
-                                   f"(exit {proc.returncode}):\n{proc.stdout}")
-            os.replace(tmp, out)  # atomic: a concurrent reader never sees half
-    return ctypes.CDLL(str(out))
+    build_all([name])
+    return ctypes.CDLL(str(library_path(name)))
 
 
 def build_log(name: str) -> str:

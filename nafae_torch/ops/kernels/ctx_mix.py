@@ -1,5 +1,6 @@
-"""Context mixing (forward): the CUDA kernel `csrc/ctx_mix.cu`, its wrapper,
-and its plain PyTorch version.
+"""Context mixing: the CUDA kernels `csrc/ctx_mix.cu` (forward) and
+`csrc/ctx_mix_bwd.cu` (backward), their wrappers, the autograd Function
+that joins them, and their plain PyTorch version.
 
 Computes the context-mixed region embeddings of the context-pooled model:
 
@@ -7,13 +8,21 @@ Computes the context-mixed region embeddings of the context-pooled model:
 
 from the halo-extended region embeddings v_ext [B, w+T+w, R, E], the frame
 mask fm_ext [B, w+T+w] and the optional region mask rm_ext [B, w+T+w, R].
-The kernel replaces `nafae_tpu/ops/pallas/fused_ctx.py::_fwd_kernel`; its
-source note says what bounds it on an H100. The plain version,
-`context_mix_plain`, is a port of `nafae_tpu.ops.grounding.context_mix`
-(impl="offset"); the CPU path and the tests use it, the GPU path never.
+Four kernels replace the TPU's in `nafae_tpu/ops/pallas/fused_ctx.py`:
 
-`ctx_mix` sends a CPU tensor to the plain version, and on a CUDA tensor
-launches the kernel or raises. `launches` counts kernel launches.
+    ctx_mix_fwd      K1f   _fwd_kernel       forward
+    ctx_mix_fwd_res  K1fr  _fwd_kernel_res   forward, storing alpha
+    ctx_mix_bwd      K1b   _bwd_kernel       backward, alpha recomputed
+    ctx_mix_bwd_res  K1br  _bwd_kernel_res   backward, alpha read back
+
+Their sources say what bounds them on an H100. The plain version,
+`context_mix_plain`, is a port of `nafae_tpu.ops.grounding.context_mix`
+(impl="offset"); under autograd it is the plain version of all four.
+
+`ctx_mix` sends a CPU tensor to the plain version. On a CUDA tensor it
+launches the kernels or raises: with autograd on, through `CtxMix`, whose
+forward launches K1fr (or K1f) and whose backward launches K1br (or K1b);
+with autograd off, K1f alone. `launches` counts launches per kernel.
 """
 
 from __future__ import annotations
@@ -26,10 +35,20 @@ import torch
 from nafae_torch.ops.kernels import _build
 
 NEG = -1e9            # masked-logit fill, as in the reference softmax
-MAX_R = 32            # the kernel keeps one register accumulator per region
-MAX_E = 512           # one thread per embedding column, 512 threads a block
+MAX_R = 32            # the kernels keep one register accumulator per region
+MAX_E = 512           # one thread per 4 embedding columns, 512 threads a block
 
-launches = 0
+# Route of the gradient, as fused_ctx.py routes it: with ALPHA_RESIDUAL the
+# forward stores alpha [B,T,2w,R,R] (compute dtype) and the backward reads
+# it back instead of recomputing the scores. The TPU also needs its frame
+# tiles to divide T and its slab to fit VMEM; the port has no tiles and
+# keeps the residual in device memory, so its only rule is on the
+# residual's bytes: above ALPHA_MAX_BYTES the backward recomputes alpha.
+ALPHA_RESIDUAL = True
+ALPHA_MAX_BYTES = 256 << 20
+
+launches = {"ctx_mix_fwd": 0, "ctx_mix_fwd_res": 0,
+            "ctx_mix_bwd": 0, "ctx_mix_bwd_res": 0}
 
 
 def _offsets(window: int) -> list[int]:
@@ -56,47 +75,78 @@ def nbr_valid_of(fm_ext: torch.Tensor, window: int) -> torch.Tensor:
                        dim=2) * fm_c[:, :, None]
 
 
+def _offset_alpha(v_ext, fm_ext, window, temp, dtype, rm_ext, o):
+    """(alpha * nv_o [B,T,R,S] f32, v_o [B,T,S,E]) of offset o."""
+    w = window
+    t = v_ext.shape[1] - 2 * w
+    v_c = v_ext[:, w:w + t]                                   # [B,T,R,E]
+    v_o = v_ext[:, w + o:w + o + t]                           # [B,T,S,E]
+    nv_o = fm_ext[:, w + o:w + o + t] * fm_ext[:, w:w + t]    # [B,T]
+    ve, vn = _operands(v_c, v_o, dtype)
+    logits = torch.einsum("btre,btse->btrs", ve, vn) / temp
+    if rm_ext is not None:
+        rm_o = rm_ext[:, w + o:w + o + t]                     # [B,T,S]
+        logits = torch.where(rm_o[:, :, None, :] > 0, logits, NEG)
+    # an all-NEG row (valid frame, no valid region) softmaxes to the
+    # uniform 1/R, as in the reference
+    return torch.softmax(logits, dim=-1) * nv_o[:, :, None, None], v_o
+
+
 def context_mix_plain(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
                       temp: float, dtype=None,
                       rm_ext: torch.Tensor | None = None
                       ) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: a static loop over the 2w offsets, one
     [B,T,R,S] softmax and one mix product per offset."""
-    w = window
-    t = v_ext.shape[1] - 2 * w
-    v_c = v_ext[:, w:w + t]                                   # [B,T,R,E]
-    fm_c = fm_ext[:, w:w + t]                                 # [B,T]
     num = None
-    for o in _offsets(w):
-        v_o = v_ext[:, w + o:w + o + t]                       # [B,T,S,E]
-        nv_o = fm_ext[:, w + o:w + o + t] * fm_c              # [B,T]
-        ve, vn = _operands(v_c, v_o, dtype)
-        logits = torch.einsum("btre,btse->btrs", ve, vn) / temp
-        if rm_ext is not None:
-            rm_o = rm_ext[:, w + o:w + o + t]                 # [B,T,S]
-            logits = torch.where(rm_o[:, :, None, :] > 0, logits, NEG)
-        # an all-NEG row (valid frame, no valid region) softmaxes to the
-        # uniform 1/R, as in the reference
-        a_nv = torch.softmax(logits, dim=-1) * nv_o[:, :, None, None]
+    for o in _offsets(window):
+        a_nv, v_o = _offset_alpha(v_ext, fm_ext, window, temp, dtype, rm_ext,
+                                  o)
         ae, vn2 = _operands(a_nv.to(v_ext.dtype), v_o, dtype)
         mix = torch.einsum("btrs,btse->btre", ae, vn2)
         num = mix if num is None else num + mix
-    nbr_valid = nbr_valid_of(fm_ext, w)
+    nbr_valid = nbr_valid_of(fm_ext, window)
     den = torch.clamp(nbr_valid.sum(-1), min=1.0)
     return num / den[:, :, None, None], nbr_valid
+
+
+def context_alpha_plain(v_ext: torch.Tensor, fm_ext: torch.Tensor,
+                        window: int, temp: float, dtype=None,
+                        rm_ext: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K1fr's residual: alpha * nv_o as [B,T,2w,R,R] in the
+    compute dtype (the values the mix multiplies by)."""
+    dt = dtype if dtype is not None else v_ext.dtype
+    return torch.stack([
+        _offset_alpha(v_ext, fm_ext, window, temp, dtype, rm_ext, o)[0]
+        .to(v_ext.dtype).to(dt) for o in _offsets(window)], dim=2)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ctx_mix")
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    lib.nafae_ctx_mix_fwd.argtypes = [vp, i, vp, vp, vp, i, i, i, i, i,
-                                      ctypes.c_float, vp]
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nafae_ctx_mix_fwd.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i,
+                                      f, vp]
     lib.nafae_ctx_mix_fwd.restype = i
     return lib
 
 
-def _check(name: str, x: torch.Tensor, shape: tuple, dtype, device) -> None:
+@functools.cache
+def _lib_bwd() -> ctypes.CDLL:
+    lib = _build.load("ctx_mix_bwd")
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.nafae_ctx_mix_bwd.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i,
+                                      f, vp]
+    lib.nafae_ctx_mix_bwd.restype = i
+    lib.nafae_ctx_mix_bwd_res.argtypes = [vp, i, vp, vp, vp, vp, vp, i, i, i,
+                                          i, i, f, vp]
+    lib.nafae_ctx_mix_bwd_res.restype = i
+    return lib
+
+
+def _check(name: str, x: torch.Tensor, shape: tuple, dtype, device,
+           vector: bool = False) -> None:
+    """vector: the kernels read or write x 16 bytes at a time."""
     if tuple(x.shape) != shape:
         raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
     if x.dtype != dtype:
@@ -105,14 +155,12 @@ def _check(name: str, x: torch.Tensor, shape: tuple, dtype, device) -> None:
         raise ValueError(f"{name} is on {x.device}, v_ext on {device}")
     if not x.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+    if vector and x.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def launch_kernel(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
-                  temp: float, rm_ext: torch.Tensor | None) -> torch.Tensor:
-    """The kernel alone on CUDA tensors: checks what it takes, allocates
-    u [B,T,R,E] f32 and launches on the current stream (v_ext already in
-    the compute dtype)."""
-    global launches
+def _check_inputs(v_ext, fm_ext, window, rm_ext) -> tuple[int, int, int, int]:
+    """Checks what every kernel takes; returns (B, T, R, E)."""
     if v_ext.dim() != 4:
         raise ValueError(f"v_ext must be [B,T+2w,R,E], got {tuple(v_ext.shape)}")
     b, t_ext, r, e = v_ext.shape
@@ -129,26 +177,106 @@ def launch_kernel(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
                          f"[4, {MAX_E}], got E={e}")
     if b > 65535:
         raise ValueError(f"ctx_mix kernel takes B <= 65535, got B={b}")
-    dev = v_ext.device
-    if not v_ext.is_contiguous() or v_ext.data_ptr() % 16:
-        raise ValueError("v_ext must be contiguous and 16-byte aligned")
-    _check("fm_ext", fm_ext, (b, t_ext), torch.float32, dev)
+    _check("v_ext", v_ext, tuple(v_ext.shape), v_ext.dtype, v_ext.device,
+           vector=True)
+    _check("fm_ext", fm_ext, (b, t_ext), torch.float32, v_ext.device)
     if rm_ext is not None:
-        _check("rm_ext", rm_ext, (b, t_ext, r), torch.float32, dev)
+        _check("rm_ext", rm_ext, (b, t_ext, r), torch.float32, v_ext.device)
+    return b, t, r, e
+
+
+def _ptr(x: torch.Tensor | None):
+    return x.data_ptr() if x is not None else None
+
+
+def launch_fwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
+               temp: float, rm_ext: torch.Tensor | None,
+               residual: bool = False
+               ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """K1f (or, with `residual`, K1fr) alone on CUDA tensors: checks what it
+    takes, allocates u [B,T,R,E] f32 (and alpha [B,T,2w,R,R] in v_ext's
+    dtype) and launches on the current stream (v_ext already in the compute
+    dtype). Returns (u, alpha or None)."""
+    b, t, r, e = _check_inputs(v_ext, fm_ext, window, rm_ext)
+    dev = v_ext.device
     lib = _lib()
     u = torch.empty((b, t, r, e), dtype=torch.float32, device=dev)
+    alpha = (torch.empty((b, t, 2 * window, r, r), dtype=v_ext.dtype,
+                         device=dev) if residual else None)
     with torch.cuda.device(dev):
         err = lib.nafae_ctx_mix_fwd(
             v_ext.data_ptr(), int(v_ext.dtype == torch.bfloat16),
-            fm_ext.data_ptr(),
-            rm_ext.data_ptr() if rm_ext is not None else None,
-            u.data_ptr(), b, t, r, e, window, float(temp),
+            fm_ext.data_ptr(), _ptr(rm_ext), u.data_ptr(), _ptr(alpha),
+            b, t, r, e, window, float(temp),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ctx_mix kernel launch failed: cudaError_t {err}")
     if b > 0:
-        launches += 1
-    return u
+        launches["ctx_mix_fwd_res" if residual else "ctx_mix_fwd"] += 1
+    return u, alpha
+
+
+def launch_bwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
+               temp: float, rm_ext: torch.Tensor | None, du: torch.Tensor,
+               alpha: torch.Tensor | None = None) -> torch.Tensor:
+    """K1b (alpha None: recomputed) or K1br (alpha from launch_fwd's
+    residual) alone on CUDA tensors: du [B,T,R,E] f32 -> dv_ext
+    [B,T+2w,R,E] f32, halo frames included, on the current stream."""
+    b, t, r, e = _check_inputs(v_ext, fm_ext, window, rm_ext)
+    dev = v_ext.device
+    _check("du", du, (b, t, r, e), torch.float32, dev, vector=True)
+    if alpha is not None:
+        _check("alpha", alpha, (b, t, 2 * window, r, r), v_ext.dtype, dev)
+    lib = _lib_bwd()
+    dv = torch.empty(v_ext.shape, dtype=torch.float32, device=dev)
+    common = (fm_ext.data_ptr(), _ptr(rm_ext))
+    tail = (du.data_ptr(), dv.data_ptr(), b, t, r, e, window, float(temp),
+            torch.cuda.current_stream(dev).cuda_stream)
+    is_bf16 = int(v_ext.dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
+        if alpha is None:
+            err = lib.nafae_ctx_mix_bwd(v_ext.data_ptr(), is_bf16, *common,
+                                        *tail)
+        else:
+            err = lib.nafae_ctx_mix_bwd_res(v_ext.data_ptr(), is_bf16,
+                                            *common, alpha.data_ptr(), *tail)
+    if err != 0:
+        raise RuntimeError(f"ctx_mix backward kernel launch failed: "
+                           f"cudaError_t {err}")
+    if b > 0:
+        launches["ctx_mix_bwd" if alpha is None else "ctx_mix_bwd_res"] += 1
+    return dv
+
+
+def use_residual(v_ext: torch.Tensor, window: int) -> bool:
+    """Whether CtxMix keeps alpha for the backward (see ALPHA_RESIDUAL)."""
+    b, t_ext, r, _ = v_ext.shape
+    nbytes = b * (t_ext - 2 * window) * 2 * window * r * r \
+        * v_ext.element_size()
+    return ALPHA_RESIDUAL and nbytes <= ALPHA_MAX_BYTES
+
+
+class CtxMix(torch.autograd.Function):
+    """u = ctx_mix(v_ext) on CUDA tensors with its gradient in CUDA kernels:
+    K1fr then K1br when `use_residual`, else K1f then K1b. The gradient
+    reaches v_ext only (dv in v_ext's dtype); the masks get none."""
+
+    @staticmethod
+    def forward(ctx, v_ext, fm_ext, rm_ext, window, temp):
+        residual = use_residual(v_ext, window)
+        u, alpha = launch_fwd(v_ext, fm_ext, window, temp, rm_ext,
+                              residual=residual)
+        ctx.save_for_backward(v_ext, fm_ext, rm_ext, alpha)
+        ctx.window, ctx.temp = window, temp
+        return u
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, du):
+        v_ext, fm_ext, rm_ext, alpha = ctx.saved_tensors
+        dv = launch_bwd(v_ext, fm_ext, ctx.window, ctx.temp, rm_ext,
+                        du.float().contiguous(), alpha)
+        return dv.to(v_ext.dtype), None, None, None, None
 
 
 def ctx_mix(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
@@ -157,8 +285,9 @@ def ctx_mix(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
     """(u [B,T,R,E] f32, nbr_valid [B,T,2w]) on v_ext's device.
 
     dtype: compute dtype of the products (None = v_ext's own). CPU tensors
-    take the plain version; CUDA tensors launch the kernel, on the current
-    stream, or raise."""
+    take the plain version; CUDA tensors launch the kernels, on the current
+    stream, or raise. u carries autograd to v_ext whenever autograd is on
+    and v_ext needs a gradient."""
     if not temp >= 0.02:
         raise ValueError(f"ctx_temp={temp}: the context mix takes temp >= "
                          "0.02 (|logits| <= 1/temp on l2-normalized regions)")
@@ -169,5 +298,9 @@ def ctx_mix(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
         raise ValueError(f"ctx_mix runs on cuda or cpu, not {v_ext.device}")
     if dtype is not None:
         v_ext = v_ext.to(dtype)
-    u = launch_kernel(v_ext, fm_ext, window, temp, rm_ext)
+    if torch.is_grad_enabled() and v_ext.requires_grad:
+        u = CtxMix.apply(v_ext.contiguous(), fm_ext, rm_ext, window,
+                         float(temp))
+    else:
+        u, _ = launch_fwd(v_ext, fm_ext, window, temp, rm_ext)
     return u, nbr_valid_of(fm_ext, window)

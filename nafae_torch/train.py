@@ -1,0 +1,433 @@
+"""Training on precomputed RoI features: the config-2/3/4 step, the
+optimizer, the k-means refresh, the fit loop and the CLI.
+
+The port of `nafae_tpu/train.py` on one device with the streaming loader:
+forward, the three losses, their gradient (autograd; the context mix's
+gradient in the CUDA kernels of `ops/kernels/ctx_mix.py` on the GPU), the
+optimizer update and the periodic k-means refresh.
+
+    python -m nafae_torch.train --preset config4 --override data.root=... \\
+        [--device cpu]
+
+Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
+Not ported yet, and raising NotImplementedError: the device-resident
+dataset (`train.device_cache`), inline videos (`data.from_videos`), meshes
+and data parallelism, k-means++ seeding (`loss.kmeans_init=plusplus`),
+word-vector initialisation (`model.word_vectors`), the grain pipeline, and
+the fused Pallas routes of `train.kernels="pallas"` (K3a/K3b, K4f/K4b).
+`train.steps_per_call` groups steps into one XLA program in the JAX
+package; PyTorch runs eagerly, so the port ignores it.
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from nafae_torch.config import Config
+from nafae_torch.device import resolve_device
+from nafae_torch.models.grounding import COMPUTE_DTYPES, init_params
+from nafae_torch.ops import grounding as G
+from nafae_torch.ops import losses as L
+from nafae_torch.ops.kmeans import bank_write, kmeans_init, kmeans_lloyd
+
+ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8      # optax.adamw's defaults
+SGD_MOMENTUM = 0.9
+
+
+@dataclass
+class TrainState:
+    step: int
+    params: dict[str, torch.Tensor]
+    opt_state: dict            # count + adam's mu/nu, or sgd's trace
+    centers: torch.Tensor      # k-means centroids [Kc, E] (unit norm)
+    # selection bank (loss.kmeans_source="bank"): ring of the last W steps'
+    # selected region embeddings [W, B, T, K, E] and their validity
+    bank: torch.Tensor | None = None
+    bank_valid: torch.Tensor | None = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.centers.device
+
+    @classmethod
+    def create(cls, cfg: Config, device: str | torch.device | None = None,
+               seed: int | None = None) -> "TrainState":
+        """Random params and centers from a torch.Generator seeded with
+        train.seed, on `device` (cuda unless "cpu" is asked for)."""
+        _check_supported(cfg)
+        device = resolve_device(device)
+        gen = torch.Generator().manual_seed(
+            cfg.train.seed if seed is None else seed)
+        params = init_params(cfg.model, gen, device)
+        centers = kmeans_init(gen, cfg.loss.num_clusters,
+                              cfg.model.embed_dim).to(device)
+        bank = bank_valid = None
+        if cfg.loss.kmeans_source == "bank" and cfg.loss.cluster_weight > 0:
+            w, b = cfg.loss.bank_steps, cfg.data.batch_size
+            t = (max(cfg.data.frame_buckets) if cfg.data.frame_buckets
+                 else cfg.data.max_frames)
+            k = cfg.data.max_words
+            bank = torch.zeros((w, b, t, k, cfg.model.embed_dim),
+                               device=device)
+            bank_valid = torch.zeros((w, b, t, k), device=device)
+        return cls(step=0, params=params,
+                   opt_state=make_optimizer(cfg).init(params),
+                   centers=centers, bank=bank, bank_valid=bank_valid)
+
+    def state_dict(self) -> dict:
+        """Everything, as CPU tensors and ints (what checkpoints store)."""
+        cpu = lambda d: None if d is None else {   # noqa: E731
+            k: v.detach().cpu() for k, v in d.items()}
+        opt = {k: (cpu(v) if isinstance(v, dict) else v)
+               for k, v in self.opt_state.items()}
+        return {"step": self.step, "params": cpu(self.params),
+                "opt_state": opt, "centers": self.centers.cpu(),
+                "bank": None if self.bank is None else self.bank.cpu(),
+                "bank_valid": (None if self.bank_valid is None
+                               else self.bank_valid.cpu())}
+
+    @classmethod
+    def from_state_dict(cls, d: dict, device) -> "TrainState":
+        to = lambda x: None if x is None else x.to(device)  # noqa: E731
+        todict = lambda m: {k: v.to(device) for k, v in m.items()}  # noqa: E731
+        opt = {k: (todict(v) if isinstance(v, dict) else v)
+               for k, v in d["opt_state"].items()}
+        return cls(step=int(d["step"]), params=todict(d["params"]),
+                   opt_state=opt, centers=to(d["centers"]),
+                   bank=to(d["bank"]), bank_valid=to(d["bank_valid"]))
+
+
+def _check_supported(cfg: Config) -> None:
+    todo = {"train.device_cache": cfg.train.device_cache,
+            "data.from_videos": cfg.data.from_videos,
+            "model.word_vectors": bool(cfg.model.word_vectors),
+            "loss.kmeans_init=plusplus": cfg.loss.kmeans_init == "plusplus",
+            "data.pipeline=grain": cfg.data.pipeline == "grain",
+            "train.kernels=pallas": cfg.train.resolved_kernels() == "pallas"}
+    on = [k for k, v in todo.items() if v]
+    if on:
+        raise NotImplementedError(
+            f"{', '.join(on)}: not ported yet (the port trains on one "
+            "device from the streaming loader; train.kernels=pallas needs "
+            "the fused kernels K3a/K3b and K4f/K4b)")
+
+
+def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
+    """sqrt of the sum of squares of every leaf (optax.global_norm)."""
+    return torch.sqrt(sum(torch.sum(tree[k].float() ** 2)
+                          for k in sorted(tree)))
+
+
+class Optimizer:
+    """optax.chain(clip_by_global_norm(grad_clip), adamw(schedule, wd)) (or
+    sgd with momentum 0.9), written out so that the port updates exactly
+    as optax does:
+
+    - the schedule is warmup_cosine_decay_schedule(0, lr, warmup_steps,
+      max(steps, warmup_steps + 1), lr / 100), read at the count BEFORE the
+      update: the first update has lr 0;
+    - the clip scales by grad_clip / norm when norm >= grad_clip, with no
+      epsilon (torch's clip_grad_norm_ divides by norm + 1e-6);
+    - adamw's decay is decoupled: p -= lr (m̂ / (sqrt(v̂) + 1e-8) + wd p).
+    """
+
+    def __init__(self, cfg: Config):
+        tc = cfg.train
+        self.kind = "sgd" if tc.optimizer == "sgd" else "adam"
+        self.peak, self.warmup = tc.lr, tc.warmup_steps
+        self.decay_steps = max(tc.steps, tc.warmup_steps + 1)
+        self.end = tc.lr * 0.01
+        self.wd = tc.weight_decay
+        self.clip = tc.grad_clip
+
+    def lr(self, count: int) -> float:
+        """optax.warmup_cosine_decay_schedule at `count`, in float32."""
+        f32 = np.float32
+        if self.warmup > 0 and count < self.warmup:
+            c = min(max(count, 0), self.warmup)
+            frac = f32(1) - f32(c) / f32(self.warmup)
+            return float(f32(0.0 - self.peak) * frac + f32(self.peak))
+        steps = self.decay_steps - self.warmup        # >= 1
+        alpha = 0.0 if self.peak == 0.0 else self.end / self.peak
+        c = f32(min(count - self.warmup, steps))
+        cos = f32(0.5) * (f32(1) + f32(math.cos(f32(math.pi) * c / f32(steps))))
+        return float(f32(self.peak) * (f32(1 - alpha) * cos + f32(alpha)))
+
+    def init(self, params: dict[str, torch.Tensor]) -> dict:
+        zeros = lambda: {k: torch.zeros_like(v) for k, v in params.items()}  # noqa: E731
+        if self.kind == "sgd":
+            return {"count": 0, "trace": zeros()}
+        return {"count": 0, "mu": zeros(), "nu": zeros()}
+
+    @torch.no_grad()
+    def update(self, grads: dict[str, torch.Tensor], state: dict,
+               params: dict[str, torch.Tensor]
+               ) -> tuple[dict[str, torch.Tensor], dict]:
+        """(new params, new state); the inputs are not changed."""
+        if self.clip > 0:     # no host sync: a select, as optax does
+            norm = global_norm(grads)
+            keep = norm < self.clip
+            grads = {k: torch.where(keep, g, g / norm * self.clip)
+                     for k, g in grads.items()}
+        count = state["count"]
+        step_size = -self.lr(count)
+        if self.kind == "sgd":
+            trace = {k: g + SGD_MOMENTUM * state["trace"][k]
+                     for k, g in grads.items()}
+            new = {k: params[k] + trace[k] * step_size for k in params}
+            return new, {"count": count + 1, "trace": trace}
+        b1, b2 = ADAM_B1, ADAM_B2
+        mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
+        nu = {k: (1 - b2) * g ** 2 + b2 * state["nu"][k]
+              for k, g in grads.items()}
+        c = torch.tensor(float(count + 1))       # bias corrections in f32
+        bc1 = 1 - torch.tensor(b1) ** c
+        bc2 = 1 - torch.tensor(b2) ** c
+        new = {}
+        for k, p in params.items():
+            m_hat = mu[k] / bc1.item()
+            v_hat = nu[k] / bc2.item()
+            upd = m_hat / (torch.sqrt(v_hat) + ADAM_EPS) + self.wd * p
+            new[k] = p + upd * step_size
+        return new, {"count": count + 1, "mu": mu, "nu": nu}
+
+
+def make_optimizer(cfg: Config) -> Optimizer:
+    return Optimizer(cfg)
+
+
+def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
+                   cfg: Config, kernels: str = "auto"
+                   ) -> tuple[torch.Tensor, dict]:
+    """Total loss + aux for one batch of tensors on the training device:
+    ranking over the in-batch score matrix, then (config 3/4) the context
+    loss against the context-mixed teacher ŝ, then (config 4) the cluster
+    loss of the selected regions against the k-means centers.
+
+    kernels: "auto" and "jnp" route alike (the context mix through the
+    CUDA kernels on the GPU; the cross path in plain torch); "pallas"
+    raises NotImplementedError (K3a/K3b, K4f/K4b are not ported)."""
+    if kernels == "pallas":
+        raise NotImplementedError(
+            "train.kernels=pallas needs the fused cross-MIL kernels K3a/K3b "
+            "and the diag-epilogue kernels K4f/K4b, which the port has not "
+            "ported yet; use auto")
+    lc, mc = cfg.loss, cfg.model
+    feats = batch["feats"]
+    fm, wm = batch["frame_mask"], batch["word_mask"]
+    rm = batch.get("region_mask")
+    ctx_on = lc.ctx_weight > 0 or mc.frame_pool == "context"
+    ctx_window = lc.ctx_window if ctx_on else 0
+    dt = COMPUTE_DTYPES[mc.dtype]
+    cdt = None if dt == torch.float32 else dt
+
+    w_emb = G.embed_words(batch["word_ids"], params["word_emb"],
+                          m_sim=params.get("m_sim"))
+    # the reduced-precision mode takes the JAX package's production choices
+    # (its train.PROJ_FUSED, ARGMAX_2D and ASSIGN_MXU): v̂ in the compute
+    # dtype with the normalize backward in it, selection by
+    # argmax_regions_2d, k-means sims on compute-dtype operands
+    if cdt is not None:
+        v_emb = G.project_regions_fused(feats, params["w_v"], params["b_v"],
+                                        cdt)
+    else:
+        v_emb = G.project_regions(feats, params["w_v"], params["b_v"])
+    s = G.mask_regions(G.similarity_tensor(w_emb, v_emb, dtype=cdt), rm)
+
+    # context mixing, shared by context pooling and the ctx loss
+    u = nbr_valid = None
+    if ctx_on:
+        w_ = lc.ctx_window
+        v_ext, fm_ext, rm_ext = G.extend_for_window(v_emb, fm, rm, w_)
+        u, nbr_valid = G.context_mix(v_ext, fm_ext, w_, lc.ctx_temp,
+                                     dtype=cdt, rm_ext=rm_ext)
+
+    g_learned = (G.learned_frame_logits(v_emb, fm, rm, params["attn_w"])
+                 if mc.frame_pool == "learned" else None)
+    rows = G.cross_scores(w_emb, wm, v_emb, fm, mc.frame_attn_temp,
+                          mc.frame_pool, ctx_window, lc.ctx_temp, dtype=cdt,
+                          region_mask=rm, u=u, frame_logits=g_learned)
+    b = rows.shape[0]
+    diag = torch.sum(rows * torch.eye(b, dtype=rows.dtype,
+                                      device=rows.device), dim=1)
+    l_rank = L.ranking_loss_rows(rows, diag, 0, lc.margin, norm=lc.rank_norm)
+    total = l_rank
+    aux = {"l_rank": l_rank, "score_pos": torch.sum(diag) / max(b, 1)}
+
+    if ctx_on:
+        shat = G.mask_regions(G.similarity_tensor(w_emb, u, dtype=cdt), rm)
+        if lc.ctx_weight > 0:
+            num, den = L.context_loss_terms(s, shat, wm, fm, nbr_valid, rm,
+                                            target=lc.ctx_target)
+            l_ctx = num / torch.clamp(den, min=1.0)
+            total = total + lc.ctx_weight * l_ctx
+            aux["l_ctx"] = l_ctx
+
+    r_star = G.argmax_regions_2d(s) if cdt is not None else None
+    f, valid = L.select_top_regions(s, v_emb, wm, fm, region_mask=rm,
+                                    r_star=r_star)
+    # the [B,T,K,...] layout of the JAX package's aux
+    aux["sel_feats"] = f.detach().permute(0, 2, 1, 3)
+    aux["sel_valid"] = valid.permute(0, 2, 1)
+    if lc.cluster_weight > 0:
+        num, den, _ = L.cluster_loss_terms(f, valid, centers,
+                                           assign_dtype=cdt)
+        l_clu = num / torch.clamp(den, min=1.0)
+        total = total + lc.cluster_weight * l_clu
+        aux["l_clu"] = l_clu
+    aux["loss"] = total
+    return total, aux
+
+
+def batch_to_device(batch: dict, device: torch.device) -> dict:
+    """numpy batch (BatchLoader) -> tensors on `device`."""
+    return {k: torch.as_tensor(np.asarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def train_step(state: TrainState, batch: dict, cfg: Config,
+               tx: Optimizer | None = None
+               ) -> tuple[TrainState, dict[str, torch.Tensor]]:
+    """One optimizer step on a batch of tensors on state's device; returns
+    (new state, metrics as 0-d tensors: l_rank, score_pos, [l_ctx],
+    [l_clu], loss, grad_norm — the norm before clipping).
+
+    The k-means refresh runs after the update, on this step's selections,
+    when the step count before the update is a multiple of
+    loss.kmeans_interval (so at step 0 always)."""
+    tx = tx or make_optimizer(cfg)
+    names = sorted(state.params)
+    params = {k: state.params[k].detach().requires_grad_() for k in names}
+    with torch.enable_grad():
+        total, aux = compute_losses(params, state.centers, batch, cfg,
+                                    cfg.train.resolved_kernels())
+        grads = torch.autograd.grad(total, [params[k] for k in names],
+                                    allow_unused=True)
+    grads = {k: torch.zeros_like(params[k]) if g is None else g
+             for k, g in zip(names, grads)}
+    new_params, opt_state = tx.update(grads, state.opt_state, state.params)
+
+    centers, bank, bank_valid = state.centers, state.bank, state.bank_valid
+    sel_f, sel_v = aux.pop("sel_feats"), aux.pop("sel_valid")
+    lc = cfg.loss
+    if lc.cluster_weight > 0:
+        with torch.no_grad():
+            e = cfg.model.embed_dim
+            if lc.kmeans_source == "bank" and bank is not None:
+                bank, bank_valid = bank_write(bank, bank_valid, state.step,
+                                              sel_f, sel_v)
+                f, valid = bank.reshape(-1, e), bank_valid.reshape(-1)
+            else:
+                f, valid = sel_f.reshape(-1, e), sel_v.reshape(-1)
+            if state.step % lc.kmeans_interval == 0:
+                dt = COMPUTE_DTYPES[cfg.model.dtype]
+                centers = kmeans_lloyd(
+                    f, valid, centers, lc.kmeans_iters, lc.kmeans_ema,
+                    assign_dtype=None if dt == torch.float32 else dt)
+    metrics = {k: v.detach() for k, v in aux.items()}
+    metrics["grad_norm"] = global_norm(grads).detach()
+    return replace(state, step=state.step + 1, params=new_params,
+                   opt_state=opt_state, centers=centers, bank=bank,
+                   bank_valid=bank_valid), metrics
+
+
+def fit(cfg: Config, device: str | torch.device | None = None,
+        log_fn=None) -> tuple[TrainState, dict]:
+    """Run cfg.train.steps steps from the newest checkpoint in
+    train.ckpt_dir (or from scratch); returns the final state and the last
+    metrics. Logs JSONL to train.ckpt_dir/metrics.jsonl every log_every
+    steps (and calls log_fn), and checkpoints every ckpt_every steps and
+    at the end. Periodic evaluation (train.eval_every) comes with the
+    port's eval slice."""
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.utils.checkpoint import CheckpointManager
+    from nafae_torch.utils.metrics_log import MetricsLogger
+
+    _check_supported(cfg)
+    device = resolve_device(device)
+    ds = SegmentDataset(cfg.data.root, cfg.data.split, cfg.data.max_frames,
+                        cfg.data.num_regions, cfg.data.feat_dim,
+                        cfg.data.max_words,
+                        frame_buckets=tuple(cfg.data.frame_buckets),
+                        transfer_dtype=cfg.data.transfer_dtype)
+    state = TrainState.create(cfg, device=device)
+    ckpt = CheckpointManager(cfg.train.ckpt_dir, keep=cfg.train.keep_ckpts)
+    restored = ckpt.restore_latest(state)
+    if restored is not None:
+        state = restored
+    logger = MetricsLogger(cfg.train.ckpt_dir)
+    loader = BatchLoader(ds, cfg.data.batch_size, shuffle=True,
+                         seed=cfg.train.seed, prefetch=cfg.data.prefetch)
+    tx = make_optimizer(cfg)
+
+    # resume the loader at its exact position (epoch + offset from the step)
+    start_step = state.step
+    eb = loader.batches_per_epoch()
+    start_epoch = start_step // eb if eb else 0
+    skip = start_step % eb if eb else 0
+    target = cfg.train.steps
+    applied = start_step
+    frames_applied = frames_logged = 0
+    last_fired = dict.fromkeys(("log", "ckpt"), start_step)
+    t0 = time.perf_counter()
+    metrics: dict = {}
+
+    def due(kind, every):
+        return every > 0 and applied - last_fired[kind] >= every
+
+    budget = (target - applied) * 2 + 16
+    for _, batch in loader.steps(budget, start_epoch=start_epoch, skip=skip):
+        if applied >= target:
+            break     # e.g. re-running an already-completed checkpoint dir
+        state, metrics = train_step(state, batch_to_device(batch, device),
+                                    cfg, tx)
+        applied += 1
+        frames_applied += int(np.prod(batch["frame_mask"].shape))
+        if due("log", cfg.train.log_every):
+            last_fired["log"] = applied
+            m = {k: float(v) for k, v in metrics.items()}
+            m["frames_per_sec"] = ((frames_applied - frames_logged)
+                                   / max(time.perf_counter() - t0, 1e-9))
+            m["step"] = applied
+            logger.log(m)
+            if log_fn:
+                log_fn(m)
+            t0, frames_logged = time.perf_counter(), frames_applied
+        if due("ckpt", cfg.train.ckpt_every):
+            last_fired["ckpt"] = applied
+            ckpt.save(state)
+        if applied >= target:
+            break
+    ckpt.save(state)
+    return state, metrics
+
+
+def main(argv=None) -> None:
+    import argparse
+
+    from nafae_torch.config import load_config
+
+    p = argparse.ArgumentParser("nafae_torch.train")
+    p.add_argument("--preset", default="config2")
+    p.add_argument("--config", default=None, help="JSON config file")
+    p.add_argument("--override", nargs="*", action="extend", default=None)
+    p.add_argument("--device", default=None,
+                   help="cuda (default; raises without a card) or cpu")
+    args = p.parse_args(argv)
+    cfg = load_config(args.config, args.preset, args.override or [])
+
+    def log_fn(m):
+        print(" ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
+                       for k, v in sorted(m.items())), flush=True)
+
+    fit(cfg, device=args.device, log_fn=log_fn)
+
+
+if __name__ == "__main__":
+    main()

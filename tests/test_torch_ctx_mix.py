@@ -89,7 +89,7 @@ def test_uniform_group_and_invalid_frames():
 def test_cpu_tensors_take_the_plain_version():
     v_ext, fm_ext, rm_ext = (torch.from_numpy(a)
                              for a in _inputs(2, 4, 3, 8, 2, seed=1))
-    before = K.launches
+    before = dict(K.launches)
     got = K.ctx_mix(v_ext, fm_ext, 2, 0.1, rm_ext=rm_ext)
     want = K.context_mix_plain(v_ext, fm_ext, 2, 0.1, rm_ext=rm_ext)
     assert K.launches == before
@@ -112,9 +112,10 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
                         "float32 or bfloat16"),
                        (torch.zeros(1, 5, 8, 4).transpose(2, 3), "contiguous")):
         with pytest.raises((ValueError, TypeError), match=match):
-            K.launch_kernel(bad, fm, 1, 0.1, None)
+            K.launch_fwd(bad, fm, 1, 0.1, None)
     with pytest.raises(ValueError, match="rm_ext"):
-        K.launch_kernel(torch.zeros(1, 5, 4, 8), fm, 1, 0.1, torch.ones(1, 5, 3))
+        K.launch_fwd(torch.zeros(1, 5, 4, 8), fm, 1, 0.1,
+                     torch.ones(1, 5, 3))
 
 
 @pytest.fixture
@@ -139,10 +140,10 @@ def test_kernel_matches_plain_on_gpu(cuda_device, dtype):
         b, t, r, e, w = CASES[case]
         v_ext, fm_ext, rm_ext = (torch.from_numpy(a).to(cuda_device)
                                  for a in _inputs(b, t, r, e, w))
-        before = K.launches
+        before = K.launches["ctx_mix_fwd"]
         u, nv = K.ctx_mix(v_ext, fm_ext, w, 0.1, dtype=tdt, rm_ext=rm_ext)
         torch.cuda.synchronize()
-        assert K.launches == before + 1
+        assert K.launches["ctx_mix_fwd"] == before + 1
         up, nvp = K.context_mix_plain(v_ext, fm_ext, w, 0.1, dtype=tdt,
                                       rm_ext=rm_ext)
         assert torch.equal(nv, nvp)

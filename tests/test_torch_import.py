@@ -20,7 +20,10 @@ SOURCES = sorted(str(p.relative_to(ROOT)) for p in
 
 def test_import_leaves_jax_out():
     code = ("import sys, nafae_torch, nafae_torch.serve, "
-            "nafae_torch.ops.kernels.ctx_mix; "
+            "nafae_torch.train, nafae_torch.ops.kernels.ctx_mix, "
+            "nafae_torch.ops.losses, nafae_torch.ops.kmeans, "
+            "nafae_torch.data.loader, nafae_torch.utils.checkpoint, "
+            "nafae_torch.utils.metrics_log; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -58,5 +61,11 @@ def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device()
     assert GroundingServer(cfg, params, device="cpu").device.type == "cpu"
+    from nafae_torch.train import TrainState, fit
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TrainState.create(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit(cfg)
+    assert TrainState.create(cfg, device="cpu").device.type == "cpu"
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32

@@ -80,6 +80,6 @@ def test_load_eval_params(tmp_path):
         load_eval_params(cfg, str(tmp_path / "wrong.npz"), device="cpu")
     assert load_eval_params(cfg, str(tmp_path / "missing"),
                             device="cpu") is None
-    (tmp_path / "orbax").mkdir()
-    with pytest.raises(NotImplementedError, match="training slice"):
+    (tmp_path / "orbax" / "4").mkdir(parents=True)   # an orbax step dir
+    with pytest.raises(NotImplementedError, match="orbax"):
         load_eval_params(cfg, str(tmp_path / "orbax"), device="cpu")

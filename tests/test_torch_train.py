@@ -1,0 +1,225 @@
+"""The port's training step (nafae_torch.train) against the JAX package's,
+on the CPU, at test_train.py's small shapes (OV).
+
+Both start from one point: the JAX TrainState, converted with
+`state_from_jax`, and see the same numpy batches. Held: one step's metrics
+(rtol 1e-5) and gradients (rtol 1e-4 / atol 1e-6) for config2/3/4, and
+params and centers after 5 steps with k-means refreshes at steps 0, 2 and
+4, from this step's selections or from the selection bank (rtol 1e-4 /
+atol 1e-5; a one-step params check proves nothing, the
+first update has lr 0). The JAX CPU backend cannot execute bf16 dots
+(test_sp.py's bf16 step only compiles), so the port's bf16 step is held
+against JAX's f32 step at the 2e-2 of the JAX package's bf16-vs-f32 tests,
+gradients relative to each leaf's largest entry. Also: fit lowers the
+loss, a resumed run equals an uninterrupted one, and the CLI trains with
+--device cpu.
+"""
+
+from dataclasses import replace
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import nafae_tpu.config as jcfg
+import nafae_torch.config as tcfg
+from nafae_tpu import train as JT
+from nafae_tpu.data import BatchLoader, SegmentDataset
+from nafae_torch import train as TT
+from nafae_torch.models.grounding import state_from_jax
+
+OV = ["data.feat_dim=64", "model.feat_dim=64", "model.embed_dim=32",
+      "data.batch_size=8", "data.max_frames=8", "data.num_regions=6",
+      "data.max_words=3", "loss.num_clusters=8", "loss.kmeans_interval=5",
+      "train.warmup_steps=5", "train.log_every=1000", "train.ckpt_every=1000000",
+      "train.eval_every=1000000"]
+
+
+def _cfgs(synth_root, preset, extra=()):
+    ov = OV + [f"data.root={synth_root}"] + list(extra)
+    return (jcfg.load_config(preset_name=preset, overrides=ov),
+            tcfg.load_config(preset_name=preset, overrides=ov))
+
+
+def _batches(synth_root, cfg, n):
+    ds = SegmentDataset(synth_root, "train", cfg.data.max_frames,
+                        cfg.data.num_regions, cfg.data.feat_dim,
+                        cfg.data.max_words)
+    it = BatchLoader(ds, cfg.data.batch_size, shuffle=True,
+                     seed=0).steps(n)
+    return [b for _, b in it]
+
+
+def _start(jc):
+    """The JAX initial state as numpy, and the port's copy of it."""
+    js = jax.tree.map(np.asarray, JT.TrainState.create(
+        jax.random.PRNGKey(0), jc))
+    return js, state_from_jax(js, "cpu")
+
+
+def _jax_grads(js, batch, jc):
+    g = jax.jit(jax.grad(lambda p: JT.compute_losses(
+        p, js.centers, batch, jc, 0, kernels="auto")[0]))(js.params)
+    return {k: np.asarray(v) for k, v in g.items()}
+
+
+def _torch_grads(ts, tb, tc):
+    params = {k: v.detach().requires_grad_() for k, v in ts.params.items()}
+    total, _ = TT.compute_losses(params, ts.centers, tb, tc)
+    names = sorted(params)
+    gs = torch.autograd.grad(total, [params[k] for k in names],
+                             allow_unused=True)
+    return {k: np.zeros(params[k].shape, np.float32) if g is None
+            else g.numpy() for k, g in zip(names, gs)}
+
+
+@pytest.mark.parametrize("preset,dtype", [("config2", "float32"),
+                                          ("config3", "float32"),
+                                          ("config4", "float32"),
+                                          ("config4", "bfloat16")])
+def test_one_step_matches_jax(synth_root, preset, dtype):
+    jc, _ = _cfgs(synth_root, preset)
+    _, tc = _cfgs(synth_root, preset, [f"model.dtype={dtype}"])
+    batch = _batches(synth_root, jc, 1)[0]
+    js, ts = _start(jc)
+    tb = TT.batch_to_device(batch, torch.device("cpu"))
+    tol = (dict(rtol=1e-5, atol=1e-6) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-2))
+    gtol = (dict(rtol=1e-4, atol=1e-6) if dtype == "float32"
+            else dict(rtol=2e-2, atol=2e-2))
+    gj, gt = _jax_grads(js, batch, jc), _torch_grads(ts, tb, tc)
+    assert set(gj) == set(gt)
+    for k in gj:
+        if dtype == "float32":
+            np.testing.assert_allclose(gt[k], gj[k], err_msg=k, **gtol)
+        else:   # bf16: the gradient's direction, relative to its scale
+            scale = np.abs(gj[k]).max()
+            np.testing.assert_allclose(gt[k] / scale, gj[k] / scale,
+                                       err_msg=k, **gtol)
+    _, mj = JT.build_train_fn(jc, None)(
+        jax.tree.map(jax.numpy.asarray, js), batch)
+    _, mt = TT.train_step(ts, tb, tc)
+    assert set(mt) == set(mj)
+    for k in mj:
+        np.testing.assert_allclose(float(mt[k]), float(mj[k]), err_msg=k,
+                                   **tol)
+
+
+@pytest.mark.parametrize("preset,source", [("config2", "batch"),
+                                           ("config3", "batch"),
+                                           ("config4", "batch"),
+                                           ("config4", "bank")])
+def test_five_steps_match_jax(synth_root, preset, source):
+    jc, tc = _cfgs(synth_root, preset, ["loss.kmeans_interval=2",
+                                        f"loss.kmeans_source={source}",
+                                        "loss.bank_steps=3"])
+    batches = _batches(synth_root, jc, 5)
+    js, ts = _start(jc)
+    step = JT.build_train_fn(jc, None)
+    jstate = jax.tree.map(jax.numpy.asarray, js)
+    tx = TT.make_optimizer(tc)
+    for batch in batches:
+        jstate, _ = step(jstate, batch)
+        ts, _ = TT.train_step(ts, TT.batch_to_device(batch, ts.device), tc,
+                              tx)
+    assert ts.step == int(jstate.step) == 5
+    assert ts.opt_state["count"] == 5
+    for k, v in jstate.params.items():
+        np.testing.assert_allclose(ts.params[k].numpy(), np.asarray(v),
+                                   rtol=1e-4, atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(ts.centers.numpy(), np.asarray(jstate.centers),
+                               rtol=1e-4, atol=1e-5)
+    if source == "bank" and preset == "config4":
+        np.testing.assert_allclose(ts.bank.numpy(), np.asarray(jstate.bank),
+                                   rtol=1e-4, atol=1e-5)
+        np.testing.assert_array_equal(ts.bank_valid.numpy(),
+                                      np.asarray(jstate.bank_valid))
+    # config4's refreshes moved the centers away from their random start
+    moved = not np.allclose(ts.centers.numpy(), js.centers, atol=1e-3)
+    assert moved == (preset == "config4")
+
+
+def test_fit_lowers_the_loss(synth_root, tmp_path):
+    _, tc = _cfgs(synth_root, "config4", [f"train.ckpt_dir={tmp_path}/ck",
+                                          "train.steps=30", "train.lr=0.003",
+                                          "train.log_every=5"])
+    logs = []
+    state, _ = TT.fit(tc, device="cpu", log_fn=logs.append)
+    assert state.step == 30 and len(logs) == 6
+    assert logs[-1]["loss"] < logs[0]["loss"], [m["loss"] for m in logs]
+    from nafae_torch.utils.metrics_log import MetricsLogger
+    assert [m["step"] for m in MetricsLogger(str(tmp_path / "ck")).read()] \
+        == [5, 10, 15, 20, 25, 30]
+
+
+def test_resume_equals_an_uninterrupted_run(synth_root, tmp_path):
+    def run(ckpt_dir, steps):
+        _, tc = _cfgs(synth_root, "config4", [f"train.ckpt_dir={ckpt_dir}",
+                                              f"train.steps={steps}",
+                                              "loss.kmeans_interval=3"])
+        return TT.fit(tc, device="cpu")[0]
+
+    whole = run(tmp_path / "a", 7)
+    part = run(tmp_path / "b", 4)
+    assert part.step == 4
+    resumed = run(tmp_path / "b", 7)
+    assert resumed.step == 7
+    for k in whole.params:
+        torch.testing.assert_close(resumed.params[k], whole.params[k],
+                                   rtol=0, atol=0)
+    torch.testing.assert_close(resumed.centers, whole.centers, rtol=0, atol=0)
+    for k in whole.opt_state["mu"]:
+        torch.testing.assert_close(resumed.opt_state["nu"][k],
+                                   whole.opt_state["nu"][k], rtol=0, atol=0)
+
+
+def test_cli_trains_on_the_cpu(synth_root, tmp_path, capsys):
+    TT.main(["--preset", "config4", "--device", "cpu", "--override",
+             *OV, f"data.root={synth_root}", f"train.ckpt_dir={tmp_path}",
+             "train.steps=2", "train.log_every=1"])
+    out = capsys.readouterr().out
+    assert "step=2" in out and "l_clu=" in out
+    assert sorted(p.name for p in tmp_path.glob("state_*.pt")) == \
+        ["state_2.pt"]
+
+
+def test_loader_gives_the_jax_packages_batches(synth_root):
+    """SegmentDataset + BatchLoader of the port yield the JAX package's
+    batches, in the same seeded order, with frame buckets too."""
+    from nafae_torch.data.loader import BatchLoader as TLoader
+    from nafae_torch.data.youcook2 import SegmentDataset as TDataset
+
+    for buckets in ((), (4, 8)):
+        args = (synth_root, "train", 8, 6, 64, 3)
+        jl = BatchLoader(SegmentDataset(*args, frame_buckets=buckets), 4,
+                         seed=3)
+        tl = TLoader(TDataset(*args, frame_buckets=buckets), 4, seed=3)
+        assert tl.batches_per_epoch() == jl.batches_per_epoch()
+        got = [b for _, b in tl.steps(10, start_epoch=1, skip=2)]
+        want = [b for _, b in jl.steps(10, start_epoch=1, skip=2)]
+        for g, w in zip(got, want):
+            assert set(g) == set(w)
+            for k in w:
+                np.testing.assert_array_equal(g[k], w[k], err_msg=k)
+
+
+def test_checkpoints_keep_the_newest(tmp_path):
+    """keep=N drops older checkpoints; the newest restores the whole state
+    and serves its params (load_eval_params on the directory)."""
+    from nafae_torch.utils.checkpoint import (CheckpointManager,
+                                              load_eval_params)
+
+    _, tc = _cfgs(str(tmp_path), "config4")
+    state = TT.TrainState.create(tc, device="cpu")
+    ckpt = CheckpointManager(str(tmp_path / "ck"), keep=2)
+    assert ckpt.restore_latest(state) is None
+    for step in (1, 2, 3):
+        ckpt.save(replace(state, step=step))
+    assert ckpt.steps() == [2, 3]
+    back = ckpt.restore_latest(state)
+    assert back.step == 3 and back.opt_state["count"] == 0
+    served = load_eval_params(tc, str(tmp_path / "ck"), device="cpu")
+    for k in state.params:
+        assert torch.equal(back.params[k], state.params[k])
+        assert torch.equal(served[k], state.params[k])
