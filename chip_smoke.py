@@ -13,7 +13,11 @@ made from seeds. Phases, each of which fails loudly (exit code != 0):
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes and at edge shapes, in f32 and bf16: K1f (u), K1fr (u and
    alpha), K1b and K1br (dv_ext against autograd through the plain
-   version), and CtxMix end to end;
+   version), CtxMix end to end; the fused cross-MIL K3 (a, and idx where
+   the top two scores are clear of ties; R = 40, an all-masked frame,
+   exact ties resolved to the first region), the diag epilogue K4f (ctx,
+   clu, f, its residuals, r* and c*) and K4b (dw, dv on K4f's residuals),
+   with K = 7, R = 40 and Kc = 67 among the cases;
 4. serving (main path 1): a config4 GroundingServer at full width, with
    planted-signal oracle weights, answers synthetic requests in process
    and over HTTP, in f32 and bf16; the launch counts show that the path
@@ -24,9 +28,15 @@ made from seeds. Phases, each of which fails loudly (exit code != 0):
    must lower the loss and launch K1fr and K1br once per step; with
    ALPHA_RESIDUAL off, K1f and K1b once per step; the first steps'
    metrics and one step's gradients must agree with a CPU re-run;
-6. times from CUDA events (median of repeated runs after warm-up): each
-   kernel, its plain version, one full serving batch and one training
-   step, with torch.profiler breakdowns.
+6. training with `train.kernels=pallas` (main path 3): the same runs must
+   lower the loss and launch, each step, K3 twice, K4f, K4b, K1fr and
+   K1br once; the first steps and one step's gradients must agree with a
+   CPU re-run, and the first step's loss and gradients with the auto
+   route on the same batch;
+7. times from CUDA events (median of repeated runs after warm-up): each
+   kernel, its plain version (and, for K3, the two PyTorch calls of the
+   auto route), one full serving batch and one training step of each
+   route, with torch.profiler breakdowns.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -68,7 +78,9 @@ CPU_GRAD_TOL = (1e-4, 1e-6)
 TRAIN_OVERRIDES = ["train.lr=0.003", "train.warmup_steps=2",
                    "loss.kmeans_interval=10", "train.log_every=1",
                    "train.ckpt_every=1000000", "train.eval_every=1000000"]
-SOURCES = ("ctx_mix", "ctx_mix_bwd")    # nafae_torch/csrc/<name>.cu
+SOURCES = ("ctx_mix", "ctx_mix_bwd", "cross_mil", "diag_epilogue",
+           "diag_epilogue_bwd")         # nafae_torch/csrc/<name>.cu
+ROUTES = ("auto", "pallas")             # train.kernels of the training runs
 # kernel against plain, rtol and atol: the plain version rounds like the
 # kernel (bf16 operands, alpha rounded to bf16, f32 sums), so bf16 differs
 # only by the order of the sums and an occasional alpha rounded the other way
@@ -81,6 +93,22 @@ ALPHA_TOL = {"float32": (1e-4, 1e-6), "bfloat16": (1e-2, 1e-6)}
 # the TPU kernels do, the plain autograd rounds at its casts instead, so
 # bf16 takes the reference tests' 2e-2
 GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2e-2)}
+# K3 against plain: both sum the same f32 products (bf16 operands in bf16
+# mode), in other orders
+CROSS_TOL = (1e-5, 1e-5)
+# K4f's ctx against plain: f32 sums in other orders; in bf16 a ctx term
+# (s - ŝ)² may round to the neighbouring bf16 number
+DIAG_CTX_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-4)}
+# K4f's clu and residual, K4b's dw and dv against plain: the kernels round
+# the same f32 values at the same points, so only the order of the f32
+# sums differs, in both dtypes
+DIAG_TOL = (1e-4, 1e-5)
+# argmaxes (K3's idx, K4f's r* and c*) are held equal wherever the top two
+# scores differ by more than this; closer pairs may go either way
+TIE_GAP = 1e-4
+# the pallas route against the auto route on one batch, f32: the loss (rtol)
+# and each gradient leaf (atol, as a fraction of the leaf's largest entry)
+PALLAS_AUTO_TOL = (1e-5, 1e-4)
 
 
 def log(msg: str) -> None:
@@ -249,6 +277,193 @@ def check_ctx_grad(torch, device) -> dict[str, float]:
     K.ALPHA_RESIDUAL = True
     log("CtxMix: u carries a grad_fn; backward launched K1fr+K1br "
         "(residual) and K1f+K1b (recompute), once each")
+    return errs
+
+
+def unit_rows(torch, gen, *shape):
+    x = torch.randn(*shape, generator=gen)
+    return x / x.norm(dim=-1, keepdim=True)
+
+
+def frame_region_masks(torch, gen, b, t, r):
+    """Random frame and region masks with a valid frame whose regions are
+    all masked (video 0, frame 0)."""
+    fm = (torch.rand(b, t, generator=gen) > 0.2).float()
+    rm = (torch.rand(b, t, r, generator=gen) > 0.3).float()
+    fm[0, 0] = 1.0
+    rm[0, 0] = 0.0
+    return fm, rm
+
+
+def clear_of_ties(torch, scores, gap=TIE_GAP):
+    """Where the top two scores of the last axis differ by more than gap."""
+    if scores.shape[-1] == 1:
+        return torch.ones(scores.shape[:-1], dtype=torch.bool,
+                          device=scores.device)
+    top = scores.topk(2, dim=-1).values
+    return top[..., 0] - top[..., 1] > gap
+
+
+def check_cross_mil(torch, device) -> dict[str, float]:
+    """K3 against its plain version on the card: config4's training shapes
+    (I=16 videos, M=B·K=128 words, T=20, R=20, E=256), R=40 (K3a's
+    domain), no region mask, and a ragged case (M=40, T=7, R=33) with exact
+    ties; each with a valid frame whose regions are all masked. Returns the
+    max |a| error per dtype."""
+    from nafae_torch.ops.kernels import cross_mil as K3
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    cases = [(16, 128, 20, 20, 256, True, False),
+             (16, 128, 20, 40, 256, True, False),
+             (16, 128, 20, 20, 256, False, False),
+             (3, 40, 7, 33, 64, True, True)]
+    rtol, atol = CROSS_TOL
+    errs = {}
+    for dt_name, dt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        worst = 0.0
+        for i, m, t, r, e, with_rm, tied in cases:
+            w = unit_rows(torch, gen, m, e)
+            v = unit_rows(torch, gen, i, t, r, e)
+            fm, rm = frame_region_masks(torch, gen, i, t, r)
+            if tied:       # duplicate rows: exact ties, first region wins
+                v[:, :, 16] = v[:, :, 8]
+                v[:, :, r - 1] = v[:, :, 0]
+                rm[:, :, 16] = rm[:, :, 8]
+                rm[:, :, r - 1] = rm[:, :, 0]
+            w, v = w.to(dt).to(device), v.to(dt).to(device)
+            fm, rm = fm.to(device), rm.to(device) if with_rm else None
+            case = (f"{dt_name} I={i} M={m} T={t} R={r} E={e} rm={with_rm} "
+                    f"ties={tied}")
+            a, idx = K3.launch(w, v, fm, rm)
+            torch.cuda.synchronize()
+            ap, idxp = K3.cross_mil_plain(w, v, fm, rm)
+            if not torch.isfinite(a).all():
+                fail(f"cross_mil gave non-finite values: {case}")
+            err = (a - ap).abs().max().item()
+            if not torch.allclose(a, ap, rtol=rtol, atol=atol):
+                fail(f"cross_mil differs from the plain version by {err}: "
+                     f"{case}")
+            s = torch.einsum("me,itre->imtr", w.float(), v.float())
+            if rm is not None:
+                s = torch.where(rm[:, None] > 0, s, K3.NEG)
+            clear = clear_of_ties(torch, s)
+            if not torch.equal(idx[clear], idxp[clear]):
+                fail(f"cross_mil idx differs from the plain version where "
+                     f"the top two scores are clear of ties: {case}")
+            if tied and ((idx == 16) | (idx == r - 1)).any():
+                fail(f"cross_mil resolved an exact tie to the later region: "
+                     f"{case}")
+            if with_rm and not ((a[0, :, 0] == K3.NEG).all()
+                                and (idx[0, :, 0] == 0).all()):
+                fail(f"cross_mil: an all-masked valid frame must give -1e9 "
+                     f"and idx 0: {case}")
+            worst = max(worst, err)
+        errs[dt_name] = worst
+        log(f"cross_mil vs plain, {dt_name}: max |a err| {worst:.3e} (rtol "
+            f"{rtol}, atol {atol}; idx equal where the top two differ by > "
+            f"{TIE_GAP}; {len(cases)} cases)")
+    return errs
+
+
+def compare_diag(torch, w, v, u, centers, fm, hc, rm, case, tied=False
+                 ) -> dict[str, float]:
+    """K4f and K4b against their plain versions on one input (K4b on K4f's
+    residuals, with random cotangents); returns the max |error| of each."""
+    from nafae_torch.ops.grounding import l2_normalize
+    from nafae_torch.ops.kernels import diag as K4
+
+    dt_name = "bfloat16" if v.dtype == torch.bfloat16 else "float32"
+    got = K4.launch_fwd(w, v, u, centers, fm, hc, rm)
+    torch.cuda.synchronize()
+    want = K4.diag_fwd_plain(w, v, u, centers, fm, hc, rm)
+    ctx, clu, f, d, rstar, cstar = got
+    for name, x in (("ctx", ctx), ("clu", clu), ("f", f), ("d", d)):
+        if not torch.isfinite(x).all():
+            fail(f"diag_epilogue gave non-finite {name}: {case}")
+    s = torch.einsum("bke,btre->bktr", w.float(), v.float())
+    if rm is not None:
+        s = torch.where(rm[:, None] > 0, s, K4.NEG)
+    clear_r = clear_of_ties(torch, s)
+    rnd = (lambda x: x.to(torch.bfloat16).float()) \
+        if v.dtype == torch.bfloat16 else (lambda x: x)
+    sims = torch.einsum("btke,ce->bktc", want[2],
+                        rnd(l2_normalize(centers)))
+    both = clear_r & clear_of_ties(torch, sims)
+    if not torch.equal(rstar[clear_r], want[4][clear_r]) \
+            or not torch.equal(f.permute(0, 2, 1, 3)[clear_r],
+                               want[2].permute(0, 2, 1, 3)[clear_r]):
+        fail(f"diag_epilogue r* or f differ from the plain version where "
+             f"the top two scores are clear of ties: {case}")
+    if not torch.equal(cstar[both], want[5][both]):
+        fail(f"diag_epilogue c* differs from the plain version where the "
+             f"top two sims are clear of ties: {case}")
+    if tied and ((rstar == 16).any() or (cstar == 5).any()):
+        fail(f"diag_epilogue resolved an exact tie to the later index: {case}")
+    errs = {}
+    for name, g, wnt, (rtol, atol) in (
+            ("ctx", ctx, want[0], DIAG_CTX_TOL[dt_name]),
+            ("clu", clu[both], want[1][both], DIAG_TOL),
+            ("d", d, want[3], DIAG_TOL)):
+        errs[name] = (g - wnt).abs().max().item() if g.numel() else 0.0
+        if not torch.allclose(g, wnt, rtol=rtol, atol=atol):
+            fail(f"diag_epilogue {name} differs from the plain version by "
+                 f"{errs[name]} (rtol {rtol}, atol {atol}): {case}")
+    gen = torch.Generator().manual_seed(SEED + 4)
+    dctx = torch.rand(ctx.shape, generator=gen).to(v.device)
+    dclu = torch.rand(clu.shape, generator=gen).to(v.device)
+    dw, dv = K4.launch_bwd(w, v, centers, d, rstar, cstar, f, dctx, dclu)
+    torch.cuda.synchronize()
+    pdw, pdv = K4.diag_bwd_plain(w, v, centers, d, rstar, cstar, f, dctx,
+                                 dclu)
+    rtol, atol = DIAG_TOL
+    for name, g, wnt in (("dw", dw, pdw), ("dv", dv, pdv)):
+        errs[name] = (g - wnt).abs().max().item()
+        if not torch.isfinite(g).all() or not torch.allclose(
+                g, wnt, rtol=rtol, atol=atol):
+            fail(f"diag_epilogue_bwd {name} differs from the plain version "
+                 f"by {errs[name]} (rtol {rtol}, atol {atol}): {case}")
+    return errs
+
+
+def check_diag(torch, device) -> dict[str, dict[str, float]]:
+    """K4f and K4b against their plain versions on the card: config4's
+    shapes (B=16, K=8, T=20, R=20, E=256, Kc=67), K=7 with R=40 and exact
+    ties (duplicate regions and centers), and no region mask; each with a
+    valid frame whose regions are all masked and frames without context.
+    Returns the max errors by output and dtype."""
+    gen = torch.Generator().manual_seed(SEED + 3)
+    cases = [(16, 8, 20, 20, 256, 67, True, False),
+             (4, 7, 9, 40, 256, 67, True, True),
+             (4, 8, 20, 20, 256, 67, False, False)]
+    errs = {}
+    for dt_name, dt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        worst: dict[str, float] = {}
+        for b, k, t, r, e, kc, with_rm, tied in cases:
+            w = unit_rows(torch, gen, b, k, e)
+            v = unit_rows(torch, gen, b, t, r, e)
+            u = 0.5 * torch.randn(b, t, r, e, generator=gen)
+            centers = unit_rows(torch, gen, kc, e)
+            fm, rm = frame_region_masks(torch, gen, b, t, r)
+            hc = (torch.rand(b, t, generator=gen) > 0.2).float()
+            if tied:
+                v[:, :, 16] = v[:, :, 8]
+                rm[:, :, 16] = rm[:, :, 8]
+                centers[5] = centers[2]
+            got = compare_diag(
+                torch, *(x.to(dt).to(device) for x in (w, v, u)),
+                *(x.to(device) for x in (centers, fm, hc)),
+                rm.to(device) if with_rm else None,
+                f"{dt_name} B={b} K={k} T={t} R={r} E={e} Kc={kc} "
+                f"rm={with_rm} ties={tied}", tied)
+            worst = {n: max(worst.get(n, 0.0), x) for n, x in got.items()}
+        errs[dt_name] = worst
+        log(f"diag_epilogue (K4f) / diag_epilogue_bwd (K4b) vs plain, "
+            f"{dt_name}: max |err| " + ", ".join(
+                f"{n} {x:.3e}" for n, x in worst.items())
+            + f" (ctx {DIAG_CTX_TOL[dt_name]}, others {DIAG_TOL} as rtol, "
+            f"atol; r*, f, c* equal where clear of ties; {len(cases)} cases)")
     return errs
 
 
@@ -439,17 +654,40 @@ def make_train_data(root: str) -> None:
                                max_words=8, seed=SEED)
 
 
-def train_cfg(root: str, ckpt: str, dtype: str, steps: int):
+def train_cfg(root: str, ckpt: str, dtype: str, steps: int,
+              kernels: str = "auto"):
     from nafae_torch.config import load_config
 
     return load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
         f"data.root={root}", f"train.ckpt_dir={ckpt}", f"model.dtype={dtype}",
-        f"train.steps={steps}"])
+        f"train.steps={steps}", f"train.kernels={kernels}"])
 
 
-def zero_counts(K) -> None:
-    for k in K.launches:
-        K.launches[k] = 0
+def kernel_modules():
+    from nafae_torch.ops.kernels import cross_mil, ctx_mix, diag
+
+    return ctx_mix, cross_mil, diag
+
+
+def zero_counts() -> None:
+    """Sets every kernel's launch count to 0."""
+    for mod in kernel_modules():
+        for k in mod.launches:
+            mod.launches[k] = 0
+
+
+def read_counts() -> dict[str, int]:
+    return {k: n for mod in kernel_modules() for k, n in mod.launches.items()}
+
+
+def per_step_launches(route: str, residual: bool = True) -> dict[str, int]:
+    """Launches of each kernel in one training step of `route`."""
+    want = dict.fromkeys(read_counts(), 0)
+    want["ctx_mix_fwd_res" if residual else "ctx_mix_fwd"] = 1
+    want["ctx_mix_bwd_res" if residual else "ctx_mix_bwd"] = 1
+    if route == "pallas":
+        want.update(cross_mil=2, diag_epilogue=1, diag_epilogue_bwd=1)
+    return want
 
 
 def run_fit(torch, cfg, device="cuda") -> list[dict]:
@@ -467,45 +705,51 @@ def run_fit(torch, cfg, device="cuda") -> list[dict]:
 
 
 def train(torch, root: str, tmp: str) -> dict:
-    """The training main path: fit in f32 and bf16 (K1fr + K1br once a
-    step), then with ALPHA_RESIDUAL off (K1f + K1b once a step). Each run
-    is read with the launch counts zeroed just before it."""
+    """The training main paths: fit in f32 and bf16 with train.kernels
+    auto (K1fr + K1br once a step) and pallas (also K3 twice, K4f and K4b
+    once a step), then auto with ALPHA_RESIDUAL off (K1f + K1b once a
+    step). Each run is read with the launch counts zeroed just before it.
+    Returns {route: {dtype: {"logs", "launches"}}, "recompute": ...}."""
     from nafae_torch.ops.kernels import ctx_mix as K
 
     out = {}
-    for dt, steps in TRAIN_STEPS.items():
-        cfg = train_cfg(root, os.path.join(tmp, f"ck_{dt}"), dt, steps)
-        zero_counts(K)                          # main path starts here
-        t0 = time.perf_counter()
-        logs = run_fit(torch, cfg)
-        wall = time.perf_counter() - t0
-        counts = dict(K.launches)               # ... and ends here
-        want = {"ctx_mix_fwd": 0, "ctx_mix_fwd_res": steps,
-                "ctx_mix_bwd": 0, "ctx_mix_bwd_res": steps}
-        if counts != want:
-            fail(f"{dt} training launched {counts}, expected {want}")
-        first = statistics.mean(m["loss"] for m in logs[:3])
-        last = statistics.mean(m["loss"] for m in logs[-3:])
-        log(f"trained config4 {steps} steps ({dt}) in {wall:.2f} s incl. "
-            f"set-up: loss {logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f} "
-            f"(mean of first 3 {first:.5f}, last 3 {last:.5f}); launches "
-            f"{counts}")
-        if not last < first:
-            fail(f"{dt} training did not lower the loss: {first} -> {last}")
-        out[dt] = {"logs": logs, "launches": counts}
+    for route in ROUTES:
+        out[route] = {}
+        for dt, steps in TRAIN_STEPS.items():
+            cfg = train_cfg(root, os.path.join(tmp, f"ck_{route}_{dt}"), dt,
+                            steps, route)
+            zero_counts()                       # main path starts here
+            t0 = time.perf_counter()
+            logs = run_fit(torch, cfg)
+            wall = time.perf_counter() - t0
+            counts = read_counts()              # ... and ends here
+            want = {k: n * steps for k, n in per_step_launches(route).items()}
+            if counts != want:
+                fail(f"{dt} training ({route}) launched {counts}, expected "
+                     f"{want}")
+            first = statistics.mean(m["loss"] for m in logs[:3])
+            last = statistics.mean(m["loss"] for m in logs[-3:])
+            log(f"trained config4 {steps} steps ({dt}, kernels={route}) in "
+                f"{wall:.2f} s incl. set-up: loss {logs[0]['loss']:.5f} -> "
+                f"{logs[-1]['loss']:.5f} (mean of first 3 {first:.5f}, last "
+                f"3 {last:.5f}); launches {counts}")
+            if not last < first:
+                fail(f"{dt} training ({route}) did not lower the loss: "
+                     f"{first} -> {last}")
+            out[route][dt] = {"logs": logs, "launches": counts}
 
     K.ALPHA_RESIDUAL = False
     try:
         steps = CPU_STEPS
         cfg = train_cfg(root, os.path.join(tmp, "ck_recompute"), "float32",
                         steps)
-        zero_counts(K)                          # main path starts here
+        zero_counts()                           # main path starts here
         run_fit(torch, cfg)
-        counts = dict(K.launches)               # ... and ends here
+        counts = read_counts()                  # ... and ends here
     finally:
         K.ALPHA_RESIDUAL = True
-    want = {"ctx_mix_fwd": steps, "ctx_mix_fwd_res": 0,
-            "ctx_mix_bwd": steps, "ctx_mix_bwd_res": 0}
+    want = {k: n * steps for k, n in
+            per_step_launches("auto", residual=False).items()}
     if counts != want:
         fail(f"training with ALPHA_RESIDUAL off launched {counts}, "
              f"expected {want}")
@@ -514,15 +758,37 @@ def train(torch, root: str, tmp: str) -> dict:
     return out
 
 
-def check_train_cpu_rerun(torch, root: str, tmp: str, logs: list[dict]):
+def first_batch(root: str):
+    """The first training batch (numpy), as fit's loader gives it."""
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.youcook2 import SegmentDataset
+
+    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
+    return next(iter(BatchLoader(ds, 16, shuffle=True, seed=0)))
+
+
+def step_grads(torch, cfg, state, batch, kernels):
+    """(loss, {name: gradient on the CPU}) of one compute_losses call."""
+    from nafae_torch.train import batch_to_device, compute_losses
+
+    params = {k: v.detach().requires_grad_() for k, v in state.params.items()}
+    total, _ = compute_losses(params, state.centers,
+                              batch_to_device(batch, state.device), cfg,
+                              kernels)
+    names = sorted(params)
+    gs = torch.autograd.grad(total, [params[k] for k in names])
+    return float(total.detach()), {k: g.cpu() for k, g in zip(names, gs)}
+
+
+def check_train_cpu_rerun(torch, root: str, tmp: str, logs: list[dict],
+                          kernels: str = "auto"):
     """The first CPU_STEPS steps re-run on the CPU (same data, same seed)
     against the card's f32 run; and one step's gradients, card against CPU,
     from the same initial state and batch."""
-    from nafae_torch.data.loader import BatchLoader
-    from nafae_torch.data.youcook2 import SegmentDataset
-    from nafae_torch.train import TrainState, batch_to_device, compute_losses
+    from nafae_torch.train import TrainState
 
-    cfg = train_cfg(root, os.path.join(tmp, "ck_cpu"), "float32", CPU_STEPS)
+    cfg = train_cfg(root, os.path.join(tmp, f"ck_cpu_{kernels}"), "float32",
+                    CPU_STEPS, kernels)
     cpu_logs = run_fit(torch, cfg, device="cpu")
     rtol, atol = CPU_METRIC_TOL
     worst = 0.0
@@ -534,19 +800,9 @@ def check_train_cpu_rerun(torch, root: str, tmp: str, logs: list[dict]):
                 fail(f"step {c['step']} {k}: card {g[k]} vs CPU {c[k]}")
             if k != "step":
                 worst = max(worst, abs(g[k] - c[k]) / max(abs(c[k]), 1e-30))
-    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
-    batch = next(iter(BatchLoader(ds, 16, shuffle=True, seed=0)))
-    grads = {}
-    for dev in ("cuda", "cpu"):
-        state = TrainState.create(cfg, device=dev)
-        params = {k: v.detach().requires_grad_()
-                  for k, v in state.params.items()}
-        total, _ = compute_losses(params, state.centers,
-                                  batch_to_device(batch, torch.device(dev)),
-                                  cfg)
-        names = sorted(params)
-        gs = torch.autograd.grad(total, [params[k] for k in names])
-        grads[dev] = {k: g.cpu() for k, g in zip(names, gs)}
+    batch = first_batch(root)
+    grads = {dev: step_grads(torch, cfg, TrainState.create(cfg, device=dev),
+                             batch, kernels)[1] for dev in ("cuda", "cpu")}
     grtol, gatol = CPU_GRAD_TOL
     gworst = 0.0
     for k, gc in grads["cpu"].items():
@@ -557,11 +813,43 @@ def check_train_cpu_rerun(torch, root: str, tmp: str, logs: list[dict]):
             fail(f"gradient of {k}: card and CPU differ by {err} "
                  f"(largest entry {scale})")
         gworst = max(gworst, err / max(scale, 1e-30))
-    log(f"CPU re-run of the first {CPU_STEPS} f32 training steps: metrics "
+    log(f"CPU re-run of the first {CPU_STEPS} f32 training steps "
+        f"(kernels={kernels}): metrics "
         f"agree, max relative diff {worst:.3e} (limit rtol {rtol}, atol "
         f"{atol}); one step's gradients agree, max |diff| / largest entry "
         f"{gworst:.3e} (limit rtol {grtol}, atol {gatol} x largest entry)")
     return {"metric_rel_diff": worst, "grad_rel_diff": gworst}
+
+
+def check_pallas_vs_auto(torch, root: str, tmp: str) -> dict:
+    """The first step's loss and gradients on the card, f32, from one
+    initial state and batch: the pallas route (K3, K4f/K4b) against the
+    auto route (dense products, autograd)."""
+    from nafae_torch.train import TrainState
+
+    cfg = train_cfg(root, os.path.join(tmp, "ck_routes"), "float32", 1)
+    state = TrainState.create(cfg, device="cuda")
+    batch = first_batch(root)
+    (la, ga), (lp, gp) = (step_grads(torch, cfg, state, batch, route)
+                          for route in ROUTES)
+    rtol, frac = PALLAS_AUTO_TOL
+    if not abs(lp - la) <= rtol * abs(la):
+        fail(f"the pallas route's loss {lp} differs from the auto route's "
+             f"{la} by more than rtol {rtol}")
+    worst = 0.0
+    for k, g in ga.items():
+        scale = max(g.abs().max().item(), 1e-30)
+        err = (gp[k] - g).abs().max().item()
+        if err > frac * scale:
+            fail(f"gradient of {k}: pallas and auto routes differ by {err} "
+                 f"(largest entry {scale})")
+        worst = max(worst, err / scale)
+    log(f"first step, pallas route vs auto route (f32, same batch): loss "
+        f"{lp:.8f} vs {la:.8f} (rel diff {abs(lp - la) / abs(la):.3e}, limit "
+        f"{rtol}); gradients max |diff| / largest entry {worst:.3e} (limit "
+        f"{frac})")
+    return {"loss_pallas": lp, "loss_auto": la,
+            "loss_rel_diff": abs(lp - la) / abs(la), "grad_rel_diff": worst}
 
 
 # ------------------------------------------------------------- times
@@ -632,18 +920,11 @@ def ctx_bound_ms(torch, v_ext, fm_ext, rm_ext, w, flops_per_pair: int,
     bf16 tensor cores for bf16."""
     b, t_ext, r, e = v_ext.shape
     t = t_ext - 2 * w
-    nbytes = (v_ext.numel() * v_ext.element_size() + fm_ext.numel() * 4
-              + (rm_ext.numel() * 4 if rm_ext is not None else 0)
-              + more_bytes)
     fm_c = fm_ext[:, w:w + t]
     live = sum(int((fm_ext[:, w + o:w + o + t] * fm_c).count_nonzero())
                for o in range(-w, w + 1) if o != 0)
-    flops = flops_per_pair * r * r * e * live
-    peak = (H100_BF16_FLOPS if v_ext.dtype == torch.bfloat16
-            else H100_F32_FLOPS)
-    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+    return bound(torch, nbytes(v_ext, fm_ext, rm_ext) + more_bytes,
+                 flops_per_pair * r * r * e * live, v_ext.dtype)
 
 
 def fwd_bound_ms(torch, v_ext, fm_ext, rm_ext, w, residual=False):
@@ -704,7 +985,7 @@ def timings(torch, srv, segs) -> dict:
             torch, lambda: srv._fn(tb["feats"], tb["boxes"], tb["word_ids"],
                                    tb["frame_mask"], tb["word_mask"],
                                    tb["region_mask"]))
-    zero_counts(K)
+    zero_counts()
     srv.run_batch(batch)
     res["launches_per_batch"] = K.launches["ctx_mix_fwd"]
     # one full batch as a caller sees it: host arrays in, host arrays out
@@ -730,19 +1011,13 @@ def train_timings(torch, root: str, tmp: str) -> dict:
     from the initial params: device times of K1fr, K1b and K1br and of
     their plain versions (autograd through context_mix_plain: its forward,
     which keeps its residuals, and its backward alone) in f32 and bf16;
-    then one training step in f32 and bf16: CUDA events around the step,
-    host to host (numpy batch in, metrics ready), and torch.profiler's
-    device busy time and kernels by device time."""
-    from nafae_torch.data.loader import BatchLoader
-    from nafae_torch.data.youcook2 import SegmentDataset
+    then one training step of each route in f32 and bf16 (step_timings)."""
     from nafae_torch.ops import grounding as TG
     from nafae_torch.ops.kernels import ctx_mix as K
-    from nafae_torch.train import (TrainState, batch_to_device,
-                                   make_optimizer, train_step)
+    from nafae_torch.train import TrainState, batch_to_device
 
     dev = torch.device("cuda")
-    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
-    batch = next(iter(BatchLoader(ds, 16, shuffle=True, seed=0)))
+    batch = first_batch(root)
     tb = batch_to_device(batch, dev)
     cfg = train_cfg(root, os.path.join(tmp, "ck_time"), "float32", 1000)
     state = TrainState.create(cfg, device=dev)
@@ -776,65 +1051,182 @@ def train_timings(torch, root: str, tmp: str) -> dict:
         res["plain_bwd_ms" + tag] = profile_forward(
             torch, lambda: torch.autograd.grad(up, vp, du,
                                                retain_graph=True))[1]
-        for key, bound in (
+        for key, bnd in (
                 ("fwd_res", fwd_bound_ms(torch, v, fm_ext, rm_ext, w, True)),
                 ("bwd", bwd_bound_ms(torch, v, fm_ext, rm_ext, w, False)),
                 ("bwd_res", bwd_bound_ms(torch, v, fm_ext, rm_ext, w, True))):
-            res[key + "_bound_ms" + tag], res[key + "_bound_by" + tag] = bound
+            res[key + "_bound_ms" + tag], res[key + "_bound_by" + tag] = bnd
 
     frames = b * (t_ext - 2 * w)
-    for dt in TRAIN_STEPS:
-        cfg = train_cfg(root, os.path.join(tmp, "ck_time"), dt, 1000)
-        tx = make_optimizer(cfg)
-        st = TrainState.create(cfg, device=dev)
-        for _ in range(3):
-            st, _ = train_step(st, batch_to_device(batch, dev), cfg, tx)
+    for route in ROUTES:
+        for dt in TRAIN_STEPS:
+            tag = (("" if route == "auto" else "_pallas")
+                   + ("" if dt == "float32" else "_bf16"))
+            res.update(step_timings(torch, root, tmp, batch, dt, route, tag,
+                                    frames))
+    return res
+
+
+def step_timings(torch, root, tmp, batch, dt, route, tag, frames) -> dict:
+    """One training step of `route` in `dt`: CUDA events around the step,
+    host to host (numpy batch in, metrics ready), the same on a resident
+    batch, the batch's copy alone, and torch.profiler's device busy time
+    and kernels by device time. Keys end in `tag`."""
+    from nafae_torch.train import (TrainState, batch_to_device,
+                                   make_optimizer, train_step)
+
+    dev = torch.device("cuda")
+    tb = batch_to_device(batch, dev)
+    cfg = train_cfg(root, os.path.join(tmp, "ck_time"), dt, 1000, route)
+    tx = make_optimizer(cfg)
+    st = TrainState.create(cfg, device=dev)
+    for _ in range(3):
+        st, _ = train_step(st, batch_to_device(batch, dev), cfg, tx)
+    torch.cuda.synchronize()
+    host, events = [], []
+    for _ in range(12):
+        a = torch.cuda.Event(enable_timing=True)
+        z = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        st, m = train_step(st, batch_to_device(batch, dev), cfg, tx)
+        z.record()
+        float(m["loss"])                        # metrics ready on the host
+        host.append((time.perf_counter() - t0) * 1e3)
+        events.append(a.elapsed_time(z))
+    resident, h2d = [], []
+    for _ in range(12):
+        t0 = time.perf_counter()
+        st, m = train_step(st, tb, cfg, tx)
+        float(m["loss"])
+        resident.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        batch_to_device(batch, dev)
         torch.cuda.synchronize()
-        host, events = [], []
-        for _ in range(12):
-            a = torch.cuda.Event(enable_timing=True)
-            z = torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            a.record()
-            st, m = train_step(st, batch_to_device(batch, dev), cfg, tx)
-            z.record()
-            float(m["loss"])                    # metrics ready on the host
-            host.append((time.perf_counter() - t0) * 1e3)
-            events.append(a.elapsed_time(z))
-        resident, h2d = [], []
-        for _ in range(12):
-            t0 = time.perf_counter()
-            st, m = train_step(st, tb, cfg, tx)
-            float(m["loss"])
-            resident.append((time.perf_counter() - t0) * 1e3)
-            t0 = time.perf_counter()
-            batch_to_device(batch, dev)
-            torch.cuda.synchronize()
-            h2d.append((time.perf_counter() - t0) * 1e3)
-        top, busy, ops = profile_forward(
-            torch, lambda: train_step(st, tb, cfg, tx))
-        tag = "" if dt == "float32" else "_bf16"
-        res["step_host_ms_resident" + tag] = statistics.median(resident)
-        res["step_h2d_ms" + tag] = statistics.median(h2d)
-        res["step_device_ops" + tag] = ops
-        res["step_event_ms" + tag] = statistics.median(events)
-        res["step_host_ms" + tag] = statistics.median(host)
-        res["step_device_busy_ms" + tag] = busy
-        res["step_kernels" + tag] = top
-        res["frames_per_s_event" + tag] = frames / res["step_event_ms" + tag] * 1e3
-        res["frames_per_s_host" + tag] = frames / res["step_host_ms" + tag] * 1e3
+        h2d.append((time.perf_counter() - t0) * 1e3)
+    top, busy, ops = profile_forward(
+        torch, lambda: train_step(st, tb, cfg, tx))
+    res = {"step_host_ms_resident" + tag: statistics.median(resident),
+           "step_h2d_ms" + tag: statistics.median(h2d),
+           "step_device_ops" + tag: ops,
+           "step_event_ms" + tag: statistics.median(events),
+           "step_host_ms" + tag: statistics.median(host),
+           "step_device_busy_ms" + tag: busy,
+           "step_kernels" + tag: top}
+    res["frames_per_s_event" + tag] = frames / res["step_event_ms" + tag] * 1e3
+    res["frames_per_s_host" + tag] = frames / res["step_host_ms" + tag] * 1e3
+    return res
+
+
+def bound(torch, nbytes: float, flops: float, dtype) -> tuple[float, str]:
+    """(least ms, what bounds it): `nbytes` over the memory rate against
+    `flops` over the peak rate for the operands' type (f32 CUDA cores, or
+    bf16 tensor cores)."""
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def nbytes(*xs) -> int:
+    return sum(x.numel() * x.element_size() for x in xs if x is not None)
+
+
+def fused_timings(torch, root: str, tmp: str) -> dict:
+    """On the first training batch (config4, B=16, K=8, T=20, R=20, E=256,
+    Kc=67, its own masks), from the initial params, in f32 and bf16: device
+    times (CUDA graphs) of K3, K4f and K4b, of their plain versions, and for
+    K3 of the two PyTorch calls that compute the same max on the auto route
+    (torch.matmul, then torch.max over R: no mask); their bounds from these
+    inputs; and each kernel's max |error| against its plain version here."""
+    from nafae_torch.ops import grounding as TG
+    from nafae_torch.ops.kernels import cross_mil as K3
+    from nafae_torch.ops.kernels import diag as K4
+    from nafae_torch.train import TrainState, batch_to_device
+
+    dev = torch.device("cuda")
+    tb = batch_to_device(first_batch(root), dev)
+    cfg = train_cfg(root, os.path.join(tmp, "ck_fused"), "float32", 1000,
+                    "pallas")
+    state = TrainState.create(cfg, device=dev)
+    p, w = state.params, cfg.loss.ctx_window
+    fm, rm = tb["frame_mask"], tb["region_mask"]
+    with torch.no_grad():
+        w_emb = TG.embed_words(tb["word_ids"], p["word_emb"],
+                               m_sim=p.get("m_sim"))
+        v_emb = TG.project_regions(tb["feats"], p["w_v"], p["b_v"])
+        v_ext, fm_ext, rm_ext = TG.extend_for_window(v_emb, fm, rm, w)
+        u, nbr = TG.context_mix(v_ext, fm_ext, w, cfg.loss.ctx_temp,
+                                rm_ext=rm_ext)
+    hc = (nbr.sum(-1) > 0).float()
+    centers = state.centers
+    b, t, r, e = v_emb.shape
+    k, kc = w_emb.shape[1], centers.shape[0]
+    m = b * k
+    live = int((rm > 0).sum())                        # (b, t, r) regions
+    on = int(((rm > 0) & (fm > 0)[..., None] & (hc > 0)[..., None]).sum())
+    res = {"shapes": {"B": b, "K": k, "T": t, "R": r, "E": e, "Kc": kc,
+                      "live_regions": live, "ctx_regions": on}}
+    for tag, dt in (("", torch.float32), ("_bf16", torch.bfloat16)):
+        wf = w_emb.reshape(m, e).to(dt).contiguous()
+        wk, v, uu = w_emb.to(dt), v_emb.to(dt), u.to(dt)
+        # K3: a and idx of every (video, word, frame) from the live regions
+        a, _ = K3.launch(wf, v, fm, rm)
+        torch.cuda.synchronize()
+        res["cross_mil_err" + tag] = (
+            a - K3.cross_mil_plain(wf, v, fm, rm)[0]).abs().max().item()
+        res["cross_mil_ms" + tag] = device_ms(
+            torch, lambda: K3.launch(wf, v, fm, rm))
+        res["cross_mil_plain_ms" + tag] = device_ms(
+            torch, lambda: K3.cross_mil_plain(wf, v, fm, rm))
+        v2 = v.reshape(b, t * r, e)
+        res["cross_mil_library_ms" + tag] = device_ms(
+            torch, lambda: torch.max(torch.matmul(v2, wf.T).reshape(
+                b, t, r, m), dim=2))
+        res["cross_mil_bound_ms" + tag], res["cross_mil_bound_by" + tag] = \
+            bound(torch, nbytes(wf, v, fm, rm) + 2 * b * m * t * 4,
+                  2 * m * e * live, dt)
+        # K4f: s over live regions, ŝ over the ctx mask, sims everywhere
+        fwd = K4.launch_fwd(wk, v, uu, centers, fm, hc, rm)
+        torch.cuda.synchronize()
+        want = K4.diag_fwd_plain(wk, v, uu, centers, fm, hc, rm)
+        res["diag_err" + tag] = max((fwd[0] - want[0]).abs().max().item(),
+                                    (fwd[3] - want[3]).abs().max().item())
+        res["diag_ms" + tag] = device_ms(
+            torch, lambda: K4.launch_fwd(wk, v, uu, centers, fm, hc, rm))
+        res["diag_plain_ms" + tag] = device_ms(
+            torch, lambda: K4.diag_fwd_plain(wk, v, uu, centers, fm, hc, rm))
+        res["diag_bound_ms" + tag], res["diag_bound_by" + tag] = bound(
+            torch, nbytes(wk, v, uu, centers, fm, hc, rm, *fwd),
+            2 * e * k * (live + on) + 2 * e * kc * b * k * t, dt)
+        # K4b on K4f's residuals, with random cotangents
+        gen = torch.Generator().manual_seed(SEED + 5)
+        dctx = torch.rand(fwd[0].shape, generator=gen).to(dev)
+        dclu = torch.rand(fwd[1].shape, generator=gen).to(dev)
+        res_args = (wk, v, centers, fwd[3], fwd[4], fwd[5], fwd[2], dctx,
+                    dclu)
+        dw, dv = K4.launch_bwd(*res_args)
+        torch.cuda.synchronize()
+        pdw, pdv = K4.diag_bwd_plain(*res_args)
+        res["diag_bwd_err" + tag] = max((dw - pdw).abs().max().item(),
+                                        (dv - pdv).abs().max().item())
+        res["diag_bwd_ms" + tag] = device_ms(
+            torch, lambda: K4.launch_bwd(*res_args))
+        res["diag_bwd_plain_ms" + tag] = device_ms(
+            torch, lambda: K4.diag_bwd_plain(*res_args))
+        res["diag_bwd_bound_ms" + tag], res["diag_bwd_bound_by" + tag] = \
+            bound(torch, nbytes(*res_args, dw, dv),
+                  4 * e * k * on + 4 * e * b * k * t, dt)
     return res
 
 
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
-                 by, **more) -> dict:
+                 by, library_ms=None, **more) -> dict:
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches,
             "launches_per_step_or_batch": per, "max_abs_err": err, "ms": ms,
             "plain_ms": plain, "bound_ms": bound, "bound_by": by,
-            # no single PyTorch call computes the banded group-softmax mix
-            # or its gradient
-            "library_ms": None, **more}
+            "library_ms": library_ms, **more}
 
 
 # -------------------------------------------------------------------- main
@@ -847,7 +1239,6 @@ def main() -> None:
         fail("no CUDA device: this smoke run needs one NVIDIA GPU")
     from nafae_torch.config import load_config
     from nafae_torch.ops.kernels import _build
-    from nafae_torch.ops.kernels import ctx_mix as K
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -864,6 +1255,8 @@ def main() -> None:
 
     errs = check_ctx_mix(torch, torch.device("cuda"))
     gerrs = check_ctx_grad(torch, torch.device("cuda"))
+    xerrs = check_cross_mil(torch, torch.device("cuda"))
+    derrs = check_diag(torch, torch.device("cuda"))
 
     def cfg_of(dt):
         return load_config(preset_name="config4",
@@ -872,22 +1265,27 @@ def main() -> None:
     params = oracle_params()
     with tempfile.TemporaryDirectory() as tmp:
         segs, gts = make_requests(tmp)
-        zero_counts(K)                              # serving starts here
+        zero_counts()                               # serving starts here
         served = serve(torch, cfg_of, params, segs, gts)
-        serve_counts = dict(K.launches)             # ... and ends here
+        serve_counts = read_counts()                # ... and ends here
         log(f"serving: launches {serve_counts}")
-        if serve_counts["ctx_mix_fwd"] == 0:
-            fail("the serving path never launched the ctx_mix kernel")
+        if serve_counts["ctx_mix_fwd"] == 0 or any(
+                n for k, n in serve_counts.items() if k != "ctx_mix_fwd"):
+            fail("the serving path must launch the ctx_mix kernel (K1f) "
+                 "and no other")
         srv32 = served["float32"][0]
         check_cpu_rerun(torch, cfg_of("float32"), params, srv32, segs)
 
         make_train_data(tmp)
         trained = train(torch, tmp, tmp)
-        cpu = check_train_cpu_rerun(torch, tmp, tmp,
-                                    trained["float32"]["logs"])
+        cpu = {route: check_train_cpu_rerun(
+            torch, tmp, tmp, trained[route]["float32"]["logs"], route)
+            for route in ROUTES}
+        routes = check_pallas_vs_auto(torch, tmp, tmp)
 
         tm = timings(torch, srv32, segs)
         tt = train_timings(torch, tmp, tmp)
+        tf = fused_timings(torch, tmp, tmp)
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
         f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}); bf16 kernel "
@@ -920,22 +1318,42 @@ def main() -> None:
             f"ms (bound {tt['bwd_bound_ms' + tag]:.4f}, "
             f"{tt['bwd_bound_by' + tag]}); plain backward "
             f"{tt['plain_bwd_ms' + tag]:.4f} ms — {card}")
-        log(f"training step ({dt}, config4 B=16 T=20): CUDA events "
-            f"{tt['step_event_ms' + tag]:.4f} ms = "
-            f"{tt['frames_per_s_event' + tag]:.0f} frames/s; host to host "
-            f"{tt['step_host_ms' + tag]:.4f} ms = "
-            f"{tt['frames_per_s_host' + tag]:.0f} frames/s; device busy "
-            f"{tt['step_device_busy_ms' + tag]:.4f} ms (torch.profiler) "
-            f"in {tt['step_device_ops' + tag]:.0f} device operations; of "
-            f"the host time: the batch's copy to the card alone "
-            f"{tt['step_h2d_ms' + tag]:.4f} ms, the step on a resident "
-            f"batch {tt['step_host_ms_resident' + tag]:.4f} ms — {card}")
-        log(f"device time per training step ({dt}) by kernel: "
-            + "; ".join(f"{us:.1f} us {name}"
-                        for name, us in tt["step_kernels" + tag]))
+        log(f"fused kernels on the first training batch {tf['shapes']}, "
+            f"{dt}: K3 cross_mil {tf['cross_mil_ms' + tag]:.4f} ms (bound "
+            f"{tf['cross_mil_bound_ms' + tag]:.4f}, "
+            f"{tf['cross_mil_bound_by' + tag]}; plain "
+            f"{tf['cross_mil_plain_ms' + tag]:.4f}; torch.matmul + torch.max "
+            f"{tf['cross_mil_library_ms' + tag]:.4f}); K4f diag_epilogue "
+            f"{tf['diag_ms' + tag]:.4f} ms (bound "
+            f"{tf['diag_bound_ms' + tag]:.4f}, {tf['diag_bound_by' + tag]}; "
+            f"plain {tf['diag_plain_ms' + tag]:.4f}); K4b diag_epilogue_bwd "
+            f"{tf['diag_bwd_ms' + tag]:.4f} ms (bound "
+            f"{tf['diag_bwd_bound_ms' + tag]:.4f}, "
+            f"{tf['diag_bwd_bound_by' + tag]}; plain "
+            f"{tf['diag_bwd_plain_ms' + tag]:.4f}); max |err| vs plain "
+            f"{tf['cross_mil_err' + tag]:.3e} / {tf['diag_err' + tag]:.3e} / "
+            f"{tf['diag_bwd_err' + tag]:.3e} — {card}")
+        for route in ROUTES:
+            rt = ("" if route == "auto" else "_pallas") + tag
+            log(f"training step ({dt}, kernels={route}, config4 B=16 T=20): "
+                f"CUDA events {tt['step_event_ms' + rt]:.4f} ms = "
+                f"{tt['frames_per_s_event' + rt]:.0f} frames/s; host to host "
+                f"{tt['step_host_ms' + rt]:.4f} ms = "
+                f"{tt['frames_per_s_host' + rt]:.0f} frames/s; device busy "
+                f"{tt['step_device_busy_ms' + rt]:.4f} ms (torch.profiler) "
+                f"in {tt['step_device_ops' + rt]:.0f} device operations; of "
+                f"the host time: the batch's copy to the card alone "
+                f"{tt['step_h2d_ms' + rt]:.4f} ms, the step on a resident "
+                f"batch {tt['step_host_ms_resident' + rt]:.4f} ms — {card}")
+            log(f"device time per training step ({dt}, kernels={route}) by "
+                "kernel: " + "; ".join(f"{us:.1f} us {name}"
+                                       for name, us in tt["step_kernels" + rt]))
 
-    f32, steps = trained["float32"]["launches"], TRAIN_STEPS["float32"]
+    f32, steps = trained["auto"]["float32"]["launches"], TRAIN_STEPS["float32"]
+    fused = trained["pallas"]["float32"]["launches"]
     rec = trained["recompute"]["launches"]
+    k3_replaces = ("nafae_tpu/ops/pallas/fused_ground.py:82, "   # _fwd_kernel
+                   "nafae_tpu/ops/pallas/fused_ground.py:118")  # _rollmax_kernel
     print(json.dumps({"kernels": [
         kernel_entry(
             "ctx_mix_fwd", "nafae_torch/csrc/ctx_mix.cu",
@@ -981,7 +1399,32 @@ def main() -> None:
               ("ctx_mix_bwd_res", "nafae_torch/csrc/ctx_mix_bwd.cu",
                "nafae_tpu/ops/pallas/fused_ctx.py:256",   # _bwd_kernel_res
                f32["ctx_mix_bwd_res"], steps, "bwd_res", "bwd",
-               "training f32")))],
+               "training f32"))),
+        *(kernel_entry(
+            name, "nafae_torch/csrc/" + src, rep, fused[name],
+            fused[name] / steps, max(err["float32"], tf[key + "_err"]),
+            tf[key + "_ms"], tf[key + "_plain_ms"], tf[key + "_bound_ms"],
+            tf[key + "_bound_by"], library_ms=tf.get(key + "_library_ms"),
+            max_abs_err_bf16=max(err["bfloat16"], tf[key + "_err_bf16"]),
+            ms_bf16=tf[key + "_ms_bf16"],
+            plain_ms_bf16=tf[key + "_plain_ms_bf16"],
+            bound_ms_bf16=tf[key + "_bound_ms_bf16"],
+            bound_by_bf16=tf[key + "_bound_by_bf16"],
+            library_ms_bf16=tf.get(key + "_library_ms_bf16"),
+            **({"library": "torch.matmul then torch.max over R: two calls, "
+                "the auto route's product and max without the mask (bf16: "
+                "bf16 output)"} if key == "cross_mil" else {}),
+            shapes=tf["shapes"], path="training f32, kernels=pallas")
+          for name, src, rep, key, err in (
+              ("cross_mil", "cross_mil.cu", k3_replaces, "cross_mil", xerrs),
+              ("diag_epilogue", "diag_epilogue.cu",
+               "nafae_tpu/ops/pallas/fused_diag.py:117",   # _fwd_kernel
+               "diag", {d: max(x[n] for n in ("ctx", "clu", "d"))
+                        for d, x in derrs.items()}),
+              ("diag_epilogue_bwd", "diag_epilogue_bwd.cu",
+               "nafae_tpu/ops/pallas/fused_diag.py:130",   # _bwd_kernel
+               "diag_bwd", {d: max(x["dw"], x["dv"])
+                            for d, x in derrs.items()})))],
         "serving": {
             "batch_device_ms": tm["batch_device_ms"],
             "batch_host_ms": tm["batch_host_ms"],
@@ -995,15 +1438,14 @@ def main() -> None:
             **{k: v for k, v in tt.items()
                if k.startswith(("step_", "frames_per_s")) and
                "kernels" not in k},
-            "device_idle_share_host": 1.0 - tt["step_device_busy_ms"]
-            / tt["step_host_ms"],
-            "device_idle_share_host_bf16": 1.0 - tt["step_device_busy_ms_bf16"]
-            / tt["step_host_ms_bf16"],
-            "loss_first_last_f32": [trained["float32"]["logs"][0]["loss"],
-                                    trained["float32"]["logs"][-1]["loss"]],
-            "loss_first_last_bf16": [trained["bfloat16"]["logs"][0]["loss"],
-                                     trained["bfloat16"]["logs"][-1]["loss"]],
-            "cpu_rerun": cpu},
+            **{"device_idle_share_host" + tag:
+               1.0 - tt["step_device_busy_ms" + tag] / tt["step_host_ms" + tag]
+               for tag in ("", "_bf16", "_pallas", "_pallas_bf16")},
+            **{f"loss_first_last_{route}_{dt}": [
+                trained[route][dt]["logs"][0]["loss"],
+                trained[route][dt]["logs"][-1]["loss"]]
+               for route in ROUTES for dt in TRAIN_STEPS},
+            "cpu_rerun": cpu, "pallas_vs_auto": routes},
     }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

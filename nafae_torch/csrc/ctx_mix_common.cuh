@@ -1,5 +1,6 @@
-// Device helpers shared by the context-mix kernels (ctx_mix.cu, the forward,
-// and ctx_mix_bwd.cu, the backward), for NVIDIA Hopper (sm_90a).
+// Device helpers shared by the port's kernels (the context mix, ctx_mix.cu and
+// ctx_mix_bwd.cu, and the fused cross-MIL and diag epilogue, cross_mil.cu and
+// diag_epilogue*.cu), for NVIDIA Hopper (sm_90a).
 //
 // Frames [R, E] are staged in shared memory as f32 rows of stride ld = E + 4
 // (float4 reads of distinct rows fall in distinct banks). Every helper is

@@ -3,8 +3,8 @@ cross-batch scores.
 
 The port of `nafae_tpu/ops/grounding.py` that serving and the training step
 need (docs/MATH.md §Forward and §Contextual-similarity). Plain functions on
-tensors, differentiable by autograd; the context mix dispatches to the CUDA
-kernels of `ops/kernels/ctx_mix.py` on the GPU.
+tensors, differentiable by autograd; the context mix and the fused
+cross-MIL dispatch to the CUDA kernels of `ops/kernels/` on the GPU.
 
 Conventions: masks are float (0/1). NEG = -1e9 is the masked-max/-softmax
 fill. Every product keeps an f32 output: with a bf16 compute dtype its
@@ -19,6 +19,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from nafae_torch.ops.kernels import cross_mil as _cross_mil
 from nafae_torch.ops.kernels import ctx_mix as _ctx_mix
 
 NEG = -1e9
@@ -252,18 +253,14 @@ def cross_scores(w_emb: torch.Tensor, word_mask: torch.Tensor,
                  u: torch.Tensor | None = None,
                  frame_logits: torch.Tensor | None = None) -> torch.Tensor:
     """Full B×B score matrix S[i,j] = score(video i, sentence j) for the
-    ranking loss, as einsums over the [I,J,K,T,R] cross tensor (the JAX
-    package's impl="jnp"). impl="pallas", the fused cross-MIL kernels
-    K3a/K3b (`ops/pallas/fused_ground.py`), is not ported yet.
+    ranking loss. impl="jnp": einsums over the [I,J,K,T,R] cross tensor;
+    impl="pallas": the fused cross-MIL of `ops/kernels/cross_mil.py` (the
+    CUDA kernel on the GPU, the port of K3a/K3b), which never materialises
+    that tensor and routes the gradient to the saved argmax.
     u: precomputed context-mixed embeddings (context_mix on the same
     v_emb and masks), so the train step runs the context mix once.
     frame_logits: precomputed sentence-independent per-frame logits [I,T]
     (pool="learned"), broadcast over sentences j."""
-    if impl == "pallas":
-        raise NotImplementedError(
-            "cross_scores impl='pallas' needs the fused cross-MIL kernels "
-            "K3a/K3b (nafae_tpu/ops/pallas/fused_ground.py), which the port "
-            "has not ported yet; use impl='jnp'")
     fm = frame_mask[:, None, :]                               # [I,1,T]
     wm = word_mask[None, :, :]                                # [1,J,K]
     g_learned = (frame_logits[:, None, :]
@@ -274,6 +271,16 @@ def cross_scores(w_emb: torch.Tensor, word_mask: torch.Tensor,
                                                   region_mask, ctx_window)
         u, _ = context_mix(v_ext, fm_ext, ctx_window, ctx_temp,
                            dtype=dtype, rm_ext=rm_ext)
+    if impl == "pallas":
+        a = _cross_mil.cross_mil(w_emb, v_emb, frame_mask, region_mask,
+                                 dtype=dtype)                 # [I,J,K,T]
+        frame_logits = g_learned
+        if ctx_pool:
+            ahat = _cross_mil.cross_mil(w_emb, u, frame_mask, region_mask,
+                                        dtype=dtype)
+            frame_logits = _masked_word_mean(ahat, wm)
+        return video_scores(a, wm, fm, temp, pool,
+                            frame_logits=frame_logits)[0]
     we, ve = _cast2(w_emb, v_emb, dtype)
     s = mask_regions(_cross_sim(we, ve), region_mask)        # [I,J,K,T,R]
     a = frame_mil_max(s, fm)                                  # [I,J,K,T]

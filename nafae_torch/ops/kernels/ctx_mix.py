@@ -33,6 +33,7 @@ import functools
 import torch
 
 from nafae_torch.ops.kernels import _build
+from nafae_torch.ops.kernels import check_tensor as _check
 
 NEG = -1e9            # masked-logit fill, as in the reference softmax
 MAX_R = 32            # the kernels keep one register accumulator per region
@@ -142,21 +143,6 @@ def _lib_bwd() -> ctypes.CDLL:
                                           i, i, f, vp]
     lib.nafae_ctx_mix_bwd_res.restype = i
     return lib
-
-
-def _check(name: str, x: torch.Tensor, shape: tuple, dtype, device,
-           vector: bool = False) -> None:
-    """vector: the kernels read or write x 16 bytes at a time."""
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
-    if x.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
-    if x.device != device:
-        raise ValueError(f"{name} is on {x.device}, v_ext on {device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if vector and x.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
 
 
 def _check_inputs(v_ext, fm_ext, window, rm_ext) -> tuple[int, int, int, int]:

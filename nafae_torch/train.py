@@ -4,7 +4,11 @@ optimizer, the k-means refresh, the fit loop and the CLI.
 The port of `nafae_tpu/train.py` on one device with the streaming loader:
 forward, the three losses, their gradient (autograd; the context mix's
 gradient in the CUDA kernels of `ops/kernels/ctx_mix.py` on the GPU), the
-optimizer update and the periodic k-means refresh.
+optimizer update and the periodic k-means refresh. `train.kernels=pallas`
+(or the legacy `train.use_pallas=true`) takes the reference's fused route:
+the fused cross-MIL (`ops/kernels/cross_mil.py`, K3a/K3b) for the score
+matrix and, at config 4, the fused diag epilogue (`ops/kernels/diag.py`,
+K4f/K4b) for the context and cluster losses.
 
     python -m nafae_torch.train --preset config4 --override data.root=... \\
         [--device cpu]
@@ -13,8 +17,7 @@ Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
 Not ported yet, and raising NotImplementedError: the device-resident
 dataset (`train.device_cache`), inline videos (`data.from_videos`), meshes
 and data parallelism, k-means++ seeding (`loss.kmeans_init=plusplus`),
-word-vector initialisation (`model.word_vectors`), the grain pipeline, and
-the fused Pallas routes of `train.kernels="pallas"` (K3a/K3b, K4f/K4b).
+word-vector initialisation (`model.word_vectors`) and the grain pipeline.
 `train.steps_per_call` groups steps into one XLA program in the JAX
 package; PyTorch runs eagerly, so the port ignores it.
 """
@@ -33,10 +36,15 @@ from nafae_torch.device import resolve_device
 from nafae_torch.models.grounding import COMPUTE_DTYPES, init_params
 from nafae_torch.ops import grounding as G
 from nafae_torch.ops import losses as L
+from nafae_torch.ops.kernels.diag import diag_epilogue
 from nafae_torch.ops.kmeans import bank_write, kmeans_init, kmeans_lloyd
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8      # optax.adamw's defaults
 SGD_MOMENTUM = 0.9
+
+# routing gate of the fused diag epilogue on the kernels="pallas" route (the
+# reference's train.DIAG_KERNEL)
+DIAG_KERNEL = True
 
 
 @dataclass
@@ -107,14 +115,12 @@ def _check_supported(cfg: Config) -> None:
             "data.from_videos": cfg.data.from_videos,
             "model.word_vectors": bool(cfg.model.word_vectors),
             "loss.kmeans_init=plusplus": cfg.loss.kmeans_init == "plusplus",
-            "data.pipeline=grain": cfg.data.pipeline == "grain",
-            "train.kernels=pallas": cfg.train.resolved_kernels() == "pallas"}
+            "data.pipeline=grain": cfg.data.pipeline == "grain"}
     on = [k for k, v in todo.items() if v]
     if on:
         raise NotImplementedError(
             f"{', '.join(on)}: not ported yet (the port trains on one "
-            "device from the streaming loader; train.kernels=pallas needs "
-            "the fused kernels K3a/K3b and K4f/K4b)")
+            "device from the streaming loader)")
 
 
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -210,13 +216,13 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     loss of the selected regions against the k-means centers.
 
     kernels: "auto" and "jnp" route alike (the context mix through the
-    CUDA kernels on the GPU; the cross path in plain torch); "pallas"
-    raises NotImplementedError (K3a/K3b, K4f/K4b are not ported)."""
-    if kernels == "pallas":
-        raise NotImplementedError(
-            "train.kernels=pallas needs the fused cross-MIL kernels K3a/K3b "
-            "and the diag-epilogue kernels K4f/K4b, which the port has not "
-            "ported yet; use auto")
+    CUDA kernels on the GPU; the cross path in plain torch). "pallas" is
+    the reference's fused route: the score matrix through the fused
+    cross-MIL, and, with the stop-gradient context target and both the
+    context and the cluster loss on (config 4), the context loss, the
+    top-region selection and the cluster loss through the fused diag
+    epilogue, which never forms the dense [B,K,T,R] similarity."""
+    pallas = kernels == "pallas"
     lc, mc = cfg.loss, cfg.model
     feats = batch["feats"]
     fm, wm = batch["frame_mask"], batch["word_mask"]
@@ -237,7 +243,12 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
                                         cdt)
     else:
         v_emb = G.project_regions(feats, params["w_v"], params["b_v"])
-    s = G.mask_regions(G.similarity_tensor(w_emb, v_emb, dtype=cdt), rm)
+    diag_route = (DIAG_KERNEL and pallas and ctx_on
+                  and lc.ctx_target == "stopgrad" and lc.ctx_weight > 0
+                  and lc.cluster_weight > 0)
+    # the dense s has no consumer on the diag route
+    s = (None if diag_route else
+         G.mask_regions(G.similarity_tensor(w_emb, v_emb, dtype=cdt), rm))
 
     # context mixing, shared by context pooling and the ctx loss
     u = nbr_valid = None
@@ -250,7 +261,8 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     g_learned = (G.learned_frame_logits(v_emb, fm, rm, params["attn_w"])
                  if mc.frame_pool == "learned" else None)
     rows = G.cross_scores(w_emb, wm, v_emb, fm, mc.frame_attn_temp,
-                          mc.frame_pool, ctx_window, lc.ctx_temp, dtype=cdt,
+                          mc.frame_pool, ctx_window, lc.ctx_temp,
+                          impl="pallas" if pallas else "jnp", dtype=cdt,
                           region_mask=rm, u=u, frame_logits=g_learned)
     b = rows.shape[0]
     diag = torch.sum(rows * torch.eye(b, dtype=rows.dtype,
@@ -258,6 +270,32 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     l_rank = L.ranking_loss_rows(rows, diag, 0, lc.margin, norm=lc.rank_norm)
     total = l_rank
     aux = {"l_rank": l_rank, "score_pos": torch.sum(diag) / max(b, 1)}
+
+    if diag_route:
+        # the reference's loss algebra over the kernel's per-(k, t) partial
+        # sums (nafae_tpu/train.py, the diag_out block)
+        has_ctx = (nbr_valid.sum(-1) > 0).to(fm.dtype)
+        ctx_kt, clu_kt, f_tk = diag_epilogue(w_emb, v_emb, u, centers, fm, rm,
+                                             has_ctx, dtype=cdt)
+        m3 = wm[:, :, None] * fm[:, None, :] * has_ctx[:, None, :]
+        rsum = (rm.sum(-1) if rm is not None
+                else torch.full(fm.shape, float(feats.shape[2]),
+                                device=fm.device))
+        l_ctx = (torch.sum(wm[:, :, None] * ctx_kt)
+                 / torch.clamp(torch.sum(m3 * rsum[:, None, :]), min=1.0))
+        total = total + lc.ctx_weight * l_ctx
+        aux["l_ctx"] = l_ctx
+        any_region = ((rm.amax(-1) > 0).to(wm.dtype) if rm is not None
+                      else torch.ones_like(fm))
+        valid_tk = (fm * any_region)[:, :, None] * wm[:, None, :]  # [B,T,K]
+        aux["sel_feats"] = f_tk                        # already stop-grad
+        aux["sel_valid"] = valid_tk
+        l_clu = (torch.sum(clu_kt * valid_tk.permute(0, 2, 1))
+                 / torch.clamp(torch.sum(valid_tk), min=1.0))
+        total = total + lc.cluster_weight * l_clu
+        aux["l_clu"] = l_clu
+        aux["loss"] = total
+        return total, aux
 
     if ctx_on:
         shat = G.mask_regions(G.similarity_tensor(w_emb, u, dtype=cdt), rm)

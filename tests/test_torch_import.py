@@ -21,6 +21,7 @@ SOURCES = sorted(str(p.relative_to(ROOT)) for p in
 def test_import_leaves_jax_out():
     code = ("import sys, nafae_torch, nafae_torch.serve, "
             "nafae_torch.train, nafae_torch.ops.kernels.ctx_mix, "
+            "nafae_torch.ops.kernels.cross_mil, nafae_torch.ops.kernels.diag, "
             "nafae_torch.ops.losses, nafae_torch.ops.kmeans, "
             "nafae_torch.data.loader, nafae_torch.utils.checkpoint, "
             "nafae_torch.utils.metrics_log; "

@@ -7,7 +7,10 @@ Both start from one point: the JAX TrainState, converted with
 params and centers after 5 steps with k-means refreshes at steps 0, 2 and
 4, from this step's selections or from the selection bank (rtol 1e-4 /
 atol 1e-5; a one-step params check proves nothing, the
-first update has lr 0). The JAX CPU backend cannot execute bf16 dots
+first update has lr 0). Each with `train.kernels` auto and, in the cases
+with a `-pallas` id, the fused route (the port's plain versions of the
+cross-MIL and diag-epilogue kernels against the JAX package's Pallas
+kernels in interpret mode). The JAX CPU backend cannot execute bf16 dots
 (test_sp.py's bf16 step only compiles), so the port's bf16 step is held
 against JAX's f32 step at the 2e-2 of the JAX package's bf16-vs-f32 tests,
 gradients relative to each leaf's largest entry. Also: fit lowers the
@@ -36,8 +39,9 @@ OV = ["data.feat_dim=64", "model.feat_dim=64", "model.embed_dim=32",
       "train.eval_every=1000000"]
 
 
-def _cfgs(synth_root, preset, extra=()):
-    ov = OV + [f"data.root={synth_root}"] + list(extra)
+def _cfgs(synth_root, preset, extra=(), kernels="auto"):
+    ov = OV + [f"data.root={synth_root}", f"train.kernels={kernels}"] \
+        + list(extra)
     return (jcfg.load_config(preset_name=preset, overrides=ov),
             tcfg.load_config(preset_name=preset, overrides=ov))
 
@@ -60,13 +64,15 @@ def _start(jc):
 
 def _jax_grads(js, batch, jc):
     g = jax.jit(jax.grad(lambda p: JT.compute_losses(
-        p, js.centers, batch, jc, 0, kernels="auto")[0]))(js.params)
+        p, js.centers, batch, jc, 0,
+        kernels=jc.train.resolved_kernels())[0]))(js.params)
     return {k: np.asarray(v) for k, v in g.items()}
 
 
 def _torch_grads(ts, tb, tc):
     params = {k: v.detach().requires_grad_() for k, v in ts.params.items()}
-    total, _ = TT.compute_losses(params, ts.centers, tb, tc)
+    total, _ = TT.compute_losses(params, ts.centers, tb, tc,
+                                 tc.train.resolved_kernels())
     names = sorted(params)
     gs = torch.autograd.grad(total, [params[k] for k in names],
                              allow_unused=True)
@@ -74,13 +80,14 @@ def _torch_grads(ts, tb, tc):
             else g.numpy() for k, g in zip(names, gs)}
 
 
-@pytest.mark.parametrize("preset,dtype", [("config2", "float32"),
-                                          ("config3", "float32"),
-                                          ("config4", "float32"),
-                                          ("config4", "bfloat16")])
-def test_one_step_matches_jax(synth_root, preset, dtype):
-    jc, _ = _cfgs(synth_root, preset)
-    _, tc = _cfgs(synth_root, preset, [f"model.dtype={dtype}"])
+@pytest.mark.parametrize("preset,dtype,kernels", [
+    pytest.param(p, d, k, id=f"{p}-{d}" + ("-pallas" if k == "pallas" else ""))
+    for k in ("auto", "pallas")
+    for p, d in (("config2", "float32"), ("config3", "float32"),
+                 ("config4", "float32"), ("config4", "bfloat16"))])
+def test_one_step_matches_jax(synth_root, preset, dtype, kernels):
+    jc, _ = _cfgs(synth_root, preset, kernels=kernels)
+    _, tc = _cfgs(synth_root, preset, [f"model.dtype={dtype}"], kernels)
     batch = _batches(synth_root, jc, 1)[0]
     js, ts = _start(jc)
     tb = TT.batch_to_device(batch, torch.device("cpu"))
@@ -106,14 +113,16 @@ def test_one_step_matches_jax(synth_root, preset, dtype):
                                    **tol)
 
 
-@pytest.mark.parametrize("preset,source", [("config2", "batch"),
-                                           ("config3", "batch"),
-                                           ("config4", "batch"),
-                                           ("config4", "bank")])
-def test_five_steps_match_jax(synth_root, preset, source):
+@pytest.mark.parametrize("preset,source,kernels", [
+    pytest.param("config2", "batch", "auto", id="config2-batch"),
+    pytest.param("config3", "batch", "auto", id="config3-batch"),
+    pytest.param("config4", "batch", "auto", id="config4-batch"),
+    pytest.param("config4", "bank", "auto", id="config4-bank"),
+    pytest.param("config4", "batch", "pallas", id="config4-batch-pallas")])
+def test_five_steps_match_jax(synth_root, preset, source, kernels):
     jc, tc = _cfgs(synth_root, preset, ["loss.kmeans_interval=2",
                                         f"loss.kmeans_source={source}",
-                                        "loss.bank_steps=3"])
+                                        "loss.bank_steps=3"], kernels)
     batches = _batches(synth_root, jc, 5)
     js, ts = _start(jc)
     step = JT.build_train_fn(jc, None)
