@@ -96,12 +96,9 @@ GRAD_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (2e-2, 2e-2)}
 # K3 against plain: both sum the same f32 products (bf16 operands in bf16
 # mode), in other orders
 CROSS_TOL = (1e-5, 1e-5)
-# K4f's ctx against plain: f32 sums in other orders; in bf16 a ctx term
-# (s - ŝ)² may round to the neighbouring bf16 number
-DIAG_CTX_TOL = {"float32": (1e-4, 1e-5), "bfloat16": (1e-2, 1e-4)}
-# K4f's clu and residual, K4b's dw and dv against plain: the kernels round
-# the same f32 values at the same points, so only the order of the f32
-# sums differs, in both dtypes
+# K4f's ctx, clu and residual, K4b's dw and dv against plain: the kernels
+# round the same f32 values at the same points, so only the order of the
+# f32 sums differs, in both dtypes (for ctx in bf16, see compare_diag)
 DIAG_TOL = (1e-4, 1e-5)
 # argmaxes (K3's idx, K4f's r* and c*) are held equal wherever the top two
 # scores differ by more than this; closer pairs may go either way
@@ -400,15 +397,48 @@ def compare_diag(torch, w, v, u, centers, fm, hc, rm, case, tied=False
              f"top two sims are clear of ties: {case}")
     if tied and ((rstar == 16).any() or (cstar == 5).any()):
         fail(f"diag_epilogue resolved an exact tie to the later index: {case}")
+    rtol, atol = DIAG_TOL
     errs = {}
-    for name, g, wnt, (rtol, atol) in (
-            ("ctx", ctx, want[0], DIAG_CTX_TOL[dt_name]),
-            ("clu", clu[both], want[1][both], DIAG_TOL),
-            ("d", d, want[3], DIAG_TOL)):
+    for name, g, wnt in (("clu", clu[both], want[1][both]),
+                         ("d", d, want[3])):
         errs[name] = (g - wnt).abs().max().item() if g.numel() else 0.0
         if not torch.allclose(g, wnt, rtol=rtol, atol=atol):
             fail(f"diag_epilogue {name} differs from the plain version by "
                  f"{errs[name]} (rtol {rtol}, atol {atol}): {case}")
+    # ctx against the plain version: in bf16 a term (s - ŝ)² whose f32 value
+    # lies on a bf16 rounding midpoint may round the other way from the plain
+    # version's, so each (b, k, t) may also differ by what its terms rounded
+    # the other way account for (nothing in f32, where no term is rounded)
+    terms, want_terms = rnd(d * d), rnd(want[3] * want[3])
+    other_way = ((terms - want_terms).abs().sum(-1)
+                 if v.dtype == torch.bfloat16 else torch.zeros_like(ctx))
+    errs["ctx"] = (ctx - want[0]).abs().max().item()
+    errs["ctx_terms_rounded_other_way"] = float(
+        (terms != want_terms).sum().item()) if v.dtype == torch.bfloat16 \
+        else 0.0
+    if not ((ctx - want[0]).abs()
+            <= atol + rtol * want[0].abs() + other_way).all():
+        fail(f"diag_epilogue ctx differs from the plain version by "
+             f"{errs['ctx']} (rtol {rtol}, atol {atol}, plus the terms that "
+             f"rounded the other way): {case}")
+    # ctx against the kernel's own residuals d, each term rounded as the
+    # plain version rounds it: only the order of the f32 sum differs. The
+    # same sum left unrounded, what a kernel that skips the bf16 rounding of
+    # the terms would give, must differ by more than the limit.
+    own = terms.sum(-1)
+    errs["ctx_vs_own_terms"] = (ctx - own).abs().max().item()
+    if not torch.allclose(ctx, own, rtol=rtol, atol=atol):
+        fail(f"diag_epilogue ctx is not the sum of its own terms rounded "
+             f"as the plain version rounds them, off by "
+             f"{errs['ctx_vs_own_terms']} (rtol {rtol}, atol {atol}): {case}")
+    if v.dtype == torch.bfloat16:
+        unrounded = (d * d).sum(-1)
+        errs["ctx_unrounded_vs_own_terms"] = (
+            unrounded - own).abs().max().item()
+        if torch.allclose(unrounded, own, rtol=rtol, atol=atol):
+            fail(f"the ctx check cannot tell a kernel that skips the bf16 "
+                 f"rounding of the terms: the unrounded sum is within rtol "
+                 f"{rtol}, atol {atol}: {case}")
     gen = torch.Generator().manual_seed(SEED + 4)
     dctx = torch.rand(ctx.shape, generator=gen).to(v.device)
     dclu = torch.rand(clu.shape, generator=gen).to(v.device)
@@ -416,7 +446,6 @@ def compare_diag(torch, w, v, u, centers, fm, hc, rm, case, tied=False
     torch.cuda.synchronize()
     pdw, pdv = K4.diag_bwd_plain(w, v, centers, d, rstar, cstar, f, dctx,
                                  dclu)
-    rtol, atol = DIAG_TOL
     for name, g, wnt in (("dw", dw, pdw), ("dv", dv, pdv)):
         errs[name] = (g - wnt).abs().max().item()
         if not torch.isfinite(g).all() or not torch.allclose(
@@ -461,9 +490,11 @@ def check_diag(torch, device) -> dict[str, dict[str, float]]:
         errs[dt_name] = worst
         log(f"diag_epilogue (K4f) / diag_epilogue_bwd (K4b) vs plain, "
             f"{dt_name}: max |err| " + ", ".join(
+                f"{n} {int(x)}" if n.endswith("other_way") else
                 f"{n} {x:.3e}" for n, x in worst.items())
-            + f" (ctx {DIAG_CTX_TOL[dt_name]}, others {DIAG_TOL} as rtol, "
-            f"atol; r*, f, c* equal where clear of ties; {len(cases)} cases)")
+            + f" ({DIAG_TOL} as rtol, atol, ctx against plain plus its "
+            f"terms rounded the other way; r*, f, c* equal where clear of "
+            f"ties; {len(cases)} cases)")
     return errs
 
 
@@ -1163,14 +1194,20 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
     b, t, r, e = v_emb.shape
     k, kc = w_emb.shape[1], centers.shape[0]
     m = b * k
+    # what the data needs: the bounds count region rows of v̂ and u only
+    # where the function reads them (padded frames have rm = 0)
     live = int((rm > 0).sum())                        # (b, t, r) regions
     on = int(((rm > 0) & (fm > 0)[..., None] & (hc > 0)[..., None]).sum())
+    empty = int(((rm > 0).sum(-1) == 0).sum())        # all-masked frames
     res = {"shapes": {"B": b, "K": k, "T": t, "R": r, "E": e, "Kc": kc,
-                      "live_regions": live, "ctx_regions": on}}
+                      "live_regions": live, "ctx_regions": on,
+                      "all_masked_frames": empty}}
     for tag, dt in (("", torch.float32), ("_bf16", torch.bfloat16)):
         wf = w_emb.reshape(m, e).to(dt).contiguous()
         wk, v, uu = w_emb.to(dt), v_emb.to(dt), u.to(dt)
-        # K3: a and idx of every (video, word, frame) from the live regions
+        row = e * v.element_size()                    # one region of v̂ or u
+        # K3: a and idx of every (video, word, frame) from the live regions;
+        # an all-masked frame's a and idx need no region
         a, _ = K3.launch(wf, v, fm, rm)
         torch.cuda.synchronize()
         res["cross_mil_err" + tag] = (
@@ -1184,9 +1221,12 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
             torch, lambda: torch.max(torch.matmul(v2, wf.T).reshape(
                 b, t, r, m), dim=2))
         res["cross_mil_bound_ms" + tag], res["cross_mil_bound_by" + tag] = \
-            bound(torch, nbytes(wf, v, fm, rm) + 2 * b * m * t * 4,
+            bound(torch, nbytes(wf, fm, rm) + live * row + 2 * b * m * t * 4,
                   2 * m * e * live, dt)
-        # K4f: s over live regions, ŝ over the ctx mask, sims everywhere
+        # K4f: s over live regions, ŝ over the ctx mask, sims everywhere;
+        # it reads v̂ at the live regions and region 0 of all-masked frames
+        # (its pick there), u at the ctx mask, and writes ctx, clu and f (its
+        # residuals d, r* and c* are a choice of the design, not counted)
         fwd = K4.launch_fwd(wk, v, uu, centers, fm, hc, rm)
         torch.cuda.synchronize()
         want = K4.diag_fwd_plain(wk, v, uu, centers, fm, hc, rm)
@@ -1197,9 +1237,12 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
         res["diag_plain_ms" + tag] = device_ms(
             torch, lambda: K4.diag_fwd_plain(wk, v, uu, centers, fm, hc, rm))
         res["diag_bound_ms" + tag], res["diag_bound_by" + tag] = bound(
-            torch, nbytes(wk, v, uu, centers, fm, hc, rm, *fwd),
+            torch, nbytes(wk, centers, fm, hc, rm, *fwd[:3])
+            + (live + empty + on) * row,
             2 * e * k * (live + on) + 2 * e * kc * b * k * t, dt)
-        # K4b on K4f's residuals, with random cotangents
+        # K4b on K4f's residuals, with random cotangents: it reads v̂ only
+        # at the ctx mask (ds is 0 elsewhere) and only the centers in c*,
+        # and writes dw and the whole of dv
         gen = torch.Generator().manual_seed(SEED + 5)
         dctx = torch.rand(fwd[0].shape, generator=gen).to(dev)
         dclu = torch.rand(fwd[1].shape, generator=gen).to(dev)
@@ -1215,7 +1258,8 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
         res["diag_bwd_plain_ms" + tag] = device_ms(
             torch, lambda: K4.diag_bwd_plain(*res_args))
         res["diag_bwd_bound_ms" + tag], res["diag_bwd_bound_by" + tag] = \
-            bound(torch, nbytes(*res_args, dw, dv),
+            bound(torch, nbytes(wk, *res_args[3:], dw, dv) + on * row
+                  + int(fwd[5].unique().numel()) * e * centers.element_size(),
                   4 * e * k * on + 4 * e * b * k * t, dt)
     return res
 

@@ -32,6 +32,8 @@
 // against ~7.0 MB moved (v 6.6 MB, w, masks, a and idx), ~2.1 us at 3.35
 // TB/s: bound by operations in f32. In bf16 the same flops on tensor cores
 // (989 TFLOP/s) take ~0.4 us and the 3.6 MB take ~1.1 us: bound by bytes.
+// These count every region as live; the function needs the rows and dots of
+// live regions only, so chip_smoke.py counts the bound from a batch's masks.
 // This version runs the f32 dots on CUDA cores in both modes, from shared
 // memory (5 16-byte loads feed 16 FMAs); PERF.md has its measured times.
 

@@ -35,7 +35,11 @@
 // E=256, Kc=67, f32): 2*2*B*K*T*R*E + 2*B*K*T*Kc*E = 140 MFLOP (~2.1 us at
 // 67 TFLOP/s) against ~15.8 MB moved (v and u 6.6 MB each, f 1.3 MB, the
 // residuals, w, centers, masks), ~4.7 us at 3.35 TB/s: bound by bytes. In
-// bf16, v and u are half the bytes: ~2.7 us. This version re-reads the
+// bf16, v and u are half the bytes: ~2.7 us. These count every region as
+// live and the residuals as needed; the function needs only ctx, clu and f
+// written, v at live regions (region 0 of an all-masked frame) and u at the
+// ctx mask, so chip_smoke.py counts the bound from a batch's masks, without
+// the residuals. This version re-reads the
 // centers in every block (from L2) and leaves threads idle in the per-word
 // walks; PERF.md has its measured times.
 

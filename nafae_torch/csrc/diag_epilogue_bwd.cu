@@ -33,8 +33,10 @@
 // Bound on an H100 SXM (config4 training shapes B=16, K=8, T=20, R=20,
 // E=256, f32): ~13 MB moved (v read and dv written, 6.6 MB each; w, f, d,
 // the argmaxes and the cotangents), ~4 us at 3.35 TB/s, against 4*B*K*T*R*E
-// = 52 MFLOP, ~0.8 us at 67 TFLOP/s: bound by bytes. PERF.md has its
-// measured times.
+// = 52 MFLOP, ~0.8 us at 67 TFLOP/s: bound by bytes. These count every
+// region as in the ctx mask; v is needed only where ds can be nonzero (the
+// mask) and the centers only at c*, so chip_smoke.py counts the bound from a
+// batch's masks. PERF.md has its measured times.
 
 #include "ctx_mix_common.cuh"
 

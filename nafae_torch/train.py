@@ -42,10 +42,6 @@ from nafae_torch.ops.kmeans import bank_write, kmeans_init, kmeans_lloyd
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8      # optax.adamw's defaults
 SGD_MOMENTUM = 0.9
 
-# routing gate of the fused diag epilogue on the kernels="pallas" route (the
-# reference's train.DIAG_KERNEL)
-DIAG_KERNEL = True
-
 
 @dataclass
 class TrainState:
@@ -243,7 +239,7 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
                                         cdt)
     else:
         v_emb = G.project_regions(feats, params["w_v"], params["b_v"])
-    diag_route = (DIAG_KERNEL and pallas and ctx_on
+    diag_route = (pallas and ctx_on
                   and lc.ctx_target == "stopgrad" and lc.ctx_weight > 0
                   and lc.cluster_weight > 0)
     # the dense s has no consumer on the diag route
