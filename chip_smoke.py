@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Needs one CUDA device, nvcc (the kernels are built from `nafae_torch/csrc`
-at first use) and nothing else: weights, requests and training data are
-made from seeds. Phases, each of which fails loudly (exit code != 0):
+at first use) and nothing else: weights, requests, training data and videos
+are made from seeds. Phases, each of which fails loudly (exit code != 0):
 
 1. card: prints the card's name and power limit and torch's CUDA version;
 2. build: compiles every kernel source (one nvcc each, all at once) and
@@ -36,7 +36,24 @@ made from seeds. Phases, each of which fails loudly (exit code != 0):
 7. times from CUDA events (median of repeated runs after warm-up): each
    kernel, its plain version (and, for K3, the two PyTorch calls of the
    auto route), one full serving batch and one training step of each
-   route, with torch.profiler breakdowns.
+   route, with torch.profiler breakdowns;
+8. config 5 (main path 4): planted-signal uncompressed AVIs written by the
+   port's own writer (32 segments of 4-20 frames at 640x640, 1 fps); on
+   the first batch's own detector inputs (320 rows x 24,000 anchors; a
+   [320,40,40,1024] map with 20 boxes a frame) the NMS kernel K2 must give
+   its plain version's survivors exactly, and the RoIAlign kernel K5 must
+   agree with its plain version (f32 and bf16), as on the edge cases (ties,
+   duplicates, zero-area boxes, IoU one f32 step either side of 0.7, a row
+   of 100,000 boxes; dead-slot, off-map and sub-cell boxes, H != W, C = 37);
+   then `fit` on config5 at full width (ResNet-50, B=16, T=20): 8 steps f32
+   with the preset (K2 once a step), 6 with `detector.roi_impl=pallas` (K2
+   and K5 once a step) and 8 with a bf16 detector, each lowering the loss
+   with exact launch counts; one inline step at 128x128 on the card and on
+   the CPU must agree (proposals where clear of score ties, metrics within
+   1e-3); `extract_segments` output must load through SegmentDataset and
+   equal the inline detector's features at f16 rounding; times of K2 and
+   K5 (kernel, plain, bound) and of one config-5 step of each run, with
+   the frames' copy, device busy and idle share, and peak memory.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -79,7 +96,7 @@ TRAIN_OVERRIDES = ["train.lr=0.003", "train.warmup_steps=2",
                    "loss.kmeans_interval=10", "train.log_every=1",
                    "train.ckpt_every=1000000", "train.eval_every=1000000"]
 SOURCES = ("ctx_mix", "ctx_mix_bwd", "cross_mil", "diag_epilogue",
-           "diag_epilogue_bwd")         # nafae_torch/csrc/<name>.cu
+           "diag_epilogue_bwd", "nms", "roi_align")  # nafae_torch/csrc/<name>.cu
 ROUTES = ("auto", "pallas")             # train.kernels of the training runs
 # kernel against plain, rtol and atol: the plain version rounds like the
 # kernel (bf16 operands, alpha rounded to bf16, f32 sums), so bf16 differs
@@ -106,6 +123,25 @@ TIE_GAP = 1e-4
 # the pallas route against the auto route on one batch, f32: the loss (rtol)
 # and each gradient leaf (atol, as a fraction of the leaf's largest entry)
 PALLAS_AUTO_TOL = (1e-5, 1e-4)
+# config 5 at full width (the preset: ResNet-50 C4/C5, 640x640 frames, 15
+# anchors a cell, R=20, D=2048, E=256, K=8, B=16, T=20): planted-signal
+# videos of 4-20 frames at 1 fps, and the steps of each run (depth is cut,
+# widths are not)
+C5_SEGMENTS = 32
+C5_FRAMES = (4, 20)
+C5_RUNS = {"float32": [], "pallas_roi": ["detector.roi_impl=pallas"],
+           "bfloat16": ["detector.dtype=bfloat16"]}
+C5_STEPS = {"float32": 8, "pallas_roi": 6, "bfloat16": 8}
+C5_TIMED_STEPS = 3
+# card against CPU at a reduced size (the CPU cannot run 640x640 in time)
+C5_CPU = {"image": 128, "batch": 2, "frames": 4, "segments": 4}
+# pixels: cuDNN's and the CPU's f32 convolutions differ by ~1e-6 relative,
+# which moves a delta, times a 512-pixel anchor, by ~1e-3 pixel
+C5_BOX_TOL = 1e-2
+C5_EXTRACT = 3              # segments extracted and held against inline
+# K5 against plain: the same weights (built in the same f32 order) and f32
+# sums in another order: |err| <= rtol·|plain| + atol·max|plain|
+K5_TOL = (1e-5, 1e-6)
 
 
 def log(msg: str) -> None:
@@ -695,9 +731,10 @@ def train_cfg(root: str, ckpt: str, dtype: str, steps: int,
 
 
 def kernel_modules():
-    from nafae_torch.ops.kernels import cross_mil, ctx_mix, diag
+    from nafae_torch.ops.kernels import cross_mil, ctx_mix, diag, nms, \
+        roi_align
 
-    return ctx_mix, cross_mil, diag
+    return ctx_mix, cross_mil, diag, nms, roi_align
 
 
 def zero_counts() -> None:
@@ -881,6 +918,512 @@ def check_pallas_vs_auto(torch, root: str, tmp: str) -> dict:
         f"{frac})")
     return {"loss_pallas": lp, "loss_auto": la,
             "loss_rel_diff": abs(lp - la) / abs(la), "grad_rel_diff": worst}
+
+
+# ------------------------------------------------------------- config 5
+
+
+def write_c5_videos(root: str, n: int, size: int, seed: int) -> str:
+    """Planted-signal videos (uncompressed AVI at 1 fps, written with the
+    port's own writer) and their segments.jsonl: each segment names 1-8
+    object classes, and each of its 4-20 frames shows a fixed texture of
+    each named class at a random place on a blocky background."""
+    from nafae_torch.data.avi import write_avi
+    from nafae_torch.data.vocab import DEFAULT_CLASSES
+
+    rng = np.random.RandomState(seed)
+    patch = size // 10
+    tex = np.repeat(np.repeat(rng.randint(0, 256, (len(DEFAULT_CLASSES), 8, 8,
+                                                    3)), patch // 8 + 1, 1),
+                    patch // 8 + 1, 2)[:, :patch, :patch].astype(np.uint8)
+    lines = []
+    for i in range(n):
+        t = int(rng.randint(C5_FRAMES[0], C5_FRAMES[1] + 1))
+        classes = rng.choice(len(DEFAULT_CLASSES), int(rng.randint(1, 9)),
+                             replace=False)
+        cell = -(-size // 20)
+        base = np.repeat(np.repeat(rng.randint(60, 196, (20, 20, 3)), cell, 0),
+                         cell, 1)[:size, :size].astype(np.uint8)
+        frames = []
+        for _ in range(t):
+            f = base.copy()
+            for c in classes:
+                y, x = rng.randint(0, size - patch, 2)
+                f[y:y + patch, x:x + patch] = tex[c]
+            frames.append(f)
+        path = os.path.join(root, f"c5_{size}_{i:02d}.avi")
+        write_avi(path, frames, 1.0)
+        words = " and ".join(DEFAULT_CLASSES[c].replace("_", " ")
+                             for c in classes)
+        lines.append(json.dumps({"id": f"c5_{size}_{i:02d}", "video": path,
+                                 "sentence": f"add the {words}",
+                                 "split": "train"}))
+    ann = os.path.join(root, f"segments_{size}.jsonl")
+    with open(ann, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return ann
+
+
+def c5_cfg(ann: str, ckpt: str, run: str, steps: int, extra=()):
+    from nafae_torch.config import load_config
+
+    return load_config(preset_name="config5", overrides=TRAIN_OVERRIDES + [
+        "data.from_videos=true", f"data.annotations={ann}",
+        f"train.ckpt_dir={ckpt}", f"train.steps={steps}",
+        *C5_RUNS[run], *extra])
+
+
+def c5_first_batch(cfg):
+    """The first batch (numpy) of fit's loader on the videos."""
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.video_dataset import VideoSegmentDataset
+    from nafae_torch.data.vocab import vocab_from_config
+
+    ds = VideoSegmentDataset(cfg.data.annotations, cfg.data.max_frames,
+                             cfg.detector.image_size, cfg.data.max_words,
+                             frame_rate=cfg.detector.frame_rate,
+                             vocab=vocab_from_config(cfg.data))
+    return next(iter(BatchLoader(ds, cfg.data.batch_size, shuffle=True,
+                                 seed=cfg.train.seed)))
+
+
+def c5_detector(torch, cfg, device="cuda"):
+    """The detector fit builds for cfg (random weights from train.seed)."""
+    from nafae_torch.models.detector.faster_rcnn import init_detector
+
+    return init_detector(cfg.detector,
+                         torch.Generator().manual_seed(cfg.train.seed),
+                         device=device)
+
+
+def detector_inputs(torch, model, frames):
+    """What the detector hands its two kernels on these frames [N,S,S,3]:
+    the decoded coordinate planes and objectness [N, h·w·A] of K2, and the
+    feature map [N,h,w,C] and NMS boxes [N,R,4] of K5."""
+    from nafae_torch.models.detector.anchors import decode_delta_planes
+    from nafae_torch.models.detector.rpn import select_proposals_batched
+
+    cfg = model.cfg
+    with torch.no_grad():
+        feat = model.backbone(frames)
+        b, fh, fw, _ = feat.shape
+        anchors = model.anchors(fh, fw, feat.device)
+        obj, raw = model.rpn(feat, raw=True)
+        d = [raw[..., c::4].reshape(b, -1) for c in range(4)]
+        planes = [p.contiguous() for p in
+                  decode_delta_planes(anchors, *d, cfg.image_size)]
+        boxes, _, _ = select_proposals_batched(
+            obj, None, anchors, cfg.image_size, cfg.rpn_pre_nms_topk,
+            cfg.num_proposals, cfg.nms_iou_thresh, nms_impl="pallas",
+            topk_impl="none", deltas_raw=raw)
+    return planes, obj.contiguous(), feat, boxes.contiguous()
+
+
+def nms_edge_cases(torch, gen):
+    """(name, x1, y1, x2, y2, scores, iou) rows as the CPU tests build them:
+    ties of equal score, duplicate boxes, zero-area boxes, rows with fewer
+    survivors than 20, boxes one f32 step either side of IoU 0.7, and one
+    row of N = 100,000."""
+    def rand(b, n, size=80.0):
+        xy = torch.rand(b, n, 2, generator=gen) * size
+        wh = torch.rand(b, n, 2, generator=gen) * 40 + 2
+        return torch.cat([xy, xy + wh], -1), torch.rand(b, n, generator=gen)
+
+    cases = []
+    bx, sc = rand(3, 60)
+    cases.append(("ties", bx, torch.round(sc * 4) / 4, 0.5))
+    bx, sc = rand(3, 40)
+    bx[:, 10:20] = bx[:, :10]
+    bx[:, 20:25], sc[:, 20:25] = bx[:, :5], sc[:, :5]
+    cases.append(("duplicates", bx, sc, 0.5))
+    bx, sc = rand(2, 30)
+    bx[:, ::3, 2] = bx[:, ::3, 0]
+    bx[:, 1::5, 3] = bx[:, 1::5, 1]
+    bx[1] = 0.0
+    cases.append(("zero_area", bx, sc, 0.5))
+    bx = torch.tensor([10.0, 10, 50, 50]).repeat(2, 12, 1) \
+        + torch.rand(2, 12, 4, generator=gen) * 0.5
+    bx[0, 6:] += 100.0
+    cases.append(("few_survivors", bx, torch.rand(2, 12, generator=gen), 0.5))
+    seven = torch.tensor(7.0)
+    hs = [torch.nextafter(seven, torch.tensor(0.0)), seven,
+          torch.nextafter(seven, torch.tensor(20.0))]
+    bx = torch.zeros(3, 6, 4)
+    for r, h in enumerate(hs):
+        bx[r, 0] = torch.tensor([0.0, 0, 10, 10])
+        bx[r, 1] = torch.stack([torch.tensor(0.0), torch.tensor(0.0),
+                                torch.tensor(10.0), h])
+        for j in range(2, 6):
+            bx[r, j] = torch.tensor([30.0 * j, 30 * j, 30 * j + 5, 30 * j + 5])
+    cases.append(("threshold", bx, torch.tensor(
+        [[0.9, 0.8, 0.5, 0.4, 0.3, 0.2]]).repeat(3, 1), 0.7))
+    bx, sc = rand(1, 100_000, size=600.0)
+    cases.append(("N=100000", bx, sc, 0.7))
+    return cases
+
+
+def check_nms(torch, planes, scores) -> dict:
+    """K2 against its plain version on the card: the config-5 detector's
+    own planes (320 rows x 24,000 anchors, num_keep 20), then the edge
+    cases; survivors (idx and valid) must be exactly equal."""
+    gen = torch.Generator().manual_seed(SEED + 6)
+    cases = [("config5 detector", *planes, scores, 0.7)]
+    for name, bx, sc, iou in nms_edge_cases(torch, gen):
+        bx, sc = bx.cuda(), sc.cuda()
+        cases.append((name, *(bx[..., c].contiguous() for c in range(4)),
+                      sc.contiguous(), iou))
+    kept, worst = {}, 0.0
+    for name, *planes_i, sc, iou in cases:
+        err, kept[name] = nms_vs_plain(torch, name, *planes_i, sc, iou)
+        worst = max(worst, err)
+    log(f"nms (K2) vs plain: survivors exactly equal in all {len(cases)} "
+        f"cases (valid slots: {kept})")
+    return {"cases": len(cases), "valid_slots": kept, "max_abs_err": worst}
+
+
+def nms_vs_plain(torch, name, x1, y1, x2, y2, sc, iou) -> tuple[float, int]:
+    """K2 and its plain version (num_keep 20) on one case: fails unless
+    idx and valid are exactly equal; returns (max |kernel - plain| over
+    idx and valid, valid slots)."""
+    from nafae_torch.ops import nms as P
+    from nafae_torch.ops.kernels import nms as K2
+
+    gi, gv = K2.launch(x1, y1, x2, y2, sc, 20, iou)
+    torch.cuda.synchronize()
+    pi, pv = P.nms_planes(x1, y1, x2, y2, sc, 20, iou)
+    bad = int(((gi != pi) | (gv != pv)).sum())
+    if bad:
+        fail(f"nms kernel differs from the plain version in {bad} "
+             f"slots: {name} [{sc.shape[0]}, {sc.shape[1]}]")
+    err = 0.0
+    if gi.numel():
+        err = float(max((gi - pi).abs().max().item(),
+                        (gv - pv).abs().max().item()))
+    return err, int(gv.sum().item())
+
+
+def roi_edge_cases(torch, gen):
+    """(name, feat, boxes, scale): edge boxes (the all-zero boxes of dead
+    NMS slots, off the map, smaller than a cell, the whole map, a line) on
+    H != W maps with C = 37 and C = 33."""
+    def edge(h, w, scale):
+        H, W = h / scale, w / scale
+        return torch.tensor([[0, 0, 0, 0], [-40, -30, 5, 6],
+                             [W - 4, H - 3, W + 50, H + 70],
+                             [-100, -100, -50, -60], [3.1, 3.1, 3.3, 3.2],
+                             [0, 0, W, H], [7.5, 2.0, 7.5, 20.0]])
+
+    out = []
+    for f, h, w, c, scale in ((3, 9, 16, 37, 0.25), (2, 40, 24, 33, 1 / 16)):
+        feat = torch.randn(f, h, w, c, generator=gen)
+        out.append((f"edge boxes H={h} W={w} C={c}", feat,
+                    edge(h, w, scale).repeat(f, 1, 1), scale))
+    return out
+
+
+def k5_close(torch, got, want):
+    """|kernel - plain| <= rtol·|plain| + atol·max|plain| (K5_TOL)."""
+    rtol, atol = K5_TOL
+    lim = rtol * want.abs() + atol * want.abs().max()
+    return bool(((got - want).abs() <= lim).all())
+
+
+def roi_vs_plain(torch, name, feat, boxes, scale) -> float:
+    """K5 and its plain version on one case: fails on a non-finite value or
+    beyond K5_TOL; returns max |kernel - plain|."""
+    from nafae_torch.ops.kernels import roi_align as K5
+
+    got = K5.launch(feat, boxes, scale)
+    torch.cuda.synchronize()
+    want = K5.roi_align_plain(feat, boxes, 7, scale)
+    if not torch.isfinite(got).all():
+        fail(f"roi_align kernel gave non-finite values: {name}")
+    err = (got - want).abs().max().item()
+    if not k5_close(torch, got, want):
+        fail(f"roi_align kernel differs from the plain version by {err} "
+             f"(rtol {K5_TOL[0]}, atol {K5_TOL[1]} x largest |plain|): {name}")
+    return err
+
+
+def check_roi_align(torch, feat, boxes) -> dict:
+    """K5 against its plain version on the card, f32 and bf16 features: the
+    config-5 detector's own map [320,40,40,1024] with its 20 NMS boxes a
+    frame, then the edge cases. Returns the max |error| per dtype."""
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cases = [("config5 detector", feat, boxes, 1 / 16)]
+    cases += [(n, f.cuda(), b.cuda(), s)
+              for n, f, b, s in roi_edge_cases(torch, gen)]
+    errs = {}
+    for dt_name, dt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        errs[dt_name] = max(
+            roi_vs_plain(torch, f"{dt_name} {name}", f.to(dt).contiguous(), b,
+                         scale) for name, f, b, scale in cases)
+        log(f"roi_align (K5) vs plain, {dt_name}: max |err| "
+            f"{errs[dt_name]:.3e} "
+            f"(rtol {K5_TOL[0]}, atol {K5_TOL[1]} x largest |plain|; "
+            f"{len(cases)} cases)")
+    return errs
+
+
+def c5_launches(run: str) -> dict[str, int]:
+    """Launches of each kernel in one config-5 step of `run`."""
+    want = per_step_launches("auto")
+    want["nms"] = 1
+    want["roi_align"] = 1 if run == "pallas_roi" else 0
+    return want
+
+
+def train_c5(torch, ann: str, tmp: str) -> dict:
+    """Config-5 training at full width through fit, one run each of
+    C5_RUNS, each read with the launch counts zeroed just before it."""
+    out = {}
+    for run, steps in C5_STEPS.items():
+        cfg = c5_cfg(ann, os.path.join(tmp, f"ck5_{run}"), run, steps)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()                           # main path starts here
+        t0 = time.perf_counter()
+        logs = run_fit(torch, cfg)
+        wall = time.perf_counter() - t0
+        counts = read_counts()                  # ... and ends here
+        want = {k: n * steps for k, n in c5_launches(run).items()}
+        if counts != want:
+            fail(f"config-5 training ({run}) launched {counts}, expected "
+                 f"{want}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        first = statistics.mean(m["loss"] for m in logs[:2])
+        last = statistics.mean(m["loss"] for m in logs[-2:])
+        log(f"trained config5 {steps} steps ({run}: detector "
+            f"{cfg.detector.dtype}, roi_impl {cfg.detector.roi_impl}, "
+            f"nms_impl {cfg.detector.nms_impl}) in {wall:.2f} s incl. "
+            f"set-up: loss {logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f} "
+            f"(mean of first 2 {first:.5f}, last 2 {last:.5f}); launches "
+            f"{counts}; peak device memory {peak:.2f} GiB")
+        if not last < first:
+            fail(f"config-5 training ({run}) did not lower the loss: "
+                 f"{first} -> {last}")
+        out[run] = {"logs": logs, "launches": counts, "peak_gib": peak,
+                    "wall_s": wall}
+    return out
+
+
+def check_c5_cpu(torch, ann_small: str, tmp: str) -> dict:
+    """One inline config-5 step at a reduced image size (C5_CPU) on the card
+    and on the CPU: the same frames, detector weights and initial state.
+    Proposals must agree where a frame's surviving scores are clear of ties
+    (boxes within C5_BOX_TOL pixels), the metrics within CPU_METRIC_TOL."""
+    from nafae_torch.train import TrainState, batch_to_device, train_step
+
+    cfg = c5_cfg(ann_small, os.path.join(tmp, "ck5_cpu"), "float32", 1,
+                 [f"detector.image_size={C5_CPU['image']}",
+                  f"data.batch_size={C5_CPU['batch']}",
+                  f"data.max_frames={C5_CPU['frames']}"])
+    batch = c5_first_batch(cfg)
+    cpu_det = c5_detector(torch, cfg, "cpu")
+    gpu_det = c5_detector(torch, cfg, "cuda")
+    res, metrics = {}, {}
+    for dev, det in (("cuda", gpu_det), ("cpu", cpu_det)):
+        tb = batch_to_device(batch, torch.device(dev))
+        frames = tb["frames"].reshape((-1,) + tb["frames"].shape[2:])
+        res[dev] = {k: v.cpu() for k, v in det(frames).items()}
+        _, m = train_step(TrainState.create(cfg, device=dev), tb, cfg,
+                          extractor=det)
+        metrics[dev] = {k: float(v) for k, v in m.items()}
+    valid_equal = torch.equal(res["cuda"]["region_valid"],
+                              res["cpu"]["region_valid"])
+    sc, rv = res["cpu"]["scores"], res["cpu"]["region_valid"]
+    live = torch.where(rv > 0, sc, torch.full_like(sc, float("nan")))
+    srt = torch.sort(live, dim=-1).values
+    gaps = torch.nan_to_num(srt[:, 1:] - srt[:, :-1], nan=1.0)
+    clear = (gaps > TIE_GAP).all(-1)
+    box_err = (res["cuda"]["boxes"] - res["cpu"]["boxes"]).abs()[clear]
+    box_err = box_err.max().item() if box_err.numel() else 0.0
+    if not clear.any():
+        fail("card vs CPU: no frame's proposals are clear of ties")
+    if not torch.equal(res["cuda"]["region_valid"][clear], rv[clear]) \
+            or box_err > C5_BOX_TOL:
+        fail(f"card vs CPU: proposals differ where clear of ties (boxes by "
+             f"{box_err} px)")
+    rtol, atol = CPU_METRIC_TOL
+    worst = 0.0
+    for k, c in metrics["cpu"].items():
+        g = metrics["cuda"][k]
+        if not np.isclose(g, c, rtol=rtol, atol=atol):
+            fail(f"config-5 step {k}: card {g} vs CPU {c}")
+        worst = max(worst, abs(g - c) / max(abs(c), 1e-30))
+    feat_err = (res["cuda"]["feats"] - res["cpu"]["feats"])[clear].abs().max()
+    log(f"config-5 card vs CPU at image_size {C5_CPU['image']}, B="
+        f"{C5_CPU['batch']}, T={C5_CPU['frames']}: {int(clear.sum())} of "
+        f"{clear.numel()} frames clear of score ties, region_valid equal "
+        f"{valid_equal} (where clear: yes), boxes within {box_err:.3e} px "
+        f"(limit {C5_BOX_TOL}), feats within {feat_err.item():.3e}; step "
+        f"metrics max relative diff {worst:.3e} (limit rtol {rtol}, atol "
+        f"{atol})")
+    return {"frames_clear": int(clear.sum()), "frames": clear.numel(),
+            "box_abs_diff": box_err, "metric_rel_diff": worst,
+            "region_valid_equal": valid_equal}
+
+
+def check_c5_extract(torch, ann: str, tmp: str) -> dict:
+    """extract_segments on C5_EXTRACT segments with the f32 run's detector:
+    the files load through SegmentDataset and their f16 feats equal the
+    inline detector's feats of the same frames at f16 rounding."""
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.extract import decode_segment, extract_segments
+
+    cfg = c5_cfg(ann, os.path.join(tmp, "ck5_x"), "float32", 1)
+    with open(ann) as f:
+        anns = [json.loads(ln) for ln in f if ln.strip()][:C5_EXTRACT]
+    model = c5_detector(torch, cfg)
+    out = os.path.join(tmp, "c5x", "train")
+    t0 = time.perf_counter()
+    extract_segments(cfg, anns, out, model=model)
+    wall = time.perf_counter() - t0
+    ds = SegmentDataset(os.path.dirname(out), "train", cfg.data.max_frames,
+                        cfg.detector.num_proposals, 2048, cfg.data.max_words)
+    if len(ds) != len(anns):
+        fail(f"SegmentDataset loaded {len(ds)} of {len(anns)} extracted "
+             "segments")
+    worst = 0.0
+    for ann_i in anns:
+        with np.load(os.path.join(out, ann_i["id"] + ".npz")) as z:
+            got = z["feats"].astype(np.float32)
+        frames = decode_segment(ann_i["video"], cfg.detector.frame_rate,
+                                cfg.data.max_frames, cfg.detector.image_size)
+        want = model(torch.from_numpy(frames).cuda())["feats"].cpu().numpy()
+        if got.shape != want.shape:
+            fail(f"extracted feats {got.shape} vs inline {want.shape}")
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max()) / scale
+        if not np.allclose(got, want, rtol=2 ** -10, atol=1e-6 * scale):
+            fail(f"extracted feats differ from the inline detector's beyond "
+                 f"f16 rounding: {err}")
+        worst = max(worst, err)
+    sample = ds[0]
+    log(f"extracted {len(anns)} segments in {wall:.2f} s; SegmentDataset "
+        f"reads them (feats {sample['feats'].shape}); feats equal the inline "
+        f"detector's at f16 rounding (max |diff| / largest {worst:.3e})")
+    return {"segments": len(anns), "wall_s": wall, "max_rel_diff": worst}
+
+
+def roi_bound_ms(torch, feat, boxes, scale=1 / 16) -> tuple[float, str]:
+    """Least time for K5 on these inputs: the feature cells some box of the
+    frame reads (each once) and the boxes, plus the f32 output written
+    once, over the memory rate; 2 flops for each non-zero (wy, wx) pair of
+    each output cell and channel, over the rate for feat's type."""
+    from nafae_torch.ops.roi_align import _weights
+
+    f, h, w, c = feat.shape
+    b = boxes.float() * scale
+    wy = _weights(b[..., 1], b[..., 3], h, 7, 2) != 0        # [F,R,P,H]
+    wx = _weights(b[..., 0], b[..., 2], w, 7, 2) != 0        # [F,R,Q,W]
+    cells = (wy.any(2)[..., :, None] & wx.any(2)[..., None, :]).any(1)
+    pairs = (wy.sum(-1)[..., :, None] * wx.sum(-1)[..., None, :]).sum()
+    nbytes_ = (int(cells.sum()) * c * feat.element_size()
+               + boxes.numel() * 4 + f * boxes.shape[1] * 49 * c * 4)
+    return bound(torch, nbytes_, 2 * int(pairs) * c, feat.dtype)
+
+
+def c5_timings(torch, ann: str, tmp: str) -> dict:
+    """On the first config-5 batch (B=16, T=20, 640x640), for the f32 and
+    the bf16 detector: K2 and K5 against their plain versions on the
+    detector's own inputs, their device times (CUDA graphs), the plain
+    versions' (torch.profiler device time), bounds; then one training step
+    of each C5_RUNS run (c5_step_timings)."""
+    from nafae_torch.ops import nms as P
+    from nafae_torch.ops.kernels import nms as K2
+    from nafae_torch.ops.kernels import roi_align as K5
+
+    res = {}
+    cfg = c5_cfg(ann, os.path.join(tmp, "ck5_t"), "float32", 1000)
+    batch = c5_first_batch(cfg)
+    frames = torch.from_numpy(batch["frames"]).cuda()
+    frames = frames.reshape((-1,) + frames.shape[2:])
+    res["valid_frames"] = int(batch["frame_mask"].sum())
+    for tag, run in (("", "float32"), ("_bf16", "bfloat16")):
+        det = c5_detector(torch, c5_cfg(ann, os.path.join(tmp, "ck5_t"), run,
+                                        1000))
+        planes, scores, feat, boxes = detector_inputs(torch, det, frames)
+        del det
+        fk = feat.contiguous()
+        # each kernel against its plain version on the inputs it is timed on
+        res["nms_err" + tag], _ = nms_vs_plain(
+            torch, f"config5 {run} detector", *planes, scores, 0.7)
+        res["roi_align_err" + tag] = roi_vs_plain(
+            torch, f"config5 {run} detector", fk, boxes, 1 / 16)
+        res["nms_ms" + tag] = device_ms(
+            torch, lambda: K2.launch(*planes, scores, 20, 0.7))
+        res["nms_plain_ms" + tag] = profile_forward(
+            torch, lambda: P.nms_planes(*planes, scores, 20, 0.7), reps=2)[1]
+        # the planes read once and idx/valid written once, against ~15
+        # flops for each box at each step that found a survivor
+        _, valid = K2.launch(*planes, scores, 20, 0.7)
+        res["nms_bound_ms" + tag], res["nms_bound_by" + tag] = bound(
+            torch, nbytes(*planes, scores) + scores.shape[0] * 20 * 8,
+            15 * int(valid.sum()) * scores.shape[1], torch.float32)
+        res["roi_align_ms" + tag] = device_ms(
+            torch, lambda: K5.launch(fk, boxes, 1 / 16), reps=2, runs=11)
+        res["roi_align_plain_ms" + tag] = profile_forward(
+            torch, lambda: K5.roi_align_plain(fk, boxes, 7, 1 / 16),
+            reps=2)[1]
+        res["roi_align_bound_ms" + tag], res["roi_align_bound_by" + tag] = \
+            roi_bound_ms(torch, fk, boxes)
+        res["shapes" + tag] = {"rows": scores.shape[0],
+                               "anchors": scores.shape[1],
+                               "feat": list(fk.shape),
+                               "boxes": list(boxes.shape)}
+        del planes, scores, feat, fk, boxes
+        torch.cuda.empty_cache()
+    for run in C5_RUNS:
+        res.update(c5_step_timings(torch, ann, tmp, batch, run))
+    return res
+
+
+def c5_step_timings(torch, ann, tmp, batch, run) -> dict:
+    """One config-5 step of `run`: host to host (numpy batch in, metrics
+    ready), the same on a resident batch, the frames' copy alone, device
+    busy time and kernels by device time (torch.profiler). Keys end in
+    _<run>."""
+    from nafae_torch.train import (TrainState, batch_to_device,
+                                   make_optimizer, train_step)
+
+    dev = torch.device("cuda")
+    cfg = c5_cfg(ann, os.path.join(tmp, "ck5_t"), run, 1000)
+    det = c5_detector(torch, cfg)
+    tx = make_optimizer(cfg)
+    st = TrainState.create(cfg, device=dev)
+    tb = batch_to_device(batch, dev)
+    for _ in range(2):
+        st, _ = train_step(st, tb, cfg, tx, det)
+    torch.cuda.synchronize()
+    host, resident, h2d = [], [], []
+    for _ in range(C5_TIMED_STEPS):
+        t0 = time.perf_counter()
+        st, m = train_step(st, batch_to_device(batch, dev), cfg, tx, det)
+        float(m["loss"])
+        host.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        st, m = train_step(st, tb, cfg, tx, det)
+        float(m["loss"])
+        resident.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        batch_to_device(batch, dev)
+        torch.cuda.synchronize()
+        h2d.append((time.perf_counter() - t0) * 1e3)
+    top, busy, ops = profile_forward(
+        torch, lambda: train_step(st, tb, cfg, tx, det), reps=2)
+    slots = int(np.prod(batch["frame_mask"].shape))
+    t = "_" + run
+    res = {"step_host_ms" + t: statistics.median(host),
+           "step_host_ms_resident" + t: statistics.median(resident),
+           "step_h2d_ms" + t: statistics.median(h2d),
+           "step_device_busy_ms" + t: busy, "step_device_ops" + t: ops,
+           "step_kernels" + t: top}
+    res["frames_per_s_host" + t] = slots / res["step_host_ms" + t] * 1e3
+    res["device_idle_share_host" + t] = 1.0 - busy / res["step_host_ms" + t]
+    return res
+
 
 
 # ------------------------------------------------------------- times
@@ -1284,6 +1827,7 @@ def main() -> None:
     from nafae_torch.config import load_config
     from nafae_torch.ops.kernels import _build
 
+    t_start = time.perf_counter()
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1330,6 +1874,31 @@ def main() -> None:
         tm = timings(torch, srv32, segs)
         tt = train_timings(torch, tmp, tmp)
         tf = fused_timings(torch, tmp, tmp)
+
+        # config 5 (main paths 4-6): the detector's kernels on its own
+        # full-width inputs, then training through fit, card vs CPU,
+        # extraction and times
+        t5 = time.perf_counter()
+        ann = write_c5_videos(tmp, C5_SEGMENTS, 640, SEED)
+        ann_small = write_c5_videos(tmp, C5_CPU["segments"], C5_CPU["image"],
+                                    SEED + 1)
+        size = sum(os.path.getsize(os.path.join(tmp, f))
+                   for f in os.listdir(tmp) if f.endswith(".avi"))
+        log(f"wrote {C5_SEGMENTS} + {C5_CPU['segments']} planted-signal AVIs "
+            f"({size / 1e9:.2f} GB) in {time.perf_counter() - t5:.1f} s")
+        cfg5 = c5_cfg(ann, os.path.join(tmp, "ck5_k"), "float32", 1)
+        frames5 = torch.from_numpy(c5_first_batch(cfg5)["frames"]).cuda()
+        planes, scores, feat5, boxes5 = detector_inputs(
+            torch, c5_detector(torch, cfg5),
+            frames5.reshape((-1,) + frames5.shape[2:]))
+        nms_info = check_nms(torch, planes, scores)
+        rerrs = check_roi_align(torch, feat5, boxes5)
+        del frames5, planes, scores, feat5, boxes5
+        torch.cuda.empty_cache()
+        c5 = train_c5(torch, ann, tmp)
+        c5_cpu = check_c5_cpu(torch, ann_small, tmp)
+        c5_x = check_c5_extract(torch, ann, tmp)
+        t5m = c5_timings(torch, ann, tmp)
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
         f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}); bf16 kernel "
@@ -1392,6 +1961,35 @@ def main() -> None:
             log(f"device time per training step ({dt}, kernels={route}) by "
                 "kernel: " + "; ".join(f"{us:.1f} us {name}"
                                        for name, us in tt["step_kernels" + rt]))
+
+    for tag, dt in (("", "f32"), ("_bf16", "bf16 detector")):
+        log(f"config-5 kernels on the first batch's detector inputs "
+            f"{t5m['shapes' + tag]}, {dt}: K2 nms {t5m['nms_ms' + tag]:.4f} "
+            f"ms (bound {t5m['nms_bound_ms' + tag]:.4f}, "
+            f"{t5m['nms_bound_by' + tag]}; plain "
+            f"{t5m['nms_plain_ms' + tag]:.4f}); K5 roi_align "
+            f"{t5m['roi_align_ms' + tag]:.4f} ms (bound "
+            f"{t5m['roi_align_bound_ms' + tag]:.4f}, "
+            f"{t5m['roi_align_bound_by' + tag]}; plain "
+            f"{t5m['roi_align_plain_ms' + tag]:.4f}); max |kernel - plain| "
+            f"on these inputs: K2 {t5m['nms_err' + tag]} (survivors equal), "
+            f"K5 {t5m['roi_align_err' + tag]:.3e} — {card}")
+    for run in C5_RUNS:
+        t = "_" + run
+        log(f"config-5 training step ({run}, B=16 T=20 640x640, "
+            f"{t5m['valid_frames']} valid frames of 320): host to host "
+            f"{t5m['step_host_ms' + t]:.2f} ms = "
+            f"{t5m['frames_per_s_host' + t]:.1f} frame slots/s; the frames' "
+            f"copy to the card alone {t5m['step_h2d_ms' + t]:.2f} ms; the "
+            f"step on a resident batch {t5m['step_host_ms_resident' + t]:.2f}"
+            f" ms; device busy {t5m['step_device_busy_ms' + t]:.2f} ms in "
+            f"{t5m['step_device_ops' + t]:.0f} device operations (idle "
+            f"{100 * t5m['device_idle_share_host' + t]:.1f}% of host to "
+            f"host); peak device memory in fit {c5[run]['peak_gib']:.2f} GiB "
+            f"— {card}")
+        log(f"device time per config-5 step ({run}) by kernel: "
+            + "; ".join(f"{us:.1f} us {name}"
+                        for name, us in t5m["step_kernels" + t]))
 
     f32, steps = trained["auto"]["float32"]["launches"], TRAIN_STEPS["float32"]
     fused = trained["pallas"]["float32"]["launches"]
@@ -1468,7 +2066,28 @@ def main() -> None:
               ("diag_epilogue_bwd", "diag_epilogue_bwd.cu",
                "nafae_tpu/ops/pallas/fused_diag.py:130",   # _bwd_kernel
                "diag_bwd", {d: max(x["dw"], x["dv"])
-                            for d, x in derrs.items()})))],
+                            for d, x in derrs.items()}))),
+        *(kernel_entry(
+            name, f"nafae_torch/csrc/{name}.cu", rep,
+            c5[run]["launches"][name],
+            c5[run]["launches"][name] / C5_STEPS[run], err["float32"],
+            t5m[name + "_ms"], t5m[name + "_plain_ms"],
+            t5m[name + "_bound_ms"], t5m[name + "_bound_by"],
+            max_abs_err_bf16=err["bfloat16"], ms_bf16=t5m[name + "_ms_bf16"],
+            plain_ms_bf16=t5m[name + "_plain_ms_bf16"],
+            bound_ms_bf16=t5m[name + "_bound_ms_bf16"],
+            bound_by_bf16=t5m[name + "_bound_by_bf16"],
+            shapes=t5m["shapes"], path=f"config-5 training ({run})")
+          for name, rep, run, err in (
+              ("nms", "nafae_tpu/ops/pallas/nms.py:36",   # _kernel
+               "float32",
+               {"float32": max(nms_info["max_abs_err"], t5m["nms_err"]),
+                "bfloat16": t5m["nms_err_bf16"]}),
+              ("roi_align", "nafae_tpu/ops/pallas/roi_align.py:43",  # _kernel
+               "pallas_roi",
+               {"float32": max(rerrs["float32"], t5m["roi_align_err"]),
+                "bfloat16": max(rerrs["bfloat16"],
+                                t5m["roi_align_err_bf16"])})))],
         "serving": {
             "batch_device_ms": tm["batch_device_ms"],
             "batch_host_ms": tm["batch_host_ms"],
@@ -1490,6 +2109,20 @@ def main() -> None:
                 trained[route][dt]["logs"][-1]["loss"]]
                for route in ROUTES for dt in TRAIN_STEPS},
             "cpu_rerun": cpu, "pallas_vs_auto": routes},
+        "config5": {
+            **{k: v for k, v in t5m.items()
+               if k.startswith(("step_", "frames_per_s", "device_idle"))
+               and "kernels" not in k},
+            "valid_frames_first_batch": t5m["valid_frames"],
+            **{f"loss_first_last_{run}": [c5[run]["logs"][0]["loss"],
+                                          c5[run]["logs"][-1]["loss"]]
+               for run in C5_RUNS},
+            **{f"peak_device_gib_{run}": c5[run]["peak_gib"]
+               for run in C5_RUNS},
+            **{f"fit_wall_s_{run}": c5[run]["wall_s"] for run in C5_RUNS},
+            "nms_check": nms_info, "cpu_rerun": c5_cpu, "extract": c5_x,
+            "phase_s": time.perf_counter() - t5},
+        "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

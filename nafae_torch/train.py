@@ -1,5 +1,6 @@
-"""Training on precomputed RoI features: the config-2/3/4 step, the
-optimizer, the k-means refresh, the fit loop and the CLI.
+"""Training: the config-2/3/4 step on precomputed RoI features and the
+config-5 step on frames, the optimizer, the k-means refresh, the fit loop
+and the CLI.
 
 The port of `nafae_tpu/train.py` on one device with the streaming loader:
 forward, the three losses, their gradient (autograd; the context mix's
@@ -8,18 +9,23 @@ optimizer update and the periodic k-means refresh. `train.kernels=pallas`
 (or the legacy `train.use_pallas=true`) takes the reference's fused route:
 the fused cross-MIL (`ops/kernels/cross_mil.py`, K3a/K3b) for the score
 matrix and, at config 4, the fused diag epilogue (`ops/kernels/diag.py`,
-K4f/K4b) for the context and cluster losses.
+K4f/K4b) for the context and cluster losses. With `data.from_videos=true`
+(config 5) batches carry frames: the loader decodes them
+(`data/video_dataset.py`) and the step runs the frozen Faster R-CNN
+(`models/detector`, with the NMS and RoIAlign kernels) before the losses.
 
     python -m nafae_torch.train --preset config4 --override data.root=... \\
         [--device cpu]
+    python -m nafae_torch.train --preset config5 --override \\
+        data.from_videos=true data.annotations=segments.jsonl
 
 Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
 Not ported yet, and raising NotImplementedError: the device-resident
-dataset (`train.device_cache`), inline videos (`data.from_videos`), meshes
-and data parallelism, k-means++ seeding (`loss.kmeans_init=plusplus`),
-word-vector initialisation (`model.word_vectors`) and the grain pipeline.
-`train.steps_per_call` groups steps into one XLA program in the JAX
-package; PyTorch runs eagerly, so the port ignores it.
+dataset (`train.device_cache`), detector checkpoints (`detector.weights`),
+meshes and data parallelism, k-means++ seeding (`loss.kmeans_init=
+plusplus`), word-vector initialisation (`model.word_vectors`) and the grain
+pipeline. `train.steps_per_call` groups steps into one XLA program in the
+JAX package; PyTorch runs eagerly, so the port ignores it.
 """
 
 from __future__ import annotations
@@ -108,7 +114,8 @@ class TrainState:
 
 def _check_supported(cfg: Config) -> None:
     todo = {"train.device_cache": cfg.train.device_cache,
-            "data.from_videos": cfg.data.from_videos,
+            "detector.weights": cfg.data.from_videos
+            and bool(cfg.detector.weights),
             "model.word_vectors": bool(cfg.model.word_vectors),
             "loss.kmeans_init=plusplus": cfg.loss.kmeans_init == "plusplus",
             "data.pipeline=grain": cfg.data.pipeline == "grain"}
@@ -204,7 +211,7 @@ def make_optimizer(cfg: Config) -> Optimizer:
 
 
 def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
-                   cfg: Config, kernels: str = "auto"
+                   cfg: Config, kernels: str = "auto", extractor=None
                    ) -> tuple[torch.Tensor, dict]:
     """Total loss + aux for one batch of tensors on the training device:
     ranking over the in-batch score matrix, then (config 3/4) the context
@@ -217,8 +224,21 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     cross-MIL, and, with the stop-gradient context target and both the
     context and the cluster loss on (config 4), the context loss, the
     top-region selection and the cluster loss through the fused diag
-    epilogue, which never forms the dense [B,K,T,R] similarity."""
+    epilogue, which never forms the dense [B,K,T,R] similarity.
+
+    extractor: the frozen detector (`models.detector.FasterRCNNExtractor`);
+    when given and the batch carries "frames" [B,T,S,S,3], the RoI features,
+    boxes and region mask (its NMS survivors) are computed from the frames
+    first, with no gradient."""
     pallas = kernels == "pallas"
+    if extractor is not None and "frames" in batch:
+        frames = batch["frames"]
+        b_, t_ = frames.shape[:2]
+        det = extractor(frames.reshape((b_ * t_,) + frames.shape[2:]))
+        batch = dict(batch)
+        for key, out in (("feats", "feats"), ("boxes", "boxes"),
+                         ("region_mask", "region_valid")):
+            batch[key] = det[out].reshape(b_, t_, *det[out].shape[1:])
     lc, mc = cfg.loss, cfg.model
     feats = batch["feats"]
     fm, wm = batch["frame_mask"], batch["word_mask"]
@@ -325,7 +345,7 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
 
 
 def train_step(state: TrainState, batch: dict, cfg: Config,
-               tx: Optimizer | None = None
+               tx: Optimizer | None = None, extractor=None
                ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """One optimizer step on a batch of tensors on state's device; returns
     (new state, metrics as 0-d tensors: l_rank, score_pos, [l_ctx],
@@ -333,13 +353,14 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
 
     The k-means refresh runs after the update, on this step's selections,
     when the step count before the update is a multiple of
-    loss.kmeans_interval (so at step 0 always)."""
+    loss.kmeans_interval (so at step 0 always). extractor: the frozen
+    detector of a batch of frames (see compute_losses)."""
     tx = tx or make_optimizer(cfg)
     names = sorted(state.params)
     params = {k: state.params[k].detach().requires_grad_() for k in names}
     with torch.enable_grad():
         total, aux = compute_losses(params, state.centers, batch, cfg,
-                                    cfg.train.resolved_kernels())
+                                    cfg.train.resolved_kernels(), extractor)
         grads = torch.autograd.grad(total, [params[k] for k in names],
                                     allow_unused=True)
     grads = {k: torch.zeros_like(params[k]) if g is None else g
@@ -371,13 +392,18 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
 
 
 def fit(cfg: Config, device: str | torch.device | None = None,
-        log_fn=None) -> tuple[TrainState, dict]:
+        log_fn=None, extractor=None) -> tuple[TrainState, dict]:
     """Run cfg.train.steps steps from the newest checkpoint in
     train.ckpt_dir (or from scratch); returns the final state and the last
     metrics. Logs JSONL to train.ckpt_dir/metrics.jsonl every log_every
     steps (and calls log_fn), and checkpoints every ckpt_every steps and
     at the end. Periodic evaluation (train.eval_every) comes with the
-    port's eval slice."""
+    port's eval slice.
+
+    With data.from_videos, the dataset is the annotations' segments
+    decoded to frames and the step runs `extractor`, by default a detector
+    with random weights from train.seed (the reference's config-5 inline
+    path, `nafae_tpu/train.py` fit)."""
     from nafae_torch.data.loader import BatchLoader
     from nafae_torch.data.youcook2 import SegmentDataset
     from nafae_torch.utils.checkpoint import CheckpointManager
@@ -385,11 +411,27 @@ def fit(cfg: Config, device: str | torch.device | None = None,
 
     _check_supported(cfg)
     device = resolve_device(device)
-    ds = SegmentDataset(cfg.data.root, cfg.data.split, cfg.data.max_frames,
-                        cfg.data.num_regions, cfg.data.feat_dim,
-                        cfg.data.max_words,
-                        frame_buckets=tuple(cfg.data.frame_buckets),
-                        transfer_dtype=cfg.data.transfer_dtype)
+    if cfg.data.from_videos:
+        from nafae_torch.data.video_dataset import VideoSegmentDataset
+        from nafae_torch.data.vocab import vocab_from_config
+        from nafae_torch.models.detector.faster_rcnn import init_detector
+        if not cfg.data.annotations:
+            raise ValueError("data.from_videos needs data.annotations "
+                             "(segments.jsonl)")
+        ds = VideoSegmentDataset(cfg.data.annotations, cfg.data.max_frames,
+                                 cfg.detector.image_size, cfg.data.max_words,
+                                 frame_rate=cfg.detector.frame_rate,
+                                 vocab=vocab_from_config(cfg.data))
+        if extractor is None:
+            extractor = init_detector(
+                cfg.detector, torch.Generator().manual_seed(cfg.train.seed),
+                device=device)
+    else:
+        ds = SegmentDataset(cfg.data.root, cfg.data.split,
+                            cfg.data.max_frames, cfg.data.num_regions,
+                            cfg.data.feat_dim, cfg.data.max_words,
+                            frame_buckets=tuple(cfg.data.frame_buckets),
+                            transfer_dtype=cfg.data.transfer_dtype)
     state = TrainState.create(cfg, device=device)
     ckpt = CheckpointManager(cfg.train.ckpt_dir, keep=cfg.train.keep_ckpts)
     restored = ckpt.restore_latest(state)
@@ -420,7 +462,7 @@ def fit(cfg: Config, device: str | torch.device | None = None,
         if applied >= target:
             break     # e.g. re-running an already-completed checkpoint dir
         state, metrics = train_step(state, batch_to_device(batch, device),
-                                    cfg, tx)
+                                    cfg, tx, extractor)
         applied += 1
         frames_applied += int(np.prod(batch["frame_mask"].shape))
         if due("log", cfg.train.log_every):

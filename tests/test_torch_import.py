@@ -24,7 +24,11 @@ def test_import_leaves_jax_out():
             "nafae_torch.ops.kernels.cross_mil, nafae_torch.ops.kernels.diag, "
             "nafae_torch.ops.losses, nafae_torch.ops.kmeans, "
             "nafae_torch.data.loader, nafae_torch.utils.checkpoint, "
-            "nafae_torch.utils.metrics_log; "
+            "nafae_torch.utils.metrics_log, nafae_torch.extract, "
+            "nafae_torch.data.avi, nafae_torch.data.video_dataset, "
+            "nafae_torch.models.detector.faster_rcnn, "
+            "nafae_torch.ops.kernels.nms, nafae_torch.ops.kernels.roi_align, "
+            "nafae_torch.ops.nms, nafae_torch.ops.roi_align; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -68,5 +72,13 @@ def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fit(cfg)
     assert TrainState.create(cfg, device="cpu").device.type == "cpu"
+    from nafae_torch.extract import make_extract_fn
+    from nafae_torch.models.detector.faster_rcnn import init_detector
+    det = load_config(preset_name="config5", overrides=[
+        "detector.image_size=32", "detector.anchor_scales=[16]"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_detector(det.detector, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_extract_fn(det)
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
