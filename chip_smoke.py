@@ -14,8 +14,10 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    paths' shapes and at edge shapes, in f32 and bf16: K1f (u), K1fr (u and
    alpha), K1b and K1br (dv_ext against autograd through the plain
    version), CtxMix end to end; the fused cross-MIL K3 (a, and idx where
-   the top two scores are clear of ties; R = 40, an all-masked frame,
-   exact ties resolved to the first region), the diag epilogue K4f (ctx,
+   the top two scores are clear of ties; R from 1 to 100, M = 1 and 129,
+   T = 1, E from 4 to 512, an all-masked frame, a video with no valid
+   frame, exact ties across tiles and chunks resolved to the first
+   region), the diag epilogue K4f (ctx,
    clu, f, its residuals, r* and c*) and K4b (dw, dv on K4f's residuals),
    with K = 7, R = 40 and Kc = 67 among the cases;
 4. serving (main path 1): a config4 GroundingServer at full width, with
@@ -35,7 +37,8 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    route on the same batch;
 7. times from CUDA events (median of repeated runs after warm-up): each
    kernel, its plain version (and, for K3, the two PyTorch calls of the
-   auto route), one full serving batch and one training step of each
+   auto route and an empty kernel of its grid, the launch floor), one
+   full serving batch and one training step of each
    route, with torch.profiler breakdowns;
 8. config 5 (main path 4): planted-signal uncompressed AVIs written by the
    port's own writer (32 segments of 4-20 frames at 640x640, 1 fps); on
@@ -44,10 +47,12 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    its plain version's survivors exactly, and the RoIAlign kernel K5 must
    agree with its plain version (f32 and bf16), as on the edge cases (ties,
    duplicates, zero-area boxes, IoU one f32 step either side of 0.7, a row
-   of 100,000 boxes; dead-slot, off-map and sub-cell boxes, H != W, C = 37);
-   then `fit` on config5 at full width (ResNet-50, B=16, T=20): 8 steps f32
+   of 100,000 boxes; dead-slot, off-map and sub-cell boxes, H != W, C = 37,
+   a frame of dead boxes, R = 1 and 33, maps staged in row bands and in
+   16-channel slices, sampling ratios 1, 3 and 64);
+   then `fit` on config5 at full width (ResNet-50, B=16, T=20): 6 steps f32
    with the preset (K2 once a step), 6 with `detector.roi_impl=pallas` (K2
-   and K5 once a step) and 8 with a bf16 detector, each lowering the loss
+   and K5 once a step) and 6 with a bf16 detector, each lowering the loss
    with exact launch counts; one inline step at 128x128 on the card and on
    the CPU must agree (proposals where clear of score ties, metrics within
    1e-3); `extract_segments` output must load through SegmentDataset and
@@ -131,7 +136,7 @@ C5_SEGMENTS = 32
 C5_FRAMES = (4, 20)
 C5_RUNS = {"float32": [], "pallas_roi": ["detector.roi_impl=pallas"],
            "bfloat16": ["detector.dtype=bfloat16"]}
-C5_STEPS = {"float32": 8, "pallas_roi": 6, "bfloat16": 8}
+C5_STEPS = {"float32": 6, "pallas_roi": 6, "bfloat16": 6}
 C5_TIMED_STEPS = 3
 # card against CPU at a reduced size (the CPU cannot run 640x640 in time)
 C5_CPU = {"image": 128, "batch": 2, "frames": 4, "segments": 4}
@@ -337,37 +342,56 @@ def clear_of_ties(torch, scores, gap=TIE_GAP):
     return top[..., 0] - top[..., 1] > gap
 
 
+# K3's cases: I, M, T, R, E, region mask?, pairs of regions made equal (the
+# first of a pair must win), a video with no valid frame?
+CROSS_CASES = [
+    (16, 128, 20, 20, 256, True, (), False),     # config4 training
+    (16, 128, 20, 40, 256, True, (), False),     # K3a's domain
+    (16, 128, 20, 20, 256, False, (), False),    # no region mask
+    (3, 40, 7, 33, 64, True, ((8, 16), (0, 32)), False),   # r + 32, last row
+    (3, 40, 7, 1, 64, True, (), True),           # R = 1: 80 frames a block
+    (3, 40, 7, 7, 64, True, (), True),
+    (3, 40, 5, 64, 64, True, ((3, 35), (1, 63)), True),
+    (2, 33, 3, 81, 64, True, ((0, 80),), False),           # one past a chunk
+    (2, 40, 3, 100, 64, True, ((7, 39), (2, 99), (40, 85)), True),  # 2 chunks
+    (3, 1, 7, 20, 256, True, (), False),         # M = 1
+    (2, 129, 5, 20, 64, True, (), True),         # one word past two tiles
+    (4, 40, 1, 20, 256, True, (), True),         # T = 1
+    (2, 40, 5, 20, 512, True, (), False),        # the widest E
+    (2, 40, 5, 20, 4, True, (), False),          # the smallest E
+    (2, 40, 5, 20, 20, False, ((2, 19),), True),  # E not a multiple of 8
+]
+
+
 def check_cross_mil(torch, device) -> dict[str, float]:
-    """K3 against its plain version on the card: config4's training shapes
-    (I=16 videos, M=B·K=128 words, T=20, R=20, E=256), R=40 (K3a's
-    domain), no region mask, and a ragged case (M=40, T=7, R=33) with exact
-    ties; each with a valid frame whose regions are all masked. Returns the
-    max |a| error per dtype."""
+    """K3 against its plain version on the card, on CROSS_CASES: config4's
+    training shapes (I=16 videos, M=B·K=128 words, T=20, R=20, E=256), R
+    from 1 to 100 (one frame over two chunks of regions), M = 1 and 129,
+    T = 1, E from 4 to 512, no region mask, a video with no valid frame,
+    and exact ties between regions r and r + 32, r and the last row, and
+    across a chunk; each masked case with a valid frame whose regions are
+    all masked. Returns the max |a| error per dtype."""
     from nafae_torch.ops.kernels import cross_mil as K3
 
     gen = torch.Generator().manual_seed(SEED + 2)
-    cases = [(16, 128, 20, 20, 256, True, False),
-             (16, 128, 20, 40, 256, True, False),
-             (16, 128, 20, 20, 256, False, False),
-             (3, 40, 7, 33, 64, True, True)]
     rtol, atol = CROSS_TOL
     errs = {}
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
         worst = 0.0
-        for i, m, t, r, e, with_rm, tied in cases:
+        for i, m, t, r, e, with_rm, ties, dead_video in CROSS_CASES:
             w = unit_rows(torch, gen, m, e)
             v = unit_rows(torch, gen, i, t, r, e)
             fm, rm = frame_region_masks(torch, gen, i, t, r)
-            if tied:       # duplicate rows: exact ties, first region wins
-                v[:, :, 16] = v[:, :, 8]
-                v[:, :, r - 1] = v[:, :, 0]
-                rm[:, :, 16] = rm[:, :, 8]
-                rm[:, :, r - 1] = rm[:, :, 0]
+            for first, later in ties:     # duplicate rows: exact ties
+                v[:, :, later] = v[:, :, first]
+                rm[:, :, later] = rm[:, :, first]
+            if dead_video:
+                fm[1] = 0.0
             w, v = w.to(dt).to(device), v.to(dt).to(device)
             fm, rm = fm.to(device), rm.to(device) if with_rm else None
             case = (f"{dt_name} I={i} M={m} T={t} R={r} E={e} rm={with_rm} "
-                    f"ties={tied}")
+                    f"ties={ties} dead_video={dead_video}")
             a, idx = K3.launch(w, v, fm, rm)
             torch.cuda.synchronize()
             ap, idxp = K3.cross_mil_plain(w, v, fm, rm)
@@ -384,18 +408,22 @@ def check_cross_mil(torch, device) -> dict[str, float]:
             if not torch.equal(idx[clear], idxp[clear]):
                 fail(f"cross_mil idx differs from the plain version where "
                      f"the top two scores are clear of ties: {case}")
-            if tied and ((idx == 16) | (idx == r - 1)).any():
+            if any((idx == later).any() for _, later in ties):
                 fail(f"cross_mil resolved an exact tie to the later region: "
                      f"{case}")
             if with_rm and not ((a[0, :, 0] == K3.NEG).all()
                                 and (idx[0, :, 0] == 0).all()):
                 fail(f"cross_mil: an all-masked valid frame must give -1e9 "
                      f"and idx 0: {case}")
+            if dead_video and not (a[1] == 0).all():
+                fail(f"cross_mil: a video with no valid frame must give 0: "
+                     f"{case}")
             worst = max(worst, err)
         errs[dt_name] = worst
         log(f"cross_mil vs plain, {dt_name}: max |a err| {worst:.3e} (rtol "
             f"{rtol}, atol {atol}; idx equal where the top two differ by > "
-            f"{TIE_GAP}; {len(cases)} cases)")
+            f"{TIE_GAP}, exact ties to the first region; {len(CROSS_CASES)} "
+            f"cases)")
     return errs
 
 
@@ -1103,9 +1131,13 @@ def nms_vs_plain(torch, name, x1, y1, x2, y2, sc, iou) -> tuple[float, int]:
 
 
 def roi_edge_cases(torch, gen):
-    """(name, feat, boxes, scale): edge boxes (the all-zero boxes of dead
-    NMS slots, off the map, smaller than a cell, the whole map, a line) on
-    H != W maps with C = 37 and C = 33."""
+    """(name, feat, boxes, scale, sampling ratio): edge boxes (the all-zero
+    boxes of dead NMS slots, off the map, smaller than a cell, the whole
+    map, a line) on H != W maps with C = 37 and C = 33; a frame whose boxes
+    are all dead; the whole map next to sub-cell boxes; R = 1 and R = 33;
+    the config-5 map's width (C = 1024, 40 x 40); maps staged in bands of
+    rows (200 x 136) and in slices of 16 channels (a row of 2048 columns);
+    sampling ratios 1, 3 and 64 (the last takes the boxes in groups)."""
     def edge(h, w, scale):
         H, W = h / scale, w / scale
         return torch.tensor([[0, 0, 0, 0], [-40, -30, 5, 6],
@@ -1113,11 +1145,47 @@ def roi_edge_cases(torch, gen):
                              [-100, -100, -50, -60], [3.1, 3.1, 3.3, 3.2],
                              [0, 0, W, H], [7.5, 2.0, 7.5, 20.0]])
 
+    def rand(f, r, h, w, scale):
+        size = torch.tensor([w / scale, h / scale])
+        xy = torch.rand(f, r, 2, generator=gen) * size * 0.8
+        wh = torch.rand(f, r, 2, generator=gen) * size * 0.6 + 2
+        return torch.cat([xy, xy + wh], -1)
+
     out = []
     for f, h, w, c, scale in ((3, 9, 16, 37, 0.25), (2, 40, 24, 33, 1 / 16)):
         feat = torch.randn(f, h, w, c, generator=gen)
         out.append((f"edge boxes H={h} W={w} C={c}", feat,
-                    edge(h, w, scale).repeat(f, 1, 1), scale))
+                    edge(h, w, scale).repeat(f, 1, 1), scale, 2))
+    bx = rand(2, 6, 12, 12, 0.5)
+    bx[0] = 0.0
+    out.append(("a frame of dead boxes", torch.randn(2, 12, 12, 64,
+                                                     generator=gen), bx, 0.5, 2))
+    bx = torch.tensor([[0.0, 0, 640, 640]] + [
+        [x, y, x + 3.0, y + 2.0] for x, y in ((5, 7), (300, 20), (630, 630),
+                                              (17, 333), (0, 0))])
+    out.append(("the whole map beside sub-cell boxes",
+                torch.randn(1, 40, 40, 64, generator=gen), bx[None], 1 / 16, 2))
+    for r in (1, 33):
+        out.append((f"R={r}", torch.randn(2, 20, 24, 40, generator=gen),
+                    rand(2, r, 20, 24, 0.25), 0.25, 2))
+    out.append(("C=1024 H=W=40", torch.randn(1, 40, 40, 1024, generator=gen),
+                rand(1, 20, 40, 40, 1 / 16), 1 / 16, 2))
+    bx = rand(1, 9, 200, 136, 0.125)
+    bx[0, 0] = torch.tensor([0.0, 0, 136 / 0.125, 200 / 0.125])
+    out.append(("row bands H=200 W=136 C=64",
+                torch.randn(1, 200, 136, 64, generator=gen), bx, 0.125, 2))
+    bx = rand(1, 5, 3, 2048, 1.0)
+    bx[0, 0] = torch.tensor([0.0, 0, 2048, 3])
+    out.append(("a row of 2048 columns C=20",
+                torch.randn(1, 3, 2048, 20, generator=gen), bx, 1.0, 2))
+    for sr in (1, 3):
+        out.append((f"sampling ratio {sr}",
+                    torch.randn(2, 14, 10, 36, generator=gen),
+                    rand(2, 8, 14, 10, 0.5), 0.5, sr))
+    bx = rand(1, 20, 130, 130, 1.0)
+    bx[0, 0] = torch.tensor([0.0, 0, 130, 130])
+    out.append(("sampling ratio 64, boxes in groups",
+                torch.randn(1, 130, 130, 8, generator=gen), bx, 1.0, 64))
     return out
 
 
@@ -1128,14 +1196,14 @@ def k5_close(torch, got, want):
     return bool(((got - want).abs() <= lim).all())
 
 
-def roi_vs_plain(torch, name, feat, boxes, scale) -> float:
+def roi_vs_plain(torch, name, feat, boxes, scale, sr=2) -> float:
     """K5 and its plain version on one case: fails on a non-finite value or
     beyond K5_TOL; returns max |kernel - plain|."""
     from nafae_torch.ops.kernels import roi_align as K5
 
-    got = K5.launch(feat, boxes, scale)
+    got = K5.launch(feat, boxes, scale, sr)
     torch.cuda.synchronize()
-    want = K5.roi_align_plain(feat, boxes, 7, scale)
+    want = K5.roi_align_plain(feat, boxes, 7, scale, sr)
     if not torch.isfinite(got).all():
         fail(f"roi_align kernel gave non-finite values: {name}")
     err = (got - want).abs().max().item()
@@ -1150,15 +1218,15 @@ def check_roi_align(torch, feat, boxes) -> dict:
     config-5 detector's own map [320,40,40,1024] with its 20 NMS boxes a
     frame, then the edge cases. Returns the max |error| per dtype."""
     gen = torch.Generator().manual_seed(SEED + 7)
-    cases = [("config5 detector", feat, boxes, 1 / 16)]
-    cases += [(n, f.cuda(), b.cuda(), s)
-              for n, f, b, s in roi_edge_cases(torch, gen)]
+    cases = [("config5 detector", feat, boxes, 1 / 16, 2)]
+    cases += [(n, f.cuda(), b.cuda(), s, sr)
+              for n, f, b, s, sr in roi_edge_cases(torch, gen)]
     errs = {}
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
         errs[dt_name] = max(
             roi_vs_plain(torch, f"{dt_name} {name}", f.to(dt).contiguous(), b,
-                         scale) for name, f, b, scale in cases)
+                         scale, sr) for name, f, b, scale, sr in cases)
         log(f"roi_align (K5) vs plain, {dt_name}: max |err| "
             f"{errs[dt_name]:.3e} "
             f"(rtol {K5_TOL[0]}, atol {K5_TOL[1]} x largest |plain|; "
@@ -1763,6 +1831,11 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
         res["cross_mil_library_ms" + tag] = device_ms(
             torch, lambda: torch.max(torch.matmul(v2, wf.T).reshape(
                 b, t, r, m), dim=2))
+        # an empty kernel with K3's grid, block and shared memory: the floor
+        # that any kernel launched in that shape pays
+        res["cross_mil_floor_ms" + tag] = device_ms(
+            torch, lambda: K3.launch_floor(b, m, t, r, e,
+                                           dt == torch.bfloat16, dev))
         res["cross_mil_bound_ms" + tag], res["cross_mil_bound_by" + tag] = \
             bound(torch, nbytes(wf, fm, rm) + live * row + 2 * b * m * t * 4,
                   2 * m * e * live, dt)
@@ -1936,7 +2009,8 @@ def main() -> None:
             f"{tf['cross_mil_bound_ms' + tag]:.4f}, "
             f"{tf['cross_mil_bound_by' + tag]}; plain "
             f"{tf['cross_mil_plain_ms' + tag]:.4f}; torch.matmul + torch.max "
-            f"{tf['cross_mil_library_ms' + tag]:.4f}); K4f diag_epilogue "
+            f"{tf['cross_mil_library_ms' + tag]:.4f}; an empty kernel of its "
+            f"grid {tf['cross_mil_floor_ms' + tag]:.4f}); K4f diag_epilogue "
             f"{tf['diag_ms' + tag]:.4f} ms (bound "
             f"{tf['diag_bound_ms' + tag]:.4f}, {tf['diag_bound_by' + tag]}; "
             f"plain {tf['diag_plain_ms' + tag]:.4f}); K4b diag_epilogue_bwd "
@@ -2055,7 +2129,10 @@ def main() -> None:
             library_ms_bf16=tf.get(key + "_library_ms_bf16"),
             **({"library": "torch.matmul then torch.max over R: two calls, "
                 "the auto route's product and max without the mask (bf16: "
-                "bf16 output)"} if key == "cross_mil" else {}),
+                "bf16 output)",
+                "floor_ms": tf["cross_mil_floor_ms"],
+                "floor_ms_bf16": tf["cross_mil_floor_ms_bf16"]}
+               if key == "cross_mil" else {}),
             shapes=tf["shapes"], path="training f32, kernels=pallas")
           for name, src, rep, key, err in (
               ("cross_mil", "cross_mil.cu", k3_replaces, "cross_mil", xerrs),

@@ -18,14 +18,39 @@
 // reach device memory, never the [I, M, T, R] scores: that is the point of
 // the TPU kernel, kept here.
 //
-// Design: one block per (video, tile of 32 words, group of 4 frames). The
-// word tile sits in shared memory as f32 rows (stride E+4, so float4 reads of
-// 8 distinct rows fall in distinct banks); each frame's regions are staged 32
-// at a time, so any R fits. 8 lanes share a word: lane j takes regions j,
-// j+8, j+16, j+24 of the chunk, sums each dot over E in one fixed order (so
-// equal region rows give bitwise-equal scores, and exact ties stay ties),
-// keeps its first maximum, and the 8 lanes merge (max, lowest index) by
-// shuffles. The 4 frames of a block reuse the staged word tile.
+// Design. Per video the function is a [M, E] x [E, T*R] product with a
+// segmented max over each frame's R columns as its epilogue. A block takes one
+// video, a tile of words and a run of kCols = 80 columns of the flat (t, r)
+// axis: floor(80 / R) whole frames when R <= 80 (4 frames at R = 20: no dead
+// region slot is multiplied), else one frame in chunks of 80 regions. The
+// block writes its tile of scores (masked regions as -1e9) to shared memory
+// and one thread per (word, frame) walks that frame's columns in increasing r,
+// keeping the first maximum; across chunks it carries (max, index) in
+// registers, so the lowest index wins at any R. Every (word, region) dot is
+// summed over E in one order that does not depend on its place in a tile, so
+// equal region rows give bitwise-equal scores and exact ties stay ties.
+//
+// f32 operands (cross_mil_f32): CUDA cores, full f32 (no TF32). 32 words x 80
+// columns a block; a thread holds an 8 x 5 register tile (word ty + 4i, column
+// tx + 16j): 13 16-byte shared loads feed 160 FMAs, against 5 for 16 before.
+// E is walked in stages of 64 columns, copied with cp.async into two buffers
+// (rows of 68 floats, so the 8 rows a quarter-warp reads fall in distinct
+// banks) while the previous stage is multiplied. Two groups of 64 threads
+// share a stage: group 0 sums columns 0..31 of it, group 1 columns 32..63, and
+// the epilogue adds group 0's sum to group 1's, the same order for every
+// output. That doubles the warps that issue FMAs: at config 4 the grid is 5 x
+// 4 x 16 = 320 blocks of 4 warps and 72 KB, all resident at once, two or three
+// on each of the 132 SMs (without the split the busiest scheduler ran two
+// long warps one after the other).
+//
+// bf16 operands (cross_mil_bf16): tensor cores, mma.sync m16n8k16 with f32
+// accumulators (bf16 x bf16 products are exact in f32: the contract of
+// as_operand). 64 words x 80 columns a block, 4 warps of 32 words x 40
+// columns (2 x 5 MMA tiles). The operands stay bf16 in shared memory, whole
+// rows of E (stride E + 8 elements: conflict-free fragment loads), copied by
+// cp.async in four groups of columns so that the first MMAs start when a
+// quarter has landed. At config 4: 5 x 2 x 16 = 160 blocks of 97 KB, two an
+// SM. Every output element sees the same k loop, so ties stay exact.
 //
 // Bound on an H100 SXM (config4 training shapes I=16, M=B*K=128, T=20, R=20,
 // E=256): 2*M*I*T*R*E = 419 MFLOP, ~6.3 us at 67 TFLOP/s f32 on CUDA cores,
@@ -34,10 +59,10 @@
 // (989 TFLOP/s) take ~0.4 us and the 3.6 MB take ~1.1 us: bound by bytes.
 // These count every region as live; the function needs the rows and dots of
 // live regions only, so chip_smoke.py counts the bound from a batch's masks.
-// This version runs the f32 dots on CUDA cores in both modes, from shared
-// memory (5 16-byte loads feed 16 FMAs); PERF.md has its measured times.
+// PERF.md has the measured times of this design and of the one it replaced.
 
 #include <climits>
+#include <cstdint>
 
 #include "ctx_mix_common.cuh"
 
@@ -45,118 +70,315 @@ namespace {
 
 using namespace nafae_ctx;
 
-constexpr int kWords = 32;      // words of a block
-constexpr int kRegions = 32;    // regions staged at once
-constexpr int kFrames = 4;      // frames of a block
-constexpr int kLanes = 8;       // lanes that share a word
-constexpr int kThreads = kWords * kLanes;
-constexpr int kPerLane = kRegions / kLanes;
+constexpr int kCols = 80;          // columns (frames x regions) of a block
+constexpr int kLdSc = kCols + 1;   // score rows in shared memory: odd stride
 
-template <typename Tin>
-__global__ void __launch_bounds__(kThreads)
-cross_mil_kernel(const Tin* __restrict__ w,     // [M, E]
-                 const Tin* __restrict__ v,     // [I, T, R, E]
-                 const float* __restrict__ fm,  // [I, T]
-                 const float* __restrict__ rm,  // [I, T, R] or null (all valid)
-                 float* __restrict__ a,         // [I, M, T]
-                 int* __restrict__ idx,         // [I, M, T]
-                 int M, int T, int R, int E) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = E + 4;
-  float* ws = smem;                   // [kWords][ld]   word tile
-  float* vs = ws + kWords * ld;       // [kRegions][ld] region chunk
-  float* live = vs + kRegions * ld;   // [kRegions]     region mask of the chunk
+// f32: two groups of 4 x 16 threads, 8 words x 5 columns a thread
+constexpr int kTy = 4, kTx = 16, kWordsPer = 8, kColsPer = 5;
+constexpr int kWordsF = kTy * kWordsPer;     // 32 words a block
+constexpr int kSplit = 2;                    // groups of warps that share E
+constexpr int kGroupF = kTy * kTx;           // 64 threads a group
+constexpr int kThreadsF = kSplit * kGroupF;  // 128
+constexpr int kBk = 32;                      // columns of E a group takes
+constexpr int kLd = kSplit * kBk + 4;        // floats of a staged row
+static_assert(kTx * kColsPer == kCols, "the thread tiles cover the columns");
 
-  const int t0 = blockIdx.x * kFrames;
-  const int m0 = blockIdx.y * kWords;
-  const int i = blockIdx.z;
-  const int mw = min(kWords, M - m0);
-  const int ml = threadIdx.x / kLanes;       // this thread's word in the tile
-  const int lane = threadIdx.x % kLanes;
-  const int e4 = E >> 2;
+// bf16: 2 x 2 warps, 32 words x 40 columns each
+constexpr int kWordsH = 64;
+constexpr int kThreadsH = 128;
+constexpr int kGroups = 4;                   // cp.async groups over E
 
-  stage_frame(ws, w + (size_t)m0 * E, mw, E, ld);
-  const float4* wrow = reinterpret_cast<const float4*>(ws + min(ml, mw - 1) * ld);
+// The columns a block takes: frames [t0, t0 + nf) whole when R <= kCols, else
+// frame t0 alone in chunks of kCols regions.
+struct Span {
+  int t0, nf, chunks;
+  bool multi;
+};
 
-  for (int t = t0; t < min(t0 + kFrames, T); ++t) {
-    const size_t it = (size_t)i * T + t;
-    const Tin* vt = v + it * R * E;
-    float best = -CUDART_INF_F;
-    int arg = INT_MAX;
-    for (int r0 = 0; r0 < R; r0 += kRegions) {
-      const int rc = min(kRegions, R - r0);
-      __syncthreads();              // the word tile is staged; the last chunk read
-      stage_frame(vs, vt + (size_t)r0 * E, rc, E, ld);
-      if (threadIdx.x < rc)
-        live[threadIdx.x] = rm ? rm[it * R + r0 + threadIdx.x] : 1.f;
-      __syncthreads();
+__device__ __forceinline__ Span block_span(int T, int R) {
+  Span s;
+  s.multi = R > kCols;
+  const int fb = s.multi ? 1 : kCols / R;
+  s.t0 = blockIdx.x * fb;
+  s.nf = min(fb, T - s.t0);
+  s.chunks = s.multi ? (R + kCols - 1) / kCols : 1;
+  return s;
+}
 
-      const float4* vr[kPerLane];
-      float d[kPerLane];
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {
-        vr[j] = reinterpret_cast<const float4*>(vs + min(lane + kLanes * j, rc - 1) * ld);
-        d[j] = 0.f;
-      }
-      for (int q = 0; q < e4; ++q) {
-        const float4 x = wrow[q];
-#pragma unroll
-        for (int j = 0; j < kPerLane; ++j) {
-          const float4 c = vr[j][q];
-          d[j] = fmaf(x.x, c.x, d[j]);
-          d[j] = fmaf(x.y, c.y, d[j]);
-          d[j] = fmaf(x.z, c.z, d[j]);
-          d[j] = fmaf(x.w, c.w, d[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < kPerLane; ++j) {   // regions in increasing order
-        const int rl = lane + kLanes * j;
-        if (rl < rc) {
-          const float s = live[rl] > 0.f ? d[j] : kNeg;
-          if (s > best) {
-            best = s;
-            arg = r0 + rl;
-          }
-        }
+// The segmented max of one chunk of scores sc[word][column] (masked already):
+// thread p takes (word p / nf, frame p % nf) and walks its `len` columns in
+// increasing region order, so the first maximum wins. (best, arg) carry over
+// a frame's chunks (one pair a thread then: kWords <= blockDim.x); the last
+// chunk writes a and idx.
+template <int kWords>
+__device__ __forceinline__ void segment_max(
+    const float* __restrict__ sc, const float* __restrict__ fm,
+    float* __restrict__ a, int* __restrict__ idx, const Span& sp, int len,
+    int roff, bool first, bool last, int i, int m0, int mw, int M, int T,
+    float& best, int& arg) {
+  for (int p = threadIdx.x; p < kWords * sp.nf; p += blockDim.x) {
+    const int f = p % sp.nf, word = p / sp.nf;
+    if (first) {
+      best = -CUDART_INF_F;
+      arg = INT_MAX;
+    }
+    const float* row = sc + word * kLdSc + f * len;
+    for (int r = 0; r < len; ++r) {
+      const float s = row[r];
+      if (s > best) {
+        best = s;
+        arg = roff + r;
       }
     }
-    // merge the 8 lanes of the word: the larger score, the lower index on ties
-#pragma unroll
-    for (int off = kLanes / 2; off > 0; off >>= 1) {
-      const float ob = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oa = __shfl_xor_sync(0xffffffffu, arg, off);
-      if (ob > best || (ob == best && oa < arg)) {
-        best = ob;
-        arg = oa;
-      }
-    }
-    if (lane == 0 && ml < mw) {
-      const size_t o = ((size_t)i * M + m0 + ml) * T + t;
-      a[o] = fm[it] > 0.f ? best : 0.f;
+    if (last && word < mw) {
+      const int t = sp.t0 + f;
+      const size_t o = ((size_t)i * M + m0 + word) * T + t;
+      a[o] = fm[(size_t)i * T + t] > 0.f ? best : 0.f;
       idx[o] = arg;
     }
   }
 }
 
-// Dynamic shared memory of one block, in bytes: 133,248 B at E = 512.
-size_t smem_bytes(int E) {
-  return (size_t)((kWords + kRegions) * (E + 4) + kRegions) * sizeof(float);
+__global__ void __launch_bounds__(kThreadsF)
+cross_mil_f32(const float* __restrict__ w,    // [M, E]
+              const float* __restrict__ v,    // [I, T, R, E]
+              const float* __restrict__ fm,   // [I, T]
+              const float* __restrict__ rm,   // [I, T, R] or null (all valid)
+              float* __restrict__ a,          // [I, M, T]
+              int* __restrict__ idx,          // [I, M, T]
+              int M, int T, int R, int E) {
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;                           // [2][kWordsF][kLd]
+  float* vs = ws + 2 * kWordsF * kLd;         // [2][kCols][kLd]
+  float* sc = vs + 2 * kCols * kLd;           // [kWordsF][kLdSc]
+  float* live = sc + kWordsF * kLdSc;         // [kCols]
+
+  const Span sp = block_span(T, R);
+  const int m0 = blockIdx.y * kWordsF;
+  const int i = blockIdx.z;
+  const int mw = min(kWordsF, M - m0);
+  const int grp = threadIdx.x / kGroupF;       // this group's columns of E
+  const int ty = threadIdx.x % kGroupF / kTx, tx = threadIdx.x % kTx;
+  const int nk = (E + kSplit * kBk - 1) / (kSplit * kBk);
+  const float* wsrc = w + (size_t)m0 * E;
+  float best = -CUDART_INF_F;
+  int arg = INT_MAX;
+
+  for (int ch = 0; ch < sp.chunks; ++ch) {
+    const int c0 = ch * kCols;                // first region of a long frame
+    const int nc = sp.multi ? min(kCols, R - c0) : sp.nf * R;
+    const size_t col0 = ((size_t)i * T + sp.t0) * R + c0;
+    const float* vsrc = v + col0 * E;
+    __syncthreads();                          // the last chunk's sc and live
+    for (int c = threadIdx.x; c < kCols; c += blockDim.x)
+      live[c] = (c < nc && rm) ? rm[col0 + c] : 1.f;
+
+    auto stage = [&](int ks) {
+      const int buf = ks & 1;
+      stage_tile_async<4>(ws + buf * kWordsF * kLd, wsrc, kWordsF, mw, E,
+                          ks * kSplit * kBk, kSplit * kBk, kLd);
+      stage_tile_async<4>(vs + buf * kCols * kLd, vsrc, kCols, nc, E,
+                          ks * kSplit * kBk, kSplit * kBk, kLd);
+      cp_async_commit();
+    };
+
+    float d[kWordsPer][kColsPer];
+#pragma unroll
+    for (int x = 0; x < kWordsPer; ++x)
+#pragma unroll
+      for (int y = 0; y < kColsPer; ++y) d[x][y] = 0.f;
+
+    stage(0);
+    for (int ks = 0; ks < nk; ++ks) {
+      if (ks + 1 < nk) {
+        stage(ks + 1);                        // the next tile loads meanwhile
+        cp_async_wait(1);
+      } else {
+        cp_async_wait(0);
+      }
+      __syncthreads();
+      const float4* wr = reinterpret_cast<const float4*>(
+          ws + (ks & 1) * kWordsF * kLd + ty * kLd + grp * kBk);
+      const float4* vr = reinterpret_cast<const float4*>(
+          vs + (ks & 1) * kCols * kLd + tx * kLd + grp * kBk);
+#pragma unroll
+      for (int q = 0; q < kBk / 4; ++q) {
+        float4 x[kWordsPer], c[kColsPer];
+#pragma unroll
+        for (int k = 0; k < kWordsPer; ++k) x[k] = wr[k * kTy * (kLd / 4) + q];
+#pragma unroll
+        for (int k = 0; k < kColsPer; ++k) c[k] = vr[k * kTx * (kLd / 4) + q];
+#pragma unroll
+        for (int k = 0; k < kWordsPer; ++k)
+#pragma unroll
+          for (int j = 0; j < kColsPer; ++j) {
+            d[k][j] = fmaf(x[k].x, c[j].x, d[k][j]);
+            d[k][j] = fmaf(x[k].y, c[j].y, d[k][j]);
+            d[k][j] = fmaf(x[k].z, c[j].z, d[k][j]);
+            d[k][j] = fmaf(x[k].w, c[j].w, d[k][j]);
+          }
+      }
+      __syncthreads();                        // before this buffer is refilled
+    }
+
+    // the groups' partial sums, added in the order of the groups
+    for (int gsum = kSplit - 1; gsum >= 0; --gsum) {
+      if (grp == gsum) {
+#pragma unroll
+        for (int k = 0; k < kWordsPer; ++k)
+#pragma unroll
+          for (int j = 0; j < kColsPer; ++j) {
+            const int col = tx + kTx * j;
+            float* o = sc + (ty + kTy * k) * kLdSc + col;
+            float s = d[k][j];
+            if (gsum < kSplit - 1) s += *o;
+            *o = (gsum > 0 || live[col] > 0.f) ? s : kNeg;
+          }
+      }
+      __syncthreads();
+    }
+    segment_max<kWordsF>(sc, fm, a, idx, sp, sp.multi ? nc : R, c0, ch == 0,
+                         ch == sp.chunks - 1, i, m0, mw, M, T, best, arg);
+  }
 }
 
-template <typename Tin>
-int launch(const void* w, const void* v, const float* fm, const float* rm,
-           float* a, int* idx, int I, int M, int T, int R, int E,
-           cudaStream_t stream) {
-  auto kern = cross_mil_kernel<Tin>;
-  const size_t smem = smem_bytes(E);
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&x)[4],
+                                         uint32_t y0, uint32_t y1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(y0), "r"(y1));
+}
+
+__global__ void __launch_bounds__(kThreadsH)
+cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
+               const __nv_bfloat16* __restrict__ v,   // [I, T, R, E]
+               const float* __restrict__ fm, const float* __restrict__ rm,
+               float* __restrict__ a, int* __restrict__ idx, int M, int T,
+               int R, int E) {
+  extern __shared__ __align__(16) float smem[];
+  const int ep = (E + 15) & ~15;              // E padded to the MMA's depth
+  const int ld = ep + 8;                      // elements; rows 16-byte aligned
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [kWordsH][ld]
+  __nv_bfloat16* vs = ws + kWordsH * ld;                       // [kCols][ld]
+  float* sc = reinterpret_cast<float*>(vs + kCols * ld);  // [kWordsH][kLdSc]
+  float* live = sc + kWordsH * kLdSc;                     // [kCols]
+
+  const Span sp = block_span(T, R);
+  const int m0 = blockIdx.y * kWordsH;
+  const int i = blockIdx.z;
+  const int mw = min(kWordsH, M - m0);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 40;
+  const int kg = ((ep / 16 + kGroups - 1) / kGroups) * 16;  // columns a group
+  const __nv_bfloat16* wsrc = w + (size_t)m0 * E;
+  float best = -CUDART_INF_F;
+  int arg = INT_MAX;
+
+  for (int ch = 0; ch < sp.chunks; ++ch) {
+    const int c0 = ch * kCols;
+    const int nc = sp.multi ? min(kCols, R - c0) : sp.nf * R;
+    const size_t col0 = ((size_t)i * T + sp.t0) * R + c0;
+    const __nv_bfloat16* vsrc = v + col0 * E;
+    __syncthreads();                 // the last chunk's vs, sc and live
+    for (int c = threadIdx.x; c < kCols; c += blockDim.x)
+      live[c] = (c < nc && rm) ? rm[col0 + c] : 1.f;
+    for (int q = 0; q < kGroups; ++q) {
+      const int k0 = q * kg, kw = min(kg, ep - k0);
+      if (kw > 0) {
+        if (E % 8 == 0) {            // 16-byte copies
+          if (ch == 0)
+            stage_tile_async<8>(ws + k0, wsrc, kWordsH, mw, E, k0, kw, ld);
+          stage_tile_async<8>(vs + k0, vsrc, kCols, nc, E, k0, kw, ld);
+        } else {                     // rows 8-byte aligned only
+          if (ch == 0)
+            stage_tile_async<4>(ws + k0, wsrc, kWordsH, mw, E, k0, kw, ld);
+          stage_tile_async<4>(vs + k0, vsrc, kCols, nc, E, k0, kw, ld);
+        }
+      }
+      cp_async_commit();
+    }
+
+    float c[2][5][4];
+#pragma unroll
+    for (int x = 0; x < 2; ++x)
+#pragma unroll
+      for (int y = 0; y < 5; ++y)
+#pragma unroll
+        for (int z = 0; z < 4; ++z) c[x][y][z] = 0.f;
+
+    for (int q = 0; q < kGroups; ++q) {
+      cp_async_wait(kGroups - 1 - q);
+      __syncthreads();
+      const int kend = min(ep, (q + 1) * kg);
+      for (int k = q * kg; k < kend; k += 16) {
+        uint32_t x[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          const __nv_bfloat16* p = ws + (wm + mi * 16 + g) * ld + k + 2 * tig;
+          x[mi][0] = *reinterpret_cast<const uint32_t*>(p);
+          x[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
+          x[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+          x[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
+        }
+#pragma unroll
+        for (int ni = 0; ni < 5; ++ni) {
+          if (wn + ni * 8 >= nc) continue;    // dead columns: warp-uniform
+          const __nv_bfloat16* p = vs + (wn + ni * 8 + g) * ld + k + 2 * tig;
+          const uint32_t y0 = *reinterpret_cast<const uint32_t*>(p);
+          const uint32_t y1 = *reinterpret_cast<const uint32_t*>(p + 8);
+          mma_bf16(c[0][ni], x[0], y0, y1);
+          mma_bf16(c[1][ni], x[1], y0, y1);
+        }
+      }
+    }
+
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 5; ++ni)
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          const int row = wm + mi * 16 + g + (z >> 1) * 8;
+          const int col = wn + ni * 8 + 2 * tig + (z & 1);
+          sc[row * kLdSc + col] = live[col] > 0.f ? c[mi][ni][z] : kNeg;
+        }
+    __syncthreads();
+    segment_max<kWordsH>(sc, fm, a, idx, sp, sp.multi ? nc : R, c0, ch == 0,
+                         ch == sp.chunks - 1, i, m0, mw, M, T, best, arg);
+  }
+}
+
+// Dynamic shared memory of one block, in bytes: 71,616 B in f32 at any E;
+// in bf16 97,088 B at E = 256 and 170,816 B at E = 512.
+size_t smem_f32() {
+  return (size_t)(2 * (kWordsF + kCols) * kLd + kWordsF * kLdSc + kCols) *
+         sizeof(float);
+}
+size_t smem_bf16(int E) {
+  const int ld = ((E + 15) & ~15) + 8;
+  return (size_t)(kWordsH + kCols) * ld * sizeof(__nv_bfloat16) +
+         (size_t)(kWordsH * kLdSc + kCols) * sizeof(float);
+}
+
+// An empty kernel: launched with a real kernel's grid, block and shared
+// memory it reads the floor that any kernel of that shape pays.
+__global__ void null_kernel() {}
+
+template <typename Tin, typename Kern>
+int launch(Kern kern, int words, int threads, size_t smem, const void* w,
+           const void* v, const float* fm, const float* rm, float* a, int* idx,
+           int I, int M, int T, int R, int E, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((T + kFrames - 1) / kFrames, (M + kWords - 1) / kWords, I);
-  kern<<<grid, kThreads, smem, stream>>>(static_cast<const Tin*>(w),
-                                         static_cast<const Tin*>(v), fm, rm, a,
-                                         idx, M, T, R, E);
+  const int fb = R > kCols ? 1 : kCols / R;
+  const dim3 grid((T + fb - 1) / fb, (M + words - 1) / words, I);
+  kern<<<grid, threads, smem, stream>>>(static_cast<const Tin*>(w),
+                                        static_cast<const Tin*>(v), fm, rm, a,
+                                        idx, M, T, R, E);
   return (int)cudaGetLastError();
 }
 
@@ -169,18 +391,43 @@ extern "C" {
 // __nv_bfloat16* otherwise; fm [I, T] and rm [I, T, R] (may be null: every
 // region valid) are f32; a [I, M, T] f32 and idx [I, M, T] int32 are written
 // whole. All tensors are contiguous; w and v are 16-byte aligned.
-// Limits: R >= 1, E a multiple of 4 with 4 <= E <= 512, I <= 65535.
+// Limits: R >= 1, E a multiple of 4 with 4 <= E <= 512, I <= 65535,
+// ceil(M / 32) <= 65535.
 int nafae_cross_mil(const void* w, const void* v, int is_bf16, const float* fm,
                     const float* rm, float* a, int* idx, int I, int M, int T,
                     int R, int E, void* stream) {
   if (R < 1 || E < 4 || E % 4 != 0 || E > 512 || I < 0 || I > 65535 ||
-      M < 0 || T < 0)
+      M < 0 || T < 0 ||
+      (M + kWordsF - 1) / kWordsF > 65535)
     return (int)cudaErrorInvalidValue;
   if (I == 0 || M == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16
-      ? launch<__nv_bfloat16>(w, v, fm, rm, a, idx, I, M, T, R, E, s)
-      : launch<float>(w, v, fm, rm, a, idx, I, M, T, R, E, s);
+      ? launch<__nv_bfloat16>(cross_mil_bf16, kWordsH, kThreadsH, smem_bf16(E),
+                              w, v, fm, rm, a, idx, I, M, T, R, E, s)
+      : launch<float>(cross_mil_f32, kWordsF, kThreadsF, smem_f32(), w, v, fm,
+                      rm, a, idx, I, M, T, R, E, s);
+}
+
+
+// Launches an empty kernel with the grid, block size and dynamic shared
+// memory that nafae_cross_mil would use for these sizes: the launch floor the
+// measured times are judged against. Same limits and return value.
+int nafae_cross_mil_floor(int is_bf16, int I, int M, int T, int R, int E,
+                          void* stream) {
+  if (R < 1 || E < 4 || E % 4 != 0 || E > 512 || I < 1 || I > 65535 ||
+      M < 1 || T < 1)
+    return (int)cudaErrorInvalidValue;
+  const int words = is_bf16 ? kWordsH : kWordsF;
+  const size_t smem = is_bf16 ? smem_bf16(E) : smem_f32();
+  cudaError_t err = cudaFuncSetAttribute(
+      null_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int fb = R > kCols ? 1 : kCols / R;
+  const dim3 grid((T + fb - 1) / fb, (M + words - 1) / words, I);
+  null_kernel<<<grid, is_bf16 ? kThreadsH : kThreadsF, smem,
+                static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Device helpers shared by the port's kernels (the context mix, ctx_mix.cu and
-// ctx_mix_bwd.cu, and the fused cross-MIL and diag epilogue, cross_mil.cu and
-// diag_epilogue*.cu), for NVIDIA Hopper (sm_90a).
+// ctx_mix_bwd.cu, the fused cross-MIL and diag epilogue, cross_mil.cu and
+// diag_epilogue*.cu, and the asynchronous copies of cross_mil.cu and
+// roi_align.cu), for NVIDIA Hopper (sm_90a).
 //
 // Frames [R, E] are staged in shared memory as f32 rows of stride ld = E + 4
 // (float4 reads of distinct rows fall in distinct banks). Every helper is
@@ -63,6 +64,60 @@ __device__ __forceinline__ void stage_frame(float* __restrict__ dst,
     const int flat = i << 2;
     const int r = flat / E;
     *reinterpret_cast<float4*>(dst + r * ld + (flat - r * E)) = load4(src, i);
+  }
+}
+
+// One asynchronous copy of kBytes (8 or 16) from global to shared memory
+// (cp.async); only the first src_bytes are read, the rest is zero-filled, so
+// src_bytes = 0 writes zeros. Both addresses are kBytes-aligned.
+template <int kBytes>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  static_assert(kBytes == 8 || kBytes == 16, "cp.async of 8 or 16 bytes");
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if constexpr (kBytes == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+}
+
+// Closes the group of the copies issued so far by this thread.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` (0..3) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// The asynchronous sibling of stage_frame, in the input's own type: columns
+// [k0, k0 + kw) of `rows` rows of a row-major [., E] array into shared rows
+// of stride ld elements, kVec elements (8 or 16 bytes) a copy. Rows at or
+// beyond live_rows and columns at or beyond E are zero-filled. kw, k0, E and
+// ld are multiples of kVec; the caller commits and waits.
+template <int kVec, typename T>
+__device__ __forceinline__ void stage_tile_async(T* __restrict__ dst,
+                                                 const T* __restrict__ src,
+                                                 int rows, int live_rows, int E,
+                                                 int k0, int kw, int ld) {
+  constexpr int kBytes = kVec * (int)sizeof(T);
+  const int per_row = kw / kVec;
+  for (int c = threadIdx.x; c < rows * per_row; c += blockDim.x) {
+    const int r = c / per_row;
+    const int k = (c - r * per_row) * kVec;
+    const bool ok = r < live_rows && k0 + k < E;
+    cp_async<kBytes>(dst + r * ld + k,
+                     ok ? src + (size_t)r * E + k0 + k : src, ok ? kBytes : 0);
   }
 }
 

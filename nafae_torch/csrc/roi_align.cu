@@ -18,154 +18,403 @@
 //
 // Design: the TPU computes two dense MXU contractions over the whole map; here
 // each output cell sums only over its support, at most 2 * sr rows and 2 * sr
-// columns. One block per box; the block builds wy and wx densely in shared
-// memory, then each thread takes channels c = tid, tid + 256, ... and walks
-// the rows some p touches: for such a row h it forms st[q] = sum_w wx[q, w] *
-// feat[h, w, c] over q's non-zero columns, then adds wy[p, h] * st[q] into its
-// 49 register accumulators (the reference's order: over w, then over h).
-// Neighbouring threads read neighbouring channels, so every load of a warp is
-// one 128-byte line (f32) of the frame's map, which the frame's boxes share in
-// L2. Any H, W (each up to kMaxSize), any C, the all-zero boxes of dead NMS
-// slots (extent clamped to 1), boxes off the map or smaller than a cell.
+// columns, and a frame's boxes share one staged copy of the frame's features.
+// A block takes one frame and one slice of kSlice = 32 channels. It finds the
+// rows and columns of the map that some box of the frame touches, copies that
+// part for its channels into shared memory once (16-byte cp.async; scalar
+// loads when C or the pointer is not 16-byte aligned) and computes all R boxes
+// from it. Meanwhile one thread for each (box, axis, p) builds that output
+// cell's weights sparsely in shared memory: the non-zero entries in increasing
+// index, at most 2 * sr (the reference's order of f32 operations, no FMA).
+// The work item is one output column (box, q). A team of 8 lanes takes it,
+// each lane 4 channels (one 16-byte shared load a tap in f32, 8 bytes in
+// bf16), with 7 x 4 register accumulators. For each p and each row h of p's
+// entries, in increasing h, it forms st = sum_w wx[q, w] * feat[h, w, c] over
+// q's entries in increasing w, then acc[p] = fmaf(wy[p, h], st, acc[p]): the
+// reference's order (over w, then over h), so the output equals the earlier
+// one-block-per-box design's bit for bit. Neighbouring p share rows when a
+// box is small; the last two rows' st are kept and reused (the same sum, so
+// the same bits). Each (p, q) of a box is one 128-byte store a team.
+//
+// Which sizes take which way. The touched part of a [40, 40] map (config 5) in
+// a slice of 32 channels is at most 204,800 B in f32 and 102,400 B in bf16 and
+// is staged whole, beside 10 KB of weights for 20 boxes: one block an SM in
+// f32, two in bf16. Slices of 16 f32 channels (two blocks an SM, 64-byte
+// segments) measured slower, as did 8 channels a lane and 256 or 512 threads;
+// 384 threads are 48 teams, so 20 boxes' 140 items take 3 turns (PERF.md has
+// the numbers). When the
+// frame's touched part does not fit in the block's shared memory (above about
+// 1,700 touched cells in f32, 3,400 in bf16), it is staged in bands of as many
+// rows as fit, the teams carrying their accumulators across bands, once for
+// each group of as many items as the block has teams. When the weights of all
+// R boxes do not fit beside one row of the map (large sr or R), the boxes are
+// taken in groups. A row of more than about 1,700 f32 columns does not fit
+// with 32 channels: such maps (W up to kMaxSize) take slices of 16 channels.
 //
 // Bound on an H100 SXM (config 5: 320 frames of [40, 40, 1024] f32, 20 boxes a
 // frame): the output alone is 6,400 x 49 x 1,024 x 4 B = 1.28 GB, 0.38 ms at
 // 3.35 TB/s, plus the feature cells some box of a frame reads (at most the
-// whole 2.1 GB of maps); the products (16 a cell and channel) are far below.
-// Bound by bytes. This design reads each feature cell a box touches once per
-// box and channel, from L2 when the frame's boxes overlap.
+// whole 2.1 GB of maps), each once; the products (16 a cell and channel) are
+// far below. Bound by bytes. Behind that bound stands shared memory: every
+// tap of every output is one shared load (up to 28 x 28 a box and channel).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
+#include "ctx_mix_common.cuh"
+
 namespace {
 
+using nafae_ctx::cp_async;
+using nafae_ctx::cp_async_commit;
+using nafae_ctx::cp_async_wait;
+
 constexpr int kP = 7;             // output grid (the detector's 7 x 7)
-constexpr int kThreads = 256;
+constexpr int kThreads = 384;     // 48 teams of 8 lanes: 140 items in 3 turns
 constexpr int kMaxSize = 2048;    // largest H and W
+constexpr int kMaxSr = 64;        // largest sampling ratio
+constexpr int kSlice = 32;        // channels of a block
+constexpr int kSliceWide = 16;    // ... for f32 rows too wide for kSlice
+constexpr int kMaxDynSmem = 232448 - 1024;   // opt-in limit less the statics
 
-__device__ __forceinline__ float load1(const float* p) { return *p; }
-__device__ __forceinline__ float load1(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
+// One axis of a box: the reference's _weights in its f32 order.
+struct Axis {
+  float lo, cell, top;
+  const float* off;   // [sr] sample offsets (s + 0.5) / sr within a cell
+  int sr;
+  bool bf16;
 
-// wt[p * size + h] for one axis: the reference's _weights, then rounded to
-// the feature's dtype when it is bf16
-__device__ void axis_weights(float* wt, float lo, float hi, int size, int sr,
-                             bool bf16) {
-  const float extent = fmaxf(__fsub_rn(hi, lo), 1.f);
-  const float cell = __fdiv_rn(extent, (float)kP);
-  const float top = (float)(size - 1);
-  for (int k = threadIdx.x; k < kP * size; k += blockDim.x) {
-    const int p = k / size, h = k % size;
-    float acc = 0.f;
-    for (int s = 0; s < sr; ++s) {
-      const float off = (float)((s + 0.5) / (double)sr);
-      float pt = __fadd_rn(lo, __fmul_rn(__fadd_rn((float)p, off), cell));
-      pt = fminf(fmaxf(__fsub_rn(pt, 0.5f), 0.f), top);
-      acc = __fadd_rn(acc,
-                      fmaxf(__fsub_rn(1.f, fabsf(__fsub_rn(pt, (float)h))), 0.f));
-    }
-    float w = __fdiv_rn(acc, (float)sr);
-    if (bf16) w = __bfloat162float(__float2bfloat16_rn(w));
-    wt[k] = w;
+  // sample point s of output cell p, clipped to the map
+  __device__ float point(int p, int s) const {
+    const float pt =
+        __fadd_rn(lo, __fmul_rn(__fadd_rn((float)p, off[s]), cell));
+    return fminf(fmaxf(__fsub_rn(pt, 0.5f), 0.f), top);
   }
+  // the weight of index h for output cell p, rounded to bf16 for bf16 features
+  __device__ float weight(int p, int h) const {
+    float acc = 0.f;
+    for (int s = 0; s < sr; ++s)
+      acc = __fadd_rn(
+          acc, fmaxf(__fsub_rn(1.f, fabsf(__fsub_rn(point(p, s), (float)h))),
+                     0.f));
+    const float w = __fdiv_rn(acc, (float)sr);
+    return bf16 ? __bfloat162float(__float2bfloat16_rn(w)) : w;
+  }
+  // the indices that can carry a non-zero weight of cell p: [first, last]
+  __device__ int first(int p) const { return (int)point(p, 0); }
+  __device__ int last(int p) const {
+    return min((int)point(p, sr - 1) + 1, (int)top);
+  }
+};
+
+__device__ __forceinline__ Axis make_axis(float lo, float hi, int size, int sr,
+                                          const float* off, bool bf16) {
+  Axis a;
+  a.off = off;
+  a.lo = lo;
+  a.cell = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1.f), (float)kP);
+  a.top = (float)(size - 1);
+  a.sr = sr;
+  a.bf16 = bf16;
+  return a;
 }
 
-template <typename Tin>
-__global__ void __launch_bounds__(kThreads)
+// Four consecutive channels of a staged cell as f32.
+__device__ __forceinline__ float4 load_ch4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 load_ch4(const __nv_bfloat16* p) {
+  return nafae_ctx::load4(p, 0);
+}
+
+// s = fmaf(w, x, s) on four channels.
+__device__ __forceinline__ void fma4(float w, const float4& x, float4& s) {
+  s.x = fmaf(w, x.x, s.x);
+  s.y = fmaf(w, x.y, s.y);
+  s.z = fmaf(w, x.z, s.z);
+  s.w = fmaf(w, x.w, s.w);
+}
+
+// 32-bit words of the sparse weights of one box: 2 * kP lists of K (index,
+// weight) entries and their counts, padded to 16 bytes.
+__host__ __device__ constexpr int box_list_ints(int K) {
+  return (2 * kP * (2 * K + 1) + 3) & ~3;
+}
+
+// kTaps = 4: a list has at most 4 entries (sr <= 2) and the team keeps its
+// q's entries in registers; kTaps = 0: any sr, entries read from shared memory.
+template <typename Tin, int kCs, int kTaps>
+__global__ void __launch_bounds__(kThreads, kCs * sizeof(Tin) <= 64 ? 2 : 1)
 roi_align_kernel(const Tin* __restrict__ feat,     // [F, H, W, C]
                  const float* __restrict__ boxes,  // [F, R, 4] xyxy
                  float* __restrict__ out,          // [F * R, P, P, C]
-                 int R, int H, int W, int C, float scale, int sr) {
-  extern __shared__ float smem[];
-  float* wy = smem;                    // [P][H]
-  float* wx = wy + kP * H;             // [P][W]
-  __shared__ int xlo[kP], xhi[kP];     // non-zero columns of each q
-  __shared__ int hlo, hhi;             // rows some p touches
-
-  const size_t n = blockIdx.x;
-  const size_t f = n / R;
-  const float* b = boxes + n * 4;
-  const float x1 = __fmul_rn(b[0], scale), y1 = __fmul_rn(b[1], scale);
-  const float x2 = __fmul_rn(b[2], scale), y2 = __fmul_rn(b[3], scale);
+                 int R, int H, int W, int C, float scale, int sr, int K,
+                 int group, int tile_bytes, int vec, int slices,
+                 long long blocks) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr bool bf16 = sizeof(Tin) == 2;
-  axis_weights(wy, y1, y2, H, sr, bf16);
-  axis_weights(wx, x1, x2, W, sr, bf16);
-  __syncthreads();
-  if (threadIdx.x < kP) {
-    const int q = threadIdx.x;
-    int lo = W, hi = -1;
-    for (int w = 0; w < W; ++w)
-      if (wx[q * W + w] != 0.f) {
-        lo = min(lo, w);
-        hi = w;
-      }
-    xlo[q] = lo;
-    xhi[q] = hi;
-  } else if (threadIdx.x == kP) {
-    int lo = H, hi = -1;
-    for (int p = 0; p < kP; ++p)
-      for (int h = 0; h < H; ++h)
-        if (wy[p * H + h] != 0.f) {
-          lo = min(lo, h);
-          hi = max(hi, h);
-        }
-    hlo = lo;
-    hhi = hi;
-  }
-  __syncthreads();
+  constexpr int kCell = kCs * (int)sizeof(Tin);    // bytes of a staged cell
+  constexpr int kLanes = kCs / 4;                  // lanes of a team
+  constexpr int kTeams = kThreads / kLanes;
+  const long long bid = (long long)blockIdx.y * gridDim.x + blockIdx.x;
+  if (bid >= blocks) return;
+  const size_t f = (size_t)(bid / slices);
+  const int cb = (int)(bid % slices) * kCs;        // first channel
 
-  const Tin* fm = feat + f * (size_t)H * W * C;
-  float* o = out + n * (size_t)kP * kP * C;
-  for (int c = threadIdx.x; c < C; c += kThreads) {
-    float acc[kP][kP];
-#pragma unroll
-    for (int p = 0; p < kP; ++p)
-#pragma unroll
-      for (int q = 0; q < kP; ++q) acc[p][q] = 0.f;
-    for (int h = hlo; h <= hhi; ++h) {
-      bool used = false;
-#pragma unroll
-      for (int p = 0; p < kP; ++p) used |= wy[p * H + h] != 0.f;
-      if (!used) continue;
-      const Tin* row = fm + (size_t)h * W * C + c;
-      float st[kP];
-#pragma unroll
-      for (int q = 0; q < kP; ++q) {
-        float s = 0.f;
-        for (int w = xlo[q]; w <= xhi[q]; ++w) {
-          const float wv = wx[q * W + w];
-          if (wv != 0.f) s = fmaf(wv, load1(row + (size_t)w * C), s);
+  // per box of the group: [2 * kP][K] indices, [2 * kP][K] weights,
+  // [2 * kP] counts (lists 0..6 rows of p, 7..13 columns of q); then the tile
+  int* lists = reinterpret_cast<int*>(smem_raw);
+  const int per_box = box_list_ints(K);
+  Tin* tile = reinterpret_cast<Tin*>(
+      smem_raw + (((size_t)group * per_box * 4 + 15) & ~(size_t)15));
+  __shared__ int reg[4];          // rows [0], [1] and columns [2], [3] staged
+  __shared__ float offs[kMaxSr];  // the sample offsets, in the reference's f32
+  if (threadIdx.x < sr)
+    offs[threadIdx.x] = (float)((threadIdx.x + 0.5) / (double)sr);
+
+  const int team = threadIdx.x / kLanes, tl = threadIdx.x % kLanes;
+  const float* fbox = boxes + f * R * 4;
+  const Tin* fmap = feat + f * (size_t)H * W * C;
+
+  auto axes = [&](int r, Axis& y, Axis& x) {
+    const float* b = fbox + r * 4;
+    y = make_axis(__fmul_rn(b[1], scale), __fmul_rn(b[3], scale), H, sr, offs,
+                  bf16);
+    x = make_axis(__fmul_rn(b[0], scale), __fmul_rn(b[2], scale), W, sr, offs,
+                  bf16);
+  };
+  // the rows and columns boxes [b0, b1) touch, into reg (all threads call)
+  auto touched = [&](int b0, int b1) {
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      reg[0] = H; reg[1] = -1; reg[2] = W; reg[3] = -1;
+    }
+    __syncthreads();
+    for (int r = b0 + threadIdx.x; r < b1; r += kThreads) {
+      Axis y, x;
+      axes(r, y, x);
+      atomicMin(&reg[0], y.first(0));
+      atomicMax(&reg[1], y.last(kP - 1));
+      atomicMin(&reg[2], x.first(0));
+      atomicMax(&reg[3], x.last(kP - 1));
+    }
+    __syncthreads();
+  };
+  // rows [r0, r1] x columns [c0, c1] of the map, channels cb.., into the tile
+  auto stage = [&](int r0, int r1, int c0, int c1) {
+    const int ncols = c1 - c0 + 1, cells = (r1 - r0 + 1) * ncols;
+    if (vec) {
+      constexpr int kChunks = kCell / 16, kPer = 16 / (int)sizeof(Tin);
+      // thread = (cell, 16-byte chunk of the cell); it walks the cells in
+      // steps of kThreads / kChunks, keeping (h, w) without a division
+      static_assert(kThreads % kChunks == 0, "whole cells a step");
+      constexpr int kStep = kThreads / kChunks;
+      const int ck = threadIdx.x % kChunks;
+      int cell = threadIdx.x / kChunks;
+      int h = r0 + cell / ncols, w = c0 + cell % ncols;
+      if (cb + ck * kPer < C)
+        for (; cell < cells; cell += kStep) {
+          cp_async<16>(reinterpret_cast<unsigned char*>(tile) +
+                           ((size_t)cell * kChunks + ck) * 16,
+                       fmap + ((size_t)h * W + w) * C + cb + ck * kPer, 16);
+          w += kStep;
+          while (w > c1) {
+            w -= ncols;
+            ++h;
+          }
         }
-        st[q] = s;
+    } else {
+      for (int i = threadIdx.x; i < cells * kCs; i += kThreads) {
+        const int cell = i / kCs, c = cb + i % kCs;
+        const int h = r0 + cell / ncols, w = c0 + cell % ncols;
+        tile[i] = c < C ? fmap[((size_t)h * W + w) * C + c] : Tin(0.f);
       }
+    }
+    cp_async_commit();
+  };
+
+  touched(0, R);
+  const int fr0 = reg[0], fr1 = reg[1], fc0 = reg[2], fc1 = reg[3];
+  const bool whole =
+      group >= R && (long long)(fr1 - fr0 + 1) * (fc1 - fc0 + 1) * kCell <=
+                        (long long)tile_bytes;
+  if (whole) stage(fr0, fr1, fc0, fc1);
+  bool landed = false;            // the whole-frame copy has been waited for
+
+  for (int g0 = 0; g0 < R; g0 += group) {
+    const int nb = min(group, R - g0);
+    __syncthreads();              // the last group's lists are read
+    // one thread a list: the non-zero weights of (box, axis, p), in order
+    for (int i = threadIdx.x; i < nb * 2 * kP; i += kThreads) {
+      const int b = i / (2 * kP), l = i % (2 * kP);
+      Axis y, x;
+      axes(g0 + b, y, x);
+      const Axis& ax = l < kP ? y : x;
+      const int p = l < kP ? l : l - kP;
+      int* li = lists + b * per_box + l * K;
+      float* lw = reinterpret_cast<float*>(lists + b * per_box + 2 * kP * K) +
+                  l * K;
+      int n = 0;
+      const int last = ax.last(p);
+      for (int h = ax.first(p); h <= last; ++h) {
+        const float wv = ax.weight(p, h);
+        if (wv != 0.f && n < K) {
+          li[n] = h;
+          lw[n] = wv;
+          ++n;
+        }
+      }
+      lists[b * per_box + 4 * kP * K + l] = n;
+    }
+    int r0 = fr0, r1 = fr1, c0 = fc0, c1 = fc1;
+    if (!whole) {
+      touched(g0, g0 + nb);       // also orders the lists before their readers
+      r0 = reg[0], r1 = reg[1], c0 = reg[2], c1 = reg[3];
+    } else {
+      __syncthreads();
+    }
+    const int ncols = c1 - c0 + 1;
+    const int per = whole ? r1 - r0 + 1 : max(1, tile_bytes / (ncols * kCell));
+
+    for (int it0 = 0; it0 < nb * kP; it0 += kTeams) {
+      const int item = it0 + team;          // (box, q)
+      const bool active = item < nb * kP;
+      const int b = active ? item / kP : 0, q = item % kP;
+      const int* bl = lists + b * per_box;
+      const float* bw = reinterpret_cast<const float*>(bl + 2 * kP * K);
+      const int* bn = bl + 4 * kP * K;
+      const int* qi = bl + (kP + q) * K;
+      const float* qw = bw + (kP + q) * K;
+      const int nq = active ? bn[kP + q] : 0;
+      int xo[kTaps ? kTaps : 1];            // q's columns, as tile offsets
+      float xw[kTaps ? kTaps : 1];
+#pragma unroll
+      for (int e = 0; e < kTaps; ++e) {
+        xo[e] = e < nq ? qi[e] * kCs : 0;
+        xw[e] = e < nq ? qw[e] : 0.f;
+      }
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      int ny[kP], ptr[kP];
+      float4 acc[kP];
 #pragma unroll
       for (int p = 0; p < kP; ++p) {
-        const float wv = wy[p * H + h];
-        if (wv != 0.f) {
+        ny[p] = active ? bn[p] : 0;
+        ptr[p] = 0;
+        acc[p] = zero;
+      }
+      // the two rows summed last and their sums over w
+      int h_a = -1, h_b = -1;
+      float4 st_a = zero, st_b = zero;
+
+      for (int band = r0; band <= r1; band += per) {
+        const int band_end = min(band + per - 1, r1);
+        if (!whole) {
+          __syncthreads();                  // the last band is read
+          stage(band, band_end, c0, c1);
+          cp_async_wait(0);
+          __syncthreads();
+        } else if (!landed) {
+          cp_async_wait(0);
+          __syncthreads();
+          landed = true;
+        }
 #pragma unroll
-          for (int q = 0; q < kP; ++q) acc[p][q] = fmaf(wv, st[q], acc[p][q]);
+        for (int p = 0; p < kP; ++p) {
+          // one row h of p's entries: its sum over w, then into acc[p]
+          auto use = [&](int h, float wy) {
+            float4 st;
+            if (h == h_a) {
+              st = st_a;
+            } else if (h == h_b) {
+              st = st_b;
+            } else {
+              st = zero;
+              const int row = ((h - band) * ncols - c0) * kCs + 4 * tl;
+              if constexpr (kTaps > 0) {
+#pragma unroll
+                for (int e = 0; e < kTaps; ++e)
+                  if (e < nq) fma4(xw[e], load_ch4(tile + (row + xo[e])), st);
+              } else {
+                for (int e = 0; e < nq; ++e)
+                  fma4(qw[e], load_ch4(tile + (row + qi[e] * kCs)), st);
+              }
+            }
+            if (h != h_a) {                 // keep the two latest rows
+              h_b = h_a;
+              st_b = st_a;
+              h_a = h;
+              st_a = st;
+            }
+            fma4(wy, st, acc[p]);
+          };
+          while (ptr[p] < ny[p]) {
+            const int h = bl[p * K + ptr[p]];
+            if (h > band_end) break;
+            use(h, bw[p * K + ptr[p]]);
+            ++ptr[p];
+          }
+        }
+      }
+
+      const int c = cb + 4 * tl;
+      if (active && c < C) {
+        float* o = out + ((f * R + g0 + b) * (size_t)kP * kP + q) * C + c;
+#pragma unroll
+        for (int p = 0; p < kP; ++p) {
+          float* op = o + (size_t)p * kP * C;
+          if (C % 4 == 0) {
+            __stcs(reinterpret_cast<float4*>(op), acc[p]);
+          } else {
+            const float v4[4] = {acc[p].x, acc[p].y, acc[p].z, acc[p].w};
+#pragma unroll
+            for (int k = 0; k < 4; ++k)
+              if (c + k < C) op[k] = v4[k];
+          }
         }
       }
     }
-#pragma unroll
-    for (int p = 0; p < kP; ++p)
-#pragma unroll
-      for (int q = 0; q < kP; ++q) o[(size_t)(p * kP + q) * C + c] = acc[p][q];
   }
 }
 
-template <typename Tin>
+// Bytes of the sparse weights of `group` boxes, rounded to the tile's
+// alignment.
+size_t list_bytes(int group, int K) {
+  return ((size_t)group * box_list_ints(K) * 4 + 15) & ~(size_t)15;
+}
+
+template <typename Tin, int kCs>
 int launch(const void* feat, const float* boxes, float* out, int F, int R,
            int H, int W, int C, float scale, int sr, cudaStream_t stream) {
-  auto kern = roi_align_kernel<Tin>;
-  const size_t smem = (size_t)kP * (H + W) * sizeof(float);
+  const int K = std::min(2 * sr, std::max(H, W));
+  auto kern = K <= 4 ? roi_align_kernel<Tin, kCs, 4>
+                     : roi_align_kernel<Tin, kCs, 0>;
+  const size_t cell = (size_t)kCs * sizeof(Tin);
+  // all R boxes' weights if they leave room for one row of the map, else
+  // groups of boxes; then the whole map if it fits
+  int group = R;
+  while (group > 1 && list_bytes(group, K) + W * cell > (size_t)kMaxDynSmem)
+    group = (group + 1) / 2;
+  if (list_bytes(group, K) + W * cell > (size_t)kMaxDynSmem)
+    return (int)cudaErrorInvalidValue;
+  const size_t tile = std::min((size_t)H * W * cell,
+                               (size_t)kMaxDynSmem - list_bytes(group, K));
+  const size_t smem = list_bytes(group, K) + tile;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<(unsigned)((size_t)F * R), kThreads, smem, stream>>>(
-      static_cast<const Tin*>(feat), boxes, out, R, H, W, C, scale, sr);
+  const int slices = (C + kCs - 1) / kCs;
+  const long long blocks = (long long)F * slices;
+  const unsigned gx = (unsigned)std::min<long long>(blocks, 1LL << 30);
+  const unsigned gy = (unsigned)((blocks + gx - 1) / gx);
+  if (gy > 65535u) return (int)cudaErrorInvalidValue;
+  const int vec = reinterpret_cast<uintptr_t>(feat) % 16 == 0 &&
+                  ((size_t)C * sizeof(Tin)) % 16 == 0;
+  kern<<<dim3(gx, gy), kThreads, smem, stream>>>(
+      static_cast<const Tin*>(feat), boxes, out, R, H, W, C, scale, sr, K,
+      group, (int)tile, vec, slices, blocks);
   return (int)cudaGetLastError();
 }
 
@@ -183,13 +432,20 @@ int nafae_roi_align(const void* feat, int is_bf16, const float* boxes,
                     float* out, int F, int R, int H, int W, int C, float scale,
                     int sr, void* stream) {
   if (F < 0 || R < 0 || H < 1 || W < 1 || H > kMaxSize || W > kMaxSize ||
-      C < 1 || sr < 1 || sr > 64 || (long long)F * R >= (1LL << 31))
+      C < 1 || sr < 1 || sr > kMaxSr || (long long)F * R >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   if (F == 0 || R == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16
-      ? launch<__nv_bfloat16>(feat, boxes, out, F, R, H, W, C, scale, sr, s)
-      : launch<float>(feat, boxes, out, F, R, H, W, C, scale, sr, s);
+  if (is_bf16)
+    return launch<__nv_bfloat16, kSlice>(feat, boxes, out, F, R, H, W, C, scale,
+                                         sr, s);
+  // a row of the map must fit beside one team's weights
+  const size_t row = (size_t)W * kSlice * sizeof(float);
+  if (row + list_bytes(1, std::min(2 * sr, std::max(H, W))) <=
+      (size_t)kMaxDynSmem)
+    return launch<float, kSlice>(feat, boxes, out, F, R, H, W, C, scale, sr, s);
+  return launch<float, kSliceWide>(feat, boxes, out, F, R, H, W, C, scale, sr,
+                                   s);
 }
 
 }  // extern "C"

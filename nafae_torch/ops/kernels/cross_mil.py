@@ -11,6 +11,16 @@ kernels of `nafae_tpu/ops/pallas/fused_ground.py`:
     cross_mil   K3a  _fwd_kernel      lane-grouped forward (R > 32)
                 K3b  _rollmax_kernel  video-tiled roll-max forward (R <= 32)
 
+The kernel treats a video as a [M,E] x [E,T·R] product with a segmented
+max over each frame's R columns as its epilogue: f32 operands on CUDA cores
+with 8 x 5 register tiles and a cp.async double buffer (full f32, no
+TF32), bf16 operands on tensor cores (`mma.sync` m16n8k16, f32
+accumulators). Blocks take whole frames (80 columns: 4 frames at R = 20),
+so no dead region slot is multiplied; every dot is summed over E in one
+order wherever it sits in a tile, so exact ties stay ties and the first
+region wins. The source note of `csrc/cross_mil.cu` has the design and the
+bound, PERF.md the measured times.
+
 Masks, as the reference: a region with rm = 0 scores NEG = -1e9; an invalid
 frame gives a = 0; a valid frame with no valid region gives a = -1e9 and
 idx 0. idx is the first region that reaches the max.
@@ -35,7 +45,7 @@ from nafae_torch.ops.kernels import _build
 from nafae_torch.ops.kernels import check_tensor as _check
 
 NEG = -1e9
-MAX_E = 512           # the word tile and a region chunk stay in shared memory
+MAX_E = 512           # a block's bf16 operands stay in shared memory whole
 
 launches = {"cross_mil": 0}
 
@@ -82,6 +92,8 @@ def _lib() -> ctypes.CDLL:
     lib.nafae_cross_mil.argtypes = [vp, vp, i, vp, vp, vp, vp, i, i, i, i, i,
                                     vp]
     lib.nafae_cross_mil.restype = i
+    lib.nafae_cross_mil_floor.argtypes = [i, i, i, i, i, i, vp]
+    lib.nafae_cross_mil_floor.restype = i
     return lib
 
 
@@ -124,6 +136,20 @@ def launch(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
     if i * m * t > 0:
         launches["cross_mil"] += 1
     return a, idx
+
+
+def launch_floor(i: int, m: int, t: int, r: int, e: int, bf16: bool,
+                 device) -> None:
+    """Launches an empty kernel with the grid, block size and shared memory
+    that `launch` uses for these sizes, on the current stream: the launch
+    floor a measured time of the kernel is judged against. Not a launch of
+    the kernel: `launches` does not count it."""
+    with torch.cuda.device(device):
+        err = _lib().nafae_cross_mil_floor(
+            int(bf16), i, m, t, r, e,
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"cross_mil floor launch failed: cudaError_t {err}")
 
 
 def _forward(w_flat, v, fm, rm):

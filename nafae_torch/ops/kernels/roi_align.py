@@ -9,10 +9,16 @@ sums, and returns f32 in both dtypes.
 
 The TPU kernel makes two dense MXU contractions over the whole map, one
 box per grid step. On this card each output cell has at most 2·sr non-zero
-rows and columns, so the kernel sums over that support only; one launch
+rows and columns, so the kernel sums over that support only, and a frame's
+boxes share one copy of the frame's features: a block takes one frame and
+32 channels, stages the part of the map that some box touches in shared
+memory once (cp.async) and computes all R boxes from it, a team of 8 lanes
+for each output column (box, q), in the reference's order of sums. Maps
+whose touched part does not fit are staged in bands of rows. One launch
 takes the whole step, feat [F,H,W,C] with boxes [F,R,4] -> [F·R,P,P,C],
 laid out so that the C5 head reads it as channels_last with no copy. It is
-bound by the bytes it writes (the output) and the feature cells it reads.
+bound by the bytes it writes (the output) and the feature cells it reads;
+the source note of `csrc/roi_align.cu` has the design, PERF.md the times.
 
 `roi_align` sends CPU tensors to the plain version `roi_align_plain`; on
 CUDA tensors it launches the kernel or raises. `launches` counts launches.

@@ -31,6 +31,22 @@ SHAPES = {                      # I, J, K, T, R, E (tests/test_pallas.py:23)
     "single": (2, 2, 1, 1, 1, 8),
     "R33": (4, 4, 2, 6, 33, 16),
 }
+# shapes at the edges of the CUDA kernel's tiles (80 columns, 32 or 64 words
+# a block; E walked 32 or 16 columns at a time)
+EDGE_SHAPES = {
+    "R1": (2, 2, 2, 3, 1, 16),
+    "R7": (2, 2, 2, 3, 7, 16),
+    "R64": (2, 2, 2, 3, 64, 16),
+    "R100": (2, 2, 2, 2, 100, 16),      # more than one chunk of regions
+    "M1": (2, 1, 1, 3, 5, 16),
+    "M129": (2, 43, 3, 2, 5, 8),
+    "T1": (3, 2, 2, 1, 6, 16),
+    "E512": (2, 2, 2, 2, 5, 512),
+    "E4": (2, 2, 2, 3, 5, 4),           # the smallest E
+}
+# region pairs made equal: r and r + 32, r and the last row, across a chunk
+TIES = {33: [(0, 32), (5, 17)], 64: [(3, 35), (1, 63)],
+        100: [(7, 39), (2, 99), (40, 85)]}
 
 
 def _inputs(shape, masked, seed):
@@ -75,6 +91,62 @@ def test_plain_matches_the_tpu_kernel(case, masked):
         assert (a[0, :, 0] == K.NEG).all() and (idx[0, :, 0] == 0).all()
     assert (a.numpy()[np.broadcast_to(fm[:, None, :] == 0, a.shape)]
             == 0).all()
+
+
+def _edge_inputs(case):
+    """EDGE_SHAPES inputs, masked, with video 1's frames all invalid."""
+    w, v, fm, rm = _inputs(EDGE_SHAPES[case], True, seed=7 + len(case))
+    fm[1, :] = 0.0
+    return w, v, fm, rm
+
+
+def _tie_inputs(r):
+    """Duplicate region rows (TIES[r]) force exact ties; video 1, frame 0 is
+    all masked."""
+    i, m, t, e = 2, 5, 2, 16
+    rng = np.random.RandomState(r)
+    v = rng.randn(i, t, r, e).astype(np.float32)
+    rm = (rng.rand(i, t, r) > 0.2).astype(np.float32)
+    for first, later in TIES[r]:
+        v[:, :, later] = v[:, :, first]
+        rm[:, :, later] = rm[:, :, first]
+    rm[1, 0, :] = 0.0
+    w = rng.randn(m, e).astype(np.float32)
+    return w, v, np.ones((i, t), np.float32), rm
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_SHAPES))
+def test_plain_matches_the_tpu_kernel_at_edge_shapes(case):
+    """The plain version, which the card holds the CUDA kernel to, against
+    the TPU kernels at the shapes a tiled product is likely to break."""
+    i, j, k, t, r, e = EDGE_SHAPES[case]
+    w, v, fm, rm = _edge_inputs(case)
+    a, idx = K.cross_mil_plain(_t(w).reshape(j * k, e), _t(v), _t(fm), _t(rm))
+    np.testing.assert_allclose(a.numpy().reshape(i, j, k, t),
+                               np.asarray(_jax_a(w, v, fm, rm)),
+                               rtol=1e-5, atol=1e-5)
+    _, idx_j = FG._cross_mil_fwd_impl(jnp.asarray(w.reshape(j * k, e)),
+                                      jnp.asarray(v), jnp.asarray(fm),
+                                      jnp.asarray(rm))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    assert (a[1] == 0).all()               # the video with no valid frame
+    assert (a[0, :, 0] == K.NEG).all() and (idx[0, :, 0] == 0).all()
+
+
+@pytest.mark.parametrize("r", sorted(TIES))
+def test_ties_across_tiles_resolve_to_the_first_region(r):
+    """Equal rows r and r + 32, r and the last row, and across a chunk of 80
+    regions: idx is the TPU kernel's, and never the later row of a pair."""
+    w, v, fm, rm = _tie_inputs(r)
+    a, idx = K.cross_mil_plain(_t(w), _t(v), _t(fm), _t(rm))
+    a_j, idx_j = FG._cross_mil_fwd_impl(*(jnp.asarray(x)
+                                          for x in (w, v, fm, rm)))
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(idx_j))
+    np.testing.assert_allclose(a.numpy(), np.asarray(a_j), rtol=1e-5,
+                               atol=1e-5)
+    for _, later in TIES[r]:
+        assert not (idx == later).any()
+    assert (idx[1, :, 0] == 0).all()
 
 
 @pytest.mark.parametrize("r", [20, 33])
@@ -228,9 +300,11 @@ def test_kernel_matches_plain_on_gpu(cuda_device, dtype):
     1e-5 (both sum f32 products, in other orders), idx equal where the top
     two scores differ by more than that, and one launch a call."""
     tdt = None if dtype == "float32" else torch.bfloat16
-    for case in sorted(SHAPES):
-        w, v, fm, rm = (_t(x) for x in _inputs(SHAPES[case], True, seed=4))
-        w, v, fm, rm = (x.to(cuda_device) for x in (w, v, fm, rm))
+    cases = [_inputs(SHAPES[c], True, seed=4) for c in sorted(SHAPES)]
+    cases += [_edge_inputs(c) for c in sorted(EDGE_SHAPES)]
+    cases += [_tie_inputs(r) for r in sorted(TIES)]
+    for n, case in enumerate(cases):
+        w, v, fm, rm = (_t(x).to(cuda_device) for x in case)
         wf = w.reshape(-1, w.shape[-1])
         if tdt is not None:
             wf, v = wf.to(tdt), v.to(tdt)
@@ -246,3 +320,5 @@ def test_kernel_matches_plain_on_gpu(cuda_device, dtype):
         top2 = s.topk(min(2, s.shape[-1]), dim=-1).values
         clear = (top2[..., 0] - top2[..., -1] > 1e-5) | (s.shape[-1] == 1)
         assert torch.equal(idx[clear], idxp[clear])
+        if n >= len(SHAPES) + len(EDGE_SHAPES):     # exact ties: the first
+            assert torch.equal(idx, idxp)

@@ -11,7 +11,9 @@ roi_align_pallas at atol 1e-5, see the test),
 1e-4 / 1e-5 against a gather form (tests/test_pallas.py:268-273: the four
 taps and the sample mean summed in another order, with cancellation); bf16 features at 2e-2; edge boxes: the all-zero
 boxes of dead NMS slots, boxes running off the map, boxes smaller than a
-cell; H != W and C not a multiple of 32. The CUDA kernel runs only on a
+cell; H != W and C not a multiple of 32; a frame of dead boxes, R = 1 and
+33, C = 1024, a 200 x 136 map, sampling ratios 1 and 3 (the cases the CUDA
+kernel's staging is likely to break). The CUDA kernel runs only on a
 GPU: the `cuda` test skips here, and chip_smoke.py holds it against the
 plain version on the card.
 """
@@ -62,11 +64,50 @@ def _inputs(case, edge, seed=0):
     return feat, bx, scale
 
 
-def _jax_per_frame(fn, feat, boxes, scale):
+def _jax_per_frame(fn, feat, boxes, scale, **kw):
     return np.concatenate([np.asarray(fn(jnp.asarray(feat[i]),
                                          jnp.asarray(boxes[i]), out_size=7,
-                                         spatial_scale=scale))
+                                         spatial_scale=scale, **kw))
                            for i in range(feat.shape[0])])
+
+
+def _rand_boxes(rng, f, r, h, w, scale):
+    return np.stack([np.concatenate([
+        (xy := rng.rand(r, 2) * [w / scale, h / scale] * 0.8),
+        xy + rng.rand(r, 2) * [w / scale, h / scale] * 0.6 + 2], 1)
+        for _ in range(f)]).astype(np.float32)
+
+
+def _edge_case(name):
+    """(feat, boxes, scale, sampling ratio) of the cases the CUDA kernel's
+    staging is likely to break: a frame whose boxes are all dead NMS slots,
+    the whole map beside sub-cell boxes, R = 1 and 33, the config-5 width
+    (C = 1024 on 40 x 40), a map too large to stage whole, sampling ratios
+    other than 2."""
+    rng = np.random.RandomState(len(name))
+    f, h, w, c, r, scale, sr = {
+        "dead_frame": (2, 12, 12, 8, 6, 0.5, 2),
+        "whole_and_subcell": (1, 40, 40, 8, 6, 1 / 16, 2),
+        "R1": (2, 10, 12, 8, 1, 0.25, 2),
+        "R33": (2, 10, 12, 8, 33, 0.25, 2),
+        "C1024": (1, 40, 40, 1024, 3, 1 / 16, 2),
+        "row_bands": (1, 200, 136, 64, 3, 0.125, 2),
+        "sr1": (2, 14, 10, 12, 5, 0.5, 1),
+        "sr3": (2, 14, 10, 12, 5, 0.5, 3),
+    }[name]
+    feat = rng.randn(f, h, w, c).astype(np.float32)
+    boxes = _rand_boxes(rng, f, r, h, w, scale)
+    if name == "dead_frame":
+        boxes[0] = 0.0
+    if name in ("whole_and_subcell", "row_bands"):
+        boxes[0, 0] = [0, 0, w / scale, h / scale]
+    if name == "whole_and_subcell":
+        boxes[0, 1:, 2:] = boxes[0, 1:, :2] + [3.0, 2.0]
+    return feat, boxes, scale, sr
+
+
+EDGE_CASES = ["dead_frame", "whole_and_subcell", "R1", "R33", "C1024",
+              "row_bands", "sr1", "sr3"]
 
 
 @pytest.mark.parametrize("edge", [False, True])
@@ -126,6 +167,46 @@ def test_bf16_feat(case):
                                rtol=2e-2, atol=2e-2)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_plain_matches_the_tpu_kernel_at_edge_cases(case, dtype):
+    """The plain version, which the card holds the CUDA kernel to, against
+    `roi_align_pallas` at the edge cases, f32 and bf16 maps, and in f32
+    against JAX's separable form at 1e-6. Against the interpreted kernel
+    f32 takes atol 1e-5 (see test_forms_match_jax_f32), and 1e-4 on the
+    200 x 136 map: there the interpreted kernel is off JAX's own separable
+    form and the f64 sum of these weights by 3.3e-5 (sample points near 200
+    carry an f32 step of 1.5e-5), the plain version by 2.4e-7. With bf16
+    maps both sides round the weights to bf16; XLA may contract the sample
+    point's multiply-add, so a weight near a bf16 midpoint can round the
+    other way (2^-8 of it) for one (box, p) or (box, q): at least 90% of
+    the outputs are held at 1e-5, all at the bf16 tolerance 2e-2."""
+    feat, boxes, scale, sr = _edge_case(case)
+    tf, tb = torch.from_numpy(feat), torch.from_numpy(boxes)
+    jf = feat
+    if dtype == "bfloat16":
+        tf = tf.to(torch.bfloat16)
+        jf = np.asarray(jnp.asarray(feat, jnp.bfloat16))
+    got = K.roi_align(tf, tb, 7, scale, sr)
+    assert got.dtype == torch.float32 and torch.isfinite(got).all()
+    want = _jax_per_frame(roi_align_pallas, jf, boxes, scale,
+                          sampling_ratio=sr)
+    if dtype == "float32":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5,
+                                   atol=1e-4 if case == "row_bands" else 1e-5)
+        np.testing.assert_allclose(
+            got.numpy(), _jax_per_frame(JR.roi_align_matmul, feat, boxes,
+                                        scale, sampling_ratio=sr),
+            rtol=1e-5, atol=1e-6)
+    else:
+        close = np.isclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+        assert close.mean() >= 0.9, close.mean()
+        np.testing.assert_allclose(got.numpy(), want, rtol=2e-2, atol=2e-2)
+    if case == "dead_frame":               # dead slots: all the same cell
+        dead = got[:boxes.shape[1]]
+        assert torch.equal(dead, dead[:1].expand_as(dead))
+
+
 def test_bilinear_weights_match_jax():
     rng = np.random.RandomState(2)
     coords = np.sort(rng.rand(6, 2) * 30 - 5, axis=1).astype(np.float32)
@@ -179,14 +260,15 @@ def test_kernel_matches_plain_on_gpu(cuda_device, dtype):
     the plain version (same weights, f32 sums in another order), one launch
     a call."""
     tdt = torch.float32 if dtype == "float32" else torch.bfloat16
-    for case in sorted(SHAPES):
-        for edge in (False, True):
-            feat, boxes, scale = _inputs(case, edge)
-            tf = torch.from_numpy(feat).to(cuda_device, tdt)
-            tb = torch.from_numpy(boxes).to(cuda_device)
-            before = K.launches["roi_align"]
-            got = K.roi_align(tf, tb, 7, scale)
-            torch.cuda.synchronize()
-            assert K.launches["roi_align"] == before + 1
-            torch.testing.assert_close(got, K.roi_align_plain(tf, tb, 7, scale),
-                                       rtol=1e-5, atol=1e-6)
+    cases = [(*_inputs(case, edge), 2) for case in sorted(SHAPES)
+             for edge in (False, True)]
+    cases += [_edge_case(name) for name in EDGE_CASES]
+    for feat, boxes, scale, sr in cases:
+        tf = torch.from_numpy(feat).to(cuda_device, tdt)
+        tb = torch.from_numpy(boxes).to(cuda_device)
+        before = K.launches["roi_align"]
+        got = K.roi_align(tf, tb, 7, scale, sr)
+        torch.cuda.synchronize()
+        assert K.launches["roi_align"] == before + 1
+        torch.testing.assert_close(got, K.roi_align_plain(tf, tb, 7, scale, sr),
+                                   rtol=1e-5, atol=1e-6)
