@@ -13,7 +13,9 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
 3. kernels against their plain PyTorch versions on the card, at the main
    paths' shapes and at edge shapes, in f32 and bf16: K1f (u), K1fr (u and
    alpha), K1b and K1br (dv_ext against autograd through the plain
-   version), CtxMix end to end; the fused cross-MIL K3 (a, and idx where
+   version; E from 12 to 512 over one or two 64-column slices, R = 1 and
+   32, w >= T; two launches on one f32 input must give bitwise-equal dv),
+   CtxMix end to end; the fused cross-MIL K3 (a, and idx where
    the top two scores are clear of ties; R from 1 to 100, M = 1 and 129,
    T = 1, E from 4 to 512, an all-masked frame, a video with no valid
    frame, exact ties across tiles and chunks resolved to the first
@@ -47,7 +49,14 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    its plain version's survivors exactly, and the RoIAlign kernel K5 must
    agree with its plain version (f32 and bf16), as on the edge cases (ties,
    duplicates, zero-area boxes, IoU one f32 step either side of 0.7, a row
-   of 100,000 boxes; dead-slot, off-map and sub-cell boxes, H != W, C = 37,
+   of 100,000 boxes, more copies of the top box than K2's largest tier
+   (1024 candidates) holds, equal scores across a tier's cut (in a row of
+   3,072 boxes and in one of 30,000, past the keys K2 keeps in registers),
+   rows exhausted
+   beside scores at or below -1e9 (one whose first invalid slot is a box
+   below -1e9 that a winner killed), a row shorter than a tier, NaN and
+   signed-zero scores; each case prints how many rows took more than one
+   tier; dead-slot, off-map and sub-cell boxes, H != W, C = 37,
    a frame of dead boxes, R = 1 and 33, maps staged in row bands and in
    16-channel slices, sampling ratios 1, 3 and 64);
    then `fit` on config5 at full width (ResNet-50, B=16, T=20): 6 steps f32
@@ -275,7 +284,12 @@ def check_ctx_grad(torch, device) -> dict[str, float]:
              (16, 20, 20, 256, 3, False),   # ... without a region mask
              (16, 7, 20, 256, 3, True),     # ragged T
              (16, 2, 20, 256, 3, True),     # w >= T
-             (3, 5, 32, 512, 2, True)]      # the kernels' widest R and E
+             (3, 5, 32, 512, 2, True),      # the kernels' widest R and E
+             (4, 6, 20, 12, 3, True),       # E within one 64-column slice,
+             (4, 6, 20, 36, 2, True),       # ... not a multiple of 8
+             (4, 6, 20, 100, 2, True),      # a ragged second slice
+             (4, 9, 1, 64, 2, True),        # R = 1
+             (2, 5, 32, 64, 4, True)]       # R = 32 at w = 4
     errs = {}
     for dt_name, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
         worst = dict.fromkeys(("ctx_mix_fwd_res", "alpha", "ctx_mix_bwd",
@@ -294,6 +308,20 @@ def check_ctx_grad(torch, device) -> dict[str, float]:
             + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
             + f" (u {CTX_TOL[dt_name]}, alpha {ALPHA_TOL[dt_name]}, dv "
             f"{GRAD_TOL[dt_name]} as rtol, atol; {len(cases)} cases)")
+
+    # f32 dv is the same on every run: no atomics, one order of sums
+    v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, 16, 20, 20, 256, 3, device)
+    du = torch.randn(16, 20, 20, 256, generator=gen).to(device)
+    _, alpha = K.launch_fwd(v_ext, fm_ext, 3, 0.1, rm_ext, residual=True)
+    for name, a in (("ctx_mix_bwd_res", alpha), ("ctx_mix_bwd", None)):
+        first = K.launch_bwd(v_ext, fm_ext, 3, 0.1, rm_ext, du, a)
+        second = K.launch_bwd(v_ext, fm_ext, 3, 0.1, rm_ext, du, a)
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            fail(f"{name}: two launches on the same f32 inputs gave dv that "
+                 "differ")
+    log("K1br and K1b: two launches give bitwise-equal f32 dv (config4 "
+        "shapes)")
 
     # CtxMix end to end: the gradient route of each ALPHA_RESIDUAL setting
     v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, 2, 6, 20, 256, 3, device)
@@ -1048,10 +1076,17 @@ def detector_inputs(torch, model, frames):
 
 
 def nms_edge_cases(torch, gen):
-    """(name, x1, y1, x2, y2, scores, iou) rows as the CPU tests build them:
+    """(name, boxes [B,N,4], scores, iou) rows as the CPU tests build them:
     ties of equal score, duplicate boxes, zero-area boxes, rows with fewer
-    survivors than 20, boxes one f32 step either side of IoU 0.7, and one
-    row of N = 100,000."""
+    survivors than 20, boxes one f32 step either side of IoU 0.7, one row
+    of N = 100,000; and the edges of the kernel's tiers: more copies of the
+    top box than a tier holds, equal scores straddling a tier's last
+    candidate (in a short row and in one longer than the keys the kernel
+    keeps in registers), rows that exhaust beside scores at, below -1e9 and
+    -inf (one whose first invalid slot is not index 0), a row shorter than
+    a tier, NaN and signed-zero scores."""
+    from nafae_torch.ops.kernels import nms as K2
+
     def rand(b, n, size=80.0):
         xy = torch.rand(b, n, 2, generator=gen) * size
         wh = torch.rand(b, n, 2, generator=gen) * 40 + 2
@@ -1087,6 +1122,49 @@ def nms_edge_cases(torch, gen):
         [[0.9, 0.8, 0.5, 0.4, 0.3, 0.2]]).repeat(3, 1), 0.7))
     bx, sc = rand(1, 100_000, size=600.0)
     cases.append(("N=100000", bx, sc, 0.7))
+    # the edges of the kernel's tiered walk (TIER_BOXES candidates a tier)
+    tier = K2.TIER_BOXES
+    n = tier + 476
+    bx, sc = rand(2, n, size=300.0)
+    at = torch.randperm(n, generator=gen)[:tier + 76]
+    bx[:, at] = bx[:, at[:1]]
+    sc[:, at] = 2.0
+    cases.append(("over-tier duplicates", bx, sc, 0.7))
+    n = 3 * tier
+    bx, sc = rand(2, n, size=300.0)
+    tied = torch.randperm(n, generator=gen)[:tier + 100]
+    bx[:, tied] = bx[:, tied[torch.randint(0, 10, (tied.numel(),),
+                                           generator=gen)]]
+    sc[:, tied] = 1.5
+    cases.append(("ties at the tier's cut", bx, sc, 0.7))
+    n = 30_000                # past the keys a block keeps in registers
+    bx, sc = rand(1, n, size=600.0)
+    tied = torch.randperm(n, generator=gen)[:tier + 76]
+    bx[:, tied] = bx[:, tied[torch.randint(0, 10, (tied.numel(),),
+                                           generator=gen)]]
+    sc[:, tied] = 1.5
+    cases.append(("long row, ties at the tier's cut", bx, sc, 0.7))
+    bx, sc = rand(4, 40)
+    sc[0, 5:] = -1e9
+    sc[1] = -2e9
+    sc[1, 0] = -1e9
+    sc[2, 1::2] = -float("inf")
+    sc[2, 2::4] = -3e9
+    sc[3] = -5e9
+    sc[3, 7] = -1e9
+    sc[3, 11:14] = 0.5
+    bx[3, 2] = bx[3, 11]     # killed by winner 11: reads -1e9, before box 7
+    cases.append(("exhausted beside scores <= -1e9", bx, sc, 0.5))
+    xy = torch.rand(5, 2, generator=gen)[torch.randint(
+        0, 5, (2, 400), generator=gen)] * 500 + torch.rand(2, 400, 2,
+                                                           generator=gen)
+    cases.append(("N=400 < tier", torch.cat([xy, xy + 60], -1),
+                  torch.rand(2, 400, generator=gen), 0.7))
+    bx, sc = rand(2, 50)
+    sc[0, ::3] = float("nan")
+    sc[1, ::2] = 0.0
+    sc[1, 1::4] = -0.0
+    cases.append(("NaN and signed-zero scores", bx, sc, 0.5))
     return cases
 
 
@@ -1100,23 +1178,33 @@ def check_nms(torch, planes, scores) -> dict:
         bx, sc = bx.cuda(), sc.cuda()
         cases.append((name, *(bx[..., c].contiguous() for c in range(4)),
                       sc.contiguous(), iou))
-    kept, worst = {}, 0.0
+    kept, cont, worst = {}, {}, 0.0
     for name, *planes_i, sc, iou in cases:
-        err, kept[name] = nms_vs_plain(torch, name, *planes_i, sc, iou)
+        err, kept[name], cont[name] = nms_vs_plain(torch, name, *planes_i,
+                                                   sc, iou)
         worst = max(worst, err)
+    for name in ("over-tier duplicates", "ties at the tier's cut",
+                 "long row, ties at the tier's cut"):
+        if cont[name] == 0:
+            fail(f"nms case {name!r} was built to take a second tier; no "
+                 "row did")
     log(f"nms (K2) vs plain: survivors exactly equal in all {len(cases)} "
-        f"cases (valid slots: {kept})")
-    return {"cases": len(cases), "valid_slots": kept, "max_abs_err": worst}
+        f"cases (valid slots: {kept}; rows that took the continuation, "
+        f"more than one tier: {cont})")
+    return {"cases": len(cases), "valid_slots": kept,
+            "continuation_rows": cont, "max_abs_err": worst}
 
 
-def nms_vs_plain(torch, name, x1, y1, x2, y2, sc, iou) -> tuple[float, int]:
+def nms_vs_plain(torch, name, x1, y1, x2, y2, sc,
+                 iou) -> tuple[float, int, int]:
     """K2 and its plain version (num_keep 20) on one case: fails unless
     idx and valid are exactly equal; returns (max |kernel - plain| over
-    idx and valid, valid slots)."""
+    idx and valid, valid slots, rows that took more than one tier)."""
     from nafae_torch.ops import nms as P
     from nafae_torch.ops.kernels import nms as K2
 
-    gi, gv = K2.launch(x1, y1, x2, y2, sc, 20, iou)
+    tiers = torch.zeros(sc.shape[0], dtype=torch.int32, device=sc.device)
+    gi, gv = K2.launch(x1, y1, x2, y2, sc, 20, iou, tiers=tiers)
     torch.cuda.synchronize()
     pi, pv = P.nms_planes(x1, y1, x2, y2, sc, 20, iou)
     bad = int(((gi != pi) | (gv != pv)).sum())
@@ -1127,7 +1215,7 @@ def nms_vs_plain(torch, name, x1, y1, x2, y2, sc, iou) -> tuple[float, int]:
     if gi.numel():
         err = float(max((gi - pi).abs().max().item(),
                         (gv - pv).abs().max().item()))
-    return err, int(gv.sum().item())
+    return err, int(gv.sum().item()), int((tiers > 1).sum().item())
 
 
 def roi_edge_cases(torch, gen):
@@ -1393,6 +1481,26 @@ def roi_bound_ms(torch, feat, boxes, scale=1 / 16) -> tuple[float, str]:
     return bound(torch, nbytes_, 2 * int(pairs) * c, feat.dtype)
 
 
+def nms_bound_ms(torch, scores, idx, valid) -> tuple[float, str]:
+    """Least time for K2 on these rows, counted from what the function
+    needs: every score read once; the four coordinates of every box ranked
+    at or above the row's last valid winner (score descending, index
+    ascending: each must be tested against the winners), or, in a row that
+    exhausts, of every box scoring above -1e9; idx and valid written once;
+    one IoU (20 flops) for each (winner, such box)."""
+    b, n = scores.shape
+    keep = idx.shape[1]
+    wins = valid.sum(1).long()
+    last = idx.long().gather(1, (wins - 1).clamp(min=0)[:, None])
+    last_score = scores.gather(1, last)
+    j = torch.arange(n, device=scores.device)
+    ranked = (scores > last_score) | ((scores == last_score) & (j <= last))
+    tested = torch.where((wins < keep)[:, None], scores > -1e9, ranked)
+    boxes = tested.sum(1)
+    return bound(torch, nbytes(scores) + 16 * int(boxes.sum()) + b * keep * 8,
+                 20 * int((wins * boxes).sum()), torch.float32)
+
+
 def c5_timings(torch, ann: str, tmp: str) -> dict:
     """On the first config-5 batch (B=16, T=20, 640x640), for the f32 and
     the bf16 detector: K2 and K5 against their plain versions on the
@@ -1416,20 +1524,18 @@ def c5_timings(torch, ann: str, tmp: str) -> dict:
         del det
         fk = feat.contiguous()
         # each kernel against its plain version on the inputs it is timed on
-        res["nms_err" + tag], _ = nms_vs_plain(
-            torch, f"config5 {run} detector", *planes, scores, 0.7)
+        res["nms_err" + tag], _, res["nms_continuation_rows" + tag] = \
+            nms_vs_plain(torch, f"config5 {run} detector", *planes, scores,
+                         0.7)
         res["roi_align_err" + tag] = roi_vs_plain(
             torch, f"config5 {run} detector", fk, boxes, 1 / 16)
         res["nms_ms" + tag] = device_ms(
             torch, lambda: K2.launch(*planes, scores, 20, 0.7))
         res["nms_plain_ms" + tag] = profile_forward(
             torch, lambda: P.nms_planes(*planes, scores, 20, 0.7), reps=2)[1]
-        # the planes read once and idx/valid written once, against ~15
-        # flops for each box at each step that found a survivor
-        _, valid = K2.launch(*planes, scores, 20, 0.7)
-        res["nms_bound_ms" + tag], res["nms_bound_by" + tag] = bound(
-            torch, nbytes(*planes, scores) + scores.shape[0] * 20 * 8,
-            15 * int(valid.sum()) * scores.shape[1], torch.float32)
+        idx, valid = K2.launch(*planes, scores, 20, 0.7)
+        res["nms_bound_ms" + tag], res["nms_bound_by" + tag] = \
+            nms_bound_ms(torch, scores, idx, valid)
         res["roi_align_ms" + tag] = device_ms(
             torch, lambda: K5.launch(fk, boxes, 1 / 16), reps=2, runs=11)
         res["roi_align_plain_ms" + tag] = profile_forward(
@@ -2041,7 +2147,8 @@ def main() -> None:
             f"{t5m['shapes' + tag]}, {dt}: K2 nms {t5m['nms_ms' + tag]:.4f} "
             f"ms (bound {t5m['nms_bound_ms' + tag]:.4f}, "
             f"{t5m['nms_bound_by' + tag]}; plain "
-            f"{t5m['nms_plain_ms' + tag]:.4f}); K5 roi_align "
+            f"{t5m['nms_plain_ms' + tag]:.4f}; rows that took the "
+            f"continuation {t5m['nms_continuation_rows' + tag]}); K5 roi_align "
             f"{t5m['roi_align_ms' + tag]:.4f} ms (bound "
             f"{t5m['roi_align_bound_ms' + tag]:.4f}, "
             f"{t5m['roi_align_bound_by' + tag]}; plain "
@@ -2154,6 +2261,9 @@ def main() -> None:
             plain_ms_bf16=t5m[name + "_plain_ms_bf16"],
             bound_ms_bf16=t5m[name + "_bound_ms_bf16"],
             bound_by_bf16=t5m[name + "_bound_by_bf16"],
+            **({"continuation_rows": t5m["nms_continuation_rows"],
+                "continuation_rows_bf16": t5m["nms_continuation_rows_bf16"]}
+               if name == "nms" else {}),
             shapes=t5m["shapes"], path=f"config-5 training ({run})")
           for name, rep, run, err in (
               ("nms", "nafae_tpu/ops/pallas/nms.py:36",   # _kernel

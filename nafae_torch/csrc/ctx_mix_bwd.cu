@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernels nafae_tpu/ops/pallas/fused_ctx.py::_bwd_kernel
 // (K1b, alpha recomputed from the scores) and ::_bwd_kernel_res (K1br, alpha
-// read from the forward's residual). One kernel template serves both; the
-// two C entry points below pick it. Math, per video b, centre frame t and
-// offset o with nv_o = fm[t+o] * fm[t] = 1 (masks hold 0 or 1), and
-// scale_t = fm[t] / max(sum_o nv_o, 1), as fused_ctx.py::_row_scale folds it:
+// read from the forward's residual). One pair of kernel templates serves
+// both; the two C entry points below pick them. Math, per video b, centre
+// frame t and offset o with nv_o = fm[t+o] * fm[t] = 1 (masks hold 0 or 1),
+// and scale_t = fm[t] / max(sum_o nv_o, 1), as fused_ctx.py::_row_scale
+// folds it:
 //
 //   du_n[r]      = scale_t * du[t, r]
 //   da[r, s]     = du_n[r] . v[t+o, s]
@@ -20,25 +21,48 @@
 // reads alpha as stored (bf16), the recompute route recomputes it in f32.
 // dv_ext is f32 [B, T+2w, R, E], halo frames included.
 //
-// Design: one block per (video, extended frame f), which gathers every
-// contribution to dv[f]: as the neighbour of each centre t = f - o, and as a
-// centre itself. Each (t, o) group lives in frames t and t+o alone, so the
-// block rebuilds alpha from those two frames (or reads it) and needs nothing
-// from other blocks: no atomics, no second pass, and the f32 result is the
-// same on every run. The cost is that each live (t, o) pair computes da and
-// ds twice, once in the block of t+o and once in the block of t. Frames sit
-// in shared memory as f32 rows (stride E+4); the R x R products use the
-// forward's 8-lane 4 x 4 tiles; each thread keeps 4 columns of a quarter of
-// the rows of dv[f] in registers across all (t, o) pairs.
+// Design: two kernels, one call.
+//
+//   pairs  one block per live pair (offset o, centre frame t, video b)
+//          computes da (and, for K1b, the scores and their softmax) once,
+//          then ds, and writes ds and alpha (and, in f32, ds transposed) to
+//          a scratch [B, T, 2w, R, RS] each in v's dtype (rows padded to RS
+//          = R rounded up to 8). 1,920 independent blocks at config4, so
+//          no block walks the pairs in sequence.
+//   gather one block per (video, extended frame f, slice of 64 columns)
+//          sums dv[f]'s slice over its valid neighbours g = f +- 1..w. Both
+//          terms that multiply v[g] (ds of pair (g, f-g), transposed, and
+//          ds of pair (f, g-f)) are added into one R x R matrix before the
+//          product, so a pair costs 2 R^2 columns of FMAs instead of 3.
+//          The slices of du[g] and v[g] and the pair matrices stream
+//          through a cp.async double buffer, a neighbour ahead of the sums;
+//          each thread keeps 4 columns of a quarter of the rows in
+//          registers across the neighbours.
+//
+// f32 runs on CUDA cores (full f32, no TF32, as the port holds f32 to the
+// reference's HIGHEST precision). bf16 runs its products on tensor cores,
+// mma.sync m16n8k16 with f32 accumulators and R padded to 32 with zeros: the
+// pairs kernel's da and scores, and the gather as one [32 x 96] x [96 x 64]
+// product a neighbour whose operands are bf16 values already (alpha, ds and
+// du_n, which the pairs kernel also writes out in bf16), so no extra
+// rounding enters.
+//
+// No atomics: every output element is summed by one thread in a fixed
+// order, so the f32 dv is the same on every run. The scratch (ds, alpha and
+// ds^T, 3.7 MB each at config4 in f32) is written once and read back from
+// L2.
 //
 // Bound on an H100 SXM (config4 training shapes B=16, T=20, R=20, E=256,
 // w=3, f32, every frame valid: 1,920 live (t, o) pairs): the least work is
 // 8 R^2 E flops a pair for K1br (da, alpha^T du_n, ds^T v_t, ds v_t+o) and
 // 10 R^2 E for K1b (plus the scores): 1.57 / 1.97 GFLOP, ~23 / ~29 us at
 // 67 TFLOP/s f32; the bytes (v_ext 8.5 MB, du 6.6 MB, alpha 3.1 MB, dv_ext
-// 8.5 MB) take ~8 us. So it is bound by operations. This first version does
-// 10 (K1br) and 14 (K1b) R^2 E a pair, walks the pairs in sequence behind
-// five barriers each, and is far from that bound; PERF.md has its times.
+// 8.5 MB) take ~8 us. So it is bound by operations. This design does 8
+// (K1br) and 10 (K1b) R^2 E a pair less the shared v[g] product (6 and 8);
+// the gather re-reads each frame's slice once for each of its 2w
+// neighbours, from L2. PERF.md has its times.
+
+#include <cstdint>
 
 #include "ctx_mix_common.cuh"
 
@@ -46,265 +70,723 @@ namespace {
 
 using namespace nafae_ctx;
 
-// RB: R rounded up to a multiple of 8 (4 row groups of RB/4 rows each).
-template <typename Tin, int RB, bool kResidual>
-__global__ void __launch_bounds__(kMaxThreads)
-ctx_mix_bwd_kernel(const Tin* __restrict__ v_ext,   // [B, T+2w, R, E]
-                   const float* __restrict__ fm_ext,  // [B, T+2w]
-                   const float* __restrict__ rm_ext,  // [B, T+2w, R] or null
-                   const Tin* __restrict__ alpha,     // [B, T, 2w, R, R] (K1br)
-                   const float* __restrict__ du,      // [B, T, R, E]
-                   float* __restrict__ dv,            // [B, T+2w, R, E]
-                   int T, int R, int E, int w, float temp) {
-  extern __shared__ __align__(16) float smem[];
-  const int ld = E + 4;
-  float* vown = smem;            // [R][ld]  this block's frame f
-  float* voth = vown + R * ld;   // [R][ld]  the other frame of the pair
-  float* dus = voth + R * ld;    // [R][ld]  du_n of the pair's centre frame
-  float* A = dus + R * ld;       // [RB][RB] alpha (row r, col s)
-  float* G = A + RB * RB;        // [RB][RB] scores, then da, then ds
-  float* live = G + RB * RB;     // [R]      region mask of the neighbour frame
+constexpr int kPairThreads = 256;
+constexpr int kSlice = 64;                  // columns of dv a gather block owns
+constexpr int kGatherThreads = kSlice;      // 16 column groups x 4 row groups
 
-  const int f = blockIdx.x;
-  const int b = blockIdx.y;
+__device__ __forceinline__ int offset_of(int i, int w) {
+  return i < w ? i - w : i - w + 1;
+}
+
+// Four consecutive elements of a shared row as f32.
+__device__ __forceinline__ float4 lds4(const float* p, int q) {
+  return reinterpret_cast<const float4*>(p)[q];
+}
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p, int q) {
+  return load4(p, q);
+}
+
+// All R x R row dots U[r] . N[s] (and, with kScores, C[r] . N[s]) of staged
+// frames; epi(r, s, dot_u, dot_c) once for each r, s < R. Groups of 8 lanes
+// compute 4 x 4 (r, s) tiles, lane j taking 4-column groups j, j+8, ..., and
+// sum by shuffles: ctx_mix_common.cuh's tile_products, with the neighbour's
+// loads shared by the two products.
+template <bool kScores, typename Tin, typename Epi>
+__device__ __forceinline__ void pair_products(const Tin* __restrict__ U,
+                                              const Tin* __restrict__ C,
+                                              const Tin* __restrict__ N,
+                                              int R, int E, int ld, Epi epi) {
+  const int j = threadIdx.x & 7;
+  const int tiles_1d = (R + 3) >> 2;
+  const int n_tiles = tiles_1d * tiles_1d;
+  const int e4 = E >> 2;
+  for (int base = 0; base < n_tiles; base += blockDim.x >> 3) {
+    const int tile = base + (threadIdx.x >> 3);
+    const int r0 = (tile / tiles_1d) * 4;
+    const int s0 = (tile % tiles_1d) * 4;
+    float d[4][4], c[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) d[i][k] = c[i][k] = 0.f;
+    if (tile < n_tiles) {         // uniform across the 8 lanes of a group
+      for (int q = j; q < e4; q += 8) {
+        float4 u[4], y[4], x[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          u[i] = lds4(U + min(r0 + i, R - 1) * ld, q);
+          y[i] = lds4(N + min(s0 + i, R - 1) * ld, q);
+          if (kScores) x[i] = lds4(C + min(r0 + i, R - 1) * ld, q);
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            d[i][k] = fmaf(u[i].x, y[k].x, d[i][k]);
+            d[i][k] = fmaf(u[i].y, y[k].y, d[i][k]);
+            d[i][k] = fmaf(u[i].z, y[k].z, d[i][k]);
+            d[i][k] = fmaf(u[i].w, y[k].w, d[i][k]);
+            if (kScores) {
+              c[i][k] = fmaf(x[i].x, y[k].x, c[i][k]);
+              c[i][k] = fmaf(x[i].y, y[k].y, c[i][k]);
+              c[i][k] = fmaf(x[i].z, y[k].z, c[i][k]);
+              c[i][k] = fmaf(x[i].w, y[k].w, c[i][k]);
+            }
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+#pragma unroll
+        for (int m = 4; m > 0; m >>= 1) {
+          d[i][k] += __shfl_xor_sync(0xffffffffu, d[i][k], m);
+          if (kScores) c[i][k] += __shfl_xor_sync(0xffffffffu, c[i][k], m);
+        }
+    if (j == 0 && tile < n_tiles) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          if (r0 + i < R && s0 + k < R) epi(r0 + i, s0 + k, d[i][k], c[i][k]);
+    }
+  }
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&x)[4],
+                                         uint32_t y0, uint32_t y1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(y0), "r"(y1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A fragment (16 x 16 at row m0, column k) of a row-major bf16 tile.
+__device__ __forceinline__ void frag_a(uint32_t (&x)[4],
+                                       const __nv_bfloat16* p, int ld,
+                                       int m0, int k) {
+  const int g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+  const __nv_bfloat16* q = p + (m0 + g) * ld + k + 2 * tig;
+  x[0] = lds32(q);
+  x[1] = lds32(q + 8 * ld);
+  x[2] = lds32(q + 8);
+  x[3] = lds32(q + 8 * ld + 8);
+}
+
+// bf16 (tensor cores): G[r][s] = U[r] . N[s] and, with kScores, the masked
+// scores S[r][s] = C[r] . N[s] / temp (kNeg where region s of the neighbour
+// is masked), for r, s < 32 (rows and columns beyond R read zeros). Eight
+// warps, one m16 x n8 tile each of the 32 x 32 outputs; mma.sync m16n8k16
+// with f32 accumulators over the padded E.
+template <bool kScores>
+__device__ __forceinline__ void pair_products_mma(
+    const __nv_bfloat16* __restrict__ U, const __nv_bfloat16* __restrict__ C,
+    const __nv_bfloat16* __restrict__ N, int ep, int ld, float* G, float* S,
+    const float* live, float temp) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * 8;
+  float d[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < ep; k += 16) {
+    const __nv_bfloat16* q = N + (n0 + g) * ld + k + 2 * tig;
+    const uint32_t y0 = lds32(q), y1 = lds32(q + 8);
+    uint32_t x[4];
+    frag_a(x, U, ld, m0, k);
+    mma_bf16(d, x, y0, y1);
+    if (kScores) {
+      frag_a(x, C, ld, m0, k);
+      mma_bf16(c, x, y0, y1);
+    }
+  }
+#pragma unroll
+  for (int z = 0; z < 4; ++z) {
+    const int row = m0 + g + (z >> 1) * 8;
+    const int col = n0 + 2 * tig + (z & 1);
+    G[row * 32 + col] = d[z];
+    if (kScores) S[row * 32 + col] = live[col] > 0.f ? c[z] / temp : kNeg;
+  }
+}
+
+// Shared-memory layout of the pairs kernel, in bytes from the start.
+struct PairsSmem {
+  int ld, frame_bytes;
+  size_t u, c, n, a, g, live, total;
+};
+
+template <typename Tin>
+__host__ __device__ inline PairsSmem pairs_smem(int R, int E, bool scores) {
+  constexpr bool kBf16 = sizeof(Tin) == 2;
+  PairsSmem p;
+  // f32: R rows of E + 4; bf16 (tensor cores): 32 rows of E padded to the
+  // MMA's depth, + 8, zero beyond R and E
+  p.ld = kBf16 ? ((E + 15) & ~15) + 8 : E + 4;
+  p.frame_bytes = ((kBf16 ? 32 : R) * p.ld * (int)sizeof(Tin) + 15) / 16 * 16;
+  p.u = 0;
+  p.c = p.u + p.frame_bytes;
+  p.n = p.c + (scores ? p.frame_bytes : 0);
+  p.a = p.n + p.frame_bytes;
+  const size_t mat = 32 * 32 * sizeof(float);
+  p.g = p.a + mat;
+  p.live = p.g + (scores ? 2 : 1) * mat;
+  p.total = p.live + 32 * sizeof(float);
+  return p;
+}
+
+// ds (and, for K1b, alpha) of one (t, o) pair: block (offset oi, centre t,
+// video b).
+template <typename Tin, bool kResidual>
+__global__ void __launch_bounds__(kPairThreads)
+ctx_mix_bwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
+                  const float* __restrict__ fm_ext,  // [B, T+2w]
+                  const float* __restrict__ rm_ext,  // [B, T+2w, R] or null
+                  const Tin* __restrict__ alpha,     // [B, T, 2w, R, R] (K1br)
+                  const float* __restrict__ du,      // [B, T, R, E]
+                  Tin* __restrict__ ds_out,          // [B, T, 2w, R, RS]
+                  Tin* __restrict__ alpha_out,       // [B, T, 2w, R, RS]
+                  Tin* __restrict__ dst_out,         // ds^T, as ds (f32)
+                  Tin* __restrict__ dun_out,         // [B, T, R, E] (bf16)
+                  int T, int R, int E, int w, float temp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool kScores = !kResidual;
+  constexpr bool kBf16 = sizeof(Tin) == 2;
+  constexpr int kVec = 4;                        // 16 bytes f32, 8 bytes bf16
+  const PairsSmem L = pairs_smem<Tin>(R, E, kScores);
+  Tin* U = reinterpret_cast<Tin*>(smem_raw + L.u);       // du_n of frame t
+  Tin* C = reinterpret_cast<Tin*>(smem_raw + L.c);       // v_t (K1b)
+  Tin* N = reinterpret_cast<Tin*>(smem_raw + L.n);       // v_t+o
+  float* A = reinterpret_cast<float*>(smem_raw + L.a);   // [R][32] alpha
+  float* G = reinterpret_cast<float*>(smem_raw + L.g);   // [R][32] da
+  float* S = G + 32 * 32;                                // [R][32] scores
+  float* live = reinterpret_cast<float*>(smem_raw + L.live);
+  const int ld = L.ld;
+  const int ep = (E + 15) & ~15;
+  const int rows = kBf16 ? 32 : R;               // staged rows (zero past R)
+  const int cols = kBf16 ? ep : E;               // staged columns (zero past E)
+
+  const int oi = blockIdx.x;
+  const int t = blockIdx.y;
+  const int b = blockIdx.z;
   const int t_ext = T + 2 * w;
+  const int c = t + w;                           // extended centre frame
+  const int n = c + offset_of(oi, w);            // extended neighbour frame
   const size_t frame = (size_t)R * E;
   const size_t rr = (size_t)R * R;
+  const size_t pair_id = ((size_t)b * T + t) * 2 * w + oi;
+  const int RS = (R + 7) & ~7;                   // the scratch's row length
+  Tin* ds_p = ds_out + pair_id * R * RS;
+  Tin* alpha_p = alpha_out + pair_id * R * RS;
+  Tin* dst_p = kBf16 ? nullptr : dst_out + pair_id * R * RS;
   const float* fm = fm_ext + (size_t)b * t_ext;
   const Tin* vb = v_ext + (size_t)b * t_ext * frame;
-  float* dvb = dv + ((size_t)b * t_ext + f) * frame;
+  if (fm[c] == 0.f || fm[n] == 0.f) return;      // nv_o = 0: nothing read
 
-  if (fm[f] == 0.f) {             // every pair through f has nv_o = 0
-    for (int i = threadIdx.x; i < (int)frame; i += blockDim.x) dvb[i] = 0.f;
-    return;
+  float cnt = 0.f;
+  int first = -1;                                // the first live offset
+  for (int i = 0; i < 2 * w; ++i) {
+    const float f = fm[c + offset_of(i, w)];
+    cnt += f;
+    if (f != 0.f && first < 0) first = i;
   }
-  stage_frame(vown, vb + (size_t)f * frame, R, E, ld);
-  // rows and columns R..RB-1 of A and G stay zero: the sums below read them
-  for (int i = threadIdx.x; i < 2 * RB * RB; i += blockDim.x) A[i] = 0.f;
+  const float scale = 1.f / fmaxf(cnt, 1.f);    // fm[c] is 1 here
 
-  constexpr int RPT = RB / 4;           // rows per thread
-  const int ncg = E >> 2;
-  const bool active = threadIdx.x < E;  // blockDim rounds E up to 32
-  const int cg = threadIdx.x % ncg;
-  const int rg = threadIdx.x / ncg;
+  if (kScores)
+    stage_tile_async<kVec>(C, vb + (size_t)c * frame, rows, R, E, 0, cols,
+                           ld);
+  stage_tile_async<kVec>(N, vb + (size_t)n * frame, rows, R, E, 0, cols, ld);
+  const float* du_t = du + ((size_t)b * T + t) * frame;
+  if constexpr (kBf16) {
+    // du_n rounded to bf16 before its products, as the reference does;
+    // the first live pair's block also writes it out for the gather
+    Tin* dun = oi == first ? dun_out + ((size_t)b * T + t) * frame : nullptr;
+    const int c4 = cols >> 2;
+    for (int i = threadIdx.x; i < rows * c4; i += blockDim.x) {
+      const int r = i / c4;
+      const int e = (i - r * c4) << 2;
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < R && e < E) {
+        x = reinterpret_cast<const float4*>(du_t + (size_t)r * E + e)[0];
+        x = make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+      }
+      Tin* d = U + r * ld + e;
+      store_as(d, x.x);
+      store_as(d + 1, x.y);
+      store_as(d + 2, x.z);
+      store_as(d + 3, x.w);
+      if (dun != nullptr && r < R && e < E) {
+        Tin* o = dun + (size_t)r * E + e;
+        store_as(o, x.x);
+        store_as(o + 1, x.y);
+        store_as(o + 2, x.z);
+        store_as(o + 3, x.w);
+      }
+    }
+  } else {
+    // f32: du as stored, by cp.async with the frames; the scale goes on da
+    stage_tile_async<kVec>(U, du_t, R, R, E, 0, E, ld);
+  }
+  cp_async_commit();
+  if (threadIdx.x < R)
+    live[threadIdx.x] =
+        rm_ext ? rm_ext[((size_t)b * t_ext + n) * R + threadIdx.x] : 1.f;
+  if (kResidual)
+    for (int i = threadIdx.x; i < (int)rr; i += blockDim.x) {
+      const int r = i / R;
+      A[r * 32 + (i - r * R)] = load1(alpha + pair_id * rr + i);
+    }
+  cp_async_wait(0);
+  __syncthreads();
+
+  if constexpr (kBf16)
+    pair_products_mma<kScores>(U, C, N, ep, ld, G, S, live, temp);
+  else
+    pair_products<kScores>(U, C, N, R, E, ld,
+                           [&](int r, int s, float da, float sc) {
+                             G[r * 32 + s] = da * scale;
+                             if (kScores)
+                               S[r * 32 + s] =
+                                   live[s] > 0.f ? sc / temp : kNeg;
+                           });
+  __syncthreads();
+  if (kScores) {                 // K1b: alpha from the scores, in f32
+    row_softmax(S, 32, R,
+                [&](int r, int s, float p) { A[r * 32 + s] = p; });
+    __syncthreads();
+  }
+  bool group_live = false;       // any valid region in t+o (same every row)
+  for (int s = 0; s < R; ++s) group_live |= live[s] > 0.f;
+
+  // ds, and alpha for the gather: 8 lanes per row, the row sum by
+  // shuffles; rows padded to RS with zeros
+  const int j = threadIdx.x & 7;
+  for (int base = 0; base < R; base += blockDim.x >> 3) {
+    const int r = base + (threadIdx.x >> 3);
+    float a[4], g[4];
+    float sum = 0.f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int s = j + 8 * q;
+      const bool ok = r < R && s < R;
+      a[q] = ok ? A[r * 32 + s] : 0.f;
+      g[q] = ok ? G[r * 32 + s] : 0.f;
+      sum += a[q] * g[q];
+    }
+#pragma unroll
+    for (int m = 4; m > 0; m >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, m);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int s = j + 8 * q;
+      if (r < R && s < RS) {
+        const float d = group_live && s < R
+                            ? (a[q] * g[q] - a[q] * sum) / temp : 0.f;
+        store_as(ds_p + r * RS + s, d);
+        store_as(alpha_p + r * RS + s, a[q]);
+        if (!kBf16 && s < R) store_as(dst_p + s * RS + r, d);
+      }
+    }
+  }
+}
+
+// The valid neighbours g of extended frame f, in order (block-uniform);
+// none if f is a halo frame or not valid. Returns their number.
+__device__ __forceinline__ int neighbours(int (&src)[32], const float* fm,
+                                          int f, int T, int w) {
+  int n = 0;
+  if (f >= w && f < w + T && fm[f] != 0.f)
+    for (int d = -w; d <= w; ++d) {
+      const int g = f + d;
+      if (d != 0 && g >= w && g < w + T && fm[g] != 0.f && n < 32)
+        src[n++] = g;
+    }
+  return n;
+}
+
+// The pair matrices that join f and its neighbour g, as stored in the
+// scratch (rows of RS = R rounded up to 8): (g, f - g), whose neighbour is
+// f, and (f, g - f), whose neighbour is g.
+__device__ __forceinline__ void pair_offsets(size_t& p_gf, size_t& p_fg,
+                                             int b, int f, int g, int T,
+                                             int R, int RS, int w) {
+  const int i_gf = f - g < 0 ? f - g + w : f - g + w - 1;
+  const int i_fg = g - f < 0 ? g - f + w : g - f + w - 1;
+  p_gf = (((size_t)b * T + g - w) * 2 * w + i_gf) * R * RS;
+  p_fg = (((size_t)b * T + f - w) * 2 * w + i_fg) * R * RS;
+}
+
+// f32: dv[f] for columns [64 y, 64 y + 64) from the valid neighbours of f.
+// du[g]'s and v[g]'s slices arrive by cp.async a neighbour ahead; the pair
+// matrices of the next neighbour are loaded into registers while this one
+// is summed, and stored to shared memory after it. ds of pair (f, g - f) is
+// read from its transposed copy, so that every matrix load is coalesced.
+template <int RB>
+__global__ void __launch_bounds__(kGatherThreads)
+ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
+                   const float* __restrict__ fm_ext,  // [B, T+2w]
+                   const float* __restrict__ alpha,   // [B, T, 2w, R, RB]
+                   const float* __restrict__ ds,      // [B, T, 2w, R, RB]
+                   const float* __restrict__ dst,     // ds^T, as ds
+                   const float* __restrict__ du,      // [B, T, R, E]
+                   float* __restrict__ dv,            // [B, T+2w, R, E]
+                   int T, int R, int E, int w) {
+  constexpr int kLd = kSlice + 4;
+  constexpr int RPT = RB / 4;                     // rows per thread
+  constexpr int kPer = RB * RB / kGatherThreads;  // matrix entries a thread
+  __shared__ __align__(16) float dus[2][RB * kLd];      // du[g] slice, raw
+  __shared__ __align__(16) float vs[2][RB * kLd];       // v[g] slice
+  __shared__ __align__(16) float A[RB * RB];    // alpha of pair (g, f-g)
+  __shared__ __align__(16) float D[RB * RB];    // the v[g] matrix, [b][a]
+
+  const int f = blockIdx.x;
+  const int col0 = blockIdx.y * kSlice;
+  const int b = blockIdx.z;
+  const int t_ext = T + 2 * w;
+  const size_t frame = (size_t)R * E;
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const int cg = threadIdx.x & 15;
+  const int rg = threadIdx.x >> 4;
+  const int col = col0 + 4 * cg;
+
   float acc[RPT][4];
 #pragma unroll
   for (int i = 0; i < RPT; ++i)
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
-  // pairs 0..2w-1: f is the neighbour t+o of centre c = f - o;
-  // pairs 2w..4w-1: f is the centre of neighbour n = f + o
-  for (int job = 0; job < 4 * w; ++job) {
-    const bool as_centre = job >= 2 * w;           // block-uniform
-    const int oi = as_centre ? job - 2 * w : job;
-    const int o = oi < w ? oi - w : oi - w + 1;
-    const int c = as_centre ? f : f - o;           // extended centre frame
-    const int n = c + o;                           // extended neighbour frame
-    if (c < w || c >= w + T) continue;
-    if (fm[c] * fm[n] == 0.f) continue;
-    float cnt = 0.f;
-    for (int q = 0; q < 2 * w; ++q) cnt += fm[c + (q < w ? q - w : q - w + 1)];
-    const float scale = 1.f / fmaxf(cnt, 1.f);     // fm[c] is 1 here
-    const int t = c - w;
-
-    __syncthreads();              // the previous pair's readers are done
-    stage_frame(voth, vb + (size_t)(as_centre ? n : c) * frame, R, E, ld);
-    {
-      const float* src = du + ((size_t)b * T + t) * frame;
-      const int n4 = (R * E) >> 2;
-      for (int i = threadIdx.x; i < n4; i += blockDim.x) {
-        const int flat = i << 2;
-        const int r = flat / E;
-        const float4 x = reinterpret_cast<const float4*>(src)[i];
-        *reinterpret_cast<float4*>(dus + r * ld + (flat - r * E)) =
-            make_float4(as_operand(x.x * scale, v_ext),
-                        as_operand(x.y * scale, v_ext),
-                        as_operand(x.z * scale, v_ext),
-                        as_operand(x.w * scale, v_ext));
-      }
-    }
-    if (threadIdx.x < R)
-      live[threadIdx.x] =
-          rm_ext ? rm_ext[((size_t)b * t_ext + n) * R + threadIdx.x] : 1.f;
-    if (kResidual) {
-      const Tin* ap = alpha + (((size_t)b * T + t) * 2 * w + oi) * rr;
-      for (int i = threadIdx.x; i < (int)rr; i += blockDim.x) {
-        const int r = i / R;
-        A[r * RB + (i - r * R)] = load1(ap + i);
-      }
-    }
-    __syncthreads();
-
-    const float* C = as_centre ? vown : voth;      // centre frame t
-    const float* N = as_centre ? voth : vown;      // neighbour frame t+o
-    bool group_live = false;      // any valid region in t+o (same every row)
-    for (int s = 0; s < R; ++s) group_live |= live[s] > 0.f;
-
-    if (!kResidual) {             // K1b: alpha from the scores, in f32
-      tile_products(C, N, R, E, ld, [&](int r, int s, float d) {
-        G[r * RB + s] = live[s] > 0.f ? d / temp : kNeg;
-      });
-      __syncthreads();
-      row_softmax(G, RB, R, [&](int r, int s, float p) { A[r * RB + s] = p; });
-      __syncthreads();
-    }
-    tile_products(dus, N, R, E, ld,
-                  [&](int r, int s, float d) { G[r * RB + s] = d; });
-    __syncthreads();
-
-    // ds in place of da: 8 lanes per row, the row sum by shuffles
-    {
-      const int j = threadIdx.x & 7;
-      for (int base = 0; base < R; base += blockDim.x >> 3) {
-        const int r = base + (threadIdx.x >> 3);
-        float a[4], g[4];
-        float sum = 0.f;
+  int src[32];
+  const int n_src = neighbours(src, fm, f, T, w);
+  auto fetch = [&](int k) {                      // the slices, asynchronously
+    const int g = src[k];
+    stage_tile_async<4>(dus[k & 1], du + ((size_t)b * T + g - w) * frame,
+                        R, R, E, col0, kSlice, kLd);
+    stage_tile_async<4>(vs[k & 1], v_ext + ((size_t)b * t_ext + g) * frame,
+                        R, R, E, col0, kSlice, kLd);
+    cp_async_commit();
+  };
+  // entry e of this thread: element i = threadIdx.x + 64 e of [R][RB], row
+  // b = i / RB (source), column a (output): alpha_gf[b][a], ds_gf[b][a]
+  // and ds_fg[a][b]
+  float m_a[kPer], m_g[kPer], m_f[kPer];
+  auto load_mats = [&](int k) {
+    size_t p_gf, p_fg;
+    pair_offsets(p_gf, p_fg, b, f, src[k], T, R, RB, w);
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int s = j + 8 * k;
-          const bool ok = r < R && s < R;
-          a[k] = ok ? A[r * RB + s] : 0.f;
-          g[k] = ok ? G[r * RB + s] : 0.f;
-          sum += a[k] * g[k];
-        }
-#pragma unroll
-        for (int k = 4; k > 0; k >>= 1)
-          sum += __shfl_xor_sync(0xffffffffu, sum, k);
-#pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int s = j + 8 * k;
-          if (r < R && s < R)
-            G[r * RB + s] = group_live
-                ? as_operand((a[k] * g[k] - a[k] * sum) / temp, v_ext)
-                : 0.f;
-        }
-      }
+    for (int e = 0; e < kPer; ++e) {
+      const int i = threadIdx.x + kGatherThreads * e;
+      const int r = i / RB;
+      const int a = i - r * RB;
+      const bool ok = r < R;
+      m_a[e] = ok ? alpha[p_gf + i] : 0.f;
+      m_g[e] = ok ? ds[p_gf + i] : 0.f;
+      m_f[e] = ok && a < R ? dst[p_fg + i] : 0.f;
     }
-    __syncthreads();
-
-    // Accumulate into this thread's rows of dv[f]. A warp shares rg, so the
-    // A and G reads are broadcasts and the frame-row reads 512 contiguous
-    // bytes.
-    if (active) {
-      if (!as_centre) {           // rows are s: alpha^T du_n + ds^T v_t
-        for (int r = 0; r < R; ++r) {
-          const float4 x = reinterpret_cast<const float4*>(dus + r * ld)[cg];
-          const float4 y = reinterpret_cast<const float4*>(C + r * ld)[cg];
-          const float* ap = A + r * RB + rg * RPT;
-          const float* gp = G + r * RB + rg * RPT;
+  };
+  auto store_mats = [&]() {
 #pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            const float a = as_operand(ap[i], v_ext);
-            const float g = gp[i];
-            acc[i][0] = fmaf(g, y.x, fmaf(a, x.x, acc[i][0]));
-            acc[i][1] = fmaf(g, y.y, fmaf(a, x.y, acc[i][1]));
-            acc[i][2] = fmaf(g, y.z, fmaf(a, x.z, acc[i][2]));
-            acc[i][3] = fmaf(g, y.w, fmaf(a, x.w, acc[i][3]));
-          }
-        }
-      } else {                    // rows are r: ds v_t+o
-        for (int s = 0; s < R; ++s) {
-          const float4 y = reinterpret_cast<const float4*>(N + s * ld)[cg];
-#pragma unroll
-          for (int i = 0; i < RPT; ++i) {
-            const float g = G[(rg * RPT + i) * RB + s];
-            acc[i][0] = fmaf(g, y.x, acc[i][0]);
-            acc[i][1] = fmaf(g, y.y, acc[i][1]);
-            acc[i][2] = fmaf(g, y.z, acc[i][2]);
-            acc[i][3] = fmaf(g, y.w, acc[i][3]);
-          }
-        }
-      }
+    for (int e = 0; e < kPer; ++e) {
+      const int i = threadIdx.x + kGatherThreads * e;
+      A[i] = m_a[e];
+      D[i] = m_g[e] + m_f[e];
     }
+  };
+  if (n_src > 0) {
+    fetch(0);
+    load_mats(0);
+    store_mats();
   }
 
-  if (active) {
+  for (int k = 0; k < n_src; ++k) {
+    const int g = src[k];
+    if (k + 1 < n_src) fetch(k + 1);
+    float cnt = 0.f;                             // scale of centre frame g
+    for (int q = 0; q < 2 * w; ++q) cnt += fm[g + offset_of(q, w)];
+    const float scale = 1.f / fmaxf(cnt, 1.f);
+    if (k + 1 < n_src) cp_async_wait(1); else cp_async_wait(0);
+    __syncthreads();
+    if (k + 1 < n_src) load_mats(k + 1);        // in flight during the sums
+
+    const float* X = dus[k & 1];
+    const float* Y = vs[k & 1];
+    for (int r = 0; r < R; ++r) {
+      const float4 xr = reinterpret_cast<const float4*>(X + r * kLd)[cg];
+      const float4 x = make_float4(xr.x * scale, xr.y * scale, xr.z * scale,
+                                   xr.w * scale);
+      const float4 y = reinterpret_cast<const float4*>(Y + r * kLd)[cg];
+      const float2* ap =
+          reinterpret_cast<const float2*>(A + r * RB + rg * RPT);
+      const float2* dp =
+          reinterpret_cast<const float2*>(D + r * RB + rg * RPT);
+#pragma unroll
+      for (int h = 0; h < RPT / 2; ++h) {
+        const float2 a2 = ap[h];
+        const float2 d2 = dp[h];
+#pragma unroll
+        for (int z = 0; z < 2; ++z) {
+          const float a = z ? a2.y : a2.x;
+          const float d = z ? d2.y : d2.x;
+          float* o = acc[2 * h + z];
+          o[0] = fmaf(d, y.x, fmaf(a, x.x, o[0]));
+          o[1] = fmaf(d, y.y, fmaf(a, x.y, o[1]));
+          o[2] = fmaf(d, y.z, fmaf(a, x.z, o[2]));
+          o[3] = fmaf(d, y.w, fmaf(a, x.w, o[3]));
+        }
+      }
+    }
+    __syncthreads();             // A, D and this neighbour's slices are free
+    if (k + 1 < n_src) store_mats();
+  }
+
+  float* dvb = dv + ((size_t)b * t_ext + f) * frame;
+  if (col < E) {
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = rg * RPT + i;
       if (r < R)
-        reinterpret_cast<float4*>(dvb + (size_t)r * E)[cg] =
+        *reinterpret_cast<float4*>(dvb + (size_t)r * E + col) =
             make_float4(acc[i][0], acc[i][1], acc[i][2], acc[i][3]);
     }
   }
 }
 
-template <typename Tin, int RB, bool kResidual>
-int launch(const void* v_ext, const float* fm_ext, const float* rm_ext,
-           const void* alpha, const float* du, float* dv, int B, int T, int R,
-           int E, int w, float temp, size_t smem, cudaStream_t stream) {
-  auto kern = ctx_mix_bwd_kernel<Tin, RB, kResidual>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int threads = ((E + 31) / 32) * 32;
-  kern<<<dim3(T + 2 * w, B), threads, smem, stream>>>(
-      static_cast<const Tin*>(v_ext), fm_ext, rm_ext,
-      static_cast<const Tin*>(alpha), du, dv, T, R, E, w, temp);
+// bf16 (tensor cores): dv[f] for columns [64 y, 64 y + 64) as one product a
+// neighbour: [alpha_gf^T | ds_gf^T | ds_fg] (32 x 96, R padded to 32 with
+// zeros) times [du_n[g]; v[g]; v[g]] (96 x 64), mma.sync m16n8k16 with f32
+// accumulators. Four warps, 16 columns each; the B fragments come from the
+// row-major slices through ldmatrix.trans. du_n[g] is the pairs kernel's.
+// The slices and matrices of a neighbour arrive by cp.async one neighbour
+// ahead; ds_fg lands where the MMA reads it, the two transposed matrices
+// are built from their copies.
+constexpr int kMmaLd = kSlice + 8;              // 144-byte rows
+constexpr int kMatLd = 32 + 8;                  // 80-byte rows
+
+__global__ void __launch_bounds__(128)
+ctx_mix_bwd_gather_mma(const __nv_bfloat16* __restrict__ v_ext,
+                       const float* __restrict__ fm_ext,
+                       const __nv_bfloat16* __restrict__ alpha,  // padded
+                       const __nv_bfloat16* __restrict__ ds,     // padded
+                       const __nv_bfloat16* __restrict__ dun,    // [B,T,R,E]
+                       float* __restrict__ dv, int T, int R, int E, int w) {
+  __shared__ __align__(16) __nv_bfloat16 xs[2][32 * kMmaLd];  // du_n[g]
+  __shared__ __align__(16) __nv_bfloat16 ys[2][32 * kMmaLd];  // v[g]
+  __shared__ __align__(16) __nv_bfloat16 raw[2][2][32 * 32];  // alpha, ds_gf
+  __shared__ __align__(16) __nv_bfloat16 fg[2][32 * kMatLd];  // ds_fg [a][b]
+  __shared__ __align__(16) __nv_bfloat16 am[2][32 * kMatLd];  // their ^T
+
+  const int f = blockIdx.x;
+  const int col0 = blockIdx.y * kSlice;
+  const int b = blockIdx.z;
+  const int t_ext = T + 2 * w;
+  const int RS = (R + 7) & ~7;                   // the scratch's row length
+  const size_t frame = (size_t)R * E;
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, tig = lane & 3;
+  const int mt = R > 16 ? 2 : 1;                 // m16 tiles of rows a
+  const int ks = R > 16 ? 2 : 1;                 // k16 steps of rows b
+
+  // rows and columns past R stay zero in the transposed matrices
+  for (int i = threadIdx.x; i < 2 * 32 * kMatLd; i += blockDim.x)
+    (&am[0][0])[i] = __float2bfloat16_rn(0.f);
+
+  int src[32];
+  const int n_src = neighbours(src, fm, f, T, w);
+  auto fetch = [&](int k) {
+    const int g = src[k];
+    const int q = k & 1;
+    stage_tile_async<4>(xs[q], dun + ((size_t)b * T + g - w) * frame, 32, R,
+                        E, col0, kSlice, kMmaLd);
+    stage_tile_async<4>(ys[q], v_ext + ((size_t)b * t_ext + g) * frame, 32,
+                        R, E, col0, kSlice, kMmaLd);
+    size_t p_gf, p_fg;
+    pair_offsets(p_gf, p_fg, b, f, g, T, R, RS, w);
+    stage_tile_async<8>(raw[q][0], alpha + p_gf, R, R, RS, 0, RS, 32);
+    stage_tile_async<8>(raw[q][1], ds + p_gf, R, R, RS, 0, RS, 32);
+    stage_tile_async<8>(fg[q], ds + p_fg, 32, R, RS, 0, 32, kMatLd);
+    cp_async_commit();
+  };
+  if (n_src > 0) fetch(0);
+
+  float acc[2][2][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int z = 0; z < 4; ++z) acc[mi][ni][z] = 0.f;
+
+  for (int k = 0; k < n_src; ++k) {
+    const int q = k & 1;
+    if (k + 1 < n_src) fetch(k + 1);
+    if (k + 1 < n_src) cp_async_wait(1); else cp_async_wait(0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < R * R; i += blockDim.x) {
+      const int r = i / R;
+      const int s = i - r * R;                   // element (r, s) of R x R
+      am[0][s * kMatLd + r] = raw[q][0][r * 32 + s];   // alpha_gf^T
+      am[1][s * kMatLd + r] = raw[q][1][r * 32 + s];   // ds_gf^T
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int blk = 0; blk < 3; ++blk) {
+      const __nv_bfloat16* bsrc = blk == 0 ? xs[q] : ys[q];
+      const __nv_bfloat16* asrc = blk == 2 ? fg[q] : am[blk];
+      for (int kk = 0; kk < ks; ++kk) {
+        // B fragments of the two n8 tiles of this warp's 16 columns
+        uint32_t y[4];
+        const __nv_bfloat16* p = bsrc + (kk * 16 + (lane & 15)) * kMmaLd +
+                                 warp * 16 + (lane >> 4) * 8;
+        const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+        asm volatile(
+            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+            "{%0, %1, %2, %3}, [%4];\n"
+            : "=r"(y[0]), "=r"(y[1]), "=r"(y[2]), "=r"(y[3])
+            : "r"(addr));
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          if (mi >= mt) continue;                // block-uniform
+          uint32_t x[4];
+          frag_a(x, asrc, kMatLd, mi * 16, kk * 16);
+          mma_bf16(acc[mi][0], x, y[0], y[1]);
+          mma_bf16(acc[mi][1], x, y[2], y[3]);
+        }
+      }
+    }
+    __syncthreads();             // the matrices and this neighbour's buffers
+  }
+
+  float* dvb = dv + ((size_t)b * t_ext + f) * frame;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = mi * 16 + g4 + h * 8;
+        const int col = col0 + warp * 16 + ni * 8 + 2 * tig;
+        if (row < R && col < E)
+          *reinterpret_cast<float2*>(dvb + (size_t)row * E + col) =
+              make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
+      }
+}
+
+template <int RB>
+int launch_gather(const float* v_ext, const float* fm_ext,
+                  const float* alpha, const float* ds, const float* dst,
+                  const float* du, float* dv, int B, int T, int R, int E,
+                  int w, cudaStream_t stream) {
+  const dim3 grid(T + 2 * w, (E + kSlice - 1) / kSlice, B);
+  ctx_mix_bwd_gather<RB><<<grid, kGatherThreads, 0, stream>>>(
+      v_ext, fm_ext, alpha, ds, dst, du, dv, T, R, E, w);
   return (int)cudaGetLastError();
 }
 
-template <typename Tin, bool kResidual>
-int dispatch(const void* v_ext, const float* fm_ext, const float* rm_ext,
-             const void* alpha, const float* du, float* dv, int B, int T,
-             int R, int E, int w, float temp, size_t smem,
-             cudaStream_t stream) {
-  switch ((R + 7) / 8) {
-    case 1: return launch<Tin, 8, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, B, T, R, E, w, temp, smem, stream);
-    case 2: return launch<Tin, 16, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, B, T, R, E, w, temp, smem, stream);
-    case 3: return launch<Tin, 24, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, B, T, R, E, w, temp, smem, stream);
-    default: return launch<Tin, 32, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, B, T, R, E, w, temp, smem, stream);
-  }
+// The scratch, in elements of v_ext's type: ds and alpha as [B, T, 2w, R,
+// RS] (rows padded to RS = R rounded up to 8, so every row of every pair is
+// 16-byte aligned for the gather's copies), then, for f32, ds transposed in
+// the same layout, for bf16 du_n [B, T, R, E] at a 16-byte boundary.
+size_t mats_elems(int B, int T, int R, int w) {
+  return (size_t)B * T * 2 * w * R * ((R + 7) & ~7);
 }
 
-// Dynamic shared memory of one block, in bytes: at most 206,464 B (R = 32,
-// E = 512), within the 227 KB a Hopper block can opt into.
-size_t smem_bytes(int R, int E) {
-  const int rb = ((R + 7) / 8) * 8;
-  return (size_t)(3 * R * (E + 4) + 2 * rb * rb + R) * sizeof(float);
+size_t scratch_elems(int B, int T, int R, int E, int w, bool bf16) {
+  const size_t mats = mats_elems(B, T, R, w);
+  return bf16 ? (2 * mats + 7) / 8 * 8 + (size_t)B * T * R * E : 3 * mats;
+}
+
+template <typename Tin, bool kResidual>
+int run_typed(const void* v_ext, const float* fm_ext, const float* rm_ext,
+              const void* alpha, const float* du, float* dv, void* scratch,
+              int B, int T, int R, int E, int w, float temp,
+              cudaStream_t stream) {
+  constexpr bool kBf16 = sizeof(Tin) == 2;
+  const size_t mats = mats_elems(B, T, R, w);
+  Tin* ds = static_cast<Tin*>(scratch);
+  Tin* alpha_s = ds + mats;
+  Tin* dst = kBf16 ? nullptr : ds + 2 * mats;
+  Tin* dun = kBf16 ? ds + (2 * mats + 7) / 8 * 8 : nullptr;
+  const size_t smem = pairs_smem<Tin>(R, E, !kResidual).total;
+  auto pairs = ctx_mix_bwd_pairs<Tin, kResidual>;
+  cudaError_t err = cudaFuncSetAttribute(
+      pairs, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  pairs<<<dim3(2 * w, T, B), kPairThreads, smem, stream>>>(
+      static_cast<const Tin*>(v_ext), fm_ext, rm_ext,
+      static_cast<const Tin*>(alpha), du, ds, alpha_s, dst, dun, T, R, E, w,
+      temp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  if constexpr (kBf16) {
+    const dim3 grid(T + 2 * w, (E + kSlice - 1) / kSlice, B);
+    ctx_mix_bwd_gather_mma<<<grid, 128, 0, stream>>>(
+        static_cast<const Tin*>(v_ext), fm_ext, alpha_s, ds, dun, dv, T, R,
+        E, w);
+    return (int)cudaGetLastError();
+  } else {
+    const float* v = static_cast<const float*>(v_ext);
+    switch ((R + 7) / 8) {
+      case 1: return launch_gather<8>(v, fm_ext, alpha_s, ds, dst, du, dv, B, T, R, E, w, stream);
+      case 2: return launch_gather<16>(v, fm_ext, alpha_s, ds, dst, du, dv, B, T, R, E, w, stream);
+      case 3: return launch_gather<24>(v, fm_ext, alpha_s, ds, dst, du, dv, B, T, R, E, w, stream);
+      default: return launch_gather<32>(v, fm_ext, alpha_s, ds, dst, du, dv, B, T, R, E, w, stream);
+    }
+  }
 }
 
 template <bool kResidual>
 int run(const void* v_ext, int v_is_bf16, const float* fm_ext,
         const float* rm_ext, const void* alpha, const float* du, float* dv,
-        int B, int T, int R, int E, int w, float temp, void* stream) {
+        void* scratch, int B, int T, int R, int E, int w, float temp,
+        void* stream) {
   if (R < 1 || R > 32 || E < 4 || E % 4 != 0 || E > kMaxThreads || w < 1 ||
-      B < 0 || B > 65535 || T < 0 || (kResidual && alpha == nullptr))
+      w > 16 || B < 0 || B > 65535 || T < 1 || T > 65535 || scratch == nullptr ||
+      (kResidual && alpha == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const size_t smem = smem_bytes(R, E);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return v_is_bf16
-      ? dispatch<__nv_bfloat16, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, B, T, R, E, w, temp, smem, s)
-      : dispatch<float, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, B, T, R, E, w, temp, smem, s);
+      ? run_typed<__nv_bfloat16, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, scratch, B, T, R, E, w, temp, s)
+      : run_typed<float, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, scratch, B, T, R, E, w, temp, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Both launch on `stream` and return the cudaError_t of the launch (0 = ok).
-// v_ext is float* when v_is_bf16 == 0, __nv_bfloat16* otherwise, and alpha
-// (K1br only) has v_ext's type; rm_ext may be null; du is f32 [B, T, R, E];
-// dv is written whole, f32 [B, T+2w, R, E]. All tensors are contiguous and
-// v_ext, du and dv 16-byte aligned. Limits as the forward's.
+// Elements of v_ext's type that the scratch of one call must hold.
+size_t nafae_ctx_mix_bwd_scratch(int B, int T, int R, int E, int w,
+                                 int v_is_bf16) {
+  return scratch_elems(B, T, R, E, w, v_is_bf16 != 0);
+}
+
+// Both launch the two kernels on `stream` and return the cudaError_t of the
+// launches (0 = ok). v_ext is float* when v_is_bf16 == 0, __nv_bfloat16*
+// otherwise, and alpha (K1br only) has v_ext's type; rm_ext may be null; du
+// is f32 [B, T, R, E]; dv is written whole, f32 [B, T+2w, R, E]. scratch
+// holds nafae_ctx_mix_bwd_scratch(...) elements of v_ext's type, 16-byte
+// aligned. All tensors are contiguous and v_ext, du and dv 16-byte aligned.
+// Limits as the forward's, and w <= 16.
 
 // K1b: alpha recomputed from the scores.
 int nafae_ctx_mix_bwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
-                      const float* rm_ext, const float* du, float* dv, int B,
-                      int T, int R, int E, int w, float temp, void* stream) {
-  return run<false>(v_ext, v_is_bf16, fm_ext, rm_ext, nullptr, du, dv, B, T,
-                    R, E, w, temp, stream);
+                      const float* rm_ext, const float* du, float* dv,
+                      void* scratch, int B, int T, int R, int E, int w,
+                      float temp, void* stream) {
+  return run<false>(v_ext, v_is_bf16, fm_ext, rm_ext, nullptr, du, dv,
+                    scratch, B, T, R, E, w, temp, stream);
 }
 
 // K1br: alpha read from the forward's residual [B, T, 2w, R, R].
 int nafae_ctx_mix_bwd_res(const void* v_ext, int v_is_bf16,
                           const float* fm_ext, const float* rm_ext,
                           const void* alpha, const float* du, float* dv,
-                          int B, int T, int R, int E, int w, float temp,
-                          void* stream) {
-  return run<true>(v_ext, v_is_bf16, fm_ext, rm_ext, alpha, du, dv, B, T, R,
-                   E, w, temp, stream);
+                          void* scratch, int B, int T, int R, int E, int w,
+                          float temp, void* stream) {
+  return run<true>(v_ext, v_is_bf16, fm_ext, rm_ext, alpha, du, dv, scratch,
+                   B, T, R, E, w, temp, stream);
 }
 
 }  // extern "C"

@@ -38,6 +38,7 @@ from nafae_torch.ops.kernels import check_tensor as _check
 NEG = -1e9            # masked-logit fill, as in the reference softmax
 MAX_R = 32            # the kernels keep one register accumulator per region
 MAX_E = 512           # one thread per 4 embedding columns, 512 threads a block
+MAX_WINDOW = 16       # the backward keeps a frame's 2w offsets in a list
 
 # Route of the gradient, as fused_ctx.py routes it: with ALPHA_RESIDUAL the
 # forward stores alpha [B,T,2w,R,R] (compute dtype) and the backward reads
@@ -136,12 +137,14 @@ def _lib() -> ctypes.CDLL:
 def _lib_bwd() -> ctypes.CDLL:
     lib = _build.load("ctx_mix_bwd")
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.nafae_ctx_mix_bwd.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, i, i,
-                                      f, vp]
+    lib.nafae_ctx_mix_bwd.argtypes = [vp, i, vp, vp, vp, vp, vp, i, i, i,
+                                      i, i, f, vp]
     lib.nafae_ctx_mix_bwd.restype = i
-    lib.nafae_ctx_mix_bwd_res.argtypes = [vp, i, vp, vp, vp, vp, vp, i, i, i,
-                                          i, i, f, vp]
+    lib.nafae_ctx_mix_bwd_res.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, i,
+                                          i, i, i, i, f, vp]
     lib.nafae_ctx_mix_bwd_res.restype = i
+    lib.nafae_ctx_mix_bwd_scratch.argtypes = [i, i, i, i, i, i]
+    lib.nafae_ctx_mix_bwd_scratch.restype = ctypes.c_size_t
     return lib
 
 
@@ -153,9 +156,9 @@ def _check_inputs(v_ext, fm_ext, window, rm_ext) -> tuple[int, int, int, int]:
     t = t_ext - 2 * window
     if v_ext.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"v_ext must be float32 or bfloat16, got {v_ext.dtype}")
-    if window < 1 or t < 1:
-        raise ValueError(f"need window >= 1 and T >= 1; got window={window}, "
-                         f"T+2w={t_ext}")
+    if not 1 <= window <= MAX_WINDOW or t < 1:
+        raise ValueError(f"need 1 <= window <= {MAX_WINDOW} and T >= 1; got "
+                         f"window={window}, T+2w={t_ext}")
     if not 1 <= r <= MAX_R:
         raise ValueError(f"ctx_mix kernel takes 1 <= R <= {MAX_R}, got R={r}")
     if e % 4 or not 4 <= e <= MAX_E:
@@ -207,7 +210,10 @@ def launch_bwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
                alpha: torch.Tensor | None = None) -> torch.Tensor:
     """K1b (alpha None: recomputed) or K1br (alpha from launch_fwd's
     residual) alone on CUDA tensors: du [B,T,R,E] f32 -> dv_ext
-    [B,T+2w,R,E] f32, halo frames included, on the current stream."""
+    [B,T+2w,R,E] f32, halo frames included, on the current stream. One
+    call runs the source's two kernels (pairs, then gather) through a
+    scratch in v_ext's dtype: ds [B,T,2w,R,R], alpha, then f32's ds
+    transposed or bf16's du_n."""
     b, t, r, e = _check_inputs(v_ext, fm_ext, window, rm_ext)
     dev = v_ext.device
     _check("du", du, (b, t, r, e), torch.float32, dev, vector=True)
@@ -215,10 +221,12 @@ def launch_bwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
         _check("alpha", alpha, (b, t, 2 * window, r, r), v_ext.dtype, dev)
     lib = _lib_bwd()
     dv = torch.empty(v_ext.shape, dtype=torch.float32, device=dev)
-    common = (fm_ext.data_ptr(), _ptr(rm_ext))
-    tail = (du.data_ptr(), dv.data_ptr(), b, t, r, e, window, float(temp),
-            torch.cuda.current_stream(dev).cuda_stream)
     is_bf16 = int(v_ext.dtype == torch.bfloat16)
+    scratch = torch.empty(lib.nafae_ctx_mix_bwd_scratch(
+        b, t, r, e, window, is_bf16), dtype=v_ext.dtype, device=dev)
+    common = (fm_ext.data_ptr(), _ptr(rm_ext))
+    tail = (du.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, t, r, e,
+            window, float(temp), torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
         if alpha is None:
             err = lib.nafae_ctx_mix_bwd(v_ext.data_ptr(), is_bf16, *common,

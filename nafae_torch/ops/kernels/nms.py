@@ -8,18 +8,20 @@ as `ops/nms.py` exactly: first-index ties, (idx, valid = max > -1e9), the
 winner and every box with IoU > thresh killed, an exhausted row emitting
 (idx 0, valid 0).
 
-On this card the TPU's row-parallel VPU loop becomes one block per row: the
-row's masked scores sit in shared memory, each of the num_keep steps is a
-block-wide (max, first index) reduction and a pass over the live boxes'
-coordinates, re-read from device memory (a row of 24,000 boxes is 480 KB in
-five planes, more than one SM's shared memory). There is no VMEM budget:
-the TPU's ValueError above N ~ 100k becomes the kernel's own limit,
-N < 2^31; a row longer than `nafae_nms_smem_boxes()` keeps its masked
-scores in a scratch row in device memory.
+On this card the TPU's row-parallel VPU loop becomes one block per row
+that walks the boxes in (score descending, index ascending) order in tiers
+of at most `TIER_BOXES`: it selects a tier from the scores' order-preserving
+keys (kept in registers) with a few block-wide counts, gathers only the
+tier's coordinates, and runs the rounds on them; a tier whose candidates
+all die early continues the walk in the next one, exactly. The source says
+why this gives the reference's survivors and what bounds it. There is no
+VMEM budget: the TPU's ValueError above N ~ 100k becomes the kernel's own
+limit, N < 2^31.
 
 `nms_planes` sends CPU tensors to the plain version (`ops/nms.nms_planes`);
 on CUDA tensors it launches the kernel or raises. `launches` counts
-launches.
+launches; `launch(..., tiers=t)` also reports how many tiers each row took
+(rows past the first are the walk's continuation).
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ from nafae_torch.ops.kernels import _build
 from nafae_torch.ops.kernels import check_tensor as _check
 
 launches = {"nms": 0}
+TIER_BOXES = 1024     # the kernel's largest tier (nafae_nms_tier_boxes)
 
 
 @functools.cache
@@ -43,17 +46,21 @@ def _lib() -> ctypes.CDLL:
     lib.nafae_nms.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i,
                               ctypes.c_float, vp]
     lib.nafae_nms.restype = i
-    lib.nafae_nms_smem_boxes.argtypes = []
-    lib.nafae_nms_smem_boxes.restype = i
+    lib.nafae_nms_tier_boxes.argtypes = []
+    lib.nafae_nms_tier_boxes.restype = i
+    if lib.nafae_nms_tier_boxes() != TIER_BOXES:
+        raise RuntimeError("csrc/nms.cu's tier differs from TIER_BOXES")
     return lib
 
 
 def launch(x1: torch.Tensor, y1: torch.Tensor, x2: torch.Tensor,
            y2: torch.Tensor, scores: torch.Tensor, num_keep: int,
-           iou_thresh: float = 0.7) -> tuple[torch.Tensor, torch.Tensor]:
+           iou_thresh: float = 0.7, tiers: torch.Tensor | None = None
+           ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel alone on CUDA tensors: checks what it takes, allocates
-    idx [B,num_keep] int32 and valid [B,num_keep] f32 (and a [B,N] scratch
-    for rows too long for shared memory), launches on the current stream."""
+    idx [B,num_keep] int32 and valid [B,num_keep] f32, launches on the
+    current stream. tiers: an int32 [B] tensor on the same device that
+    receives the number of tiers each row took, or None."""
     if scores.dim() != 2:
         raise ValueError(f"scores must be [B,N], got {tuple(scores.shape)}")
     b, n = scores.shape
@@ -66,17 +73,16 @@ def launch(x1: torch.Tensor, y1: torch.Tensor, x2: torch.Tensor,
     for name, x in (("x1", x1), ("y1", y1), ("x2", x2), ("y2", y2),
                     ("scores", scores)):
         _check(name, x, (b, n), torch.float32, dev)
+    if tiers is not None:
+        _check("tiers", tiers, (b,), torch.int32, dev)
     lib = _lib()
     idx = torch.empty((b, num_keep), dtype=torch.int32, device=dev)
     valid = torch.empty((b, num_keep), dtype=torch.float32, device=dev)
-    scratch = (torch.empty((b, n), dtype=torch.float32, device=dev)
-               if n > lib.nafae_nms_smem_boxes() else None)
     with torch.cuda.device(dev):
         err = lib.nafae_nms(
             x1.data_ptr(), y1.data_ptr(), x2.data_ptr(), y2.data_ptr(),
-            scores.data_ptr(),
-            scratch.data_ptr() if scratch is not None else None,
-            idx.data_ptr(), valid.data_ptr(), b, n, num_keep,
+            scores.data_ptr(), idx.data_ptr(), valid.data_ptr(),
+            tiers.data_ptr() if tiers is not None else None, b, n, num_keep,
             float(iou_thresh), torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"nms kernel launch failed: cudaError_t {err}")

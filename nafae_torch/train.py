@@ -22,15 +22,21 @@ K4f/K4b) for the context and cluster losses. With `data.from_videos=true`
 Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
 Not ported yet, and raising NotImplementedError: the device-resident
 dataset (`train.device_cache`), detector checkpoints (`detector.weights`),
-meshes and data parallelism, k-means++ seeding (`loss.kmeans_init=
-plusplus`), word-vector initialisation (`model.word_vectors`) and the grain
-pipeline. `train.steps_per_call` groups steps into one XLA program in the
-JAX package; PyTorch runs eagerly, so the port ignores it.
+k-means++ seeding (`loss.kmeans_init=plusplus`), word-vector initialisation
+(`model.word_vectors`), the grain pipeline and the TensorBoard mirror
+(`train.tensorboard_dir`). Meshes and data parallelism are not ported
+either: the reference builds a mesh only under its CLI's `--mesh` or
+`--multihost`, which this CLI does not accept, so `mesh.*` alone trains on
+one device in both. Periodic evaluation (`train.eval_every`) waits for the
+port's eval slice; the CLI says so on stderr. `train.steps_per_call` groups
+steps into one XLA program in the JAX package; PyTorch runs eagerly, so the
+port ignores it.
 """
 
 from __future__ import annotations
 
 import math
+import sys
 import time
 from dataclasses import dataclass, replace
 
@@ -118,7 +124,8 @@ def _check_supported(cfg: Config) -> None:
             and bool(cfg.detector.weights),
             "model.word_vectors": bool(cfg.model.word_vectors),
             "loss.kmeans_init=plusplus": cfg.loss.kmeans_init == "plusplus",
-            "data.pipeline=grain": cfg.data.pipeline == "grain"}
+            "data.pipeline=grain": cfg.data.pipeline == "grain",
+            "train.tensorboard_dir": bool(cfg.train.tensorboard_dir)}
     on = [k for k, v in todo.items() if v]
     if on:
         raise NotImplementedError(
@@ -497,6 +504,11 @@ def main(argv=None) -> None:
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
     cfg = load_config(args.config, args.preset, args.override or [])
+    if 0 < cfg.train.eval_every <= cfg.train.steps:
+        print(f"nafae_torch.train: train.eval_every={cfg.train.eval_every} "
+              "is not acted on: periodic evaluation waits for the port's "
+              "eval slice; training runs without it", file=sys.stderr,
+              flush=True)
 
     def log_fn(m):
         print(" ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"

@@ -7,7 +7,10 @@ ALPHA_RESIDUAL` flipped to reach both of its cores (the residual route
 K1fr/K1br and the recompute route K1f/K1b, as tests/test_pallas.py does),
 and against `context_mix(impl="offset")`, on the same numpy inputs: ragged
 frame masks, T=7 (not a multiple of the TPU's tile), a window at least as
-long as the clip, and a valid frame whose regions are all masked. Limits:
+long as the clip, a valid frame whose regions are all masked, and the
+edges of the CUDA backward: E = 4 and 12 (within one 64-column slice, not
+a multiple of 8), R = 1 and 32, and a video whose valid frames have no
+valid region (ds = 0 for every pair into them). Limits:
 f32 rtol 1e-5 / atol 1e-6 for u and dv; bf16 2e-2 (the JAX package's
 bf16 tolerance: the TPU kernels round u and dv to bf16, the port keeps
 them in f32). Against the TPU kernel in bf16, dv's atol is 2e-2 of its
@@ -35,10 +38,19 @@ CASES = {                       # B, T, R, E, w, the TPU tile of the residual
     "ragged": (3, 8, 5, 16, 2, 4),
     "T7": (2, 7, 6, 16, 2, 7),
     "window_ge_T": (2, 2, 4, 8, 3, 2),
+    # the edges of the CUDA backward (64-column slices, R padded to 32)
+    "E4": (2, 6, 5, 4, 2, 6),
+    "E12": (2, 6, 5, 12, 3, 6),
+    "R1": (2, 6, 1, 8, 2, 6),
+    "R32": (2, 4, 32, 8, 2, 4),
+    "no_valid_region": (3, 6, 5, 16, 2, 6),
 }
+# cases whose video 1 has valid frames with no valid region at all: every
+# pair into them is a uniform-fallback group, whose ds is 0
+MASKED_VIDEO = {"no_valid_region"}
 
 
-def _inputs(b, t, r, e, w, seed=0):
+def _inputs(b, t, r, e, w, seed=0, masked_video=False):
     rng = np.random.RandomState(seed)
     v = rng.randn(b, t, r, e).astype(np.float32)
     v /= np.linalg.norm(v, axis=-1, keepdims=True)
@@ -46,6 +58,9 @@ def _inputs(b, t, r, e, w, seed=0):
     fm[0, :2] = 1.0
     rm = (rng.rand(b, t, r) > 0.4).astype(np.float32)
     rm[0, 1, :] = 0.0                 # a valid frame with no valid region
+    if masked_video:
+        fm[1, :3] = 1.0
+        rm[1] = 0.0                   # ... and a video of them
     return (np.pad(v, ((0, 0), (w, w), (0, 0), (0, 0))),
             np.pad(fm, ((0, 0), (w, w))),
             np.pad(rm, ((0, 0), (w, w), (0, 0))))
@@ -68,7 +83,8 @@ def _port(v_ext, fm_ext, rm_ext, w, dtype):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_grad_matches_the_tpu_kernel(case, route, dtype, monkeypatch):
     b, t, r, e, w, tile = CASES[case]
-    v_ext, fm_ext, rm_ext = _inputs(b, t, r, e, w, seed=len(case))
+    v_ext, fm_ext, rm_ext = _inputs(b, t, r, e, w, seed=len(case),
+                                    masked_video=case in MASKED_VIDEO)
     jdt = None if dtype == "float32" else jnp.bfloat16
     tdt = None if dtype == "float32" else torch.bfloat16
     monkeypatch.setattr(FC, "ALPHA_RESIDUAL", route == "residual")
@@ -91,7 +107,8 @@ def test_grad_matches_the_tpu_kernel(case, route, dtype, monkeypatch):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_grad_matches_the_offset_form(case, dtype):
     b, t, r, e, w, _ = CASES[case]
-    v_ext, fm_ext, rm_ext = _inputs(b, t, r, e, w, seed=len(case) + 1)
+    v_ext, fm_ext, rm_ext = _inputs(b, t, r, e, w, seed=len(case) + 1,
+                                    masked_video=case in MASKED_VIDEO)
     jdt = None if dtype == "float32" else jnp.bfloat16
     tdt = None if dtype == "float32" else torch.bfloat16
 
@@ -144,7 +161,8 @@ def test_kernel_grads_match_plain_on_gpu(cuda_device, dtype, residual,
     the plain version on the same card: u within the forward's limits, dv
     within rtol 1e-4 / atol 1e-5 in f32 and 2e-2 in bf16 (the kernels
     round du_n, alpha and ds to bf16 where the TPU kernels do, the plain
-    autograd at its casts)."""
+    autograd at its casts; du is seeded, so the bf16 case is the same on
+    every run)."""
     monkeypatch.setattr(K, "ALPHA_RESIDUAL", residual)
     tdt = None if dtype == "float32" else torch.bfloat16
     utol = (dict(rtol=1e-4, atol=1e-5) if dtype == "float32"
@@ -153,13 +171,15 @@ def test_kernel_grads_match_plain_on_gpu(cuda_device, dtype, residual,
             else dict(rtol=2e-2, atol=2e-2))
     for case in sorted(CASES):
         b, t, r, e, w, _ = CASES[case]
-        v_ext, fm_ext, rm_ext = (torch.from_numpy(a).to(cuda_device)
-                                 for a in _inputs(b, t, r, e, w))
+        v_ext, fm_ext, rm_ext = (
+            torch.from_numpy(a).to(cuda_device)
+            for a in _inputs(b, t, r, e, w, masked_video=case in MASKED_VIDEO))
         vk = v_ext.clone().requires_grad_()
         before = dict(K.launches)
         u, _ = K.ctx_mix(vk, fm_ext, w, 0.1, dtype=tdt, rm_ext=rm_ext)
         assert u.grad_fn is not None
-        du = torch.randn_like(u)
+        du = torch.randn(u.shape, generator=torch.Generator().manual_seed(0)
+                         ).to(cuda_device)
         (g,) = torch.autograd.grad(u, vk, du)
         torch.cuda.synchronize()
         fwd, bwd = (("ctx_mix_fwd_res", "ctx_mix_bwd_res") if residual

@@ -1,6 +1,6 @@
-"""The port stands alone: nafae_torch and chip_smoke.py import neither JAX
-nor the JAX package, and entry points need a CUDA device unless the caller
-asks for the CPU."""
+"""The port stands alone: nafae_torch, chip_smoke.py and kernel_ab.py import
+neither JAX nor the JAX package, and entry points need a CUDA device unless
+the caller asks for the CPU."""
 
 import ast
 import pathlib
@@ -15,7 +15,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nafae_tpu")
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  [*(ROOT / "nafae_torch").rglob("*.py"),
-                  ROOT / "chip_smoke.py"])
+                  ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"])
 
 
 def test_import_leaves_jax_out():

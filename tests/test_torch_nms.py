@@ -6,9 +6,12 @@ mode, as tests/test_pallas.py runs it), on the same numpy boxes.
 Held exactly: valid equal, and idx equal where valid (and 0 where not),
 on random rows, ties of equal score, duplicate boxes, zero-area boxes, rows
 with fewer survivors than num_keep, and boxes placed at IoU just above and
-just below the threshold. The CUDA kernel runs only on a GPU: the `cuda`
-test skips here, and chip_smoke.py holds it against the plain version on
-the card.
+just below the threshold; and at the edges of the kernel's tiered walk
+(`TIER_BOXES` candidates a tier): more copies of the top box than a tier
+holds, equal scores straddling a tier's last candidate, rows that exhaust
+beside boxes at or below -1e9, and a row shorter than a tier. The CUDA
+kernel runs only on a GPU: the `cuda` test skips here, and chip_smoke.py
+holds it against the plain version on the card.
 """
 
 import jax.numpy as jnp
@@ -77,6 +80,53 @@ def _threshold():
     return boxes, scores
 
 
+def _over_tier_duplicates(rng):
+    """More copies of the top box than a tier holds: the first winner kills
+    the whole first tier, and the walk goes on in the next."""
+    n = K.TIER_BOXES + 476
+    boxes, scores = _random(rng, 2, n, size=300.0)
+    copies = K.TIER_BOXES + 76
+    at = rng.permutation(n)[:copies]
+    boxes[:, at] = boxes[:, at[:1]]
+    scores[:, at] = 2.0
+    return boxes, scores
+
+
+def _ties_at_tier_cut(rng):
+    """More boxes share the top score than a tier holds, so the kernel cuts
+    its tier inside the tie, by index: 100 more than a tier, copies of 10
+    boxes spread over the row, then the rest below them."""
+    n = 3 * K.TIER_BOXES
+    boxes, scores = _random(rng, 2, n, size=300.0)
+    tied = rng.permutation(n)[:K.TIER_BOXES + 100]
+    boxes[:, tied] = boxes[:, tied[rng.randint(0, 10, size=tied.size)]]
+    scores[:, tied] = 1.5
+    return boxes, scores
+
+
+def _exhausted_low(rng):
+    """Rows that run out of boxes above -1e9 beside boxes at -1e9, below
+    it and at -inf (box 0 always dies or reads -1e9, so the slot of the
+    first invalid step holds index 0)."""
+    boxes, scores = _random(rng, 3, 40)
+    scores[0, 5:] = -1e9
+    scores[1] = -2e9
+    scores[1, 0] = -1e9
+    scores[2, 1::2] = -np.inf
+    scores[2, 2::4] = -3e9
+    return boxes, scores
+
+
+def _short_row(rng):
+    """N below a tier: 400 boxes in 5 tight clusters, so the row exhausts
+    after its first tier."""
+    centres = rng.rand(5, 2).astype(np.float32) * 500
+    pick = rng.randint(0, 5, size=(2, 400))
+    xy = centres[pick] + rng.rand(2, 400, 2).astype(np.float32)
+    boxes = np.concatenate([xy, xy + 60], -1).astype(np.float32)
+    return boxes, rng.rand(2, 400).astype(np.float32)
+
+
 CASES = {
     "random": lambda rng: _random(rng, 4, 200),
     "ties": _ties,
@@ -84,6 +134,10 @@ CASES = {
     "zero_area": _zero_area,
     "few_survivors": _few_survivors,
     "threshold": lambda rng: _threshold(),
+    "over_tier_duplicates": _over_tier_duplicates,
+    "ties_at_tier_cut": _ties_at_tier_cut,
+    "exhausted_low": _exhausted_low,
+    "short_row": _short_row,
 }
 
 
@@ -166,19 +220,49 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def _odd_scores(rng):
+    """Scores the JAX functions disagree on among themselves, held only
+    against the plain version: NaN (dead from the start, as -inf), -0 tied
+    with +0, and an exhausted row whose first invalid slot is not 0: box 2,
+    scored below -1e9, reads -1e9 once winner 11's IoU kills it."""
+    boxes, scores = _random(rng, 3, 50)
+    scores[0, ::3] = np.nan
+    scores[1, ::2] = 0.0
+    scores[1, 1::4] = -0.0
+    scores[2] = -5e9
+    scores[2, 7] = -1e9
+    scores[2, 11:14] = 0.5
+    boxes[2, 2] = boxes[2, 11]
+    return boxes, scores
+
+
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_gpu(cuda_device):
-    """Every case above, and a row of 60,000 boxes (past the kernel's
-    shared-memory rows): survivors equal, one launch a call."""
+    """Every case above, NaN and signed-zero scores, a row of 60,000 boxes
+    (past the keys a block keeps in registers) and one of 30,000 with ties
+    across a tier's cut: survivors equal, one launch a call; the over-tier
+    rows take more than one tier."""
     rng = np.random.RandomState(5)
-    cases = [CASES[c](rng) for c in sorted(CASES)]
-    cases.append(_random(rng, 2, 60_000, size=600.0))
-    for boxes, scores in cases:
+    cases = {c: CASES[c](rng) for c in sorted(CASES)}
+    cases["odd_scores"] = _odd_scores(rng)
+    cases["60000"] = _random(rng, 2, 60_000, size=600.0)
+    boxes, scores = _random(rng, 1, 30_000, size=600.0)
+    tied = rng.permutation(30_000)[:K.TIER_BOXES + 76]
+    boxes[:, tied] = boxes[:, tied[rng.randint(0, 10, size=tied.size)]]
+    scores[:, tied] = 1.5
+    cases["long_ties_at_tier_cut"] = boxes, scores
+    for name, (boxes, scores) in cases.items():
         b = torch.from_numpy(boxes).to(cuda_device)
         s = torch.from_numpy(scores).to(cuda_device)
         before = K.launches["nms"]
-        got = K.nms_boxes(b, s, 20, 0.7)
+        tiers = torch.zeros(s.shape[0], dtype=torch.int32, device=cuda_device)
+        got = K.launch(*(b[..., c].contiguous() for c in range(4)), s, 20,
+                       0.7, tiers=tiers)
         torch.cuda.synchronize()
         assert K.launches["nms"] == before + 1
         want = P.batched_nms(b, s, 20, 0.7)
-        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), \
+            name
+        if name in ("over_tier_duplicates", "ties_at_tier_cut",
+                    "long_ties_at_tier_cut"):
+            assert (tiers > 1).all(), (name, tiers)

@@ -193,6 +193,31 @@ def test_cli_trains_on_the_cpu(synth_root, tmp_path, capsys):
         ["state_2.pt"]
 
 
+def test_tensorboard_dir_raises(synth_root, tmp_path):
+    """The TensorBoard mirror is not ported: asking for it raises before
+    any step, instead of training without the event files."""
+    _, tc = _cfgs(synth_root, "config4", [f"train.ckpt_dir={tmp_path}/ck",
+                                          f"train.tensorboard_dir={tmp_path}"
+                                          "/tb", "train.steps=1"])
+    with pytest.raises(NotImplementedError, match="tensorboard_dir"):
+        TT.fit(tc, device="cpu")
+    assert not (tmp_path / "ck").exists()
+
+
+def test_cli_warns_that_eval_every_waits(synth_root, tmp_path, capsys):
+    """With eval_every within the run, the CLI says once on stderr that
+    periodic evaluation waits for the eval slice, and trains all the
+    same; with eval_every past the run it says nothing."""
+    args = ["--preset", "config4", "--device", "cpu", "--override", *OV,
+            f"data.root={synth_root}", "train.steps=1", "train.log_every=1"]
+    TT.main(args + [f"train.ckpt_dir={tmp_path}/a", "train.eval_every=1"])
+    out, err = capsys.readouterr()
+    assert err.count("eval_every=1 is not acted on") == 1
+    assert "step=1" in out
+    TT.main(args + [f"train.ckpt_dir={tmp_path}/b"])   # OV: 1,000,000
+    assert "eval_every" not in capsys.readouterr().err
+
+
 def test_loader_gives_the_jax_packages_batches(synth_root):
     """SegmentDataset + BatchLoader of the port yield the JAX package's
     batches, in the same seeded order, with frame buckets too."""
