@@ -1,23 +1,31 @@
-"""Times this tree's greedy NMS (K2, csrc/nms.cu) and context-mix backward
-(K1br and K1b, csrc/ctx_mix_bwd.cu) against other versions of the same
-sources, on one card, in one process, on the main path's own inputs:
+"""Times this tree's context mix (K1f and K1fr, csrc/ctx_mix.cu; K1br and
+K1b, csrc/ctx_mix_bwd.cu) and greedy NMS (K2, csrc/nms.cu) against other
+versions of the same sources, on one card, in one process, on the main
+path's own inputs:
 
-- K1br / K1b: the first config-4 training batch (B=16, T=20, R=20, E=256,
-  w=3), v_ext in f32 and in bf16, du from a seed;
+- K1f: the first config-4 serving batch (B=16, T=20, R=20, E=256, w=3,
+  planted-signal oracle weights, chip_smoke.timings' inputs), v_ext in f32
+  and in bf16;
+- K1fr / K1br / K1b: the first config-4 training batch, v_ext in f32 and in
+  bf16, du from a seed;
 - K2: the first config-5 batch's detector planes (320 rows x 24,000
   anchors, num_keep 20), from the f32 and from the bf16 detector.
 
     python3 kernel_ab.py DIR [DIR ...]
 
-Each DIR holds another version's nms.cu and ctx_mix_bwd.cu (with the
-ctx_mix_common.cuh it includes), for example `git archive <commit>
-nafae_torch/csrc` unpacked under the git-ignored build/. Both C interfaces
-are taken: the tiered one of this tree and the earlier one (a scratch row
-for long NMS rows, a backward without a scratch). Every version is first
-held to this tree's output (K2 exactly, K1 within chip_smoke.GRAD_TOL of
-its rounding), then timed with CUDA graphs (chip_smoke.device_ms) in the
-order others, tree, tree, others reversed. Prints one JSON object as its
-last line and writes it to build/kernel_ab.json.
+Each DIR holds another version's ctx_mix.cu, ctx_mix_bwd.cu and nms.cu
+(with the ctx_mix_common.cuh they include), for example `git archive
+<commit> nafae_torch/csrc` unpacked under the git-ignored build/. Each C
+interface in use since the first port is taken (a forward whose alpha is
+null for K1f, or one that always takes alpha and refuses a null one; a backward with or without a
+scratch; NMS with or without tiers). Every version is first held to this
+tree's output (K1f/K1fr within chip_smoke.CTX_TOL and ALPHA_TOL, K1b/K1br
+within GRAD_TOL, K2 exactly), then timed with CUDA graphs
+(chip_smoke.device_ms) in the order others, tree, tree, others reversed.
+Then one f32 serving batch is timed host to host (numpy in, numpy out)
+with each version's K1f swapped into the server, beside the batch's copy
+to the card alone, in interleaved rounds (serving_host_ab). Prints one JSON object as its last line and writes it to
+build/kernel_ab.json.
 """
 
 import ctypes
@@ -28,21 +36,26 @@ import sys
 import tempfile
 from pathlib import Path
 
+import numpy as np
+
 import chip_smoke as CS
 
 ROOT = Path(__file__).resolve().parent
 
 
+SOURCES = ("ctx_mix", "ctx_mix_bwd", "nms")
+
+
 def build(dirs: list[Path]) -> dict[str, dict]:
-    """nvcc of each DIR's nms.cu and ctx_mix_bwd.cu into build/kernel_ab/,
-    all at once; {DIR name: {source name: loaded library}}."""
+    """nvcc of each DIR's SOURCES into build/kernel_ab/, all at once;
+    {DIR name: {source name: loaded library}}."""
     from nafae_torch.ops.kernels import _build
 
     procs = {}
     for d in dirs:
         out = ROOT / "build" / "kernel_ab" / d.name
         out.mkdir(parents=True, exist_ok=True)
-        for n in ("nms", "ctx_mix_bwd"):
+        for n in SOURCES:
             procs[d.name, n] = (out / f"lib{n}.so", subprocess.Popen(
                 [_build._nvcc(), *_build.NVCC_FLAGS, "-o",
                  str(out / f"lib{n}.so"), str(d / f"{n}.cu")],
@@ -58,9 +71,16 @@ def build(dirs: list[Path]) -> dict[str, dict]:
 
 def bind(torch, libs: dict):
     """(nms(x1, y1, x2, y2, sc) -> (idx, valid), bwd(v, fm, rm, du, w,
-    temp, alpha) -> dv) for one version's libraries, either interface."""
+    temp, alpha) -> dv, fwd(v, fm, rm, w, temp, residual) -> (u, alpha or
+    None)) for one version's libraries, any interface."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    ln, lb = libs["nms"], libs["ctx_mix_bwd"]
+    ln, lb, lf = libs["nms"], libs["ctx_mix_bwd"], libs["ctx_mix"]
+    lf.nafae_ctx_mix_fwd.argtypes = [vp, i, vp, vp, vp, vp] + [i] * 5 + [f, vp]
+    lf.nafae_ctx_mix_fwd.restype = i
+    # a forward that always takes alpha refuses a null one, before any
+    # launch (B = 0 launches nothing in either interface)
+    alpha_always = lf.nafae_ctx_mix_fwd(None, 0, None, None, None, None,
+                                        0, 1, 1, 4, 1, 1.0, None) != 0
     tiered = hasattr(ln, "nafae_nms_tier_boxes")
     ln.nafae_nms.argtypes = [vp] * 8 + [i, i, i, f, vp]
     ln.nafae_nms.restype = i
@@ -116,7 +136,112 @@ def bind(torch, libs: dict):
             CS.fail(f"ctx_mix_bwd launch failed: {err}")
         return dv
 
-    return nms, bwd
+    def fwd(v, fm, rm, w, temp, residual=False):
+        b, te, r, e = v.shape
+        t = te - 2 * w
+        u = torch.empty(b, t, r, e, device=v.device)
+        alpha = (torch.empty(b, t, 2 * w, r, r, dtype=v.dtype, device=v.device)
+                 if residual or alpha_always else None)
+        err = lf.nafae_ctx_mix_fwd(
+            v.data_ptr(), int(v.dtype == torch.bfloat16), fm.data_ptr(),
+            rm.data_ptr() if rm is not None else None, u.data_ptr(),
+            alpha.data_ptr() if alpha is not None else None, b, t, r, e, w,
+            temp, stream())
+        if err:
+            CS.fail(f"ctx_mix launch failed: {err}")
+        return u, alpha if residual else None
+
+    return nms, bwd, fwd
+
+
+def serving_batch(torch, srv, batch: dict):
+    """(v_ext, fm_ext, rm_ext, w, temp) of the first config-4 serving batch
+    in f32, as chip_smoke.timings builds it (oracle weights)."""
+    from nafae_torch.ops import grounding as TG
+
+    tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    w = srv.model.ctx_window
+    with torch.inference_mode():
+        v_emb = TG.project_params(dict(srv.model.params.items()), tb["feats"])
+        v_ext, fm_ext, rm_ext = TG.extend_for_window(
+            v_emb, tb["frame_mask"], tb["region_mask"], w)
+    return v_ext.clone(), fm_ext.clone(), rm_ext.clone(), w, \
+        srv.model.ctx_temp
+
+
+def serving_host_ab(torch, others: dict, tree, srv, batch: dict,
+                    rounds: int = 60) -> dict:
+    """One f32 serving batch host to host (GroundingServer.run_batch: numpy
+    batch in, numpy outputs out, as chip_smoke.timings times it) with K1f
+    from each version, swapped in for this tree's launch_fwd; "tree" is
+    this tree unchanged, "tree_bound" this tree's library through the same
+    wrapper as the others; "copy" the batch's copy to the card alone. Each
+    round calls every one once, in an order reversed every other round, so
+    a drift of the host's speed falls on all alike; 5 rounds warm up.
+    {name: [25th percentile, median, 75th percentile] ms over the rounds}."""
+    import time
+
+    from nafae_torch.ops.kernels import ctx_mix as K1
+
+    real = K1.launch_fwd
+
+    def with_fwd(of):
+        def run():
+            K1.launch_fwd = (lambda v, fm, w, temp, rm, residual=False:
+                             of(v, fm, rm, w, temp, residual))
+            try:
+                srv.run_batch(batch)
+            finally:
+                K1.launch_fwd = real
+        return run
+
+    def copy():
+        t = {k: torch.from_numpy(v).to("cuda", non_blocking=True)
+             for k, v in batch.items()}
+        torch.cuda.synchronize()
+        return t
+
+    fns = {"copy": copy, **{n: with_fwd(f[2]) for n, f in others.items()},
+           "tree_bound": with_fwd(tree[2]),
+           "tree": lambda: srv.run_batch(batch)}
+    ms = {n: [] for n in fns}
+    for i in range(rounds + 5):
+        for n in (list(fns) if i % 2 else list(fns)[::-1]):
+            t0 = time.perf_counter()
+            fns[n]()
+            if i >= 5:
+                ms[n].append((time.perf_counter() - t0) * 1e3)
+    return {n: np.percentile(v, [25, 50, 75]).tolist() for n, v in ms.items()}
+
+
+def compare_fwd(torch, others, v, fm, rm, w, temp, residual, case) -> dict:
+    """K1f (or K1fr) of this tree against the other versions on one input:
+    u within CTX_TOL (f32: also whether bitwise equal) and alpha within
+    ALPHA_TOL, then the a_b times and this tree's time by kernel."""
+    from nafae_torch.ops.kernels import ctx_mix as K1
+
+    dt = "bfloat16" if v.dtype == torch.bfloat16 else "float32"
+    fns = {"tree": lambda: K1.launch_fwd(v, fm, w, temp, rm,
+                                         residual=residual)}
+    want_u, want_a = fns["tree"]()
+    equal = {}
+    for name, (_, _, of) in others.items():
+        fns[name] = lambda of=of: of(v, fm, rm, w, temp, residual)
+        got_u, got_a = fns[name]()
+        if not torch.allclose(got_u, want_u, rtol=CS.CTX_TOL[dt][0],
+                              atol=CS.CTX_TOL[dt][1]):
+            CS.fail(f"{case}: {name}'s u differs from this tree's")
+        if residual and not torch.allclose(
+                got_a.float(), want_a.float(), rtol=CS.ALPHA_TOL[dt][0],
+                atol=CS.ALPHA_TOL[dt][1]):
+            CS.fail(f"{case}: {name}'s alpha differs from this tree's")
+        equal[name] = bool(torch.equal(got_u, want_u) and (
+            not residual or torch.equal(got_a, want_a)))
+    entry = {"ms": a_b(torch, fns), "bitwise_equal_to_tree": equal,
+             "by_kernel_us": CS.profile_forward(torch, fns["tree"],
+                                                reps=20)[0]}
+    CS.log(f"{case}: {entry}")
+    return entry
 
 
 def a_b(torch, fns: dict) -> dict:
@@ -135,8 +260,10 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         CS.fail("kernel_ab.py needs a CUDA card")
+    from nafae_torch.config import load_config
     from nafae_torch.ops import grounding as TG
     from nafae_torch.ops.kernels import _build, ctx_mix as K1, nms as K2
+    from nafae_torch.serve import GroundingServer
     from nafae_torch.train import TrainState, batch_to_device
 
     dirs = [Path(d) for d in sys.argv[1:]]
@@ -145,6 +272,13 @@ def main() -> None:
     others = {name: bind(torch, libs) for name, libs in build(dirs).items()}
     res = {"card": CS.card_line()}
     with tempfile.TemporaryDirectory() as tmp:
+        segs, _ = CS.make_requests(tmp)
+        srv = GroundingServer(load_config(preset_name="config4"),
+                              CS.oracle_params(), device="cuda")
+        samples = [srv._pad_segment(s) for s in segs[:srv.batch_size]]
+        batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+        fwd_inputs = [("K1f", "serving", *serving_batch(torch, srv, batch),
+                       False)]
         CS.make_train_data(tmp)
         cfg = CS.train_cfg(tmp, os.path.join(tmp, "ck"), "float32", 1000)
         tb = batch_to_device(CS.first_batch(tmp), torch.device("cuda"))
@@ -158,6 +292,16 @@ def main() -> None:
         b, te, r, e = v32.shape
         du = torch.randn(b, te - 2 * w, r, e,
                          generator=torch.Generator().manual_seed(7)).cuda()
+        fwd_inputs.append(("K1fr", "training", v32, fm, rm, w, temp, True))
+        for kname, which, v32_, fm_, rm_, w_, temp_, residual in fwd_inputs:
+            for tag, v in (("f32", v32_), ("bf16", v32_.to(torch.bfloat16))):
+                res[f"{kname}_{tag}"] = compare_fwd(
+                    torch, others, v, fm_, rm_, w_, temp_, residual,
+                    f"{kname} {tag}, the first {which} batch")
+        tree = bind(torch, {n: _build.load(n) for n in SOURCES})
+        res["serving_batch_host_ms"] = serving_host_ab(torch, others, tree,
+                                                       srv, batch)
+        CS.log(f"serving batch host to host: {res['serving_batch_host_ms']}")
         for tag, v in (("f32", v32), ("bf16", v32.to(torch.bfloat16))):
             _, alpha = K1.launch_fwd(v, fm, w, temp, rm, residual=True)
             tol = CS.GRAD_TOL["float32" if tag == "f32" else "bfloat16"]
@@ -165,7 +309,7 @@ def main() -> None:
                 fns = {"tree": lambda a=a, v=v: K1.launch_bwd(v, fm, w, temp,
                                                                rm, du, a)}
                 want = fns["tree"]()
-                for name, (_, ob) in others.items():
+                for name, (_, ob, _) in others.items():
                     fns[name] = (lambda ob=ob, a=a, v=v:
                                  ob(v, fm, rm, du, w, temp, a))
                     got = fns[name]()
@@ -192,7 +336,7 @@ def main() -> None:
             wi, wv = K2.launch(*planes, sc, 20, 0.7, tiers=tiers)
             fns = {"tree": lambda pl=planes, sc=sc: K2.launch(*pl, sc, 20,
                                                               0.7)}
-            for name, (on, _) in others.items():
+            for name, (on, _, _) in others.items():
                 fns[name] = lambda on=on, pl=planes, sc=sc: on(*pl, sc)
                 gi, gv = fns[name]()
                 if not (torch.equal(gi, wi) and torch.equal(gv, wv)):

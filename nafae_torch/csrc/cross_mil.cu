@@ -242,15 +242,6 @@ cross_mil_f32(const float* __restrict__ w,    // [M, E]
   }
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&x)[4],
-                                         uint32_t y0, uint32_t y1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(y0), "r"(y1));
-}
-
 __global__ void __launch_bounds__(kThreadsH)
 cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
                const __nv_bfloat16* __restrict__ v,   // [I, T, R, E]

@@ -17,34 +17,48 @@
 // is rounded to bf16 before the mix, as the reference's bf16 mode does
 // (preferred_element_type=f32 with bf16 operands). u is always f32.
 //
-// K1fr: with a non-null `alpha` the kernel also stores alpha (softmax * nv_o,
-// in the input dtype, exactly the values the mix used) as [B, T, 2w, R, R],
-// zeros for offsets whose nv_o is 0 and for invalid centre frames. This is
-// the port's own compact layout, not the TPU's tile-padded slab: 3.1 MB at
-// config4 in f32, one extra write of ~1 us at 3.35 TB/s.
+// Design: two kernels, one call, with alpha [B, T, 2w, R, R] in v's dtype
+// as the hand-off between them. K1fr keeps that alpha as the backward's
+// residual (zeros for offsets whose nv_o is 0 and for invalid centre
+// frames); K1f passes a scratch of the same shape (3.1 MB at config4 in
+// f32, written once and read back from L2).
 //
-// Design: one block per (video, centre frame), looping over the 2w offsets.
-// The centre frame [R, E] and, in turn, each valid neighbour frame are
-// staged in shared memory as f32 (rows padded to E+4 floats, so float4 reads
-// of distinct rows fall in distinct banks); vector loads need v_ext 16-byte
-// aligned. Scores: groups of 8 lanes compute 4 x 4 (r, s) tiles, splitting E
-// and summing by shuffles. Softmax: 8 lanes per row, all rows at once. Mix:
-// each thread owns 4 embedding columns of a quarter of the rows and keeps
-// those accumulators in registers across the offsets. Shared memory does not
-// grow with T, so long clips need no special path. Offsets whose nv_o is 0,
-// and invalid centre frames, are skipped: their contribution is exactly 0.
+//   pairs  one block per (centre frame t, offset o = 1..w, video b) stages
+//          v[t] and v[t+o] by cp.async and computes their R x R products
+//          once for both directions of the pair (f32: CUDA cores, groups of
+//          8 lanes on 4 x 4 tiles; bf16: mma.sync m16n8k16 with R padded to
+//          32): alpha of (t, +o) is the masked softmax of its rows, alpha of
+//          (t+o, -o) that of its columns. 960 independent blocks at config4.
+//   mix    one block per (centre frame t, video b) walks t's valid offsets
+//          in order; each step's neighbour frame (cp.async) and alpha
+//          (through registers) land in a ring of three shared-memory slots
+//          two steps ahead of the sums. f32: 4 groups of rows x E/4 column
+//          quads, each thread's accumulators in registers; bf16: one warp
+//          per 64 columns, alpha (already rounded to bf16 by the pairs
+//          kernel, so no extra rounding enters) times the frame on
+//          mma.sync. Then u = sums / max(cnt, 1). It is launched as a
+//          programmatic dependent of the pairs kernel: its blocks start,
+//          read the masks and copy their first frames while the pairs
+//          kernel's last blocks run, and wait for the pairs grid before the
+//          first read of alpha.
+//
+// f32 runs in full f32 (no TF32: the port holds f32 to the reference's
+// HIGHEST precision), and sums in the order of the earlier one-block-per-
+// frame design, so its f32 u and alpha are bit for bit that design's. No
+// atomics: every output element is summed by one thread in a fixed order,
+// so the f32 u is the same on every run. Shared memory does not grow with T.
 //
 // Bound on an H100 SXM (config4 serving shapes B=16, T=20, R=20, E=256,
 // w=3, f32, every frame valid): it reads 8.5 MB of v_ext and writes 6.6 MB
 // of u (~4.5 us at 3.35 TB/s) and does 4*R*R*E flops per (b, t, o):
 // 0.79 GFLOP (~12 us at 67 TFLOP/s f32 on CUDA cores). So it is bound by
-// operations; f32 parity keeps it off the tensor cores (TF32 keeps ~3
-// digits). With bf16 input it reads 4.3 MB of v_ext and writes the same
+// operations. With bf16 input it reads 4.3 MB of v_ext and writes the same
 // 6.6 MB of u (~3.2 us), and the same flops on bf16 tensor cores at ~989
-// TFLOP/s take ~0.8 us: bound by bytes, at ~3.2 us. This version is far from that bound: each block walks the
-// offsets in sequence (stage, scores, softmax, mix, four barriers each) with
-// 2 blocks per SM (128 registers a thread), so latency, not the FMA units,
-// sets its time. PERF.md has its measured times.
+// TFLOP/s take ~0.8 us: bound by bytes. This design adds alpha's round trip
+// and copies each frame into shared memory 2w times for the pairs and 2w
+// times for the mix (~80 MB from L2 at config4 in f32, every frame valid);
+// those copies and the f32 products' shared-memory reads (8 16-byte loads
+// for 64 FMAs) are what hold it. PERF.md has its measured times.
 
 #include "ctx_mix_common.cuh"
 
@@ -52,177 +66,554 @@ namespace {
 
 using namespace nafae_ctx;
 
-// RB: R rounded up to a multiple of 8 (4 row groups of RB/4 rows each).
-template <typename Tin, int RB>
-__global__ void __launch_bounds__(kMaxThreads)
-ctx_mix_fwd_kernel(const Tin* __restrict__ v_ext,   // [B, T+2w, R, E]
-                   const float* __restrict__ fm_ext,  // [B, T+2w]
-                   const float* __restrict__ rm_ext,  // [B, T+2w, R] or null
-                   float* __restrict__ u,             // [B, T, R, E]
-                   Tin* __restrict__ alpha,           // [B, T, 2w, R, R] or null
-                   int T, int R, int E, int w, float temp) {
+// Programmatic dependent launch (Hopper): the mix kernel is launched while
+// the pairs kernel still runs, so its blocks start, read the masks and copy
+// their first frames as the pairs kernel's blocks retire; before its first
+// read of alpha it waits for the pairs grid to complete (a no-op in a
+// launch without the attribute). Each pairs block lets the dependent grid
+// launch once it has started.
+__device__ __forceinline__ void wait_for_pairs() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void let_mix_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// A frame's rows [0, rows) and columns [0, cols) into shared rows of stride
+// ld (zero beyond R and E), by cp.async: 16-byte copies, or for bf16 rows
+// that are not 16-byte aligned (E % 8 != 0) 8-byte copies.
+template <typename Tin>
+__device__ __forceinline__ void stage_frame_async(Tin* dst, const Tin* src,
+                                                  int rows, int R, int E,
+                                                  int k0, int cols, int ld) {
+  if (sizeof(Tin) == 4 || E % 8 == 0)
+    stage_tile_async<(int)(16 / sizeof(Tin))>(dst, src, rows, R, E, k0, cols,
+                                              ld);
+  else
+    stage_tile_async<4>(dst, src, rows, R, E, k0, cols, ld);
+}
+
+// Shared memory of a pairs block: the two staged frames (f32: R rows of
+// E + 4; bf16: 32 rows of E padded to 16, + 8, zero beyond R and E), the
+// scores of both directions [2][32][32] and the two region masks [2][32].
+template <typename Tin>
+__host__ __device__ inline int pairs_frame_bytes(int R, int E) {
+  constexpr bool kBf16 = sizeof(Tin) == 2;
+  const int ld = kBf16 ? ((E + 15) & ~15) + 8 : E + 4;
+  return ((kBf16 ? 32 : R) * ld * (int)sizeof(Tin) + 15) / 16 * 16;
+}
+
+template <typename Tin>
+size_t pairs_smem(int R, int E) {
+  return 2 * (size_t)pairs_frame_bytes<Tin>(R, E) + (2 * 32 * 32 + 64) * 4;
+}
+
+// Pairs: block (centre t, offset o = 1 + blockIdx.y, video b) takes frames
+// c = t + w and n = c + o. Their products G[r][s] = v_c[r] . v_n[s] serve
+// both directions: alpha of (t, +o), the softmax of G's rows over s, and
+// alpha of (t + o, -o), the softmax of its columns over r (the same dots:
+// fmaf is symmetric in its factors, so the f32 scores are those a block of
+// (t + o, -o) would sum). The block also zeroes alpha of (t, -o) when t - o
+// is a halo frame, so that every slot of alpha is written.
+template <typename Tin>
+__global__ void __launch_bounds__(kPairThreads)
+ctx_mix_fwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
+                  const float* __restrict__ fm_ext,  // [B, T+2w]
+                  const float* __restrict__ rm_ext,  // [B, T+2w, R] or null
+                  Tin* __restrict__ alpha,           // [B, T, 2w, R, R]
+                  int T, int R, int E, int w, float temp) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr bool kBf16 = sizeof(Tin) == 2;
+  const int ep = (E + 15) & ~15;
+  const int ld = kBf16 ? ep + 8 : E + 4;
+  const int rows = kBf16 ? 32 : R;               // staged rows (zero past R)
+  const int cols = kBf16 ? ep : E;               // staged columns (zero past E)
+  const int fb = pairs_frame_bytes<Tin>(R, E);
+  Tin* C = reinterpret_cast<Tin*>(smem_raw);             // v_c
+  Tin* N = reinterpret_cast<Tin*>(smem_raw + fb);        // v_n
+  float* S = reinterpret_cast<float*>(smem_raw + 2 * fb);  // [r][s] of (t, +o)
+  float* S2 = S + 32 * 32;                       // [s][r] of (t + o, -o)
+  float* live_n = S2 + 32 * 32;                  // region masks of n and c
+  float* live_c = live_n + 32;
+
+  let_mix_launch();
+  const int t = blockIdx.x;
+  const int o = 1 + blockIdx.y;
+  const int b = blockIdx.z;
+  const int t_ext = T + 2 * w;
+  const int c = t + w;                           // extended frames
+  const int n = c + o;
+  const size_t frame = (size_t)R * E;
+  const int rr = R * R;
+  const size_t pairs_t = 2 * (size_t)w * rr;     // alpha of one centre frame
+  Tin* a_fw = alpha + ((size_t)b * T + t) * pairs_t + (size_t)(o + w - 1) * rr;
+  Tin* a_bw = t + o < T
+      ? alpha + ((size_t)b * T + t + o) * pairs_t + (size_t)(w - o) * rr
+      : nullptr;
+  if (t - o < 0) {                               // (t, -o) reaches a halo frame
+    Tin* a_h = alpha + ((size_t)b * T + t) * pairs_t + (size_t)(w - o) * rr;
+    for (int i = threadIdx.x; i < rr; i += blockDim.x) store_as(a_h + i, 0.f);
+  }
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const float nv = fm[n] * fm[c];                // the same both ways
+  if (nv == 0.f) {                               // dead pair: alpha is zero
+    for (int i = threadIdx.x; i < rr; i += blockDim.x) {
+      store_as(a_fw + i, 0.f);
+      if (a_bw) store_as(a_bw + i, 0.f);
+    }
+    return;
+  }
+
+  const Tin* vb = v_ext + (size_t)b * t_ext * frame;
+  stage_frame_async(C, vb + (size_t)c * frame, rows, R, E, 0, cols, ld);
+  stage_frame_async(N, vb + (size_t)n * frame, rows, R, E, 0, cols, ld);
+  cp_async_commit();
+  if (threadIdx.x < 64) {
+    const int i = threadIdx.x & 31;
+    const int f = threadIdx.x < 32 ? n : c;
+    live_n[threadIdx.x] =
+        i >= R ? 0.f
+        : rm_ext ? rm_ext[((size_t)b * t_ext + f) * R + i] : 1.f;
+  }
+  cp_async_wait(0);
+  __syncthreads();
+
+  auto score = [&](int r, int s, float d, float) {
+    S[r * 32 + s] = live_n[s] > 0.f ? d / temp : kNeg;
+    S2[s * 32 + r] = live_c[r] > 0.f ? d / temp : kNeg;
+  };
+  if constexpr (kBf16)
+    pair_products_mma<false>(C, C, N, ep, ld, score);
+  else
+    pair_products<false>(C, C, N, R, E, ld, score);
+  __syncthreads();
+  // the values the mix multiplies by, in v's dtype
+  row_softmax(S, 32, R, [&](int r, int s, float p) {
+    store_as(a_fw + r * R + s, p * nv);
+  });
+  if (a_bw)
+    row_softmax(S2, 32, R, [&](int s, int r, float p) {
+      store_as(a_bw + s * R + r, p * nv);
+    });
+}
+
+// A mix block owns one centre frame t and walks its valid offsets in order
+// (steps j = 0, 1, ...), with the neighbour frame and alpha of each step in
+// one of kSlots ring slots of shared memory: step j + 2's frame is copied
+// (cp.async) and its alpha loaded (through registers) while step j sums, so
+// each copy has two steps to land.
+constexpr int kSlots = 3;
+constexpr int kMixMinThreads = 128;
+constexpr int kMatPer = 32 * 32 / kMixMinThreads;  // alpha entries a thread
+
+// The valid offsets of centre frame c as bits of a mask (bit i: offset index
+// i, block-uniform), and sum_o nv_o in offset order; none if c is not
+// valid. Lane i of each warp reads offset i's frame mask, so the 2w reads
+// are one round trip, not 2w.
+__device__ __forceinline__ unsigned live_offsets(float& cnt, const float* fm,
+                                                 int c, int w) {
+  const int lane = threadIdx.x & 31;
+  const float fm_c = fm[c];
+  const float nv = lane < 2 * w ? fm[c + offset_of(lane, w)] * fm_c : 0.f;
+  const unsigned mask = __ballot_sync(0xffffffffu, nv != 0.f);
+  cnt = 0.f;
+  for (int i = 0; i < 2 * w; ++i) cnt += __shfl_sync(0xffffffffu, nv, i);
+  return mask;
+}
+
+// The offset index of step j (the j-th set bit of mask), or -1.
+__device__ __forceinline__ int nth_offset(unsigned mask, int j) {
+  for (int i = 0; i < j && mask; ++i) mask &= mask - 1u;
+  return mask ? __ffs(mask) - 1 : -1;
+}
+
+// Row-major R x R alpha_o into registers (entries i = threadIdx.x + blockDim.x
+// e), then into shared memory at put(r, s); (r, s) advance without a
+// division.
+template <typename T>
+struct MatLoader {
+  T m[kMatPer];
+  int r_first, s_first, step_r, step_s;
+  __device__ __forceinline__ MatLoader(int R) {
+    r_first = threadIdx.x / R;
+    s_first = threadIdx.x - r_first * R;
+    step_r = blockDim.x / R;
+    step_s = blockDim.x - step_r * R;
+  }
+  __device__ __forceinline__ void load(const T* a, int rr) {
+#pragma unroll
+    for (int e = 0; e < kMatPer; ++e) {
+      const int i = threadIdx.x + blockDim.x * e;
+      if (i < rr) m[e] = a[i];
+    }
+  }
+  template <typename Put>
+  __device__ __forceinline__ void store(int R, Put put) const {
+    int r = r_first, s = s_first;
+#pragma unroll
+    for (int e = 0; e < kMatPer; ++e) {
+      if (r < R) put(r, s, m[e]);
+      r += step_r;
+      s += step_s;
+      if (s >= R) {
+        s -= R;
+        ++r;
+      }
+    }
+  }
+};
+
+// f32: u[t] from block t. Thread (h, q) owns columns 4q..4q+3 of rows
+// h*RH .. h*RH + RH - 1 (kRowGroups RH >= R), so each x it reads from a
+// staged frame feeds 4 RH FMAs; alpha_o sits transposed in its slot,
+// [s][h][RH4] (zero where r >= R), read as RH4 / 4 16-byte broadcasts a
+// source row s. Four row groups, not two: on the serving batch, where many
+// offsets are dead, the extra warps hide more latency than the extra
+// shared-memory reads of x cost; on the training batch two are faster
+// (PERF.md has the times of both).
+constexpr int kRowGroups = 4;
+
+template <int RH>
+__global__ void __launch_bounds__(512)
+ctx_mix_fwd_mix(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
+                const float* __restrict__ fm_ext,  // [B, T+2w]
+                const float* __restrict__ alpha,   // [B, T, 2w, R, R]
+                float* __restrict__ u,             // [B, T, R, E]
+                int T, int R, int E, int w) {
+  constexpr int RH4 = (RH + 3) & ~3;
   extern __shared__ __align__(16) float smem[];
   const int ld = E + 4;
-  float* vc = smem;             // [R][ld]  centre frame
-  float* vo = vc + R * ld;      // [R][ld]  neighbour frame
-  float* sc = vo + R * ld;      // [R][RB]  scores (row r, col s)
-  float* at = sc + R * RB;      // [R][RB]  alpha * nv transposed (row s, col r)
-  float* live = at + R * RB;    // [R]      region mask of the neighbour frame
+  const int frame_f = R * ld;                     // floats of a staged frame
+  const int mat_f = R * kRowGroups * RH4;         // floats of an alpha^T
+  const int slot_f = frame_f + mat_f;
 
   const int t = blockIdx.x;
   const int b = blockIdx.y;
   const int t_ext = T + 2 * w;
+  const int c = t + w;
   const size_t frame = (size_t)R * E;
-  const size_t rr = (size_t)R * R;
+  const int rr = R * R;
   const float* fm = fm_ext + (size_t)b * t_ext;
-  const Tin* vb = v_ext + (size_t)b * t_ext * frame;
-  float* ub = u + ((size_t)b * T + t) * frame;
-  Tin* ab = alpha ? alpha + ((size_t)b * T + t) * 2 * w * rr : nullptr;
+  const float* ab = alpha + ((size_t)b * T + t) * 2 * w * rr;
+  const int nq = blockDim.x / kRowGroups;         // column quads of a group
+  const int h = threadIdx.x / nq;
+  const int q = threadIdx.x - h * nq;
 
-  const float fm_c = fm[t + w];
-  if (fm_c == 0.f) {              // every nv_o is 0: the row is zero
-    for (int i = threadIdx.x; i < (int)frame; i += blockDim.x) ub[i] = 0.f;
-    if (ab)
-      for (int i = threadIdx.x; i < 2 * w * (int)rr; i += blockDim.x)
-        store_as(ab + i, 0.f);
-    return;
+  for (int i = threadIdx.x; i < kSlots * mat_f / 4; i += blockDim.x) {
+    const int k = i / (mat_f / 4);                // alpha^T rows r >= R
+    float4* zero = reinterpret_cast<float4*>(smem + k * slot_f + frame_f);
+    zero[i - k * (mat_f / 4)] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  stage_frame(vc, vb + (size_t)(t + w) * frame, R, E, ld);
-  // columns R..RB-1 of the transposed alpha stay zero: the mix reads them
-  for (int i = threadIdx.x; i < R * RB; i += blockDim.x) at[i] = 0.f;
+  float cnt;
+  const unsigned live = live_offsets(cnt, fm, c, w);
+  MatLoader<float> mat(R), mat1(R);
+  auto stage = [&](int j) {                       // step j's frame
+    const int oi = nth_offset(live, j);
+    if (oi >= 0)
+      stage_tile_async<4>(
+          smem + (j % kSlots) * slot_f,
+          v_ext + ((size_t)b * t_ext + c + offset_of(oi, w)) * frame, R, R, E,
+          0, E, ld);
+    cp_async_commit();                            // one group a step
+  };
+  auto load_mat = [&](int j, MatLoader<float>& m) {   // step j's alpha
+    const int oi = nth_offset(live, j);
+    if (oi >= 0) m.load(ab + (size_t)oi * rr, rr);
+  };
+  auto put_mat = [&](int j, const MatLoader<float>& m) {
+    if (nth_offset(live, j) < 0) return;
+    float* A = smem + (j % kSlots) * slot_f + frame_f;
+    m.store(R, [&](int r, int s, float x) {
+      A[s * kRowGroups * RH4 + (r / RH) * RH4 + r % RH] = x;
+    });
+  };
 
-  // the mix's thread layout: E/4 column groups x 4 row groups
-  constexpr int RPT = RB / 4;           // rows per thread
-  const int ncg = E >> 2;
-  const bool active = threadIdx.x < E;  // blockDim rounds E up to 32
-  const int cg = threadIdx.x % ncg;
-  const int rg = threadIdx.x / ncg;
-  float acc[RPT][4];
+  float acc[RH][4];
 #pragma unroll
-  for (int i = 0; i < RPT; ++i)
+  for (int i = 0; i < RH; ++i)
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-  float cnt = 0.f;
-
-  for (int oi = 0; oi < 2 * w; ++oi) {
-    const int tf = t + (oi < w ? oi : oi + 1);   // extended neighbour frame
-    const float nv = fm[tf] * fm_c;
-    cnt += nv;
-    if (nv == 0.f) {              // block-uniform
-      if (ab)
-        for (int i = threadIdx.x; i < (int)rr; i += blockDim.x)
-          store_as(ab + oi * rr + i, 0.f);
-      continue;
-    }
-    __syncthreads();              // the previous offset's readers are done
-    stage_frame(vo, vb + (size_t)tf * frame, R, E, ld);
-    if (threadIdx.x < R)
-      live[threadIdx.x] =
-          rm_ext ? rm_ext[((size_t)b * t_ext + tf) * R + threadIdx.x] : 1.f;
-    __syncthreads();
-
-    tile_products(vc, vo, R, E, ld, [&](int r, int s, float d) {
-      sc[r * RB + s] = live[s] > 0.f ? d / temp : kNeg;
-    });
-    __syncthreads();
-
-    row_softmax(sc, RB, R, [&](int r, int s, float p) {
-      at[s * RB + r] = as_operand(p * nv, v_ext);
-    });
-    __syncthreads();
-
-    if (ab)                       // K1fr: the residual, row-major (r, s)
-      for (int i = threadIdx.x; i < (int)rr; i += blockDim.x) {
-        const int r = i / R;
-        store_as(ab + oi * rr + i, at[(i - r * R) * RB + r]);
-      }
-
-    // Mix: thread (cg, rg) owns columns 4cg..4cg+3 and rows rg*RB/4 ..
-    // (rg+1)*RB/4 - 1. A warp shares rg, so its alpha reads are broadcasts
-    // and its neighbour-row reads are 512 contiguous bytes.
-    if (active) {
+  __syncthreads();               // the zeroed slots
+  stage(0);                      // v does not depend on the pairs kernel
+  stage(1);
+  wait_for_pairs();              // alpha does
+  load_mat(0, mat);              // both steps' loads in flight at once
+  load_mat(1, mat1);
+  put_mat(0, mat);
+  put_mat(1, mat1);
+  const int steps = __popc(live);
+  for (int j = 0; j < steps; ++j) {
+    cp_async_wait(1);            // step j's group; j + 1's may be in flight
+    __syncthreads();             // ... for every thread; step j - 1 is read
+    stage(j + 2);                // into the slot of step j - 1
+    load_mat(j + 2, mat);
+    const float* X = smem + (j % kSlots) * slot_f;
+    const float* A = X + frame_f + h * RH4;
+    if (4 * q < E) {
+#pragma unroll 2
       for (int s = 0; s < R; ++s) {
-        const float4 x = reinterpret_cast<const float4*>(vo + s * ld)[cg];
-        const float* ap = at + s * RB + rg * RPT;
+        const float4 x = reinterpret_cast<const float4*>(X + s * ld)[q];
+        float a[RH4];
 #pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float a = ap[i];
-          acc[i][0] = fmaf(a, x.x, acc[i][0]);
-          acc[i][1] = fmaf(a, x.y, acc[i][1]);
-          acc[i][2] = fmaf(a, x.z, acc[i][2]);
-          acc[i][3] = fmaf(a, x.w, acc[i][3]);
+        for (int i = 0; i < RH4; i += 4) {
+          const float4 a4 =
+              reinterpret_cast<const float4*>(A + s * kRowGroups * RH4 + i)[0];
+          a[i] = a4.x; a[i + 1] = a4.y; a[i + 2] = a4.z; a[i + 3] = a4.w;
+        }
+#pragma unroll
+        for (int i = 0; i < RH; ++i) {
+          acc[i][0] = fmaf(a[i], x.x, acc[i][0]);
+          acc[i][1] = fmaf(a[i], x.y, acc[i][1]);
+          acc[i][2] = fmaf(a[i], x.z, acc[i][2]);
+          acc[i][3] = fmaf(a[i], x.w, acc[i][3]);
         }
       }
     }
+    put_mat(j + 2, mat);
   }
 
-  if (active) {
+  if (4 * q < E) {
     const float den = fmaxf(cnt, 1.f);
+    float* ub = u + ((size_t)b * T + t) * frame;
 #pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      const int r = rg * RPT + i;
+    for (int i = 0; i < RH; ++i) {
+      const int r = h * RH + i;
       if (r < R)
-        reinterpret_cast<float4*>(ub + (size_t)r * E)[cg] = make_float4(
+        *reinterpret_cast<float4*>(ub + (size_t)r * E + 4 * q) = make_float4(
             acc[i][0] / den, acc[i][1] / den, acc[i][2] / den, acc[i][3] / den);
     }
   }
 }
 
-template <typename Tin, int RB>
-int launch(const void* v_ext, const float* fm_ext, const float* rm_ext,
-           float* u, void* alpha, int B, int T, int R, int E, int w,
-           float temp, size_t smem, cudaStream_t stream) {
-  auto kern = ctx_mix_fwd_kernel<Tin, RB>;
+// Threads and dynamic shared memory of the f32 mix: kRowGroups groups of
+// max(64, E/4 rounded up to 32) column quads.
+int mix_threads_f32(int E) {
+  return kRowGroups * max(64, ((E / 4 + 31) / 32) * 32);
+}
+size_t mix_smem_f32(int R, int E, int rh) {
+  const int rh4 = (rh + 3) & ~3;
+  return (size_t)kSlots * (R * (E + 4) + R * kRowGroups * rh4) * 4;
+}
+
+// bf16 (tensor cores): u[t] from block t, one warp per 64 columns (at least
+// four warps): each step one product alpha_o (32 x 32, R padded with
+// zeros) times the neighbour frame's 64 columns (32 x 64), mma.sync
+// m16n8k16 with f32 accumulators; the B fragments come from the staged
+// row-major frame through ldmatrix.trans.
+__global__ void __launch_bounds__(256)
+ctx_mix_fwd_mix_mma(const __nv_bfloat16* __restrict__ v_ext,
+                    const float* __restrict__ fm_ext,
+                    const __nv_bfloat16* __restrict__ alpha,  // [B,T,2w,R,R]
+                    float* __restrict__ u, int T, int R, int E, int w) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  const int cols = (E + kSlice - 1) / kSlice * kSlice;
+  const int ld = cols + 8;                        // 16-byte rows, skewed
+  const int frame_h = 32 * ld;                    // bf16 of a staged frame
+  const int slot_h = frame_h + 32 * kMatLd;
+
+  const int t = blockIdx.x;
+  const int b = blockIdx.y;
+  const int t_ext = T + 2 * w;
+  const int c = t + w;
+  const size_t frame = (size_t)R * E;
+  const int rr = R * R;
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const __nv_bfloat16* ab = alpha + ((size_t)b * T + t) * 2 * w * rr;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g4 = lane >> 2, tig = lane & 3;
+  const int col0 = warp * kSlice;                 // this warp's columns
+  const int mt = R > 16 ? 2 : 1;                  // m16 tiles of rows r
+  const int ks = R > 16 ? 2 : 1;                  // k16 steps of rows s
+
+  // zero once: each slot's frame rows R..31 (the copies write rows < R)
+  // and alpha beyond R, 16 bytes a store
+  const int zero_h = (32 - R) * ld + 32 * kMatLd;
+  for (int i = threadIdx.x; i < kSlots * zero_h / 8; i += blockDim.x) {
+    const int k = i / (zero_h / 8);
+    reinterpret_cast<uint4*>(smem + k * slot_h + R * ld)[i - k * (zero_h / 8)] =
+        make_uint4(0u, 0u, 0u, 0u);
+  }
+  float cnt;
+  const unsigned live = live_offsets(cnt, fm, c, w);
+  MatLoader<__nv_bfloat16> mat(R), mat1(R);
+  auto stage = [&](int j) {
+    const int oi = nth_offset(live, j);
+    if (oi >= 0)
+      stage_frame_async(
+          smem + (j % kSlots) * slot_h,
+          v_ext + ((size_t)b * t_ext + c + offset_of(oi, w)) * frame, R, R, E,
+          0, cols, ld);
+    cp_async_commit();
+  };
+  auto load_mat = [&](int j, MatLoader<__nv_bfloat16>& m) {
+    const int oi = nth_offset(live, j);
+    if (oi >= 0) m.load(ab + (size_t)oi * rr, rr);
+  };
+  auto put_mat = [&](int j, const MatLoader<__nv_bfloat16>& m) {
+    if (nth_offset(live, j) < 0) return;
+    __nv_bfloat16* A = smem + (j % kSlots) * slot_h + frame_h;
+    m.store(R, [&](int r, int s, __nv_bfloat16 x) { A[r * kMatLd + s] = x; });
+  };
+
+  float acc[2][8][4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int z = 0; z < 4; ++z) acc[mi][ni][z] = 0.f;
+  __syncthreads();
+  stage(0);                      // v does not depend on the pairs kernel
+  stage(1);
+  wait_for_pairs();              // alpha does
+  load_mat(0, mat);              // both steps' loads in flight at once
+  load_mat(1, mat1);
+  put_mat(0, mat);
+  put_mat(1, mat1);
+  const int steps = __popc(live);
+  for (int j = 0; j < steps; ++j) {
+    cp_async_wait(1);
+    __syncthreads();
+    stage(j + 2);
+    load_mat(j + 2, mat);
+    const __nv_bfloat16* Y = smem + (j % kSlots) * slot_h;
+    const __nv_bfloat16* A = Y + frame_h;
+    if (col0 < E) {              // warp-uniform
+      for (int kk = 0; kk < ks; ++kk) {
+        uint32_t x[2][4];
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi)
+          if (mi < mt) frag_a(x[mi], A, kMatLd, mi * 16, kk * 16);
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+          uint32_t y[4];         // B fragments of two n8 tiles
+          frag_b2_trans(y, Y, ld, kk * 16, col0 + nt * 16);
+#pragma unroll
+          for (int mi = 0; mi < 2; ++mi) {
+            if (mi >= mt) continue;              // block-uniform
+            mma_bf16(acc[mi][2 * nt], x[mi], y[0], y[1]);
+            mma_bf16(acc[mi][2 * nt + 1], x[mi], y[2], y[3]);
+          }
+        }
+      }
+    }
+    put_mat(j + 2, mat);
+  }
+
+  const float den = fmaxf(cnt, 1.f);
+  float* ub = u + ((size_t)b * T + t) * frame;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 8; ++ni)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = mi * 16 + g4 + hh * 8;
+        const int col = col0 + ni * 8 + 2 * tig;
+        if (row < R && col < E)
+          *reinterpret_cast<float2*>(ub + (size_t)row * E + col) = make_float2(
+              acc[mi][ni][2 * hh] / den, acc[mi][ni][2 * hh + 1] / den);
+      }
+}
+
+int mix_threads_bf16(int E) {
+  return 32 * max(4, (E + kSlice - 1) / kSlice);
+}
+size_t mix_smem_bf16(int E) {
+  const int cols = (E + kSlice - 1) / kSlice * kSlice;
+  return (size_t)kSlots * (32 * (cols + 8) + 32 * kMatLd) * 2;
+}
+
+// Sets a kernel's dynamic shared memory limit and launches it; `after`: as
+// a programmatic dependent of the kernel launched before it on the stream.
+template <typename... KArgs, typename... Args>
+int launch_dyn(void (*kern)(KArgs...), dim3 grid, int threads, size_t smem,
+               cudaStream_t stream, bool after, Args... args) {
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = ((E + 31) / 32) * 32;
-  kern<<<dim3(T, B), threads, smem, stream>>>(
-      static_cast<const Tin*>(v_ext), fm_ext, rm_ext, u,
-      static_cast<Tin*>(alpha), T, R, E, w, temp);
-  return (int)cudaGetLastError();
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = after ? &attr : nullptr;
+  cfg.numAttrs = after ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, kern, static_cast<KArgs>(args)...);
 }
 
-template <typename Tin>
-int dispatch(const void* v_ext, const float* fm_ext, const float* rm_ext,
-             float* u, void* alpha, int B, int T, int R, int E, int w,
-             float temp, size_t smem, cudaStream_t stream) {
-  switch ((R + 7) / 8) {
-    case 1: return launch<Tin, 8>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, stream);
-    case 2: return launch<Tin, 16>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, stream);
-    case 3: return launch<Tin, 24>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, stream);
-    default: return launch<Tin, 32>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, stream);
+template <int RH>
+int launch_mix(const float* v_ext, const float* fm_ext, const float* alpha,
+               float* u, int B, int T, int R, int E, int w,
+               cudaStream_t stream) {
+  return launch_dyn(ctx_mix_fwd_mix<RH>, dim3(T, B), mix_threads_f32(E),
+                    mix_smem_f32(R, E, RH), stream, true, v_ext, fm_ext,
+                    alpha, u, T, R, E, w);
+}
+
+int launch_mix_f32(const float* v, const float* fm_ext, const float* a,
+                   float* u, int B, int T, int R, int E, int w,
+                   cudaStream_t stream) {
+  switch ((R + 3) / 4) {         // RH = rows of a group
+    case 1: return launch_mix<1>(v, fm_ext, a, u, B, T, R, E, w, stream);
+    case 2: return launch_mix<2>(v, fm_ext, a, u, B, T, R, E, w, stream);
+    case 3: return launch_mix<3>(v, fm_ext, a, u, B, T, R, E, w, stream);
+    case 4: return launch_mix<4>(v, fm_ext, a, u, B, T, R, E, w, stream);
+    case 5: return launch_mix<5>(v, fm_ext, a, u, B, T, R, E, w, stream);
+    case 6: return launch_mix<6>(v, fm_ext, a, u, B, T, R, E, w, stream);
+    case 7: return launch_mix<7>(v, fm_ext, a, u, B, T, R, E, w, stream);
+    default: return launch_mix<8>(v, fm_ext, a, u, B, T, R, E, w, stream);
   }
 }
 
-// Dynamic shared memory of one block, in bytes: at most 140,416 B (R = 32,
-// E = 512), within the 227 KB a Hopper block can opt into.
-size_t smem_bytes(int R, int E) {
-  const int rb = ((R + 7) / 8) * 8;
-  return (size_t)(2 * R * (E + 4) + 2 * R * rb + R) * sizeof(float);
+template <typename Tin>
+int run(const void* v_ext, const float* fm_ext, const float* rm_ext,
+        float* u, void* alpha, int B, int T, int R, int E, int w, float temp,
+        cudaStream_t stream) {
+  const size_t smem = pairs_smem<Tin>(R, E);
+  const int err = launch_dyn(
+      ctx_mix_fwd_pairs<Tin>, dim3(T, w, B), kPairThreads, smem, stream,
+      false, static_cast<const Tin*>(v_ext), fm_ext, rm_ext,
+      static_cast<Tin*>(alpha), T, R, E, w, temp);
+  if (err != 0) return err;
+  if constexpr (sizeof(Tin) == 2) {
+    return launch_dyn(ctx_mix_fwd_mix_mma, dim3(T, B), mix_threads_bf16(E),
+                      mix_smem_bf16(E), stream, true,
+                      static_cast<const __nv_bfloat16*>(v_ext), fm_ext,
+                      static_cast<const __nv_bfloat16*>(alpha), u, T, R, E, w);
+  } else {
+    return launch_mix_f32(static_cast<const float*>(v_ext), fm_ext,
+                          static_cast<const float*>(alpha), u, B, T, R, E, w,
+                          stream);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// v_ext is float* when v_is_bf16 == 0, __nv_bfloat16* otherwise; rm_ext may
-// be null; alpha, of v_ext's type, is null for K1f and the [B, T, 2w, R, R]
-// residual for K1fr. All tensors are contiguous; v_ext is 16-byte aligned.
-// Limits: 1 <= R <= 32, E a multiple of 4 with 4 <= E <= 512, w >= 1,
-// B <= 65535.
+// Launches the two kernels on `stream` and returns the cudaError_t of the
+// launches (0 = ok). v_ext is float* when v_is_bf16 == 0, __nv_bfloat16*
+// otherwise; rm_ext may be null; alpha, of v_ext's type and shape
+// [B, T, 2w, R, R], is written whole: the residual for K1fr, a scratch for
+// K1f. All tensors are contiguous;
+// v_ext is 16-byte aligned. Limits: 1 <= R <= 32, E a multiple of 4 with
+// 4 <= E <= 512, 1 <= w <= 16, B <= 65535.
 int nafae_ctx_mix_fwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
                       const float* rm_ext, float* u, void* alpha, int B,
                       int T, int R, int E, int w, float temp, void* stream) {
   if (R < 1 || R > 32 || E < 4 || E % 4 != 0 || E > kMaxThreads || w < 1 ||
-      B < 0 || B > 65535 || T < 0)
+      w > 16 || B < 0 || B > 65535 || T < 0 || alpha == nullptr)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
-  const size_t smem = smem_bytes(R, E);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return v_is_bf16
-      ? dispatch<__nv_bfloat16>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, s)
-      : dispatch<float>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, smem, s);
+      ? run<__nv_bfloat16>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w,
+                           temp, s)
+      : run<float>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, s);
 }
 
 }  // extern "C"

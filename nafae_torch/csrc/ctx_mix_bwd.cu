@@ -70,148 +70,7 @@ namespace {
 
 using namespace nafae_ctx;
 
-constexpr int kPairThreads = 256;
-constexpr int kSlice = 64;                  // columns of dv a gather block owns
 constexpr int kGatherThreads = kSlice;      // 16 column groups x 4 row groups
-
-__device__ __forceinline__ int offset_of(int i, int w) {
-  return i < w ? i - w : i - w + 1;
-}
-
-// Four consecutive elements of a shared row as f32.
-__device__ __forceinline__ float4 lds4(const float* p, int q) {
-  return reinterpret_cast<const float4*>(p)[q];
-}
-__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p, int q) {
-  return load4(p, q);
-}
-
-// All R x R row dots U[r] . N[s] (and, with kScores, C[r] . N[s]) of staged
-// frames; epi(r, s, dot_u, dot_c) once for each r, s < R. Groups of 8 lanes
-// compute 4 x 4 (r, s) tiles, lane j taking 4-column groups j, j+8, ..., and
-// sum by shuffles: ctx_mix_common.cuh's tile_products, with the neighbour's
-// loads shared by the two products.
-template <bool kScores, typename Tin, typename Epi>
-__device__ __forceinline__ void pair_products(const Tin* __restrict__ U,
-                                              const Tin* __restrict__ C,
-                                              const Tin* __restrict__ N,
-                                              int R, int E, int ld, Epi epi) {
-  const int j = threadIdx.x & 7;
-  const int tiles_1d = (R + 3) >> 2;
-  const int n_tiles = tiles_1d * tiles_1d;
-  const int e4 = E >> 2;
-  for (int base = 0; base < n_tiles; base += blockDim.x >> 3) {
-    const int tile = base + (threadIdx.x >> 3);
-    const int r0 = (tile / tiles_1d) * 4;
-    const int s0 = (tile % tiles_1d) * 4;
-    float d[4][4], c[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k) d[i][k] = c[i][k] = 0.f;
-    if (tile < n_tiles) {         // uniform across the 8 lanes of a group
-      for (int q = j; q < e4; q += 8) {
-        float4 u[4], y[4], x[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          u[i] = lds4(U + min(r0 + i, R - 1) * ld, q);
-          y[i] = lds4(N + min(s0 + i, R - 1) * ld, q);
-          if (kScores) x[i] = lds4(C + min(r0 + i, R - 1) * ld, q);
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int k = 0; k < 4; ++k) {
-            d[i][k] = fmaf(u[i].x, y[k].x, d[i][k]);
-            d[i][k] = fmaf(u[i].y, y[k].y, d[i][k]);
-            d[i][k] = fmaf(u[i].z, y[k].z, d[i][k]);
-            d[i][k] = fmaf(u[i].w, y[k].w, d[i][k]);
-            if (kScores) {
-              c[i][k] = fmaf(x[i].x, y[k].x, c[i][k]);
-              c[i][k] = fmaf(x[i].y, y[k].y, c[i][k]);
-              c[i][k] = fmaf(x[i].z, y[k].z, c[i][k]);
-              c[i][k] = fmaf(x[i].w, y[k].w, c[i][k]);
-            }
-          }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int k = 0; k < 4; ++k)
-#pragma unroll
-        for (int m = 4; m > 0; m >>= 1) {
-          d[i][k] += __shfl_xor_sync(0xffffffffu, d[i][k], m);
-          if (kScores) c[i][k] += __shfl_xor_sync(0xffffffffu, c[i][k], m);
-        }
-    if (j == 0 && tile < n_tiles) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (r0 + i < R && s0 + k < R) epi(r0 + i, s0 + k, d[i][k], c[i][k]);
-    }
-  }
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&x)[4],
-                                         uint32_t y0, uint32_t y1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(y0), "r"(y1));
-}
-
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// The A fragment (16 x 16 at row m0, column k) of a row-major bf16 tile.
-__device__ __forceinline__ void frag_a(uint32_t (&x)[4],
-                                       const __nv_bfloat16* p, int ld,
-                                       int m0, int k) {
-  const int g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
-  const __nv_bfloat16* q = p + (m0 + g) * ld + k + 2 * tig;
-  x[0] = lds32(q);
-  x[1] = lds32(q + 8 * ld);
-  x[2] = lds32(q + 8);
-  x[3] = lds32(q + 8 * ld + 8);
-}
-
-// bf16 (tensor cores): G[r][s] = U[r] . N[s] and, with kScores, the masked
-// scores S[r][s] = C[r] . N[s] / temp (kNeg where region s of the neighbour
-// is masked), for r, s < 32 (rows and columns beyond R read zeros). Eight
-// warps, one m16 x n8 tile each of the 32 x 32 outputs; mma.sync m16n8k16
-// with f32 accumulators over the padded E.
-template <bool kScores>
-__device__ __forceinline__ void pair_products_mma(
-    const __nv_bfloat16* __restrict__ U, const __nv_bfloat16* __restrict__ C,
-    const __nv_bfloat16* __restrict__ N, int ep, int ld, float* G, float* S,
-    const float* live, float temp) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
-  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * 8;
-  float d[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
-  for (int k = 0; k < ep; k += 16) {
-    const __nv_bfloat16* q = N + (n0 + g) * ld + k + 2 * tig;
-    const uint32_t y0 = lds32(q), y1 = lds32(q + 8);
-    uint32_t x[4];
-    frag_a(x, U, ld, m0, k);
-    mma_bf16(d, x, y0, y1);
-    if (kScores) {
-      frag_a(x, C, ld, m0, k);
-      mma_bf16(c, x, y0, y1);
-    }
-  }
-#pragma unroll
-  for (int z = 0; z < 4; ++z) {
-    const int row = m0 + g + (z >> 1) * 8;
-    const int col = n0 + 2 * tig + (z & 1);
-    G[row * 32 + col] = d[z];
-    if (kScores) S[row * 32 + col] = live[col] > 0.f ? c[z] / temp : kNeg;
-  }
-}
 
 // Shared-memory layout of the pairs kernel, in bytes from the start.
 struct PairsSmem {
@@ -342,8 +201,14 @@ ctx_mix_bwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   cp_async_wait(0);
   __syncthreads();
 
-  if constexpr (kBf16)
-    pair_products_mma<kScores>(U, C, N, ep, ld, G, S, live, temp);
+  if constexpr (kBf16)          // du_n is scaled already; r, s < 32
+    pair_products_mma<kScores>(U, C, N, ep, ld,
+                               [&](int r, int s, float da, float sc) {
+                                 G[r * 32 + s] = da;
+                                 if (kScores)
+                                   S[r * 32 + s] =
+                                       live[s] > 0.f ? sc / temp : kNeg;
+                               });
   else
     pair_products<kScores>(U, C, N, R, E, ld,
                            [&](int r, int s, float da, float sc) {
@@ -559,9 +424,6 @@ ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
 // The slices and matrices of a neighbour arrive by cp.async one neighbour
 // ahead; ds_fg lands where the MMA reads it, the two transposed matrices
 // are built from their copies.
-constexpr int kMmaLd = kSlice + 8;              // 144-byte rows
-constexpr int kMatLd = 32 + 8;                  // 80-byte rows
-
 __global__ void __launch_bounds__(128)
 ctx_mix_bwd_gather_mma(const __nv_bfloat16* __restrict__ v_ext,
                        const float* __restrict__ fm_ext,
@@ -637,14 +499,7 @@ ctx_mix_bwd_gather_mma(const __nv_bfloat16* __restrict__ v_ext,
       for (int kk = 0; kk < ks; ++kk) {
         // B fragments of the two n8 tiles of this warp's 16 columns
         uint32_t y[4];
-        const __nv_bfloat16* p = bsrc + (kk * 16 + (lane & 15)) * kMmaLd +
-                                 warp * 16 + (lane >> 4) * 8;
-        const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0, %1, %2, %3}, [%4];\n"
-            : "=r"(y[0]), "=r"(y[1]), "=r"(y[2]), "=r"(y[3])
-            : "r"(addr));
+        frag_b2_trans(y, bsrc, kMmaLd, kk * 16, warp * 16);
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           if (mi >= mt) continue;                // block-uniform

@@ -4,11 +4,21 @@
 // roi_align.cu), for NVIDIA Hopper (sm_90a).
 //
 // Frames [R, E] are staged in shared memory as f32 rows of stride ld = E + 4
-// (float4 reads of distinct rows fall in distinct banks). Every helper is
+// (float4 reads of distinct rows fall in distinct banks), or, for the bf16
+// tensor-core products, as 32 bf16 rows of the padded E + 8. Every helper is
 // called by all threads of the block (blockDim.x a multiple of 32, at least
 // R): the shuffles below name the full warp.
+//
+// Both directions of the context mix split their work the same way: a pairs
+// kernel with one block per (video, frame pair) computes the R x R products
+// of the two frames (pair_products, or pair_products_mma in bf16) and the
+// masked softmax (row_softmax), and a second kernel with one block per frame
+// (the backward: and slice of kSlice columns) sums the pairs' matrices
+// times the neighbours' frames, streamed ahead of the sums.
 
 #pragma once
+
+#include <cstdint>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -18,6 +28,15 @@ namespace nafae_ctx {
 
 constexpr float kNeg = -1e9f;    // the reference's masked-logit fill (NEG)
 constexpr int kMaxThreads = 512;
+constexpr int kPairThreads = 256;   // a pairs block: 8 warps
+constexpr int kSlice = 64;          // columns of a per-frame block
+constexpr int kMmaLd = kSlice + 8;  // bf16 slice rows: 144 bytes
+constexpr int kMatLd = 32 + 8;      // bf16 R x R matrix rows: 80 bytes
+
+// Offset index i in [0, 2w) -> offset o in {-w..-1, 1..w}.
+__device__ __forceinline__ int offset_of(int i, int w) {
+  return i < w ? i - w : i - w + 1;
+}
 
 // x rounded to the compute dtype's precision, kept as f32 (identity for f32):
 // bf16 x bf16 products are exact in f32, so rounding the operands and
@@ -112,23 +131,44 @@ __device__ __forceinline__ void stage_tile_async(T* __restrict__ dst,
                                                  int k0, int kw, int ld) {
   constexpr int kBytes = kVec * (int)sizeof(T);
   const int per_row = kw / kVec;
-  for (int c = threadIdx.x; c < rows * per_row; c += blockDim.x) {
-    const int r = c / per_row;
-    const int k = (c - r * per_row) * kVec;
+  if (per_row <= 0) return;
+  // chunk c = threadIdx.x + i blockDim.x is (row r, chunk q of the row);
+  // both advance by a fixed step, with no division a chunk
+  const int step_r = blockDim.x / per_row;
+  const int step_q = blockDim.x - step_r * per_row;
+  int r = threadIdx.x / per_row;
+  int q = threadIdx.x - r * per_row;
+  for (; r < rows; r += step_r) {
+    const int k = q * kVec;
     const bool ok = r < live_rows && k0 + k < E;
     cp_async<kBytes>(dst + r * ld + k,
                      ok ? src + (size_t)r * E + k0 + k : src, ok ? kBytes : 0);
+    q += step_q;
+    if (q >= per_row) {
+      q -= per_row;
+      ++r;
+    }
   }
 }
 
-// All R x R row dots X[r] . Y[s] of two staged frames; epi(r, s, dot) is
-// called once for each r, s < R. Groups of 8 lanes compute 4 x 4 (r, s)
-// tiles: lane j takes float4 columns j, j+8, ... (the 8 lanes read 128
-// contiguous bytes, conflict-free) and the group sums by shuffles. Eight
-// 16-byte shared loads feed 64 FMAs.
-template <typename Epi>
-__device__ __forceinline__ void tile_products(const float* __restrict__ X,
-                                              const float* __restrict__ Y,
+// Four consecutive elements of a shared row as f32.
+__device__ __forceinline__ float4 lds4(const float* p, int q) {
+  return reinterpret_cast<const float4*>(p)[q];
+}
+__device__ __forceinline__ float4 lds4(const __nv_bfloat16* p, int q) {
+  return load4(p, q);
+}
+
+// All R x R row dots U[r] . N[s] (and, with kScores, C[r] . N[s]) of staged
+// frames of stride ld; epi(r, s, dot_u, dot_c) once for each r, s < R.
+// Groups of 8 lanes compute 4 x 4 (r, s) tiles: lane j takes 4-column
+// groups j, j+8, ... (the 8 lanes read 128 contiguous bytes of f32,
+// conflict-free) and the group sums by shuffles; the neighbour's loads are
+// shared by the two products.
+template <bool kScores, typename Tin, typename Epi>
+__device__ __forceinline__ void pair_products(const Tin* __restrict__ U,
+                                              const Tin* __restrict__ C,
+                                              const Tin* __restrict__ N,
                                               int R, int E, int ld, Epi epi) {
   const int j = threadIdx.x & 7;
   const int tiles_1d = (R + 3) >> 2;
@@ -138,34 +178,34 @@ __device__ __forceinline__ void tile_products(const float* __restrict__ X,
     const int tile = base + (threadIdx.x >> 3);
     const int r0 = (tile / tiles_1d) * 4;
     const int s0 = (tile % tiles_1d) * 4;
-    float d[4][4];
+    float d[4][4], c[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
-      for (int k = 0; k < 4; ++k) d[i][k] = 0.f;
+      for (int k = 0; k < 4; ++k) d[i][k] = c[i][k] = 0.f;
     if (tile < n_tiles) {         // uniform across the 8 lanes of a group
-      const float4* x[4];
-      const float4* y[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        x[i] = reinterpret_cast<const float4*>(X + min(r0 + i, R - 1) * ld);
-        y[i] = reinterpret_cast<const float4*>(Y + min(s0 + i, R - 1) * ld);
-      }
       for (int q = j; q < e4; q += 8) {
-        float4 a[4], c[4];
+        float4 u[4], y[4], x[4];
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
-          a[i] = x[i][q];
-          c[i] = y[i][q];
+          u[i] = lds4(U + min(r0 + i, R - 1) * ld, q);
+          y[i] = lds4(N + min(s0 + i, R - 1) * ld, q);
+          if (kScores) x[i] = lds4(C + min(r0 + i, R - 1) * ld, q);
         }
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
           for (int k = 0; k < 4; ++k) {
-            d[i][k] = fmaf(a[i].x, c[k].x, d[i][k]);
-            d[i][k] = fmaf(a[i].y, c[k].y, d[i][k]);
-            d[i][k] = fmaf(a[i].z, c[k].z, d[i][k]);
-            d[i][k] = fmaf(a[i].w, c[k].w, d[i][k]);
+            d[i][k] = fmaf(u[i].x, y[k].x, d[i][k]);
+            d[i][k] = fmaf(u[i].y, y[k].y, d[i][k]);
+            d[i][k] = fmaf(u[i].z, y[k].z, d[i][k]);
+            d[i][k] = fmaf(u[i].w, y[k].w, d[i][k]);
+            if (kScores) {
+              c[i][k] = fmaf(x[i].x, y[k].x, c[i][k]);
+              c[i][k] = fmaf(x[i].y, y[k].y, c[i][k]);
+              c[i][k] = fmaf(x[i].z, y[k].z, c[i][k]);
+              c[i][k] = fmaf(x[i].w, y[k].w, c[i][k]);
+            }
           }
       }
     }
@@ -174,16 +214,104 @@ __device__ __forceinline__ void tile_products(const float* __restrict__ X,
 #pragma unroll
       for (int k = 0; k < 4; ++k)
 #pragma unroll
-        for (int m = 4; m > 0; m >>= 1)
+        for (int m = 4; m > 0; m >>= 1) {
           d[i][k] += __shfl_xor_sync(0xffffffffu, d[i][k], m);
-    if (j == 0 && tile < n_tiles) {
+          if (kScores) c[i][k] += __shfl_xor_sync(0xffffffffu, c[i][k], m);
+        }
+    // every lane of the group holds the same sums (the butterfly adds the
+    // same pairs in each lane); lane j passes on entries j and j + 8 of the
+    // tile, picked by selects, so the epilogue runs twice a warp, not 16
+    // times
+    if (tile < n_tiles) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+      for (int m = 0; m < 2; ++m) {
+        const int e = j + 8 * m;
+        float vd = 0.f, vc = 0.f;
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          if (r0 + i < R && s0 + k < R) epi(r0 + i, s0 + k, d[i][k]);
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            if (i * 4 + k == e) {
+              vd = d[i][k];
+              vc = c[i][k];
+            }
+        const int r = r0 + (e >> 2), s = s0 + (e & 3);
+        if (r < R && s < R) epi(r, s, vd, vc);
+      }
     }
   }
+}
+
+// D += X Y on the tensor cores: mma.sync m16n8k16, bf16 operands, f32
+// accumulators (x: the A fragment, y0 and y1: the B fragment).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&x)[4],
+                                         uint32_t y0, uint32_t y1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(y0), "r"(y1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// The A fragment (16 x 16 at row m0, column k) of a row-major bf16 tile.
+__device__ __forceinline__ void frag_a(uint32_t (&x)[4],
+                                       const __nv_bfloat16* p, int ld,
+                                       int m0, int k) {
+  const int g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
+  const __nv_bfloat16* q = p + (m0 + g) * ld + k + 2 * tig;
+  x[0] = lds32(q);
+  x[1] = lds32(q + 8 * ld);
+  x[2] = lds32(q + 8);
+  x[3] = lds32(q + 8 * ld + 8);
+}
+
+// The B fragments of two n8 tiles (16 rows k0.., 16 columns n0..) of a
+// row-major bf16 tile of stride ld, by ldmatrix.trans: y[0], y[1] for
+// columns n0..n0+7, y[2], y[3] for n0+8..n0+15.
+__device__ __forceinline__ void frag_b2_trans(uint32_t (&y)[4],
+                                             const __nv_bfloat16* p, int ld,
+                                             int k0, int n0) {
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* q = p + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8;
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(q);
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+      "{%0, %1, %2, %3}, [%4];\n"
+      : "=r"(y[0]), "=r"(y[1]), "=r"(y[2]), "=r"(y[3])
+      : "r"(addr));
+}
+
+// bf16 (tensor cores): the row dots U[r] . N[s] (and, with kScores,
+// C[r] . N[s]) for r, s < 32 of frames staged as 32 rows of stride ld, zero
+// beyond R and E; epi(r, s, dot_u, dot_c) once for each r, s < 32 (rows and
+// columns beyond R hold zeros). Eight warps, one m16 x n8 tile each of the
+// 32 x 32 outputs, f32 accumulators over the padded E (ep, a multiple of 16).
+template <bool kScores, typename Epi>
+__device__ __forceinline__ void pair_products_mma(
+    const __nv_bfloat16* __restrict__ U, const __nv_bfloat16* __restrict__ C,
+    const __nv_bfloat16* __restrict__ N, int ep, int ld, Epi epi) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * 8;
+  float d[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int k = 0; k < ep; k += 16) {
+    const __nv_bfloat16* q = N + (n0 + g) * ld + k + 2 * tig;
+    const uint32_t y0 = lds32(q), y1 = lds32(q + 8);
+    uint32_t x[4];
+    frag_a(x, U, ld, m0, k);
+    mma_bf16(d, x, y0, y1);
+    if (kScores) {
+      frag_a(x, C, ld, m0, k);
+      mma_bf16(c, x, y0, y1);
+    }
+  }
+#pragma unroll
+  for (int z = 0; z < 4; ++z)
+    epi(m0 + g + (z >> 1) * 8, n0 + 2 * tig + (z & 1), d[z], c[z]);
 }
 
 // Softmax over s of every row r < R of the logits sc[r * lds + s] (row max

@@ -15,9 +15,11 @@ Four kernels replace the TPU's in `nafae_tpu/ops/pallas/fused_ctx.py`:
     ctx_mix_bwd      K1b   _bwd_kernel       backward, alpha recomputed
     ctx_mix_bwd_res  K1br  _bwd_kernel_res   backward, alpha read back
 
-Their sources say what bounds them on an H100. The plain version,
-`context_mix_plain`, is a port of `nafae_tpu.ops.grounding.context_mix`
-(impl="offset"); under autograd it is the plain version of all four.
+Each source runs two CUDA kernels a call (per-pair scores and softmax,
+then a per-frame sum), and says what bounds it on an H100. The plain
+version, `context_mix_plain`, is a port of
+`nafae_tpu.ops.grounding.context_mix` (impl="offset"); under autograd it is
+the plain version of all four.
 
 `ctx_mix` sends a CPU tensor to the plain version. On a CUDA tensor it
 launches the kernels or raises: with autograd on, through `CtxMix`, whose
@@ -37,7 +39,7 @@ from nafae_torch.ops.kernels import check_tensor as _check
 
 NEG = -1e9            # masked-logit fill, as in the reference softmax
 MAX_R = 32            # the kernels keep one register accumulator per region
-MAX_E = 512           # one thread per 4 embedding columns, 512 threads a block
+MAX_E = 512           # a pairs block stages two [R,E] frames in shared memory
 MAX_WINDOW = 16       # the backward keeps a frame's 2w offsets in a list
 
 # Route of the gradient, as fused_ctx.py routes it: with ALPHA_RESIDUAL the
@@ -183,26 +185,28 @@ def launch_fwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
                residual: bool = False
                ) -> tuple[torch.Tensor, torch.Tensor | None]:
     """K1f (or, with `residual`, K1fr) alone on CUDA tensors: checks what it
-    takes, allocates u [B,T,R,E] f32 (and alpha [B,T,2w,R,R] in v_ext's
-    dtype) and launches on the current stream (v_ext already in the compute
-    dtype). Returns (u, alpha or None)."""
+    takes, allocates u [B,T,R,E] f32 and alpha [B,T,2w,R,R] in v_ext's
+    dtype, and launches on the current stream (v_ext already in the compute
+    dtype). One call runs the source's two kernels (pairs, then mix), with
+    alpha between them: K1fr returns it as the backward's residual, K1f
+    drops it. Returns (u, alpha or None)."""
     b, t, r, e = _check_inputs(v_ext, fm_ext, window, rm_ext)
     dev = v_ext.device
     lib = _lib()
     u = torch.empty((b, t, r, e), dtype=torch.float32, device=dev)
-    alpha = (torch.empty((b, t, 2 * window, r, r), dtype=v_ext.dtype,
-                         device=dev) if residual else None)
+    alpha = torch.empty((b, t, 2 * window, r, r), dtype=v_ext.dtype,
+                        device=dev)
     with torch.cuda.device(dev):
         err = lib.nafae_ctx_mix_fwd(
             v_ext.data_ptr(), int(v_ext.dtype == torch.bfloat16),
-            fm_ext.data_ptr(), _ptr(rm_ext), u.data_ptr(), _ptr(alpha),
+            fm_ext.data_ptr(), _ptr(rm_ext), u.data_ptr(), alpha.data_ptr(),
             b, t, r, e, window, float(temp),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ctx_mix kernel launch failed: cudaError_t {err}")
     if b > 0:
         launches["ctx_mix_fwd_res" if residual else "ctx_mix_fwd"] += 1
-    return u, alpha
+    return u, alpha if residual else None
 
 
 def launch_bwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,

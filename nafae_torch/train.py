@@ -27,16 +27,16 @@ k-means++ seeding (`loss.kmeans_init=plusplus`), word-vector initialisation
 (`train.tensorboard_dir`). Meshes and data parallelism are not ported
 either: the reference builds a mesh only under its CLI's `--mesh` or
 `--multihost`, which this CLI does not accept, so `mesh.*` alone trains on
-one device in both. Periodic evaluation (`train.eval_every`) waits for the
-port's eval slice; the CLI says so on stderr. `train.steps_per_call` groups
-steps into one XLA program in the JAX package; PyTorch runs eagerly, so the
-port ignores it.
+one device in both. The CLI evaluates every `train.eval_every` steps on the
+val split (`evaluate.evaluate_config`), as the reference's does.
+`train.steps_per_call` groups steps into one XLA program in the JAX
+package; PyTorch runs eagerly, so the port ignores it.
 """
 
 from __future__ import annotations
 
 import math
-import sys
+import os
 import time
 from dataclasses import dataclass, replace
 
@@ -399,13 +399,12 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
 
 
 def fit(cfg: Config, device: str | torch.device | None = None,
-        log_fn=None, extractor=None) -> tuple[TrainState, dict]:
+        log_fn=None, extractor=None, eval_fn=None) -> tuple[TrainState, dict]:
     """Run cfg.train.steps steps from the newest checkpoint in
     train.ckpt_dir (or from scratch); returns the final state and the last
     metrics. Logs JSONL to train.ckpt_dir/metrics.jsonl every log_every
-    steps (and calls log_fn), and checkpoints every ckpt_every steps and
-    at the end. Periodic evaluation (train.eval_every) comes with the
-    port's eval slice.
+    steps (and calls log_fn), checkpoints every ckpt_every steps and at
+    the end, and calls eval_fn(state) every eval_every steps.
 
     With data.from_videos, the dataset is the annotations' segments
     decoded to frames and the step runs `extractor`, by default a detector
@@ -457,7 +456,7 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     target = cfg.train.steps
     applied = start_step
     frames_applied = frames_logged = 0
-    last_fired = dict.fromkeys(("log", "ckpt"), start_step)
+    last_fired = dict.fromkeys(("log", "ckpt", "eval"), start_step)
     t0 = time.perf_counter()
     metrics: dict = {}
 
@@ -485,6 +484,9 @@ def fit(cfg: Config, device: str | torch.device | None = None,
         if due("ckpt", cfg.train.ckpt_every):
             last_fired["ckpt"] = applied
             ckpt.save(state)
+        if eval_fn and due("eval", cfg.train.eval_every):
+            last_fired["eval"] = applied
+            eval_fn(state)
         if applied >= target:
             break
     ckpt.save(state)
@@ -504,17 +506,23 @@ def main(argv=None) -> None:
                    help="cuda (default; raises without a card) or cpu")
     args = p.parse_args(argv)
     cfg = load_config(args.config, args.preset, args.override or [])
-    if 0 < cfg.train.eval_every <= cfg.train.steps:
-        print(f"nafae_torch.train: train.eval_every={cfg.train.eval_every} "
-              "is not acted on: periodic evaluation waits for the port's "
-              "eval slice; training runs without it", file=sys.stderr,
-              flush=True)
 
     def log_fn(m):
         print(" ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
                        for k, v in sorted(m.items())), flush=True)
 
-    fit(cfg, device=args.device, log_fn=log_fn)
+    def eval_fn(state):
+        if not os.path.exists(os.path.join(cfg.data.root, "val",
+                                           "index.jsonl")):
+            return
+        from nafae_torch.evaluate import evaluate_config
+        r = evaluate_config(cfg, params=state.params, device=state.device)
+        r.pop("per_class_acc", None)
+        r["step"] = int(state.step)
+        print("eval " + " ".join(f"{k}={v}" for k, v in sorted(r.items())),
+              flush=True)
+
+    fit(cfg, device=args.device, log_fn=log_fn, eval_fn=eval_fn)
 
 
 if __name__ == "__main__":

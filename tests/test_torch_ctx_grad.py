@@ -9,8 +9,10 @@ and against `context_mix(impl="offset")`, on the same numpy inputs: ragged
 frame masks, T=7 (not a multiple of the TPU's tile), a window at least as
 long as the clip, a valid frame whose regions are all masked, and the
 edges of the CUDA backward: E = 4 and 12 (within one 64-column slice, not
-a multiple of 8), R = 1 and 32, and a video whose valid frames have no
-valid region (ds = 0 for every pair into them). Limits:
+a multiple of 8), E = 68 (past one slice), R = 1 and 32, a video whose
+valid frames have no valid region (ds = 0 for every pair into them), a
+centre frame with no valid neighbour and an invalid centre frame between
+valid ones. Limits:
 f32 rtol 1e-5 / atol 1e-6 for u and dv; bf16 2e-2 (the JAX package's
 bf16 tolerance: the TPU kernels round u and dv to bf16, the port keeps
 them in f32). Against the TPU kernel in bf16, dv's atol is 2e-2 of its
@@ -44,13 +46,19 @@ CASES = {                       # B, T, R, E, w, the TPU tile of the residual
     "R1": (2, 6, 1, 8, 2, 6),
     "R32": (2, 4, 32, 8, 2, 4),
     "no_valid_region": (3, 6, 5, 16, 2, 6),
+    # the edges of the CUDA forward: E past one 64-column slice, a centre
+    # frame with no valid neighbour, an invalid centre between valid ones
+    "E68": (2, 6, 5, 68, 2, 6),
+    "frame_edges": (2, 8, 5, 16, 2, 8),
 }
 # cases whose video 1 has valid frames with no valid region at all: every
 # pair into them is a uniform-fallback group, whose ds is 0
 MASKED_VIDEO = {"no_valid_region"}
+# cases whose last video has the frame edges (see _inputs)
+EDGE_CASES = {"frame_edges"}
 
 
-def _inputs(b, t, r, e, w, seed=0, masked_video=False):
+def _inputs(b, t, r, e, w, seed=0, masked_video=False, edges=False):
     rng = np.random.RandomState(seed)
     v = rng.randn(b, t, r, e).astype(np.float32)
     v /= np.linalg.norm(v, axis=-1, keepdims=True)
@@ -61,6 +69,11 @@ def _inputs(b, t, r, e, w, seed=0, masked_video=False):
     if masked_video:
         fm[1, :3] = 1.0
         rm[1] = 0.0                   # ... and a video of them
+    if edges:                         # T >= 2w + 4
+        fm[-1] = 1.0
+        fm[-1, :2 * w + 1] = 0.0
+        fm[-1, w] = 1.0               # frame w: no valid neighbour
+        fm[-1, 2 * w + 2] = 0.0       # invalid, between valid frames
     return (np.pad(v, ((0, 0), (w, w), (0, 0), (0, 0))),
             np.pad(fm, ((0, 0), (w, w))),
             np.pad(rm, ((0, 0), (w, w), (0, 0))))
@@ -84,7 +97,8 @@ def _port(v_ext, fm_ext, rm_ext, w, dtype):
 def test_grad_matches_the_tpu_kernel(case, route, dtype, monkeypatch):
     b, t, r, e, w, tile = CASES[case]
     v_ext, fm_ext, rm_ext = _inputs(b, t, r, e, w, seed=len(case),
-                                    masked_video=case in MASKED_VIDEO)
+                                    masked_video=case in MASKED_VIDEO,
+                                    edges=case in EDGE_CASES)
     jdt = None if dtype == "float32" else jnp.bfloat16
     tdt = None if dtype == "float32" else torch.bfloat16
     monkeypatch.setattr(FC, "ALPHA_RESIDUAL", route == "residual")
@@ -108,7 +122,8 @@ def test_grad_matches_the_tpu_kernel(case, route, dtype, monkeypatch):
 def test_grad_matches_the_offset_form(case, dtype):
     b, t, r, e, w, _ = CASES[case]
     v_ext, fm_ext, rm_ext = _inputs(b, t, r, e, w, seed=len(case) + 1,
-                                    masked_video=case in MASKED_VIDEO)
+                                    masked_video=case in MASKED_VIDEO,
+                                    edges=case in EDGE_CASES)
     jdt = None if dtype == "float32" else jnp.bfloat16
     tdt = None if dtype == "float32" else torch.bfloat16
 
@@ -158,22 +173,25 @@ def cuda_device():
 def test_kernel_grads_match_plain_on_gpu(cuda_device, dtype, residual,
                                          monkeypatch):
     """CtxMix on the card (K1fr+K1br, or K1f+K1b) against autograd through
-    the plain version on the same card: u within the forward's limits, dv
-    within rtol 1e-4 / atol 1e-5 in f32 and 2e-2 in bf16 (the kernels
-    round du_n, alpha and ds to bf16 where the TPU kernels do, the plain
-    autograd at its casts; du is seeded, so the bf16 case is the same on
-    every run)."""
+    the plain version on the same card: u within the forward's limits, K1fr's
+    alpha within chip_smoke's, dv within rtol 1e-4 / atol 1e-5 in f32 and
+    2e-2 in bf16 (the kernels round du_n, alpha and ds to bf16 where the
+    TPU kernels do, the plain autograd at its casts; du is seeded, so the
+    bf16 case is the same on every run)."""
     monkeypatch.setattr(K, "ALPHA_RESIDUAL", residual)
     tdt = None if dtype == "float32" else torch.bfloat16
     utol = (dict(rtol=1e-4, atol=1e-5) if dtype == "float32"
             else dict(rtol=1e-3, atol=1e-4))
     gtol = (dict(rtol=1e-4, atol=1e-5) if dtype == "float32"
             else dict(rtol=2e-2, atol=2e-2))
+    alpha_tol = (dict(rtol=1e-4, atol=1e-6) if dtype == "float32"
+                  else dict(rtol=1e-2, atol=1e-6))
     for case in sorted(CASES):
         b, t, r, e, w, _ = CASES[case]
         v_ext, fm_ext, rm_ext = (
             torch.from_numpy(a).to(cuda_device)
-            for a in _inputs(b, t, r, e, w, masked_video=case in MASKED_VIDEO))
+            for a in _inputs(b, t, r, e, w, masked_video=case in MASKED_VIDEO,
+                             edges=case in EDGE_CASES))
         vk = v_ext.clone().requires_grad_()
         before = dict(K.launches)
         u, _ = K.ctx_mix(vk, fm_ext, w, 0.1, dtype=tdt, rm_ext=rm_ext)
@@ -192,6 +210,12 @@ def test_kernel_grads_match_plain_on_gpu(cuda_device, dtype, residual,
         (gp,) = torch.autograd.grad(up, vp, du)
         torch.testing.assert_close(u, up, **utol)
         torch.testing.assert_close(g, gp, **gtol)
+        if residual:                  # K1fr's alpha: the values K1br reads
+            vc = v_ext.to(tdt) if tdt is not None else v_ext
+            _, alpha = K.launch_fwd(vc, fm_ext, w, 0.1, rm_ext, residual=True)
+            torch.testing.assert_close(
+                alpha.float(), K.context_alpha_plain(
+                    vc, fm_ext, w, 0.1, rm_ext=rm_ext).float(), **alpha_tol)
 
 
 @pytest.mark.cuda

@@ -4,9 +4,12 @@ The plain version is held against JAX's fused TPU kernel `ctx_mix_pallas`
 (interpret mode on the CPU, as tests/test_pallas.py runs it) and against
 `context_mix(impl="offset")`, on the same numpy inputs: without and with a
 region mask, ragged frame masks, a valid frame with no valid region (the
-uniform-alpha group) and a window at least as long as the clip. nbr_valid
-must match exactly; u within rtol 1e-5 / atol 1e-6 in f32 and 2e-2 in bf16
-(the TPU kernel returns bf16 u in bf16 mode; the port returns f32).
+uniform-alpha group), a window at least as long as the clip, and the edges
+of the CUDA forward (E = 4 and 68 against its 64-column slices, R = 1 and
+32, a centre frame with no valid neighbour, an invalid centre frame
+between valid ones). nbr_valid must match exactly; u within rtol 1e-5 /
+atol 1e-6 in f32 and 2e-2 in bf16 (the TPU kernel returns bf16 u in bf16
+mode; the port returns f32).
 
 The CUDA kernel itself runs only on a GPU: `test_kernel_matches_plain_on_gpu`
 skips here, and chip_smoke.py holds the kernel against the plain version on
@@ -28,10 +31,20 @@ CASES = {                       # B, T, R, E, w
     "ragged": (3, 7, 5, 16, 2),
     "window_ge_T": (2, 2, 4, 8, 3),
     "serving_R": (2, 5, 20, 32, 3),
+    # the edges of the CUDA forward: 64-column slices of the mix, R padded
+    # to 32 for the tensor cores, a centre frame with no valid neighbour
+    # (cnt = 0, u = 0) and an invalid centre frame between valid ones
+    "E4": (2, 6, 5, 4, 2),
+    "E68": (2, 5, 5, 68, 2),
+    "R1": (2, 6, 1, 8, 2),
+    "R32": (2, 4, 32, 8, 2),
+    "frame_edges": (2, 8, 5, 16, 2),
 }
+# cases whose last video has the frame edges (see _inputs)
+EDGE_CASES = {"frame_edges"}
 
 
-def _inputs(b, t, r, e, w, seed=0):
+def _inputs(b, t, r, e, w, seed=0, edges=False):
     rng = np.random.RandomState(seed)
     v = rng.randn(b, t, r, e).astype(np.float32)
     v /= np.linalg.norm(v, axis=-1, keepdims=True)
@@ -39,6 +52,11 @@ def _inputs(b, t, r, e, w, seed=0):
     fm[0, 0] = 1.0
     rm = (rng.rand(b, t, r) > 0.4).astype(np.float32)
     rm[0, 0, :] = 0.0                 # a valid frame with no valid region
+    if edges:                         # T >= 2w + 4
+        fm[-1] = 1.0
+        fm[-1, :2 * w + 1] = 0.0
+        fm[-1, w] = 1.0               # frame w: no valid neighbour
+        fm[-1, 2 * w + 2] = 0.0       # invalid, between valid frames
     return (np.pad(v, ((0, 0), (w, w), (0, 0), (0, 0))),
             np.pad(fm, ((0, 0), (w, w))),
             np.pad(rm, ((0, 0), (w, w), (0, 0))))
@@ -49,7 +67,8 @@ def _inputs(b, t, r, e, w, seed=0):
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_plain_matches_jax(case, with_rm, dtype):
     b, t, r, e, w = CASES[case]
-    v_ext, fm_ext, rm_ext = _inputs(b, t, r, e, w, seed=len(case))
+    v_ext, fm_ext, rm_ext = _inputs(b, t, r, e, w, seed=len(case),
+                                    edges=case in EDGE_CASES)
     rm_ext = rm_ext if with_rm else None
     jdt = None if dtype == "float32" else jnp.bfloat16
     tdt = None if dtype == "float32" else torch.bfloat16
@@ -66,6 +85,8 @@ def test_plain_matches_jax(case, with_rm, dtype):
                                       err_msg=name)
         np.testing.assert_allclose(u.numpy(), np.asarray(u_j, np.float32),
                                    err_msg=name, **TOL[dtype])
+    if case in EDGE_CASES:            # cnt = 0 and the invalid centre: u = 0
+        assert not u[-1, w].any() and not u[-1, 2 * w + 2].any()
 
 
 def test_uniform_group_and_invalid_frames():
@@ -138,8 +159,9 @@ def test_kernel_matches_plain_on_gpu(cuda_device, dtype):
            else dict(rtol=1e-3, atol=1e-4))
     for case in sorted(CASES):
         b, t, r, e, w = CASES[case]
-        v_ext, fm_ext, rm_ext = (torch.from_numpy(a).to(cuda_device)
-                                 for a in _inputs(b, t, r, e, w))
+        v_ext, fm_ext, rm_ext = (
+            torch.from_numpy(a).to(cuda_device)
+            for a in _inputs(b, t, r, e, w, edges=case in EDGE_CASES))
         before = K.launches["ctx_mix_fwd"]
         u, nv = K.ctx_mix(v_ext, fm_ext, w, 0.1, dtype=tdt, rm_ext=rm_ext)
         torch.cuda.synchronize()

@@ -204,18 +204,47 @@ def test_tensorboard_dir_raises(synth_root, tmp_path):
     assert not (tmp_path / "ck").exists()
 
 
-def test_cli_warns_that_eval_every_waits(synth_root, tmp_path, capsys):
-    """With eval_every within the run, the CLI says once on stderr that
-    periodic evaluation waits for the eval slice, and trains all the
-    same; with eval_every past the run it says nothing."""
+def test_cli_evaluates_every_eval_every(synth_root, tmp_path, capsys):
+    """With a val split, the CLI prints one `eval ... step=n` line each
+    eval_every steps, at the steps where the reference's fit calls its
+    eval_fn, and the last line's numbers are evaluate_config's on the
+    final checkpoint; without a val split it prints none. It no longer
+    writes to stderr."""
+    import os
+    import shutil
+
+    from nafae_torch.evaluate import evaluate_config
+
+    extra = ["train.steps=4", "train.eval_every=2", "train.log_every=1"]
+    jc, tc = _cfgs(synth_root, "config4",
+                   extra + [f"train.ckpt_dir={tmp_path}/j"])
+    ref_steps = []
+    JT.fit(jc, None, eval_fn=lambda st: ref_steps.append(int(st.step)))
+    assert ref_steps == [2, 4]
+    capsys.readouterr()
+
     args = ["--preset", "config4", "--device", "cpu", "--override", *OV,
-            f"data.root={synth_root}", "train.steps=1", "train.log_every=1"]
-    TT.main(args + [f"train.ckpt_dir={tmp_path}/a", "train.eval_every=1"])
+            f"data.root={synth_root}", *extra]
+    TT.main(args + [f"train.ckpt_dir={tmp_path}/a"])
     out, err = capsys.readouterr()
-    assert err.count("eval_every=1 is not acted on") == 1
-    assert "step=1" in out
-    TT.main(args + [f"train.ckpt_dir={tmp_path}/b"])   # OV: 1,000,000
-    assert "eval_every" not in capsys.readouterr().err
+    evals = [ln for ln in out.splitlines() if ln.startswith("eval ")]
+    assert [ln.split("step=")[1] for ln in evals] == \
+        [str(s) for s in ref_steps]
+    assert "step=4" in out and err == ""
+    fields = dict(kv.split("=") for kv in evals[-1].split()[1:])
+    r = evaluate_config(replace(tc, train=replace(
+        tc.train, ckpt_dir=f"{tmp_path}/a")), require_checkpoint=True,
+        device="cpu")
+    assert float(fields["box_acc_micro"]) == r["box_acc_micro"]
+    assert float(fields["box_acc_macro"]) == r["box_acc_macro"]
+    assert int(fields["num_annotations"]) == r["num_annotations"] == 77
+
+    no_val = tmp_path / "no_val"
+    shutil.copytree(os.path.join(synth_root, "train"), no_val / "train")
+    TT.main(["--preset", "config4", "--device", "cpu", "--override", *OV,
+             f"data.root={no_val}", *extra, f"train.ckpt_dir={tmp_path}/b"])
+    out, err = capsys.readouterr()
+    assert "step=4" in out and "eval " not in out and err == ""
 
 
 def test_loader_gives_the_jax_packages_batches(synth_root):
