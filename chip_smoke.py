@@ -495,16 +495,21 @@ def check_cross_mil(torch, device) -> dict[str, float]:
     return errs
 
 
-def compare_diag(torch, w, v, u, centers, fm, hc, rm, case, tied=False
-                 ) -> dict[str, float]:
+def compare_diag(torch, w, v, u, centers, fm, hc, rm, case, later_r=(),
+                 later_c=(), dead_video=False) -> dict[str, float]:
     """K4f and K4b against their plain versions on one input (K4b on K4f's
-    residuals, with random cotangents); returns the max |error| of each."""
+    residuals, with random cotangents); each launched twice, the two
+    launches equal bit for bit. later_r / later_c: the later indices of
+    exact ties (never picked); dead_video: video 1 has no valid frame (no
+    ctx term). Returns the max |error| of each output."""
     from nafae_torch.ops.grounding import l2_normalize
     from nafae_torch.ops.kernels import diag as K4
 
-    dt_name = "bfloat16" if v.dtype == torch.bfloat16 else "float32"
     got = K4.launch_fwd(w, v, u, centers, fm, hc, rm)
+    again = K4.launch_fwd(w, v, u, centers, fm, hc, rm)
     torch.cuda.synchronize()
+    if not all(torch.equal(a, g) for a, g in zip(again, got)):
+        fail(f"diag_epilogue: two launches on one input differ: {case}")
     want = K4.diag_fwd_plain(w, v, u, centers, fm, hc, rm)
     ctx, clu, f, d, rstar, cstar = got
     for name, x in (("ctx", ctx), ("clu", clu), ("f", f), ("d", d)):
@@ -527,8 +532,12 @@ def compare_diag(torch, w, v, u, centers, fm, hc, rm, case, tied=False
     if not torch.equal(cstar[both], want[5][both]):
         fail(f"diag_epilogue c* differs from the plain version where the "
              f"top two sims are clear of ties: {case}")
-    if tied and ((rstar == 16).any() or (cstar == 5).any()):
+    if any((rstar == x).any() for x in later_r) \
+            or any((cstar == x).any() for x in later_c):
         fail(f"diag_epilogue resolved an exact tie to the later index: {case}")
+    if dead_video and ((ctx[1] != 0).any() or (d[1] != 0).any()):
+        fail(f"diag_epilogue: a video with no valid frame must give ctx = 0 "
+             f"and d = 0: {case}")
     rtol, atol = DIAG_TOL
     errs = {}
     for name, g, wnt in (("clu", clu[both], want[1][both]),
@@ -575,7 +584,10 @@ def compare_diag(torch, w, v, u, centers, fm, hc, rm, case, tied=False
     dctx = torch.rand(ctx.shape, generator=gen).to(v.device)
     dclu = torch.rand(clu.shape, generator=gen).to(v.device)
     dw, dv = K4.launch_bwd(w, v, centers, d, rstar, cstar, f, dctx, dclu)
+    dw2, dv2 = K4.launch_bwd(w, v, centers, d, rstar, cstar, f, dctx, dclu)
     torch.cuda.synchronize()
+    if not (torch.equal(dw, dw2) and torch.equal(dv, dv2)):
+        fail(f"diag_epilogue_bwd: two launches on one input differ: {case}")
     pdw, pdv = K4.diag_bwd_plain(w, v, centers, d, rstar, cstar, f, dctx,
                                  dclu)
     for name, g, wnt in (("dw", dw, pdw), ("dv", dv, pdv)):
@@ -587,46 +599,72 @@ def compare_diag(torch, w, v, u, centers, fm, hc, rm, case, tied=False
     return errs
 
 
+# K4f/K4b's cases: B, K, T, R, E, Kc, region mask?, the later index of each
+# exact region tie and of each exact center tie (the earlier must win), a
+# video with no valid frame?
+DIAG_CASES = [
+    (16, 8, 20, 20, 256, 67, True, (), (), False),     # config4 training
+    (4, 7, 9, 40, 256, 67, True, ((8, 16),), ((2, 5),), False),
+    (4, 8, 20, 20, 256, 67, False, (), (), False),     # no region mask
+    (4, 1, 9, 20, 256, 67, True, (), (), False),       # K = 1
+    (2, 32, 5, 20, 512, 67, True, (), (), False),      # K = 32 at E = 512
+    (2, 32, 5, 20, 256, 67, True, (), (), False),      # the most shared memory
+    (4, 8, 9, 20, 4, 67, True, (), (), False),         # the smallest E
+    (4, 8, 9, 1, 256, 67, True, (), (), True),         # R = 1
+    (4, 8, 9, 33, 256, 67, True, (), (), False),       # one past a chunk
+    (4, 8, 9, 20, 256, 1, True, (), (), False),        # Kc = 1
+    (4, 8, 9, 20, 256, 130, True, (), (), False),      # Kc = 130
+    (4, 8, 1, 20, 256, 67, True, (), (), False),       # T = 1
+    (4, 8, 9, 40, 256, 67, True, ((3, 35),), ((3, 35),), True),  # across 32
+]
+
+
 def check_diag(torch, device) -> dict[str, dict[str, float]]:
-    """K4f and K4b against their plain versions on the card: config4's
-    shapes (B=16, K=8, T=20, R=20, E=256, Kc=67), K=7 with R=40 and exact
-    ties (duplicate regions and centers), and no region mask; each with a
-    valid frame whose regions are all masked and frames without context.
-    Returns the max errors by output and dtype."""
+    """K4f and K4b against their plain versions on the card, on DIAG_CASES:
+    config4's shapes (B=16, K=8, T=20, R=20, E=256, Kc=67), no region mask,
+    K from 1 to 32 (at E = 256 and 512), E from 4 to 512, R from 1 to 40 (one past a chunk of 32
+    regions), Kc from 1 to 130, T = 1, exact ties between regions and
+    between centers (8 and 16, 2 and 5; 3 and 35, across 32) and a video
+    with no valid frame; each masked case with a valid frame whose regions
+    are all masked and frames without context. Every launch is repeated and
+    must give the same bits. Returns the max errors by output and dtype."""
     gen = torch.Generator().manual_seed(SEED + 3)
-    cases = [(16, 8, 20, 20, 256, 67, True, False),
-             (4, 7, 9, 40, 256, 67, True, True),
-             (4, 8, 20, 20, 256, 67, False, False)]
     errs = {}
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
         worst: dict[str, float] = {}
-        for b, k, t, r, e, kc, with_rm, tied in cases:
+        for b, k, t, r, e, kc, with_rm, ties_r, ties_c, dead in DIAG_CASES:
             w = unit_rows(torch, gen, b, k, e)
             v = unit_rows(torch, gen, b, t, r, e)
             u = 0.5 * torch.randn(b, t, r, e, generator=gen)
             centers = unit_rows(torch, gen, kc, e)
             fm, rm = frame_region_masks(torch, gen, b, t, r)
             hc = (torch.rand(b, t, generator=gen) > 0.2).float()
-            if tied:
-                v[:, :, 16] = v[:, :, 8]
-                rm[:, :, 16] = rm[:, :, 8]
-                centers[5] = centers[2]
+            for first, later in ties_r:       # duplicate rows: exact ties
+                v[:, :, later] = v[:, :, first]
+                rm[:, :, later] = rm[:, :, first]
+            for first, later in ties_c:
+                centers[later] = centers[first]
+            if dead:
+                fm[1] = 0.0
             got = compare_diag(
                 torch, *(x.to(dt).to(device) for x in (w, v, u)),
                 *(x.to(device) for x in (centers, fm, hc)),
                 rm.to(device) if with_rm else None,
                 f"{dt_name} B={b} K={k} T={t} R={r} E={e} Kc={kc} "
-                f"rm={with_rm} ties={tied}", tied)
-            worst = {n: max(worst.get(n, 0.0), x) for n, x in got.items()}
+                f"rm={with_rm} ties={ties_r}/{ties_c} dead_video={dead}",
+                [x for _, x in ties_r], [x for _, x in ties_c], dead)
+            worst = {n: max(worst.get(n, 0.0), got.get(n, 0.0))
+                     for n in {**worst, **got}}
         errs[dt_name] = worst
         log(f"diag_epilogue (K4f) / diag_epilogue_bwd (K4b) vs plain, "
             f"{dt_name}: max |err| " + ", ".join(
                 f"{n} {int(x)}" if n.endswith("other_way") else
-                f"{n} {x:.3e}" for n, x in worst.items())
+                f"{n} {x:.3e}" for n, x in sorted(worst.items()))
             + f" ({DIAG_TOL} as rtol, atol, ctx against plain plus its "
             f"terms rounded the other way; r*, f, c* equal where clear of "
-            f"ties; {len(cases)} cases)")
+            f"ties, exact ties to the first index; every launch twice, "
+            f"equal bit for bit; {len(DIAG_CASES)} cases)")
     return errs
 
 
@@ -2051,16 +2089,11 @@ def nbytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs if x is not None)
 
 
-def fused_timings(torch, root: str, tmp: str) -> dict:
-    """On the first training batch (config4, B=16, K=8, T=20, R=20, E=256,
-    Kc=67, its own masks), from the initial params, in f32 and bf16: device
-    times (CUDA graphs) of K3, K4f and K4b, of their plain versions, and for
-    K3 of the two PyTorch calls that compute the same max on the auto route
-    (torch.matmul, then torch.max over R: no mask); their bounds from these
-    inputs; and each kernel's max |error| against its plain version here."""
+def fused_inputs(torch, root: str, tmp: str):
+    """The fused route's inputs on the first training batch (config4, B=16,
+    K=8, T=20, R=20, E=256, Kc=67, its own masks), from the initial params:
+    (w_emb, v_emb, u, centers, fm, rm, hc) on the card, f32."""
     from nafae_torch.ops import grounding as TG
-    from nafae_torch.ops.kernels import cross_mil as K3
-    from nafae_torch.ops.kernels import diag as K4
     from nafae_torch.train import TrainState, batch_to_device
 
     dev = torch.device("cuda")
@@ -2078,7 +2111,51 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
         u, nbr = TG.context_mix(v_ext, fm_ext, w, cfg.loss.ctx_temp,
                                 rm_ext=rm_ext)
     hc = (nbr.sum(-1) > 0).float()
-    centers = state.centers
+    return w_emb, v_emb, u, state.centers, fm, rm, hc
+
+
+def diag_bounds(torch, wk, v, centers, fm, hc, rm, fwd, dctx, dclu, dw,
+                dv):
+    """(K4f's, K4b's) (least ms, what bounds it) on these inputs. K4f: s
+    over live regions, ŝ over the ctx mask, sims everywhere; it reads v̂ at
+    the live regions and region 0 of all-masked frames (its pick there), u
+    at the ctx mask, and writes ctx, clu and f (its residuals d, r* and c*
+    are a choice of the design, not counted). K4b on K4f's residuals: it
+    reads v̂ only at the ctx mask (ds is 0 elsewhere) and only the centers
+    in c*, and writes dw and the whole of dv."""
+    b, t, r, e = v.shape
+    k, kc = wk.shape[1], centers.shape[0]
+    row = e * v.element_size()                    # one region of v̂ or u
+    live = int((rm > 0).sum())                        # (b, t, r) regions
+    on = int(((rm > 0) & (fm > 0)[..., None] & (hc > 0)[..., None]).sum())
+    empty = int(((rm > 0).sum(-1) == 0).sum())        # all-masked frames
+    fwd_bound = bound(torch, nbytes(wk, centers, fm, hc, rm, *fwd[:3])
+                      + (live + empty + on) * row,
+                      2 * e * k * (live + on) + 2 * e * kc * b * k * t,
+                      v.dtype)
+    bwd_bound = bound(torch, nbytes(wk, *fwd[3:6], fwd[2], dctx, dclu, dw,
+                                    dv) + on * row
+                      + int(fwd[5].unique().numel()) * e
+                      * centers.element_size(),
+                      4 * e * k * on + 4 * e * b * k * t, v.dtype)
+    return fwd_bound, bwd_bound
+
+
+def fused_timings(torch, root: str, tmp: str) -> dict:
+    """On the first training batch (config4, B=16, K=8, T=20, R=20, E=256,
+    Kc=67, its own masks), from the initial params, in f32 and bf16: device
+    times (CUDA graphs) of K3, K4f and K4b, of their plain versions, of an
+    empty kernel of each one's grid (K4f: two, as it launches), and for K3
+    of the two PyTorch calls that compute the same max on the auto route
+    (torch.matmul, then torch.max over R: no mask); K4f and K4b also with
+    every region live and every frame valid and with context (the dense
+    variant); their bounds from these inputs; and each kernel's max |error|
+    against its plain version here."""
+    from nafae_torch.ops.kernels import cross_mil as K3
+    from nafae_torch.ops.kernels import diag as K4
+
+    dev = torch.device("cuda")
+    w_emb, v_emb, u, centers, fm, rm, hc = fused_inputs(torch, root, tmp)
     b, t, r, e = v_emb.shape
     k, kc = w_emb.shape[1], centers.shape[0]
     m = b * k
@@ -2090,9 +2167,11 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
     res = {"shapes": {"B": b, "K": k, "T": t, "R": r, "E": e, "Kc": kc,
                       "live_regions": live, "ctx_regions": on,
                       "all_masked_frames": empty}}
+    ones_t, ones_r = torch.ones_like(fm), torch.ones_like(rm)
     for tag, dt in (("", torch.float32), ("_bf16", torch.bfloat16)):
         wf = w_emb.reshape(m, e).to(dt).contiguous()
         wk, v, uu = w_emb.to(dt), v_emb.to(dt), u.to(dt)
+        bf16 = dt == torch.bfloat16
         row = e * v.element_size()                    # one region of v̂ or u
         # K3: a and idx of every (video, word, frame) from the live regions;
         # an all-masked frame's a and idx need no region
@@ -2111,49 +2190,51 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
         # an empty kernel with K3's grid, block and shared memory: the floor
         # that any kernel launched in that shape pays
         res["cross_mil_floor_ms" + tag] = device_ms(
-            torch, lambda: K3.launch_floor(b, m, t, r, e,
-                                           dt == torch.bfloat16, dev))
+            torch, lambda: K3.launch_floor(b, m, t, r, e, bf16, dev))
         res["cross_mil_bound_ms" + tag], res["cross_mil_bound_by" + tag] = \
             bound(torch, nbytes(wf, fm, rm) + live * row + 2 * b * m * t * 4,
                   2 * m * e * live, dt)
-        # K4f: s over live regions, ŝ over the ctx mask, sims everywhere;
-        # it reads v̂ at the live regions and region 0 of all-masked frames
-        # (its pick there), u at the ctx mask, and writes ctx, clu and f (its
-        # residuals d, r* and c* are a choice of the design, not counted)
-        fwd = K4.launch_fwd(wk, v, uu, centers, fm, hc, rm)
-        torch.cuda.synchronize()
-        want = K4.diag_fwd_plain(wk, v, uu, centers, fm, hc, rm)
-        res["diag_err" + tag] = max((fwd[0] - want[0]).abs().max().item(),
-                                    (fwd[3] - want[3]).abs().max().item())
-        res["diag_ms" + tag] = device_ms(
-            torch, lambda: K4.launch_fwd(wk, v, uu, centers, fm, hc, rm))
-        res["diag_plain_ms" + tag] = device_ms(
-            torch, lambda: K4.diag_fwd_plain(wk, v, uu, centers, fm, hc, rm))
-        res["diag_bound_ms" + tag], res["diag_bound_by" + tag] = bound(
-            torch, nbytes(wk, centers, fm, hc, rm, *fwd[:3])
-            + (live + empty + on) * row,
-            2 * e * k * (live + on) + 2 * e * kc * b * k * t, dt)
-        # K4b on K4f's residuals, with random cotangents: it reads v̂ only
-        # at the ctx mask (ds is 0 elsewhere) and only the centers in c*,
-        # and writes dw and the whole of dv
+        res["diag_floor_ms" + tag] = device_ms(
+            torch, lambda: K4.launch_floor_fwd(b, k, t, r, e, kc, bf16, dev))
+        res["diag_bwd_floor_ms" + tag] = device_ms(
+            torch, lambda: K4.launch_floor_bwd(b, k, t, r, e, bf16, dev))
         gen = torch.Generator().manual_seed(SEED + 5)
-        dctx = torch.rand(fwd[0].shape, generator=gen).to(dev)
-        dclu = torch.rand(fwd[1].shape, generator=gen).to(dev)
-        res_args = (wk, v, centers, fwd[3], fwd[4], fwd[5], fwd[2], dctx,
-                    dclu)
-        dw, dv = K4.launch_bwd(*res_args)
-        torch.cuda.synchronize()
-        pdw, pdv = K4.diag_bwd_plain(*res_args)
-        res["diag_bwd_err" + tag] = max((dw - pdw).abs().max().item(),
-                                        (dv - pdv).abs().max().item())
-        res["diag_bwd_ms" + tag] = device_ms(
-            torch, lambda: K4.launch_bwd(*res_args))
-        res["diag_bwd_plain_ms" + tag] = device_ms(
-            torch, lambda: K4.diag_bwd_plain(*res_args))
-        res["diag_bwd_bound_ms" + tag], res["diag_bwd_bound_by" + tag] = \
-            bound(torch, nbytes(wk, *res_args[3:], dw, dv) + on * row
-                  + int(fwd[5].unique().numel()) * e * centers.element_size(),
-                  4 * e * k * on + 4 * e * b * k * t, dt)
+        dctx = torch.rand((b, k, t), generator=gen).to(dev)
+        dclu = torch.rand((b, k, t), generator=gen).to(dev)
+        for var, (fmv, hcv, rmv) in (("", (fm, hc, rm)),
+                                     ("_dense", (ones_t, ones_t, ones_r))):
+            key = var + tag
+            fwd = K4.launch_fwd(wk, v, uu, centers, fmv, hcv, rmv)
+            torch.cuda.synchronize()
+            res["diag_ms" + key] = device_ms(
+                torch, lambda: K4.launch_fwd(wk, v, uu, centers, fmv, hcv,
+                                             rmv))
+            # K4b on K4f's residuals, with random cotangents
+            res_args = (wk, v, centers, fwd[3], fwd[4], fwd[5], fwd[2], dctx,
+                        dclu)
+            dw, dv = K4.launch_bwd(*res_args)
+            torch.cuda.synchronize()
+            res["diag_bwd_ms" + key] = device_ms(
+                torch, lambda: K4.launch_bwd(*res_args))
+            (res["diag_bound_ms" + key], res["diag_bound_by" + key]), \
+                (res["diag_bwd_bound_ms" + key],
+                 res["diag_bwd_bound_by" + key]) = diag_bounds(
+                    torch, wk, v, centers, fmv, hcv, rmv, fwd, dctx, dclu,
+                    dw, dv)
+            if var:
+                continue
+            want = K4.diag_fwd_plain(wk, v, uu, centers, fm, hc, rm)
+            res["diag_err" + tag] = max(
+                (fwd[0] - want[0]).abs().max().item(),
+                (fwd[3] - want[3]).abs().max().item())
+            res["diag_plain_ms" + tag] = device_ms(
+                torch, lambda: K4.diag_fwd_plain(wk, v, uu, centers, fm, hc,
+                                                 rm))
+            pdw, pdv = K4.diag_bwd_plain(*res_args)
+            res["diag_bwd_err" + tag] = max((dw - pdw).abs().max().item(),
+                                            (dv - pdv).abs().max().item())
+            res["diag_bwd_plain_ms" + tag] = device_ms(
+                torch, lambda: K4.diag_bwd_plain(*res_args))
     return res
 
 
@@ -2299,11 +2380,17 @@ def main() -> None:
             f"grid {tf['cross_mil_floor_ms' + tag]:.4f}); K4f diag_epilogue "
             f"{tf['diag_ms' + tag]:.4f} ms (bound "
             f"{tf['diag_bound_ms' + tag]:.4f}, {tf['diag_bound_by' + tag]}; "
-            f"plain {tf['diag_plain_ms' + tag]:.4f}); K4b diag_epilogue_bwd "
+            f"plain {tf['diag_plain_ms' + tag]:.4f}; empty kernels of its "
+            f"grids {tf['diag_floor_ms' + tag]:.4f}; dense "
+            f"{tf['diag_ms_dense' + tag]:.4f}, bound "
+            f"{tf['diag_bound_ms_dense' + tag]:.4f}); K4b diag_epilogue_bwd "
             f"{tf['diag_bwd_ms' + tag]:.4f} ms (bound "
             f"{tf['diag_bwd_bound_ms' + tag]:.4f}, "
             f"{tf['diag_bwd_bound_by' + tag]}; plain "
-            f"{tf['diag_bwd_plain_ms' + tag]:.4f}); max |err| vs plain "
+            f"{tf['diag_bwd_plain_ms' + tag]:.4f}; an empty kernel of its "
+            f"grid {tf['diag_bwd_floor_ms' + tag]:.4f}; dense "
+            f"{tf['diag_bwd_ms_dense' + tag]:.4f}, bound "
+            f"{tf['diag_bwd_bound_ms_dense' + tag]:.4f}); max |err| vs plain "
             f"{tf['cross_mil_err' + tag]:.3e} / {tf['diag_err' + tag]:.3e} / "
             f"{tf['diag_bwd_err' + tag]:.3e} — {card}")
         for route in ROUTES:
@@ -2424,10 +2511,13 @@ def main() -> None:
             library_ms_bf16=tf.get(key + "_library_ms_bf16"),
             **({"library": "torch.matmul then torch.max over R: two calls, "
                 "the auto route's product and max without the mask (bf16: "
-                "bf16 output)",
-                "floor_ms": tf["cross_mil_floor_ms"],
-                "floor_ms_bf16": tf["cross_mil_floor_ms_bf16"]}
-               if key == "cross_mil" else {}),
+                "bf16 output)"} if key == "cross_mil" else
+               # *_dense: every region live, every frame valid with context
+               {n + d: tf[key + "_" + n + d]
+                for n in ("ms_dense", "bound_ms_dense", "bound_by_dense")
+                for d in ("", "_bf16")}),
+            floor_ms=tf[key + "_floor_ms"],
+            floor_ms_bf16=tf[key + "_floor_ms_bf16"],
             shapes=tf["shapes"], path="training f32, kernels=pallas")
           for name, src, rep, key, err in (
               ("cross_mil", "cross_mil.cu", k3_replaces, "cross_mil", xerrs),

@@ -1,31 +1,39 @@
 """Times this tree's context mix (K1f and K1fr, csrc/ctx_mix.cu; K1br and
-K1b, csrc/ctx_mix_bwd.cu) and greedy NMS (K2, csrc/nms.cu) against other
-versions of the same sources, on one card, in one process, on the main
-path's own inputs:
+K1b, csrc/ctx_mix_bwd.cu), greedy NMS (K2, csrc/nms.cu) and diagonal
+epilogue (K4f, csrc/diag_epilogue.cu; K4b, csrc/diag_epilogue_bwd.cu)
+against other versions of the same sources, on one card, in one process,
+on the main path's own inputs:
 
 - K1f: the first config-4 serving batch (B=16, T=20, R=20, E=256, w=3,
   planted-signal oracle weights, chip_smoke.timings' inputs), v_ext in f32
   and in bf16;
 - K1fr / K1br / K1b: the first config-4 training batch, v_ext in f32 and in
   bf16, du from a seed;
+- K4f / K4b: the first config-4 training batch's fused-route inputs
+  (chip_smoke.fused_inputs: K=8, Kc=67) in f32 and bf16, K4b on this
+  tree's K4f residuals with cotangents from a seed, as
+  chip_smoke.fused_timings runs it;
 - K2: the first config-5 batch's detector planes (320 rows x 24,000
   anchors, num_keep 20), from the f32 and from the bf16 detector.
 
     python3 kernel_ab.py DIR [DIR ...]
 
-Each DIR holds another version's ctx_mix.cu, ctx_mix_bwd.cu and nms.cu
-(with the ctx_mix_common.cuh they include), for example `git archive
-<commit> nafae_torch/csrc` unpacked under the git-ignored build/. Each C
-interface in use since the first port is taken (a forward whose alpha is
-null for K1f, or one that always takes alpha and refuses a null one; a backward with or without a
-scratch; NMS with or without tiers). Every version is first held to this
-tree's output (K1f/K1fr within chip_smoke.CTX_TOL and ALPHA_TOL, K1b/K1br
-within GRAD_TOL, K2 exactly), then timed with CUDA graphs
-(chip_smoke.device_ms) in the order others, tree, tree, others reversed.
-Then one f32 serving batch is timed host to host (numpy in, numpy out)
-with each version's K1f swapped into the server, beside the batch's copy
-to the card alone, in interleaved rounds (serving_host_ab). Prints one JSON object as its last line and writes it to
-build/kernel_ab.json.
+Each DIR holds another version's ctx_mix.cu, ctx_mix_bwd.cu, nms.cu,
+diag_epilogue.cu and diag_epilogue_bwd.cu (with the ctx_mix_common.cuh
+they include), for example `git archive <commit> nafae_torch/csrc`
+unpacked under the git-ignored build/. Each C interface in use since the
+first port is taken (a forward whose alpha is null for K1f, or one that
+always takes alpha and refuses a null one; a backward with or without a
+scratch; NMS with or without tiers; K4f with or without the normalised
+centers' scratch). Every version is first held to this tree's output
+(K1f/K1fr within chip_smoke.CTX_TOL and ALPHA_TOL, K1b/K1br within
+GRAD_TOL, K2 exactly, K4f/K4b within DIAG_TOL with r* and c* equal where
+clear of ties), then timed with CUDA graphs (chip_smoke.device_ms) in the
+order others, tree, tree, others reversed. Then one f32 serving batch is
+timed host to host (numpy in, numpy out) with each version's K1f swapped
+into the server, beside the batch's copy to the card alone, in
+interleaved rounds (serving_host_ab). Prints one JSON object as its last
+line and writes it to build/kernel_ab.json.
 """
 
 import ctypes
@@ -43,7 +51,8 @@ import chip_smoke as CS
 ROOT = Path(__file__).resolve().parent
 
 
-SOURCES = ("ctx_mix", "ctx_mix_bwd", "nms")
+SOURCES = ("ctx_mix", "ctx_mix_bwd", "nms", "diag_epilogue",
+           "diag_epilogue_bwd")
 
 
 def build(dirs: list[Path]) -> dict[str, dict]:
@@ -72,7 +81,8 @@ def build(dirs: list[Path]) -> dict[str, dict]:
 def bind(torch, libs: dict):
     """(nms(x1, y1, x2, y2, sc) -> (idx, valid), bwd(v, fm, rm, du, w,
     temp, alpha) -> dv, fwd(v, fm, rm, w, temp, residual) -> (u, alpha or
-    None)) for one version's libraries, any interface."""
+    None), K4f, K4b) for one version's libraries, any interface; K4f and
+    K4b take and give what the tree's diag.launch_fwd / launch_bwd do."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ln, lb, lf = libs["nms"], libs["ctx_mix_bwd"], libs["ctx_mix"]
     lf.nafae_ctx_mix_fwd.argtypes = [vp, i, vp, vp, vp, vp] + [i] * 5 + [f, vp]
@@ -151,7 +161,119 @@ def bind(torch, libs: dict):
             CS.fail(f"ctx_mix launch failed: {err}")
         return u, alpha if residual else None
 
-    return nms, bwd, fwd
+    return nms, bwd, fwd, *bind_diag(torch, libs)
+
+
+def bind_diag(torch, libs: dict):
+    """(K4f, K4b) of one version's diag_epilogue libraries: with or without
+    the normalised centers' scratch (the forward's floor came with it)."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lf, lb = libs["diag_epilogue"], libs["diag_epilogue_bwd"]
+    scratch = hasattr(lf, "nafae_diag_fwd_floor")
+    lf.nafae_diag_fwd.argtypes = ([vp, vp, vp, i, vp] + [vp] * scratch
+                                  + [vp] * 9 + [i] * 6 + [vp])
+    lf.nafae_diag_fwd.restype = i
+    lb.nafae_diag_bwd.argtypes = [vp, vp, i] + [vp] * 9 + [i] * 5 + [vp]
+    lb.nafae_diag_bwd.restype = i
+
+    def fwd(w, v, u, centers, fm, hc, rm):
+        b, t, r, e = v.shape
+        k, kc = w.shape[1], centers.shape[0]
+        f32 = dict(dtype=torch.float32, device=v.device)
+        outs = (torch.empty((b, k, t), **f32), torch.empty((b, k, t), **f32),
+                torch.empty((b, t, k, e), **f32),
+                torch.empty((b, k, t, r), **f32),
+                torch.empty((b, k, t), dtype=torch.int32, device=v.device),
+                torch.empty((b, k, t), dtype=torch.int32, device=v.device))
+        chat = ([torch.empty((kc, e), dtype=v.dtype,
+                             device=v.device).data_ptr()]
+                if scratch else [])
+        err = lf.nafae_diag_fwd(
+            w.data_ptr(), v.data_ptr(), u.data_ptr(),
+            int(v.dtype == torch.bfloat16), centers.data_ptr(), *chat,
+            fm.data_ptr(), hc.data_ptr(), rm.data_ptr(),
+            *(x.data_ptr() for x in outs), b, k, t, r, e, kc,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            CS.fail(f"diag_epilogue launch failed: {err}")
+        return outs
+
+    def bwd(w, v, centers, d, rstar, cstar, f, dctx, dclu):
+        b, t, r, e = v.shape
+        dw = torch.empty((b, w.shape[1], e), device=v.device)
+        dv = torch.empty((b, t, r, e), device=v.device)
+        err = lb.nafae_diag_bwd(
+            w.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),
+            *(x.data_ptr() for x in (centers, d, rstar, cstar, f, dctx, dclu,
+                                     dw, dv)),
+            b, w.shape[1], t, r, e, torch.cuda.current_stream().cuda_stream)
+        if err:
+            CS.fail(f"diag_epilogue_bwd launch failed: {err}")
+        return dw, dv
+
+    return fwd, bwd
+
+
+def diag_ab(torch, others: dict, ins, tag: str) -> dict:
+    """K4f and K4b of this tree against the other versions on the first
+    training batch's fused-route inputs in one dtype: each version's K4f
+    within DIAG_TOL of this tree's (ctx also allowing for bf16 terms that
+    rounded the other way; r*, f and c* equal where clear of ties), each
+    version's K4b on this tree's residuals within DIAG_TOL; then the a_b
+    times and this tree's time by kernel."""
+    from nafae_torch.ops.grounding import l2_normalize
+    from nafae_torch.ops.kernels import diag as K4
+
+    w, v, u, centers, fm, rm, hc = ins
+    rnd = K4._rounder(v.dtype)
+    rtol, atol = CS.DIAG_TOL
+    want = K4.launch_fwd(w, v, u, centers, fm, hc, rm)
+    s = torch.where(rm[:, None] > 0,
+                    torch.einsum("bke,btre->bktr", w.float(), v.float()),
+                    K4.NEG)
+    clear_r = CS.clear_of_ties(torch, s)
+    both = clear_r & CS.clear_of_ties(torch, torch.einsum(
+        "btke,ce->bktc", want[2], rnd(l2_normalize(centers))))
+    gen = torch.Generator().manual_seed(CS.SEED + 5)
+    dctx = torch.rand(want[0].shape, generator=gen).cuda()
+    dclu = torch.rand(want[1].shape, generator=gen).cuda()
+    res_args = (w, v, centers, want[3], want[4], want[5], want[2], dctx, dclu)
+    want_b = K4.launch_bwd(*res_args)
+    fns = {"tree": lambda: K4.launch_fwd(w, v, u, centers, fm, hc, rm)}
+    bfns = {"tree": lambda: K4.launch_bwd(*res_args)}
+    equal = {}
+    for name, (_, _, _, ofwd, obwd) in others.items():
+        fns[name] = lambda ofwd=ofwd: ofwd(w, v, u, centers, fm, hc, rm)
+        bfns[name] = lambda obwd=obwd: obwd(*res_args)
+        got, got_b = fns[name](), bfns[name]()
+        other_way = (rnd(got[3] ** 2) - rnd(want[3] ** 2)).abs().sum(-1)
+        ok = (torch.allclose(got[3], want[3], rtol=rtol, atol=atol)
+              and ((got[0] - want[0]).abs()
+                   <= atol + rtol * want[0].abs() + other_way).all()
+              and torch.allclose(got[1][both], want[1][both], rtol=rtol,
+                                 atol=atol)
+              and torch.equal(got[4][clear_r], want[4][clear_r])
+              and torch.equal(got[2].permute(0, 2, 1, 3)[clear_r],
+                              want[2].permute(0, 2, 1, 3)[clear_r])
+              and torch.equal(got[5][both], want[5][both]))
+        if not ok:
+            CS.fail(f"K4f {tag}: {name} differs from this tree")
+        if not all(torch.allclose(g, x, rtol=rtol, atol=atol)
+                   for g, x in zip(got_b, want_b)):
+            CS.fail(f"K4b {tag}: {name} differs from this tree")
+        equal[name] = {"K4f": all(torch.equal(g, x)
+                                  for g, x in zip(got, want)),
+                       "K4b": all(torch.equal(g, x)
+                                  for g, x in zip(got_b, want_b))}
+    res = {}
+    for kname, f in (("K4f", fns), ("K4b", bfns)):
+        res[f"{kname}_{tag}"] = {
+            "ms": a_b(torch, f), "bitwise_equal_to_tree": {
+                n: e[kname] for n, e in equal.items()},
+            "by_kernel_us": CS.profile_forward(torch, f["tree"],
+                                               reps=20)[0]}
+        CS.log(f"{kname} {tag}: {res[f'{kname}_{tag}']}")
+    return res
 
 
 def serving_batch(torch, srv, batch: dict):
@@ -225,7 +347,7 @@ def compare_fwd(torch, others, v, fm, rm, w, temp, residual, case) -> dict:
                                          residual=residual)}
     want_u, want_a = fns["tree"]()
     equal = {}
-    for name, (_, _, of) in others.items():
+    for name, (_, _, of, *_) in others.items():
         fns[name] = lambda of=of: of(v, fm, rm, w, temp, residual)
         got_u, got_a = fns[name]()
         if not torch.allclose(got_u, want_u, rtol=CS.CTX_TOL[dt][0],
@@ -298,6 +420,11 @@ def main() -> None:
                 res[f"{kname}_{tag}"] = compare_fwd(
                     torch, others, v, fm_, rm_, w_, temp_, residual,
                     f"{kname} {tag}, the first {which} batch")
+        ins = CS.fused_inputs(torch, tmp, tmp)
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            w_emb, v_emb, u = (x.to(dt) for x in ins[:3])
+            res.update(diag_ab(torch, others,
+                               (w_emb, v_emb, u, *ins[3:]), tag))
         tree = bind(torch, {n: _build.load(n) for n in SOURCES})
         res["serving_batch_host_ms"] = serving_host_ab(torch, others, tree,
                                                        srv, batch)
@@ -309,7 +436,7 @@ def main() -> None:
                 fns = {"tree": lambda a=a, v=v: K1.launch_bwd(v, fm, w, temp,
                                                                rm, du, a)}
                 want = fns["tree"]()
-                for name, (_, ob, _) in others.items():
+                for name, (_, ob, *_) in others.items():
                     fns[name] = (lambda ob=ob, a=a, v=v:
                                  ob(v, fm, rm, du, w, temp, a))
                     got = fns[name]()
@@ -336,7 +463,7 @@ def main() -> None:
             wi, wv = K2.launch(*planes, sc, 20, 0.7, tiers=tiers)
             fns = {"tree": lambda pl=planes, sc=sc: K2.launch(*pl, sc, 20,
                                                               0.7)}
-            for name, (on, _, _) in others.items():
+            for name, (on, *_) in others.items():
                 fns[name] = lambda on=on, pl=planes, sc=sc: on(*pl, sc)
                 gi, gv = fns[name]()
                 if not (torch.equal(gi, wi) and torch.equal(gv, wv)):

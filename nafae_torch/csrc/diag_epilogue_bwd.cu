@@ -21,14 +21,27 @@
 // kernel reads 0.2 MB of residuals (config4, f32) instead of re-reading u and
 // recomputing 140 MFLOP. dw and dv are f32.
 //
-// Design: one launch, two kinds of block, grid (T + K, B). Block (t, b) with
-// t < T writes dv[b, t] whole: the video's words and the rounded df rows of
-// the frame sit in shared memory, and each thread sums, for its (region,
-// 4 columns), over the words in order. Block (T + k, b) writes dw[b, k]:
-// thread (g, q) sums the rows n = g, g + G, ... of the video's T*R regions
-// for 4 columns q, and the G partial sums are added in a fixed order. No
-// float atomics: every output has one writer and one order of summation, so
-// the f32 gradient is the same on every run.
+// Design: one launch, two kinds of block, grid (T + S, B), 256 threads.
+//
+//   dv     block (t, b), t < T, writes dv[b, t] whole and reads no v: the
+//          video's words (f32), the frame's rounded df rows (f and C[c*]
+//          read once) and ds [K, 32 regions], made once from d and dctx, sit
+//          in shared memory; each thread takes two regions x 4 columns and
+//          sums over the words in order, then adds the df of each word
+//          whose r* is that region.
+//   dw     block (T + s, b) writes columns [32 s, 32 s + 32) of dw[b] for
+//          all K words: the product ds [K, T*R] . v[b] [T*R, E] of one
+//          video on one column slice, so v is read once in all (S = E/32
+//          slices). ds of 8 words x 512 rows at a time is staged in shared
+//          memory (16 independent loads a row in flight); thread (row group
+//          g, quad) takes the rows g, g + 32, ... with 8 words x 4 columns
+//          of accumulators in registers, and the 32 row groups' sums meet
+//          by shuffles within a warp and then across the 8 warps in a
+//          fixed order.
+//
+// 448 blocks at config4 (320 dv + 128 dw), one wave at 4 blocks an SM (64
+// registers a thread). No float atomics: every output has one writer and
+// one order of summation, so the f32 gradient is the same on every run.
 //
 // Bound on an H100 SXM (config4 training shapes B=16, K=8, T=20, R=20,
 // E=256, f32): ~13 MB moved (v read and dv written, 6.6 MB each; w, f, d,
@@ -36,7 +49,9 @@
 // = 52 MFLOP, ~0.8 us at 67 TFLOP/s: bound by bytes. These count every
 // region as in the ctx mask; v is needed only where ds can be nonzero (the
 // mask) and the centers only at c*, so chip_smoke.py counts the bound from a
-// batch's masks. PERF.md has its measured times.
+// batch's masks. What is left above it: the launch and one block's chain
+// (the staging loads, then the sums and dv's 20 KB of stores a frame).
+// PERF.md has its measured times.
 
 #include "ctx_mix_common.cuh"
 
@@ -45,9 +60,194 @@ namespace {
 using namespace nafae_ctx;
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRows = 32;       // dv blocks: regions of a chunk
+constexpr int kWords = 8;       // dw blocks: words of a pass
+constexpr int kQuads = 8;       // dw blocks: 4-column quads of a slice
+constexpr int kGroupsRows = kThreads / kQuads;   // dw blocks: 32 row groups
+constexpr int kSpan = 512;      // dw blocks: rows (t, r) of ds staged at once
+
+// dv of frame t: block (t, b).
+template <typename Tin>
+__device__ __forceinline__ void dv_block(
+    float* __restrict__ smem, const Tin* __restrict__ w,
+    const Tin* __restrict__ v, const float* __restrict__ centers,
+    const float* __restrict__ dres, const int* __restrict__ rstar,
+    const int* __restrict__ cstar, const float* __restrict__ f,
+    const float* __restrict__ dctx, const float* __restrict__ dclu,
+    float* __restrict__ dv, int b, int t, int K, int T, int R, int E) {
+  const size_t bt = (size_t)b * T + t;
+  const int e4 = E >> 2;
+  float* ws = smem;                   // [K][E]      words
+  float* dfs = ws + K * E;            // [K][E]      the cluster pull df
+  float* dsm = dfs + K * E;           // [K][kRows]  ds of a chunk of regions
+  float* g = dsm + K * kRows;         // [K]         2 dctx, dctx rounded
+  int* rs = reinterpret_cast<int*>(g + K);    // [K] r*
+  stage_frame(ws, w + (size_t)b * K * E, K, E, E);
+  for (int p = threadIdx.x; p < K * e4; p += kThreads) {
+    const int k = p / e4;
+    const int q = p - k * e4;
+    const size_t o = ((size_t)b * K + k) * T + t;
+    const float s2 = 2.f * dclu[o];
+    const float4 x = reinterpret_cast<const float4*>(f + (bt * K + k) * E)[q];
+    const float4 c =
+        reinterpret_cast<const float4*>(centers + (size_t)cstar[o] * E)[q];
+    reinterpret_cast<float4*>(dfs + k * E)[q] = make_float4(
+        as_operand(s2 * (x.x - as_operand(c.x, v)), v),
+        as_operand(s2 * (x.y - as_operand(c.y, v)), v),
+        as_operand(s2 * (x.z - as_operand(c.z, v)), v),
+        as_operand(s2 * (x.w - as_operand(c.w, v)), v));
+  }
+  if ((int)threadIdx.x < K) {
+    const size_t o = ((size_t)b * K + threadIdx.x) * T + t;
+    g[threadIdx.x] = 2.f * as_operand(dctx[o], v);
+    rs[threadIdx.x] = rstar[o];
+  }
+  for (int r0 = 0; r0 < R; r0 += kRows) {
+    const int rc = min(kRows, R - r0);
+    __syncthreads();                  // g staged; the last chunk's readers done
+    for (int p = threadIdx.x; p < K * rc; p += kThreads) {
+      const int k = p / rc;
+      const int j = p - k * rc;
+      dsm[k * kRows + j] = as_operand(
+          g[k] * dres[(((size_t)b * K + k) * T + t) * R + r0 + j], v);
+    }
+    __syncthreads();
+    const int pairs = (rc + 1) >> 1;
+    for (int p = threadIdx.x; p < pairs * e4; p += kThreads) {
+      const int jp = p / e4;
+      const int q = p - jp * e4;
+      const int j0 = 2 * jp, j1 = j0 + 1;    // j1 < kRows: dsm has the slot
+      float4 a0 = make_float4(0.f, 0.f, 0.f, 0.f), a1 = a0;
+      for (int k = 0; k < K; ++k) {
+        const float4 x = lds4(ws + k * E, q);
+        const float d0 = dsm[k * kRows + j0], d1 = dsm[k * kRows + j1];
+        a0.x = fmaf(d0, x.x, a0.x);
+        a0.y = fmaf(d0, x.y, a0.y);
+        a0.z = fmaf(d0, x.z, a0.z);
+        a0.w = fmaf(d0, x.w, a0.w);
+        a1.x = fmaf(d1, x.x, a1.x);
+        a1.y = fmaf(d1, x.y, a1.y);
+        a1.z = fmaf(d1, x.z, a1.z);
+        a1.w = fmaf(d1, x.w, a1.w);
+      }
+      for (int k = 0; k < K; ++k) {   // the cluster pull at r*, words in order
+        const int hit = rs[k] - r0;
+        if (hit == j0 || hit == j1) {
+          const float4 df = lds4(dfs + k * E, q);
+          if (hit == j0) {
+            a0.x += df.x;
+            a0.y += df.y;
+            a0.z += df.z;
+            a0.w += df.w;
+          } else {
+            a1.x += df.x;
+            a1.y += df.y;
+            a1.z += df.z;
+            a1.w += df.w;
+          }
+        }
+      }
+      float4* out = reinterpret_cast<float4*>(dv + (bt * R + r0) * E);
+      out[j0 * e4 + q] = a0;
+      if (j1 < rc) out[j1 * e4 + q] = a1;
+    }
+  }
+}
+
+// dw of the column slice s (quads [8 s, 8 s + 8)) of video b: block (T + s, b).
+template <typename Tin>
+__device__ __forceinline__ void dw_block(
+    float* __restrict__ smem, const Tin* __restrict__ v,
+    const float* __restrict__ dres, const float* __restrict__ dctx,
+    float* __restrict__ dw, int b, int s, int K, int T, int R, int E) {
+  const int e4 = E >> 2;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int qq = threadIdx.x & (kQuads - 1);
+  const int grp = threadIdx.x / kQuads;
+  const int q = s * kQuads + qq;
+  const bool qok = q < e4;
+  const int n_rows = T * R;
+  const Tin* vb = v + (size_t)b * n_rows * E;
+  float* dsv = smem;                      // [kWords][kSpan]
+  float4* red = reinterpret_cast<float4*>(dsv + kWords * kSpan);
+  //                                         [kWarps][kWords][kQuads]
+  for (int k0 = 0; k0 < K; k0 += kWords) {
+    float4 acc[kWords];
+#pragma unroll
+    for (int kk = 0; kk < kWords; ++kk)
+      acc[kk] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int n0 = 0; n0 < n_rows; n0 += kSpan) {
+      const int nc = min(kSpan, n_rows - n0);
+      __syncthreads();                // the last span's readers are done
+      // row j = threadIdx.x + 256 i of the span for the 8 words: 16
+      // independent loads a row, one division
+      for (int j = threadIdx.x; j < nc; j += kThreads) {
+        const int n = n0 + j;
+        const int tt = n / R;
+        float x[kWords];
+#pragma unroll
+        for (int kk = 0; kk < kWords; ++kk) {
+          const size_t bk = (size_t)b * K + min(k0 + kk, K - 1);
+          x[kk] = as_operand(2.f * as_operand(dctx[bk * T + tt], v) *
+                                 dres[bk * n_rows + n], v);
+        }
+#pragma unroll
+        for (int kk = 0; kk < kWords; ++kk)
+          dsv[kk * kSpan + j] = k0 + kk < K ? x[kk] : 0.f;
+      }
+      __syncthreads();
+      if (qok) {
+#pragma unroll 4
+        for (int j = grp; j < nc; j += kGroupsRows) {
+          const float4 x = load4(vb + (size_t)(n0 + j) * E, q);
+#pragma unroll
+          for (int kk = 0; kk < kWords; ++kk) {
+            const float a = dsv[kk * kSpan + j];
+            acc[kk].x = fmaf(a, x.x, acc[kk].x);
+            acc[kk].y = fmaf(a, x.y, acc[kk].y);
+            acc[kk].z = fmaf(a, x.z, acc[kk].z);
+            acc[kk].w = fmaf(a, x.w, acc[kk].w);
+          }
+        }
+      }
+    }
+    // the warp's 4 row groups (lane bits 3 and 4), then the 8 warps in order
+#pragma unroll
+    for (int kk = 0; kk < kWords; ++kk) {
+#pragma unroll
+      for (int o = 8; o < 32; o <<= 1) {
+        acc[kk].x += __shfl_xor_sync(0xffffffffu, acc[kk].x, o);
+        acc[kk].y += __shfl_xor_sync(0xffffffffu, acc[kk].y, o);
+        acc[kk].z += __shfl_xor_sync(0xffffffffu, acc[kk].z, o);
+        acc[kk].w += __shfl_xor_sync(0xffffffffu, acc[kk].w, o);
+      }
+      if (lane < kQuads) red[(warp * kWords + kk) * kQuads + lane] = acc[kk];
+    }
+    __syncthreads();
+    if (threadIdx.x < kWords * kQuads) {
+      const int kk = threadIdx.x / kQuads;
+      const int q2 = s * kQuads + (threadIdx.x & (kQuads - 1));
+      float4 sum = red[kk * kQuads + (threadIdx.x & (kQuads - 1))];
+#pragma unroll
+      for (int wi = 1; wi < kWarps; ++wi) {
+        const float4 x = red[(wi * kWords + kk) * kQuads +
+                             (threadIdx.x & (kQuads - 1))];
+        sum.x += x.x;
+        sum.y += x.y;
+        sum.z += x.z;
+        sum.w += x.w;
+      }
+      if (k0 + kk < K && q2 < e4)
+        reinterpret_cast<float4*>(dw + ((size_t)b * K + k0 + kk) * E)[q2] = sum;
+    }
+    __syncthreads();                  // red is read
+  }
+}
 
 template <typename Tin>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 4)
 diag_bwd_kernel(const Tin* __restrict__ w,          // [B, K, E]
                 const Tin* __restrict__ v,          // [B, T, R, E]
                 const float* __restrict__ centers,  // [Kc, E]
@@ -62,101 +262,30 @@ diag_bwd_kernel(const Tin* __restrict__ w,          // [B, K, E]
                 int K, int T, int R, int E) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.y;
-  const int e4 = E >> 2;
-
-  if ((int)blockIdx.x < T) {          // dv of frame t
-    const int t = blockIdx.x;
-    const size_t bt = (size_t)b * T + t;
-    const int ld = E + 4;
-    float* ws = smem;                 // [K][ld] words
-    float* dfs = ws + K * ld;         // [K][ld] rounded cluster pull df
-    float* g = dfs + K * ld;          // [K]     2 dctx, dctx rounded
-    int* rs = reinterpret_cast<int*>(g + K);   // [K] r*
-    stage_frame(ws, w + (size_t)b * K * E, K, E, ld);
-    if ((int)threadIdx.x < K) {
-      const size_t o = ((size_t)b * K + threadIdx.x) * T + t;
-      g[threadIdx.x] = 2.f * as_operand(dctx[o], v);
-      rs[threadIdx.x] = rstar[o];
-    }
-    for (int p = threadIdx.x; p < K * e4; p += blockDim.x) {
-      const int k = p / e4;
-      const int q = p - k * e4;
-      const size_t o = ((size_t)b * K + k) * T + t;
-      const float s2 = 2.f * dclu[o];
-      const float4 x = reinterpret_cast<const float4*>(f + (bt * K + k) * E)[q];
-      const float4 c =
-          reinterpret_cast<const float4*>(centers + (size_t)cstar[o] * E)[q];
-      reinterpret_cast<float4*>(dfs + k * ld)[q] = make_float4(
-          as_operand(s2 * (x.x - as_operand(c.x, v)), v),
-          as_operand(s2 * (x.y - as_operand(c.y, v)), v),
-          as_operand(s2 * (x.z - as_operand(c.z, v)), v),
-          as_operand(s2 * (x.w - as_operand(c.w, v)), v));
-    }
-    __syncthreads();
-    for (int p = threadIdx.x; p < R * e4; p += blockDim.x) {
-      const int r = p / e4;
-      const int q = p - r * e4;
-      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-      for (int k = 0; k < K; ++k) {
-        const float a = as_operand(
-            g[k] * dres[(((size_t)b * K + k) * T + t) * R + r], v);
-        const float4 x = reinterpret_cast<const float4*>(ws + k * ld)[q];
-        acc.x = fmaf(a, x.x, acc.x);
-        acc.y = fmaf(a, x.y, acc.y);
-        acc.z = fmaf(a, x.z, acc.z);
-        acc.w = fmaf(a, x.w, acc.w);
-      }
-      for (int k = 0; k < K; ++k)
-        if (rs[k] == r) {
-          const float4 x = reinterpret_cast<const float4*>(dfs + k * ld)[q];
-          acc.x += x.x;
-          acc.y += x.y;
-          acc.z += x.z;
-          acc.w += x.w;
-        }
-      reinterpret_cast<float4*>(dv + (bt * R + r) * E)[q] = acc;
-    }
-  } else {                            // dw of word k
-    const int k = blockIdx.x - T;
-    const int groups = blockDim.x / e4;
-    const int gi = threadIdx.x / e4;
-    const int q = threadIdx.x - gi * e4;
-    float4* part = reinterpret_cast<float4*>(smem);   // [groups][e4]
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (gi < groups) {
-      const size_t bk = (size_t)b * K + k;
-      for (int n = gi; n < T * R; n += groups) {
-        const int t = n / R;
-        const float gt = 2.f * as_operand(dctx[bk * T + t], v);
-        const float a = as_operand(gt * dres[bk * T * R + n], v);
-        const float4 x = load4(v + ((size_t)b * T * R + n) * E, q);
-        acc.x = fmaf(a, x.x, acc.x);
-        acc.y = fmaf(a, x.y, acc.y);
-        acc.z = fmaf(a, x.z, acc.z);
-        acc.w = fmaf(a, x.w, acc.w);
-      }
-      part[gi * e4 + q] = acc;
-    }
-    __syncthreads();
-    if (gi == 0) {                    // the partial sums in a fixed order
-      for (int j = 1; j < groups; ++j) {
-        const float4 x = part[j * e4 + q];
-        acc.x += x.x;
-        acc.y += x.y;
-        acc.z += x.z;
-        acc.w += x.w;
-      }
-      reinterpret_cast<float4*>(dw + ((size_t)b * K + k) * E)[q] = acc;
-    }
-  }
+  if ((int)blockIdx.x < T)
+    dv_block(smem, w, v, centers, dres, rstar, cstar, f, dctx, dclu, dv, b,
+             blockIdx.x, K, T, R, E);
+  else
+    dw_block(smem, v, dres, dctx, dw, b, blockIdx.x - T, K, T, R, E);
 }
 
+// An empty kernel: launched with a real kernel's grid, block and shared
+// memory it reads the floor that any kernel of that shape pays.
+__global__ void null_kernel() {}
+
 // Dynamic shared memory of one block, in bytes: the larger of the dv
-// blocks' (132,352 B at K = 32, E = 512) and the dw blocks' (4 KB).
+// blocks' (135,424 B at K = 32, E = 512; 17,472 B at config4) and the dw
+// blocks' (24,576 B).
 size_t smem_bytes(int K, int E) {
-  const size_t dv_part = (size_t)(2 * K * (E + 4) + 2 * K) * sizeof(float);
-  const size_t dw_part = (size_t)kThreads * sizeof(float4);
+  const size_t dv_part =
+      (size_t)(2 * K * E + K * kRows + 2 * K) * sizeof(float);
+  const size_t dw_part = (size_t)kWords * kSpan * sizeof(float) +
+                         (size_t)kWarps * kWords * kQuads * sizeof(float4);
   return dv_part > dw_part ? dv_part : dw_part;
+}
+
+dim3 grid_of(int B, int T, int E) {
+  return dim3(T + (E / 4 + kQuads - 1) / kQuads, B);
 }
 
 template <typename Tin>
@@ -169,10 +298,15 @@ int launch(const void* w, const void* v, const float* centers,
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(T + K, B), kThreads, smem, stream>>>(
+  kern<<<grid_of(B, T, E), kThreads, smem, stream>>>(
       static_cast<const Tin*>(w), static_cast<const Tin*>(v), centers, dres,
       rstar, cstar, f, dctx, dclu, dw, dv, K, T, R, E);
   return (int)cudaGetLastError();
+}
+
+bool bad_sizes(int B, int K, int T, int R, int E) {
+  return K < 1 || K > 32 || R < 1 || E < 4 || E % 4 != 0 || E > 512 ||
+         B < 0 || B > 65535 || T < 0;
 }
 
 }  // namespace
@@ -192,9 +326,7 @@ int nafae_diag_bwd(const void* w, const void* v, int is_bf16,
                    const int* cstar, const float* f, const float* dctx,
                    const float* dclu, float* dw, float* dv, int B, int K,
                    int T, int R, int E, void* stream) {
-  if (K < 1 || K > 32 || R < 1 || E < 4 || E % 4 != 0 || E > 512 || B < 0 ||
-      B > 65535 || T < 0)
-    return (int)cudaErrorInvalidValue;
+  if (bad_sizes(B, K, T, R, E)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16
@@ -202,6 +334,22 @@ int nafae_diag_bwd(const void* w, const void* v, int is_bf16,
                               dclu, dw, dv, B, K, T, R, E, s)
       : launch<float>(w, v, centers, dres, rstar, cstar, f, dctx, dclu, dw,
                       dv, B, K, T, R, E, s);
+}
+
+// Launches an empty kernel with the grid, block size and dynamic shared
+// memory that nafae_diag_bwd would use for these sizes: the launch floor the
+// measured times are judged against. Same limits and return value.
+int nafae_diag_bwd_floor(int is_bf16, int B, int K, int T, int R, int E,
+                         void* stream) {
+  (void)is_bf16;
+  if (bad_sizes(B, K, T, R, E) || B < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = smem_bytes(K, E);
+  cudaError_t err = cudaFuncSetAttribute(
+      null_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  null_kernel<<<grid_of(B, T, E), kThreads, smem,
+                static_cast<cudaStream_t>(stream)>>>();
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

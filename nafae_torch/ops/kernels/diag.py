@@ -16,6 +16,21 @@ Two kernels replace the TPU's in `nafae_tpu/ops/pallas/fused_diag.py`:
     diag_epilogue      K4f  _fwd_kernel   forward, keeping small residuals
     diag_epilogue_bwd  K4b  _bwd_kernel   backward, from those residuals
 
+K4f is two CUDA kernels a call: one normalises the centers once into a
+scratch the wrapper allocates (`chat`); the main kernel, launched as its
+programmatic dependent, runs one block of 3 frames an SM (a worker of 4 warps
+a frame). Each warp takes one region at a time for the 2 x 8 word dots, the
+words in registers and lanes over the columns, with one transposed
+butterfly across the warp; the 3 workers then share a ring of the
+normalised centers in shared memory for the cosine sims (f32: FFMA, a
+butterfly a center; bf16: `mma.sync` on the tensor cores), and r* and c*
+come from first-index (value, index) butterflies. K4b is one launch of two
+kinds of block: per frame, dv from the words, the frame's ds and df staged
+once (no v read); per video and 32-column slice, dw as ds [K, T·R] · v
+[T·R, E], so v is read once. Both are bound by bytes (PERF.md §6 has their
+bounds, times and the empty-kernel floors of their grids, `launch_floor_fwd`
+and `launch_floor_bwd`).
+
 The forward keeps d = (s − ŝ)·m [B,K,T,R], r* and c* [B,K,T] (0.2 MB at
 config4), so the backward neither re-reads u nor recomputes the cluster
 sims, where the TPU backward re-runs the whole forward. Selection ignores
@@ -25,7 +40,8 @@ f is returned stop-gradient. In bf16 mode the operands are bf16 with f32
 sums, and the plain versions round where the TPU kernels round: each ctx
 term (s−ŝ)²·m, the normalised centers and the target center in the
 forward; dctx, ds and df in the backward. The gradients are f32 until
-autograd casts them to the inputs' dtypes.
+autograd casts them to the inputs' dtypes. Every output has one order of
+sums and no float atomics, so two launches give the same bits.
 
 `diag_epilogue` sends CPU tensors to the plain versions; on CUDA tensors it
 launches the kernels or raises. `diag_epilogue_plain` is the plain version
@@ -109,8 +125,10 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("diag_epilogue")
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.nafae_diag_fwd.argtypes = [vp, vp, vp, i, vp, vp, vp, vp, vp, vp, vp,
-                                   vp, vp, vp, i, i, i, i, i, i, vp]
+                                   vp, vp, vp, vp, i, i, i, i, i, i, vp]
     lib.nafae_diag_fwd.restype = i
+    lib.nafae_diag_fwd_floor.argtypes = [i] * 7 + [vp]
+    lib.nafae_diag_fwd_floor.restype = i
     return lib
 
 
@@ -121,6 +139,8 @@ def _lib_bwd() -> ctypes.CDLL:
     lib.nafae_diag_bwd.argtypes = [vp, vp, i, vp, vp, vp, vp, vp, vp, vp, vp,
                                    vp, i, i, i, i, i, vp]
     lib.nafae_diag_bwd.restype = i
+    lib.nafae_diag_bwd_floor.argtypes = [i] * 6 + [vp]
+    lib.nafae_diag_bwd_floor.restype = i
     return lib
 
 
@@ -175,11 +195,12 @@ def launch_fwd(w, v, u, centers, fm, hc, rm):
     d = torch.empty((b, k, t, r), **f32)
     rstar = torch.empty((b, k, t), dtype=torch.int32, device=dev)
     cstar = torch.empty((b, k, t), dtype=torch.int32, device=dev)
+    chat = torch.empty((kc, e), dtype=v.dtype, device=dev)   # normalised C
     with torch.cuda.device(dev):
         err = lib.nafae_diag_fwd(
             w.data_ptr(), v.data_ptr(), u.data_ptr(),
             int(v.dtype == torch.bfloat16), centers.data_ptr(),
-            fm.data_ptr(), hc.data_ptr(),
+            chat.data_ptr(), fm.data_ptr(), hc.data_ptr(),
             rm.data_ptr() if rm is not None else None, ctx.data_ptr(),
             clu.data_ptr(), f.data_ptr(), d.data_ptr(), rstar.data_ptr(),
             cstar.data_ptr(), b, k, t, r, e, kc, _stream(dev))
@@ -218,6 +239,32 @@ def launch_bwd(w, v, centers, d, rstar, cstar, f, dctx, dclu):
     if b > 0:
         launches["diag_epilogue_bwd"] += 1
     return dw, dv
+
+
+def launch_floor_fwd(b: int, k: int, t: int, r: int, e: int, kc: int,
+                     bf16: bool, device) -> None:
+    """Launches empty kernels with the grids, block size and shared memory
+    that `launch_fwd` uses for these sizes (the second as the first's
+    programmatic dependent), on the current stream: the launch floor a
+    measured time of K4f is judged against. Not a launch of the kernel:
+    `launches` does not count it."""
+    with torch.cuda.device(device):
+        err = _lib().nafae_diag_fwd_floor(int(bf16), b, k, t, r, e, kc,
+                                          _stream(device))
+    if err != 0:
+        raise RuntimeError(f"diag_epilogue floor launch failed: "
+                           f"cudaError_t {err}")
+
+
+def launch_floor_bwd(b: int, k: int, t: int, r: int, e: int, bf16: bool,
+                     device) -> None:
+    """The same for `launch_bwd` (K4b): one empty kernel of its grid."""
+    with torch.cuda.device(device):
+        err = _lib_bwd().nafae_diag_bwd_floor(int(bf16), b, k, t, r, e,
+                                              _stream(device))
+    if err != 0:
+        raise RuntimeError(f"diag_epilogue_bwd floor launch failed: "
+                           f"cudaError_t {err}")
 
 
 class DiagEpilogue(torch.autograd.Function):

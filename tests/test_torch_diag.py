@@ -2,8 +2,11 @@
 JAX package's `fused_diag.diag_epilogue_pallas` (K4f/K4b in interpret mode,
 as tests/test_pallas.py runs them), on the same numpy inputs.
 
-Held, at test_pallas.py:358's shapes and limits and at config4-like ones
-(K = 8, R = 20, an all-masked frame, a frame without context): ctx_kt and
+Held, at test_pallas.py:358's shapes and limits, at config4-like ones
+(K = 8, R = 20, an all-masked frame, a frame without context) and at the
+CUDA kernels' limits and edges in small sizes (K = 1 and 32, E = 4 and
+512, R = 1 and 33, Kc = 1 and 130, T = 1, exact region and center ties at
+3 and 35, a video with no valid frame): ctx_kt and
 clu_kt within 2e-5, f within 1e-6, and dw, dv of a masked weighted sum of
 ctx and clu within 3e-5, for both the plain version and the wrapper on CPU
 tensors (which takes the plain version). The selection ignores frame
@@ -27,7 +30,23 @@ from nafae_torch.ops.kernels import diag as D
 CASES = {                       # B, K, T, R, E, Kc
     "pallas_test": (3, 5, 6, 7, 32, 11),
     "config4_like": (2, 8, 5, 20, 16, 9),
+    # the kernels' limits and edges, small: K = 1 and 32, E = 4 and 512,
+    # R = 1 and 33 (one past a chunk of 32 regions), Kc = 1 and 130, T = 1
+    "k1": (2, 1, 4, 6, 16, 5),
+    "k32": (2, 32, 3, 5, 16, 7),
+    "e4": (2, 3, 4, 6, 4, 5),
+    "e512": (2, 2, 2, 3, 512, 5),
+    "r1": (2, 3, 4, 1, 16, 5),
+    "r33": (2, 3, 3, 33, 16, 5),
+    "kc1": (2, 3, 4, 6, 16, 1),
+    "kc130": (2, 3, 3, 6, 16, 130),
+    "t1": (2, 3, 1, 6, 16, 5),
+    # exact ties between regions 3 and 35 and between centers 3 and 35
+    # (across 32: the first must win), and a video with no valid frame
+    "ties_dead_video": (2, 3, 3, 36, 16, 36),
 }
+TIES = {"ties_dead_video": 35}   # case -> later index of tied regions, centers
+DEAD = {"ties_dead_video"}       # cases whose video 1 has no valid frame
 DA, DB = 0.7, 1.3               # weights of the two losses in the sum
 
 
@@ -43,8 +62,16 @@ def _inputs(case, seed=0):
     rm = (rng.rand(b, t, r) > 0.2).astype(np.float32)
     hc = (rng.rand(b, t) > 0.3).astype(np.float32)
     wm = (rng.rand(b, k) > 0.2).astype(np.float32)
-    fm[0, 1] = hc[0, 1] = 1.0
-    rm[0, 1, :] = 0.0                  # a valid frame with no valid region
+    f1 = min(1, t - 1)
+    fm[0, f1] = hc[0, f1] = 1.0
+    rm[0, f1, :] = 0.0                 # a valid frame with no valid region
+    if case in TIES:                   # duplicate rows: exact ties
+        later = TIES[case]
+        v[:, :, later] = v[:, :, later - 32]
+        rm[:, :, later] = rm[:, :, later - 32]
+        centers[later] = centers[later - 32]
+    if case in DEAD:
+        fm[1] = 0.0
     return w, v, u, centers, fm, rm, hc, wm
 
 
