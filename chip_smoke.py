@@ -73,7 +73,25 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    1e-3); `extract_segments` output must load through SegmentDataset and
    equal the inline detector's features at f16 rounding; times of K2 and
    K5 (kernel, plain, bound) and of one config-5 step of each run, with
-   the frames' copy, device busy and idle share, and peak memory.
+   the frames' copy, device busy and idle share, and peak memory;
+10. config 5 from real-format weights and annotations (main path 6): a
+   faster-rcnn.pytorch VGG16 checkpoint, a torchvision resnet50 one, a
+   YouCook2 annotation file, a YouCook2-BB box file (phase 9's planted
+   boxes) and a GloVe-style vector file, all written from seeds; the VGG16
+   checkpoint loaded by the port's converter on the card and on the CPU
+   (equal bit for bit); `fit` on config5 with `detector.backbone=vgg16
+   detector.weights=<.pth>` at full width: 6 steps with a bf16 detector and
+   `detector.roi_impl=pallas` (K2 and K5 once a step) and 4 in f32 at
+   B=8 (VGG_F32_CUT) with `model.word_vectors` and
+   `loss.kmeans_init=plusplus` (K2 once a step), each lowering the loss
+   with exact launch counts; K2 (survivors exactly)
+   and K5 (C = 512, f32 and bf16) against their plain versions on the
+   first batch's VGG16 inputs; the 128x128 inline VGG16 step on the card
+   and on the CPU; `python -m nafae_torch.extract --youcook2-json ...
+   --yc2bb-json ... --ckpt <resnet50 .pth>` on the card, its output read
+   with ground truth and evaluated (config1) with equal hits on the card
+   and CPU; times of K2 and K5 on the VGG16 inputs and of one VGG16
+   config-5 step, f32 and bf16, with idle share and peak memory.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -92,6 +110,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from dataclasses import replace
 
 import numpy as np
 
@@ -177,6 +196,25 @@ C5_CPU = {"image": 128, "batch": 2, "frames": 4, "segments": 4}
 # which moves a delta, times a 512-pixel anchor, by ~1e-3 pixel
 C5_BOX_TOL = 1e-2
 C5_EXTRACT = 3              # segments extracted and held against inline
+# phase 10, config 5 from a converted checkpoint: the VGG16 detector at the
+# preset's widths (conv5_3 [40,40,512], 15 anchors a cell, R=20, fc6/fc7 ->
+# D=4096); per run its overrides and steps (depth is cut, widths are not);
+# VGG_SEEDED also seeds word_emb from a vector file and the centers by
+# k-means++; VGG_VAL segments form the YouCook2 file's validation subset
+VGG_OVERRIDES = ["detector.backbone=vgg16", "detector.rpn_channels=512",
+                 "model.feat_dim=4096"]
+# the f32 VGG16 step at B=16 needs two 31.25 GiB maps at once (conv1_1's
+# and conv1_2's), and the caching allocator's segments, split by the
+# tensors a step keeps, do not hold a second one (CUDA out of memory in
+# fit, 33.8 GiB allocated and 31.3 GiB reserved but free): f32 training
+# runs at B=8; the kernels are still held on the B=16 batch's detector
+# inputs (a forward alone fits)
+VGG_F32_CUT = ["data.batch_size=8"]
+VGG_RUNS = {"bf16_pallas_roi": (["detector.dtype=bfloat16",
+                                 "detector.roi_impl=pallas"], 6),
+            "float32": (VGG_F32_CUT, 4)}
+VGG_SEEDED = "float32"
+VGG_VAL = 8
 # K5 against plain: the same weights (built in the same f32 order) and f32
 # sums in another order: |err| <= rtol·|plain| + atol·max|plain|
 K5_TOL = (1e-5, 1e-6)
@@ -1148,7 +1186,9 @@ def write_c5_videos(root: str, n: int, size: int, seed: int) -> str:
     """Planted-signal videos (uncompressed AVI at 1 fps, written with the
     port's own writer) and their segments.jsonl: each segment names 1-8
     object classes, and each of its 4-20 frames shows a fixed texture of
-    each named class at a random place on a blocky background."""
+    each named class at a random place on a blocky background. The planted
+    boxes go beside it, as boxes_<size>.json: {segment id: {class: [[x1,
+    y1, x2, y2] a frame]}}."""
     from nafae_torch.data.avi import write_avi
     from nafae_torch.data.vocab import DEFAULT_CLASSES
 
@@ -1157,7 +1197,7 @@ def write_c5_videos(root: str, n: int, size: int, seed: int) -> str:
     tex = np.repeat(np.repeat(rng.randint(0, 256, (len(DEFAULT_CLASSES), 8, 8,
                                                     3)), patch // 8 + 1, 1),
                     patch // 8 + 1, 2)[:, :patch, :patch].astype(np.uint8)
-    lines = []
+    lines, planted = [], {}
     for i in range(n):
         t = int(rng.randint(C5_FRAMES[0], C5_FRAMES[1] + 1))
         classes = rng.choice(len(DEFAULT_CLASSES), int(rng.randint(1, 9)),
@@ -1166,12 +1206,16 @@ def write_c5_videos(root: str, n: int, size: int, seed: int) -> str:
         base = np.repeat(np.repeat(rng.randint(60, 196, (20, 20, 3)), cell, 0),
                          cell, 1)[:size, :size].astype(np.uint8)
         frames = []
+        boxes = {DEFAULT_CLASSES[c]: [] for c in classes}
         for _ in range(t):
             f = base.copy()
             for c in classes:
                 y, x = rng.randint(0, size - patch, 2)
                 f[y:y + patch, x:x + patch] = tex[c]
+                boxes[DEFAULT_CLASSES[c]].append(
+                    [int(x), int(y), int(x + patch), int(y + patch)])
             frames.append(f)
+        planted[f"c5_{size}_{i:02d}"] = boxes
         path = os.path.join(root, f"c5_{size}_{i:02d}.avi")
         write_avi(path, frames, 1.0)
         words = " and ".join(DEFAULT_CLASSES[c].replace("_", " ")
@@ -1182,6 +1226,8 @@ def write_c5_videos(root: str, n: int, size: int, seed: int) -> str:
     ann = os.path.join(root, f"segments_{size}.jsonl")
     with open(ann, "w") as f:
         f.write("\n".join(lines) + "\n")
+    with open(os.path.join(root, f"boxes_{size}.json"), "w") as f:
+        json.dump(planted, f)
     return ann
 
 
@@ -1487,20 +1533,26 @@ def check_roi_align(torch, feat, boxes) -> dict:
     return errs
 
 
-def c5_launches(run: str) -> dict[str, int]:
-    """Launches of each kernel in one config-5 step of `run`."""
+def c5_launches(cfg) -> dict[str, int]:
+    """Launches of each kernel in one config-5 step of cfg: K1fr and K1br,
+    K2, and K5 with detector.roi_impl=pallas."""
     want = per_step_launches("auto")
     want["nms"] = 1
-    want["roi_align"] = 1 if run == "pallas_roi" else 0
+    want["roi_align"] = 1 if cfg.detector.roi_impl == "pallas" else 0
     return want
 
 
-def train_c5(torch, ann: str, tmp: str) -> dict:
-    """Config-5 training at full width through fit, one run each of
-    C5_RUNS, each read with the launch counts zeroed just before it."""
+def train_c5(torch, ann: str, tmp: str, runs=None, tag: str = "") -> dict:
+    """Config-5 training at full width through fit, one run each of `runs`
+    ({name: (overrides, steps)}; by default C5_RUNS for C5_STEPS), each
+    read with the launch counts zeroed just before it."""
     out = {}
-    for run, steps in C5_STEPS.items():
-        cfg = c5_cfg(ann, os.path.join(tmp, f"ck5_{run}"), run, steps)
+    runs = runs or {run: (C5_RUNS[run], steps)
+                    for run, steps in C5_STEPS.items()}
+    for run, (extra, steps) in runs.items():
+        cfg = c5_cfg(ann, os.path.join(tmp, f"ck5{tag}_{run}"), "float32",
+                     steps, extra)
+        label = f"{tag.strip('_')} {run}".strip()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()                           # main path starts here
@@ -1508,38 +1560,42 @@ def train_c5(torch, ann: str, tmp: str) -> dict:
         logs = run_fit(torch, cfg)
         wall = time.perf_counter() - t0
         counts = read_counts()                  # ... and ends here
-        want = {k: n * steps for k, n in c5_launches(run).items()}
+        want = {k: n * steps for k, n in c5_launches(cfg).items()}
         if counts != want:
-            fail(f"config-5 training ({run}) launched {counts}, expected "
-                 f"{want}")
+            fail(f"config-5 training ({label}) launched {counts}, "
+                 f"expected {want}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         first = statistics.mean(m["loss"] for m in logs[:2])
         last = statistics.mean(m["loss"] for m in logs[-2:])
-        log(f"trained config5 {steps} steps ({run}: detector "
-            f"{cfg.detector.dtype}, roi_impl {cfg.detector.roi_impl}, "
+        log(f"trained config5 {steps} steps ({label}: "
+            f"{cfg.detector.backbone} detector {cfg.detector.dtype}, "
+            f"weights {os.path.basename(cfg.detector.weights) or 'random'}, "
+            f"word_vectors {bool(cfg.model.word_vectors)}, kmeans_init "
+            f"{cfg.loss.kmeans_init}, roi_impl {cfg.detector.roi_impl}, "
             f"nms_impl {cfg.detector.nms_impl}) in {wall:.2f} s incl. "
             f"set-up: loss {logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f} "
             f"(mean of first 2 {first:.5f}, last 2 {last:.5f}); launches "
             f"{counts}; peak device memory {peak:.2f} GiB")
         if not last < first:
-            fail(f"config-5 training ({run}) did not lower the loss: "
+            fail(f"config-5 training ({label}) did not lower the loss: "
                  f"{first} -> {last}")
         out[run] = {"logs": logs, "launches": counts, "peak_gib": peak,
                     "wall_s": wall}
     return out
 
 
-def check_c5_cpu(torch, ann_small: str, tmp: str) -> dict:
+def check_c5_cpu(torch, ann_small: str, tmp: str, extra=()) -> dict:
     """One inline config-5 step at a reduced image size (C5_CPU) on the card
-    and on the CPU: the same frames, detector weights and initial state.
-    Proposals must agree where a frame's surviving scores are clear of ties
-    (boxes within C5_BOX_TOL pixels), the metrics within CPU_METRIC_TOL."""
+    and on the CPU: the same frames, detector weights and initial state
+    (`extra`: more overrides, the VGG16 detector's). Proposals must agree
+    where a frame's surviving scores are clear of ties (boxes within
+    C5_BOX_TOL pixels), the metrics within CPU_METRIC_TOL."""
     from nafae_torch.train import TrainState, batch_to_device, train_step
 
     cfg = c5_cfg(ann_small, os.path.join(tmp, "ck5_cpu"), "float32", 1,
                  [f"detector.image_size={C5_CPU['image']}",
                   f"data.batch_size={C5_CPU['batch']}",
-                  f"data.max_frames={C5_CPU['frames']}"])
+                  f"data.max_frames={C5_CPU['frames']}", *extra])
     batch = c5_first_batch(cfg)
     cpu_det = c5_detector(torch, cfg, "cpu")
     gpu_det = c5_detector(torch, cfg, "cuda")
@@ -1574,7 +1630,8 @@ def check_c5_cpu(torch, ann_small: str, tmp: str) -> dict:
             fail(f"config-5 step {k}: card {g} vs CPU {c}")
         worst = max(worst, abs(g - c) / max(abs(c), 1e-30))
     feat_err = (res["cuda"]["feats"] - res["cpu"]["feats"])[clear].abs().max()
-    log(f"config-5 card vs CPU at image_size {C5_CPU['image']}, B="
+    log(f"config-5 card vs CPU ({cfg.detector.backbone}) at image_size "
+        f"{C5_CPU['image']}, B="
         f"{C5_CPU['batch']}, T={C5_CPU['frames']}: {int(clear.sum())} of "
         f"{clear.numel()} frames clear of score ties, region_valid equal "
         f"{valid_equal} (where clear: yes), boxes within {box_err:.3e} px "
@@ -1628,6 +1685,239 @@ def check_c5_extract(torch, ann: str, tmp: str) -> dict:
     return {"segments": len(anns), "wall_s": wall, "max_rel_diff": worst}
 
 
+# ------------------------------------------------- config 5, real weights
+
+
+def write_vgg_pth(torch, path: str, seed: int) -> None:
+    """A faster-rcnn.pytorch VGG16 checkpoint of seeded random weights:
+    RCNN_base (vgg16.features[:-1]) and RCNN_top (fc6, fc7) He-normal with
+    small biases, the 512-wide RPN (2A bg/fg logits, 4A deltas, A = 15)
+    and a 68-way detection head, nested under "model" with DataParallel's
+    "module." prefixes, as the lineage saves it."""
+    from nafae_torch.models.detector.vgg import VGG16_CONV_LAYERS
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def he(*shape):
+        fan_in = int(np.prod(shape[1:]))
+        return torch.randn(*shape, generator=gen) * (2.0 / fan_in) ** 0.5
+
+    def small(*shape, std=0.01):
+        return torch.randn(*shape, generator=gen) * std
+
+    sd, cin, a = {}, 3, 15
+    for li, cout in VGG16_CONV_LAYERS:
+        sd[f"RCNN_base.{li}.weight"] = he(cout, cin, 3, 3)
+        sd[f"RCNN_base.{li}.bias"] = small(cout)
+        cin = cout
+    sd["RCNN_top.0.weight"] = he(4096, 512 * 7 * 7)
+    sd["RCNN_top.0.bias"] = small(4096)
+    sd["RCNN_top.3.weight"] = he(4096, 4096)
+    sd["RCNN_top.3.bias"] = small(4096)
+    sd["RCNN_rpn.RPN_Conv.weight"] = he(512, 512, 3, 3)
+    sd["RCNN_rpn.RPN_Conv.bias"] = small(512)
+    sd["RCNN_rpn.RPN_cls_score.weight"] = small(2 * a, 512, 1, 1)
+    sd["RCNN_rpn.RPN_cls_score.bias"] = small(2 * a)
+    sd["RCNN_rpn.RPN_bbox_pred.weight"] = small(4 * a, 512, 1, 1, std=1e-3)
+    sd["RCNN_rpn.RPN_bbox_pred.bias"] = torch.zeros(4 * a)
+    sd["RCNN_cls_score.weight"] = small(68, 4096)
+    sd["RCNN_cls_score.bias"] = torch.zeros(68)
+    sd["RCNN_bbox_pred.weight"] = small(68 * 4, 4096, std=1e-3)
+    sd["RCNN_bbox_pred.bias"] = torch.zeros(68 * 4)
+    torch.save({"model": {"module." + k: v for k, v in sd.items()},
+                "epoch": 1}, path)
+
+
+def write_resnet50_pth(torch, path: str, seed: int) -> None:
+    """A torchvision resnet50 state dict of seeded random weights:
+    He-normal convolutions, BN statistics near the identity (each block's
+    last BN scaled down, so that the residual sums stay moderate)."""
+    gen = torch.Generator().manual_seed(seed)
+    sd = {}
+
+    def conv(name, cout, cin, k):
+        sd[name + ".weight"] = (torch.randn(cout, cin, k, k, generator=gen)
+                                * (2.0 / (cin * k * k)) ** 0.5)
+
+    def bn(name, c, gain=1.0):
+        sd[name + ".weight"] = gain * (0.5 + 0.5 * torch.rand(c, generator=gen))
+        sd[name + ".bias"] = 0.1 * torch.randn(c, generator=gen)
+        sd[name + ".running_mean"] = 0.1 * torch.randn(c, generator=gen)
+        sd[name + ".running_var"] = 0.5 + torch.rand(c, generator=gen)
+
+    conv("conv1", 64, 3, 7)
+    bn("bn1", 64)
+    cin = 64
+    for stage, blocks in enumerate((3, 4, 6, 3), start=1):
+        mid = 64 * 2 ** (stage - 1)
+        for b in range(blocks):
+            p, c0 = f"layer{stage}.{b}", (cin if b == 0 else mid * 4)
+            conv(p + ".conv1", mid, c0, 1)
+            bn(p + ".bn1", mid)
+            conv(p + ".conv2", mid, mid, 3)
+            bn(p + ".bn2", mid)
+            conv(p + ".conv3", mid * 4, mid, 1)
+            bn(p + ".bn3", mid * 4, gain=0.2)
+            if b == 0:
+                conv(p + ".downsample.0", mid * 4, c0, 1)
+                bn(p + ".downsample.1", mid * 4)
+        cin = mid * 4
+    torch.save(sd, path)
+
+
+def write_release_files(root: str, ann: str, seed: int
+                        ) -> tuple[str, str, str]:
+    """From config 5's planted-signal segments (`ann` and the planted boxes
+    beside it): a YouCook2 annotation file (the first VGG_VAL segments in
+    the validation subset, the rest training, each over its video's whole
+    span), a YouCook2-BB file with each named class's planted box in every
+    frame (at the videos' resolution), and a GloVe-style text file of
+    256-d vectors for every other class. Returns the three paths."""
+    from nafae_torch.data.avi import read_avi
+    from nafae_torch.data.vocab import DEFAULT_CLASSES
+
+    with open(ann) as f:
+        segs = [json.loads(ln) for ln in f if ln.strip()]
+    with open(ann.replace("segments_", "boxes_").replace(".jsonl",
+                                                         ".json")) as f:
+        planted = json.load(f)
+    yc2, bb = {}, {}
+    for i, seg in enumerate(segs):
+        _, n, frame = read_avi(seg["video"])
+        h, w = frame(0).shape[:2]
+        vid = seg["id"]
+        yc2[vid] = {"duration": float(n),
+                    "subset": "validation" if i < VGG_VAL else "training",
+                    "annotations": [{"id": 0, "segment": [0, n - 1],
+                                     "sentence": seg["sentence"]}]}
+        bb[vid] = {"rwidth": w, "rheight": h, "segments": {"0": {
+            "objects": [{"label": cls, "boxes": [
+                {"x1": x1, "y1": y1, "x2": x2, "y2": y2, "outside": 0}
+                for x1, y1, x2, y2 in frames]}
+                for cls, frames in planted[vid].items()]}}}
+    paths = [os.path.join(root, name) for name in
+             ("youcookii_annotations.json", "yc2_bb_annotations.json",
+              "vectors.txt")]
+    for path, db in zip(paths, (yc2, bb)):
+        with open(path, "w") as f:
+            json.dump({"database": db}, f)
+    rng = np.random.RandomState(seed)
+    with open(paths[2], "w") as f:
+        for cls in DEFAULT_CLASSES[::2]:
+            vec = rng.randn(256) / 16
+            f.write(cls + " " + " ".join(f"{x:.6f}" for x in vec) + "\n")
+    return tuple(paths)
+
+
+def check_vgg_load(torch, cfg) -> dict:
+    """The port's loader on cfg.detector.weights, on the card and on the
+    CPU, each into a VGG16 detector from the same random start: the two
+    state dicts must be equal bit for bit, key by key, and differ from the
+    start where the checkpoint has weights."""
+    from nafae_torch.models.detector.faster_rcnn import init_detector
+    from nafae_torch.utils.torch_convert import load_detector_weights
+
+    dc = replace(cfg.detector, weights="")
+    sds, secs = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = init_detector(dc, torch.Generator().manual_seed(SEED),
+                              device=dev)
+        start = model.backbone.Conv_0.weight.clone()
+        t0 = time.perf_counter()
+        load_detector_weights(cfg.detector.weights, model,
+                              num_scales=len(dc.anchor_scales),
+                              num_ratios=len(dc.anchor_ratios))
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        secs[dev] = time.perf_counter() - t0
+        if torch.equal(model.backbone.Conv_0.weight, start):
+            fail(f"load_detector_weights left conv1_1 as it was ({dev})")
+        sds[dev] = {k: v.cpu() for k, v in model.state_dict().items()}
+        del model
+    if set(sds["cuda"]) != set(sds["cpu"]):
+        fail("the loaded state dicts have other keys on the card and CPU")
+    differ = [k for k in sds["cpu"] if not torch.equal(sds["cuda"][k],
+                                                        sds["cpu"][k])]
+    if differ:
+        fail(f"the checkpoint loaded differently on the card: {differ[:5]}")
+    n = sum(v.numel() for v in sds["cpu"].values())
+    log(f"loaded the VGG16 faster-rcnn.pytorch checkpoint "
+        f"({os.path.getsize(cfg.detector.weights) / 1e6:.0f} MB, {n} "
+        f"numbers) on the card in {secs['cuda']:.2f} s and on the CPU in "
+        f"{secs['cpu']:.2f} s: {len(sds['cpu'])} tensors equal bit for bit")
+    return {"tensors": len(sds["cpu"]), "numbers": n, "load_s": secs}
+
+
+def check_release_extract(torch, tmp: str, ann: str, yc2: str, bb: str,
+                          ckpt: str) -> dict:
+    """`python -m nafae_torch.extract` as a user runs it on the release's
+    files: the YouCook2 annotations' validation subset, the YC2-BB ground
+    truth merged, the torchvision resnet50 checkpoint `ckpt` converted, on
+    the card. The output must load through SegmentDataset(with_gt=True)
+    and carry the planted boxes of `ann`'s videos as its ground truth (the
+    named classes as word ids, a box in every frame);
+    `evaluate_config` (config1) with config 5's f32 checkpoint on it must
+    give the same hit counts on the card and on the CPU."""
+    from nafae_torch.data.vocab import Vocab
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.evaluate import evaluate_config
+
+    root = os.path.join(tmp, "yc2x")
+    cmd = [sys.executable, "-m", "nafae_torch.extract", "--youcook2-json",
+           yc2, "--video-dir", tmp, "--video-ext", ".avi", "--subset", "val",
+           "--yc2bb-json", bb, "--ckpt", ckpt, "--out",
+           os.path.join(root, "val")]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"extract CLI failed ({run.returncode}): {run.stderr[-2000:]}")
+    printed = json.loads(run.stdout.strip().splitlines()[-1])
+    if printed.get("segments") != VGG_VAL or \
+            printed.get("gt_merged") != VGG_VAL:
+        fail(f"extract CLI printed {printed}; expected {VGG_VAL} segments, "
+             "each with ground truth merged")
+    ds = SegmentDataset(root, "val", 20, 20, 2048, 8, with_gt=True)
+    gt_pairs = sum(float(ds[i]["gt_mask"].sum()) for i in range(len(ds)))
+    if len(ds) != VGG_VAL or gt_pairs == 0:
+        fail(f"SegmentDataset(with_gt=True) read {len(ds)} segments with "
+             f"{gt_pairs} ground-truth pairs")
+    with open(ann.replace("segments_", "boxes_").replace(".jsonl",
+                                                         ".json")) as f:
+        planted = json.load(f)
+    vocab, box_err = Vocab(), 0.0
+    for meta in ds.index:
+        want = planted[meta["id"].rsplit("_", 1)[0]]
+        with np.load(os.path.join(root, "val", meta["file"])) as z:
+            ids, gtb, gtm = z["word_ids"], z["gt_boxes"], z["gt_mask"]
+        if list(ids) != [vocab.lookup(c) for c in want] or not gtm.all():
+            fail(f"{meta['id']}: merged word ids {list(ids)} / mask "
+                 f"{gtm.sum()} do not match the planted classes {list(want)}")
+        box_err = max(box_err, float(np.abs(
+            gtb - np.asarray(list(want.values()), np.float32)).max()))
+    if box_err > 1e-3:
+        fail(f"merged ground-truth boxes are {box_err} px off the planted")
+    cfg = eval_cfg(root, os.path.join(tmp, "ck5_float32"))
+    res = {d: evaluate_config(cfg, require_checkpoint=True, device=d)
+           for d in ("cuda", "cpu")}
+    hits = {d: round(r["box_acc_micro"] * r["num_annotations"])
+            for d, r in res.items()}
+    if res["cuda"]["num_annotations"] != res["cpu"]["num_annotations"] \
+            or hits["cuda"] != hits["cpu"]:
+        fail(f"eval of the extracted features: card {res['cuda']}, CPU "
+             f"{res['cpu']}")
+    log(f"extract CLI (--youcook2-json --subset val --yc2bb-json --ckpt "
+        f"resnet50) on the card in {wall:.1f} s incl. start-up: {printed}; "
+        f"ground truth = the planted boxes (within {box_err:.1e} px); "
+        f"config1 eval of config 5's f32 checkpoint on them: "
+        f"{res['cuda']['num_annotations']} annotations, hits card "
+        f"{hits['cuda']} / CPU {hits['cpu']}")
+    return {"printed": {k: v for k, v in printed.items() if k != "index"},
+            "wall_s": wall, "num_annotations": res["cuda"]["num_annotations"],
+            "hits": hits, "gt_pairs": gt_pairs, "gt_box_err_px": box_err}
+
+
 def roi_bound_ms(torch, feat, boxes, scale=1 / 16) -> tuple[float, str]:
     """Least time for K5 on these inputs: the feature cells some box of the
     frame reads (each once) and the boxes, plus the f32 output written
@@ -1666,69 +1956,89 @@ def nms_bound_ms(torch, scores, idx, valid) -> tuple[float, str]:
                  20 * int((wins * boxes).sum()), torch.float32)
 
 
-def c5_timings(torch, ann: str, tmp: str) -> dict:
-    """On the first config-5 batch (B=16, T=20, 640x640), for the f32 and
-    the bf16 detector: K2 and K5 against their plain versions on the
-    detector's own inputs, their device times (CUDA graphs), the plain
-    versions' (torch.profiler device time), bounds; then one training step
-    of each C5_RUNS run (c5_step_timings)."""
+def detector_kernel_times(torch, det, frames, label: str) -> dict:
+    """K2 and K5 on this detector's own inputs for `frames` [N,S,S,3]:
+    against their plain versions (survivors exactly; K5_TOL), their device
+    times (CUDA graphs), the plain versions' (torch.profiler device time)
+    and bounds; also the peak device memory of the detector's forward up to
+    its kernels' inputs (GiB above what was allocated before)."""
     from nafae_torch.ops import nms as P
     from nafae_torch.ops.kernels import nms as K2
     from nafae_torch.ops.kernels import roi_align as K5
 
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    planes, scores, feat, boxes = detector_inputs(torch, det, frames)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    fk = feat.contiguous()
+    del feat
+    res = {"detector_peak_gib": peak}
+    res["nms_err"], _, res["nms_continuation_rows"] = nms_vs_plain(
+        torch, label, *planes, scores, 0.7)
+    res["roi_align_err"] = roi_vs_plain(torch, label, fk, boxes, 1 / 16)
+    res["nms_ms"] = device_ms(torch, lambda: K2.launch(*planes, scores, 20,
+                                                       0.7))
+    res["nms_plain_ms"] = profile_forward(
+        torch, lambda: P.nms_planes(*planes, scores, 20, 0.7), reps=2)[1]
+    idx, valid = K2.launch(*planes, scores, 20, 0.7)
+    res["nms_bound_ms"], res["nms_bound_by"] = nms_bound_ms(torch, scores,
+                                                            idx, valid)
+    res["roi_align_ms"] = device_ms(
+        torch, lambda: K5.launch(fk, boxes, 1 / 16), reps=2, runs=11)
+    res["roi_align_plain_ms"] = profile_forward(
+        torch, lambda: K5.roi_align_plain(fk, boxes, 7, 1 / 16), reps=2)[1]
+    res["roi_align_bound_ms"], res["roi_align_bound_by"] = roi_bound_ms(
+        torch, fk, boxes)
+    res["shapes"] = {"rows": scores.shape[0], "anchors": scores.shape[1],
+                     "feat": list(fk.shape), "feat_dtype": str(fk.dtype),
+                     "boxes": list(boxes.shape)}
+    return res
+
+
+def c5_timings(torch, ann: str, tmp: str, extra=(), runs=None) -> dict:
+    """On the first config-5 batch (B=16, T=20, 640x640), for the f32 and
+    the bf16 detector (`extra`: more overrides): K2 and K5 on the
+    detector's own inputs (detector_kernel_times; keys of the bf16
+    detector end in _bf16); then one training step of each run of `runs`
+    ({name: overrides}, by default C5_RUNS; c5_step_timings)."""
     res = {}
-    cfg = c5_cfg(ann, os.path.join(tmp, "ck5_t"), "float32", 1000)
+    torch.cuda.empty_cache()    # no cached segment may hold the frames
+    cfg = c5_cfg(ann, os.path.join(tmp, "ck5_t"), "float32", 1000, extra)
     batch = c5_first_batch(cfg)
     frames = torch.from_numpy(batch["frames"]).cuda()
     frames = frames.reshape((-1,) + frames.shape[2:])
     res["valid_frames"] = int(batch["frame_mask"].sum())
     for tag, run in (("", "float32"), ("_bf16", "bfloat16")):
         det = c5_detector(torch, c5_cfg(ann, os.path.join(tmp, "ck5_t"), run,
-                                        1000))
-        planes, scores, feat, boxes = detector_inputs(torch, det, frames)
+                                        1000, extra))
+        times = detector_kernel_times(
+            torch, det, frames,
+            f"config5 {cfg.detector.backbone} {run} detector")
         del det
-        fk = feat.contiguous()
-        # each kernel against its plain version on the inputs it is timed on
-        res["nms_err" + tag], _, res["nms_continuation_rows" + tag] = \
-            nms_vs_plain(torch, f"config5 {run} detector", *planes, scores,
-                         0.7)
-        res["roi_align_err" + tag] = roi_vs_plain(
-            torch, f"config5 {run} detector", fk, boxes, 1 / 16)
-        res["nms_ms" + tag] = device_ms(
-            torch, lambda: K2.launch(*planes, scores, 20, 0.7))
-        res["nms_plain_ms" + tag] = profile_forward(
-            torch, lambda: P.nms_planes(*planes, scores, 20, 0.7), reps=2)[1]
-        idx, valid = K2.launch(*planes, scores, 20, 0.7)
-        res["nms_bound_ms" + tag], res["nms_bound_by" + tag] = \
-            nms_bound_ms(torch, scores, idx, valid)
-        res["roi_align_ms" + tag] = device_ms(
-            torch, lambda: K5.launch(fk, boxes, 1 / 16), reps=2, runs=11)
-        res["roi_align_plain_ms" + tag] = profile_forward(
-            torch, lambda: K5.roi_align_plain(fk, boxes, 7, 1 / 16),
-            reps=2)[1]
-        res["roi_align_bound_ms" + tag], res["roi_align_bound_by" + tag] = \
-            roi_bound_ms(torch, fk, boxes)
-        res["shapes" + tag] = {"rows": scores.shape[0],
-                               "anchors": scores.shape[1],
-                               "feat": list(fk.shape),
-                               "boxes": list(boxes.shape)}
-        del planes, scores, feat, fk, boxes
+        res.update({k + tag: v for k, v in times.items()})
         torch.cuda.empty_cache()
-    for run in C5_RUNS:
-        res.update(c5_step_timings(torch, ann, tmp, batch, run))
+    del frames
+    runs = runs or C5_RUNS
+    for run, more in runs.items():
+        res.update(c5_step_timings(torch, ann, tmp, batch, run,
+                                   [*extra, *more]))
     return res
 
 
-def c5_step_timings(torch, ann, tmp, batch, run) -> dict:
-    """One config-5 step of `run`: host to host (numpy batch in, metrics
-    ready), the same on a resident batch, the frames' copy alone, device
-    busy time and kernels by device time (torch.profiler). Keys end in
-    _<run>."""
+def c5_step_timings(torch, ann, tmp, batch, run, extra) -> dict:
+    """One config-5 step of `run` (the overrides `extra` on the preset):
+    host to host (numpy batch in, metrics ready), the same on a resident
+    batch, the frames' copy alone, device busy time and kernels by device
+    time (torch.profiler). Keys end in _<run>."""
     from nafae_torch.train import (TrainState, batch_to_device,
                                    make_optimizer, train_step)
 
     dev = torch.device("cuda")
-    cfg = c5_cfg(ann, os.path.join(tmp, "ck5_t"), run, 1000)
+    cfg = c5_cfg(ann, os.path.join(tmp, "ck5_t"), "float32", 1000, extra)
+    batch = {k: v[:cfg.data.batch_size] for k, v in batch.items()}
+    torch.cuda.empty_cache()
     det = c5_detector(torch, cfg)
     tx = make_optimizer(cfg)
     st = TrainState.create(cfg, device=dev)
@@ -1754,7 +2064,8 @@ def c5_step_timings(torch, ann, tmp, batch, run) -> dict:
         torch, lambda: train_step(st, tb, cfg, tx, det), reps=2)
     slots = int(np.prod(batch["frame_mask"].shape))
     t = "_" + run
-    res = {"step_host_ms" + t: statistics.median(host),
+    res = {"step_batch_size" + t: cfg.data.batch_size,
+           "step_host_ms" + t: statistics.median(host),
            "step_host_ms_resident" + t: statistics.median(resident),
            "step_h2d_ms" + t: statistics.median(h2d),
            "step_device_busy_ms" + t: busy, "step_device_ops" + t: ops,
@@ -2332,6 +2643,29 @@ def main() -> None:
         c5_cpu = check_c5_cpu(torch, ann_small, tmp)
         c5_x = check_c5_extract(torch, ann, tmp)
         t5m = c5_timings(torch, ann, tmp)
+
+        # config 5 from real-format weights and annotations (main path 6):
+        # the converted VGG16 detector trained through fit, card vs CPU,
+        # the release's files through the extract CLI and eval, times
+        t10 = time.perf_counter()
+        vgg_pth = os.path.join(tmp, "faster_rcnn_vgg16.pth")
+        rn_pth = os.path.join(tmp, "resnet50.pth")
+        write_vgg_pth(torch, vgg_pth, SEED + 10)
+        write_resnet50_pth(torch, rn_pth, SEED + 11)
+        yc2, bb, vectors = write_release_files(tmp, ann, SEED + 12)
+        log(f"wrote the VGG16 and resnet50 checkpoints and the release-format "
+            f"files in {time.perf_counter() - t10:.1f} s")
+        vgg = [*VGG_OVERRIDES, f"detector.weights={vgg_pth}"]
+        vgg_load = check_vgg_load(torch, c5_cfg(ann, tmp, "float32", 1, vgg))
+        seeded = [f"model.word_vectors={vectors}", "loss.kmeans_init=plusplus"]
+        c5v = train_c5(torch, ann, tmp, {
+            run: ([*vgg, *more, *(seeded if run == VGG_SEEDED else [])], n)
+            for run, (more, n) in VGG_RUNS.items()}, tag="_vgg")
+        c5v_cpu = check_c5_cpu(torch, ann_small, tmp, vgg)
+        c5v_x = check_release_extract(torch, tmp, ann, yc2, bb, rn_pth)
+        t10m = c5_timings(torch, ann, tmp, vgg, {
+            "vgg_float32": VGG_F32_CUT,
+            "vgg_bfloat16": ["detector.dtype=bfloat16"]})
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
         f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}); bf16 kernel "
@@ -2439,6 +2773,39 @@ def main() -> None:
             + "; ".join(f"{us:.1f} us {name}"
                         for name, us in t5m["step_kernels" + t]))
 
+    for tag, dt in (("", "f32"), ("_bf16", "bf16 detector")):
+        log(f"VGG16 config-5 kernels on the first batch's detector inputs "
+            f"{t10m['shapes' + tag]}, {dt}: K2 nms {t10m['nms_ms' + tag]:.4f}"
+            f" ms (bound {t10m['nms_bound_ms' + tag]:.4f}, "
+            f"{t10m['nms_bound_by' + tag]}; plain "
+            f"{t10m['nms_plain_ms' + tag]:.4f}; rows that took the "
+            f"continuation {t10m['nms_continuation_rows' + tag]}); K5 "
+            f"roi_align (C = 512) {t10m['roi_align_ms' + tag]:.4f} ms (bound "
+            f"{t10m['roi_align_bound_ms' + tag]:.4f}, "
+            f"{t10m['roi_align_bound_by' + tag]}; plain "
+            f"{t10m['roi_align_plain_ms' + tag]:.4f}); max |kernel - plain| "
+            f"K2 {t10m['nms_err' + tag]} (survivors equal), K5 "
+            f"{t10m['roi_align_err' + tag]:.3e}; peak device memory of the "
+            f"detector's forward {t10m['detector_peak_gib' + tag]:.2f} GiB "
+            f"— {card}")
+    for run, fit_run in (("vgg_float32", "float32"),
+                         ("vgg_bfloat16", "bf16_pallas_roi")):
+        t = "_" + run
+        log(f"VGG16 config-5 training step ({run}, B="
+            f"{t10m['step_batch_size' + t]} T=20 640x640): host to host "
+            f"{t10m['step_host_ms' + t]:.2f} ms = "
+            f"{t10m['frames_per_s_host' + t]:.1f} frame slots/s; the frames' "
+            f"copy alone {t10m['step_h2d_ms' + t]:.2f} ms; on a resident "
+            f"batch {t10m['step_host_ms_resident' + t]:.2f} ms; device busy "
+            f"{t10m['step_device_busy_ms' + t]:.2f} ms in "
+            f"{t10m['step_device_ops' + t]:.0f} device operations (idle "
+            f"{100 * t10m['device_idle_share_host' + t]:.1f}% of host to "
+            f"host); peak device memory in fit ({fit_run}) "
+            f"{c5v[fit_run]['peak_gib']:.2f} GiB — {card}")
+        log(f"device time per VGG16 config-5 step ({run}) by kernel: "
+            + "; ".join(f"{us:.1f} us {name}"
+                        for name, us in t10m["step_kernels" + t]))
+
     f32, steps = trained["auto"]["float32"]["launches"], TRAIN_STEPS["float32"]
     fused = trained["pallas"]["float32"]["launches"]
     rec = trained["recompute"]["launches"]
@@ -2542,17 +2909,29 @@ def main() -> None:
             **({"continuation_rows": t5m["nms_continuation_rows"],
                 "continuation_rows_bf16": t5m["nms_continuation_rows_bf16"]}
                if name == "nms" else {}),
-            shapes=t5m["shapes"], path=f"config-5 training ({run})")
+            shapes=t5m["shapes"], path=f"config-5 training ({run})",
+            # *_vgg: phase 10's VGG16 detector (C = 512), f32 and bf16
+            launches_vgg=sum(r["launches"][name] for r in c5v.values()),
+            **{k + "_vgg" + d: t10m[name + "_" + m + d]
+               for k, m in (("max_abs_err", "err"), ("ms", "ms"),
+                            ("plain_ms", "plain_ms"),
+                            ("bound_ms", "bound_ms"),
+                            ("bound_by", "bound_by"))
+               for d in ("", "_bf16")},
+            shapes_vgg=t10m["shapes"], shapes_vgg_bf16=t10m["shapes_bf16"])
           for name, rep, run, err in (
               ("nms", "nafae_tpu/ops/pallas/nms.py:36",   # _kernel
                "float32",
-               {"float32": max(nms_info["max_abs_err"], t5m["nms_err"]),
-                "bfloat16": t5m["nms_err_bf16"]}),
+               {"float32": max(nms_info["max_abs_err"], t5m["nms_err"],
+                               t10m["nms_err"]),
+                "bfloat16": max(t5m["nms_err_bf16"], t10m["nms_err_bf16"])}),
               ("roi_align", "nafae_tpu/ops/pallas/roi_align.py:43",  # _kernel
                "pallas_roi",
-               {"float32": max(rerrs["float32"], t5m["roi_align_err"]),
+               {"float32": max(rerrs["float32"], t5m["roi_align_err"],
+                               t10m["roi_align_err"]),
                 "bfloat16": max(rerrs["bfloat16"],
-                                t5m["roi_align_err_bf16"])})))],
+                                t5m["roi_align_err_bf16"],
+                                t10m["roi_align_err_bf16"])})))],
         "serving": {
             "batch_device_ms": tm["batch_device_ms"],
             "batch_host_ms": tm["batch_host_ms"],
@@ -2587,7 +2966,21 @@ def main() -> None:
                for run in C5_RUNS},
             **{f"fit_wall_s_{run}": c5[run]["wall_s"] for run in C5_RUNS},
             "nms_check": nms_info, "cpu_rerun": c5_cpu, "extract": c5_x,
-            "phase_s": time.perf_counter() - t5},
+            "phase_s": t10 - t5},
+        "config5_vgg": {
+            **{k: v for k, v in t10m.items()
+               if k.startswith(("step_", "frames_per_s", "device_idle",
+                                "detector_peak"))
+               and "kernels" not in k},
+            "valid_frames_first_batch": t10m["valid_frames"],
+            **{f"loss_first_last_{run}": [r["logs"][0]["loss"],
+                                          r["logs"][-1]["loss"]]
+               for run, r in c5v.items()},
+            **{f"peak_device_gib_{run}": r["peak_gib"]
+               for run, r in c5v.items()},
+            **{f"fit_wall_s_{run}": r["wall_s"] for run, r in c5v.items()},
+            "load": vgg_load, "cpu_rerun": c5v_cpu, "extract_eval": c5v_x,
+            "phase_s": time.perf_counter() - t10},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)

@@ -4,9 +4,9 @@ The PyTorch port's own copy of `nafae_tpu/config.py`: the same dataclasses,
 keys, defaults, presets, overrides and validation, so that one preset or
 config file loads the same model in both packages. The port imports nothing
 of the JAX package, so keep the two in step by hand. Keys whose feature the
-port does not run yet (meshes, TPU compiler knobs, int8 compute, detector
-checkpoints) are kept so that config files stay interchangeable; `docs/`
-describes what they do in the JAX package.
+port does not run yet (meshes, TPU compiler knobs, int8 compute) are kept
+so that config files stay interchangeable; `docs/` describes what they do
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -122,9 +122,10 @@ class MeshConfig:
 
 @dataclass
 class DetectorConfig:
-    """Faster R-CNN feature extractor (config 5). The port runs resnet50 and
-    resnet101; vgg16, `weights` and the four stem_* knobs (TPU layouts of the
-    same stem) raise NotImplementedError."""
+    """Faster R-CNN feature extractor (config 5). The port runs resnet50,
+    resnet101 and vgg16, from random weights or a torch checkpoint
+    (`weights`); the four stem_* knobs (TPU layouts of the same stem)
+    raise NotImplementedError."""
     backbone: str = "resnet50"    # resnet50 | resnet101 | vgg16
     image_size: int = 640
     num_proposals: int = 20       # R kept after NMS
@@ -145,7 +146,8 @@ class DetectorConfig:
     stem_im2col: bool = False
     stem_nminor: bool = False
     frame_rate: float = 1.0       # sampled frames / second of video
-    weights: str = ""             # optional torchvision resnet50 .pth
+    weights: str = ""             # optional torch detector .pth: torchvision
+                                  # resnet50/101 or vgg16, or faster-rcnn.pytorch
 
 
 @dataclass

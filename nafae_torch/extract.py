@@ -15,11 +15,20 @@
 
     python -m nafae_torch.extract --annotations segments.jsonl --out feats \\
         [--quantize int8] [--override detector.image_size=...] [--device cpu]
+    python -m nafae_torch.extract --youcook2-json ann.json --video-dir vids \\
+        --video-ext .avi [--subset val] --yc2bb-json bb.json \\
+        --ckpt frcnn_vgg16.pth --override detector.backbone=vgg16 \\
+        detector.rpn_channels=512 model.feat_dim=4096 --out feats
 
-Annotations: segments.jsonl, one JSON per line: {"id", "video",
-"sentence", "split"?, "start"?, "end"?}. Detector weights are random from
-train.seed; the annotation parsers (`--youcook2-json`, `--robowatch-json`,
-`--yc2bb-json`) and `--ckpt` are not ported yet.
+Segments come from segments.jsonl (one JSON per line: {"id", "video",
+"sentence", "split"?, "start"?, "end"?}), the official YouCook2 release
+(`--youcook2-json`) or the RoboWatch transfer annotations
+(`--robowatch-json`), in that order of precedence (`data/annotations.py`;
+`--strict` raises on schema drift). Ground truth from `--yc2bb-json` (or
+else `--robowatch-json`) is merged into the written features, which then
+evaluate (`python -m nafae_torch.evaluate --preset config1`). The detector
+has random weights from train.seed, or a torch checkpoint's (`--ckpt`,
+shorthand for detector.weights; `utils/torch_convert`).
 """
 
 from __future__ import annotations
@@ -139,14 +148,13 @@ def _decode_cv2(cv2, video_path, frame_rate, max_frames, image_size, start,
 def make_extract_fn(cfg: Config, model=None,
                     device: str | torch.device | None = None):
     """Returns (frames [B,S,S,3] numpy -> {boxes, feats, scores,
-    region_valid} numpy, the detector). Without `model`, the detector has
-    random weights from train.seed. `detector.weights` is not ported yet."""
+    region_valid} numpy, the detector). Without `model`, the detector is
+    the one cfg.detector describes (`init_detector`: random weights from
+    train.seed, then detector.weights when set, then the BN fold when
+    detector.fold_bn)."""
     from nafae_torch.device import resolve_device
     from nafae_torch.models.detector.faster_rcnn import init_detector
 
-    if cfg.detector.weights:
-        raise NotImplementedError(
-            "detector.weights (torch detector checkpoints) is not ported yet")
     device = resolve_device(device)
     if model is None:
         model = init_detector(cfg.detector,
@@ -234,6 +242,7 @@ def main(argv=None):
     import argparse
 
     from nafae_torch.config import load_config
+    from nafae_torch.data import annotations as A
 
     p = argparse.ArgumentParser("nafae_torch.extract")
     p.add_argument("--preset", default="config5")
@@ -241,31 +250,75 @@ def main(argv=None):
     p.add_argument("--override", nargs="*", action="extend", default=None)
     p.add_argument("--annotations",
                    help="segments.jsonl (id, video, sentence, split)")
+    p.add_argument("--youcook2-json",
+                   help="official youcookii_annotations_trainval.json")
+    p.add_argument("--video-dir", default=".",
+                   help="video directory for --youcook2-json/"
+                        "--robowatch-json")
+    p.add_argument("--video-ext", default=".mp4",
+                   help="video filename extension for --youcook2-json/"
+                        "--robowatch-json (the release ids carry none)")
+    p.add_argument("--subset", default=None,
+                   help="train|val|test filter for --youcook2-json")
+    p.add_argument("--yc2bb-json",
+                   help="YouCook2-BB box annotations: merge their ground "
+                        "truth into --out after extraction (enables eval)")
+    p.add_argument("--robowatch-json",
+                   help="RoboWatch transfer annotations: the segment list "
+                        "(without --annotations/--youcook2-json) and the "
+                        "ground truth merged into --out")
+    p.add_argument("--ckpt", default=None,
+                   help="torch detector .pth to convert and load "
+                        "(faster-rcnn.pytorch lineage, or torchvision "
+                        "resnet50/101 or vgg16; shorthand for "
+                        "detector.weights)")
     p.add_argument("--quantize", default="", choices=["", "int8"],
                    help="int8: store features as int8 + per-region scales")
+    p.add_argument("--strict", action="store_true",
+                   help="annotation parsers raise SchemaError on unknown/"
+                        "missing fields instead of skipping them")
     p.add_argument("--out", required=True)
     p.add_argument("--device", default=None,
                    help="cuda (default; raises without a card) or cpu")
-    for flag in ("--youcook2-json", "--robowatch-json", "--yc2bb-json",
-                 "--ckpt"):
-        p.add_argument(flag, default=None, help="not ported yet")
     args = p.parse_args(argv)
-    todo = [f for f, v in (("--youcook2-json", args.youcook2_json),
-                           ("--robowatch-json", args.robowatch_json),
-                           ("--yc2bb-json", args.yc2bb_json),
-                           ("--ckpt", args.ckpt)) if v]
-    if todo:
-        raise NotImplementedError(
-            f"{', '.join(todo)}: not ported yet (the annotation parsers and "
-            "checkpoint conversion come in a later slice); use --annotations")
-    if not args.annotations:
-        p.error("--annotations is required")
     cfg = load_config(args.config, args.preset, args.override or [])
-    with open(args.annotations) as f:
-        anns = [json.loads(ln) for ln in f if ln.strip()]
+    if args.ckpt:
+        cfg.detector.weights = args.ckpt
+    if args.youcook2_json:
+        anns = A.segments_from_youcook2(args.youcook2_json, args.video_dir,
+                                        ext=args.video_ext,
+                                        subset=args.subset,
+                                        strict=args.strict)
+    elif args.annotations:
+        with open(args.annotations) as f:
+            anns = [json.loads(ln) for ln in f if ln.strip()]
+    elif args.robowatch_json:
+        anns = A.segments_from_robowatch(args.robowatch_json, args.video_dir,
+                                         ext=args.video_ext,
+                                         strict=args.strict)
+    else:
+        p.error("one of --annotations / --youcook2-json / --robowatch-json "
+                "is required")
     index = extract_segments(cfg, anns, args.out, quantize=args.quantize,
                              device=args.device)
-    print(json.dumps({"index": index, "segments": len(anns)}))
+    result = {"index": index, "segments": len(anns)}
+    from nafae_torch.data.vocab import vocab_from_config
+    vocab = vocab_from_config(cfg.data)
+    gt = None
+    if args.yc2bb_json:
+        gt = A.gt_from_youcook2bb(args.yc2bb_json, vocab=vocab,
+                                  max_words=cfg.data.max_words,
+                                  max_frames=cfg.data.max_frames,
+                                  strict=args.strict)
+    elif args.robowatch_json:
+        gt = A.gt_from_robowatch(args.robowatch_json, vocab=vocab,
+                                 max_words=cfg.data.max_words,
+                                 max_frames=cfg.data.max_frames,
+                                 strict=args.strict)
+    if gt is not None:
+        result["gt_merged"] = A.merge_gt_into_features(
+            args.out, gt, image_size=cfg.detector.image_size)
+    print(json.dumps(result))
 
 
 if __name__ == "__main__":

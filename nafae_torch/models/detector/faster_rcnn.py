@@ -1,9 +1,12 @@
 """Faster R-CNN RoI feature extractor of config 5 (the port of
 `nafae_tpu/models/detector/faster_rcnn.py`).
 
-Frames [B,S,S,3] -> ResNet C4 features -> RPN proposals (full-pool or
-top-k, then greedy NMS) -> RoIAlign -> C5 head -> R pooled 2048-d features
-and boxes per frame. The detector is frozen: it runs under no_grad.
+Frames [B,S,S,3] -> backbone features -> RPN proposals (full-pool or
+top-k, then greedy NMS) -> RoIAlign -> RoI head -> R pooled features and
+boxes per frame. `detector.backbone` picks ResNet-50/101 (C4 features with
+1024 channels, the C5 head, 2048-d features) or VGG16 (conv5_3 with 512
+channels, fc6/fc7, 4096-d features; `models/detector/vgg.py`). The
+detector is frozen: it runs under no_grad.
 
 Routing follows the reference:
 - NMS through the kernel (`ops/kernels/nms.py`, K2) when use_pallas_nms,
@@ -13,9 +16,10 @@ Routing follows the reference:
   use_pallas_roi_align or `detector.roi_impl=pallas`; else the separable
   (default) or combined products of `ops/roi_align`.
 
-Weights are random from a seeded torch.Generator (`init_detector`) or the
-JAX package's (`detector_params_from_jax`). The vgg16 backbone and
-checkpoint loading (`detector.weights`) are not ported yet.
+Weights are random from a seeded torch.Generator (`init_detector`), then
+read from a torch checkpoint when `detector.weights` names one
+(`utils/torch_convert.load_detector_weights`), or the JAX package's
+(`detector_params_from_jax`).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from nafae_torch.models.detector.heads import DetectionHead, decode_detections
 from nafae_torch.models.detector.resnet import (RESNET_BLOCKS, ResNetC4,
                                                 ResNetC5Head, fold_frozen_bn)
 from nafae_torch.models.detector.rpn import RPNHead, select_proposals_batched
+from nafae_torch.models.detector.vgg import VGG16Features, VGG16RoIHead
 from nafae_torch.ops import roi_align as RA
 from nafae_torch.ops.kernels import roi_align as K5
 
@@ -43,11 +48,7 @@ class FasterRCNNExtractor(nn.Module):
                  use_pallas_nms: bool = False, with_detections: bool = False,
                  num_classes: int = 67):
         super().__init__()
-        if cfg.backbone == "vgg16":
-            raise NotImplementedError(
-                "detector.backbone=vgg16 is not ported yet; use resnet50 or "
-                "resnet101")
-        if cfg.backbone not in RESNET_BLOCKS:
+        if cfg.backbone not in (*RESNET_BLOCKS, "vgg16"):
             raise ValueError(f"unknown detector.backbone {cfg.backbone!r}; "
                              "resnet50 | resnet101 | vgg16")
         if cfg.dtype not in DTYPES:
@@ -58,16 +59,23 @@ class FasterRCNNExtractor(nn.Module):
         self.use_pallas_nms = use_pallas_nms
         self.with_detections = with_detections
         dt = DTYPES[cfg.dtype]
-        self.backbone = ResNetC4(RESNET_BLOCKS[cfg.backbone], dtype=dt,
-                                 stem_s2d=cfg.stem_s2d,
-                                 stem_pad_ch=cfg.stem_pad_ch,
-                                 stem_im2col=cfg.stem_im2col,
-                                 stem_nminor=cfg.stem_nminor)
-        self.head = ResNetC5Head(dtype=dt)
+        if cfg.backbone == "vgg16":
+            self.backbone = VGG16Features(dtype=dt)
+            self.head = VGG16RoIHead(dtype=dt)
+            channels, feat_dim = 512, 4096
+        else:
+            self.backbone = ResNetC4(RESNET_BLOCKS[cfg.backbone], dtype=dt,
+                                     stem_s2d=cfg.stem_s2d,
+                                     stem_pad_ch=cfg.stem_pad_ch,
+                                     stem_im2col=cfg.stem_im2col,
+                                     stem_nminor=cfg.stem_nminor)
+            self.head = ResNetC5Head(dtype=dt)
+            channels, feat_dim = 1024, 2048
         a = len(cfg.anchor_scales) * len(cfg.anchor_ratios)
-        self.rpn = RPNHead(a, channels=cfg.rpn_channels)
+        self.rpn = RPNHead(a, channels=cfg.rpn_channels,
+                           in_channels=channels)
         if with_detections:
-            self.det_head = DetectionHead(num_classes)
+            self.det_head = DetectionHead(num_classes, in_features=feat_dim)
         self._anchors: dict = {}
 
     def anchors(self, fh: int, fw: int, device) -> torch.Tensor:
@@ -81,7 +89,7 @@ class FasterRCNNExtractor(nn.Module):
     @torch.no_grad()
     def forward(self, images: torch.Tensor) -> dict:
         """images [B,H,W,3] (float, 0..1, H = W = image_size) ->
-        {boxes [B,R,4], scores [B,R], feats [B,R,2048] f32,
+        {boxes [B,R,4], scores [B,R], feats [B,R,2048 or 4096] f32,
         region_valid [B,R]} (+ det_boxes, det_scores, det_classes)."""
         cfg = self.cfg
         feat = self.backbone(images)                         # [B,h,w,C]
@@ -111,7 +119,7 @@ class FasterRCNNExtractor(nn.Module):
                   else RA.roi_align_matmul)
             pooled = fn(feat, boxes, 7, 1.0 / STRIDE).reshape(
                 b * r, 7, 7, feat.shape[-1])
-        roi_feats = self.head(pooled)                        # [B·R,2048]
+        roi_feats = self.head(pooled)                        # [B·R,D]
         out = {"boxes": boxes, "scores": scores,
                "feats": roi_feats.reshape(b, r, -1),
                "region_valid": keep_valid}
@@ -139,11 +147,15 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator,
                   use_pallas_roi_align: bool = False,
                   device: str | torch.device | None = None, **kwargs
                   ) -> FasterRCNNExtractor:
-    """A detector with random weights in the flax initialisers'
+    """The detector cfg describes, on `device` (cuda unless the caller
+    asks for the CPU): random weights in the flax initialisers'
     distributions (lecun-normal conv and dense kernels, zero biases, unit
-    scale and variance in every FrozenBN), drawn on the CPU from
-    `generator`, BN folded when cfg.fold_bn, on `device` (cuda unless the
-    caller asks for the CPU). kwargs go to FasterRCNNExtractor."""
+    scale and variance in every FrozenBN) drawn on the CPU from
+    `generator`; then, when cfg.weights names a torch checkpoint, its
+    weights (`utils/torch_convert.load_detector_weights`: what the
+    checkpoint lacks keeps its random draw); then BN folded when
+    cfg.fold_bn, after the load, as the reference's callers fold. kwargs
+    go to FasterRCNNExtractor."""
     device = resolve_device(device)
     model = FasterRCNNExtractor(cfg, use_pallas_roi_align, **kwargs)
     for mod in model.modules():
@@ -158,6 +170,11 @@ def init_detector(cfg: DetectorConfig, generator: torch.Generator,
             _lecun_normal_(w, w.shape[1], generator)
             mod.weight.copy_(w)
             mod.bias.zero_()
+    if cfg.weights:
+        from nafae_torch.utils.torch_convert import load_detector_weights
+        load_detector_weights(cfg.weights, model,
+                              num_scales=len(cfg.anchor_scales),
+                              num_ratios=len(cfg.anchor_ratios))
     if cfg.fold_bn:
         fold_frozen_bn(model)
     return model.to(device).eval()

@@ -11,9 +11,10 @@ from nafae_torch.models.detector.anchors import decode_boxes
 
 class DetectionHead(nn.Module):
     """RoI features [N,F] -> class logits [N,C+1] and per-class deltas
-    [N,C+1,4] (class 0 is the background)."""
+    [N,C+1,4] (class 0 is the background); F is 2048 (ResNet) or 4096
+    (VGG16)."""
 
-    def __init__(self, num_classes: int, in_features: int = 2048):
+    def __init__(self, num_classes: int, in_features: int):
         super().__init__()
         c = num_classes + 1
         self.cls = nn.Linear(in_features, c)

@@ -179,7 +179,10 @@ def fold_frozen_bn(module: nn.Module) -> nn.Module:
             conv = getattr(mod, "Conv_" + name.split("_", 1)[1], None)
             if not isinstance(conv, nn.Conv2d) or conv.bias is not None:
                 continue
-            inv = bn.scale / torch.sqrt(bn.var + BN_EPS)
+            # the root in f64, rounded once: the correctly rounded f32
+            # root the reference's numpy takes (torch's vectorised CPU sqrt
+            # can be an ulp off)
+            inv = bn.scale / torch.sqrt((bn.var + BN_EPS).double()).float()
             shift = bn.bias - bn.mean * inv
             conv.weight.mul_(inv[:, None, None, None])
             bn.scale.fill_(z)

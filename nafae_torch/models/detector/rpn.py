@@ -30,10 +30,10 @@ class RPNHead(nn.Module):
     """3x3 conv + relu, then 1x1 objectness [B,N] (f32) and 1x1 deltas in
     the compute dtype; N = H·W·A in the reference's cell-major, anchor-minor
     order. raw=True returns the deltas in grid layout [B,H,W,A·4], whose
-    channel a·4+c is coordinate c of anchor a."""
+    channel a·4+c is coordinate c of anchor a. in_channels: the backbone's
+    (1024 for ResNet C4, 512 for VGG16)."""
 
-    def __init__(self, num_anchors: int, channels: int = 256,
-                 in_channels: int = 1024):
+    def __init__(self, num_anchors: int, channels: int, in_channels: int):
         super().__init__()
         self.num_anchors = num_anchors
         self.Conv_0 = Conv(in_channels, channels, 3, padding=1, bias=True)

@@ -8,6 +8,8 @@ so weights carry across unchanged; all math lives in `nafae_torch.ops`.
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 from torch import nn
@@ -74,6 +76,57 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["m_sim"] = torch.eye(e)
     device = resolve_device(device)
     return {k: v.to(device) for k, v in params.items()}
+
+
+def load_word_vectors(path: str, vocab, embed_dim: int
+                      ) -> tuple[np.ndarray, int]:
+    """word_emb rows [len(vocab), embed_dim] for the vocab's classes from
+    GloVe-style text ("word v1 v2 ...", one per line) or an .npz of
+    {word: vector}, and how many classes the file covered; the rows are
+    the reference's, in its dtype (numpy promotes them to f64 when it
+    divides by sqrt(E)), so the caller casts. A class missing
+    from the file keeps a row of np.random.RandomState(0).randn / sqrt(E);
+    a multi-word class ("bell pepper" / "bell_pepper") takes the mean of
+    its tokens' vectors when every token is there. Text lines of another
+    width are skipped; a file with none of the right width raises
+    ValueError (truncating a longer vector would seed meaningless
+    prefixes)."""
+    rng = np.random.RandomState(0)
+    out = rng.randn(len(vocab), embed_dim).astype(np.float32) / np.sqrt(
+        embed_dim)
+    if path.endswith(".npz"):
+        with np.load(path) as z:
+            table = {k: z[k] for k in z.files}
+    else:
+        table = {}
+        bad_dim = None
+        with open(path) as f:
+            for ln in f:
+                parts = ln.rstrip().split(" ")
+                if len(parts) < 2:
+                    continue
+                if len(parts) != embed_dim + 1:
+                    bad_dim = len(parts) - 1
+                    continue
+                table[parts[0]] = np.asarray(parts[1:], np.float32)
+        if not table and bad_dim is not None:
+            raise ValueError(
+                f"{path}: vectors are {bad_dim}-d but embed_dim={embed_dim} "
+                "— set model.embed_dim to match the file (or convert it); "
+                "refusing to truncate")
+    hits = 0
+    for i, cls in enumerate(vocab.classes):
+        vec = table.get(cls)
+        if vec is None:
+            toks = [t for t in re.split(r"[\s_]+", cls) if t]
+            if len(toks) > 1:
+                parts = [table.get(t) for t in toks]
+                if all(p is not None and len(p) == embed_dim for p in parts):
+                    vec = np.mean(parts, axis=0)
+        if vec is not None and len(vec) == embed_dim:
+            out[i] = vec
+            hits += 1
+    return out, hits
 
 
 def params_from_jax(np_params: dict, device: str | torch.device

@@ -1,9 +1,9 @@
 """Batched k-means (Lloyd) for the visual clustering loss.
 
 The port of `nafae_tpu/ops/kmeans.py`: cosine assignment, one-hot segment
-sums and the empty-cluster rule on the training device, on one device (the
-data-parallel psums come with the port's data parallelism). k-means++
-seeding (`loss.kmeans_init="plusplus"`) is not ported yet.
+sums and the empty-cluster rule on the training device, and k-means++
+seeding (`loss.kmeans_init="plusplus"`), on one device (the data-parallel
+psums and the seeding's gathers come with the port's data parallelism).
 """
 
 from __future__ import annotations
@@ -84,3 +84,60 @@ def kmeans_init(generator: torch.Generator, num_clusters: int,
     """Random unit-norm initial centers [Kc, dim], drawn on the CPU from
     `generator` (the draws differ from jax.random's for the same seed)."""
     return l2_normalize(torch.randn(num_clusters, dim, generator=generator))
+
+
+MAX_SEED_ROWS = 16384   # k-means++ candidate cap (bounds the seeding's rows)
+
+
+def kmeans_plusplus_init(f: torch.Tensor, valid: torch.Tensor,
+                         num_clusters: int,
+                         generator: torch.Generator | None = None,
+                         gumbels: torch.Tensor | None = None,
+                         axis_names: tuple = (), gather_dims: tuple = (),
+                         max_rows: int = MAX_SEED_ROWS) -> torch.Tensor:
+    """k-means++ seeding: each next center drawn in proportion to its
+    squared distance from the nearest center so far; returns the centers
+    [Kc, E], l2-normalised.
+
+    f [..., E] candidate features (flattened here), valid f.shape[:-1]
+    (0/1). Each draw is a Gumbel-max: argmax over the rows of log(max(d2,
+    1e-12)) + g (0 + g for the first), with invalid rows at -1e30, as the
+    reference draws it. The noise g [Kc, n] (row i for center i) is
+    `gumbels` when given (a test feeds the draws JAX makes from its key),
+    else drawn on the CPU from `generator`. When the rows number more than
+    max_rows, dim 0 (the bank's slot ring) is stride-subsampled first, as
+    the reference does. axis_names / gather_dims (the reference's mesh
+    form) raise NotImplementedError until the port's data parallelism."""
+    if axis_names or gather_dims:
+        raise NotImplementedError(
+            "kmeans_plusplus_init over a mesh (axis_names, gather_dims) "
+            "comes with the port's data parallelism")
+    if max_rows and f.dim() >= 2:
+        rows = 1
+        for d in f.shape[:-1]:
+            rows *= d
+        if rows > max_rows:
+            per_slot = rows // f.shape[0]
+            keep = max(1, max_rows // max(per_slot, 1))
+            stride = -(-f.shape[0] // keep)
+            f = f[::stride]
+            valid = valid[::stride]
+    f = f.reshape(-1, f.shape[-1]).float()
+    valid = valid.reshape(-1)
+    n, e = f.shape
+    if gumbels is None:
+        gumbels = -torch.log(torch.empty(num_clusters, n).exponential_(
+            generator=generator))
+    gumbels = gumbels.to(device=f.device, dtype=torch.float32)
+    neg = torch.tensor(-1e30, device=f.device)
+    live = valid > 0
+    first = torch.argmax(torch.where(live, 0.0, neg) + gumbels[0])
+    centers = torch.zeros(num_clusters, e, device=f.device)
+    centers[0] = f[first]
+    d2 = torch.sum((f - f[first]) ** 2, dim=-1)
+    for i in range(1, num_clusters):
+        logits = torch.where(live, torch.log(torch.clamp(d2, min=1e-12)), neg)
+        c = f[torch.argmax(logits + gumbels[i])]
+        centers[i] = c
+        d2 = torch.minimum(d2, torch.sum((f - c) ** 2, dim=-1))
+    return l2_normalize(centers)

@@ -19,12 +19,23 @@ K4f/K4b) for the context and cluster losses. With `data.from_videos=true`
     python -m nafae_torch.train --preset config5 --override \\
         data.from_videos=true data.annotations=segments.jsonl
 
+Config 5 takes a torch detector checkpoint through `detector.weights`
+(`utils/torch_convert.load_detector_weights`, then the BN fold when
+`detector.fold_bn`) and the VGG16 backbone through
+`detector.backbone=vgg16`; `model.word_vectors` seeds `word_emb` from a
+GloVe-style file and `loss.kmeans_init=plusplus` seeds the k-means centers
+from step 0's selections.
+
+    python -m nafae_torch.train --preset config5 --override \\
+        data.from_videos=true data.annotations=segments.jsonl \\
+        detector.backbone=vgg16 detector.rpn_channels=512 \\
+        model.feat_dim=4096 detector.weights=frcnn_vgg16.pth \\
+        model.word_vectors=glove.txt loss.kmeans_init=plusplus
+
 Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
 Not ported yet, and raising NotImplementedError: the device-resident
-dataset (`train.device_cache`), detector checkpoints (`detector.weights`),
-k-means++ seeding (`loss.kmeans_init=plusplus`), word-vector initialisation
-(`model.word_vectors`), the grain pipeline and the TensorBoard mirror
-(`train.tensorboard_dir`). Meshes and data parallelism are not ported
+dataset (`train.device_cache`), the grain pipeline and the TensorBoard
+mirror (`train.tensorboard_dir`). Meshes and data parallelism are not ported
 either: the reference builds a mesh only under its CLI's `--mesh` or
 `--multihost`, which this CLI does not accept, so `mesh.*` alone trains on
 one device in both. The CLI evaluates every `train.eval_every` steps on the
@@ -49,7 +60,8 @@ from nafae_torch.models.grounding import COMPUTE_DTYPES, init_params
 from nafae_torch.ops import grounding as G
 from nafae_torch.ops import losses as L
 from nafae_torch.ops.kernels.diag import diag_epilogue
-from nafae_torch.ops.kmeans import bank_write, kmeans_init, kmeans_lloyd
+from nafae_torch.ops.kmeans import (bank_write, kmeans_init, kmeans_lloyd,
+                                    kmeans_plusplus_init)
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8      # optax.adamw's defaults
 SGD_MOMENTUM = 0.9
@@ -120,10 +132,6 @@ class TrainState:
 
 def _check_supported(cfg: Config) -> None:
     todo = {"train.device_cache": cfg.train.device_cache,
-            "detector.weights": cfg.data.from_videos
-            and bool(cfg.detector.weights),
-            "model.word_vectors": bool(cfg.model.word_vectors),
-            "loss.kmeans_init=plusplus": cfg.loss.kmeans_init == "plusplus",
             "data.pipeline=grain": cfg.data.pipeline == "grain",
             "train.tensorboard_dir": bool(cfg.train.tensorboard_dir)}
     on = [k for k, v in todo.items() if v]
@@ -358,10 +366,13 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
     (new state, metrics as 0-d tensors: l_rank, score_pos, [l_ctx],
     [l_clu], loss, grad_norm — the norm before clipping).
 
-    The k-means refresh runs after the update, on this step's selections,
-    when the step count before the update is a multiple of
-    loss.kmeans_interval (so at step 0 always). extractor: the frozen
-    detector of a batch of frames (see compute_losses)."""
+    The k-means refresh runs after the update, on this step's selections
+    (or the bank), when the step count before the update is a multiple of
+    loss.kmeans_interval (so at step 0 always); with
+    loss.kmeans_init=plusplus, step 0 first seeds the centers from the
+    same rows by k-means++ (noise from a generator seeded with
+    train.seed). extractor: the frozen detector of a batch of frames (see
+    compute_losses)."""
     tx = tx or make_optimizer(cfg)
     names = sorted(state.params)
     params = {k: state.params[k].detach().requires_grad_() for k in names}
@@ -383,9 +394,14 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
             if lc.kmeans_source == "bank" and bank is not None:
                 bank, bank_valid = bank_write(bank, bank_valid, state.step,
                                               sel_f, sel_v)
-                f, valid = bank.reshape(-1, e), bank_valid.reshape(-1)
+                f_nd, v_nd = bank, bank_valid
             else:
-                f, valid = sel_f.reshape(-1, e), sel_v.reshape(-1)
+                f_nd, v_nd = sel_f, sel_v
+            f, valid = f_nd.reshape(-1, e), v_nd.reshape(-1)
+            if lc.kmeans_init == "plusplus" and state.step == 0:
+                centers = kmeans_plusplus_init(
+                    f_nd, v_nd, lc.num_clusters,
+                    generator=torch.Generator().manual_seed(cfg.train.seed))
             if state.step % lc.kmeans_interval == 0:
                 dt = COMPUTE_DTYPES[cfg.model.dtype]
                 centers = kmeans_lloyd(
@@ -398,6 +414,27 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
                    bank_valid=bank_valid), metrics
 
 
+def _word_vectors(cfg: Config, device: torch.device) -> torch.Tensor:
+    """word_emb [V,E] from model.word_vectors, for the data config's
+    vocab, which must have model.vocab_size classes."""
+    from nafae_torch.data.vocab import vocab_from_config
+    from nafae_torch.models.grounding import load_word_vectors
+
+    vocab = vocab_from_config(cfg.data)
+    if len(vocab) != cfg.model.vocab_size:
+        # a silent mismatch would crash in the optimizer (its state is
+        # sized at vocab_size) or give every word id the wrong vector
+        raise ValueError(
+            f"model.word_vectors: the vocab has {len(vocab)} classes "
+            f"but model.vocab_size={cfg.model.vocab_size}; point "
+            "data.classes_file at the class list the features were "
+            "extracted with (and keep vocab_size in sync)")
+    vecs, _ = load_word_vectors(cfg.model.word_vectors, vocab,
+                                cfg.model.embed_dim)
+    # f32 as the reference's jnp.asarray gives it (numpy may hand back f64)
+    return torch.from_numpy(np.asarray(vecs, np.float32)).to(device)
+
+
 def fit(cfg: Config, device: str | torch.device | None = None,
         log_fn=None, extractor=None, eval_fn=None) -> tuple[TrainState, dict]:
     """Run cfg.train.steps steps from the newest checkpoint in
@@ -407,9 +444,11 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     the end, and calls eval_fn(state) every eval_every steps.
 
     With data.from_videos, the dataset is the annotations' segments
-    decoded to frames and the step runs `extractor`, by default a detector
-    with random weights from train.seed (the reference's config-5 inline
-    path, `nafae_tpu/train.py` fit)."""
+    decoded to frames and the step runs `extractor`, by default the
+    detector cfg.detector describes (`init_detector`: random weights from
+    train.seed, then detector.weights when set; the reference's config-5
+    inline path, `nafae_tpu/train.py` fit). model.word_vectors replaces the
+    initial word_emb (before a checkpoint is restored)."""
     from nafae_torch.data.loader import BatchLoader
     from nafae_torch.data.youcook2 import SegmentDataset
     from nafae_torch.utils.checkpoint import CheckpointManager
@@ -439,6 +478,9 @@ def fit(cfg: Config, device: str | torch.device | None = None,
                             frame_buckets=tuple(cfg.data.frame_buckets),
                             transfer_dtype=cfg.data.transfer_dtype)
     state = TrainState.create(cfg, device=device)
+    if cfg.model.word_vectors:
+        state = replace(state, params={**state.params,
+                                       "word_emb": _word_vectors(cfg, device)})
     ckpt = CheckpointManager(cfg.train.ckpt_dir, keep=cfg.train.keep_ckpts)
     restored = ckpt.restore_latest(state)
     if restored is not None:

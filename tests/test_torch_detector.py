@@ -11,7 +11,8 @@ differ by an ulp); the whole extractor with the reference's routes (the
 TPU kernels in interpret mode where JAX takes them): region_valid equal,
 boxes and feats held where JAX's survivors are clear of score ties. Also:
 BN folding equals the reference's, init_detector draws flax's
-distributions, and the TPU-only options raise.
+distributions (the VGG16 detector too, in the flax tree's layout), and the
+TPU-only options raise.
 """
 
 import jax
@@ -223,9 +224,34 @@ def test_bf16_detector_runs():
 
 
 @pytest.mark.parametrize("knob", ["stem_s2d", "stem_im2col", "stem_nminor",
-                                  "stem_pad_ch", "vgg16"])
+                                  "stem_pad_ch"])
 def test_unported_options_raise(knob):
-    kw = ({"backbone": "vgg16"} if knob == "vgg16" else
-          {knob: 8 if knob == "stem_pad_ch" else True})
+    kw = {knob: 8 if knob == "stem_pad_ch" else True}
     with pytest.raises(NotImplementedError):
         FasterRCNNExtractor(TDC(**SMALL, **kw))
+
+
+def test_init_vgg16_detector():
+    """detector.backbone=vgg16 builds the VGG16 detector: 13 biased 3x3
+    convs, fc6/fc7, a 512-in RPN and a 4096-in detection head, drawn in
+    flax's distributions (lecun-normal kernels, zero biases); the module
+    names are the flax tree's."""
+    m = init_detector(TDC(**SMALL, backbone="vgg16", rpn_channels=512),
+                      torch.Generator().manual_seed(0), device="cpu",
+                      with_detections=True, num_classes=NUM_CLASSES)
+    _, jp = j_init(jax.random.PRNGKey(0), JDC(**SMALL, backbone="vgg16",
+                                              rpn_channels=512),
+                   with_detections=True, num_classes=NUM_CLASSES)
+    want = detector_params_from_jax(jax.tree.map(np.asarray, jp))
+    got = m.state_dict()
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert got[k].shape == v.shape, k
+    assert m.rpn.Conv_0.weight.shape == (512, 512, 3, 3)
+    assert m.det_head.cls.weight.shape == (NUM_CLASSES + 1, 4096)
+    w = m.backbone.Conv_4.weight                       # 3x3, 128 in
+    std = (1.0 / w[0].numel()) ** 0.5
+    assert abs(w.std().item() / std - 1) < 0.02
+    assert torch.equal(m.backbone.Conv_4.bias, torch.zeros(256))
+    fc6 = m.head.Dense_0.weight
+    assert abs(fc6[:64].std().item() * 25088 ** 0.5 - 1) < 0.02

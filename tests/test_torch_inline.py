@@ -8,8 +8,9 @@ Held for both `train.kernels` routes (auto; pallas, whose fused kernels the
 JAX side runs in interpret mode): one step's metrics within rtol 1e-5 and
 its gradients within rtol 1e-4 / atol 1e-6 of JAX's, the detector's
 outputs reaching the losses as feats, boxes and region mask. Also: `fit`
-trains 2 steps with data.from_videos=true from AVI files, and
-`detector.weights` still raises.
+trains 2 steps with data.from_videos=true from AVI files, and with
+`detector.weights` its first step is the step through the JAX package's
+converted and folded checkpoint.
 """
 
 import json
@@ -141,9 +142,48 @@ def test_fit_from_videos(segments, tmp_path):
     assert {"l_rank", "l_ctx", "l_clu"} <= set(metrics)
 
 
-def test_detector_weights_not_ported(segments, tmp_path):
+def test_fit_loads_detector_weights(segments, tmp_path):
+    """fit with detector.weights (a faster-rcnn.pytorch checkpoint) and
+    detector.fold_bn trains through the converted detector: its first
+    step equals a step through the detector the JAX package's loader and
+    fold give (`load_detector_weights`, `fold_frozen_bn`), carried across
+    by detector_params_from_jax, from the same initial state."""
+    from nafae_tpu.models.detector.resnet import fold_frozen_bn as j_fold
+    from nafae_tpu.utils.torch_convert import load_detector_weights
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.video_dataset import VideoSegmentDataset
+    from nafae_torch.data.vocab import vocab_from_config
+    from tests.test_torch_convert_frcnn import make_frcnn_sd
+
+    pth = str(tmp_path / "frcnn.pth")
+    torch.save({"model": {"module." + k: torch.from_numpy(v) for k, v in
+                          make_frcnn_sd(np.random.RandomState(9)).items()}},
+               pth)
     tc = tcfg.load_config(preset_name="config5", overrides=OV + [
         "data.from_videos=true", f"data.annotations={segments}",
-        "detector.weights=r50.pth", f"train.ckpt_dir={tmp_path}/ck"])
-    with pytest.raises(NotImplementedError, match="detector.weights"):
-        TT.fit(tc, device="cpu")
+        "detector.rpn_channels=512", "detector.fold_bn=true",
+        f"detector.weights={pth}", "train.steps=1", "train.log_every=1",
+        f"train.ckpt_dir={tmp_path}/ck"])
+    logs = []
+    state, _ = TT.fit(tc, device="cpu", log_fn=logs.append)
+    assert state.step == 1 and len(logs) == 1
+
+    jc = jcfg.load_config(preset_name="config5", overrides=OV + [
+        "detector.rpn_channels=512"])
+    _, p0 = j_init(jax.random.PRNGKey(5), jc.detector)
+    tree = j_fold(load_detector_weights(pth, p0, num_scales=2,
+                                        num_ratios=3))
+    tdet = FasterRCNNExtractor(tc.detector).eval()
+    tdet.load_state_dict(detector_params_from_jax(
+        jax.tree.map(np.asarray, tree)))
+    ds = VideoSegmentDataset(segments, tc.data.max_frames,
+                             tc.detector.image_size, tc.data.max_words,
+                             frame_rate=tc.detector.frame_rate,
+                             vocab=vocab_from_config(tc.data))
+    batch = next(iter(BatchLoader(ds, tc.data.batch_size, shuffle=True,
+                                  seed=tc.train.seed)))
+    _, m = TT.train_step(TT.TrainState.create(tc, device="cpu"),
+                         TT.batch_to_device(batch, torch.device("cpu")), tc,
+                         extractor=tdet)
+    for k, v in m.items():
+        assert logs[0][k] == float(v), k

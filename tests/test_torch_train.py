@@ -286,3 +286,184 @@ def test_checkpoints_keep_the_newest(tmp_path):
     for k in state.params:
         assert torch.equal(back.params[k], state.params[k])
         assert torch.equal(served[k], state.params[k])
+
+
+def _glove(path, e, words, seed=0, width=None):
+    """A GloVe-style text file over `words` (some multi-word classes only by
+    their tokens), with one line of the wrong width."""
+    rng = np.random.RandomState(seed)
+    lines = [" ".join([w] + [f"{x:.6f}" for x in rng.randn(width or e)])
+             for w in words]
+    lines.insert(2, "stray " + " ".join(["0.5"] * (e + 3)))
+    path.write_text("\n".join(lines) + "\n")
+    return str(path)
+
+
+@pytest.mark.parametrize("kind", ["text", "npz", "wrong-width"])
+def test_load_word_vectors_matches_jax(tmp_path, kind):
+    from nafae_tpu.data.vocab import Vocab as JVocab
+    from nafae_tpu.models.grounding import load_word_vectors as j_load
+    from nafae_torch.data.vocab import Vocab as TVocab
+    from nafae_torch.models.grounding import load_word_vectors as t_load
+
+    e = 12
+    vocab = JVocab()
+    words = [c for c in vocab.classes[::2] if "_" not in c and " " not in c]
+    multi = [c for c in vocab.classes if "_" in c or " " in c]
+    import re
+    words += [t for c in multi[:2] for t in re.split(r"[\s_]+", c)]
+    if kind == "npz":
+        rng = np.random.RandomState(1)
+        path = str(tmp_path / "vec.npz")
+        np.savez(path, **{w: rng.randn(e).astype(np.float32) for w in words})
+    else:
+        path = _glove(tmp_path / "vec.txt", e, words,
+                      width=e + 5 if kind == "wrong-width" else None)
+    if kind == "wrong-width":
+        with pytest.raises(ValueError) as want:
+            j_load(path, vocab, e)
+        with pytest.raises(ValueError) as got:
+            t_load(path, TVocab(), e)
+        assert str(got.value) == str(want.value)
+        assert "refusing to truncate" in str(got.value)
+        return
+    vj, hj = j_load(path, vocab, e)
+    vt, ht = t_load(path, TVocab(), e)
+    assert ht == hj > len(multi[:2])
+    assert vt.dtype == vj.dtype
+    np.testing.assert_array_equal(vt, vj)
+
+
+def _jax_gumbels(seed, k, n):
+    """The Gumbel draws of nafae_tpu.ops.kmeans.kmeans_plusplus_init from
+    PRNGKey(seed): k0 for the first center, then one split per center."""
+    key = jax.random.PRNGKey(seed)
+    k0, key = jax.random.split(key)
+    rows = [jax.random.gumbel(k0, (n,))]
+    for _ in range(1, k):
+        key, kd = jax.random.split(key)
+        rows.append(jax.random.gumbel(kd, (n,)))
+    return np.stack([np.asarray(r) for r in rows])
+
+
+def _seed_rows(shape, max_rows):
+    """Candidate rows after the reference's dim-0 stride subsample."""
+    rows = int(np.prod(shape[:-1]))
+    if max_rows and rows > max_rows:
+        per_slot = rows // shape[0]
+        stride = -(-shape[0] // max(1, max_rows // max(per_slot, 1)))
+        return len(range(0, shape[0], stride)) * per_slot
+    return rows
+
+
+@pytest.mark.parametrize("case", ["batch", "bank", "bank-capped",
+                                  "bank-past-max-seed-rows"])
+def test_kmeans_plusplus_matches_jax(case):
+    from nafae_tpu.ops.kmeans import MAX_SEED_ROWS
+    from nafae_tpu.ops.kmeans import kmeans_plusplus_init as j_pp
+    from nafae_torch.ops.kmeans import kmeans_plusplus_init as t_pp
+
+    rng = np.random.RandomState(4)
+    kc, max_rows = 8, MAX_SEED_ROWS
+    if case == "batch":
+        shape = (4, 5, 3, 16)                          # [B,T,K,E] selections
+    elif case == "bank":
+        shape = (3, 4, 5, 3, 16)                       # [W,B,T,K,E] ring
+    elif case == "bank-capped":
+        shape, max_rows = (8, 4, 5, 3, 16), 100
+    else:
+        shape, kc = (32, 16, 20, 8, 8), 67             # config4's ring
+    f = rng.randn(*shape).astype(np.float32)
+    valid = (rng.rand(*shape[:-1]) > 0.3).astype(np.float32)
+    if case != "batch":                                # step 0: slot 0 only
+        f[1:], valid[1:] = 0.0, 0.0
+        if case == "bank-past-max-seed-rows":
+            f[6], valid[6] = f[0], valid[0]            # a kept slot
+    n = _seed_rows(shape, max_rows)
+    assert (n < int(np.prod(shape[:-1]))) == case.startswith("bank-")
+    g = _jax_gumbels(5, kc, n)
+    want = np.asarray(j_pp(jax.random.PRNGKey(5), jax.numpy.asarray(f),
+                           jax.numpy.asarray(valid), kc, max_rows=max_rows))
+    got = t_pp(torch.from_numpy(f), torch.from_numpy(valid), kc,
+               gumbels=torch.from_numpy(g), max_rows=max_rows).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    rows = f.reshape(-1, shape[-1])
+    rows = rows / np.maximum(np.linalg.norm(rows, axis=-1, keepdims=True),
+                             1e-12)
+    np.testing.assert_array_equal(np.argmax(got @ rows.T, -1),
+                                  np.argmax(want @ rows.T, -1))
+    with pytest.raises(NotImplementedError, match="mesh"):
+        t_pp(torch.from_numpy(f), torch.from_numpy(valid), kc,
+             axis_names=("data",), gather_dims=(0,))
+    # without gumbels the noise comes from the generator: seeded, repeatable
+    a = t_pp(torch.from_numpy(f), torch.from_numpy(valid), kc,
+             generator=torch.Generator().manual_seed(0), max_rows=max_rows)
+    b = t_pp(torch.from_numpy(f), torch.from_numpy(valid), kc,
+             generator=torch.Generator().manual_seed(0), max_rows=max_rows)
+    assert torch.equal(a, b)
+
+
+def _fit_both(synth_root, tmp_path, monkeypatch, extra):
+    """One fit step of each package from JAX's initial state (the port's
+    TrainState.create returns its copy); returns both logged metrics and
+    final states."""
+    jc, tc = _cfgs(synth_root, "config4", extra + [
+        "train.steps=1", "train.log_every=1"])
+    jc = replace(jc, train=replace(jc.train, ckpt_dir=str(tmp_path / "j")))
+    tc = replace(tc, train=replace(tc.train, ckpt_dir=str(tmp_path / "t")))
+    js, ts = _start(jc)
+    monkeypatch.setattr(TT.TrainState, "create",
+                        classmethod(lambda cls, cfg, device=None, seed=None:
+                                    state_from_jax(js, "cpu")))
+    jlog, tlog = [], []
+    jstate, _ = JT.fit(jc, None, log_fn=jlog.append)
+    tstate, _ = TT.fit(tc, device="cpu", log_fn=tlog.append)
+    assert len(jlog) == len(tlog) == 1
+    for k in jlog[0]:
+        if k in ("frames_per_sec",):
+            continue
+        np.testing.assert_allclose(tlog[0][k], jlog[0][k], rtol=1e-5,
+                                   atol=1e-6, err_msg=k)
+    return jc, tc, jstate, tstate
+
+
+def test_fit_with_word_vectors_matches_jax(synth_root, tmp_path,
+                                           monkeypatch):
+    from nafae_torch.data.vocab import Vocab
+    vocab = Vocab()
+    path = _glove(tmp_path / "glove.txt", 32, vocab.classes[:40], seed=3)
+    jc, tc, jstate, tstate = _fit_both(synth_root, tmp_path, monkeypatch,
+                                       [f"model.word_vectors={path}"])
+    want = np.asarray(jstate.params["word_emb"])
+    # the first update has lr 0: word_emb is still the loaded vectors
+    np.testing.assert_array_equal(tstate.params["word_emb"].numpy(), want)
+    line = next(ln for ln in open(path).read().splitlines()
+                if ln.split()[0] == vocab.classes[5])
+    np.testing.assert_array_equal(want[5], np.float32(line.split()[1:]))
+    with pytest.raises(ValueError, match="vocab_size"):
+        TT.fit(replace(tc, model=replace(tc.model, vocab_size=66)),
+               device="cpu")
+
+
+def test_fit_with_kmeans_plusplus_matches_jax(synth_root, tmp_path,
+                                              monkeypatch):
+    """Step 0 seeds the centers by k-means++ from its selections before
+    the Lloyd refresh; with JAX's Gumbel draws fed in, the centers after
+    one step equal the reference's."""
+    real = TT.kmeans_plusplus_init
+
+    def with_jax_noise(f, valid, k, generator=None, **kw):
+        n = _seed_rows(tuple(f.shape), 16384)
+        return real(f, valid, k, gumbels=torch.from_numpy(
+            _jax_gumbels(0, k, n)), **kw)
+
+    monkeypatch.setattr(TT, "kmeans_plusplus_init", with_jax_noise)
+    jc, tc, jstate, tstate = _fit_both(
+        synth_root, tmp_path, monkeypatch,
+        ["loss.kmeans_init=plusplus", "loss.kmeans_interval=1"])
+    js0 = JT.TrainState.create(jax.random.PRNGKey(0), jc)
+    assert not np.allclose(np.asarray(jstate.centers),
+                           np.asarray(js0.centers), atol=1e-3)
+    np.testing.assert_allclose(tstate.centers.numpy(),
+                               np.asarray(jstate.centers), rtol=1e-5,
+                               atol=1e-6)

@@ -11,7 +11,9 @@ resizing; without cv2 the
 reader still decodes uncompressed AVI and raises, naming the format, on the
 rest. extract_segments writes the reference's keys, shapes and dtypes, its
 f16 features agree with the reference's at f16 rounding, and the files load
-through the port's SegmentDataset.
+through the port's SegmentDataset. The CLI extracts from YouCook2 and
+YC2-BB files with a faster-rcnn.pytorch checkpoint (`--ckpt`), its output
+equal to the reference's parsers, converter, extraction and merge.
 """
 
 import json
@@ -226,7 +228,7 @@ def test_extracted_files_load(extracted, tag):
         np.testing.assert_array_equal(s["region_mask"], w["region_mask"])
 
 
-def test_extract_cli(videos, tmp_path):
+def test_extract_cli(videos, tmp_path, capsys):
     from nafae_torch.extract import main
     anns = tmp_path / "segments.jsonl"
     anns.write_text(json.dumps({"id": "s", "video": videos["own64"],
@@ -238,5 +240,63 @@ def test_extract_cli(videos, tmp_path):
           "--override", *ov])
     with np.load(out / "s.npz") as z:
         assert z["feats"].shape == (3, 4, 2048)
-    with pytest.raises(NotImplementedError, match="--ckpt"):
-        main(["--annotations", str(anns), "--out", str(out), "--ckpt", "x"])
+
+    # the release's files and a faster-rcnn.pytorch checkpoint: the output
+    # carries the YC2-BB ground truth, as the reference's parsers, loader
+    # and merge give it on the reference's extraction
+    from nafae_tpu.data import annotations as JA
+    from nafae_tpu.extract import extract_segments as j_extract
+    from nafae_tpu.models.detector.faster_rcnn import init_detector as j_init
+    from nafae_tpu.utils.torch_convert import load_detector_weights
+    from tests.test_torch_convert_frcnn import make_frcnn_sd
+    import nafae_tpu.config as jcfg
+
+    vid = os.path.splitext(os.path.basename(videos["own64"]))[0]
+    yc2 = tmp_path / "yc2.json"
+    yc2.write_text(json.dumps({"database": {vid: {
+        "subset": "validation", "annotations": [
+            {"id": 0, "segment": [0, 4], "sentence": "add salt to the pan"},
+            {"id": 1, "segment": [1, 3], "sentence": "stir the bowl"}]}}}))
+    bb = tmp_path / "bb.json"
+    bb.write_text(json.dumps({"database": {vid: {
+        "rwidth": 128, "rheight": 96, "segments": {"0": {"objects": [
+            {"label": "pan", "boxes": [
+                {"x1": 8 * i, "y1": 4, "x2": 8 * i + 40, "y2": 60,
+                 "outside": int(i == 2)} for i in range(5)]}]}}}}}))
+    ckpt = tmp_path / "frcnn.pth"
+    torch.save({"model": {"module." + k: torch.from_numpy(v) for k, v in
+                          make_frcnn_sd(np.random.RandomState(9)).items()}},
+               ckpt)
+    ov = ov + ["detector.rpn_channels=512", "data.max_frames=5"]
+    out = tmp_path / "feats_yc2"
+    main(["--youcook2-json", str(yc2), "--video-dir",
+          os.path.dirname(videos["own64"]), "--video-ext", ".avi",
+          "--subset", "val", "--yc2bb-json", str(bb), "--ckpt", str(ckpt),
+          "--out", str(out), "--device", "cpu", "--override", *ov])
+    printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert printed["segments"] == 2 and printed["gt_merged"] == 1
+
+    jc = jcfg.load_config(preset_name="config5", overrides=ov)
+    anns = JA.segments_from_youcook2(str(yc2), os.path.dirname(
+        videos["own64"]), ext=".avi", subset="val")
+    _, p0 = j_init(jax.random.PRNGKey(0), jc.detector)
+    jdir = str(tmp_path / "feats_jax")
+    j_extract(jc, anns, jdir, params=load_detector_weights(
+        str(ckpt), p0, num_scales=2, num_ratios=3))
+    assert JA.merge_gt_into_features(jdir, JA.gt_from_youcook2bb(
+        str(bb), max_words=jc.data.max_words, max_frames=5),
+        image_size=64) == 1
+    for a in anns:
+        with np.load(out / f"{a['id']}.npz") as tz, \
+                np.load(os.path.join(jdir, f"{a['id']}.npz")) as jz:
+            assert sorted(tz.files) == sorted(jz.files)
+            for k in ("word_ids", "region_mask", "gt_boxes", "gt_mask"):
+                if k in jz.files:
+                    np.testing.assert_array_equal(tz[k], jz[k], err_msg=k)
+            np.testing.assert_allclose(tz["boxes"], jz["boxes"], rtol=0,
+                                       atol=64 * 1e-4)
+            np.testing.assert_allclose(
+                tz["feats"].astype(np.float32),
+                jz["feats"].astype(np.float32), rtol=2 ** -10, atol=1e-6)
+    with np.load(out / f"{vid}_0.npz") as z:
+        assert z["gt_mask"].sum() == 4 and z["gt_boxes"].shape == (1, 5, 4)
