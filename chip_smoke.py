@@ -91,7 +91,26 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    --yc2bb-json ... --ckpt <resnet50 .pth>` on the card, its output read
    with ground truth and evaluated (config1) with equal hits on the card
    and CPU; times of K2 and K5 on the VGG16 inputs and of one VGG16
-   config-5 step, f32 and bf16, with idle share and peak memory.
+   config-5 step, f32 and bf16, with idle share and peak memory;
+11. int8 serving, the exported artifact and visualize (main path 7; run
+   after phase 7, on the serving phase's requests and val split): config4
+   servers with `model.quantize=int8` and `int8pre`, f32 and bf16, on the
+   oracle params, each launching K1f (through the custom op
+   nafae::ctx_mix_fwd) once a batch and nothing else, box accuracy over
+   the bar, one batch re-run on the CPU (quantized weights and features,
+   scales and int32 products bit for bit, regions equal where clear of
+   ties, scores within INT8_TOL), int8pre over HTTP with pre-quantized
+   requests; config1 eval with int8 and int8pre over the val split
+   written as int8 feature files, hits card = CPU; four exported artifacts
+   (f32; stored int8 through `python -m nafae_torch.serve --export DIR
+   --quantize int8`; int8 compute; int8pre) loaded in a fresh process
+   that must answer bit for bit as the live server here and launch K1f
+   once, the f32 and int8pre ones timed there against a live server
+   (device and host-to-host ms, interleaved); `visualize_config` with PNGs
+   on the card, records equal to the CPU's; device ms of the projection in
+   f32, bf16, int8 and int8pre with their bounds, and the f32, int8 and
+   int8pre serving batch host to host, its copy to the card, device and
+   busy time, idle share.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -791,8 +810,8 @@ def max_response_diff(got: list[dict], want: list[dict]) -> float:
 def post_concurrently(base: str, requests: list[list[dict]]) -> list[list]:
     def post(segs):
         body = json.dumps({"segments": [
-            {"feats": s["feats"].tolist(), "boxes": s["boxes"].tolist(),
-             "word_ids": s["word_ids"]} for s in segs]}).encode()
+            {k: v.tolist() if isinstance(v, np.ndarray) else v
+             for k, v in s.items()} for s in segs]}).encode()
         req = urllib.request.Request(base + "/ground", data=body,
                                      headers={"Content-Type":
                                               "application/json"})
@@ -1095,11 +1114,11 @@ def check_pallas_vs_auto(torch, root: str, tmp: str) -> dict:
 # ------------------------------------------------------------- eval
 
 
-def eval_cfg(root: str, ckpt: str):
+def eval_cfg(root: str, ckpt: str, extra=()):
     from nafae_torch.config import load_config
 
     return load_config(preset_name="config1", overrides=[
-        f"data.root={root}", f"train.ckpt_dir={ckpt}"])
+        f"data.root={root}", f"train.ckpt_dir={ckpt}", *extra])
 
 
 def eval_near_ties(torch, cfg, params) -> int:
@@ -1108,11 +1127,14 @@ def eval_near_ties(torch, cfg, params) -> int:
     from nafae_torch.data.loader import BatchLoader
     from nafae_torch.data.youcook2 import SegmentDataset
     from nafae_torch.evaluate import masked_scores
+    from nafae_torch.models.grounding import inference_params
 
     ds = SegmentDataset(cfg.data.root, "val", cfg.data.max_frames,
                         cfg.data.num_regions, cfg.data.feat_dim,
-                        cfg.data.max_words, with_gt=True)
-    params = {k: torch.as_tensor(v).cpu() for k, v in params.items()}
+                        cfg.data.max_words, with_gt=True,
+                        keep_int8=cfg.model.quantize == "int8pre")
+    params = inference_params(cfg, {k: torch.as_tensor(v).cpu()
+                                    for k, v in params.items()})
     near = 0
     for batch in BatchLoader(ds, cfg.data.batch_size, shuffle=False,
                              drop_remainder=False):
@@ -1121,6 +1143,46 @@ def eval_near_ties(torch, cfg, params) -> int:
         near += int(((top2[..., 0] - top2[..., 1] <= TIE_GAP)
                      & (tb["gt_mask"] > 0)).sum())
     return near
+
+
+def eval_card_vs_cpu(torch, cfg, params, name: str) -> dict:
+    """`evaluate_config` of `cfg` on the card, then on the CPU: equal
+    num_annotations, hit counts equal but for pairs whose top two scores
+    are within TIE_GAP, finite accuracies, no kernel launched."""
+    from nafae_torch.evaluate import evaluate_config
+    from nafae_torch.utils.checkpoint import load_eval_params
+
+    zero_counts()                               # eval starts here
+    t0 = time.perf_counter()
+    card = evaluate_config(cfg, params=params, require_checkpoint=True,
+                           device="cuda")
+    wall = time.perf_counter() - t0
+    counts = read_counts()                      # ... and ends here
+    if any(counts.values()):
+        fail(f"eval launched {counts}; it runs no kernel of the port")
+    cpu = evaluate_config(cfg, params=params, require_checkpoint=True,
+                          device="cpu")
+    hits = {d: round(r["box_acc_micro"] * r["num_annotations"])
+            for d, r in (("card", card), ("cpu", cpu))}
+    if card["num_annotations"] != cpu["num_annotations"]:
+        fail(f"eval ({name}): num_annotations {card['num_annotations']} "
+             f"on the card, {cpu['num_annotations']} on the CPU")
+    near = 0
+    if hits["card"] != hits["cpu"]:
+        near = eval_near_ties(torch, cfg, params if params is not None
+                              else load_eval_params(cfg, device="cpu"))
+        if abs(hits["card"] - hits["cpu"]) > near:
+            fail(f"eval ({name}): {hits['card']} hits on the card, "
+                 f"{hits['cpu']} on the CPU, {near} near ties")
+    if not all(np.isfinite(card[k]) for k in ("box_acc_micro",
+                                              "box_acc_macro")):
+        fail(f"eval ({name}) gave non-finite accuracies: {card}")
+    log(f"eval ({name} params, config1 preset, {card['num_annotations']} "
+        f"annotations): box accuracy micro {card['box_acc_micro']:.6f}, "
+        f"macro {card['box_acc_macro']:.6f} on the card in {wall:.2f} s; "
+        f"hits card {hits['card']} / CPU {hits['cpu']}")
+    return {"card": {k: v for k, v in card.items() if k != "per_class_acc"},
+            "hits": hits, "near_ties": near, "wall_s": wall}
 
 
 def check_eval(torch, root: str, tmp: str, served_acc: float) -> dict:
@@ -1132,47 +1194,13 @@ def check_eval(torch, root: str, tmp: str, served_acc: float) -> dict:
     from its directory; both re-run on the CPU, where num_annotations and
     the hit counts must be equal (a pair whose top two scores are within
     TIE_GAP may go either way). Eval launches no kernel of the port."""
-    from nafae_torch.evaluate import evaluate_config
-    from nafae_torch.utils.checkpoint import load_eval_params
-
     if not os.path.exists(os.path.join(root, "val", "index.jsonl")):
         make_requests(root)
     ckpt = os.path.join(tmp, f"ck_{ROUTES[0]}_float32")
     cfg = eval_cfg(root, ckpt)
-    out = {}
-    for name, params in (("oracle", oracle_params()), ("trained", None)):
-        zero_counts()                           # eval starts here
-        t0 = time.perf_counter()
-        card = evaluate_config(cfg, params=params, require_checkpoint=True,
-                               device="cuda")
-        wall = time.perf_counter() - t0
-        counts = read_counts()                  # ... and ends here
-        if any(counts.values()):
-            fail(f"eval launched {counts}; it runs no kernel of the port")
-        cpu = evaluate_config(cfg, params=params, require_checkpoint=True,
-                              device="cpu")
-        hits = {d: round(r["box_acc_micro"] * r["num_annotations"])
-                for d, r in (("card", card), ("cpu", cpu))}
-        if card["num_annotations"] != cpu["num_annotations"]:
-            fail(f"eval ({name}): num_annotations {card['num_annotations']} "
-                 f"on the card, {cpu['num_annotations']} on the CPU")
-        near = 0
-        if hits["card"] != hits["cpu"]:
-            near = eval_near_ties(torch, cfg, params if params is not None
-                                  else load_eval_params(cfg, device="cpu"))
-            if abs(hits["card"] - hits["cpu"]) > near:
-                fail(f"eval ({name}): {hits['card']} hits on the card, "
-                     f"{hits['cpu']} on the CPU, {near} near ties")
-        if not all(np.isfinite(card[k]) for k in ("box_acc_micro",
-                                                  "box_acc_macro")):
-            fail(f"eval ({name}) gave non-finite accuracies: {card}")
-        out[name] = {"card": {k: v for k, v in card.items()
-                              if k != "per_class_acc"},
-                     "hits": hits, "near_ties": near, "wall_s": wall}
-        log(f"eval ({name} params, config1 preset, {card['num_annotations']} "
-            f"annotations): box accuracy micro {card['box_acc_micro']:.6f}, "
-            f"macro {card['box_acc_macro']:.6f} on the card in {wall:.2f} s; "
-            f"hits card {hits['card']} / CPU {hits['cpu']}")
+    out = {name: eval_card_vs_cpu(torch, cfg, params, name)
+           for name, params in (("oracle", oracle_params()),
+                                ("trained", None))}
     if abs(out["oracle"]["card"]["box_acc_micro"] - served_acc) > 1e-12:
         fail(f"eval of the oracle params {out['oracle']['card']} differs from "
              f"the server's box accuracy {served_acc}")
@@ -2215,7 +2243,7 @@ def timings(torch, srv, segs) -> dict:
     batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
     dev = torch.device("cuda")
     tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    params = dict(srv.model.params.items())
+    params = srv.params
     res = {}
     with torch.inference_mode():
         v_emb = TG.project_params(params, tb["feats"])
@@ -2246,13 +2274,13 @@ def timings(torch, srv, segs) -> dict:
                 res["library_within_tol" + dt_tag] = bool(torch.allclose(
                     got, want, rtol=rtol, atol=atol))
         res["batch_device_ms"] = device_ms(torch, lambda: srv._fn(
-            tb["feats"], tb["boxes"], tb["word_ids"], tb["frame_mask"],
-            tb["word_mask"], tb["region_mask"]))
+            params, tb["feats"], tb["boxes"], tb["word_ids"],
+            tb["frame_mask"], tb["word_mask"], tb["region_mask"]))
         (res["kernels_by_device_time"], res["device_busy_ms"],
          _) = profile_forward(
-            torch, lambda: srv._fn(tb["feats"], tb["boxes"], tb["word_ids"],
-                                   tb["frame_mask"], tb["word_mask"],
-                                   tb["region_mask"]))
+            torch, lambda: srv._fn(params, tb["feats"], tb["boxes"],
+                                   tb["word_ids"], tb["frame_mask"],
+                                   tb["word_mask"], tb["region_mask"]))
     zero_counts()
     srv.run_batch(batch)
     res["launches_per_batch"] = K.launches["ctx_mix_fwd"]
@@ -2549,6 +2577,543 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
     return res
 
 
+# ------------------------------------ int8 serving, export and visualize
+
+
+QUANTIZE = ("int8", "int8pre")       # model.quantize of the int8 phases
+# card against CPU for the int8 servers: scores and frame weights within
+# this (f32 as the f32 server's HTTP check; bf16 at the reference's bf16
+# tolerance), regions equal where the CPU's top two scores are further
+# apart than it
+INT8_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# exported artifacts: kind -> (model.quantize, export's storage quantize)
+ARTIFACTS = {"f32": ("", None), "storage_int8": ("", "int8"),
+             "int8": ("int8", None), "int8pre": ("int8pre", None)}
+ARG_KEYS = ("feats", "boxes", "word_ids", "frame_mask", "word_mask",
+            "region_mask")
+AB_ROUNDS = 10                   # interleaved host-to-host rounds (A/B)
+VIZ_SEGMENTS = 8
+
+
+def serve_cfg(dt: str, quantize: str):
+    from nafae_torch.config import load_config
+
+    return load_config(preset_name="config4", overrides=[
+        f"model.dtype={dt}", f"model.quantize={quantize}"])
+
+
+def prequantized(segs: list[dict]) -> list[dict]:
+    """The segments in the `extract --quantize int8` wire format."""
+    from nafae_torch.extract import quantize_feats_np
+
+    out = []
+    for seg in segs:
+        q, sf = quantize_feats_np(seg["feats"])
+        out.append({**seg, "feats": q, "feats_scale": sf})
+    return out
+
+
+def serving_batch(srv, segs) -> dict:
+    """The first full batch of `segs` as the server pads it (numpy)."""
+    samples = [srv._pad_segment(s) for s in segs[:srv.batch_size]]
+    return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+
+
+def int8_operands(torch, srv, batch):
+    """(q [N,D] int8, sf [N,1] f32, acc [N,E] int32) of srv's int8
+    projection on one batch, on srv's device: int8pre's feats as they
+    arrive, int8's quantized per row as project_regions_int8 does."""
+    from nafae_torch.ops import grounding as TG
+
+    f = torch.from_numpy(batch["feats"]).to(srv.device)
+    f2 = f.reshape(-1, f.shape[-1])
+    if "feats_scale" in batch:
+        q = f2
+        sf = torch.from_numpy(batch["feats_scale"]).to(srv.device)
+        sf = sf.reshape(-1, 1)
+    else:
+        q, sf = TG.quantize_feats_int8(f2)
+    return q, sf, TG.int8_matmul(q, srv.params["w_v.q8"])
+
+
+def check_int8_cpu_rerun(torch, cfg, params, srv, segs) -> dict:
+    """One batch of an int8 server re-run on the CPU through the plain
+    versions: the quantized weights, the batch's quantized feats, their
+    scales and the int32 products bit for bit; regions and boxes equal
+    where the CPU's top two scores are clear of INT8_TOL; scores, frame
+    weights and video scores within INT8_TOL."""
+    from nafae_torch.serve import GroundingServer
+
+    dt = cfg.model.dtype
+    cpu = GroundingServer(cfg, params, device="cpu")
+    for k in ("w_v.q8", "w_v.scale8"):
+        if not torch.equal(srv.params[k].cpu(), cpu.params[k]):
+            fail(f"{cfg.model.quantize} {dt}: {k} differs between the card "
+                 "and the CPU")
+    batch = serving_batch(cpu, segs)
+    with torch.inference_mode():
+        for name, a, b in zip(("quantized feats", "feature scales",
+                               "int32 products"),
+                              int8_operands(torch, srv, batch),
+                              int8_operands(torch, cpu, batch)):
+            if not torch.equal(a.cpu(), b):
+                fail(f"{cfg.model.quantize} {dt}: the {name} differ between "
+                     "the card and the CPU")
+        tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+        s = cpu.model(tb["feats"], tb["word_ids"], tb["frame_mask"],
+                      tb["word_mask"], region_mask=tb["region_mask"],
+                      feats_scale=tb.get("feats_scale"))["s"].float()
+    card, host = srv.run_batch(batch), cpu.run_batch(batch)
+    tol = INT8_TOL[dt]
+    top2 = s.topk(2, dim=-1).values.numpy()
+    clear = top2[..., 0] - top2[..., 1] > tol                    # [B,K,T]
+    valid = (batch["word_mask"][:, :, None]
+             * batch["frame_mask"][:, None, :]) > 0
+    moved = valid & (card["region"] != host["region"])
+    if (moved & clear).any():
+        fail(f"{cfg.model.quantize} {dt}: regions differ between the card "
+             "and the CPU where clear of ties")
+    same = valid & ~moved
+    if not np.array_equal(card["box"][same], host["box"][same]):
+        fail(f"{cfg.model.quantize} {dt}: boxes of equal regions differ")
+    fm = batch["frame_mask"] > 0
+    diff = max(float(np.abs(card["score"] - host["score"])[same].max()),
+               float(np.abs(card["beta"] - host["beta"])[fm].max()),
+               float(np.abs(card["video_score"]
+                            - host["video_score"]).max()))
+    if diff > tol:
+        fail(f"{cfg.model.quantize} {dt}: card and CPU scores differ by "
+             f"{diff} > {tol}")
+    return {"cpu_max_diff": diff, "cpu_regions_moved_at_ties":
+            int(moved.sum()), "cpu_pairs": int(valid.sum())}
+
+
+def serve_int8(torch, params, segs, gts) -> dict:
+    """Main path 7: config4 servers with model.quantize=int8 and int8pre,
+    f32 and bf16, on the oracle params, over the serving phase's requests:
+    K1f once a batch and no other kernel, box accuracy over ACC_BAR, one
+    batch re-run on the CPU (check_int8_cpu_rerun); the f32 int8pre server
+    also answers pre-quantized requests over HTTP as it answers f32 ones in
+    process."""
+    from nafae_torch.serve import GroundingServer
+
+    out = {}
+    for quantize in QUANTIZE:
+        for dt in ("float32", "bfloat16"):
+            cfg = serve_cfg(dt, quantize)
+            srv = GroundingServer(cfg, params, device="cuda")
+            batches = -(-len(segs) // srv.batch_size)
+            zero_counts()                       # int8 serving starts here
+            t0 = time.perf_counter()
+            results = srv.ground_segments(segs)
+            wall = time.perf_counter() - t0
+            counts = read_counts()              # ... and ends here
+            want = dict.fromkeys(counts, 0)
+            want["ctx_mix_fwd"] = batches
+            if counts != want:
+                fail(f"{quantize} {dt} serving launched {counts}; K1f once "
+                     f"a batch ({batches}) and nothing else expected")
+            for res in results:
+                vals = [fr["score"] for w in res["words"] for fr in w["frames"]]
+                vals += res["frame_weights"] + [res["video_score"]]
+                if not np.all(np.isfinite(vals)):
+                    fail(f"{quantize} {dt} server returned non-finite values")
+            acc = box_accuracy(torch, segs, results, gts)
+            if acc < ACC_BAR:
+                fail(f"{quantize} {dt} box accuracy {acc} < {ACC_BAR}")
+            entry = {"box_acc": acc, "launches_ctx_mix_fwd":
+                     counts["ctx_mix_fwd"], "batches": batches,
+                     "wall_s": wall,
+                     **check_int8_cpu_rerun(torch, cfg, params, srv, segs)}
+            if quantize == "int8pre" and dt == "float32":
+                pre = prequantized(segs)
+                picks = [[0, 1], [2], [3, 4]]      # 3 concurrent requests
+                answers = serve_over_http(
+                    srv, [[pre[i] for i in p] for p in picks])
+                worst = max(max_response_diff(ans, [results[i] for i in p])
+                            for p, ans in zip(picks, answers))
+                if worst > INT8_TOL[dt]:
+                    fail(f"int8pre HTTP answers to pre-quantized requests "
+                         f"differ from the in-process ones by {worst}")
+                entry["http_prequantized_max_diff"] = worst
+            out[f"{quantize}_{dt}"] = entry
+            log(f"served {len(segs)} segments with model.quantize={quantize}"
+                f" ({dt}): box accuracy {acc:.4f} (bar {ACC_BAR}); K1f "
+                f"{counts['ctx_mix_fwd']} launches in {batches} batches; CPU "
+                f"re-run: weights, quantized feats, scales and int32 products "
+                f"equal, regions equal where clear of ties "
+                f"({entry['cpu_regions_moved_at_ties']} of "
+                f"{entry['cpu_pairs']} moved at ties), max |diff| "
+                f"{entry['cpu_max_diff']:.3e} (limit {INT8_TOL[dt]})"
+                + (f"; HTTP with pre-quantized requests: max |diff| "
+                   f"{entry['http_prequantized_max_diff']:.3e}"
+                   if "http_prequantized_max_diff" in entry else ""))
+    return out
+
+
+def write_int8_split(src_root: str, dst_root: str) -> None:
+    """The val split of src_root rewritten as `extract --quantize int8`
+    files (int8 feats + feats_scale, extract.quantize_feats_np)."""
+    from nafae_torch.extract import quantize_feats_np
+
+    src, dst = os.path.join(src_root, "val"), os.path.join(dst_root, "val")
+    os.makedirs(dst, exist_ok=True)
+    for name in os.listdir(src):
+        if name.endswith(".npz"):
+            with np.load(os.path.join(src, name)) as z:
+                arrays = {k: z[k] for k in z.files}
+            arrays["feats"], arrays["feats_scale"] = quantize_feats_np(
+                arrays["feats"].astype(np.float32))
+            np.savez(os.path.join(dst, name), **arrays)
+        elif name == "index.jsonl":
+            with open(os.path.join(src, name)) as f, \
+                    open(os.path.join(dst, name), "w") as g:
+                g.write(f.read())
+
+
+def check_eval_int8(torch, root: str, tmp: str) -> dict:
+    """config1 eval with model.quantize=int8 and int8pre over the val split
+    written as int8 feature files, with the oracle params, on the card and
+    on the CPU (eval_card_vs_cpu)."""
+    root8 = os.path.join(tmp, "int8_feats")
+    write_int8_split(root, root8)
+    return {quantize: eval_card_vs_cpu(
+        torch, eval_cfg(root8, tmp, [f"model.quantize={quantize}"]),
+        oracle_params(), f"oracle, model.quantize={quantize}")
+        for quantize in QUANTIZE}
+
+
+def check_export(torch, params, segs, tmp: str) -> dict:
+    """The exported serving artifact: f32, stored int8 (through the serve
+    CLI's --export --quantize int8), int8 compute and int8pre, exported on
+    the card; each loaded by `load_exported` in a fresh subprocess
+    (artifact_child) that must answer the first batch bit for bit as the
+    live server here does, launching K1f once; the f32 and int8pre ones
+    also timed there against a live server of their own (artifact_ab)."""
+    from nafae_torch.models.grounding import inference_params
+    from nafae_torch.serve import (GroundingServer, dequantize_params,
+                                   export_grounding, quantize_params)
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    npz = os.path.join(tmp, "oracle_params.npz")
+    np.savez(npz, **params)
+    spec = {"params": npz, "kinds": {}}
+    export_s = {}
+    for kind, (quantize, storage) in ARTIFACTS.items():
+        cfg = serve_cfg("float32", quantize)
+        d = os.path.join(tmp, "artifact_" + kind)
+        t0 = time.perf_counter()
+        if storage:             # as a user exports: the serve CLI
+            run = subprocess.run(
+                [sys.executable, "-m", "nafae_torch.serve", "--preset",
+                 "config4", "--override", f"model.quantize={quantize}",
+                 "--checkpoint", npz, "--export", d, "--quantize", storage],
+                cwd=here, capture_output=True, text=True, timeout=600)
+            if run.returncode != 0:
+                fail(f"serve --export failed: {run.stderr[-2000:]}")
+            if json.loads(run.stdout.strip().splitlines()[-1]) != {
+                    "exported": d, "quantize": storage}:
+                fail(f"serve --export printed {run.stdout[-500:]}")
+        else:
+            export_grounding(cfg, params, d)
+        export_s[kind] = time.perf_counter() - t0
+        live_params = params if storage is None else dequantize_params(
+            quantize_params(inference_params(cfg, params)))
+        srv = GroundingServer(cfg, live_params, device="cuda")
+        batch = serving_batch(srv, segs)
+        np.savez(d + "_batch.npz", **batch)
+        np.savez(d + "_live.npz", **srv.run_batch(batch))
+        spec["kinds"][kind] = {"dir": d, "quantize": quantize,
+                               "batch": d + "_batch.npz",
+                               "live": d + "_live.npz",
+                               "ab": storage is None and kind != "int8"}
+    spec_path = os.path.join(tmp, "artifacts.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          "--artifact-child", spec_path], cwd=here,
+                         capture_output=True, text=True, timeout=900)
+    child_s = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"the artifact subprocess failed: {run.stderr[-3000:]}")
+    res = json.loads(run.stdout.strip().splitlines()[-1])["artifact_child"]
+    for kind, r in res.items():
+        if not r["equal"]:
+            fail(f"the {kind} artifact's answers differ from the live "
+                 f"server's: {r}")
+        if r["launches_ctx_mix_fwd"] != 1 or r["device"] != "cuda":
+            fail(f"the {kind} artifact ran K1f {r['launches_ctx_mix_fwd']} "
+                 f"times on {r['device']}; once on cuda expected")
+        log(f"artifact {kind}: exported in {export_s[kind]:.2f} s, loaded "
+            f"in a fresh process in {r['load_s']:.2f} s; answers equal to "
+            f"the live server's bit for bit; K1f launched once; program "
+            f"{r['program_bytes']} bytes, params.npz {r['params_bytes']} "
+            "bytes")
+        if "ab" in r:
+            a = r["ab"]
+            log(f"artifact vs live server ({kind}, one batch of 16, "
+                f"{AB_ROUNDS} interleaved rounds in one process): device "
+                f"{a['artifact_device_ms']:.4f} vs {a['live_device_ms']:.4f} "
+                f"ms; host to host {a['artifact_host_ms']:.4f} vs "
+                f"{a['live_host_ms']:.4f} ms — {card_line()}")
+    return {"export_s": export_s, "child_s": child_s, "kinds": res}
+
+
+def artifact_ab(torch, call, kind: dict, params_npz: str, batch) -> dict:
+    """An artifact against a live server of the same config and params on
+    the same batch, in this process: device ms (CUDA graphs) and host to
+    host ms (numpy in, numpy out), in AB_ROUNDS interleaved rounds (live,
+    artifact, artifact, live)."""
+    from nafae_torch.serve import GroundingServer
+
+    with np.load(params_npz) as z:
+        params = {k: z[k] for k in z.files}
+    srv = GroundingServer(serve_cfg("float32", kind["quantize"]), params,
+                          device="cuda")
+    dev = torch.device("cuda")
+    tb = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    args = [tb[k] for k in ARG_KEYS]
+    tail = [tb["feats_scale"]] if "feats_scale" in tb else []
+    np_args = [batch[k] for k in ARG_KEYS] + (
+        [batch["feats_scale"]] if "feats_scale" in batch else [])
+    with torch.inference_mode():
+        live_dev = device_ms(torch, lambda: srv._fn(srv.params, *args, *tail))
+        art_dev = device_ms(torch, lambda: call(*args, *tail))
+
+    def art_host():
+        return {k: v.cpu().numpy() for k, v in call(*np_args).items()}
+
+    times = {"live": [], "artifact": []}
+    for i in range(AB_ROUNDS + 2):
+        for name, fn in (("live", lambda: srv.run_batch(batch)),
+                         ("artifact", art_host), ("artifact", art_host),
+                         ("live", lambda: srv.run_batch(batch))):
+            t0 = time.perf_counter()
+            fn()
+            if i >= 2:                          # two warm-up rounds
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    return {"live_device_ms": live_dev, "artifact_device_ms": art_dev,
+            "live_host_ms": statistics.median(times["live"]),
+            "artifact_host_ms": statistics.median(times["artifact"])}
+
+
+def artifact_child(spec_path: str) -> None:
+    """`python3 chip_smoke.py --artifact-child spec.json`: the deployment
+    host's side of check_export, in a process of its own. Prints one JSON
+    line: per artifact, whether its answers equal the live server's, K1f's
+    launches in its run, and (artifact_ab) its times."""
+    import torch
+
+    from nafae_torch.ops.kernels import ctx_mix as K
+    from nafae_torch.serve import PARAMS_NPZ, PROGRAM, load_exported
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    with open(spec_path) as f:
+        spec = json.load(f)
+    out = {}
+    for name, kind in spec["kinds"].items():
+        t0 = time.perf_counter()
+        call, manifest = load_exported(kind["dir"])
+        load_s = time.perf_counter() - t0
+        with np.load(kind["batch"]) as z:
+            batch = {k: z[k] for k in z.files}
+        with np.load(kind["live"]) as z:
+            live = {k: z[k] for k in z.files}
+        args = [batch[k] for k in ARG_KEYS] + (
+            [batch["feats_scale"]] if "feats_scale" in batch else [])
+        K.launches["ctx_mix_fwd"] = 0           # the artifact's run starts
+        got = {k: v.cpu().numpy() for k, v in call(*args).items()}
+        launches = K.launches["ctx_mix_fwd"]    # ... and ends here
+        out[name] = {
+            "equal": set(got) == set(live) and all(
+                np.array_equal(got[k], live[k]) for k in live),
+            "launches_ctx_mix_fwd": launches, "device": manifest["device"],
+            "load_s": load_s,
+            "program_bytes": os.path.getsize(os.path.join(kind["dir"],
+                                                          PROGRAM)),
+            "params_bytes": os.path.getsize(os.path.join(kind["dir"],
+                                                         PARAMS_NPZ))}
+        if kind["ab"]:
+            out[name]["ab"] = artifact_ab(torch, call, kind, spec["params"],
+                                          batch)
+    print(json.dumps({"artifact_child": out}), flush=True)
+
+
+def check_visualize(torch, root: str, tmp: str) -> dict:
+    """`visualize_config` (config1 preset, the oracle params) over the first
+    VIZ_SEGMENTS val segments on the card, rendering PNGs, and on the CPU:
+    the records equal, but for a region where the CPU's top two scores are
+    within TIE_GAP and a score one step of its 4-decimal rounding apart;
+    no kernel launched."""
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.models.grounding import params_from_jax
+    from nafae_torch.ops import grounding as TG
+    from nafae_torch.visualize import visualize_config
+
+    cfg = eval_cfg(root, tmp)
+    params = oracle_params()
+    card_dir, cpu_dir = (os.path.join(tmp, "viz_" + d)
+                         for d in ("card", "cpu"))
+    zero_counts()
+    t0 = time.perf_counter()
+    card_path = visualize_config(cfg, card_dir, params,
+                                 num_segments=VIZ_SEGMENTS, device="cuda")
+    wall = time.perf_counter() - t0
+    if any(read_counts().values()):
+        fail(f"visualize launched {read_counts()}; it runs no kernel")
+    cpu_path = visualize_config(cfg, cpu_dir, params,
+                                num_segments=VIZ_SEGMENTS, render=False,
+                                device="cpu")
+    with open(card_path) as f:
+        card = [json.loads(ln) for ln in f]
+    with open(cpu_path) as f:
+        cpu = [json.loads(ln) for ln in f]
+    # the CPU's top-two gaps, in segment_records' order
+    ds = SegmentDataset(cfg.data.root, "val", cfg.data.max_frames,
+                        cfg.data.num_regions, cfg.data.feat_dim,
+                        cfg.data.max_words, with_gt=True)
+    p = params_from_jax(params, "cpu")
+    gaps = []
+    for i in range(min(VIZ_SEGMENTS, len(ds))):
+        sm = ds[i]
+        with torch.inference_mode():
+            s = TG.mask_regions(TG.similarity_tensor(
+                TG.embed_words(torch.from_numpy(sm["word_ids"][None]),
+                               p["word_emb"]),
+                TG.project_params(p, torch.from_numpy(sm["feats"][None]))),
+                torch.from_numpy(sm["region_mask"][None]))[0]
+        top2 = s.topk(2, dim=-1).values
+        for k in np.nonzero(sm["word_mask"])[0]:
+            for t in np.nonzero(sm["frame_mask"])[0]:
+                if sm["region_mask"][t].any():
+                    gaps.append(float(top2[k, t, 0] - top2[k, t, 1]))
+    if len(card) != len(cpu) or len(cpu) != len(gaps):
+        fail(f"visualize: {len(card)} records on the card, {len(cpu)} on "
+             f"the CPU, {len(gaps)} expected")
+    moved = stepped = 0
+    for a, b, gap in zip(card, cpu, gaps):
+        if a["region"] != b["region"]:
+            if gap > TIE_GAP:
+                fail(f"visualize: card {a} and CPU {b} differ, clear of ties")
+            moved += 1
+            continue
+        if abs(a["score"] - b["score"]) > 1.5e-4:
+            fail(f"visualize: scores differ past their rounding: {a}, {b}")
+        stepped += a["score"] != b["score"]
+        if {**a, "score": 0} != {**b, "score": 0}:
+            fail(f"visualize: card {a} and CPU {b} differ")
+    pngs = sum(len(files) for _, _, files in os.walk(card_dir)
+               if files and all(f.endswith(".png") for f in files))
+    frames = len({(r["segment"], r["frame"]) for r in card})
+    if pngs != frames:
+        fail(f"visualize wrote {pngs} PNGs for {frames} frames")
+    log(f"visualize ({len(card)} records of {VIZ_SEGMENTS} segments, "
+        f"{pngs} PNGs) on the card in {wall:.2f} s: records equal to the "
+        f"CPU's ({moved} regions moved at ties, {stepped} scores one "
+        "rounding step apart)")
+    return {"records": len(card), "pngs": pngs, "moved_at_ties": moved,
+            "scores_one_step_apart": stepped, "wall_s": wall}
+
+
+H100_INT8_OPS = 1979e12          # int8 on tensor cores, dense, same sheet
+
+
+def int8_bound_ms(nbytes_: int, ops: float) -> tuple[float, str]:
+    t_bytes, t_ops = nbytes_ / H100_BYTES_PER_S, ops / H100_INT8_OPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+def int8_timings(torch, params, segs) -> dict:
+    """On the first serving batch (config4, B=16): device ms (CUDA graphs)
+    of the projection in f32, bf16, int8 (features quantized per batch)
+    and int8pre, each with its bound, and of the bare products; then the
+    f32, int8 and int8pre servers' whole batch: device ms, device busy
+    (torch.profiler), host to host (numpy in and out) and the batch's
+    copy to the card alone, in interleaved rounds, and the host's ingest
+    (padding, and int8pre's quantization) of the batch's segments."""
+    from nafae_torch.ops import grounding as TG
+    from nafae_torch.serve import GroundingServer
+
+    dev = torch.device("cuda")
+    srvs = {q or "float32": GroundingServer(serve_cfg("float32", q), params,
+                                            device="cuda")
+            for q in ("", "int8", "int8pre")}
+    batches = {n: serving_batch(s, segs) for n, s in srvs.items()}
+    tbs = {n: {k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+           for n, b in batches.items()}
+    p, pq = srvs["float32"].params, srvs["int8pre"].params
+    f, qf = tbs["float32"]["feats"], tbs["int8pre"]["feats"]
+    sf = tbs["int8pre"]["feats_scale"]
+    wq, ws, bv = pq["w_v.q8"], pq["w_v.scale8"], pq["b_v"]
+    f2, q2 = f.reshape(-1, f.shape[-1]), qf.reshape(-1, qf.shape[-1])
+    n, d = q2.shape
+    e = wq.shape[1]
+    out_b = n * e * 4
+    res = {"shapes": {"N": n, "D": d, "E": e}}
+    with torch.inference_mode():
+        for name, fn in (
+                ("proj_f32", lambda: TG.project_regions(f, p["w_v"],
+                                                        p["b_v"])),
+                ("proj_bf16", lambda: TG.project_regions(
+                    f, p["w_v"], p["b_v"], dtype=torch.bfloat16)),
+                ("proj_int8", lambda: TG.project_regions_int8(f, wq, ws, bv)),
+                ("proj_int8pre", lambda: TG.project_regions_int8_pre(
+                    qf, sf, wq, ws, bv)),
+                ("matmul_f32", lambda: f2 @ p["w_v"]),
+                ("int_mm", lambda: TG.int8_matmul(q2, wq))):
+            res[name + "_ms"] = device_ms(torch, fn)
+        ops = 2.0 * n * d * e
+        res["proj_f32_bound_ms"], res["proj_f32_bound_by"] = bound(
+            torch, nbytes(f, p["w_v"], p["b_v"]) + out_b, ops, torch.float32)
+        res["proj_bf16_bound_ms"], res["proj_bf16_bound_by"] = bound(
+            torch, nbytes(f, p["w_v"], p["b_v"]) + out_b, ops, torch.bfloat16)
+        res["proj_int8_bound_ms"], res["proj_int8_bound_by"] = int8_bound_ms(
+            nbytes(f, wq, ws, bv) + out_b, ops)
+        res["proj_int8pre_bound_ms"], res["proj_int8pre_bound_by"] = \
+            int8_bound_ms(nbytes(qf, sf, wq, ws, bv) + out_b, ops)
+        for name, srv in srvs.items():
+            tb = tbs[name]
+            args = [tb[k] for k in ARG_KEYS] + (
+                [tb["feats_scale"]] if "feats_scale" in tb else [])
+            res[f"batch_device_ms_{name}"] = device_ms(
+                torch, lambda: srv._fn(srv.params, *args))
+            kern, busy, ops_n = profile_forward(
+                torch, lambda: srv._fn(srv.params, *args))
+            res[f"batch_device_busy_ms_{name}"] = busy
+            res[f"batch_device_ops_{name}"] = ops_n
+            res[f"kernels_by_device_time_{name}"] = kern
+    host = {n: [] for n in srvs}
+    h2d = {n: [] for n in srvs}
+    order = list(srvs) + list(srvs)[::-1]
+    for i in range(AB_ROUNDS + 2):
+        for name in order:
+            t0 = time.perf_counter()
+            srvs[name].run_batch(batches[name])
+            t1 = time.perf_counter()
+            _ = {k: torch.from_numpy(v).to(dev, non_blocking=True)
+                 for k, v in batches[name].items()}
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if i >= 2:
+                host[name].append((t1 - t0) * 1e3)
+                h2d[name].append((t2 - t1) * 1e3)
+    for name, srv in srvs.items():
+        res[f"batch_host_ms_{name}"] = statistics.median(host[name])
+        res[f"batch_h2d_ms_{name}"] = statistics.median(h2d[name])
+        res[f"batch_bytes_{name}"] = int(sum(v.nbytes for v in
+                                             batches[name].values()))
+        res[f"device_idle_share_host_{name}"] = 1.0 - res[
+            f"batch_device_busy_ms_{name}"] / res[f"batch_host_ms_{name}"]
+        t0 = time.perf_counter()
+        for seg in segs[:srv.batch_size]:
+            srv._pad_segment(seg)
+        res[f"ingest_ms_{name}"] = (time.perf_counter() - t0) * 1e3
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
                  by, library_ms=None, **more) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -2614,6 +3179,16 @@ def main() -> None:
         routes = check_pallas_vs_auto(torch, tmp, tmp)
         evals = check_eval(torch, tmp, tmp, box_accuracy(
             torch, segs, served["float32"][1], gts))
+
+        # int8 serving, eval, the exported artifact and visualize (main
+        # path 7), on the serving phase's requests and val split
+        t11 = time.perf_counter()
+        q8 = serve_int8(torch, params, segs, gts)
+        q8_eval = check_eval_int8(torch, tmp, tmp)
+        art = check_export(torch, params, segs, tmp)
+        viz = check_visualize(torch, tmp, tmp)
+        q8t = int8_timings(torch, params, segs)
+        t11 = time.perf_counter() - t11
 
         tm = timings(torch, srv32, segs)
         tt = train_timings(torch, tmp, tmp)
@@ -2689,6 +3264,28 @@ def main() -> None:
         f"{tm['batch_device_ms']:.4f} ms = {tm['frames_per_s_device']:.0f} "
         f"frames/s; host to host {tm['batch_host_ms']:.4f} ms = "
         f"{tm['frames_per_s_host']:.0f} frames/s — {card}")
+    log(f"projection on the first serving batch {q8t['shapes']} (device ms, "
+        "CUDA graphs; bound): " + "; ".join(
+            f"{n} {q8t['proj_' + n + '_ms']:.4f} (bound "
+            f"{q8t['proj_' + n + '_bound_ms']:.4f}, "
+            f"{q8t['proj_' + n + '_bound_by']})"
+            for n in ("f32", "bf16", "int8", "int8pre"))
+        + f"; the bare products: f32 matmul {q8t['matmul_f32_ms']:.4f}, "
+        f"torch._int_mm {q8t['int_mm_ms']:.4f} — {card}")
+    for name in ("float32", "int8", "int8pre"):
+        log(f"serving batch ({name} server, B=16, "
+            f"{q8t['batch_bytes_' + name]} bytes): host to host "
+            f"{q8t['batch_host_ms_' + name]:.4f} ms, of which the batch's "
+            f"copy to the card alone {q8t['batch_h2d_ms_' + name]:.4f} ms; "
+            f"device {q8t['batch_device_ms_' + name]:.4f} ms (CUDA graph), "
+            f"busy {q8t['batch_device_busy_ms_' + name]:.4f} ms in "
+            f"{q8t['batch_device_ops_' + name]:.0f} operations (idle "
+            f"{100 * q8t['device_idle_share_host_' + name]:.1f}% of host to "
+            f"host); ingest of its 16 segments on the host "
+            f"{q8t['ingest_ms_' + name]:.2f} ms — {card}")
+        log(f"device time per {name} serving forward by kernel: "
+            + "; ".join(f"{us:.1f} us {k}" for k, us in
+                        q8t["kernels_by_device_time_" + name]))
     for tag, dt in (("", "f32"), ("_bf16", "bf16")):
         log(f"K1fr/K1b/K1br vs plain on the first training batch, {dt}: "
             "max |err| " + ", ".join(f"{k} {v:.3e}"
@@ -2839,7 +3436,14 @@ def main() -> None:
             plain_ms_dense_bf16=tm["plain_ms_dense_bf16"],
             bound_ms_dense_bf16=tm["bound_ms_dense_bf16"],
             bound_by_dense_bf16=tm["bound_by_dense_bf16"],
-            shapes=tm["shapes"], path="serving"),
+            shapes=tm["shapes"], path="serving",
+            # the forward-only route is the custom op
+            # nafae::ctx_mix_fwd, also inside the exported program
+            custom_op="nafae::ctx_mix_fwd",
+            launches_int8={k: v["launches_ctx_mix_fwd"]
+                           for k, v in q8.items()},
+            launches_artifact={k: v["launches_ctx_mix_fwd"]
+                               for k, v in art["kinds"].items()}),
         *(kernel_entry(
             name, src, rep, launches, launches / n,
             max(gerrs["float32"][name], tt["errs"][name]),
@@ -2942,6 +3546,11 @@ def main() -> None:
             "device_idle_share_host": 1.0 - tm["device_busy_ms"]
             / tm["batch_host_ms"]},
         "eval": evals,
+        "int8": {"serving": q8, "eval": q8_eval, "export": art,
+                 "visualize": viz,
+                 "times": {k: v for k, v in q8t.items()
+                           if not k.startswith("kernels")},
+                 "phase_s": t11},
         "training": {
             **{k: v for k, v in tt.items()
                if k.startswith(("step_", "frames_per_s")) and
@@ -2990,4 +3599,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if len(sys.argv) == 3 and sys.argv[1] == "--artifact-child":
+        artifact_child(sys.argv[2])
+    else:
+        main()

@@ -284,7 +284,7 @@ def serving_batch(torch, srv, batch: dict):
     tb = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
     w = srv.model.ctx_window
     with torch.inference_mode():
-        v_emb = TG.project_params(dict(srv.model.params.items()), tb["feats"])
+        v_emb = TG.project_params(srv.params, tb["feats"])
         v_ext, fm_ext, rm_ext = TG.extend_for_window(
             v_emb, tb["frame_mask"], tb["region_mask"], w)
     return v_ext.clone(), fm_ext.clone(), rm_ext.clone(), w, \

@@ -12,8 +12,10 @@ On-disk layout (written by the JAX package's extractor or by
                              [T,R]), boxes [T,R,4], word_ids [K],
                              gt_boxes [K,T,4], gt_mask [K,T] (eval),
                              region_mask [T,R] (optional)
-int8 feature files are dequantized on load; passing them through as int8
-(`keep_int8`, the int8pre serving path) is not ported yet.
+int8 feature files are dequantized on load, so one extraction serves
+training and f32 eval; `keep_int8=True` (model.quantize=int8pre) passes
+the int8 feats and their scales through instead, so that the device reads
+a quarter of the feature bytes and projects them with an int8 product.
 """
 
 from __future__ import annotations
@@ -29,11 +31,8 @@ class SegmentDataset:
                  feat_dim: int, max_words: int, with_gt: bool = False,
                  frame_buckets: tuple = (), transfer_dtype: str = "float32",
                  keep_int8: bool = False):
-        if keep_int8:
-            raise NotImplementedError(
-                "keep_int8 (model.quantize=int8pre) is not ported yet; it "
-                "comes with the int8 serving slice of the port")
         self.transfer_dtype = np.dtype(transfer_dtype)
+        self.keep_int8 = keep_int8
         self.dir = os.path.join(root, split)
         self.max_frames = max_frames
         # ascending UNIQUE bucket sizes; () = single bucket at max_frames
@@ -60,14 +59,25 @@ class SegmentDataset:
     def __getitem__(self, i: int) -> dict[str, np.ndarray]:
         meta = self.index[i]
         with np.load(os.path.join(self.dir, meta["file"])) as z:
-            fz = z["feats"]
+            fz, fscale = z["feats"], None
             if fz.dtype == np.int8 and "feats_scale" in z.files:
-                feats = (fz.astype(np.float32) * z["feats_scale"][..., None]
-                         ).astype(self.transfer_dtype)
+                if self.keep_int8:
+                    feats = fz
+                    fscale = z["feats_scale"].astype(np.float32)
+                else:
+                    feats = (fz.astype(np.float32)
+                             * z["feats_scale"][..., None]
+                             ).astype(self.transfer_dtype)
             else:
+                if self.keep_int8:
+                    raise ValueError(
+                        f"{meta['file']}: keep_int8 (model.quantize=int8pre)"
+                        " needs int8 feature files — re-extract with "
+                        "`nafae_torch.extract --quantize int8`")
                 feats = fz.astype(self.transfer_dtype)
             sample = pad_sample(
                 feats=feats,
+                feats_scale=fscale,
                 boxes=z["boxes"].astype(np.float32),
                 word_ids=z["word_ids"].astype(np.int32),
                 max_frames=self.bucket_of(i),

@@ -12,10 +12,11 @@ per-class sums are taken on the host.
         [--per-class] [--device cpu]
 
 Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
-Not ported yet: the int8 forms (`model.quantize=int8|int8pre`, ROADMAP
-Queue 1 item 7) raise NotImplementedError, and evaluation sharded over
-several devices (the reference's `mesh` and `--mesh`) waits for data
-parallelism (ROADMAP Queue 1 item 6).
+`model.quantize=int8` projects with the int8 product over features
+quantized per batch; `int8pre` reads int8 feature files (`extract
+--quantize int8`) and sends them to the device as int8 with their scales.
+Not ported yet: evaluation sharded over several devices (the reference's
+`mesh` and `--mesh`) waits for data parallelism (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -115,15 +116,15 @@ def evaluate_config(cfg: Config, params: dict | None = None,
     config1 preset). Without a checkpoint it evaluates a random init,
     unless require_checkpoint asks it to raise."""
     from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.models.grounding import inference_params
 
-    if cfg.model.quantize in ("int8", "int8pre"):
-        raise NotImplementedError(
-            f"model.quantize={cfg.model.quantize}: int8 evaluation is not "
-            "ported yet (ROADMAP Queue 1 item 7); evaluate in f32")
     device = resolve_device(device)
     ds = SegmentDataset(cfg.data.root, split, cfg.data.max_frames,
                         cfg.data.num_regions, cfg.data.feat_dim,
-                        cfg.data.max_words, with_gt=True)
+                        cfg.data.max_words, with_gt=True,
+                        # int8pre: int8 feats + scales reach the device
+                        # untouched (ValueError on non-int8 files)
+                        keep_int8=cfg.model.quantize == "int8pre")
     if params is None:
         from nafae_torch.utils.checkpoint import load_eval_params
         params = load_eval_params(cfg, device=device)
@@ -134,11 +135,13 @@ def evaluate_config(cfg: Config, params: dict | None = None,
                     "refusing to evaluate randomly initialized parameters")
             from nafae_torch.train import TrainState
             params = TrainState.create(cfg, device=device, seed=0).params
+    # model.quantize=int8|int8pre: the weights are quantized once, here
+    params = inference_params(cfg, params)
     return evaluate(params, ds, cfg.data.batch_size, cfg.model.vocab_size,
                     device=device)
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> int:
     import argparse
 
     from nafae_torch.config import load_config
@@ -169,7 +172,9 @@ def main(argv=None) -> None:
     if not args.per_class:
         result.pop("per_class_acc")
     print(json.dumps(result))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    sys.exit(main())

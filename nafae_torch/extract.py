@@ -238,7 +238,7 @@ def extract_segments(cfg: Config, annotations: list[dict], out_dir: str,
     return index_path
 
 
-def main(argv=None):
+def main(argv=None) -> int:
     import argparse
 
     from nafae_torch.config import load_config
@@ -319,7 +319,9 @@ def main(argv=None):
         result["gt_merged"] = A.merge_gt_into_features(
             args.out, gt, image_size=cfg.detector.image_size)
     print(json.dumps(result))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    sys.exit(main())

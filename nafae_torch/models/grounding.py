@@ -16,7 +16,8 @@ from torch import nn
 
 from nafae_torch.config import Config, ModelConfig
 from nafae_torch.device import resolve_device
-from nafae_torch.ops.grounding import ground_forward
+from nafae_torch.ops.grounding import (ground_forward, int8_weight,
+                                      quantize_params_int8)
 
 FRAME_POOLS = ("attention", "mean", "context", "learned")
 SIMILARITIES = ("cosine", "bilinear")
@@ -132,8 +133,9 @@ def load_word_vectors(path: str, vocab, embed_dim: int
 def params_from_jax(np_params: dict, device: str | torch.device
                     ) -> dict[str, torch.Tensor]:
     """The JAX package's param dict (numpy or jax arrays; tensors pass
-    too) -> tensors on `device`, copied, in the same layout: w_v stays
-    [D,E], it is not transposed to nn.Linear's [E,D]."""
+    too) -> tensors on `device`, copied, in the same layout and dtype: w_v
+    stays [D,E], it is not transposed to nn.Linear's [E,D], and the int8
+    pair of quantize_params_int8 stays int8."""
     return {k: (v.detach().clone() if isinstance(v, torch.Tensor)
                 else torch.from_numpy(np.array(v, copy=True))).to(device)
             for k, v in np_params.items()}
@@ -176,22 +178,51 @@ def state_from_jax(jax_state, device: str | torch.device):
                       bank_valid=put(jax_state.bank_valid))
 
 
+def inference_params(cfg: Config, params: dict) -> dict:
+    """params as the config's forward runs them: model.quantize=int8 or
+    int8pre replaces "w_v" with the int8 pair, once (an already quantized
+    dict passes through)."""
+    if cfg.model.quantize in ("int8", "int8pre") and "w_v.q8" not in params:
+        return quantize_params_int8(params)
+    return params
+
+
+# the int8 compute pair (ops/grounding.quantize_params_int8) under the
+# reference's keys -> the dot-free buffer names the module holds them by
+QUANT_BUFFERS = {"w_v.q8": "w_v_q8", "w_v.scale8": "w_v_scale8"}
+
+
 class GroundingModel(nn.Module):
     """Holds the parameters; `forward` is ops.grounding.ground_forward with
-    the model config's choices baked in."""
+    the model config's choices baked in.
+
+    Float params live in `params` (an nn.ParameterDict, frozen). The int8
+    compute pair of model.quantize=int8|int8pre ("w_v.q8" int8 [D,E],
+    "w_v.scale8" f32 [1,E]), which replaces "w_v", is held as buffers
+    under QUANT_BUFFERS' names (a ParameterDict refuses keys with a dot
+    and int8 parameters), "w_v.q8" column-major (`int8_weight`);
+    `param_dict` maps them back."""
 
     def __init__(self, cfg: ModelConfig, params: dict[str, torch.Tensor],
                  ctx_window: int = 0, ctx_temp: float = 0.1):
         super().__init__()
         _validate_choices(cfg)
-        missing = sorted(set(param_shapes(cfg)) - set(params))
+        need = set(param_shapes(cfg))
+        if set(QUANT_BUFFERS) <= set(params):
+            need.discard("w_v")
+        missing = sorted(need - set(params))
         if missing:
             raise KeyError(f"params lack {missing} for this model config")
         self.cfg = cfg
         self.ctx_window = ctx_window
         self.ctx_temp = ctx_temp
         self.params = nn.ParameterDict({
-            k: nn.Parameter(v, requires_grad=False) for k, v in params.items()})
+            k: nn.Parameter(v, requires_grad=False) for k, v in params.items()
+            if k not in QUANT_BUFFERS})
+        for key, name in QUANT_BUFFERS.items():
+            if key in params:
+                self.register_buffer(name, int8_weight(params[key])
+                                     if key == "w_v.q8" else params[key])
 
     @classmethod
     def from_config(cls, cfg: Config,
@@ -203,12 +234,27 @@ class GroundingModel(nn.Module):
         return cls(cfg.model, params, ctx_window=ctx_w,
                    ctx_temp=cfg.loss.ctx_temp)
 
+    def param_dict(self) -> dict[str, torch.Tensor]:
+        """The params under the reference's keys, quantized pair included."""
+        out = dict(self.params.items())
+        for key, name in QUANT_BUFFERS.items():
+            if hasattr(self, name):
+                out[key] = getattr(self, name)
+        return out
+
     def forward(self, feats: torch.Tensor, word_ids: torch.Tensor,
                 frame_mask: torch.Tensor, word_mask: torch.Tensor,
-                region_mask: torch.Tensor | None = None) -> dict:
+                region_mask: torch.Tensor | None = None,
+                feats_scale: torch.Tensor | None = None,
+                params: dict[str, torch.Tensor] | None = None) -> dict:
+        """feats_scale [B,T,R]: per-region scales of int8 feats (int8pre).
+        params: run on these instead of the held ones (the exported
+        program takes its params as an argument)."""
         c = self.cfg
         return ground_forward(
-            dict(self.params.items()), feats, word_ids, frame_mask, word_mask,
+            self.param_dict() if params is None else params, feats,
+            word_ids, frame_mask, word_mask,
             temp=c.frame_attn_temp, pool=c.frame_pool,
             ctx_window=self.ctx_window, ctx_temp=self.ctx_temp,
-            compute_dtype=COMPUTE_DTYPES[c.dtype], region_mask=region_mask)
+            compute_dtype=COMPUTE_DTYPES[c.dtype], region_mask=region_mask,
+            feats_scale=feats_scale)

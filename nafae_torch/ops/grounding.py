@@ -2,9 +2,11 @@
 cross-batch scores.
 
 The port of `nafae_tpu/ops/grounding.py` that serving and the training step
-need (docs/MATH.md §Forward and §Contextual-similarity). Plain functions on
-tensors, differentiable by autograd; the context mix and the fused
-cross-MIL dispatch to the CUDA kernels of `ops/kernels/` on the GPU.
+need (docs/MATH.md §Forward and §Contextual-similarity), and its int8
+inference projection. Plain functions on tensors, differentiable by
+autograd; the context mix and the fused cross-MIL dispatch to the CUDA
+kernels of `ops/kernels/` on the GPU, the int8 product to
+`torch._int_mm`.
 
 Conventions: masks are float (0/1). NEG = -1e9 is the masked-max/-softmax
 fill. Every product keeps an f32 output: with a bf16 compute dtype its
@@ -21,6 +23,7 @@ import torch.nn.functional as F
 
 from nafae_torch.ops.kernels import cross_mil as _cross_mil
 from nafae_torch.ops.kernels import ctx_mix as _ctx_mix
+from nafae_torch.ops.roi_align import _div
 
 NEG = -1e9
 
@@ -111,15 +114,141 @@ def project_regions_fused(feats: torch.Tensor, w_v: torch.Tensor,
     return ProjectRegionsFused.apply(feats, w_v, b_v, dtype)
 
 
+# ---------------------------------------------------------------- int8 path
+# Quantized inference compute (model.quantize=int8|int8pre): the projection
+# is the one product quantized, per output channel on the weight side (the
+# one granularity that factors out of the contraction over D) and per
+# region row on the feature side; the l2_normalize after it nearly cancels
+# the row scale. Values are the JAX package's bit for bit: every division
+# is IEEE (by a tensor on the operand's device, `_div`: PyTorch's CUDA
+# division by a Python number multiplies by its reciprocal, which can move
+# a quantized value by one step), and torch.round, like jnp.round, rounds
+# half to even.
+
+def _row_scale(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """max(max|x| over `dim`, 1e-12) / 127, kept as a size-1 axis."""
+    return _div(torch.clamp(torch.amax(torch.abs(x), dim=dim, keepdim=True),
+                            min=1e-12), 127.0)
+
+
+def _quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x / scale), -127, 127).to(torch.int8)
+
+
+def int8_weight(q: torch.Tensor) -> torch.Tensor:
+    """q [K,N] int8, same values, laid out column-major (a transposed view
+    of a contiguous [N,K]): the layout of the weight operand that
+    cuBLASLt's int8 product reads without a transpose of its own.
+    quantize_weight_int8 returns it, and the live server and load_exported
+    hold "w_v.q8" this way. Idempotent."""
+    return q.t().contiguous().t()
+
+
+def quantize_weight_int8(w: torch.Tensor
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """w [D,E] -> (q [D,E] int8 column-major (`int8_weight`), scale [1,E]
+    f32), per output channel: s_e = max|w[:, e]| / 127,
+    q = clip(round(w / s_e), -127, 127)."""
+    w = w.float()
+    scale = _row_scale(w, 0)
+    return int8_weight(_quantize(w, scale)), scale
+
+
+def quantize_params_int8(params: dict) -> dict:
+    """Inference params: "w_v" replaced by "w_v.q8" and "w_v.scale8" (the
+    rest passes through). `project_params` dispatches on "w_v.q8"; the
+    "8" keeps these keys apart from serve.quantize_params' storage keys
+    (".q" / ".scale"), which dequantize at load."""
+    out = {k: v for k, v in params.items() if k != "w_v"}
+    out["w_v.q8"], out["w_v.scale8"] = quantize_weight_int8(
+        torch.as_tensor(params["w_v"]))
+    return out
+
+
+def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [M,K] int8 @ b [K,N] int8 -> [M,N] int32, exact.
+
+    CUDA: `torch._int_mm` (cuBLASLt, int32 sums), which takes M > 16 and K,
+    N multiples of 8; other shapes raise. b is best column-major
+    (`int8_weight`); a row-major b is multiplied as it is, more slowly.
+    CPU: the plain version, an int64 product (exact: |sum| <= 127^2·K; an
+    f32 sum is not exact past 2^24, which 127^2·2048 passes)."""
+    if a.dtype != torch.int8 or b.dtype != torch.int8:
+        raise TypeError(f"int8_matmul takes int8 operands, got {a.dtype} "
+                        f"and {b.dtype}")
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"int8_matmul takes [M,K] x [K,N], got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    if a.device.type == "cpu":
+        return (a.long() @ b.long()).to(torch.int32)
+    if a.device.type != "cuda":
+        raise ValueError(f"int8_matmul runs on cuda or cpu, not {a.device}")
+    (m, k), n = a.shape, b.shape[1]
+    if m <= 16 or k % 8 or n % 8:
+        raise ValueError(f"torch._int_mm takes M > 16 and K, N multiples of "
+                         f"8; got M={m}, K={k}, N={n}")
+    return torch._int_mm(a.contiguous(), b)
+
+
+def _dequant_project(q2: torch.Tensor, sf: torch.Tensor, w_q: torch.Tensor,
+                     w_scale: torch.Tensor, b_v: torch.Tensor,
+                     shape: tuple) -> torch.Tensor:
+    """int32 product of q2 [N,D] and w_q [D,E], the rank-1 dequant by
+    sf [N,1] · w_scale [1,E], bias and normalize -> [B,T,R,E] f32."""
+    acc = int8_matmul(q2, w_q)                                  # [N,E] i32
+    v = acc.float() * (sf * w_scale.float()) + b_v.float()
+    return l2_normalize(v.reshape(*shape, -1))
+
+
+def project_regions_int8(feats: torch.Tensor, w_q: torch.Tensor,
+                         w_scale: torch.Tensor, b_v: torch.Tensor,
+                         dtype=None) -> torch.Tensor:
+    """feats [B,T,R,D] -> v̂ [B,T,R,E] f32 through an int8 x int8 -> int32
+    product: each region row quantized with its own dynamic scale
+    (max|f| / 127). `dtype` is taken for the signature and ignored: the
+    product is int8 and the output f32, as project_regions' is."""
+    del dtype
+    b, t, r, d = feats.shape
+    f2 = feats.reshape(b * t * r, d)
+    sf = _row_scale(f2, 1)                                      # [N,1]
+    return _dequant_project(_quantize(f2, sf), sf, w_q, w_scale, b_v,
+                            (b, t, r))
+
+
+def quantize_feats_int8(feats: torch.Tensor
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """feats [B,T,R,D] -> (q int8, sf [B,T,R,1] f32), per region row: the
+    offline half of int8pre (features stored and sent as int8)."""
+    sf = _row_scale(feats, -1)
+    return _quantize(feats, sf), sf
+
+
+def project_regions_int8_pre(q_feats: torch.Tensor, sf: torch.Tensor,
+                             w_q: torch.Tensor, w_scale: torch.Tensor,
+                             b_v: torch.Tensor) -> torch.Tensor:
+    """Projection of pre-quantized features (quantize_feats_int8; sf
+    [B,T,R] or [B,T,R,1]) -> v̂ [B,T,R,E] f32."""
+    b, t, r, d = q_feats.shape
+    return _dequant_project(q_feats.reshape(b * t * r, d),
+                            sf.reshape(-1, 1).float(), w_q, w_scale, b_v,
+                            (b, t, r))
+
+
 def project_params(params: dict, feats: torch.Tensor, dtype=torch.float32,
                    feats_scale: torch.Tensor | None = None) -> torch.Tensor:
-    """Projection dispatch. The port runs the f32 and bf16 products; the
-    int8 forms (quantized params or pre-quantized features) come later."""
-    if (feats.dtype == torch.int8 or feats_scale is not None
-            or "w_v.q8" in params):
-        raise NotImplementedError(
-            "int8 projection (model.quantize=int8|int8pre) is not ported "
-            "yet; it comes with the int8 serving slice of the port")
+    """Projection dispatch, as the JAX package's: pre-quantized int8
+    features (int8 feats + feats_scale, with quantized params), dynamic
+    int8 (quantized params), or the f32 / bf16 product."""
+    if feats.dtype == torch.int8:
+        if "w_v.q8" not in params or feats_scale is None:
+            raise ValueError("int8 features need quantized params + their "
+                             "scales")
+        return project_regions_int8_pre(feats, feats_scale, params["w_v.q8"],
+                                        params["w_v.scale8"], params["b_v"])
+    if "w_v.q8" in params:
+        return project_regions_int8(feats, params["w_v.q8"],
+                                    params["w_v.scale8"], params["b_v"],
+                                    dtype=dtype)
     return project_regions(feats, params["w_v"], params["b_v"], dtype=dtype)
 
 

@@ -21,10 +21,18 @@ version, `context_mix_plain`, is a port of
 `nafae_tpu.ops.grounding.context_mix` (impl="offset"); under autograd it is
 the plain version of all four.
 
-`ctx_mix` sends a CPU tensor to the plain version. On a CUDA tensor it
-launches the kernels or raises: with autograd on, through `CtxMix`, whose
-forward launches K1fr (or K1f) and whose backward launches K1br (or K1b);
-with autograd off, K1f alone. `launches` counts launches per kernel.
+`ctx_mix` takes one of two routes. With autograd on (v_ext needs a
+gradient), a CPU tensor takes the plain version and a CUDA tensor goes
+through `CtxMix`, whose forward launches K1fr (or K1f) and whose backward
+launches K1br (or K1b). With autograd off (serving, eval, export), both go
+through the custom op `torch.ops.nafae.ctx_mix_fwd` (`ctx_mix_fwd_op`):
+its CUDA implementation launches K1f or raises, its CPU implementation is
+the plain version, and its fake implementation gives the output's shape,
+so that `torch.export` keeps the op, and with it K1f, in the exported
+program (a ctypes call cannot run on the fake tensors export traces
+with). The op is registered when this module is imported, which must
+happen before `torch.export.load` of a program that holds it.
+`launches` counts launches per kernel.
 """
 
 from __future__ import annotations
@@ -254,6 +262,28 @@ def use_residual(v_ext: torch.Tensor, window: int) -> bool:
     return ALPHA_RESIDUAL and nbytes <= ALPHA_MAX_BYTES
 
 
+@torch.library.custom_op("nafae::ctx_mix_fwd", mutates_args=(),
+                         device_types="cpu")
+def ctx_mix_fwd_op(v_ext: torch.Tensor, fm_ext: torch.Tensor,
+                   rm_ext: torch.Tensor | None, window: int,
+                   temp: float) -> torch.Tensor:
+    """u [B,T,R,E] f32 without autograd, v_ext already in the compute
+    dtype. This body is the CPU implementation: the plain version."""
+    return context_mix_plain(v_ext, fm_ext, window, temp, rm_ext=rm_ext)[0]
+
+
+@ctx_mix_fwd_op.register_kernel("cuda")
+def _ctx_mix_fwd_cuda(v_ext, fm_ext, rm_ext, window, temp):
+    return launch_fwd(v_ext, fm_ext, window, temp, rm_ext)[0]
+
+
+@ctx_mix_fwd_op.register_fake
+def _ctx_mix_fwd_fake(v_ext, fm_ext, rm_ext, window, temp):
+    b, t_ext, r, e = v_ext.shape
+    return v_ext.new_empty((b, t_ext - 2 * window, r, e),
+                           dtype=torch.float32)
+
+
 class CtxMix(torch.autograd.Function):
     """u = ctx_mix(v_ext) on CUDA tensors with its gradient in CUDA kernels:
     K1fr then K1br when `use_residual`, else K1f then K1b. The gradient
@@ -284,21 +314,25 @@ def ctx_mix(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
 
     dtype: compute dtype of the products (None = v_ext's own). CPU tensors
     take the plain version; CUDA tensors launch the kernels, on the current
-    stream, or raise. u carries autograd to v_ext whenever autograd is on
-    and v_ext needs a gradient."""
+    stream, or raise (see the module docstring for the two routes). u
+    carries autograd to v_ext whenever autograd is on and v_ext needs a
+    gradient."""
     if not temp >= 0.02:
         raise ValueError(f"ctx_temp={temp}: the context mix takes temp >= "
                          "0.02 (|logits| <= 1/temp on l2-normalized regions)")
-    if v_ext.device.type == "cpu":
-        return context_mix_plain(v_ext, fm_ext, window, temp, dtype=dtype,
-                                 rm_ext=rm_ext)
-    if v_ext.device.type != "cuda":
+    if v_ext.device.type not in ("cuda", "cpu"):
         raise ValueError(f"ctx_mix runs on cuda or cpu, not {v_ext.device}")
-    if dtype is not None:
-        v_ext = v_ext.to(dtype)
     if torch.is_grad_enabled() and v_ext.requires_grad:
+        if v_ext.device.type == "cpu":
+            return context_mix_plain(v_ext, fm_ext, window, temp,
+                                     dtype=dtype, rm_ext=rm_ext)
+        if dtype is not None:
+            v_ext = v_ext.to(dtype)
         u = CtxMix.apply(v_ext.contiguous(), fm_ext, rm_ext, window,
                          float(temp))
     else:
-        u, _ = launch_fwd(v_ext, fm_ext, window, temp, rm_ext)
+        if dtype is not None:
+            v_ext = v_ext.to(dtype)
+        u = ctx_mix_fwd_op(v_ext.contiguous(), fm_ext, rm_ext, window,
+                           float(temp))
     return u, nbr_valid_of(fm_ext, window)

@@ -24,9 +24,10 @@ from __future__ import annotations
 
 import torch
 
-def _div(x: torch.Tensor, k: int) -> torch.Tensor:
+def _div(x: torch.Tensor, k: float) -> torch.Tensor:
     """x / k rounded as IEEE division: PyTorch's CUDA division by a Python
-    number multiplies by its reciprocal, which differs in the last bit."""
+    number multiplies by its reciprocal, which differs in the last bit
+    (also used by ops/grounding's int8 quantization)."""
     return x / torch.full_like(x, k)
 
 

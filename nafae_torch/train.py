@@ -535,7 +535,7 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     return state, metrics
 
 
-def main(argv=None) -> None:
+def main(argv=None) -> int:
     import argparse
 
     from nafae_torch.config import load_config
@@ -565,7 +565,9 @@ def main(argv=None) -> None:
               flush=True)
 
     fit(cfg, device=args.device, log_fn=log_fn, eval_fn=eval_fn)
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    sys.exit(main())

@@ -352,7 +352,7 @@ def load_detector_weights(pth_path: str, model: torch.nn.Module,
     return convert_detector_resnet50(flat, model)
 
 
-def main(argv=None):
+def main(argv=None) -> int:
     import argparse
     p = argparse.ArgumentParser("nafae_torch.utils.torch_convert")
     p.add_argument("pth")
@@ -362,7 +362,9 @@ def main(argv=None):
     key_map = json.loads(args.map) if args.map else None
     params = convert_pth(args.pth, args.out, key_map)
     print(json.dumps({k: list(v.shape) for k, v in params.items()}))
+    return 0
 
 
 if __name__ == "__main__":
-    main()
+    import sys
+    sys.exit(main())

@@ -30,7 +30,20 @@ def test_import_leaves_jax_out():
             "nafae_torch.ops.kernels.nms, nafae_torch.ops.kernels.roi_align, "
             "nafae_torch.ops.nms, nafae_torch.ops.roi_align, "
             "nafae_torch.utils.torch_convert, nafae_torch.data.annotations, "
-            "nafae_torch.data.robowatch, nafae_torch.models.detector.vgg; "
+            "nafae_torch.data.robowatch, nafae_torch.models.detector.vgg, "
+            "nafae_torch.visualize, nafae_torch.__main__; "
+            f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+@pytest.mark.parametrize("module", ["nafae_torch.visualize",
+                                    "nafae_torch.__main__"])
+def test_new_entry_points_leave_jax_out(module):
+    """Each of the entry modules alone, in a fresh interpreter."""
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,

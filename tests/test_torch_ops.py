@@ -129,13 +129,22 @@ def test_project_and_similarity_match_jax(dtype):
 
 
 def test_project_params_refuses_int8():
+    """int8 features need the quantized params and their scales, as in the
+    JAX package (which asserts); with both, the int8pre projection runs
+    and matches JAX's (tests/test_torch_int8.py holds the other forms)."""
     x = _inputs(5)
     p = {k: _t(v) for k, v in x["params"].items()}
-    with pytest.raises(NotImplementedError, match="int8"):
-        TG.project_params(p, _t(x["feats"]).to(torch.int8),
-                          feats_scale=torch.ones(B, T, R))
-    with pytest.raises(NotImplementedError, match="int8"):
-        TG.project_params({**p, "w_v.q8": p["w_v"]}, _t(x["feats"]))
+    q, s = TG.quantize_feats_int8(_t(x["feats"]))
+    with pytest.raises(ValueError, match="int8 features need quantized"):
+        TG.project_params(p, q, feats_scale=s)
+    qp = TG.quantize_params_int8(p)
+    with pytest.raises(ValueError, match="int8 features need quantized"):
+        TG.project_params(qp, q)
+    jq = G.quantize_params_int8({k: jnp.asarray(v)
+                                 for k, v in x["params"].items()})
+    want = G.project_params(jq, jnp.asarray(q.numpy()),
+                            feats_scale=jnp.asarray(s.numpy()))
+    _close(TG.project_params(qp, q, feats_scale=s), want, F32)
 
 
 def test_masking_pooling_and_scores_match_jax():

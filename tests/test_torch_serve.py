@@ -127,11 +127,57 @@ def test_server_dequantizes_int8_requests_at_ingest():
     _assert_same_response(got, want)
 
 
+def _quant_cfgs(pool, quantize):
+    cj, ct = _cfgs(pool)
+    cj.model.quantize = ct.model.quantize = quantize
+    return cj, ct
+
+
+def _prequantized(segs):
+    """The same segments in the extract --quantize int8 wire format."""
+    from nafae_torch.extract import quantize_feats_np
+
+    out = []
+    for seg in segs:
+        q, sf = quantize_feats_np(seg["feats"])
+        out.append({**seg, "feats": q, "feats_scale": sf})
+    return out
+
+
 def test_server_refuses_later_slices():
-    _, ct = _cfgs("context")
-    ct.model.quantize = "int8pre"
-    with pytest.raises(NotImplementedError, match="later slice"):
-        GroundingServer(ct, _params(), device="cpu")
+    """model.quantize=int8pre, which the first slices of the port refused,
+    now serves as the JAX server does: f32 requests quantized at ingest
+    and pre-quantized ones passed through give the same answers, and the
+    weights are quantized once, at init."""
+    cj, ct = _quant_cfgs("context", "int8pre")
+    params = _params()
+    segs = _segments(6, seed=3)
+    js = JaxServer(cj, {k: jnp.asarray(v) for k, v in params.items()})
+    ts = GroundingServer(ct, params, device="cpu")
+    assert set(ts.params) == {"word_emb", "b_v", "w_v.q8", "w_v.scale8"}
+    assert ts.params["w_v.q8"].dtype == torch.int8
+    want = js.ground_segments(segs)
+    _assert_same_response(ts.ground_segments(segs), want)
+    _assert_same_response(ts.ground_segments(_prequantized(segs)), want)
+    sample = ts._pad_segment(segs[0])
+    assert sample["feats"].dtype == np.int8
+    assert sample["feats_scale"].shape == (6, 4)
+
+
+@pytest.mark.parametrize("quantize", ["int8", "int8pre"])
+@pytest.mark.parametrize("pool", ["context", "attention"])
+def test_int8_servers_match_jax_server(pool, quantize):
+    """10 segments at batch 4 (a ragged last batch), f32 requests and, for
+    int8pre, pre-quantized ones; a float server dequantizes the latter."""
+    cj, ct = _quant_cfgs(pool, quantize)
+    params = _params(1)
+    segs = _segments(10, seed=4)
+    if quantize == "int8pre":
+        segs = segs[:5] + _prequantized(segs[5:])
+    want = JaxServer(cj, {k: jnp.asarray(v) for k, v in params.items()}
+                     ).ground_segments(segs)
+    got = GroundingServer(ct, params, device="cpu").ground_segments(segs)
+    _assert_same_response(got, want)
 
 
 def _start_http(srv):
@@ -189,6 +235,24 @@ def test_http_round_trip():
         httpd.shutdown()
         th.join(30)
     assert not th.is_alive()
+
+
+def test_int8pre_http_round_trip():
+    """int8pre over HTTP with pre-quantized requests (int8 feats and scales
+    as JSON lists): the in-process answers."""
+    _, ct = _quant_cfgs("context", "int8pre")
+    srv = GroundingServer(ct, _params(), device="cpu")
+    segs = _prequantized(_segments(4, seed=5))
+    wire = [{k: v.tolist() if isinstance(v, np.ndarray) else v
+             for k, v in s.items()} for s in segs]
+    want = srv.ground_segments(segs)
+    httpd, th, base = _start_http(srv)
+    try:
+        got = _post(base, {"segments": wire})["results"]
+    finally:
+        httpd.shutdown()
+        th.join(30)
+    _assert_same_response(got, want)
 
 
 def test_golden_accuracy_over_served_boxes(synth_root):
