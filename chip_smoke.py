@@ -111,6 +111,26 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    f32, bf16, int8 and int8pre with their bounds, and the f32, int8 and
    int8pre serving batch host to host, its copy to the card, device and
    busy time, idle share.
+12. data parallelism and the train CLI's observability (main path 8; run
+   after phase 7, on phase 5's data): a world-of-one NCCL mesh
+   (`parallel.make_mesh` on cuda:0); `fit` under it, 5 f32 steps of
+   config4 at full width on each route, bit for bit the same 5 steps
+   without a mesh (metrics, params, centers) with the same launches, and
+   its collectives step by step; the config4 step host to host without a
+   mesh, on the mesh and with debug_nans (interleaved), and the bytes one
+   mesh step all-reduces and all-gathers; K3 against its plain version at
+   each rank's shapes of a 2- and 4-card run (I = 8 and 4 videos against
+   M = 128 words, f32 and bf16, timed with its bound); `torchrun
+   --nproc_per_node 1 -m nafae_torch.train --mesh`, whose metrics.jsonl
+   equals the in-process DP run's, and `-m nafae_torch.evaluate --mesh`,
+   whose hits equal phase 7's; a `--profile` run with
+   `train.tensorboard_dir` (the trace names K1fr's and K1br's kernels, the
+   event file equals metrics.jsonl); a fit with debug_nans; and, after
+   phase 9, one inline config-5 step on the mesh with
+   `detector.roi_impl=pallas` (K2 and K5 once). Two ranks cannot share
+   one card (NCCL refuses a duplicate GPU in a communicator), so the card
+   checks the DP code on a world of one; equality across ranks rests on
+   the CPU tests over gloo.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -3114,6 +3134,350 @@ def int8_timings(torch, params, segs) -> dict:
     return res
 
 
+# ------------------------- data parallelism and observability (phase 12)
+
+DP_STEPS = 5                     # f32 steps of each world-of-one DP run
+OBS_STEPS = 3                    # steps of the --profile and --debug-nans runs
+DP_ROUNDS = 6                    # interleaved timing rounds (A, B, B, A)
+# K3 at the shapes each rank of a 2- and 4-card run sees: I = B/W videos
+# against all B sentences (config4's first batch, B = 16)
+DP_WORLDS = (2, 4)
+K1_NAMES = ("ctx_mix_fwd_pairs", "ctx_mix_fwd_mix", "ctx_mix_bwd_pairs",
+            "ctx_mix_bwd_gather")     # K1fr's and K1br's kernels in a trace
+
+
+def start_cli(args: list[str], out: str, ranks: int = 0):
+    """Starts `python -m <module> args` from the checkout's root, under
+    `torch.distributed.run --standalone --nproc_per_node <ranks>` when
+    ranks > 0, its stdout and stderr into files `out`.{stdout,stderr};
+    returns (Popen, the command, the start time)."""
+    cmd = [sys.executable, "-m"]
+    if ranks:
+        cmd += ["torch.distributed.run", "--standalone", "--nproc_per_node",
+                str(ranks), "-m"]
+    cmd += args
+    with open(out + ".stdout", "w") as so, open(out + ".stderr", "w") as se:
+        proc = subprocess.Popen(
+            cmd, cwd=os.path.dirname(os.path.abspath(__file__)), stdout=so,
+            stderr=se, text=True)
+    return proc, cmd, time.perf_counter()
+
+
+def finish_cli(started, out: str, timeout: int = 600) -> tuple[str, float]:
+    """Waits for a start_cli process (killed past `timeout` s); fails
+    unless it exits 0; returns (its stdout, its wall s)."""
+    proc, cmd, t0 = started
+    try:
+        rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f"{' '.join(cmd[2:])} did not end within {timeout} s")
+    wall = time.perf_counter() - t0
+    with open(out + ".stdout") as f:
+        stdout = f.read()
+    if rc != 0:
+        with open(out + ".stderr") as f:
+            fail(f"{' '.join(cmd[2:])} failed ({rc}): {f.read()[-3000:]}")
+    return stdout, wall
+
+
+def metrics_equal(a: dict, b: dict) -> bool:
+    return all(a[k] == b[k] for k in a if k not in ("frames_per_sec", "ts"))
+
+
+def check_dp(torch, root: str, tmp: str, mesh) -> dict:
+    """Phase 12 (a): fit under a world-of-one NCCL mesh, DP_STEPS f32 steps
+    of config4 on each route, against the same steps without a mesh:
+    metrics, params and centers bit for bit, the same kernel launches
+    (read with the counts zeroed just before each run), and the
+    collectives the mesh run issued, step by step."""
+    from nafae_torch.parallel import sharding as S
+    from nafae_torch.train import fit
+
+    out = {}
+    for route in ROUTES:
+        runs = {}
+        for tag, m in (("plain", None), ("mesh", mesh)):
+            cfg = train_cfg(root, os.path.join(tmp, f"ck_dp_{route}_{tag}"),
+                            "float32", DP_STEPS, route)
+            logs, marks = [], []
+
+            def log_fn(rec):
+                logs.append(rec)
+                marks.append(len(S.COLLECTIVES.records))
+
+            S.COLLECTIVES.reset()
+            zero_counts()                       # main path starts here
+            state, _ = fit(cfg, log_fn=log_fn, mesh=m)
+            counts = read_counts()              # ... and ends here
+            recs = list(S.COLLECTIVES.records)
+            steps = [recs[a:b] for a, b in zip([0] + marks, marks)]
+            runs[tag] = (logs, state, counts, steps)
+        (lp, sp, cp, _), (lm, sm, cm, steps) = runs["plain"], runs["mesh"]
+        want = {k: n * DP_STEPS for k, n in per_step_launches(route).items()}
+        if cm != want or cp != want:
+            fail(f"DP fit ({route}) launched {cm}, without the mesh {cp}; "
+                 f"expected {want}")
+        if len(lm) != DP_STEPS or not all(
+                metrics_equal(a, b) for a, b in zip(lp, lm)):
+            fail(f"DP fit ({route}) metrics differ from the run without a "
+                 f"mesh: {lm} vs {lp}")
+        bad = [k for k in sp.params if not torch.equal(sp.params[k],
+                                                       sm.params[k])]
+        if bad or not torch.equal(sp.centers, sm.centers):
+            fail(f"DP fit ({route}): params {bad} or centers differ from the "
+                 "run without a mesh")
+        per_step = [{"ops": len(s), "bytes": sum(r[3] for r in s),
+                     "all_reduce_bytes": sum(r[3] for r in s
+                                             if r[0] == "all_reduce"),
+                     "all_gather_bytes": sum(r[3] for r in s
+                                             if r[0] == "all_gather")}
+                    for s in steps]
+        log(f"DP fit on a world-of-one NCCL mesh ({route}, {DP_STEPS} f32 "
+            f"steps, config4 B=16): metrics, params and centers bit for bit "
+            f"those without a mesh; launches {cm}; collectives per step "
+            + "; ".join(f"{p['ops']} ops {p['bytes']} B (all_reduce "
+                        f"{p['all_reduce_bytes']}, all_gather "
+                        f"{p['all_gather_bytes']})" for p in per_step))
+        out[route] = {"launches": cm, "collectives_per_step": per_step,
+                      "logs": lm}
+    return out
+
+
+def check_clis(torch, root: str, tmp: str, dp: dict, evals: dict) -> dict:
+    """Phase 12 (a, b, c), three CLI runs started together on the card:
+    `torchrun --nproc_per_node 1 -m nafae_torch.train --mesh`, whose
+    metrics.jsonl must equal the in-process DP run's steps bit for bit;
+    `torchrun ... -m nafae_torch.evaluate --mesh` on phase 7's val split
+    and f32 checkpoint, whose hits must equal phase 7's; and an
+    OBS_STEPS-step `-m nafae_torch.train --profile DIR` run with
+    train.tensorboard_dir, whose trace must name K1fr's and K1br's kernels
+    and whose event file, read back by read_events (CRCs checked), must
+    equal its metrics.jsonl. Meanwhile, in this process, an OBS_STEPS-step
+    fit with debug_nans (anomaly mode, finite checks) must train."""
+    from nafae_torch.train import fit
+    from nafae_torch.utils.metrics_log import MetricsLogger, read_events
+
+    ck_dp, ck_obs, prof, tb = (os.path.join(tmp, d) for d in (
+        "ck_dp_cli", "ck_obs", "prof", "tb"))
+    train_args = ["--preset", "config4", "--override", *TRAIN_OVERRIDES,
+                  f"data.root={root}", "model.dtype=float32"]
+    runs = {
+        "train_mesh": start_cli(
+            ["nafae_torch.train", "--mesh", *train_args,
+             f"train.ckpt_dir={ck_dp}", f"train.steps={DP_STEPS}"],
+            os.path.join(tmp, "cli_train_mesh"), ranks=1),
+        "eval_mesh": start_cli(
+            ["nafae_torch.evaluate", "--mesh", "--preset", "config1",
+             "--checkpoint", os.path.join(tmp, f"ck_{ROUTES[0]}_float32"),
+             "--override", f"data.root={root}"],
+            os.path.join(tmp, "cli_eval_mesh"), ranks=1),
+        "profile": start_cli(
+            ["nafae_torch.train", "--profile", prof, *train_args,
+             f"train.ckpt_dir={ck_obs}", f"train.tensorboard_dir={tb}",
+             f"train.steps={OBS_STEPS}"], os.path.join(tmp, "cli_profile"))}
+    cfg = train_cfg(root, os.path.join(tmp, "ck_nans"), "float32", OBS_STEPS)
+    logs = []
+    fit(cfg, log_fn=logs.append, debug_nans=True)
+    if len(logs) != OBS_STEPS or not np.isfinite(logs[-1]["loss"]):
+        fail(f"fit with debug_nans logged {logs}")
+    log(f"fit with debug_nans ({OBS_STEPS} steps): trained, loss "
+        f"{logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f}")
+    out = {name: finish_cli(started, os.path.join(tmp, "cli_" + name))
+           for name, started in runs.items()}
+    walls = {name: round(w, 1) for name, (_, w) in out.items()}
+
+    recs = MetricsLogger(ck_dp).read()
+    want = dp["auto"]["logs"]
+    if len(recs) != DP_STEPS or not all(metrics_equal(w, r)
+                                        for w, r in zip(want, recs)):
+        fail(f"torchrun train --mesh wrote {recs}; the in-process DP run "
+             f"logged {want}")
+    log(f"torchrun --nproc_per_node 1 -m nafae_torch.train --mesh: rc 0, its "
+        f"{DP_STEPS} metrics.jsonl records equal the in-process DP run's bit "
+        "for bit")
+
+    got = json.loads(out["eval_mesh"][0].strip().splitlines()[-1])
+    hits = round(got["box_acc_micro"] * got["num_annotations"])
+    if hits != evals["trained"]["hits"]["card"] or got[
+            "num_annotations"] != evals["trained"]["card"]["num_annotations"]:
+        fail(f"eval --mesh under torchrun: {got}, {hits} hits; phase 7 had "
+             f"{evals['trained']['card']}")
+    log(f"torchrun -m nafae_torch.evaluate --mesh (config1, the f32 config-4 "
+        f"checkpoint): {hits} hits of {got['num_annotations']}, equal to "
+        "phase 7's")
+
+    if f"profile trace written to {prof}" not in out["profile"][0]:
+        fail(f"train --profile printed {out['profile'][0][-2000:]}")
+    (trace,) = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
+    with open(os.path.join(prof, trace)) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    found = {k: sorted(n for n in kernels if k in n)[:2] for k in K1_NAMES}
+    if not all(found.values()):
+        fail(f"the --profile trace lacks "
+             f"{[k for k, v in found.items() if not v]} among its "
+             f"{len(kernels)} kernels")
+    (tbf,) = os.listdir(tb)
+    evs = read_events(os.path.join(tb, tbf))
+    recs = MetricsLogger(ck_obs).read()
+    if evs[0].get("file_version") != "brain.Event:2" or len(evs) != \
+            len(recs) + 1 or not all(
+            e["step"] == r["step"] and e["scalars"] == {
+                k: float(np.float32(v)) for k, v in r.items()
+                if k not in ("ts", "step")}
+            for e, r in zip(evs[1:], recs)):
+        fail(f"the event file {evs} does not match metrics.jsonl {recs}")
+    log(f"train --profile + train.tensorboard_dir ({OBS_STEPS} steps): trace "
+        f"{trace} ({os.path.getsize(os.path.join(prof, trace))} bytes, "
+        f"{len(kernels)} kernel names) holds {found}; the event file "
+        f"({len(evs)} events, CRCs checked) equals metrics.jsonl; CLI wall "
+        f"s, run together: {walls}")
+    return {"cli_wall_s": walls, "eval_hits": hits, "trace_kernels": found,
+            "events": len(evs),
+            "debug_nans_losses": [m["loss"] for m in logs]}
+
+
+def check_cross_mil_dp(torch, root: str, tmp: str) -> dict:
+    """Phase 12 (d): K3 against its plain version at each DP rank's shapes,
+    I = 16/W videos against the M = 16·8 words of all sentences (config4's
+    first batch), f32 and bf16: a within CROSS_TOL, idx equal where clear
+    of ties; device times (CUDA graphs) of K3, its plain version and
+    torch.matmul + torch.max, and its bound."""
+    from nafae_torch.ops.kernels import cross_mil as K3
+
+    w_emb, v_emb, _, _, fm, rm, _ = fused_inputs(torch, root, tmp)
+    b, t, r, e = v_emb.shape
+    m = b * w_emb.shape[1]
+    rtol, atol = CROSS_TOL
+    res = {}
+    for world in DP_WORLDS:
+        i = b // world
+        for tag, dt in (("", torch.float32), ("_bf16", torch.bfloat16)):
+            key = f"_w{world}{tag}"
+            wf = w_emb.reshape(m, e).to(dt).contiguous()
+            v, f_, r_ = v_emb[:i].to(dt).contiguous(), fm[:i], rm[:i]
+            a, idx = K3.launch(wf, v, f_, r_)
+            torch.cuda.synchronize()
+            ap, idxp = K3.cross_mil_plain(wf, v, f_, r_)
+            err = (a - ap).abs().max().item()
+            s = torch.where(r_[:, None] > 0, torch.einsum(
+                "me,itre->imtr", wf.float(), v.float()), K3.NEG)
+            clear = clear_of_ties(torch, s)
+            if not torch.allclose(a, ap, rtol=rtol, atol=atol) or \
+                    not torch.equal(idx[clear], idxp[clear]):
+                fail(f"cross_mil at the DP shape I={i} M={m}{tag} differs "
+                     f"from its plain version (max |a err| {err})")
+            live = int((r_ > 0).sum())
+            v2 = v.reshape(i, t * r, e)
+            res.update({
+                "err" + key: err,
+                "ms" + key: device_ms(torch, lambda: K3.launch(wf, v, f_,
+                                                               r_)),
+                "plain_ms" + key: device_ms(
+                    torch, lambda: K3.cross_mil_plain(wf, v, f_, r_)),
+                "library_ms" + key: device_ms(
+                    torch, lambda: torch.max(torch.matmul(v2, wf.T).reshape(
+                        i, t, r, m), dim=2))})
+            res["bound_ms" + key], res["bound_by" + key] = bound(
+                torch, nbytes(wf, f_, r_) + live * e * v.element_size()
+                + 2 * i * m * t * 4, 2 * m * e * live, dt)
+            res["shape" + key] = {"I": i, "M": m, "T": t, "R": r, "E": e}
+    log("cross_mil at the DP ranks' shapes (config4 first batch, M = 128 "
+        "words of B = 16 sentences): " + "; ".join(
+            f"W={w} I={b // w} {d}: kernel {res[f'ms_w{w}{g}']:.4f} ms, "
+            f"plain {res[f'plain_ms_w{w}{g}']:.4f}, matmul + max "
+            f"{res[f'library_ms_w{w}{g}']:.4f}, bound "
+            f"{res[f'bound_ms_w{w}{g}']:.4f} ({res[f'bound_by_w{w}{g}']}), "
+            f"max |err| {res[f'err_w{w}{g}']:.3e}"
+            for w in DP_WORLDS for g, d in (("", "f32"), ("_bf16", "bf16")))
+        + f" — {card_line()}")
+    return res
+
+
+def dp_timings(torch, root: str, tmp: str, mesh) -> dict:
+    """Phase 12 (e): one config4 f32 auto training step host to host (numpy
+    batch in, loss on the host), without a mesh, on the world-of-one mesh
+    and with debug_nans (anomaly mode on), in DP_ROUNDS interleaved rounds;
+    and the collectives of one mesh step."""
+    from nafae_torch.parallel import sharding as S
+    from nafae_torch.train import (TrainState, batch_to_device,
+                                   make_optimizer, train_step)
+
+    dev = torch.device("cuda")
+    batch = first_batch(root)
+    cfg = train_cfg(root, os.path.join(tmp, "ck_dp_time"), "float32", 1000)
+    tx = make_optimizer(cfg)
+    st = TrainState.create(cfg, device=dev)
+    kinds = {"plain": {}, "mesh": {"mesh": mesh},
+             "debug_nans": {"debug_nans": True}}
+
+    def step(kind):
+        nonlocal st
+        t0 = time.perf_counter()
+        with torch.autograd.set_detect_anomaly(kind == "debug_nans"):
+            st, m = train_step(st, batch_to_device(batch, dev), cfg, tx,
+                               **kinds[kind])
+            float(m["loss"])
+        return (time.perf_counter() - t0) * 1e3
+
+    for kind in kinds:
+        for _ in range(2):
+            step(kind)
+    times = {k: [] for k in kinds}
+    for _ in range(DP_ROUNDS):
+        for kind in ("mesh", "debug_nans"):
+            for k in ("plain", kind, kind, "plain"):
+                times[k].append(step(k))
+    S.COLLECTIVES.reset()
+    step("mesh")
+    recs = list(S.COLLECTIVES.records)
+    res = {f"step_host_ms_{k}": statistics.median(v)
+           for k, v in times.items()}
+    res["collectives_per_step"] = [list(r) for r in recs]
+    res["all_reduce_bytes_per_step"] = sum(r[3] for r in recs
+                                           if r[0] == "all_reduce")
+    res["all_gather_bytes_per_step"] = sum(r[3] for r in recs
+                                           if r[0] == "all_gather")
+    log(f"config4 f32 auto step host to host (median of "
+        f"{len(times['plain'])} / {len(times['mesh'])} interleaved): "
+        f"without a mesh {res['step_host_ms_plain']:.4f} ms, world-of-one "
+        f"NCCL mesh {res['step_host_ms_mesh']:.4f} ms, debug_nans "
+        f"{res['step_host_ms_debug_nans']:.4f} ms; one mesh step issues "
+        f"{len(recs)} collectives, all_reduce "
+        f"{res['all_reduce_bytes_per_step']} B (the gradient buffer "
+        f"{max(r[3] for r in recs if r[0] == 'all_reduce')} B), all_gather "
+        f"{res['all_gather_bytes_per_step']} B — {card_line()}")
+    return res
+
+
+def check_dp_c5(torch, ann: str, tmp: str, mesh, c5: dict) -> dict:
+    """Phase 12 (a), config 5: one inline step through fit on the
+    world-of-one mesh with detector.roi_impl=pallas at full width: K2 and
+    K5 once, and its metrics those of phase 9's first pallas_roi step."""
+    from nafae_torch.train import fit
+
+    cfg = c5_cfg(ann, os.path.join(tmp, "ck5_dp"), "pallas_roi", 1)
+    logs = []
+    zero_counts()                               # main path starts here
+    fit(cfg, log_fn=logs.append, mesh=mesh)
+    counts = read_counts()                      # ... and ends here
+    if counts != c5_launches(cfg):
+        fail(f"DP config-5 step launched {counts}, expected "
+             f"{c5_launches(cfg)}")
+    ref = c5["pallas_roi"]["logs"][0]
+    diff = max(abs(logs[0][k] - ref[k]) / max(abs(ref[k]), 1e-30)
+               for k in ref if k not in ("frames_per_sec", "step"))
+    if diff > CPU_METRIC_TOL[0]:
+        fail(f"DP config-5 step {logs[0]} differs from phase 9's first "
+             f"pallas_roi step {ref}")
+    log(f"DP config-5 step (world-of-one mesh, roi_impl=pallas, B=16 "
+        f"640x640): launches {counts}; metrics vs phase 9's first step: max "
+        f"relative diff {diff:.3e}")
+    return {"launches": counts, "metric_rel_diff": diff}
+
+
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
                  by, library_ms=None, **more) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -3180,6 +3544,20 @@ def main() -> None:
         evals = check_eval(torch, tmp, tmp, box_accuracy(
             torch, segs, served["float32"][1], gts))
 
+        # data parallelism on a world-of-one NCCL mesh and the train CLI's
+        # observability (phase 12), on phase 5's data and phase 7's split
+        t12 = time.perf_counter()
+        from nafae_torch.parallel.mesh import make_mesh, shutdown
+        mesh = make_mesh()
+        if torch.distributed.get_backend() != "nccl" or mesh.size() != 1:
+            fail(f"make_mesh() on one card gave {mesh} on "
+                 f"{torch.distributed.get_backend()}")
+        dp = check_dp(torch, tmp, tmp, mesh)
+        dp_t = dp_timings(torch, tmp, tmp, mesh)
+        dp_k3 = check_cross_mil_dp(torch, tmp, tmp)
+        clis = check_clis(torch, tmp, tmp, dp, evals)
+        t12 = time.perf_counter() - t12
+
         # int8 serving, eval, the exported artifact and visualize (main
         # path 7), on the serving phase's requests and val split
         t11 = time.perf_counter()
@@ -3215,6 +3593,7 @@ def main() -> None:
         del frames5, planes, scores, feat5, boxes5
         torch.cuda.empty_cache()
         c5 = train_c5(torch, ann, tmp)
+        dp_c5 = check_dp_c5(torch, ann, tmp, mesh, c5)
         c5_cpu = check_c5_cpu(torch, ann_small, tmp)
         c5_x = check_c5_extract(torch, ann, tmp)
         t5m = c5_timings(torch, ann, tmp)
@@ -3241,6 +3620,7 @@ def main() -> None:
         t10m = c5_timings(torch, ann, tmp, vgg, {
             "vgg_float32": VGG_F32_CUT,
             "vgg_bfloat16": ["detector.dtype=bfloat16"]})
+    shutdown()
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
         f"{tm['bound_ms']:.4f} ms ({tm['bound_by']}); bf16 kernel "
@@ -3482,7 +3862,9 @@ def main() -> None:
             library_ms_bf16=tf.get(key + "_library_ms_bf16"),
             **({"library": "torch.matmul then torch.max over R: two calls, "
                 "the auto route's product and max without the mask (bf16: "
-                "bf16 output)"} if key == "cross_mil" else
+                "bf16 output)",
+                # each rank's shapes in a 2- and 4-card DP run (phase 12)
+                "dp_shapes": dp_k3} if key == "cross_mil" else
                # *_dense: every region live, every frame valid with context
                {n + d: tf[key + "_" + n + d]
                 for n in ("ms_dense", "bound_ms_dense", "bound_by_dense")
@@ -3590,6 +3972,10 @@ def main() -> None:
             **{f"fit_wall_s_{run}": r["wall_s"] for run, r in c5v.items()},
             "load": vgg_load, "cpu_rerun": c5v_cpu, "extract_eval": c5v_x,
             "phase_s": time.perf_counter() - t10},
+        "dp": {"fit": {r: {k: v for k, v in d.items() if k != "logs"}
+                       for r, d in dp.items()},
+               "times": dp_t, "cli": clis,
+               "config5": dp_c5, "phase_s": t12},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)

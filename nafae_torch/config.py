@@ -4,9 +4,10 @@ The PyTorch port's own copy of `nafae_tpu/config.py`: the same dataclasses,
 keys, defaults, presets, overrides and validation, so that one preset or
 config file loads the same model in both packages. The port imports nothing
 of the JAX package, so keep the two in step by hand. Keys whose feature the
-port does not run yet (meshes, TPU compiler knobs, int8 compute) are kept
-so that config files stay interchangeable; `docs/` describes what they do
-in the JAX package.
+port does not run (frame parallelism, `mesh.frame_axis > 1`; TPU compiler
+knobs) are kept so that config files stay interchangeable; `docs/`
+describes what they do in the JAX package. `mesh.*` takes effect under the
+CLIs' `--mesh` (`parallel.make_mesh`), as in the reference.
 """
 
 from __future__ import annotations

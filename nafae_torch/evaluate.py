@@ -15,8 +15,11 @@ Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
 `model.quantize=int8` projects with the int8 product over features
 quantized per batch; `int8pre` reads int8 feature files (`extract
 --quantize int8`) and sends them to the device as int8 with their scales.
-Not ported yet: evaluation sharded over several devices (the reference's
-`mesh` and `--mesh`) waits for data parallelism (ROADMAP Queue 1 item 6).
+Under a mesh (`--mesh`, with torchrun for more than one rank) each rank
+scores its rows of every batch and the per-class counts are all-reduced:
+
+    torchrun --nproc_per_node N -m nafae_torch.evaluate --mesh \\
+        --preset config1 --override data.root=... [--device cpu]
 """
 
 from __future__ import annotations
@@ -57,33 +60,55 @@ def _eval_batch(params: dict, batch: dict, iou_thresh: float = 0.5
 
 def evaluate(params: dict, dataset, batch_size: int, num_classes: int,
              iou_thresh: float = 0.5,
-             device: str | torch.device | None = None) -> dict:
+             device: str | torch.device | None = None, mesh=None) -> dict:
     """Grounding eval over `dataset` (built with with_gt=True), on `device`
     (cuda unless "cpu" is asked for). The ragged final batch is padded with
     zero rows to batch_size, as the reference pads it: they have gt_mask 0
-    and contribute nothing."""
+    and contribute nothing.
+
+    mesh (`parallel.make_mesh`): on the mesh's device, every batch is
+    padded to a multiple of the data axis's W ranks, rank r scores rows
+    [r·B/W, (r+1)·B/W), and the per-class counts are all-reduced, so every
+    rank returns the single-device dict."""
     from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.parallel.sharding import shard_rows
     from nafae_torch.train import batch_to_device
 
-    device = resolve_device(device)
+    rank, world, group = 0, 1, None
+    if mesh is not None:
+        from nafae_torch.parallel.mesh import mesh_device
+        group = mesh.get_group(mesh.mesh_dim_names[0])
+        rank = torch.distributed.get_rank(group)
+        world = torch.distributed.get_world_size(group)
+        device = mesh_device(mesh)
+    else:
+        device = resolve_device(device)
+    padded_b = -(-batch_size // world) * world
     params = {k: torch.as_tensor(v).to(device) for k, v in params.items()}
     loader = BatchLoader(dataset, batch_size, shuffle=False,
                          drop_remainder=False)
     per_class_correct = np.zeros(num_classes)
     per_class_total = np.zeros(num_classes)
     for batch in loader:
-        padded = {k: _pad_rows(v, batch_size) for k, v in batch.items()}
-        correct, gt_mask = _eval_batch(params,
-                                       batch_to_device(padded, device),
+        mine = {k: shard_rows(_pad_rows(v, padded_b), rank, world)
+                for k, v in batch.items()}
+        correct, gt_mask = _eval_batch(params, batch_to_device(mine, device),
                                        iou_thresh)
-        b_real = batch["word_ids"].shape[0]
+        # rows past the batch's real ones are padding
+        b_real = min(max(batch["word_ids"].shape[0] - rank * len(correct),
+                         0), len(correct))
         correct = correct.cpu().numpy()[:b_real]        # [B,K,T]
         gt_mask = gt_mask.cpu().numpy()[:b_real]
         b, k, t = correct.shape
-        cls = np.broadcast_to(batch["word_ids"][:, :, None], (b, k, t))
+        cls = np.broadcast_to(mine["word_ids"][:b_real, :, None], (b, k, t))
         np.add.at(per_class_correct, cls.ravel(),
                   (correct * gt_mask).ravel())
         np.add.at(per_class_total, cls.ravel(), gt_mask.ravel())
+    if group is not None:
+        from nafae_torch.parallel.sharding import all_reduce
+        counts = all_reduce(torch.from_numpy(np.stack(
+            [per_class_correct, per_class_total])).to(device), group)
+        per_class_correct, per_class_total = counts.cpu().numpy()
 
     seen = per_class_total > 0
     per_class_acc = np.zeros(num_classes)
@@ -109,15 +134,19 @@ def _pad_rows(x: np.ndarray, n: int) -> np.ndarray:
 
 def evaluate_config(cfg: Config, params: dict | None = None,
                     split: str = "val", require_checkpoint: bool = False,
-                    device: str | torch.device | None = None) -> dict:
+                    device: str | torch.device | None = None,
+                    mesh=None) -> dict:
     """Config-driven eval: loads the split (and, when params is None, the
     params of the newest checkpoint in train.ckpt_dir, shaped by the
     checkpoint itself, so that a config-4 checkpoint evaluates under the
     config1 preset). Without a checkpoint it evaluates a random init,
-    unless require_checkpoint asks it to raise."""
+    unless require_checkpoint asks it to raise. mesh: see `evaluate`."""
     from nafae_torch.data.youcook2 import SegmentDataset
     from nafae_torch.models.grounding import inference_params
 
+    if mesh is not None:
+        from nafae_torch.parallel.mesh import mesh_device
+        device = mesh_device(mesh)
     device = resolve_device(device)
     ds = SegmentDataset(cfg.data.root, split, cfg.data.max_frames,
                         cfg.data.num_regions, cfg.data.feat_dim,
@@ -138,7 +167,7 @@ def evaluate_config(cfg: Config, params: dict | None = None,
     # model.quantize=int8|int8pre: the weights are quantized once, here
     params = inference_params(cfg, params)
     return evaluate(params, ds, cfg.data.batch_size, cfg.model.vocab_size,
-                    device=device)
+                    device=device, mesh=mesh)
 
 
 def main(argv=None) -> int:
@@ -158,8 +187,30 @@ def main(argv=None) -> int:
                    help="include the per-class accuracy table")
     p.add_argument("--device", default=None,
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--mesh", action="store_true",
+                   help="shard each batch over the ranks of the job "
+                        "(torchrun --nproc_per_node N): NCCL on the cards, "
+                        "gloo with --device cpu")
     args = p.parse_args(argv)
     cfg = load_config(args.config, args.preset, args.override or [])
+    mesh = None
+    if args.mesh:
+        from nafae_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(cfg.mesh.data_axis, 1, cfg.mesh.data_axis_name,
+                         cfg.mesh.frame_axis_name, device=args.device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    try:
+        result = _run(cfg, args, mesh)
+    finally:
+        if mesh is not None:
+            from nafae_torch.parallel.mesh import shutdown
+            shutdown()
+    if lead:
+        print(json.dumps(result))
+    return 0
+
+
+def _run(cfg: Config, args, mesh) -> dict:
     params = None
     if args.checkpoint and args.checkpoint.endswith(".npz"):
         from nafae_torch.utils.checkpoint import load_eval_params
@@ -168,11 +219,10 @@ def main(argv=None) -> int:
         cfg.train.ckpt_dir = args.checkpoint
     result = evaluate_config(cfg, params=params, split=args.split,
                              require_checkpoint=args.checkpoint is not None,
-                             device=args.device)
+                             device=args.device, mesh=mesh)
     if not args.per_class:
         result.pop("per_class_acc")
-    print(json.dumps(result))
-    return 0
+    return result
 
 
 if __name__ == "__main__":

@@ -2,8 +2,10 @@
 
 The port of `nafae_tpu/ops/kmeans.py`: cosine assignment, one-hot segment
 sums and the empty-cluster rule on the training device, and k-means++
-seeding (`loss.kmeans_init="plusplus"`), on one device (the data-parallel
-psums and the seeding's gathers come with the port's data parallelism).
+seeding (`loss.kmeans_init="plusplus"`). Under data parallelism (a
+process group) the Lloyd step all-reduces its sums and counts, and the
+seeding all-gathers its candidate rows, so that every rank computes the
+single-device result.
 """
 
 from __future__ import annotations
@@ -31,12 +33,16 @@ def kmeans_assign(f: torch.Tensor, centers: torch.Tensor,
 
 
 def _lloyd_step(centers: torch.Tensor, f: torch.Tensor, valid: torch.Tensor,
-                assign_dtype=None) -> torch.Tensor:
+                assign_dtype=None, group=None) -> torch.Tensor:
     assign = kmeans_assign(f, centers, dtype=assign_dtype)        # [N]
     onehot = torch.nn.functional.one_hot(assign, centers.shape[0]).to(
         f.dtype) * valid[:, None]                                 # [N,Kc]
     sums = onehot.T @ f                                           # [Kc,E]
     counts = onehot.sum(0)                                        # [Kc]
+    if group is not None:         # one buffer: the sums, then the counts
+        from nafae_torch.parallel.sharding import all_reduce
+        both = all_reduce(torch.cat([sums, counts[:, None]], 1), group)
+        sums, counts = both[:, :-1], both[:, -1]
     new = l2_normalize(sums / torch.clamp(counts, min=1.0)[:, None])
     # empty-cluster handling: keep the old (normalized) center
     return torch.where((counts < 0.5)[:, None], centers, new)
@@ -44,15 +50,18 @@ def _lloyd_step(centers: torch.Tensor, f: torch.Tensor, valid: torch.Tensor,
 
 def kmeans_lloyd(f: torch.Tensor, valid: torch.Tensor, centers: torch.Tensor,
                  iters: int, ema: float = 0.0,
-                 assign_dtype=None) -> torch.Tensor:
+                 assign_dtype=None, group=None) -> torch.Tensor:
     """`iters` Lloyd iterations; returns updated, normalized centers.
 
     f [N,E] flattened selected features, valid [N] (0/1), centers [Kc,E].
-    ema: blend toward the OLD centers, C ← norm((1−ρ)C_lloyd + ρC_old)."""
+    ema: blend toward the OLD centers, C ← norm((1−ρ)C_lloyd + ρC_old).
+    group: the data axis's process group; f and valid are then this
+    rank's rows, and the centers those of every rank's rows."""
     old = l2_normalize(centers)
     new = old
     for _ in range(iters):
-        new = _lloyd_step(new, f, valid, assign_dtype=assign_dtype)
+        new = _lloyd_step(new, f, valid, assign_dtype=assign_dtype,
+                          group=group)
     if ema > 0.0:
         new = l2_normalize((1.0 - ema) * new + ema * old)
     return new
@@ -93,7 +102,7 @@ def kmeans_plusplus_init(f: torch.Tensor, valid: torch.Tensor,
                          num_clusters: int,
                          generator: torch.Generator | None = None,
                          gumbels: torch.Tensor | None = None,
-                         axis_names: tuple = (), gather_dims: tuple = (),
+                         group=None, gather_dim: int = 0,
                          max_rows: int = MAX_SEED_ROWS) -> torch.Tensor:
     """k-means++ seeding: each next center drawn in proportion to its
     squared distance from the nearest center so far; returns the centers
@@ -106,22 +115,32 @@ def kmeans_plusplus_init(f: torch.Tensor, valid: torch.Tensor,
     `gumbels` when given (a test feeds the draws JAX makes from its key),
     else drawn on the CPU from `generator`. When the rows number more than
     max_rows, dim 0 (the bank's slot ring) is stride-subsampled first, as
-    the reference does. axis_names / gather_dims (the reference's mesh
-    form) raise NotImplementedError until the port's data parallelism."""
-    if axis_names or gather_dims:
-        raise NotImplementedError(
-            "kmeans_plusplus_init over a mesh (axis_names, gather_dims) "
-            "comes with the port's data parallelism")
-    if max_rows and f.dim() >= 2:
+    the reference does.
+
+    Mesh form: with `group` (the data axis), f and valid are this rank's
+    shard, unflattened, and are all-gathered along `gather_dim` (0 for a
+    batch's selections [B,T,K,E], 1 for the bank [W,B,T,K,E]) back into
+    the global row order first; every rank then draws the same noise over
+    the global rows, so the centers are the single-device ones, bit for
+    bit on every rank. The cap then counts global rows, and is skipped
+    when dim 0 itself is gathered (as the reference does)."""
+    gathered0 = group is not None and gather_dim == 0
+    if max_rows and f.dim() >= 2 and not gathered0:
         rows = 1
         for d in f.shape[:-1]:
             rows *= d
+        if group is not None:
+            rows *= torch.distributed.get_world_size(group)
         if rows > max_rows:
             per_slot = rows // f.shape[0]
             keep = max(1, max_rows // max(per_slot, 1))
             stride = -(-f.shape[0] // keep)
             f = f[::stride]
             valid = valid[::stride]
+    if group is not None:
+        from nafae_torch.parallel.sharding import all_gather
+        f = all_gather(f, group, dim=gather_dim)
+        valid = all_gather(valid, group, dim=gather_dim)
     f = f.reshape(-1, f.shape[-1]).float()
     valid = valid.reshape(-1)
     n, e = f.shape

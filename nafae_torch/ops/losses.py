@@ -1,10 +1,11 @@
 """Loss functions: ranking, contextual similarity, visual clustering.
 
 The port of `nafae_tpu/ops/losses.py` (docs/MATH.md §Ranking /
-§Contextual / §Visual-clustering), plus the single-device
-`ranking_loss_rows` of `nafae_tpu/parallel/sharding.py`. Each loss is a
-masked reduction over the full batch tensor; gradients come from autograd,
-with the stop-gradients of the reference written as `.detach()`.
+§Contextual / §Visual-clustering); the ranking loss of a row shard,
+`ranking_loss_rows`, is in `parallel/sharding.py`, as in the reference,
+over `ranking_hinge_total` here. Each loss is a masked reduction over
+the full batch tensor; gradients come from autograd, with the
+stop-gradients of the reference written as `.detach()`.
 """
 
 from __future__ import annotations
@@ -53,16 +54,6 @@ def ranking_loss(score_mat: torch.Tensor, margin: float,
     total = ranking_hinge_total(score_mat, torch.diagonal(score_mat), 0,
                                 margin)
     return total / rank_denominator(b, norm)
-
-
-def ranking_loss_rows(rows: torch.Tensor, diag_global: torch.Tensor,
-                      row_offset: int, margin: float,
-                      norm: str = "pairs") -> torch.Tensor:
-    """Ranking loss from a row block + the global diagonal, on one device
-    (the data-parallel psum of the JAX package comes with the port's data
-    parallelism)."""
-    total = ranking_hinge_total(rows, diag_global, row_offset, margin)
-    return total / rank_denominator(rows.shape[1], norm)
 
 
 def ctx_squared_error(s: torch.Tensor, shat: torch.Tensor,

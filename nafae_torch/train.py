@@ -2,17 +2,17 @@
 config-5 step on frames, the optimizer, the k-means refresh, the fit loop
 and the CLI.
 
-The port of `nafae_tpu/train.py` on one device with the streaming loader:
-forward, the three losses, their gradient (autograd; the context mix's
-gradient in the CUDA kernels of `ops/kernels/ctx_mix.py` on the GPU), the
-optimizer update and the periodic k-means refresh. `train.kernels=pallas`
-(or the legacy `train.use_pallas=true`) takes the reference's fused route:
-the fused cross-MIL (`ops/kernels/cross_mil.py`, K3a/K3b) for the score
-matrix and, at config 4, the fused diag epilogue (`ops/kernels/diag.py`,
-K4f/K4b) for the context and cluster losses. With `data.from_videos=true`
-(config 5) batches carry frames: the loader decodes them
-(`data/video_dataset.py`) and the step runs the frozen Faster R-CNN
-(`models/detector`, with the NMS and RoIAlign kernels) before the losses.
+The port of `nafae_tpu/train.py` with the streaming loader: forward, the
+three losses, their gradient (autograd; the context mix's gradient in the
+CUDA kernels of `ops/kernels/ctx_mix.py` on the GPU), the optimizer update
+and the periodic k-means refresh. `train.kernels=pallas` (or the legacy
+`train.use_pallas=true`) takes the reference's fused route: the fused
+cross-MIL (`ops/kernels/cross_mil.py`, K3a/K3b) for the score matrix and,
+at config 4, the fused diag epilogue (`ops/kernels/diag.py`, K4f/K4b) for
+the context and cluster losses. With `data.from_videos=true` (config 5)
+batches carry frames: the loader decodes them (`data/video_dataset.py`) and
+the step runs the frozen Faster R-CNN (`models/detector`, with the NMS and
+RoIAlign kernels) before the losses.
 
     python -m nafae_torch.train --preset config4 --override data.root=... \\
         [--device cpu]
@@ -33,12 +33,23 @@ from step 0's selections.
         model.word_vectors=glove.txt loss.kmeans_init=plusplus
 
 Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
-Not ported yet, and raising NotImplementedError: the device-resident
-dataset (`train.device_cache`), the grain pipeline and the TensorBoard
-mirror (`train.tensorboard_dir`). Meshes and data parallelism are not ported
-either: the reference builds a mesh only under its CLI's `--mesh` or
-`--multihost`, which this CLI does not accept, so `mesh.*` alone trains on
-one device in both. The CLI evaluates every `train.eval_every` steps on the
+Under a mesh (`parallel.make_mesh`; the CLI's `--mesh`) the step is data
+parallel: every rank reads the same global batches and trains on its row
+shard, the words and the score diagonal are all-gathered, every loss is a
+global sum or mean, and one all-reduce of the parameter gradients gives
+every rank the exact global gradient, so the trajectory is the single
+device's. NCCL on the cards, gloo with `--device cpu`:
+
+    torchrun --nproc_per_node N -m nafae_torch.train --mesh \\
+        --preset config4 --override data.root=... [--device cpu]
+
+`train.tensorboard_dir` mirrors the logged scalars into a TensorBoard
+event file; `--profile DIR` writes a torch.profiler trace of the run, and
+`--debug-nans` turns on autograd's anomaly mode and checks every step's
+losses and gradients. Not ported yet, and raising NotImplementedError:
+the device-resident dataset (`train.device_cache`), the grain pipeline,
+frame parallelism (`mesh.frame_axis > 1`) and `--multihost` (ROADMAP
+Queue 1 item 8). The CLI evaluates every `train.eval_every` steps on the
 val split (`evaluate.evaluate_config`), as the reference's does.
 `train.steps_per_call` groups steps into one XLA program in the JAX
 package; PyTorch runs eagerly, so the port ignores it.
@@ -62,6 +73,7 @@ from nafae_torch.ops import losses as L
 from nafae_torch.ops.kernels.diag import diag_epilogue
 from nafae_torch.ops.kmeans import (bank_write, kmeans_init, kmeans_lloyd,
                                     kmeans_plusplus_init)
+from nafae_torch.parallel import sharding as S
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8      # optax.adamw's defaults
 SGD_MOMENTUM = 0.9
@@ -132,13 +144,12 @@ class TrainState:
 
 def _check_supported(cfg: Config) -> None:
     todo = {"train.device_cache": cfg.train.device_cache,
-            "data.pipeline=grain": cfg.data.pipeline == "grain",
-            "train.tensorboard_dir": bool(cfg.train.tensorboard_dir)}
+            "data.pipeline=grain": cfg.data.pipeline == "grain"}
     on = [k for k, v in todo.items() if v]
     if on:
         raise NotImplementedError(
-            f"{', '.join(on)}: not ported yet (the port trains on one "
-            "device from the streaming loader)")
+            f"{', '.join(on)}: not ported yet (the port trains from the "
+            "streaming loader)")
 
 
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -226,7 +237,8 @@ def make_optimizer(cfg: Config) -> Optimizer:
 
 
 def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
-                   cfg: Config, kernels: str = "auto", extractor=None
+                   cfg: Config, kernels: str = "auto", extractor=None,
+                   group=None, row_offset: int = 0
                    ) -> tuple[torch.Tensor, dict]:
     """Total loss + aux for one batch of tensors on the training device:
     ranking over the in-batch score matrix, then (config 3/4) the context
@@ -244,7 +256,13 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     extractor: the frozen detector (`models.detector.FasterRCNNExtractor`);
     when given and the batch carries "frames" [B,T,S,S,3], the RoI features,
     boxes and region mask (its NMS survivors) are computed from the frames
-    first, with no gradient."""
+    first, with no gradient.
+
+    group (the mesh's data axis) and row_offset (the global index of the
+    batch's first row): the batch is this rank's row shard. The words and
+    the diagonal are all-gathered, so the score matrix is [B_loc, B_glob],
+    and every loss is the global one (`parallel.sharding`): its value is
+    the whole batch's on every rank, its gradient this rank's share."""
     pallas = kernels == "pallas"
     if extractor is not None and "frames" in batch:
         frames = batch["frames"]
@@ -291,16 +309,22 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
 
     g_learned = (G.learned_frame_logits(v_emb, fm, rm, params["attn_w"])
                  if mc.frame_pool == "learned" else None)
-    rows = G.cross_scores(w_emb, wm, v_emb, fm, mc.frame_attn_temp,
+    gw, gwm = S.gather_words(w_emb, wm, group)
+    rows = G.cross_scores(gw, gwm, v_emb, fm, mc.frame_attn_temp,
                           mc.frame_pool, ctx_window, lc.ctx_temp,
                           impl="pallas" if pallas else "jnp", dtype=cdt,
                           region_mask=rm, u=u, frame_logits=g_learned)
-    b = rows.shape[0]
-    diag = torch.sum(rows * torch.eye(b, dtype=rows.dtype,
-                                      device=rows.device), dim=1)
-    l_rank = L.ranking_loss_rows(rows, diag, 0, lc.margin, norm=lc.rank_norm)
+    b_loc, b_glob = rows.shape
+    gidx = row_offset + torch.arange(b_loc, device=rows.device)
+    is_diag = (torch.arange(b_glob, device=rows.device)[None, :]
+               == gidx[:, None]).to(rows.dtype)
+    diag = torch.sum(rows * is_diag, dim=1)
+    diag_global = S.gather_diag(diag, group)
+    l_rank = S.ranking_loss_rows(rows, diag_global, row_offset, lc.margin,
+                                 group, norm=lc.rank_norm)
     total = l_rank
-    aux = {"l_rank": l_rank, "score_pos": torch.sum(diag) / max(b, 1)}
+    aux = {"l_rank": l_rank,
+           "score_pos": S.global_sum(torch.sum(diag) / max(b_glob, 1), group)}
 
     if diag_route:
         # the reference's loss algebra over the kernel's per-(k, t) partial
@@ -312,8 +336,8 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
         rsum = (rm.sum(-1) if rm is not None
                 else torch.full(fm.shape, float(feats.shape[2]),
                                 device=fm.device))
-        l_ctx = (torch.sum(wm[:, :, None] * ctx_kt)
-                 / torch.clamp(torch.sum(m3 * rsum[:, None, :]), min=1.0))
+        l_ctx = S.global_mean(torch.sum(wm[:, :, None] * ctx_kt),
+                              torch.sum(m3 * rsum[:, None, :]), group)
         total = total + lc.ctx_weight * l_ctx
         aux["l_ctx"] = l_ctx
         any_region = ((rm.amax(-1) > 0).to(wm.dtype) if rm is not None
@@ -321,8 +345,8 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
         valid_tk = (fm * any_region)[:, :, None] * wm[:, None, :]  # [B,T,K]
         aux["sel_feats"] = f_tk                        # already stop-grad
         aux["sel_valid"] = valid_tk
-        l_clu = (torch.sum(clu_kt * valid_tk.permute(0, 2, 1))
-                 / torch.clamp(torch.sum(valid_tk), min=1.0))
+        l_clu = S.global_mean(torch.sum(clu_kt * valid_tk.permute(0, 2, 1)),
+                              torch.sum(valid_tk), group)
         total = total + lc.cluster_weight * l_clu
         aux["l_clu"] = l_clu
         aux["loss"] = total
@@ -331,9 +355,8 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     if ctx_on:
         shat = G.mask_regions(G.similarity_tensor(w_emb, u, dtype=cdt), rm)
         if lc.ctx_weight > 0:
-            num, den = L.context_loss_terms(s, shat, wm, fm, nbr_valid, rm,
-                                            target=lc.ctx_target)
-            l_ctx = num / torch.clamp(den, min=1.0)
+            l_ctx = S.global_mean(*L.context_loss_terms(
+                s, shat, wm, fm, nbr_valid, rm, target=lc.ctx_target), group)
             total = total + lc.ctx_weight * l_ctx
             aux["l_ctx"] = l_ctx
 
@@ -346,7 +369,7 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     if lc.cluster_weight > 0:
         num, den, _ = L.cluster_loss_terms(f, valid, centers,
                                            assign_dtype=cdt)
-        l_clu = num / torch.clamp(den, min=1.0)
+        l_clu = S.global_mean(num, den, group)
         total = total + lc.cluster_weight * l_clu
         aux["l_clu"] = l_clu
     aux["loss"] = total
@@ -360,7 +383,8 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
 
 
 def train_step(state: TrainState, batch: dict, cfg: Config,
-               tx: Optimizer | None = None, extractor=None
+               tx: Optimizer | None = None, extractor=None, mesh=None,
+               debug_nans: bool = False
                ) -> tuple[TrainState, dict[str, torch.Tensor]]:
     """One optimizer step on a batch of tensors on state's device; returns
     (new state, metrics as 0-d tensors: l_rank, score_pos, [l_ctx],
@@ -372,17 +396,46 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
     loss.kmeans_init=plusplus, step 0 first seeds the centers from the
     same rows by k-means++ (noise from a generator seeded with
     train.seed). extractor: the frozen detector of a batch of frames (see
-    compute_losses)."""
+    compute_losses).
+
+    mesh (`parallel.make_mesh`): the batch is this rank's row shard of
+    the global batch (rank r holds rows [r·B_loc, (r+1)·B_loc)) and the
+    bank, if any, its [W, B_loc, ...] shard. Each rank backpropagates its
+    share of the global losses, one all-reduce (SUM) of every parameter
+    gradient, flattened in sorted key order, makes the global gradient,
+    and every rank applies the same update; the k-means refresh and
+    seeding take the data axis's group. The metrics are the global ones.
+
+    debug_nans: raise FloatingPointError naming the first loss term that
+    is not finite (before the backward) or the first parameter whose
+    gradient is not (after the reduction). Each check waits for the
+    device."""
     tx = tx or make_optimizer(cfg)
+    group, row_offset = None, 0
+    if mesh is not None:
+        group = mesh.get_group(cfg.mesh.data_axis_name)
+        row_offset = (torch.distributed.get_rank(group)
+                      * batch["word_ids"].shape[0])
     names = sorted(state.params)
     params = {k: state.params[k].detach().requires_grad_() for k in names}
     with torch.enable_grad():
         total, aux = compute_losses(params, state.centers, batch, cfg,
-                                    cfg.train.resolved_kernels(), extractor)
+                                    cfg.train.resolved_kernels(), extractor,
+                                    group, row_offset)
+        if debug_nans:
+            _check_finite({k: v for k, v in aux.items()
+                           if not k.startswith("sel_")}, "loss term")
         grads = torch.autograd.grad(total, [params[k] for k in names],
                                     allow_unused=True)
     grads = {k: torch.zeros_like(params[k]) if g is None else g
              for k, g in zip(names, grads)}
+    if group is not None:
+        flat = S.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]),
+                            group)
+        grads = {k: g.view(grads[k].shape) for k, g in zip(
+            names, flat.split([grads[k].numel() for k in names]))}
+    if debug_nans:
+        _check_finite(grads, "gradient of parameter")
     new_params, opt_state = tx.update(grads, state.opt_state, state.params)
 
     centers, bank, bank_valid = state.centers, state.bank, state.bank_valid
@@ -394,24 +447,33 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
             if lc.kmeans_source == "bank" and bank is not None:
                 bank, bank_valid = bank_write(bank, bank_valid, state.step,
                                               sel_f, sel_v)
-                f_nd, v_nd = bank, bank_valid
+                f_nd, v_nd, bdim = bank, bank_valid, 1
             else:
-                f_nd, v_nd = sel_f, sel_v
+                f_nd, v_nd, bdim = sel_f, sel_v, 0
             f, valid = f_nd.reshape(-1, e), v_nd.reshape(-1)
             if lc.kmeans_init == "plusplus" and state.step == 0:
                 centers = kmeans_plusplus_init(
                     f_nd, v_nd, lc.num_clusters,
-                    generator=torch.Generator().manual_seed(cfg.train.seed))
+                    generator=torch.Generator().manual_seed(cfg.train.seed),
+                    group=group, gather_dim=bdim)
             if state.step % lc.kmeans_interval == 0:
                 dt = COMPUTE_DTYPES[cfg.model.dtype]
                 centers = kmeans_lloyd(
                     f, valid, centers, lc.kmeans_iters, lc.kmeans_ema,
-                    assign_dtype=None if dt == torch.float32 else dt)
+                    assign_dtype=None if dt == torch.float32 else dt,
+                    group=group)
     metrics = {k: v.detach() for k, v in aux.items()}
     metrics["grad_norm"] = global_norm(grads).detach()
     return replace(state, step=state.step + 1, params=new_params,
                    opt_state=opt_state, centers=centers, bank=bank,
                    bank_valid=bank_valid), metrics
+
+
+def _check_finite(tensors: dict[str, torch.Tensor], what: str) -> None:
+    for k, v in tensors.items():
+        if not bool(torch.isfinite(v).all()):
+            raise FloatingPointError(f"{what} {k!r} is not finite "
+                                     "(--debug-nans)")
 
 
 def _word_vectors(cfg: Config, device: torch.device) -> torch.Tensor:
@@ -436,26 +498,57 @@ def _word_vectors(cfg: Config, device: torch.device) -> torch.Tensor:
 
 
 def fit(cfg: Config, device: str | torch.device | None = None,
-        log_fn=None, extractor=None, eval_fn=None) -> tuple[TrainState, dict]:
+        log_fn=None, extractor=None, eval_fn=None, mesh=None,
+        debug_nans: bool = False) -> tuple[TrainState, dict]:
     """Run cfg.train.steps steps from the newest checkpoint in
     train.ckpt_dir (or from scratch); returns the final state and the last
     metrics. Logs JSONL to train.ckpt_dir/metrics.jsonl every log_every
-    steps (and calls log_fn), checkpoints every ckpt_every steps and at
-    the end, and calls eval_fn(state) every eval_every steps.
+    steps (and calls log_fn; also into a TensorBoard event file in
+    train.tensorboard_dir when set), checkpoints every ckpt_every steps
+    and at the end, and calls eval_fn(state) every eval_every steps.
 
     With data.from_videos, the dataset is the annotations' segments
     decoded to frames and the step runs `extractor`, by default the
     detector cfg.detector describes (`init_detector`: random weights from
     train.seed, then detector.weights when set; the reference's config-5
     inline path, `nafae_tpu/train.py` fit). model.word_vectors replaces the
-    initial word_emb (before a checkpoint is restored)."""
+    initial word_emb (before a checkpoint is restored).
+
+    mesh (`parallel.make_mesh`): data parallel on the mesh's device (the
+    `device` argument, if given, must be of its type). Every rank builds
+    the same loader from the same seed and trains on rows [r·B/W,
+    (r+1)·B/W) of each global batch (data.batch_size must divide by the
+    world size W), so the row order and the resume position are the
+    single device's. Only rank 0 logs, calls log_fn and eval_fn and
+    writes checkpoints; a checkpoint holds the single-device layout (the
+    bank's shards gathered), so a run resumes with or without a mesh.
+    frames_per_sec counts the global batch. The returned state holds this
+    rank's bank shard. debug_nans: autograd's anomaly mode for the run,
+    and train_step's checks of every step."""
     from nafae_torch.data.loader import BatchLoader
     from nafae_torch.data.youcook2 import SegmentDataset
     from nafae_torch.utils.checkpoint import CheckpointManager
     from nafae_torch.utils.metrics_log import MetricsLogger
 
     _check_supported(cfg)
-    device = resolve_device(device)
+    rank, world, group = 0, 1, None
+    if mesh is not None:
+        from nafae_torch.parallel.mesh import mesh_device
+        group = mesh.get_group(cfg.mesh.data_axis_name)
+        rank = torch.distributed.get_rank(group)
+        world = torch.distributed.get_world_size(group)
+        if cfg.data.batch_size % world:
+            raise ValueError(
+                f"data.batch_size={cfg.data.batch_size} does not divide "
+                f"over the mesh's {world} ranks")
+        if device is not None and torch.device(device).type != \
+                mesh.device_type:
+            raise ValueError(f"device {device} is not the mesh's "
+                             f"{mesh.device_type}")
+        device = mesh_device(mesh)
+    else:
+        device = resolve_device(device)
+    lead = rank == 0
     if cfg.data.from_videos:
         from nafae_torch.data.video_dataset import VideoSegmentDataset
         from nafae_torch.data.vocab import vocab_from_config
@@ -485,10 +578,28 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     restored = ckpt.restore_latest(state)
     if restored is not None:
         state = restored
-    logger = MetricsLogger(cfg.train.ckpt_dir)
+    if state.bank is not None and world > 1:
+        state = replace(
+            state, bank=S.shard_rows(state.bank, rank, world, 1).clone(),
+            bank_valid=S.shard_rows(state.bank_valid, rank, world, 1).clone())
+    logger = (MetricsLogger(cfg.train.ckpt_dir,
+                            tensorboard_dir=cfg.train.tensorboard_dir)
+              if lead else None)
     loader = BatchLoader(ds, cfg.data.batch_size, shuffle=True,
                          seed=cfg.train.seed, prefetch=cfg.data.prefetch)
     tx = make_optimizer(cfg)
+
+    def save(state):
+        if group is not None:
+            if state.bank is not None:
+                state = replace(
+                    state, bank=S.all_gather(state.bank, group, dim=1),
+                    bank_valid=S.all_gather(state.bank_valid, group, dim=1))
+            if lead:
+                ckpt.save(state)
+            torch.distributed.barrier(group)
+        else:
+            ckpt.save(state)
 
     # resume the loader at its exact position (epoch + offset from the step)
     start_step = state.step
@@ -506,32 +617,39 @@ def fit(cfg: Config, device: str | torch.device | None = None,
         return every > 0 and applied - last_fired[kind] >= every
 
     budget = (target - applied) * 2 + 16
-    for _, batch in loader.steps(budget, start_epoch=start_epoch, skip=skip):
-        if applied >= target:
-            break     # e.g. re-running an already-completed checkpoint dir
-        state, metrics = train_step(state, batch_to_device(batch, device),
-                                    cfg, tx, extractor)
-        applied += 1
-        frames_applied += int(np.prod(batch["frame_mask"].shape))
-        if due("log", cfg.train.log_every):
-            last_fired["log"] = applied
-            m = {k: float(v) for k, v in metrics.items()}
-            m["frames_per_sec"] = ((frames_applied - frames_logged)
-                                   / max(time.perf_counter() - t0, 1e-9))
-            m["step"] = applied
-            logger.log(m)
-            if log_fn:
-                log_fn(m)
-            t0, frames_logged = time.perf_counter(), frames_applied
-        if due("ckpt", cfg.train.ckpt_every):
-            last_fired["ckpt"] = applied
-            ckpt.save(state)
-        if eval_fn and due("eval", cfg.train.eval_every):
-            last_fired["eval"] = applied
-            eval_fn(state)
-        if applied >= target:
-            break
-    ckpt.save(state)
+    with torch.autograd.set_detect_anomaly(debug_nans):
+        for _, batch in loader.steps(budget, start_epoch=start_epoch,
+                                     skip=skip):
+            if applied >= target:
+                break     # e.g. re-running an already-completed checkpoint
+            local = {k: S.shard_rows(v, rank, world)
+                     for k, v in batch.items()}
+            state, metrics = train_step(state, batch_to_device(local, device),
+                                        cfg, tx, extractor, mesh, debug_nans)
+            applied += 1
+            frames_applied += int(np.prod(batch["frame_mask"].shape))
+            if due("log", cfg.train.log_every):
+                last_fired["log"] = applied
+                if lead:
+                    m = {k: float(v) for k, v in metrics.items()}
+                    m["frames_per_sec"] = ((frames_applied - frames_logged)
+                                           / max(time.perf_counter() - t0,
+                                                 1e-9))
+                    m["step"] = applied
+                    logger.log(m)
+                    if log_fn:
+                        log_fn(m)
+                t0, frames_logged = time.perf_counter(), frames_applied
+            if due("ckpt", cfg.train.ckpt_every):
+                last_fired["ckpt"] = applied
+                save(state)
+            if eval_fn and due("eval", cfg.train.eval_every):
+                last_fired["eval"] = applied
+                if lead:
+                    eval_fn(state)
+            if applied >= target:
+                break
+    save(state)
     return state, metrics
 
 
@@ -546,8 +664,32 @@ def main(argv=None) -> int:
     p.add_argument("--override", nargs="*", action="extend", default=None)
     p.add_argument("--device", default=None,
                    help="cuda (default; raises without a card) or cpu")
+    p.add_argument("--mesh", action="store_true",
+                   help="data parallel over the ranks of the job (torchrun "
+                        "--nproc_per_node N): NCCL on the cards, gloo with "
+                        "--device cpu; a world of one without torchrun")
+    p.add_argument("--multihost", action="store_true",
+                   help="not ported yet (ROADMAP Queue 1 item 8)")
+    p.add_argument("--debug-nans", action="store_true",
+                   help="autograd's anomaly mode, and a check that every "
+                        "step's losses and gradients are finite "
+                        "(FloatingPointError); syncs the host every step")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the whole run "
+                        "into DIR (Chrome trace JSON)")
     args = p.parse_args(argv)
+    if args.multihost:
+        raise NotImplementedError(
+            "--multihost is not ported yet (ROADMAP Queue 1 item 8); "
+            "--mesh runs data parallel over one host's ranks")
     cfg = load_config(args.config, args.preset, args.override or [])
+    mesh = None
+    if args.mesh:
+        from nafae_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(cfg.mesh.data_axis, cfg.mesh.frame_axis,
+                         cfg.mesh.data_axis_name, cfg.mesh.frame_axis_name,
+                         device=args.device)
+    lead = mesh is None or torch.distributed.get_rank() == 0
 
     def log_fn(m):
         print(" ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
@@ -564,7 +706,24 @@ def main(argv=None) -> int:
         print("eval " + " ".join(f"{k}={v}" for k, v in sorted(r.items())),
               flush=True)
 
-    fit(cfg, device=args.device, log_fn=log_fn, eval_fn=eval_fn)
+    def run():
+        fit(cfg, device=None if mesh is not None else args.device,
+            log_fn=log_fn, eval_fn=eval_fn, mesh=mesh,
+            debug_nans=args.debug_nans)
+
+    try:
+        if args.profile:
+            from nafae_torch.utils.profiling import trace
+            with trace(args.profile):
+                run()
+            if lead:
+                print(f"profile trace written to {args.profile}", flush=True)
+        else:
+            run()
+    finally:
+        if mesh is not None:
+            from nafae_torch.parallel.mesh import shutdown
+            shutdown()
     return 0
 
 

@@ -31,7 +31,9 @@ def test_import_leaves_jax_out():
             "nafae_torch.ops.nms, nafae_torch.ops.roi_align, "
             "nafae_torch.utils.torch_convert, nafae_torch.data.annotations, "
             "nafae_torch.data.robowatch, nafae_torch.models.detector.vgg, "
-            "nafae_torch.visualize, nafae_torch.__main__; "
+            "nafae_torch.visualize, nafae_torch.__main__, "
+            "nafae_torch.parallel.mesh, nafae_torch.parallel.sharding, "
+            "nafae_torch.utils.profiling, nafae_torch.evaluate; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -40,7 +42,9 @@ def test_import_leaves_jax_out():
 
 
 @pytest.mark.parametrize("module", ["nafae_torch.visualize",
-                                    "nafae_torch.__main__"])
+                                    "nafae_torch.__main__",
+                                    "nafae_torch.parallel.sharding",
+                                    "nafae_torch.utils.profiling"])
 def test_new_entry_points_leave_jax_out(module):
     """Each of the entry modules alone, in a fresh interpreter."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
@@ -97,3 +101,14 @@ def test_entry_points_need_cuda_unless_cpu_requested(monkeypatch):
         make_extract_fn(det)
     assert not torch.backends.cudnn.allow_tf32
     assert not torch.backends.cuda.matmul.allow_tf32
+
+
+def test_mesh_needs_cuda_unless_cpu_requested(monkeypatch):
+    """make_mesh takes NCCL on the card and gloo only when the CPU is
+    asked for: without a card it raises, and no process group starts."""
+    from nafae_torch.parallel import make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    assert not torch.distributed.is_initialized()

@@ -194,14 +194,41 @@ def test_cli_trains_on_the_cpu(synth_root, tmp_path, capsys):
 
 
 def test_tensorboard_dir_raises(synth_root, tmp_path):
-    """The TensorBoard mirror is not ported: asking for it raises before
-    any step, instead of training without the event files."""
+    """train.tensorboard_dir no longer raises: fit trains and mirrors
+    every logged record's numeric fields into a TensorBoard event file
+    (its CRCs checked by read_events), as the reference's MetricsLogger
+    does; a directory that cannot be made warns and training goes on."""
+    import warnings
+
+    from nafae_torch.utils.metrics_log import MetricsLogger, read_events
+
     _, tc = _cfgs(synth_root, "config4", [f"train.ckpt_dir={tmp_path}/ck",
                                           f"train.tensorboard_dir={tmp_path}"
-                                          "/tb", "train.steps=1"])
-    with pytest.raises(NotImplementedError, match="tensorboard_dir"):
-        TT.fit(tc, device="cpu")
-    assert not (tmp_path / "ck").exists()
+                                          "/tb", "train.steps=2",
+                                          "train.log_every=1"])
+    state, _ = TT.fit(tc, device="cpu")
+    assert state.step == 2
+    (name,) = [p.name for p in (tmp_path / "tb").iterdir()]
+    assert name.startswith("events.out.tfevents.")
+    events = read_events(str(tmp_path / "tb" / name))
+    assert events[0]["file_version"] == "brain.Event:2"
+    records = MetricsLogger(str(tmp_path / "ck")).read()
+    assert [e["step"] for e in events[1:]] == [r["step"] for r in records] \
+        == [1, 2]
+    for e, r in zip(events[1:], records):
+        want = {k: v for k, v in r.items() if k not in ("ts", "step")}
+        assert set(e["scalars"]) == set(want)
+        for k, v in want.items():
+            assert e["scalars"][k] == np.float32(v), k
+    (tmp_path / "file").write_text("")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        TT.fit(replace(tc, train=replace(
+            tc.train, ckpt_dir=str(tmp_path / "ck2"),
+            tensorboard_dir=str(tmp_path / "file" / "tb"))), device="cpu")
+    assert any("tensorboard logging disabled" in str(w.message)
+               for w in caught)
+    assert len(MetricsLogger(str(tmp_path / "ck2")).read()) == 2
 
 
 def test_cli_evaluates_every_eval_every(synth_root, tmp_path, capsys):
@@ -392,9 +419,17 @@ def test_kmeans_plusplus_matches_jax(case):
                              1e-12)
     np.testing.assert_array_equal(np.argmax(got @ rows.T, -1),
                                   np.argmax(want @ rows.T, -1))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        t_pp(torch.from_numpy(f), torch.from_numpy(valid), kc,
-             axis_names=("data",), gather_dims=(0,))
+    # the mesh form on a world of one (gloo): the gather along the batch
+    # dim (0 for the selections, 1 for the ring) changes nothing
+    from nafae_torch.parallel.mesh import make_mesh, shutdown
+    try:
+        group = make_mesh(device="cpu").get_group("data")
+        on_mesh = t_pp(torch.from_numpy(f), torch.from_numpy(valid), kc,
+                       gumbels=torch.from_numpy(g), max_rows=max_rows,
+                       group=group, gather_dim=0 if case == "batch" else 1)
+    finally:
+        shutdown()
+    assert torch.equal(on_mesh, torch.from_numpy(got))
     # without gumbels the noise comes from the generator: seeded, repeatable
     a = t_pp(torch.from_numpy(f), torch.from_numpy(valid), kc,
              generator=torch.Generator().manual_seed(0), max_rows=max_rows)
