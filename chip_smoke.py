@@ -14,7 +14,8 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    paths' shapes and at edge shapes, in f32 and bf16: K1f (u), K1fr (u and
    alpha), K1b and K1br (dv_ext against autograd through the plain
    version; E from 4 to 512, R = 1 and 32, w >= T, a centre frame with no
-   valid neighbour, an invalid centre frame between valid ones; two
+   valid neighbour, an invalid centre frame between valid ones, real halo
+   frames as a frame-parallel shard receives them (w > T among them); two
    launches on one f32 input must give bitwise-equal u, alpha and dv),
    CtxMix end to end; the fused cross-MIL K3 (a, and idx where
    the top two scores are clear of ties; R from 1 to 100, M = 1 and 129,
@@ -131,6 +132,21 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    one card (NCCL refuses a duplicate GPU in a communicator), so the card
    checks the DP code on a world of one; equality across ranks rests on
    the CPU tests over gloo.
+13. frame parallelism and multi-host (main path 9; run after phase 12,
+   on phase 5's data): `torchrun --nnodes 1 --nproc_per_node 1 -m
+   nafae_torch.train --multihost` (NCCL, a world of one, started with
+   phase 12's CLI runs), whose metrics.jsonl equals the in-process DP
+   run's bit for bit; 4 spawned ranks, every one a process on cuda:0 over
+   gloo (`make_mesh(..., backend="gloo")`, collectives staged through host
+   memory), train 3 f32 steps of config4 at full width (B=16, T=20, R=20,
+   D=2048, E=256) on 1x2, 2x2 and 1x4 meshes (1x4 at w=6 > T_local=5) on
+   each route: equal across ranks, equal to the single-device step on the
+   card (metrics, every step's reduced gradients, params, centers), each
+   rank launching K1fr and K1br once a step, K4f and K4b once on pallas,
+   K3 never, and sending the halo bytes its shapes give; the step host to
+   host on each mesh; K1fr/K1b/K1br and K4f/K4b against their plain
+   versions on two ranks' T_local inputs with real halos, f32 and bf16,
+   timed with their bounds at the 2x2 rank's.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -192,6 +208,10 @@ CTX_CASES = [(16, 20, 20, 256, 3, True, False),    # config4 shapes
              (4, 9, 1, 64, 2, True, False),        # R = 1
              (2, 5, 32, 64, 4, True, False),       # R = 32 at w = 4
              (3, 10, 20, 256, 3, True, True)]      # cnt = 0; an invalid centre
+# ... with real halo frames, as a frame-parallel shard has them (B, T, R, E,
+# w): w > T (each halo from two shards), config4's 2x2 shard, R = 32
+CTX_HALO_CASES = [(4, 5, 20, 256, 6), (8, 10, 20, 256, 3),
+                  (3, 2, 32, 64, 4)]
 # alpha of K1fr: f32 sums in another order; in bf16 a value may round to
 # the neighbouring bf16 number (one ulp is at most 2^-7 relative)
 ALPHA_TOL = {"float32": (1e-4, 1e-6), "bfloat16": (1e-2, 1e-6)}
@@ -281,13 +301,18 @@ def card_line() -> str:
 # ------------------------------------------------------------- kernels
 
 
-def ctx_inputs(torch, gen, b, t, r, e, w, device, edges=False):
+def ctx_inputs(torch, gen, b, t, r, e, w, device, edges=False,
+               halos=False):
     """l2-normalized regions with random frame and region masks, incl. a
     valid frame whose regions are all invalid (the uniform-alpha group).
     edges (T >= 2w + 4): the last video gets a valid centre frame whose
     every neighbour is invalid (cnt = 0, u = 0) and an invalid centre frame
-    between two valid ones."""
+    between two valid ones. halos: the 2w halo frames are real frames with
+    their own random masks, as a frame-parallel shard receives them from
+    its neighbours; else zero padding (invalid halo frames)."""
     F = torch.nn.functional
+    if halos:
+        t += 2 * w
     v = torch.randn(b, t, r, e, generator=gen)
     v = v / v.norm(dim=-1, keepdim=True)
     fm = (torch.rand(b, t, generator=gen) > 0.25).float()
@@ -300,6 +325,8 @@ def ctx_inputs(torch, gen, b, t, r, e, w, device, edges=False):
         fm[-1, :2 * w + 1] = 0.0
         fm[-1, w] = 1.0                   # frame w: no valid neighbour
         fm[-1, 2 * w + 2] = 0.0           # invalid, between valid frames
+    if halos:
+        return v.to(device), fm.to(device), rm.to(device)
     return (F.pad(v, (0, 0, 0, 0, w, w)).to(device),
             F.pad(fm, (w, w)).to(device),
             F.pad(rm, (0, 0, w, w)).to(device))
@@ -315,16 +342,18 @@ def check_ctx_mix(torch, device) -> dict[str, float]:
     for dt_name, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
         rtol, atol = CTX_TOL[dt_name]
         worst = 0.0
-        for b, t, r, e, w, with_rm, edges in CTX_CASES:
+        for b, t, r, e, w, with_rm, edges, halos in (
+                [c + (False,) for c in CTX_CASES]
+                + [c + (True, False, True) for c in CTX_HALO_CASES]):
             v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, b, t, r, e, w,
-                                               device, edges)
+                                               device, edges, halos)
             rm_ext = rm_ext if with_rm else None
             u, nv = K.ctx_mix(v_ext, fm_ext, w, 0.1, dtype=dt, rm_ext=rm_ext)
             torch.cuda.synchronize()
             up, nvp = K.context_mix_plain(v_ext, fm_ext, w, 0.1, dtype=dt,
                                           rm_ext=rm_ext)
             case = (f"{dt_name} B={b} T={t} R={r} E={e} w={w} rm={with_rm} "
-                    f"edges={edges}")
+                    f"edges={edges} halos={halos}")
             if not torch.equal(nv, nvp):
                 fail(f"ctx_mix nbr_valid differs from the plain version: {case}")
             if not torch.isfinite(u).all():
@@ -335,7 +364,8 @@ def check_ctx_mix(torch, device) -> dict[str, float]:
             worst = max(worst, err)
         errs[dt_name] = worst
         log(f"ctx_mix vs plain, {dt_name}: max |err| {worst:.3e} "
-            f"(rtol {rtol}, atol {atol}, {len(CTX_CASES)} cases)")
+            f"(rtol {rtol}, atol {atol}, {len(CTX_CASES)} cases and "
+            f"{len(CTX_HALO_CASES)} with real halo frames)")
     return errs
 
 
@@ -392,23 +422,24 @@ def check_ctx_grad(torch, device) -> dict[str, float]:
     from nafae_torch.ops.kernels import ctx_mix as K
 
     gen = torch.Generator().manual_seed(SEED + 1)
-    cases = CTX_CASES + [
+    cases = [c + (False,) for c in CTX_CASES + [
         (4, 6, 20, 12, 3, True, False),     # E within one 64-column slice,
         (4, 6, 20, 36, 2, True, False),     # ... not a multiple of 8
-        (4, 6, 20, 100, 2, True, False)]    # a ragged second slice
+        (4, 6, 20, 100, 2, True, False)]] + [
+        c + (True, False, True) for c in CTX_HALO_CASES]
     errs = {}
     for dt_name, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
         worst = dict.fromkeys(("ctx_mix_fwd_res", "alpha", "ctx_mix_bwd",
                                "ctx_mix_bwd_res"), 0.0)
-        for b, t, r, e, w, with_rm, edges in cases:
+        for b, t, r, e, w, with_rm, edges, halos in cases:
             v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, b, t, r, e, w,
-                                               device, edges)
+                                               device, edges, halos)
             du = torch.randn(b, t, r, e, generator=gen).to(device)
             got = compare_grad_kernels(
                 torch, v_ext.to(dt) if dt is not None else v_ext, fm_ext,
                 rm_ext if with_rm else None, w, du, dt_name,
                 f"{dt_name} B={b} T={t} R={r} E={e} w={w} rm={with_rm} "
-                f"edges={edges}")
+                f"edges={edges} halos={halos}")
             worst = {k: max(worst[k], got[k]) for k in worst}
         errs[dt_name] = worst
         log(f"K1fr/K1b/K1br vs plain, {dt_name}: max |err| "
@@ -3146,15 +3177,21 @@ K1_NAMES = ("ctx_mix_fwd_pairs", "ctx_mix_fwd_mix", "ctx_mix_bwd_pairs",
             "ctx_mix_bwd_gather")     # K1fr's and K1br's kernels in a trace
 
 
-def start_cli(args: list[str], out: str, ranks: int = 0):
+def start_cli(args: list[str], out: str, ranks: int = 0,
+              master_port: int = 0):
     """Starts `python -m <module> args` from the checkout's root, under
     `torch.distributed.run --standalone --nproc_per_node <ranks>` when
-    ranks > 0, its stdout and stderr into files `out`.{stdout,stderr};
-    returns (Popen, the command, the start time)."""
+    ranks > 0 (with master_port: `--nnodes 1 --master_addr 127.0.0.1
+    --master_port <port>`, a multi-host launch of one node), its stdout
+    and stderr into files `out`.{stdout,stderr}; returns (Popen, the
+    command, the start time)."""
     cmd = [sys.executable, "-m"]
     if ranks:
-        cmd += ["torch.distributed.run", "--standalone", "--nproc_per_node",
-                str(ranks), "-m"]
+        cmd += ["torch.distributed.run", "--nproc_per_node", str(ranks)]
+        cmd += (["--nnodes", "1", "--master_addr", "127.0.0.1",
+                 "--master_port", str(master_port)] if master_port
+                else ["--standalone"])
+        cmd += ["-m"]
     cmd += args
     with open(out + ".stdout", "w") as so, open(out + ".stderr", "w") as se:
         proc = subprocess.Popen(
@@ -3246,9 +3283,12 @@ def check_dp(torch, root: str, tmp: str, mesh) -> dict:
 
 
 def check_clis(torch, root: str, tmp: str, dp: dict, evals: dict) -> dict:
-    """Phase 12 (a, b, c), three CLI runs started together on the card:
-    `torchrun --nproc_per_node 1 -m nafae_torch.train --mesh`, whose
-    metrics.jsonl must equal the in-process DP run's steps bit for bit;
+    """Phase 12 (a, b, c) and 13 (a), four CLI runs started together on the
+    card: `torchrun --nproc_per_node 1 -m nafae_torch.train --mesh` and
+    `torchrun --nnodes 1 --nproc_per_node 1 -m nafae_torch.train
+    --multihost` (NCCL, a world of one), whose metrics.jsonl must each
+    equal the in-process DP run's steps bit for bit, which equal those
+    without a mesh;
     `torchrun ... -m nafae_torch.evaluate --mesh` on phase 7's val split
     and f32 checkpoint, whose hits must equal phase 7's; and an
     OBS_STEPS-step `-m nafae_torch.train --profile DIR` run with
@@ -3259,8 +3299,13 @@ def check_clis(torch, root: str, tmp: str, dp: dict, evals: dict) -> dict:
     from nafae_torch.train import fit
     from nafae_torch.utils.metrics_log import MetricsLogger, read_events
 
-    ck_dp, ck_obs, prof, tb = (os.path.join(tmp, d) for d in (
-        "ck_dp_cli", "ck_obs", "prof", "tb"))
+    import socket
+
+    ck_dp, ck_mh, ck_obs, prof, tb = (os.path.join(tmp, d) for d in (
+        "ck_dp_cli", "ck_mh_cli", "ck_obs", "prof", "tb"))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
     train_args = ["--preset", "config4", "--override", *TRAIN_OVERRIDES,
                   f"data.root={root}", "model.dtype=float32"]
     runs = {
@@ -3268,6 +3313,11 @@ def check_clis(torch, root: str, tmp: str, dp: dict, evals: dict) -> dict:
             ["nafae_torch.train", "--mesh", *train_args,
              f"train.ckpt_dir={ck_dp}", f"train.steps={DP_STEPS}"],
             os.path.join(tmp, "cli_train_mesh"), ranks=1),
+        "train_multihost": start_cli(
+            ["nafae_torch.train", "--multihost", *train_args,
+             f"train.ckpt_dir={ck_mh}", f"train.steps={DP_STEPS}"],
+            os.path.join(tmp, "cli_train_multihost"), ranks=1,
+            master_port=port),
         "eval_mesh": start_cli(
             ["nafae_torch.evaluate", "--mesh", "--preset", "config1",
              "--checkpoint", os.path.join(tmp, f"ck_{ROUTES[0]}_float32"),
@@ -3297,6 +3347,15 @@ def check_clis(torch, root: str, tmp: str, dp: dict, evals: dict) -> dict:
     log(f"torchrun --nproc_per_node 1 -m nafae_torch.train --mesh: rc 0, its "
         f"{DP_STEPS} metrics.jsonl records equal the in-process DP run's bit "
         "for bit")
+    recs = MetricsLogger(ck_mh).read()
+    if len(recs) != DP_STEPS or not all(metrics_equal(w, r)
+                                        for w, r in zip(want, recs)):
+        fail(f"torchrun train --multihost wrote {recs}; the in-process DP "
+             f"run logged {want}")
+    log(f"torchrun --nnodes 1 --nproc_per_node 1 -m nafae_torch.train "
+        f"--multihost (NCCL, a world of one): rc 0, its {DP_STEPS} "
+        "metrics.jsonl records equal the in-process DP run's (and so the "
+        "run's without a mesh) bit for bit")
 
     got = json.loads(out["eval_mesh"][0].strip().splitlines()[-1])
     hits = round(got["box_acc_micro"] * got["num_annotations"])
@@ -3478,6 +3537,482 @@ def check_dp_c5(torch, ann: str, tmp: str, mesh, c5: dict) -> dict:
     return {"launches": counts, "metric_rel_diff": diff}
 
 
+# ------------------------- frame parallelism and multi-host (phase 13)
+
+# (data, frame, loss.ctx_window) of each frame-parallel mesh, every rank
+# on the one card over gloo: 1x2 (T_local = 10), 2x2, and 1x4 at w = 6
+# (T_local = 5 < w: each halo comes from two shards on each side)
+SP_MESHES = ((1, 2, 3), (2, 2, 3), (1, 4, 6))
+SP_WORLD = 4
+SP_STEPS = 3                     # f32 steps of each mesh and route
+SP_TIMEOUT = 600                 # s for the whole spawned world
+# SP against the single-device step on the card: tests/test_sp.py's metric
+# bound; the reduced gradient of every step within tests/test_torch_sp.py's
+# rtol 1e-4 / atol 1e-6; every parameter and center entry after SP_STEPS
+# Adam steps within SP_PARAM_TOL
+SP_METRIC_TOL = (3e-4, 1e-5)
+SP_GRAD_TOL = (1e-4, 1e-6)
+# the single-device route both SP routes are held against: under SP the
+# score rows come from the dense product whatever train.kernels says (K3 is
+# not launched), as in the reference, whose tests/test_sp.py also holds its
+# pallas mesh step against the jnp one. The single device's pallas route
+# takes its rows from K3, whose first-index argmax and the dense product's
+# max can pick different regions where two scores are within rounding of
+# each other (phase 5's second batch on an NVIDIA H100 80GB HBM3 at 700 W:
+# gradients 0.5% of a leaf's largest entry apart); K4f/K4b against the
+# dense epilogue differ by ~5e-10 there
+SP_REFERENCE = "auto"
+SP_PARAM_TOL = 1e-5
+# the ranks whose inputs the kernels are held on at T_local, as (mesh,
+# data rank, frame rank): the 2x2 mesh's rank (0, 1) (the last shard: its
+# right halo is zeros) and the 1x4 mesh's rank (0, 1) (both halos real,
+# each from two shards)
+SP_KERNEL_RANKS = (((2, 2, 3), 0, 1), ((1, 4, 6), 0, 1))
+
+
+def sp_cfg(root: str, ckpt: str, route: str, data: int, frame: int, w: int,
+           dtype: str = "float32"):
+    from nafae_torch.config import load_config
+
+    return load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
+        f"data.root={root}", f"train.ckpt_dir={ckpt}", f"model.dtype={dtype}",
+        "train.steps=1000", f"train.kernels={route}",
+        f"mesh.data_axis={data}", f"mesh.frame_axis={frame}",
+        f"loss.ctx_window={w}"])
+
+
+def sp_batches(root: str) -> list[dict]:
+    """The first SP_STEPS training batches (numpy), as fit's loader gives
+    them."""
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.youcook2 import SegmentDataset
+
+    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
+    return [b for _, b in BatchLoader(ds, 16, shuffle=True,
+                                      seed=0).steps(SP_STEPS)]
+
+
+def sp_launches(route: str) -> dict[str, int]:
+    """Launches of each kernel in one frame-parallel step of `route` on one
+    rank: K1fr and K1br once; on pallas K4f and K4b once; K3 never (the
+    score rows come from the dense product under SP, as in the
+    reference)."""
+    want = per_step_launches(route)
+    want["cross_mil"] = 0
+    return want
+
+
+def sp_halo_bytes(b_loc: int, t_loc: int, frame: int, f: int, w: int,
+                  r: int = 20, e: int = 256) -> int:
+    """The bytes rank f of `frame` shards sends in one f32 step: for each
+    neighbour at hop d that exists, its piece of k_d frames of v̂ in the
+    forward pass and of v̂'s cotangent in the backward pass (B·k·R·E·4
+    each) and of the frame and region masks (B·k·4, B·k·R·4)."""
+    from nafae_torch.parallel.sp import _pieces
+
+    per_frame = b_loc * (2 * r * e * 4 + 4 + r * 4)
+    return sum(((f + d < frame) + (f - d >= 0)) * k * per_frame
+               for d, k in _pieces(t_loc, w))
+
+
+def recording(tx) -> list[dict]:
+    """Makes the optimizer `tx` keep each update's gradients (numpy);
+    returns the list they go into."""
+    grads, real = [], tx.update
+
+    def update(g, state, params):
+        grads.append({k: v.detach().cpu().numpy() for k, v in g.items()})
+        return real(g, state, params)
+
+    tx.update = update
+    return grads
+
+
+def sp_single(torch, root: str, tmp: str, batches) -> dict:
+    """SP_STEPS f32 steps without a mesh on the card, from the same initial
+    state as every rank: {(route, w): metrics per step, params, centers,
+    host ms per step, gradients per step}."""
+    from nafae_torch.train import (TrainState, batch_to_device,
+                                   make_optimizer, train_step)
+
+    dev = torch.device("cuda")
+    out = {}
+    for route in ROUTES:
+        for w in sorted({m[2] for m in SP_MESHES}):
+            cfg = sp_cfg(root, os.path.join(tmp, "ck_sp"), route, 1, 1, w)
+            st, tx = TrainState.create(cfg, device=dev), make_optimizer(cfg)
+            grads = recording(tx)
+            metrics, ms = [], []
+            for b in batches:
+                t0 = time.perf_counter()
+                st, m = train_step(st, batch_to_device(b, dev), cfg, tx)
+                metrics.append({k: float(v) for k, v in m.items()})
+                ms.append((time.perf_counter() - t0) * 1e3)
+            out[(route, w)] = {
+                "metrics": metrics, "ms": ms, "grads": grads,
+                "params": {k: v.cpu().numpy() for k, v in st.params.items()},
+                "centers": st.centers.cpu().numpy()}
+    return out
+
+
+def sp_rank(rank: int, port: int, root: str, tmp: str) -> None:
+    """One rank of the spawned world (phase 13): joins it as torchrun's
+    ranks do (RANK, WORLD_SIZE, MASTER_ADDR/MASTER_PORT; LOCAL_RANK 0, the
+    one card), then for each SP_MESHES mesh that holds it, SP_STEPS f32
+    steps of each route on its part of each batch through train_step,
+    with every launch count zeroed just before each step and read just
+    after, and the step's collectives (rank (0, 0) also the reduced
+    gradients); pickles what it saw."""
+    import pickle
+    import warnings
+
+    import torch
+
+    from nafae_torch.parallel import sharding as S
+    from nafae_torch.parallel.mesh import make_mesh, shutdown
+    from nafae_torch.parallel.multihost import global_batch_spec, local_batch
+    from nafae_torch.train import (TrainState, batch_to_device,
+                                   make_optimizer, train_step)
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(SP_WORLD),
+                      LOCAL_RANK="0", MASTER_ADDR="127.0.0.1",
+                      MASTER_PORT=str(port))
+    batches = sp_batches(root)
+    dev = torch.device("cuda", 0)
+    out = {}
+    for data, frame, w in SP_MESHES:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")     # a mesh smaller than the world
+            mesh = make_mesh(data, frame, device="cuda", backend="gloo")
+        if torch.distributed.get_backend() != "gloo" or \
+                torch.cuda.current_device() != 0:
+            raise RuntimeError("the SP world must run gloo on cuda:0")
+        if rank < data * frame:
+            for route in ROUTES:
+                cfg = sp_cfg(root, os.path.join(tmp, "ck_sp"), route, data,
+                             frame, w)
+                spec = global_batch_spec(cfg, mesh)
+                st, tx = (TrainState.create(cfg, device=dev),
+                          make_optimizer(cfg))
+                grads = recording(tx) if rank == 0 else None
+                steps = []
+                for b in batches:
+                    S.COLLECTIVES.reset()
+                    zero_counts()                   # main path starts here
+                    t0 = time.perf_counter()
+                    st, m = train_step(
+                        st, batch_to_device(local_batch(b, spec, mesh), dev),
+                        cfg, tx, mesh=mesh)
+                    metrics = {k: float(v) for k, v in m.items()}
+                    ms = (time.perf_counter() - t0) * 1e3
+                    counts = read_counts()          # ... and ends here
+                    recs = list(S.COLLECTIVES.records)
+                    steps.append({
+                        "metrics": metrics, "ms": ms, "launches": counts,
+                        **{op + "_bytes": sum(x[3] for x in recs
+                                              if x[0] == op)
+                           for op in ("send", "recv", "all_reduce",
+                                      "all_gather", "all_reduce_max")},
+                        "collectives": len(recs)})
+                out[(data, frame, w, route)] = {
+                    "coord": mesh.get_coordinate(), "steps": steps,
+                    "grads": grads,
+                    "params": {k: v.cpu().numpy()
+                               for k, v in st.params.items()},
+                    "centers": st.centers.cpu().numpy()}
+        torch.distributed.barrier()
+    shutdown()
+    with open(os.path.join(tmp, f"sp_out_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def sp_spawn(root: str, tmp: str) -> list[dict]:
+    """Spawns SP_WORLD sp_rank processes and waits for them (killed past
+    SP_TIMEOUT s); fails if any fails; returns each rank's results."""
+    import pickle
+    import socket
+
+    import torch.multiprocessing as mp
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    ctx = mp.start_processes(sp_rank, args=(port, root, tmp),
+                             nprocs=SP_WORLD, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + SP_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                fail(f"the SP world did not end within {SP_TIMEOUT} s")
+    except mp.ProcessRaisedException as e:
+        fail(f"an SP rank failed: {e}")
+    except mp.ProcessExitedException as e:
+        fail(f"an SP rank exited: {e}")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+    outs = []
+    for r in range(SP_WORLD):
+        with open(os.path.join(tmp, f"sp_out_{r}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def check_sp(torch, root: str, tmp: str) -> dict:
+    """Phase 13 (b): frame parallelism on the one card. SP_WORLD ranks, each
+    a process on cuda:0 over gloo (collectives staged through host
+    memory), run SP_STEPS f32 steps of config4 at full width (B=16, T=20,
+    R=20, D=2048, E=256) on each SP_MESHES mesh and route; each must equal
+    the single-device step on the card (SP_REFERENCE's; metrics within
+    SP_METRIC_TOL, each step's reduced gradients within SP_GRAD_TOL, params
+    and centers within SP_PARAM_TOL), every rank of a
+    mesh the others bit for bit; each rank must launch, each step, K1fr
+    and K1br
+    once, on pallas K4f and K4b once, K3 never, and send exactly the halo
+    bytes its shapes give (sp_halo_bytes)."""
+    batches = sp_batches(root)
+    single = sp_single(torch, root, tmp, batches)
+    # what the routes' other sums move on one device: pallas (K3's rows)
+    # against auto (the dense product's), each leaf's largest |difference|
+    routes = {w: {k: max(float(np.abs(p[k] - a[k]).max()) for p, a in zip(
+        single[("pallas", w)]["grads"], single[("auto", w)]["grads"]))
+        for k in single[("auto", w)]["grads"][0]}
+        for w in sorted({m[2] for m in SP_MESHES})}
+    log(f"single device, pallas against auto, each step's gradients' "
+        f"largest |difference| by leaf: {routes}")
+    t0 = time.perf_counter()
+    outs = sp_spawn(root, tmp)
+    wall = time.perf_counter() - t0
+    res = {"world_wall_s": wall, "meshes": {},
+           "single_pallas_vs_auto_grad_diff": routes}
+    problems = []
+    for data, frame, w in SP_MESHES:
+        b_loc, t_loc = 16 // data, 20 // frame
+        for route in ROUTES:
+            key = (data, frame, w, route)
+            ranks = [o[key] for o in outs[:data * frame]]
+            # the rows of both routes come from the dense product under SP,
+            # as in the reference: the single device's auto step is the
+            # same math (see SP_REFERENCE)
+            ref = single[(SP_REFERENCE, w)]
+            name = f"{data}x{frame} w={w} {route}"
+            first = ranks[0]
+            same = True
+            for o in ranks[1:]:
+                if [s["metrics"] for s in o["steps"]] != \
+                        [s["metrics"] for s in first["steps"]] or any(
+                        not np.array_equal(o["params"][k], first["params"][k])
+                        for k in first["params"]) or not np.array_equal(
+                        o["centers"], first["centers"]):
+                    same = False
+                    problems.append(f"SP {name}: rank {o['coord']} differs "
+                                    f"from rank {first['coord']}")
+            rtol, atol = SP_METRIC_TOL
+            diff = max(abs(g[k] - s[k]) / (atol + rtol * abs(s[k]))
+                       for gs, s in zip(first["steps"], ref["metrics"])
+                       for g in [gs["metrics"]] for k in s)
+            grtol, gatol = SP_GRAD_TOL
+            gdiff = max(float((np.abs(g[k] - r[k])
+                               / (gatol + grtol * np.abs(r[k]))).max())
+                for g, r in zip(first["grads"], ref["grads"]) for k in r)
+            # each leaf's largest |difference| over the steps, beside its
+            # largest entry
+            gleaf = {k: (max(float(np.abs(g[k] - r[k]).max())
+                             for g, r in zip(first["grads"], ref["grads"])),
+                         max(float(np.abs(r[k]).max())
+                             for r in ref["grads"]))
+                     for k in ref["grads"][0]}
+            pdiff = max(float(np.abs(first["params"][k]
+                                     - ref["params"][k]).max())
+                        for k in ref["params"])
+            cdiff = float(np.abs(first["centers"] - ref["centers"]).max())
+            if diff > 1.0 or gdiff > 1.0 or pdiff > SP_PARAM_TOL or \
+                    cdiff > SP_PARAM_TOL:
+                problems.append(
+                    f"SP {name} differs from the single-device step: metrics "
+                    f"at {diff:.3f} and gradients at {gdiff:.3f} of their "
+                    f"bounds (by leaf, max |diff| and max |g|: {gleaf}), "
+                    f"params by {pdiff}, centers by {cdiff}")
+            want = sp_launches(route)
+            for o in ranks:
+                f = o["coord"][1]
+                halo = sp_halo_bytes(b_loc, t_loc, frame, f, w)
+                for s in o["steps"]:
+                    if s["launches"] != want:
+                        problems.append(
+                            f"SP {name}: rank {o['coord']} launched "
+                            f"{s['launches']} in a step, expected {want}")
+                    if s["send_bytes"] != halo or s["recv_bytes"] != halo:
+                        problems.append(
+                            f"SP {name}: rank {o['coord']} sent "
+                            f"{s['send_bytes']} and received "
+                            f"{s['recv_bytes']} halo bytes, expected {halo}")
+            step_ms = max(statistics.median([s["ms"] for s in o["steps"][1:]])
+                          for o in ranks)
+            res["meshes"][name] = {
+                "T_local": t_loc, "B_local": b_loc,
+                "launches_per_step": want,
+                "halo_send_bytes_per_step": {
+                    str(o["coord"]): o["steps"][0]["send_bytes"]
+                    for o in ranks},
+                "all_reduce_bytes_per_step": first["steps"][0][
+                    "all_reduce_bytes"],
+                "all_gather_bytes_per_step": first["steps"][0][
+                    "all_gather_bytes"],
+                "metric_diff_of_bound": diff, "grad_diff_of_bound": gdiff,
+                "grad_max_abs_diff_by_leaf": gleaf,
+                "param_max_abs_diff": pdiff,
+                "center_max_abs_diff": cdiff,
+                "step_host_ms_gloo_one_card": step_ms,
+                "step_host_ms_single": statistics.median(
+                    single[(route, w)]["ms"][1:]),
+                "loss": [s["metrics"]["loss"] for s in first["steps"]]}
+            m = res["meshes"][name]
+            log(f"SP {name} (config4 B=16 T=20 R=20 D=2048 E=256, "
+                f"T_local={t_loc}, {SP_STEPS} f32 steps, {data * frame} "
+                f"ranks on cuda:0): "
+                f"{'equal' if same else 'NOT equal'} across ranks bit for "
+                f"bit; vs the single-device {SP_REFERENCE} step metrics at "
+                f"{diff:.3f} of rtol {rtol}/atol {atol}, gradients at "
+                f"{gdiff:.3f} of theirs, "
+                f"params max |diff| {pdiff:.3e}, centers {cdiff:.3e}; each "
+                f"rank a step: launches "
+                f"{ {k: n for k, n in want.items() if n} } and K3 "
+                f"(cross_mil) 0, halo bytes sent "
+                f"{m['halo_send_bytes_per_step']}, all_reduce "
+                f"{m['all_reduce_bytes_per_step']} B, all_gather "
+                f"{m['all_gather_bytes_per_step']} B; step host to host "
+                f"{step_ms:.2f} ms on gloo staged through host memory with "
+                f"{data * frame} processes sharing one card (not an NCCL "
+                f"number), single device ({route}) "
+                f"{m['step_host_ms_single']:.2f} ms — {card_line()}")
+    if problems:
+        fail("; ".join(problems))
+    return res
+
+
+def sp_kernel_inputs(torch, root: str, tmp: str, data: int, frame: int,
+                     w: int, d: int, f: int):
+    """Rank (d, f)'s kernel inputs on the first training batch from the
+    initial params: its rows and frames, and the halo-extended v̂ and
+    masks with its neighbours' real frames (the window of the zero-padded
+    global tensor, which halo_exchange gives): (w_emb, v, v_ext, fm_ext,
+    rm_ext, fm, rm, centers) on the card, f32."""
+    F = torch.nn.functional
+    from nafae_torch.ops import grounding as TG
+    from nafae_torch.train import TrainState, batch_to_device
+
+    dev = torch.device("cuda")
+    tb = batch_to_device(first_batch(root), dev)
+    cfg = sp_cfg(root, os.path.join(tmp, "ck_sp"), "pallas", data, frame, w)
+    state = TrainState.create(cfg, device=dev)
+    p = state.params
+    b_loc, t_loc = 16 // data, 20 // frame
+    rows = slice(d * b_loc, (d + 1) * b_loc)
+    frames = slice(f * t_loc, (f + 1) * t_loc)
+    ext = slice(f * t_loc, f * t_loc + t_loc + 2 * w)
+    fm, rm = tb["frame_mask"][rows], tb["region_mask"][rows]
+    with torch.no_grad():
+        w_emb = TG.embed_words(tb["word_ids"][rows], p["word_emb"])
+        v = TG.project_regions(tb["feats"][rows], p["w_v"], p["b_v"])
+    v_ext = F.pad(v, (0, 0, 0, 0, w, w))[:, ext].contiguous()
+    fm_ext = F.pad(fm, (w, w))[:, ext].contiguous()
+    rm_ext = F.pad(rm, (0, 0, w, w))[:, ext].contiguous()
+    return (w_emb, v[:, frames].contiguous(), v_ext, fm_ext, rm_ext,
+            fm[:, frames].contiguous(), rm[:, frames].contiguous(),
+            state.centers)
+
+
+def check_sp_kernels(torch, root: str, tmp: str) -> dict:
+    """Phase 13 (c): K1fr, K1b, K1br (compare_grad_kernels) and K4f, K4b
+    (compare_diag) against their plain versions on SP_KERNEL_RANKS' inputs
+    at T_local with real halos, f32 and bf16, at phases 3 and 8's
+    tolerances; on the first, device times (CUDA graphs) of K1fr, K1br,
+    K4f and K4b and of their plain versions, with their bounds."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+    from nafae_torch.ops.kernels import diag as K4
+
+    res = {}
+    for n, ((data, frame, w), d, f) in enumerate(SP_KERNEL_RANKS):
+        w_emb, v, v_ext, fm_ext, rm_ext, fm, rm, centers = sp_kernel_inputs(
+            torch, root, tmp, data, frame, w, d, f)
+        b, t, r, e = v.shape
+        gen = torch.Generator().manual_seed(SEED + 13)
+        du = torch.randn(b, t, r, e, generator=gen).to(v.device)
+        with torch.no_grad():
+            u, nbr = K.ctx_mix(v_ext, fm_ext, w, 0.1, rm_ext=rm_ext)
+        hc = (nbr.sum(-1) > 0).float()
+        tag = f"{data}x{frame}_w{w}"
+        res["shapes_" + tag] = {"B": b, "T_local": t, "R": r, "E": e,
+                                "w": w, "rank": [d, f]}
+        for dt_name, dt in (("float32", torch.float32),
+                            ("bfloat16", torch.bfloat16)):
+            case = f"{dt_name}, SP rank ({d}, {f}) of {data}x{frame} " \
+                f"(B={b} T_local={t} w={w}, real halos)"
+            res[f"k1_errs_{tag}_{dt_name}"] = compare_grad_kernels(
+                torch, v_ext.to(dt), fm_ext, rm_ext, w, du, dt_name, case)
+            res[f"k4_errs_{tag}_{dt_name}"] = compare_diag(
+                torch, w_emb.to(dt), v.to(dt), u.to(dt), centers, fm, hc,
+                rm, case)
+        if n:
+            continue
+        vc = v_ext
+        _, alpha = K.launch_fwd(vc, fm_ext, w, 0.1, rm_ext, residual=True)
+        res["k1fr_ms"] = device_ms(torch, lambda: K.launch_fwd(
+            vc, fm_ext, w, 0.1, rm_ext, residual=True))
+        res["k1br_ms"] = device_ms(torch, lambda: K.launch_bwd(
+            vc, fm_ext, w, 0.1, rm_ext, du, alpha))
+        vp = vc.detach().clone().requires_grad_()
+        res["k1fr_plain_ms"] = profile_forward(
+            torch, lambda: K.context_mix_plain(vp, fm_ext, w, 0.1,
+                                               rm_ext=rm_ext))[1]
+        up, _ = K.context_mix_plain(vp, fm_ext, w, 0.1, rm_ext=rm_ext)
+        res["k1br_plain_ms"] = profile_forward(
+            torch, lambda: torch.autograd.grad(up, vp, du,
+                                               retain_graph=True))[1]
+        res["k1fr_bound_ms"], res["k1fr_bound_by"] = fwd_bound_ms(
+            torch, vc, fm_ext, rm_ext, w, True)
+        res["k1br_bound_ms"], res["k1br_bound_by"] = bwd_bound_ms(
+            torch, vc, fm_ext, rm_ext, w, True)
+        fwd = K4.launch_fwd(w_emb, v, u, centers, fm, hc, rm)
+        dctx = torch.rand(fwd[0].shape, generator=gen).to(v.device)
+        dclu = torch.rand(fwd[1].shape, generator=gen).to(v.device)
+        args = (w_emb, v, centers, fwd[3], fwd[4], fwd[5], fwd[2], dctx,
+                dclu)
+        dw, dv = K4.launch_bwd(*args)
+        torch.cuda.synchronize()
+        res["k4f_ms"] = device_ms(torch, lambda: K4.launch_fwd(
+            w_emb, v, u, centers, fm, hc, rm))
+        res["k4b_ms"] = device_ms(torch, lambda: K4.launch_bwd(*args))
+        res["k4f_plain_ms"] = device_ms(torch, lambda: K4.diag_fwd_plain(
+            w_emb, v, u, centers, fm, hc, rm))
+        res["k4b_plain_ms"] = device_ms(torch,
+                                        lambda: K4.diag_bwd_plain(*args))
+        (res["k4f_bound_ms"], res["k4f_bound_by"]), \
+            (res["k4b_bound_ms"], res["k4b_bound_by"]) = diag_bounds(
+                torch, w_emb, v, centers, fm, hc, rm, fwd, dctx, dclu, dw, dv)
+    errs = {k: max(x.get("ctx_mix_fwd_res", 0.0), x.get("ctx_mix_bwd_res",
+                                                        0.0),
+                   x.get("clu", 0.0), x.get("dw", 0.0), x.get("dv", 0.0))
+            for k, x in res.items() if "_errs_" in k}
+    log("K1fr/K1b/K1br and K4f/K4b vs plain at the SP ranks' T_local with "
+        "real halos: max |err| " + ", ".join(f"{k} {v:.3e}"
+                                             for k, v in errs.items())
+        + f"; at {res['shapes_2x2_w3']} f32: K1fr {res['k1fr_ms']:.4f} ms "
+        f"(plain {res['k1fr_plain_ms']:.4f}, bound "
+        f"{res['k1fr_bound_ms']:.4f} {res['k1fr_bound_by']}), K1br "
+        f"{res['k1br_ms']:.4f} ms (plain {res['k1br_plain_ms']:.4f}, bound "
+        f"{res['k1br_bound_ms']:.4f} {res['k1br_bound_by']}), K4f "
+        f"{res['k4f_ms']:.4f} ms (plain {res['k4f_plain_ms']:.4f}, bound "
+        f"{res['k4f_bound_ms']:.4f} {res['k4f_bound_by']}), K4b "
+        f"{res['k4b_ms']:.4f} ms (plain {res['k4b_plain_ms']:.4f}, bound "
+        f"{res['k4b_bound_ms']:.4f} {res['k4b_bound_by']}) — {card_line()}")
+    return res
+
+
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
                  by, library_ms=None, **more) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -3557,6 +4092,13 @@ def main() -> None:
         dp_k3 = check_cross_mil_dp(torch, tmp, tmp)
         clis = check_clis(torch, tmp, tmp, dp, evals)
         t12 = time.perf_counter() - t12
+
+        # frame parallelism on the one card (phase 13; its --multihost CLI
+        # run is among check_clis'), on phase 5's data
+        t13 = time.perf_counter()
+        sp = check_sp(torch, tmp, tmp)
+        sp_k = check_sp_kernels(torch, tmp, tmp)
+        t13 = time.perf_counter() - t13
 
         # int8 serving, eval, the exported artifact and visualize (main
         # path 7), on the serving phase's requests and val split
@@ -3784,6 +4326,11 @@ def main() -> None:
                         for name, us in t10m["step_kernels" + t]))
 
     f32, steps = trained["auto"]["float32"]["launches"], TRAIN_STEPS["float32"]
+    # phase 13: launches a step on each SP rank (the same on every mesh),
+    # and the kernels' times at the 2x2 mesh's rank (0, 1)
+    sp_launch = sp_launches("pallas")
+    sp_key = {"ctx_mix_fwd_res": "k1fr", "ctx_mix_bwd_res": "k1br",
+              "diag_epilogue": "k4f", "diag_epilogue_bwd": "k4b"}
     fused = trained["pallas"]["float32"]["launches"]
     rec = trained["recompute"]["launches"]
     k3_replaces = ("nafae_tpu/ops/pallas/fused_ground.py:82, "   # _fwd_kernel
@@ -3835,7 +4382,14 @@ def main() -> None:
             plain_ms_bf16=tt["plain_" + pkey + "_ms_bf16"],
             bound_ms_bf16=tt[key + "_bound_ms_bf16"],
             bound_by_bf16=tt[key + "_bound_by_bf16"],
-            shapes=tt["shapes"], path=path)
+            shapes=tt["shapes"], path=path,
+            **({"launches_per_step_sp": sp_launch[name],
+                "ms_sp": sp_k[sp_key[name] + "_ms"],
+                "plain_ms_sp": sp_k[sp_key[name] + "_plain_ms"],
+                "bound_ms_sp": sp_k[sp_key[name] + "_bound_ms"],
+                "bound_by_sp": sp_k[sp_key[name] + "_bound_by"],
+                "shapes_sp": sp_k["shapes_2x2_w3"]} if name in sp_key
+               else {}))
           for name, src, rep, launches, n, key, pkey, path in (
               ("ctx_mix_fwd_res", "nafae_torch/csrc/ctx_mix.cu",
                "nafae_tpu/ops/pallas/fused_ctx.py:177",   # _fwd_kernel_res
@@ -3871,7 +4425,14 @@ def main() -> None:
                 for d in ("", "_bf16")}),
             floor_ms=tf[key + "_floor_ms"],
             floor_ms_bf16=tf[key + "_floor_ms_bf16"],
-            shapes=tf["shapes"], path="training f32, kernels=pallas")
+            shapes=tf["shapes"], path="training f32, kernels=pallas",
+            launches_per_step_sp=sp_launch[name],
+            **({"ms_sp": sp_k[sp_key[name] + "_ms"],
+                "plain_ms_sp": sp_k[sp_key[name] + "_plain_ms"],
+                "bound_ms_sp": sp_k[sp_key[name] + "_bound_ms"],
+                "bound_by_sp": sp_k[sp_key[name] + "_bound_by"],
+                "shapes_sp": sp_k["shapes_2x2_w3"]} if name in sp_key
+               else {}))
           for name, src, rep, key, err in (
               ("cross_mil", "cross_mil.cu", k3_replaces, "cross_mil", xerrs),
               ("diag_epilogue", "diag_epilogue.cu",
@@ -3976,6 +4537,11 @@ def main() -> None:
                        for r, d in dp.items()},
                "times": dp_t, "cli": clis,
                "config5": dp_c5, "phase_s": t12},
+        "sp": {**sp, "kernels": {k: v for k, v in sp_k.items()
+                                 if not k.startswith(("k1_errs", "k4_errs"))},
+               "kernel_errs": {k: v for k, v in sp_k.items()
+                               if k.startswith(("k1_errs", "k4_errs"))},
+               "phase_s": t13},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)

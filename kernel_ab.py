@@ -32,13 +32,16 @@ clear of ties), then timed with CUDA graphs (chip_smoke.device_ms) in the
 order others, tree, tree, others reversed. Then one f32 serving batch is
 timed host to host (numpy in, numpy out) with each version's K1f swapped
 into the server, beside the batch's copy to the card alone, in
-interleaved rounds (serving_host_ab). Prints one JSON object as its last
-line and writes it to build/kernel_ab.json.
+interleaved rounds (serving_host_ab). Also records each version's
+registers, stack and spills of ctx_mix_bwd.cu's kernels (ptxas -v).
+Prints one JSON object as its last line and writes it to
+build/kernel_ab.json.
 """
 
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -55,9 +58,24 @@ SOURCES = ("ctx_mix", "ctx_mix_bwd", "nms", "diag_epilogue",
            "diag_epilogue_bwd")
 
 
-def build(dirs: list[Path]) -> dict[str, dict]:
+def ptxas_usage(log: str) -> dict[str, str]:
+    """{kernel (mangled name): its registers, stack frame, spills and
+    shared memory} from the log of an nvcc run with -Xptxas -v."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '(\w+)'", ln)
+        if m:
+            name = m.group(1)
+            out[name] = ""
+        elif name and ("registers" in ln or "spill" in ln):
+            out[name] = (out[name] + " " + ln.split(" : ")[-1].strip()).strip()
+    return out
+
+
+def build(dirs: list[Path]) -> tuple[dict[str, dict], dict[str, dict]]:
     """nvcc of each DIR's SOURCES into build/kernel_ab/, all at once;
-    {DIR name: {source name: loaded library}}."""
+    ({DIR name: {source name: loaded library}}, {DIR name: ptxas_usage of
+    its ctx_mix_bwd.cu})."""
     from nafae_torch.ops.kernels import _build
 
     procs = {}
@@ -70,12 +88,15 @@ def build(dirs: list[Path]) -> dict[str, dict]:
                  str(out / f"lib{n}.so"), str(d / f"{n}.cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {d.name: {} for d in dirs}
+    usage = {}
     for (d, n), (so, p) in procs.items():
         log, _ = p.communicate()
         if p.returncode:
             CS.fail(f"nvcc failed on {d}/{n}.cu:\n{log}")
         libs[d][n] = ctypes.CDLL(str(so))
-    return libs
+        if n == "ctx_mix_bwd":
+            usage[d] = ptxas_usage(log)
+    return libs, usage
 
 
 def bind(torch, libs: dict):
@@ -391,8 +412,11 @@ def main() -> None:
     dirs = [Path(d) for d in sys.argv[1:]]
     CS.log(f"card: {CS.card_line()}")
     _build.build_all(CS.SOURCES)
-    others = {name: bind(torch, libs) for name, libs in build(dirs).items()}
-    res = {"card": CS.card_line()}
+    libs, usage = build(dirs)
+    others = {name: bind(torch, lib) for name, lib in libs.items()}
+    usage["tree"] = ptxas_usage(_build.build_log("ctx_mix_bwd"))
+    res = {"card": CS.card_line(), "ctx_mix_bwd_ptxas": usage}
+    CS.log(f"ctx_mix_bwd ptxas: {usage}")
     with tempfile.TemporaryDirectory() as tmp:
         segs, _ = CS.make_requests(tmp)
         srv = GroundingServer(load_config(preset_name="config4"),

@@ -4,10 +4,10 @@ The PyTorch port's own copy of `nafae_tpu/config.py`: the same dataclasses,
 keys, defaults, presets, overrides and validation, so that one preset or
 config file loads the same model in both packages. The port imports nothing
 of the JAX package, so keep the two in step by hand. Keys whose feature the
-port does not run (frame parallelism, `mesh.frame_axis > 1`; TPU compiler
-knobs) are kept so that config files stay interchangeable; `docs/`
-describes what they do in the JAX package. `mesh.*` takes effect under the
-CLIs' `--mesh` (`parallel.make_mesh`), as in the reference.
+port does not run (TPU compiler knobs) are kept so that config files
+stay interchangeable; `docs/` describes what they do in the JAX package.
+`mesh.*` takes effect under the CLIs' `--mesh` and the train CLI's
+`--multihost` (`parallel.make_mesh`), as in the reference.
 """
 
 from __future__ import annotations
@@ -268,6 +268,11 @@ def validate(cfg: Config) -> Config:
             "loss.kmeans_source='bank' with multiple data.frame_buckets "
             "requires mesh.frame_axis=1 (the frame-sharded bank slot "
             "cannot pad smaller buckets consistently across SP shards)")
+    if cfg.mesh.frame_axis > 1 and cfg.data.max_frames % cfg.mesh.frame_axis:
+        raise ValueError(
+            f"data.max_frames={cfg.data.max_frames} is not a multiple of "
+            f"mesh.frame_axis={cfg.mesh.frame_axis}: each frame shard holds "
+            "T / frame_axis frames")
     if cfg.detector.roi_impl not in ("separable", "combined", "pallas"):
         raise ValueError(
             f"unknown detector.roi_impl {cfg.detector.roi_impl!r}; "

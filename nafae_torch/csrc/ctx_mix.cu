@@ -7,7 +7,9 @@
 // port's plain version, nafae_torch/ops/kernels/ctx_mix.py::context_mix_plain:
 //
 //   for every video b, centre frame t, offset o in {-w..-1, 1..w}:
-//     nv_o      = fm[t+o] * fm[t]                        (halo frames: fm=0)
+//     nv_o      = fm[t+o] * fm[t]   (halo frames: zero padding on one
+//                 device, fm = 0; a neighbouring shard's frames under frame
+//                 parallelism, valid or not as their own masks say)
 //     S[r, s]   = v[t, r] . v[t+o, s] / temp,  -1e9 where rm[t+o, s] <= 0
 //     alpha     = softmax_s(S) * nv_o                    (row max subtracted;
 //                 an all-masked row gives the uniform 1/R over its R regions)
@@ -23,12 +25,15 @@
 // frames); K1f passes a scratch of the same shape (3.1 MB at config4 in
 // f32, written once and read back from L2).
 //
-//   pairs  one block per (centre frame t, offset o = 1..w, video b) stages
-//          v[t] and v[t+o] by cp.async and computes their R x R products
-//          once for both directions of the pair (f32: CUDA cores, groups of
-//          8 lanes on 4 x 4 tiles; bf16: mma.sync m16n8k16 with R padded to
-//          32): alpha of (t, +o) is the masked softmax of its rows, alpha of
-//          (t+o, -o) that of its columns. 960 independent blocks at config4.
+//   pairs  one block per (frame t = -w..T-1, offset o = 1..w, video b)
+//          stages v[t] and v[t+o] by cp.async and computes their R x R
+//          products once for both directions of the pair (f32: CUDA cores,
+//          groups of 8 lanes on 4 x 4 tiles; bf16: mma.sync m16n8k16 with R
+//          padded to 32): alpha of (t, +o), when t is a centre frame, is
+//          the masked softmax of its rows, alpha of (t+o, -o), when t+o is
+//          one, that of its columns. The w left halo frames start blocks
+//          too, so that a centre frame's pair with a valid left halo frame
+//          is computed. 1,104 independent blocks at config4.
 //   mix    one block per (centre frame t, video b) walks t's valid offsets
 //          in order; each step's neighbour frame (cp.async) and alpha
 //          (through registers) land in a ring of three shared-memory slots
@@ -108,13 +113,15 @@ size_t pairs_smem(int R, int E) {
   return 2 * (size_t)pairs_frame_bytes<Tin>(R, E) + (2 * 32 * 32 + 64) * 4;
 }
 
-// Pairs: block (centre t, offset o = 1 + blockIdx.y, video b) takes frames
-// c = t + w and n = c + o. Their products G[r][s] = v_c[r] . v_n[s] serve
-// both directions: alpha of (t, +o), the softmax of G's rows over s, and
-// alpha of (t + o, -o), the softmax of its columns over r (the same dots:
+// Pairs: block (frame t = blockIdx.x - w, offset o = 1 + blockIdx.y, video
+// b) takes extended frames c = t + w and n = c + o. Their products G[r][s]
+// = v_c[r] . v_n[s] serve both directions: alpha of (t, +o), the softmax of
+// G's rows over s, when t >= 0 is a centre frame, and alpha of (t + o, -o),
+// the softmax of its columns over r, when t + o < T is one (the same dots:
 // fmaf is symmetric in its factors, so the f32 scores are those a block of
-// (t + o, -o) would sum). The block also zeroes alpha of (t, -o) when t - o
-// is a halo frame, so that every slot of alpha is written.
+// (t + o, -o) would sum). Every slot of alpha is written by exactly one
+// block: (t, +o) by block t, (t, -o) by block t - o, a left halo frame's
+// when t - o < 0.
 template <typename Tin>
 __global__ void __launch_bounds__(kPairThreads)
 ctx_mix_fwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
@@ -137,7 +144,7 @@ ctx_mix_fwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   float* live_c = live_n + 32;
 
   let_mix_launch();
-  const int t = blockIdx.x;
+  const int t = (int)blockIdx.x - w;             // < 0: a left halo frame
   const int o = 1 + blockIdx.y;
   const int b = blockIdx.z;
   const int t_ext = T + 2 * w;
@@ -146,19 +153,18 @@ ctx_mix_fwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   const size_t frame = (size_t)R * E;
   const int rr = R * R;
   const size_t pairs_t = 2 * (size_t)w * rr;     // alpha of one centre frame
-  Tin* a_fw = alpha + ((size_t)b * T + t) * pairs_t + (size_t)(o + w - 1) * rr;
-  Tin* a_bw = t + o < T
+  Tin* a_fw = t >= 0
+      ? alpha + ((size_t)b * T + t) * pairs_t + (size_t)(o + w - 1) * rr
+      : nullptr;
+  Tin* a_bw = t + o >= 0 && t + o < T
       ? alpha + ((size_t)b * T + t + o) * pairs_t + (size_t)(w - o) * rr
       : nullptr;
-  if (t - o < 0) {                               // (t, -o) reaches a halo frame
-    Tin* a_h = alpha + ((size_t)b * T + t) * pairs_t + (size_t)(w - o) * rr;
-    for (int i = threadIdx.x; i < rr; i += blockDim.x) store_as(a_h + i, 0.f);
-  }
+  if (a_fw == nullptr && a_bw == nullptr) return;  // two halo frames
   const float* fm = fm_ext + (size_t)b * t_ext;
   const float nv = fm[n] * fm[c];                // the same both ways
   if (nv == 0.f) {                               // dead pair: alpha is zero
     for (int i = threadIdx.x; i < rr; i += blockDim.x) {
-      store_as(a_fw + i, 0.f);
+      if (a_fw) store_as(a_fw + i, 0.f);
       if (a_bw) store_as(a_bw + i, 0.f);
     }
     return;
@@ -188,9 +194,10 @@ ctx_mix_fwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
     pair_products<false>(C, C, N, R, E, ld, score);
   __syncthreads();
   // the values the mix multiplies by, in v's dtype
-  row_softmax(S, 32, R, [&](int r, int s, float p) {
-    store_as(a_fw + r * R + s, p * nv);
-  });
+  if (a_fw)
+    row_softmax(S, 32, R, [&](int r, int s, float p) {
+      store_as(a_fw + r * R + s, p * nv);
+    });
   if (a_bw)
     row_softmax(S2, 32, R, [&](int s, int r, float p) {
       store_as(a_bw + s * R + r, p * nv);
@@ -575,7 +582,7 @@ int run(const void* v_ext, const float* fm_ext, const float* rm_ext,
         cudaStream_t stream) {
   const size_t smem = pairs_smem<Tin>(R, E);
   const int err = launch_dyn(
-      ctx_mix_fwd_pairs<Tin>, dim3(T, w, B), kPairThreads, smem, stream,
+      ctx_mix_fwd_pairs<Tin>, dim3(T + w, w, B), kPairThreads, smem, stream,
       false, static_cast<const Tin*>(v_ext), fm_ext, rm_ext,
       static_cast<Tin*>(alpha), T, R, E, w, temp);
   if (err != 0) return err;

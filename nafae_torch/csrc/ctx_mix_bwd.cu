@@ -33,7 +33,15 @@
 //          sums dv[f]'s slice over its valid neighbours g = f +- 1..w. Both
 //          terms that multiply v[g] (ds of pair (g, f-g), transposed, and
 //          ds of pair (f, g-f)) are added into one R x R matrix before the
-//          product, so a pair costs 2 R^2 columns of FMAs instead of 3.
+//          product, so a pair costs 2 R^2 columns of FMAs instead of 3. A
+//          pair exists only where its first frame is a centre frame: a
+//          valid halo frame (a neighbouring shard's, under frame
+//          parallelism) gathers from the centre frames within w of it the
+//          terms of their pairs, and a centre frame from a valid halo
+//          neighbour only the term of its own pair; the missing terms are
+//          zeros. A block decides once whether any of its pairs is missing
+//          and checks each pair only then: on one device no halo frame is
+//          valid, and no block checks.
 //          The slices of du[g] and v[g] and the pair matrices stream
 //          through a cp.async double buffer, a neighbour ahead of the sums;
 //          each thread keeps 4 columns of a quarter of the rows in
@@ -257,23 +265,35 @@ ctx_mix_bwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   }
 }
 
-// The valid neighbours g of extended frame f, in order (block-uniform);
-// none if f is a halo frame or not valid. Returns their number.
+// Whether extended frame f is a centre frame (not a halo frame).
+__device__ __forceinline__ bool is_centre(int f, int T, int w) {
+  return f >= w && f < w + T;
+}
+
+// The valid neighbours g of extended frame f, in order (block-uniform): the
+// valid frames within w of f that share a pair with it, so at least one of
+// the two is a centre frame; none if f is not valid. Returns their number.
+// Without kHalo (touches_halo is false) only centre frames have any.
+template <bool kHalo>
 __device__ __forceinline__ int neighbours(int (&src)[32], const float* fm,
                                           int f, int T, int w) {
   int n = 0;
-  if (f >= w && f < w + T && fm[f] != 0.f)
+  const bool fc = is_centre(f, T, w);
+  if ((kHalo || fc) && fm[f] != 0.f)
     for (int d = -w; d <= w; ++d) {
       const int g = f + d;
-      if (d != 0 && g >= w && g < w + T && fm[g] != 0.f && n < 32)
-        src[n++] = g;
+      const bool pair = kHalo ? g >= 0 && g < T + 2 * w &&
+                                    (fc || is_centre(g, T, w))
+                              : is_centre(g, T, w);
+      if (d != 0 && pair && fm[g] != 0.f && n < 32) src[n++] = g;
     }
   return n;
 }
 
 // The pair matrices that join f and its neighbour g, as stored in the
 // scratch (rows of RS = R rounded up to 8): (g, f - g), whose neighbour is
-// f, and (f, g - f), whose neighbour is g.
+// f, and (f, g - f), whose neighbour is g. Each is meaningful only when its
+// first frame is a centre frame.
 __device__ __forceinline__ void pair_offsets(size_t& p_gf, size_t& p_fg,
                                              int b, int f, int g, int T,
                                              int R, int RS, int w) {
@@ -283,35 +303,40 @@ __device__ __forceinline__ void pair_offsets(size_t& p_gf, size_t& p_fg,
   p_fg = (((size_t)b * T + f - w) * 2 * w + i_fg) * R * RS;
 }
 
+// Whether a pair of extended frame f's is missing, so that its terms are
+// zeros: f is valid and so is a halo frame within w of it, or f itself.
+// Block-uniform: each gather decides it once and runs its sums without the
+// per-pair checks when it is false, as every block does on one device,
+// where the halo frames are not valid.
+__device__ __forceinline__ bool touches_halo(const float* fm, int f, int T,
+                                             int w) {
+  if ((f >= 2 * w && f < T) || fm[f] == 0.f) return false;
+  for (int g = max(f - w, 0); g <= min(f + w, T + 2 * w - 1); ++g)
+    if (!is_centre(g, T, w) && fm[g] != 0.f) return true;
+  return false;
+}
+
+constexpr int kGatherLd = kSlice + 4;       // the f32 gather's slice rows
+
 // f32: dv[f] for columns [64 y, 64 y + 64) from the valid neighbours of f.
 // du[g]'s and v[g]'s slices arrive by cp.async a neighbour ahead; the pair
 // matrices of the next neighbour are loaded into registers while this one
 // is summed, and stored to shared memory after it. ds of pair (f, g - f) is
 // read from its transposed copy, so that every matrix load is coalesced.
-template <int RB>
-__global__ void __launch_bounds__(kGatherThreads)
-ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
-                   const float* __restrict__ fm_ext,  // [B, T+2w]
-                   const float* __restrict__ alpha,   // [B, T, 2w, R, RB]
-                   const float* __restrict__ ds,      // [B, T, 2w, R, RB]
-                   const float* __restrict__ dst,     // ds^T, as ds
-                   const float* __restrict__ du,      // [B, T, R, E]
-                   float* __restrict__ dv,            // [B, T+2w, R, E]
-                   int T, int R, int E, int w) {
-  constexpr int kLd = kSlice + 4;
+// kHalo: check each pair for a halo frame (touches_halo).
+template <int RB, bool kHalo>
+__device__ __forceinline__ void gather_sums(
+    const float* __restrict__ v_ext, const float* __restrict__ fm,
+    const float* __restrict__ alpha, const float* __restrict__ ds,
+    const float* __restrict__ dst, const float* __restrict__ du,
+    float* __restrict__ dv, int f, int b, int col0, int T, int R, int E,
+    int w, float (*dus)[RB * kGatherLd],
+    float (*vs)[RB * kGatherLd], float* A, float* D) {
+  constexpr int kLd = kGatherLd;
   constexpr int RPT = RB / 4;                     // rows per thread
   constexpr int kPer = RB * RB / kGatherThreads;  // matrix entries a thread
-  __shared__ __align__(16) float dus[2][RB * kLd];      // du[g] slice, raw
-  __shared__ __align__(16) float vs[2][RB * kLd];       // v[g] slice
-  __shared__ __align__(16) float A[RB * RB];    // alpha of pair (g, f-g)
-  __shared__ __align__(16) float D[RB * RB];    // the v[g] matrix, [b][a]
-
-  const int f = blockIdx.x;
-  const int col0 = blockIdx.y * kSlice;
-  const int b = blockIdx.z;
   const int t_ext = T + 2 * w;
   const size_t frame = (size_t)R * E;
-  const float* fm = fm_ext + (size_t)b * t_ext;
   const int cg = threadIdx.x & 15;
   const int rg = threadIdx.x >> 4;
   const int col = col0 + 4 * cg;
@@ -322,11 +347,14 @@ ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
     acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 
   int src[32];
-  const int n_src = neighbours(src, fm, f, T, w);
+  const int n_src = neighbours<kHalo>(src, fm, f, T, w);
+  const bool fc = !kHalo || is_centre(f, T, w);
   auto fetch = [&](int k) {                      // the slices, asynchronously
     const int g = src[k];
-    stage_tile_async<4>(dus[k & 1], du + ((size_t)b * T + g - w) * frame,
-                        R, R, E, col0, kSlice, kLd);
+    const bool gc = !kHalo || is_centre(g, T, w);  // else du[g] is zeros
+    stage_tile_async<4>(dus[k & 1],
+                        gc ? du + ((size_t)b * T + g - w) * frame : du, R,
+                        gc ? R : 0, E, col0, kSlice, kLd);
     stage_tile_async<4>(vs[k & 1], v_ext + ((size_t)b * t_ext + g) * frame,
                         R, R, E, col0, kSlice, kLd);
     cp_async_commit();
@@ -338,15 +366,16 @@ ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
   auto load_mats = [&](int k) {
     size_t p_gf, p_fg;
     pair_offsets(p_gf, p_fg, b, f, src[k], T, R, RB, w);
+    const bool gc = !kHalo || is_centre(src[k], T, w);  // (g, f - g) exists
 #pragma unroll
     for (int e = 0; e < kPer; ++e) {
       const int i = threadIdx.x + kGatherThreads * e;
       const int r = i / RB;
       const int a = i - r * RB;
       const bool ok = r < R;
-      m_a[e] = ok ? alpha[p_gf + i] : 0.f;
-      m_g[e] = ok ? ds[p_gf + i] : 0.f;
-      m_f[e] = ok && a < R ? dst[p_fg + i] : 0.f;
+      m_a[e] = ok && gc ? alpha[p_gf + i] : 0.f;
+      m_g[e] = ok && gc ? ds[p_gf + i] : 0.f;
+      m_f[e] = ok && fc && a < R ? dst[p_fg + i] : 0.f;
     }
   };
   auto store_mats = [&]() {
@@ -367,7 +396,8 @@ ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
     const int g = src[k];
     if (k + 1 < n_src) fetch(k + 1);
     float cnt = 0.f;                             // scale of centre frame g
-    for (int q = 0; q < 2 * w; ++q) cnt += fm[g + offset_of(q, w)];
+    if (!kHalo || is_centre(g, T, w))
+      for (int q = 0; q < 2 * w; ++q) cnt += fm[g + offset_of(q, w)];
     const float scale = 1.f / fmaxf(cnt, 1.f);
     if (k + 1 < n_src) cp_async_wait(1); else cp_async_wait(0);
     __syncthreads();
@@ -416,6 +446,32 @@ ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
   }
 }
 
+template <int RB>
+__global__ void __launch_bounds__(kGatherThreads)
+ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
+                   const float* __restrict__ fm_ext,  // [B, T+2w]
+                   const float* __restrict__ alpha,   // [B, T, 2w, R, RB]
+                   const float* __restrict__ ds,      // [B, T, 2w, R, RB]
+                   const float* __restrict__ dst,     // ds^T, as ds
+                   const float* __restrict__ du,      // [B, T, R, E]
+                   float* __restrict__ dv,            // [B, T+2w, R, E]
+                   int T, int R, int E, int w) {
+  __shared__ __align__(16) float dus[2][RB * kGatherLd];  // du[g] slice, raw
+  __shared__ __align__(16) float vs[2][RB * kGatherLd];   // v[g] slice
+  __shared__ __align__(16) float A[RB * RB];    // alpha of pair (g, f-g)
+  __shared__ __align__(16) float D[RB * RB];    // the v[g] matrix, [b][a]
+
+  const int f = blockIdx.x;
+  const int b = blockIdx.z;
+  const float* fm = fm_ext + (size_t)b * (T + 2 * w);
+  if (touches_halo(fm, f, T, w))
+    gather_sums<RB, true>(v_ext, fm, alpha, ds, dst, du, dv, f, b,
+                          blockIdx.y * kSlice, T, R, E, w, dus, vs, A, D);
+  else
+    gather_sums<RB, false>(v_ext, fm, alpha, ds, dst, du, dv, f, b,
+                           blockIdx.y * kSlice, T, R, E, w, dus, vs, A, D);
+}
+
 // bf16 (tensor cores): dv[f] for columns [64 y, 64 y + 64) as one product a
 // neighbour: [alpha_gf^T | ds_gf^T | ds_fg] (32 x 96, R padded to 32 with
 // zeros) times [du_n[g]; v[g]; v[g]] (96 x 64), mma.sync m16n8k16 with f32
@@ -423,50 +479,45 @@ ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
 // row-major slices through ldmatrix.trans. du_n[g] is the pairs kernel's.
 // The slices and matrices of a neighbour arrive by cp.async one neighbour
 // ahead; ds_fg lands where the MMA reads it, the two transposed matrices
-// are built from their copies.
-__global__ void __launch_bounds__(128)
-ctx_mix_bwd_gather_mma(const __nv_bfloat16* __restrict__ v_ext,
-                       const float* __restrict__ fm_ext,
-                       const __nv_bfloat16* __restrict__ alpha,  // padded
-                       const __nv_bfloat16* __restrict__ ds,     // padded
-                       const __nv_bfloat16* __restrict__ dun,    // [B,T,R,E]
-                       float* __restrict__ dv, int T, int R, int E, int w) {
-  __shared__ __align__(16) __nv_bfloat16 xs[2][32 * kMmaLd];  // du_n[g]
-  __shared__ __align__(16) __nv_bfloat16 ys[2][32 * kMmaLd];  // v[g]
-  __shared__ __align__(16) __nv_bfloat16 raw[2][2][32 * 32];  // alpha, ds_gf
-  __shared__ __align__(16) __nv_bfloat16 fg[2][32 * kMatLd];  // ds_fg [a][b]
-  __shared__ __align__(16) __nv_bfloat16 am[2][32 * kMatLd];  // their ^T
-
-  const int f = blockIdx.x;
-  const int col0 = blockIdx.y * kSlice;
-  const int b = blockIdx.z;
+// are built from their copies. kHalo: as gather_sums'.
+template <bool kHalo>
+__device__ __forceinline__ void gather_mma_sums(
+    const __nv_bfloat16* __restrict__ v_ext, const float* __restrict__ fm,
+    const __nv_bfloat16* __restrict__ alpha,
+    const __nv_bfloat16* __restrict__ ds,
+    const __nv_bfloat16* __restrict__ dun, float* __restrict__ dv, int f,
+    int b, int col0, int T, int R, int E, int w,
+    __nv_bfloat16 (*xs)[32 * kMmaLd],
+    __nv_bfloat16 (*ys)[32 * kMmaLd], __nv_bfloat16 (*raw)[2][32 * 32],
+    __nv_bfloat16 (*fg)[32 * kMatLd], __nv_bfloat16 (*am)[32 * kMatLd]) {
   const int t_ext = T + 2 * w;
   const int RS = (R + 7) & ~7;                   // the scratch's row length
   const size_t frame = (size_t)R * E;
-  const float* fm = fm_ext + (size_t)b * t_ext;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g4 = lane >> 2, tig = lane & 3;
   const int mt = R > 16 ? 2 : 1;                 // m16 tiles of rows a
   const int ks = R > 16 ? 2 : 1;                 // k16 steps of rows b
 
-  // rows and columns past R stay zero in the transposed matrices
-  for (int i = threadIdx.x; i < 2 * 32 * kMatLd; i += blockDim.x)
-    (&am[0][0])[i] = __float2bfloat16_rn(0.f);
-
   int src[32];
-  const int n_src = neighbours(src, fm, f, T, w);
-  auto fetch = [&](int k) {
+  const int n_src = neighbours<kHalo>(src, fm, f, T, w);
+  const bool fc = !kHalo || is_centre(f, T, w);
+  auto fetch = [&](int k) {                      // a missing pair: zeros
     const int g = src[k];
     const int q = k & 1;
-    stage_tile_async<4>(xs[q], dun + ((size_t)b * T + g - w) * frame, 32, R,
-                        E, col0, kSlice, kMmaLd);
+    const bool gc = !kHalo || is_centre(g, T, w);
+    stage_tile_async<4>(xs[q],
+                        gc ? dun + ((size_t)b * T + g - w) * frame : dun, 32,
+                        gc ? R : 0, E, col0, kSlice, kMmaLd);
     stage_tile_async<4>(ys[q], v_ext + ((size_t)b * t_ext + g) * frame, 32,
                         R, E, col0, kSlice, kMmaLd);
     size_t p_gf, p_fg;
     pair_offsets(p_gf, p_fg, b, f, g, T, R, RS, w);
-    stage_tile_async<8>(raw[q][0], alpha + p_gf, R, R, RS, 0, RS, 32);
-    stage_tile_async<8>(raw[q][1], ds + p_gf, R, R, RS, 0, RS, 32);
-    stage_tile_async<8>(fg[q], ds + p_fg, 32, R, RS, 0, 32, kMatLd);
+    stage_tile_async<8>(raw[q][0], gc ? alpha + p_gf : alpha, R, gc ? R : 0,
+                        RS, 0, RS, 32);
+    stage_tile_async<8>(raw[q][1], gc ? ds + p_gf : ds, R, gc ? R : 0, RS, 0,
+                        RS, 32);
+    stage_tile_async<8>(fg[q], fc ? ds + p_fg : ds, 32, fc ? R : 0, RS, 0, 32,
+                        kMatLd);
     cp_async_commit();
   };
   if (n_src > 0) fetch(0);
@@ -526,6 +577,36 @@ ctx_mix_bwd_gather_mma(const __nv_bfloat16* __restrict__ v_ext,
           *reinterpret_cast<float2*>(dvb + (size_t)row * E + col) =
               make_float2(acc[mi][ni][2 * h], acc[mi][ni][2 * h + 1]);
       }
+}
+
+__global__ void __launch_bounds__(128)
+ctx_mix_bwd_gather_mma(const __nv_bfloat16* __restrict__ v_ext,
+                       const float* __restrict__ fm_ext,
+                       const __nv_bfloat16* __restrict__ alpha,  // padded
+                       const __nv_bfloat16* __restrict__ ds,     // padded
+                       const __nv_bfloat16* __restrict__ dun,    // [B,T,R,E]
+                       float* __restrict__ dv, int T, int R, int E, int w) {
+  __shared__ __align__(16) __nv_bfloat16 xs[2][32 * kMmaLd];  // du_n[g]
+  __shared__ __align__(16) __nv_bfloat16 ys[2][32 * kMmaLd];  // v[g]
+  __shared__ __align__(16) __nv_bfloat16 raw[2][2][32 * 32];  // alpha, ds_gf
+  __shared__ __align__(16) __nv_bfloat16 fg[2][32 * kMatLd];  // ds_fg [a][b]
+  __shared__ __align__(16) __nv_bfloat16 am[2][32 * kMatLd];  // their ^T
+
+  const int f = blockIdx.x;
+  const int b = blockIdx.z;
+  const float* fm = fm_ext + (size_t)b * (T + 2 * w);
+  // rows and columns past R stay zero in the transposed matrices
+  for (int i = threadIdx.x; i < 2 * 32 * kMatLd; i += blockDim.x)
+    (&am[0][0])[i] = __float2bfloat16_rn(0.f);
+
+  if (touches_halo(fm, f, T, w))
+    gather_mma_sums<true>(v_ext, fm, alpha, ds, dun, dv, f, b,
+                          blockIdx.y * kSlice, T, R, E, w, xs, ys, raw, fg,
+                          am);
+  else
+    gather_mma_sums<false>(v_ext, fm, alpha, ds, dun, dv, f, b,
+                           blockIdx.y * kSlice, T, R, E, w, xs, ys, raw, fg,
+                           am);
 }
 
 template <int RB>

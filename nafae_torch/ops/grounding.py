@@ -347,9 +347,19 @@ def video_scores(a: torch.Tensor, word_mask: torch.Tensor,
 
 
 def extend_for_window(v_emb: torch.Tensor, frame_mask: torch.Tensor,
-                      region_mask: torch.Tensor | None, window: int):
-    """(v_ext, fm_ext, rm_ext) extended by `window` zero halo frames on each
-    side (single device; halo frames are invalid, fm_ext = 0)."""
+                      region_mask: torch.Tensor | None, window: int,
+                      frame_group=None):
+    """(v_ext, fm_ext, rm_ext) extended by `window` frames on each side:
+    zero halo frames on a single device (invalid, fm_ext = 0), the
+    neighbouring shards' frames through `parallel.sp.halo_exchange` under
+    frame parallelism (`frame_group`, the mesh's frame axis), where the
+    edge shards receive zeros, so that the two are mask-identical."""
+    if frame_group is not None:
+        from nafae_torch.parallel.sp import halo_exchange
+        return (halo_exchange(v_emb, window, frame_group),
+                halo_exchange(frame_mask, window, frame_group),
+                halo_exchange(region_mask, window, frame_group)
+                if region_mask is not None else None)
     w = window
     return (F.pad(v_emb, (0, 0, 0, 0, w, w)),
             F.pad(frame_mask, (w, w)),

@@ -2,10 +2,10 @@
 
 The port of `nafae_tpu/ops/kmeans.py`: cosine assignment, one-hot segment
 sums and the empty-cluster rule on the training device, and k-means++
-seeding (`loss.kmeans_init="plusplus"`). Under data parallelism (a
-process group) the Lloyd step all-reduces its sums and counts, and the
-seeding all-gathers its candidate rows, so that every rank computes the
-single-device result.
+seeding (`loss.kmeans_init="plusplus"`). On a mesh the Lloyd step
+all-reduces its sums and counts over both axes, and the seeding
+all-gathers its candidate rows along the data and the frame dims, so that
+every rank computes the single-device result.
 """
 
 from __future__ import annotations
@@ -55,7 +55,7 @@ def kmeans_lloyd(f: torch.Tensor, valid: torch.Tensor, centers: torch.Tensor,
 
     f [N,E] flattened selected features, valid [N] (0/1), centers [Kc,E].
     ema: blend toward the OLD centers, C ← norm((1−ρ)C_lloyd + ρC_old).
-    group: the data axis's process group; f and valid are then this
+    group: the mesh's group over both axes; f and valid are then this
     rank's rows, and the centers those of every rank's rows."""
     old = l2_normalize(centers)
     new = old
@@ -72,7 +72,9 @@ def bank_write(bank: torch.Tensor, bank_valid: torch.Tensor, step: int,
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write one step's selected features into slot step % W of the
     step-granular ring bank [W, *sel_shape, E] / [W, *sel_shape]; a smaller
-    write (a smaller frame bucket) is zero-padded with valid = 0. Writes
+    write (a smaller frame bucket) is zero-padded with valid = 0. On a
+    mesh the bank is this rank's shard [W, B_loc, T_loc, K, E], written
+    with this rank's selections. Writes
     in place, where the JAX package returns new arrays: a copy of the
     whole ring every step would move its full size (84 MB at config4 with
     32 slots) to change one slot. Returns the two tensors."""
@@ -102,7 +104,7 @@ def kmeans_plusplus_init(f: torch.Tensor, valid: torch.Tensor,
                          num_clusters: int,
                          generator: torch.Generator | None = None,
                          gumbels: torch.Tensor | None = None,
-                         group=None, gather_dim: int = 0,
+                         gathers: tuple = (),
                          max_rows: int = MAX_SEED_ROWS) -> torch.Tensor:
     """k-means++ seeding: each next center drawn in proportion to its
     squared distance from the nearest center so far; returns the centers
@@ -117,19 +119,21 @@ def kmeans_plusplus_init(f: torch.Tensor, valid: torch.Tensor,
     max_rows, dim 0 (the bank's slot ring) is stride-subsampled first, as
     the reference does.
 
-    Mesh form: with `group` (the data axis), f and valid are this rank's
-    shard, unflattened, and are all-gathered along `gather_dim` (0 for a
-    batch's selections [B,T,K,E], 1 for the bank [W,B,T,K,E]) back into
-    the global row order first; every rank then draws the same noise over
-    the global rows, so the centers are the single-device ones, bit for
-    bit on every rank. The cap then counts global rows, and is skipped
-    when dim 0 itself is gathered (as the reference does)."""
-    gathered0 = group is not None and gather_dim == 0
-    if max_rows and f.dim() >= 2 and not gathered0:
+    Mesh form: `gathers` lists (group, dim) pairs, the reference's
+    (axis_names, gather_dims) in its order: the data axis's group along
+    the batch dim (0 for a batch's selections [B,T,K,E], 1 for the bank
+    [W,B,T,K,E]), then the frame axis's along the frame dim (1, or 2 for
+    the bank). f and valid are this rank's shard, unflattened, and are
+    all-gathered back into the global row order first; every rank then
+    draws the same noise over the global rows, so the centers are the
+    single-device ones, bit for bit on every rank. The cap then counts
+    global rows, and is skipped when dim 0 itself is gathered (as the
+    reference does)."""
+    if max_rows and f.dim() >= 2 and all(d != 0 for _, d in gathers):
         rows = 1
         for d in f.shape[:-1]:
             rows *= d
-        if group is not None:
+        for group, _ in gathers:
             rows *= torch.distributed.get_world_size(group)
         if rows > max_rows:
             per_slot = rows // f.shape[0]
@@ -137,10 +141,11 @@ def kmeans_plusplus_init(f: torch.Tensor, valid: torch.Tensor,
             stride = -(-f.shape[0] // keep)
             f = f[::stride]
             valid = valid[::stride]
-    if group is not None:
+    if gathers:
         from nafae_torch.parallel.sharding import all_gather
-        f = all_gather(f, group, dim=gather_dim)
-        valid = all_gather(valid, group, dim=gather_dim)
+        for group, dim in gathers:
+            f = all_gather(f, group, dim=dim)
+            valid = all_gather(valid, group, dim=dim)
     f = f.reshape(-1, f.shape[-1]).float()
     valid = valid.reshape(-1)
     n, e = f.shape

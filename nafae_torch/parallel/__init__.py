@@ -1,7 +1,7 @@
-"""Data parallelism on torch.distributed: the mesh (`mesh.make_mesh`) and
-the collectives of the data-parallel step (`sharding`). Frame
-parallelism and multi-host runs are not ported yet (ROADMAP Queue 1
-item 8)."""
+"""Data and frame parallelism on torch.distributed: the mesh
+(`mesh.make_mesh`), the collectives of the data-parallel step
+(`sharding`), the halo exchange and online frame softmax of frame
+parallelism (`sp`), and runs across hosts (`multihost`)."""
 
 from nafae_torch.parallel.mesh import make_mesh
 

@@ -1,5 +1,5 @@
 """Distributed grounding: the ranking decomposition over the data axis and
-the collectives of the data-parallel step (the port of
+the collectives of the data- and frame-parallel step (the port of
 `nafae_tpu/parallel/sharding.py`).
 
 Each rank holds a row shard of the B×B score matrix: its own videos
@@ -12,15 +12,28 @@ identity
 so both hinge families are computable from row shards and the global
 diagonal.
 
-Every loss of the step is a global sum or mean. `global_sum` gives each
-rank the global value with the gradient of its own share only: each rank
-backpropagates its local numerators over the global denominators, and the
-one all-reduce of the parameter gradients (`train.train_step`) adds the
-shares up. No all-reduce here is differentiable, so nothing is counted
-twice.
+Gradients follow the reference's shard_map transposes. A value that is
+the same on every rank of a group (the loss, the score rows under frame
+parallelism) carries its whole cotangent on every rank, so `global_sum`,
+the sum over a group, hands the cotangent to each rank's share
+unchanged, as JAX transposes psum. A value that varies over ranks
+carries only its own rank's part. Where a varying value is computed from
+an invariant one, the invariant one's cotangent is the sum of the ranks'
+parts: `gather_rows` adds them in its backward (data axis), and the one
+all-reduce of the parameter gradients over both axes
+(`train.train_step`) adds the rest, which is exact as long as nothing
+between that value and the parameters needs its whole cotangent.
+`global_sum`'s backward does need it, so the output of a sum must not
+feed a varying value under autograd: `parallel/sp.py` forms its online
+softmax's quotient after the sums, where both sides are invariant.
 
-`COLLECTIVES` records every collective these functions issue: its op,
-shape, dtype and bytes (this rank's payload).
+On gloo, a CUDA tensor is staged through host memory for every
+collective here and in `parallel/sp.py` (gloo has no CUDA all_gather or
+send/recv); the kernels still run on the card.
+
+`COLLECTIVES` records every collective these functions issue, and every
+send and receive of the halo exchange: its op, shape, dtype and bytes
+(this rank's payload).
 """
 
 from __future__ import annotations
@@ -56,12 +69,34 @@ def shard_rows(x, rank: int, world: int, dim: int = 0):
     return x[(slice(None),) * dim + (slice(rank * n, (rank + 1) * n),)]
 
 
+def staged(t: torch.Tensor, group) -> bool:
+    """Whether a collective of `t` over `group` goes through host memory:
+    a CUDA tensor on a gloo group."""
+    return t.is_cuda and dist.get_backend(group) == "gloo"
+
+
+def _all_reduce(t: torch.Tensor, group, op) -> torch.Tensor:
+    with torch.no_grad():
+        if staged(t, group):
+            host = t.contiguous().cpu()
+            dist.all_reduce(host, op=op, group=group)
+            t.copy_(host)
+        else:
+            dist.all_reduce(t, op=op, group=group)
+    return t
+
+
 def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
     """In-place SUM over the group, outside autograd; returns t."""
     COLLECTIVES.add("all_reduce", t)
-    with torch.no_grad():
-        dist.all_reduce(t, group=group)
-    return t
+    return _all_reduce(t, group, dist.ReduceOp.SUM)
+
+
+def all_reduce_max(t: torch.Tensor, group) -> torch.Tensor:
+    """In-place MAX over the group, outside autograd (the reference's
+    pmax); returns t."""
+    COLLECTIVES.add("all_reduce_max", t)
+    return _all_reduce(t, group, dist.ReduceOp.MAX)
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -69,9 +104,12 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     autograd."""
     COLLECTIVES.add("all_gather", t)
     t = t.detach().contiguous()
+    dev = t.device
+    if staged(t, group):
+        t = t.cpu()
     parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, t, group=group)
-    return torch.cat(parts, dim=dim)
+    return torch.cat(parts, dim=dim).to(dev)
 
 
 class _Gather(torch.autograd.Function):
@@ -97,8 +135,10 @@ def gather_rows(t: torch.Tensor, group) -> torch.Tensor:
 
 
 def global_sum(share: torch.Tensor, group) -> torch.Tensor:
-    """The sum of `share` over the group (a scalar), with the gradient of
-    this rank's share only."""
+    """The sum of `share` over the group, elementwise (the reference's
+    psum), with the gradient of this rank's share only: the sum is the
+    same on every rank, so its cotangent is whole on each, and the
+    transpose hands it to each share unchanged."""
     if group is None:
         return share
     total = all_reduce(share.detach().clone(), group)

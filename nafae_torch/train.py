@@ -34,23 +34,33 @@ from step 0's selections.
 
 Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
 Under a mesh (`parallel.make_mesh`; the CLI's `--mesh`) the step is data
-parallel: every rank reads the same global batches and trains on its row
-shard, the words and the score diagonal are all-gathered, every loss is a
-global sum or mean, and one all-reduce of the parameter gradients gives
-every rank the exact global gradient, so the trajectory is the single
-device's. NCCL on the cards, gloo with `--device cpu`:
+parallel over the mesh's data axis and frame parallel over its frame
+axis (`mesh.frame_axis`): every rank reads the same global batches and
+trains on its rows and, under frame parallelism, its T/F consecutive
+frames (`parallel/multihost.global_batch_spec`). The words and the score
+diagonal are all-gathered over the data axis; the context window takes
+its neighbours' frames through a halo exchange and the frame softmax is an
+online softmax over the frame axis (`parallel/sp.py`); every loss is a
+global sum or mean, and one all-reduce of the parameter gradients over
+both axes gives every rank the exact global gradient, so the trajectory
+is the single device's. NCCL on the cards, gloo with `--device cpu`:
 
     torchrun --nproc_per_node N -m nafae_torch.train --mesh \\
-        --preset config4 --override data.root=... [--device cpu]
+        --preset config4 --override data.root=... [mesh.frame_axis=F] \\
+        [--device cpu]
+
+`--multihost` starts one process group across hosts
+(`parallel/multihost.init_multihost`: torchrun's, SLURM's or Open MPI's
+environment) and meshes over every rank of it; data.batch_size stays the
+global batch.
 
 `train.tensorboard_dir` mirrors the logged scalars into a TensorBoard
 event file; `--profile DIR` writes a torch.profiler trace of the run, and
 `--debug-nans` turns on autograd's anomaly mode and checks every step's
 losses and gradients. Not ported yet, and raising NotImplementedError:
-the device-resident dataset (`train.device_cache`), the grain pipeline,
-frame parallelism (`mesh.frame_axis > 1`) and `--multihost` (ROADMAP
-Queue 1 item 8). The CLI evaluates every `train.eval_every` steps on the
-val split (`evaluate.evaluate_config`), as the reference's does.
+the device-resident dataset (`train.device_cache`) and the grain
+pipeline. The CLI evaluates every `train.eval_every` steps on the val
+split (`evaluate.evaluate_config`), as the reference's does.
 `train.steps_per_call` groups steps into one XLA program in the JAX
 package; PyTorch runs eagerly, so the port ignores it.
 """
@@ -74,6 +84,7 @@ from nafae_torch.ops.kernels.diag import diag_epilogue
 from nafae_torch.ops.kmeans import (bank_write, kmeans_init, kmeans_lloyd,
                                     kmeans_plusplus_init)
 from nafae_torch.parallel import sharding as S
+from nafae_torch.parallel import sp
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8      # optax.adamw's defaults
 SGD_MOMENTUM = 0.9
@@ -238,8 +249,8 @@ def make_optimizer(cfg: Config) -> Optimizer:
 
 def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
                    cfg: Config, kernels: str = "auto", extractor=None,
-                   group=None, row_offset: int = 0
-                   ) -> tuple[torch.Tensor, dict]:
+                   group=None, row_offset: int = 0, frame_group=None,
+                   axes_group=None) -> tuple[torch.Tensor, dict]:
     """Total loss + aux for one batch of tensors on the training device:
     ranking over the in-batch score matrix, then (config 3/4) the context
     loss against the context-mixed teacher ŝ, then (config 4) the cluster
@@ -262,8 +273,16 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     batch's first row): the batch is this rank's row shard. The words and
     the diagonal are all-gathered, so the score matrix is [B_loc, B_glob],
     and every loss is the global one (`parallel.sharding`): its value is
-    the whole batch's on every rank, its gradient this rank's share."""
+    the whole batch's on every rank, its gradient this rank's share.
+    frame_group (the mesh's frame axis, when it has more than one rank):
+    the batch holds this rank's frames; the context mix runs on real
+    halos (`extend_for_window`), the score rows come from
+    `parallel.sp.sp_cross_scores` whatever `kernels` says, as in the
+    reference (so K3 is not launched), and the context and cluster losses
+    are means over axes_group, the group over both axes (default:
+    group)."""
     pallas = kernels == "pallas"
+    axes_group = group if axes_group is None else axes_group
     if extractor is not None and "frames" in batch:
         frames = batch["frames"]
         b_, t_ = frames.shape[:2]
@@ -303,17 +322,24 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     u = nbr_valid = None
     if ctx_on:
         w_ = lc.ctx_window
-        v_ext, fm_ext, rm_ext = G.extend_for_window(v_emb, fm, rm, w_)
+        v_ext, fm_ext, rm_ext = G.extend_for_window(v_emb, fm, rm, w_,
+                                                    frame_group=frame_group)
         u, nbr_valid = G.context_mix(v_ext, fm_ext, w_, lc.ctx_temp,
                                      dtype=cdt, rm_ext=rm_ext)
 
     g_learned = (G.learned_frame_logits(v_emb, fm, rm, params["attn_w"])
                  if mc.frame_pool == "learned" else None)
     gw, gwm = S.gather_words(w_emb, wm, group)
-    rows = G.cross_scores(gw, gwm, v_emb, fm, mc.frame_attn_temp,
-                          mc.frame_pool, ctx_window, lc.ctx_temp,
-                          impl="pallas" if pallas else "jnp", dtype=cdt,
-                          region_mask=rm, u=u, frame_logits=g_learned)
+    if frame_group is not None:
+        rows = sp.sp_cross_scores(gw, gwm, v_emb, fm, mc.frame_attn_temp,
+                                  mc.frame_pool, frame_group, ctx_window,
+                                  lc.ctx_temp, dtype=cdt, region_mask=rm,
+                                  u=u, frame_logits=g_learned)
+    else:
+        rows = G.cross_scores(gw, gwm, v_emb, fm, mc.frame_attn_temp,
+                              mc.frame_pool, ctx_window, lc.ctx_temp,
+                              impl="pallas" if pallas else "jnp", dtype=cdt,
+                              region_mask=rm, u=u, frame_logits=g_learned)
     b_loc, b_glob = rows.shape
     gidx = row_offset + torch.arange(b_loc, device=rows.device)
     is_diag = (torch.arange(b_glob, device=rows.device)[None, :]
@@ -337,7 +363,7 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
                 else torch.full(fm.shape, float(feats.shape[2]),
                                 device=fm.device))
         l_ctx = S.global_mean(torch.sum(wm[:, :, None] * ctx_kt),
-                              torch.sum(m3 * rsum[:, None, :]), group)
+                              torch.sum(m3 * rsum[:, None, :]), axes_group)
         total = total + lc.ctx_weight * l_ctx
         aux["l_ctx"] = l_ctx
         any_region = ((rm.amax(-1) > 0).to(wm.dtype) if rm is not None
@@ -346,7 +372,7 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
         aux["sel_feats"] = f_tk                        # already stop-grad
         aux["sel_valid"] = valid_tk
         l_clu = S.global_mean(torch.sum(clu_kt * valid_tk.permute(0, 2, 1)),
-                              torch.sum(valid_tk), group)
+                              torch.sum(valid_tk), axes_group)
         total = total + lc.cluster_weight * l_clu
         aux["l_clu"] = l_clu
         aux["loss"] = total
@@ -356,7 +382,8 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
         shat = G.mask_regions(G.similarity_tensor(w_emb, u, dtype=cdt), rm)
         if lc.ctx_weight > 0:
             l_ctx = S.global_mean(*L.context_loss_terms(
-                s, shat, wm, fm, nbr_valid, rm, target=lc.ctx_target), group)
+                s, shat, wm, fm, nbr_valid, rm, target=lc.ctx_target),
+                axes_group)
             total = total + lc.ctx_weight * l_ctx
             aux["l_ctx"] = l_ctx
 
@@ -369,7 +396,7 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
     if lc.cluster_weight > 0:
         num, den, _ = L.cluster_loss_terms(f, valid, centers,
                                            assign_dtype=cdt)
-        l_clu = S.global_mean(num, den, group)
+        l_clu = S.global_mean(num, den, axes_group)
         total = total + lc.cluster_weight * l_clu
         aux["l_clu"] = l_clu
     aux["loss"] = total
@@ -398,22 +425,30 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
     train.seed). extractor: the frozen detector of a batch of frames (see
     compute_losses).
 
-    mesh (`parallel.make_mesh`): the batch is this rank's row shard of
-    the global batch (rank r holds rows [r·B_loc, (r+1)·B_loc)) and the
-    bank, if any, its [W, B_loc, ...] shard. Each rank backpropagates its
-    share of the global losses, one all-reduce (SUM) of every parameter
+    mesh (`parallel.make_mesh`): the batch is this rank's part of the
+    global batch (`parallel.multihost.local_batch`: data rank d holds rows
+    [d·B_loc, (d+1)·B_loc) and, under frame parallelism, frame rank f the
+    frames [f·T_loc, (f+1)·T_loc)) and the bank, if any, its [W, B_loc,
+    T_loc, ...] shard. Each rank backpropagates its share of the global
+    losses, one all-reduce (SUM) over both axes of every parameter
     gradient, flattened in sorted key order, makes the global gradient,
-    and every rank applies the same update; the k-means refresh and
-    seeding take the data axis's group. The metrics are the global ones.
+    and every rank applies the same update; the k-means refresh sums over
+    both axes and the seeding gathers along both. The metrics are the
+    global ones.
 
     debug_nans: raise FloatingPointError naming the first loss term that
     is not finite (before the backward) or the first parameter whose
     gradient is not (after the reduction). Each check waits for the
     device."""
     tx = tx or make_optimizer(cfg)
-    group, row_offset = None, 0
+    group = frame_group = axes = None
+    row_offset = 0
     if mesh is not None:
+        from nafae_torch.parallel.mesh import axes_group, frame_size
         group = mesh.get_group(cfg.mesh.data_axis_name)
+        if frame_size(mesh) > 1:
+            frame_group = mesh.get_group(cfg.mesh.frame_axis_name)
+        axes = axes_group(mesh)
         row_offset = (torch.distributed.get_rank(group)
                       * batch["word_ids"].shape[0])
     names = sorted(state.params)
@@ -421,7 +456,7 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
     with torch.enable_grad():
         total, aux = compute_losses(params, state.centers, batch, cfg,
                                     cfg.train.resolved_kernels(), extractor,
-                                    group, row_offset)
+                                    group, row_offset, frame_group, axes)
         if debug_nans:
             _check_finite({k: v for k, v in aux.items()
                            if not k.startswith("sel_")}, "loss term")
@@ -429,9 +464,9 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
                                     allow_unused=True)
     grads = {k: torch.zeros_like(params[k]) if g is None else g
              for k, g in zip(names, grads)}
-    if group is not None:
+    if axes is not None:
         flat = S.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]),
-                            group)
+                            axes)
         grads = {k: g.view(grads[k].shape) for k, g in zip(
             names, flat.split([grads[k].numel() for k in names]))}
     if debug_nans:
@@ -452,16 +487,19 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
                 f_nd, v_nd, bdim = sel_f, sel_v, 0
             f, valid = f_nd.reshape(-1, e), v_nd.reshape(-1)
             if lc.kmeans_init == "plusplus" and state.step == 0:
+                gathers = [(g, d) for g, d in ((group, bdim),
+                                               (frame_group, bdim + 1))
+                           if g is not None]
                 centers = kmeans_plusplus_init(
                     f_nd, v_nd, lc.num_clusters,
                     generator=torch.Generator().manual_seed(cfg.train.seed),
-                    group=group, gather_dim=bdim)
+                    gathers=gathers)
             if state.step % lc.kmeans_interval == 0:
                 dt = COMPUTE_DTYPES[cfg.model.dtype]
                 centers = kmeans_lloyd(
                     f, valid, centers, lc.kmeans_iters, lc.kmeans_ema,
                     assign_dtype=None if dt == torch.float32 else dt,
-                    group=group)
+                    group=axes)
     metrics = {k: v.detach() for k, v in aux.items()}
     metrics["grad_norm"] = global_norm(grads).detach()
     return replace(state, step=state.step + 1, params=new_params,
@@ -514,29 +552,30 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     inline path, `nafae_tpu/train.py` fit). model.word_vectors replaces the
     initial word_emb (before a checkpoint is restored).
 
-    mesh (`parallel.make_mesh`): data parallel on the mesh's device (the
-    `device` argument, if given, must be of its type). Every rank builds
-    the same loader from the same seed and trains on rows [r·B/W,
-    (r+1)·B/W) of each global batch (data.batch_size must divide by the
-    world size W), so the row order and the resume position are the
-    single device's. Only rank 0 logs, calls log_fn and eval_fn and
-    writes checkpoints; a checkpoint holds the single-device layout (the
-    bank's shards gathered), so a run resumes with or without a mesh.
+    mesh (`parallel.make_mesh`): data and frame parallel on the mesh's
+    device (the `device` argument, if given, must be of its type). Every
+    rank builds the same loader from the same seed and trains on its part
+    of each global batch, sliced by `parallel.multihost.global_batch_spec`
+    (data rank d of D: rows [d·B/D, (d+1)·B/D), so data.batch_size must
+    divide by D; frame rank f of F: frames [f·T/F, (f+1)·T/F)), so the
+    row order and the resume position are the single device's. Only rank
+    0 of the world logs, calls log_fn and eval_fn and writes checkpoints;
+    a checkpoint holds the single-device layout (the bank's shards
+    gathered along both axes), so a run resumes with or without a mesh.
     frames_per_sec counts the global batch. The returned state holds this
     rank's bank shard. debug_nans: autograd's anomaly mode for the run,
     and train_step's checks of every step."""
     from nafae_torch.data.loader import BatchLoader
     from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.parallel.multihost import global_batch_spec, local_batch
     from nafae_torch.utils.checkpoint import CheckpointManager
     from nafae_torch.utils.metrics_log import MetricsLogger
 
     _check_supported(cfg)
-    rank, world, group = 0, 1, None
+    lead = True
     if mesh is not None:
-        from nafae_torch.parallel.mesh import mesh_device
-        group = mesh.get_group(cfg.mesh.data_axis_name)
-        rank = torch.distributed.get_rank(group)
-        world = torch.distributed.get_world_size(group)
+        from nafae_torch.parallel.mesh import axes_group, mesh_device
+        world = int(mesh.mesh.shape[0])
         if cfg.data.batch_size % world:
             raise ValueError(
                 f"data.batch_size={cfg.data.batch_size} does not divide "
@@ -546,9 +585,9 @@ def fit(cfg: Config, device: str | torch.device | None = None,
             raise ValueError(f"device {device} is not the mesh's "
                              f"{mesh.device_type}")
         device = mesh_device(mesh)
+        lead = torch.distributed.get_rank() == 0
     else:
         device = resolve_device(device)
-    lead = rank == 0
     if cfg.data.from_videos:
         from nafae_torch.data.video_dataset import VideoSegmentDataset
         from nafae_torch.data.vocab import vocab_from_config
@@ -578,26 +617,26 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     restored = ckpt.restore_latest(state)
     if restored is not None:
         state = restored
-    if state.bank is not None and world > 1:
-        state = replace(
-            state, bank=S.shard_rows(state.bank, rank, world, 1).clone(),
-            bank_valid=S.shard_rows(state.bank_valid, rank, world, 1).clone())
+    if state.bank is not None and mesh is not None:
+        state = replace(state, bank=_bank_shard(state.bank, mesh),
+                        bank_valid=_bank_shard(state.bank_valid, mesh))
     logger = (MetricsLogger(cfg.train.ckpt_dir,
                             tensorboard_dir=cfg.train.tensorboard_dir)
               if lead else None)
     loader = BatchLoader(ds, cfg.data.batch_size, shuffle=True,
                          seed=cfg.train.seed, prefetch=cfg.data.prefetch)
     tx = make_optimizer(cfg)
+    spec = global_batch_spec(cfg, mesh, with_frames=cfg.data.from_videos)
 
     def save(state):
-        if group is not None:
+        if mesh is not None:
             if state.bank is not None:
-                state = replace(
-                    state, bank=S.all_gather(state.bank, group, dim=1),
-                    bank_valid=S.all_gather(state.bank_valid, group, dim=1))
+                state = replace(state, bank=_bank_whole(state.bank, mesh),
+                                bank_valid=_bank_whole(state.bank_valid,
+                                                       mesh))
             if lead:
                 ckpt.save(state)
-            torch.distributed.barrier(group)
+            torch.distributed.barrier(axes_group(mesh))
         else:
             ckpt.save(state)
 
@@ -622,10 +661,10 @@ def fit(cfg: Config, device: str | torch.device | None = None,
                                      skip=skip):
             if applied >= target:
                 break     # e.g. re-running an already-completed checkpoint
-            local = {k: S.shard_rows(v, rank, world)
-                     for k, v in batch.items()}
-            state, metrics = train_step(state, batch_to_device(local, device),
-                                        cfg, tx, extractor, mesh, debug_nans)
+            state, metrics = train_step(
+                state, batch_to_device(local_batch(batch, spec, mesh),
+                                       device), cfg, tx, extractor, mesh,
+                debug_nans)
             applied += 1
             frames_applied += int(np.prod(batch["frame_mask"].shape))
             if due("log", cfg.train.log_every):
@@ -653,6 +692,26 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     return state, metrics
 
 
+def _bank_shard(bank: torch.Tensor, mesh) -> torch.Tensor:
+    """This rank's shard of a whole bank [W, B, T, ...]: its data rank's
+    rows (dim 1) and frame rank's frames (dim 2)."""
+    (d, f), (nd, nf) = mesh.get_coordinate(), mesh.mesh.shape
+    return S.shard_rows(S.shard_rows(bank, d, int(nd), 1), f, int(nf),
+                        2).clone()
+
+
+def _bank_whole(bank: torch.Tensor, mesh) -> torch.Tensor:
+    """The whole bank from every rank's shard: gathered along the data
+    axis (dim 1), then the frame axis (dim 2)."""
+    from nafae_torch.parallel.mesh import frame_size
+
+    names = mesh.mesh_dim_names
+    bank = S.all_gather(bank, mesh.get_group(names[0]), dim=1)
+    if frame_size(mesh) > 1:
+        bank = S.all_gather(bank, mesh.get_group(names[1]), dim=2)
+    return bank
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -665,11 +724,17 @@ def main(argv=None) -> int:
     p.add_argument("--device", default=None,
                    help="cuda (default; raises without a card) or cpu")
     p.add_argument("--mesh", action="store_true",
-                   help="data parallel over the ranks of the job (torchrun "
-                        "--nproc_per_node N): NCCL on the cards, gloo with "
-                        "--device cpu; a world of one without torchrun")
+                   help="data parallel (and frame parallel with "
+                        "mesh.frame_axis > 1) over the ranks of the job "
+                        "(torchrun --nproc_per_node N): NCCL on the cards, "
+                        "gloo with --device cpu; a world of one without "
+                        "torchrun")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 8)")
+                   help="one process group across hosts (torchrun --nnodes "
+                        "N, or a SLURM / Open MPI job exporting MASTER_ADDR"
+                        "/MASTER_PORT), then the mesh over every rank of "
+                        "it; implies --mesh. data.batch_size stays the "
+                        "GLOBAL batch")
     p.add_argument("--debug-nans", action="store_true",
                    help="autograd's anomaly mode, and a check that every "
                         "step's losses and gradients are finite "
@@ -678,13 +743,12 @@ def main(argv=None) -> int:
                    help="write a torch.profiler trace of the whole run "
                         "into DIR (Chrome trace JSON)")
     args = p.parse_args(argv)
-    if args.multihost:
-        raise NotImplementedError(
-            "--multihost is not ported yet (ROADMAP Queue 1 item 8); "
-            "--mesh runs data parallel over one host's ranks")
     cfg = load_config(args.config, args.preset, args.override or [])
     mesh = None
-    if args.mesh:
+    if args.multihost:
+        from nafae_torch.parallel.multihost import init_multihost
+        init_multihost(device=args.device)
+    if args.mesh or args.multihost:
         from nafae_torch.parallel.mesh import make_mesh
         mesh = make_mesh(cfg.mesh.data_axis, cfg.mesh.frame_axis,
                          cfg.mesh.data_axis_name, cfg.mesh.frame_axis_name,

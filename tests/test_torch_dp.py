@@ -22,6 +22,7 @@ collective audit and the refusals.
 import os
 import subprocess
 import sys
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -382,12 +383,39 @@ def test_dp_refusals(world2):
         assert (err["sub_coordinate"] is None) == (rank == 1)
 
 
-def test_frame_axis_and_multihost_raise():
-    from nafae_torch.parallel import make_mesh
-    with pytest.raises(NotImplementedError, match="item 8"):
-        make_mesh(frame_axis=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TT.main(["--multihost", "--device", "cpu"])
+def test_frame_axis_and_multihost_on_a_world_of_one(synth_root, tmp_path,
+                                                   capsys, monkeypatch):
+    """The refusals of frame parallelism and --multihost are gone: on a
+    world of one a frame axis of 2 is refused for its size alone, as the
+    reference's make_mesh refuses it, and `--multihost` with no launch
+    configured warns and trains as one process, exactly as the run
+    without it (frame-parallel runs: tests/test_torch_sp.py; runs across
+    hosts: tests/test_torch_multihost.py)."""
+    from nafae_torch.parallel.mesh import make_mesh, shutdown
+    try:
+        with pytest.raises(ValueError, match="not divisible by "
+                           "frame_axis=2"):
+            make_mesh(frame_axis=2, device="cpu")
+    finally:
+        shutdown()
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT",
+              "SLURM_PROCID", "OMPI_COMM_WORLD_RANK"):
+        monkeypatch.delenv(k, raising=False)
+    outs = {}
+    for flag in ([], ["--multihost"]):
+        ck = tmp_path / ("m" if flag else "p")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            TT.main(["--preset", "config4", "--device", "cpu", *flag,
+                     "--override", *OV, f"data.root={synth_root}",
+                     f"train.ckpt_dir={ck}", "train.steps=2",
+                     "train.log_every=1"])
+        assert any("SINGLE" in str(w.message) for w in caught) == bool(flag)
+        outs[bool(flag)] = [" ".join(w for w in ln.split()
+                                     if not w.startswith("frames_per_sec"))
+                            for ln in capsys.readouterr().out.splitlines()]
+    assert outs[True] == outs[False] and len(outs[True]) == 2
+    assert not torch.distributed.is_initialized()
 
 
 def test_cli_mesh_on_a_world_of_one(synth_root, tmp_path, capsys):

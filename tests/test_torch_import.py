@@ -33,6 +33,7 @@ def test_import_leaves_jax_out():
             "nafae_torch.data.robowatch, nafae_torch.models.detector.vgg, "
             "nafae_torch.visualize, nafae_torch.__main__, "
             "nafae_torch.parallel.mesh, nafae_torch.parallel.sharding, "
+            "nafae_torch.parallel.sp, nafae_torch.parallel.multihost, "
             "nafae_torch.utils.profiling, nafae_torch.evaluate; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
@@ -44,6 +45,8 @@ def test_import_leaves_jax_out():
 @pytest.mark.parametrize("module", ["nafae_torch.visualize",
                                     "nafae_torch.__main__",
                                     "nafae_torch.parallel.sharding",
+                                    "nafae_torch.parallel.sp",
+                                    "nafae_torch.parallel.multihost",
                                     "nafae_torch.utils.profiling"])
 def test_new_entry_points_leave_jax_out(module):
     """Each of the entry modules alone, in a fresh interpreter."""

@@ -426,7 +426,7 @@ def test_kmeans_plusplus_matches_jax(case):
         group = make_mesh(device="cpu").get_group("data")
         on_mesh = t_pp(torch.from_numpy(f), torch.from_numpy(valid), kc,
                        gumbels=torch.from_numpy(g), max_rows=max_rows,
-                       group=group, gather_dim=0 if case == "batch" else 1)
+                       gathers=[(group, 0 if case == "batch" else 1)])
     finally:
         shutdown()
     assert torch.equal(on_mesh, torch.from_numpy(got))

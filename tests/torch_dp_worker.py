@@ -1,11 +1,14 @@
 """One rank of a data-parallel world on the CPU (gloo), for
-tests/test_torch_dp.py. Imports torch and nafae_torch only: spawned
-children must not import JAX, so the reference is computed in the parent.
+tests/test_torch_dp.py (and, through tests/torch_sp_worker.py, of a
+data × frame world for tests/test_torch_sp.py). Imports torch and
+nafae_torch only: spawned children must not import JAX, so the reference
+is computed in the parent.
 
 The parent pickles a list of cases into <tmp>/cases.pkl and spawns
 `run(rank, world, tmp)` on `world` processes; each rank runs every case
 in order (the collectives must match across ranks) and pickles its
-results into <tmp>/out_<rank>.pkl.
+results into <tmp>/out_<rank>.pkl. A case runs on the mesh its "mesh"
+entry names, (data, frame), by default (world, 1).
 """
 
 from __future__ import annotations
@@ -38,15 +41,16 @@ def _cfg(case):
 
 
 def _step_case(case, mesh, rank, world):
-    """case["steps"] optimizer steps on this rank's rows of each global
-    batch; the state, per-step metrics, last gradients and the step's
+    """An optimizer step on this rank's part of each of the case's global
+    batches; the state, per-step metrics, last gradients and each step's
     collectives."""
+    from nafae_torch.parallel.multihost import global_batch_spec, local_batch
+
     cfg = _cfg(case)
     state = TT.TrainState.from_state_dict(case["state"], "cpu")
     if state.bank is not None:
-        state.bank = S.shard_rows(state.bank, rank, world, 1).clone()
-        state.bank_valid = S.shard_rows(state.bank_valid, rank, world,
-                                        1).clone()
+        state.bank = TT._bank_shard(state.bank, mesh)
+        state.bank_valid = TT._bank_shard(state.bank_valid, mesh)
     extractor = None
     if case.get("detector") is not None:
         from nafae_torch.models.detector.faster_rcnn import \
@@ -60,15 +64,15 @@ def _step_case(case, mesh, rank, world):
             lambda f, v, k, generator=None, **kw: real(f, v, k, gumbels=g,
                                                        **kw))
     tx = RecordingOptimizer(cfg)
+    spec = global_batch_spec(cfg, mesh, with_frames=extractor is not None)
     metrics, collectives = [], []
     try:
         for batch in case["batches"]:
-            local = {k: S.shard_rows(v, rank, world)
-                     for k, v in batch.items()}
             S.COLLECTIVES.reset()
             state, m = TT.train_step(
-                state, TT.batch_to_device(local, torch.device("cpu")), cfg,
-                tx, extractor, mesh)
+                state, TT.batch_to_device(local_batch(batch, spec, mesh),
+                                          torch.device("cpu")),
+                cfg, tx, extractor, mesh)
             collectives.append(list(S.COLLECTIVES.records))
             metrics.append({k: float(v) for k, v in m.items()})
     finally:
@@ -121,7 +125,7 @@ CASES = {"step": _step_case, "fit": _fit_case, "eval": _eval_case,
          "errors": _errors_case}
 
 
-def run(rank: int, world: int, tmp: str) -> None:
+def run(rank: int, world: int, tmp: str, kinds: dict = CASES) -> None:
     torch.set_num_threads(1)
     with open(os.path.join(tmp, "cases.pkl"), "rb") as f:
         cases = pickle.load(f)
@@ -129,23 +133,26 @@ def run(rank: int, world: int, tmp: str) -> None:
                             rank=rank, world_size=world,
                             timeout=datetime.timedelta(seconds=120))
     try:
-        mesh = make_mesh(device="cpu")
-        out = {name: CASES[case["kind"]](case, mesh, rank, world)
-               for name, case in cases.items()}
+        meshes, out = {}, {}
+        for name, case in cases.items():
+            shape = tuple(case.get("mesh", (world, 1)))
+            if shape not in meshes:      # every rank makes them in one order
+                meshes[shape] = make_mesh(*shape, device="cpu")
+            out[name] = kinds[case["kind"]](case, meshes[shape], rank, world)
     finally:
         dist.destroy_process_group()
     with open(os.path.join(tmp, f"out_{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
 
 
-def spawn(world: int, tmp: str, cases: dict) -> list[dict]:
-    """Runs `cases` on a gloo world of `world` CPU processes; returns each
-    rank's results."""
+def spawn(world: int, tmp: str, cases: dict, fn=run) -> list[dict]:
+    """Runs `cases` on a gloo world of `world` CPU processes (each running
+    `fn(rank, world, tmp)`); returns each rank's results."""
     import torch.multiprocessing as mp
 
     with open(os.path.join(tmp, "cases.pkl"), "wb") as f:
         pickle.dump(cases, f)
-    mp.start_processes(run, args=(world, tmp), nprocs=world,
+    mp.start_processes(fn, args=(world, tmp), nprocs=world,
                        start_method="spawn")
     outs = []
     for r in range(world):
