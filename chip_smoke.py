@@ -147,6 +147,30 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    host on each mesh; K1fr/K1b/K1br and K4f/K4b against their plain
    versions on two ranks' T_local inputs with real halos, f32 and bf16,
    timed with their bounds at the 2x2 rank's.
+14. the device-resident dataset, steps_per_call, the C++ packer and grain
+   (run after phase 13, on phase 5's data): (a) `fit` with
+   `train.device_cache=true`, f32, both routes, 7 steps in calls of 3
+   (rows at steps 3, 6, 7; per step auto K1fr 1, K1br 1, pallas also K3
+   2, K4f 1, K4b 1), bit for bit train_step over the same index stream
+   gathered on the host, the auto run's first 3 steps re-run on the CPU
+   a row a step; (b) the streaming fit at steps_per_call 3 on a seeded
+   two-bucket dataset at config-4 widths (segments of 6-20 frames,
+   buckets (10, 20)), on the card (auto's launches a step) and on the
+   CPU: the same segment ids applied in the same order, out of the
+   loader's yield order, the rows through step 3 and the params after it
+   within the CPU bounds, batches packed in C++; (c) the cached fit on
+   phase 12's world-of-one NCCL mesh bit for bit the run without one, and
+   on a 1x2 gloo world of two processes on cuda:0 (each caching half of
+   the frames) within phase 13's tolerances of the single device; (d)
+   `build_cache` of 2,560 seeded f16 segments (4.19 GB of features): its
+   seconds and device memory, and a step on a batch gathered from it; (e)
+   the f32 auto step host to host, streaming against cached, interleaved,
+   with the card's busy time and idle share, and `fit`'s own rows a step
+   streaming with the C++ packer, with the Python packer, and cached;
+   (f) phase 5's batches packed
+   by the C++ packer and by Python bit for bit equal in f32 and f16, the
+   ms to pack each way; (g) 3 steps of `fit` with `data.pipeline=grain`
+   (its first batch grain's order).
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -184,6 +208,11 @@ CPU_STEPS = 3                   # steps re-run on the CPU
 # each parameter's largest entry)
 CPU_METRIC_TOL = (1e-3, 1e-6)
 CPU_GRAD_TOL = (1e-4, 1e-6)
+# card against CPU, f32: params after CPU_STEPS steps, as the norm of their
+# difference over the norm of the CPU run's update of each leaf (Adam can
+# swing an entry whose gradient is within rounding of zero by a whole step,
+# so no entry-wise bound holds)
+CPU_UPDATE_TOL = 1e-3
 # the overrides of the training runs: warm up over 2 steps to lr 3e-3 and
 # refresh the k-means centers every 10 steps, so that a 20-step run moves
 TRAIN_OVERRIDES = ["train.lr=0.003", "train.warmup_steps=2",
@@ -1095,22 +1124,27 @@ def check_train_cpu_rerun(torch, root: str, tmp: str, logs: list[dict],
     """The first CPU_STEPS steps re-run on the CPU (same data, same seed)
     against the card's f32 run; and one step's gradients, card against CPU,
     from the same initial state and batch."""
-    from nafae_torch.train import TrainState
-
     cfg = train_cfg(root, os.path.join(tmp, f"ck_cpu_{kernels}"), "float32",
                     CPU_STEPS, kernels)
     cpu_logs = run_fit(torch, cfg, device="cpu")
+    worst = cpu_rows_agree(logs, cpu_logs, f"training ({kernels})")
+    gworst = grads_agree(torch, cfg, first_batch(root), kernels)
     rtol, atol = CPU_METRIC_TOL
-    worst = 0.0
-    for g, c in zip(logs[:CPU_STEPS], cpu_logs):
-        for k in c:
-            if k in ("frames_per_sec", "ts"):
-                continue
-            if not np.isclose(g[k], c[k], rtol=rtol, atol=atol):
-                fail(f"step {c['step']} {k}: card {g[k]} vs CPU {c[k]}")
-            if k != "step":
-                worst = max(worst, abs(g[k] - c[k]) / max(abs(c[k]), 1e-30))
-    batch = first_batch(root)
+    grtol, gatol = CPU_GRAD_TOL
+    log(f"CPU re-run of the first {CPU_STEPS} f32 training steps "
+        f"(kernels={kernels}): metrics "
+        f"agree, max relative diff {worst:.3e} (limit rtol {rtol}, atol "
+        f"{atol}); one step's gradients agree, max |diff| / largest entry "
+        f"{gworst:.3e} (limit rtol {grtol}, atol {gatol} x largest entry)")
+    return {"metric_rel_diff": worst, "grad_rel_diff": gworst}
+
+
+def grads_agree(torch, cfg, batch, kernels: str) -> float:
+    """One step's gradients on `batch` from the initial state, card
+    against CPU, within CPU_GRAD_TOL of each parameter's largest entry;
+    returns the largest |diff| / largest entry."""
+    from nafae_torch.train import TrainState
+
     grads = {dev: step_grads(torch, cfg, TrainState.create(cfg, device=dev),
                              batch, kernels)[1] for dev in ("cuda", "cpu")}
     grtol, gatol = CPU_GRAD_TOL
@@ -1123,12 +1157,7 @@ def check_train_cpu_rerun(torch, root: str, tmp: str, logs: list[dict],
             fail(f"gradient of {k}: card and CPU differ by {err} "
                  f"(largest entry {scale})")
         gworst = max(gworst, err / max(scale, 1e-30))
-    log(f"CPU re-run of the first {CPU_STEPS} f32 training steps "
-        f"(kernels={kernels}): metrics "
-        f"agree, max relative diff {worst:.3e} (limit rtol {rtol}, atol "
-        f"{atol}); one step's gradients agree, max |diff| / largest entry "
-        f"{gworst:.3e} (limit rtol {grtol}, atol {gatol} x largest entry)")
-    return {"metric_rel_diff": worst, "grad_rel_diff": gworst}
+    return gworst
 
 
 def check_pallas_vs_auto(torch, root: str, tmp: str) -> dict:
@@ -3219,8 +3248,12 @@ def finish_cli(started, out: str, timeout: int = 600) -> tuple[str, float]:
     return stdout, wall
 
 
+RATES = ("frames_per_sec", "frames_per_sec_avg", "ts")   # wall-clock keys
+
+
 def metrics_equal(a: dict, b: dict) -> bool:
-    return all(a[k] == b[k] for k in a if k not in ("frames_per_sec", "ts"))
+    """Every key of row a but the rates equal in b, bit for bit."""
+    return all(a[k] == b[k] for k in a if k not in RATES)
 
 
 def check_dp(torch, root: str, tmp: str, mesh) -> dict:
@@ -3726,9 +3759,12 @@ def sp_rank(rank: int, port: int, root: str, tmp: str) -> None:
         pickle.dump(out, f)
 
 
-def sp_spawn(root: str, tmp: str) -> list[dict]:
-    """Spawns SP_WORLD sp_rank processes and waits for them (killed past
-    SP_TIMEOUT s); fails if any fails; returns each rank's results."""
+def sp_spawn(root: str, tmp: str, fn=None, world: int = SP_WORLD,
+             out: str = "sp_out") -> list[dict]:
+    """Spawns `world` processes of fn (sp_rank by default; fn(rank, port,
+    root, tmp) pickles its results into tmp/<out>_<rank>.pkl) and waits for
+    them (killed past SP_TIMEOUT s); fails if any fails; returns each
+    rank's results."""
     import pickle
     import socket
 
@@ -3737,26 +3773,25 @@ def sp_spawn(root: str, tmp: str) -> list[dict]:
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         port = s.getsockname()[1]
-    ctx = mp.start_processes(sp_rank, args=(port, root, tmp),
-                             nprocs=SP_WORLD, join=False,
-                             start_method="spawn")
+    ctx = mp.start_processes(fn or sp_rank, args=(port, root, tmp),
+                             nprocs=world, join=False, start_method="spawn")
     deadline = time.perf_counter() + SP_TIMEOUT
     try:
         while not ctx.join(timeout=5):
             if time.perf_counter() > deadline:
-                fail(f"the SP world did not end within {SP_TIMEOUT} s")
+                fail(f"the spawned world did not end within {SP_TIMEOUT} s")
     except mp.ProcessRaisedException as e:
-        fail(f"an SP rank failed: {e}")
+        fail(f"a spawned rank failed: {e}")
     except mp.ProcessExitedException as e:
-        fail(f"an SP rank exited: {e}")
+        fail(f"a spawned rank exited: {e}")
     finally:
         for p in ctx.processes:
             if p.is_alive():
                 p.kill()
                 p.join()
     outs = []
-    for r in range(SP_WORLD):
-        with open(os.path.join(tmp, f"sp_out_{r}.pkl"), "rb") as f:
+    for r in range(world):
+        with open(os.path.join(tmp, f"{out}_{r}.pkl"), "rb") as f:
             outs.append(pickle.load(f))
     return outs
 
@@ -4013,6 +4048,661 @@ def check_sp_kernels(torch, root: str, tmp: str) -> dict:
     return res
 
 
+# ------- the device-resident dataset, steps_per_call, the native packer and
+# grain (phase 14)
+
+CACHE_SPC = 3                    # train.steps_per_call of the cached runs
+CACHE_STEPS = 7                  # calls of 3, 3 and 1 steps
+CACHE_LOGGED = [3, 6, 7]         # the steps those calls log at log_every=1
+# (b): a seeded two-bucket dataset at config-4 widths, trained in groups
+BUCKET_SEGMENTS = 64
+BUCKET_FRAMES = (6, 20)
+BUCKETS = (10, 20)
+# (d): an in-memory cache of seeded f16 segments at config-4 widths:
+# 2560 x 20 x 20 x 2048 x 2 B = 4.19 GB of features
+SCALE_SEGMENTS = 2560
+TIMED_ROUNDS = 12                # interleaved rounds of each timing
+# (e), end to end: fit's own rows, a step each, from the ways below
+FIT_TIMED_STEPS = 16
+FIT_WAYS = {"native": [], "python": ["data.use_native_io=false"],
+            "cached": ["train.device_cache=true"]}
+
+
+def cache_cfg(root: str, ckpt: str, route: str, extra=()):
+    """Phase 5's f32 config4 run of `route` with the dataset on the device,
+    CACHE_STEPS steps in calls of CACHE_SPC."""
+    from nafae_torch.config import load_config
+
+    return load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
+        f"data.root={root}", f"train.ckpt_dir={ckpt}", "model.dtype=float32",
+        f"train.steps={CACHE_STEPS}", f"train.kernels={route}",
+        "train.device_cache=true", f"train.steps_per_call={CACHE_SPC}",
+        *extra])
+
+
+def host_index_stream(n: int, bsz: int, seed: int, steps: int):
+    """The reference's cached index stream, worked out on the host: a
+    RandomState(seed) permutation of the n segments an epoch, batches of
+    bsz across epoch boundaries; one index array a step."""
+    rng = np.random.RandomState(seed)
+    order: list = []
+    for _ in range(steps):
+        while len(order) < bsz:
+            ep = np.arange(n)
+            rng.shuffle(ep)
+            order.extend(ep.tolist())
+        yield np.asarray(order[:bsz])
+        order = order[bsz:]
+
+
+def cache_host(root: str) -> dict:
+    """Phase 5's training segments stacked on the host (every key but
+    boxes), as the cache holds them."""
+    from nafae_torch.data.youcook2 import SegmentDataset
+
+    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
+    samples = [ds[i] for i in range(len(ds))]
+    return {k: np.stack([s[k] for s in samples])
+            for k in samples[0] if k != "boxes"}
+
+
+def check_cache(torch, root: str, tmp: str) -> dict:
+    """Phase 14 (a): fit with train.device_cache, f32, on each route
+    (CACHE_STEPS steps in calls of CACHE_SPC): launches per step, the
+    logged steps, and the run bit for bit train_step on the card over the
+    same index stream gathered on the host (metrics of every logged step,
+    params, centers); the auto route's first CPU_STEPS steps re-run on the
+    CPU, a row a step, against that replay's rows as phase 5 holds its own
+    (`cpu_rows_agree`), and one step's gradients within CPU_GRAD_TOL."""
+    from nafae_torch.train import (TrainState, batch_to_device, fit,
+                                   make_optimizer, train_step)
+
+    dev = torch.device("cuda")
+    host = cache_host(root)
+    n = len(host["frame_mask"])
+    out = {}
+    for route in ROUTES:
+        cfg = cache_cfg(root, os.path.join(tmp, f"ck_cache_{route}"), route)
+        logs = []
+        zero_counts()                           # main path starts here
+        t0 = time.perf_counter()
+        state, _ = fit(cfg, log_fn=logs.append)
+        wall = time.perf_counter() - t0
+        counts = read_counts()                  # ... and ends here
+        want = {k: v * CACHE_STEPS
+                for k, v in per_step_launches(route).items()}
+        if counts != want:
+            fail(f"cached fit ({route}) launched {counts}, expected {want}")
+        if [m["step"] for m in logs] != CACHE_LOGGED:
+            fail(f"cached fit ({route}) logged steps "
+                 f"{[m['step'] for m in logs]}, expected {CACHE_LOGGED}")
+        st, tx = TrainState.create(cfg, device=dev), make_optimizer(cfg)
+        replay = {}
+        for step, idx in enumerate(host_index_stream(
+                n, cfg.data.batch_size, cfg.train.seed, CACHE_STEPS), 1):
+            st, m = train_step(st, batch_to_device(
+                {k: v[idx] for k, v in host.items()}, dev), cfg, tx)
+            replay[step] = {k: float(v) for k, v in m.items()}
+        for m in logs:
+            if not metrics_equal(replay[m["step"]], m):
+                fail(f"cached fit ({route}) step {m['step']}: {m} differs "
+                     f"from train_step on host-gathered batches: "
+                     f"{replay[m['step']]}")
+        bad = [k for k in st.params if not torch.equal(st.params[k],
+                                                       state.params[k])]
+        if bad or not torch.equal(st.centers, state.centers):
+            fail(f"cached fit ({route}): params {bad} or centers differ from "
+                 "train_step on host-gathered batches")
+        log(f"cached fit ({route}, f32 config4 B=16 T=20, {CACHE_STEPS} "
+            f"steps in calls of {CACHE_SPC}) in {wall:.2f} s incl. the "
+            f"upload: logged steps {CACHE_LOGGED}, bit for bit train_step "
+            f"on the same index stream gathered on the host; launches "
+            f"{counts}")
+        out[route] = {"logs": logs, "launches": counts, "state": state,
+                      "wall_s": wall,
+                      "replay": [{**m, "step": s} for s, m in replay.items()]}
+    # the CPU re-run in calls of one step, each logged: the index stream
+    # does not depend on steps_per_call, so its rows are the replay's
+    cfg = cache_cfg(root, os.path.join(tmp, "ck_cache_cpu"), "auto",
+                    [f"train.steps={CPU_STEPS}", "train.steps_per_call=1"])
+    cpu_logs = []
+    fit(cfg, device="cpu", log_fn=cpu_logs.append)
+    if [m["step"] for m in cpu_logs] != list(range(1, CPU_STEPS + 1)):
+        fail(f"the cached CPU re-run logged steps "
+             f"{[m['step'] for m in cpu_logs]}")
+    out["cpu"] = cpu_rows_agree(out["auto"]["replay"], cpu_logs, "cached")
+    # ... and one step's gradients on the first cached batch, card vs CPU
+    idx = next(host_index_stream(n, cfg.data.batch_size, cfg.train.seed, 1))
+    gworst = grads_agree(torch, cfg, {k: v[idx] for k, v in host.items()},
+                         "auto")
+    log(f"cached fit re-run on the CPU (auto, a row a step): rows 1-"
+        f"{CPU_STEPS} agree with the card's, max relative diff "
+        f"{out['cpu']:.3e} (limit "
+        f"{CPU_METRIC_TOL}); the first cached batch's gradients, max |diff| "
+        f"/ largest entry {gworst:.3e} (limit {CPU_GRAD_TOL})")
+    out["cpu_grad_rel_diff"] = gworst
+    return out
+
+
+def cpu_rows_agree(card: list[dict], cpu: list[dict], what: str) -> float:
+    """The CPU run's metrics rows through step CPU_STEPS, each against the
+    card run's row at its step, within CPU_METRIC_TOL; returns the largest
+    relative difference. Only the first steps are held: later Adam steps
+    can turn a last-digit difference of a tiny gradient into a full step."""
+    at = {m["step"]: m for m in card}
+    rtol, atol = CPU_METRIC_TOL
+    worst = 0.0
+    for c in cpu:
+        if c["step"] > CPU_STEPS:
+            continue
+        g = at.get(c["step"])
+        if g is None:
+            fail(f"{what}: the card run has no row at step {c['step']}")
+        for k in c:
+            if k in RATES:
+                continue
+            if not np.isclose(g[k], c[k], rtol=rtol, atol=atol):
+                fail(f"{what} step {c['step']} {k}: card {g[k]} vs CPU "
+                     f"{c[k]}")
+            worst = max(worst, abs(g[k] - c[k]) / max(abs(c[k]), 1e-30))
+    return worst
+
+
+def recorded_fit(torch, cfg, device: str) -> dict:
+    """fit on `device` with every train_step call recorded: the rows, the
+    segment ids of each applied batch, and the params before the first
+    step and before and after step CPU_STEPS (on the host)."""
+    import nafae_torch.train as TT
+
+    real, seen, params, logs = TT.train_step, [], {}, []
+
+    def on_host(state):
+        return {k: v.detach().cpu().clone() for k, v in state.params.items()}
+
+    def step(state, batch, *a, **kw):
+        if not seen:
+            params["init"] = on_host(state)
+        seen.append(batch["segment_id"].cpu().numpy())
+        if len(seen) == CPU_STEPS:
+            params["before"] = on_host(state)
+        state, m = real(state, batch, *a, **kw)
+        if len(seen) == CPU_STEPS:
+            params["after"] = on_host(state)
+        return state, m
+
+    TT.train_step = step
+    try:
+        TT.fit(cfg, device=device, log_fn=logs.append)
+    finally:
+        TT.train_step = real
+    return {"logs": logs, "seen": seen, **params}
+
+
+def check_grouping(torch, tmp: str) -> dict:
+    """Phase 14 (b): the streaming fit at steps_per_call CACHE_SPC on a
+    seeded two-bucket dataset at config-4 widths (segments of 6-20 frames,
+    data.frame_buckets (10, 20)), packed by the C++ packer, on the card and
+    on the CPU: on the card the auto route's launches a step; the batches
+    applied out of the loader's yield order, with the CPU run's segment ids
+    in the CPU run's order (tests/test_torch_train.py holds that order
+    against the reference's); the rows at the CPU run's steps, through step
+    CPU_STEPS within `cpu_rows_agree`'s bounds, and the params after step
+    CPU_STEPS within CPU_UPDATE_TOL."""
+    from nafae_torch.config import load_config
+    from nafae_torch.data.loader import epoch_batches
+    from nafae_torch.data.synthetic import generate_synthetic_dataset
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.utils import native_io
+
+    root = os.path.join(tmp, "buckets")
+    generate_synthetic_dataset(root, "train", num_segments=BUCKET_SEGMENTS,
+                               feat_dim=2048, num_regions=20,
+                               min_frames=BUCKET_FRAMES[0],
+                               max_frames=BUCKET_FRAMES[1], max_words=8,
+                               seed=SEED + 14)
+
+    def cfg(ckpt):
+        return load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
+            f"data.root={root}", f"train.ckpt_dir={ckpt}",
+            "model.dtype=float32", "train.kernels=auto",
+            f"train.steps={CACHE_STEPS}", f"train.steps_per_call={CACHE_SPC}",
+            f"data.frame_buckets=[{BUCKETS[0]},{BUCKETS[1]}]"])
+
+    c = cfg(os.path.join(tmp, "ck_groups"))
+    native_io.packs["packer_pack"] = 0
+    zero_counts()                               # main path starts here
+    card = recorded_fit(torch, c, "cuda")
+    counts = read_counts()                      # ... and ends here
+    packs = native_io.packs["packer_pack"]
+    want = {k: n * CACHE_STEPS for k, n in per_step_launches("auto").items()}
+    if counts != want:
+        fail(f"the grouped streaming fit launched {counts}, expected {want}")
+    if packs == 0:
+        fail("the streaming fit packed no batch with the C++ packer")
+    cpu = recorded_fit(torch, cfg(os.path.join(tmp, "ck_groups_cpu")), "cpu")
+    ds = SegmentDataset(root, "train", 20, 20, 2048, 8, frame_buckets=BUCKETS)
+    yields = [b for e in range(8) for b in epoch_batches(
+        ds, 16, True, c.train.seed, True, e)][:CACHE_STEPS]
+    seen = card["seen"]
+    if len(seen) != len(cpu["seen"]) or not all(
+            np.array_equal(a, b) for a, b in zip(seen, cpu["seen"])):
+        fail(f"the grouped fit applied segments {[a.tolist() for a in seen]} "
+             f"on the card, {[b.tolist() for b in cpu['seen']]} on the CPU")
+    if len(seen) != CACHE_STEPS or all(
+            np.array_equal(a, b) for a, b in zip(seen, yields)):
+        fail(f"the grouped fit applied {len(seen)} batches in the loader's "
+             f"yield order: the data does not exercise the grouping")
+    steps = [m["step"] for m in card["logs"]]
+    if steps != CACHE_LOGGED or steps != [m["step"] for m in cpu["logs"]]:
+        fail(f"the grouped fit logged steps {steps} on the card, "
+             f"{[m['step'] for m in cpu['logs']]} on the CPU")
+    worst = cpu_rows_agree(card["logs"], cpu["logs"], "grouped")
+    diffs = {k: max(abs(g[k] - c[k]) for g, c in zip(card["logs"],
+                                                      cpu["logs"])
+                    if c["step"] <= CPU_STEPS)
+             for k in cpu["logs"][0] if k not in RATES}
+    # every row's f32 values card against CPU, in units in the last place
+    ulps = {c["step"]: {k: abs(int(np.float32(g[k]).view(np.int32))
+                               - int(np.float32(c[k]).view(np.int32)))
+                        for k in c if k not in RATES and k != "step"}
+            for g, c in zip(card["logs"], cpu["logs"])}
+    upd = {}
+    for k, p in cpu["after"].items():
+        moved = float((p - cpu["init"][k]).norm())
+        off = float((card["after"][k] - p).norm())
+        upd[k] = {"update_norm": moved, "diff_norm": off,
+                  "diff_max": float((card["after"][k] - p).abs().max())}
+        if off > CPU_UPDATE_TOL * moved:
+            fail(f"grouped fit: {k} after step {CPU_STEPS} is {off} off the "
+                 f"CPU's, its update's norm {moved} (limit x{CPU_UPDATE_TOL})")
+        # the params the step-CPU_STEPS row is computed from: the share of
+        # their entries that are the same bits on the card and the CPU
+        upd[k]["same_bits_before"] = float(
+            (card["before"][k] == cpu["before"][k]).double().mean())
+    ratios = {k: u["diff_norm"] / max(u["update_norm"], 1e-30)
+              for k, u in upd.items()}
+    uworst = max(ratios.values())
+    buckets = [int(ds.bucket_of(int(b[0]))) for b in seen]
+    log(f"streaming fit at steps_per_call={CACHE_SPC} over buckets "
+        f"{BUCKETS} ({BUCKET_SEGMENTS} segments of {BUCKET_FRAMES[0]}-"
+        f"{BUCKET_FRAMES[1]} frames, config-4 widths, f32 auto): applied "
+        f"batches of buckets {buckets}, out of the yield order, the CPU "
+        f"run's segment ids in its order; rows at steps {steps}, through "
+        f"step {CPU_STEPS} within {CPU_METRIC_TOL} of the CPU's (max "
+        f"relative diff {worst:.3e}; max |diff| by key {diffs}; ulps apart "
+        f"by step and key {ulps}); params "
+        f"after step {CPU_STEPS}: |card - CPU| / |update| at most "
+        f"{uworst:.3e} (limit {CPU_UPDATE_TOL}), by leaf "
+        + ", ".join(f"{k} {r:.3e}" for k, r in ratios.items())
+        + f"; before step {CPU_STEPS} the same bits on card and CPU in "
+        + ", ".join(f"{k} {u['same_bits_before']:.1%}"
+                    for k, u in upd.items())
+        + f" of the entries; launches {counts}; {packs} batches packed in "
+        "C++")
+    return {"buckets": buckets, "packs": packs, "launches": counts,
+            "cpu_rel_diff": worst, "cpu_abs_diff_by_key": diffs,
+            "ulps": ulps,
+            "param_update_rel_diff": uworst, "params": upd, "steps": steps,
+            "rows": {"card": card["logs"], "cpu": cpu["logs"]}}
+
+
+def cache_rank(rank: int, port: int, root: str, tmp: str) -> None:
+    """One rank of phase 14's 1x2 world on cuda:0 over gloo: the cached
+    fit of the auto route with mesh.frame_axis 2 (each rank caching half of
+    the frames), its launches read around it; pickles what it saw."""
+    import pickle
+    import warnings
+
+    import torch
+
+    from nafae_torch.parallel.mesh import make_mesh, shutdown
+    from nafae_torch.train import fit
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE="2", LOCAL_RANK="0",
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        mesh = make_mesh(1, 2, device="cuda", backend="gloo")
+    cfg = cache_cfg(root, os.path.join(tmp, "ck_cache_sp"), "auto",
+                    ["mesh.data_axis=1", "mesh.frame_axis=2"])
+    logs = []
+    zero_counts()                               # main path starts here
+    state, _ = fit(cfg, log_fn=logs.append, mesh=mesh)
+    counts = read_counts()                      # ... and ends here
+    out = {"logs": logs, "launches": counts,
+           "params": {k: v.cpu().numpy() for k, v in state.params.items()},
+           "centers": state.centers.cpu().numpy()}
+    shutdown()
+    with open(os.path.join(tmp, f"cache_out_{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def check_cache_meshes(torch, root: str, tmp: str, mesh, cached) -> dict:
+    """Phase 14 (c): the cached fit on phase 12's world-of-one NCCL mesh,
+    on each route, bit for bit the run without a mesh (phase 14 (a)); then
+    a 1x2 frame-parallel world of two processes on cuda:0 over gloo, each
+    rank caching half of the frames, within phase 13's SP_METRIC_TOL and
+    SP_PARAM_TOL of the single device's cached run."""
+    from nafae_torch.train import fit
+
+    for route in ROUTES:
+        logs = []
+        cfg = cache_cfg(root, os.path.join(tmp, f"ck_cache_dp_{route}"),
+                        route)
+        zero_counts()                           # main path starts here
+        state, _ = fit(cfg, log_fn=logs.append, mesh=mesh)
+        counts = read_counts()                  # ... and ends here
+        single = cached[route]
+        if counts != single["launches"]:
+            fail(f"cached fit on the NCCL mesh ({route}) launched {counts}, "
+                 f"without a mesh {single['launches']}")
+        if len(logs) != len(single["logs"]) or not all(
+                metrics_equal(a, b) and set(a) == set(b)
+                for a, b in zip(logs, single["logs"])):
+            fail(f"cached fit on the NCCL mesh ({route}): {logs} vs "
+                 f"{single['logs']}")
+        bad = [k for k in state.params
+               if not torch.equal(state.params[k], single["state"].params[k])]
+        if bad or not torch.equal(state.centers, single["state"].centers):
+            fail(f"cached fit on the NCCL mesh ({route}): params {bad} or "
+                 "centers differ from the run without a mesh")
+    log("cached fit on a world-of-one NCCL mesh: both routes bit for bit "
+        "the runs without a mesh (rows, params, centers, launches)")
+    outs = sp_spawn(root, tmp, cache_rank, 2, "cache_out")
+    single = cached["auto"]
+    want = {k: n * CACHE_STEPS for k, n in sp_launches("auto").items()}
+    rtol, atol = SP_METRIC_TOL
+    worst = 0.0
+    for rank, o in enumerate(outs):
+        if o["launches"] != want:
+            fail(f"1x2 cached rank {rank} launched {o['launches']}, "
+                 f"expected {want}")
+    if outs[1]["logs"] or [m["step"] for m in outs[0]["logs"]] != \
+            CACHE_LOGGED:
+        fail(f"1x2 cached fit: rank 0 logged {outs[0]['logs']}, rank 1 "
+             f"{outs[1]['logs']}")
+    for g, s in zip(outs[0]["logs"], single["logs"]):
+        for k in s:
+            if k in RATES:
+                continue
+            if not np.isclose(g[k], s[k], rtol=rtol, atol=atol):
+                fail(f"1x2 cached step {s['step']} {k}: {g[k]} vs single "
+                     f"device {s[k]}")
+            worst = max(worst, abs(g[k] - s[k]) / max(abs(s[k]), 1e-30))
+    perr = max(float(np.abs(o["params"][k]
+                            - single["state"].params[k].cpu().numpy()).max())
+               for o in outs for k in o["params"])
+    cerr = max(float(np.abs(o["centers"]
+                            - single["state"].centers.cpu().numpy()).max())
+               for o in outs)
+    if perr > SP_PARAM_TOL or cerr > SP_PARAM_TOL:
+        fail(f"1x2 cached fit: params {perr} / centers {cerr} off the single "
+             f"device's (limit {SP_PARAM_TOL})")
+    log(f"cached fit on a 1x2 gloo world on cuda:0 (each rank caching T/2 "
+        f"frames): rows within rtol {rtol} (max relative diff {worst:.3e}), "
+        f"params within {perr:.3e} and centers within {cerr:.3e} of the "
+        f"single device's; launches per rank {outs[0]['launches']}")
+    return {"sp_metric_rel_diff": worst, "sp_param_err": perr,
+            "sp_center_err": cerr}
+
+
+class MemorySegments:
+    """n seeded config-4-width segments in host memory, as SegmentDataset
+    gives them (f16 feats, 20 frames, 20 regions, up to 8 words). The
+    features are f16 numbers in [0.125, 1), non-negative as RoI features
+    after a ReLU are: 256 segments of bit patterns drawn uniformly, and
+    segment i the draw i % 256 with its lowest mantissa bits xor i // 256
+    (drawing all of them would take most of a minute)."""
+
+    def __init__(self, n: int, seed: int):
+        rng = np.random.default_rng(seed)
+        base = rng.integers(0x3000, 0x3C00, (min(n, 256), 20, 20, 2048),
+                            dtype=np.uint16)
+        bits = np.empty((n, 20, 20, 2048), np.uint16)
+        for a in range(0, n, len(base)):
+            b = min(a + len(base), n)
+            np.bitwise_xor(base[:b - a], np.uint16(a // len(base)),
+                           out=bits[a:b])
+        self.feats = bits.view(np.float16)
+        self.word_ids = rng.integers(0, 67, (n, 8)).astype(np.int32)
+        self.words = rng.integers(1, 9, n)
+        self.frames = rng.integers(4, 21, n)
+
+    def __len__(self) -> int:
+        return len(self.feats)
+
+    def __getitem__(self, i: int) -> dict:
+        fm = (np.arange(20) < self.frames[i]).astype(np.float32)
+        return {"feats": self.feats[i], "boxes": np.zeros((20, 20, 4),
+                                                          np.float32),
+                "word_ids": self.word_ids[i],
+                "frame_mask": fm,
+                "word_mask": (np.arange(8) < self.words[i]).astype(
+                    np.float32),
+                "region_mask": np.repeat(fm[:, None], 20, 1),
+                "segment_id": np.int32(i)}
+
+
+def check_cache_scale(torch, root: str, tmp: str) -> dict:
+    """Phase 14 (d): `build_cache` of SCALE_SEGMENTS seeded f16 segments at
+    config-4 widths (4.19 GB of features) from host memory: the seconds and
+    the device memory it takes, its feats bit for bit the host's, and one
+    f32 training step on a batch gathered from it."""
+    from nafae_torch.train import (TrainState, build_cache, make_optimizer,
+                                   train_step)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ds = MemorySegments(SCALE_SEGMENTS, SEED + 15)
+    made = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cache = build_cache(ds, dev)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - before
+    feat_bytes = cache["feats"].numel() * cache["feats"].element_size()
+    pick = [0, SCALE_SEGMENTS // 2, SCALE_SEGMENTS - 1]
+    got = cache["feats"][pick].cpu().numpy()
+    if cache["feats"].dtype != torch.float16 or not np.array_equal(
+            got.view(np.uint16), ds.feats[pick].view(np.uint16)):
+        fail("the f16 cache's feats are not the host's")
+    cfg = cache_cfg(root, os.path.join(tmp, "ck_scale"), "auto",
+                    ["data.transfer_dtype=float16"])
+    idx = torch.arange(16, device=dev) * (SCALE_SEGMENTS // 16)
+    st = TrainState.create(cfg, device=dev)
+    st, m = train_step(st, {k: v.index_select(0, idx)
+                            for k, v in cache.items()}, cfg,
+                       make_optimizer(cfg))
+    loss = float(m["loss"])
+    if not np.isfinite(loss):
+        fail(f"a step on the f16 cache gave loss {loss}")
+    del cache, st, m
+    torch.cuda.empty_cache()
+    log(f"device cache of {SCALE_SEGMENTS} f16 segments at config-4 widths: "
+        f"feats {feat_bytes / 1e9:.3f} GB, {held / 2**30:.3f} GiB of device "
+        f"memory in all, uploaded by build_cache in {secs:.2f} s "
+        f"({feat_bytes / secs / 1e9:.2f} GB/s of feats, host stacking "
+        f"included; the segments took {made:.2f} s to make); a step on a "
+        f"gathered batch: loss {loss:.5f}")
+    return {"segments": SCALE_SEGMENTS, "feat_bytes": feat_bytes,
+            "device_bytes": held, "upload_s": secs, "make_s": made}
+
+
+def cache_timings(torch, root: str, tmp: str) -> dict:
+    """Phase 14 (e): the f32 auto step at config 4 host to host (metrics
+    on the host), streaming (the numpy batch copied in, as fit does) and
+    cached (the batch gathered from the device cache), TIMED_ROUNDS
+    interleaved rounds each from step 3 (one k-means refresh among them,
+    at step 10, as in training); torch.profiler's device busy time of a
+    step of each (the streaming one's includes the batch's copy), and the
+    idle share of host to host."""
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.train import (TrainState, batch_to_device, build_cache,
+                                   make_optimizer, train_step)
+
+    dev = torch.device("cuda")
+    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
+    batches = [b for _, b in BatchLoader(ds, 16, seed=0).steps(4)]
+    cache = build_cache(ds, dev)
+    idxs = [torch.from_numpy(b["segment_id"].astype(np.int64)).to(dev)
+            for b in batches]
+    cfg = cache_cfg(root, os.path.join(tmp, "ck_time_cache"), "auto",
+                    ["train.steps=1000"])
+    tx = make_optimizer(cfg)
+    # one state a way, each advanced by its own steps: the k-means refresh
+    # (every loss.kmeans_interval steps) falls on the same steps of both
+    states = {name: TrainState.create(cfg, device=dev)
+              for name in ("streaming", "cached")}
+
+    def streaming(i):
+        return train_step(states["streaming"],
+                          batch_to_device(batches[i % 4], dev), cfg, tx)
+
+    def cached(i):
+        return train_step(states["cached"],
+                          {k: v.index_select(0, idxs[i % 4])
+                           for k, v in cache.items()}, cfg, tx)
+
+    ways = (("streaming", streaming), ("cached", cached))
+    for i in range(3):
+        for name, fn in ways:
+            states[name], _ = fn(i)
+    torch.cuda.synchronize()
+    host = {"streaming": [], "cached": []}
+    for i in range(TIMED_ROUNDS):
+        for name, fn in ways:
+            t0 = time.perf_counter()
+            states[name], m = fn(i)
+            float(m["loss"])                    # metrics ready on the host
+            host[name].append((time.perf_counter() - t0) * 1e3)
+    res = {"batch_bytes": int(sum(v.nbytes for v in batches[0].values()))}
+    for name, fn in ways:       # at step 15: no k-means refresh
+        top, busy, ops = profile_forward(torch, lambda: fn(0))
+        ms = statistics.median(host[name])
+        res[name] = {"host_ms": ms, "host_ms_all": host[name],
+                     "device_busy_ms": busy, "device_ops": ops,
+                     "idle_share": 1 - busy / ms, "kernels": top}
+    del cache
+    torch.cuda.empty_cache()
+    return res
+
+
+def fit_timings(torch, root: str, tmp: str) -> dict:
+    """Phase 14 (e), end to end: `fit` itself on phase 5's data, f32 auto,
+    FIT_TIMED_STEPS steps a call of one step and a row a step, in each of
+    FIT_WAYS: streaming with the C++ packer (data.use_native_io, the
+    default), streaming with the Python packer, and cached; two rounds, in
+    the order native, python, cached, then back. A row's frames_per_sec is
+    over the step before it (the wait for the loader, the step, its metrics
+    read on the host), so its ms = B*T / frames_per_sec; medians of the
+    rows from step 4 of both rounds."""
+    from nafae_torch.config import load_config
+    from nafae_torch.train import fit
+    from nafae_torch.utils import native_io
+
+    ways = list(FIT_WAYS) + list(FIT_WAYS)[::-1]
+    ms: dict = {w: [] for w in FIT_WAYS}
+    for i, way in enumerate(ways):
+        cfg = load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
+            f"data.root={root}",
+            f"train.ckpt_dir={os.path.join(tmp, f'ck_fit_{way}_{i}')}",
+            "model.dtype=float32", "train.kernels=auto",
+            f"train.steps={FIT_TIMED_STEPS}", *FIT_WAYS[way]])
+        logs, before = [], native_io.packs["packer_pack"]
+        fit(cfg, log_fn=logs.append)
+        packs = native_io.packs["packer_pack"] - before
+        if (packs > 0) != (way == "native"):
+            fail(f"the timed fit ({way}) packed {packs} batches in C++")
+        frames = cfg.data.batch_size * cfg.data.max_frames
+        ms[way] += [frames * 1e3 / m["frames_per_sec"] for m in logs
+                    if m["step"] > 3]
+    return {w: {"ms": statistics.median(v), "ms_all": v}
+            for w, v in ms.items()}
+
+
+def check_packer(torch, root: str) -> dict:
+    """Phase 14 (f): on the card's host, phase 5's batches (config-4 widths,
+    B=16) packed by the C++ packer (data.use_native_io on) and by Python
+    (off), bit for bit equal in f32 and f16; ms to pack a batch, each way,
+    TIMED_ROUNDS interleaved rounds over the epoch's batches."""
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.utils import native_io
+
+    out = {}
+    for dt in ("float32", "float16"):
+        ds = SegmentDataset(root, "train", 20, 20, 2048, 8,
+                            transfer_dtype=dt)
+        nat = BatchLoader(ds, 16, seed=0, use_native=True)
+        py = BatchLoader(ds, 16, seed=0, use_native=False)
+        if nat._native is None:
+            fail(f"the C++ packer did not engage ({dt})")
+        before = native_io.packs["packer_pack"]
+        lists = nat._epoch_batches(0)
+        for idxs in lists:
+            a, b = nat._make_batch(idxs), py._make_batch(idxs)
+            for k in b:
+                if a[k].dtype != b[k].dtype or a[k].tobytes() != \
+                        b[k].tobytes():
+                    fail(f"packed batch ({dt}) differs from Python's at {k}")
+        times = {"native": [], "python": []}
+        for i in range(TIMED_ROUNDS):
+            idxs = lists[i % len(lists)]
+            for name, fn in (("native", nat._make_batch),
+                             ("python", py._make_batch)):
+                t0 = time.perf_counter()
+                fn(idxs)
+                times[name].append((time.perf_counter() - t0) * 1e3)
+        packs = native_io.packs["packer_pack"] - before
+        if packs == 0:
+            fail(f"the pack count did not move ({dt})")
+        out[dt] = {"native_ms": statistics.median(times["native"]),
+                   "python_ms": statistics.median(times["python"]),
+                   "batch_bytes": int(sum(v.nbytes for v in a.values())),
+                   "packs": packs}
+    return out
+
+
+def check_grain(torch, root: str, tmp: str) -> dict:
+    """Phase 14 (g): 3 f32 steps of fit with data.pipeline=grain (grain's
+    batch order, without grain) on phase 5's data: finite rows, the auto
+    route's launches, and its first batch the one grain's order gives."""
+    import nafae_torch.train as TT
+    from nafae_torch.config import load_config
+    from nafae_torch.data.grain_loader import index_shuffle
+
+    cfg = load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
+        f"data.root={root}", f"train.ckpt_dir={os.path.join(tmp, 'ck_grain')}",
+        "train.steps=3", "data.pipeline=grain"])
+    real, seen = TT.train_step, []
+
+    def recording(state, batch, *a, **kw):
+        seen.append(batch["segment_id"].cpu().numpy())
+        return real(state, batch, *a, **kw)
+
+    TT.train_step = recording
+    try:
+        zero_counts()                           # main path starts here
+        logs = run_fit(torch, cfg)
+        counts = read_counts()                  # ... and ends here
+    finally:
+        TT.train_step = real
+    want = {k: n * 3 for k, n in per_step_launches("auto").items()}
+    if counts != want:
+        fail(f"grain fit launched {counts}, expected {want}")
+    order = index_shuffle(TRAIN_SEGMENTS, cfg.train.seed)
+    if not np.array_equal(seen[0], order[:16]):
+        fail(f"grain fit's first batch {seen[0]}, grain's order "
+             f"{order[:16]}")
+    log(f"fit with data.pipeline=grain: 3 steps, first batch segments "
+        f"{seen[0].tolist()} (grain's order), loss {logs[0]['loss']:.5f} -> "
+        f"{logs[-1]['loss']:.5f}; launches {counts}")
+    return {"losses": [m["loss"] for m in logs], "launches": counts}
+
+
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
                  by, library_ms=None, **more) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -4099,6 +4789,19 @@ def main() -> None:
         sp = check_sp(torch, tmp, tmp)
         sp_k = check_sp_kernels(torch, tmp, tmp)
         t13 = time.perf_counter() - t13
+
+        # the device-resident dataset, steps_per_call, the C++ packer and
+        # grain (phase 14), on phase 5's data and phase 12's mesh
+        t14 = time.perf_counter()
+        cached = check_cache(torch, tmp, tmp)
+        groups = check_grouping(torch, tmp)
+        cache_mesh = check_cache_meshes(torch, tmp, tmp, mesh, cached)
+        scale = check_cache_scale(torch, tmp, tmp)
+        ct = cache_timings(torch, tmp, tmp)
+        ft = fit_timings(torch, tmp, tmp)
+        packer = check_packer(torch, tmp)
+        grain = check_grain(torch, tmp, tmp)
+        t14 = time.perf_counter() - t14
 
         # int8 serving, eval, the exported artifact and visualize (main
         # path 7), on the serving phase's requests and val split
@@ -4325,6 +5028,29 @@ def main() -> None:
             + "; ".join(f"{us:.1f} us {name}"
                         for name, us in t10m["step_kernels" + t]))
 
+    for name, what in (
+            ("streaming", f"the {ct['batch_bytes']} B numpy batch copied in"),
+            ("cached", "the batch gathered from the device cache")):
+        c = ct[name]
+        log(f"config4 f32 auto step host to host, {name} ({what}): median "
+            f"{c['host_ms']:.4f} ms of {TIMED_ROUNDS} interleaved rounds; "
+            f"device busy {c['device_busy_ms']:.4f} ms in "
+            f"{c['device_ops']:.0f} device operations, idle "
+            f"{100 * c['idle_share']:.1f}% of host to host — {card}")
+        log(f"device time per {name} step by kernel: " + "; ".join(
+            f"{us:.1f} us {k}" for k, us in c["kernels"]))
+    log("config4 f32 auto fit host to host, a row a step (B*T / "
+        "frames_per_sec, medians of the rows from step 4 of two rounds of "
+        f"{FIT_TIMED_STEPS} steps): " + "; ".join(
+            f"{w} {ft[w]['ms']:.4f} ms" for w in FIT_WAYS)
+        + f" (streaming with the C++ packer, with the Python packer, from "
+        f"the device cache) — {card}")
+    for dt, p in packer.items():
+        log(f"packing a config4 batch (B=16, {dt}, {p['batch_bytes']} B): "
+            f"C++ packer {p['native_ms']:.3f} ms, Python "
+            f"{p['python_ms']:.3f} ms (medians of {TIMED_ROUNDS} "
+            f"interleaved rounds; {p['packs']} C++ packs) — {card}")
+
     f32, steps = trained["auto"]["float32"]["launches"], TRAIN_STEPS["float32"]
     # phase 13: launches a step on each SP rank (the same on every mesh),
     # and the kernels' times at the 2x2 mesh's rank (0, 1)
@@ -4542,6 +5268,19 @@ def main() -> None:
                "kernel_errs": {k: v for k, v in sp_k.items()
                                if k.startswith(("k1_errs", "k4_errs"))},
                "phase_s": t13},
+        "cache": {"fit": {r: {"launches": cached[r]["launches"],
+                              "wall_s": cached[r]["wall_s"]}
+                          for r in ROUTES},
+                  "cpu_rel_diff": cached["cpu"],
+                  "cpu_grad_rel_diff": cached["cpu_grad_rel_diff"],
+                  "grouping": groups,
+                  "meshes": cache_mesh, "scale": scale,
+                  "step": {n: {k: v for k, v in ct[n].items()
+                               if k != "kernels"}
+                           for n in ("streaming", "cached")},
+                  "fit_step": ft,
+                  "batch_bytes": ct["batch_bytes"], "packer": packer,
+                  "grain": grain, "phase_s": t14},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)

@@ -1,10 +1,13 @@
 """Batch loader: bucketing, seeded shuffling, background prefetch.
 
-The port's copy of the Python path of `nafae_tpu/data/loader.py`: the same
+The port's copy of `nafae_tpu/data/loader.py`: the same
 `np.random.RandomState(seed + epoch)` order, so both packages see the same
 batches. Batches are dicts of numpy arrays with one [T,R,D] bucket each;
-device transfer happens in the caller. The JAX package's native C++ packer
-is not part of the port.
+device transfer happens in the caller. `use_native=True` packs them with
+the C++ packer (`utils/native_io.NativePacker`, bit for bit the Python
+packer's batches), except where it cannot: video datasets, transfer dtypes
+it cannot emit and int8 passthrough; a packer that cannot be built warns
+and the Python packer takes over.
 """
 
 from __future__ import annotations
@@ -66,19 +69,38 @@ def epoch_batches(dataset, batch_size: int, shuffle: bool, seed: int,
 class BatchLoader:
     def __init__(self, dataset, batch_size: int, shuffle: bool = True,
                  seed: int = 0, drop_remainder: bool = True,
-                 prefetch: int = 2):
+                 prefetch: int = 2, use_native: bool = False):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.drop_remainder = drop_remainder
         self.prefetch = prefetch
+        self._native = None
+        # the packer packs feature-file datasets (.npz under dataset.dir)
+        # into float batches: video datasets decode frames instead, and the
+        # int8 passthrough (keep_int8) keeps its int8 feats
+        if (use_native and hasattr(dataset, "dir")
+                and str(getattr(dataset, "transfer_dtype", "float32"))
+                in ("float32", "float16", "bfloat16")
+                and not getattr(dataset, "keep_int8", False)):
+            try:
+                from nafae_torch.utils.native_io import NativePacker
+                self._native = NativePacker(dataset)
+            except Exception as e:
+                # the Python packer gives the same batches; say so, since a
+                # silent fallback reads as the packer engaged
+                import warnings
+                warnings.warn(f"native IO packer unavailable, using the "
+                              f"Python loader: {type(e).__name__}: {e}")
 
     def _epoch_batches(self, epoch: int) -> list:
         return epoch_batches(self.dataset, self.batch_size, self.shuffle,
                              self.seed, self.drop_remainder, epoch)
 
     def _make_batch(self, idxs) -> dict[str, np.ndarray]:
+        if self._native is not None:
+            return self._native.pack(idxs)
         samples = [self.dataset[int(i)] for i in idxs]
         return {k: np.stack([s[k] for s in samples]) for k in samples[0]}
 

@@ -57,12 +57,23 @@ global batch.
 `train.tensorboard_dir` mirrors the logged scalars into a TensorBoard
 event file; `--profile DIR` writes a torch.profiler trace of the run, and
 `--debug-nans` turns on autograd's anomaly mode and checks every step's
-losses and gradients. Not ported yet, and raising NotImplementedError:
-the device-resident dataset (`train.device_cache`) and the grain
-pipeline. The CLI evaluates every `train.eval_every` steps on the val
-split (`evaluate.evaluate_config`), as the reference's does.
-`train.steps_per_call` groups steps into one XLA program in the JAX
-package; PyTorch runs eagerly, so the port ignores it.
+losses and gradients. The CLI evaluates every `train.eval_every` steps on
+the val split (`evaluate.evaluate_config`), as the reference's does.
+
+`train.steps_per_call` (spc) orders the steps and sets the cadence as in
+the reference, where a group of spc steps is one XLA program: the
+streaming fit applies spc batches of one frame bucket at a time, one
+train_step after the other with no host read between them (with several
+buckets not in the loader's yield order), takes the steps left over one
+by one, and logs, checkpoints and evaluates once a group.
+`train.device_cache=true` keeps the dataset on the device and gathers
+each batch there (`fit_device_cached`, with or without a mesh).
+Batches are packed by the C++ packer (`utils/native_io`, built by g++ at
+first use) when `data.use_native_io` is on, and `data.pipeline=grain`
+takes grain's batch order (`data/grain_loader`).
+
+    python -m nafae_torch.train --preset config4 --override data.root=... \\
+        train.device_cache=true train.steps_per_call=10 [--device cpu]
 """
 
 from __future__ import annotations
@@ -110,7 +121,6 @@ class TrainState:
                seed: int | None = None) -> "TrainState":
         """Random params and centers from a torch.Generator seeded with
         train.seed, on `device` (cuda unless "cpu" is asked for)."""
-        _check_supported(cfg)
         device = resolve_device(device)
         gen = torch.Generator().manual_seed(
             cfg.train.seed if seed is None else seed)
@@ -151,16 +161,6 @@ class TrainState:
         return cls(step=int(d["step"]), params=todict(d["params"]),
                    opt_state=opt, centers=to(d["centers"]),
                    bank=to(d["bank"]), bank_valid=to(d["bank_valid"]))
-
-
-def _check_supported(cfg: Config) -> None:
-    todo = {"train.device_cache": cfg.train.device_cache,
-            "data.pipeline=grain": cfg.data.pipeline == "grain"}
-    on = [k for k, v in todo.items() if v]
-    if on:
-        raise NotImplementedError(
-            f"{', '.join(on)}: not ported yet (the port trains from the "
-            "streaming loader)")
 
 
 def global_norm(tree: dict[str, torch.Tensor]) -> torch.Tensor:
@@ -565,13 +565,11 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     frames_per_sec counts the global batch. The returned state holds this
     rank's bank shard. debug_nans: autograd's anomaly mode for the run,
     and train_step's checks of every step."""
-    from nafae_torch.data.loader import BatchLoader
     from nafae_torch.data.youcook2 import SegmentDataset
     from nafae_torch.parallel.multihost import global_batch_spec, local_batch
     from nafae_torch.utils.checkpoint import CheckpointManager
     from nafae_torch.utils.metrics_log import MetricsLogger
 
-    _check_supported(cfg)
     lead = True
     if mesh is not None:
         from nafae_torch.parallel.mesh import axes_group, mesh_device
@@ -595,6 +593,9 @@ def fit(cfg: Config, device: str | torch.device | None = None,
         if not cfg.data.annotations:
             raise ValueError("data.from_videos needs data.annotations "
                              "(segments.jsonl)")
+        if cfg.train.device_cache:
+            raise ValueError("device_cache caches features, not raw frames; "
+                             "extract first or disable one of the two")
         ds = VideoSegmentDataset(cfg.data.annotations, cfg.data.max_frames,
                                  cfg.detector.image_size, cfg.data.max_words,
                                  frame_rate=cfg.detector.frame_rate,
@@ -609,6 +610,8 @@ def fit(cfg: Config, device: str | torch.device | None = None,
                             cfg.data.feat_dim, cfg.data.max_words,
                             frame_buckets=tuple(cfg.data.frame_buckets),
                             transfer_dtype=cfg.data.transfer_dtype)
+        if cfg.train.device_cache and len(ds.frame_buckets) > 1:
+            raise ValueError("device_cache requires a single frame bucket")
     state = TrainState.create(cfg, device=device)
     if cfg.model.word_vectors:
         state = replace(state, params={**state.params,
@@ -623,10 +626,7 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     logger = (MetricsLogger(cfg.train.ckpt_dir,
                             tensorboard_dir=cfg.train.tensorboard_dir)
               if lead else None)
-    loader = BatchLoader(ds, cfg.data.batch_size, shuffle=True,
-                         seed=cfg.train.seed, prefetch=cfg.data.prefetch)
     tx = make_optimizer(cfg)
-    spec = global_batch_spec(cfg, mesh, with_frames=cfg.data.from_videos)
 
     def save(state):
         if mesh is not None:
@@ -640,11 +640,28 @@ def fit(cfg: Config, device: str | torch.device | None = None,
         else:
             ckpt.save(state)
 
-    # resume the loader at its exact position (epoch + offset from the step)
+    if cfg.train.device_cache:
+        return fit_device_cached(cfg, state, ds, tx, device, save, logger,
+                                 log_fn=log_fn, eval_fn=eval_fn, mesh=mesh,
+                                 debug_nans=debug_nans)
+    # built after the device_cache return: the cached path never reads the
+    # streaming loader (a native packer would build its cache for nothing)
+    from nafae_torch.data.grain_loader import make_loader
+    loader = make_loader(cfg.data, ds, seed=cfg.train.seed,
+                         pipeline=cfg.data.pipeline)
+    spec = global_batch_spec(cfg, mesh, with_frames=cfg.data.from_videos)
+
+    # resume the loader at its exact position (epoch + offset from the
+    # step). Exact only when batches apply in yield order: spc == 1, or a
+    # single bucket. With several buckets and spc > 1 the grouping by
+    # bucket reorders the steps, so a resume restarts at the epoch boundary
+    # (it never skips a batch that was not applied), as the reference does.
+    spc = max(1, cfg.train.steps_per_call)
     start_step = state.step
     eb = loader.batches_per_epoch()
+    exact = spc == 1 or len(getattr(ds, "frame_buckets", ())) <= 1
     start_epoch = start_step // eb if eb else 0
-    skip = start_step % eb if eb else 0
+    skip = (start_step % eb if eb else 0) if exact else 0
     target = cfg.train.steps
     applied = start_step
     frames_applied = frames_logged = 0
@@ -655,39 +672,195 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     def due(kind, every):
         return every > 0 and applied - last_fired[kind] >= every
 
-    budget = (target - applied) * 2 + 16
+    def apply(batch):
+        nonlocal state, metrics, applied, frames_applied
+        state, metrics = train_step(
+            state, batch_to_device(local_batch(batch, spec, mesh), device),
+            cfg, tx, extractor, mesh, debug_nans)
+        applied += 1
+        frames_applied += int(np.prod(batch["frame_mask"].shape))
+
+    def emit():
+        nonlocal t0, frames_logged
+        if due("log", cfg.train.log_every):
+            last_fired["log"] = applied
+            if lead:
+                m = {k: float(v) for k, v in metrics.items()}
+                m["frames_per_sec"] = ((frames_applied - frames_logged)
+                                       / max(time.perf_counter() - t0, 1e-9))
+                m["step"] = applied
+                logger.log(m)
+                if log_fn:
+                    log_fn(m)
+            t0, frames_logged = time.perf_counter(), frames_applied
+        if due("ckpt", cfg.train.ckpt_every):
+            last_fired["ckpt"] = applied
+            save(state)
+        if eval_fn and due("eval", cfg.train.eval_every):
+            last_fired["eval"] = applied
+            if lead:
+                eval_fn(state)
+
+    # enough yields to cover the batches a bucket leaves over; the loop
+    # ends on `applied >= target`, not on the budget
+    budget = (target - applied) * 2 + spc * 16
+    pending: dict[int, list] = {}
     with torch.autograd.set_detect_anomaly(debug_nans):
         for _, batch in loader.steps(budget, start_epoch=start_epoch,
                                      skip=skip):
             if applied >= target:
                 break     # e.g. re-running an already-completed checkpoint
-            state, metrics = train_step(
-                state, batch_to_device(local_batch(batch, spec, mesh),
-                                       device), cfg, tx, extractor, mesh,
-                debug_nans)
-            applied += 1
-            frames_applied += int(np.prod(batch["frame_mask"].shape))
-            if due("log", cfg.train.log_every):
-                last_fired["log"] = applied
+            if spc > 1:
+                # a group is spc batches of one frame bucket, applied one
+                # after the other with no host read between them
+                key = batch["frame_mask"].shape[1]
+                pending.setdefault(key, []).append(batch)
+                if target - applied < spc:
+                    # fewer steps left than a group: stop collecting once
+                    # the tail below has enough batches
+                    if sum(len(g) for g in pending.values()) >= \
+                            target - applied:
+                        break
+                    continue
+                if len(pending[key]) < spc:
+                    continue
+                for b in pending.pop(key):
+                    apply(b)
+            else:
+                apply(batch)
+            emit()
+            if applied >= target:
+                break
+        # the tail: fewer than spc steps left, or a dataset too small to
+        # fill a group; the pending batches one by one, in bucket order
+        for b in [b for grp in pending.values() for b in grp]:
+            if applied >= target:
+                break
+            apply(b)
+            emit()
+    save(state)
+    return state, metrics
+
+
+def build_cache(ds, device: torch.device, mesh=None
+                ) -> dict[str, torch.Tensor]:
+    """The dataset on the device for train.device_cache: one pass ds[i]
+    over every segment, each key but boxes (which the step never reads)
+    stacked along a new dim 0 and copied once, in the dataset's dtypes
+    (feats in its transfer dtype). Under a mesh, this rank's frame shard of
+    feats, region_mask and frame_mask (frames [f·T/F, (f+1)·T/F)) and
+    every other key whole."""
+    samples = [ds[i] for i in range(len(ds))]
+    host = {k: np.stack([s[k] for s in samples])
+            for k in samples[0] if k != "boxes"}
+    del samples
+    if mesh is not None:
+        f, nf = mesh.get_coordinate()[1], int(mesh.mesh.shape[1])
+        for k in ("feats", "region_mask", "frame_mask"):
+            host[k] = S.shard_rows(host[k], f, nf, 1)
+    return {k: torch.from_numpy(np.ascontiguousarray(host.pop(k))).to(device)
+            for k in list(host)}
+
+
+def fit_device_cached(cfg: Config, state: TrainState, ds, tx: Optimizer,
+                      device: torch.device, save, logger, log_fn=None,
+                      eval_fn=None, mesh=None, debug_nans: bool = False
+                      ) -> tuple[TrainState, dict]:
+    """The training loop with the dataset resident on the device
+    (train.device_cache; the reference's `fit_device_cached`).
+
+    The dataset is uploaded once (`build_cache`); each step's batch is
+    gathered on the device by index (`index_select` along dim 0). The
+    index stream is the reference's: a RandomState seeded with train.seed
+    draws one permutation of the segments per epoch, batches run across
+    epoch boundaries, and a resumed run skips the start step's positions.
+    A call takes steps_per_call steps (the last one the steps left) with
+    no host read between them, and its metrics are its last step's;
+    logging, eval and checkpoints fire on the calls where
+    step % max(every, spc) < spc.
+
+    mesh: each rank holds its frame shard of feats, region_mask and
+    frame_mask (an F-way frame axis divides its cache by F) and every
+    other key whole, and gathers its data rank's rows of each global index
+    batch; the step is train_step's DP/SP step, so the trajectory is the
+    single device's. `save` writes the single-device checkpoint (rank 0)."""
+    from nafae_torch.parallel.multihost import process_shard
+
+    n = len(ds)
+    bsz = cfg.data.batch_size
+    cache = build_cache(ds, device, mesh)
+    rows = range(bsz)
+    lead = mesh is None or torch.distributed.get_rank() == 0
+    nf = 1
+    if mesh is not None:
+        (d, _), (nd, nf) = mesh.get_coordinate(), mesh.mesh.shape
+        rows = process_shard(bsz, d, int(nd))
+    # frames of a global batch, from the cache's own T: a single bucket
+    # may be smaller than data.max_frames
+    frames_per_batch = bsz * int(cache["frame_mask"].shape[1]) * int(nf)
+    spc = max(1, cfg.train.steps_per_call)
+    start_step = state.step
+    total = cfg.train.steps - start_step
+    rng = np.random.RandomState(cfg.train.seed)
+    # resume: skip the positions the steps before start_step consumed
+    order: list = []
+    consumed = start_step * bsz
+    while consumed > 0:
+        ep = np.arange(n)
+        rng.shuffle(ep)
+        if consumed >= n:
+            consumed -= n
+        else:
+            order = ep[consumed:].tolist()
+            consumed = 0
+    done = done_logged = 0
+    gstep = start_step
+    t0 = t_start = time.perf_counter()
+    metrics: dict = {}
+
+    def due(every):
+        return every > 0 and gstep % max(every, spc) < spc
+
+    with torch.autograd.set_detect_anomaly(debug_nans):
+        while done < total:
+            take = min(spc, total - done)
+            while len(order) < take * bsz:
+                ep = np.arange(n)
+                rng.shuffle(ep)
+                order.extend(ep.tolist())
+            idxs = np.asarray(order[:take * bsz], np.int64).reshape(take,
+                                                                    bsz)
+            order = order[take * bsz:]
+            idxs = torch.from_numpy(idxs[:, rows.start:rows.stop].copy())
+            if device.type == "cuda":     # one copy a call, no host wait
+                idxs = idxs.pin_memory().to(device, non_blocking=True)
+            for j in range(take):
+                batch = {k: v.index_select(0, idxs[j])
+                         for k, v in cache.items()}
+                state, metrics = train_step(state, batch, cfg, tx, mesh=mesh,
+                                            debug_nans=debug_nans)
+            done += take
+            gstep = start_step + done
+            if due(cfg.train.log_every):
+                now = time.perf_counter()
                 if lead:
                     m = {k: float(v) for k, v in metrics.items()}
-                    m["frames_per_sec"] = ((frames_applied - frames_logged)
-                                           / max(time.perf_counter() - t0,
-                                                 1e-9))
-                    m["step"] = applied
+                    # windowed since the last log, and since the start
+                    # (which includes the upload)
+                    m["frames_per_sec"] = (frames_per_batch
+                                           * (done - done_logged)
+                                           / max(now - t0, 1e-9))
+                    m["frames_per_sec_avg"] = (frames_per_batch * done
+                                               / max(now - t_start, 1e-9))
+                    m["step"] = gstep
                     logger.log(m)
                     if log_fn:
                         log_fn(m)
-                t0, frames_logged = time.perf_counter(), frames_applied
-            if due("ckpt", cfg.train.ckpt_every):
-                last_fired["ckpt"] = applied
+                t0, done_logged = now, done
+            if eval_fn and due(cfg.train.eval_every) and lead:
+                eval_fn(state)
+            if due(cfg.train.ckpt_every):
                 save(state)
-            if eval_fn and due("eval", cfg.train.eval_every):
-                last_fired["eval"] = applied
-                if lead:
-                    eval_fn(state)
-            if applied >= target:
-                break
     save(state)
     return state, metrics
 

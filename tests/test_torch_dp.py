@@ -63,6 +63,9 @@ INLINE_OV = ["model.feat_dim=2048", "model.embed_dim=32", "data.batch_size=4",
              "detector.anchor_scales=[16,32]", "train.donate=false",
              "train.warmup_steps=0"]
 PARAM_TOL = dict(rtol=0, atol=1e-5)
+# train.device_cache under a mesh: two calls of 3 steps, with the bank
+CACHE_OV = ["train.device_cache=true", "train.steps_per_call=3"]
+CACHE_STEPS = 6
 METRIC_TOL = dict(rtol=2e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
 BF16_TOL = dict(rtol=2e-2, atol=2e-2)
@@ -177,10 +180,10 @@ def _fit_ov(root, ckpt, steps, extra=()):
                  "loss.kmeans_source=bank", "loss.bank_steps=3", *extra]
 
 
-def _fit(root, ckpt, steps):
+def _fit(root, ckpt, steps, extra=()):
     logs = []
     cfg = tcfg.load_config(preset_name="config4",
-                           overrides=_fit_ov(root, ckpt, steps))
+                           overrides=_fit_ov(root, ckpt, steps, extra))
     state, _ = TT.fit(cfg, device="cpu", log_fn=logs.append)
     return state, logs
 
@@ -233,6 +236,9 @@ def world2(synth_root, tmp_path_factory):
                             "model.embed_dim=32", "data.batch_size=5",
                             f"data.root={synth_root}"],
               "params": _oracle()},
+        fit_cache={"kind": "fit", "preset": "config4",
+                   "overrides": _fit_ov(synth_root, os.path.join(tmp, "fc"),
+                                        CACHE_STEPS, CACHE_OV)},
         audit=_audit_case(),
         errors={"kind": "errors", "preset": "config4",
                 "overrides": OV + [f"data.root={synth_root}",
@@ -342,6 +348,42 @@ def test_dp_fit_logs_once_and_resumes_on_one_device(world2, synth_root):
                                    **PARAM_TOL)
     np.testing.assert_allclose(back["centers"], whole.centers.numpy(),
                                **PARAM_TOL)
+
+
+def check_cached_fit(outs, root, tmp, extra, ptol):
+    """The cached fit of the world's case "fit_cache" against the
+    single-device cached fit: rank 0 alone logs, at steps 3 and 6, rows
+    within METRIC_TOL; params and centers within ptol; the checkpoint's
+    bank (gathered from every rank's shard) within ptol."""
+    got = outs[0]["fit_cache"]
+    assert all(o["fit_cache"]["logs"] == [] for o in outs[1:])
+    assert got["step"] == CACHE_STEPS
+    whole, logs = _fit(root, os.path.join(tmp, "fc_single"), CACHE_STEPS,
+                       CACHE_OV + list(extra))
+    assert [m["step"] for m in got["logs"]] == [m["step"] for m in logs] \
+        == [3, 6]
+    for g, s in zip(got["logs"], logs):
+        assert set(g) == set(s)
+        for k in s:
+            if k not in ("frames_per_sec", "frames_per_sec_avg", "ts"):
+                np.testing.assert_allclose(g[k], s[k], err_msg=k,
+                                           **METRIC_TOL)
+    for k, v in whole.params.items():
+        np.testing.assert_allclose(got["params"][k], v.numpy(), err_msg=k,
+                                   **ptol)
+    np.testing.assert_allclose(got["centers"], whole.centers.numpy(), **ptol)
+    saved = torch.load(os.path.join(tmp, "fc", f"state_{CACHE_STEPS}.pt"),
+                       weights_only=True)
+    np.testing.assert_allclose(saved["bank"].numpy(), whole.bank.numpy(),
+                               **ptol)
+
+
+def test_dp_cached_fit_matches_single_device(world2, synth_root):
+    """train.device_cache on 2 ranks: each gathers its rows of every
+    global index batch from its own cache; the run is the single
+    device's."""
+    outs, _, tmp = world2
+    check_cached_fit(outs, synth_root, tmp, [], PARAM_TOL)
 
 
 def test_dp_eval_matches_single_device(world2, synth_root):

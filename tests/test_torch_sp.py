@@ -38,8 +38,9 @@ from nafae_torch import train as TT
 from nafae_torch.models.grounding import state_from_jax
 from nafae_torch.ops import grounding as G
 from tests import torch_sp_worker as SW
-from tests.test_torch_dp import (INLINE_OV, OV, _batches, _fit,
-                                 _same_across_ranks, _single_device)
+from tests.test_torch_dp import (CACHE_OV, CACHE_STEPS, INLINE_OV, OV,
+                                 _batches, _fit, _same_across_ranks,
+                                 _single_device, check_cached_fit)
 from tests.test_torch_train import _jax_gumbels
 
 WORLD = 4
@@ -182,10 +183,10 @@ def _prepare_steps(root):
     return cases, refs
 
 
-def _fit_ov(root, ckpt, steps):
+def _fit_ov(root, ckpt, steps, extra=()):
     return OV + [f"data.root={root}", f"train.ckpt_dir={ckpt}",
                  f"train.steps={steps}", "train.log_every=1",
-                 "loss.kmeans_source=bank", "loss.bank_steps=3"]
+                 "loss.kmeans_source=bank", "loss.bank_steps=3", *extra]
 
 
 @pytest.fixture(scope="module")
@@ -202,7 +203,10 @@ def world(synth_root, tmp_path_factory):
              + mesh},
         fit_resume={"kind": "fit", "preset": "config4", "mesh": (2, 2),
                     "overrides": _fit_ov(synth_root, os.path.join(tmp, "fb"),
-                                         5) + mesh})
+                                         5) + mesh},
+        fit_cache={"kind": "fit", "preset": "config4", "mesh": (2, 2),
+                   "overrides": _fit_ov(synth_root, os.path.join(tmp, "fc"),
+                                        CACHE_STEPS, CACHE_OV) + mesh})
     return SW.spawn(WORLD, tmp, cases), refs, tmp
 
 
@@ -335,6 +339,14 @@ def test_sp_fit_logs_once_and_resumes_on_one_device(world, synth_root):
                                    **PARAM_TOL)
     np.testing.assert_allclose(back["centers"], whole.centers.numpy(),
                                **CENTER_TOL)
+
+
+def test_sp_cached_fit_matches_single_device(world, synth_root):
+    """train.device_cache on a (2,2) mesh: each rank caches its frame
+    shard of feats and masks (half of T) and gathers its rows of every
+    global index batch; the run is the single device's."""
+    outs, _, tmp = world
+    check_cached_fit(outs, synth_root, tmp, [], PARAM_TOL)
 
 
 def test_sp_halo_bytes_and_no_region_gather(world):

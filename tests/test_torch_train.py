@@ -502,3 +502,59 @@ def test_fit_with_kmeans_plusplus_matches_jax(synth_root, tmp_path,
     np.testing.assert_allclose(tstate.centers.numpy(),
                                np.asarray(jstate.centers), rtol=1e-5,
                                atol=1e-6)
+
+
+def _fit_both_runs(synth_root, tmp_path, monkeypatch, extra, steps):
+    """fit of each package from JAX's initial state, once for each entry
+    of `steps` in one checkpoint directory each (so a later entry resumes
+    the earlier run); returns both final states and metrics.jsonl rows."""
+    js = None
+    for n in steps:
+        jc, tc = _cfgs(synth_root, "config4", extra + [
+            f"train.steps={n}", "train.log_every=1"])
+        jc = replace(jc, train=replace(jc.train, ckpt_dir=str(tmp_path / "j")))
+        tc = replace(tc, train=replace(tc.train, ckpt_dir=str(tmp_path / "t")))
+        if js is None:
+            js, _ = _start(jc)
+            monkeypatch.setattr(
+                TT.TrainState, "create",
+                classmethod(lambda cls, cfg, device=None, seed=None:
+                            state_from_jax(js, "cpu")))
+        jstate, _ = JT.fit(jc, None)
+        tstate, _ = TT.fit(tc, device="cpu")
+    from nafae_torch.utils.metrics_log import MetricsLogger
+    return (jstate, tstate, MetricsLogger(str(tmp_path / "j")).read(),
+            MetricsLogger(str(tmp_path / "t")).read())
+
+
+@pytest.mark.parametrize("extra,steps,logged", [
+    pytest.param(["data.frame_buckets=[4,8]", "train.steps_per_call=2"], [7],
+                 [2, 4, 6, 7], id="two-buckets"),
+    pytest.param(["train.steps_per_call=3"], [7], [3, 6, 7], id="tail"),
+    pytest.param(["data.frame_buckets=[4,8]", "train.steps_per_call=2",
+                  "train.ckpt_every=2"], [4, 7], [2, 4, 6, 7],
+                 id="two-buckets-resumed")])
+def test_fit_steps_per_call_matches_jax(synth_root, tmp_path, monkeypatch,
+                                        extra, steps, logged):
+    """steps_per_call > 1 in the streaming fit, as in the reference: a
+    group is spc batches of one frame bucket (applied when its bucket has
+    spc of them, so not in the yield order), the steps left over go one
+    by one, metrics rows come once a group, and with several buckets a
+    resume restarts at the epoch boundary. Params after the run (1e-5)
+    and every row's step and values (rtol 1e-5) are the JAX package's."""
+    jstate, tstate, jrows, trows = _fit_both_runs(
+        synth_root, tmp_path, monkeypatch,
+        extra + ["loss.kmeans_interval=2"], steps)
+    assert tstate.step == int(jstate.step) == steps[-1]
+    assert [r["step"] for r in trows] == [r["step"] for r in jrows] == logged
+    for j, t in zip(jrows, trows):
+        for k in j:
+            if k not in ("frames_per_sec", "ts"):
+                np.testing.assert_allclose(t[k], j[k], rtol=1e-5, atol=1e-6,
+                                           err_msg=k)
+    for k, v in jstate.params.items():
+        np.testing.assert_allclose(tstate.params[k].numpy(), np.asarray(v),
+                                   rtol=1e-5, atol=1e-5, err_msg=k)
+    np.testing.assert_allclose(tstate.centers.numpy(),
+                               np.asarray(jstate.centers), rtol=1e-5,
+                               atol=1e-5)
