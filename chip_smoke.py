@@ -125,7 +125,8 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    --nproc_per_node 1 -m nafae_torch.train --mesh`, whose metrics.jsonl
    equals the in-process DP run's, and `-m nafae_torch.evaluate --mesh`,
    whose hits equal phase 7's; a `--profile` run with
-   `train.tensorboard_dir` (the trace names K1fr's and K1br's kernels, the
+   `train.tensorboard_dir` (the trace names K1fr's and K1br's kernels,
+   as often as the step's graph replays and warm-up steps run them, the
    event file equals metrics.jsonl); a fit with debug_nans; and, after
    phase 9, one inline config-5 step on the mesh with
    `detector.roi_impl=pallas` (K2 and K5 once). Two ranks cannot share
@@ -170,7 +171,26 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    (f) phase 5's batches packed
    by the C++ packer and by Python bit for bit equal in f32 and f16, the
    ms to pack each way; (g) 3 steps of `fit` with `data.pipeline=grain`
-   (its first batch grain's order).
+   (its first batch grain's order); (b) and (g) record the batches where
+   `fit` hands them to the step function `build_train_fn` returns.
+15. the training step as one device program (run after phase 14, on
+   phase 5's data): `fit` now replays the config-4 step captured in CUDA
+   graphs (`build_train_fn`). (a) f32 and bf16, both routes, streaming
+   and cached, steps_per_call 1 and 3, 7 steps refreshing the k-means
+   centers every 3 (both graphs replayed): rows, params, centers and
+   optimizer state bit for bit `train_step` run eagerly on the card over
+   the same batches; (b) launches per_step_launches x steps, two graphs
+   and a replay a step, no eager step but a k-means++ seeding step 0
+   (a seeded run, bit for bit too); (c) phase 14 (b)'s two buckets at
+   steps_per_call 3: a graph pair a bucket, its order, bit for bit the
+   eager chain; (d) the selection bank over a ring of 4 slots (it
+   wraps), bank included; (e) phase 12's world-of-one NCCL mesh with its
+   collectives captured, bit for bit the graphed run without a mesh; (f)
+   stopped at step 4 and resumed to 7 (captured after the restore), bit
+   for bit the uninterrupted run; (g) the step host to host graphed
+   against eager, cached and on prepacked streaming batches, with the
+   card's busy time and idle share, `fit` from the cache a row a step,
+   the capture seconds and the graph pool's reserved bytes.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -3326,7 +3346,7 @@ def check_clis(torch, root: str, tmp: str, dp: dict, evals: dict) -> dict:
     and f32 checkpoint, whose hits must equal phase 7's; and an
     OBS_STEPS-step `-m nafae_torch.train --profile DIR` run with
     train.tensorboard_dir, whose trace must name K1fr's and K1br's kernels
-    and whose event file, read back by read_events (CRCs checked), must
+    once for each graph replay and warm-up step, and whose event file, read back by read_events (CRCs checked), must
     equal its metrics.jsonl. Meanwhile, in this process, an OBS_STEPS-step
     fit with debug_nans (anomaly mode, finite checks) must train."""
     from nafae_torch.train import fit
@@ -3405,12 +3425,23 @@ def check_clis(torch, root: str, tmp: str, dp: dict, evals: dict) -> dict:
     (trace,) = [f for f in os.listdir(prof) if f.endswith(".pt.trace.json")]
     with open(os.path.join(prof, trace)) as f:
         events = json.load(f)["traceEvents"]
-    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    names = [e["name"] for e in events if e.get("cat") == "kernel"]
+    kernels = set(names)
     found = {k: sorted(n for n in kernels if k in n)[:2] for k in K1_NAMES}
     if not all(found.values()):
         fail(f"the --profile trace lacks "
              f"{[k for k, v in found.items() if not v]} among its "
              f"{len(kernels)} kernels")
+    # the run is captured in two graphs (a refresh at step 0, then none),
+    # each after WARMUP_STEPS eager steps: each of K1fr's and K1br's
+    # kernels runs once in each warm-up step and once in each replay, so
+    # the trace names the replayed ones only if it counts them all
+    from nafae_torch.train import WARMUP_STEPS
+    named = {k: sum(k in n for n in names) for k in K1_NAMES}
+    if any(n != OBS_STEPS + 2 * WARMUP_STEPS for n in named.values()):
+        fail(f"the --profile trace names K1fr's and K1br's kernels {named} "
+             f"times; {OBS_STEPS} replays and {2 * WARMUP_STEPS} warm-up "
+             "steps run each once")
     (tbf,) = os.listdir(tb)
     evs = read_events(os.path.join(tb, tbf))
     recs = MetricsLogger(ck_obs).read()
@@ -3423,7 +3454,9 @@ def check_clis(torch, root: str, tmp: str, dp: dict, evals: dict) -> dict:
         fail(f"the event file {evs} does not match metrics.jsonl {recs}")
     log(f"train --profile + train.tensorboard_dir ({OBS_STEPS} steps): trace "
         f"{trace} ({os.path.getsize(os.path.join(prof, trace))} bytes, "
-        f"{len(kernels)} kernel names) holds {found}; the event file "
+        f"{len(kernels)} kernel names) holds {found}, each "
+        f"{OBS_STEPS + 2 * WARMUP_STEPS} times ({OBS_STEPS} graph replays, "
+        f"{2 * WARMUP_STEPS} warm-up steps); the event file "
         f"({len(evs)} events, CRCs checked) equals metrics.jsonl; CLI wall "
         f"s, run together: {walls}")
     return {"cli_wall_s": walls, "eval_hits": hits, "trace_kernels": found,
@@ -4209,32 +4242,29 @@ def cpu_rows_agree(card: list[dict], cpu: list[dict], what: str) -> float:
 
 
 def recorded_fit(torch, cfg, device: str) -> dict:
-    """fit on `device` with every train_step call recorded: the rows, the
-    segment ids of each applied batch, and the params before the first
-    step and before and after step CPU_STEPS (on the host)."""
-    import nafae_torch.train as TT
-
-    real, seen, params, logs = TT.train_step, [], {}, []
+    """fit on `device` with every batch recorded where fit hands it to the
+    step function `build_train_fn` returned: the rows, the segment ids of
+    each applied batch, and the params before the first step and before
+    and after step CPU_STEPS (on the host)."""
+    seen, params = [], {}
 
     def on_host(state):
         return {k: v.detach().cpu().clone() for k, v in state.params.items()}
 
-    def step(state, batch, *a, **kw):
-        if not seen:
-            params["init"] = on_host(state)
-        seen.append(batch["segment_id"].cpu().numpy())
-        if len(seen) == CPU_STEPS:
-            params["before"] = on_host(state)
-        state, m = real(state, batch, *a, **kw)
-        if len(seen) == CPU_STEPS:
-            params["after"] = on_host(state)
-        return state, m
+    def wrap(fn):
+        def step(state, batch):
+            if not seen:
+                params["init"] = on_host(state)
+            seen.append(np.asarray(batch["segment_id"]).copy())
+            if len(seen) == CPU_STEPS:
+                params["before"] = on_host(state)
+            state, m = fn(state, batch)
+            if len(seen) == CPU_STEPS:
+                params["after"] = on_host(state)
+            return state, m
+        return step
 
-    TT.train_step = step
-    try:
-        TT.fit(cfg, device=device, log_fn=logs.append)
-    finally:
-        TT.train_step = real
+    logs = traced_fit(torch, cfg, device=device, wrap=wrap)["logs"]
     return {"logs": logs, "seen": seen, **params}
 
 
@@ -4340,7 +4370,7 @@ def check_grouping(torch, tmp: str) -> dict:
         + f" of the entries; launches {counts}; {packs} batches packed in "
         "C++")
     return {"buckets": buckets, "packs": packs, "launches": counts,
-            "cpu_rel_diff": worst, "cpu_abs_diff_by_key": diffs,
+            "seen": [a.tolist() for a in seen], "cpu_rel_diff": worst, "cpu_abs_diff_by_key": diffs,
             "ulps": ulps,
             "param_update_rel_diff": uworst, "params": upd, "steps": steps,
             "rows": {"card": card["logs"], "cpu": cpu["logs"]}}
@@ -4670,26 +4700,20 @@ def check_grain(torch, root: str, tmp: str) -> dict:
     """Phase 14 (g): 3 f32 steps of fit with data.pipeline=grain (grain's
     batch order, without grain) on phase 5's data: finite rows, the auto
     route's launches, and its first batch the one grain's order gives."""
-    import nafae_torch.train as TT
     from nafae_torch.config import load_config
     from nafae_torch.data.grain_loader import index_shuffle
 
     cfg = load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
         f"data.root={root}", f"train.ckpt_dir={os.path.join(tmp, 'ck_grain')}",
         "train.steps=3", "data.pipeline=grain"])
-    real, seen = TT.train_step, []
-
-    def recording(state, batch, *a, **kw):
-        seen.append(batch["segment_id"].cpu().numpy())
-        return real(state, batch, *a, **kw)
-
-    TT.train_step = recording
-    try:
-        zero_counts()                           # main path starts here
-        logs = run_fit(torch, cfg)
-        counts = read_counts()                  # ... and ends here
-    finally:
-        TT.train_step = real
+    zero_counts()                               # main path starts here
+    run = traced_fit(torch, cfg)
+    counts = read_counts()                      # ... and ends here
+    logs, seen = run["logs"], [np.asarray(b["segment_id"])
+                               for b in run["seen"]]
+    if len(logs) != 3 or not all(np.isfinite(v) for m in logs
+                                 for v in m.values()):
+        fail(f"grain fit logged {logs}")
     want = {k: n * 3 for k, n in per_step_launches("auto").items()}
     if counts != want:
         fail(f"grain fit launched {counts}, expected {want}")
@@ -4701,6 +4725,543 @@ def check_grain(torch, root: str, tmp: str) -> dict:
         f"{seen[0].tolist()} (grain's order), loss {logs[0]['loss']:.5f} -> "
         f"{logs[-1]['loss']:.5f}; launches {counts}")
     return {"losses": [m["loss"] for m in logs], "launches": counts}
+
+
+# ------------------------- the training step as CUDA graphs (phase 15)
+
+GRAPH_STEPS = 7                  # steps of each phase-15 run
+# k-means refreshes at steps 0, 3 and 6: both graphs of a shape replay
+GRAPH_INTERVAL = ["loss.kmeans_interval=3"]
+GRAPH_DTYPES = ("float32", "bfloat16")
+GRAPH_SPC = (1, 3)
+GRAPH_BANK = ["loss.kmeans_source=bank", "loss.bank_steps=4"]   # wraps
+GRAPH_RESUME_AT = 4              # (f): stop here, then resume to 7
+
+
+def graph_cfg(root: str, ckpt: str, dtype: str, route: str, spc: int,
+              cached: bool, extra=()):
+    """Phase 5's config4 run at full width, GRAPH_STEPS steps in calls of
+    spc, refreshing every 3 steps, streaming or from the device cache."""
+    from nafae_torch.config import load_config
+
+    return load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
+        f"data.root={root}", f"train.ckpt_dir={ckpt}", f"model.dtype={dtype}",
+        f"train.steps={GRAPH_STEPS}", f"train.kernels={route}",
+        f"train.steps_per_call={spc}",
+        f"train.device_cache={str(cached).lower()}", *GRAPH_INTERVAL,
+        *extra])
+
+
+def traced_fit(torch, cfg, device="cuda", mesh=None, wrap=None) -> dict:
+    """`fit` as a user calls it, with the step programs it builds
+    (`build_train_fn`) kept and every batch handed to them recorded (a
+    host batch copied, an index batch cloned on the device); `wrap`, if
+    given, wraps the recording step function. Returns {"logs", "state",
+    "programs", "seen", "wall_s"}."""
+    import nafae_torch.train as TT
+
+    real, programs, seen = TT.build_train_fn, [], []
+
+    def build(*a, **kw):
+        prog = real(*a, **kw)
+        programs.append(prog)
+
+        def step(state, batch):
+            seen.append(batch.clone() if isinstance(batch, torch.Tensor)
+                        else {k: np.array(v) for k, v in batch.items()})
+            return prog(state, batch)
+        return wrap(step) if wrap else step
+
+    logs = []
+    TT.build_train_fn = build
+    t0 = time.perf_counter()
+    try:
+        state, _ = TT.fit(cfg, device=None if mesh is not None else device,
+                          log_fn=logs.append, mesh=mesh)
+    finally:
+        TT.build_train_fn = real
+    return {"logs": logs, "state": state, "programs": programs, "seen": seen,
+            "wall_s": time.perf_counter() - t0}
+
+
+def eager_chain(torch, cfg, seen, cache=None) -> dict:
+    """train_step on the card, op by op, over the batches a traced fit
+    applied (index batches gathered from `cache`), from the initial state
+    fit starts from: {"rows": {step: metrics}, "state"}."""
+    from nafae_torch.train import (TrainState, batch_to_device,
+                                   make_optimizer, train_step)
+
+    dev = torch.device("cuda")
+    st, tx = TrainState.create(cfg, device=dev), make_optimizer(cfg)
+    rows = {}
+    for i, b in enumerate(seen, 1):
+        batch = ({k: v.index_select(0, b) for k, v in cache.items()}
+                 if cache is not None else batch_to_device(b, dev))
+        st, m = train_step(st, batch, cfg, tx)
+        rows[i] = {k: float(v) for k, v in m.items()}
+    return {"rows": rows, "state": st}
+
+
+def same_bits(torch, x, y) -> bool:
+    if x is None or y is None:
+        return x is y
+    return x.shape == y.shape and x.dtype == y.dtype and torch.equal(
+        x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
+
+
+def state_diffs(torch, a, b) -> list[str]:
+    """The parts of two TrainStates that are not the same bits: params,
+    optimizer tensors and count, centers, bank, bank_valid, step."""
+    bad = [f"params.{k}" for k in a.params
+           if not same_bits(torch, a.params[k], b.params[k])]
+    for name, d in a.opt_state.items():
+        if isinstance(d, dict):
+            bad += [f"{name}.{k}" for k in d
+                    if not same_bits(torch, d[k], b.opt_state[name][k])]
+        elif d != b.opt_state[name]:
+            bad.append(name)
+    bad += [n for n in ("centers", "bank", "bank_valid")
+            if not same_bits(torch, getattr(a, n), getattr(b, n))]
+    return bad + (["step"] if a.step != b.step else [])
+
+
+def rows_differ(logs: list[dict], rows: dict) -> list[int]:
+    """The logged steps whose row is not the eager chain's bit for bit."""
+    return [m["step"] for m in logs
+            if set(rows[m["step"]]) != set(m) - set(RATES) - {"step"}
+            or not metrics_equal(rows[m["step"]], m)]
+
+
+def expect_graphed(run: dict, what: str, graphs: int, steps: int,
+                   eager: int = 0) -> dict:
+    """The one program of a traced fit: captured, `graphs` graphs, a
+    replay every step but `eager` eager ones; returns its stats."""
+    if len(run["programs"]) != 1:
+        fail(f"{what}: fit built {len(run['programs'])} step programs")
+    from nafae_torch.train import WARMUP_STEPS
+
+    prog = run["programs"][0]
+    st = dict(prog.stats)
+    if not prog.graphed or st["graphs"] != graphs or \
+            st["replays"] != steps - eager or st["eager_steps"] != eager \
+            or st["warmup_steps"] != graphs * WARMUP_STEPS:
+        fail(f"{what}: the step program ran {st} (eager: "
+             f"{prog.eager_reason}); expected {graphs} graphs, "
+             f"{steps - eager} replays, {eager} eager steps and "
+             f"{graphs * WARMUP_STEPS} warm-up steps")
+    return st
+
+
+# the device kernels that one launch of a wrapper on the graphed path runs,
+# each once, as a profiler trace names them (substrings of the name)
+TRACE_NAMES = {
+    "ctx_mix_fwd_res": ("ctx_mix_fwd_pairs", "ctx_mix_fwd_mix"),
+    "ctx_mix_bwd_res": ("ctx_mix_bwd_pairs", "ctx_mix_bwd_gather"),
+    "cross_mil": ("cross_mil_",),
+    "diag_epilogue": ("diag_centers_kernel", "diag_fwd_kernel"),
+    "diag_epilogue_bwd": ("diag_bwd_kernel",),
+}
+
+
+def traced_replay(torch, prog, state, batch, route: str, path: str) -> dict:
+    """One more step of a graphed program `prog` (a replay of its graph
+    without a refresh) under torch.profiler, its trace written to `path`
+    and read back as phase 12 reads the --profile trace: each kernel of
+    TRACE_NAMES must be named there as often as per_step_launches(route)
+    says, and the launch counts must have grown by just that. Returns
+    {name: times named}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    was = dict(prog.stats)
+    torch.cuda.synchronize()
+    zero_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        prog(state, batch)
+        torch.cuda.synchronize()
+    counted = read_counts()
+    if prog.stats["replays"] != was["replays"] + 1 or \
+            prog.stats["graphs"] != was["graphs"]:
+        fail(f"the traced step of {path} was no replay: {prog.stats}")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        names = [e["name"] for e in json.load(f)["traceEvents"]
+                 if e.get("cat") == "kernel"]
+    os.remove(path)
+    per = per_step_launches(route)
+    want = {}
+    for key, subs in TRACE_NAMES.items():
+        for sub in subs:
+            want[sub] = want.get(sub, 0) + per[key]
+    named = {sub: sum(sub in n for n in names) for sub in want}
+    if named != want or counted != per:
+        fail(f"the traced replay ({path}) names {named} (expected {want}) "
+             f"among {len(names)} kernels; launches counted {counted}, "
+             f"expected {per}")
+    return named
+
+
+def check_graphs(torch, root: str, tmp: str) -> dict:
+    """Phase 15 (a, b): `fit` in f32 and bf16 on both routes, streaming and
+    cached, at steps_per_call 1 and 3, GRAPH_STEPS steps with a k-means
+    refresh every 3: each run captured in two graphs (refresh or not) and
+    replayed every step, launches per_step_launches x steps, and its
+    rows, params, centers and optimizer state bit for bit those of
+    `train_step` run eagerly on the card over the same batches. The
+    warm-up steps' launches, set apart from the counts, are
+    per_step_launches x warm-up steps; after each spc-3 run one more
+    step, traced (`traced_replay`), names each kernel of the route as
+    often as the accounting adds for a replay."""
+    from nafae_torch.train import WARMUP_STEPS
+
+    out, base, traced = {}, {}, {}
+    for dt in GRAPH_DTYPES:
+        for route in ROUTES:
+            for cached in (False, True):
+                way = "cached" if cached else "streaming"
+                eager = first = None
+                for spc in GRAPH_SPC:
+                    tag = f"{dt}_{route}_{way}_spc{spc}"
+                    cfg = graph_cfg(root, os.path.join(tmp, "ck_g_" + tag),
+                                    dt, route, spc, cached)
+                    zero_counts()               # main path starts here
+                    run = traced_fit(torch, cfg)
+                    counts = read_counts()      # ... and ends here
+                    want = {k: n * GRAPH_STEPS for k, n in
+                            per_step_launches(route).items()}
+                    if counts != want:
+                        fail(f"graphed fit ({tag}) launched {counts}, "
+                             f"expected {want}")
+                    st = expect_graphed(run, f"graphed fit ({tag})", 2,
+                                        GRAPH_STEPS)
+                    warm = {k: n * 2 * WARMUP_STEPS for k, n in
+                            per_step_launches(route).items() if n}
+                    if st["warmup_launches"] != warm:
+                        fail(f"graphed fit ({tag}): its warm-up steps "
+                             f"launched {st['warmup_launches']}, expected "
+                             f"{warm}")
+                    prog, seen = run["programs"][0], run["seen"]
+                    if eager is None:
+                        eager = eager_chain(torch, cfg, seen, prog.cache)
+                        first = seen
+                    elif not all(np.array_equal(
+                            a.cpu().numpy() if cached else a["segment_id"],
+                            b.cpu().numpy() if cached else b["segment_id"])
+                            for a, b in zip(seen, first)):
+                        fail(f"graphed fit ({tag}) applied other batches "
+                             "than at steps_per_call 1")
+                    logged = ([3, 6, 7] if spc == 3
+                              else list(range(1, GRAPH_STEPS + 1)))
+                    if [m["step"] for m in run["logs"]] != logged:
+                        fail(f"graphed fit ({tag}) logged steps "
+                             f"{[m['step'] for m in run['logs']]}")
+                    bad = rows_differ(run["logs"], eager["rows"])
+                    bad += state_diffs(torch, run["state"], eager["state"])
+                    if bad:
+                        fail(f"graphed fit ({tag}) differs from the eager "
+                             f"train_step chain in {bad}")
+                    out[tag] = {**st, "launches": counts,
+                                "wall_s": run["wall_s"]}
+                    if spc == GRAPH_SPC[-1]:       # after the comparisons
+                        traced[tag] = traced_replay(
+                            torch, prog, run["state"], seen[-1], route,
+                            os.path.join(tmp, f"replay_{tag}.json"))
+                    if dt == "float32" and way == "streaming" and spc == 1:
+                        base[route] = {"logs": run["logs"],
+                                       "state": run["state"]}
+                    del run, prog
+                del eager
+                torch.cuda.empty_cache()
+    worst = max(v["capture_s"] for v in out.values())
+    log(f"phase 15 (a, b): {len(out)} graphed fits (f32 and bf16, auto and "
+        f"pallas, streaming and cached, steps_per_call 1 and 3; "
+        f"{GRAPH_STEPS} steps, refreshes at 0, 3, 6): rows, params, "
+        "centers and optimizer state bit for bit the eager train_step "
+        "chain on the same batches; launches per_step_launches x "
+        f"{GRAPH_STEPS}; each 2 graphs, {GRAPH_STEPS} replays, no eager "
+        f"step; apart from those, {2 * WARMUP_STEPS} warm-up steps a run "
+        "launching per_step_launches x "
+        f"{2 * WARMUP_STEPS} (" + ", ".join(
+            f"{k} {v['warmup_launches']}" for k, v in out.items()
+            if k.endswith("spc1") and "streaming" in k)
+        + f"); capture s (both graphs, warm-up included) up to "
+        f"{worst:.3f}; pool bytes " + ", ".join(
+            f"{k} {v['pool_bytes']}" for k, v in out.items()
+            if k.endswith("spc1")))
+    log("phase 15 (b): one replayed step traced after each spc-3 run names "
+        "each kernel as often as its launches were counted: " + "; ".join(
+            f"{k} {v}" for k, v in traced.items()))
+    return {"runs": out, "base": base, "traced_replays": traced}
+
+
+def check_graph_buckets(torch, tmp: str, grouped: dict) -> dict:
+    """Phase 15 (c): phase 14 (b)'s two-bucket streaming fit at
+    steps_per_call 3, refreshing every 3 steps: a graph for each bucket
+    and refresh or not that its steps reach (a pair a bucket), the
+    batches in phase 14 (b)'s order, bit for bit the eager chain."""
+    from nafae_torch.config import load_config
+
+    root = os.path.join(tmp, "buckets")
+    cfg = load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
+        f"data.root={root}", f"train.ckpt_dir={os.path.join(tmp, 'ck_gb')}",
+        "model.dtype=float32", "train.kernels=auto",
+        f"train.steps={GRAPH_STEPS}", f"train.steps_per_call={CACHE_SPC}",
+        f"data.frame_buckets=[{BUCKETS[0]},{BUCKETS[1]}]", *GRAPH_INTERVAL])
+    zero_counts()                               # main path starts here
+    run = traced_fit(torch, cfg)
+    counts = read_counts()                      # ... and ends here
+    keys = sorted({(int(b["frame_mask"].shape[1]), i % 3 == 0)
+                   for i, b in enumerate(run["seen"])})
+    st = expect_graphed(run, "graphed two-bucket fit", len(keys),
+                        GRAPH_STEPS)
+    if {t for t, _ in keys} != set(BUCKETS) or len(keys) != 4:
+        fail(f"the two-bucket fit's steps reach graphs {keys}, not a pair "
+             "a bucket")
+    ids = [b["segment_id"].tolist() for b in run["seen"]]
+    if ids != grouped["seen"]:
+        fail(f"the graphed two-bucket fit applied {ids}; phase 14 (b) "
+             f"applied {grouped['seen']}")
+    if [m["step"] for m in run["logs"]] != CACHE_LOGGED:
+        fail(f"the graphed two-bucket fit logged {run['logs']}")
+    want = {k: n * GRAPH_STEPS for k, n in per_step_launches("auto").items()}
+    eager = eager_chain(torch, cfg, run["seen"])
+    bad = rows_differ(run["logs"], eager["rows"])
+    bad += state_diffs(torch, run["state"], eager["state"])
+    if counts != want or bad:
+        fail(f"graphed two-bucket fit: launches {counts} (expected {want}); "
+             f"differs from the eager chain in {bad}")
+    log(f"phase 15 (c): two-bucket streaming fit at steps_per_call "
+        f"{CACHE_SPC}: graphs {keys} (frames, refresh), {st['graphs']} "
+        f"captured, {st['replays']} replays; phase 14 (b)'s order; rows, "
+        f"params and centers bit for bit the eager chain; launches {counts}")
+    return {**st, "graph_keys": [list(k) for k in keys]}
+
+
+def check_graph_seeded(torch, root: str, tmp: str) -> dict:
+    """Phase 15 (b): with loss.kmeans_init=plusplus the seeding step 0
+    draws its noise on the host and runs eagerly, and only it: the other
+    steps replay the two graphs; bit for bit the eager chain (whose step 0
+    seeds from the same generator)."""
+    cfg = graph_cfg(root, os.path.join(tmp, "ck_gseed"), "float32", "auto",
+                    1, False, ["loss.kmeans_init=plusplus"])
+    zero_counts()                               # main path starts here
+    run = traced_fit(torch, cfg)
+    counts = read_counts()                      # ... and ends here
+    st = expect_graphed(run, "graphed k-means++ fit", 2, GRAPH_STEPS, 1)
+    eager = eager_chain(torch, cfg, run["seen"])
+    bad = rows_differ(run["logs"], eager["rows"])
+    bad += state_diffs(torch, run["state"], eager["state"])
+    want = {k: n * GRAPH_STEPS for k, n in per_step_launches("auto").items()}
+    if counts != want or bad:
+        fail(f"graphed k-means++ fit: launches {counts} (expected {want}); "
+             f"differs from the eager chain in {bad}")
+    log(f"phase 15 (b): k-means++ seeding: step 0 eager, {st['replays']} "
+        f"replays of {st['graphs']} graphs; bit for bit the eager chain")
+    return st
+
+
+def check_graph_bank(torch, root: str, tmp: str) -> dict:
+    """Phase 15 (d): loss.kmeans_source=bank with bank_steps 4 over
+    GRAPH_STEPS steps (the slot wraps at step 4, taken on the device),
+    graphed, bit for bit the eager chain, bank and validity included."""
+    cfg = graph_cfg(root, os.path.join(tmp, "ck_gbank"), "float32", "auto",
+                    CACHE_SPC, False, GRAPH_BANK)
+    zero_counts()                               # main path starts here
+    run = traced_fit(torch, cfg)
+    counts = read_counts()                      # ... and ends here
+    st = expect_graphed(run, "graphed bank fit", 2, GRAPH_STEPS)
+    eager = eager_chain(torch, cfg, run["seen"])
+    bad = rows_differ(run["logs"], eager["rows"])
+    bad += state_diffs(torch, run["state"], eager["state"])
+    want = {k: n * GRAPH_STEPS for k, n in per_step_launches("auto").items()}
+    if counts != want or bad:
+        fail(f"graphed bank fit: launches {counts} (expected {want}); "
+             f"differs from the eager chain in {bad}")
+    slots = int(run["state"].bank_valid.flatten(1).amax(1).gt(0).sum())
+    log(f"phase 15 (d): bank source, {GRAPH_STEPS} steps over a ring of 4 "
+        f"({slots} slots written): graphed = eager bit for bit, bank and "
+        "bank_valid included")
+    return {**st, "slots_written": slots}
+
+
+def check_graph_mesh(torch, root: str, tmp: str, mesh, base: dict) -> dict:
+    """Phase 15 (e): the graphed streaming fit on phase 12's world-of-one
+    NCCL mesh (the gradient all-reduce, the losses' and k-means'
+    collectives captured), f32, both routes, bit for bit the graphed run
+    without a mesh of (a); its collectives a step."""
+    from nafae_torch.parallel import sharding as S
+
+    out = {}
+    for route in ROUTES:
+        cfg = graph_cfg(root, os.path.join(tmp, f"ck_gmesh_{route}"),
+                        "float32", route, 1, False)
+        S.COLLECTIVES.reset()
+        zero_counts()                           # main path starts here
+        run = traced_fit(torch, cfg, mesh=mesh)
+        counts = read_counts()                  # ... and ends here
+        st = expect_graphed(run, f"graphed fit on the NCCL mesh ({route})",
+                            2, GRAPH_STEPS)
+        recs = list(S.COLLECTIVES.records)
+        bad = state_diffs(torch, run["state"], base[route]["state"])
+        if len(run["logs"]) != GRAPH_STEPS or not all(
+                metrics_equal(a, b) for a, b in zip(run["logs"],
+                                                    base[route]["logs"])):
+            bad.append("rows")
+        want = {k: n * GRAPH_STEPS for k, n in per_step_launches(route).items()}
+        if counts != want or bad or not recs:
+            fail(f"graphed fit on the NCCL mesh ({route}): launches {counts}, "
+                 f"{len(recs)} collectives; differs from the graphed run "
+                 f"without a mesh in {bad}")
+        out[route] = {**st, "collectives": len(recs),
+                      "collective_bytes": sum(r[3] for r in recs)}
+    log("phase 15 (e): graphed fit on a world-of-one NCCL mesh, collectives "
+        "captured: both routes bit for bit the graphed runs without a mesh "
+        "(rows, params, centers, optimizer state); collectives in "
+        f"{GRAPH_STEPS} steps: " + ", ".join(
+            f"{r} {o['collectives']} ({o['collective_bytes']} B)"
+            for r, o in out.items()))
+    return out
+
+
+def check_graph_resume(torch, root: str, tmp: str) -> dict:
+    """Phase 15 (f): the f32 auto streaming fit stopped at step
+    GRAPH_RESUME_AT and resumed from its checkpoint to GRAPH_STEPS (the
+    resumed run captures on the restored state): its rows and final state
+    bit for bit the uninterrupted graphed run. Warm-up spans the first
+    GRAPH_RESUME_AT + 1 steps, so the run stopped early takes the
+    learning rates of the whole run (the cosine decay follows
+    train.steps)."""
+    warm = [f"train.warmup_steps={GRAPH_RESUME_AT + 1}"]
+    whole = traced_fit(torch, graph_cfg(
+        root, os.path.join(tmp, "ck_gwhole"), "float32", "auto", 1, False,
+        warm))
+    ck = os.path.join(tmp, "ck_gresume")
+    first = traced_fit(torch, graph_cfg(
+        root, ck, "float32", "auto", 1, False,
+        [*warm, f"train.steps={GRAPH_RESUME_AT}"]))
+    second = traced_fit(torch, graph_cfg(root, ck, "float32", "auto", 1,
+                                         False, warm))
+    st = expect_graphed(second, "resumed graphed fit", 2,
+                        GRAPH_STEPS - GRAPH_RESUME_AT)
+    rows = first["logs"] + second["logs"]
+    bad = state_diffs(torch, second["state"], whole["state"])
+    if [m["step"] for m in rows] != list(range(1, GRAPH_STEPS + 1)) or not \
+            all(metrics_equal(a, b) for a, b in zip(rows, whole["logs"])):
+        bad.append("rows")
+    if bad:
+        fail(f"the resumed graphed fit differs from the uninterrupted one "
+             f"in {bad}")
+    log(f"phase 15 (f): graphed fit stopped at step {GRAPH_RESUME_AT} and "
+        f"resumed to {GRAPH_STEPS} (captured on the restored state: "
+        f"{st['graphs']} graphs, {st['replays']} replays): rows and state "
+        "bit for bit the uninterrupted graphed run")
+    return st
+
+
+def graph_timings(torch, root: str, tmp: str) -> dict:
+    """Phase 15 (g): the f32 auto config4 step host to host (metrics on the
+    host), graphed (`build_train_fn`) against eager (`train_step`), cached
+    (the index batch; the eager way gathers it) and on prepacked
+    streaming batches (the numpy batch copied in), TIMED_ROUNDS rounds
+    from step 3, each graphed, eager, eager, graphed; the device
+    busy time of a step of each (torch.profiler) and the idle share; then
+    `fit` from the cache, a row a step, graphed against eager
+    (`eager_reason` made to name a reason), in two rounds."""
+    import nafae_torch.train as TT
+    from nafae_torch.config import load_config
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.youcook2 import SegmentDataset
+
+    dev = torch.device("cuda")
+    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
+    batches = [b for _, b in BatchLoader(ds, 16, seed=0).steps(4)]
+    cache = TT.build_cache(ds, dev)
+    idxs = [torch.from_numpy(b["segment_id"].astype(np.int64)).to(dev)
+            for b in batches]
+    cfg = cache_cfg(root, os.path.join(tmp, "ck_gtime"), "auto",
+                    ["train.steps=1000"])
+    tx = TT.make_optimizer(cfg)
+    progs = {"cached": TT.build_train_fn(cfg, tx, dev, cache=cache),
+             "streaming": TT.build_train_fn(cfg, tx, dev)}
+    states = {(w, g): TT.TrainState.create(cfg, device=dev)
+              for w in progs for g in ("graphed", "eager")}
+
+    def run(way, kind, i):
+        st = states[way, kind]
+        if kind == "graphed":
+            arg = idxs[i % 4] if way == "cached" else batches[i % 4]
+            states[way, kind], m = progs[way](st, arg)
+        else:
+            b = ({k: v.index_select(0, idxs[i % 4]) for k, v in cache.items()}
+                 if way == "cached" else TT.batch_to_device(batches[i % 4],
+                                                            dev))
+            states[way, kind], m = TT.train_step(st, b, cfg, tx)
+        return m
+
+    kinds = ("graphed", "eager", "eager", "graphed")
+    for i in range(3):
+        for way in progs:
+            for kind in ("graphed", "eager"):
+                run(way, kind, i)
+    torch.cuda.synchronize()
+    host = {(w, k): [] for w in progs for k in ("graphed", "eager")}
+    for i in range(TIMED_ROUNDS):
+        for way in progs:
+            for kind in kinds:
+                t0 = time.perf_counter()
+                float(run(way, kind, i)["loss"])    # metrics on the host
+                host[way, kind].append((time.perf_counter() - t0) * 1e3)
+    res = {}
+    for way in progs:
+        for kind in ("graphed", "eager"):
+            top, busy, ops = profile_forward(
+                torch, lambda: run(way, kind, 0))
+            ms = statistics.median(host[way, kind])
+            res[f"{way}_{kind}"] = {
+                "host_ms": ms, "host_ms_all": host[way, kind],
+                "device_busy_ms": busy, "device_ops": ops,
+                "idle_share": 1 - busy / ms, "kernels": top}
+        res[f"{way}_program"] = dict(progs[way].stats)
+    del progs, states, cache
+    torch.cuda.empty_cache()
+
+    # fit from the cache, a row a step: graphed and eager, two rounds
+    real, ms = TT.eager_reason, {"graphed": [], "eager": []}
+    for i, kind in enumerate(("graphed", "eager", "eager", "graphed")):
+        cfg = load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
+            f"data.root={root}",
+            f"train.ckpt_dir={os.path.join(tmp, f'ck_gfit_{kind}_{i}')}",
+            "model.dtype=float32", "train.kernels=auto",
+            f"train.steps={FIT_TIMED_STEPS}", "train.device_cache=true"])
+        if kind == "eager":
+            TT.eager_reason = lambda *a, **kw: "timed eagerly"
+        try:
+            logs = traced_fit(torch, cfg)["logs"]
+        finally:
+            TT.eager_reason = real
+        frames = cfg.data.batch_size * cfg.data.max_frames
+        ms[kind] += [frames * 1e3 / m["frames_per_sec"] for m in logs
+                     if m["step"] > 3]
+    res["fit_cached"] = {k: {"ms": statistics.median(v), "ms_all": v}
+                         for k, v in ms.items()}
+    card = card_line()
+    for way in ("cached", "streaming"):
+        g, e = res[f"{way}_graphed"], res[f"{way}_eager"]
+        log(f"phase 15 (g): config4 f32 auto step host to host, {way}: "
+            f"graphed {g['host_ms']:.4f} ms (device busy "
+            f"{g['device_busy_ms']:.4f} ms in {g['device_ops']:.0f} "
+            f"operations, idle {100 * g['idle_share']:.1f}%), eager "
+            f"{e['host_ms']:.4f} ms (busy {e['device_busy_ms']:.4f} ms in "
+            f"{e['device_ops']:.0f}, idle {100 * e['idle_share']:.1f}%), "
+            f"medians of {len(g['host_ms_all'])} / {len(e['host_ms_all'])} "
+            f"interleaved; program {res[way + '_program']} — {card}")
+        log(f"device time per graphed {way} step by kernel: " + "; ".join(
+            f"{us:.1f} us {k}" for k, us in g["kernels"]))
+    log(f"phase 15 (g): fit from the cache, a row a step (medians from step "
+        f"4 of two rounds of {FIT_TIMED_STEPS}): graphed "
+        f"{res['fit_cached']['graphed']['ms']:.4f} ms, eager "
+        f"{res['fit_cached']['eager']['ms']:.4f} ms — {card}")
+    return res
 
 
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
@@ -4802,6 +5363,19 @@ def main() -> None:
         packer = check_packer(torch, tmp)
         grain = check_grain(torch, tmp, tmp)
         t14 = time.perf_counter() - t14
+
+        # the training step as CUDA graphs (phase 15), on phase 5's data,
+        # phase 14 (b)'s two buckets and phase 12's mesh
+        t15 = time.perf_counter()
+        graphs = check_graphs(torch, tmp, tmp)
+        g_seeded = check_graph_seeded(torch, tmp, tmp)
+        g_buckets = check_graph_buckets(torch, tmp, groups)
+        g_bank = check_graph_bank(torch, tmp, tmp)
+        g_mesh = check_graph_mesh(torch, tmp, tmp, mesh, graphs.pop("base"))
+        g_resume = check_graph_resume(torch, tmp, tmp)
+        gt = graph_timings(torch, tmp, tmp)
+        t15 = time.perf_counter() - t15
+        log(f"phase 15 took {t15:.1f} s")
 
         # int8 serving, eval, the exported artifact and visualize (main
         # path 7), on the serving phase's requests and val split
@@ -5281,6 +5855,14 @@ def main() -> None:
                   "fit_step": ft,
                   "batch_bytes": ct["batch_bytes"], "packer": packer,
                   "grain": grain, "phase_s": t14},
+        "graphs": {"fit": graphs["runs"], "seeded": g_seeded,
+                   "buckets": g_buckets,
+                   "bank": g_bank, "mesh": g_mesh, "resume": g_resume,
+                   "times": {k: ({n: x for n, x in v.items()
+                                  if n != "kernels"}
+                                 if isinstance(v, dict) else v)
+                             for k, v in gt.items()},
+                   "phase_s": t15},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)

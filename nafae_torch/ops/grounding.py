@@ -324,7 +324,9 @@ def learned_frame_logits(v_emb: torch.Tensor, frame_mask: torch.Tensor,
         den = torch.clamp(region_mask.sum(-1), min=1.0)
     else:
         num = torch.sum(v_emb, dim=-2)
-        den = torch.tensor(float(v_emb.shape[-2]), device=v_emb.device)
+        # a fill on the device, not a copy from the host (which a CUDA
+        # graph's capture refuses)
+        den = torch.full((), float(v_emb.shape[-2]), device=v_emb.device)
     vbar = num.float() / den[..., None]                          # [B,T,E]
     g = torch.einsum("bte,e->bt", vbar, attn_w.float())
     return g * frame_mask

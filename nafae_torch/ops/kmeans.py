@@ -67,8 +67,8 @@ def kmeans_lloyd(f: torch.Tensor, valid: torch.Tensor, centers: torch.Tensor,
     return new
 
 
-def bank_write(bank: torch.Tensor, bank_valid: torch.Tensor, step: int,
-               f: torch.Tensor, valid: torch.Tensor
+def bank_write(bank: torch.Tensor, bank_valid: torch.Tensor,
+               step: int | torch.Tensor, f: torch.Tensor, valid: torch.Tensor
                ) -> tuple[torch.Tensor, torch.Tensor]:
     """Write one step's selected features into slot step % W of the
     step-granular ring bank [W, *sel_shape, E] / [W, *sel_shape]; a smaller
@@ -77,16 +77,20 @@ def bank_write(bank: torch.Tensor, bank_valid: torch.Tensor, step: int,
     with this rank's selections. Writes
     in place, where the JAX package returns new arrays: a copy of the
     whole ring every step would move its full size (84 MB at config4 with
-    32 slots) to change one slot. Returns the two tensors."""
+    32 slots) to change one slot. step: an int or a 0-d int64 tensor
+    (the step body's device counter); the slot is taken on the bank's
+    device, by `index_copy_`, so a captured step writes the slot of the
+    step it runs at. Returns the two tensors."""
     if f.shape != bank.shape[1:]:
         pads = [(0, b - s) for s, b in zip(f.shape, bank.shape[1:])]
         f = torch.nn.functional.pad(
             f, [p for pair in reversed(pads) for p in pair])
         valid = torch.nn.functional.pad(
             valid, [p for pair in reversed(pads[:valid.dim()]) for p in pair])
-    slot = int(step) % bank.shape[0]
-    bank[slot] = f.to(bank.dtype)
-    bank_valid[slot] = valid.to(bank_valid.dtype)
+    step = torch.as_tensor(step, dtype=torch.int64, device=bank.device)
+    slot = torch.remainder(step, bank.shape[0]).reshape(1)
+    bank.index_copy_(0, slot, f.to(bank.dtype)[None])
+    bank_valid.index_copy_(0, slot, valid.to(bank_valid.dtype)[None])
     return bank, bank_valid
 
 

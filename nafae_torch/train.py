@@ -60,14 +60,20 @@ event file; `--profile DIR` writes a torch.profiler trace of the run, and
 losses and gradients. The CLI evaluates every `train.eval_every` steps on
 the val split (`evaluate.evaluate_config`), as the reference's does.
 
-`train.steps_per_call` (spc) orders the steps and sets the cadence as in
-the reference, where a group of spc steps is one XLA program: the
-streaming fit applies spc batches of one frame bucket at a time, one
-train_step after the other with no host read between them (with several
-buckets not in the loader's yield order), takes the steps left over one
-by one, and logs, checkpoints and evaluates once a group.
+`fit` runs the step through `build_train_fn`: on the card (no mesh, or
+an NCCL mesh without a frame axis) the step is captured in CUDA graphs
+and each step is a replay; on the CPU, with debug_nans, on a gloo mesh,
+under frame parallelism and at config 5 the same step body runs eagerly
+(`eager_reason`). `train.steps_per_call` (spc) orders the steps and sets
+the cadence as in the reference, where a group of spc steps is one XLA
+program: the streaming fit applies spc batches of one frame bucket at a
+time (the reference's `make_multi_step`: here spc replays with no host
+read between them; with several buckets not in the loader's yield
+order), takes the steps left over one by one, and logs, checkpoints and
+evaluates once a group.
 `train.device_cache=true` keeps the dataset on the device and gathers
-each batch there (`fit_device_cached`, with or without a mesh).
+each batch there, inside the captured step (`fit_device_cached`, with or
+without a mesh).
 Batches are packed by the C++ packer (`utils/native_io`, built by g++ at
 first use) when `data.use_native_io` is on, and `data.pipeline=grain`
 takes grain's batch order (`data/grain_loader`).
@@ -180,6 +186,11 @@ class Optimizer:
     - the clip scales by grad_clip / norm when norm >= grad_clip, with no
       epsilon (torch's clip_grad_norm_ divides by norm + 1e-6);
     - adamw's decay is decoupled: p -= lr (m̂ / (sqrt(v̂) + 1e-8) + wd p).
+
+    The per-count scalars (the step size -lr and Adam's bias corrections)
+    are read from `tables`, built once on the host and kept on the
+    device, by the count, so that a captured step reads the count it
+    runs at.
     """
 
     def __init__(self, cfg: Config):
@@ -190,6 +201,46 @@ class Optimizer:
         self.end = tc.lr * 0.01
         self.wd = tc.weight_decay
         self.clip = tc.grad_clip
+        self.steps = tc.steps
+        self._tables: dict[torch.device, torch.Tensor] = {}
+
+    def tables(self, device: str | torch.device, count: int = 0
+               ) -> torch.Tensor:
+        """[n, 3] f32 on `device`, row c the scalars of the update at
+        count c: the step size -lr(c), then Adam's bias corrections
+        1 - b1^(c+1) and 1 - b2^(c+1) (1 for sgd). n is train.steps + 1,
+        or more when `count` lies past it (a new tensor then). On CUDA the
+        corrections are stored as their f32 reciprocals: CUDA's division
+        by a host scalar multiplies by its reciprocal, and the update
+        multiplies by the row where the CPU divides by it, so each device
+        computes what dividing by the host float computes there.
+
+        Each correction is the f32 scalar expression `1 - torch.tensor(b)
+        ** torch.tensor(float(c + 1))`, evaluated one row at a time:
+        torch's vectorized power over all rows may differ from it in the
+        last bit."""
+        device = torch.device(device)
+        have = self._tables.get(device)
+        if have is not None and count < have.shape[0]:
+            return have
+        rows = self._rows(max(self.steps, count) + 1,
+                          reciprocal=device.type == "cuda")
+        have = torch.from_numpy(rows).to(device)
+        self._tables[device] = have
+        return have
+
+    def _rows(self, n: int, reciprocal: bool) -> np.ndarray:
+        """The first n rows of `tables` on the host."""
+        rows = np.ones((n, 3), np.float32)
+        rows[:, 0] = [-self.lr(c) for c in range(n)]
+        if self.kind == "sgd":
+            return rows
+        for c in range(n):
+            for j, b in ((1, ADAM_B1), (2, ADAM_B2)):
+                bc = (1 - torch.tensor(b) ** torch.tensor(float(c + 1))
+                      ).numpy()
+                rows[c, j] = np.float32(1) / bc if reciprocal else bc
+        return rows
 
     def lr(self, count: int) -> float:
         """optax.warmup_cosine_decay_schedule at `count`, in float32."""
@@ -214,14 +265,22 @@ class Optimizer:
     def update(self, grads: dict[str, torch.Tensor], state: dict,
                params: dict[str, torch.Tensor]
                ) -> tuple[dict[str, torch.Tensor], dict]:
-        """(new params, new state); the inputs are not changed."""
+        """(new params, new state); the inputs are not changed.
+
+        state["count"]: an int or a 0-d int64 tensor (the step body's
+        device counter, so that no host value enters the update), whose
+        row `tables` already holds (`tables(device, count)` grows them);
+        the new state's count is a tensor on the params' device."""
         if self.clip > 0:     # no host sync: a select, as optax does
             norm = global_norm(grads)
             keep = norm < self.clip
             grads = {k: torch.where(keep, g, g / norm * self.clip)
                      for k, g in grads.items()}
-        count = state["count"]
-        step_size = -self.lr(count)
+        device = next(iter(params.values())).device
+        count = torch.as_tensor(state["count"], dtype=torch.int64,
+                                device=device)
+        row = self.tables(device).index_select(0, count.reshape(1))[0]
+        step_size = row[0]
         if self.kind == "sgd":
             trace = {k: g + SGD_MOMENTUM * state["trace"][k]
                      for k, g in grads.items()}
@@ -231,13 +290,13 @@ class Optimizer:
         mu = {k: (1 - b1) * g + b1 * state["mu"][k] for k, g in grads.items()}
         nu = {k: (1 - b2) * g ** 2 + b2 * state["nu"][k]
               for k, g in grads.items()}
-        c = torch.tensor(float(count + 1))       # bias corrections in f32
-        bc1 = 1 - torch.tensor(b1) ** c
-        bc2 = 1 - torch.tensor(b2) ** c
+        bc1, bc2 = row[1], row[2]
         new = {}
         for k, p in params.items():
-            m_hat = mu[k] / bc1.item()
-            v_hat = nu[k] / bc2.item()
+            if device.type == "cuda":            # the rows' reciprocals
+                m_hat, v_hat = mu[k] * bc1, nu[k] * bc2
+            else:
+                m_hat, v_hat = mu[k] / bc1, nu[k] / bc2
             upd = m_hat / (torch.sqrt(v_hat) + ADAM_EPS) + self.wd * p
             new[k] = p + upd * step_size
         return new, {"count": count + 1, "mu": mu, "nu": nu}
@@ -404,18 +463,125 @@ def compute_losses(params: dict, centers: torch.Tensor, batch: dict,
 
 
 def batch_to_device(batch: dict, device: torch.device) -> dict:
-    """numpy batch (BatchLoader) -> tensors on `device`."""
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
+    """numpy batch (BatchLoader) -> tensors on `device` (a value that is
+    a tensor already is moved as it is)."""
+    return {k: (v if isinstance(v, torch.Tensor)
+                else torch.as_tensor(np.asarray(v))).to(device)
             for k, v in batch.items()}
+
+
+def refresh_due(cfg: Config, step: int) -> bool:
+    """Whether the step at host count `step` ends with the k-means
+    refresh: loss.cluster_weight > 0 and step a multiple of
+    loss.kmeans_interval (so step 0 always)."""
+    return cfg.loss.cluster_weight > 0 and step % cfg.loss.kmeans_interval == 0
+
+
+def seed_due(cfg: Config, step: int) -> bool:
+    """Whether the step at `step` seeds the centers by k-means++ first
+    (loss.kmeans_init=plusplus, step 0)."""
+    return (cfg.loss.cluster_weight > 0 and cfg.loss.kmeans_init == "plusplus"
+            and step == 0)
+
+
+def mesh_groups(cfg: Config, mesh) -> tuple:
+    """(data group, frame group or None, group over both axes, this
+    rank's data rank) of `mesh`, or (None, None, None, 0) without one."""
+    if mesh is None:
+        return None, None, None, 0
+    from nafae_torch.parallel.mesh import axes_group, frame_size
+    group = mesh.get_group(cfg.mesh.data_axis_name)
+    frame_group = (mesh.get_group(cfg.mesh.frame_axis_name)
+                   if frame_size(mesh) > 1 else None)
+    return group, frame_group, axes_group(mesh), \
+        torch.distributed.get_rank(group)
+
+
+def step_body(cfg: Config, tx: Optimizer, state: TrainState, batch: dict,
+              step_t: torch.Tensor, count_t: torch.Tensor, *, refresh: bool,
+              seed: bool = False, extractor=None, groups=(None, None, None, 0),
+              debug_nans: bool = False) -> tuple[dict, dict, torch.Tensor,
+                                                 dict]:
+    """The whole optimizer step as a function of tensors, the same on
+    every path (`train_step`, and `build_train_fn` eager or captured in a
+    CUDA graph): forward and losses, their gradient, the all-reduce over
+    the mesh, the update, the bank write and the k-means refresh.
+
+    step_t and count_t: 0-d int64 tensors on the state's device holding
+    state.step and the optimizer's count; the update reads its row of
+    `tx.tables` by count_t and the bank writes slot step_t % W, so no host
+    value of the step enters. refresh and seed (`refresh_due`,
+    `seed_due`): the host's choices for this step. groups: `mesh_groups`.
+
+    Returns (params, optimizer tensors without the count, centers,
+    metrics), new tensors but the bank, which is written in place (a
+    centers tensor that did not change is the state's own)."""
+    group, frame_group, axes, data_rank = groups
+    row_offset = data_rank * batch["word_ids"].shape[0]
+    names = sorted(state.params)
+    params = {k: state.params[k].detach().requires_grad_() for k in names}
+    with torch.enable_grad():
+        total, aux = compute_losses(params, state.centers, batch, cfg,
+                                    cfg.train.resolved_kernels(), extractor,
+                                    group, row_offset, frame_group, axes)
+        if debug_nans:
+            _check_finite({k: v for k, v in aux.items()
+                           if not k.startswith("sel_")}, "loss term")
+        grads = torch.autograd.grad(total, [params[k] for k in names],
+                                    allow_unused=True)
+    grads = {k: torch.zeros_like(params[k]) if g is None else g
+             for k, g in zip(names, grads)}
+    if axes is not None:
+        flat = S.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]),
+                            axes)
+        grads = {k: g.view(grads[k].shape) for k, g in zip(
+            names, flat.split([grads[k].numel() for k in names]))}
+    if debug_nans:
+        _check_finite(grads, "gradient of parameter")
+    new_params, opt = tx.update(grads, {**state.opt_state, "count": count_t},
+                                state.params)
+    opt.pop("count")
+
+    centers, bank, bank_valid = state.centers, state.bank, state.bank_valid
+    sel_f, sel_v = aux.pop("sel_feats"), aux.pop("sel_valid")
+    lc = cfg.loss
+    if lc.cluster_weight > 0:
+        with torch.no_grad():
+            e = cfg.model.embed_dim
+            if lc.kmeans_source == "bank" and bank is not None:
+                bank_write(bank, bank_valid, step_t, sel_f, sel_v)
+                f_nd, v_nd, bdim = bank, bank_valid, 1
+            else:
+                f_nd, v_nd, bdim = sel_f, sel_v, 0
+            f, valid = f_nd.reshape(-1, e), v_nd.reshape(-1)
+            if seed:
+                gathers = [(g, d) for g, d in ((group, bdim),
+                                               (frame_group, bdim + 1))
+                           if g is not None]
+                centers = kmeans_plusplus_init(
+                    f_nd, v_nd, lc.num_clusters,
+                    generator=torch.Generator().manual_seed(cfg.train.seed),
+                    gathers=gathers)
+            if refresh:
+                dt = COMPUTE_DTYPES[cfg.model.dtype]
+                centers = kmeans_lloyd(
+                    f, valid, centers, lc.kmeans_iters, lc.kmeans_ema,
+                    assign_dtype=None if dt == torch.float32 else dt,
+                    group=axes)
+    metrics = {k: v.detach() for k, v in aux.items()}
+    metrics["grad_norm"] = global_norm(grads).detach()
+    return new_params, opt, centers, metrics
 
 
 def train_step(state: TrainState, batch: dict, cfg: Config,
                tx: Optimizer | None = None, extractor=None, mesh=None,
                debug_nans: bool = False
                ) -> tuple[TrainState, dict[str, torch.Tensor]]:
-    """One optimizer step on a batch of tensors on state's device; returns
-    (new state, metrics as 0-d tensors: l_rank, score_pos, [l_ctx],
-    [l_clu], loss, grad_norm — the norm before clipping).
+    """One optimizer step on a batch of tensors on state's device
+    (`step_body`, eagerly); returns (new state, metrics as 0-d tensors:
+    l_rank, score_pos, [l_ctx], [l_clu], loss, grad_norm — the norm before
+    clipping). The state passed in keeps its params, optimizer tensors and
+    centers; the bank, if any, is written in place.
 
     The k-means refresh runs after the update, on this step's selections
     (or the bank), when the step count before the update is a multiple of
@@ -441,70 +607,263 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
     gradient is not (after the reduction). Each check waits for the
     device."""
     tx = tx or make_optimizer(cfg)
-    group = frame_group = axes = None
-    row_offset = 0
-    if mesh is not None:
-        from nafae_torch.parallel.mesh import axes_group, frame_size
-        group = mesh.get_group(cfg.mesh.data_axis_name)
-        if frame_size(mesh) > 1:
-            frame_group = mesh.get_group(cfg.mesh.frame_axis_name)
-        axes = axes_group(mesh)
-        row_offset = (torch.distributed.get_rank(group)
-                      * batch["word_ids"].shape[0])
-    names = sorted(state.params)
-    params = {k: state.params[k].detach().requires_grad_() for k in names}
-    with torch.enable_grad():
-        total, aux = compute_losses(params, state.centers, batch, cfg,
-                                    cfg.train.resolved_kernels(), extractor,
-                                    group, row_offset, frame_group, axes)
-        if debug_nans:
-            _check_finite({k: v for k, v in aux.items()
-                           if not k.startswith("sel_")}, "loss term")
-        grads = torch.autograd.grad(total, [params[k] for k in names],
-                                    allow_unused=True)
-    grads = {k: torch.zeros_like(params[k]) if g is None else g
-             for k, g in zip(names, grads)}
-    if axes is not None:
-        flat = S.all_reduce(torch.cat([grads[k].reshape(-1) for k in names]),
-                            axes)
-        grads = {k: g.view(grads[k].shape) for k, g in zip(
-            names, flat.split([grads[k].numel() for k in names]))}
-    if debug_nans:
-        _check_finite(grads, "gradient of parameter")
-    new_params, opt_state = tx.update(grads, state.opt_state, state.params)
+    count = state.opt_state["count"]
+    dev = state.device
+    tx.tables(dev, count)
+    step_t = torch.full((), state.step, dtype=torch.int64, device=dev)
+    count_t = torch.full((), count, dtype=torch.int64, device=dev)
+    params, opt, centers, metrics = step_body(
+        cfg, tx, state, batch, step_t, count_t,
+        refresh=refresh_due(cfg, state.step), seed=seed_due(cfg, state.step),
+        extractor=extractor, groups=mesh_groups(cfg, mesh),
+        debug_nans=debug_nans)
+    return replace(state, step=state.step + 1, params=params,
+                   opt_state={"count": count + 1, **opt},
+                   centers=centers), metrics
 
-    centers, bank, bank_valid = state.centers, state.bank, state.bank_valid
-    sel_f, sel_v = aux.pop("sel_feats"), aux.pop("sel_valid")
-    lc = cfg.loss
-    if lc.cluster_weight > 0:
+
+WARMUP_STEPS = 2      # eager steps on clones of the state before a capture
+
+
+def eager_reason(cfg: Config, device, mesh=None, extractor=None,
+                 debug_nans: bool = False) -> str | None:
+    """Why `build_train_fn` runs the step eagerly on these settings, or
+    None when it captures the step in CUDA graphs. Decided from the
+    config and the device before the first step; an error in a capture
+    or a replay raises, it never turns a run eager."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return f"device {device.type}: CUDA graphs need a CUDA device"
+    if debug_nans:
+        return ("debug_nans: the step checks its losses and gradients on "
+                "the host")
+    if extractor is not None:
+        return "the frozen detector runs in the step (config 5)"
+    if mesh is not None:
+        from nafae_torch.parallel.mesh import frame_size
+        if frame_size(mesh) > 1:
+            return ("frame parallelism (mesh.frame_axis > 1): the halo "
+                    "exchange's sends and receives")
+        backend = torch.distributed.get_backend(
+            mesh.get_group(cfg.mesh.data_axis_name))
+        if backend != "nccl":
+            return (f"a {backend} mesh: its collectives stage CUDA tensors "
+                    "through host memory")
+    return None
+
+
+class TrainFn:
+    """The step program of `build_train_fn`: fn(state, batch) -> (state,
+    metrics).
+
+    The state's params, optimizer tensors, centers, bank and bank_valid
+    are the step's buffers: every step updates them in place (`copy_`),
+    so the state returned holds the same tensors, its host step and count
+    one further. Two 0-d int64 device counters hold the step and the
+    count; the step body reads the optimizer's row and the bank's slot by
+    them and advances them. The metrics are fixed 0-d buffers, the same
+    dict every call: read them before the next call overwrites them.
+
+    batch: a dict of host arrays or tensors (the streaming path), copied
+    into a static buffer of its shape on the device by the pageable copy
+    `batch_to_device` makes (eager: by `batch_to_device` itself); with
+    `cache` (the device-resident dataset), an index tensor [B], copied
+    into a static index buffer, the batch gathered from the cache by
+    `index_select` inside the step.
+
+    Captured (`eager_reason` None): one CUDA graph for each batch shape
+    and refresh or not (`refresh_due`), all in one memory pool, each
+    captured at its first use after WARMUP_STEPS eager steps on clones of
+    the state on a side stream (where a kernel's first use builds it), and
+    captured again when the state's buffers or the optimizer's tables are
+    new (a restored checkpoint). A k-means++ seeding step (`seed_due`)
+    runs eagerly: it draws its noise on the host. Eager: the same body and
+    commit, run op by op. `stats` counts graphs, replays, eager steps,
+    warm-up steps and their launches by kernel (set apart from the kernel
+    modules' counts, which count the steps), capture seconds and the
+    pool's reserved bytes."""
+
+    def __init__(self, cfg: Config, tx: Optimizer, device, mesh=None,
+                 extractor=None, debug_nans: bool = False, cache=None):
+        self.cfg, self.tx, self.device = cfg, tx, torch.device(device)
+        self.extractor, self.debug_nans, self.cache = (extractor, debug_nans,
+                                                       cache)
+        self.eager_reason = eager_reason(cfg, self.device, mesh, extractor,
+                                         debug_nans)
+        self.groups = mesh_groups(cfg, mesh)
+        self.stats = {"graphs": 0, "replays": 0, "eager_steps": 0,
+                      "warmup_steps": 0, "warmup_launches": {},
+                      "capture_s": 0.0, "pool_bytes": 0}
+        self._bound = None          # the buffers the counters belong to
+        self._counters = None       # 0-d int64: the step, the count
+        self._at = None             # the host (step, count) they hold
+        self._graphs: dict = {}
+        self._inputs: dict = {}
+        self._metrics: dict | None = None
+        self._pool = self._stream = None
+
+    @property
+    def graphed(self) -> bool:
+        return self.eager_reason is None
+
+    def __call__(self, state: TrainState, batch
+                 ) -> tuple[TrainState, dict[str, torch.Tensor]]:
+        count = state.opt_state["count"]
+        self._bind(state, self.tx.tables(self.device, count))
+        key, inputs = self._stage(batch)
+        refresh = refresh_due(self.cfg, state.step)
+        seed = seed_due(self.cfg, state.step)
+        if self.graphed and not seed:
+            graph = self._graphs.get((key, refresh))
+            if graph is None:
+                graph = self._graphs[key, refresh] = self._capture(
+                    state, inputs, refresh)
+            graph.replay()
+            self.stats["replays"] += 1
+        else:
+            self._run(state, inputs, refresh, seed, self._counters)
+            self.stats["eager_steps"] += 1
+        self._at = (state.step + 1, count + 1)
+        return replace(state, step=state.step + 1,
+                       opt_state={**state.opt_state, "count": count + 1}), \
+            self._metrics
+
+    @staticmethod
+    def _buffers(state: TrainState) -> list[torch.Tensor]:
+        opt = [d[k] for _, d in sorted(state.opt_state.items())
+               if isinstance(d, dict) for k in sorted(d)]
+        return [*(state.params[k] for k in sorted(state.params)), *opt,
+                state.centers,
+                *(t for t in (state.bank, state.bank_valid) if t is not None)]
+
+    def _bind(self, state: TrainState, tables: torch.Tensor) -> None:
+        """Points the counters at the state's host step and count, and
+        drops the graphs when the buffers are not those they captured."""
+        at = (state.step, state.opt_state["count"])
+        bound = (tables.data_ptr(), *((t.data_ptr(), t.shape)
+                                      for t in self._buffers(state)))
+        if bound != self._bound:
+            self._graphs.clear()
+            self._bound = bound
+            self._counters = tuple(
+                torch.full((), n, dtype=torch.int64, device=self.device)
+                for n in at)
+        elif at != self._at:
+            for t, n in zip(self._counters, at):
+                t.fill_(n)
+        self._at = at
+
+    def _stage(self, batch) -> tuple[tuple, dict[str, torch.Tensor]]:
+        """Captured: copies the batch (or the index batch) into its static
+        buffers and returns (its shape key, the buffers). Eager: the batch
+        on the device (`batch_to_device`), and no key."""
+        if self.cache is not None:
+            batch = {"index": batch}
+        if not self.graphed:
+            return None, batch_to_device(batch, self.device)
+        host = {k: torch.as_tensor(v if isinstance(v, torch.Tensor)
+                                   else np.asarray(v))
+                for k, v in batch.items()}
+        key = tuple((k, tuple(t.shape), t.dtype) for k, t in host.items())
+        bufs = self._inputs.get(key)
+        if bufs is None:
+            bufs = self._inputs[key] = {
+                k: torch.empty(t.shape, dtype=t.dtype, device=self.device)
+                for k, t in host.items()}
+        for k, t in host.items():
+            bufs[k].copy_(t)
+        return key, bufs
+
+    def _run(self, state: TrainState, inputs: dict, refresh: bool,
+             seed: bool, counters: tuple) -> None:
+        """step_body on the staged inputs, then its commit into the
+        state's buffers, the counters and the metric buffers."""
+        batch = inputs
+        if self.cache is not None:
+            batch = {k: v.index_select(0, inputs["index"])
+                     for k, v in self.cache.items()}
+        step_t, count_t = counters
+        params, opt, centers, metrics = step_body(
+            self.cfg, self.tx, state, batch, step_t, count_t,
+            refresh=refresh, seed=seed, extractor=self.extractor,
+            groups=self.groups, debug_nans=self.debug_nans)
         with torch.no_grad():
-            e = cfg.model.embed_dim
-            if lc.kmeans_source == "bank" and bank is not None:
-                bank, bank_valid = bank_write(bank, bank_valid, state.step,
-                                              sel_f, sel_v)
-                f_nd, v_nd, bdim = bank, bank_valid, 1
-            else:
-                f_nd, v_nd, bdim = sel_f, sel_v, 0
-            f, valid = f_nd.reshape(-1, e), v_nd.reshape(-1)
-            if lc.kmeans_init == "plusplus" and state.step == 0:
-                gathers = [(g, d) for g, d in ((group, bdim),
-                                               (frame_group, bdim + 1))
-                           if g is not None]
-                centers = kmeans_plusplus_init(
-                    f_nd, v_nd, lc.num_clusters,
-                    generator=torch.Generator().manual_seed(cfg.train.seed),
-                    gathers=gathers)
-            if state.step % lc.kmeans_interval == 0:
-                dt = COMPUTE_DTYPES[cfg.model.dtype]
-                centers = kmeans_lloyd(
-                    f, valid, centers, lc.kmeans_iters, lc.kmeans_ema,
-                    assign_dtype=None if dt == torch.float32 else dt,
-                    group=axes)
-    metrics = {k: v.detach() for k, v in aux.items()}
-    metrics["grad_norm"] = global_norm(grads).detach()
-    return replace(state, step=state.step + 1, params=new_params,
-                   opt_state=opt_state, centers=centers, bank=bank,
-                   bank_valid=bank_valid), metrics
+            for k, v in params.items():
+                state.params[k].copy_(v)
+            for name, d in opt.items():
+                for k, v in d.items():
+                    state.opt_state[name][k].copy_(v)
+            if centers is not state.centers:
+                state.centers.copy_(centers)
+            step_t.add_(1)
+            count_t.add_(1)
+            if self._metrics is None:       # never inside a capture: a
+                self._metrics = {           # warm-up or an eager step runs
+                    k: torch.empty_like(v) for k, v in metrics.items()}
+            for k, v in metrics.items():
+                self._metrics[k].copy_(v)
+
+    def _capture(self, state: TrainState, inputs: dict, refresh: bool):
+        from nafae_torch.utils import cuda_graph as CG
+
+        t0 = time.perf_counter()
+        dev = self.device
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._stream = torch.cuda.Stream(dev)
+        main = torch.cuda.current_stream(dev)
+        self._stream.wait_stream(main)
+        with torch.cuda.stream(self._stream), \
+                CG.set_apart(self.stats["warmup_launches"]):
+            shadow = replace(
+                state, params={k: v.clone() for k, v in state.params.items()},
+                opt_state={k: ({n: t.clone() for n, t in v.items()}
+                               if isinstance(v, dict) else v)
+                           for k, v in state.opt_state.items()},
+                centers=state.centers.clone(),
+                bank=None if state.bank is None else state.bank.clone(),
+                bank_valid=(None if state.bank_valid is None
+                            else state.bank_valid.clone()))
+            counters = tuple(t.clone() for t in self._counters)
+            for _ in range(WARMUP_STEPS):
+                self._run(shadow, inputs, refresh, False, counters)
+                self.stats["warmup_steps"] += 1
+            del shadow, counters
+        main.wait_stream(self._stream)
+        torch.cuda.synchronize(dev)
+        # torch.cuda.graph empties the allocator's cache as it begins: do
+        # it first, so that the growth of reserved memory is the pool's
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        graph = torch.cuda.CUDAGraph()
+        step = CG.capture(
+            lambda: self._run(state, inputs, refresh, False, self._counters),
+            graph, torch.cuda.graph(graph, pool=self._pool,
+                                    stream=self._stream,
+                                    capture_error_mode="thread_local"))
+        self.stats["pool_bytes"] += torch.cuda.memory_reserved(dev) - reserved
+        self.stats["graphs"] += 1
+        self.stats["capture_s"] += time.perf_counter() - t0
+        return step
+
+
+def build_train_fn(cfg: Config, tx: Optimizer, device, mesh=None,
+                   extractor=None, debug_nans: bool = False,
+                   cache: dict[str, torch.Tensor] | None = None) -> TrainFn:
+    """The training step as one device program (the reference's
+    `build_train_fn`, whose jax.jit compiles the step): fn(state, batch)
+    -> (state, metrics), a `TrainFn`, updating the state's tensors in
+    place.
+
+    On cuda the step is captured in CUDA graphs and replayed, with no
+    mesh or on an NCCL mesh without a frame axis (the gradient all-reduce
+    and the losses' and k-means' collectives inside the graph). It runs
+    the same body eagerly, op by op, on the CPU; with debug_nans (host
+    checks every step); on a gloo mesh (collectives staged through host
+    memory); with mesh.frame_axis > 1 (the halo exchange); and with an
+    extractor (config 5). `eager_reason` names which; `TrainFn` says what
+    a batch is (cache: the device-resident dataset, batches by index)."""
+    return TrainFn(cfg, tx, device, mesh, extractor, debug_nans, cache)
 
 
 def _check_finite(tensors: dict[str, torch.Tensor], what: str) -> None:
@@ -564,7 +923,12 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     gathered along both axes), so a run resumes with or without a mesh.
     frames_per_sec counts the global batch. The returned state holds this
     rank's bank shard. debug_nans: autograd's anomaly mode for the run,
-    and train_step's checks of every step."""
+    and the step's checks of every step (it then runs eagerly).
+
+    The steps run through `build_train_fn` (CUDA graphs on the card, see
+    `eager_reason`), which updates the state's tensors in place: the
+    state returned holds the tensors the run started from, and the
+    metrics are the program's buffers."""
     from nafae_torch.data.youcook2 import SegmentDataset
     from nafae_torch.parallel.multihost import global_batch_spec, local_batch
     from nafae_torch.utils.checkpoint import CheckpointManager
@@ -672,13 +1036,17 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     def due(kind, every):
         return every > 0 and applied - last_fired[kind] >= every
 
-    def apply(batch):
+    step = build_train_fn(cfg, tx, device, mesh, extractor, debug_nans)
+
+    def apply(batches):
+        """A group of spc batches, or one batch: a step each, with no host
+        read between them."""
         nonlocal state, metrics, applied, frames_applied
-        state, metrics = train_step(
-            state, batch_to_device(local_batch(batch, spec, mesh), device),
-            cfg, tx, extractor, mesh, debug_nans)
-        applied += 1
-        frames_applied += int(np.prod(batch["frame_mask"].shape))
+        for b in batches:
+            state, metrics = step(state, local_batch(b, spec, mesh))
+        applied += len(batches)
+        frames_applied += sum(int(np.prod(b["frame_mask"].shape))
+                              for b in batches)
 
     def emit():
         nonlocal t0, frames_logged
@@ -724,10 +1092,9 @@ def fit(cfg: Config, device: str | torch.device | None = None,
                     continue
                 if len(pending[key]) < spc:
                     continue
-                for b in pending.pop(key):
-                    apply(b)
+                apply(pending.pop(key))
             else:
-                apply(batch)
+                apply([batch])
             emit()
             if applied >= target:
                 break
@@ -736,7 +1103,7 @@ def fit(cfg: Config, device: str | torch.device | None = None,
         for b in [b for grp in pending.values() for b in grp]:
             if applied >= target:
                 break
-            apply(b)
+            apply([b])
             emit()
     save(state)
     return state, metrics
@@ -770,20 +1137,23 @@ def fit_device_cached(cfg: Config, state: TrainState, ds, tx: Optimizer,
     (train.device_cache; the reference's `fit_device_cached`).
 
     The dataset is uploaded once (`build_cache`); each step's batch is
-    gathered on the device by index (`index_select` along dim 0). The
+    gathered on the device by index (`index_select` along dim 0, inside
+    the step `build_train_fn` captures, from a static index buffer). The
     index stream is the reference's: a RandomState seeded with train.seed
     draws one permutation of the segments per epoch, batches run across
     epoch boundaries, and a resumed run skips the start step's positions.
     A call takes steps_per_call steps (the last one the steps left) with
-    no host read between them, and its metrics are its last step's;
+    no host read between them (the reference's `make_multi_step`: here
+    that many replays of the captured step), and its metrics are its last
+    step's;
     logging, eval and checkpoints fire on the calls where
     step % max(every, spc) < spc.
 
     mesh: each rank holds its frame shard of feats, region_mask and
     frame_mask (an F-way frame axis divides its cache by F) and every
     other key whole, and gathers its data rank's rows of each global index
-    batch; the step is train_step's DP/SP step, so the trajectory is the
-    single device's. `save` writes the single-device checkpoint (rank 0)."""
+    batch; the step is the DP/SP step of `step_body`, so the trajectory is
+    the single device's. `save` writes the single-device checkpoint (rank 0)."""
     from nafae_torch.parallel.multihost import process_shard
 
     n = len(ds)
@@ -821,6 +1191,9 @@ def fit_device_cached(cfg: Config, state: TrainState, ds, tx: Optimizer,
     def due(every):
         return every > 0 and gstep % max(every, spc) < spc
 
+    step = build_train_fn(cfg, tx, device, mesh, debug_nans=debug_nans,
+                          cache=cache)
+
     with torch.autograd.set_detect_anomaly(debug_nans):
         while done < total:
             take = min(spc, total - done)
@@ -834,11 +1207,8 @@ def fit_device_cached(cfg: Config, state: TrainState, ds, tx: Optimizer,
             idxs = torch.from_numpy(idxs[:, rows.start:rows.stop].copy())
             if device.type == "cuda":     # one copy a call, no host wait
                 idxs = idxs.pin_memory().to(device, non_blocking=True)
-            for j in range(take):
-                batch = {k: v.index_select(0, idxs[j])
-                         for k, v in cache.items()}
-                state, metrics = train_step(state, batch, cfg, tx, mesh=mesh,
-                                            debug_nans=debug_nans)
+            for idx in idxs:
+                state, metrics = step(state, idx)
             done += take
             gstep = start_step + done
             if due(cfg.train.log_every):

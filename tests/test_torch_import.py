@@ -36,7 +36,7 @@ def test_import_leaves_jax_out():
             "nafae_torch.parallel.sp, nafae_torch.parallel.multihost, "
             "nafae_torch.utils.profiling, nafae_torch.evaluate, "
             "nafae_torch.utils.native_io, nafae_torch.data.grain_loader, "
-            "nafae_torch.ops.kernels._build; "
+            "nafae_torch.ops.kernels._build, nafae_torch.utils.cuda_graph; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -52,7 +52,8 @@ def test_import_leaves_jax_out():
                                     "nafae_torch.utils.profiling",
                                     "nafae_torch.utils.native_io",
                                     "nafae_torch.data.grain_loader",
-                                    "nafae_torch.ops.kernels._build"])
+                                    "nafae_torch.ops.kernels._build",
+                                    "nafae_torch.utils.cuda_graph"])
 def test_new_entry_points_leave_jax_out(module):
     """Each of the entry modules alone, in a fresh interpreter."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "
