@@ -191,6 +191,24 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    against eager, cached and on prepacked streaming batches, with the
    card's busy time and idle share, `fit` from the cache a row a step,
    the capture seconds and the graph pool's reserved bytes.
+16. serving, eval, extraction and the config-5 step as device programs
+   (run after phase 10, on the serving phase's requests and val split and
+   phase 9's videos); phases 4, 7, 9, 10 and 11 now run them too, their
+   launch counts held as before, counted once a replay, and phases 9 and
+   10 print each run's graphs and pool bytes. (a) the serving graph of
+   f32, bf16, int8 and int8pre servers bit for bit `make_ground_fn`
+   called eagerly on every batch, K1f once a batch; (b) eval's graph
+   (config1, oracle params, then a random w_v in a second `evaluate`)
+   with the hits of `eval_batch` called eagerly, each call its own; (c)
+   the extract graph bit for bit the detector's eager outputs on 8-frame
+   chunks, K2 once a chunk; (d) config-5 `fit`, 3 steps each of the f32
+   preset, roi_impl=pallas and the bf16 detector, captured (two graphs, a
+   replay a step) and bit for bit the eager `train_step` chain with the
+   same detector, K2 (and K5) once a step; (e) one replayed pallas-RoI
+   step traced names K2, K5, K1fr and K1br as counted; and the serving
+   batch (f32, int8pre), eval's wall seconds, an extract chunk and the
+   config-5 step (f32, bf16) graphed against eager, with the copy, the
+   idle share, the pool's bytes and the peak memory.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -1684,15 +1702,23 @@ def train_c5(torch, ann: str, tmp: str, runs=None, tag: str = "") -> dict:
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         zero_counts()                           # main path starts here
-        t0 = time.perf_counter()
-        logs = run_fit(torch, cfg)
-        wall = time.perf_counter() - t0
+        fitted = traced_fit(torch, cfg, record=False)
         counts = read_counts()                  # ... and ends here
+        logs, wall = fitted["logs"], fitted["wall_s"]
+        if len(logs) != steps or not all(
+                np.isfinite(v) for m in logs for v in m.values()):
+            fail(f"config-5 training ({label}) logged {logs}")
         want = {k: n * steps for k, n in c5_launches(cfg).items()}
         if counts != want:
             fail(f"config-5 training ({label}) launched {counts}, "
                  f"expected {want}")
+        # a k-means++ run seeds eagerly at step 0, then captures both
+        # graphs at step 1
+        st = expect_graphed(fitted, f"config-5 training ({label})", 2,
+                            steps, int(cfg.loss.kmeans_init == "plusplus"))
+        del fitted
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
         first = statistics.mean(m["loss"] for m in logs[:2])
         last = statistics.mean(m["loss"] for m in logs[-2:])
         log(f"trained config5 {steps} steps ({label}: "
@@ -1703,12 +1729,18 @@ def train_c5(torch, ann: str, tmp: str, runs=None, tag: str = "") -> dict:
             f"nms_impl {cfg.detector.nms_impl}) in {wall:.2f} s incl. "
             f"set-up: loss {logs[0]['loss']:.5f} -> {logs[-1]['loss']:.5f} "
             f"(mean of first 2 {first:.5f}, last 2 {last:.5f}); launches "
-            f"{counts}; peak device memory {peak:.2f} GiB")
+            f"{counts}; peak device memory {peak:.2f} GiB allocated, "
+            f"{peak_reserved:.2f} GiB reserved; captured in "
+            f"{st['graphs']} graphs ({st['replays']} replays, "
+            f"{st['eager_steps']} eager steps, {st['warmup_steps']} warm-up "
+            f"steps, capture {st['capture_s']:.2f} s), the pool "
+            f"{st['pool_bytes']} bytes")
         if not last < first:
             fail(f"config-5 training ({label}) did not lower the loss: "
                  f"{first} -> {last}")
         out[run] = {"logs": logs, "launches": counts, "peak_gib": peak,
-                    "wall_s": wall}
+                    "peak_reserved_gib": peak_reserved, "wall_s": wall,
+                    "program": st}
     return out
 
 
@@ -4752,12 +4784,13 @@ def graph_cfg(root: str, ckpt: str, dtype: str, route: str, spc: int,
         *extra])
 
 
-def traced_fit(torch, cfg, device="cuda", mesh=None, wrap=None) -> dict:
+def traced_fit(torch, cfg, device="cuda", mesh=None, wrap=None,
+               record=True) -> dict:
     """`fit` as a user calls it, with the step programs it builds
-    (`build_train_fn`) kept and every batch handed to them recorded (a
-    host batch copied, an index batch cloned on the device); `wrap`, if
-    given, wraps the recording step function. Returns {"logs", "state",
-    "programs", "seen", "wall_s"}."""
+    (`build_train_fn`) kept and, with `record`, every batch handed to them
+    recorded (a host batch copied, an index batch cloned on the device);
+    `wrap`, if given, wraps the recording step function. Returns {"logs",
+    "state", "programs", "seen", "wall_s"}."""
     import nafae_torch.train as TT
 
     real, programs, seen = TT.build_train_fn, [], []
@@ -4767,8 +4800,9 @@ def traced_fit(torch, cfg, device="cuda", mesh=None, wrap=None) -> dict:
         programs.append(prog)
 
         def step(state, batch):
-            seen.append(batch.clone() if isinstance(batch, torch.Tensor)
-                        else {k: np.array(v) for k, v in batch.items()})
+            if record:
+                seen.append(batch.clone() if isinstance(batch, torch.Tensor)
+                            else {k: np.array(v) for k, v in batch.items()})
             return prog(state, batch)
         return wrap(step) if wrap else step
 
@@ -4784,10 +4818,11 @@ def traced_fit(torch, cfg, device="cuda", mesh=None, wrap=None) -> dict:
             "wall_s": time.perf_counter() - t0}
 
 
-def eager_chain(torch, cfg, seen, cache=None) -> dict:
+def eager_chain(torch, cfg, seen, cache=None, extractor=None) -> dict:
     """train_step on the card, op by op, over the batches a traced fit
-    applied (index batches gathered from `cache`), from the initial state
-    fit starts from: {"rows": {step: metrics}, "state"}."""
+    applied (index batches gathered from `cache`; frames through
+    `extractor`, config 5's detector), from the initial state fit starts
+    from: {"rows": {step: metrics}, "state"}."""
     from nafae_torch.train import (TrainState, batch_to_device,
                                    make_optimizer, train_step)
 
@@ -4797,7 +4832,7 @@ def eager_chain(torch, cfg, seen, cache=None) -> dict:
     for i, b in enumerate(seen, 1):
         batch = ({k: v.index_select(0, b) for k, v in cache.items()}
                  if cache is not None else batch_to_device(b, dev))
-        st, m = train_step(st, batch, cfg, tx)
+        st, m = train_step(st, batch, cfg, tx, extractor)
         rows[i] = {k: float(v) for k, v in m.items()}
     return {"rows": rows, "state": st}
 
@@ -4860,16 +4895,18 @@ TRACE_NAMES = {
     "cross_mil": ("cross_mil_",),
     "diag_epilogue": ("diag_centers_kernel", "diag_fwd_kernel"),
     "diag_epilogue_bwd": ("diag_bwd_kernel",),
+    "nms": ("nms_kernel",),
+    "roi_align": ("roi_align_kernel",),
 }
 
 
-def traced_replay(torch, prog, state, batch, route: str, path: str) -> dict:
+def traced_replay(torch, prog, state, batch, per: dict, path: str) -> dict:
     """One more step of a graphed program `prog` (a replay of its graph
     without a refresh) under torch.profiler, its trace written to `path`
     and read back as phase 12 reads the --profile trace: each kernel of
-    TRACE_NAMES must be named there as often as per_step_launches(route)
-    says, and the launch counts must have grown by just that. Returns
-    {name: times named}."""
+    TRACE_NAMES must be named there as often as `per` (the launches of a
+    step, per_step_launches or c5_launches) says, and the launch counts
+    must have grown by just that. Returns {name: times named}."""
     from torch.profiler import ProfilerActivity, profile
 
     was = dict(prog.stats)
@@ -4888,7 +4925,6 @@ def traced_replay(torch, prog, state, batch, route: str, path: str) -> dict:
         names = [e["name"] for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "kernel"]
     os.remove(path)
-    per = per_step_launches(route)
     want = {}
     for key, subs in TRACE_NAMES.items():
         for sub in subs:
@@ -4964,7 +5000,8 @@ def check_graphs(torch, root: str, tmp: str) -> dict:
                                 "wall_s": run["wall_s"]}
                     if spc == GRAPH_SPC[-1]:       # after the comparisons
                         traced[tag] = traced_replay(
-                            torch, prog, run["state"], seen[-1], route,
+                            torch, prog, run["state"], seen[-1],
+                            per_step_launches(route),
                             os.path.join(tmp, f"replay_{tag}.json"))
                     if dt == "float32" and way == "streaming" and spc == 1:
                         base[route] = {"logs": run["logs"],
@@ -5264,6 +5301,425 @@ def graph_timings(torch, root: str, tmp: str) -> dict:
     return res
 
 
+# ------------- serving, eval, extraction and the config-5 step as graphs
+# (phase 16)
+
+GRAPH_SERVERS = (("float32", ""), ("bfloat16", ""), ("float32", "int8"),
+                 ("float32", "int8pre"))      # (model.dtype, model.quantize)
+GRAPH_SERVE_TIMED = ("float32", "int8pre")
+GRAPH_C5_STEPS = 3               # steps of each phase-16 config-5 fit
+GRAPH_C5_RUNS = ("float32", "pallas_roi", "bfloat16")
+GRAPH_C5_TRACED = "pallas_roi"   # its replay traced: K2, K5, K1fr, K1br
+GRAPH_C5_ROUNDS = 3              # timed rounds of the config-5 step
+GRAPH_EVAL_ROUNDS = 6            # interleaved rounds of the eval timing
+EXTRACT_CHUNK = 8                # extract_segments' frame_batch
+
+
+def padded_batches(srv, segs) -> list[dict]:
+    """`segs` as the server runs them: padded segments in full batches of
+    batch_size (the last one padded with zero rows), numpy."""
+    samples = [srv._pad_segment(s) for s in segs]
+    bs, out = srv.batch_size, []
+    for lo in range(0, len(samples), bs):
+        chunk = samples[lo:lo + bs]
+        out.append({k: np.concatenate(
+            [np.stack([s[k] for s in chunk]),
+             np.zeros((bs - len(chunk),) + chunk[0][k].shape,
+                      chunk[0][k].dtype)]) for k in chunk[0]})
+    return out
+
+
+def eager_batch(torch, srv, batch) -> dict:
+    """A server's batch run op by op, as `run_batch` ran it before its
+    graph: the batch copied to the card, `make_ground_fn`'s forward
+    (`srv._fn`) called eagerly, the outputs read back (numpy)."""
+    t = {k: torch.from_numpy(v).to(srv.device, non_blocking=True)
+         for k, v in batch.items()}
+    with torch.inference_mode():
+        out = srv._fn(srv.params, *(t[k] for k in ARG_KEYS),
+                      t.get("feats_scale"))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def check_serve_graphs(torch, params, segs) -> dict:
+    """Phase 16 (a): the serving graph of config4 servers in f32, bf16,
+    int8 and int8pre (oracle params, the serving phase's requests): each
+    batch's answer bit for bit `make_ground_fn` called eagerly on the same
+    batch, K1f once a batch (a replay), one graph a server; then the f32
+    and int8pre batch host to host, graphed (`run_batch`) against eager
+    (`eager_batch`), AB_ROUNDS interleaved rounds, with the batch's copy
+    to the card timed apart."""
+    from nafae_torch.serve import GroundingServer
+
+    dev = torch.device("cuda")
+    out, srvs = {}, {}
+    for dt, q in GRAPH_SERVERS:
+        name = q or dt
+        srv = srvs[name] = GroundingServer(serve_cfg(dt, q), params,
+                                           device="cuda")
+        batches = padded_batches(srv, segs)
+        for i, b in enumerate(batches):
+            zero_counts()                       # a batch starts here
+            got = srv.run_batch(b)
+            counts = read_counts()              # ... and ends here
+            want = eager_batch(torch, srv, b)
+            if {k: n for k, n in counts.items() if n} != {"ctx_mix_fwd": 1}:
+                fail(f"the {name} serving graph launched {counts} for batch "
+                     f"{i}; K1f once expected")
+            bad = [k for k in want if not np.array_equal(got[k], want[k])]
+            if set(got) != set(want) or bad:
+                fail(f"the {name} serving graph differs from make_ground_fn "
+                     f"called eagerly in {bad} (batch {i})")
+        st = dict(srv._program.stats)
+        if st["graphs"] != 1 or st["replays"] != len(batches):
+            fail(f"the {name} server's program ran {st}")
+        out[name] = {"batches": len(batches), "program": st}
+    for name in GRAPH_SERVE_TIMED:
+        srv = srvs[name]
+        b = padded_batches(srv, segs[:srv.batch_size])[0]
+        ms = {"graphed": [], "eager": [], "h2d": []}
+        for i in range(AB_ROUNDS + 2):
+            for way in (("graphed", "eager", "eager", "graphed") if i % 2
+                        else ("eager", "graphed", "graphed", "eager")):
+                t0 = time.perf_counter()
+                (srv.run_batch(b) if way == "graphed"
+                 else eager_batch(torch, srv, b))
+                if i >= 2:
+                    ms[way].append((time.perf_counter() - t0) * 1e3)
+            t0 = time.perf_counter()
+            _ = {k: torch.from_numpy(v).to(dev, non_blocking=True)
+                 for k, v in b.items()}
+            torch.cuda.synchronize()
+            if i >= 2:
+                ms["h2d"].append((time.perf_counter() - t0) * 1e3)
+        out[name].update({f"{k}_ms": statistics.median(v)
+                          for k, v in ms.items()})
+        out[name]["batch_bytes"] = int(sum(v.nbytes for v in b.values()))
+    card = card_line()
+    log("phase 16 (a): serving graphs (f32, bf16, int8, int8pre): every "
+        "batch bit for bit make_ground_fn called eagerly, K1f once a "
+        "batch, one graph a server (" + ", ".join(
+            f"{n} {o['program']['replays']} replays, capture "
+            f"{o['program']['capture_s']:.3f} s, pool "
+            f"{o['program']['pool_bytes']} B" for n, o in out.items())
+        + ")")
+    for name in GRAPH_SERVE_TIMED:
+        o = out[name]
+        log(f"phase 16 (a): serving batch ({name} server, B=16, "
+            f"{o['batch_bytes']} bytes) host to host: graphed "
+            f"{o['graphed_ms']:.4f} ms, eager {o['eager_ms']:.4f} ms "
+            f"(medians of {2 * AB_ROUNDS} interleaved); the batch's copy to "
+            f"the card alone {o['h2d_ms']:.4f} ms — {card}")
+    return out
+
+
+def eager_evaluate(torch, params, ds, batch_size: int) -> int:
+    """Eval's hits over `ds` with eval_batch called op by op on the card,
+    the batches padded to batch_size as `evaluate` pads them."""
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.evaluate import _pad_rows, eval_batch
+    from nafae_torch.train import batch_to_device
+
+    dev = torch.device("cuda")
+    params = {k: torch.as_tensor(v).to(dev) for k, v in params.items()}
+    hits = 0
+    for batch in BatchLoader(ds, batch_size, shuffle=False,
+                             drop_remainder=False):
+        b = batch_to_device({k: _pad_rows(v, batch_size)
+                             for k, v in batch.items()}, dev)
+        correct, gt_mask = eval_batch(params, b)
+        hits += int(round(float((correct * gt_mask).sum().cpu())))
+    return hits
+
+
+def check_eval_graphs(torch, root: str) -> dict:
+    """Phase 16 (b): config1's eval of the serving phase's val split: with
+    the oracle params, then with w_v drawn at random (a second
+    `evaluate`, the program kept from the first), the graph's hits equal
+    those of eval_batch called eagerly on the card, and the two calls'
+    hits differ (the second scores its own params); eval wall seconds
+    graphed (`evaluate`) against eager (`eager_evaluate`), interleaved."""
+    from nafae_torch.data.youcook2 import SegmentDataset
+    from nafae_torch.evaluate import _PROGRAMS, evaluate
+
+    cfg = eval_cfg(root, "unused")
+    ds = SegmentDataset(root, "val", cfg.data.max_frames,
+                        cfg.data.num_regions, cfg.data.feat_dim,
+                        cfg.data.max_words, with_gt=True)
+    bs = cfg.data.batch_size
+    oracle = oracle_params()
+    rng = np.random.default_rng(SEED)
+    d = oracle["w_v"].shape[0]
+    changed = {**oracle, "w_v": (rng.standard_normal(oracle["w_v"].shape)
+                                 / np.sqrt(d)).astype(np.float32)}
+    res = {}
+    for name, p in (("oracle", oracle), ("changed", changed)):
+        got = evaluate(p, ds, bs, cfg.model.vocab_size, device="cuda")
+        hits = int(round(got["box_acc_micro"] * got["num_annotations"]))
+        want = eager_evaluate(torch, p, ds, bs)
+        if hits != want:
+            fail(f"eval graph ({name} params): {hits} hits, the eager body "
+                 f"{want}")
+        res[name] = {"hits": hits, "num_annotations": got["num_annotations"]}
+    if res["oracle"]["hits"] == res["changed"]["hits"]:
+        fail(f"the second evaluate scored as the first: {res}")
+    programs = [dict(p.stats) for p in _PROGRAMS.values()
+                if p.device.type == "cuda"]
+    wall = {"graphed": [], "eager": []}
+    for i in range(GRAPH_EVAL_ROUNDS):
+        for way in (("graphed", "eager") if i % 2 else ("eager", "graphed")):
+            t0 = time.perf_counter()
+            if way == "graphed":
+                evaluate(oracle, ds, bs, cfg.model.vocab_size, device="cuda")
+            else:
+                eager_evaluate(torch, oracle, ds, bs)
+            wall[way].append(time.perf_counter() - t0)
+    res.update({f"{k}_s": statistics.median(v) for k, v in wall.items()})
+    res["programs"] = programs
+    log(f"phase 16 (b): eval graph (config1, {len(ds)} segments, "
+        f"{res['oracle']['num_annotations']} annotations): hits "
+        f"{res['oracle']['hits']} (oracle) and {res['changed']['hits']} "
+        f"(a random w_v, a second evaluate) equal to eval_batch run "
+        f"eagerly; programs {programs}; wall graphed {res['graphed_s']:.4f} "
+        f"s, eager {res['eager_s']:.4f} s (medians of "
+        f"{GRAPH_EVAL_ROUNDS} interleaved) — {card_line()}")
+    return res
+
+
+def check_extract_graph(torch, cfg, frames) -> dict:
+    """Phase 16 (c): make_extract_fn's graph of cfg's detector over an
+    EXTRACT_CHUNK-frame chunk of `frames` (numpy [N,S,S,3]) and another:
+    its outputs bit for bit the detector's eager outputs on the same
+    chunk, K2 once a replay (and K5 with roi_impl=pallas); an extract
+    chunk host to host (numpy in, numpy out), graphed against eager, in
+    interleaved rounds."""
+    from nafae_torch.extract import make_extract_fn
+
+    dev = torch.device("cuda")
+    det = c5_detector(torch, cfg)
+    fn, _ = make_extract_fn(cfg, model=det)
+
+    def eager(chunk):
+        out = det(torch.from_numpy(chunk).to(dev))
+        return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+    want_counts = {k: n for k, n in c5_launches(cfg).items()
+                   if k in ("nms", "roi_align") and n}
+    chunks = [np.ascontiguousarray(frames[i:i + EXTRACT_CHUNK])
+              for i in (0, EXTRACT_CHUNK)]
+    for i, chunk in enumerate(chunks):
+        zero_counts()                           # a chunk starts here
+        got = fn(chunk)
+        counts = {k: n for k, n in read_counts().items() if n}
+        want = eager(chunk)                     # ... and ended before this
+        if counts != want_counts:
+            fail(f"the extract graph launched {counts}; {want_counts} "
+                 "expected")
+        bad = [k for k in want if not np.array_equal(got[k], want[k])]
+        if set(got) != set(want) or bad:
+            fail(f"the extract graph differs from the detector's eager "
+                 f"outputs in {bad} (chunk {i})")
+    ms = {"graphed": [], "eager": []}
+    for i in range(AB_ROUNDS):
+        for way in (("graphed", "eager") if i % 2 else ("eager", "graphed")):
+            t0 = time.perf_counter()
+            fn(chunks[0]) if way == "graphed" else eager(chunks[0])
+            ms[way].append((time.perf_counter() - t0) * 1e3)
+    res = {f"{k}_ms": statistics.median(v) for k, v in ms.items()}
+    res["program"] = dict(fn.program.stats)
+    log(f"phase 16 (c): extract graph ({cfg.detector.backbone} "
+        f"{cfg.detector.dtype}, {EXTRACT_CHUNK} frames of "
+        f"{cfg.detector.image_size}x{cfg.detector.image_size}): outputs bit "
+        f"for bit the detector's eager outputs on 2 chunks, launches "
+        f"{want_counts} a chunk; a chunk host to host graphed "
+        f"{res['graphed_ms']:.3f} ms, eager {res['eager_ms']:.3f} ms "
+        f"(medians of {AB_ROUNDS} interleaved); program {res['program']} "
+        f"— {card_line()}")
+    return res
+
+
+def c5_graph_timings(torch, cfg, det, batch, interleaved: bool) -> dict:
+    """The config-5 step of `cfg` (a 1000-step schedule) host to host (the
+    numpy batch in, the loss on the host) and on a resident batch (device
+    tensors; the graphed step copies them into its static buffers),
+    graphed (`build_train_fn`) against eager (`train_step`), both with the
+    detector `det`, GRAPH_C5_ROUNDS rounds each: interleaved, or (f32,
+    whose graph pool and eager step would not fit beside each other with
+    room to spare) the graphed rounds first and the graphs freed before
+    the eager ones; the device busy time of a step of each
+    (torch.profiler) and its idle share."""
+    from nafae_torch.train import (TrainState, batch_to_device,
+                                   build_train_fn, make_optimizer,
+                                   train_step)
+
+    dev = torch.device("cuda")
+    cfg = replace(cfg, train=replace(cfg.train, steps=1000))
+    tb = batch_to_device(batch, dev)
+    tx = make_optimizer(cfg)
+    prog = build_train_fn(cfg, tx, dev, extractor=det)
+    states = {w: TrainState.create(cfg, device=dev)
+              for w in ("graphed", "eager")}
+    ways = ("graphed", "eager")
+    res = {w: {"host": [], "resident": []} for w in ways}
+
+    def step(way, kind):
+        if way == "graphed":
+            b = batch if kind == "host" else tb
+            states[way], m = prog(states[way], b)
+        else:
+            b = tb if kind == "resident" else batch_to_device(batch, dev)
+            states[way], m = train_step(states[way], b, cfg, tx, det)
+        return m
+
+    def timed(way):
+        for kind in ("host", "resident"):
+            t0 = time.perf_counter()
+            float(step(way, kind)["loss"])
+            res[way][kind].append((time.perf_counter() - t0) * 1e3)
+
+    def profiled(way):
+        _, res[way]["busy_ms"], res[way]["ops"] = profile_forward(
+            torch, lambda: step(way, "resident"), reps=2)
+
+    if interleaved:
+        for way in ways:
+            step(way, "resident")
+        for i in range(GRAPH_C5_ROUNDS):
+            for way in (ways if i % 2 else ways[::-1]):
+                timed(way)
+        for way in ways:
+            profiled(way)
+    else:
+        for way in ways:
+            step(way, "resident")
+            for _ in range(GRAPH_C5_ROUNDS):
+                timed(way)
+            profiled(way)
+            if way == "graphed":
+                prog._graphs.clear()
+                torch.cuda.empty_cache()
+    out = {"interleaved": interleaved, "program": dict(prog.stats)}
+    for way, r in res.items():
+        host = statistics.median(r["host"])
+        out[way] = {"host_ms": host,
+                    "resident_ms": statistics.median(r["resident"]),
+                    "busy_ms": r["busy_ms"], "device_ops": r["ops"],
+                    "idle_share": 1 - r["busy_ms"] / host}
+    return out
+
+
+def state_copy(torch, state):
+    """A TrainState of clones of `state`'s tensors."""
+    return replace(
+        state, params={k: v.clone() for k, v in state.params.items()},
+        opt_state={k: ({n: t.clone() for n, t in v.items()}
+                       if isinstance(v, dict) else v)
+                   for k, v in state.opt_state.items()},
+        centers=state.centers.clone(),
+        bank=None if state.bank is None else state.bank.clone(),
+        bank_valid=(None if state.bank_valid is None
+                    else state.bank_valid.clone()))
+
+
+def check_c5_graphs(torch, ann: str, tmp: str) -> dict:
+    """Phase 16 (d, e): config-5 `fit` (GRAPH_C5_STEPS steps) of each run
+    of GRAPH_C5_RUNS (the ResNet-50 f32 preset, roi_impl=pallas, the bf16
+    detector) at full width: captured (two graphs, a replay a step),
+    launches c5_launches x steps, the warm-up steps' launches apart, and
+    rows, params, centers and optimizer state bit for bit `train_step` run
+    eagerly with the same detector over the same batches (run after the
+    graphs are freed); peak device memory and the pool's bytes. (e) one
+    more step of the GRAPH_C5_TRACED run, traced, names K2, K5, K1fr and
+    K1br as often as c5_launches counts them. The f32 and bf16 steps
+    graphed against eager (c5_graph_timings); then (c) on the first
+    batch's frames."""
+    from nafae_torch.train import WARMUP_STEPS
+
+    out, first = {}, None
+    for run in GRAPH_C5_RUNS:
+        cfg = c5_cfg(ann, os.path.join(tmp, f"ck5_g_{run}"), run,
+                     GRAPH_C5_STEPS)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()                           # main path starts here
+        fitted = traced_fit(torch, cfg)
+        counts = read_counts()                  # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+        per = c5_launches(cfg)
+        want = {k: n * GRAPH_C5_STEPS for k, n in per.items()}
+        if counts != want:
+            fail(f"graphed config-5 fit ({run}) launched {counts}, expected "
+                 f"{want}")
+        st = expect_graphed(fitted, f"graphed config-5 fit ({run})", 2,
+                            GRAPH_C5_STEPS)
+        warm = {k: n * 2 * WARMUP_STEPS for k, n in per.items() if n}
+        if st["warmup_launches"] != warm:
+            fail(f"graphed config-5 fit ({run}): its warm-up steps launched "
+                 f"{st['warmup_launches']}, expected {warm}")
+        prog, seen, state = (fitted["programs"][0], fitted["seen"],
+                             fitted["state"])
+        final = state_copy(torch, state)        # the replay below moves it
+        entry = {**st, "launches": counts, "peak_gib": peak,
+                 "peak_reserved_gib": peak_reserved,
+                 "wall_s": fitted["wall_s"]}
+        if run == GRAPH_C5_TRACED:
+            entry["traced_replay"] = traced_replay(
+                torch, prog, state, seen[-1], per,
+                os.path.join(tmp, f"replay_c5_{run}.json"))
+        if first is None:
+            first = seen[0]["frames"].reshape(
+                (-1,) + seen[0]["frames"].shape[2:])
+        logs = fitted["logs"]
+        del fitted, prog, state                 # the graphs and their pool
+        torch.cuda.empty_cache()
+        det = c5_detector(torch, cfg)
+        eager = eager_chain(torch, cfg, seen, extractor=det)
+        bad = rows_differ(logs, eager["rows"])
+        bad += state_diffs(torch, final, eager["state"])
+        if bad:
+            fail(f"graphed config-5 fit ({run}) differs from the eager "
+                 f"train_step chain in {bad}")
+        del eager, final
+        torch.cuda.empty_cache()
+        if run in ("float32", "bfloat16"):
+            entry["times"] = c5_graph_timings(
+                torch, cfg, det, seen[0], interleaved=run == "bfloat16")
+        del det, seen
+        torch.cuda.empty_cache()
+        out[run] = entry
+        log(f"phase 16 (d): graphed config-5 fit ({run}, "
+            f"{GRAPH_C5_STEPS} steps): rows, params, centers and optimizer "
+            f"state bit for bit the eager train_step chain; launches "
+            f"{counts}; {st['graphs']} graphs, {st['replays']} replays, "
+            f"{st['warmup_steps']} warm-up steps launching "
+            f"{st['warmup_launches']} (apart); capture {st['capture_s']:.2f} "
+            f"s; the pool {st['pool_bytes']} B; peak device memory "
+            f"{peak:.2f} GiB allocated, {peak_reserved:.2f} GiB reserved")
+    log(f"phase 16 (e): a replayed {GRAPH_C5_TRACED} config-5 step traced "
+        f"names {out[GRAPH_C5_TRACED]['traced_replay']}, as counted")
+    card = card_line()
+    for run in ("float32", "bfloat16"):
+        t = out[run]["times"]
+        g, e = t["graphed"], t["eager"]
+        log(f"phase 16 (d): config-5 step ({run}, B=16 T=20 640x640; "
+            + ("interleaved" if t["interleaved"] else
+               "graphed rounds, then eager") + f"): host to host graphed "
+            f"{g['host_ms']:.2f} ms, eager {e['host_ms']:.2f} ms; on a "
+            f"resident batch graphed {g['resident_ms']:.2f} ms, eager "
+            f"{e['resident_ms']:.2f} ms; device busy graphed "
+            f"{g['busy_ms']:.2f} ms in {g['device_ops']:.0f} operations "
+            f"(idle {100 * g['idle_share']:.1f}% of host to host), eager "
+            f"{e['busy_ms']:.2f} ms in {e['device_ops']:.0f} (idle "
+            f"{100 * e['idle_share']:.1f}%); the pool "
+            f"{out[run]['pool_bytes']} B, peak in fit "
+            f"{out[run]['peak_gib']:.2f} GiB allocated, "
+            f"{out[run]['peak_reserved_gib']:.2f} GiB reserved — {card}")
+    out["extract"] = check_extract_graph(
+        torch, c5_cfg(ann, os.path.join(tmp, "ck5_gx"), "float32", 1), first)
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
                  by, library_ms=None, **more) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -5439,6 +5895,18 @@ def main() -> None:
         t10m = c5_timings(torch, ann, tmp, vgg, {
             "vgg_float32": VGG_F32_CUT,
             "vgg_bfloat16": ["detector.dtype=bfloat16"]})
+        t10_s = time.perf_counter() - t10
+        log(f"phase 9 took {t10 - t5:.1f} s, phase 10 {t10_s:.1f} s")
+
+        # serving, eval, extraction and the config-5 step as graphs (phase
+        # 16), on the serving phase's requests and val split and phase 9's
+        # videos
+        t16 = time.perf_counter()
+        g_serve = check_serve_graphs(torch, params, segs)
+        g_eval = check_eval_graphs(torch, tmp)
+        g_c5 = check_c5_graphs(torch, ann, tmp)
+        t16 = time.perf_counter() - t16
+        log(f"phase 16 took {t16:.1f} s")
     shutdown()
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
@@ -5816,6 +6284,7 @@ def main() -> None:
                for run in C5_RUNS},
             **{f"peak_device_gib_{run}": c5[run]["peak_gib"]
                for run in C5_RUNS},
+            **{f"program_{run}": c5[run]["program"] for run in C5_RUNS},
             **{f"fit_wall_s_{run}": c5[run]["wall_s"] for run in C5_RUNS},
             "nms_check": nms_info, "cpu_rerun": c5_cpu, "extract": c5_x,
             "phase_s": t10 - t5},
@@ -5830,9 +6299,10 @@ def main() -> None:
                for run, r in c5v.items()},
             **{f"peak_device_gib_{run}": r["peak_gib"]
                for run, r in c5v.items()},
+            **{f"program_{run}": r["program"] for run, r in c5v.items()},
             **{f"fit_wall_s_{run}": r["wall_s"] for run, r in c5v.items()},
             "load": vgg_load, "cpu_rerun": c5v_cpu, "extract_eval": c5v_x,
-            "phase_s": time.perf_counter() - t10},
+            "phase_s": t10_s},
         "dp": {"fit": {r: {k: v for k, v in d.items() if k != "logs"}
                        for r, d in dp.items()},
                "times": dp_t, "cli": clis,
@@ -5863,6 +6333,10 @@ def main() -> None:
                                  if isinstance(v, dict) else v)
                              for k, v in gt.items()},
                    "phase_s": t15},
+        "graphs_inference": {
+            "serving": g_serve, "eval": g_eval,
+            "extract": g_c5.pop("extract"), "config5": g_c5,
+            "phase_s": t16},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)

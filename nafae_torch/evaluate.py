@@ -12,6 +12,10 @@ per-class sums are taken on the host.
         [--per-class] [--device cpu]
 
 Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
+On the card a batch is one device program, as the reference's jitted
+`_eval_batch`: a CUDA graph of `eval_batch`, captured at the first batch
+of each shape and iou_thresh and replayed (`utils/cuda_graph.Graphed`);
+on the CPU `eval_batch` runs eagerly.
 `model.quantize=int8` projects with the int8 product over features
 quantized per batch; `int8pre` reads int8 feature files (`extract
 --quantize int8`) and sends them to the device as int8 with their scales.
@@ -24,7 +28,9 @@ scores its rows of every batch and the per-class counts are all-reduced:
 
 from __future__ import annotations
 
+import functools
 import json
+import threading
 
 import numpy as np
 import torch
@@ -33,6 +39,7 @@ from nafae_torch.config import Config
 from nafae_torch.device import resolve_device
 from nafae_torch.ops import grounding as G
 from nafae_torch.ops.iou import grounding_hits
+from nafae_torch.utils import cuda_graph as CG
 
 
 def masked_scores(params: dict, batch: dict) -> torch.Tensor:
@@ -47,15 +54,42 @@ def masked_scores(params: dict, batch: dict) -> torch.Tensor:
                               batch.get("region_mask"))
 
 
-def _eval_batch(params: dict, batch: dict, iou_thresh: float = 0.5
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+def eval_batch(params: dict, batch: dict, iou_thresh: float = 0.5
+               ) -> tuple[torch.Tensor, torch.Tensor]:
     """(correct [B,K,T], gt_mask [B,K,T]) of a batch of tensors, on the
-    batch's device."""
+    batch's device, eagerly: the body of eval's device program."""
     with torch.inference_mode():
         # padded frames and words have gt_mask 0, so their argmax counts
         # for nothing
         return grounding_hits(masked_scores(params, batch), batch["boxes"],
                               batch["gt_boxes"], batch["gt_mask"], iou_thresh)
+
+
+# eval's device programs, kept across `evaluate` calls as the reference's
+# jit keeps its compiled programs: for each device and layout of the
+# params, static buffers of the params and a `Graphed` of eval_batch over
+# them (on the card a graph a batch shape and iou_thresh)
+_PROGRAMS: dict = {}
+_LOCK = threading.Lock()        # one `evaluate` at a time runs them
+
+
+def _eval_batch(params: dict, device: torch.device) -> CG.Graphed:
+    """The program that scores a batch (host arrays) with `params`:
+    (batch, iou_thresh=...) -> (correct, gt_mask), read before the next
+    call. The params are copied into its static buffers here, at each
+    `evaluate`, so that a periodic eval in training scores the weights it
+    is handed, not those an earlier capture saw."""
+    key = (device, tuple((k, v.shape, v.dtype, v.stride())
+                         for k, v in sorted(params.items())))
+    if key not in _PROGRAMS:
+        static = {k: torch.empty_like(v) for k, v in params.items()}
+        _PROGRAMS[key] = CG.Graphed(functools.partial(eval_batch, static),
+                                    device)
+    program = _PROGRAMS[key]
+    with torch.no_grad():
+        for k, buf in program.fn.args[0].items():
+            buf.copy_(params[k])
+    return program
 
 
 def evaluate(params: dict, dataset, batch_size: int, num_classes: int,
@@ -72,7 +106,6 @@ def evaluate(params: dict, dataset, batch_size: int, num_classes: int,
     rank returns the single-device dict."""
     from nafae_torch.data.loader import BatchLoader
     from nafae_torch.parallel.sharding import shard_rows
-    from nafae_torch.train import batch_to_device
 
     rank, world, group = 0, 1, None
     if mesh is not None:
@@ -89,21 +122,23 @@ def evaluate(params: dict, dataset, batch_size: int, num_classes: int,
                          drop_remainder=False)
     per_class_correct = np.zeros(num_classes)
     per_class_total = np.zeros(num_classes)
-    for batch in loader:
-        mine = {k: shard_rows(_pad_rows(v, padded_b), rank, world)
-                for k, v in batch.items()}
-        correct, gt_mask = _eval_batch(params, batch_to_device(mine, device),
-                                       iou_thresh)
-        # rows past the batch's real ones are padding
-        b_real = min(max(batch["word_ids"].shape[0] - rank * len(correct),
-                         0), len(correct))
-        correct = correct.cpu().numpy()[:b_real]        # [B,K,T]
-        gt_mask = gt_mask.cpu().numpy()[:b_real]
-        b, k, t = correct.shape
-        cls = np.broadcast_to(mine["word_ids"][:b_real, :, None], (b, k, t))
-        np.add.at(per_class_correct, cls.ravel(),
-                  (correct * gt_mask).ravel())
-        np.add.at(per_class_total, cls.ravel(), gt_mask.ravel())
+    with _LOCK:
+        program = _eval_batch(params, device)
+        for batch in loader:
+            mine = {k: shard_rows(_pad_rows(v, padded_b), rank, world)
+                    for k, v in batch.items()}
+            correct, gt_mask = program(mine, iou_thresh=iou_thresh)
+            # rows past the batch's real ones are padding
+            b_real = min(max(batch["word_ids"].shape[0]
+                             - rank * len(correct), 0), len(correct))
+            correct = correct.cpu().numpy()[:b_real]        # [B,K,T]
+            gt_mask = gt_mask.cpu().numpy()[:b_real]
+            b, k, t = correct.shape
+            cls = np.broadcast_to(mine["word_ids"][:b_real, :, None],
+                                  (b, k, t))
+            np.add.at(per_class_correct, cls.ravel(),
+                      (correct * gt_mask).ravel())
+            np.add.at(per_class_total, cls.ravel(), gt_mask.ravel())
     if group is not None:
         from nafae_torch.parallel.sharding import all_reduce
         counts = all_reduce(torch.from_numpy(np.stack(

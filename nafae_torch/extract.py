@@ -151,22 +151,29 @@ def make_extract_fn(cfg: Config, model=None,
     region_valid} numpy, the detector). Without `model`, the detector is
     the one cfg.detector describes (`init_detector`: random weights from
     train.seed, then detector.weights when set, then the BN fold when
-    detector.fold_bn)."""
+    detector.fold_bn).
+
+    On the card the detector is one device program, as the reference's
+    `jax.jit(model.apply)`: a CUDA graph of it for each frame batch shape
+    (`utils/cuda_graph.Graphed`), replayed; on the CPU it runs eagerly."""
     from nafae_torch.device import resolve_device
     from nafae_torch.models.detector.faster_rcnn import init_detector
+    from nafae_torch.utils.cuda_graph import Graphed
 
     device = resolve_device(device)
     if model is None:
         model = init_detector(cfg.detector,
                               torch.Generator().manual_seed(cfg.train.seed),
                               device=device)
+    program = Graphed(model, device)
 
     def fn(frames: np.ndarray) -> dict[str, np.ndarray]:
-        out = model(torch.from_numpy(np.ascontiguousarray(frames, np.float32))
-                    .to(device))
-        return {k: v.float().cpu().numpy() if v.is_floating_point()
-                else v.cpu().numpy() for k, v in out.items()}
+        out = program(np.ascontiguousarray(frames, np.float32))
+        return {k: v.to("cpu", torch.float32 if v.is_floating_point()
+                        else v.dtype, copy=True).numpy()
+                for k, v in out.items()}
 
+    fn.program = program
     return fn, model
 
 

@@ -28,9 +28,10 @@ def nms_planes(x1: torch.Tensor, y1: torch.Tensor, x2: torch.Tensor,
     dev = scores.device
     areas = (torch.clamp(x2 - x1, min=0.0) * torch.clamp(y2 - y1, min=0.0))
     live = scores > score_thresh
-    thresh = torch.tensor(iou_thresh, dtype=torch.float32, device=dev)
-    eps = torch.tensor(1e-12, dtype=torch.float32, device=dev)
-    neg = torch.tensor(NEG, dtype=scores.dtype, device=dev)
+    # fills, not copies from the host, so that a CUDA graph can hold them
+    thresh = torch.full((), iou_thresh, dtype=torch.float32, device=dev)
+    eps = torch.full((), 1e-12, dtype=torch.float32, device=dev)
+    neg = torch.full((), NEG, dtype=scores.dtype, device=dev)
     lanes = torch.arange(n, device=dev)
     rows = torch.arange(b, device=dev)
     idx_out = torch.zeros((b, num_keep), dtype=torch.int32, device=dev)

@@ -92,7 +92,8 @@ def _weights(lo: torch.Tensor, hi: torch.Tensor, size: int, out_size: int,
     h = torch.arange(size, device=dev, dtype=torch.float32)[None, :]
     acc = torch.zeros(lo.shape[:-2] + (out_size, size), device=dev)
     for s in range(sr):
-        off = torch.tensor((s + 0.5) / sr, dtype=torch.float32, device=dev)
+        # a fill, not a copy from the host: the step's CUDA graph holds it
+        off = torch.full((), (s + 0.5) / sr, dtype=torch.float32, device=dev)
         pts = lo + (p + off) * cell
         pts = torch.clamp(pts - 0.5, 0.0, size - 1.0)
         acc = acc + torch.relu(1.0 - torch.abs(pts - h))
@@ -113,8 +114,10 @@ def _weights_pair(feat: torch.Tensor, boxes: torch.Tensor, out_size: int,
                   spatial_scale: float, sampling_ratio: int):
     h, w = feat.shape[-3], feat.shape[-2]
     b = boxes.float() * spatial_scale
-    wy = bilinear_weights(b[..., [1, 3]], h, out_size, sampling_ratio)
-    wx = bilinear_weights(b[..., [0, 2]], w, out_size, sampling_ratio)
+    # slices, not list indices: a list index is a copy from the host,
+    # which the step's CUDA graph cannot hold
+    wy = bilinear_weights(b[..., 1::2], h, out_size, sampling_ratio)
+    wx = bilinear_weights(b[..., 0::2], w, out_size, sampling_ratio)
     return wy, wx
 
 

@@ -38,8 +38,10 @@ JAX server, so clients of one serve the other.
 from __future__ import annotations
 
 import concurrent.futures
+import functools
 import json
 import os
+import threading
 
 import numpy as np
 import torch
@@ -52,6 +54,7 @@ from nafae_torch.models.grounding import (GroundingModel, inference_params,
                                          params_from_jax)
 from nafae_torch.ops import grounding as G
 from nafae_torch.ops.iou import select_boxes
+from nafae_torch.utils import cuda_graph as CG
 
 _TIMEOUT_ERRORS = (TimeoutError, concurrent.futures.TimeoutError)
 
@@ -91,6 +94,14 @@ def make_ground_fn(model: GroundingModel):
         }
 
     return fn
+
+
+def _inference(fn, params: dict, *batch: torch.Tensor | None) -> dict:
+    """fn(params, *batch) under inference mode: the server's program body
+    (a function of its own, so that the program holds no reference back
+    to the server)."""
+    with torch.inference_mode():
+        return fn(params, *batch)
 
 
 # ------------------------------------------------------------- AOT export
@@ -297,7 +308,15 @@ class GroundingServer:
     into batch_size batches (the final ragged batch is zero-padded to the
     full batch and its padded rows dropped from the response, so every
     forward sees one shape), and runs one forward per batch on `device`
-    ("cuda" by default; "cpu" on request)."""
+    ("cuda" by default; "cpu" on request).
+
+    On the card the forward is one device program, as the reference's
+    `jax.jit(make_ground_fn(cfg))`: a CUDA graph of `make_ground_fn`
+    over the server's own params, captured at the first batch of each
+    shape (`utils/cuda_graph.Graphed`) and replayed. Its inputs and
+    outputs are static buffers, so one lock covers a batch's copy in,
+    replay and read-back: `ground_segments` may be called from several
+    threads. On the CPU the same forward runs eagerly."""
 
     def __init__(self, cfg: Config, params: dict,
                  batch_size: int | None = None,
@@ -313,7 +332,10 @@ class GroundingServer:
         self.params = self.model.param_dict()
         self.batch_size = batch_size or cfg.data.batch_size
         self.vocab = vocab_from_config(cfg.data)
-        self._fn = make_ground_fn(self.model)
+        self._fn = make_ground_fn(self.model)       # the eager forward
+        self._forward = functools.partial(_inference, self._fn, self.params)
+        self._program = CG.Graphed(self._forward, self.device)
+        self._lock = threading.Lock()
 
     # -- request handling
 
@@ -390,14 +412,13 @@ class GroundingServer:
         """One full padded batch (numpy, [batch_size, ...]) through the
         forward on the device -> numpy outputs (feats int8 with a
         feats_scale [B,T,R] under int8pre)."""
-        dev = self.device
-        t = {k: torch.from_numpy(v).to(dev, non_blocking=True)
-             for k, v in batch.items()}
-        with torch.inference_mode():
-            out = self._fn(self.params, t["feats"], t["boxes"],
-                           t["word_ids"], t["frame_mask"], t["word_mask"],
-                           t["region_mask"], t.get("feats_scale"))
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with self._lock:
+            out = self._program(
+                batch["feats"], batch["boxes"], batch["word_ids"],
+                batch["frame_mask"], batch["word_mask"], batch["region_mask"],
+                batch.get("feats_scale"))
+            return {k: v.to("cpu", copy=True).numpy()
+                    for k, v in out.items()}
 
     def _ground_samples(self, samples: list[dict]) -> list[dict]:
         """Run already-padded samples in batch_size chunks (the

@@ -61,10 +61,11 @@ losses and gradients. The CLI evaluates every `train.eval_every` steps on
 the val split (`evaluate.evaluate_config`), as the reference's does.
 
 `fit` runs the step through `build_train_fn`: on the card (no mesh, or
-an NCCL mesh without a frame axis) the step is captured in CUDA graphs
-and each step is a replay; on the CPU, with debug_nans, on a gloo mesh,
-under frame parallelism and at config 5 the same step body runs eagerly
-(`eager_reason`). `train.steps_per_call` (spc) orders the steps and sets
+an NCCL mesh without a frame axis) the step, config 5's frozen detector
+included, is captured in CUDA graphs and each step is a replay; on the
+CPU, with debug_nans, on a gloo mesh and under frame parallelism the
+same step body runs eagerly (`eager_reason`). `train.steps_per_call`
+(spc) orders the steps and sets
 the cadence as in the reference, where a group of spc steps is one XLA
 program: the streaming fit applies spc batches of one frame bucket at a
 time (the reference's `make_multi_step`: here spc replays with no host
@@ -84,6 +85,7 @@ takes grain's batch order (`data/grain_loader`).
 
 from __future__ import annotations
 
+import functools
 import math
 import os
 import time
@@ -102,6 +104,8 @@ from nafae_torch.ops.kmeans import (bank_write, kmeans_init, kmeans_lloyd,
                                     kmeans_plusplus_init)
 from nafae_torch.parallel import sharding as S
 from nafae_torch.parallel import sp
+from nafae_torch.utils import cuda_graph as CG
+from nafae_torch.utils.cuda_graph import WARMUP_STEPS
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8      # optax.adamw's defaults
 SGD_MOMENTUM = 0.9
@@ -622,23 +626,19 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
                    centers=centers), metrics
 
 
-WARMUP_STEPS = 2      # eager steps on clones of the state before a capture
-
-
-def eager_reason(cfg: Config, device, mesh=None, extractor=None,
+def eager_reason(cfg: Config, device, mesh=None,
                  debug_nans: bool = False) -> str | None:
     """Why `build_train_fn` runs the step eagerly on these settings, or
-    None when it captures the step in CUDA graphs. Decided from the
-    config and the device before the first step; an error in a capture
-    or a replay raises, it never turns a run eager."""
+    None when it captures the step in CUDA graphs (config 5's too, the
+    frozen detector inside). Decided from the config and the device
+    before the first step; an error in a capture or a replay raises, it
+    never turns a run eager."""
     device = torch.device(device)
     if device.type != "cuda":
         return f"device {device.type}: CUDA graphs need a CUDA device"
     if debug_nans:
         return ("debug_nans: the step checks its losses and gradients on "
                 "the host")
-    if extractor is not None:
-        return "the frozen detector runs in the step (config 5)"
     if mesh is not None:
         from nafae_torch.parallel.mesh import frame_size
         if frame_size(mesh) > 1:
@@ -672,9 +672,12 @@ class TrainFn:
     `index_select` inside the step.
 
     Captured (`eager_reason` None): one CUDA graph for each batch shape
-    and refresh or not (`refresh_due`), all in one memory pool, each
-    captured at its first use after WARMUP_STEPS eager steps on clones of
-    the state on a side stream (where a kernel's first use builds it), and
+    and refresh or not (`refresh_due`), all in one memory pool, captured
+    at a shape's first use, both together when the run refreshes now and
+    then: WARMUP_STEPS eager steps of each on clones of the state on a
+    side stream (where a kernel's first use builds it and the detector
+    makes its anchors), then the captures, so that no eager step runs
+    beside the pool (config 5's step takes most of the card). They are
     captured again when the state's buffers or the optimizer's tables are
     new (a restored checkpoint). A k-means++ seeding step (`seed_due`)
     runs eagerly: it draws its noise on the host. Eager: the same body and
@@ -688,8 +691,7 @@ class TrainFn:
         self.cfg, self.tx, self.device = cfg, tx, torch.device(device)
         self.extractor, self.debug_nans, self.cache = (extractor, debug_nans,
                                                        cache)
-        self.eager_reason = eager_reason(cfg, self.device, mesh, extractor,
-                                         debug_nans)
+        self.eager_reason = eager_reason(cfg, self.device, mesh, debug_nans)
         self.groups = mesh_groups(cfg, mesh)
         self.stats = {"graphs": 0, "replays": 0, "eager_steps": 0,
                       "warmup_steps": 0, "warmup_launches": {},
@@ -716,8 +718,13 @@ class TrainFn:
         if self.graphed and not seed:
             graph = self._graphs.get((key, refresh))
             if graph is None:
-                graph = self._graphs[key, refresh] = self._capture(
-                    state, inputs, refresh)
+                lc = self.cfg.loss
+                both = lc.cluster_weight > 0 and lc.kmeans_interval > 1
+                refreshes = (refresh, not refresh) if both else (refresh,)
+                self._graphs.update(
+                    ((key, r), g) for r, g in
+                    zip(refreshes, self._capture(state, inputs, refreshes)))
+                graph = self._graphs[key, refresh]
             graph.replay()
             self.stats["replays"] += 1
         else:
@@ -803,48 +810,50 @@ class TrainFn:
             for k, v in metrics.items():
                 self._metrics[k].copy_(v)
 
-    def _capture(self, state: TrainState, inputs: dict, refresh: bool):
-        from nafae_torch.utils import cuda_graph as CG
-
+    def _capture(self, state: TrainState, inputs: dict,
+                 refreshes: tuple[bool, ...]) -> list[CG.CapturedStep]:
+        """WARMUP_STEPS eager steps for each refresh of `refreshes` on
+        clones of the state, then a graph of each, in that order."""
         t0 = time.perf_counter()
         dev = self.device
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
-            self._stream = torch.cuda.Stream(dev)
+            self._stream = CG.capture_stream(dev)
         main = torch.cuda.current_stream(dev)
         self._stream.wait_stream(main)
-        with torch.cuda.stream(self._stream), \
-                CG.set_apart(self.stats["warmup_launches"]):
-            shadow = replace(
-                state, params={k: v.clone() for k, v in state.params.items()},
-                opt_state={k: ({n: t.clone() for n, t in v.items()}
-                               if isinstance(v, dict) else v)
-                           for k, v in state.opt_state.items()},
-                centers=state.centers.clone(),
-                bank=None if state.bank is None else state.bank.clone(),
-                bank_valid=(None if state.bank_valid is None
-                            else state.bank_valid.clone()))
-            counters = tuple(t.clone() for t in self._counters)
-            for _ in range(WARMUP_STEPS):
-                self._run(shadow, inputs, refresh, False, counters)
-                self.stats["warmup_steps"] += 1
-            del shadow, counters
+        with torch.cuda.stream(self._stream):
+            with CG.set_apart(self.stats["warmup_launches"]):
+                shadow = replace(
+                    state,
+                    params={k: v.clone() for k, v in state.params.items()},
+                    opt_state={k: ({n: t.clone() for n, t in v.items()}
+                                   if isinstance(v, dict) else v)
+                               for k, v in state.opt_state.items()},
+                    centers=state.centers.clone(),
+                    bank=None if state.bank is None else state.bank.clone(),
+                    bank_valid=(None if state.bank_valid is None
+                                else state.bank_valid.clone()))
+                for refresh in refreshes:
+                    # from count 0 each time: the warm-up reads the
+                    # optimizer's first rows, which every table holds
+                    counters = tuple(torch.zeros_like(t)
+                                     for t in self._counters)
+                    for _ in range(WARMUP_STEPS):
+                        self._run(shadow, inputs, refresh, False, counters)
+                        self.stats["warmup_steps"] += 1
+                del shadow, counters
+            steps = []
+            for refresh in refreshes:
+                step, grew = CG.record(
+                    functools.partial(self._run, state, inputs, refresh,
+                                      False, self._counters),
+                    dev, self._pool, self._stream)
+                steps.append(step)
+                self.stats["pool_bytes"] += grew
+                self.stats["graphs"] += 1
         main.wait_stream(self._stream)
-        torch.cuda.synchronize(dev)
-        # torch.cuda.graph empties the allocator's cache as it begins: do
-        # it first, so that the growth of reserved memory is the pool's
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        graph = torch.cuda.CUDAGraph()
-        step = CG.capture(
-            lambda: self._run(state, inputs, refresh, False, self._counters),
-            graph, torch.cuda.graph(graph, pool=self._pool,
-                                    stream=self._stream,
-                                    capture_error_mode="thread_local"))
-        self.stats["pool_bytes"] += torch.cuda.memory_reserved(dev) - reserved
-        self.stats["graphs"] += 1
         self.stats["capture_s"] += time.perf_counter() - t0
-        return step
+        return steps
 
 
 def build_train_fn(cfg: Config, tx: Optimizer, device, mesh=None,
@@ -860,9 +869,11 @@ def build_train_fn(cfg: Config, tx: Optimizer, device, mesh=None,
     and the losses' and k-means' collectives inside the graph). It runs
     the same body eagerly, op by op, on the CPU; with debug_nans (host
     checks every step); on a gloo mesh (collectives staged through host
-    memory); with mesh.frame_axis > 1 (the halo exchange); and with an
-    extractor (config 5). `eager_reason` names which; `TrainFn` says what
-    a batch is (cache: the device-resident dataset, batches by index)."""
+    memory); and with mesh.frame_axis > 1 (the halo exchange).
+    `eager_reason` names which. With an extractor (config 5) the frozen
+    detector is captured inside the step, as in the reference's one
+    program (decode -> detector -> losses). `TrainFn` says what a batch
+    is (cache: the device-resident dataset, batches by index)."""
     return TrainFn(cfg, tx, device, mesh, extractor, debug_nans, cache)
 
 

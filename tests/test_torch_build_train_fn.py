@@ -212,9 +212,10 @@ class _Mesh:
 
 
 def test_eager_reason_names_each_case(synth_root, monkeypatch):
-    """Captured on cuda with no mesh or an NCCL mesh without a frame axis;
-    each eager case names its reason (the choice reads the config and the
-    device, nothing of a card)."""
+    """Captured on cuda with no mesh or an NCCL mesh without a frame axis,
+    and at config 5 with the frozen detector in the step; each eager case
+    names its reason (the choice reads the config and the device, nothing
+    of a card)."""
     _, tc = _cfgs(synth_root)
     cuda = torch.device("cuda")
     backend = {"data": "nccl"}
@@ -222,10 +223,13 @@ def test_eager_reason_names_each_case(synth_root, monkeypatch):
                         lambda group=None: backend[group])
     assert TT.eager_reason(tc, cuda) is None
     assert TT.eager_reason(tc, cuda, _Mesh(1, 1)) is None
+    c5 = tcfg.load_config(preset_name="config5")
+    assert TT.eager_reason(c5, cuda) is None
+    assert TT.build_train_fn(c5, TT.make_optimizer(c5), cuda,
+                             extractor=object()).graphed
     cases = {
         "device cpu": dict(device=CPU),
         "debug_nans": dict(debug_nans=True),
-        "frozen detector": dict(extractor=object()),
         "frame parallelism": dict(mesh=_Mesh(1, 2)),
     }
     for words, kw in cases.items():
@@ -291,7 +295,8 @@ def test_launch_accounting_with_a_stand_in_graph():
 class _StandInCapture:
     """A capture that records the program's body and replays it
     eagerly (its launches set apart: a replay counts through the
-    accounting)."""
+    accounting). The program captures a shape's graphs together, one a
+    refresh it reaches, this step's first."""
 
     def __init__(self, prog, state, inputs, refresh, log):
         self.args = (prog, state, inputs, refresh)
@@ -313,8 +318,9 @@ def test_program_keeps_a_graph_a_shape_and_refresh(synth_root, monkeypatch):
     monkeypatch.setattr(TT, "eager_reason", lambda *a, **kw: None)
     monkeypatch.setattr(
         TT.TrainFn, "_capture",
-        lambda self, state, inputs, refresh: _StandInCapture(
-            self, state, inputs, refresh, captured))
+        lambda self, state, inputs, refreshes: [_StandInCapture(
+            self, state, inputs, refresh, captured)
+            for refresh in refreshes])
     batches = _batches(synth_root, 7)
     torch.use_deterministic_algorithms(True)
     try:
