@@ -100,7 +100,7 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    nafae::ctx_mix_fwd) once a batch and nothing else, box accuracy over
    the bar, one batch re-run on the CPU (quantized weights and features,
    scales and int32 products bit for bit, regions equal where clear of
-   ties, scores within INT8_TOL), int8pre over HTTP with pre-quantized
+   ties, scores within SERVE_CPU_TOL), int8pre over HTTP with pre-quantized
    requests; config1 eval with int8 and int8pre over the val split
    written as int8 feature files, hits card = CPU; four exported artifacts
    (f32; stored int8 through `python -m nafae_torch.serve --export DIR
@@ -209,6 +209,25 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    batch (f32, int8pre), eval's wall seconds, an extract chunk and the
    config-5 step (f32, bf16) graphed against eager, with the copy, the
    idle share, the pool's bytes and the peak memory.
+17. every shape the reference takes (run after phase 16, in a child
+   process of its own, on the serving phase's requests, phase 5's data
+   and an R = 36 split written there): (a) K1f, K1fr, K1b and K1br's
+   general variant against their plain versions at R = 33 and 36, E = 3,
+   50, 516 and 1024, w = 17 and 20 (w >= T), real halos, an invalid
+   centre frame, a frame with no valid region, f32 and bf16, and
+   repeatable bit for bit; (b) config4 servers at R = 36 / E = 1024 (f32,
+   bf16) and int8pre at E = 50: every batch from the graph bit for bit
+   its eager body, K1f once a batch, a traced replay naming the general
+   variant's kernels, box accuracy over 0.5, one batch against a CPU
+   re-run; (c) config4 `fit` (auto) 3 f32 and 3 bf16 steps at R = 36 /
+   E = 1024 / w = 3 and at E = 50 / w = 20: graphed bit for bit the eager
+   chain, K1fr and K1br once a step, a traced replay naming the general
+   variant's kernels, rows against a CPU re-run, f32 gradients within
+   (1e-4, 1e-5 x largest) of the CPU's where the same rounded to bf16
+   fall outside; (d) the four kernels' times there beside plain and
+   bound; (e) config1 eval of the R = 36 split, hits card = CPU; (f)
+   int8_matmul at M = 5 and 16, N = 50 and K = 2043, bit for bit the
+   int64 product.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -218,6 +237,7 @@ before that is a JSON object with each kernel's numbers; the last is
 from __future__ import annotations
 
 import concurrent.futures
+import gc
 import json
 import os
 import statistics
@@ -399,19 +419,20 @@ def ctx_inputs(torch, gen, b, t, r, e, w, device, edges=False,
             F.pad(rm, (0, 0, w, w)).to(device))
 
 
-def check_ctx_mix(torch, device) -> dict[str, float]:
-    """K1f against its plain version on the card; returns the max |u| error
-    per dtype."""
+def check_ctx_mix(torch, device, cases=CTX_CASES, halo_cases=CTX_HALO_CASES,
+                  seed=SEED) -> dict[str, float]:
+    """K1f against its plain version on the card, at `cases` and, with real
+    halo frames, `halo_cases`; returns the max |u| error per dtype."""
     from nafae_torch.ops.kernels import ctx_mix as K
 
-    gen = torch.Generator().manual_seed(SEED)
+    gen = torch.Generator().manual_seed(seed)
     errs = {}
     for dt_name, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
         rtol, atol = CTX_TOL[dt_name]
         worst = 0.0
         for b, t, r, e, w, with_rm, edges, halos in (
-                [c + (False,) for c in CTX_CASES]
-                + [c + (True, False, True) for c in CTX_HALO_CASES]):
+                [c + (False,) for c in cases]
+                + [c + (True, False, True) for c in halo_cases]):
             v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, b, t, r, e, w,
                                                device, edges, halos)
             rm_ext = rm_ext if with_rm else None
@@ -431,8 +452,8 @@ def check_ctx_mix(torch, device) -> dict[str, float]:
             worst = max(worst, err)
         errs[dt_name] = worst
         log(f"ctx_mix vs plain, {dt_name}: max |err| {worst:.3e} "
-            f"(rtol {rtol}, atol {atol}, {len(CTX_CASES)} cases and "
-            f"{len(CTX_HALO_CASES)} with real halo frames)")
+            f"(rtol {rtol}, atol {atol}, {len(cases)} cases and "
+            f"{len(halo_cases)} with real halo frames)")
     return errs
 
 
@@ -478,22 +499,10 @@ def compare_grad_kernels(torch, vc, fm_ext, rm_ext, w, du, dt_name,
     return errs
 
 
-def check_ctx_grad(torch, device) -> dict[str, float]:
-    """K1fr, K1b and K1br against the plain version on the card, at K1f's
-    shapes (config4's first; train_timings adds the real first training
-    batch): u and alpha of K1fr against the plain forward and softmax,
-    dv_ext of both backward routes against autograd through
-    context_mix_plain; then CtxMix end to end (u carries a grad_fn, one
-    launch of each kernel of its route). Returns the max errors by kernel
-    and dtype."""
-    from nafae_torch.ops.kernels import ctx_mix as K
-
-    gen = torch.Generator().manual_seed(SEED + 1)
-    cases = [c + (False,) for c in CTX_CASES + [
-        (4, 6, 20, 12, 3, True, False),     # E within one 64-column slice,
-        (4, 6, 20, 36, 2, True, False),     # ... not a multiple of 8
-        (4, 6, 20, 100, 2, True, False)]] + [
-        c + (True, False, True) for c in CTX_HALO_CASES]
+def check_grad_cases(torch, device, gen, cases) -> dict[str, dict]:
+    """compare_grad_kernels at each of `cases` ((B, T, R, E, w, region
+    mask, edges, halos); du from gen) in f32 and bf16; returns the max
+    errors by kernel and dtype."""
     errs = {}
     for dt_name, dt in (("float32", None), ("bfloat16", torch.bfloat16)):
         worst = dict.fromkeys(("ctx_mix_fwd_res", "alpha", "ctx_mix_bwd",
@@ -514,12 +523,18 @@ def check_ctx_grad(torch, device) -> dict[str, float]:
             + f" (u {CTX_TOL[dt_name]}, alpha {ALPHA_TOL[dt_name]}, dv "
             f"{GRAD_TOL[dt_name]} as rtol, atol, in bf16 below E = "
             f"{GRAD_NARROW_E} atol x largest |dv|; {len(cases)} cases)")
+    return errs
 
-    # f32 u, alpha and dv are the same on every run: no atomics, one order
-    # of sums
-    v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, 16, 20, 20, 256, 3, device)
-    du = torch.randn(16, 20, 20, 256, generator=gen).to(device)
-    runs = [K.launch_fwd(v_ext, fm_ext, 3, 0.1, rm_ext, residual=res)
+
+def check_repeatable(torch, device, gen, b, t, r, e, w) -> None:
+    """f32 u, alpha and dv are the same on every run (no atomics, one order
+    of sums): K1f and K1fr launched twice each, then K1br and K1b, on one
+    input of this shape."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, b, t, r, e, w, device)
+    du = torch.randn(b, t, r, e, generator=gen).to(device)
+    runs = [K.launch_fwd(v_ext, fm_ext, w, 0.1, rm_ext, residual=res)
             for res in (False, False, True, True)]
     torch.cuda.synchronize()
     if not (torch.equal(runs[0][0], runs[1][0])
@@ -529,14 +544,35 @@ def check_ctx_grad(torch, device) -> dict[str, float]:
              "that differ")
     alpha = runs[2][1]
     for name, a in (("ctx_mix_bwd_res", alpha), ("ctx_mix_bwd", None)):
-        first = K.launch_bwd(v_ext, fm_ext, 3, 0.1, rm_ext, du, a)
-        second = K.launch_bwd(v_ext, fm_ext, 3, 0.1, rm_ext, du, a)
+        first = K.launch_bwd(v_ext, fm_ext, w, 0.1, rm_ext, du, a)
+        second = K.launch_bwd(v_ext, fm_ext, w, 0.1, rm_ext, du, a)
         torch.cuda.synchronize()
         if not torch.equal(first, second):
             fail(f"{name}: two launches on the same f32 inputs gave dv that "
                  "differ")
     log("K1f and K1fr: two launches give bitwise-equal f32 u and alpha; K1br "
-        "and K1b: bitwise-equal f32 dv (config4 shapes)")
+        f"and K1b: bitwise-equal f32 dv (B={b} T={t} R={r} E={e} w={w})")
+
+
+def check_ctx_grad(torch, device) -> dict[str, float]:
+    """K1fr, K1b and K1br against the plain version on the card, at K1f's
+    shapes (config4's first; train_timings adds the real first training
+    batch): u and alpha of K1fr against the plain forward and softmax,
+    dv_ext of both backward routes against autograd through
+    context_mix_plain; then CtxMix end to end (u carries a grad_fn, one
+    launch of each kernel of its route). Returns the max errors by kernel
+    and dtype."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    gen = torch.Generator().manual_seed(SEED + 1)
+    cases = [c + (False,) for c in CTX_CASES + [
+        (4, 6, 20, 12, 3, True, False),     # E within one 64-column slice,
+        (4, 6, 20, 36, 2, True, False),     # ... not a multiple of 8
+        (4, 6, 20, 100, 2, True, False)]] + [
+        c + (True, False, True) for c in CTX_HALO_CASES]
+    errs = check_grad_cases(torch, device, gen, cases)
+
+    check_repeatable(torch, device, gen, 16, 20, 20, 256, 3)
 
     # CtxMix end to end: the gradient route of each ALPHA_RESIDUAL setting
     v_ext, fm_ext, rm_ext = ctx_inputs(torch, gen, 2, 6, 20, 256, 3, device)
@@ -846,13 +882,14 @@ def check_diag(torch, device) -> dict[str, dict[str, float]]:
 # ------------------------------------------------------------- serving
 
 
-def make_requests(root: str):
-    """Synthetic config4-width segments (with their ground truth)."""
+def make_requests(root: str, regions: int = 20):
+    """Synthetic config4-width segments of `regions` regions (with their
+    ground truth), written as root's val split."""
     from nafae_torch.data.synthetic import generate_synthetic_dataset
 
     generate_synthetic_dataset(root, "val", num_segments=NUM_SEGMENTS,
-                               feat_dim=2048, num_regions=20, max_frames=20,
-                               max_words=4, seed=SEED)
+                               feat_dim=2048, num_regions=regions,
+                               max_frames=20, max_words=4, seed=SEED)
     segs, gts = [], []
     with open(os.path.join(root, "val", "index.jsonl")) as f:
         index = [json.loads(ln) for ln in f if ln.strip()]
@@ -1021,22 +1058,23 @@ def check_cpu_rerun(torch, cfg, params, srv, segs) -> None:
 # ------------------------------------------------------------- training
 
 
-def make_train_data(root: str) -> None:
-    """Planted-signal config4-width training segments (K up to 8 words)."""
+def make_train_data(root: str, regions: int = 20) -> None:
+    """Planted-signal config4-width training segments (K up to 8 words) of
+    `regions` regions."""
     from nafae_torch.data.synthetic import generate_synthetic_dataset
 
     generate_synthetic_dataset(root, "train", num_segments=TRAIN_SEGMENTS,
-                               feat_dim=2048, num_regions=20, max_frames=20,
-                               max_words=8, seed=SEED)
+                               feat_dim=2048, num_regions=regions,
+                               max_frames=20, max_words=8, seed=SEED)
 
 
 def train_cfg(root: str, ckpt: str, dtype: str, steps: int,
-              kernels: str = "auto"):
+              kernels: str = "auto", extra=()):
     from nafae_torch.config import load_config
 
     return load_config(preset_name="config4", overrides=TRAIN_OVERRIDES + [
         f"data.root={root}", f"train.ckpt_dir={ckpt}", f"model.dtype={dtype}",
-        f"train.steps={steps}", f"train.kernels={kernels}"])
+        f"train.steps={steps}", f"train.kernels={kernels}", *extra])
 
 
 def kernel_modules():
@@ -1177,24 +1215,32 @@ def check_train_cpu_rerun(torch, root: str, tmp: str, logs: list[dict],
     return {"metric_rel_diff": worst, "grad_rel_diff": gworst}
 
 
+def grad_gap(torch, got: dict, want: dict, tol: tuple) -> tuple:
+    """(largest |diff| / largest entry over the leaves, the leaves of `got`
+    outside `tol` of `want`: rtol, and atol as a fraction of each leaf's
+    largest entry)."""
+    grtol, gatol = tol
+    worst, bad = 0.0, []
+    for k, w in want.items():
+        scale = max(w.abs().max().item(), 1e-30)
+        worst = max(worst, (got[k] - w).abs().max().item() / scale)
+        if not torch.allclose(got[k], w, rtol=grtol, atol=gatol * scale):
+            bad.append(k)
+    return worst, bad
+
+
 def grads_agree(torch, cfg, batch, kernels: str) -> float:
     """One step's gradients on `batch` from the initial state, card
-    against CPU, within CPU_GRAD_TOL of each parameter's largest entry;
-    returns the largest |diff| / largest entry."""
+    against CPU, within CPU_GRAD_TOL; returns the largest |diff| / largest
+    entry."""
     from nafae_torch.train import TrainState
 
     grads = {dev: step_grads(torch, cfg, TrainState.create(cfg, device=dev),
                              batch, kernels)[1] for dev in ("cuda", "cpu")}
-    grtol, gatol = CPU_GRAD_TOL
-    gworst = 0.0
-    for k, gc in grads["cpu"].items():
-        scale = gc.abs().max().item()
-        err = (grads["cuda"][k] - gc).abs().max().item()
-        if not torch.allclose(grads["cuda"][k], gc, rtol=grtol,
-                              atol=gatol * max(scale, 1e-30)):
-            fail(f"gradient of {k}: card and CPU differ by {err} "
-                 f"(largest entry {scale})")
-        gworst = max(gworst, err / max(scale, 1e-30))
+    gworst, bad = grad_gap(torch, grads["cuda"], grads["cpu"], CPU_GRAD_TOL)
+    if bad:
+        fail(f"gradients of {bad}: card and CPU differ by up to {gworst:.3e} "
+             f"of the largest entry (limit {CPU_GRAD_TOL})")
     return gworst
 
 
@@ -2713,11 +2759,11 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
 
 
 QUANTIZE = ("int8", "int8pre")       # model.quantize of the int8 phases
-# card against CPU for the int8 servers: scores and frame weights within
-# this (f32 as the f32 server's HTTP check; bf16 at the reference's bf16
-# tolerance), regions equal where the CPU's top two scores are further
-# apart than it
-INT8_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# card against CPU for a batch of the int8 servers (and of phase 17's bf16
+# server): scores and frame weights within this (f32 as the f32 server's
+# HTTP check; bf16 at the reference's bf16 tolerance), regions equal where
+# the CPU's top two scores are further apart than it
+SERVE_CPU_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # exported artifacts: kind -> (model.quantize, export's storage quantize)
 ARTIFACTS = {"f32": ("", None), "storage_int8": ("", "int8"),
              "int8": ("int8", None), "int8pre": ("int8pre", None)}
@@ -2768,53 +2814,61 @@ def int8_operands(torch, srv, batch):
     return q, sf, TG.int8_matmul(q, srv.params["w_v.q8"])
 
 
-def check_int8_cpu_rerun(torch, cfg, params, srv, segs) -> dict:
-    """One batch of an int8 server re-run on the CPU through the plain
-    versions: the quantized weights, the batch's quantized feats, their
-    scales and the int32 products bit for bit; regions and boxes equal
-    where the CPU's top two scores are clear of INT8_TOL; scores, frame
-    weights and video scores within INT8_TOL."""
-    from nafae_torch.serve import GroundingServer
-
-    dt = cfg.model.dtype
-    cpu = GroundingServer(cfg, params, device="cpu")
+def check_int8_operands(torch, srv, cpu, batch) -> None:
+    """An int8 server's quantized weights, a batch's quantized feats, their
+    scales and the int32 products, card (srv) against CPU (cpu), bit for
+    bit."""
+    what = f"{srv.cfg.model.quantize} {srv.cfg.model.dtype}"
     for k in ("w_v.q8", "w_v.scale8"):
         if not torch.equal(srv.params[k].cpu(), cpu.params[k]):
-            fail(f"{cfg.model.quantize} {dt}: {k} differs between the card "
-                 "and the CPU")
-    batch = serving_batch(cpu, segs)
+            fail(f"{what}: {k} differs between the card and the CPU")
     with torch.inference_mode():
         for name, a, b in zip(("quantized feats", "feature scales",
                                "int32 products"),
                               int8_operands(torch, srv, batch),
                               int8_operands(torch, cpu, batch)):
             if not torch.equal(a.cpu(), b):
-                fail(f"{cfg.model.quantize} {dt}: the {name} differ between "
-                     "the card and the CPU")
+                fail(f"{what}: the {name} differ between the card and the "
+                     "CPU")
+
+
+def check_batch_cpu_rerun(torch, cfg, params, srv, segs) -> dict:
+    """One batch of a server re-run on the CPU through the plain versions:
+    for an int8 server first check_int8_operands; regions and boxes equal
+    where the CPU's top two scores are clear of SERVE_CPU_TOL; scores,
+    frame weights and video scores within SERVE_CPU_TOL."""
+    from nafae_torch.serve import GroundingServer
+
+    dt, quantize = cfg.model.dtype, cfg.model.quantize or "no quantize"
+    cpu = GroundingServer(cfg, params, device="cpu")
+    batch = serving_batch(cpu, segs)
+    if cfg.model.quantize:
+        check_int8_operands(torch, srv, cpu, batch)
+    with torch.inference_mode():
         tb = {k: torch.from_numpy(v) for k, v in batch.items()}
         s = cpu.model(tb["feats"], tb["word_ids"], tb["frame_mask"],
                       tb["word_mask"], region_mask=tb["region_mask"],
                       feats_scale=tb.get("feats_scale"))["s"].float()
     card, host = srv.run_batch(batch), cpu.run_batch(batch)
-    tol = INT8_TOL[dt]
+    tol = SERVE_CPU_TOL[dt]
     top2 = s.topk(2, dim=-1).values.numpy()
     clear = top2[..., 0] - top2[..., 1] > tol                    # [B,K,T]
     valid = (batch["word_mask"][:, :, None]
              * batch["frame_mask"][:, None, :]) > 0
     moved = valid & (card["region"] != host["region"])
     if (moved & clear).any():
-        fail(f"{cfg.model.quantize} {dt}: regions differ between the card "
+        fail(f"{quantize} {dt}: regions differ between the card "
              "and the CPU where clear of ties")
     same = valid & ~moved
     if not np.array_equal(card["box"][same], host["box"][same]):
-        fail(f"{cfg.model.quantize} {dt}: boxes of equal regions differ")
+        fail(f"{quantize} {dt}: boxes of equal regions differ")
     fm = batch["frame_mask"] > 0
     diff = max(float(np.abs(card["score"] - host["score"])[same].max()),
                float(np.abs(card["beta"] - host["beta"])[fm].max()),
                float(np.abs(card["video_score"]
                             - host["video_score"]).max()))
     if diff > tol:
-        fail(f"{cfg.model.quantize} {dt}: card and CPU scores differ by "
+        fail(f"{quantize} {dt}: card and CPU scores differ by "
              f"{diff} > {tol}")
     return {"cpu_max_diff": diff, "cpu_regions_moved_at_ties":
             int(moved.sum()), "cpu_pairs": int(valid.sum())}
@@ -2824,7 +2878,7 @@ def serve_int8(torch, params, segs, gts) -> dict:
     """Main path 7: config4 servers with model.quantize=int8 and int8pre,
     f32 and bf16, on the oracle params, over the serving phase's requests:
     K1f once a batch and no other kernel, box accuracy over ACC_BAR, one
-    batch re-run on the CPU (check_int8_cpu_rerun); the f32 int8pre server
+    batch re-run on the CPU (check_batch_cpu_rerun); the f32 int8pre server
     also answers pre-quantized requests over HTTP as it answers f32 ones in
     process."""
     from nafae_torch.serve import GroundingServer
@@ -2856,7 +2910,7 @@ def serve_int8(torch, params, segs, gts) -> dict:
             entry = {"box_acc": acc, "launches_ctx_mix_fwd":
                      counts["ctx_mix_fwd"], "batches": batches,
                      "wall_s": wall,
-                     **check_int8_cpu_rerun(torch, cfg, params, srv, segs)}
+                     **check_batch_cpu_rerun(torch, cfg, params, srv, segs)}
             if quantize == "int8pre" and dt == "float32":
                 pre = prequantized(segs)
                 picks = [[0, 1], [2], [3, 4]]      # 3 concurrent requests
@@ -2864,7 +2918,7 @@ def serve_int8(torch, params, segs, gts) -> dict:
                     srv, [[pre[i] for i in p] for p in picks])
                 worst = max(max_response_diff(ans, [results[i] for i in p])
                             for p, ans in zip(picks, answers))
-                if worst > INT8_TOL[dt]:
+                if worst > SERVE_CPU_TOL[dt]:
                     fail(f"int8pre HTTP answers to pre-quantized requests "
                          f"differ from the in-process ones by {worst}")
                 entry["http_prequantized_max_diff"] = worst
@@ -2876,7 +2930,7 @@ def serve_int8(torch, params, segs, gts) -> dict:
                 f"equal, regions equal where clear of ties "
                 f"({entry['cpu_regions_moved_at_ties']} of "
                 f"{entry['cpu_pairs']} moved at ties), max |diff| "
-                f"{entry['cpu_max_diff']:.3e} (limit {INT8_TOL[dt]})"
+                f"{entry['cpu_max_diff']:.3e} (limit {SERVE_CPU_TOL[dt]})"
                 + (f"; HTTP with pre-quantized requests: max |diff| "
                    f"{entry['http_prequantized_max_diff']:.3e}"
                    if "http_prequantized_max_diff" in entry else ""))
@@ -4890,6 +4944,7 @@ def expect_graphed(run: dict, what: str, graphs: int, steps: int,
 # the device kernels that one launch of a wrapper on the graphed path runs,
 # each once, as a profiler trace names them (substrings of the name)
 TRACE_NAMES = {
+    "ctx_mix_fwd": ("ctx_mix_fwd_pairs", "ctx_mix_fwd_mix"),
     "ctx_mix_fwd_res": ("ctx_mix_fwd_pairs", "ctx_mix_fwd_mix"),
     "ctx_mix_bwd_res": ("ctx_mix_bwd_pairs", "ctx_mix_bwd_gather"),
     "cross_mil": ("cross_mil_",),
@@ -4900,13 +4955,15 @@ TRACE_NAMES = {
 }
 
 
-def traced_replay(torch, prog, state, batch, per: dict, path: str) -> dict:
-    """One more step of a graphed program `prog` (a replay of its graph
-    without a refresh) under torch.profiler, its trace written to `path`
-    and read back as phase 12 reads the --profile trace: each kernel of
-    TRACE_NAMES must be named there as often as `per` (the launches of a
-    step, per_step_launches or c5_launches) says, and the launch counts
-    must have grown by just that. Returns {name: times named}."""
+def traced_replay(torch, prog, call, per: dict, path: str,
+                  kernels: dict = TRACE_NAMES) -> dict:
+    """call(), one more replay of a graphed program `prog` (a step without
+    a refresh, or a serving batch), under torch.profiler, its trace
+    written to `path` and read back as phase 12 reads the --profile trace:
+    each kernel of `kernels` must be named there as often as `per` (the
+    launches of a step or batch: per_step_launches or c5_launches) says,
+    and the launch counts must have grown by just that. Returns {name:
+    times named}."""
     from torch.profiler import ProfilerActivity, profile
 
     was = dict(prog.stats)
@@ -4914,7 +4971,7 @@ def traced_replay(torch, prog, state, batch, per: dict, path: str) -> dict:
     zero_counts()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        prog(state, batch)
+        call()
         torch.cuda.synchronize()
     counted = read_counts()
     if prog.stats["replays"] != was["replays"] + 1 or \
@@ -4926,7 +4983,7 @@ def traced_replay(torch, prog, state, batch, per: dict, path: str) -> dict:
                  if e.get("cat") == "kernel"]
     os.remove(path)
     want = {}
-    for key, subs in TRACE_NAMES.items():
+    for key, subs in kernels.items():
         for sub in subs:
             want[sub] = want.get(sub, 0) + per[key]
     named = {sub: sum(sub in n for n in names) for sub in want}
@@ -5000,7 +5057,8 @@ def check_graphs(torch, root: str, tmp: str) -> dict:
                                 "wall_s": run["wall_s"]}
                     if spc == GRAPH_SPC[-1]:       # after the comparisons
                         traced[tag] = traced_replay(
-                            torch, prog, run["state"], seen[-1],
+                            torch, prog,
+                            lambda: prog(run["state"], seen[-1]),
                             per_step_launches(route),
                             os.path.join(tmp, f"replay_{tag}.json"))
                     if dt == "float32" and way == "streaming" and spc == 1:
@@ -5341,6 +5399,27 @@ def eager_batch(torch, srv, batch) -> dict:
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
+def check_serve_batches(torch, srv, segs, name: str) -> list[dict]:
+    """Each batch of `segs` (padded_batches) through srv's serving graph
+    (`run_batch`), bit for bit `make_ground_fn` called eagerly on the
+    same batch (eager_batch), K1f once a batch and no other kernel;
+    returns the batches."""
+    batches = padded_batches(srv, segs)
+    for i, b in enumerate(batches):
+        zero_counts()                           # a batch starts here
+        got = srv.run_batch(b)
+        counts = read_counts()                  # ... and ends here
+        want = eager_batch(torch, srv, b)
+        if {k: n for k, n in counts.items() if n} != {"ctx_mix_fwd": 1}:
+            fail(f"the {name} serving graph launched {counts} for batch "
+                 f"{i}; K1f once expected")
+        bad = [k for k in want if not np.array_equal(got[k], want[k])]
+        if set(got) != set(want) or bad:
+            fail(f"the {name} serving graph differs from make_ground_fn "
+                 f"called eagerly in {bad} (batch {i})")
+    return batches
+
+
 def check_serve_graphs(torch, params, segs) -> dict:
     """Phase 16 (a): the serving graph of config4 servers in f32, bf16,
     int8 and int8pre (oracle params, the serving phase's requests): each
@@ -5357,19 +5436,7 @@ def check_serve_graphs(torch, params, segs) -> dict:
         name = q or dt
         srv = srvs[name] = GroundingServer(serve_cfg(dt, q), params,
                                            device="cuda")
-        batches = padded_batches(srv, segs)
-        for i, b in enumerate(batches):
-            zero_counts()                       # a batch starts here
-            got = srv.run_batch(b)
-            counts = read_counts()              # ... and ends here
-            want = eager_batch(torch, srv, b)
-            if {k: n for k, n in counts.items() if n} != {"ctx_mix_fwd": 1}:
-                fail(f"the {name} serving graph launched {counts} for batch "
-                     f"{i}; K1f once expected")
-            bad = [k for k in want if not np.array_equal(got[k], want[k])]
-            if set(got) != set(want) or bad:
-                fail(f"the {name} serving graph differs from make_ground_fn "
-                     f"called eagerly in {bad} (batch {i})")
+        batches = check_serve_batches(torch, srv, segs, name)
         st = dict(srv._program.stats)
         if st["graphs"] != 1 or st["replays"] != len(batches):
             fail(f"the {name} server's program ran {st}")
@@ -5665,7 +5732,7 @@ def check_c5_graphs(torch, ann: str, tmp: str) -> dict:
                  "wall_s": fitted["wall_s"]}
         if run == GRAPH_C5_TRACED:
             entry["traced_replay"] = traced_replay(
-                torch, prog, state, seen[-1], per,
+                torch, prog, lambda: prog(state, seen[-1]), per,
                 os.path.join(tmp, f"replay_c5_{run}.json"))
         if first is None:
             first = seen[0]["frames"].reshape(
@@ -5718,6 +5785,416 @@ def check_c5_graphs(torch, ann: str, tmp: str) -> dict:
     out["extract"] = check_extract_graph(
         torch, c5_cfg(ann, os.path.join(tmp, "ck5_gx"), "float32", 1), first)
     return out
+
+
+# ------------------------------------------ phase 17: every shape
+
+
+# the context mix's cases past the specialised kernels' envelope (R > 32, E
+# above 512 or not a multiple of 4, w > 16), which the general variant of
+# csrc/ctx_mix*.cu takes: (B, T, R, E, w, region mask, edges)
+CTX_ANY_CASES = [(4, 6, 33, 64, 2, True, False),     # R = 33: two row tiles
+                 (4, 6, 36, 1024, 3, True, False),   # R = 36, E = 1024
+                 (2, 6, 36, 1024, 3, False, False),  # ... no region mask
+                 (4, 6, 20, 50, 3, True, False),     # E = 50 (GloVe-50d)
+                 (3, 5, 20, 516, 2, True, False),    # E = 516 > 512
+                 (2, 5, 3, 3, 2, True, False),       # E = 3, R = 3
+                 (2, 4, 20, 64, 17, True, False),    # w = 17 >= T
+                 (2, 3, 5, 50, 20, True, False),     # w = 20 >= T
+                 (3, 12, 36, 50, 3, True, True)]     # cnt = 0; invalid centre
+# ... with real halo frames (B, T, R, E, w), w > T in the second
+CTX_ANY_HALO_CASES = [(4, 5, 36, 1024, 6), (3, 4, 33, 50, 17)]
+ANY_STEPS = 3                    # steps of each phase-17 fit
+# one step's gradients, card against CPU, at phase 17's shapes: rtol as
+# CPU_GRAD_TOL's, and atol 1e-5 of each leaf's largest entry where
+# CPU_GRAD_TOL has 1e-6: at E = 1024 w_v's gradient sums 11,520 rows in
+# another order on each device, and its entries near zero differ by 1.37e-6
+# of the largest (seen on the card). The card's gradients rounded to bf16,
+# and those of a step with TF32 products, must fall outside it
+# (any_grads_agree).
+ANY_GRAD_TOL = (CPU_GRAD_TOL[0], 1e-5)
+# phase 17's servers' box accuracy: the planted signal among 36 regions and
+# an oracle that keeps 50 of the 67 class directions at E = 50 score below
+# ACC_BAR (0.78 and 0.63 on the card and the CPU alike); chance is 1/R
+ANY_ACC_BAR = 0.5
+# phase 17's servers: (model.dtype, model.quantize, overrides, oracle E,
+# requests at R = 36 or the config4 ones)
+ANY_SERVERS = (("float32", "", ["data.num_regions=36", "model.embed_dim=1024"],
+                1024, True),
+               ("bfloat16", "", ["data.num_regions=36",
+                                 "model.embed_dim=1024"], 1024, True),
+               ("float32", "int8pre", ["model.embed_dim=50"], 50, False))
+# phase 17's fits: name -> (overrides, data at R = 36)
+ANY_FITS = {"R36_E1024_w3": (["data.num_regions=36", "model.embed_dim=1024",
+                              "loss.ctx_window=3"], True),
+            "E50_w20": (["model.embed_dim=50", "loss.ctx_window=20"], False)}
+# the kernels' times at the new shapes: name -> (B, T, R, E, w)
+ANY_TIMED = {"R36_E1024_w3": (16, 20, 36, 1024, 3),
+             "E50_w20": (16, 20, 20, 50, 20)}
+
+
+def check_ctx_any(torch, device) -> dict:
+    """Phase 17 (a): K1f, K1fr, K1b and K1br against their plain versions
+    at CTX_ANY_CASES and CTX_ANY_HALO_CASES in f32 and bf16 (the general
+    variant), and two launches of each bitwise equal at R = 36, E = 1024."""
+    gen = torch.Generator().manual_seed(SEED + 17)
+    errs = {"ctx_mix_fwd": check_ctx_mix(torch, device, CTX_ANY_CASES,
+                                         CTX_ANY_HALO_CASES, SEED + 17)}
+    errs["grads"] = check_grad_cases(
+        torch, device, gen, [c + (False,) for c in CTX_ANY_CASES]
+        + [c + (True, False, True) for c in CTX_ANY_HALO_CASES])
+    check_repeatable(torch, device, gen, 4, 6, 36, 1024, 3)
+    return errs
+
+
+def check_any_serving(torch, reqs: dict, tmp: str) -> dict:
+    """Phase 17 (b): the config4 servers of ANY_SERVERS on the oracle
+    params at their E: every batch of their requests (reqs[True]: the R = 36
+    split's, reqs[False]: the config4 ones) through the serving graph
+    (check_serve_batches); one more batch, a replay traced (traced_replay,
+    its trace written to tmp), runs the general variant's K1f kernels once
+    each; ground_segments as a user calls it, K1f once a batch, box
+    accuracy over ANY_ACC_BAR; one batch re-run on the CPU
+    (check_batch_cpu_rerun)."""
+    from nafae_torch.config import load_config
+    from nafae_torch.serve import GroundingServer
+
+    out = {}
+    for dt, q, extra, embed, r36 in ANY_SERVERS:
+        segs, gts = reqs[r36]
+        name = f"{q or dt}_{'R36_' if r36 else ''}E{embed}"
+        cfg = load_config(preset_name="config4", overrides=[
+            f"model.dtype={dt}", f"model.quantize={q}", *extra])
+        params = oracle_params(embed=embed)
+        srv = GroundingServer(cfg, params, device="cuda")
+        batches = check_serve_batches(torch, srv, segs, name)
+        traced = traced_replay(
+            torch, srv._program, lambda: srv.run_batch(batches[0]),
+            dict(dict.fromkeys(read_counts(), 0), ctx_mix_fwd=1),
+            os.path.join(tmp, f"any_serve_{name}.json"), ANY_TRACE_NAMES)
+        zero_counts()                           # serving starts here
+        results = srv.ground_segments(segs)
+        counts = read_counts()                  # ... and ends here
+        want = dict.fromkeys(counts, 0)
+        want["ctx_mix_fwd"] = len(batches)
+        if counts != want:
+            fail(f"the {name} server launched {counts}; K1f once a batch "
+                 f"({len(batches)}) expected")
+        acc = box_accuracy(torch, segs, results, gts)
+        if acc < ANY_ACC_BAR:
+            fail(f"the {name} server's box accuracy {acc:.4f} is under "
+                 f"{ANY_ACC_BAR}")
+        entry = {"box_acc": acc, "batches": len(batches),
+                 "launches_ctx_mix_fwd": counts["ctx_mix_fwd"],
+                 "program": dict(srv._program.stats), "traced_replay": traced,
+                 **check_batch_cpu_rerun(torch, cfg, params, srv, segs)}
+        out[name] = entry
+        log(f"phase 17 (b): {name} server ({len(segs)} segments, "
+            f"{len(batches)} batches): graph bit for bit make_ground_fn "
+            f"eagerly, K1f once a batch; a traced replay names {traced}; "
+            f"box accuracy {acc:.4f} (bar {ANY_ACC_BAR}); CPU re-run max "
+            f"|diff| {entry['cpu_max_diff']:.3e} (limit "
+            f"{SERVE_CPU_TOL[dt]}), {entry['cpu_regions_moved_at_ties']} of "
+            f"{entry['cpu_pairs']} regions moved at ties")
+    return out
+
+
+def any_grads_agree(torch, cfg, batch) -> dict:
+    """Phase 17 (c): one f32 step's gradients on `batch` from the initial
+    state, card against CPU, within ANY_GRAD_TOL; and two controls that
+    must fall outside the same limit: the card's gradients rounded to
+    bf16, and the card's step with TF32 products. Returns each one's
+    largest |diff| / largest entry and the leaves outside the limit."""
+    from nafae_torch.train import TrainState
+
+    def card(tf32: bool) -> dict:
+        st = TrainState.create(cfg, device="cuda")   # turns TF32 off
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        torch.backends.cudnn.allow_tf32 = tf32
+        try:
+            return step_grads(torch, cfg, st, batch, "auto")[1]
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            torch.backends.cudnn.allow_tf32 = False
+
+    want = step_grads(torch, cfg, TrainState.create(cfg, device="cpu"),
+                      batch, "auto")[1]
+    got = card(False)
+    out = {}
+    for tag, g in (("f32", got),
+                   ("bf16_rounded", {k: v.to(torch.bfloat16).float()
+                                     for k, v in got.items()}),
+                   ("tf32", card(True))):
+        worst, bad = grad_gap(torch, g, want, ANY_GRAD_TOL)
+        out[tag] = {"rel_diff": worst, "outside": bad}
+    if out["f32"]["outside"]:
+        fail(f"gradients of {out['f32']['outside']}: card and CPU differ by "
+             f"up to {out['f32']['rel_diff']:.3e} of the largest entry "
+             f"(limit {ANY_GRAD_TOL})")
+    for tag in ("bf16_rounded", "tf32"):
+        if not out[tag]["outside"]:
+            fail(f"the card's {tag} gradients are within {ANY_GRAD_TOL} of "
+                 "the CPU's: the limit does not tell them from f32")
+    return out
+
+
+def check_any_fits(torch, roots: dict, tmp: str) -> dict:
+    """Phase 17 (c): config4 `fit`, train.kernels=auto, ANY_STEPS steps in
+    f32 and bf16 at each shape of ANY_FITS (roots[True]: the R = 36 data,
+    roots[False]: phase 5's): captured (two graphs, a replay a step), rows
+    and state bit for bit the eager train_step chain, K1fr and K1br once a
+    step; one more step, a replay traced (traced_replay), runs the general
+    variant's kernels once each; each run re-run on the CPU, its rows
+    within CPU_METRIC_TOL, and, in f32, one step's gradients within
+    ANY_GRAD_TOL (any_grads_agree)."""
+    out = {}
+    for name, (extra, r36) in ANY_FITS.items():
+        root = roots[r36]
+        for dt in GRAPH_DTYPES:
+            tag = f"{name}_{dt}"
+            cfg = train_cfg(root, os.path.join(tmp, "ck_any_" + tag), dt,
+                            ANY_STEPS, extra=extra)
+            zero_counts()                       # main path starts here
+            run = traced_fit(torch, cfg)
+            counts = read_counts()              # ... and ends here
+            per = per_step_launches("auto")
+            want = {k: n * ANY_STEPS for k, n in per.items()}
+            if counts != want:
+                fail(f"phase 17 fit ({tag}) launched {counts}, expected "
+                     f"{want}")
+            st = expect_graphed(run, f"phase 17 fit ({tag})", 2, ANY_STEPS)
+            eager = eager_chain(torch, cfg, run["seen"])
+            bad = rows_differ(run["logs"], eager["rows"])
+            bad += state_diffs(torch, run["state"], eager["state"])
+            if bad:
+                fail(f"phase 17 fit ({tag}) differs from the eager train_step "
+                     f"chain in {bad}")
+            prog = run["programs"][0]
+            traced = traced_replay(
+                torch, prog, lambda: prog(run["state"], run["seen"][-1]), per,
+                os.path.join(tmp, f"any_replay_{tag}.json"), ANY_TRACE_NAMES)
+            cpu_cfg = train_cfg(root, os.path.join(tmp, "ck_any_cpu_" + tag),
+                                dt, ANY_STEPS, extra=extra)
+            worst = cpu_rows_agree(run["logs"], run_fit(torch, cpu_cfg, "cpu"),
+                                   f"phase 17 fit ({tag})")
+            grads = (any_grads_agree(torch, cpu_cfg, run["seen"][0])
+                     if dt == "float32" else None)
+            out[tag] = {**st, "launches": counts, "wall_s": run["wall_s"],
+                        "traced_replay": traced,
+                        "cpu_metric_rel_diff": worst, "cpu_grads": grads,
+                        "loss_first_last": [run["logs"][0]["loss"],
+                                            run["logs"][-1]["loss"]]}
+            log(f"phase 17 (c): fit {tag} ({ANY_STEPS} steps): "
+                f"{st['graphs']} graphs, {st['replays']} replays, bit for bit "
+                f"the eager chain; launches {counts}; a traced replay names "
+                f"{traced}; CPU re-run rows max relative diff {worst:.3e} "
+                f"(limit {CPU_METRIC_TOL})" + (
+                    "; one step's gradients max |diff| / largest entry "
+                    + ", ".join(f"{k} {v['rel_diff']:.3e}"
+                                + (" (outside)" if v["outside"] else "")
+                                for k, v in grads.items())
+                    + f" (limit rtol {ANY_GRAD_TOL[0]}, atol "
+                    f"{ANY_GRAD_TOL[1]} x largest entry)"
+                    if grads is not None else ""))
+            del run, eager, prog
+            torch.cuda.empty_cache()
+    return out
+
+
+# the general variant's kernels, as a traced replay names them: each once
+# in a launch of K1f or K1fr (pairs, mix) and of K1br (pairs, gather)
+ANY_TRACE_NAMES = {
+    **TRACE_NAMES,
+    "ctx_mix_fwd": ("ctx_mix_fwd_pairs_any", "ctx_mix_fwd_mix_any"),
+    "ctx_mix_fwd_res": ("ctx_mix_fwd_pairs_any", "ctx_mix_fwd_mix_any"),
+    "ctx_mix_bwd_res": ("ctx_mix_bwd_pairs_any", "ctx_mix_bwd_gather_any")}
+
+
+def any_timings(torch) -> dict:
+    """Phase 17 (d): device times (device_ms) of K1f, K1fr, K1b and K1br at
+    each shape of ANY_TIMED (ctx_inputs' random masks, du from a seed) in
+    f32 and bf16, each beside its plain version (torch.profiler's device
+    time of context_mix_plain, its backward alone for K1b/K1br) and its
+    bound."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 18)
+    out = {}
+    for name, (b, t, r, e, w) in ANY_TIMED.items():
+        v32, fm, rm = ctx_inputs(torch, gen, b, t, r, e, w, dev)
+        du = torch.randn(b, t, r, e, generator=gen).to(dev)
+        res = out[name] = {"shapes": {"B": b, "T": t, "R": r, "E": e,
+                                      "w": w}}
+        for tag, v in (("", v32), ("_bf16", v32.to(torch.bfloat16))):
+            dt = torch.bfloat16 if tag else None
+            _, alpha = K.launch_fwd(v, fm, w, 0.1, rm, residual=True)
+            for key, fn in (
+                    ("fwd", lambda: K.launch_fwd(v, fm, w, 0.1, rm)),
+                    ("fwd_res", lambda: K.launch_fwd(v, fm, w, 0.1, rm,
+                                                     residual=True)),
+                    ("bwd", lambda: K.launch_bwd(v, fm, w, 0.1, rm, du)),
+                    ("bwd_res", lambda: K.launch_bwd(v, fm, w, 0.1, rm, du,
+                                                     alpha))):
+                res[key + "_ms" + tag] = device_ms(torch, fn)
+            with torch.no_grad():
+                res["plain_fwd_ms" + tag] = profile_forward(
+                    torch, lambda: K.context_mix_plain(v32, fm, w, 0.1,
+                                                       dtype=dt,
+                                                       rm_ext=rm))[1]
+            vp = v32.detach().clone().requires_grad_()
+            res["plain_fwd_res_ms" + tag] = profile_forward(
+                torch, lambda: K.context_mix_plain(vp, fm, w, 0.1, dtype=dt,
+                                                   rm_ext=rm))[1]
+            up, _ = K.context_mix_plain(vp, fm, w, 0.1, dtype=dt, rm_ext=rm)
+            res["plain_bwd_ms" + tag] = profile_forward(
+                torch, lambda: torch.autograd.grad(up, vp, du,
+                                                   retain_graph=True))[1]
+            del up, vp
+            for key, bnd in (
+                    ("fwd", fwd_bound_ms(torch, v, fm, rm, w)),
+                    ("fwd_res", fwd_bound_ms(torch, v, fm, rm, w, True)),
+                    ("bwd", bwd_bound_ms(torch, v, fm, rm, w, False)),
+                    ("bwd_res", bwd_bound_ms(torch, v, fm, rm, w, True))):
+                res[key + "_bound_ms" + tag], res[key + "_bound_by" + tag] = \
+                    bnd
+        torch.cuda.empty_cache()
+    card = card_line()
+    for name, res in out.items():
+        for tag, dt in (("", "f32"), ("_bf16", "bf16")):
+            log(f"phase 17 (d): context mix at {res['shapes']}, {dt} (device "
+                "ms; plain; bound): " + "; ".join(
+                    f"{k} {res[key + '_ms' + tag]:.4f} "
+                    f"({res['plain_' + pk + '_ms' + tag]:.4f}; "
+                    f"{res[key + '_bound_ms' + tag]:.4f}, "
+                    f"{res[key + '_bound_by' + tag]})"
+                    for k, key, pk in (("K1f", "fwd", "fwd"),
+                                       ("K1fr", "fwd_res", "fwd_res"),
+                                       ("K1b", "bwd", "bwd"),
+                                       ("K1br", "bwd_res", "bwd")))
+                + f" — {card}")
+    return out
+
+
+# int8_matmul at shapes torch._int_mm does not take itself (M <= 16, K or N
+# not a multiple of 8), which it zero-pads: (M, K, N)
+INT8_ANY_SHAPES = ((5, 2048, 256), (16, 2048, 256), (40, 2048, 50),
+                   (5, 2043, 50))
+
+
+def check_int8_any(torch) -> dict:
+    """Phase 17 (f): int8_matmul on the card at INT8_ANY_SHAPES, with the
+    weight row-major and column-major (`int8_weight`), equal bit for bit
+    to the CPU's exact int64 product."""
+    from nafae_torch.ops import grounding as TG
+
+    rng = np.random.default_rng(SEED)
+    for m, k, n in INT8_ANY_SHAPES:
+        a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+        b = torch.from_numpy(rng.integers(-127, 128, (k, n), dtype=np.int8))
+        want = TG.int8_matmul(a, b)
+        for w in (b, TG.int8_weight(b)):
+            got = TG.int8_matmul(a.cuda(), w.cuda())
+            if got.shape != want.shape or not torch.equal(got.cpu(), want):
+                fail(f"int8_matmul on the card at M={m} K={k} N={n} differs "
+                     "from the int64 product")
+    log(f"phase 17 (f): int8_matmul on the card at (M, K, N) "
+        f"{INT8_ANY_SHAPES}: equal to the int64 product bit for bit")
+    return {"shapes": [list(x) for x in INT8_ANY_SHAPES]}
+
+
+def check_any(torch, tmp: str, reqs20: tuple) -> dict:
+    """Phase 17: the context mix at every shape the reference takes. (a)
+    check_ctx_any; R = 36 data written (train and val splits at config4
+    widths); (b) check_any_serving; (c) check_any_fits; (e) config1 eval of
+    the R = 36 split with the oracle params, hits card = CPU
+    (eval_card_vs_cpu); (f) check_int8_any; (d) any_timings."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    free, total = torch.cuda.mem_get_info()
+    log(f"phase 17: {free / 2**30:.2f} of {total / 2**30:.2f} GiB of device "
+        "memory free")
+    errs = check_ctx_any(torch, dev)
+    root36 = os.path.join(tmp, "r36")
+    reqs36 = make_requests(root36, regions=36)
+    make_train_data(root36, regions=36)
+    serving = check_any_serving(torch, {True: reqs36, False: reqs20}, tmp)
+    fits = check_any_fits(torch, {True: root36, False: tmp}, tmp)
+    evals = eval_card_vs_cpu(torch, eval_cfg(
+        root36, os.path.join(tmp, "ck_any_eval"), ["data.num_regions=36"]),
+        oracle_params(), "oracle, R = 36")
+    int8 = check_int8_any(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = any_timings(torch)
+    wall = time.perf_counter() - t0
+    log(f"phase 17 took {wall:.1f} s")
+    return {"errs": errs, "serving": serving, "fits": fits, "eval": evals,
+            "int8_matmul": int8, "times": times, "phase_s": wall}
+
+
+ANY_RESULT = "any.json"           # phase 17's results, in the run's tmp
+
+
+def any_child(tmp: str) -> None:
+    """`python3 chip_smoke.py --any-child TMP`: phase 17 (check_any) in a
+    process of its own, on phase 5's data in TMP and the serving phase's
+    requests made again under TMP/any_reqs; writes its results to
+    TMP/ANY_RESULT. Late in a full run torch.profiler leaves kernels out
+    of a short trace in the process that ran the earlier phases (a
+    replayed phase-17 step kept its backward's kernels and lost its
+    forward's); a fresh process traces them all, as phase 12's `train
+    --profile` does."""
+    import torch
+
+    from nafae_torch.ops.kernels import _build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    _build.build_all(SOURCES)
+    out = check_any(torch, tmp, make_requests(os.path.join(tmp, "any_reqs")))
+    with open(os.path.join(tmp, ANY_RESULT), "w") as f:
+        json.dump(out, f, default=lambda o: o.tolist() if hasattr(o, "tolist")
+                  else float(o))
+
+
+def run_any_child(torch, tmp: str) -> dict:
+    """Phase 17 in a child process (any_child), started once this process
+    has given its cached device memory back (the earlier phases' graph
+    pools); the child's lines are logged here, and its failure fails the
+    run. Returns its results."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"),
+                          "--any-child", tmp], cwd=here, capture_output=True,
+                         text=True, timeout=900)
+    for ln in run.stdout.splitlines():
+        log(ln)
+    if run.returncode != 0:
+        fail(f"phase 17 (its child process) exited {run.returncode}: "
+             f"{run.stderr[-3000:]}")
+    with open(os.path.join(tmp, ANY_RESULT)) as f:
+        return json.load(f)
+
+
+def any_keys(anyp: dict, name: str, key: str, pkey: str) -> dict:
+    """A context-mix kernel's phase-17 numbers for its JSON entry: its max
+    |error| against plain over phase 17's cases (f32, bf16), and at each
+    shape of ANY_TIMED its device ms, its plain version's and its bound."""
+    errs = anyp["errs"]
+    err = {d: (errs["ctx_mix_fwd"][d] if name == "ctx_mix_fwd"
+               else errs["grads"][d][name]) for d in GRAPH_DTYPES}
+    return {"max_abs_err_any": err["float32"],
+            "max_abs_err_any_bf16": err["bfloat16"],
+            "any_shapes": {
+                shape: {"shapes": res["shapes"], **{
+                    k + tag: res[f + tag] for tag in ("", "_bf16")
+                    for k, f in (("ms", key + "_ms"),
+                                 ("plain_ms", "plain_" + pkey + "_ms"),
+                                 ("bound_ms", key + "_bound_ms"),
+                                 ("bound_by", key + "_bound_by"))}}
+                for shape, res in anyp["times"].items()}}
 
 
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
@@ -5907,6 +6384,11 @@ def main() -> None:
         g_c5 = check_c5_graphs(torch, ann, tmp)
         t16 = time.perf_counter() - t16
         log(f"phase 16 took {t16:.1f} s")
+
+        # the context mix at every shape the reference takes (phase 17),
+        # on the serving phase's requests and phase 5's data, and on an
+        # R = 36 split written there, in a process of its own
+        anyp = run_any_child(torch, tmp)
     shutdown()
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
@@ -6132,6 +6614,7 @@ def main() -> None:
             bound_ms_dense_bf16=tm["bound_ms_dense_bf16"],
             bound_by_dense_bf16=tm["bound_by_dense_bf16"],
             shapes=tm["shapes"], path="serving",
+            **any_keys(anyp, "ctx_mix_fwd", "fwd", "fwd"),
             # the forward-only route is the custom op
             # nafae::ctx_mix_fwd, also inside the exported program
             custom_op="nafae::ctx_mix_fwd",
@@ -6151,6 +6634,7 @@ def main() -> None:
             bound_ms_bf16=tt[key + "_bound_ms_bf16"],
             bound_by_bf16=tt[key + "_bound_by_bf16"],
             shapes=tt["shapes"], path=path,
+            **any_keys(anyp, name, key, pkey),
             **({"launches_per_step_sp": sp_launch[name],
                 "ms_sp": sp_k[sp_key[name] + "_ms"],
                 "plain_ms_sp": sp_k[sp_key[name] + "_plain_ms"],
@@ -6337,6 +6821,7 @@ def main() -> None:
             "serving": g_serve, "eval": g_eval,
             "extract": g_c5.pop("extract"), "config5": g_c5,
             "phase_s": t16},
+        "any_shapes": {k: v for k, v in anyp.items() if k != "times"},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)
@@ -6348,5 +6833,7 @@ def main() -> None:
 if __name__ == "__main__":
     if len(sys.argv) == 3 and sys.argv[1] == "--artifact-child":
         artifact_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--any-child":
+        any_child(sys.argv[2])
     else:
         main()

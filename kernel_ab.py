@@ -28,7 +28,8 @@ scratch; NMS with or without tiers; K4f with or without the normalised
 centers' scratch). Every version is first held to this tree's output
 (K1f/K1fr within chip_smoke.CTX_TOL and ALPHA_TOL, K1b/K1br within
 GRAD_TOL, K2 exactly, K4f/K4b within DIAG_TOL with r* and c* equal where
-clear of ties), then timed with CUDA graphs (chip_smoke.device_ms) in the
+clear of ties; whether K1's and K4's outputs are bit for bit this tree's is
+recorded), then timed with CUDA graphs (chip_smoke.device_ms) in the
 order others, tree, tree, others reversed. Then one f32 serving batch is
 timed host to host (numpy in, numpy out) with each version's K1f swapped
 into the server, beside the batch's copy to the card alone, in
@@ -460,6 +461,7 @@ def main() -> None:
                 fns = {"tree": lambda a=a, v=v: K1.launch_bwd(v, fm, w, temp,
                                                                rm, du, a)}
                 want = fns["tree"]()
+                equal = {}
                 for name, (_, ob, *_) in others.items():
                     fns[name] = (lambda ob=ob, a=a, v=v:
                                  ob(v, fm, rm, du, w, temp, a))
@@ -468,7 +470,9 @@ def main() -> None:
                                           atol=tol[1]):
                         CS.fail(f"{kname} {tag}: {name} differs from this "
                                 "tree")
+                    equal[name] = bool(torch.equal(got, want))
                 entry = {"ms": a_b(torch, fns),
+                         "bitwise_equal_to_tree": equal,
                          "by_kernel_us": CS.profile_forward(
                              torch, fns["tree"], reps=20)[0]}
                 res[f"{kname}_{tag}"] = entry

@@ -64,6 +64,19 @@
 // times for the mix (~80 MB from L2 at config4 in f32, every frame valid);
 // those copies and the f32 products' shared-memory reads (8 16-byte loads
 // for 64 FMAs) are what hold it. PERF.md has its measured times.
+//
+// Shapes. The two kernels above take R <= 32 (one register accumulator and
+// one 32 x 32 score tile per region), E a multiple of 4 in [4, 512] (a
+// pairs block stages two whole frames) and w <= 16 (a frame's offsets as
+// bits of a warp's mask). Every other shape takes the general variant
+// below: the same function and the same two steps over tiles of 32 regions
+// and 64 columns, with scalar loads, so any R, E and w; the shapes above
+// keep the kernels above, unchanged. Its bound at R = 36, E = 1024, w = 3
+// (B=16, T=20, every frame valid, 1,728 live pairs): 9.2 GFLOP (~137 us
+// at 67 TFLOP/s f32) against 109 MB (~32 us), bound by operations; in bf16
+// 78 MB (~23 us), bound by bytes. It pads 36 regions to 64 and forms the
+// scores twice (for the max, then the softmax), so it does ~6x the pairs'
+// products and ~3x the mix's.
 
 #include "ctx_mix_common.cuh"
 
@@ -576,10 +589,168 @@ int launch_mix_f32(const float* v, const float* fm_ext, const float* a,
   }
 }
 
+// ------------------------------------------------- the general variant
+//
+// Any R, E and w (ctx_mix_common.cuh's kAny* tiles), for the shapes the
+// kernels above do not take. The same two steps, each pair's alpha through
+// the alpha buffer:
+//
+//   pairs  one block per (32-row tile, offset, centre frame t; video b)
+//          forms its rows' scores against every region of the neighbour,
+//          32 columns at a time, and softmaxes them in two passes
+//          (any_row_softmax: running max and sum, then the scores again),
+//          so no row is ever held whole; writes alpha * nv_o (zeros for a
+//          dead pair).
+//   mix    one block per (64-column slice, 32-row tile, centre frame t;
+//          video b) sums alpha_o times the neighbour's slice over the live
+//          offsets in order, 32 source regions at a time, each thread 8
+//          rows of one column; then u = sums / max(cnt, 1).
+
+template <typename Tin>
+__global__ void __launch_bounds__(kAnyThreads)
+ctx_mix_fwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
+                      const float* __restrict__ fm_ext,  // [B, T+2w]
+                      const float* __restrict__ rm_ext,  // [B, T+2w, R] / null
+                      Tin* __restrict__ alpha,           // [B, T, 2w, R, R]
+                      int T, int R, int E, int w, float temp) {
+  __shared__ __align__(16) AnyDotSmem sm;
+  const int tiles = (R + kAnyRows - 1) / kAnyRows;
+  const int rt = (int)(blockIdx.x % tiles);
+  const int pair = (int)(blockIdx.x / tiles);    // t * 2w + offset index
+  const int oi = pair % (2 * w), t = pair / (2 * w);
+  const int b = blockIdx.y;
+  const int t_ext = T + 2 * w;
+  const int c = t + w, n = c + offset_of(oi, w);
+  const size_t frame = (size_t)R * E;
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const float nv = fm[n] * fm[c];
+  Tin* a = alpha + (((size_t)b * T + t) * 2 * w + oi) * R * R;
+  const int r0 = rt * kAnyRows;
+  if (nv == 0.f) {                               // dead pair: alpha is zero
+    const size_t hi = (size_t)min(R, r0 + kAnyRows) * R;
+    for (size_t i = (size_t)r0 * R + threadIdx.x; i < hi; i += blockDim.x)
+      store_as(a + i, 0.f);
+    return;
+  }
+  const Tin* vb = v_ext + (size_t)b * t_ext * frame;
+  const float* rm = rm_ext ? rm_ext + ((size_t)b * t_ext + n) * R : nullptr;
+  any_row_softmax(
+      vb + c * frame, vb + n * frame, R, E, r0, temp,
+      [&](int s) { return rm == nullptr || rm[s] > 0.f; }, sm,
+      [&](int r, int s, float p) { store_as(a + (size_t)r * R + s, p * nv); });
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kAnyThreads)
+ctx_mix_fwd_mix_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
+                    const float* __restrict__ fm_ext,  // [B, T+2w]
+                    const Tin* __restrict__ alpha,     // [B, T, 2w, R, R]
+                    float* __restrict__ u,             // [B, T, R, E]
+                    int T, int R, int E, int w) {
+  __shared__ __align__(16) float A[kAnyRows * kAnyMatLd];  // [r][s] of alpha
+  __shared__ __align__(16) float Y[kAnyRows * kAnyCols];   // [s][e] of v_n
+  const int tiles = (R + kAnyRows - 1) / kAnyRows;
+  const int slices = (E + kAnyCols - 1) / kAnyCols;
+  const int e0 = (int)(blockIdx.x % slices) * kAnyCols;
+  const int rest = (int)(blockIdx.x / slices);
+  const int r0 = (rest % tiles) * kAnyRows;
+  const int t = rest / tiles;
+  const int b = blockIdx.y;
+  const int t_ext = T + 2 * w;
+  const int c = t + w;
+  const size_t frame = (size_t)R * E;
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const int tx = threadIdx.x % kAnyCols;         // this thread's column
+  const int ty = threadIdx.x / kAnyCols;         // ... and rows 8 ty + k
+
+  float cnt = 0.f;
+  for (int i = 0; i < 2 * w; ++i) cnt += fm[c + offset_of(i, w)] * fm[c];
+  float acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+  for (int i = 0; i < 2 * w; ++i) {
+    const int n = c + offset_of(i, w);
+    if (fm[n] * fm[c] == 0.f) continue;          // block-uniform
+    const Tin* a = alpha + (((size_t)b * T + t) * 2 * w + i) * R * R;
+    const Tin* y = v_ext + ((size_t)b * t_ext + n) * frame;
+    for (int k0 = 0; k0 < R; k0 += kAnyRows) {
+      __syncthreads();                           // the last tiles are read
+      for (int j = threadIdx.x; j < kAnyRows * kAnyRows; j += blockDim.x) {
+        const int r = j / kAnyRows, s = j - r * kAnyRows;
+        A[r * kAnyMatLd + s] = r0 + r < R && k0 + s < R
+            ? load1(a + (size_t)(r0 + r) * R + k0 + s) : 0.f;
+      }
+      for (int j = threadIdx.x; j < kAnyRows * kAnyCols; j += blockDim.x) {
+        const int s = j / kAnyCols, col = j - s * kAnyCols;
+        Y[j] = k0 + s < R && e0 + col < E
+            ? load1(y + (size_t)(k0 + s) * E + e0 + col) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int s = 0; s < kAnyRows; s += 4) {
+        const float y0 = Y[s * kAnyCols + tx], y1 = Y[(s + 1) * kAnyCols + tx];
+        const float y2 = Y[(s + 2) * kAnyCols + tx];
+        const float y3 = Y[(s + 3) * kAnyCols + tx];
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float4 x = *reinterpret_cast<const float4*>(
+              A + (8 * ty + k) * kAnyMatLd + s);
+          acc[k] = fmaf(x.x, y0, acc[k]);
+          acc[k] = fmaf(x.y, y1, acc[k]);
+          acc[k] = fmaf(x.z, y2, acc[k]);
+          acc[k] = fmaf(x.w, y3, acc[k]);
+        }
+      }
+    }
+  }
+
+  const float den = fmaxf(cnt, 1.f);
+  float* ub = u + ((size_t)b * T + t) * frame;
+  if (e0 + tx < E) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = r0 + 8 * ty + k;
+      if (r < R) ub[(size_t)r * E + e0 + tx] = acc[k] / den;
+    }
+  }
+}
+
+// Whether the specialised kernels above take this shape; the general
+// variant takes every other.
+bool in_envelope(int R, int E, int w) {
+  return R <= 32 && E % 4 == 0 && E >= 4 && E <= kMaxThreads && w <= 16;
+}
+
+template <typename Tin>
+int run_any(const void* v_ext, const float* fm_ext, const float* rm_ext,
+            float* u, void* alpha, int B, int T, int R, int E, int w,
+            float temp, cudaStream_t stream) {
+  const size_t tiles = (R + kAnyRows - 1) / kAnyRows;
+  const size_t slices = (E + kAnyCols - 1) / kAnyCols;
+  const size_t pairs_x = (size_t)T * 2 * w * tiles;
+  const size_t mix_x = (size_t)T * tiles * slices;
+  if (pairs_x > 0x7fffffff || mix_x > 0x7fffffff)   // the grid's x limit
+    return (int)cudaErrorInvalidValue;
+  ctx_mix_fwd_pairs_any<Tin><<<dim3((unsigned)pairs_x, B), kAnyThreads, 0,
+                               stream>>>(
+      static_cast<const Tin*>(v_ext), fm_ext, rm_ext, static_cast<Tin*>(alpha),
+      T, R, E, w, temp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ctx_mix_fwd_mix_any<Tin><<<dim3((unsigned)mix_x, B), kAnyThreads, 0,
+                             stream>>>(
+      static_cast<const Tin*>(v_ext), fm_ext, static_cast<const Tin*>(alpha),
+      u, T, R, E, w);
+  return (int)cudaGetLastError();
+}
+
 template <typename Tin>
 int run(const void* v_ext, const float* fm_ext, const float* rm_ext,
         float* u, void* alpha, int B, int T, int R, int E, int w, float temp,
         cudaStream_t stream) {
+  if (!in_envelope(R, E, w))
+    return run_any<Tin>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp,
+                        stream);
   const size_t smem = pairs_smem<Tin>(R, E);
   const int err = launch_dyn(
       ctx_mix_fwd_pairs<Tin>, dim3(T + w, w, B), kPairThreads, smem, stream,
@@ -606,14 +777,16 @@ extern "C" {
 // launches (0 = ok). v_ext is float* when v_is_bf16 == 0, __nv_bfloat16*
 // otherwise; rm_ext may be null; alpha, of v_ext's type and shape
 // [B, T, 2w, R, R], is written whole: the residual for K1fr, a scratch for
-// K1f. All tensors are contiguous;
-// v_ext is 16-byte aligned. Limits: 1 <= R <= 32, E a multiple of 4 with
-// 4 <= E <= 512, 1 <= w <= 16, B <= 65535.
+// K1f. All tensors are contiguous; v_ext is 16-byte aligned. Shapes with
+// R <= 32, E a multiple of 4 in [4, 512] and w <= 16 take the kernels
+// above, every other the general variant. Limits: B <= 65535 (the grid's
+// y), and, in the general variant, T 2w ceil(R/32) and T ceil(R/32)
+// ceil(E/64) below 2^31 (its x); R, E, w, T >= 1.
 int nafae_ctx_mix_fwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
                       const float* rm_ext, float* u, void* alpha, int B,
                       int T, int R, int E, int w, float temp, void* stream) {
-  if (R < 1 || R > 32 || E < 4 || E % 4 != 0 || E > kMaxThreads || w < 1 ||
-      w > 16 || B < 0 || B > 65535 || T < 0 || alpha == nullptr)
+  if (R < 1 || E < 1 || w < 1 || B < 0 || B > 65535 || T < 0 ||
+      alpha == nullptr)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);

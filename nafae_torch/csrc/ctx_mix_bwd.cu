@@ -69,6 +69,14 @@
 // (K1br) and 10 (K1b) R^2 E a pair less the shared v[g] product (6 and 8);
 // the gather re-reads each frame's slice once for each of its 2w
 // neighbours, from L2. PERF.md has its times.
+//
+// Shapes. The kernels above take R <= 32, E a multiple of 4 in [4, 512],
+// w <= 16 (a frame's 2w neighbours in a list of 32) and T <= 65535 (the
+// pairs grid's y); every other shape takes the general variant below, any
+// R, E and w, through a scratch of two f32 [B, T, 2w, R, R] arrays. Its
+// bound at R = 36, E = 1024, w = 3 (B=16, T=20, every frame valid, 1,728
+// live pairs): K1br 18.3 GFLOP (~274 us at 67 TFLOP/s f32), K1b 22.9
+// (~342 us), bound by operations in f32; in bf16 by bytes (~42 us).
 
 #include <cstdint>
 
@@ -672,20 +680,262 @@ int run_typed(const void* v_ext, const float* fm_ext, const float* rm_ext,
   }
 }
 
+// ------------------------------------------------- the general variant
+//
+// Any R, E and w (ctx_mix_common.cuh's kAny* tiles), for the shapes the
+// kernels above do not take. The same two steps, through a scratch of two
+// f32 arrays [B, T, 2w, R, R], A (alpha) and D (da, then ds in place):
+//
+//   pairs  one block per (32-row tile, offset, centre frame t; video b) of
+//          a live pair: its rows of alpha (K1br: the residual, as stored;
+//          K1b: any_row_softmax of the scores), then of da = du_n . v_t+o,
+//          32 columns at a time, then, a warp a row, ds. In bf16 ds is
+//          rounded to bf16 where the kernels above round it.
+//   gather one block per (64-column slice, 32-row tile, extended frame f;
+//          video b) sums dv[f]'s tile over f's neighbours g in offset
+//          order, 32 source regions at a time: alpha_gf^T du_n[g] +
+//          (ds_gf^T + ds_fg) v[g], the pair matrices' terms zero where the
+//          pair does not exist (its first frame is a halo frame). du_n[g] is
+//          formed from du as it is staged (bf16: rounded), and alpha is
+//          rounded to bf16 there, so the products take the operands the
+//          kernels above take.
+
+template <typename Tin, bool kResidual>
+__global__ void __launch_bounds__(kAnyThreads)
+ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
+                      const float* __restrict__ fm_ext,  // [B, T+2w]
+                      const float* __restrict__ rm_ext,  // [B, T+2w, R] / null
+                      const Tin* __restrict__ alpha,     // [B, T, 2w, R, R]
+                      const float* __restrict__ du,      // [B, T, R, E]
+                      float* __restrict__ A,             // [B, T, 2w, R, R]
+                      float* __restrict__ D,             // [B, T, 2w, R, R]
+                      int T, int R, int E, int w, float temp) {
+  __shared__ __align__(16) AnyDotSmem sm;
+  const int tiles = (R + kAnyRows - 1) / kAnyRows;
+  const int rt = (int)(blockIdx.x % tiles);
+  const int pair = (int)(blockIdx.x / tiles);    // t * 2w + offset index
+  const int oi = pair % (2 * w), t = pair / (2 * w);
+  const int b = blockIdx.y;
+  const int t_ext = T + 2 * w;
+  const int c = t + w, n = c + offset_of(oi, w);
+  const size_t frame = (size_t)R * E;
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  if (fm[c] == 0.f || fm[n] == 0.f) return;      // nv_o = 0: nothing read
+  float cnt = 0.f;
+  for (int i = 0; i < 2 * w; ++i) cnt += fm[c + offset_of(i, w)];
+  const float scale = 1.f / fmaxf(cnt, 1.f);     // fm[c] is 1 here
+  const size_t p = (((size_t)b * T + t) * 2 * w + oi) * R * R;
+  const int r0 = rt * kAnyRows, r_hi = min(R, r0 + kAnyRows);
+  const Tin* vb = v_ext + (size_t)b * t_ext * frame;
+  const Tin* vn = vb + n * frame;
+  const float* rm = rm_ext ? rm_ext + ((size_t)b * t_ext + n) * R : nullptr;
+  auto live = [&](int s) { return rm == nullptr || rm[s] > 0.f; };
+
+  if (kResidual) {
+    for (size_t i = (size_t)r0 * R + threadIdx.x; i < (size_t)r_hi * R;
+         i += blockDim.x)
+      A[p + i] = load1(alpha + p + i);
+  } else {                                       // K1b: alpha in f32
+    any_row_softmax(vb + c * frame, vn, R, E, r0, temp, live, sm,
+                    [&](int r, int s, float x) {
+                      A[p + (size_t)r * R + s] = x;
+                    });
+  }
+  // da: du_n (bf16: rounded, as the kernels above round it) . v_t+o
+  const float* du_t = du + ((size_t)b * T + t) * frame;
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  for (int s0 = 0; s0 < R; s0 += kAnyRows) {
+    float acc[4];
+    any_tile_dots(acc, du_t, vn, R, r0, s0, E, sm, [&](float x) {
+      return as_operand(x * scale, static_cast<const Tin*>(nullptr));
+    });
+    const int s = s0 + tx;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = r0 + ty + 8 * k;
+      if (r < R && s < R) D[p + (size_t)r * R + s] = acc[k];
+    }
+  }
+  // a group with no valid region took the uniform alpha: ds = 0
+  int lv = 0;
+  for (int s = threadIdx.x; s < R; s += blockDim.x) lv |= live(s);
+  const bool group_live = __syncthreads_or(lv);  // A and D are written, too
+  for (int r = r0 + ty; r < r_hi; r += kAnyThreads / 32) {
+    const float* a = A + p + (size_t)r * R;
+    float* d = D + p + (size_t)r * R;
+    float sum = 0.f;
+    for (int s = tx; s < R; s += 32) sum += a[s] * d[s];
+    sum = any_warp_sum(sum);
+    for (int s = tx; s < R; s += 32) {
+      const float x = group_live ? (a[s] * d[s] - a[s] * sum) / temp : 0.f;
+      d[s] = as_operand(x, static_cast<const Tin*>(nullptr));
+    }
+  }
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kAnyThreads)
+ctx_mix_bwd_gather_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
+                       const float* __restrict__ fm_ext,  // [B, T+2w]
+                       const float* __restrict__ A,       // [B, T, 2w, R, R]
+                       const float* __restrict__ D,       // ds, as A
+                       const float* __restrict__ du,      // [B, T, R, E]
+                       float* __restrict__ dv,            // [B, T+2w, R, E]
+                       int T, int R, int E, int w) {
+  // [output row r][source row s] of alpha_gf^T and of ds_gf^T + ds_fg
+  __shared__ __align__(16) float M1[kAnyRows * kAnyMatLd];
+  __shared__ __align__(16) float M2[kAnyRows * kAnyMatLd];
+  __shared__ __align__(16) float X[kAnyRows * kAnyCols];   // [s][e] du_n[g]
+  __shared__ __align__(16) float Y[kAnyRows * kAnyCols];   // [s][e] v[g]
+  const int tiles = (R + kAnyRows - 1) / kAnyRows;
+  const int slices = (E + kAnyCols - 1) / kAnyCols;
+  const int e0 = (int)(blockIdx.x % slices) * kAnyCols;
+  const int rest = (int)(blockIdx.x / slices);
+  const int r0 = (rest % tiles) * kAnyRows;
+  const int f = rest / tiles;
+  const int b = blockIdx.y;
+  const int t_ext = T + 2 * w;
+  const size_t frame = (size_t)R * E;
+  const size_t rr = (size_t)R * R;
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const int tx = threadIdx.x % kAnyCols;         // this thread's column
+  const int ty = threadIdx.x / kAnyCols;         // ... and rows 8 ty + k
+  const bool fc = is_centre(f, T, w);
+  const Tin* no_tin = nullptr;                   // picks as_operand's dtype
+
+  float acc[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) acc[k] = 0.f;
+  for (int d = -w; d <= w && fm[f] != 0.f; ++d) {
+    const int g = f + d;                         // block-uniform tests
+    if (d == 0 || g < 0 || g >= t_ext || fm[g] == 0.f) continue;
+    const bool gc = is_centre(g, T, w);
+    if (!fc && !gc) continue;                    // no pair joins them
+    float cnt = 0.f;                             // scale of centre frame g
+    if (gc)
+      for (int q = 0; q < 2 * w; ++q) cnt += fm[g + offset_of(q, w)];
+    const float scale = 1.f / fmaxf(cnt, 1.f);
+    // (g, f - g), whose neighbour is f, and (f, g - f), whose neighbour is g
+    const int i_gf = -d < 0 ? -d + w : -d + w - 1;
+    const int i_fg = d < 0 ? d + w : d + w - 1;
+    const size_t p_gf = gc ? (((size_t)b * T + g - w) * 2 * w + i_gf) * rr : 0;
+    const size_t p_fg = fc ? (((size_t)b * T + f - w) * 2 * w + i_fg) * rr : 0;
+    const float* du_g = du + ((size_t)b * T + (gc ? g - w : 0)) * frame;
+    const Tin* v_g = v_ext + ((size_t)b * t_ext + g) * frame;
+    for (int k0 = 0; k0 < R; k0 += kAnyRows) {
+      __syncthreads();                           // the last tiles are read
+      for (int j = threadIdx.x; j < kAnyRows * kAnyRows; j += blockDim.x) {
+        const int s = j / kAnyRows, i = j - s * kAnyRows;
+        const int r = r0 + i, sr = k0 + s;
+        const bool on = r < R && sr < R;
+        M1[i * kAnyMatLd + s] =
+            on && gc ? as_operand(A[p_gf + (size_t)sr * R + r], no_tin) : 0.f;
+        M2[i * kAnyMatLd + s] =
+            on ? (gc ? D[p_gf + (size_t)sr * R + r] : 0.f) +
+                     (fc ? D[p_fg + (size_t)r * R + sr] : 0.f)
+               : 0.f;
+      }
+      for (int j = threadIdx.x; j < kAnyRows * kAnyCols; j += blockDim.x) {
+        const int s = j / kAnyCols, col = j - s * kAnyCols;
+        const bool on = k0 + s < R && e0 + col < E;
+        const size_t at = (size_t)(k0 + s) * E + e0 + col;
+        X[j] = on && gc ? as_operand(du_g[at] * scale, no_tin) : 0.f;
+        Y[j] = on ? load1(v_g + at) : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int s = 0; s < kAnyRows; s += 4) {
+        float x[4], y[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          x[q] = X[(s + q) * kAnyCols + tx];
+          y[q] = Y[(s + q) * kAnyCols + tx];
+        }
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          const float4 a = *reinterpret_cast<const float4*>(
+              M1 + (8 * ty + k) * kAnyMatLd + s);
+          const float4 m = *reinterpret_cast<const float4*>(
+              M2 + (8 * ty + k) * kAnyMatLd + s);
+          acc[k] = fmaf(m.x, y[0], fmaf(a.x, x[0], acc[k]));
+          acc[k] = fmaf(m.y, y[1], fmaf(a.y, x[1], acc[k]));
+          acc[k] = fmaf(m.z, y[2], fmaf(a.z, x[2], acc[k]));
+          acc[k] = fmaf(m.w, y[3], fmaf(a.w, x[3], acc[k]));
+        }
+      }
+    }
+  }
+
+  float* dvb = dv + ((size_t)b * t_ext + f) * frame;
+  if (e0 + tx < E) {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int r = r0 + 8 * ty + k;
+      if (r < R) dvb[(size_t)r * E + e0 + tx] = acc[k];
+    }
+  }
+}
+
+// Whether the specialised kernels above take this shape; the general
+// variant takes every other.
+bool in_envelope(int T, int R, int E, int w) {
+  return R <= 32 && E % 4 == 0 && E >= 4 && E <= kMaxThreads && w <= 16 &&
+         T <= 65535;
+}
+
+// The general variant's scratch: A and D, f32 [B, T, 2w, R, R] each.
+size_t any_mats(int B, int T, int R, int w) {
+  return (size_t)B * T * 2 * w * R * R;
+}
+
+template <typename Tin, bool kResidual>
+int run_any(const void* v_ext, const float* fm_ext, const float* rm_ext,
+            const void* alpha, const float* du, float* dv, void* scratch,
+            int B, int T, int R, int E, int w, float temp,
+            cudaStream_t stream) {
+  const size_t tiles = (R + kAnyRows - 1) / kAnyRows;
+  const size_t slices = (E + kAnyCols - 1) / kAnyCols;
+  const size_t pairs_x = (size_t)T * 2 * w * tiles;
+  const size_t gather_x = (size_t)(T + 2 * w) * tiles * slices;
+  if (pairs_x > 0x7fffffff || gather_x > 0x7fffffff)   // the grid's x limit
+    return (int)cudaErrorInvalidValue;
+  float* A = static_cast<float*>(scratch);
+  float* D = A + any_mats(B, T, R, w);
+  ctx_mix_bwd_pairs_any<Tin, kResidual>
+      <<<dim3((unsigned)pairs_x, B), kAnyThreads, 0, stream>>>(
+          static_cast<const Tin*>(v_ext), fm_ext, rm_ext,
+          static_cast<const Tin*>(alpha), du, A, D, T, R, E, w, temp);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  ctx_mix_bwd_gather_any<Tin>
+      <<<dim3((unsigned)gather_x, B), kAnyThreads, 0, stream>>>(
+          static_cast<const Tin*>(v_ext), fm_ext, A, D, du, dv, T, R, E, w);
+  return (int)cudaGetLastError();
+}
+
 template <bool kResidual>
 int run(const void* v_ext, int v_is_bf16, const float* fm_ext,
         const float* rm_ext, const void* alpha, const float* du, float* dv,
         void* scratch, int B, int T, int R, int E, int w, float temp,
         void* stream) {
-  if (R < 1 || R > 32 || E < 4 || E % 4 != 0 || E > kMaxThreads || w < 1 ||
-      w > 16 || B < 0 || B > 65535 || T < 1 || T > 65535 || scratch == nullptr ||
-      (kResidual && alpha == nullptr))
+  if (R < 1 || E < 1 || w < 1 || B < 0 || B > 65535 || T < 1 ||
+      scratch == nullptr || (kResidual && alpha == nullptr))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!in_envelope(T, R, E, w))
+    return v_is_bf16
+        ? run_any<__nv_bfloat16, kResidual>(v_ext, fm_ext, rm_ext, alpha, du,
+                                            dv, scratch, B, T, R, E, w, temp,
+                                            s)
+        : run_any<float, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv,
+                                    scratch, B, T, R, E, w, temp, s);
   return v_is_bf16
-      ? run_typed<__nv_bfloat16, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, scratch, B, T, R, E, w, temp, s)
-      : run_typed<float, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv, scratch, B, T, R, E, w, temp, s);
+      ? run_typed<__nv_bfloat16, kResidual>(v_ext, fm_ext, rm_ext, alpha, du,
+                                            dv, scratch, B, T, R, E, w, temp,
+                                            s)
+      : run_typed<float, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv,
+                                    scratch, B, T, R, E, w, temp, s);
 }
 
 }  // namespace
@@ -695,6 +945,8 @@ extern "C" {
 // Elements of v_ext's type that the scratch of one call must hold.
 size_t nafae_ctx_mix_bwd_scratch(int B, int T, int R, int E, int w,
                                  int v_is_bf16) {
+  if (!in_envelope(T, R, E, w))                  // two f32 arrays
+    return 2 * any_mats(B, T, R, w) * (v_is_bf16 ? 2 : 1);
   return scratch_elems(B, T, R, E, w, v_is_bf16 != 0);
 }
 
@@ -704,7 +956,10 @@ size_t nafae_ctx_mix_bwd_scratch(int B, int T, int R, int E, int w,
 // is f32 [B, T, R, E]; dv is written whole, f32 [B, T+2w, R, E]. scratch
 // holds nafae_ctx_mix_bwd_scratch(...) elements of v_ext's type, 16-byte
 // aligned. All tensors are contiguous and v_ext, du and dv 16-byte aligned.
-// Limits as the forward's, and w <= 16.
+// Shapes with R <= 32, E a multiple of 4 in [4, 512], w <= 16 and T <=
+// 65535 take the kernels above, every other the general variant. Limits:
+// B <= 65535 (the grid's y), and, in the general variant, T 2w ceil(R/32)
+// and (T + 2w) ceil(R/32) ceil(E/64) below 2^31 (its x); R, E, w, T >= 1.
 
 // K1b: alpha recomputed from the scores.
 int nafae_ctx_mix_bwd(const void* v_ext, int v_is_bf16, const float* fm_ext,

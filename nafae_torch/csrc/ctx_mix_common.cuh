@@ -354,4 +354,127 @@ __device__ __forceinline__ void row_softmax(const float* __restrict__ sc,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The general variant of the context mix (ctx_mix.cu and ctx_mix_bwd.cu take
+// it for every shape outside their specialised kernels' envelope: R > 32, E
+// not a multiple of 4 or above 512, w > 16): any R, any E, any w. Its blocks
+// of kAnyThreads threads walk 32 regions (rows) at a time and the embedding
+// in slices of 64 columns, staged as f32 through shared memory by scalar
+// loads, so no row needs any alignment and nothing grows with R, E or w.
+
+constexpr int kAnyThreads = 256;
+constexpr int kAnyRows = 32;              // regions of a tile
+constexpr int kAnyCols = 64;              // embedding columns of a slice
+constexpr int kAnyLd = kAnyCols + 4;      // slice rows for 16-byte reads
+constexpr int kAnyMatLd = kAnyRows + 4;   // [32][32] matrix rows, the same
+
+// The slices of the row dots: X's and Y's 32 rows of 64 columns.
+struct AnyDotSmem {
+  float x[kAnyRows * kAnyLd];
+  float y[kAnyRows * kAnyLd];
+};
+
+__device__ __forceinline__ float any_warp_max(float x) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1)
+    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, m));
+  return x;
+}
+
+// The butterfly adds the same pairs in every lane, so every lane holds the
+// same sum.
+__device__ __forceinline__ float any_warp_sum(float x) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) x += __shfl_xor_sync(0xffffffffu, x, m);
+  return x;
+}
+
+// Row dots of a 32 x 32 tile of two [R, E] frames: thread (ty =
+// threadIdx.x / 32, tx = lane) sums X[r0 + ty + 8k] . Y[s0 + tx] (k < 4)
+// over all E columns into acc[k], the columns in order (one fmaf each), a
+// 64-column slice at a time through sm; rows at or past R and columns past
+// E are zeros, which add nothing. fx(x) maps each element of X (the
+// backward's du_n). Called by all kAnyThreads threads.
+template <typename TX, typename TY, typename FX>
+__device__ __forceinline__ void any_tile_dots(float (&acc)[4],
+                                              const TX* __restrict__ X,
+                                              const TY* __restrict__ Y,
+                                              int R, int r0, int s0, int E,
+                                              AnyDotSmem& sm, FX fx) {
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = 0.f;
+  for (int e0 = 0; e0 < E; e0 += kAnyCols) {
+    __syncthreads();                      // the last slice is read
+    for (int i = threadIdx.x; i < kAnyRows * kAnyCols; i += blockDim.x) {
+      const int row = i / kAnyCols, col = i - row * kAnyCols;
+      const int e = e0 + col;
+      const int r = r0 + row, s = s0 + row;
+      sm.x[row * kAnyLd + col] =
+          r < R && e < E ? fx(load1(X + (size_t)r * E + e)) : 0.f;
+      sm.y[row * kAnyLd + col] =
+          s < R && e < E ? load1(Y + (size_t)s * E + e) : 0.f;
+    }
+    __syncthreads();
+    const float* xr = sm.x + ty * kAnyLd;
+    const float* yr = sm.y + tx * kAnyLd;
+#pragma unroll 4
+    for (int c = 0; c < kAnyCols; c += 4) {
+      const float4 y = *reinterpret_cast<const float4*>(yr + c);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(xr + 8 * k * kAnyLd + c);
+        acc[k] = fmaf(x.x, y.x, acc[k]);
+        acc[k] = fmaf(x.y, y.y, acc[k]);
+        acc[k] = fmaf(x.z, y.z, acc[k]);
+        acc[k] = fmaf(x.w, y.w, acc[k]);
+      }
+    }
+  }
+}
+
+// The masked softmax over s < R of rows r0 + ty + 8k (k < 4) of the scores
+// vc[r] . vn[s] / temp (kNeg where live(s) is false), any R: a first pass
+// over tiles of 32 columns keeps each row's running max and sum (the sum
+// rescaled when the max rises), a second recomputes each tile's scores, by
+// the same instructions, and calls epi(r, s, p) for r, s < R. An all-masked
+// row gives the uniform 1/R, as the reference's softmax does.
+template <typename Tin, typename Live, typename Epi>
+__device__ __forceinline__ void any_row_softmax(const Tin* __restrict__ vc,
+                                                const Tin* __restrict__ vn,
+                                                int R, int E, int r0,
+                                                float temp, Live live,
+                                                AnyDotSmem& sm, Epi epi) {
+  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
+  auto same = [](float x) { return x; };
+  float m[4], l[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    m[k] = -CUDART_INF_F;
+    l[k] = 0.f;
+  }
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int s0 = 0; s0 < R; s0 += kAnyRows) {
+      float acc[4];
+      any_tile_dots(acc, vc, vn, R, r0, s0, E, sm, same);
+      const int s = s0 + tx;
+      const bool on = s < R, lv = on && live(s);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float x = on ? (lv ? acc[k] / temp : kNeg) : -CUDART_INF_F;
+        if (pass == 0) {                  // block-uniform
+          const float mn = fmaxf(m[k], any_warp_max(x));
+          l[k] = l[k] * expf(m[k] - mn) +
+                 any_warp_sum(on ? expf(x - mn) : 0.f);
+          m[k] = mn;
+        } else {
+          const int r = r0 + ty + 8 * k;
+          if (on && r < R) epi(r, s, expf(x - m[k]) / l[k]);
+        }
+      }
+    }
+  }
+}
+
 }  // namespace nafae_ctx

@@ -166,13 +166,15 @@ def quantize_params_int8(params: dict) -> dict:
 
 
 def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a [M,K] int8 @ b [K,N] int8 -> [M,N] int32, exact.
+    """a [M,K] int8 @ b [K,N] int8 -> [M,N] int32, exact, any shape.
 
     CUDA: `torch._int_mm` (cuBLASLt, int32 sums), which takes M > 16 and K,
-    N multiples of 8; other shapes raise. b is best column-major
-    (`int8_weight`); a row-major b is multiplied as it is, more slowly.
-    CPU: the plain version, an int64 product (exact: |sum| <= 127^2·K; an
-    f32 sum is not exact past 2^24, which 127^2·2048 passes)."""
+    N multiples of 8: other shapes are zero-padded up to those (the padded
+    terms add exact zeros to the int32 sums) and the product sliced back. b
+    is best column-major (`int8_weight`; its padded copy is laid out so
+    too); a row-major b is multiplied as it is, more slowly. CPU: the plain
+    version, an int64 product (exact: |sum| <= 127^2·K; an f32 sum is not
+    exact past 2^24, which 127^2·2048 passes)."""
     if a.dtype != torch.int8 or b.dtype != torch.int8:
         raise TypeError(f"int8_matmul takes int8 operands, got {a.dtype} "
                         f"and {b.dtype}")
@@ -184,10 +186,14 @@ def int8_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.device.type != "cuda":
         raise ValueError(f"int8_matmul runs on cuda or cpu, not {a.device}")
     (m, k), n = a.shape, b.shape[1]
-    if m <= 16 or k % 8 or n % 8:
-        raise ValueError(f"torch._int_mm takes M > 16 and K, N multiples of "
-                         f"8; got M={m}, K={k}, N={n}")
-    return torch._int_mm(a.contiguous(), b)
+    pm, pk, pn = max(m, 17), -(-k // 8) * 8, -(-n // 8) * 8
+    if (pm, pk, pn) == (m, k, n):
+        return torch._int_mm(a.contiguous(), b)
+    a_p = a.new_zeros(pm, pk)
+    a_p[:m, :k] = a
+    b_p = int8_weight(b.new_zeros(pk, pn))
+    b_p[:k, :n] = b
+    return torch._int_mm(a_p, b_p)[:m, :n]
 
 
 def _dequant_project(q2: torch.Tensor, sf: torch.Tensor, w_q: torch.Tensor,

@@ -16,7 +16,15 @@ Four kernels replace the TPU's in `nafae_tpu/ops/pallas/fused_ctx.py`:
     ctx_mix_bwd_res  K1br  _bwd_kernel_res   backward, alpha read back
 
 Each source runs two CUDA kernels a call (per-pair scores and softmax,
-then a per-frame sum), and says what bounds it on an H100. The plain
+then a per-frame sum), and says what bounds it on an H100. Each takes
+every shape the reference takes: R <= 32, E a multiple of 4 in [4, 512]
+and w <= 16 (and T <= 65535 for the backward) run its specialised
+kernels; any other R, E, w >= 1 its general variant, which walks 32
+regions and 64 columns at a time with scalar loads (the backward's
+scratch then two f32 [B,T,2w,R,R] arrays). Left are B <= 65535, the
+general variant's grid (T·2w·ceil(R/32) and (T+2w)·ceil(R/32)·ceil(E/64)
+blocks under 2^31) and device memory. Both count under the same
+`launches` keys. The plain
 version, `context_mix_plain`, is a port of
 `nafae_tpu.ops.grounding.context_mix` (impl="offset"); under autograd it is
 the plain version of all four.
@@ -46,9 +54,7 @@ from nafae_torch.ops.kernels import _build
 from nafae_torch.ops.kernels import check_tensor as _check
 
 NEG = -1e9            # masked-logit fill, as in the reference softmax
-MAX_R = 32            # the kernels keep one register accumulator per region
-MAX_E = 512           # a pairs block stages two [R,E] frames in shared memory
-MAX_WINDOW = 16       # the backward keeps a frame's 2w offsets in a list
+MAX_B = 65535         # videos: the kernels' grids take them along y
 
 # Route of the gradient, as fused_ctx.py routes it: with ALPHA_RESIDUAL the
 # forward stores alpha [B,T,2w,R,R] (compute dtype) and the backward reads
@@ -166,16 +172,11 @@ def _check_inputs(v_ext, fm_ext, window, rm_ext) -> tuple[int, int, int, int]:
     t = t_ext - 2 * window
     if v_ext.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"v_ext must be float32 or bfloat16, got {v_ext.dtype}")
-    if not 1 <= window <= MAX_WINDOW or t < 1:
-        raise ValueError(f"need 1 <= window <= {MAX_WINDOW} and T >= 1; got "
-                         f"window={window}, T+2w={t_ext}")
-    if not 1 <= r <= MAX_R:
-        raise ValueError(f"ctx_mix kernel takes 1 <= R <= {MAX_R}, got R={r}")
-    if e % 4 or not 4 <= e <= MAX_E:
-        raise ValueError(f"ctx_mix kernel takes E a multiple of 4 in "
-                         f"[4, {MAX_E}], got E={e}")
-    if b > 65535:
-        raise ValueError(f"ctx_mix kernel takes B <= 65535, got B={b}")
+    if window < 1 or t < 1 or r < 1 or e < 1:
+        raise ValueError(f"ctx_mix takes window, T, R and E >= 1; got "
+                         f"window={window}, T+2w={t_ext}, R={r}, E={e}")
+    if b > MAX_B:
+        raise ValueError(f"ctx_mix kernel takes B <= {MAX_B}, got B={b}")
     _check("v_ext", v_ext, tuple(v_ext.shape), v_ext.dtype, v_ext.device,
            vector=True)
     _check("fm_ext", fm_ext, (b, t_ext), torch.float32, v_ext.device)

@@ -12,7 +12,9 @@ edges of the CUDA backward: E = 4 and 12 (within one 64-column slice, not
 a multiple of 8), E = 68 (past one slice), R = 1 and 32, a video whose
 valid frames have no valid region (ds = 0 for every pair into them), a
 centre frame with no valid neighbour and an invalid centre frame between
-valid ones. Limits:
+valid ones; and shapes past its specialised kernels, which its general
+variant takes: R = 36 with E = 1024, R = 33 with E = 50, E = 516 and
+w = 20 at T = 3. Limits:
 f32 rtol 1e-5 / atol 1e-6 for u and dv; bf16 2e-2 (the JAX package's
 bf16 tolerance: the TPU kernels round u and dv to bf16, the port keeps
 them in f32). Against the TPU kernel in bf16, dv's atol is 2e-2 of its
@@ -50,6 +52,14 @@ CASES = {                       # B, T, R, E, w, the TPU tile of the residual
     # frame with no valid neighbour, an invalid centre between valid ones
     "E68": (2, 6, 5, 68, 2, 6),
     "frame_edges": (2, 8, 5, 16, 2, 8),
+    # past the specialised kernels' envelope, where the CUDA backward takes
+    # its general variant: R > 32, E > 512 or not a multiple of 4, w > 16
+    # (the TPU kernel runs its Pallas path at each: _ctx_bwd_vmem_bytes
+    # stays under its 16 MB gate)
+    "R36_E1024": (2, 4, 36, 1024, 2, 4),
+    "R33_E50": (2, 4, 33, 50, 3, 4),
+    "E516": (2, 3, 5, 516, 2, 3),
+    "w20_T3": (2, 3, 5, 8, 20, 3),
 }
 # cases whose video 1 has valid frames with no valid region at all: every
 # pair into them is a uniform-fallback group, whose ds is 0
@@ -115,6 +125,17 @@ def test_grad_matches_the_tpu_kernel(case, route, dtype, monkeypatch):
             else dict(rtol=2e-2, atol=2e-2 * np.abs(g_j).max()))
     np.testing.assert_allclose(u, np.asarray(u_j, np.float32), **TOL[dtype])
     np.testing.assert_allclose(g, g_j, **gtol)
+
+
+@pytest.mark.parametrize("dtype", sorted(TOL))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_cases_reach_the_tpu_kernel(case, dtype):
+    """Every case runs ctx_mix_pallas's Pallas kernel, not its XLA path:
+    the backward's scoped-VMEM estimate stays under the gate."""
+    b, t, r, e, w, _ = CASES[case]
+    itemsize = 4 if dtype == "float32" else 2
+    assert FC._ctx_bwd_vmem_bytes(t, -(-r // 8) * 8, e, w, itemsize) \
+        <= FC._BWD_SCOPED_VMEM_LIMIT
 
 
 @pytest.mark.parametrize("dtype", sorted(TOL))

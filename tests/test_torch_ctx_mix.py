@@ -7,7 +7,9 @@ region mask, ragged frame masks, a valid frame with no valid region (the
 uniform-alpha group), a window at least as long as the clip, and the edges
 of the CUDA forward (E = 4 and 68 against its 64-column slices, R = 1 and
 32, a centre frame with no valid neighbour, an invalid centre frame
-between valid ones). nbr_valid must match exactly; u within rtol 1e-5 /
+between valid ones), and shapes past its specialised kernels, which its
+general variant takes (R = 36 with E = 1024, R = 33 with E = 50, E = 516,
+w = 20 at T = 3). nbr_valid must match exactly; u within rtol 1e-5 /
 atol 1e-6 in f32 and 2e-2 in bf16 (the TPU kernel returns bf16 u in bf16
 mode; the port returns f32).
 
@@ -39,6 +41,12 @@ CASES = {                       # B, T, R, E, w
     "R1": (2, 6, 1, 8, 2),
     "R32": (2, 4, 32, 8, 2),
     "frame_edges": (2, 8, 5, 16, 2),
+    # past the specialised kernels' envelope, where the CUDA forward takes
+    # its general variant: R > 32, E > 512 or not a multiple of 4, w > 16
+    "R36_E1024": (2, 4, 36, 1024, 2),
+    "R33_E50": (2, 4, 33, 50, 3),
+    "E516": (2, 3, 5, 516, 2),
+    "w20_T3": (2, 3, 5, 8, 20),
 }
 # cases whose last video has the frame edges (see _inputs)
 EDGE_CASES = {"frame_edges"}
@@ -120,23 +128,27 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     """temp below the kernel's bound, and (checked before any launch)
-    shapes and dtypes outside its limits."""
+    dtypes, layouts and masks it does not take; any R, E and w pass the
+    checks (the general variant takes them)."""
     v_ext, fm_ext, _ = (torch.from_numpy(a)
                         for a in _inputs(1, 3, 4, 8, 1, seed=2))
     with pytest.raises(ValueError, match="temp"):
         K.ctx_mix(v_ext, fm_ext, 1, 0.01)
     fm = torch.ones(1, 5)
-    for bad, match in ((torch.zeros(1, 5, K.MAX_R + 1, 8), "R"),
-                       (torch.zeros(1, 5, 4, 6), "E"),
-                       (torch.zeros(1, 5, 4, K.MAX_E + 4), "E"),
-                       (torch.zeros(1, 5, 4, 8, dtype=torch.float16),
+    for bad, match in ((torch.zeros(1, 5, 4, 8, dtype=torch.float16),
                         "float32 or bfloat16"),
-                       (torch.zeros(1, 5, 8, 4).transpose(2, 3), "contiguous")):
+                       (torch.zeros(1, 5, 8, 4).transpose(2, 3), "contiguous"),
+                       (torch.zeros(1, 5, 0, 8), "R")):
         with pytest.raises((ValueError, TypeError), match=match):
             K.launch_fwd(bad, fm, 1, 0.1, None)
     with pytest.raises(ValueError, match="rm_ext"):
         K.launch_fwd(torch.zeros(1, 5, 4, 8), fm, 1, 0.1,
                      torch.ones(1, 5, 3))
+    for r, e, w in ((33, 8, 1), (4, 516, 1), (4, 6, 1), (36, 50, 1),
+                    (4, 8, 17)):
+        v = torch.zeros(1, 3 + 2 * w, r, e)
+        assert K._check_inputs(v, torch.ones(1, 3 + 2 * w), w,
+                               torch.ones(1, 3 + 2 * w, r)) == (1, 3, r, e)
 
 
 @pytest.fixture

@@ -88,7 +88,7 @@ def test_quantize_feats_int8_is_jax_bit_for_bit(shape, seed):
         np.testing.assert_array_equal(ns, jns)
 
 
-@pytest.mark.parametrize("m,k,n", [(5, 16, 8), (40, 2048, 24)])
+@pytest.mark.parametrize("m,k,n", [(5, 16, 8), (40, 2048, 24), (5, 2048, 50)])
 def test_int8_matmul_is_exact(m, k, n):
     """Equal to JAX's int8 x int8 -> int32 dot_general and to numpy's int64
     product. At K = 2048 with operands near ±127 one sum is an odd number
@@ -135,17 +135,18 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_int8_matmul_on_gpu(cuda_device):
-    """torch._int_mm on the card equals the plain int64 product; shapes it
-    cannot take raise instead of falling back."""
+    """torch._int_mm on the card equals the plain int64 product, also at
+    shapes it does not take itself (M <= 16, N = 50), which int8_matmul
+    zero-pads."""
     rng = np.random.RandomState(0)
     a = _t(rng.randint(-127, 128, (400, 2048)).astype(np.int8))
-    b = _t(rng.randint(-127, 128, (2048, 256)).astype(np.int8))
-    want = TG.int8_matmul(a, b)
-    for w in (b, TG.int8_weight(b)):
-        got = TG.int8_matmul(a.to(cuda_device), w.to(cuda_device))
-        assert torch.equal(got.cpu(), want)
-    with pytest.raises(ValueError, match="M > 16"):
-        TG.int8_matmul(a[:16].to(cuda_device), b.to(cuda_device))
+    for n in (256, 50):
+        b = _t(rng.randint(-127, 128, (2048, n)).astype(np.int8))
+        for rows in (a, a[:5], a[:16]):
+            want = TG.int8_matmul(rows, b)
+            for w in (b, TG.int8_weight(b)):
+                got = TG.int8_matmul(rows.to(cuda_device), w.to(cuda_device))
+                assert torch.equal(got.cpu(), want)
 
 
 def _proj_inputs(seed, b=2, t=3, r=4, d=64, e=32):
