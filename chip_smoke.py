@@ -642,23 +642,25 @@ CROSS_CASES = [
 ]
 
 
-def check_cross_mil(torch, device) -> dict[str, float]:
-    """K3 against its plain version on the card, on CROSS_CASES: config4's
-    training shapes (I=16 videos, M=B·K=128 words, T=20, R=20, E=256), R
-    from 1 to 100 (one frame over two chunks of regions), M = 1 and 129,
-    T = 1, E from 4 to 512, no region mask, a video with no valid frame,
-    and exact ties between regions r and r + 32, r and the last row, and
-    across a chunk; each masked case with a valid frame whose regions are
-    all masked. Returns the max |a| error per dtype."""
+def check_cross_mil(torch, device, cases=CROSS_CASES,
+                    seed: int = SEED + 2) -> dict[str, float]:
+    """K3 against its plain version on the card, on `cases` (CROSS_CASES:
+    config4's training shapes (I=16 videos, M=B·K=128 words, T=20, R=20,
+    E=256), R from 1 to 100 (one frame over two chunks of regions), M = 1
+    and 129, T = 1, E from 4 to 512, no region mask, a video with no valid
+    frame, and exact ties between regions r and r + 32, r and the last row,
+    and across a chunk); each masked case with a valid frame whose regions
+    are all masked. Every launch is repeated and must give the same bits.
+    Returns the max |a| error per dtype."""
     from nafae_torch.ops.kernels import cross_mil as K3
 
-    gen = torch.Generator().manual_seed(SEED + 2)
+    gen = torch.Generator().manual_seed(seed)
     rtol, atol = CROSS_TOL
     errs = {}
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
         worst = 0.0
-        for i, m, t, r, e, with_rm, ties, dead_video in CROSS_CASES:
+        for i, m, t, r, e, with_rm, ties, dead_video in cases:
             w = unit_rows(torch, gen, m, e)
             v = unit_rows(torch, gen, i, t, r, e)
             fm, rm = frame_region_masks(torch, gen, i, t, r)
@@ -672,7 +674,10 @@ def check_cross_mil(torch, device) -> dict[str, float]:
             case = (f"{dt_name} I={i} M={m} T={t} R={r} E={e} rm={with_rm} "
                     f"ties={ties} dead_video={dead_video}")
             a, idx = K3.launch(w, v, fm, rm)
+            again = K3.launch(w, v, fm, rm)
             torch.cuda.synchronize()
+            if not (torch.equal(a, again[0]) and torch.equal(idx, again[1])):
+                fail(f"cross_mil: two launches on one input differ: {case}")
             ap, idxp = K3.cross_mil_plain(w, v, fm, rm)
             if not torch.isfinite(a).all():
                 fail(f"cross_mil gave non-finite values: {case}")
@@ -701,8 +706,8 @@ def check_cross_mil(torch, device) -> dict[str, float]:
         errs[dt_name] = worst
         log(f"cross_mil vs plain, {dt_name}: max |a err| {worst:.3e} (rtol "
             f"{rtol}, atol {atol}; idx equal where the top two differ by > "
-            f"{TIE_GAP}, exact ties to the first region; {len(CROSS_CASES)} "
-            f"cases)")
+            f"{TIE_GAP}, exact ties to the first region; every launch "
+            f"twice, equal bit for bit; {len(cases)} cases)")
     return errs
 
 
@@ -830,21 +835,23 @@ DIAG_CASES = [
 ]
 
 
-def check_diag(torch, device) -> dict[str, dict[str, float]]:
-    """K4f and K4b against their plain versions on the card, on DIAG_CASES:
-    config4's shapes (B=16, K=8, T=20, R=20, E=256, Kc=67), no region mask,
+def check_diag(torch, device, cases=DIAG_CASES,
+               seed: int = SEED + 3) -> dict[str, dict[str, float]]:
+    """K4f and K4b against their plain versions on the card, on `cases`
+    (DIAG_CASES: config4's shapes (B=16, K=8, T=20, R=20, E=256, Kc=67), no region mask,
     K from 1 to 32 (at E = 256 and 512), E from 4 to 512, R from 1 to 40 (one past a chunk of 32
     regions), Kc from 1 to 130, T = 1, exact ties between regions and
     between centers (8 and 16, 2 and 5; 3 and 35, across 32) and a video
     with no valid frame; each masked case with a valid frame whose regions
-    are all masked and frames without context. Every launch is repeated and
-    must give the same bits. Returns the max errors by output and dtype."""
-    gen = torch.Generator().manual_seed(SEED + 3)
+    are all masked and frames without context). Every launch is repeated
+    and must give the same bits. Returns the max errors by output and
+    dtype."""
+    gen = torch.Generator().manual_seed(seed)
     errs = {}
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
         worst: dict[str, float] = {}
-        for b, k, t, r, e, kc, with_rm, ties_r, ties_c, dead in DIAG_CASES:
+        for b, k, t, r, e, kc, with_rm, ties_r, ties_c, dead in cases:
             w = unit_rows(torch, gen, b, k, e)
             v = unit_rows(torch, gen, b, t, r, e)
             u = 0.5 * torch.randn(b, t, r, e, generator=gen)
@@ -875,7 +882,7 @@ def check_diag(torch, device) -> dict[str, dict[str, float]]:
             + f" ({DIAG_TOL} as rtol, atol, ctx against plain plus its "
             f"terms rounded the other way; r*, f, c* equal where clear of "
             f"ties, exact ties to the first index; every launch twice, "
-            f"equal bit for bit; {len(DIAG_CASES)} cases)")
+            f"equal bit for bit; {len(cases)} cases)")
     return errs
 
 
@@ -1058,14 +1065,14 @@ def check_cpu_rerun(torch, cfg, params, srv, segs) -> None:
 # ------------------------------------------------------------- training
 
 
-def make_train_data(root: str, regions: int = 20) -> None:
-    """Planted-signal config4-width training segments (K up to 8 words) of
-    `regions` regions."""
+def make_train_data(root: str, regions: int = 20, words: int = 8) -> None:
+    """Planted-signal config4-width training segments (K up to `words`
+    words) of `regions` regions."""
     from nafae_torch.data.synthetic import generate_synthetic_dataset
 
     generate_synthetic_dataset(root, "train", num_segments=TRAIN_SEGMENTS,
                                feat_dim=2048, num_regions=regions,
-                               max_frames=20, max_words=8, seed=SEED)
+                               max_frames=20, max_words=words, seed=SEED)
 
 
 def train_cfg(root: str, ckpt: str, dtype: str, steps: int,
@@ -1173,12 +1180,12 @@ def train(torch, root: str, tmp: str) -> dict:
     return out
 
 
-def first_batch(root: str):
+def first_batch(root: str, regions: int = 20, words: int = 8):
     """The first training batch (numpy), as fit's loader gives it."""
     from nafae_torch.data.loader import BatchLoader
     from nafae_torch.data.youcook2 import SegmentDataset
 
-    ds = SegmentDataset(root, "train", 20, 20, 2048, 8)
+    ds = SegmentDataset(root, "train", 20, regions, 2048, words)
     return next(iter(BatchLoader(ds, 16, shuffle=True, seed=0)))
 
 
@@ -2606,17 +2613,20 @@ def nbytes(*xs) -> int:
     return sum(x.numel() * x.element_size() for x in xs if x is not None)
 
 
-def fused_inputs(torch, root: str, tmp: str):
+def fused_inputs(torch, root: str, tmp: str, extra=()):
     """The fused route's inputs on the first training batch (config4, B=16,
-    K=8, T=20, R=20, E=256, Kc=67, its own masks), from the initial params:
-    (w_emb, v_emb, u, centers, fm, rm, hc) on the card, f32."""
+    K=8, T=20, R=20, E=256, Kc=67, its own masks; `extra`: overrides of
+    the config, data.num_regions and data.max_words as the split at `root`
+    was written), from the initial params: (w_emb, v_emb, u, centers, fm,
+    rm, hc) on the card, f32."""
     from nafae_torch.ops import grounding as TG
     from nafae_torch.train import TrainState, batch_to_device
 
     dev = torch.device("cuda")
-    tb = batch_to_device(first_batch(root), dev)
     cfg = train_cfg(root, os.path.join(tmp, "ck_fused"), "float32", 1000,
-                    "pallas")
+                    "pallas", extra=extra)
+    tb = batch_to_device(first_batch(root, cfg.data.num_regions,
+                                     cfg.data.max_words), dev)
     state = TrainState.create(cfg, device=dev)
     p, w = state.params, cfg.loss.ctx_window
     fm, rm = tb["frame_mask"], tb["region_mask"]
@@ -2667,12 +2677,18 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
     (torch.matmul, then torch.max over R: no mask); K4f and K4b also with
     every region live and every frame valid and with context (the dense
     variant); their bounds from these inputs; and each kernel's max |error|
-    against its plain version here."""
+    against its plain version here (fused_kernel_times)."""
+    return fused_kernel_times(torch, fused_inputs(torch, root, tmp))
+
+
+def fused_kernel_times(torch, ins, dense: bool = True) -> dict:
+    """fused_timings' numbers on the inputs `ins` (fused_inputs'); the
+    dense variant only with `dense`."""
     from nafae_torch.ops.kernels import cross_mil as K3
     from nafae_torch.ops.kernels import diag as K4
 
     dev = torch.device("cuda")
-    w_emb, v_emb, u, centers, fm, rm, hc = fused_inputs(torch, root, tmp)
+    w_emb, v_emb, u, centers, fm, rm, hc = ins
     b, t, r, e = v_emb.shape
     k, kc = w_emb.shape[1], centers.shape[0]
     m = b * k
@@ -2718,8 +2734,10 @@ def fused_timings(torch, root: str, tmp: str) -> dict:
         gen = torch.Generator().manual_seed(SEED + 5)
         dctx = torch.rand((b, k, t), generator=gen).to(dev)
         dclu = torch.rand((b, k, t), generator=gen).to(dev)
-        for var, (fmv, hcv, rmv) in (("", (fm, hc, rm)),
-                                     ("_dense", (ones_t, ones_t, ones_r))):
+        variants = [("", (fm, hc, rm))]
+        if dense:
+            variants.append(("_dense", (ones_t, ones_t, ones_r)))
+        for var, (fmv, hcv, rmv) in variants:
             key = var + tag
             fwd = K4.launch_fwd(wk, v, uu, centers, fmv, hcv, rmv)
             torch.cuda.synchronize()
@@ -4956,14 +4974,14 @@ TRACE_NAMES = {
 
 
 def traced_replay(torch, prog, call, per: dict, path: str,
-                  kernels: dict = TRACE_NAMES) -> dict:
+                  kernels: dict = TRACE_NAMES, absent=()) -> dict:
     """call(), one more replay of a graphed program `prog` (a step without
     a refresh, or a serving batch), under torch.profiler, its trace
     written to `path` and read back as phase 12 reads the --profile trace:
     each kernel of `kernels` must be named there as often as `per` (the
     launches of a step or batch: per_step_launches or c5_launches) says,
-    and the launch counts must have grown by just that. Returns {name:
-    times named}."""
+    each of `absent` not at all, and the launch counts must have grown by
+    just that. Returns {name: times named}."""
     from torch.profiler import ProfilerActivity, profile
 
     was = dict(prog.stats)
@@ -4982,7 +5000,7 @@ def traced_replay(torch, prog, call, per: dict, path: str,
         names = [e["name"] for e in json.load(f)["traceEvents"]
                  if e.get("cat") == "kernel"]
     os.remove(path)
-    want = {}
+    want = dict.fromkeys(absent, 0)
     for key, subs in kernels.items():
         for sub in subs:
             want[sub] = want.get(sub, 0) + per[key]
@@ -5804,6 +5822,34 @@ CTX_ANY_CASES = [(4, 6, 33, 64, 2, True, False),     # R = 33: two row tiles
                  (3, 12, 36, 50, 3, True, True)]     # cnt = 0; invalid centre
 # ... with real halo frames (B, T, R, E, w), w > T in the second
 CTX_ANY_HALO_CASES = [(4, 5, 36, 1024, 6), (3, 4, 33, 50, 17)]
+# K3's cases past the bf16 kernel's envelope or both kernels' (E not a
+# multiple of 4, bf16 E > 512), as CROSS_CASES: the f32 kernel takes E =
+# 516, 520 and 1024 itself, the general variant the rest
+CROSS_ANY_CASES = [
+    (16, 128, 20, 36, 1024, True, (), False),     # phase 17's R = 36, E = 1024
+    (2, 40, 5, 36, 1024, False, (), False),       # ... no region mask
+    (16, 128, 20, 20, 50, True, (), False),       # E = 50 (GloVe-50d)
+    (4, 40, 6, 20, 3, True, (), True),            # E = 3
+    (4, 40, 6, 7, 6, True, (), False),            # E = 6
+    (3, 40, 5, 20, 516, True, (), False),         # E = 516 > 512
+    (2, 40, 5, 20, 520, True, (), False),         # bf16 rows of 8, not 16
+    (2, 33, 3, 81, 50, True, ((0, 80),), False),  # one past a chunk of 80
+    (3, 40, 5, 40, 50, True, ((3, 35), (8, 39)), True),   # r + 32, last row
+]
+# K4f/K4b's cases past their envelope (K > 32, E not a multiple of 4, E >
+# 512), which the general variants take, as DIAG_CASES
+DIAG_ANY_CASES = [
+    (16, 8, 20, 36, 1024, 67, True, (), (), False),   # R = 36, E = 1024
+    (4, 33, 5, 20, 256, 67, True, (), (), False),     # K = 33
+    (4, 40, 5, 20, 256, 67, True, (), (), False),     # K = 40
+    (2, 40, 4, 20, 1024, 67, True, (), (), False),    # K = 40 at E = 1024
+    (16, 8, 20, 20, 50, 67, True, (), (), False),     # E = 50 (GloVe-50d)
+    (4, 8, 9, 20, 3, 67, True, (), (), False),        # E = 3
+    (3, 8, 5, 20, 516, 67, True, (), (), False),      # E = 516 > 512
+    (3, 8, 5, 20, 1024, 67, False, (), (), False),    # no region mask
+    (4, 8, 9, 20, 50, 130, True, (), (), False),      # Kc = 130 at E = 50
+    (4, 8, 9, 40, 50, 67, True, ((3, 35),), ((3, 35),), True),   # across 32
+]
 ANY_STEPS = 3                    # steps of each phase-17 fit
 # one step's gradients, card against CPU, at phase 17's shapes: rtol as
 # CPU_GRAD_TOL's, and atol 1e-5 of each leaf's largest entry where
@@ -5824,13 +5870,28 @@ ANY_SERVERS = (("float32", "", ["data.num_regions=36", "model.embed_dim=1024"],
                ("bfloat16", "", ["data.num_regions=36",
                                  "model.embed_dim=1024"], 1024, True),
                ("float32", "int8pre", ["model.embed_dim=50"], 50, False))
-# phase 17's fits: name -> (overrides, data at R = 36)
+# phase 17's fits: name -> (overrides, training split (check_any's roots),
+# E, whether the context mix takes its general variant, routes). K = 40:
+# config4's widths with words past 32 (data.max_words=40); every fit here
+# is past K4f and K4b's envelope
 ANY_FITS = {"R36_E1024_w3": (["data.num_regions=36", "model.embed_dim=1024",
-                              "loss.ctx_window=3"], True),
-            "E50_w20": (["model.embed_dim=50", "loss.ctx_window=20"], False)}
+                              "loss.ctx_window=3"], "r36", 1024, True,
+                             ROUTES),
+            "E50_w20": (["model.embed_dim=50", "loss.ctx_window=20"], "c4",
+                        50, True, ROUTES),
+            "K40": (["data.max_words=40"], "k40", 256, False, ("pallas",))}
 # the kernels' times at the new shapes: name -> (B, T, R, E, w)
 ANY_TIMED = {"R36_E1024_w3": (16, 20, 36, 1024, 3),
              "E50_w20": (16, 20, 20, 50, 20)}
+
+
+def check_fused_any(torch, device) -> dict:
+    """Phase 17 (g): K3 at CROSS_ANY_CASES and K4f, K4b at DIAG_ANY_CASES
+    against their plain versions in f32 and bf16 (check_cross_mil,
+    check_diag: every launch twice, equal bit for bit)."""
+    return {"cross_mil": check_cross_mil(torch, device, CROSS_ANY_CASES,
+                                         SEED + 19),
+            "diag": check_diag(torch, device, DIAG_ANY_CASES, SEED + 20)}
 
 
 def check_ctx_any(torch, device) -> dict:
@@ -5899,9 +5960,10 @@ def check_any_serving(torch, reqs: dict, tmp: str) -> dict:
     return out
 
 
-def any_grads_agree(torch, cfg, batch) -> dict:
-    """Phase 17 (c): one f32 step's gradients on `batch` from the initial
-    state, card against CPU, within ANY_GRAD_TOL; and two controls that
+def any_grads_agree(torch, cfg, batch, kernels: str) -> dict:
+    """Phase 17 (c, h): one f32 step's gradients on `batch` from the
+    initial state on the `kernels` route, card against CPU, within
+    ANY_GRAD_TOL; and two controls that
     must fall outside the same limit: the card's gradients rounded to
     bf16, and the card's step with TF32 products. Returns each one's
     largest |diff| / largest entry and the leaves outside the limit."""
@@ -5912,13 +5974,13 @@ def any_grads_agree(torch, cfg, batch) -> dict:
         torch.backends.cuda.matmul.allow_tf32 = tf32
         torch.backends.cudnn.allow_tf32 = tf32
         try:
-            return step_grads(torch, cfg, st, batch, "auto")[1]
+            return step_grads(torch, cfg, st, batch, kernels)[1]
         finally:
             torch.backends.cuda.matmul.allow_tf32 = False
             torch.backends.cudnn.allow_tf32 = False
 
     want = step_grads(torch, cfg, TrainState.create(cfg, device="cpu"),
-                      batch, "auto")[1]
+                      batch, kernels)[1]
     got = card(False)
     out = {}
     for tag, g in (("f32", got),
@@ -5939,75 +6001,109 @@ def any_grads_agree(torch, cfg, batch) -> dict:
 
 
 def check_any_fits(torch, roots: dict, tmp: str) -> dict:
-    """Phase 17 (c): config4 `fit`, train.kernels=auto, ANY_STEPS steps in
-    f32 and bf16 at each shape of ANY_FITS (roots[True]: the R = 36 data,
-    roots[False]: phase 5's): captured (two graphs, a replay a step), rows
-    and state bit for bit the eager train_step chain, K1fr and K1br once a
-    step; one more step, a replay traced (traced_replay), runs the general
-    variant's kernels once each; each run re-run on the CPU, its rows
-    within CPU_METRIC_TOL, and, in f32, one step's gradients within
-    ANY_GRAD_TOL (any_grads_agree)."""
+    """Phase 17 (c, h): config4 `fit`, ANY_STEPS steps in f32 and bf16, at
+    each shape and route of ANY_FITS (roots: its training splits): (c) the
+    auto route, K1fr and K1br once a step; (h) train.kernels=pallas, also
+    K3 twice and K4f, K4b once a step. Each run captured (two graphs, a
+    replay a step), rows and state bit for bit the eager train_step chain;
+    one more step, a replay traced (traced_replay), names the kernels of
+    any_fit_names once a launch and none of the specialised kernels past
+    their envelope; each run re-run on the CPU, its rows within
+    CPU_METRIC_TOL, and, in f32, one step's gradients within ANY_GRAD_TOL
+    (any_grads_agree)."""
     out = {}
-    for name, (extra, r36) in ANY_FITS.items():
-        root = roots[r36]
-        for dt in GRAPH_DTYPES:
-            tag = f"{name}_{dt}"
-            cfg = train_cfg(root, os.path.join(tmp, "ck_any_" + tag), dt,
-                            ANY_STEPS, extra=extra)
-            zero_counts()                       # main path starts here
-            run = traced_fit(torch, cfg)
-            counts = read_counts()              # ... and ends here
-            per = per_step_launches("auto")
-            want = {k: n * ANY_STEPS for k, n in per.items()}
-            if counts != want:
-                fail(f"phase 17 fit ({tag}) launched {counts}, expected "
-                     f"{want}")
-            st = expect_graphed(run, f"phase 17 fit ({tag})", 2, ANY_STEPS)
-            eager = eager_chain(torch, cfg, run["seen"])
-            bad = rows_differ(run["logs"], eager["rows"])
-            bad += state_diffs(torch, run["state"], eager["state"])
-            if bad:
-                fail(f"phase 17 fit ({tag}) differs from the eager train_step "
-                     f"chain in {bad}")
-            prog = run["programs"][0]
-            traced = traced_replay(
-                torch, prog, lambda: prog(run["state"], run["seen"][-1]), per,
-                os.path.join(tmp, f"any_replay_{tag}.json"), ANY_TRACE_NAMES)
-            cpu_cfg = train_cfg(root, os.path.join(tmp, "ck_any_cpu_" + tag),
-                                dt, ANY_STEPS, extra=extra)
-            worst = cpu_rows_agree(run["logs"], run_fit(torch, cpu_cfg, "cpu"),
-                                   f"phase 17 fit ({tag})")
-            grads = (any_grads_agree(torch, cpu_cfg, run["seen"][0])
-                     if dt == "float32" else None)
-            out[tag] = {**st, "launches": counts, "wall_s": run["wall_s"],
-                        "traced_replay": traced,
-                        "cpu_metric_rel_diff": worst, "cpu_grads": grads,
-                        "loss_first_last": [run["logs"][0]["loss"],
-                                            run["logs"][-1]["loss"]]}
-            log(f"phase 17 (c): fit {tag} ({ANY_STEPS} steps): "
-                f"{st['graphs']} graphs, {st['replays']} replays, bit for bit "
-                f"the eager chain; launches {counts}; a traced replay names "
-                f"{traced}; CPU re-run rows max relative diff {worst:.3e} "
-                f"(limit {CPU_METRIC_TOL})" + (
-                    "; one step's gradients max |diff| / largest entry "
-                    + ", ".join(f"{k} {v['rel_diff']:.3e}"
-                                + (" (outside)" if v["outside"] else "")
-                                for k, v in grads.items())
-                    + f" (limit rtol {ANY_GRAD_TOL[0]}, atol "
-                    f"{ANY_GRAD_TOL[1]} x largest entry)"
-                    if grads is not None else ""))
-            del run, eager, prog
-            torch.cuda.empty_cache()
+    for name, (extra, data, e, ctx_any, routes) in ANY_FITS.items():
+        root = roots[data]
+        for route in routes:
+            for dt in GRAPH_DTYPES:
+                tag = f"{name}_{dt}" + ("_pallas" if route == "pallas" else "")
+                part = "(h)" if route == "pallas" else "(c)"
+                cfg = train_cfg(root, os.path.join(tmp, "ck_any_" + tag), dt,
+                                ANY_STEPS, route, extra=extra)
+                zero_counts()                   # main path starts here
+                run = traced_fit(torch, cfg)
+                counts = read_counts()          # ... and ends here
+                per = per_step_launches(route)
+                want = {k: n * ANY_STEPS for k, n in per.items()}
+                if counts != want:
+                    fail(f"phase 17 fit ({tag}) launched {counts}, expected "
+                         f"{want}")
+                st = expect_graphed(run, f"phase 17 fit ({tag})", 2,
+                                    ANY_STEPS)
+                eager = eager_chain(torch, cfg, run["seen"])
+                bad = rows_differ(run["logs"], eager["rows"])
+                bad += state_diffs(torch, run["state"], eager["state"])
+                if bad:
+                    fail(f"phase 17 fit ({tag}) differs from the eager "
+                         f"train_step chain in {bad}")
+                prog = run["programs"][0]
+                names, absent = any_fit_names(e, ctx_any, dt)
+                traced = traced_replay(
+                    torch, prog, lambda: prog(run["state"], run["seen"][-1]),
+                    per, os.path.join(tmp, f"any_replay_{tag}.json"), names,
+                    absent)
+                cpu_cfg = train_cfg(root,
+                                    os.path.join(tmp, "ck_any_cpu_" + tag),
+                                    dt, ANY_STEPS, route, extra=extra)
+                worst = cpu_rows_agree(run["logs"],
+                                       run_fit(torch, cpu_cfg, "cpu"),
+                                       f"phase 17 fit ({tag})")
+                grads = (any_grads_agree(torch, cpu_cfg, run["seen"][0],
+                                         route)
+                         if dt == "float32" else None)
+                out[tag] = {**st, "launches": counts,
+                            "wall_s": run["wall_s"], "traced_replay": traced,
+                            "cpu_metric_rel_diff": worst, "cpu_grads": grads,
+                            "loss_first_last": [run["logs"][0]["loss"],
+                                                run["logs"][-1]["loss"]]}
+                log(f"phase 17 {part}: fit {tag} ({ANY_STEPS} steps, "
+                    f"train.kernels={route}): {st['graphs']} graphs, "
+                    f"{st['replays']} replays, bit for bit the eager chain; "
+                    f"launches {counts}; a traced replay names {traced} and "
+                    f"none of {list(absent)}; CPU re-run rows max relative "
+                    f"diff {worst:.3e} (limit {CPU_METRIC_TOL})" + (
+                        "; one step's gradients max |diff| / largest entry "
+                        + ", ".join(f"{k} {v['rel_diff']:.3e}"
+                                    + (" (outside)" if v["outside"] else "")
+                                    for k, v in grads.items())
+                        + f" (limit rtol {ANY_GRAD_TOL[0]}, atol "
+                        f"{ANY_GRAD_TOL[1]} x largest entry)"
+                        if grads is not None else ""))
+                del run, eager, prog
+                torch.cuda.empty_cache()
     return out
 
 
-# the general variant's kernels, as a traced replay names them: each once
-# in a launch of K1f or K1fr (pairs, mix) and of K1br (pairs, gather)
+# the general variants' kernels, as a traced replay names them: each once
+# in a launch of K1f or K1fr (pairs, mix), of K1br (pairs, gather), of K3,
+# of K4f (the centers kernel, then the general main kernel) and of K4b
 ANY_TRACE_NAMES = {
     **TRACE_NAMES,
     "ctx_mix_fwd": ("ctx_mix_fwd_pairs_any", "ctx_mix_fwd_mix_any"),
     "ctx_mix_fwd_res": ("ctx_mix_fwd_pairs_any", "ctx_mix_fwd_mix_any"),
-    "ctx_mix_bwd_res": ("ctx_mix_bwd_pairs_any", "ctx_mix_bwd_gather_any")}
+    "ctx_mix_bwd_res": ("ctx_mix_bwd_pairs_any", "ctx_mix_bwd_gather_any"),
+    "cross_mil": ("cross_mil_any",),
+    "diag_epilogue": ("diag_centers_kernel", "diag_fwd_any"),
+    "diag_epilogue_bwd": ("diag_bwd_any",)}
+CTX_KEYS = ("ctx_mix_fwd", "ctx_mix_fwd_res", "ctx_mix_bwd_res")
+
+
+def any_fit_names(e: int, ctx_any: bool, dt: str) -> tuple[dict, tuple]:
+    """(the kernels a traced replay of a phase-17 fit at embedding width e
+    names, each once a launch: ANY_TRACE_NAMES, with the context mix's
+    specialised kernels where not ctx_any and K3's specialised kernel of
+    dt where csrc/cross_mil.cu takes it (E a multiple of 4; bf16 also E <=
+    512); the specialised kernels the replay must not name: K4f's and
+    K4b's, and K3's of dt where its general variant runs)."""
+    names = dict(ANY_TRACE_NAMES)
+    if not ctx_any:
+        names.update({k: TRACE_NAMES[k] for k in CTX_KEYS})
+    spec = "cross_mil_bf16" if dt == "bfloat16" else "cross_mil_f32"
+    absent = ("diag_fwd_kernel", "diag_bwd_kernel")
+    if e % 4 == 0 and (dt == "float32" or e <= 512):
+        names["cross_mil"] = (spec,)
+        return names, absent + ("cross_mil_any",)
+    return names, absent + (spec,)
 
 
 def any_timings(torch) -> dict:
@@ -6076,6 +6172,36 @@ def any_timings(torch) -> dict:
     return out
 
 
+def any_fused_timings(torch, roots: dict, tmp: str) -> dict:
+    """Phase 17 (d): K3, K4f and K4b at each shape of ANY_FITS (R = 36 /
+    E = 1024, E = 50, K = 40; B = 16, T = 20) on the fused route's own
+    inputs there (fused_inputs: the first batch of its split, the initial
+    params): fused_kernel_times without the dense variant, so device ms in
+    f32 and bf16, the plain version's, the bound from the batch's masks,
+    the empty-kernel floor of the grid each launch takes, and for K3
+    torch.matmul + torch.max."""
+    out = {}
+    card = card_line()
+    for name, (extra, data, *_) in ANY_FITS.items():
+        res = out[name] = fused_kernel_times(
+            torch, fused_inputs(torch, roots[data], tmp, extra), dense=False)
+        torch.cuda.empty_cache()
+        for tag, dt in (("", "f32"), ("_bf16", "bf16")):
+            log(f"phase 17 (d): fused route at {name} {res['shapes']}, {dt} "
+                "(device ms; plain; bound; an empty kernel of its grid): "
+                + "; ".join(
+                    f"{k} {res[key + '_ms' + tag]:.4f} "
+                    f"({res[key + '_plain_ms' + tag]:.4f}; "
+                    f"{res[key + '_bound_ms' + tag]:.4f}, "
+                    f"{res[key + '_bound_by' + tag]}; "
+                    f"{res[key + '_floor_ms' + tag]:.4f})"
+                    for k, key in (("K3", "cross_mil"), ("K4f", "diag"),
+                                   ("K4b", "diag_bwd")))
+                + f"; K3's torch.matmul + torch.max "
+                f"{res['cross_mil_library_ms' + tag]:.4f} — {card}")
+    return out
+
+
 # int8_matmul at shapes torch._int_mm does not take itself (M <= 16, K or N
 # not a multiple of 8), which it zero-pads: (M, K, N)
 INT8_ANY_SHAPES = ((5, 2048, 256), (16, 2048, 256), (40, 2048, 50),
@@ -6104,33 +6230,40 @@ def check_int8_any(torch) -> dict:
 
 
 def check_any(torch, tmp: str, reqs20: tuple) -> dict:
-    """Phase 17: the context mix at every shape the reference takes. (a)
-    check_ctx_any; R = 36 data written (train and val splits at config4
-    widths); (b) check_any_serving; (c) check_any_fits; (e) config1 eval of
-    the R = 36 split with the oracle params, hits card = CPU
-    (eval_card_vs_cpu); (f) check_int8_any; (d) any_timings."""
+    """Phase 17: the context mix, K3, K4f and K4b at every shape the
+    reference takes. (a) check_ctx_any; (g) check_fused_any; R = 36 data
+    written (train and val splits at config4 widths), and a config4-width
+    split with up to 40 words; (b) check_any_serving; (c, h)
+    check_any_fits; (e) config1 eval of the R = 36 split with the oracle
+    params, hits card = CPU (eval_card_vs_cpu); (f) check_int8_any; (d)
+    any_timings and any_fused_timings."""
     t0 = time.perf_counter()
     dev = torch.device("cuda")
     free, total = torch.cuda.mem_get_info()
     log(f"phase 17: {free / 2**30:.2f} of {total / 2**30:.2f} GiB of device "
         "memory free")
     errs = check_ctx_any(torch, dev)
-    root36 = os.path.join(tmp, "r36")
-    reqs36 = make_requests(root36, regions=36)
-    make_train_data(root36, regions=36)
+    fused_errs = check_fused_any(torch, dev)
+    roots = {"c4": tmp, "r36": os.path.join(tmp, "r36"),
+             "k40": os.path.join(tmp, "k40")}
+    reqs36 = make_requests(roots["r36"], regions=36)
+    make_train_data(roots["r36"], regions=36)
+    make_train_data(roots["k40"], words=40)
     serving = check_any_serving(torch, {True: reqs36, False: reqs20}, tmp)
-    fits = check_any_fits(torch, {True: root36, False: tmp}, tmp)
+    fits = check_any_fits(torch, roots, tmp)
     evals = eval_card_vs_cpu(torch, eval_cfg(
-        root36, os.path.join(tmp, "ck_any_eval"), ["data.num_regions=36"]),
-        oracle_params(), "oracle, R = 36")
+        roots["r36"], os.path.join(tmp, "ck_any_eval"),
+        ["data.num_regions=36"]), oracle_params(), "oracle, R = 36")
     int8 = check_int8_any(torch)
     gc.collect()
     torch.cuda.empty_cache()
     times = any_timings(torch)
+    fused_times = any_fused_timings(torch, roots, tmp)
     wall = time.perf_counter() - t0
     log(f"phase 17 took {wall:.1f} s")
-    return {"errs": errs, "serving": serving, "fits": fits, "eval": evals,
-            "int8_matmul": int8, "times": times, "phase_s": wall}
+    return {"errs": errs, "fused_errs": fused_errs, "serving": serving,
+            "fits": fits, "eval": evals, "int8_matmul": int8, "times": times,
+            "fused_times": fused_times, "phase_s": wall}
 
 
 ANY_RESULT = "any.json"           # phase 17's results, in the run's tmp
@@ -6195,6 +6328,29 @@ def any_keys(anyp: dict, name: str, key: str, pkey: str) -> dict:
                                  ("bound_ms", key + "_bound_ms"),
                                  ("bound_by", key + "_bound_by"))}}
                 for shape, res in anyp["times"].items()}}
+
+
+def fused_any_keys(anyp: dict, key: str) -> dict:
+    """K3's, K4f's or K4b's phase-17 numbers for its JSON entry (key:
+    fused_kernel_times' prefix, cross_mil, diag or diag_bwd): its max
+    |error| against plain over CROSS_ANY_CASES or DIAG_ANY_CASES (f32,
+    bf16), and at each shape of ANY_FITS its device ms, its plain
+    version's, its bound, the empty-kernel floor of its grid and, for K3,
+    torch.matmul + torch.max."""
+    errs = anyp["fused_errs"]
+    outs = {"diag": ("ctx", "clu", "d"), "diag_bwd": ("dw", "dv")}
+    err = {d: (errs["cross_mil"][d] if key == "cross_mil" else
+               max(errs["diag"][d][n] for n in outs[key]))
+           for d in GRAPH_DTYPES}
+    names = ("ms", "plain_ms", "bound_ms", "bound_by", "floor_ms") + (
+        ("library_ms",) if key == "cross_mil" else ())
+    return {"max_abs_err_any": err["float32"],
+            "max_abs_err_any_bf16": err["bfloat16"],
+            "any_shapes": {
+                shape: {"shapes": res["shapes"],
+                        **{n + tag: res[f"{key}_{n}{tag}"]
+                           for tag in ("", "_bf16") for n in names}}
+                for shape, res in anyp["fused_times"].items()}}
 
 
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
@@ -6678,6 +6834,7 @@ def main() -> None:
             floor_ms=tf[key + "_floor_ms"],
             floor_ms_bf16=tf[key + "_floor_ms_bf16"],
             shapes=tf["shapes"], path="training f32, kernels=pallas",
+            **fused_any_keys(anyp, key),
             launches_per_step_sp=sp_launch[name],
             **({"ms_sp": sp_k[sp_key[name] + "_ms"],
                 "plain_ms_sp": sp_k[sp_key[name] + "_plain_ms"],
@@ -6821,7 +6978,8 @@ def main() -> None:
             "serving": g_serve, "eval": g_eval,
             "extract": g_c5.pop("extract"), "config5": g_c5,
             "phase_s": t16},
-        "any_shapes": {k: v for k, v in anyp.items() if k != "times"},
+        "any_shapes": {k: v for k, v in anyp.items()
+                       if k not in ("times", "fused_times")},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)

@@ -1,25 +1,26 @@
 """Times this tree's context mix (K1f and K1fr, csrc/ctx_mix.cu; K1br and
-K1b, csrc/ctx_mix_bwd.cu), greedy NMS (K2, csrc/nms.cu) and diagonal
-epilogue (K4f, csrc/diag_epilogue.cu; K4b, csrc/diag_epilogue_bwd.cu)
-against other versions of the same sources, on one card, in one process,
-on the main path's own inputs:
+K1b, csrc/ctx_mix_bwd.cu), greedy NMS (K2, csrc/nms.cu), fused cross-MIL
+(K3, csrc/cross_mil.cu) and diagonal epilogue (K4f, csrc/diag_epilogue.cu;
+K4b, csrc/diag_epilogue_bwd.cu) against other versions of the same
+sources, on one card, in one process, on the main path's own inputs:
 
 - K1f: the first config-4 serving batch (B=16, T=20, R=20, E=256, w=3,
   planted-signal oracle weights, chip_smoke.timings' inputs), v_ext in f32
   and in bf16;
 - K1fr / K1br / K1b: the first config-4 training batch, v_ext in f32 and in
   bf16, du from a seed;
-- K4f / K4b: the first config-4 training batch's fused-route inputs
-  (chip_smoke.fused_inputs: K=8, Kc=67) in f32 and bf16, K4b on this
-  tree's K4f residuals with cotangents from a seed, as
-  chip_smoke.fused_timings runs it;
+- K3 / K4f / K4b: the first config-4 training batch's fused-route inputs
+  (chip_smoke.fused_inputs: I=B=16, M=128, K=8, Kc=67) in f32 and bf16, K4b
+  on this tree's K4f residuals with cotangents from a seed, as
+  chip_smoke.fused_timings runs them;
 - K2: the first config-5 batch's detector planes (320 rows x 24,000
   anchors, num_keep 20), from the f32 and from the bf16 detector.
 
     python3 kernel_ab.py DIR [DIR ...]
 
 Each DIR holds another version's ctx_mix.cu, ctx_mix_bwd.cu, nms.cu,
-diag_epilogue.cu and diag_epilogue_bwd.cu (with the ctx_mix_common.cuh
+cross_mil.cu, diag_epilogue.cu and diag_epilogue_bwd.cu (with the
+ctx_mix_common.cuh
 they include), for example `git archive <commit> nafae_torch/csrc`
 unpacked under the git-ignored build/. Each C interface in use since the
 first port is taken (a forward whose alpha is null for K1f, or one that
@@ -27,8 +28,9 @@ always takes alpha and refuses a null one; a backward with or without a
 scratch; NMS with or without tiers; K4f with or without the normalised
 centers' scratch). Every version is first held to this tree's output
 (K1f/K1fr within chip_smoke.CTX_TOL and ALPHA_TOL, K1b/K1br within
-GRAD_TOL, K2 exactly, K4f/K4b within DIAG_TOL with r* and c* equal where
-clear of ties; whether K1's and K4's outputs are bit for bit this tree's is
+GRAD_TOL, K2 exactly, K3 within CROSS_TOL with idx equal where clear of
+ties, K4f/K4b within DIAG_TOL with r* and c* equal where clear of ties;
+whether K1's, K3's and K4's outputs are bit for bit this tree's is
 recorded), then timed with CUDA graphs (chip_smoke.device_ms) in the
 order others, tree, tree, others reversed. Then one f32 serving batch is
 timed host to host (numpy in, numpy out) with each version's K1f swapped
@@ -55,7 +57,7 @@ import chip_smoke as CS
 ROOT = Path(__file__).resolve().parent
 
 
-SOURCES = ("ctx_mix", "ctx_mix_bwd", "nms", "diag_epilogue",
+SOURCES = ("ctx_mix", "ctx_mix_bwd", "nms", "cross_mil", "diag_epilogue",
            "diag_epilogue_bwd")
 
 
@@ -103,8 +105,9 @@ def build(dirs: list[Path]) -> tuple[dict[str, dict], dict[str, dict]]:
 def bind(torch, libs: dict):
     """(nms(x1, y1, x2, y2, sc) -> (idx, valid), bwd(v, fm, rm, du, w,
     temp, alpha) -> dv, fwd(v, fm, rm, w, temp, residual) -> (u, alpha or
-    None), K4f, K4b) for one version's libraries, any interface; K4f and
-    K4b take and give what the tree's diag.launch_fwd / launch_bwd do."""
+    None), K4f, K4b, K3) for one version's libraries, any interface; K4f,
+    K4b and K3 take and give what the tree's diag.launch_fwd / launch_bwd
+    and cross_mil.launch do."""
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ln, lb, lf = libs["nms"], libs["ctx_mix_bwd"], libs["ctx_mix"]
     lf.nafae_ctx_mix_fwd.argtypes = [vp, i, vp, vp, vp, vp] + [i] * 5 + [f, vp]
@@ -183,7 +186,62 @@ def bind(torch, libs: dict):
             CS.fail(f"ctx_mix launch failed: {err}")
         return u, alpha if residual else None
 
-    return nms, bwd, fwd, *bind_diag(torch, libs)
+    return nms, bwd, fwd, *bind_diag(torch, libs), bind_cross(torch, libs)
+
+
+def bind_cross(torch, libs: dict):
+    """K3 of one version's cross_mil library (one interface since the
+    first port): (w_flat, v, fm, rm) -> (a, idx)."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib = libs["cross_mil"]
+    lib.nafae_cross_mil.argtypes = [vp, vp, i, vp, vp, vp, vp] + [i] * 5 + [vp]
+    lib.nafae_cross_mil.restype = i
+
+    def k3(w, v, fm, rm):
+        n, t, m = v.shape[0], v.shape[1], w.shape[0]
+        a = torch.empty((n, m, t), device=v.device)
+        idx = torch.empty((n, m, t), dtype=torch.int32, device=v.device)
+        err = lib.nafae_cross_mil(
+            w.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),
+            fm.data_ptr(), rm.data_ptr(), a.data_ptr(), idx.data_ptr(), n, m,
+            t, v.shape[2], v.shape[3],
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            CS.fail(f"cross_mil launch failed: {err}")
+        return a, idx
+
+    return k3
+
+
+def cross_ab(torch, others: dict, ins, tag: str) -> dict:
+    """K3 of this tree against the other versions on the first training
+    batch's fused-route inputs in one dtype: each version's a within
+    CROSS_TOL of this tree's and idx equal where the top two scores are
+    clear of ties; then whether bit for bit this tree's, the a_b times and
+    this tree's time by kernel."""
+    from nafae_torch.ops.kernels import cross_mil as K3
+
+    w, v, fm, rm = ins
+    rtol, atol = CS.CROSS_TOL
+    fns = {"tree": lambda: K3.launch(w, v, fm, rm)}
+    want_a, want_i = fns["tree"]()
+    s = torch.where(rm[:, None] > 0, torch.einsum(
+        "me,itre->imtr", w.float(), v.float()), K3.NEG)
+    clear = CS.clear_of_ties(torch, s)
+    equal = {}
+    for name, (*_, ok3) in others.items():
+        fns[name] = lambda ok3=ok3: ok3(w, v, fm, rm)
+        got_a, got_i = fns[name]()
+        if not (torch.allclose(got_a, want_a, rtol=rtol, atol=atol)
+                and torch.equal(got_i[clear], want_i[clear])):
+            CS.fail(f"K3 {tag}: {name} differs from this tree")
+        equal[name] = bool(torch.equal(got_a, want_a)
+                           and torch.equal(got_i, want_i))
+    res = {"ms": a_b(torch, fns), "bitwise_equal_to_tree": equal,
+           "by_kernel_us": CS.profile_forward(torch, fns["tree"],
+                                              reps=20)[0]}
+    CS.log(f"K3 {tag}: {res}")
+    return {f"K3_{tag}": res}
 
 
 def bind_diag(torch, libs: dict):
@@ -264,7 +322,7 @@ def diag_ab(torch, others: dict, ins, tag: str) -> dict:
     fns = {"tree": lambda: K4.launch_fwd(w, v, u, centers, fm, hc, rm)}
     bfns = {"tree": lambda: K4.launch_bwd(*res_args)}
     equal = {}
-    for name, (_, _, _, ofwd, obwd) in others.items():
+    for name, (_, _, _, ofwd, obwd, _) in others.items():
         fns[name] = lambda ofwd=ofwd: ofwd(w, v, u, centers, fm, hc, rm)
         bfns[name] = lambda obwd=obwd: obwd(*res_args)
         got, got_b = fns[name](), bfns[name]()
@@ -448,6 +506,9 @@ def main() -> None:
         ins = CS.fused_inputs(torch, tmp, tmp)
         for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
             w_emb, v_emb, u = (x.to(dt) for x in ins[:3])
+            res.update(cross_ab(torch, others, (
+                w_emb.reshape(-1, w_emb.shape[-1]).contiguous(), v_emb,
+                ins[4], ins[5]), tag))
             res.update(diag_ab(torch, others,
                                (w_emb, v_emb, u, *ins[3:]), tag))
         tree = bind(torch, {n: _build.load(n) for n in SOURCES})

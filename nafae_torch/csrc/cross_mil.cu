@@ -52,6 +52,15 @@
 // quarter has landed. At config 4: 5 x 2 x 16 = 160 blocks of 97 KB, two an
 // SM. Every output element sees the same k loop, so ties stay exact.
 //
+// Any E (cross_mil_any): the f32 kernel takes any E a multiple of 4 (its
+// stages do not grow with E); the bf16 kernel also needs E <= 512. Every
+// other shape (E not a multiple of 4: GloVe-50d's E = 50; bf16 at E = 1024)
+// takes a general variant with the same blocks, scores tile and epilogue,
+// whose product stages E 32 columns at a time as f32 by scalar loads and
+// sums a 4 x 5 register tile a thread by FFMA (see below). It is a first,
+// simple kernel: at R = 36, E = 1024 the same 3.0 GFLOP are bound by
+// operations in f32 (~45 us) and by the 23.6 MB of v in bf16 (~7 us).
+//
 // Bound on an H100 SXM (config4 training shapes I=16, M=B*K=128, T=20, R=20,
 // E=256): 2*M*I*T*R*E = 419 MFLOP, ~6.3 us at 67 TFLOP/s f32 on CUDA cores,
 // against ~7.0 MB moved (v 6.6 MB, w, masks, a and idx), ~2.1 us at 3.35
@@ -342,8 +351,124 @@ cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
   }
 }
 
+// The general variant, for every shape outside the two kernels above: E not
+// a multiple of 4 (rows not 8- or 16-byte aligned), and bf16 with E > 512
+// (whole rows no longer fit in shared memory). The same blocks (32 words x
+// 80 columns: whole frames, or a long frame in chunks), the same scores tile
+// and the same segmented first maximum; only the product differs: E is
+// walked in stages of kGenK columns, staged as f32 by scalar loads (zero past
+// E and past the live rows, so no row needs any alignment and nothing grows
+// with E), and each of 128 threads sums a 4 x 5 register tile (words ty + 8i,
+// columns tx + 16j) by FFMA, full f32 (bf16 products are exact in f32). Every
+// dot adds its E products in increasing column order, one fmaf each,
+// wherever it sits in a tile, so equal region rows give equal scores.
+constexpr int kGenK = 32;                    // columns of E a stage
+constexpr int kGenLd = kGenK + 4;            // staged rows: float4 reads
+constexpr int kGenTy = 8, kGenTx = 16;       // 128 threads
+constexpr int kGenWordsPer = kWordsF / kGenTy;   // 4 words a thread
+constexpr int kGenThreads = kGenTy * kGenTx;
+static_assert(kGenTx * kColsPer == kCols, "the thread tiles cover the columns");
+template <typename Tin>
+__global__ void __launch_bounds__(kGenThreads)
+cross_mil_any(const Tin* __restrict__ w, const Tin* __restrict__ v,
+              const float* __restrict__ fm, const float* __restrict__ rm,
+              float* __restrict__ a, int* __restrict__ idx, int M, int T,
+              int R, int E) {
+  extern __shared__ __align__(16) float smem[];
+  float* ws = smem;                          // [kWordsF][kGenLd]
+  float* vs = ws + kWordsF * kGenLd;         // [kCols][kGenLd]
+  float* sc = vs + kCols * kGenLd;           // [kWordsF][kLdSc]
+  float* live = sc + kWordsF * kLdSc;        // [kCols]
+
+  const Span sp = block_span(T, R);
+  const int m0 = blockIdx.y * kWordsF;
+  const int i = blockIdx.z;
+  const int mw = min(kWordsF, M - m0);
+  const int ty = threadIdx.x / kGenTx, tx = threadIdx.x % kGenTx;
+  const Tin* wsrc = w + (size_t)m0 * E;
+  float best = -CUDART_INF_F;
+  int arg = INT_MAX;
+
+  for (int ch = 0; ch < sp.chunks; ++ch) {
+    const int c0 = ch * kCols;
+    const int nc = sp.multi ? min(kCols, R - c0) : sp.nf * R;
+    const size_t col0 = ((size_t)i * T + sp.t0) * R + c0;
+    const Tin* vsrc = v + col0 * E;
+    __syncthreads();                          // the last chunk's sc and live
+    for (int c = threadIdx.x; c < kCols; c += blockDim.x)
+      live[c] = (c < nc && rm) ? rm[col0 + c] : 1.f;
+
+    float d[kGenWordsPer][kColsPer];
+#pragma unroll
+    for (int x = 0; x < kGenWordsPer; ++x)
+#pragma unroll
+      for (int y = 0; y < kColsPer; ++y) d[x][y] = 0.f;
+
+    for (int e0 = 0; e0 < E; e0 += kGenK) {
+      __syncthreads();                        // the last stage is read
+      for (int p = threadIdx.x; p < (kWordsF + kCols) * kGenK;
+           p += blockDim.x) {
+        const int row = p / kGenK, col = p % kGenK;
+        const int e = e0 + col;
+        if (row < kWordsF)
+          ws[row * kGenLd + col] =
+              row < mw && e < E ? load1(wsrc + (size_t)row * E + e) : 0.f;
+        else
+          vs[(row - kWordsF) * kGenLd + col] =
+              row - kWordsF < nc && e < E
+                  ? load1(vsrc + (size_t)(row - kWordsF) * E + e)
+                  : 0.f;
+      }
+      __syncthreads();
+#pragma unroll 2
+      for (int q = 0; q < kGenK / 4; ++q) {
+        float4 x[kGenWordsPer], c[kColsPer];
+#pragma unroll
+        for (int k = 0; k < kGenWordsPer; ++k)
+          x[k] = lds4(ws + (ty + kGenTy * k) * kGenLd, q);
+#pragma unroll
+        for (int k = 0; k < kColsPer; ++k)
+          c[k] = lds4(vs + (tx + kGenTx * k) * kGenLd, q);
+#pragma unroll
+        for (int k = 0; k < kGenWordsPer; ++k)
+#pragma unroll
+          for (int j = 0; j < kColsPer; ++j) {
+            d[k][j] = fmaf(x[k].x, c[j].x, d[k][j]);
+            d[k][j] = fmaf(x[k].y, c[j].y, d[k][j]);
+            d[k][j] = fmaf(x[k].z, c[j].z, d[k][j]);
+            d[k][j] = fmaf(x[k].w, c[j].w, d[k][j]);
+          }
+      }
+    }
+
+#pragma unroll
+    for (int k = 0; k < kGenWordsPer; ++k)
+#pragma unroll
+      for (int j = 0; j < kColsPer; ++j) {
+        const int col = tx + kGenTx * j;
+        sc[(ty + kGenTy * k) * kLdSc + col] =
+            live[col] > 0.f ? d[k][j] : kNeg;
+      }
+    __syncthreads();
+    segment_max<kWordsF>(sc, fm, a, idx, sp, sp.multi ? nc : R, c0, ch == 0,
+                         ch == sp.chunks - 1, i, m0, mw, M, T, best, arg);
+  }
+}
+
+// Whether the kernels above take these sizes: f32 any E a multiple of 4 (E
+// is staged 64 columns at a time, rows 16-byte aligned), bf16 also E <= 512
+// (whole rows in shared memory). Every other shape takes cross_mil_any.
+bool in_envelope(int is_bf16, int E) {
+  return E >= 4 && E % 4 == 0 && (!is_bf16 || E <= 512);
+}
+
 // Dynamic shared memory of one block, in bytes: 71,616 B in f32 at any E;
-// in bf16 97,088 B at E = 256 and 170,816 B at E = 512.
+// in bf16 97,088 B at E = 256 and 170,816 B at E = 512; 26,816 B in the
+// general variant at any E.
+size_t smem_any() {
+  return (size_t)((kWordsF + kCols) * kGenLd + kWordsF * kLdSc + kCols) *
+         sizeof(float);
+}
 size_t smem_f32() {
   return (size_t)(2 * (kWordsF + kCols) * kLd + kWordsF * kLdSc + kCols) *
          sizeof(float);
@@ -381,18 +506,24 @@ extern "C" {
 // w [M, E] and v [I, T, R, E] are float* when is_bf16 == 0 and
 // __nv_bfloat16* otherwise; fm [I, T] and rm [I, T, R] (may be null: every
 // region valid) are f32; a [I, M, T] f32 and idx [I, M, T] int32 are written
-// whole. All tensors are contiguous; w and v are 16-byte aligned.
-// Limits: R >= 1, E a multiple of 4 with 4 <= E <= 512, I <= 65535,
-// ceil(M / 32) <= 65535.
+// whole. All tensors are contiguous; w and v are 16-byte aligned. Shapes
+// in_envelope takes run the kernels above, every other the general variant.
+// Limits (the grid's): R >= 1, E >= 1, I <= 65535, ceil(M / 32) <= 65535.
 int nafae_cross_mil(const void* w, const void* v, int is_bf16, const float* fm,
                     const float* rm, float* a, int* idx, int I, int M, int T,
                     int R, int E, void* stream) {
-  if (R < 1 || E < 4 || E % 4 != 0 || E > 512 || I < 0 || I > 65535 ||
-      M < 0 || T < 0 ||
+  if (R < 1 || E < 1 || I < 0 || I > 65535 || M < 0 || T < 0 ||
       (M + kWordsF - 1) / kWordsF > 65535)
     return (int)cudaErrorInvalidValue;
   if (I == 0 || M == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!in_envelope(is_bf16, E))
+    return is_bf16
+        ? launch<__nv_bfloat16>(cross_mil_any<__nv_bfloat16>, kWordsF,
+                                kGenThreads, smem_any(), w, v, fm, rm, a, idx,
+                                I, M, T, R, E, s)
+        : launch<float>(cross_mil_any<float>, kWordsF, kGenThreads,
+                        smem_any(), w, v, fm, rm, a, idx, I, M, T, R, E, s);
   return is_bf16
       ? launch<__nv_bfloat16>(cross_mil_bf16, kWordsH, kThreadsH, smem_bf16(E),
                               w, v, fm, rm, a, idx, I, M, T, R, E, s)
@@ -402,22 +533,24 @@ int nafae_cross_mil(const void* w, const void* v, int is_bf16, const float* fm,
 
 
 // Launches an empty kernel with the grid, block size and dynamic shared
-// memory that nafae_cross_mil would use for these sizes: the launch floor the
-// measured times are judged against. Same limits and return value.
+// memory that nafae_cross_mil would use for these sizes (the general
+// variant's where it would take it): the launch floor the measured times are
+// judged against. Same limits and return value.
 int nafae_cross_mil_floor(int is_bf16, int I, int M, int T, int R, int E,
                           void* stream) {
-  if (R < 1 || E < 4 || E % 4 != 0 || E > 512 || I < 1 || I > 65535 ||
-      M < 1 || T < 1)
+  if (R < 1 || E < 1 || I < 1 || I > 65535 || M < 1 || T < 1 ||
+      (M + kWordsF - 1) / kWordsF > 65535)
     return (int)cudaErrorInvalidValue;
-  const int words = is_bf16 ? kWordsH : kWordsF;
-  const size_t smem = is_bf16 ? smem_bf16(E) : smem_f32();
+  const bool spec = in_envelope(is_bf16, E);
+  const int words = spec && is_bf16 ? kWordsH : kWordsF;
+  const int threads = !spec ? kGenThreads : is_bf16 ? kThreadsH : kThreadsF;
+  const size_t smem = !spec ? smem_any() : is_bf16 ? smem_bf16(E) : smem_f32();
   cudaError_t err = cudaFuncSetAttribute(
       null_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int fb = R > kCols ? 1 : kCols / R;
   const dim3 grid((T + fb - 1) / fb, (M + words - 1) / words, I);
-  null_kernel<<<grid, is_bf16 ? kThreadsH : kThreadsF, smem,
-                static_cast<cudaStream_t>(stream)>>>();
+  null_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }
 

@@ -59,7 +59,13 @@
 //
 // Any R, any Kc and 1 <= K <= 32 fit: regions come 32 at a time, words 8
 // (4) at a time, centers a ring slot at a time; shared memory grows with K
-// and E only (213 KB at most, bf16 at K = 32, E = 256).
+// and E only (213 KB at most, bf16 at K = 32, E = 256). Every other shape
+// (K > 32: long descriptions; E not a multiple of 4: GloVe-50d's E = 50;
+// E > 512) takes a general variant after the centers kernel, diag_fwd_any
+// below: a block a frame, the words 32 at a time and E in slices through
+// shared memory, so it takes any K, E, R and Kc. It is a first, simple
+// kernel; at R = 36, E = 1024 (K = 8) its bound is ~0.031 ms f32 and ~0.017
+// ms bf16, both bytes (v, u and f).
 //
 // Bound on an H100 SXM (config4 training shapes B=16, K=8, T=20, R=20,
 // E=256, Kc=67, f32): 2*2*B*K*T*R*E + 2*B*K*T*Kc*E = 140 MFLOP (~2.1 us at
@@ -654,9 +660,250 @@ int run(const void* w, const void* v, const void* u, const float* centers,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The general variant (diag_fwd_any), for every shape outside the main
+// kernel's envelope (in_envelope: K > 32, E not a multiple of 4, E > 512):
+// one block of 256 threads a frame, launched after the centers kernel in
+// stream order. Words come kGenWords at a time (warp j holds words j, j + 8,
+// j + 16, j + 24 of the pass), regions and centers 32 at a time (one a
+// lane), and E in slices of kGenCols columns staged as f32 in shared memory
+// by scalar loads (zero past E and past the live rows: no row needs any
+// alignment, and nothing grows with K, E, R or Kc).
+//   (a) Each lane sums s and sh of its region for the warp's words over the
+//       slices, every column in order, one fmaf each; the warp then writes
+//       the residual d, adds the tile's ctx terms by a fixed butterfly and
+//       takes its first maximum by the (value, index) butterfly, carried
+//       over the tiles in registers (an earlier tile keeps equal values).
+//   (b) f = v[t, r*] is copied whole to f; each lane sums the cosine sims of
+//       its center with the words' f rows (staged from v) over the slices,
+//       the same way, and the (value, index) butterfly keeps the first
+//       maximum over each tile of 32 centers, carried over the tiles.
+//   (c) clu: a warp a word, lanes over E, one butterfly.
+// So equal rows of v (or of C) give equal scores (sims), and r* and c* are
+// the first index; every output has one writer and one order of sums.
+constexpr int kGenThreads = 256;
+constexpr int kGenWarps = kGenThreads / 32;
+constexpr int kGenWords = 32;           // words of a pass: 4 a warp
+constexpr int kGenPer = kGenWords / kGenWarps;
+constexpr int kGenRows = 32;            // regions or centers of a tile
+constexpr int kGenCols = 64;            // columns of E a slice
+constexpr int kGenLd = kGenCols + 4;    // staged rows: float4 reads
+
+// Columns [e0, e0 + kGenCols) of `rows` rows (row(i): the i-th row's start)
+// into shared rows of stride kGenLd as f32, zero past E and past `rows`.
+template <typename RowOf>
+__device__ __forceinline__ void gen_stage(float* __restrict__ dst, int rows,
+                                          int E, int e0, RowOf row) {
+  for (int p = threadIdx.x; p < kGenRows * kGenCols; p += blockDim.x) {
+    const int i = p / kGenCols, c = p % kGenCols;
+    const int e = e0 + c;
+    dst[i * kGenLd + c] = i < rows && e < E ? load1(row(i) + e) : 0.f;
+  }
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kGenThreads)
+diag_fwd_any(const Tin* __restrict__ w, const Tin* __restrict__ v,
+             const Tin* __restrict__ u, const Tin* __restrict__ chat,
+             const float* __restrict__ centers, const float* __restrict__ fm,
+             const float* __restrict__ hc, const float* __restrict__ rm,
+             float* __restrict__ ctx, float* __restrict__ clu,
+             float* __restrict__ f, float* __restrict__ dres,
+             int* __restrict__ rstar, int* __restrict__ cstar, int K, int T,
+             int R, int E, int Kc) {
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                      // [kGenWords][kGenLd] words, then f
+  float* ys = xs + kGenWords * kGenLd;   // [kGenRows][kGenLd] v, then ch
+  float* zs = ys + kGenRows * kGenLd;    // [kGenRows][kGenLd] u
+  int* rs = reinterpret_cast<int*>(zs + kGenRows * kGenLd);   // [32] r*
+
+  const size_t bt = blockIdx.x;          // the frame (b, t)
+  const int b = (int)(bt / T), t = (int)(bt - (size_t)b * T);
+  const Tin* vt = v + bt * R * E;
+  const Tin* ut = u + bt * R * E;
+  const bool on = fm[bt] > 0.f && hc[bt] > 0.f;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+
+  for (int k0 = 0; k0 < K; k0 += kGenWords) {
+    const int kw = min(kGenWords, K - k0);
+    const int nw =                       // this warp's words of the pass
+        min(kGenPer, max(0, (kw - warp + kGenWarps - 1) / kGenWarps));
+    const Tin* wk = w + ((size_t)b * K + k0) * E;
+    float acc[kGenPer], best[kGenPer];
+    int arg[kGenPer];
+#pragma unroll
+    for (int i = 0; i < kGenPer; ++i) {
+      acc[i] = 0.f;
+      best[i] = -CUDART_INF_F;
+      arg[i] = 0;
+    }
+    // (a) s, sh, the ctx terms, the residual and the first-max region
+    for (int r0 = 0; r0 < R; r0 += kGenRows) {
+      const int rc = min(kGenRows, R - r0);
+      float s[kGenPer], sh[kGenPer];
+#pragma unroll
+      for (int i = 0; i < kGenPer; ++i) s[i] = sh[i] = 0.f;
+      for (int e0 = 0; e0 < E; e0 += kGenCols) {
+        __syncthreads();                 // the last slice is read
+        gen_stage(xs, kw, E, e0, [&](int i) { return wk + (size_t)i * E; });
+        gen_stage(ys, rc, E, e0,
+                  [&](int i) { return vt + (size_t)(r0 + i) * E; });
+        gen_stage(zs, rc, E, e0,
+                  [&](int i) { return ut + (size_t)(r0 + i) * E; });
+        __syncthreads();
+        for (int q = 0; q < kGenCols / 4; ++q) {
+          const float4 y = lds4(ys + lane * kGenLd, q);
+          const float4 z = lds4(zs + lane * kGenLd, q);
+#pragma unroll
+          for (int i = 0; i < kGenPer; ++i) {
+            if (i < nw) {                // warp-uniform
+              const float4 x = lds4(xs + (warp + kGenWarps * i) * kGenLd, q);
+              s[i] = dot4(x, y, s[i]);
+              sh[i] = dot4(x, z, sh[i]);
+            }
+          }
+        }
+      }
+      const int r = r0 + lane;
+      const bool in = lane < rc;
+      const bool lv = in && (rm ? rm[bt * R + r] > 0.f : true);
+      const bool m = lv && on;
+#pragma unroll
+      for (int i = 0; i < kGenPer; ++i) {
+        if (i >= nw) continue;
+        const int k = k0 + warp + kGenWarps * i;
+        const float diff = s[i] - sh[i];
+        if (in) dres[(((size_t)b * K + k) * T + t) * R + r] = m ? diff : 0.f;
+        float term = m ? as_operand(diff * diff, v) : 0.f;
+        float val = in ? (lv ? s[i] : kNeg) : -CUDART_INF_F;
+        int idx = r;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          term += __shfl_xor_sync(0xffffffffu, term, o);
+          max_first(val, idx, o);
+        }
+        acc[i] += term;
+        if (val > best[i]) {             // an earlier tile keeps equal values
+          best[i] = val;
+          arg[i] = idx;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kGenPer; ++i) {
+      if (i >= nw || lane != 0) continue;
+      const int kk = warp + kGenWarps * i;
+      const size_t o = ((size_t)b * K + k0 + kk) * T + t;
+      ctx[o] = acc[i];
+      rstar[o] = arg[i];
+      rs[kk] = arg[i];
+    }
+    __syncthreads();
+    // (b) f = v[t, r*] whole, then c* = first argmax of f . ch
+    for (int p = threadIdx.x; p < kw * E; p += blockDim.x) {
+      const int kk = p / E, e = p - kk * E;
+      f[(bt * K + k0 + kk) * E + e] = load1(vt + (size_t)rs[kk] * E + e);
+    }
+    float top[kGenPer];
+    int top_c[kGenPer];
+#pragma unroll
+    for (int i = 0; i < kGenPer; ++i) {
+      top[i] = -CUDART_INF_F;
+      top_c[i] = 0;
+    }
+    for (int c0 = 0; c0 < Kc; c0 += kGenRows) {
+      const int cc = min(kGenRows, Kc - c0);
+      float x4[kGenPer];
+#pragma unroll
+      for (int i = 0; i < kGenPer; ++i) x4[i] = 0.f;
+      for (int e0 = 0; e0 < E; e0 += kGenCols) {
+        __syncthreads();
+        gen_stage(xs, kw, E, e0,
+                  [&](int i) { return vt + (size_t)rs[i] * E; });
+        gen_stage(ys, cc, E, e0,
+                  [&](int i) { return chat + (size_t)(c0 + i) * E; });
+        __syncthreads();
+        for (int q = 0; q < kGenCols / 4; ++q) {
+          const float4 y = lds4(ys + lane * kGenLd, q);
+#pragma unroll
+          for (int i = 0; i < kGenPer; ++i) {
+            if (i < nw) {
+              const float4 x = lds4(xs + (warp + kGenWarps * i) * kGenLd, q);
+              x4[i] = dot4(x, y, x4[i]);
+            }
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < kGenPer; ++i) {
+        if (i >= nw) continue;
+        float val = lane < cc ? x4[i] : -CUDART_INF_F;
+        int idx = c0 + lane;
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) max_first(val, idx, o);
+        if (val > top[i]) {
+          top[i] = val;
+          top_c[i] = idx;
+        }
+      }
+    }
+    // (c) clu = |f - C[c*]|^2, a warp a word
+#pragma unroll
+    for (int i = 0; i < kGenPer; ++i) {
+      if (i >= nw) continue;
+      const int kk = warp + kGenWarps * i;
+      const Tin* fr = vt + (size_t)rs[kk] * E;
+      const float* tgt = centers + (size_t)top_c[i] * E;
+      float ss = 0.f;
+      for (int e = lane; e < E; e += 32) {
+        const float dx = load1(fr + e) - as_operand(tgt[e], v);
+        ss = fmaf(dx, dx, ss);
+      }
+      ss = warp_sum(ss);
+      if (lane == 0) {
+        const size_t o = ((size_t)b * K + k0 + kk) * T + t;
+        clu[o] = ss;
+        cstar[o] = top_c[i];
+      }
+    }
+    __syncthreads();                     // rs is read
+  }
+}
+
+// Dynamic shared memory of a general block: 26,240 B at any size.
+size_t smem_any() {
+  return (size_t)(kGenWords + 2 * kGenRows) * kGenLd * sizeof(float) +
+         kGenWords * sizeof(int);
+}
+
+// Whether the main kernel takes these sizes (words in registers 8 a pass, at
+// most 4 16-byte quads a lane); every other shape takes diag_fwd_any.
+bool in_envelope(int K, int E) {
+  return K <= 32 && E >= 4 && E % 4 == 0 && E <= 512;
+}
+
+template <typename Tin>
+int run_any(const void* w, const void* v, const void* u, const float* centers,
+            void* chat, const float* fm, const float* hc, const float* rm,
+            float* ctx, float* clu, float* f, float* dres, int* rstar,
+            int* cstar, int B, int K, int T, int R, int E, int Kc,
+            cudaStream_t stream) {
+  const int err = launch_dyn(diag_centers_kernel<Tin>, centers_grid(Kc),
+                             kCenterThreads, 0, stream, false, centers,
+                             static_cast<Tin*>(chat), Kc, E);
+  if (err != 0) return err;
+  return launch_dyn(diag_fwd_any<Tin>, dim3((unsigned)(B * T)), kGenThreads,
+                    smem_any(), stream, false, static_cast<const Tin*>(w),
+                    static_cast<const Tin*>(v), static_cast<const Tin*>(u),
+                    static_cast<const Tin*>(chat), centers, fm, hc, rm, ctx,
+                    clu, f, dres, rstar, cstar, K, T, R, E, Kc);
+}
+
+// Limits: the grids' (B <= 65535; the general variant's B T blocks below
+// 2^31) and sizes of at least 1.
 bool bad_sizes(int B, int K, int T, int R, int E, int Kc) {
-  return K < 1 || K > 32 || R < 1 || Kc < 1 || E < 4 || E % 4 != 0 ||
-         E > 512 || B < 0 || B > 65535 || T < 0;
+  return K < 1 || R < 1 || Kc < 1 || E < 1 || B < 0 || B > 65535 || T < 0 ||
+         (long long)B * T > 0x7fffffffLL;
 }
 
 }  // namespace
@@ -670,8 +917,8 @@ extern "C" {
 // region valid) are f32. Written whole: ctx, clu [B, K, T] f32, f
 // [B, T, K, E] f32, dres [B, K, T, R] f32, rstar and cstar [B, K, T] int32.
 // All tensors are contiguous; w, v, u, centers, chat and f are 16-byte
-// aligned. Limits: 1 <= K <= 32, R >= 1, Kc >= 1, E a multiple of 4 with
-// 4 <= E <= 512, B <= 65535.
+// aligned. Shapes in_envelope takes run the kernels above, every other the
+// general variant. Limits: K, R, Kc, E >= 1, B <= 65535, B T < 2^31.
 int nafae_diag_fwd(const void* w, const void* v, const void* u, int is_bf16,
                    const float* centers, void* chat, const float* fm,
                    const float* hc, const float* rm, float* ctx, float* clu,
@@ -681,6 +928,12 @@ int nafae_diag_fwd(const void* w, const void* v, const void* u, int is_bf16,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!in_envelope(K, E))
+    return is_bf16
+        ? run_any<__nv_bfloat16>(w, v, u, centers, chat, fm, hc, rm, ctx, clu,
+                                 f, dres, rstar, cstar, B, K, T, R, E, Kc, s)
+        : run_any<float>(w, v, u, centers, chat, fm, hc, rm, ctx, clu, f,
+                         dres, rstar, cstar, B, K, T, R, E, Kc, s);
   return is_bf16
       ? run<__nv_bfloat16>(w, v, u, centers, chat, fm, hc, rm, ctx, clu, f,
                            dres, rstar, cstar, B, K, T, R, E, Kc, s)
@@ -688,10 +941,11 @@ int nafae_diag_fwd(const void* w, const void* v, const void* u, int is_bf16,
                    rstar, cstar, B, K, T, R, E, Kc, s);
 }
 
-// Launches two empty kernels with the grids, block size and dynamic shared
+// Launches two empty kernels with the grids, block sizes and dynamic shared
 // memory that nafae_diag_fwd would use for these sizes, the second as the
-// first's programmatic dependent: the launch floor the measured times are
-// judged against. Same limits and return value.
+// first's programmatic dependent (in stream order for the general variant):
+// the launch floor the measured times are judged against. Same limits and
+// return value.
 int nafae_diag_fwd_floor(int is_bf16, int B, int K, int T, int R, int E,
                          int Kc, void* stream) {
   if (bad_sizes(B, K, T, R, E, Kc) || B < 1 || T < 1)
@@ -700,6 +954,9 @@ int nafae_diag_fwd_floor(int is_bf16, int B, int K, int T, int R, int E,
   const int err = launch_dyn(null_kernel, centers_grid(Kc), kCenterThreads,
                              0, s, false);
   if (err != 0) return err;
+  if (!in_envelope(K, E))
+    return launch_dyn(null_kernel, dim3((unsigned)(B * T)), kGenThreads,
+                      smem_any(), s, false);
   return launch_dyn(null_kernel, main_grid(B, T), kThreads,
                     is_bf16 ? smem_bytes<__nv_bfloat16>(K, E)
                             : smem_bytes<float>(K, E),

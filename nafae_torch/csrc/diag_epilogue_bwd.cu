@@ -43,6 +43,14 @@
 // registers a thread). No float atomics: every output has one writer and
 // one order of summation, so the f32 gradient is the same on every run.
 //
+// These blocks take 1 <= K <= 32 and E a multiple of 4 up to 512 (the dv
+// blocks stage the words and df rows whole, the dw blocks read 4-column
+// quads). Every other shape (K > 32: long descriptions; E = 50, GloVe-50d's;
+// E > 512) takes a general variant of the same two kinds of block,
+// diag_bwd_any below, which reads elements one at a time and takes any K, E
+// and R. It is a first, simple kernel; at R = 36, E = 1024 (K = 8) its bound
+// is ~0.028 ms f32 and ~0.021 ms bf16.
+//
 // Bound on an H100 SXM (config4 training shapes B=16, K=8, T=20, R=20,
 // E=256, f32): ~13 MB moved (v read and dv written, 6.6 MB each; w, f, d,
 // the argmaxes and the cotangents), ~4 us at 3.35 TB/s, against 4*B*K*T*R*E
@@ -304,9 +312,206 @@ int launch(const void* w, const void* v, const float* centers,
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The general variant (diag_bwd_any), for every shape outside the kernel's
+// envelope (in_envelope: K > 32, E not a multiple of 4, E > 512): the same
+// two kinds of block in one launch, grid (T + S, B), 256 threads, elements
+// read one at a time (no row needs any alignment) and nothing in shared
+// memory that grows with K, E or R.
+//
+//   dv  block (t, b): regions 32 at a time; for each chunk of 32 words, ds
+//       [32 words, 32 regions] is made in shared memory and thread p takes
+//       elements (region, column) p, p + 256, ..., adding ds w of the
+//       chunk's words in order to the partial sum it left in dv (the same
+//       thread each chunk, so the sum over the words is one chain in word
+//       order); then the df of each word whose r* is that region, in order.
+//   dw  block (T + s, b), s = (word chunk of 8, column slice of 32): lane =
+//       column, warp = row group; each thread sums 8 words over its rows
+//       (t, r) = g, g + 8, ... of ds [8, 256 rows] staged at a time, and the
+//       8 row groups' sums meet in shared memory in a fixed order.
+//
+// One writer an output, no float atomics, so two launches give the same
+// bits.
+constexpr int kGenThreads = 256;
+constexpr int kGenWarps = kGenThreads / 32;
+constexpr int kGenRows = 32;    // dv: regions of a chunk, and words of one
+constexpr int kGenWords = 8;    // dw: words of a block
+constexpr int kGenCols = 32;    // dw: columns of a block, one a lane
+constexpr int kGenSpan = 256;   // dw: rows (t, r) of ds staged at once
+
+template <typename Tin>
+__device__ __forceinline__ void dv_any(
+    float* __restrict__ smem, const Tin* __restrict__ w,
+    const Tin* __restrict__ v, const float* __restrict__ centers,
+    const float* __restrict__ dres, const int* __restrict__ rstar,
+    const int* __restrict__ cstar, const float* __restrict__ f,
+    const float* __restrict__ dctx, const float* __restrict__ dclu,
+    float* __restrict__ dv, int b, int t, int K, int T, int R, int E) {
+  const size_t bt = (size_t)b * T + t;
+  float* dsm = smem;                          // [kGenRows][kGenRows] ds
+  float* s2 = dsm + kGenRows * kGenRows;      // [kGenRows] 2 dclu
+  int* rs = reinterpret_cast<int*>(s2 + kGenRows);   // [kGenRows] r* - r0
+  int* cs = rs + kGenRows;                    // [kGenRows] c*
+  for (int r0 = 0; r0 < R; r0 += kGenRows) {
+    const int rc = min(kGenRows, R - r0);
+    float* out = dv + (bt * R + r0) * E;      // the chunk's rows of dv
+    for (int k0 = 0; k0 < K; k0 += kGenRows) {   // sum_k ds w, words in order
+      const int kc = min(kGenRows, K - k0);
+      __syncthreads();                        // dsm is read
+      for (int p = threadIdx.x; p < kc * rc; p += blockDim.x) {
+        const int kk = p / rc, j = p - kk * rc;
+        const size_t o = ((size_t)b * K + k0 + kk) * T + t;
+        dsm[kk * kGenRows + j] =
+            as_operand(2.f * as_operand(dctx[o], v) * dres[o * R + r0 + j], v);
+      }
+      __syncthreads();
+      for (int p = threadIdx.x; p < rc * E; p += blockDim.x) {
+        const int j = p / E, e = p - j * E;
+        float acc = k0 ? out[p] : 0.f;
+        for (int kk = 0; kk < kc; ++kk)
+          acc = fmaf(dsm[kk * kGenRows + j],
+                     load1(w + ((size_t)b * K + k0 + kk) * E + e), acc);
+        out[p] = acc;
+      }
+    }
+    for (int k0 = 0; k0 < K; k0 += kGenRows) {   // the cluster pull at r*
+      const int kc = min(kGenRows, K - k0);
+      __syncthreads();                        // rs, cs and s2 are read
+      if ((int)threadIdx.x < kc) {
+        const size_t o = ((size_t)b * K + k0 + threadIdx.x) * T + t;
+        rs[threadIdx.x] = rstar[o] - r0;
+        cs[threadIdx.x] = cstar[o];
+        s2[threadIdx.x] = 2.f * dclu[o];
+      }
+      __syncthreads();
+      for (int p = threadIdx.x; p < rc * E; p += blockDim.x) {
+        const int j = p / E, e = p - j * E;
+        float acc = out[p];
+        for (int kk = 0; kk < kc; ++kk)
+          if (rs[kk] == j)
+            acc += as_operand(
+                s2[kk] * (f[(bt * K + k0 + kk) * E + e] -
+                          as_operand(centers[(size_t)cs[kk] * E + e], v)),
+                v);
+        out[p] = acc;
+      }
+    }
+  }
+}
+
+template <typename Tin>
+__device__ __forceinline__ void dw_any(
+    float* __restrict__ smem, const Tin* __restrict__ v,
+    const float* __restrict__ dres, const float* __restrict__ dctx,
+    float* __restrict__ dw, int b, int s, int K, int T, int R, int E) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int slices = (E + kGenCols - 1) / kGenCols;
+  const int k0 = s / slices * kGenWords;
+  const int kw = min(kGenWords, K - k0);
+  const int e = (s % slices) * kGenCols + lane;
+  const int n_rows = T * R;
+  const Tin* vb = v + (size_t)b * n_rows * E;
+  float* dsv = smem;                          // [kGenWords][kGenSpan]
+  float* red = dsv + kGenWords * kGenSpan;    // [kGenWarps][kGenWords][32]
+  float acc[kGenWords];
+#pragma unroll
+  for (int kk = 0; kk < kGenWords; ++kk) acc[kk] = 0.f;
+  for (int n0 = 0; n0 < n_rows; n0 += kGenSpan) {
+    const int nc = min(kGenSpan, n_rows - n0);
+    __syncthreads();                          // the last span is read
+    for (int j = threadIdx.x; j < nc; j += blockDim.x) {
+      const int n = n0 + j, tt = n / R;
+#pragma unroll
+      for (int kk = 0; kk < kGenWords; ++kk) {
+        const size_t bk = (size_t)b * K + k0 + min(kk, kw - 1);
+        dsv[kk * kGenSpan + j] =
+            kk < kw ? as_operand(2.f * as_operand(dctx[bk * T + tt], v) *
+                                     dres[bk * n_rows + n], v)
+                    : 0.f;
+      }
+    }
+    __syncthreads();
+    if (e < E) {
+      for (int j = warp; j < nc; j += kGenWarps) {
+        const float x = load1(vb + (size_t)(n0 + j) * E + e);
+#pragma unroll
+        for (int kk = 0; kk < kGenWords; ++kk)
+          acc[kk] = fmaf(dsv[kk * kGenSpan + j], x, acc[kk]);
+      }
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < kGenWords; ++kk)
+    red[(warp * kGenWords + kk) * 32 + lane] = acc[kk];
+  __syncthreads();
+  const int kk = threadIdx.x >> 5;            // word kk, column lane
+  if (kk < kw && e < E) {
+    float sum = red[kk * 32 + lane];
+#pragma unroll
+    for (int g = 1; g < kGenWarps; ++g)
+      sum += red[(g * kGenWords + kk) * 32 + lane];
+    dw[((size_t)b * K + k0 + kk) * E + e] = sum;
+  }
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kGenThreads)
+diag_bwd_any(const Tin* __restrict__ w, const Tin* __restrict__ v,
+             const float* __restrict__ centers,
+             const float* __restrict__ dres, const int* __restrict__ rstar,
+             const int* __restrict__ cstar, const float* __restrict__ f,
+             const float* __restrict__ dctx, const float* __restrict__ dclu,
+             float* __restrict__ dw, float* __restrict__ dv, int K, int T,
+             int R, int E) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.y;
+  if ((int)blockIdx.x < T)
+    dv_any(smem, w, v, centers, dres, rstar, cstar, f, dctx, dclu, dv, b,
+           blockIdx.x, K, T, R, E);
+  else
+    dw_any(smem, v, dres, dctx, dw, b, blockIdx.x - T, K, T, R, E);
+}
+
+// Whether diag_bwd_kernel takes these sizes; every other takes diag_bwd_any.
+bool in_envelope(int K, int E) {
+  return K <= 32 && E >= 4 && E % 4 == 0 && E <= 512;
+}
+
+// The general variant's shared memory (the larger of its blocks', the dw
+// blocks': 16,384 B) and grid.
+size_t smem_any() {
+  const size_t dv_part = (size_t)(kGenRows * kGenRows + 3 * kGenRows) * 4;
+  const size_t dw_part =
+      (size_t)(kGenWords * kGenSpan + kGenWarps * kGenWords * 32) * 4;
+  return dv_part > dw_part ? dv_part : dw_part;
+}
+
+dim3 grid_any(int B, int K, int T, int E) {
+  return dim3(T + (K + kGenWords - 1) / kGenWords *
+                      ((E + kGenCols - 1) / kGenCols),
+              B);
+}
+
+template <typename Tin>
+int launch_any(const void* w, const void* v, const float* centers,
+               const float* dres, const int* rstar, const int* cstar,
+               const float* f, const float* dctx, const float* dclu,
+               float* dw, float* dv, int B, int K, int T, int R, int E,
+               cudaStream_t stream) {
+  auto kern = diag_bwd_any<Tin>;
+  const size_t smem = smem_any();
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kern<<<grid_any(B, K, T, E), kGenThreads, smem, stream>>>(
+      static_cast<const Tin*>(w), static_cast<const Tin*>(v), centers, dres,
+      rstar, cstar, f, dctx, dclu, dw, dv, K, T, R, E);
+  return (int)cudaGetLastError();
+}
+
+// Limits: the grid's (B <= 65535) and sizes of at least 1.
 bool bad_sizes(int B, int K, int T, int R, int E) {
-  return K < 1 || K > 32 || R < 1 || E < 4 || E % 4 != 0 || E > 512 ||
-         B < 0 || B > 65535 || T < 0;
+  return K < 1 || R < 1 || E < 1 || B < 0 || B > 65535 || T < 0;
 }
 
 }  // namespace
@@ -319,8 +524,8 @@ extern "C" {
 // [B, T, K, E], dctx and dclu [B, K, T] are f32, rstar and cstar [B, K, T]
 // int32 (the forward's). Written whole: dw [B, K, E] and dv [B, T, R, E],
 // f32. All tensors are contiguous; w, v, centers, f, dw and dv are 16-byte
-// aligned. Limits: 1 <= K <= 32, R >= 1, E a multiple of 4 with
-// 4 <= E <= 512, B <= 65535.
+// aligned. Shapes in_envelope takes run the kernel above, every other the
+// general variant. Limits: K, R, E >= 1, B <= 65535.
 int nafae_diag_bwd(const void* w, const void* v, int is_bf16,
                    const float* centers, const float* dres, const int* rstar,
                    const int* cstar, const float* f, const float* dctx,
@@ -329,6 +534,12 @@ int nafae_diag_bwd(const void* w, const void* v, int is_bf16,
   if (bad_sizes(B, K, T, R, E)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!in_envelope(K, E))
+    return is_bf16
+        ? launch_any<__nv_bfloat16>(w, v, centers, dres, rstar, cstar, f,
+                                    dctx, dclu, dw, dv, B, K, T, R, E, s)
+        : launch_any<float>(w, v, centers, dres, rstar, cstar, f, dctx, dclu,
+                            dw, dv, B, K, T, R, E, s);
   return is_bf16
       ? launch<__nv_bfloat16>(w, v, centers, dres, rstar, cstar, f, dctx,
                               dclu, dw, dv, B, K, T, R, E, s)
@@ -337,17 +548,20 @@ int nafae_diag_bwd(const void* w, const void* v, int is_bf16,
 }
 
 // Launches an empty kernel with the grid, block size and dynamic shared
-// memory that nafae_diag_bwd would use for these sizes: the launch floor the
-// measured times are judged against. Same limits and return value.
+// memory that nafae_diag_bwd would use for these sizes (the general
+// variant's where it would take it): the launch floor the measured times are
+// judged against. Same limits and return value.
 int nafae_diag_bwd_floor(int is_bf16, int B, int K, int T, int R, int E,
                          void* stream) {
   (void)is_bf16;
   if (bad_sizes(B, K, T, R, E) || B < 1) return (int)cudaErrorInvalidValue;
-  const size_t smem = smem_bytes(K, E);
+  const bool spec = in_envelope(K, E);
+  const size_t smem = spec ? smem_bytes(K, E) : smem_any();
   cudaError_t err = cudaFuncSetAttribute(
       null_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  null_kernel<<<grid_of(B, T, E), kThreads, smem,
+  null_kernel<<<spec ? grid_of(B, T, E) : grid_any(B, K, T, E),
+                spec ? kThreads : kGenThreads, smem,
                 static_cast<cudaStream_t>(stream)>>>();
   return (int)cudaGetLastError();
 }

@@ -18,8 +18,11 @@ TF32), bf16 operands on tensor cores (`mma.sync` m16n8k16, f32
 accumulators). Blocks take whole frames (80 columns: 4 frames at R = 20),
 so no dead region slot is multiplied; every dot is summed over E in one
 order wherever it sits in a tile, so exact ties stay ties and the first
-region wins. The source note of `csrc/cross_mil.cu` has the design and the
-bound, PERF.md the measured times.
+region wins. Shapes outside those kernels (E not a multiple of 4; bf16 at
+E > 512) take a general variant in the same source, same blocks and
+epilogue, whose product stages E as f32 by scalar loads: every E the
+reference takes. The source note of `csrc/cross_mil.cu` has the design and
+the bound, PERF.md the measured times.
 
 Masks, as the reference: a region with rm = 0 scores NEG = -1e9; an invalid
 frame gives a = 0; a valid frame with no valid region gives a = -1e9 and
@@ -45,7 +48,8 @@ from nafae_torch.ops.kernels import _build
 from nafae_torch.ops.kernels import check_tensor as _check
 
 NEG = -1e9
-MAX_E = 512           # a block's bf16 operands stay in shared memory whole
+MAX_GRID = 65535      # I, and the blocks of 32 words, along the grid's z, y
+WORDS_A_BLOCK = 32
 
 launches = {"cross_mil": 0}
 
@@ -97,11 +101,11 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def launch(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
-           rm: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
-    """The kernel alone on CUDA tensors: checks what it takes, allocates
-    a [I,M,T] f32 and idx [I,M,T] int32, and launches on the current
-    stream."""
+def _check_inputs(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
+                  rm: torch.Tensor | None) -> tuple[int, int, int, int, int]:
+    """Checks what the kernel takes; returns (I, M, T, R, E). Any R and E
+    (the specialised kernels or the general variant); the limits left are
+    the grid's."""
     if v.dim() != 4 or w_flat.dim() != 2:
         raise ValueError(f"need w_flat [M,E] and v [I,T,R,E], got "
                          f"{tuple(w_flat.shape)} and {tuple(v.shape)}")
@@ -109,19 +113,29 @@ def launch(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
     m = w_flat.shape[0]
     if v.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"v must be float32 or bfloat16, got {v.dtype}")
-    if r < 1:
-        raise ValueError("cross_mil kernel takes R >= 1")
-    if e % 4 or not 4 <= e <= MAX_E:
-        raise ValueError(f"cross_mil kernel takes E a multiple of 4 in "
-                         f"[4, {MAX_E}], got E={e}")
-    if i > 65535:
-        raise ValueError(f"cross_mil kernel takes I <= 65535, got I={i}")
+    if r < 1 or e < 1:
+        raise ValueError(f"cross_mil kernel takes R >= 1 and E >= 1, got "
+                         f"R={r}, E={e}")
+    if i > MAX_GRID or -(-m // WORDS_A_BLOCK) > MAX_GRID:
+        raise ValueError(f"cross_mil kernel takes I <= {MAX_GRID} and "
+                         f"ceil(M / {WORDS_A_BLOCK}) <= {MAX_GRID}, got I={i}, "
+                         f"M={m}")
     dev = v.device
     _check("v", v, (i, t, r, e), v.dtype, dev, vector=True)
     _check("w_flat", w_flat, (m, e), v.dtype, dev, vector=True)
     _check("fm", fm, (i, t), torch.float32, dev)
     if rm is not None:
         _check("rm", rm, (i, t, r), torch.float32, dev)
+    return i, m, t, r, e
+
+
+def launch(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
+           rm: torch.Tensor | None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The kernel alone on CUDA tensors: checks what it takes, allocates
+    a [I,M,T] f32 and idx [I,M,T] int32, and launches on the current
+    stream."""
+    i, m, t, r, e = _check_inputs(w_flat, v, fm, rm)
+    dev = v.device
     lib = _lib()
     a = torch.empty((i, m, t), dtype=torch.float32, device=dev)
     idx = torch.empty((i, m, t), dtype=torch.int32, device=dev)

@@ -27,7 +27,11 @@ butterfly a center; bf16: `mma.sync` on the tensor cores), and r* and c*
 come from first-index (value, index) butterflies. K4b is one launch of two
 kinds of block: per frame, dv from the words, the frame's ds and df staged
 once (no v read); per video and 32-column slice, dw as ds [K, T·R] · v
-[T·R, E], so v is read once. Both are bound by bytes (PERF.md §6 has their
+[T·R, E], so v is read once. Shapes outside those kernels (K > 32, E not
+a multiple of 4, E > 512) take a general variant of each in the same
+sources (a block a frame, words 32 at a time and E in slices, elements
+read one at a time): every K and E the reference takes. Both are bound by
+bytes (PERF.md §6 has their
 bounds, times and the empty-kernel floors of their grids, `launch_floor_fwd`
 and `launch_floor_bwd`).
 
@@ -61,8 +65,8 @@ from nafae_torch.ops.kernels import _build
 from nafae_torch.ops.kernels import check_tensor as _check
 
 NEG = -1e9
-MAX_K = 32            # the words stay in shared memory
-MAX_E = 512
+MAX_B = 65535         # videos along the backward grid's y
+MAX_FRAMES = 2**31 - 1   # frames along the general forward grid's x
 
 launches = {"diag_epilogue": 0, "diag_epilogue_bwd": 0}
 
@@ -145,7 +149,9 @@ def _lib_bwd() -> ctypes.CDLL:
 
 
 def _check_inputs(w, v, centers) -> tuple[int, int, int, int, int, int]:
-    """Checks what both kernels take; returns (B, K, T, R, E, Kc)."""
+    """Checks what both kernels take; returns (B, K, T, R, E, Kc). Any K,
+    R, E and Kc (the specialised kernels or the general variants); the limit
+    left is the grid's."""
     if v.dim() != 4 or w.dim() != 3 or centers.dim() != 2:
         raise ValueError(f"need w [B,K,E], v [B,T,R,E], centers [Kc,E]; got "
                          f"{tuple(w.shape)}, {tuple(v.shape)}, "
@@ -154,16 +160,12 @@ def _check_inputs(w, v, centers) -> tuple[int, int, int, int, int, int]:
     k, kc = w.shape[1], centers.shape[0]
     if v.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"v must be float32 or bfloat16, got {v.dtype}")
-    if not 1 <= k <= MAX_K:
-        raise ValueError(f"diag kernels take 1 <= K <= {MAX_K}, got K={k}")
-    if r < 1 or kc < 1:
-        raise ValueError(f"diag kernels take R >= 1 and Kc >= 1, got R={r}, "
-                         f"Kc={kc}")
-    if e % 4 or not 4 <= e <= MAX_E:
-        raise ValueError(f"diag kernels take E a multiple of 4 in "
-                         f"[4, {MAX_E}], got E={e}")
-    if b > 65535:
-        raise ValueError(f"diag kernels take B <= 65535, got B={b}")
+    if k < 1 or r < 1 or e < 1 or kc < 1:
+        raise ValueError(f"diag kernels take K, R, E and Kc >= 1, got K={k}, "
+                         f"R={r}, E={e}, Kc={kc}")
+    if b > MAX_B or b * t > MAX_FRAMES:
+        raise ValueError(f"diag kernels take B <= {MAX_B} and B*T <= "
+                         f"{MAX_FRAMES}, got B={b}, T={t}")
     dev = v.device
     # rows are read 16 (f32) or 8 (bf16) bytes at a time
     _check("v", v, (b, t, r, e), v.dtype, dev, vector=True)

@@ -4,12 +4,16 @@ tests/test_pallas.py runs them), on the same numpy inputs.
 
 Held: the plain version's a (rtol 1e-5 / atol 1e-5) at test_pallas.py's
 shapes, R = 33 (K3a's domain) and the degenerate single frame included,
+and at the widths the CUDA kernel's general variant takes (E = 3, 50 at
+R = 36, 1024; unit rows past E = 512, as the model's),
 with and without a region mask that leaves a valid frame with no valid
 region; its idx equal to the TPU kernels' on forced ties (the first
 region); CrossMil's gradients, which route the whole cotangent to idx,
 against jax.grad of the TPU kernel's VJP (rtol 1e-4 / atol 5e-5, the
-reference's own limits: dw sums I·T terms in another order). The bf16
-mode against JAX's f32 at 2e-2 (JAX's CPU backend runs no bf16 dots).
+reference's own limits: dw sums I·T terms in another order), also at
+those widths. The bf16 mode against JAX's f32 at 2e-2 (JAX's CPU backend
+runs no bf16 dots). The wrapper's checks take any R and E and refuse
+dtypes, layouts, alignment, masks and the grid's limits.
 
 The CUDA kernel runs only on a GPU: the `cuda` test skips here, and
 chip_smoke.py holds the kernel against the plain version on the card.
@@ -30,6 +34,11 @@ SHAPES = {                      # I, J, K, T, R, E (tests/test_pallas.py:23)
     "R20": (5, 4, 3, 7, 20, 32),
     "single": (2, 2, 1, 1, 1, 8),
     "R33": (4, 4, 2, 6, 33, 16),
+    # widths past the specialised kernels (the general variant's): E not a
+    # multiple of 4 (GloVe-50d's 50 at R = 36), E > 512
+    "E3": (3, 2, 2, 3, 5, 3),
+    "R36_E50": (2, 3, 2, 3, 36, 50),
+    "E1024": (2, 2, 2, 2, 5, 1024),
 }
 # shapes at the edges of the CUDA kernel's tiles (80 columns, 32 or 64 words
 # a block; E walked 32 or 16 columns at a time)
@@ -44,9 +53,11 @@ EDGE_SHAPES = {
     "E512": (2, 2, 2, 2, 5, 512),
     "E4": (2, 2, 2, 3, 5, 4),           # the smallest E
 }
-# region pairs made equal: r and r + 32, r and the last row, across a chunk
+# region pairs made equal: r and r + 32, r and the last row, across a chunk;
+# at R = 36 with E = 50 (the general variant's width), r and r + 32
 TIES = {33: [(0, 32), (5, 17)], 64: [(3, 35), (1, 63)],
-        100: [(7, 39), (2, 99), (40, 85)]}
+        100: [(7, 39), (2, 99), (40, 85)], 36: [(2, 34), (0, 35)]}
+TIE_E = {36: 50}                # E of a TIES case (16 when not listed)
 
 
 def _inputs(shape, masked, seed):
@@ -54,6 +65,11 @@ def _inputs(shape, masked, seed):
     rng = np.random.RandomState(seed)
     w = rng.randn(j, k, e).astype(np.float32)
     v = rng.randn(i, t, r, e).astype(np.float32)
+    if e > 512:
+        # unit rows, as the model's ŵ and v̂: a dot of 1024 raw normal
+        # entries is ~30 in size, summed in another order by each side
+        w /= np.linalg.norm(w, axis=-1, keepdims=True)
+        v /= np.linalg.norm(v, axis=-1, keepdims=True)
     fm = (rng.rand(i, t) > 0.3).astype(np.float32)
     fm[0, 0] = 1.0
     rm = None
@@ -103,7 +119,7 @@ def _edge_inputs(case):
 def _tie_inputs(r):
     """Duplicate region rows (TIES[r]) force exact ties; video 1, frame 0 is
     all masked."""
-    i, m, t, e = 2, 5, 2, 16
+    i, m, t, e = 2, 5, 2, TIE_E.get(r, 16)
     rng = np.random.RandomState(r)
     v = rng.randn(i, t, r, e).astype(np.float32)
     rm = (rng.rand(i, t, r) > 0.2).astype(np.float32)
@@ -176,7 +192,7 @@ def test_ties_resolve_to_the_first_region(r):
 
 
 @pytest.mark.parametrize("masked", [False, True])
-@pytest.mark.parametrize("case", ["R20", "R33"])
+@pytest.mark.parametrize("case", ["R20", "R33", "E3", "R36_E50", "E1024"])
 def test_gradients_match_the_tpu_kernel(case, masked):
     shape = SHAPES[case]
     w, v, fm, rm = _inputs(shape, masked, seed=3 + masked)
@@ -262,27 +278,46 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    """Shapes, dtypes and layouts outside the kernel's limits raise before
-    any launch."""
+    """Dtypes, layouts, alignment, masks and the grid's limits (I and the
+    blocks of 32 words) outside what the kernel takes raise before any
+    launch."""
     fm = torch.ones(2, 3)
     w = torch.zeros(4, 8)
-    for bad_w, bad_v, match in (
-            (w, torch.zeros(2, 3, 4, 6), "E"),
-            (torch.zeros(4, 1024), torch.zeros(2, 3, 4, 1024), "E"),
-            (w, torch.zeros(2, 3, 0, 8), "R"),
-            (w.half(), torch.zeros(2, 3, 4, 8, dtype=torch.float16),
+    unaligned = torch.zeros(2 * 3 * 4 * 8 + 1)[1:].view(2, 3, 4, 8)
+    for bad_w, bad_v, bad_fm, match in (
+            (w, torch.zeros(2, 3, 0, 8), fm, "R"),
+            (w.half(), torch.zeros(2, 3, 4, 8, dtype=torch.float16), fm,
              "float32 or bfloat16"),
-            (w, torch.zeros(2, 3, 8, 4).transpose(2, 3), "contiguous"),
-            (w.bfloat16(), torch.zeros(2, 3, 4, 8), "w_flat"),
-            (torch.zeros(4, 6), torch.zeros(2, 3, 4, 8), "w_flat")):
+            (w, torch.zeros(2, 3, 8, 4).transpose(2, 3), fm, "contiguous"),
+            (w, unaligned, fm, "aligned"),
+            (w.bfloat16(), torch.zeros(2, 3, 4, 8), fm, "w_flat"),
+            (torch.zeros(4, 6), torch.zeros(2, 3, 4, 8), fm, "w_flat"),
+            (torch.zeros(4, 1), torch.zeros(65536, 1, 1, 1),
+             torch.ones(65536, 1), "I <= 65535"),
+            (torch.zeros(32 * 65535 + 1, 1), torch.zeros(1, 1, 1, 1),
+             torch.ones(1, 1), "ceil")):
         with pytest.raises((ValueError, TypeError), match=match):
-            K.launch(bad_w, bad_v, fm, None)
+            K.launch(bad_w, bad_v, bad_fm, None)
     with pytest.raises(ValueError, match="rm"):
         K.launch(w, torch.zeros(2, 3, 4, 8), fm, torch.ones(2, 3, 5))
+    with pytest.raises(ValueError, match="fm"):
+        K.launch(w, torch.zeros(2, 3, 4, 8), torch.ones(2, 4), None)
     with pytest.raises(ValueError, match="cuda or cpu"):
         K.cross_mil(torch.zeros(1, 4, 8, device="meta"),
                     torch.zeros(2, 3, 4, 8, device="meta"),
                     torch.ones(2, 3, device="meta"))
+
+
+@pytest.mark.parametrize("r, e", [(4, 6), (4, 1024), (36, 50), (81, 3),
+                                  (20, 516), (1, 1)])
+def test_checks_take_any_width(r, e):
+    """E not a multiple of 4, E > 512 and any R pass the checks: the
+    general variant (or the f32 kernel, at E a multiple of 4) takes them."""
+    for dt in (torch.float32, torch.bfloat16):
+        v = torch.zeros(2, 3, r, e, dtype=dt)
+        assert K._check_inputs(torch.zeros(5, e, dtype=dt), v,
+                               torch.ones(2, 3),
+                               torch.ones(2, 3, r)) == (2, 5, 3, r, e)
 
 
 @pytest.fixture

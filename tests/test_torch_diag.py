@@ -6,7 +6,9 @@ Held, at test_pallas.py:358's shapes and limits, at config4-like ones
 (K = 8, R = 20, an all-masked frame, a frame without context) and at the
 CUDA kernels' limits and edges in small sizes (K = 1 and 32, E = 4 and
 512, R = 1 and 33, Kc = 1 and 130, T = 1, exact region and center ties at
-3 and 35, a video with no valid frame): ctx_kt and
+3 and 35, a video with no valid frame), and past them, where the general
+variants run (K = 33 and 40, E = 3, 50 and 1024, a center tie across 32 at
+E = 50): ctx_kt and
 clu_kt within 2e-5, f within 1e-6, and dw, dv of a masked weighted sum of
 ctx and clu within 3e-5, for both the plain version and the wrapper on CPU
 tensors (which takes the plain version). The selection ignores frame
@@ -44,8 +46,17 @@ CASES = {                       # B, K, T, R, E, Kc
     # exact ties between regions 3 and 35 and between centers 3 and 35
     # (across 32: the first must win), and a video with no valid frame
     "ties_dead_video": (2, 3, 3, 36, 16, 36),
+    # past the specialised kernels (the general variants'): K = 33 and 40,
+    # E = 3, 50 (GloVe-50d) and 1024, and a tie across 32 centers at E = 50
+    "k33": (2, 33, 3, 5, 16, 7),
+    "k40": (2, 40, 2, 4, 16, 5),
+    "e3": (2, 3, 4, 6, 3, 5),
+    "e50": (2, 3, 3, 6, 50, 9),
+    "e1024": (2, 2, 2, 3, 1024, 5),
+    "center_ties_e50": (2, 3, 3, 6, 50, 36),
 }
-TIES = {"ties_dead_video": 35}   # case -> later index of tied regions, centers
+# case -> later index of tied regions (where R is past it) and centers
+TIES = {"ties_dead_video": 35, "center_ties_e50": 35}
 DEAD = {"ties_dead_video"}       # cases whose video 1 has no valid frame
 DA, DB = 0.7, 1.3               # weights of the two losses in the sum
 
@@ -67,8 +78,9 @@ def _inputs(case, seed=0):
     rm[0, f1, :] = 0.0                 # a valid frame with no valid region
     if case in TIES:                   # duplicate rows: exact ties
         later = TIES[case]
-        v[:, :, later] = v[:, :, later - 32]
-        rm[:, :, later] = rm[:, :, later - 32]
+        if later < r:
+            v[:, :, later] = v[:, :, later - 32]
+            rm[:, :, later] = rm[:, :, later - 32]
         centers[later] = centers[later - 32]
     if case in DEAD:
         fm[1] = 0.0
@@ -223,29 +235,52 @@ def test_cpu_tensors_take_the_plain_version():
 
 
 def test_wrapper_rejects_what_the_kernels_do_not_take():
+    """Dtypes, layouts, alignment, shapes of the masks and cotangents, and
+    the grid's limit (B) outside what the kernels take raise before any
+    launch."""
     b, k, t, r, e, kc = 2, 3, 4, 5, 8, 6
     w, v = torch.zeros(b, k, e), torch.zeros(b, t, r, e)
     c, fm = torch.zeros(kc, e), torch.ones(b, t)
-    for bad, match in (((torch.zeros(b, 33, e), v, c), "K"),
-                       ((torch.zeros(b, k, 6), torch.zeros(b, t, r, 6),
-                         torch.zeros(kc, 6)), "E"),
+    unaligned = torch.zeros(b * t * r * e + 1)[1:].view(b, t, r, e)
+    big_w, big_v = torch.zeros(65536, 1, 1), torch.zeros(65536, 1, 1, 1)
+    for bad, match in (((w, torch.zeros(b, t, 0, e), c), "R"),
+                       ((torch.zeros(b, 0, e), v, c), "K"),
                        ((w, v, torch.zeros(0, e)), "Kc"),
                        ((w.half(), v.half(), c), "float32 or bfloat16"),
                        ((w, v.bfloat16(), c), "w"),
                        ((w, v, c.double()), "centers"),
                        ((w, torch.zeros(b, t, e, r).transpose(2, 3), c),
-                        "contiguous")):
+                        "contiguous"),
+                       ((w, unaligned, c), "aligned"),
+                       ((big_w, big_v, torch.zeros(1, 1)), "B <= 65535")):
         bw, bv, bc = bad
+        bfm = torch.ones(bv.shape[:2])
         with pytest.raises((ValueError, TypeError), match=match):
-            D.launch_fwd(bw, bv, bv, bc, fm, fm, None)
+            D.launch_fwd(bw, bv, bv, bc, bfm, bfm, None)
     with pytest.raises(ValueError, match="rm"):
         D.launch_fwd(w, v, v, c, fm, fm, torch.ones(b, t, r + 1))
+    with pytest.raises(ValueError, match="hc"):
+        D.launch_fwd(w, v, v, c, fm, torch.ones(b, t + 1), None)
     with pytest.raises(ValueError, match="dctx"):
         D.launch_bwd(w, v, c, torch.zeros(b, k, t, r),
                      torch.zeros(b, k, t, dtype=torch.int32),
                      torch.zeros(b, k, t, dtype=torch.int32),
                      torch.zeros(b, t, k, e), torch.zeros(b, k, t + 1),
                      torch.zeros(b, k, t))
+    with pytest.raises(ValueError, match="B <= 65535"):
+        D.launch_bwd(big_w, big_v, torch.zeros(1, 1), *(None,) * 6)
+
+
+@pytest.mark.parametrize("k, e", [(33, 16), (40, 256), (8, 6), (8, 50),
+                                  (8, 1024), (33, 3), (1, 1)])
+def test_checks_take_any_k_and_e(k, e):
+    """K > 32, E not a multiple of 4 and E > 512 pass the checks: the
+    general variants take them."""
+    for dt in (torch.float32, torch.bfloat16):
+        w = torch.zeros(2, k, e, dtype=dt)
+        v = torch.zeros(2, 3, 36, e, dtype=dt)
+        assert D._check_inputs(w, v, torch.zeros(130, e)) == (2, k, 3, 36, e,
+                                                               130)
 
 
 @pytest.fixture

@@ -10,7 +10,9 @@ atol 1e-5; a one-step params check proves nothing, the
 first update has lr 0). Each with `train.kernels` auto and, in the cases
 with a `-pallas` id, the fused route (the port's plain versions of the
 cross-MIL and diag-epilogue kernels against the JAX package's Pallas
-kernels in interpret mode). The JAX CPU backend cannot execute bf16 dots
+kernels in interpret mode), one step of it also at E = 50, E = 1024 and
+K = 40 with words past 32 live (the widths its CUDA kernels take through
+their general variants). The JAX CPU backend cannot execute bf16 dots
 (test_sp.py's bf16 step only compiles), so the port's bf16 step is held
 against JAX's f32 step at the 2e-2 of the JAX package's bf16-vs-f32 tests,
 gradients relative to each leaf's largest entry. Also: fit lowers the
@@ -80,14 +82,49 @@ def _torch_grads(ts, tb, tc):
             else g.numpy() for k, g in zip(names, gs)}
 
 
+@pytest.fixture(scope="module")
+def words40_root(tmp_path_factory):
+    """OV's widths with descriptions of up to 40 words (K > 32)."""
+    from nafae_tpu.data.synthetic import generate_synthetic_dataset
+    root = str(tmp_path_factory.mktemp("synth40"))
+    generate_synthetic_dataset(root, "train", num_segments=16, feat_dim=64,
+                               num_regions=6, min_frames=3, max_frames=8,
+                               max_words=40, seed=2)
+    return root
+
+
 @pytest.mark.parametrize("preset,dtype,kernels", [
     pytest.param(p, d, k, id=f"{p}-{d}" + ("-pallas" if k == "pallas" else ""))
     for k in ("auto", "pallas")
     for p, d in (("config2", "float32"), ("config3", "float32"),
                  ("config4", "float32"), ("config4", "bfloat16"))])
 def test_one_step_matches_jax(synth_root, preset, dtype, kernels):
-    jc, _ = _cfgs(synth_root, preset, kernels=kernels)
-    _, tc = _cfgs(synth_root, preset, [f"model.dtype={dtype}"], kernels)
+    _one_step_matches_jax(synth_root, preset, dtype, kernels)
+
+
+@pytest.mark.parametrize("dtype,extra", [
+    pytest.param("float32", ["model.embed_dim=50"], id="E50-float32"),
+    pytest.param("bfloat16", ["model.embed_dim=50"], id="E50-bfloat16"),
+    pytest.param("float32", ["model.embed_dim=1024"], id="E1024-float32"),
+    pytest.param("float32", ["data.max_words=40"], id="K40-float32")])
+def test_pallas_step_matches_jax_past_the_kernels_envelope(
+        synth_root, words40_root, dtype, extra):
+    """The fused route's step at the widths its CUDA kernels take through
+    their general variants on a card (E not a multiple of 4, E > 512, K >
+    32 words): the port's plain versions against the TPU kernels."""
+    root = words40_root if "data.max_words=40" in extra else synth_root
+    batch = _one_step_matches_jax(root, "config4", dtype, "pallas", extra)
+    if root == words40_root:             # words past 32 are live
+        assert batch["word_mask"].shape[1] == 40
+        assert (batch["word_mask"].sum(-1) > 32).any()
+
+
+def _one_step_matches_jax(synth_root, preset, dtype, kernels, extra=()):
+    """One step's gradients and metrics, the port's against JAX's, from
+    one state on one batch; returns the batch."""
+    jc, _ = _cfgs(synth_root, preset, extra, kernels=kernels)
+    _, tc = _cfgs(synth_root, preset, [*extra, f"model.dtype={dtype}"],
+                  kernels)
     batch = _batches(synth_root, jc, 1)[0]
     js, ts = _start(jc)
     tb = TT.batch_to_device(batch, torch.device("cpu"))
@@ -111,6 +148,7 @@ def test_one_step_matches_jax(synth_root, preset, dtype, kernels):
     for k in mj:
         np.testing.assert_allclose(float(mt[k]), float(mj[k]), err_msg=k,
                                    **tol)
+    return batch
 
 
 @pytest.mark.parametrize("preset,source,kernels", [
