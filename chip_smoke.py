@@ -212,8 +212,8 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
 17. every shape the reference takes (run after phase 16, in a child
    process of its own, on the serving phase's requests, phase 5's data
    and an R = 36 split written there): (a) K1f, K1fr, K1b and K1br's
-   general variant against their plain versions at R = 33 and 36, E = 3,
-   50, 516 and 1024, w = 17 and 20 (w >= T), real halos, an invalid
+   general variant against their plain versions at R = 33, 36 and 65, E =
+   3, 50, 516 and 1024, w = 17 and 20 (w >= T), real halos, an invalid
    centre frame, a frame with no valid region, f32 and bf16, and
    repeatable bit for bit; (b) config4 servers at R = 36 / E = 1024 (f32,
    bf16) and int8pre at E = 50: every batch from the graph bit for bit
@@ -225,9 +225,9 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    variant's kernels, rows against a CPU re-run, f32 gradients within
    (1e-4, 1e-5 x largest) of the CPU's where the same rounded to bf16
    fall outside; (d) the four kernels' times there beside plain and
-   bound; (e) config1 eval of the R = 36 split, hits card = CPU; (f)
-   int8_matmul at M = 5 and 16, N = 50 and K = 2043, bit for bit the
-   int64 product.
+   bound, and K1f's SDPA yardstick; (e) config1 eval of the R = 36
+   split, hits card = CPU; (f) int8_matmul at M = 5 and 16, N = 50 and K
+   = 2043, bit for bit the int64 product.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -5810,7 +5810,8 @@ def check_c5_graphs(torch, ann: str, tmp: str) -> dict:
 
 # the context mix's cases past the specialised kernels' envelope (R > 32, E
 # above 512 or not a multiple of 4, w > 16), which the general variant of
-# csrc/ctx_mix*.cu takes: (B, T, R, E, w, region mask, edges)
+# csrc/ctx_mix*.cu takes (the forward's wide kernels past R = 64): (B, T,
+# R, E, w, region mask, edges)
 CTX_ANY_CASES = [(4, 6, 33, 64, 2, True, False),     # R = 33: two row tiles
                  (4, 6, 36, 1024, 3, True, False),   # R = 36, E = 1024
                  (2, 6, 36, 1024, 3, False, False),  # ... no region mask
@@ -5819,12 +5820,13 @@ CTX_ANY_CASES = [(4, 6, 33, 64, 2, True, False),     # R = 33: two row tiles
                  (2, 5, 3, 3, 2, True, False),       # E = 3, R = 3
                  (2, 4, 20, 64, 17, True, False),    # w = 17 >= T
                  (2, 3, 5, 50, 20, True, False),     # w = 20 >= T
-                 (3, 12, 36, 50, 3, True, True)]     # cnt = 0; invalid centre
+                 (3, 12, 36, 50, 3, True, True),     # cnt = 0; invalid centre
+                 (2, 4, 65, 50, 2, True, False)]     # R = 65: the wide kernels
 # ... with real halo frames (B, T, R, E, w), w > T in the second
 CTX_ANY_HALO_CASES = [(4, 5, 36, 1024, 6), (3, 4, 33, 50, 17)]
-# K3's cases past the bf16 kernel's envelope or both kernels' (E not a
-# multiple of 4, bf16 E > 512), as CROSS_CASES: the f32 kernel takes E =
-# 516, 520 and 1024 itself, the general variant the rest
+# K3's cases past the bf16 kernel's envelope (E not a multiple of 4, or
+# above 512), as CROSS_CASES: the general variant takes them in bf16, the
+# f32 kernel in f32
 CROSS_ANY_CASES = [
     (16, 128, 20, 36, 1024, True, (), False),     # phase 17's R = 36, E = 1024
     (2, 40, 5, 36, 1024, False, (), False),       # ... no region mask
@@ -6092,15 +6094,15 @@ def any_fit_names(e: int, ctx_any: bool, dt: str) -> tuple[dict, tuple]:
     """(the kernels a traced replay of a phase-17 fit at embedding width e
     names, each once a launch: ANY_TRACE_NAMES, with the context mix's
     specialised kernels where not ctx_any and K3's specialised kernel of
-    dt where csrc/cross_mil.cu takes it (E a multiple of 4; bf16 also E <=
-    512); the specialised kernels the replay must not name: K4f's and
-    K4b's, and K3's of dt where its general variant runs)."""
+    dt where csrc/cross_mil.cu takes it (f32 any E; bf16 E a multiple of 4
+    up to 512); the specialised kernels the replay must not name: K4f's
+    and K4b's, and K3's of dt where its general variant runs)."""
     names = dict(ANY_TRACE_NAMES)
     if not ctx_any:
         names.update({k: TRACE_NAMES[k] for k in CTX_KEYS})
     spec = "cross_mil_bf16" if dt == "bfloat16" else "cross_mil_f32"
     absent = ("diag_fwd_kernel", "diag_bwd_kernel")
-    if e % 4 == 0 and (dt == "float32" or e <= 512):
+    if dt == "float32" or (e % 4 == 0 and e <= 512):
         names["cross_mil"] = (spec,)
         return names, absent + ("cross_mil_any",)
     return names, absent + (spec,)
@@ -6111,7 +6113,8 @@ def any_timings(torch) -> dict:
     each shape of ANY_TIMED (ctx_inputs' random masks, du from a seed) in
     f32 and bf16, each beside its plain version (torch.profiler's device
     time of context_mix_plain, its backward alone for K1b/K1br) and its
-    bound."""
+    bound; and K1f's SDPA yardstick (sdpa_mix) there, with its max |error|
+    against the plain version and whether it is within CTX_TOL."""
     from nafae_torch.ops.kernels import ctx_mix as K
 
     dev = torch.device("cuda")
@@ -6147,6 +6150,17 @@ def any_timings(torch) -> dict:
                 torch, lambda: torch.autograd.grad(up, vp, du,
                                                    retain_graph=True))[1]
             del up, vp
+            res["library_fwd_ms" + tag] = device_ms(
+                torch, lambda: sdpa_mix(torch, v, fm, rm, w, 0.1))
+            with torch.no_grad():
+                want, _ = K.context_mix_plain(v, fm, w, 0.1, dtype=dt,
+                                              rm_ext=rm)
+                got = sdpa_mix(torch, v, fm, rm, w, 0.1)
+            rtol, atol = CTX_TOL["bfloat16" if tag else "float32"]
+            res["library_fwd_err" + tag] = (got - want).abs().max().item()
+            res["library_fwd_within_tol" + tag] = bool(torch.allclose(
+                got, want, rtol=rtol, atol=atol))
+            del want, got
             for key, bnd in (
                     ("fwd", fwd_bound_ms(torch, v, fm, rm, w)),
                     ("fwd_res", fwd_bound_ms(torch, v, fm, rm, w, True)),
@@ -6168,6 +6182,9 @@ def any_timings(torch) -> dict:
                                        ("K1fr", "fwd_res", "fwd_res"),
                                        ("K1b", "bwd", "bwd"),
                                        ("K1br", "bwd_res", "bwd")))
+                + f"; K1f's SDPA yardstick {res['library_fwd_ms' + tag]:.4f}"
+                f" (max |err| vs plain {res['library_fwd_err' + tag]:.3e}, "
+                f"within CTX_TOL: {res['library_fwd_within_tol' + tag]})"
                 + f" — {card}")
     return out
 
@@ -6314,19 +6331,23 @@ def run_any_child(torch, tmp: str) -> dict:
 def any_keys(anyp: dict, name: str, key: str, pkey: str) -> dict:
     """A context-mix kernel's phase-17 numbers for its JSON entry: its max
     |error| against plain over phase 17's cases (f32, bf16), and at each
-    shape of ANY_TIMED its device ms, its plain version's and its bound."""
+    shape of ANY_TIMED its device ms, its plain version's and its bound
+    (K1f also its SDPA yardstick's ms and max |error|)."""
     errs = anyp["errs"]
     err = {d: (errs["ctx_mix_fwd"][d] if name == "ctx_mix_fwd"
                else errs["grads"][d][name]) for d in GRAPH_DTYPES}
+    names = (("ms", key + "_ms"), ("plain_ms", "plain_" + pkey + "_ms"),
+             ("bound_ms", key + "_bound_ms"),
+             ("bound_by", key + "_bound_by")) + (
+        (("library_ms", "library_fwd_ms"),
+         ("library_max_abs_err", "library_fwd_err"))
+        if name == "ctx_mix_fwd" else ())
     return {"max_abs_err_any": err["float32"],
             "max_abs_err_any_bf16": err["bfloat16"],
             "any_shapes": {
                 shape: {"shapes": res["shapes"], **{
                     k + tag: res[f + tag] for tag in ("", "_bf16")
-                    for k, f in (("ms", key + "_ms"),
-                                 ("plain_ms", "plain_" + pkey + "_ms"),
-                                 ("bound_ms", key + "_bound_ms"),
-                                 ("bound_by", key + "_bound_by"))}}
+                    for k, f in names}}
                 for shape, res in anyp["times"].items()}}
 
 

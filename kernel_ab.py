@@ -14,7 +14,12 @@ sources, on one card, in one process, on the main path's own inputs:
   on this tree's K4f residuals with cotangents from a seed, as
   chip_smoke.fused_timings runs them;
 - K2: the first config-5 batch's detector planes (320 rows x 24,000
-  anchors, num_keep 20), from the f32 and from the bf16 detector.
+  anchors, num_keep 20), from the f32 and from the bf16 detector;
+- the general variants at phase 17's shapes (chip_smoke.ANY_TIMED, B=16,
+  T=20): K1f / K1fr / K1br / K1b at R=36, E=1024, w=3 and R=20, E=50,
+  w=20 on chip_smoke.ctx_inputs' random masks, and K3 on the fused
+  route's inputs of those fits (chip_smoke.fused_inputs), in f32 and bf16
+  (any_ab; the other versions must take those shapes).
 
     python3 kernel_ab.py DIR [DIR ...]
 
@@ -446,6 +451,75 @@ def compare_fwd(torch, others, v, fm, rm, w, temp, residual, case) -> dict:
     return entry
 
 
+def bwd_ab(torch, others: dict, v32, fm, rm, w, temp, du,
+           suffix: str = "") -> dict:
+    """K1br (on this tree's K1fr alpha) and K1b of this tree against the
+    other versions on one input, v in f32 and in bf16: dv within GRAD_TOL,
+    whether bit for bit this tree's, the a_b times and this tree's time by
+    kernel; keys "{K1br,K1b}_{f32,bf16}" + suffix."""
+    from nafae_torch.ops.kernels import ctx_mix as K1
+
+    res = {}
+    for tag, v in (("f32", v32), ("bf16", v32.to(torch.bfloat16))):
+        _, alpha = K1.launch_fwd(v, fm, w, temp, rm, residual=True)
+        tol = CS.GRAD_TOL["float32" if tag == "f32" else "bfloat16"]
+        for kname, a in (("K1br", alpha), ("K1b", None)):
+            fns = {"tree": lambda a=a, v=v: K1.launch_bwd(v, fm, w, temp, rm,
+                                                           du, a)}
+            want = fns["tree"]()
+            equal = {}
+            for name, (_, ob, *_) in others.items():
+                fns[name] = (lambda ob=ob, a=a, v=v:
+                             ob(v, fm, rm, du, w, temp, a))
+                got = fns[name]()
+                if not torch.allclose(got, want, rtol=tol[0], atol=tol[1]):
+                    CS.fail(f"{kname} {tag}{suffix}: {name} differs from "
+                            "this tree")
+                equal[name] = bool(torch.equal(got, want))
+            entry = {"ms": a_b(torch, fns), "bitwise_equal_to_tree": equal,
+                     "by_kernel_us": CS.profile_forward(torch, fns["tree"],
+                                                        reps=20)[0]}
+            res[f"{kname}_{tag}{suffix}"] = entry
+            CS.log(f"{kname} {tag}{suffix}: {entry}")
+    return res
+
+
+def any_ab(torch, others: dict, tmp: str) -> dict:
+    """The general variants at phase 17's shapes (chip_smoke.ANY_TIMED):
+    K1f, K1fr, K1br and K1b on ctx_inputs' random masks (B=16, T=20: R=36,
+    E=1024, w=3 and R=20, E=50, w=20; du from a seed), and K3 on the fused
+    route's inputs of those fits (chip_smoke.fused_inputs on an R = 36
+    split written under tmp, and on tmp's config-4 split at E = 50), each
+    in f32 and bf16, as the config-4 comparisons; keys end in the shape's
+    name. The other versions must take those shapes."""
+    gen = torch.Generator().manual_seed(CS.SEED + 18)
+    res = {}
+    for name, (b, t, r, e, w) in CS.ANY_TIMED.items():
+        v32, fm, rm = CS.ctx_inputs(torch, gen, b, t, r, e, w,
+                                    torch.device("cuda"))
+        du = torch.randn(b, t, r, e, generator=gen).cuda()
+        for tag, v in (("f32", v32), ("bf16", v32.to(torch.bfloat16))):
+            for kname, residual in (("K1f", False), ("K1fr", True)):
+                res[f"{kname}_{tag}_{name}"] = compare_fwd(
+                    torch, others, v, fm, rm, w, 0.1, residual,
+                    f"{kname} {tag} at {name}")
+        res.update(bwd_ab(torch, others, v32, fm, rm, w, 0.1, du,
+                          "_" + name))
+        torch.cuda.empty_cache()
+    roots = {"c4": tmp, "r36": os.path.join(tmp, "r36")}
+    CS.make_train_data(roots["r36"], regions=36)
+    for name in CS.ANY_TIMED:
+        extra, data, *_ = CS.ANY_FITS[name]
+        ins = CS.fused_inputs(torch, roots[data], tmp, extra)
+        for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+            w_emb, v_emb = ins[0].to(dt), ins[1].to(dt)
+            res.update(cross_ab(torch, others, (
+                w_emb.reshape(-1, w_emb.shape[-1]).contiguous(), v_emb,
+                ins[4], ins[5]), f"{tag}_{name}"))
+        torch.cuda.empty_cache()
+    return res
+
+
 def a_b(torch, fns: dict) -> dict:
     """Device ms of each fn, others then this tree twice then others
     reversed: {name: [ms, ms]}."""
@@ -464,7 +538,7 @@ def main() -> None:
         CS.fail("kernel_ab.py needs a CUDA card")
     from nafae_torch.config import load_config
     from nafae_torch.ops import grounding as TG
-    from nafae_torch.ops.kernels import _build, ctx_mix as K1, nms as K2
+    from nafae_torch.ops.kernels import _build, nms as K2
     from nafae_torch.serve import GroundingServer
     from nafae_torch.train import TrainState, batch_to_device
 
@@ -515,29 +589,8 @@ def main() -> None:
         res["serving_batch_host_ms"] = serving_host_ab(torch, others, tree,
                                                        srv, batch)
         CS.log(f"serving batch host to host: {res['serving_batch_host_ms']}")
-        for tag, v in (("f32", v32), ("bf16", v32.to(torch.bfloat16))):
-            _, alpha = K1.launch_fwd(v, fm, w, temp, rm, residual=True)
-            tol = CS.GRAD_TOL["float32" if tag == "f32" else "bfloat16"]
-            for kname, a in (("K1br", alpha), ("K1b", None)):
-                fns = {"tree": lambda a=a, v=v: K1.launch_bwd(v, fm, w, temp,
-                                                               rm, du, a)}
-                want = fns["tree"]()
-                equal = {}
-                for name, (_, ob, *_) in others.items():
-                    fns[name] = (lambda ob=ob, a=a, v=v:
-                                 ob(v, fm, rm, du, w, temp, a))
-                    got = fns[name]()
-                    if not torch.allclose(got, want, rtol=tol[0],
-                                          atol=tol[1]):
-                        CS.fail(f"{kname} {tag}: {name} differs from this "
-                                "tree")
-                    equal[name] = bool(torch.equal(got, want))
-                entry = {"ms": a_b(torch, fns),
-                         "bitwise_equal_to_tree": equal,
-                         "by_kernel_us": CS.profile_forward(
-                             torch, fns["tree"], reps=20)[0]}
-                res[f"{kname}_{tag}"] = entry
-                CS.log(f"{kname} {tag}: {entry}")
+        res.update(bwd_ab(torch, others, v32, fm, rm, w, temp, du))
+        res.update(any_ab(torch, others, tmp))
         ann = CS.write_c5_videos(tmp, CS.C5_SEGMENTS, 640, CS.SEED)
         cfg5 = CS.c5_cfg(ann, os.path.join(tmp, "ck5"), "float32", 1)
         frames = torch.from_numpy(CS.c5_first_batch(cfg5)["frames"]).cuda()

@@ -35,7 +35,9 @@
 // tx + 16j): 13 16-byte shared loads feed 160 FMAs, against 5 for 16 before.
 // E is walked in stages of 64 columns, copied with cp.async into two buffers
 // (rows of 68 floats, so the 8 rows a quarter-warp reads fall in distinct
-// banks) while the previous stage is multiplied. Two groups of 64 threads
+// banks) while the previous stage is multiplied: 16-byte copies at E a
+// multiple of 4, else the widest a row allows (8 bytes at GloVe-50d's E =
+// 50, else 4), zero-filled past E, so the kernel takes any E. Two groups of 64 threads
 // share a stage: group 0 sums columns 0..31 of it, group 1 columns 32..63, and
 // the epilogue adds group 0's sum to group 1's, the same order for every
 // output. That doubles the warps that issue FMAs: at config 4 the grid is 5 x
@@ -52,14 +54,12 @@
 // quarter has landed. At config 4: 5 x 2 x 16 = 160 blocks of 97 KB, two an
 // SM. Every output element sees the same k loop, so ties stay exact.
 //
-// Any E (cross_mil_any): the f32 kernel takes any E a multiple of 4 (its
-// stages do not grow with E); the bf16 kernel also needs E <= 512. Every
-// other shape (E not a multiple of 4: GloVe-50d's E = 50; bf16 at E = 1024)
-// takes a general variant with the same blocks, scores tile and epilogue,
-// whose product stages E 32 columns at a time as f32 by scalar loads and
-// sums a 4 x 5 register tile a thread by FFMA (see below). It is a first,
-// simple kernel: at R = 36, E = 1024 the same 3.0 GFLOP are bound by
-// operations in f32 (~45 us) and by the 23.6 MB of v in bf16 (~7 us).
+// Any E (cross_mil_any): the bf16 kernel above needs E a multiple of 4 up to
+// 512. Every other bf16 shape (GloVe-50d's E = 50; E = 1024) takes a
+// general variant with the same blocks, scores tile and epilogue whose
+// tensor-core product streams E through a ring of three stages of 64
+// columns (see below). At R = 36, E = 1024 its 3.0 GFLOP are bound by the
+// 23.6 MB of bf16 v (~7 us).
 //
 // Bound on an H100 SXM (config4 training shapes I=16, M=B*K=128, T=20, R=20,
 // E=256): 2*M*I*T*R*E = 419 MFLOP, ~6.3 us at 67 TFLOP/s f32 on CUDA cores,
@@ -182,12 +182,12 @@ cross_mil_f32(const float* __restrict__ w,    // [M, E]
     for (int c = threadIdx.x; c < kCols; c += blockDim.x)
       live[c] = (c < nc && rm) ? rm[col0 + c] : 1.f;
 
-    auto stage = [&](int ks) {
+    auto stage = [&](int ks) {       // 16-byte copies at E % 4 == 0
       const int buf = ks & 1;
-      stage_tile_async<4>(ws + buf * kWordsF * kLd, wsrc, kWordsF, mw, E,
-                          ks * kSplit * kBk, kSplit * kBk, kLd);
-      stage_tile_async<4>(vs + buf * kCols * kLd, vsrc, kCols, nc, E,
-                          ks * kSplit * kBk, kSplit * kBk, kLd);
+      stage_tile_any(ws + buf * kWordsF * kLd, wsrc, kWordsF, mw, E,
+                     ks * kSplit * kBk, kSplit * kBk, kLd);
+      stage_tile_any(vs + buf * kCols * kLd, vsrc, kCols, nc, E,
+                     ks * kSplit * kBk, kSplit * kBk, kLd);
       cp_async_commit();
     };
 
@@ -251,6 +251,78 @@ cross_mil_f32(const float* __restrict__ w,    // [M, E]
   }
 }
 
+// bf16: c += the products of a warp's 32 words (rows wm.., two m16 tiles of
+// ws) and 40 columns (rows wn.. of vs, five n8 tiles) over the k16 steps k0,
+// k0 + kStep, ... below k1 of the staged columns (rows of stride ld), one
+// mma.sync a tile and step, k increasing; tiles at or past nc columns are
+// skipped (warp-uniform).
+template <int kStep = 16>
+__device__ __forceinline__ void mma_words_cols(
+    float (&c)[2][5][4], const __nv_bfloat16* __restrict__ ws,
+    const __nv_bfloat16* __restrict__ vs, int ld, int k0, int k1, int wm,
+    int wn, int nc) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+  for (int k = k0; k < k1; k += kStep) {
+    uint32_t x[2][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const __nv_bfloat16* p = ws + (wm + mi * 16 + g) * ld + k + 2 * tig;
+      x[mi][0] = *reinterpret_cast<const uint32_t*>(p);
+      x[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
+      x[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
+      x[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
+    }
+#pragma unroll
+    for (int ni = 0; ni < 5; ++ni) {
+      if (wn + ni * 8 >= nc) continue;    // dead columns: warp-uniform
+      const __nv_bfloat16* p = vs + (wn + ni * 8 + g) * ld + k + 2 * tig;
+      const uint32_t y0 = *reinterpret_cast<const uint32_t*>(p);
+      const uint32_t y1 = *reinterpret_cast<const uint32_t*>(p + 8);
+      mma_bf16(c[0][ni], x[0], y0, y1);
+      mma_bf16(c[1][ni], x[1], y0, y1);
+    }
+  }
+}
+
+// bf16: c += the raw sums a later group left in the scores tile.
+__device__ __forceinline__ void add_scores(float (&c)[2][5][4],
+                                           const float* __restrict__ sc,
+                                           int wm, int wn) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 5; ++ni)
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const int row = wm + mi * 16 + g + (z >> 1) * 8;
+        const int col = wn + ni * 8 + 2 * tig + (z & 1);
+        c[mi][ni][z] += sc[row * kLdSc + col];
+      }
+}
+
+// bf16: a warp's accumulators into the scores tile, -1e9 where a column's
+// region is masked.
+__device__ __forceinline__ void store_scores(float* __restrict__ sc,
+                                             const float (&c)[2][5][4],
+                                             const float* __restrict__ live,
+                                             int wm, int wn) {
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 5; ++ni)
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const int row = wm + mi * 16 + g + (z >> 1) * 8;
+        const int col = wn + ni * 8 + 2 * tig + (z & 1);
+        sc[row * kLdSc + col] = live[col] > 0.f ? c[mi][ni][z] : kNeg;
+      }
+}
+
 __global__ void __launch_bounds__(kThreadsH)
 cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
                const __nv_bfloat16* __restrict__ v,   // [I, T, R, E]
@@ -269,8 +341,7 @@ cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
   const int m0 = blockIdx.y * kWordsH;
   const int i = blockIdx.z;
   const int mw = min(kWordsH, M - m0);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3;
+  const int warp = threadIdx.x >> 5;
   const int wm = (warp & 1) * 32, wn = (warp >> 1) * 40;
   const int kg = ((ep / 16 + kGroups - 1) / kGroups) * 16;  // columns a group
   const __nv_bfloat16* wsrc = w + (size_t)m0 * E;
@@ -312,80 +383,70 @@ cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
     for (int q = 0; q < kGroups; ++q) {
       cp_async_wait(kGroups - 1 - q);
       __syncthreads();
-      const int kend = min(ep, (q + 1) * kg);
-      for (int k = q * kg; k < kend; k += 16) {
-        uint32_t x[2][4];
-#pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
-          const __nv_bfloat16* p = ws + (wm + mi * 16 + g) * ld + k + 2 * tig;
-          x[mi][0] = *reinterpret_cast<const uint32_t*>(p);
-          x[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
-          x[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
-          x[mi][3] = *reinterpret_cast<const uint32_t*>(p + 8 * ld + 8);
-        }
-#pragma unroll
-        for (int ni = 0; ni < 5; ++ni) {
-          if (wn + ni * 8 >= nc) continue;    // dead columns: warp-uniform
-          const __nv_bfloat16* p = vs + (wn + ni * 8 + g) * ld + k + 2 * tig;
-          const uint32_t y0 = *reinterpret_cast<const uint32_t*>(p);
-          const uint32_t y1 = *reinterpret_cast<const uint32_t*>(p + 8);
-          mma_bf16(c[0][ni], x[0], y0, y1);
-          mma_bf16(c[1][ni], x[1], y0, y1);
-        }
-      }
+      mma_words_cols(c, ws, vs, ld, q * kg, min(ep, (q + 1) * kg), wm, wn,
+                     nc);
     }
-
-#pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-      for (int ni = 0; ni < 5; ++ni)
-#pragma unroll
-        for (int z = 0; z < 4; ++z) {
-          const int row = wm + mi * 16 + g + (z >> 1) * 8;
-          const int col = wn + ni * 8 + 2 * tig + (z & 1);
-          sc[row * kLdSc + col] = live[col] > 0.f ? c[mi][ni][z] : kNeg;
-        }
+    store_scores(sc, c, live, wm, wn);
     __syncthreads();
     segment_max<kWordsH>(sc, fm, a, idx, sp, sp.multi ? nc : R, c0, ch == 0,
                          ch == sp.chunks - 1, i, m0, mw, M, T, best, arg);
   }
 }
 
-// The general variant, for every shape outside the two kernels above: E not
-// a multiple of 4 (rows not 8- or 16-byte aligned), and bf16 with E > 512
-// (whole rows no longer fit in shared memory). The same blocks (32 words x
-// 80 columns: whole frames, or a long frame in chunks), the same scores tile
-// and the same segmented first maximum; only the product differs: E is
-// walked in stages of kGenK columns, staged as f32 by scalar loads (zero past
-// E and past the live rows, so no row needs any alignment and nothing grows
-// with E), and each of 128 threads sums a 4 x 5 register tile (words ty + 8i,
-// columns tx + 16j) by FFMA, full f32 (bf16 products are exact in f32). Every
-// dot adds its E products in increasing column order, one fmaf each,
-// wherever it sits in a tile, so equal region rows give equal scores.
-constexpr int kGenK = 32;                    // columns of E a stage
-constexpr int kGenLd = kGenK + 4;            // staged rows: float4 reads
-constexpr int kGenTy = 8, kGenTx = 16;       // 128 threads
-constexpr int kGenWordsPer = kWordsF / kGenTy;   // 4 words a thread
-constexpr int kGenThreads = kGenTy * kGenTx;
-static_assert(kGenTx * kColsPer == kCols, "the thread tiles cover the columns");
-template <typename Tin>
-__global__ void __launch_bounds__(kGenThreads)
-cross_mil_any(const Tin* __restrict__ w, const Tin* __restrict__ v,
+// The general variant, for every bf16 shape outside the kernel above: E not
+// a multiple of 4 (rows not 8-byte aligned) or above 512 (whole rows no
+// longer fit in shared memory). The same blocks (whole frames, or a long
+// frame in chunks), the same scores tile and the same segmented first
+// maximum, with E streamed so that shared memory does not grow with it.
+// The product is the bf16 kernel's (64 words x 80 columns, warps of 32
+// x 40, mma.sync m16n8k16, f32 accumulators) over E in stages of kChunkH
+// columns, a ring of kStagesH stages in shared memory (16-, 8- or 4-byte
+// cp.async as the rows allow; plain loads for odd E), each stage copied
+// kStagesH - 1 stages ahead of its products; the scores tile then reuses
+// the ring, so a block holds 62.5 KB and three share an SM (at R = 36, E =
+// 1024 all 320 blocks of I = 16, M = 128, T = 20 are resident at once). Two
+// groups of four warps take alternate k16 steps of each stage, and the
+// epilogue adds the second group's sums to the first's, in the same order
+// for every output: at R = 36, E = 1024 the copies and the products each
+// take more than half of the kernel's time on their own, and twice the
+// warps overlap them better. A deeper ring or 32-column stages were slower
+// there (PERF.md).
+//
+// Every output's dot adds its products in increasing k, the same for every
+// place in a tile, so equal region rows give equal scores and ties still
+// resolve to the first region. Bound at R = 36, E = 1024 (I = 16, M = 128,
+// T = 20, every region live): 3.0 GFLOP, ~3 us on bf16 tensor cores,
+// against 23.6 MB of bf16 v, ~7 us: bound by bytes.
+constexpr int kChunkH = 64;                  // columns of E a bf16 stage
+constexpr int kLdH = kChunkH + 8;            // 144-byte rows: conflict-free
+constexpr int kStagesH = 3;
+constexpr int kStageH = (kWordsH + kCols) * kLdH;   // bf16 of a stage
+constexpr int kSplitH = 2;                   // groups of 4 warps over k16
+constexpr int kThreadsG = kThreadsH * kSplitH;
+
+__global__ void __launch_bounds__(kThreadsG)
+cross_mil_any(const __nv_bfloat16* __restrict__ w,   // [M, E]
+              const __nv_bfloat16* __restrict__ v,   // [I, T, R, E]
               const float* __restrict__ fm, const float* __restrict__ rm,
               float* __restrict__ a, int* __restrict__ idx, int M, int T,
               int R, int E) {
   extern __shared__ __align__(16) float smem[];
-  float* ws = smem;                          // [kWordsF][kGenLd]
-  float* vs = ws + kWordsF * kGenLd;         // [kCols][kGenLd]
-  float* sc = vs + kCols * kGenLd;           // [kWordsF][kLdSc]
-  float* live = sc + kWordsF * kLdSc;        // [kCols]
+  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+  // the scores tile reuses the stages once the products are done
+  float* sc = reinterpret_cast<float*>(stages);   // [kWordsH][kLdSc]
+  float* live = reinterpret_cast<float*>(stages + kStagesH * kStageH);
+  static_assert(kWordsH * kLdSc * sizeof(float) <=
+                kStagesH * kStageH * sizeof(__nv_bfloat16),
+                "the scores tile fits in the stages");
 
   const Span sp = block_span(T, R);
-  const int m0 = blockIdx.y * kWordsF;
+  const int m0 = blockIdx.y * kWordsH;
   const int i = blockIdx.z;
-  const int mw = min(kWordsF, M - m0);
-  const int ty = threadIdx.x / kGenTx, tx = threadIdx.x % kGenTx;
-  const Tin* wsrc = w + (size_t)m0 * E;
+  const int mw = min(kWordsH, M - m0);
+  const int warp = threadIdx.x >> 5 & 3, grp = threadIdx.x >> 7;
+  const int wm = (warp & 1) * 32, wn = (warp >> 1) * 40;
+  const int nk = (E + kChunkH - 1) / kChunkH;
+  const __nv_bfloat16* wsrc = w + (size_t)m0 * E;
   float best = -CUDART_INF_F;
   int arg = INT_MAX;
 
@@ -393,81 +454,66 @@ cross_mil_any(const Tin* __restrict__ w, const Tin* __restrict__ v,
     const int c0 = ch * kCols;
     const int nc = sp.multi ? min(kCols, R - c0) : sp.nf * R;
     const size_t col0 = ((size_t)i * T + sp.t0) * R + c0;
-    const Tin* vsrc = v + col0 * E;
-    __syncthreads();                          // the last chunk's sc and live
+    const __nv_bfloat16* vsrc = v + col0 * E;
+    __syncthreads();               // the last chunk's sc and live
     for (int c = threadIdx.x; c < kCols; c += blockDim.x)
       live[c] = (c < nc && rm) ? rm[col0 + c] : 1.f;
+    auto stage = [&](int ks) {     // one group a stage, empty past E
+      if (ks < nk) {
+        __nv_bfloat16* d = stages + (ks % kStagesH) * kStageH;
+        stage_tile_any(d, wsrc, kWordsH, mw, E, ks * kChunkH, kChunkH,
+                       kLdH);
+        stage_tile_any(d + kWordsH * kLdH, vsrc, kCols, nc, E,
+                       ks * kChunkH, kChunkH, kLdH);
+      }
+      cp_async_commit();
+    };
 
-    float d[kGenWordsPer][kColsPer];
+    float c[2][5][4];
 #pragma unroll
-    for (int x = 0; x < kGenWordsPer; ++x)
+    for (int x = 0; x < 2; ++x)
 #pragma unroll
-      for (int y = 0; y < kColsPer; ++y) d[x][y] = 0.f;
-
-    for (int e0 = 0; e0 < E; e0 += kGenK) {
-      __syncthreads();                        // the last stage is read
-      for (int p = threadIdx.x; p < (kWordsF + kCols) * kGenK;
-           p += blockDim.x) {
-        const int row = p / kGenK, col = p % kGenK;
-        const int e = e0 + col;
-        if (row < kWordsF)
-          ws[row * kGenLd + col] =
-              row < mw && e < E ? load1(wsrc + (size_t)row * E + e) : 0.f;
-        else
-          vs[(row - kWordsF) * kGenLd + col] =
-              row - kWordsF < nc && e < E
-                  ? load1(vsrc + (size_t)(row - kWordsF) * E + e)
-                  : 0.f;
+      for (int y = 0; y < 5; ++y)
+#pragma unroll
+        for (int z = 0; z < 4; ++z) c[x][y][z] = 0.f;
+    for (int ks = 0; ks < kStagesH - 1; ++ks) stage(ks);
+    for (int ks = 0; ks < nk; ++ks) {
+      cp_async_wait(kStagesH - 2); // stage ks; the later ones may fly
+      __syncthreads();             // ... for every thread; ks - 1 is read
+      stage(ks + kStagesH - 1);    // into the slot of stage ks - 1
+      const __nv_bfloat16* d = stages + (ks % kStagesH) * kStageH;
+      mma_words_cols<16 * kSplitH>(c, d, d + kWordsH * kLdH, kLdH,
+                                   16 * grp, kChunkH, wm, wn, nc);
+    }
+    cp_async_wait(0);              // (empty groups past E)
+    __syncthreads();               // every warp's products are done
+    for (int gs = kSplitH - 1; gs >= 0; --gs) {
+      if (grp == gs) {
+        if (gs < kSplitH - 1) add_scores(c, sc, wm, wn);
+        store_scores(sc, c, live, wm, wn);
       }
       __syncthreads();
-#pragma unroll 2
-      for (int q = 0; q < kGenK / 4; ++q) {
-        float4 x[kGenWordsPer], c[kColsPer];
-#pragma unroll
-        for (int k = 0; k < kGenWordsPer; ++k)
-          x[k] = lds4(ws + (ty + kGenTy * k) * kGenLd, q);
-#pragma unroll
-        for (int k = 0; k < kColsPer; ++k)
-          c[k] = lds4(vs + (tx + kGenTx * k) * kGenLd, q);
-#pragma unroll
-        for (int k = 0; k < kGenWordsPer; ++k)
-#pragma unroll
-          for (int j = 0; j < kColsPer; ++j) {
-            d[k][j] = fmaf(x[k].x, c[j].x, d[k][j]);
-            d[k][j] = fmaf(x[k].y, c[j].y, d[k][j]);
-            d[k][j] = fmaf(x[k].z, c[j].z, d[k][j]);
-            d[k][j] = fmaf(x[k].w, c[j].w, d[k][j]);
-          }
-      }
     }
-
-#pragma unroll
-    for (int k = 0; k < kGenWordsPer; ++k)
-#pragma unroll
-      for (int j = 0; j < kColsPer; ++j) {
-        const int col = tx + kGenTx * j;
-        sc[(ty + kGenTy * k) * kLdSc + col] =
-            live[col] > 0.f ? d[k][j] : kNeg;
-      }
-    __syncthreads();
-    segment_max<kWordsF>(sc, fm, a, idx, sp, sp.multi ? nc : R, c0, ch == 0,
-                         ch == sp.chunks - 1, i, m0, mw, M, T, best, arg);
+    segment_max<kWordsH>(sc, fm, a, idx, sp, sp.multi ? nc : R, c0,
+                         ch == 0, ch == sp.chunks - 1, i, m0, mw, M, T,
+                         best, arg);
   }
 }
 
-// Whether the kernels above take these sizes: f32 any E a multiple of 4 (E
-// is staged 64 columns at a time, rows 16-byte aligned), bf16 also E <= 512
-// (whole rows in shared memory). Every other shape takes cross_mil_any.
+// Whether the two kernels above take these sizes: f32 any E (E is staged
+// 64 columns at a time), bf16 E a multiple of 4 up to 512 (whole rows in
+// shared memory, 8- or 16-byte aligned). Every other bf16 shape takes
+// cross_mil_any.
 bool in_envelope(int is_bf16, int E) {
-  return E >= 4 && E % 4 == 0 && (!is_bf16 || E <= 512);
+  return !is_bf16 || (E >= 4 && E % 4 == 0 && E <= 512);
 }
 
 // Dynamic shared memory of one block, in bytes: 71,616 B in f32 at any E;
-// in bf16 97,088 B at E = 256 and 170,816 B at E = 512; 26,816 B in the
-// general variant at any E.
-size_t smem_any() {
-  return (size_t)((kWordsF + kCols) * kGenLd + kWordsF * kLdSc + kCols) *
-         sizeof(float);
+// in bf16 97,088 B at E = 256 and 170,816 B at E = 512; 62,528 B in the
+// general variant at any E (three blocks an SM).
+size_t smem_any_bf16() {
+  return (size_t)kStagesH * kStageH * sizeof(__nv_bfloat16) +
+         (size_t)kCols * sizeof(float);
 }
 size_t smem_f32() {
   return (size_t)(2 * (kWordsF + kCols) * kLd + kWordsF * kLdSc + kCols) *
@@ -518,12 +564,9 @@ int nafae_cross_mil(const void* w, const void* v, int is_bf16, const float* fm,
   if (I == 0 || M == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!in_envelope(is_bf16, E))
-    return is_bf16
-        ? launch<__nv_bfloat16>(cross_mil_any<__nv_bfloat16>, kWordsF,
-                                kGenThreads, smem_any(), w, v, fm, rm, a, idx,
-                                I, M, T, R, E, s)
-        : launch<float>(cross_mil_any<float>, kWordsF, kGenThreads,
-                        smem_any(), w, v, fm, rm, a, idx, I, M, T, R, E, s);
+    return launch<__nv_bfloat16>(cross_mil_any, kWordsH, kThreadsG,
+                                 smem_any_bf16(), w, v, fm, rm, a, idx, I, M,
+                                 T, R, E, s);
   return is_bf16
       ? launch<__nv_bfloat16>(cross_mil_bf16, kWordsH, kThreadsH, smem_bf16(E),
                               w, v, fm, rm, a, idx, I, M, T, R, E, s)
@@ -542,9 +585,11 @@ int nafae_cross_mil_floor(int is_bf16, int I, int M, int T, int R, int E,
       (M + kWordsF - 1) / kWordsF > 65535)
     return (int)cudaErrorInvalidValue;
   const bool spec = in_envelope(is_bf16, E);
-  const int words = spec && is_bf16 ? kWordsH : kWordsF;
-  const int threads = !spec ? kGenThreads : is_bf16 ? kThreadsH : kThreadsF;
-  const size_t smem = !spec ? smem_any() : is_bf16 ? smem_bf16(E) : smem_f32();
+  const int words = is_bf16 ? kWordsH : kWordsF;
+  const int threads = !is_bf16 ? kThreadsF : spec ? kThreadsH : kThreadsG;
+  const size_t smem = !is_bf16 ? smem_f32()
+                      : spec     ? smem_bf16(E)
+                                 : smem_any_bf16();
   cudaError_t err = cudaFuncSetAttribute(
       null_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

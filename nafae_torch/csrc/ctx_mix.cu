@@ -69,14 +69,11 @@
 // one 32 x 32 score tile per region), E a multiple of 4 in [4, 512] (a
 // pairs block stages two whole frames) and w <= 16 (a frame's offsets as
 // bits of a warp's mask). Every other shape takes the general variant
-// below: the same function and the same two steps over tiles of 32 regions
-// and 64 columns, with scalar loads, so any R, E and w; the shapes above
-// keep the kernels above, unchanged. Its bound at R = 36, E = 1024, w = 3
-// (B=16, T=20, every frame valid, 1,728 live pairs): 9.2 GFLOP (~137 us
-// at 67 TFLOP/s f32) against 109 MB (~32 us), bound by operations; in bf16
-// 78 MB (~23 us), bound by bytes. It pads 36 regions to 64 and forms the
-// scores twice (for the max, then the softmax), so it does ~6x the pairs'
-// products and ~3x the mix's.
+// below: the same function and the same two steps, with E streamed in
+// stages so that any E and w fit; up to R = 64 the whole score tile stays
+// in shared memory (R padded to a multiple of 16) and the products run in
+// register tiles (f32) or on mma.sync (bf16), past it wide kernels walk 32
+// regions at a time. The shapes above keep the kernels above, unchanged.
 
 #include "ctx_mix_common.cuh"
 
@@ -591,28 +588,432 @@ int launch_mix_f32(const float* v, const float* fm_ext, const float* a,
 
 // ------------------------------------------------- the general variant
 //
-// Any R, E and w (ctx_mix_common.cuh's kAny* tiles), for the shapes the
-// kernels above do not take. The same two steps, each pair's alpha through
-// the alpha buffer:
+// Any R, E and w, for the shapes the kernels above do not take. The same two
+// steps, each pair's alpha through the alpha buffer. Up to R = kTileRows
+// (64) regions, R padded to RP, a multiple of 16 (48 at R = 36):
 //
-//   pairs  one block per (32-row tile, offset, centre frame t; video b)
-//          forms its rows' scores against every region of the neighbour,
-//          32 columns at a time, and softmaxes them in two passes
-//          (any_row_softmax: running max and sum, then the scores again),
-//          so no row is ever held whole; writes alpha * nv_o (zeros for a
-//          dead pair).
-//   mix    one block per (64-column slice, 32-row tile, centre frame t;
-//          video b) sums alpha_o times the neighbour's slice over the live
-//          offsets in order, 32 source regions at a time, each thread 8
-//          rows of one column; then u = sums / max(cnt, 1).
+//   pairs  one block per (frame t = -w..T-1, offset o = 1..w, video b), as
+//          the pairs kernel above: it streams E through a ring of
+//          kPairStages stages of kPairK columns of both frames (cp.async
+//          as wide as the rows allow; plain loads for odd bf16 E) and
+//          forms the RP x RP products once for both directions (16 x 16
+//          threads, an MT x MT register tile each, f32 FMAs in both
+//          dtypes: see below), keeps the whole score tile in shared
+//          memory, and writes alpha of (t, +o) from its rows' softmax and
+//          of (t + o, -o) from its columns', one warp a row or column in
+//          one pass. A dead pair (nv = 0) only writes its zeros; at E =
+//          50, w = 20 most pairs are dead, and blocks that took a group of
+//          ceil(w/4) offsets in turn were slower there (PERF.md).
+//   mix    one block per (centre frame t, slice of kMixCols columns, video
+//          b), all RP rows: its live offsets in order, each step's alpha
+//          and neighbour slice landing by cp.async in a ring of kMixSlots,
+//          two steps ahead of the sums (f32: 8 warps of 32 columns and
+//          half the rows, a thread MT rows x 8 columns, four source rows a
+//          step; bf16: alpha, already rounded to bf16 by the pairs kernel,
+//          times the slice on mma.sync, a warp 16 columns); then u = sums
+//          / max(cnt, 1). It is launched as a programmatic dependent of
+//          the pairs kernel, as the mix above.
+//
+// The scores are summed on CUDA cores in bf16 too, as the pairs kernel
+// above does in f32 and the plain version does: products of bf16 values are
+// exact in f32, and their IEEE sums round alpha to bf16 as the plain
+// version does. Summed by mma.sync instead (which truncates its sums), a
+// few entries of alpha rounded to the neighbouring bf16 value, which moved
+// K1fr's u by 1.26e-4 at E = 50, past the bf16 tolerance of chip_smoke.py's
+// phase 17 (PERF.md). The mix keeps mma.sync: its operands are already
+// bf16 and its sums feed u alone.
+//
+// Past R = 64 (or w = 512) the wide kernels below take it: the same steps
+// over tiles of 32 regions and 64 columns, the softmax in two passes over
+// the scores (running max and sum, then the scores again), so nothing grows
+// with R or w.
+//
+// Bound at R = 36, E = 1024, w = 3 (B = 16, T = 20, every frame valid,
+// 1,728 live pairs): 9.2 GFLOP (~137 us at 67 TFLOP/s f32) against 109 MB
+// (~32 us): bound by operations in f32; in bf16 78 MB (~23 us), bound by
+// bytes. Padding 36 regions to 48 adds 1.5x to the pairs' products (the
+// padding rows are skipped, not the columns) and 1.1x (f32) or 1.3x (bf16)
+// to the mix's; each frame is copied from L2 once a pair and once a centre
+// frame that reads it, ~0.6 GB at these shapes in f32.
+
+constexpr int kTileRows = 64;        // the largest R the staged kernels take
+constexpr int kTileOffsets = 1024;   // ... and 2w (the mix lists them)
+constexpr int kPairK = 64;           // E columns a pairs stage
+constexpr int kPairStages = 2;       // ... in a ring of this many
+constexpr int kMixCols = 128;        // E columns a mix block
+constexpr int kMixSlots = 3;         // ... a ring of this many steps
+
+// Rows of the staged kernels' shared tiles, in elements: 16-byte multiples,
+// and strides that keep a warp's reads conflict-free.
+template <typename Tin>
+__host__ __device__ constexpr int stage_ld(int cols) {
+  return cols + (sizeof(Tin) == 2 ? 8 : 4);
+}
 
 template <typename Tin>
-__global__ void __launch_bounds__(kAnyThreads)
+size_t pairs_any_smem(int rp) {
+  return kPairStages * 2 * (size_t)rp * stage_ld<Tin>(kPairK) * sizeof(Tin) +
+         ((size_t)rp * (rp + 1) + 2 * rp) * sizeof(float);
+}
+
+template <typename Tin>
+size_t mix_any_smem(int rp, int w) {
+  return kMixSlots * (size_t)rp *
+             (stage_ld<Tin>(rp) + stage_ld<Tin>(kMixCols)) * sizeof(Tin) +
+         2 * (size_t)w * (sizeof(float) + sizeof(int));
+}
+
+// The softmax of one row (or column) of the stored scores, one warp: x(j)
+// gives element j < R (kNeg where masked), put(j, p) stores p. An all-kNeg
+// line gives the uniform 1/R.
+template <int kPer, typename X, typename Put>
+__device__ __forceinline__ void warp_softmax(int R, X x, Put put) {
+  const int lane = threadIdx.x & 31;
+  float v[kPer];
+  float m = -CUDART_INF_F;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int j = lane + 32 * k;
+    v[k] = j < R ? x(j) : -CUDART_INF_F;
+    m = fmaxf(m, v[k]);
+  }
+  m = any_warp_max(m);
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    v[k] = lane + 32 * k < R ? expf(v[k] - m) : 0.f;
+    sum += v[k];
+  }
+  sum = any_warp_sum(sum);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (lane + 32 * k < R) put(lane + 32 * k, v[k] / sum);
+}
+
+template <typename Tin, int MT>
+__global__ void __launch_bounds__(kPairThreads)
 ctx_mix_fwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
                       const float* __restrict__ fm_ext,  // [B, T+2w]
                       const float* __restrict__ rm_ext,  // [B, T+2w, R] / null
                       Tin* __restrict__ alpha,           // [B, T, 2w, R, R]
                       int T, int R, int E, int w, float temp) {
+  constexpr int RP = 16 * MT;                    // R padded
+  constexpr int ld = stage_ld<Tin>(kPairK);
+  constexpr int kStage = 2 * RP * ld;            // C's rows, then N's
+  constexpr int lds = RP + 1;                    // score rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tin* stages = reinterpret_cast<Tin*>(smem_raw);    // [kPairStages][kStage]
+  float* S = reinterpret_cast<float*>(stages + kPairStages * kStage);
+  float* live_c = S + RP * lds;                  // region masks of c and n
+  float* live_n = live_c + RP;
+
+  let_mix_launch();
+  const int t = (int)blockIdx.x - w;             // < 0: a left halo frame
+  const int b = blockIdx.z;
+  const int t_ext = T + 2 * w;
+  const int c = t + w;                           // extended frames
+  const size_t frame = (size_t)R * E;
+  const int rr = R * R;
+  const size_t pairs_t = 2 * (size_t)w * rr;     // alpha of one centre frame
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const Tin* vb = v_ext + (size_t)b * t_ext * frame;
+  const int nk = (E + kPairK - 1) / kPairK;
+  const int warp = threadIdx.x >> 5;
+  const int o = 1 + blockIdx.y;
+  const int n = c + o;
+  Tin* a_fw = t >= 0
+      ? alpha + ((size_t)b * T + t) * pairs_t + (size_t)(o + w - 1) * rr
+      : nullptr;
+  Tin* a_bw = t + o >= 0 && t + o < T
+      ? alpha + ((size_t)b * T + t + o) * pairs_t + (size_t)(w - o) * rr
+      : nullptr;
+  if (a_fw == nullptr && a_bw == nullptr) return;  // two halo frames
+  const float nv = fm[n] * fm[c];                // the same both ways
+  if (nv == 0.f) {                               // dead pair: alpha is zero
+    for (int i = threadIdx.x; i < rr; i += blockDim.x) {
+      if (a_fw) store_as(a_fw + i, 0.f);
+      if (a_bw) store_as(a_bw + i, 0.f);
+    }
+    return;
+  }
+  const Tin* C = vb + (size_t)c * frame;
+  const Tin* N = vb + (size_t)n * frame;
+  auto stage = [&](int ks) {                     // one group a stage
+    if (ks < nk) {
+      Tin* d = stages + (ks % kPairStages) * kStage;
+      stage_tile_any(d, C, RP, R, E, ks * kPairK, kPairK, ld);
+      stage_tile_any(d + RP * ld, N, RP, R, E, ks * kPairK, kPairK, ld);
+    }
+    cp_async_commit();
+  };
+  for (int ks = 0; ks < kPairStages - 1; ++ks)
+    stage(ks);                                   // in flight with the masks
+  for (int i = threadIdx.x; i < 2 * RP; i += blockDim.x) {
+    const int r = i % RP, f = i < RP ? c : n;
+    live_c[i] = r >= R ? 0.f
+        : rm_ext ? rm_ext[((size_t)b * t_ext + f) * R + r] : 1.f;
+  }
+
+  // thread (ty, tx): rows ty + 16 i, columns tx + 16 j (i, j < MT), on
+  // CUDA cores in both dtypes (bf16 x bf16 products are exact in f32)
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  float acc[MT][MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < MT; ++j) acc[i][j] = 0.f;
+  for (int ks = 0; ks < nk; ++ks) {
+    cp_async_wait(kPairStages - 2);              // stage ks; later ones fly
+    __syncthreads();                             // ... for all; ks - 1 read
+    stage(ks + kPairStages - 1);                 // into the slot of ks - 1
+    const Tin* Cs = stages + (ks % kPairStages) * kStage;
+    const Tin* Ns = Cs + RP * ld;
+#pragma unroll 4
+    for (int q = 0; q < kPairK / 4; ++q) {
+      float4 y[MT];
+#pragma unroll
+      for (int j = 0; j < MT; ++j) y[j] = lds4(Ns + (tx + 16 * j) * ld, q);
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        if (ty + 16 * i >= R) continue;          // padding rows: warp-uniform
+        const float4 x = lds4(Cs + (ty + 16 * i) * ld, q);
+#pragma unroll
+        for (int j = 0; j < MT; ++j) {
+          acc[i][j] = fmaf(x.x, y[j].x, acc[i][j]);
+          acc[i][j] = fmaf(x.y, y[j].y, acc[i][j]);
+          acc[i][j] = fmaf(x.z, y[j].z, acc[i][j]);
+          acc[i][j] = fmaf(x.w, y[j].w, acc[i][j]);
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < MT; ++j)
+      S[(ty + 16 * i) * lds + tx + 16 * j] = acc[i][j];
+  __syncthreads();
+  // the values the mix multiplies by, in v's dtype: rows over s for
+  // (t, +o), columns over r for (t + o, -o)
+  constexpr int kPer = (RP + 31) / 32;
+  if (a_fw)
+    for (int r = warp; r < R; r += kPairThreads / 32)
+      warp_softmax<kPer>(
+          R,
+          [&](int s) {
+            return live_n[s] > 0.f ? S[r * lds + s] / temp : kNeg;
+          },
+          [&](int s, float p) { store_as(a_fw + r * R + s, p * nv); });
+  if (a_bw)
+    for (int s = warp; s < R; s += kPairThreads / 32)
+      warp_softmax<kPer>(
+          R,
+          [&](int r) {
+            return live_c[r] > 0.f ? S[r * lds + s] / temp : kNeg;
+          },
+          [&](int r, float p) { store_as(a_bw + s * R + r, p * nv); });
+}
+
+template <typename Tin, int MT>
+__global__ void __launch_bounds__(kPairThreads)
+ctx_mix_fwd_mix_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
+                    const float* __restrict__ fm_ext,  // [B, T+2w]
+                    const Tin* __restrict__ alpha,     // [B, T, 2w, R, R]
+                    float* __restrict__ u,             // [B, T, R, E]
+                    int T, int R, int E, int w) {
+  constexpr bool kBf16 = sizeof(Tin) == 2;
+  constexpr int RP = 16 * MT;
+  constexpr int lda = stage_ld<Tin>(RP);         // alpha_o [RP][lda]
+  constexpr int ldy = stage_ld<Tin>(kMixCols);   // the slice [RP][ldy]
+  constexpr int kSlot = RP * lda + RP * ldy;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  static_assert(kMixSlots == 3, "steps j + 1 and j + 2 in flight");
+  Tin* slots = reinterpret_cast<Tin*>(smem_raw);    // [kMixSlots][kSlot]
+  float* nvs = reinterpret_cast<float*>(slots + kMixSlots * kSlot);  // [2w]
+  int* offs = reinterpret_cast<int*>(nvs + 2 * w);             // [2w]
+  __shared__ float cnt_s;
+  __shared__ int steps_s;
+
+  const int slices = (E + kMixCols - 1) / kMixCols;
+  const int e0 = (int)(blockIdx.x % slices) * kMixCols;
+  const int t = (int)(blockIdx.x / slices);
+  const int b = blockIdx.y;
+  const int t_ext = T + 2 * w;
+  const int c = t + w;
+  const size_t frame = (size_t)R * E;
+  const int rr = R * R;
+  const float* fm = fm_ext + (size_t)b * t_ext;
+  const Tin* ab = alpha + ((size_t)b * T + t) * 2 * w * rr;
+
+  // the live offsets in order, and sum_o nv_o in offset order
+  for (int i = threadIdx.x; i < 2 * w; i += blockDim.x)
+    nvs[i] = fm[c + offset_of(i, w)] * fm[c];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float cnt = 0.f;
+    int k = 0;
+    for (int i = 0; i < 2 * w; ++i) {
+      cnt += nvs[i];
+      if (nvs[i] != 0.f) offs[k++] = i;
+    }
+    cnt_s = cnt;
+    steps_s = k;
+  }
+  __syncthreads();
+  const int steps = steps_s;
+  auto stage_y = [&](int j) {                    // v does not need the pairs
+    if (j < steps)
+      stage_tile_any(
+          slots + (j % kMixSlots) * kSlot + RP * lda,
+          v_ext + ((size_t)b * t_ext + c + offset_of(offs[j], w)) * frame, RP,
+          R, E, e0, kMixCols, ldy);
+  };
+  auto stage_a = [&](int j) {                    // alpha does
+    if (j < steps)
+      stage_tile_any(slots + (j % kMixSlots) * kSlot,
+                     ab + (size_t)offs[j] * rr, RP, R, R, 0, RP, lda);
+  };
+
+  // steps 0 and 1 in four groups (y0, y1, a0, a1), then one a step; each
+  // step's group lands while the two before it are summed
+  stage_y(0);
+  cp_async_commit();
+  stage_y(1);
+  cp_async_commit();
+  wait_for_pairs();
+  stage_a(0);
+  cp_async_commit();
+  stage_a(1);
+  cp_async_commit();
+  const float den = fmaxf(cnt_s, 1.f);
+  float* ub = u + ((size_t)b * T + t) * frame;
+
+  if constexpr (kBf16) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, tig = lane & 3;
+    const int n0 = warp * 16;                    // this warp's columns
+    float acc[MT][2][4];
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+        acc[mi][ni][0] = acc[mi][ni][1] = acc[mi][ni][2] = acc[mi][ni][3] = 0.f;
+    for (int j = 0; j < steps; ++j) {
+      cp_async_wait(1);              // step j's groups; j + 1's may fly
+      __syncthreads();               // ... for every thread; j - 1 is read
+      stage_y(j + 2);                // into the slot of step j - 1
+      stage_a(j + 2);
+      cp_async_commit();
+      const __nv_bfloat16* A = slots + (j % kMixSlots) * kSlot;
+      const __nv_bfloat16* Y = A + RP * lda;
+      if (e0 + n0 < E) {             // warp-uniform
+#pragma unroll
+        for (int k = 0; k < RP; k += 16) {
+          uint32_t y[4];             // B fragments of two n8 tiles
+          frag_b2_trans(y, Y, ldy, k, n0);
+#pragma unroll
+          for (int mi = 0; mi < MT; ++mi) {
+            if (mi * 16 >= R) continue;          // block-uniform
+            uint32_t x[4];
+            frag_a(x, A, lda, mi * 16, k);
+            mma_bf16(acc[mi][0], x, y[0], y[1]);
+            mma_bf16(acc[mi][1], x, y[2], y[3]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int mi = 0; mi < MT; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 2; ++ni)
+#pragma unroll
+        for (int z = 0; z < 4; ++z) {
+          const int row = mi * 16 + g + (z >> 1) * 8;
+          const int col = e0 + n0 + ni * 8 + 2 * tig + (z & 1);
+          if (row < R && col < E)
+            ub[(size_t)row * E + col] = acc[mi][ni][z] / den;
+        }
+  } else {
+    // warp w: columns 32 (w % 4).. of the slice and, of the 2 MT groups of
+    // 8 rows, groups w / 4, w / 4 + 2, ...; lane (rg, cg): rows rg + 8 k of
+    // those groups k, columns 8 cg.. (two float4). Four source rows a step:
+    // a 16-byte read of alpha a row (eight rows a warp, distinct banks: lda
+    // / 4 is odd) and two of each source row (four distinct a warp) feed 32
+    // FMAs a row
+    constexpr int KR = MT;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int rg = lane >> 2, q0 = (warp & 3) * 8 + 2 * (lane & 3);
+    const int k0 = warp >> 2;                    // row groups k0 + 2 k
+    float acc[KR][8];
+#pragma unroll
+    for (int k = 0; k < KR; ++k)
+#pragma unroll
+      for (int z = 0; z < 8; ++z) acc[k][z] = 0.f;
+    for (int j = 0; j < steps; ++j) {
+      cp_async_wait(1);
+      __syncthreads();
+      stage_y(j + 2);
+      stage_a(j + 2);
+      cp_async_commit();
+      const float* A = slots + (j % kMixSlots) * kSlot;
+      const float* Y = A + RP * lda;
+      if (e0 + 32 * (warp & 3) >= E) continue;   // warp-uniform
+      for (int s = 0; s < R; s += 4) {           // rows past R are zeros
+        float4 y[4][2];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          y[q][0] = lds4(Y + (s + q) * ldy, q0);
+          y[q][1] = lds4(Y + (s + q) * ldy, q0 + 1);
+        }
+#pragma unroll
+        for (int k = 0; k < KR; ++k) {
+          if (8 * (k0 + 2 * k) >= R) continue;   // padding rows: uniform
+          const float4 x = lds4(A + (rg + 8 * (k0 + 2 * k)) * lda, s / 4);
+          const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            acc[k][0] = fmaf(xs[q], y[q][0].x, acc[k][0]);
+            acc[k][1] = fmaf(xs[q], y[q][0].y, acc[k][1]);
+            acc[k][2] = fmaf(xs[q], y[q][0].z, acc[k][2]);
+            acc[k][3] = fmaf(xs[q], y[q][0].w, acc[k][3]);
+            acc[k][4] = fmaf(xs[q], y[q][1].x, acc[k][4]);
+            acc[k][5] = fmaf(xs[q], y[q][1].y, acc[k][5]);
+            acc[k][6] = fmaf(xs[q], y[q][1].z, acc[k][6]);
+            acc[k][7] = fmaf(xs[q], y[q][1].w, acc[k][7]);
+          }
+        }
+      }
+    }
+    const int col = e0 + 4 * q0;
+#pragma unroll
+    for (int k = 0; k < KR; ++k) {
+      const int r = rg + 8 * (k0 + 2 * k);
+      if (r >= R) continue;
+      float* o = ub + (size_t)r * E + col;
+      if (E % 4 == 0 && col + 8 <= E) {
+        *reinterpret_cast<float4*>(o) =
+            make_float4(acc[k][0] / den, acc[k][1] / den, acc[k][2] / den,
+                        acc[k][3] / den);
+        *reinterpret_cast<float4*>(o + 4) =
+            make_float4(acc[k][4] / den, acc[k][5] / den, acc[k][6] / den,
+                        acc[k][7] / den);
+      } else {
+#pragma unroll
+        for (int z = 0; z < 8; ++z)
+          if (col + z < E) o[z] = acc[k][z] / den;
+      }
+    }
+  }
+}
+
+// Past kTileRows regions: the wide kernels.
+template <typename Tin>
+__global__ void __launch_bounds__(kAnyThreads)
+ctx_mix_fwd_pairs_wide(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
+                       const float* __restrict__ fm_ext,  // [B, T+2w]
+                       const float* __restrict__ rm_ext,  // [B, T+2w, R] / null
+                       Tin* __restrict__ alpha,           // [B, T, 2w, R, R]
+                       int T, int R, int E, int w, float temp) {
   __shared__ __align__(16) AnyDotSmem sm;
   const int tiles = (R + kAnyRows - 1) / kAnyRows;
   const int rt = (int)(blockIdx.x % tiles);
@@ -642,11 +1043,11 @@ ctx_mix_fwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
 
 template <typename Tin>
 __global__ void __launch_bounds__(kAnyThreads)
-ctx_mix_fwd_mix_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
-                    const float* __restrict__ fm_ext,  // [B, T+2w]
-                    const Tin* __restrict__ alpha,     // [B, T, 2w, R, R]
-                    float* __restrict__ u,             // [B, T, R, E]
-                    int T, int R, int E, int w) {
+ctx_mix_fwd_mix_wide(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
+                     const float* __restrict__ fm_ext,  // [B, T+2w]
+                     const Tin* __restrict__ alpha,     // [B, T, 2w, R, R]
+                     float* __restrict__ u,             // [B, T, R, E]
+                     int T, int R, int E, int w) {
   __shared__ __align__(16) float A[kAnyRows * kAnyMatLd];  // [r][s] of alpha
   __shared__ __align__(16) float Y[kAnyRows * kAnyCols];   // [s][e] of v_n
   const int tiles = (R + kAnyRows - 1) / kAnyRows;
@@ -721,27 +1122,66 @@ bool in_envelope(int R, int E, int w) {
   return R <= 32 && E % 4 == 0 && E >= 4 && E <= kMaxThreads && w <= 16;
 }
 
+template <typename Tin, int MT>
+int run_tiles(const void* v_ext, const float* fm_ext, const float* rm_ext,
+              float* u, void* alpha, int B, int T, int R, int E, int w,
+              float temp, cudaStream_t stream) {
+  const size_t mix_x = (size_t)T * ((E + kMixCols - 1) / kMixCols);
+  if ((size_t)T + w > 0x7fffffff || mix_x > 0x7fffffff)  // the grids' x
+    return (int)cudaErrorInvalidValue;
+  const int err = launch_dyn(
+      ctx_mix_fwd_pairs_any<Tin, MT>, dim3(T + w, w, B), kPairThreads,
+      pairs_any_smem<Tin>(16 * MT), stream, false,
+      static_cast<const Tin*>(v_ext), fm_ext, rm_ext, static_cast<Tin*>(alpha),
+      T, R, E, w, temp);
+  if (err != 0) return err;
+  return launch_dyn(ctx_mix_fwd_mix_any<Tin, MT>, dim3((unsigned)mix_x, B),
+                    kPairThreads, mix_any_smem<Tin>(16 * MT, w), stream, true,
+                    static_cast<const Tin*>(v_ext), fm_ext,
+                    static_cast<const Tin*>(alpha), u, T, R, E, w);
+}
+
 template <typename Tin>
-int run_any(const void* v_ext, const float* fm_ext, const float* rm_ext,
-            float* u, void* alpha, int B, int T, int R, int E, int w,
-            float temp, cudaStream_t stream) {
+int run_wide(const void* v_ext, const float* fm_ext, const float* rm_ext,
+             float* u, void* alpha, int B, int T, int R, int E, int w,
+             float temp, cudaStream_t stream) {
   const size_t tiles = (R + kAnyRows - 1) / kAnyRows;
   const size_t slices = (E + kAnyCols - 1) / kAnyCols;
   const size_t pairs_x = (size_t)T * 2 * w * tiles;
   const size_t mix_x = (size_t)T * tiles * slices;
   if (pairs_x > 0x7fffffff || mix_x > 0x7fffffff)   // the grid's x limit
     return (int)cudaErrorInvalidValue;
-  ctx_mix_fwd_pairs_any<Tin><<<dim3((unsigned)pairs_x, B), kAnyThreads, 0,
-                               stream>>>(
+  ctx_mix_fwd_pairs_wide<Tin><<<dim3((unsigned)pairs_x, B), kAnyThreads, 0,
+                                stream>>>(
       static_cast<const Tin*>(v_ext), fm_ext, rm_ext, static_cast<Tin*>(alpha),
       T, R, E, w, temp);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  ctx_mix_fwd_mix_any<Tin><<<dim3((unsigned)mix_x, B), kAnyThreads, 0,
-                             stream>>>(
+  ctx_mix_fwd_mix_wide<Tin><<<dim3((unsigned)mix_x, B), kAnyThreads, 0,
+                              stream>>>(
       static_cast<const Tin*>(v_ext), fm_ext, static_cast<const Tin*>(alpha),
       u, T, R, E, w);
   return (int)cudaGetLastError();
+}
+
+template <typename Tin>
+int run_any(const void* v_ext, const float* fm_ext, const float* rm_ext,
+            float* u, void* alpha, int B, int T, int R, int E, int w,
+            float temp, cudaStream_t stream) {
+  static_assert(kTileRows == 4 * 16, "MT <= 4 below");
+  if (R > kTileRows || 2 * w > kTileOffsets)
+    return run_wide<Tin>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp,
+                         stream);
+  switch ((R + 15) / 16) {       // MT: R padded to 16 MT rows
+    case 1: return run_tiles<Tin, 1>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R,
+                                     E, w, temp, stream);
+    case 2: return run_tiles<Tin, 2>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R,
+                                     E, w, temp, stream);
+    case 3: return run_tiles<Tin, 3>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R,
+                                     E, w, temp, stream);
+    default: return run_tiles<Tin, 4>(v_ext, fm_ext, rm_ext, u, alpha, B, T,
+                                      R, E, w, temp, stream);
+  }
 }
 
 template <typename Tin>
@@ -779,9 +1219,10 @@ extern "C" {
 // [B, T, 2w, R, R], is written whole: the residual for K1fr, a scratch for
 // K1f. All tensors are contiguous; v_ext is 16-byte aligned. Shapes with
 // R <= 32, E a multiple of 4 in [4, 512] and w <= 16 take the kernels
-// above, every other the general variant. Limits: B <= 65535 (the grid's
-// y), and, in the general variant, T 2w ceil(R/32) and T ceil(R/32)
-// ceil(E/64) below 2^31 (its x); R, E, w, T >= 1.
+// above, every other the general variant. Limits: B <= 65535 (the grids'
+// z or y), and, in the general variant, T + w and T ceil(E/128) below 2^31
+// up to R = 64 and w = 512, T 2w ceil(R/32) and T ceil(R/32) ceil(E/64)
+// past them (the grids' x); R, E, w, T >= 1.
 int nafae_ctx_mix_fwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
                       const float* rm_ext, float* u, void* alpha, int B,
                       int T, int R, int E, int w, float temp, void* stream) {

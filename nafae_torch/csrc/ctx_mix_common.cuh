@@ -86,20 +86,25 @@ __device__ __forceinline__ void stage_frame(float* __restrict__ dst,
   }
 }
 
-// One asynchronous copy of kBytes (8 or 16) from global to shared memory
+// One asynchronous copy of kBytes (4, 8 or 16) from global to shared memory
 // (cp.async); only the first src_bytes are read, the rest is zero-filled, so
 // src_bytes = 0 writes zeros. Both addresses are kBytes-aligned.
 template <int kBytes>
 __device__ __forceinline__ void cp_async(void* dst, const void* src,
                                          int src_bytes) {
-  static_assert(kBytes == 8 || kBytes == 16, "cp.async of 8 or 16 bytes");
+  static_assert(kBytes == 4 || kBytes == 8 || kBytes == 16,
+                "cp.async of 4, 8 or 16 bytes");
   const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
   if constexpr (kBytes == 16)
     asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
                  "l"(src), "r"(src_bytes)
                  : "memory");
-  else
+  else if constexpr (kBytes == 8)
     asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
                  "l"(src), "r"(src_bytes)
                  : "memory");
 }
@@ -147,6 +152,34 @@ __device__ __forceinline__ void stage_tile_async(T* __restrict__ dst,
     if (q >= per_row) {
       q -= per_row;
       ++r;
+    }
+  }
+}
+
+// stage_tile_async for rows of any alignment: the widest copy (16, 8 or 4
+// bytes) that a row of E elements allows, the rows' base being 16-byte
+// aligned; where a row is not even 4-byte aligned (bf16 at odd E), plain
+// loads and stores, which are complete at the caller's next barrier. kw, k0
+// and ld are multiples of 16 bytes' worth of elements. Block-uniform.
+template <typename T>
+__device__ __forceinline__ void stage_tile_any(T* __restrict__ dst,
+                                               const T* __restrict__ src,
+                                               int rows, int live_rows, int E,
+                                               int k0, int kw, int ld) {
+  constexpr int kSz = (int)sizeof(T);
+  const int row_bytes = E * kSz;
+  if (row_bytes % 16 == 0) {
+    stage_tile_async<16 / kSz>(dst, src, rows, live_rows, E, k0, kw, ld);
+  } else if (row_bytes % 8 == 0) {
+    stage_tile_async<8 / kSz>(dst, src, rows, live_rows, E, k0, kw, ld);
+  } else if (row_bytes % 4 == 0) {
+    stage_tile_async<4 / kSz>(dst, src, rows, live_rows, E, k0, kw, ld);
+  } else {
+    for (int i = threadIdx.x; i < rows * kw; i += blockDim.x) {
+      const int r = i / kw, k = i - r * kw;
+      store_as(dst + r * ld + k, r < live_rows && k0 + k < E
+                                     ? load1(src + (size_t)r * E + k0 + k)
+                                     : 0.f);
     }
   }
 }
@@ -355,9 +388,10 @@ __device__ __forceinline__ void row_softmax(const float* __restrict__ sc,
 }
 
 // ---------------------------------------------------------------------------
-// The general variant of the context mix (ctx_mix.cu and ctx_mix_bwd.cu take
-// it for every shape outside their specialised kernels' envelope: R > 32, E
-// not a multiple of 4 or above 512, w > 16): any R, any E, any w. Its blocks
+// The general variant of the context mix's backward (ctx_mix_bwd.cu takes
+// it for every shape outside its specialised kernels' envelope: R > 32, E
+// not a multiple of 4 or above 512, w > 16), and the forward's wide kernels
+// (ctx_mix.cu, past R = 64 or w = 512): any R, any E, any w. Their blocks
 // of kAnyThreads threads walk 32 regions (rows) at a time and the embedding
 // in slices of 64 columns, staged as f32 through shared memory by scalar
 // loads, so no row needs any alignment and nothing grows with R, E or w.

@@ -18,11 +18,13 @@ TF32), bf16 operands on tensor cores (`mma.sync` m16n8k16, f32
 accumulators). Blocks take whole frames (80 columns: 4 frames at R = 20),
 so no dead region slot is multiplied; every dot is summed over E in one
 order wherever it sits in a tile, so exact ties stay ties and the first
-region wins. Shapes outside those kernels (E not a multiple of 4; bf16 at
-E > 512) take a general variant in the same source, same blocks and
-epilogue, whose product stages E as f32 by scalar loads: every E the
-reference takes. The source note of `csrc/cross_mil.cu` has the design and
-the bound, PERF.md the measured times.
+region wins. The f32 kernel takes any E (its stages land by 16-, 8- or
+4-byte copies as the rows allow); bf16 shapes outside its kernel (E not a
+multiple of 4, or above 512) take a general variant in the same source,
+same blocks and epilogue, whose tensor-core product streams E through a
+ring of stages: every E the reference takes. The source note of
+`csrc/cross_mil.cu` has the design and the bound, PERF.md the measured
+times.
 
 Masks, as the reference: a region with rm = 0 scores NEG = -1e9; an invalid
 frame gives a = 0; a valid frame with no valid region gives a = -1e9 and

@@ -19,12 +19,17 @@ Each source runs two CUDA kernels a call (per-pair scores and softmax,
 then a per-frame sum), and says what bounds it on an H100. Each takes
 every shape the reference takes: R <= 32, E a multiple of 4 in [4, 512]
 and w <= 16 (and T <= 65535 for the backward) run its specialised
-kernels; any other R, E, w >= 1 its general variant, which walks 32
-regions and 64 columns at a time with scalar loads (the backward's
-scratch then two f32 [B,T,2w,R,R] arrays). Left are B <= 65535, the
-general variant's grid (T·2w·ceil(R/32) and (T+2w)·ceil(R/32)·ceil(E/64)
-blocks under 2^31) and device memory. Both count under the same
-`launches` keys. The plain
+kernels; any other R, E, w >= 1 its general variant. The forward's
+streams E through shared memory in stages and, up to R = 64 and w =
+512, keeps a pair's whole score tile there (register tiles in f32,
+tensor cores in bf16); the backward's, and the forward's past those,
+walk 32 regions and 64 columns at a time with scalar loads (the
+backward's scratch then two f32 [B,T,2w,R,R] arrays). Left are B <=
+65535, the general variant's grids (the forward's T + w and
+T·ceil(E/128) blocks up to R = 64 and w = 512, else T·2w·ceil(R/32)
+and T·ceil(R/32)·ceil(E/64); the backward's
+T·2w·ceil(R/32) and (T+2w)·ceil(R/32)·ceil(E/64); each under 2^31) and
+device memory. Both count under the same `launches` keys. The plain
 version, `context_mix_plain`, is a port of
 `nafae_tpu.ops.grounding.context_mix` (impl="offset"); under autograd it is
 the plain version of all four.
