@@ -460,16 +460,22 @@ def check_ctx_mix(torch, device, cases=CTX_CASES, halo_cases=CTX_HALO_CASES,
 def compare_grad_kernels(torch, vc, fm_ext, rm_ext, w, du, dt_name,
                          case) -> dict[str, float]:
     """K1fr (u, alpha), K1b and K1br (dv_ext) on vc (in the compute dtype)
-    against the plain version on the same card; fails beyond the limits,
-    logs dv's errors beside the largest |dv| and returns the max |error| of
-    each (and the largest |dv| as "dv_max")."""
+    against the plain version on the same card, each backward launched
+    twice and equal bit for bit; fails beyond the limits, logs dv's errors
+    beside the largest |dv| and returns the max |error| of each (and the
+    largest |dv| as "dv_max")."""
     from nafae_torch.ops.kernels import ctx_mix as K
 
     dt = torch.bfloat16 if vc.dtype == torch.bfloat16 else None
     u, alpha = K.launch_fwd(vc, fm_ext, w, 0.1, rm_ext, residual=True)
     dv_rec = K.launch_bwd(vc, fm_ext, w, 0.1, rm_ext, du)
     dv_res = K.launch_bwd(vc, fm_ext, w, 0.1, rm_ext, du, alpha)
+    again = (K.launch_bwd(vc, fm_ext, w, 0.1, rm_ext, du),
+             K.launch_bwd(vc, fm_ext, w, 0.1, rm_ext, du, alpha))
     torch.cuda.synchronize()
+    if not (torch.equal(again[0], dv_rec) and torch.equal(again[1], dv_res)):
+        fail(f"K1b or K1br: two launches on one input gave dv that differ: "
+             f"{case}")
     # the plain version in f32 from the same (rounded) values, with the
     # compute dtype's rounding of the operands
     vp = vc.float().requires_grad_()
@@ -522,7 +528,8 @@ def check_grad_cases(torch, device, gen, cases) -> dict[str, dict]:
             + ", ".join(f"{k} {v:.3e}" for k, v in worst.items())
             + f" (u {CTX_TOL[dt_name]}, alpha {ALPHA_TOL[dt_name]}, dv "
             f"{GRAD_TOL[dt_name]} as rtol, atol, in bf16 below E = "
-            f"{GRAD_NARROW_E} atol x largest |dv|; {len(cases)} cases)")
+            f"{GRAD_NARROW_E} atol x largest |dv|; every backward launched "
+            f"twice, equal bit for bit; {len(cases)} cases)")
     return errs
 
 
@@ -5810,8 +5817,8 @@ def check_c5_graphs(torch, ann: str, tmp: str) -> dict:
 
 # the context mix's cases past the specialised kernels' envelope (R > 32, E
 # above 512 or not a multiple of 4, w > 16), which the general variant of
-# csrc/ctx_mix*.cu takes (the forward's wide kernels past R = 64): (B, T,
-# R, E, w, region mask, edges)
+# csrc/ctx_mix*.cu takes (its staged kernels up to R = 64, R padded to 16,
+# and past it the wide kernels): (B, T, R, E, w, region mask, edges)
 CTX_ANY_CASES = [(4, 6, 33, 64, 2, True, False),     # R = 33: two row tiles
                  (4, 6, 36, 1024, 3, True, False),   # R = 36, E = 1024
                  (2, 6, 36, 1024, 3, False, False),  # ... no region mask
@@ -5821,9 +5828,12 @@ CTX_ANY_CASES = [(4, 6, 33, 64, 2, True, False),     # R = 33: two row tiles
                  (2, 4, 20, 64, 17, True, False),    # w = 17 >= T
                  (2, 3, 5, 50, 20, True, False),     # w = 20 >= T
                  (3, 12, 36, 50, 3, True, True),     # cnt = 0; invalid centre
+                 (2, 5, 49, 50, 3, True, False),     # R = 49: 16 x 3 + 1
+                 (2, 5, 64, 68, 2, True, False),     # R = 64: the largest tile
                  (2, 4, 65, 50, 2, True, False)]     # R = 65: the wide kernels
-# ... with real halo frames (B, T, R, E, w), w > T in the second
-CTX_ANY_HALO_CASES = [(4, 5, 36, 1024, 6), (3, 4, 33, 50, 17)]
+# ... with real halo frames (B, T, R, E, w), w > T in the first and third
+CTX_ANY_HALO_CASES = [(4, 5, 36, 1024, 6), (3, 8, 36, 50, 3),
+                      (3, 4, 33, 50, 17)]
 # K3's cases past the bf16 kernel's envelope (E not a multiple of 4, or
 # above 512), as CROSS_CASES: the general variant takes them in bf16, the
 # f32 kernel in f32
@@ -5839,7 +5849,9 @@ CROSS_ANY_CASES = [
     (3, 40, 5, 40, 50, True, ((3, 35), (8, 39)), True),   # r + 32, last row
 ]
 # K4f/K4b's cases past their envelope (K > 32, E not a multiple of 4, E >
-# 512), which the general variants take, as DIAG_CASES
+# 512), which the general variants take, as DIAG_CASES: K, R and Kc also at
+# and one past K4f's words a pass (64), regions a tile (64) and centers a
+# pass (128), an exact tie across the tiles and across the passes
 DIAG_ANY_CASES = [
     (16, 8, 20, 36, 1024, 67, True, (), (), False),   # R = 36, E = 1024
     (4, 33, 5, 20, 256, 67, True, (), (), False),     # K = 33
@@ -5851,6 +5863,11 @@ DIAG_ANY_CASES = [
     (3, 8, 5, 20, 1024, 67, False, (), (), False),    # no region mask
     (4, 8, 9, 20, 50, 130, True, (), (), False),      # Kc = 130 at E = 50
     (4, 8, 9, 40, 50, 67, True, ((3, 35),), ((3, 35),), True),   # across 32
+    (2, 64, 4, 20, 50, 67, True, (), (), False),      # K = 64: one pass
+    (2, 65, 4, 20, 50, 67, True, (), (), False),      # K = 65: two passes
+    (2, 8, 5, 64, 50, 67, True, ((3, 63),), (), False),   # R = 64: one tile
+    (2, 8, 5, 65, 50, 67, True, ((3, 64),), (), False),   # R = 65: two tiles
+    (3, 8, 5, 20, 50, 129, True, (), ((5, 128),), False),  # Kc = 129
 ]
 ANY_STEPS = 3                    # steps of each phase-17 fit
 # one step's gradients, card against CPU, at phase 17's shapes: rtol as
@@ -6078,14 +6095,16 @@ def check_any_fits(torch, roots: dict, tmp: str) -> dict:
 
 # the general variants' kernels, as a traced replay names them: each once
 # in a launch of K1f or K1fr (pairs, mix), of K1br (pairs, gather), of K3,
-# of K4f (the centers kernel, then the general main kernel) and of K4b
+# of K4f (the centers kernel, then the general scores and sims kernels) and
+# of K4b
 ANY_TRACE_NAMES = {
     **TRACE_NAMES,
     "ctx_mix_fwd": ("ctx_mix_fwd_pairs_any", "ctx_mix_fwd_mix_any"),
     "ctx_mix_fwd_res": ("ctx_mix_fwd_pairs_any", "ctx_mix_fwd_mix_any"),
     "ctx_mix_bwd_res": ("ctx_mix_bwd_pairs_any", "ctx_mix_bwd_gather_any"),
     "cross_mil": ("cross_mil_any",),
-    "diag_epilogue": ("diag_centers_kernel", "diag_fwd_any"),
+    "diag_epilogue": ("diag_centers_kernel", "diag_scores_any",
+                      "diag_sims_any"),
     "diag_epilogue_bwd": ("diag_bwd_any",)}
 CTX_KEYS = ("ctx_mix_fwd", "ctx_mix_fwd_res", "ctx_mix_bwd_res")
 
@@ -6113,8 +6132,9 @@ def any_timings(torch) -> dict:
     each shape of ANY_TIMED (ctx_inputs' random masks, du from a seed) in
     f32 and bf16, each beside its plain version (torch.profiler's device
     time of context_mix_plain, its backward alone for K1b/K1br) and its
-    bound; and K1f's SDPA yardstick (sdpa_mix) there, with its max |error|
-    against the plain version and whether it is within CTX_TOL."""
+    bound, K1b/K1br also beside the empty-kernel floor of their grids; and
+    K1f's SDPA yardstick (sdpa_mix) there, with its max |error| against the
+    plain version and whether it is within CTX_TOL."""
     from nafae_torch.ops.kernels import ctx_mix as K
 
     dev = torch.device("cuda")
@@ -6168,6 +6188,11 @@ def any_timings(torch) -> dict:
                     ("bwd_res", bwd_bound_ms(torch, v, fm, rm, w, True))):
                 res[key + "_bound_ms" + tag], res[key + "_bound_by" + tag] = \
                     bnd
+            # the backward's floor: empty kernels of its two grids (the same
+            # for K1b and K1br)
+            res["bwd_floor_ms" + tag] = res["bwd_res_floor_ms" + tag] = \
+                device_ms(torch, lambda: K.launch_floor_bwd(
+                    b, t, r, e, w, bool(tag), dev))
         torch.cuda.empty_cache()
     card = card_line()
     for name, res in out.items():
@@ -6182,6 +6207,7 @@ def any_timings(torch) -> dict:
                                        ("K1fr", "fwd_res", "fwd_res"),
                                        ("K1b", "bwd", "bwd"),
                                        ("K1br", "bwd_res", "bwd")))
+                + f"; K1b/K1br's floor {res['bwd_floor_ms' + tag]:.4f}"
                 + f"; K1f's SDPA yardstick {res['library_fwd_ms' + tag]:.4f}"
                 f" (max |err| vs plain {res['library_fwd_err' + tag]:.3e}, "
                 f"within CTX_TOL: {res['library_fwd_within_tol' + tag]})"
@@ -6341,7 +6367,8 @@ def any_keys(anyp: dict, name: str, key: str, pkey: str) -> dict:
              ("bound_by", key + "_bound_by")) + (
         (("library_ms", "library_fwd_ms"),
          ("library_max_abs_err", "library_fwd_err"))
-        if name == "ctx_mix_fwd" else ())
+        if name == "ctx_mix_fwd" else ()) + (
+        (("floor_ms", key + "_floor_ms"),) if key.startswith("bwd") else ())
     return {"max_abs_err_any": err["float32"],
             "max_abs_err_any_bf16": err["bfloat16"],
             "any_shapes": {

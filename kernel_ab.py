@@ -15,11 +15,13 @@ sources, on one card, in one process, on the main path's own inputs:
   chip_smoke.fused_timings runs them;
 - K2: the first config-5 batch's detector planes (320 rows x 24,000
   anchors, num_keep 20), from the f32 and from the bf16 detector;
-- the general variants at phase 17's shapes (chip_smoke.ANY_TIMED, B=16,
-  T=20): K1f / K1fr / K1br / K1b at R=36, E=1024, w=3 and R=20, E=50,
-  w=20 on chip_smoke.ctx_inputs' random masks, and K3 on the fused
-  route's inputs of those fits (chip_smoke.fused_inputs), in f32 and bf16
-  (any_ab; the other versions must take those shapes).
+- the general variants at phase 17's shapes (B=16, T=20): K1f / K1fr /
+  K1br / K1b at R=36, E=1024, w=3 and R=20, E=50, w=20
+  (chip_smoke.ANY_TIMED) on chip_smoke.ctx_inputs' random masks, K3 on
+  the fused route's inputs of those fits, and K4f / K4b on the fused
+  route's inputs of every phase-17 fit (chip_smoke.ANY_FITS: also K=40;
+  K4b on each version's own K4f residuals), in f32 and bf16 (any_ab; the
+  other versions must take those shapes).
 
     python3 kernel_ab.py DIR [DIR ...]
 
@@ -299,13 +301,15 @@ def bind_diag(torch, libs: dict):
     return fwd, bwd
 
 
-def diag_ab(torch, others: dict, ins, tag: str) -> dict:
+def diag_ab(torch, others: dict, ins, tag: str, own: bool = False) -> dict:
     """K4f and K4b of this tree against the other versions on the first
     training batch's fused-route inputs in one dtype: each version's K4f
     within DIAG_TOL of this tree's (ctx also allowing for bf16 terms that
     rounded the other way; r*, f and c* equal where clear of ties), each
-    version's K4b on this tree's residuals within DIAG_TOL; then the a_b
-    times and this tree's time by kernel."""
+    version's K4b on this tree's residuals within DIAG_TOL of this tree's
+    K4b (own: on its own K4f's residuals, within DIAG_TOL of the plain
+    version on them, since a bf16 ds may round the other way from another
+    version's d); then the a_b times and this tree's time by kernel."""
     from nafae_torch.ops.grounding import l2_normalize
     from nafae_torch.ops.kernels import diag as K4
 
@@ -329,8 +333,12 @@ def diag_ab(torch, others: dict, ins, tag: str) -> dict:
     equal = {}
     for name, (_, _, _, ofwd, obwd, _) in others.items():
         fns[name] = lambda ofwd=ofwd: ofwd(w, v, u, centers, fm, hc, rm)
-        bfns[name] = lambda obwd=obwd: obwd(*res_args)
-        got, got_b = fns[name](), bfns[name]()
+        got = fns[name]()
+        args = ((w, v, centers, got[3], got[4], got[5], got[2], dctx, dclu)
+                if own else res_args)
+        bfns[name] = lambda obwd=obwd, args=args: obwd(*args)
+        got_b = bfns[name]()
+        ref_b = K4.diag_bwd_plain(*args) if own else want_b
         other_way = (rnd(got[3] ** 2) - rnd(want[3] ** 2)).abs().sum(-1)
         ok = (torch.allclose(got[3], want[3], rtol=rtol, atol=atol)
               and ((got[0] - want[0]).abs()
@@ -344,8 +352,9 @@ def diag_ab(torch, others: dict, ins, tag: str) -> dict:
         if not ok:
             CS.fail(f"K4f {tag}: {name} differs from this tree")
         if not all(torch.allclose(g, x, rtol=rtol, atol=atol)
-                   for g, x in zip(got_b, want_b)):
-            CS.fail(f"K4b {tag}: {name} differs from this tree")
+                   for g, x in zip(got_b, ref_b)):
+            CS.fail(f"K4b {tag}: {name} differs from "
+                    + ("the plain version" if own else "this tree"))
         equal[name] = {"K4f": all(torch.equal(g, x)
                                   for g, x in zip(got, want)),
                        "K4b": all(torch.equal(g, x)
@@ -485,13 +494,15 @@ def bwd_ab(torch, others: dict, v32, fm, rm, w, temp, du,
 
 
 def any_ab(torch, others: dict, tmp: str) -> dict:
-    """The general variants at phase 17's shapes (chip_smoke.ANY_TIMED):
-    K1f, K1fr, K1br and K1b on ctx_inputs' random masks (B=16, T=20: R=36,
-    E=1024, w=3 and R=20, E=50, w=20; du from a seed), and K3 on the fused
-    route's inputs of those fits (chip_smoke.fused_inputs on an R = 36
-    split written under tmp, and on tmp's config-4 split at E = 50), each
-    in f32 and bf16, as the config-4 comparisons; keys end in the shape's
-    name. The other versions must take those shapes."""
+    """The general variants at phase 17's shapes: K1f, K1fr, K1br and K1b
+    on ctx_inputs' random masks at chip_smoke.ANY_TIMED (B=16, T=20: R=36,
+    E=1024, w=3 and R=20, E=50, w=20; du from a seed); K3 (at ANY_TIMED's
+    shapes), K4f and K4b (at every fit of chip_smoke.ANY_FITS, K = 40 too)
+    on the fused route's inputs of those fits (chip_smoke.fused_inputs on
+    an R = 36 and a 40-word split written under tmp, and on tmp's config-4
+    split at E = 50), K4b on each version's own K4f residuals; each in f32
+    and bf16, as the config-4 comparisons; keys end in the shape's name.
+    The other versions must take those shapes."""
     gen = torch.Generator().manual_seed(CS.SEED + 18)
     res = {}
     for name, (b, t, r, e, w) in CS.ANY_TIMED.items():
@@ -506,16 +517,20 @@ def any_ab(torch, others: dict, tmp: str) -> dict:
         res.update(bwd_ab(torch, others, v32, fm, rm, w, 0.1, du,
                           "_" + name))
         torch.cuda.empty_cache()
-    roots = {"c4": tmp, "r36": os.path.join(tmp, "r36")}
+    roots = {"c4": tmp, "r36": os.path.join(tmp, "r36"),
+             "k40": os.path.join(tmp, "k40")}
     CS.make_train_data(roots["r36"], regions=36)
-    for name in CS.ANY_TIMED:
-        extra, data, *_ = CS.ANY_FITS[name]
+    CS.make_train_data(roots["k40"], words=40)
+    for name, (extra, data, *_) in CS.ANY_FITS.items():
         ins = CS.fused_inputs(torch, roots[data], tmp, extra)
         for tag, dt in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-            w_emb, v_emb = ins[0].to(dt), ins[1].to(dt)
-            res.update(cross_ab(torch, others, (
-                w_emb.reshape(-1, w_emb.shape[-1]).contiguous(), v_emb,
-                ins[4], ins[5]), f"{tag}_{name}"))
+            w_emb, v_emb, u = (x.to(dt) for x in ins[:3])
+            if name in CS.ANY_TIMED:
+                res.update(cross_ab(torch, others, (
+                    w_emb.reshape(-1, w_emb.shape[-1]).contiguous(), v_emb,
+                    ins[4], ins[5]), f"{tag}_{name}"))
+            res.update(diag_ab(torch, others, (w_emb, v_emb, u, *ins[3:]),
+                               f"{tag}_{name}", own=True))
         torch.cuda.empty_cache()
     return res
 

@@ -81,19 +81,6 @@ namespace {
 
 using namespace nafae_ctx;
 
-// Programmatic dependent launch (Hopper): the mix kernel is launched while
-// the pairs kernel still runs, so its blocks start, read the masks and copy
-// their first frames as the pairs kernel's blocks retire; before its first
-// read of alpha it waits for the pairs grid to complete (a no-op in a
-// launch without the attribute). Each pairs block lets the dependent grid
-// launch once it has started.
-__device__ __forceinline__ void wait_for_pairs() {
-  asm volatile("griddepcontrol.wait;\n" ::: "memory");
-}
-__device__ __forceinline__ void let_mix_launch() {
-  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
-}
-
 // A frame's rows [0, rows) and columns [0, cols) into shared rows of stride
 // ld (zero beyond R and E), by cp.async: 16-byte copies, or for bf16 rows
 // that are not 16-byte aligned (E % 8 != 0) 8-byte copies.
@@ -643,13 +630,6 @@ constexpr int kPairStages = 2;       // ... in a ring of this many
 constexpr int kMixCols = 128;        // E columns a mix block
 constexpr int kMixSlots = 3;         // ... a ring of this many steps
 
-// Rows of the staged kernels' shared tiles, in elements: 16-byte multiples,
-// and strides that keep a warp's reads conflict-free.
-template <typename Tin>
-__host__ __device__ constexpr int stage_ld(int cols) {
-  return cols + (sizeof(Tin) == 2 ? 8 : 4);
-}
-
 template <typename Tin>
 size_t pairs_any_smem(int rp) {
   return kPairStages * 2 * (size_t)rp * stage_ld<Tin>(kPairK) * sizeof(Tin) +
@@ -661,33 +641,6 @@ size_t mix_any_smem(int rp, int w) {
   return kMixSlots * (size_t)rp *
              (stage_ld<Tin>(rp) + stage_ld<Tin>(kMixCols)) * sizeof(Tin) +
          2 * (size_t)w * (sizeof(float) + sizeof(int));
-}
-
-// The softmax of one row (or column) of the stored scores, one warp: x(j)
-// gives element j < R (kNeg where masked), put(j, p) stores p. An all-kNeg
-// line gives the uniform 1/R.
-template <int kPer, typename X, typename Put>
-__device__ __forceinline__ void warp_softmax(int R, X x, Put put) {
-  const int lane = threadIdx.x & 31;
-  float v[kPer];
-  float m = -CUDART_INF_F;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    const int j = lane + 32 * k;
-    v[k] = j < R ? x(j) : -CUDART_INF_F;
-    m = fmaxf(m, v[k]);
-  }
-  m = any_warp_max(m);
-  float sum = 0.f;
-#pragma unroll
-  for (int k = 0; k < kPer; ++k) {
-    v[k] = lane + 32 * k < R ? expf(v[k] - m) : 0.f;
-    sum += v[k];
-  }
-  sum = any_warp_sum(sum);
-#pragma unroll
-  for (int k = 0; k < kPer; ++k)
-    if (lane + 32 * k < R) put(lane + 32 * k, v[k] / sum);
 }
 
 template <typename Tin, int MT>

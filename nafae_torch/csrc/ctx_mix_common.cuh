@@ -511,4 +511,56 @@ __device__ __forceinline__ void any_row_softmax(const Tin* __restrict__ vc,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The staged general kernels (ctx_mix.cu's forward and ctx_mix_bwd.cu's
+// backward up to R = 64): a pairs kernel, then a per-frame kernel launched
+// as its programmatic dependent.
+
+// Programmatic dependent launch (Hopper): the per-frame kernel is launched
+// while the pairs kernel still runs, so its blocks start, read the masks and
+// copy their first frames as the pairs kernel's blocks retire; before its
+// first read of what the pairs kernel writes it waits for the pairs grid to
+// complete (a no-op in a launch without the attribute). Each pairs block
+// lets the dependent grid launch once it has started.
+__device__ __forceinline__ void wait_for_pairs() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void let_mix_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Rows of the staged kernels' shared tiles, in elements: 16-byte multiples,
+// and strides that keep a warp's reads conflict-free.
+template <typename Tin>
+__host__ __device__ constexpr int stage_ld(int cols) {
+  return cols + (sizeof(Tin) == 2 ? 8 : 4);
+}
+
+// The softmax of one row (or column) of the stored scores, one warp: x(j)
+// gives element j < R (kNeg where masked), put(j, p) stores p. An all-kNeg
+// line gives the uniform 1/R.
+template <int kPer, typename X, typename Put>
+__device__ __forceinline__ void warp_softmax(int R, X x, Put put) {
+  const int lane = threadIdx.x & 31;
+  float v[kPer];
+  float m = -CUDART_INF_F;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int j = lane + 32 * k;
+    v[k] = j < R ? x(j) : -CUDART_INF_F;
+    m = fmaxf(m, v[k]);
+  }
+  m = any_warp_max(m);
+  float sum = 0.f;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    v[k] = lane + 32 * k < R ? expf(v[k] - m) : 0.f;
+    sum += v[k];
+  }
+  sum = any_warp_sum(sum);
+#pragma unroll
+  for (int k = 0; k < kPer; ++k)
+    if (lane + 32 * k < R) put(lane + 32 * k, v[k] / sum);
+}
+
 }  // namespace nafae_ctx

@@ -61,12 +61,11 @@
 // (4) at a time, centers a ring slot at a time; shared memory grows with K
 // and E only (213 KB at most, bf16 at K = 32, E = 256). Every other shape
 // (K > 32: long descriptions; E not a multiple of 4: GloVe-50d's E = 50;
-// E > 512) takes a general variant after the centers kernel, diag_fwd_any
-// below: a block a frame, the words 32 at a time and E in slices through
-// shared memory, so it takes any K, E, R and Kc. It is a first, simple
-// kernel; at R = 36, E = 1024 (K = 8) its bound is ~0.031 ms f32 and ~0.017
-// ms bf16, both bytes (v, u and f).
-//
+// E > 512) takes the general variant below after the centers kernel: a
+// scores kernel (a block a frame, v and u streamed once) and a sims kernel
+// (a block a tile of 16 rows of f, the centers streamed once a block), each
+// the programmatic dependent of the kernel before it.
+
 // Bound on an H100 SXM (config4 training shapes B=16, K=8, T=20, R=20,
 // E=256, Kc=67, f32): 2*2*B*K*T*R*E + 2*B*K*T*Kc*E = 140 MFLOP (~2.1 us at
 // 67 TFLOP/s) against ~15.8 MB moved (v and u 6.6 MB each, f 1.3 MB, the
@@ -661,225 +660,504 @@ int run(const void* w, const void* v, const void* u, const float* centers,
 }
 
 // ---------------------------------------------------------------------------
-// The general variant (diag_fwd_any), for every shape outside the main
-// kernel's envelope (in_envelope: K > 32, E not a multiple of 4, E > 512):
-// one block of 256 threads a frame, launched after the centers kernel in
-// stream order. Words come kGenWords at a time (warp j holds words j, j + 8,
-// j + 16, j + 24 of the pass), regions and centers 32 at a time (one a
-// lane), and E in slices of kGenCols columns staged as f32 in shared memory
-// by scalar loads (zero past E and past the live rows: no row needs any
-// alignment, and nothing grows with K, E, R or Kc).
-//   (a) Each lane sums s and sh of its region for the warp's words over the
-//       slices, every column in order, one fmaf each; the warp then writes
-//       the residual d, adds the tile's ctx terms by a fixed butterfly and
-//       takes its first maximum by the (value, index) butterfly, carried
-//       over the tiles in registers (an earlier tile keeps equal values).
-//   (b) f = v[t, r*] is copied whole to f; each lane sums the cosine sims of
-//       its center with the words' f rows (staged from v) over the slices,
-//       the same way, and the (value, index) butterfly keeps the first
-//       maximum over each tile of 32 centers, carried over the tiles.
-//   (c) clu: a warp a word, lanes over E, one butterfly.
-// So equal rows of v (or of C) give equal scores (sims), and r* and c* are
-// the first index; every output has one writer and one order of sums.
+// The general variant, for every shape outside the main kernel's envelope
+// (in_envelope: K > 32, E not a multiple of 4, E > 512): after the centers
+// kernel, two kernels, each streaming E through a ring of stages of 64
+// columns by cp.async (rows of any alignment, as stage_tile_any copies them),
+// the stages after the current one in flight during its sums, and each
+// output with one writer and one order of sums:
+//
+//   scores  one block a frame (b, t), the centers kernel's programmatic
+//           dependent (it reads no center). v_t's and u_t's rows, regions
+//           padded to RP = 16 MT (a tile of up to 64: past it, tiles in
+//           turn), stream once beside w[b]'s rows, up to kScoreWords words a
+//           pass (K = 40 in one); only v's rows at live regions and u's where
+//           the ctx mask is on are read (the bound counts just those). A
+//           warp takes 8 words (a lane 4 words x MT regions, for s and sh)
+//           over 64 / S of each stage's columns, where S warps split the
+//           columns when the pass has fewer than 8 octets of words (S = 8 at
+//           K = 8); their partial sums meet in shared memory in a fixed
+//           order. Then a warp a word takes the residual d, the ctx terms (a
+//           fixed butterfly) and the first-index maximum over live regions
+//           ((value, index) butterfly; an earlier tile keeps equal values),
+//           so equal rows of v give equal scores and tie to the first region.
+//   sims    one block a tile of kSimRows rows of f ((b, t, k) in f's
+//           order: 2,560 rows, 160 blocks at B = 16, T = 20, K = 8), the
+//           scores kernel's programmatic dependent: it reads r*, then
+//           streams the rows f = v[t, r*] and up to kSimCenters rows of the
+//           normalised centers a pass (all of config 4's 67) once, writes f
+//           from the staged rows, and forms the sims: f32 on CUDA cores (a
+//           thread 4 rows x 2 centers, one fmaf order for every output, so
+//           equal rows of ch tie), bf16 on mma.sync with f32 accumulators
+//           (a warp one or two n8 tiles of centers, as the main kernel's
+//           bf16 sims; f is a row of v, exact in bf16, and ch is rounded as
+//           the reference rounds it). c* is the first maximum ((value, index)
+//           butterflies, the lower center on equal values); then clu =
+//           |f - C[c*]|^2 (C[c*] rounded where the reference rounds it), a
+//           warp a row, from f as this block wrote it.
+//
+// Bound at R = 36, E = 1024 (B = 16, K = 8, T = 20): ~0.031 ms f32 and
+// ~0.017 ms bf16 in all (v, u and f bytes; chip_smoke.py counts it from a
+// batch's masks). The sims re-read ch from L2 once a block (44 MB at f32
+// there), the price of spreading 2,560 rows over the 132 SMs.
 constexpr int kGenThreads = 256;
-constexpr int kGenWarps = kGenThreads / 32;
-constexpr int kGenWords = 32;           // words of a pass: 4 a warp
-constexpr int kGenPer = kGenWords / kGenWarps;
-constexpr int kGenRows = 32;            // regions or centers of a tile
-constexpr int kGenCols = 64;            // columns of E a slice
-constexpr int kGenLd = kGenCols + 4;    // staged rows: float4 reads
+constexpr int kGenK = 64;               // E columns a stage of either kernel
+constexpr int kScoreStages = 2;         // the scores kernel's ring
+constexpr int kSimStages = 4;           // the sims kernel's ring
+constexpr int kScoreWords = 64;         // words of a scores pass
+constexpr int kScoreTile = 64;          // regions of a scores tile
+constexpr int kSimRows = 16;            // rows of f a sims block
+constexpr int kSimCenters = 128;        // centers of a sims pass
 
-// Columns [e0, e0 + kGenCols) of `rows` rows (row(i): the i-th row's start)
-// into shared rows of stride kGenLd as f32, zero past E and past `rows`.
-template <typename RowOf>
-__device__ __forceinline__ void gen_stage(float* __restrict__ dst, int rows,
-                                          int E, int e0, RowOf row) {
-  for (int p = threadIdx.x; p < kGenRows * kGenCols; p += blockDim.x) {
-    const int i = p / kGenCols, c = p % kGenCols;
-    const int e = e0 + c;
-    dst[i * kGenLd + c] = i < rows && e < E ? load1(row(i) + e) : 0.f;
+// The scores kernel waits for the centers kernel at its end, so that its
+// grid completes after the centers'; the sims kernel waits for the scores
+// kernel before its first read of r* (and of ch).
+__device__ __forceinline__ void wait_for_primary() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// Warps that split a stage's columns when a pass has `oct` octets of words.
+__device__ __forceinline__ int col_splits(int oct) {
+  return oct == 1 ? 8 : oct == 2 ? 4 : oct <= 4 ? 2 : 1;
+}
+
+// Rows [0, rows) of kGenK columns from k0 of E-element rows row(i) (16-byte
+// aligned bases, as stage_tile_any's) into shared rows of stride ld, zero
+// where live(i) is false and past E: stage_tile_any for rows that are not
+// one array's, or not all needed.
+template <typename T, typename RowOf, typename Live>
+__device__ __forceinline__ void stage_rows_any(T* __restrict__ dst, int rows,
+                                               int E, int k0, int ld,
+                                               RowOf row, Live live) {
+  constexpr int kSz = (int)sizeof(T);
+  const int row_bytes = E * kSz;
+  const int vec = row_bytes % 16 == 0 ? 16 / kSz
+                  : row_bytes % 8 == 0 ? 8 / kSz
+                  : row_bytes % 4 == 0 ? 4 / kSz : 0;
+  if (vec == 0) {                                // plain loads (bf16, odd E)
+    for (int p = threadIdx.x; p < rows * kGenK; p += blockDim.x) {
+      const int r = p / kGenK, k = p - r * kGenK;
+      store_as(dst + r * ld + k, live(r) && k0 + k < E
+                                     ? load1(row(r) + k0 + k) : 0.f);
+    }
+    return;
+  }
+  const int sh = __ffs(kGenK / vec) - 1;         // chunks a row: 2^sh
+  for (int p = threadIdx.x; p < rows << sh; p += blockDim.x) {
+    const int r = p >> sh, k = (p & ((1 << sh) - 1)) * vec;
+    const bool ok = live(r) && k0 + k < E;
+    const T* src = ok ? row(r) + k0 + k : row(0);
+    T* d = dst + r * ld + k;
+    if (vec * kSz == 16) cp_async<16>(d, src, ok ? 16 : 0);
+    else if (vec * kSz == 8) cp_async<8>(d, src, ok ? 8 : 0);
+    else cp_async<4>(d, src, ok ? 4 : 0);
   }
 }
 
-template <typename Tin>
-__global__ void __launch_bounds__(kGenThreads)
-diag_fwd_any(const Tin* __restrict__ w, const Tin* __restrict__ v,
-             const Tin* __restrict__ u, const Tin* __restrict__ chat,
-             const float* __restrict__ centers, const float* __restrict__ fm,
-             const float* __restrict__ hc, const float* __restrict__ rm,
-             float* __restrict__ ctx, float* __restrict__ clu,
-             float* __restrict__ f, float* __restrict__ dres,
-             int* __restrict__ rstar, int* __restrict__ cstar, int K, int T,
-             int R, int E, int Kc) {
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                      // [kGenWords][kGenLd] words, then f
-  float* ys = xs + kGenWords * kGenLd;   // [kGenRows][kGenLd] v, then ch
-  float* zs = ys + kGenRows * kGenLd;    // [kGenRows][kGenLd] u
-  int* rs = reinterpret_cast<int*>(zs + kGenRows * kGenLd);   // [32] r*
+// Three blocks an SM (at most 80 registers a thread): all 320 frames of
+// B = 16, T = 20 in one wave.
+template <typename Tin, int MT>
+__global__ void __launch_bounds__(kGenThreads, 3)
+diag_scores_any(const Tin* __restrict__ w, const Tin* __restrict__ v,
+                const Tin* __restrict__ u, const float* __restrict__ fm,
+                const float* __restrict__ hc, const float* __restrict__ rm,
+                float* __restrict__ ctx, float* __restrict__ dres,
+                int* __restrict__ rstar, int K, int T, int R, int E) {
+  constexpr int RP = 16 * MT;                    // regions of a tile, padded
+  constexpr int ld = stage_ld<Tin>(kGenK);
+  constexpr int kPer = (RP + 31) / 32;           // regions a lane
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tin* ring = reinterpret_cast<Tin*>(smem_raw);  // [stages][KW + 2 RP][ld]
+  float* red = reinterpret_cast<float*>(smem_raw);   // after a tile's stream
+  __shared__ float lv_s[RP];                     // the tile's region masks
+  const Tin* tag = nullptr;                      // picks as_operand's dtype
 
-  const size_t bt = blockIdx.x;          // the frame (b, t)
+  let_main_launch();                             // the sims kernel may start
+  const size_t bt = blockIdx.x;                  // the frame (b, t)
   const int b = (int)(bt / T), t = (int)(bt - (size_t)b * T);
-  const Tin* vt = v + bt * R * E;
-  const Tin* ut = u + bt * R * E;
-  const bool on = fm[bt] > 0.f && hc[bt] > 0.f;
+  const bool on = fm[bt] > 0.f && hc[bt] > 0.f;  // the ctx mask's frame part
+  const int KW = min(kScoreWords, (K + 7) & ~7); // staged word rows
+  const int kStage = (KW + 2 * RP) * ld;
+  const int nk = (E + kGenK - 1) / kGenK;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = lane >> 4, rg = lane & 15;
 
-  for (int k0 = 0; k0 < K; k0 += kGenWords) {
-    const int kw = min(kGenWords, K - k0);
-    const int nw =                       // this warp's words of the pass
-        min(kGenPer, max(0, (kw - warp + kGenWarps - 1) / kGenWarps));
+  for (int k0 = 0; k0 < K; k0 += kScoreWords) {
+    const int kp = min(kScoreWords, K - k0);     // words of the pass
+    const int oct = (kp + 7) >> 3;
+    const int S = col_splits(oct);
+    const int sp = warp % S, oc = warp / S;      // column split, word octet
+    const int q_lo = sp * (kGenK / 4 / S), q_hi = q_lo + kGenK / 4 / S;
     const Tin* wk = w + ((size_t)b * K + k0) * E;
-    float acc[kGenPer], best[kGenPer];
-    int arg[kGenPer];
+    float acc[8], best[8];                       // words warp + 8 m, m < 8
+    int arg[8];
 #pragma unroll
-    for (int i = 0; i < kGenPer; ++i) {
-      acc[i] = 0.f;
-      best[i] = -CUDART_INF_F;
-      arg[i] = 0;
+    for (int m = 0; m < 8; ++m) {
+      acc[m] = 0.f;
+      best[m] = -CUDART_INF_F;
+      arg[m] = 0;
     }
-    // (a) s, sh, the ctx terms, the residual and the first-max region
-    for (int r0 = 0; r0 < R; r0 += kGenRows) {
-      const int rc = min(kGenRows, R - r0);
-      float s[kGenPer], sh[kGenPer];
+    for (int r0 = 0; r0 < R; r0 += RP) {
+      const int rc = min(RP, R - r0);            // regions of the tile
+      const Tin* vt = v + (bt * R + r0) * E;
+      const Tin* ut = u + (bt * R + r0) * E;
+      // only the rows that count are read: v's at live regions, u's where
+      // the ctx mask is on; the others stay zeros, which nothing uses
+      auto stage = [&](int ks) {                 // one group a stage
+        if (ks < nk) {
+          Tin* d = ring + (ks % kScoreStages) * kStage;
+          stage_tile_any(d, wk, KW, kp, E, ks * kGenK, kGenK, ld);
+          stage_rows_any(
+              d + KW * ld, RP, E, ks * kGenK, ld,
+              [&](int i) { return vt + (size_t)i * E; },
+              [&](int i) { return lv_s[i] > 0.f; });
+          stage_rows_any(
+              d + (KW + RP) * ld, RP, E, ks * kGenK, ld,
+              [&](int i) { return ut + (size_t)i * E; },
+              [&](int i) { return on && lv_s[i] > 0.f; });
+        }
+        cp_async_commit();
+      };
+      float s[4][MT], sh[4][MT];
 #pragma unroll
-      for (int i = 0; i < kGenPer; ++i) s[i] = sh[i] = 0.f;
-      for (int e0 = 0; e0 < E; e0 += kGenCols) {
-        __syncthreads();                 // the last slice is read
-        gen_stage(xs, kw, E, e0, [&](int i) { return wk + (size_t)i * E; });
-        gen_stage(ys, rc, E, e0,
-                  [&](int i) { return vt + (size_t)(r0 + i) * E; });
-        gen_stage(zs, rc, E, e0,
-                  [&](int i) { return ut + (size_t)(r0 + i) * E; });
-        __syncthreads();
-        for (int q = 0; q < kGenCols / 4; ++q) {
-          const float4 y = lds4(ys + lane * kGenLd, q);
-          const float4 z = lds4(zs + lane * kGenLd, q);
+      for (int z = 0; z < 4; ++z)
 #pragma unroll
-          for (int i = 0; i < kGenPer; ++i) {
-            if (i < nw) {                // warp-uniform
-              const float4 x = lds4(xs + (warp + kGenWarps * i) * kGenLd, q);
-              s[i] = dot4(x, y, s[i]);
-              sh[i] = dot4(x, z, sh[i]);
-            }
+        for (int i = 0; i < MT; ++i) s[z][i] = sh[z][i] = 0.f;
+      __syncthreads();                           // the last tile's red is read
+      for (int i = threadIdx.x; i < RP; i += blockDim.x)
+        lv_s[i] = i < rc && (rm == nullptr || rm[bt * R + r0 + i] > 0.f);
+      __syncthreads();
+      for (int ks = 0; ks < kScoreStages - 1; ++ks) stage(ks);
+      for (int ks = 0; ks < nk; ++ks) {
+        cp_async_wait(kScoreStages - 2);         // stage ks; later ones fly
+        __syncthreads();                         // ... for all; ks - 1 read
+        stage(ks + kScoreStages - 1);            // into the slot of ks - 1
+        if (oc >= oct) continue;                 // warp-uniform
+        const Tin* st = ring + (ks % kScoreStages) * kStage;
+        const Tin* W = st + (oc * 8 + wg * 4) * ld;
+        const Tin* V = st + (KW + rg) * ld;
+        const Tin* U = V + RP * ld;
+        for (int q = q_lo; q < q_hi; ++q) {
+          float4 x[4], y[MT], z4[MT];
+#pragma unroll
+          for (int z = 0; z < 4; ++z) x[z] = lds4(W + z * ld, q);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            y[i] = lds4(V + 16 * i * ld, q);
+            z4[i] = lds4(U + 16 * i * ld, q);
           }
+#pragma unroll
+          for (int z = 0; z < 4; ++z)
+#pragma unroll
+            for (int i = 0; i < MT; ++i) {
+              s[z][i] = dot4(x[z], y[i], s[z][i]);
+              sh[z][i] = dot4(x[z], z4[i], sh[z][i]);
+            }
         }
       }
-      const int r = r0 + lane;
-      const bool in = lane < rc;
-      const bool lv = in && (rm ? rm[bt * R + r] > 0.f : true);
-      const bool m = lv && on;
+      __syncthreads();                           // the ring is read
+      // partial sums [S][kp8][RP] of s, then of sh
+      const int kp8 = oct * 8;
+      float* red_h = red + S * kp8 * RP;
+      if (oc < oct) {
 #pragma unroll
-      for (int i = 0; i < kGenPer; ++i) {
-        if (i >= nw) continue;
-        const int k = k0 + warp + kGenWarps * i;
-        const float diff = s[i] - sh[i];
-        if (in) dres[(((size_t)b * K + k) * T + t) * R + r] = m ? diff : 0.f;
-        float term = m ? as_operand(diff * diff, v) : 0.f;
-        float val = in ? (lv ? s[i] : kNeg) : -CUDART_INF_F;
-        int idx = r;
+        for (int z = 0; z < 4; ++z)
+#pragma unroll
+          for (int i = 0; i < MT; ++i) {
+            const int at = (sp * kp8 + oc * 8 + wg * 4 + z) * RP + rg + 16 * i;
+            red[at] = s[z][i];
+            red_h[at] = sh[z][i];
+          }
+      }
+      __syncthreads();
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int kk = warp + 8 * m;             // a warp a word
+        if (kk >= kp) continue;                  // warp-uniform
+        float term = 0.f, val = -CUDART_INF_F;
+        int idx = 0;
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          const int r = lane + 32 * j;
+          if (r >= rc) continue;
+          float x = 0.f, y = 0.f;
+          for (int p = 0; p < S; ++p) {          // the splits in order
+            x += red[(p * kp8 + kk) * RP + r];
+            y += red_h[(p * kp8 + kk) * RP + r];
+          }
+          const bool lv = lv_s[r] > 0.f;
+          const bool msk = lv && on;
+          const float diff = x - y;
+          dres[(((size_t)b * K + k0 + kk) * T + t) * R + r0 + r] =
+              msk ? diff : 0.f;
+          term += msk ? as_operand(diff * diff, tag) : 0.f;
+          const float sv = lv ? x : kNeg;
+          if (sv > val) {                        // the lane's regions ascend
+            val = sv;
+            idx = r0 + r;
+          }
+        }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) {
           term += __shfl_xor_sync(0xffffffffu, term, o);
           max_first(val, idx, o);
         }
-        acc[i] += term;
-        if (val > best[i]) {             // an earlier tile keeps equal values
-          best[i] = val;
-          arg[i] = idx;
+        acc[m] += term;
+        if (val > best[m]) {                     // an earlier tile keeps ties
+          best[m] = val;
+          arg[m] = idx;
         }
       }
     }
 #pragma unroll
-    for (int i = 0; i < kGenPer; ++i) {
-      if (i >= nw || lane != 0) continue;
-      const int kk = warp + kGenWarps * i;
+    for (int m = 0; m < 8; ++m) {
+      const int kk = warp + 8 * m;
+      if (kk >= kp || lane != 0) continue;
       const size_t o = ((size_t)b * K + k0 + kk) * T + t;
-      ctx[o] = acc[i];
-      rstar[o] = arg[i];
-      rs[kk] = arg[i];
+      ctx[o] = acc[m];
+      rstar[o] = arg[m];
     }
-    __syncthreads();
-    // (b) f = v[t, r*] whole, then c* = first argmax of f . ch
-    for (int p = threadIdx.x; p < kw * E; p += blockDim.x) {
-      const int kk = p / E, e = p - kk * E;
-      f[(bt * K + k0 + kk) * E + e] = load1(vt + (size_t)rs[kk] * E + e);
-    }
-    float top[kGenPer];
-    int top_c[kGenPer];
+  }
+  wait_for_primary();                            // the centers kernel's grid
+}
+
+template <typename Tin>
+__global__ void __launch_bounds__(kGenThreads)
+diag_sims_any(const Tin* __restrict__ v, const Tin* __restrict__ chat,
+              const float* __restrict__ centers,
+              const int* __restrict__ rstar, float* __restrict__ clu,
+              float* __restrict__ f, int* __restrict__ cstar, int B, int K,
+              int T, int R, int E, int Kc) {
+  constexpr bool kMma = sizeof(Tin) == 2;        // bf16 sims on mma.sync
+  constexpr int ld = stage_ld<Tin>(kGenK);
+  constexpr int NR = kSimRows;
+  constexpr int kWarps = kGenThreads / 32;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Tin* ring = reinterpret_cast<Tin*>(smem_raw);  // [stages][NR + CW][ld]
+  __shared__ const Tin* src[NR];                 // the rows v[t, r*]
+  __shared__ float wbest[kWarps][NR];            // each warp's first maxima
+  __shared__ int warg[kWarps][NR];
+  __shared__ float rbest[NR];                    // each row's, so far
+  __shared__ int rarg[NR];
+  const Tin* tag = nullptr;
+
+  const size_t rows_all = (size_t)B * T * K;
+  const size_t row0 = (size_t)blockIdx.x * NR;
+  const int live = rows_all - row0 < (size_t)NR ? (int)(rows_all - row0)
+                                                : NR;   // rows here
+  const int CW = min(kSimCenters, (Kc + 7) & ~7);    // staged center rows
+  const int kStage = (NR + CW) * ld;
+  const int nk = (E + kGenK - 1) / kGenK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int tr = threadIdx.x >> 6;               // f32: rows 4 tr..
+  const int tc = threadIdx.x & 63;               // ... centers tc, tc + 64
+  const int g4 = lane >> 2, tig = lane & 3;      // bf16: fragment lanes
+
+  wait_for_primary();                            // r* (and ch) are written
+  for (int i = threadIdx.x; i < NR; i += blockDim.x) {
+    const size_t row = row0 + i;                 // (b, t, k) in f's order
+    const size_t frame = row / K;                // b T + t
+    const int k = (int)(row - frame * K);
+    const int b = (int)(frame / T), t = (int)(frame - (size_t)b * T);
+    src[i] = i < live
+        ? v + (frame * R + rstar[((size_t)b * K + k) * T + t]) * E : v;
+    rbest[i] = -CUDART_INF_F;
+    rarg[i] = 0;
+  }
+  __syncthreads();
+
+  for (int c0 = 0; c0 < Kc; c0 += kSimCenters) {
+    const int cc = min(kSimCenters, Kc - c0);    // centers of the pass
+    auto stage = [&](int ks) {
+      if (ks < nk) {
+        Tin* d = ring + (ks % kSimStages) * kStage;
+        stage_rows_any(d, NR, E, ks * kGenK, ld,
+                       [&](int i) { return src[i]; },
+                       [&](int i) { return i < live; });
+        stage_tile_any(d + NR * ld, chat + (size_t)c0 * E, cc, cc, E,
+                       ks * kGenK, kGenK, ld);
+      }
+      cp_async_commit();
+    };
+    // f32: a thread's 4 rows x its centers tc and tc + 64; bf16: a warp's
+    // n8 tiles of centers warp, warp + 8 (all 16 rows, one m16 tile)
+    float acc[4][2], mac[2][4];                  // f32, bf16
+    for (auto& x : acc) x[0] = x[1] = 0.f;
+    for (auto& x : mac) x[0] = x[1] = x[2] = x[3] = 0.f;
+    const bool two = kMma ? 8 * (warp + kWarps) < cc : tc + 64 < cc;
+    for (int ks = 0; ks < kSimStages - 1; ++ks) stage(ks);
+    for (int ks = 0; ks < nk; ++ks) {
+      cp_async_wait(kSimStages - 2);
+      __syncthreads();
+      stage(ks + kSimStages - 1);
+      const Tin* F = ring + (ks % kSimStages) * kStage;
+      const Tin* C = F + NR * ld;
+      if (c0 == 0)                               // f from the staged rows
+        for (int p = threadIdx.x; p < live * kGenK; p += blockDim.x) {
+          const int i = p / kGenK, e = ks * kGenK + p % kGenK;
+          if (e < E) f[(row0 + i) * E + e] = load1(F + i * ld + p % kGenK);
+        }
+      if constexpr (kMma) {
+        if (8 * warp >= cc) continue;            // warp-uniform
 #pragma unroll
-    for (int i = 0; i < kGenPer; ++i) {
-      top[i] = -CUDART_INF_F;
-      top_c[i] = 0;
-    }
-    for (int c0 = 0; c0 < Kc; c0 += kGenRows) {
-      const int cc = min(kGenRows, Kc - c0);
-      float x4[kGenPer];
+        for (int k = 0; k < kGenK; k += 16) {
+          uint32_t x[4];
+          frag_a(x, F, ld, 0, k);
+          const __nv_bfloat16* q = C + (8 * warp + g4) * ld + k + 2 * tig;
+          mma_bf16(mac[0], x, lds32(q), lds32(q + 8));
+          if (two) {
+            q += 8 * kWarps * ld;
+            mma_bf16(mac[1], x, lds32(q), lds32(q + 8));
+          }
+        }
+      } else {
+        if (tc >= cc) continue;
+#pragma unroll 4
+        for (int q = 0; q < kGenK / 4; ++q) {
+          const float4 y0 = lds4(C + tc * ld, q);
+          const float4 y1 = two ? lds4(C + (tc + 64) * ld, q)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int i = 0; i < kGenPer; ++i) x4[i] = 0.f;
-      for (int e0 = 0; e0 < E; e0 += kGenCols) {
-        __syncthreads();
-        gen_stage(xs, kw, E, e0,
-                  [&](int i) { return vt + (size_t)rs[i] * E; });
-        gen_stage(ys, cc, E, e0,
-                  [&](int i) { return chat + (size_t)(c0 + i) * E; });
-        __syncthreads();
-        for (int q = 0; q < kGenCols / 4; ++q) {
-          const float4 y = lds4(ys + lane * kGenLd, q);
-#pragma unroll
-          for (int i = 0; i < kGenPer; ++i) {
-            if (i < nw) {
-              const float4 x = lds4(xs + (warp + kGenWarps * i) * kGenLd, q);
-              x4[i] = dot4(x, y, x4[i]);
-            }
+          for (int i = 0; i < 4; ++i) {
+            const float4 x = lds4(F + (4 * tr + i) * ld, q);
+            acc[i][0] = dot4(x, y0, acc[i][0]);
+            acc[i][1] = dot4(x, y1, acc[i][1]);
           }
         }
       }
+    }
+    // the pass's first maximum of each row: each warp's over its centers
+    // (a lane's own, then a butterfly), then the warps in turn (the lower
+    // index on equal values), then the passes (an earlier pass keeps equal
+    // values)
+    for (int i = lane; i < NR; i += 32) wbest[warp][i] = -CUDART_INF_F;
+    __syncwarp();
+    if constexpr (kMma) {
+      // lane (g4, tig): rows g4, g4 + 8; columns 8 n + 2 tig, + 1 of tiles
+      // n = warp, warp + 8; the 4 lanes of a row by butterflies
 #pragma unroll
-      for (int i = 0; i < kGenPer; ++i) {
-        if (i >= nw) continue;
-        float val = lane < cc ? x4[i] : -CUDART_INF_F;
-        int idx = c0 + lane;
+      for (int h = 0; h < 2; ++h) {
+        float val = -CUDART_INF_F;
+        int idx = 0;
+#pragma unroll
+        for (int n = 0; n < 2; ++n)
+#pragma unroll
+          for (int z = 0; z < 2; ++z) {
+            const int c = 8 * (warp + kWarps * n) + 2 * tig + z;
+            if (c < cc && mac[n][2 * h + z] > val) {   // ascending c
+              val = mac[n][2 * h + z];
+              idx = c0 + c;
+            }
+          }
+        max_first(val, idx, 1);
+        max_first(val, idx, 2);
+        if (tig == 0) {
+          wbest[warp][g4 + 8 * h] = val;
+          warg[warp][g4 + 8 * h] = idx;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float val = -CUDART_INF_F;
+        int idx = 0;
+        if (tc < cc) {
+          val = acc[i][0];
+          idx = c0 + tc;
+        }
+        if (two && acc[i][1] > val) {
+          val = acc[i][1];
+          idx = c0 + tc + 64;
+        }
 #pragma unroll
         for (int o = 16; o > 0; o >>= 1) max_first(val, idx, o);
-        if (val > top[i]) {
-          top[i] = val;
-          top_c[i] = idx;
+        if (lane == 0) {
+          wbest[warp][4 * tr + i] = val;
+          warg[warp][4 * tr + i] = idx;
         }
       }
     }
-    // (c) clu = |f - C[c*]|^2, a warp a word
-#pragma unroll
-    for (int i = 0; i < kGenPer; ++i) {
-      if (i >= nw) continue;
-      const int kk = warp + kGenWarps * i;
-      const Tin* fr = vt + (size_t)rs[kk] * E;
-      const float* tgt = centers + (size_t)top_c[i] * E;
-      float ss = 0.f;
-      for (int e = lane; e < E; e += 32) {
-        const float dx = load1(fr + e) - as_operand(tgt[e], v);
-        ss = fmaf(dx, dx, ss);
-      }
-      ss = warp_sum(ss);
-      if (lane == 0) {
-        const size_t o = ((size_t)b * K + k0 + kk) * T + t;
-        clu[o] = ss;
-        cstar[o] = top_c[i];
+    __syncthreads();
+    if (threadIdx.x < NR) {
+      const int j = threadIdx.x;
+      float val = -CUDART_INF_F;
+      int idx = 0;
+      for (int w = 0; w < kWarps; ++w)
+        if (wbest[w][j] > val || (wbest[w][j] == val && warg[w][j] < idx)) {
+          val = wbest[w][j];
+          idx = warg[w][j];
+        }
+      if (val > rbest[j]) {
+        rbest[j] = val;
+        rarg[j] = idx;
       }
     }
-    __syncthreads();                     // rs is read
+  }
+  __syncthreads();                               // f is written; c* known
+  // clu = |f - C[c*]|^2, a warp a row
+  for (int i = warp; i < live; i += kWarps) {
+    const size_t row = row0 + i;
+    const float* fr = f + row * E;
+    const float* tgt = centers + (size_t)rarg[i] * E;
+    float ss = 0.f;
+#pragma unroll 8
+    for (int e = lane; e < E; e += 32) {         // 8 loads of each in flight
+      const float dx = fr[e] - as_operand(tgt[e], tag);
+      ss = fmaf(dx, dx, ss);
+    }
+    ss = warp_sum(ss);
+    if (lane == 0) {
+      const size_t frame = row / K;
+      const int k = (int)(row - frame * K);
+      const int b = (int)(frame / T), t = (int)(frame - (size_t)b * T);
+      const size_t o = ((size_t)b * K + k) * T + t;
+      clu[o] = ss;
+      cstar[o] = rarg[i];
+    }
   }
 }
 
-// Dynamic shared memory of a general block: 26,240 B at any size.
-size_t smem_any() {
-  return (size_t)(kGenWords + 2 * kGenRows) * kGenLd * sizeof(float) +
-         kGenWords * sizeof(int);
+// The general kernels' grids and dynamic shared memory.
+int scores_mt(int R) { return min(4, (R + 15) / 16); }
+
+template <typename Tin>
+size_t scores_smem(int K, int R) {
+  const int rp = 16 * scores_mt(R);
+  const int kw = min(kScoreWords, (K + 7) & ~7);
+  const size_t ring =
+      kScoreStages * (size_t)(kw + 2 * rp) * stage_ld<Tin>(kGenK) *
+      sizeof(Tin);
+  const size_t red = 2 * (size_t)kScoreWords * rp * sizeof(float);
+  return ring > red ? ring : red;
+}
+
+template <typename Tin>
+size_t sims_smem(int Kc) {
+  const int cw = min(kSimCenters, (Kc + 7) & ~7);
+  return kSimStages * (size_t)(kSimRows + cw) * stage_ld<Tin>(kGenK) *
+         sizeof(Tin);
+}
+
+dim3 sims_grid(int B, int K, int T) {
+  return dim3((unsigned)(((size_t)B * T * K + kSimRows - 1) / kSimRows));
 }
 
 // Whether the main kernel takes these sizes (words in registers 8 a pass, at
-// most 4 16-byte quads a lane); every other shape takes diag_fwd_any.
+// most 4 16-byte quads a lane); every other shape takes the general variant.
 bool in_envelope(int K, int E) {
   return K <= 32 && E >= 4 && E % 4 == 0 && E <= 512;
+}
+
+template <typename Tin, int MT>
+int launch_scores(const void* w, const void* v, const void* u,
+                  const float* fm, const float* hc, const float* rm,
+                  float* ctx, float* dres, int* rstar, int B, int K, int T,
+                  int R, int E, cudaStream_t stream) {
+  return launch_dyn(diag_scores_any<Tin, MT>, dim3((unsigned)(B * T)),
+                    kGenThreads, scores_smem<Tin>(K, R), stream, true,
+                    static_cast<const Tin*>(w), static_cast<const Tin*>(v),
+                    static_cast<const Tin*>(u), fm, hc, rm, ctx, dres, rstar,
+                    K, T, R, E);
 }
 
 template <typename Tin>
@@ -888,37 +1166,48 @@ int run_any(const void* w, const void* v, const void* u, const float* centers,
             float* ctx, float* clu, float* f, float* dres, int* rstar,
             int* cstar, int B, int K, int T, int R, int E, int Kc,
             cudaStream_t stream) {
-  const int err = launch_dyn(diag_centers_kernel<Tin>, centers_grid(Kc),
-                             kCenterThreads, 0, stream, false, centers,
-                             static_cast<Tin*>(chat), Kc, E);
+  int err = launch_dyn(diag_centers_kernel<Tin>, centers_grid(Kc),
+                       kCenterThreads, 0, stream, false, centers,
+                       static_cast<Tin*>(chat), Kc, E);
   if (err != 0) return err;
-  return launch_dyn(diag_fwd_any<Tin>, dim3((unsigned)(B * T)), kGenThreads,
-                    smem_any(), stream, false, static_cast<const Tin*>(w),
-                    static_cast<const Tin*>(v), static_cast<const Tin*>(u),
-                    static_cast<const Tin*>(chat), centers, fm, hc, rm, ctx,
-                    clu, f, dres, rstar, cstar, K, T, R, E, Kc);
+  switch (scores_mt(R)) {        // MT: a tile of 16 MT regions
+    case 1: err = launch_scores<Tin, 1>(w, v, u, fm, hc, rm, ctx, dres, rstar, B, K, T, R, E, stream); break;
+    case 2: err = launch_scores<Tin, 2>(w, v, u, fm, hc, rm, ctx, dres, rstar, B, K, T, R, E, stream); break;
+    case 3: err = launch_scores<Tin, 3>(w, v, u, fm, hc, rm, ctx, dres, rstar, B, K, T, R, E, stream); break;
+    default: err = launch_scores<Tin, 4>(w, v, u, fm, hc, rm, ctx, dres, rstar, B, K, T, R, E, stream); break;
+  }
+  if (err != 0) return err;
+  return launch_dyn(diag_sims_any<Tin>, sims_grid(B, K, T), kGenThreads,
+                    sims_smem<Tin>(Kc), stream, true,
+                    static_cast<const Tin*>(v),
+                    static_cast<const Tin*>(chat), centers,
+                    static_cast<const int*>(rstar), clu, f, cstar, B, K, T,
+                    R, E, Kc);
 }
 
-// Limits: the grids' (B <= 65535; the general variant's B T blocks below
-// 2^31) and sizes of at least 1.
+// Limits: the grids' (B <= 65535; the general variant's B T and B T K / 16
+// blocks below 2^31) and sizes of at least 1.
 bool bad_sizes(int B, int K, int T, int R, int E, int Kc) {
   return K < 1 || R < 1 || Kc < 1 || E < 1 || B < 0 || B > 65535 || T < 0 ||
-         (long long)B * T > 0x7fffffffLL;
+         (long long)B * T > 0x7fffffffLL ||
+         (long long)B * T * K / kSimRows >= 0x7fffffffLL;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Launches the two kernels on `stream` and returns the cudaError_t of the
-// launches (0 = ok). w [B, K, E], v and u [B, T, R, E] and the scratch chat
-// [Kc, E] are float* when is_bf16 == 0 and __nv_bfloat16* otherwise;
+// Launches the kernels (two, or three in the general variant) on `stream`
+// and returns the cudaError_t of the launches (0 = ok). w [B, K, E], v and
+// u [B, T, R, E] and the scratch chat [Kc, E] are float* when is_bf16 == 0
+// and __nv_bfloat16* otherwise;
 // centers [Kc, E], fm and hc [B, T] and rm [B, T, R] (may be null: every
 // region valid) are f32. Written whole: ctx, clu [B, K, T] f32, f
 // [B, T, K, E] f32, dres [B, K, T, R] f32, rstar and cstar [B, K, T] int32.
 // All tensors are contiguous; w, v, u, centers, chat and f are 16-byte
 // aligned. Shapes in_envelope takes run the kernels above, every other the
-// general variant. Limits: K, R, Kc, E >= 1, B <= 65535, B T < 2^31.
+// general variant. Limits: K, R, Kc, E >= 1, B <= 65535, B T < 2^31 and
+// B T K / 16 < 2^31.
 int nafae_diag_fwd(const void* w, const void* v, const void* u, int is_bf16,
                    const float* centers, void* chat, const float* fm,
                    const float* hc, const float* rm, float* ctx, float* clu,
@@ -941,11 +1230,11 @@ int nafae_diag_fwd(const void* w, const void* v, const void* u, int is_bf16,
                    rstar, cstar, B, K, T, R, E, Kc, s);
 }
 
-// Launches two empty kernels with the grids, block sizes and dynamic shared
-// memory that nafae_diag_fwd would use for these sizes, the second as the
-// first's programmatic dependent (in stream order for the general variant):
-// the launch floor the measured times are judged against. Same limits and
-// return value.
+// Launches empty kernels with the grids, block sizes and dynamic shared
+// memory that nafae_diag_fwd would use for these sizes, each after the first
+// as the programmatic dependent of the one before (two kernels, or three in
+// the general variant): the launch floor the measured times are judged
+// against. Same limits and return value.
 int nafae_diag_fwd_floor(int is_bf16, int B, int K, int T, int R, int E,
                          int Kc, void* stream) {
   if (bad_sizes(B, K, T, R, E, Kc) || B < 1 || T < 1)
@@ -954,9 +1243,17 @@ int nafae_diag_fwd_floor(int is_bf16, int B, int K, int T, int R, int E,
   const int err = launch_dyn(null_kernel, centers_grid(Kc), kCenterThreads,
                              0, s, false);
   if (err != 0) return err;
-  if (!in_envelope(K, E))
-    return launch_dyn(null_kernel, dim3((unsigned)(B * T)), kGenThreads,
-                      smem_any(), s, false);
+  if (!in_envelope(K, E)) {
+    const size_t smem = is_bf16 ? scores_smem<__nv_bfloat16>(K, R)
+                                : scores_smem<float>(K, R);
+    const int e2 = launch_dyn(null_kernel, dim3((unsigned)(B * T)),
+                              kGenThreads, smem, s, true);
+    if (e2 != 0) return e2;
+    return launch_dyn(null_kernel, sims_grid(B, K, T), kGenThreads,
+                      is_bf16 ? sims_smem<__nv_bfloat16>(Kc)
+                              : sims_smem<float>(Kc),
+                      s, true);
+  }
   return launch_dyn(null_kernel, main_grid(B, T), kThreads,
                     is_bf16 ? smem_bytes<__nv_bfloat16>(K, E)
                             : smem_bytes<float>(K, E),

@@ -19,15 +19,18 @@ Each source runs two CUDA kernels a call (per-pair scores and softmax,
 then a per-frame sum), and says what bounds it on an H100. Each takes
 every shape the reference takes: R <= 32, E a multiple of 4 in [4, 512]
 and w <= 16 (and T <= 65535 for the backward) run its specialised
-kernels; any other R, E, w >= 1 its general variant. The forward's
-streams E through shared memory in stages and, up to R = 64 and w =
-512, keeps a pair's whole score tile there (register tiles in f32,
-tensor cores in bf16); the backward's, and the forward's past those,
+kernels; any other R, E, w >= 1 its general variant. Up to R = 64 and
+w = 512 both directions' general variants stream E through shared
+memory in stages, a block a pair of frames with its whole R x R tiles
+there, then a per-frame kernel launched as its programmatic dependent
+(the backward's pairs write, for each frame and neighbour, the matrices
+its gather multiplies, into a scratch in v_ext's dtype); past those they
 walk 32 regions and 64 columns at a time with scalar loads (the
 backward's scratch then two f32 [B,T,2w,R,R] arrays). Left are B <=
 65535, the general variant's grids (the forward's T + w and
 T·ceil(E/128) blocks up to R = 64 and w = 512, else T·2w·ceil(R/32)
-and T·ceil(R/32)·ceil(E/64); the backward's
+and T·ceil(R/32)·ceil(E/64); the backward's T + w and
+(T+2w)·ceil(E/64) (bf16: ceil(E/128)) up to R = 64 and w = 512, else
 T·2w·ceil(R/32) and (T+2w)·ceil(R/32)·ceil(E/64); each under 2^31) and
 device memory. Both count under the same `launches` keys. The plain
 version, `context_mix_plain`, is a port of
@@ -166,6 +169,8 @@ def _lib_bwd() -> ctypes.CDLL:
     lib.nafae_ctx_mix_bwd_res.restype = i
     lib.nafae_ctx_mix_bwd_scratch.argtypes = [i, i, i, i, i, i]
     lib.nafae_ctx_mix_bwd_scratch.restype = ctypes.c_size_t
+    lib.nafae_ctx_mix_bwd_floor.argtypes = [i] * 6 + [vp]
+    lib.nafae_ctx_mix_bwd_floor.restype = i
     return lib
 
 
@@ -230,8 +235,9 @@ def launch_bwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
     residual) alone on CUDA tensors: du [B,T,R,E] f32 -> dv_ext
     [B,T+2w,R,E] f32, halo frames included, on the current stream. One
     call runs the source's two kernels (pairs, then gather) through a
-    scratch in v_ext's dtype: ds [B,T,2w,R,R], alpha, then f32's ds
-    transposed or bf16's du_n."""
+    scratch in v_ext's dtype, as large as the C function
+    nafae_ctx_mix_bwd_scratch says for the shape (the pairs' matrices and,
+    in bf16, du_n)."""
     b, t, r, e = _check_inputs(v_ext, fm_ext, window, rm_ext)
     dev = v_ext.device
     _check("du", du, (b, t, r, e), torch.float32, dev, vector=True)
@@ -258,6 +264,22 @@ def launch_bwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
     if b > 0:
         launches["ctx_mix_bwd" if alpha is None else "ctx_mix_bwd_res"] += 1
     return dv
+
+
+def launch_floor_bwd(b: int, t: int, r: int, e: int, window: int,
+                     bf16: bool, device) -> None:
+    """Launches empty kernels with the grids, block size and shared memory
+    that `launch_bwd`'s general variant (K1b or K1br) uses for these sizes,
+    on the current stream: the launch floor a measured time of it is
+    judged against. Raises for shapes the specialised kernels take. Not a
+    launch of the kernel: `launches` does not count it."""
+    with torch.cuda.device(device):
+        err = _lib_bwd().nafae_ctx_mix_bwd_floor(
+            int(bf16), b, t, r, e, window,
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ctx_mix backward floor launch failed: "
+                           f"cudaError_t {err}")
 
 
 def use_residual(v_ext: torch.Tensor, window: int) -> bool:

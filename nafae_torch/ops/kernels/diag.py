@@ -29,8 +29,12 @@ kinds of block: per frame, dv from the words, the frame's ds and df staged
 once (no v read); per video and 32-column slice, dw as ds [K, T·R] · v
 [T·R, E], so v is read once. Shapes outside those kernels (K > 32, E not
 a multiple of 4, E > 512) take a general variant of each in the same
-sources (a block a frame, words 32 at a time and E in slices, elements
-read one at a time): every K and E the reference takes. Both are bound by
+sources: every K and E the reference takes. K4f's streams E through
+shared memory in stages, a block a frame for the region scores (v and u
+read once, up to 64 words a pass), then a block a tile of 16 rows of f
+for the cosine sims (up to 128 centers a pass), each kernel the
+programmatic dependent of the one before; K4b's takes a block a frame,
+words 32 at a time, elements read one at a time. Both are bound by
 bytes (PERF.md §6 has their
 bounds, times and the empty-kernel floors of their grids, `launch_floor_fwd`
 and `launch_floor_bwd`).

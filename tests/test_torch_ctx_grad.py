@@ -13,8 +13,9 @@ a multiple of 8), E = 68 (past one slice), R = 1 and 32, a video whose
 valid frames have no valid region (ds = 0 for every pair into them), a
 centre frame with no valid neighbour and an invalid centre frame between
 valid ones; and shapes past its specialised kernels, which its general
-variant takes: R = 36 with E = 1024, R = 33 with E = 50, E = 516 and
-w = 20 at T = 3. Limits:
+variant takes: R = 36 with E = 1024, R = 33 with E = 50, E = 516,
+w = 20 at T = 3, and R = 64 and 65 (the largest tile of its staged
+kernels, and one past it). Limits:
 f32 rtol 1e-5 / atol 1e-6 for u and dv; bf16 2e-2 (the JAX package's
 bf16 tolerance: the TPU kernels round u and dv to bf16, the port keeps
 them in f32). Against the TPU kernel in bf16, dv's atol is 2e-2 of its
@@ -60,6 +61,10 @@ CASES = {                       # B, T, R, E, w, the TPU tile of the residual
     "R33_E50": (2, 4, 33, 50, 3, 4),
     "E516": (2, 3, 5, 516, 2, 3),
     "w20_T3": (2, 3, 5, 8, 20, 3),
+    # the general variant's edge: R = 64, its staged kernels' largest tile,
+    # and R = 65, its wide kernels
+    "R64": (2, 3, 64, 16, 2, 3),
+    "R65": (2, 3, 65, 16, 2, 3),
 }
 # cases whose video 1 has valid frames with no valid region at all: every
 # pair into them is a uniform-fallback group, whose ds is 0

@@ -8,7 +8,9 @@ CUDA kernels' limits and edges in small sizes (K = 1 and 32, E = 4 and
 512, R = 1 and 33, Kc = 1 and 130, T = 1, exact region and center ties at
 3 and 35, a video with no valid frame), and past them, where the general
 variants run (K = 33 and 40, E = 3, 50 and 1024, a center tie across 32 at
-E = 50): ctx_kt and
+E = 50; K = 64 and 65, R = 64 and 65 and Kc = 129, at and one past the
+general forward's words a pass, regions a tile and centers a pass): ctx_kt
+and
 clu_kt within 2e-5, f within 1e-6, and dw, dv of a masked weighted sum of
 ctx and clu within 3e-5, for both the plain version and the wrapper on CPU
 tensors (which takes the plain version). The selection ignores frame
@@ -54,6 +56,13 @@ CASES = {                       # B, K, T, R, E, Kc
     "e50": (2, 3, 3, 6, 50, 9),
     "e1024": (2, 2, 2, 3, 1024, 5),
     "center_ties_e50": (2, 3, 3, 6, 50, 36),
+    # the general forward's tiles: words a pass (64), regions a tile (64)
+    # and centers a pass (128), at and one past each
+    "k64": (2, 64, 2, 4, 16, 5),
+    "k65": (2, 65, 2, 4, 16, 5),
+    "r64_e50": (2, 3, 2, 64, 50, 5),
+    "r65_e50": (2, 3, 2, 65, 50, 5),
+    "kc129_e50": (2, 3, 2, 6, 50, 129),
 }
 # case -> later index of tied regions (where R is past it) and centers
 TIES = {"ties_dead_video": 35, "center_ties_e50": 35}

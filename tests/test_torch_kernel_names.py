@@ -39,8 +39,11 @@ def _missing(subs) -> list[str]:
 
 
 def test_kernels_are_found():
-    for name in ("ctx_mix_fwd_pairs_any", "cross_mil_any", "nms_kernel",
-                 "roi_align_kernel", "diag_bwd_any"):
+    for name in ("ctx_mix_fwd_pairs_any", "ctx_mix_bwd_pairs_any",
+                 "ctx_mix_bwd_gather_any", "ctx_mix_bwd_pairs_wide",
+                 "ctx_mix_bwd_gather_wide", "cross_mil_any", "nms_kernel",
+                 "roi_align_kernel", "diag_scores_any", "diag_sims_any",
+                 "diag_bwd_any"):
         assert name in KERNELS, KERNELS
 
 
