@@ -858,7 +858,7 @@ def check_diag(torch, device, cases=DIAG_CASES,
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
         worst: dict[str, float] = {}
-        for b, k, t, r, e, kc, with_rm, ties_r, ties_c, dead in cases:
+        for b, k, t, r, e, kc, with_rm, ties_r, ties_c, dead, *off in cases:
             w = unit_rows(torch, gen, b, k, e)
             v = unit_rows(torch, gen, b, t, r, e)
             u = 0.5 * torch.randn(b, t, r, e, generator=gen)
@@ -872,12 +872,16 @@ def check_diag(torch, device, cases=DIAG_CASES,
                 centers[later] = centers[first]
             if dead:
                 fm[1] = 0.0
+            if off and off[0]:                # every second frame: no ctx
+                hc[:, 1::2] = 0.0
             got = compare_diag(
                 torch, *(x.to(dt).to(device) for x in (w, v, u)),
                 *(x.to(device) for x in (centers, fm, hc)),
                 rm.to(device) if with_rm else None,
                 f"{dt_name} B={b} K={k} T={t} R={r} E={e} Kc={kc} "
-                f"rm={with_rm} ties={ties_r}/{ties_c} dead_video={dead}",
+                f"rm={with_rm} ties={ties_r}/{ties_c} dead_video={dead}"
+                + (" every second frame without context" if off and off[0]
+                   else ""),
                 [x for _, x in ties_r], [x for _, x in ties_c], dead)
             worst = {n: max(worst.get(n, 0.0), got.get(n, 0.0))
                      for n in {**worst, **got}}
@@ -5850,8 +5854,15 @@ CROSS_ANY_CASES = [
 ]
 # K4f/K4b's cases past their envelope (K > 32, E not a multiple of 4, E >
 # 512), which the general variants take, as DIAG_CASES: K, R and Kc also at
-# and one past K4f's words a pass (64), regions a tile (64) and centers a
-# pass (128), an exact tie across the tiles and across the passes
+# and one past both kernels' words a pass (64), regions a tile (64) and
+# K4f's centers a pass (128), an exact tie across the tiles and across the
+# passes; for K4b's general variant also E past its 64-column stages and
+# 256-column dv blocks (E = 257, 258, 300, 320), its dv ring's depth (K =
+# 16 / 17), rows past its dw blocks' 256-row lists (T R = 260, 1040), its
+# dw clusters of 1, 2, 4 and 8 parts of a video's rows (B ceil(E / 64) of
+# 64 and more, 32, 16, and fewer, down to parts without rows), and, with an
+# 11th entry True, every second frame without context (its dw blocks skip
+# those rows)
 DIAG_ANY_CASES = [
     (16, 8, 20, 36, 1024, 67, True, (), (), False),   # R = 36, E = 1024
     (4, 33, 5, 20, 256, 67, True, (), (), False),     # K = 33
@@ -5868,6 +5879,18 @@ DIAG_ANY_CASES = [
     (2, 8, 5, 64, 50, 67, True, ((3, 63),), (), False),   # R = 64: one tile
     (2, 8, 5, 65, 50, 67, True, ((3, 64),), (), False),   # R = 65: two tiles
     (3, 8, 5, 20, 50, 129, True, (), ((5, 128),), False),  # Kc = 129
+    (2, 16, 4, 20, 50, 67, True, (), (), False),      # K = 16: 3 dv stages
+    (2, 17, 4, 20, 50, 67, True, (), (), False),      # K = 17: 2 stages
+    (2, 40, 13, 20, 256, 67, True, (), (), False),    # K = 40, T R = 260
+    (2, 8, 26, 40, 50, 67, True, (), (), False),      # T R = 1040
+    (3, 8, 5, 20, 258, 67, True, (), (), False),      # E = 258: 256 + 2
+    (2, 8, 4, 20, 257, 67, True, (), (), False),      # E = 257 (odd)
+    (2, 33, 4, 20, 320, 67, True, (), (), False),     # E = 320: 256 + 64
+    (2, 65, 3, 20, 300, 67, True, (), (), False),     # K = 65 at E = 300
+    (1, 65, 3, 65, 50, 67, True, ((3, 64),), (), False),   # K, R = 65
+    (4, 8, 10, 36, 1024, 67, True, (), (), False, True),   # half off
+    (2, 16, 4, 20, 1024, 67, True, (), (), False),    # 2 parts of dw rows
+    (1, 8, 3, 3, 50, 67, True, (), (), False),        # 8 parts of 9 rows
 ]
 ANY_STEPS = 3                    # steps of each phase-17 fit
 # one step's gradients, card against CPU, at phase 17's shapes: rtol as

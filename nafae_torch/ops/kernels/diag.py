@@ -33,11 +33,15 @@ sources: every K and E the reference takes. K4f's streams E through
 shared memory in stages, a block a frame for the region scores (v and u
 read once, up to 64 words a pass), then a block a tile of 16 rows of f
 for the cosine sims (up to 128 centers a pass), each kernel the
-programmatic dependent of the one before; K4b's takes a block a frame,
-words 32 at a time, elements read one at a time. Both are bound by
-bytes (PERF.md §6 has their
-bounds, times and the empty-kernel floors of their grids, `launch_floor_fwd`
-and `launch_floor_bwd`).
+programmatic dependent of the one before; K4b's is one launch of dw
+blocks (a video's 64-column slice, up to 64 words a pass, only the rows
+where d is nonzero read from v; where the grid has few of them, a
+video's rows split over a cluster of up to 8 blocks whose sums meet in
+distributed shared memory) and dv blocks (a frame and 256 columns, the
+words' rows streamed in 64-column stages, dv written once from
+registers). Both are bound by bytes (PERF.md §6 has their bounds, times
+and the empty-kernel floors of their grids, `launch_floor_fwd` and
+`launch_floor_bwd`).
 
 The forward keeps d = (s − ŝ)·m [B,K,T,R], r* and c* [B,K,T] (0.2 MB at
 config4), so the backward neither re-reads u nor recomputes the cluster
@@ -71,6 +75,7 @@ from nafae_torch.ops.kernels import check_tensor as _check
 NEG = -1e9
 MAX_B = 65535         # videos along the backward grid's y
 MAX_FRAMES = 2**31 - 1   # frames along the general forward grid's x
+MAX_BLOCKS = 2**31 - 1   # the backward's rows a video, its general grid's x
 
 launches = {"diag_epilogue": 0, "diag_epilogue_bwd": 0}
 
@@ -152,10 +157,12 @@ def _lib_bwd() -> ctypes.CDLL:
     return lib
 
 
-def _check_inputs(w, v, centers) -> tuple[int, int, int, int, int, int]:
-    """Checks what both kernels take; returns (B, K, T, R, E, Kc). Any K,
-    R, E and Kc (the specialised kernels or the general variants); the limit
-    left is the grid's."""
+def _check_inputs(w, v, centers,
+                  backward: bool = False) -> tuple[int, int, int, int, int,
+                                                   int]:
+    """Checks what both kernels take (with `backward`, K4b's limits too);
+    returns (B, K, T, R, E, Kc). Any K, R, E and Kc (the specialised
+    kernels or the general variants); the limits left are the grids'."""
     if v.dim() != 4 or w.dim() != 3 or centers.dim() != 2:
         raise ValueError(f"need w [B,K,E], v [B,T,R,E], centers [Kc,E]; got "
                          f"{tuple(w.shape)}, {tuple(v.shape)}, "
@@ -170,6 +177,14 @@ def _check_inputs(w, v, centers) -> tuple[int, int, int, int, int, int]:
     if b > MAX_B or b * t > MAX_FRAMES:
         raise ValueError(f"diag kernels take B <= {MAX_B} and B*T <= "
                          f"{MAX_FRAMES}, got B={b}, T={t}")
+    # K4b: T*R rows a video, and B*(T+9)*ceil(E/64) blocks at most in the
+    # general variant's grid (its dw blocks, up to 8 a video's slice, its dv
+    # blocks and the padding of its clusters)
+    if backward and (t * r > MAX_BLOCKS
+                     or b * (t + 9) * -(-e // 64) > MAX_BLOCKS):
+        raise ValueError(f"diag_epilogue_bwd takes T*R <= {MAX_BLOCKS} and "
+                         f"B*(T+9)*ceil(E/64) <= {MAX_BLOCKS}, got B={b}, "
+                         f"T={t}, R={r}, E={e}")
     dev = v.device
     # rows are read 16 (f32) or 8 (bf16) bytes at a time
     _check("v", v, (b, t, r, e), v.dtype, dev, vector=True)
@@ -221,7 +236,7 @@ def launch_fwd(w, v, u, centers, fm, hc, rm):
 def launch_bwd(w, v, centers, d, rstar, cstar, f, dctx, dclu):
     """K4b alone on CUDA tensors (the inputs of diag_bwd_plain): returns
     (dw [B,K,E], dv [B,T,R,E]) f32, launched on the current stream."""
-    b, k, t, r, e, _ = _check_inputs(w, v, centers)
+    b, k, t, r, e, _ = _check_inputs(w, v, centers, backward=True)
     dev = v.device
     _check("f", f, (b, t, k, e), torch.float32, dev, vector=True)
     _check("d", d, (b, k, t, r), torch.float32, dev)

@@ -245,8 +245,8 @@ def test_cpu_tensors_take_the_plain_version():
 
 def test_wrapper_rejects_what_the_kernels_do_not_take():
     """Dtypes, layouts, alignment, shapes of the masks and cotangents, and
-    the grid's limit (B) outside what the kernels take raise before any
-    launch."""
+    the grids' limits (B; K4b's T*R and general grid) outside what the
+    kernels take raise before any launch."""
     b, k, t, r, e, kc = 2, 3, 4, 5, 8, 6
     w, v = torch.zeros(b, k, e), torch.zeros(b, t, r, e)
     c, fm = torch.zeros(kc, e), torch.ones(b, t)
@@ -278,6 +278,11 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
                      torch.zeros(b, k, t))
     with pytest.raises(ValueError, match="B <= 65535"):
         D.launch_bwd(big_w, big_v, torch.zeros(1, 1), *(None,) * 6)
+    one = torch.zeros(1, 1, 1, 1)            # K4b's rows and blocks
+    for shape in ((1, 2**16, 2**16, 1), (1, 2**20, 1, 2**17)):
+        with pytest.raises(ValueError, match=r"B\*\(T\+9\)"):
+            D.launch_bwd(one[0].expand(1, 1, shape[3]), one.expand(*shape),
+                         torch.zeros(1, shape[3]), *(None,) * 6)
 
 
 @pytest.mark.parametrize("k, e", [(33, 16), (40, 256), (8, 6), (8, 50),
