@@ -228,6 +228,24 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    bound, and K1f's SDPA yardstick; (e) config1 eval of the R = 36
    split, hits card = CPU; (f) int8_matmul at M = 5 and 16, N = 50 and K
    = 2043, bit for bit the int64 product.
+18. model.matmul_precision=default (TF32 for the f32 products of the
+   training step's losses and their gradient) against highest (run after
+   phase 17, in a child process of its own, on phase 5's data, phase 17's
+   R = 36 split and phase 9's videos): (a) at config 4 f32 on both routes,
+   one eager step of each mode from one state on one batch: the loss terms
+   within 2e-3, grad_norm within 1e-2; the step's discrete choices (the
+   MIL max's region, r*, c*) recorded, the flips counted, and on the auto
+   route a `default` step replaying highest's choices holds every gradient
+   leaf within 1e-2 of its largest entry; some leaf outside phase 17's
+   ANY_GRAD_TOL (TF32 reached the products); (b) the `default` step
+   program graphed, bit for bit the eager chain, its launches counted; (c)
+   a traced replay in each mode names that mode's projection GEMM kernel;
+   (d) the projection's forward and weight-gradient GEMMs at config 4 and
+   R = 36 / E = 1024 in each mode (device ms, bound, kernel names); (e)
+   the cached step host to host, busy and idle in each mode, interleaved,
+   at config 4 (both routes) and R = 36 / E = 1024 / w = 3; (f) a 2-step
+   config-5 fit under `default`, captured, its rows held to phase 9's f32
+   rows, and the config-5 step on a resident batch in each mode.
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -2610,11 +2628,13 @@ def step_timings(torch, root, tmp, batch, dt, route, tag, frames) -> dict:
     return res
 
 
-def bound(torch, nbytes: float, flops: float, dtype) -> tuple[float, str]:
+def bound(torch, nbytes: float, flops: float, dtype,
+          peak: float | None = None) -> tuple[float, str]:
     """(least ms, what bounds it): `nbytes` over the memory rate against
     `flops` over the peak rate for the operands' type (f32 CUDA cores, or
-    bf16 tensor cores)."""
-    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    bf16 tensor cores), or over `peak` where given."""
+    peak = peak or (H100_BF16_FLOPS if dtype == torch.bfloat16
+                    else H100_F32_FLOPS)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
@@ -6357,23 +6377,23 @@ def any_child(tmp: str) -> None:
                   else float(o))
 
 
-def run_any_child(torch, tmp: str) -> dict:
-    """Phase 17 in a child process (any_child), started once this process
-    has given its cached device memory back (the earlier phases' graph
-    pools); the child's lines are logged here, and its failure fails the
-    run. Returns its results."""
+def run_child(torch, tmp: str, flag: str, result: str, phase: str) -> dict:
+    """`chip_smoke.py <flag> TMP` (any_child, precision_child) in a child
+    process, started once this process has given its cached device memory
+    back (the earlier phases' graph pools); the child's lines are logged
+    here, and its failure fails the run. Returns its results, TMP/result."""
     gc.collect()
     torch.cuda.empty_cache()
     here = os.path.dirname(os.path.abspath(__file__))
     run = subprocess.run([sys.executable, os.path.join(here, "chip_smoke.py"),
-                          "--any-child", tmp], cwd=here, capture_output=True,
+                          flag, tmp], cwd=here, capture_output=True,
                          text=True, timeout=900)
     for ln in run.stdout.splitlines():
         log(ln)
     if run.returncode != 0:
-        fail(f"phase 17 (its child process) exited {run.returncode}: "
+        fail(f"{phase} (its child process) exited {run.returncode}: "
              f"{run.stderr[-3000:]}")
-    with open(os.path.join(tmp, ANY_RESULT)) as f:
+    with open(os.path.join(tmp, result)) as f:
         return json.load(f)
 
 
@@ -6422,6 +6442,505 @@ def fused_any_keys(anyp: dict, key: str) -> dict:
                         **{n + tag: res[f"{key}_{n}{tag}"]
                            for tag in ("", "_bf16") for n in names}}
                 for shape, res in anyp["fused_times"].items()}}
+
+
+# ------------------------------------ phase 18: model.matmul_precision
+
+PREC_MODES = ("highest", "default")
+# a `default` step against a `highest` one from one state on one batch:
+# each loss term (rtol), each gradient leaf (atol, a fraction of the leaf's
+# largest entry) and the gradient's norm (rtol, the same fraction); the
+# reference states ~1e-3 for its mode. The control: some leaf must fall
+# outside ANY_GRAD_TOL, or TF32 reached no product
+PREC_METRIC_RTOL = 2e-3
+PREC_GRAD_TOL = (0.0, 1e-2)
+PREC_STEPS = 3                  # graphed `default` steps held against eager
+PREC_ROUNDS = 8                 # timing rounds: highest, default x2, highest
+PREC_C5_STEPS = 2               # the config-5 fit under `default`
+PREC_C5_ROUNDS = 2              # ... then its timed rounds on one batch
+H100_TF32_FLOPS = 495e12        # TF32 on tensor cores, dense, data sheet
+GEMM_MARKS = ("gemm", "nvjet", "xmma")   # in cuBLAS / CUTLASS kernel names
+# the projection's [B·T·R, D] x [D, E]: config 4, phase 17's R = 36 / E = 1024
+PREC_PROJ = {"config4": (16 * 20 * 20, 2048, 256),
+             "R36_E1024": (16 * 20 * 36, 2048, 1024)}
+PREC_INPUT = "precision_in.json"   # phase 18's inputs, in the run's tmp
+PREC_RESULT = "precision.json"     # ... and its results
+
+
+def gemm_kernels(torch, fn) -> list[str]:
+    """The GEMM kernels (cuBLAS or CUTLASS) of one fn() call after a
+    warm-up call, by torch.profiler: full names, most device time first."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    us = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA and any(
+                m in ev.name.lower() for m in GEMM_MARKS):
+            us[ev.name] = us.get(ev.name, 0.0) + ev.time_range.elapsed_us()
+    return sorted(us, key=lambda n: -us[n])
+
+
+def projection_gemms(torch) -> dict:
+    """Phase 18 (d): the projection's forward GEMM (f2 @ w_v) and its
+    weight gradient (f2^T @ dv), f32, at PREC_PROJ's shapes under each
+    mode: device ms (device_ms, captured inside the mode), the kernels
+    torch.profiler names, the bound (bytes, or operations at the f32 or the
+    TF32 rate) and default's largest |diff| / largest entry against
+    highest's. The two modes must run different kernels, and TF32 must
+    change the result."""
+    from nafae_torch.device import matmul_precision
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    out = {}
+    for name, (n, d, e) in PREC_PROJ.items():
+        f2 = torch.randn(n, d, device="cuda", generator=gen)
+        w = torch.randn(d, e, device="cuda", generator=gen) / d ** 0.5
+        dv = torch.randn(n, e, device="cuda", generator=gen)
+        calls = {"fwd": lambda: f2 @ w, "bwd": lambda: f2.T @ dv}
+        moved = 4 * (n * d + d * e + n * e)    # each: two read, one written
+        res = out[name] = {"shapes": {"N": n, "D": d, "E": e}}
+        got = {}
+        for mode in PREC_MODES:
+            res["bound_ms_" + mode], res["bound_by_" + mode] = bound(
+                torch, moved, 2 * n * d * e, torch.float32,
+                H100_TF32_FLOPS if mode == "default" else None)
+            with matmul_precision(mode):
+                for key, fn in calls.items():
+                    res[f"{key}_ms_{mode}"] = device_ms(torch, fn)
+                    res[f"{key}_kernels_{mode}"] = gemm_kernels(torch, fn)
+                    got[key, mode] = fn()
+        for key in calls:
+            want = got[key, "highest"]
+            res[key + "_rel_diff"] = ((got[key, "default"] - want).abs().max()
+                                      / want.abs().max()).item()
+            names = [res[f"{key}_kernels_{m}"] for m in PREC_MODES]
+            if not all(names) or names[0][0] == names[1][0] or \
+                    res[key + "_rel_diff"] == 0:
+                fail(f"phase 18 (d): the projection's {key} GEMM at "
+                     f"{res['shapes']} ran {names} (highest, default), "
+                     f"default off highest by {res[key + '_rel_diff']:.3e}: "
+                     "TF32 did not reach it")
+        del f2, w, dv, got
+        torch.cuda.empty_cache()
+    card = card_line()
+    for name, res in out.items():
+        log(f"phase 18 (d): projection GEMMs at {res['shapes']} f32, device "
+            "ms highest / default (bound): " + "; ".join(
+                f"{key} {res[key + '_ms_highest']:.4f} "
+                f"({res['bound_ms_highest']:.4f}, {res['bound_by_highest']})"
+                f" / {res[key + '_ms_default']:.4f} "
+                f"({res['bound_ms_default']:.4f}, {res['bound_by_default']})"
+                f", default off by {res[key + '_rel_diff']:.3e}"
+                for key in ("fwd", "bwd")) + f" — {card}")
+        for key in ("fwd", "bwd"):
+            log(f"phase 18 (d): projection {key} kernels at {name}: highest "
+                f"{res[key + '_kernels_highest']}; default "
+                f"{res[key + '_kernels_default']}")
+    return out
+
+
+def prec_programs(torch, cfgs: dict, cache) -> tuple[dict, dict]:
+    """Each mode's step program on the device cache, and its initial
+    state: ({mode: TrainFn}, {mode: TrainState})."""
+    import nafae_torch.train as TT
+
+    dev = torch.device("cuda")
+    return ({m: TT.build_train_fn(c, TT.make_optimizer(c), dev, cache=cache)
+             for m, c in cfgs.items()},
+            {m: TT.TrainState.create(c, device=dev) for m, c in cfgs.items()})
+
+
+def prec_cache(torch, root: str, regions: int) -> tuple[dict, list]:
+    """The train split at `root` on the device (`build_cache`) and the
+    first four batches' index tensors, in fit's order."""
+    import nafae_torch.train as TT
+    from nafae_torch.data.loader import BatchLoader
+    from nafae_torch.data.youcook2 import SegmentDataset
+
+    ds = SegmentDataset(root, "train", 20, regions, 2048, 8)
+    return (TT.build_cache(ds, torch.device("cuda")),
+            [torch.from_numpy(b["segment_id"].astype(np.int64)).cuda()
+             for _, b in BatchLoader(ds, 16, seed=0).steps(4)])
+
+
+def prec_step_times(torch, progs: dict, states: dict, idxs: list) -> dict:
+    """Phase 18 (e): each mode's graphed step host to host (an index batch
+    in, metrics on the host), PREC_ROUNDS rounds of highest, default,
+    default, highest; then a step's device busy time (torch.profiler) and
+    the idle share."""
+    host = {m: [] for m in progs}
+
+    def run(m, i):
+        states[m], mt = progs[m](states[m], idxs[i % len(idxs)])
+        return mt
+
+    for i in range(PREC_ROUNDS):
+        for m in PREC_MODES + PREC_MODES[::-1]:
+            t0 = time.perf_counter()
+            float(run(m, i)["loss"])
+            host[m].append((time.perf_counter() - t0) * 1e3)
+    out = {}
+    for m in PREC_MODES:
+        top, busy, ops = profile_forward(torch, lambda: run(m, 0))
+        ms = statistics.median(host[m])
+        out[m] = {"host_ms": ms, "host_ms_all": host[m],
+                  "device_busy_ms": busy, "device_ops": ops,
+                  "idle_share": 1 - busy / ms, "kernels": top}
+    return out
+
+
+class Decisions:
+    """The discrete choices of one training step's losses on the auto
+    route, in the order the step makes them: the MIL max's region of each
+    (video, word, frame), each (word, frame)'s top region r* and its
+    nearest center c*. Recorded (record None), or replayed from a record,
+    so that two steps in other modes take the same choices and differ only
+    in their rounding. The fused route makes them inside K3 and K4f, which
+    take no record; the hinges' signs are not pinned."""
+
+    def __init__(self, torch, record=None):
+        self.torch, self.made = torch, []
+        self.replay = None if record is None else list(record)
+
+    def take(self, kind: str, make):
+        choice = self.replay.pop(0)[1] if self.replay else make()
+        self.made.append((kind, choice))
+        return choice
+
+    def flips(self, other: "Decisions") -> dict:
+        """{kind: [choices that differ from other's, choices]}."""
+        out = {}
+        for (kind, a), (_, b) in zip(self.made, other.made):
+            n = out.setdefault(kind, [0, 0])
+            n[0] += int((a != b).sum().item())
+            n[1] += a.numel()
+        return out
+
+    def __enter__(self):
+        from nafae_torch.ops import grounding as G
+        from nafae_torch.ops import losses as L
+
+        torch = self.torch
+        self.real = real = (G.frame_mil_max, L.select_top_regions,
+                            L.kmeans_assign)
+
+        def mil_max(s, frame_mask):
+            r = self.take("mil_max", lambda: torch.argmax(s, -1, True))
+            a = s.gather(-1, r)[..., 0]
+            return torch.where(frame_mask[..., None, :] > 0, a, 0.0)
+
+        def top_regions(s, *args, r_star=None, **kw):
+            r = self.take("r_star", lambda: torch.argmax(s, -1)
+                          if r_star is None else r_star)
+            return real[1](s, *args, r_star=r, **kw)
+
+        def assign(*args, **kw):
+            return self.take("c_star", lambda: real[2](*args, **kw))
+
+        G.frame_mil_max, L.select_top_regions, L.kmeans_assign = \
+            mil_max, top_regions, assign
+        return self
+
+    def __exit__(self, *exc):
+        from nafae_torch.ops import grounding as G
+        from nafae_torch.ops import losses as L
+
+        G.frame_mil_max, L.select_top_regions, L.kmeans_assign = self.real
+
+
+def prec_rows_off(rows: list, want: list) -> tuple[dict, list]:
+    """(each metric's largest relative diff over the rows, the metrics past
+    their limits): the loss terms at PREC_METRIC_RTOL, grad_norm at
+    PREC_GRAD_TOL's fraction; the rates and the step are not compared."""
+    rel = {}
+    for got, ref in zip(rows, want):
+        for k, v in ref.items():
+            if k not in RATES and k != "step":
+                rel[k] = max(rel.get(k, 0.0),
+                             abs(got[k] - v) / max(abs(v), 1e-30))
+    return rel, [k for k, r in rel.items() if r > (
+        PREC_GRAD_TOL[1] if k == "grad_norm" else PREC_METRIC_RTOL)]
+
+
+def prec_one_step(torch, cfgs: dict, batch: dict, route: str) -> dict:
+    """Phase 18 (a): one eager `train_step` in each mode from the initial
+    state on `batch`, the gradients as the update receives them
+    (`recording`), the choices recorded (`Decisions`): default's metrics
+    within their limits of highest's (prec_rows_off). A choice that flips
+    between the modes (a near tie) moves a gradient by a whole term, so on
+    the auto route a third step, `default` replaying highest's choices, holds each
+    gradient leaf within PREC_GRAD_TOL of highest's and some leaf outside
+    ANY_GRAD_TOL (the control: TF32 reached the products). On the fused
+    route, whose choices K3 and K4f make, the control holds on the free
+    step and its gradients are reported."""
+    import nafae_torch.train as TT
+
+    def step(m, dec):
+        tx = TT.make_optimizer(cfgs[m])
+        got = recording(tx)
+        with dec:
+            _, mt = TT.train_step(TT.TrainState.create(cfgs[m], device="cuda"),
+                                  batch, cfgs[m], tx)
+        return ({k: float(v) for k, v in mt.items()},
+                {k: torch.from_numpy(v) for k, v in got[0].items()})
+
+    dec = {m: Decisions(torch) for m in PREC_MODES}
+    (rows, want), (rows_d, free) = (step(m, dec[m]) for m in PREC_MODES)
+    rel, off = prec_rows_off([rows_d], [rows])
+    free_gap = grad_gap(torch, free, want, PREC_GRAD_TOL)
+    held = free
+    if route == "auto":
+        replay = Decisions(torch, dec["highest"].made)
+        held = step("default", replay)[1]
+        if replay.replay or not replay.made:
+            fail(f"phase 18 (a): the replayed step took "
+                 f"{len(replay.made)} choices, "
+                 f"{len(dec['highest'].made)} recorded")
+    worst, bad = grad_gap(torch, held, want, PREC_GRAD_TOL)
+    _, outside = grad_gap(torch, held, want, ANY_GRAD_TOL)
+    if off or (route == "auto" and bad):
+        fail(f"phase 18 (a): the `default` step ({route}) is off the "
+             f"`highest` one: metrics {rel} ({off} past their limits); with "
+             f"highest's choices, gradients of {bad} up to {worst:.3e} of "
+             f"the largest entry (limit {PREC_GRAD_TOL[1]})")
+    if not outside:
+        fail(f"phase 18 (a): every gradient leaf of the `default` step "
+             f"({route}) is within {ANY_GRAD_TOL} of `highest`'s: TF32 "
+             "reached no product")
+    return {"metric_rel_diff": rel,
+            "grad_rel_diff_free": free_gap[0], "outside_free": free_gap[1],
+            "grad_rel_diff_pinned": worst if route == "auto" else None,
+            "outside_any_grad_tol": outside,
+            "flips": dec["default"].flips(dec["highest"])}
+
+
+def check_precision_c4(torch, root: str, tmp: str, proj: dict) -> dict:
+    """Phase 18 (a, b, c, e) at config 4 f32 on both routes, on phase 5's
+    data on the device: (a) prec_one_step on the first batch; (b) the
+    `default` program (`build_train_fn`) PREC_STEPS steps, launches
+    per_step_launches a step, captured (two graphs, a replay a step), rows
+    and state bit for bit the eager `train_step` chain; (c) one more replay
+    of each mode's program traced: it names the projection's forward
+    kernel of its mode (projection_gemms' at config 4); (e)
+    prec_step_times."""
+    cache, idxs = prec_cache(torch, root, 20)
+    fwd = {m: proj["config4"]["fwd_kernels_" + m][0] for m in PREC_MODES}
+    out = {}
+    for route in ROUTES:
+        cfgs = {m: cache_cfg(root, os.path.join(tmp, f"ck_prec_{route}_{m}"),
+                             route, ["train.steps=1000",
+                                     f"model.matmul_precision={m}"])
+                for m in PREC_MODES}
+        res = out[route] = {"one_step": prec_one_step(
+            torch, cfgs, {k: v.index_select(0, idxs[0])
+                          for k, v in cache.items()}, route)}
+        progs, states = prec_programs(torch, cfgs, cache)
+        rows = {}
+        zero_counts()                   # the `default` steps start here
+        for i in range(PREC_STEPS):
+            states["default"], mt = progs["default"](states["default"],
+                                                     idxs[i])
+            rows[i + 1] = {k: float(v) for k, v in mt.items()}
+        counts = read_counts()          # ... and end here
+        want = {k: n * PREC_STEPS for k, n in per_step_launches(route).items()}
+        st = dict(progs["default"].stats)
+        if counts != want or not progs["default"].graphed or \
+                st["graphs"] != 2 or st["replays"] != PREC_STEPS:
+            fail(f"phase 18 (b): the `default` program ({route}) launched "
+                 f"{counts} (expected {want}) and ran {st}")
+        eager = eager_chain(torch, cfgs["default"], idxs[:PREC_STEPS],
+                            cache=cache)
+        bad = [i for i, r in rows.items()
+               if not metrics_equal(r, eager["rows"][i])]
+        bad += state_diffs(torch, states["default"], eager["state"])
+        if bad:
+            fail(f"phase 18 (b): the graphed `default` step ({route}) differs "
+                 f"from the eager train_step chain in {bad}")
+        for i in range(PREC_STEPS):
+            states["highest"], _ = progs["highest"](states["highest"],
+                                                    idxs[i])
+        traced = {}
+        for m in PREC_MODES:
+            def replay():
+                states[m], _ = progs[m](states[m], idxs[3])
+            traced[m] = gemm_kernels(torch, replay)
+            if fwd[m] not in traced[m]:
+                fail(f"phase 18 (c): a traced `{m}` replay ({route}) names "
+                     f"the GEMMs {traced[m]}, not the projection's {fwd[m]}")
+        res.update(launches=counts, program=st, traced_gemms=traced,
+                   times=prec_step_times(torch, progs, states, idxs))
+        del progs, states, eager
+        torch.cuda.empty_cache()
+    del cache
+    torch.cuda.empty_cache()
+    card = card_line()
+    for route, res in out.items():
+        one, t = res["one_step"], res["times"]
+        pinned = one["grad_rel_diff_pinned"]
+        log(f"phase 18 (a): config4 f32 {route}, one step `default` against "
+            f"`highest`: metrics' relative diffs "
+            + ", ".join(f"{k} {v:.3e}" for k, v in
+                        one["metric_rel_diff"].items())
+            + f" (limits {PREC_METRIC_RTOL}, grad_norm {PREC_GRAD_TOL[1]});"
+            f" gradients max |diff| / largest entry "
+            f"{one['grad_rel_diff_free']:.3e} (leaves past "
+            f"{PREC_GRAD_TOL[1]}: {one['outside_free']}; choices flipped "
+            f"{one['flips']})" + (
+                f", with highest's choices {pinned:.3e} (limit "
+                f"{PREC_GRAD_TOL[1]})" if pinned is not None else "")
+            + f"; outside {ANY_GRAD_TOL}: {one['outside_any_grad_tol']}")
+        log(f"phase 18 (b, c): config4 f32 {route} `default`: {PREC_STEPS} "
+            f"graphed steps bit for bit the eager chain, launches "
+            f"{res['launches']}; a traced replay's GEMMs by device time: "
+            f"highest {res['traced_gemms']['highest']}; default "
+            f"{res['traced_gemms']['default']}")
+        log(f"phase 18 (e): config4 f32 {route} cached step as a graph, host "
+            "to host (busy, idle): " + "; ".join(
+                f"{m} {t[m]['host_ms']:.4f} ms ({t[m]['device_busy_ms']:.4f} "
+                f"ms in {t[m]['device_ops']:.0f} operations, "
+                f"{100 * t[m]['idle_share']:.1f}%)" for m in PREC_MODES)
+            + f", medians of {2 * PREC_ROUNDS} interleaved — {card}")
+        for m in PREC_MODES:
+            log(f"device time per {m} {route} step by kernel: " + "; ".join(
+                f"{us:.1f} us {k}" for k, us in t[m]["kernels"]))
+    return out
+
+
+def prec_r36_times(torch, root: str, tmp: str) -> dict:
+    """Phase 18 (e): phase 17's R = 36 / E = 1024 / w = 3 auto step, f32,
+    from the device cache of its split, graphed in each mode
+    (prec_step_times, after PREC_STEPS steps of each)."""
+    cache, idxs = prec_cache(torch, root, 36)
+    cfgs = {m: cache_cfg(root, os.path.join(tmp, f"ck_prec_r36_{m}"), "auto",
+                         ["train.steps=1000", *ANY_FITS["R36_E1024_w3"][0],
+                          f"model.matmul_precision={m}"])
+            for m in PREC_MODES}
+    progs, states = prec_programs(torch, cfgs, cache)
+    for i in range(PREC_STEPS):
+        for m in PREC_MODES:
+            states[m], mt = progs[m](states[m], idxs[i])
+            if not np.isfinite(float(mt["loss"])):
+                fail(f"phase 18 (e): the R = 36 `{m}` step's loss is {mt}")
+    t = prec_step_times(torch, progs, states, idxs)
+    del progs, states, cache
+    torch.cuda.empty_cache()
+    log("phase 18 (e): R = 36 / E = 1024 / w = 3 auto step f32 as a graph, "
+        "host to host (busy, idle): " + "; ".join(
+            f"{m} {t[m]['host_ms']:.4f} ms ({t[m]['device_busy_ms']:.4f} ms,"
+            f" {100 * t[m]['idle_share']:.1f}%)" for m in PREC_MODES)
+        + f" — {card_line()}")
+    return t
+
+
+def check_precision_c5(torch, ann: str, tmp: str, highest_rows: list) -> dict:
+    """Phase 18 (f): config-5 `fit`, PREC_C5_STEPS f32 steps under
+    `default` on phase 9's videos: launches c5_launches a step, captured
+    (two graphs, a replay a step), each row's metrics within their limits
+    (prec_rows_off) of phase 9's f32 fit's (`highest`; the same seed, data
+    and schedule's first rows: its first update has lr 0); then the step
+    eagerly on the first batch resident on the card in each mode: a
+    warm-up step each, then PREC_C5_ROUNDS rounds of highest, default,
+    default, highest."""
+    import nafae_torch.train as TT
+
+    cfg = c5_cfg(ann, os.path.join(tmp, "ck5_prec"), "float32",
+                 PREC_C5_STEPS, ["model.matmul_precision=default"])
+    torch.cuda.empty_cache()
+    zero_counts()                               # main path starts here
+    fitted = traced_fit(torch, cfg)
+    counts = read_counts()                      # ... and ends here
+    want = {k: n * PREC_C5_STEPS for k, n in c5_launches(cfg).items()}
+    if counts != want:
+        fail(f"phase 18 (f): the `default` config-5 fit launched {counts}, "
+             f"expected {want}")
+    st = expect_graphed(fitted, "phase 18 (f)", 2, PREC_C5_STEPS)
+    rel, off = prec_rows_off(fitted["logs"], highest_rows)
+    if off:
+        fail(f"phase 18 (f): the `default` config-5 rows {fitted['logs']} "
+             f"are off phase 9's `highest` rows {highest_rows}: {rel}, "
+             f"{off} past their limits")
+    batch = fitted["seen"][0]
+    del fitted
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    dev = torch.device("cuda")
+    det = c5_detector(torch, cfg)
+    tb = TT.batch_to_device(batch, dev)
+    cfgs = {m: c5_cfg(ann, os.path.join(tmp, f"ck5_prec_{m}"), "float32",
+                      1000, [f"model.matmul_precision={m}"])
+            for m in PREC_MODES}
+    txs = {m: TT.make_optimizer(c) for m, c in cfgs.items()}
+    states = {m: TT.TrainState.create(c, device=dev) for m, c in cfgs.items()}
+    host = {m: [] for m in PREC_MODES}
+    order = PREC_MODES + (PREC_MODES + PREC_MODES[::-1]) * PREC_C5_ROUNDS
+    for i, m in enumerate(order):
+        t0 = time.perf_counter()
+        states[m], mt = TT.train_step(states[m], tb, cfgs[m], txs[m], det)
+        float(mt["loss"])
+        if i >= len(PREC_MODES):               # the first of each warms up
+            host[m].append((time.perf_counter() - t0) * 1e3)
+    del det, tb, states
+    torch.cuda.empty_cache()
+    res = {"launches": counts, "program": st, "rows_rel_diff": rel,
+           "resident_step_ms": {m: statistics.median(v)
+                                for m, v in host.items()},
+           "resident_step_ms_all": host}
+    log(f"phase 18 (f): config5 f32 fit of {PREC_C5_STEPS} steps under "
+        f"`default`: launches {counts}, {st['graphs']} graphs, "
+        f"{st['replays']} replays; rows against phase 9's `highest` max "
+        f"relative diff {rel} (limits {PREC_METRIC_RTOL}, grad_norm "
+        f"{PREC_GRAD_TOL[1]}); "
+        "the step on a resident batch, eager: " + ", ".join(
+            f"{m} {res['resident_step_ms'][m]:.2f} ms" for m in PREC_MODES)
+        + f" — {card_line()}")
+    return res
+
+
+def check_precision(torch, tmp: str, ann: str, c5_rows: list) -> dict:
+    """Phase 18: model.matmul_precision=default against highest.
+    (d) projection_gemms; (a, b, c, e) check_precision_c4; (e)
+    prec_r36_times on phase 17's R = 36 split; (f) check_precision_c5."""
+    t = [time.perf_counter()]
+    proj = projection_gemms(torch)
+    t.append(time.perf_counter())
+    c4 = check_precision_c4(torch, tmp, tmp, proj)
+    t.append(time.perf_counter())
+    r36 = prec_r36_times(torch, os.path.join(tmp, "r36"), tmp)
+    t.append(time.perf_counter())
+    c5 = check_precision_c5(torch, ann, tmp, c5_rows)
+    t.append(time.perf_counter())
+    parts = [b - a for a, b in zip(t, t[1:])]
+    log(f"phase 18 took {t[-1] - t[0]:.1f} s (projection, config 4, R = 36, "
+        f"config 5: {', '.join(f'{x:.1f}' for x in parts)} s)")
+    return {"projection": proj, "config4": c4, "r36_step": r36,
+            "config5": c5, "phase_s": t[-1] - t[0], "parts_s": parts}
+
+
+def precision_child(tmp: str) -> None:
+    """`python3 chip_smoke.py --precision-child TMP`: phase 18
+    (check_precision) in a process of its own, as phase 17 runs (its
+    profiler traces whole), on phase 5's data in TMP, phase 17's R = 36
+    split in TMP/r36 and phase 9's videos; reads TMP/PREC_INPUT (the
+    videos' annotations, phase 9's f32 rows) and writes its results to
+    TMP/PREC_RESULT."""
+    import torch
+
+    from nafae_torch.ops.kernels import _build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    _build.build_all(SOURCES)
+    with open(os.path.join(tmp, PREC_INPUT)) as f:
+        given = json.load(f)
+    out = check_precision(torch, tmp, given["ann"], given["c5_rows"])
+    with open(os.path.join(tmp, PREC_RESULT), "w") as f:
+        json.dump(out, f, default=float)
 
 
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
@@ -6615,7 +7134,16 @@ def main() -> None:
         # the context mix at every shape the reference takes (phase 17),
         # on the serving phase's requests and phase 5's data, and on an
         # R = 36 split written there, in a process of its own
-        anyp = run_any_child(torch, tmp)
+        anyp = run_child(torch, tmp, "--any-child", ANY_RESULT, "phase 17")
+
+        # model.matmul_precision=default against highest (phase 18), on
+        # phase 5's data, phase 17's R = 36 split and phase 9's videos, in
+        # a process of its own
+        with open(os.path.join(tmp, PREC_INPUT), "w") as f:
+            json.dump({"ann": ann,
+                       "c5_rows": c5["float32"]["logs"][:PREC_C5_STEPS]}, f)
+        precp = run_child(torch, tmp, "--precision-child", PREC_RESULT,
+                          "phase 18")
     shutdown()
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
@@ -7051,6 +7579,7 @@ def main() -> None:
             "phase_s": t16},
         "any_shapes": {k: v for k, v in anyp.items()
                        if k not in ("times", "fused_times")},
+        "precision": precp,
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)
@@ -7064,5 +7593,7 @@ if __name__ == "__main__":
         artifact_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--any-child":
         any_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--precision-child":
+        precision_child(sys.argv[2])
     else:
         main()

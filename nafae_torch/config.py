@@ -31,9 +31,14 @@ class ModelConfig:
     dtype: str = "float32"         # compute dtype of the similarity and
                                    # projection products: "float32" |
                                    # "bfloat16" (bf16 operands, f32 sums)
-    matmul_precision: str = "highest"  # JAX package only
+    matmul_precision: str = "highest"  # "highest": exact f32 products;
+                                   # "default": TF32 for the f32 products of
+                                   # the training step's losses and their
+                                   # gradient (device.matmul_precision);
+                                   # k-means, the update, serving, eval,
+                                   # convolutions and the kernels stay exact
     quantize: str = ""             # "" | "int8" | "int8pre": int8 inference
-                                   # compute (not ported yet)
+                                   # compute (serve and eval)
     word_vectors: str = ""         # optional GloVe-style init file for word_emb
 
 
@@ -125,8 +130,8 @@ class MeshConfig:
 class DetectorConfig:
     """Faster R-CNN feature extractor (config 5). The port runs resnet50,
     resnet101 and vgg16, from random weights or a torch checkpoint
-    (`weights`); the four stem_* knobs (TPU layouts of the same stem)
-    raise NotImplementedError."""
+    (`weights`); under the four stem_* knobs (TPU layouts of the same
+    sums) the ResNet runs its plain 7x7/s2 stem."""
     backbone: str = "resnet50"    # resnet50 | resnet101 | vgg16
     image_size: int = 640
     num_proposals: int = 20       # R kept after NMS

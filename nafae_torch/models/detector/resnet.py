@@ -92,24 +92,19 @@ class ResNetC4(nn.Module):
     views of channels_last tensors: no copy either way). dtype: activation
     dtype (None: f32); params stay f32.
 
-    The stem is the plain 7x7/s2 convolution. The reference's stem knobs
-    (`stem_s2d`, `stem_pad_ch`, `stem_im2col`, `stem_nminor`) are the same
-    sums arranged for the TPU's convolution emitter; they are not ported and
-    raise NotImplementedError."""
+    The stem is the plain 7x7/s2 convolution under every setting of the
+    reference's stem knobs (`stem_s2d`, `stem_pad_ch`, `stem_im2col`,
+    `stem_nminor`): each lays the same stem out for the TPU's convolution
+    emitter (space-to-depth, zero input channels, patches and a matmul, a
+    transposed operand) and, by the reference's account and its own test
+    (tests/test_detector.py), computes the same sums with the same
+    parameters. They are accepted so that a config file runs in both
+    packages; cuDNN picks its own layout."""
 
     def __init__(self, blocks=(3, 4, 6), dtype=None, stem_s2d: bool = False,
                  stem_pad_ch: int = 0, stem_im2col: bool = False,
                  stem_nminor: bool = False):
         super().__init__()
-        knobs = {"detector.stem_s2d": stem_s2d,
-                 "detector.stem_pad_ch": stem_pad_ch > 0,
-                 "detector.stem_im2col": stem_im2col,
-                 "detector.stem_nminor": stem_nminor}
-        on = [k for k, v in knobs.items() if v]
-        if on:
-            raise NotImplementedError(
-                f"{', '.join(on)}: the TPU stem layouts are not ported; the "
-                "port runs the plain 7x7/s2 stem (the same sums)")
         self.dtype = dtype
         self.Conv_0 = Conv(3, 64, 7, 2, padding=3)
         self.FrozenBN_0 = FrozenBN(64)

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from nafae_torch.device import matmul_precision
 from nafae_torch.models.detector.resnet import Conv
 
 # (torchvision `features` module index, out_channels) of each conv, in order.
@@ -76,7 +77,11 @@ class VGG16RoIHead(nn.Module):
     def forward(self, rois: torch.Tensor) -> torch.Tensor:
         y = rois if self.dtype is None else rois.to(self.dtype)
         y = y.reshape(y.shape[0], -1)                    # (h, w, c)
-        for fc in (self.Dense_0, self.Dense_1):
-            y = F.relu_(F.linear(y, fc.weight.to(y.dtype),
-                                 fc.bias.to(y.dtype)))
+        # exact f32 products inside the training step's scope too: the
+        # reference's Dense layers take no precision, so its
+        # model.matmul_precision does not reach them
+        with matmul_precision("highest"):
+            for fc in (self.Dense_0, self.Dense_1):
+                y = F.relu_(F.linear(y, fc.weight.to(y.dtype),
+                                     fc.bias.to(y.dtype)))
         return y.float()

@@ -13,7 +13,10 @@ fill. Every product keeps an f32 output: with a bf16 compute dtype its
 operands are rounded to bf16 and multiplied in f32 (bf16 x bf16 products
 are exact in f32), which is the reference's preferred_element_type=f32
 contract; a bf16 torch product would round its output to bf16. f32 products
-need TF32 off, which `device.resolve_device` sets.
+need TF32 off, which `device.resolve_device` sets; the one exception is the
+training step's losses and their gradient under
+model.matmul_precision=default (`device.matmul_precision`), where they run
+in TF32 as the reference's run in bf16 MXU passes.
 """
 
 from __future__ import annotations

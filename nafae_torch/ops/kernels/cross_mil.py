@@ -46,6 +46,7 @@ import functools
 
 import torch
 
+from nafae_torch.device import matmul_precision
 from nafae_torch.ops.kernels import _build
 from nafae_torch.ops.kernels import check_tensor as _check
 
@@ -75,7 +76,9 @@ def cross_mil_bwd(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
                   da: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """(dw [M,E], dv [I,T,R,E]) in the inputs' dtypes: da [I,M,T] routed to
     the saved idx, gated by fm · any_valid (a frame with no valid region is
-    the constant NEG), as one-hot products summed in f32."""
+    the constant NEG), as one-hot products summed in f32, exact under
+    model.matmul_precision=default too (the reference pins them at
+    HIGHEST)."""
     m = w_flat.shape[0]
     i, t, r, e = v.shape
     gate = fm.float()
@@ -85,9 +88,10 @@ def cross_mil_bwd(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
     regions = torch.arange(r, device=v.device)
     oh = (idx[..., None] == regions).float() * g[..., None]       # [I,M,T,R]
     oh = oh.permute(0, 2, 3, 1)                                   # [I,T,R,M]
-    dv = torch.matmul(oh, w_flat.float())                         # [I,T,R,E]
-    dw = torch.matmul(oh.reshape(i * t * r, m).T,
-                      v.float().reshape(i * t * r, e))            # [M,E]
+    with matmul_precision("highest"):
+        dv = torch.matmul(oh, w_flat.float())                     # [I,T,R,E]
+        dw = torch.matmul(oh.reshape(i * t * r, m).T,
+                          v.float().reshape(i * t * r, e))        # [M,E]
     return dw.to(w_flat.dtype), dv.to(v.dtype)
 
 

@@ -33,6 +33,10 @@ from step 0's selections.
         model.word_vectors=glove.txt loss.kmeans_init=plusplus
 
 Runs on cuda unless the caller asks for the CPU (`device.resolve_device`).
+`model.matmul_precision=default` runs the f32 products of the losses and
+their gradient in TF32 (`device.matmul_precision` around that part of
+`step_body`, as the reference's compute_losses runs under its context);
+k-means, the update, convolutions and the CUDA kernels stay exact.
 Under a mesh (`parallel.make_mesh`; the CLI's `--mesh`) the step is data
 parallel over the mesh's data axis and frame parallel over its frame
 axis (`mesh.frame_axis`): every rank reads the same global batches and
@@ -95,7 +99,7 @@ import numpy as np
 import torch
 
 from nafae_torch.config import Config
-from nafae_torch.device import resolve_device
+from nafae_torch.device import matmul_precision, resolve_device
 from nafae_torch.models.grounding import COMPUTE_DTYPES, init_params
 from nafae_torch.ops import grounding as G
 from nafae_torch.ops import losses as L
@@ -524,7 +528,10 @@ def step_body(cfg: Config, tx: Optimizer, state: TrainState, batch: dict,
     row_offset = data_rank * batch["word_ids"].shape[0]
     names = sorted(state.params)
     params = {k: state.params[k].detach().requires_grad_() for k in names}
-    with torch.enable_grad():
+    # the losses and their gradient at model.matmul_precision, as the
+    # reference's compute_losses runs under G.matmul_precision; k-means and
+    # the update below stay exact
+    with matmul_precision(cfg.model.matmul_precision), torch.enable_grad():
         total, aux = compute_losses(params, state.centers, batch, cfg,
                                     cfg.train.resolved_kernels(), extractor,
                                     group, row_offset, frame_group, axes)

@@ -11,8 +11,8 @@ differ by an ulp); the whole extractor with the reference's routes (the
 TPU kernels in interpret mode where JAX takes them): region_valid equal,
 boxes and feats held where JAX's survivors are clear of score ties. Also:
 BN folding equals the reference's, init_detector draws flax's
-distributions (the VGG16 detector too, in the flax tree's layout), and the
-TPU-only options raise.
+distributions (the VGG16 detector too, in the flax tree's layout), and
+each of the reference's TPU stem knobs gives its C4 features.
 """
 
 import jax
@@ -225,10 +225,21 @@ def test_bf16_detector_runs():
 
 @pytest.mark.parametrize("knob", ["stem_s2d", "stem_im2col", "stem_nminor",
                                   "stem_pad_ch"])
-def test_unported_options_raise(knob):
+def test_unported_options_raise(det, knob):
+    """Each of the reference's TPU stem knobs is accepted: with it on, the
+    port's detector (its plain 7x7/s2 stem) gives the JAX detector's C4
+    features under the same knob, from the same parameters, within 1e-4
+    of the largest entry."""
     kw = {knob: 8 if knob == "stem_pad_ch" else True}
-    with pytest.raises(NotImplementedError):
-        FasterRCNNExtractor(TDC(**SMALL, **kw))
+    jm = JFRCNN(JDC(**SMALL, **kw), with_detections=True,
+                num_classes=NUM_CLASSES)
+    want = jm.apply(det["params"], jnp.asarray(det["frames"]),
+                    method=lambda m, im: m.backbone(im))
+    with torch.no_grad():
+        got = _port(det["tree"], **kw).backbone(
+            torch.from_numpy(det["frames"]))
+    assert got.shape == want.shape
+    _close(got, want)
 
 
 def test_init_vgg16_detector():
