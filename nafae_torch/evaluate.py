@@ -216,8 +216,9 @@ def main(argv=None) -> int:
     p.add_argument("--override", nargs="*", action="extend", default=None)
     p.add_argument("--split", default="val")
     p.add_argument("--checkpoint", default=None,
-                   help="a directory of the port's training checkpoints "
-                        "(the newest is restored) or a converted params .npz")
+                   help=".npz, a port checkpoint directory, or an orbax "
+                        "checkpoint directory of the JAX package (the newest "
+                        "step is restored)")
     p.add_argument("--per-class", action="store_true",
                    help="include the per-class accuracy table")
     p.add_argument("--device", default=None,

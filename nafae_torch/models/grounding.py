@@ -145,37 +145,53 @@ def state_from_jax(jax_state, device: str | torch.device):
     """The JAX package's training state -> the port's `train.TrainState`.
 
     jax_state: a `nafae_tpu.train.TrainState` whose leaves are numpy arrays
-    (`jax.tree.map(np.asarray, state)`): step, params, centers, the k-means
-    bank, and the optax state, read by its field names — adam's `count`,
-    `mu` and `nu`, or sgd's `trace` beside its schedule's `count`. Both
-    packages can then start from one point: JAX's initial draws come from
-    `jax.random`, which the port does not reproduce."""
+    (`jax.tree.map(np.asarray, state)`), or the nested dict of an orbax
+    checkpoint (`utils.orbax_read.read_tree`, sequence indices as str
+    keys): step, params, centers, the k-means bank, and the optax state,
+    read by its field names — adam's `count`, `mu` and `nu`, or sgd's
+    `trace` beside its schedule's `count`; EmptyState (None in the dict)
+    holds nothing. Both packages can then start from one point: JAX's
+    initial draws come from `jax.random`, which the port does not
+    reproduce."""
     from nafae_torch.train import TrainState
 
     def put(x):
         return None if x is None else params_from_jax({"x": x}, device)["x"]
 
+    def fields(node) -> dict:
+        if isinstance(node, dict):
+            return node
+        names = getattr(node, "_fields", None)
+        return dict(zip(names, node)) if names else {}
+
     opt = {}
 
-    def walk(node):               # optax states are named tuples
-        fields = getattr(node, "_fields", ())
-        if "mu" in fields and "nu" in fields:
-            opt.update(count=int(node.count), mu=params_from_jax(
-                node.mu, device), nu=params_from_jax(node.nu, device))
-        elif "trace" in fields:
-            opt["trace"] = params_from_jax(node.trace, device)
-        elif "count" in fields:
-            opt.setdefault("count", int(node.count))
+    def walk(node):               # optax states: named tuples, or dicts
+        f = fields(node)
+        if "mu" in f and "nu" in f:
+            opt.update(count=int(f["count"]), mu=params_from_jax(
+                f["mu"], device), nu=params_from_jax(f["nu"], device))
+        elif "trace" in f:
+            opt["trace"] = params_from_jax(f["trace"], device)
+        elif "count" in f:
+            opt.setdefault("count", int(f["count"]))
+        elif isinstance(node, dict):
+            for k in sorted(node, key=int):
+                walk(node[k])
         elif isinstance(node, (tuple, list)):
             for child in node:
                 walk(child)
 
-    walk(jax_state.opt_state)
-    return TrainState(step=int(jax_state.step),
-                      params=params_from_jax(jax_state.params, device),
-                      opt_state=opt, centers=put(jax_state.centers),
-                      bank=put(jax_state.bank),
-                      bank_valid=put(jax_state.bank_valid))
+    def get(name):
+        if isinstance(jax_state, dict):
+            return jax_state.get(name)
+        return getattr(jax_state, name, None)
+
+    walk(get("opt_state"))
+    return TrainState(step=int(get("step")),
+                      params=params_from_jax(get("params"), device),
+                      opt_state=opt, centers=put(get("centers")),
+                      bank=put(get("bank")), bank_valid=put(get("bank_valid")))
 
 
 def inference_params(cfg: Config, params: dict) -> dict:

@@ -660,7 +660,8 @@ def main(argv=None):
     p.add_argument("--config", default=None)
     p.add_argument("--override", nargs="*", action="extend", default=None)
     p.add_argument("--checkpoint", default=None,
-                   help="converted params .npz (required)")
+                   help=".npz, a port checkpoint directory, or an orbax "
+                        "checkpoint directory of the JAX package (required)")
     p.add_argument("--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("--export", default=None, metavar="DIR",

@@ -92,6 +92,7 @@ from __future__ import annotations
 import functools
 import math
 import os
+import sys
 import time
 from dataclasses import dataclass, replace
 
@@ -1002,6 +1003,10 @@ def fit(cfg: Config, device: str | torch.device | None = None,
     restored = ckpt.restore_latest(state)
     if restored is not None:
         state = restored
+        if lead:
+            _, path, fmt = ckpt.latest()
+            print(f"resumed at step {state.step} from the {fmt} checkpoint "
+                  f"{path}", file=sys.stderr, flush=True)
     if state.bank is not None and mesh is not None:
         state = replace(state, bank=_bank_shard(state.bank, mesh),
                         bank_valid=_bank_shard(state.bank_valid, mesh))

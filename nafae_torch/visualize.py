@@ -280,8 +280,8 @@ def main(argv=None) -> int:
     p.add_argument("--override", nargs="*", action="extend", default=None)
     p.add_argument("--split", default="val")
     p.add_argument("--checkpoint", default=None,
-                   help="a directory of the port's training checkpoints "
-                        "or a converted params .npz (default: "
+                   help=".npz, a port checkpoint directory, or an orbax "
+                        "checkpoint directory of the JAX package (default: "
                         "train.ckpt_dir)")
     p.add_argument("--out", default="viz")
     p.add_argument("--num-segments", type=int, default=8)

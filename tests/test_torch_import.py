@@ -12,7 +12,8 @@ import pytest
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nafae_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "nafae_tpu",
+             "tensorstore", "zstandard", "numcodecs", "zarr")
 SOURCES = sorted(str(p.relative_to(ROOT)) for p in
                  [*(ROOT / "nafae_torch").rglob("*.py"),
                   ROOT / "chip_smoke.py", ROOT / "kernel_ab.py"])
@@ -36,7 +37,9 @@ def test_import_leaves_jax_out():
             "nafae_torch.parallel.sp, nafae_torch.parallel.multihost, "
             "nafae_torch.utils.profiling, nafae_torch.evaluate, "
             "nafae_torch.utils.native_io, nafae_torch.data.grain_loader, "
-            "nafae_torch.ops.kernels._build, nafae_torch.utils.cuda_graph; "
+            "nafae_torch.ops.kernels._build, nafae_torch.utils.cuda_graph, "
+            "nafae_torch.utils.zstd, nafae_torch.utils.ocdbt, "
+            "nafae_torch.utils.zarr2, nafae_torch.utils.orbax_read; "
             f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r}); print(bad); sys.exit(1 if bad else 0)")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -53,7 +56,8 @@ def test_import_leaves_jax_out():
                                     "nafae_torch.utils.native_io",
                                     "nafae_torch.data.grain_loader",
                                     "nafae_torch.ops.kernels._build",
-                                    "nafae_torch.utils.cuda_graph"])
+                                    "nafae_torch.utils.cuda_graph",
+                                    "nafae_torch.utils.orbax_read"])
 def test_new_entry_points_leave_jax_out(module):
     """Each of the entry modules alone, in a fresh interpreter."""
     code = (f"import sys, importlib; importlib.import_module({module!r}); "

@@ -1,5 +1,11 @@
 """Parameters across the two packages: params_from_jax, GroundingModel,
-init_params and load_eval_params (the converted .npz form)."""
+init_params and load_eval_params (the converted .npz form, and the JAX
+package's orbax checkpoint directory)."""
+
+import hashlib
+import json
+import pathlib
+import shutil
 
 import jax
 import numpy as np
@@ -81,5 +87,18 @@ def test_load_eval_params(tmp_path):
     assert load_eval_params(cfg, str(tmp_path / "missing"),
                             device="cpu") is None
     (tmp_path / "orbax" / "4").mkdir(parents=True)   # an orbax step dir
-    with pytest.raises(NotImplementedError, match="orbax"):
+    with pytest.raises(ValueError, match="4/default/_METADATA is missing"):
         load_eval_params(cfg, str(tmp_path / "orbax"), device="cpu")
+    # the JAX package's orbax checkpoint of config 4 loads (its params)
+    fixture = pathlib.Path(__file__).parent / "data" / "orbax_config4"
+    ck = shutil.copytree(fixture, tmp_path / "ck")
+    got = load_eval_params(load_config(preset_name="config4"), str(ck),
+                           device="cpu")
+    leaves = json.loads((fixture / "expected.json").read_text())["leaves"]
+    assert set(got) == {"b_v", "w_v", "word_emb"}
+    for k, v in got.items():
+        want = leaves[f"params.{k}"]
+        assert [str(v.dtype).removeprefix("torch."), list(v.shape)] == [
+            want["dtype"], want["shape"]], k
+        assert hashlib.sha256(v.numpy().tobytes()).hexdigest() == \
+            want["sha256"], k
