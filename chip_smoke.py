@@ -263,6 +263,29 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    phase 13's (3e-4, 1e-5) of the JAX package's, state_1.pt written beside
    the untouched step directory, K1fr and K1br launched (pallas also K3,
    K4f and K4b; each kernel's `launches_orbax` in the kernels line).
+20. model.dtype=float16 (run after phase 19, in a child process of its
+   own, on phase 5's data and the serving phase's requests): (a) K1f,
+   K1fr, K1b and K1br launched on f16 tensors against their plain
+   versions at f16 (context_mix_bwd_plain for the backward: the kernels'
+   rounding points) at CTX_CASES, phase 17's general and wide shapes (R =
+   33 to 81, E = 3 to 1024, w = 17 and 20) and both sets of halo cases,
+   with du as drawn and scaled into f16's subnormal range: each within
+   F16_REL of its norm and F16_MAX of its largest entry, the same plain
+   versions at bf16 (the control) outside F16_REL; (b) config4 `fit` at
+   float16 on the auto route, streaming and from the device cache (K1fr +
+   K1br) and with ALPHA_RESIDUAL off (K1f + K1b): graphed bit for bit the
+   eager chain, launches a step, a traced replay naming the `__half`
+   instantiations and no other, rows against a CPU re-run, and one step's
+   gradients within F16_GRAD_TOL of the CPU's (the card's bf16 step
+   outside); (c) a config4 server at float16 and its exported artifact
+   bit for bit the f32 server (serving computes in f32 at float16, as the
+   reference's does), K1f launched as often; (d) train.kernels=pallas at
+   float16 and detector.dtype=float16 raise NotImplementedError naming
+   their ROADMAP items before any step; (e) the four kernels' device ms at
+   f16 beside bf16's (in turns), bound, plain and K1f's SDPA yardstick at
+   f16, at config 4 and R = 36 / E = 1024 / w = 3, and the cached config4
+   step's host, busy and idle at f32, bf16 and f16. Each K1 kernel's entry
+   of the kernels line carries its f16 numbers (*_f16, f16_<shape>).
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -2459,7 +2482,10 @@ def sdpa_mix(torch, v_ext, fm_ext, rm_ext, w, temp):
     nv = fm_ext[:, idx] * fm_ext[:, w:w + t, None]               # [B,T,2w]
     mask = None
     if rm_ext is not None:
-        mask = torch.where(rm_ext[:, idx] > 0, 0.0, -1e9).to(v_ext.dtype)
+        # -1e9 is past f16's range (it would be -inf, and an all-masked row
+        # NaN): f16 masks with its most negative finite value
+        neg = max(-1e9, torch.finfo(v_ext.dtype).min)
+        mask = torch.where(rm_ext[:, idx] > 0, 0.0, neg).to(v_ext.dtype)
         mask = mask.reshape(b * t, 2 * w, 1, r)
     out = F.scaled_dot_product_attention(q, kv, kv, attn_mask=mask,
                                          scale=1.0 / temp)
@@ -2656,8 +2682,10 @@ def bound(torch, nbytes: float, flops: float, dtype,
           peak: float | None = None) -> tuple[float, str]:
     """(least ms, what bounds it): `nbytes` over the memory rate against
     `flops` over the peak rate for the operands' type (f32 CUDA cores, or
-    bf16 tensor cores), or over `peak` where given."""
-    peak = peak or (H100_BF16_FLOPS if dtype == torch.bfloat16
+    bf16 and f16 tensor cores, the same rate), or over `peak` where
+    given."""
+    peak = peak or (H100_BF16_FLOPS
+                    if dtype in (torch.bfloat16, torch.float16)
                     else H100_F32_FLOPS)
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, flops / peak
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
@@ -5036,7 +5064,9 @@ def traced_replay(torch, prog, call, per: dict, path: str,
     each kernel of `kernels` must be named there as often as `per` (the
     launches of a step or batch: per_step_launches or c5_launches) says,
     each of `absent` not at all, and the launch counts must have grown by
-    just that. Returns {name: times named}."""
+    just that. A name given as a tuple of substrings counts the kernels
+    whose name holds all of them (an instantiation: ("ctx_mix_fwd_pairs",
+    "__half")). Returns {name: times named}."""
     from torch.profiler import ProfilerActivity, profile
 
     was = dict(prog.stats)
@@ -5064,7 +5094,9 @@ def traced_replay(torch, prog, call, per: dict, path: str,
     for key, subs in kernels.items():
         for sub in subs:
             want[sub] = want.get(sub, 0) + per[key]
-    named = {sub: sum(sub in n for n in names) for sub in want}
+    named = {sub: sum(all(p in n for p in ((sub,) if isinstance(sub, str)
+                                           else sub)) for n in names)
+             for sub in want}
     if named != want or counted != per:
         fail(f"the traced replay ({path}) names {named} (expected {want}) "
              f"among {len(names)} kernels; launches counted {counted}, "
@@ -6264,7 +6296,7 @@ def any_timings(torch) -> dict:
             # for K1b and K1br)
             res["bwd_floor_ms" + tag] = res["bwd_res_floor_ms" + tag] = \
                 device_ms(torch, lambda: K.launch_floor_bwd(
-                    b, t, r, e, w, bool(tag), dev))
+                    b, t, r, e, w, v.dtype, dev))
         torch.cuda.empty_cache()
     card = card_line()
     for name, res in out.items():
@@ -6597,11 +6629,13 @@ def prec_cache(torch, root: str, regions: int) -> tuple[dict, list]:
              for _, b in BatchLoader(ds, 16, seed=0).steps(4)])
 
 
-def prec_step_times(torch, progs: dict, states: dict, idxs: list) -> dict:
+def prec_step_times(torch, progs: dict, states: dict, idxs: list,
+                    modes=PREC_MODES) -> dict:
     """Phase 18 (e): each mode's graphed step host to host (an index batch
-    in, metrics on the host), PREC_ROUNDS rounds of highest, default,
-    default, highest; then a step's device busy time (torch.profiler) and
-    the idle share."""
+    in, metrics on the host), PREC_ROUNDS rounds of the modes in order
+    then reversed (highest, default, default, highest); then a step's
+    device busy time (torch.profiler) and the idle share. Phase 20 (e)
+    passes its dtypes as the modes."""
     host = {m: [] for m in progs}
 
     def run(m, i):
@@ -6609,12 +6643,12 @@ def prec_step_times(torch, progs: dict, states: dict, idxs: list) -> dict:
         return mt
 
     for i in range(PREC_ROUNDS):
-        for m in PREC_MODES + PREC_MODES[::-1]:
+        for m in tuple(modes) + tuple(modes)[::-1]:
             t0 = time.perf_counter()
             float(run(m, i)["loss"])
             host[m].append((time.perf_counter() - t0) * 1e3)
     out = {}
-    for m in PREC_MODES:
+    for m in modes:
         top, busy, ops = profile_forward(torch, lambda: run(m, 0))
         ms = statistics.median(host[m])
         out[m] = {"host_ms": ms, "host_ms_all": host[m],
@@ -7166,6 +7200,529 @@ def check_orbax(torch, tmp: str) -> dict:
             "fits": fits, "phase_s": wall}
 
 
+# ------------------------------------------ phase 20: model.dtype=float16
+
+# K1f, K1fr, K1b and K1br on f16 tensors against their plain versions at f16
+# (context_mix_plain, context_alpha_plain and context_mix_bwd_plain: the
+# kernels' rounding points, so the two differ by the order of the f32 sums
+# and the few values that round the other way, an alpha or a ds one f16 ulp
+# apart; where du_n is an f16 subnormal one ulp is a large part of a ds, so
+# a norm, not the largest entry, tells a right rounding from a wrong one):
+# ||got - want|| / ||want|| within F16_REL, and max |got - want| within
+# F16_MAX of max |want| (a value read as another type's bits, or flushed to
+# zero, lands far past it). The bf16-rounded control, the plain versions at
+# bf16 on the same f32 inputs, must exceed F16_REL wherever it differs from
+# the f16 ones at all (at R = 1 alpha is 1 in both).
+F16_REL = 7e-4
+F16_MAX = 1e-2
+# du scaled so that du_n lies below f16's smallest normal (6.1e-5), where
+# bf16 keeps it normal: a flush to zero takes all of dv
+F16_SUBNORMAL = 1e-5
+# phase 20's cases: the specialised kernels' (CTX_CASES), the general
+# variant's (CTX_ANY_CASES: R = 33 to 65, E = 3 to 1024, w = 17 and 20)
+# and R = 81 at E = 516 (its wide kernels); with real halo frames both
+# sets of halo cases
+F16_CASES = CTX_CASES + CTX_ANY_CASES + [(2, 3, 81, 516, 2, True, False)]
+F16_HALO_CASES = CTX_HALO_CASES + CTX_ANY_HALO_CASES
+F16_KEYS = ("ctx_mix_fwd", "ctx_mix_fwd_res", "alpha", "ctx_mix_bwd",
+            "ctx_mix_bwd_res")
+# one f16 step's gradients, card against CPU: each leaf within this
+# fraction of its largest entry. The card's kernels round du_n, ds and
+# alpha where the TPU kernel does, the CPU's autograd rounds at its casts,
+# so at full width they are further apart than the port and JAX at the
+# CPU tests' widths (2e-3): 1.887e-3 on the first batch (NVIDIA H100 80GB
+# HBM3). The card's bf16 step must fall outside it (3.6e-2 there).
+F16_GRAD_TOL = (0.0, 5e-3)
+F16_STEPS = 3                    # steps of the recompute route's fit
+# a traced replay of an f16 step names the f16 instantiations, and no
+# other, of each kernel of the context mix it launches
+F16_TRACE = {
+    "ctx_mix_fwd": ("ctx_mix_fwd_pairs", "ctx_mix_fwd_mix",
+                    ("ctx_mix_fwd_pairs", "__half"),
+                    ("ctx_mix_fwd_mix", "__half")),
+    "ctx_mix_fwd_res": ("ctx_mix_fwd_pairs", "ctx_mix_fwd_mix",
+                        ("ctx_mix_fwd_pairs", "__half"),
+                        ("ctx_mix_fwd_mix", "__half")),
+    "ctx_mix_bwd": ("ctx_mix_bwd_pairs", "ctx_mix_bwd_gather",
+                    ("ctx_mix_bwd_pairs", "__half"),
+                    ("ctx_mix_bwd_gather", "__half")),
+    "ctx_mix_bwd_res": ("ctx_mix_bwd_pairs", "ctx_mix_bwd_gather",
+                        ("ctx_mix_bwd_pairs", "__half"),
+                        ("ctx_mix_bwd_gather", "__half"))}
+# the kernels' times: config 4 and phase 17's R = 36 shape
+F16_TIMED = {"config4": (16, 20, 20, 256, 3),
+             "R36_E1024_w3": ANY_TIMED["R36_E1024_w3"]}
+F16_DTYPES = ("float32", "bfloat16", "float16")
+F16_RESULT = "f16.json"          # phase 20's results, in the run's tmp
+
+
+def f16_gap(torch, got, want) -> tuple[float, float]:
+    """(||got - want|| / ||want||, max |got - want| / max |want|)."""
+    got, want = got.float(), want.float()
+    d = got - want
+    top = max(want.abs().max().item(), 1e-30)
+    return ((d.norm() / max(want.norm().item(), 1e-30)).item(),
+            d.abs().max().item() / top)
+
+
+def f16_plain(torch, v32, fm, rm, w, du, dt, alpha=None) -> dict:
+    """The plain versions at compute dtype dt on the f32 inputs: u (K1f,
+    K1fr), alpha (K1fr), dv of K1b and of K1br (on `alpha`, else the plain
+    alpha), for each du in `du` ({tag: du})."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    a = K.context_alpha_plain(v32, fm, w, 0.1, dtype=dt, rm_ext=rm)
+    u = K.context_mix_plain(v32, fm, w, 0.1, dtype=dt, rm_ext=rm)[0]
+    out = {"ctx_mix_fwd": u, "ctx_mix_fwd_res": u, "alpha": a}
+    for tag, d in du.items():
+        out["ctx_mix_bwd" + tag] = K.context_mix_bwd_plain(
+            v32, fm, w, 0.1, d, dt, rm)
+        out["ctx_mix_bwd_res" + tag] = K.context_mix_bwd_plain(
+            v32, fm, w, 0.1, d, dt, rm, a if alpha is None else alpha)
+    return out
+
+
+def check_f16_kernels(torch, device) -> dict:
+    """Phase 20 (a): K1f, K1fr, K1b and K1br launched on f16 tensors at
+    F16_CASES and F16_HALO_CASES, du as drawn and scaled by F16_SUBNORMAL,
+    against their plain versions at f16 (f16_plain; K1br on K1fr's alpha)
+    within F16_REL and F16_MAX; the bf16-rounded control (f16_plain at
+    bf16) outside F16_REL wherever it differs; and two launches of each
+    bitwise equal at R = 36, E = 1024. Returns the worst gaps of each
+    kernel and of the control, and the largest |error|."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    gen = torch.Generator().manual_seed(SEED + 23)
+    worst = {k: [0.0, 0.0, 0.0] for k in F16_KEYS}   # rel, max, max abs
+    control = {k: float("inf") for k in F16_KEYS}
+    cases = ([c + (False,) for c in F16_CASES]
+             + [c + (True, False, True) for c in F16_HALO_CASES])
+    for b, t, r, e, w, with_rm, edges, halos in cases:
+        v32, fm, rm = ctx_inputs(torch, gen, b, t, r, e, w, device, edges,
+                                 halos)
+        rm = rm if with_rm else None
+        du = torch.randn(b, t, r, e, generator=gen).to(device)
+        dus = {"": du, "_subnormal": du * F16_SUBNORMAL}
+        v16 = v32.half()
+        got = {"ctx_mix_fwd": K.launch_fwd(v16, fm, w, 0.1, rm)[0]}
+        got["ctx_mix_fwd_res"], got["alpha"] = K.launch_fwd(
+            v16, fm, w, 0.1, rm, residual=True)
+        for tag, d in dus.items():
+            got["ctx_mix_bwd" + tag] = K.launch_bwd(v16, fm, w, 0.1, rm, d)
+            got["ctx_mix_bwd_res" + tag] = K.launch_bwd(v16, fm, w, 0.1, rm,
+                                                        d, got["alpha"])
+        torch.cuda.synchronize()
+        want = f16_plain(torch, v32, fm, rm, w, dus, torch.float16,
+                         got["alpha"])
+        ctrl = f16_plain(torch, v32, fm, rm, w, dus, torch.bfloat16)
+        case = (f"B={b} T={t} R={r} E={e} w={w} rm={with_rm} edges={edges} "
+                f"halos={halos}")
+        for key, x in got.items():
+            name = key.replace("_subnormal", "")
+            if not torch.isfinite(x).all():
+                fail(f"phase 20: f16 {key} gave non-finite values: {case}")
+            rel, top = f16_gap(torch, x, want[key])
+            if rel > F16_REL or top > F16_MAX:
+                fail(f"phase 20: f16 {key} differs from its plain version "
+                     f"by {rel:.3e} of its norm, {top:.3e} of its largest "
+                     f"entry (limits {F16_REL}, {F16_MAX}): {case}")
+            crel, _ = f16_gap(torch, ctrl[key], want[key])
+            if not torch.equal(ctrl[key].float(), want[key].float()):
+                if crel <= F16_REL:
+                    fail(f"phase 20: the bf16-rounded {key} is within "
+                         f"{crel:.3e} of the f16 plain version: F16_REL does "
+                         f"not tell them apart: {case}")
+                control[name] = min(control[name], crel)
+            w_ = worst[name]
+            worst[name] = [max(w_[0], rel), max(w_[1], top), max(
+                w_[2], (x.float() - want[key].float()).abs().max().item())]
+    gen = torch.Generator().manual_seed(SEED + 24)
+    v32, fm, rm = ctx_inputs(torch, gen, 4, 6, 36, 1024, 3, device)
+    v16 = v32.half()
+    du = torch.randn(4, 6, 36, 1024, generator=gen).to(device)
+    runs = [K.launch_fwd(v16, fm, 3, 0.1, rm, residual=True)
+            for _ in range(2)]
+    dvs = [K.launch_bwd(v16, fm, 3, 0.1, rm, du, a) for _, a in runs
+           for a in (a, None)]
+    torch.cuda.synchronize()
+    if not (torch.equal(runs[0][0], runs[1][0])
+            and torch.equal(runs[0][1], runs[1][1])
+            and torch.equal(dvs[0], dvs[2]) and torch.equal(dvs[1], dvs[3])):
+        fail("phase 20: two launches of an f16 kernel on one input differ")
+    log("phase 20 (a): f16 kernels vs plain over "
+        f"{len(cases)} cases (du as drawn and x {F16_SUBNORMAL}): "
+        + "; ".join(f"{k} ||err||/||want|| {v[0]:.3e}, max |err| / max "
+                    f"|want| {v[1]:.3e}, max |err| {v[2]:.3e}"
+                    for k, v in worst.items())
+        + f" (limits {F16_REL}, {F16_MAX}); the bf16-rounded control's "
+        "smallest ||err||/||want||: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in control.items())
+        + "; two launches of each bitwise equal (R = 36, E = 1024)")
+    return {"worst": worst, "control_min_rel": control,
+            "cases": len(cases)}
+
+
+def f16_names(residual: bool) -> dict:
+    """F16_TRACE's entries of the context mix's kernels of a step on the
+    residual route (K1fr, K1br) or the recompute route (K1f, K1b)."""
+    keys = (("ctx_mix_fwd_res", "ctx_mix_bwd_res") if residual
+            else ("ctx_mix_fwd", "ctx_mix_bwd"))
+    return {k: F16_TRACE[k] for k in keys}
+
+
+def json_keys(d: dict) -> dict:
+    """A traced replay's counts with its tuple names joined by '+'."""
+    return {"+".join(k) if isinstance(k, tuple) else k: v
+            for k, v in d.items()}
+
+
+def f16_grads(torch, cfg, batch) -> dict:
+    """Phase 20 (b): one f16 step's gradients from the initial state,
+    card (K1fr, K1br) against CPU (the plain versions at f16) within
+    F16_GRAD_TOL; the card's bf16 step must fall outside it."""
+    from nafae_torch.train import TrainState
+
+    want = step_grads(torch, cfg, TrainState.create(cfg, device="cpu"),
+                      batch, "auto")[1]
+    out = {}
+    for dt in ("float16", "bfloat16"):
+        c = replace(cfg, model=replace(cfg.model, dtype=dt))
+        got = step_grads(torch, c, TrainState.create(c, device="cuda"),
+                         batch, "auto")[1]
+        worst, bad = grad_gap(torch, got, want, F16_GRAD_TOL)
+        out[dt] = {"rel_diff": worst, "outside": bad}
+    if out["float16"]["outside"]:
+        fail(f"phase 20: f16 gradients of {out['float16']['outside']}: card "
+             f"and CPU differ by up to {out['float16']['rel_diff']:.3e} of "
+             f"the largest entry (limit {F16_GRAD_TOL[1]})")
+    if not out["bfloat16"]["outside"]:
+        fail(f"phase 20: the card's bf16 step is within {F16_GRAD_TOL[1]} of "
+             "the CPU's f16 step: the limit does not tell them apart")
+    return out
+
+
+def check_f16_fits(torch, root: str, tmp: str) -> dict:
+    """Phase 20 (b): config-4 `fit` at model.dtype=float16 on the auto
+    route: streaming and from the device cache, GRAPH_STEPS steps a step a
+    call, refreshing every 3, and, with ALPHA_RESIDUAL
+    off, F16_STEPS streaming steps (K1f + K1b). Each captured (two graphs,
+    a replay a step), rows and state bit for bit the eager train_step
+    chain on the card over the same batches, its launches
+    per_step_launches a step, one more replay traced naming the f16
+    instantiations of its kernels (F16_TRACE); the first CPU_STEPS rows
+    against a CPU re-run (CPU_METRIC_TOL), and one step's gradients
+    (f16_grads)."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    runs = {"streaming": (graph_cfg(root, os.path.join(tmp, "ck_f16_s"),
+                                    "float16", "auto", 1, False), True),
+            "cached": (graph_cfg(root, os.path.join(tmp, "ck_f16_c"),
+                                 "float16", "auto", 1, True), True),
+            "recompute": (train_cfg(root, os.path.join(tmp, "ck_f16_r"),
+                                    "float16", F16_STEPS), False)}
+    out = {}
+    for name, (cfg, residual) in runs.items():
+        steps = cfg.train.steps
+        K.ALPHA_RESIDUAL = residual
+        try:
+            zero_counts()                       # main path starts here
+            run = traced_fit(torch, cfg)
+            counts = read_counts()              # ... and ends here
+            per = per_step_launches("auto", residual)
+            if counts != {k: n * steps for k, n in per.items()}:
+                fail(f"phase 20 fit ({name}) launched {counts}, expected "
+                     f"{per} a step")
+            st = expect_graphed(run, f"phase 20 fit ({name})", 2, steps)
+            prog = run["programs"][0]
+            eager = eager_chain(torch, cfg, run["seen"], prog.cache)
+            bad = rows_differ(run["logs"], eager["rows"])
+            bad += state_diffs(torch, run["state"], eager["state"])
+            if bad:
+                fail(f"phase 20 fit ({name}) differs from the eager "
+                     f"train_step chain in {bad}")
+            traced = traced_replay(
+                torch, prog, lambda: prog(run["state"], run["seen"][-1]),
+                per, os.path.join(tmp, f"f16_replay_{name}.json"),
+                f16_names(residual))
+        finally:
+            K.ALPHA_RESIDUAL = True
+        cpu_cfg = replace(cfg, train=replace(
+            cfg.train, steps=CPU_STEPS,
+            ckpt_dir=os.path.join(tmp, f"ck_f16_cpu_{name}")))
+        worst = cpu_rows_agree(run["logs"], run_fit(torch, cpu_cfg, "cpu"),
+                               f"phase 20 fit ({name})")
+        out[name] = {**st, "launches": counts, "wall_s": run["wall_s"],
+                     "traced_replay": json_keys(traced),
+                     "cpu_metric_rel_diff": worst,
+                     "loss_first_last": [run["logs"][0]["loss"],
+                                         run["logs"][-1]["loss"]]}
+        log(f"phase 20 (b): f16 fit, {name} ({steps} steps, "
+            f"ALPHA_RESIDUAL={residual}): {st['graphs']} graphs, "
+            f"{st['replays']} replays, rows and state bit for bit the eager "
+            f"chain; launches {counts}; a traced replay names "
+            f"{json_keys(traced)}; CPU re-run rows max relative diff "
+            f"{worst:.3e} (limit {CPU_METRIC_TOL})")
+        del run, eager, prog
+        torch.cuda.empty_cache()
+    out["grads"] = f16_grads(torch, runs["streaming"][0], first_batch(root))
+    log("phase 20 (b): one step's gradients, card against CPU, max |diff| / "
+        "largest entry: " + ", ".join(
+            f"{k} {v['rel_diff']:.3e}" + (" (outside)" if v["outside"] else "")
+            for k, v in out["grads"].items())
+        + f" (limit {F16_GRAD_TOL[1]} x largest entry)")
+    return out
+
+
+def check_f16_serving(torch, params, segs, tmp: str) -> dict:
+    """Phase 20 (c): a config4 GroundingServer at model.dtype=float16
+    (graphed) serves `segs` bit for bit as the f32 server does, K1f
+    launched as often (f32 K1f: serving computes in f32 at float16, as the
+    reference's serve.py does); its exported artifact, loaded here,
+    answers the first batch bit for bit as the f32 server, K1f once."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+    from nafae_torch.serve import (GroundingServer, export_grounding,
+                                   load_exported)
+
+    got, counts = {}, {}
+    for dt in ("float32", "float16"):
+        srv = GroundingServer(serve_cfg(dt, ""), params, device="cuda")
+        zero_counts()                           # serving starts here
+        got[dt] = srv.ground_segments(segs)
+        counts[dt] = read_counts()              # ... and ends here
+        if dt == "float32":
+            batch = serving_batch(srv, segs)
+            live = srv.run_batch(batch)
+        del srv
+    if got["float16"] != got["float32"]:
+        fail("phase 20: the float16 server's answers differ from the f32 "
+             "server's")
+    if counts["float16"] != counts["float32"] or \
+            counts["float16"]["ctx_mix_fwd"] == 0:
+        fail(f"phase 20: the float16 server launched {counts['float16']}, "
+             f"the f32 one {counts['float32']}")
+    d = os.path.join(tmp, "artifact_f16")
+    export_grounding(serve_cfg("float16", ""), params, d)
+    call, manifest = load_exported(d)
+    K.launches["ctx_mix_fwd"] = 0               # the artifact's run starts
+    res = {k: v.cpu().numpy() for k, v in call(
+        *[batch[k] for k in ARG_KEYS]).items()}
+    launches = K.launches["ctx_mix_fwd"]        # ... and ends here
+    if manifest["model"]["dtype"] != "float16" or set(res) != set(live) or \
+            not all(np.array_equal(res[k], live[k]) for k in live) or \
+            launches != 1:
+        fail(f"phase 20: the float16 artifact (manifest dtype "
+             f"{manifest['model']['dtype']}, K1f {launches}) differs from "
+             "the f32 server")
+    log(f"phase 20 (c): float16 server ({len(segs)} segments) bit for bit "
+        f"the f32 server's answers, launches {counts['float16']} as f32's; "
+        "its exported artifact bit for bit the f32 server's batch, K1f once")
+    return {"segments": len(segs), "launches": counts["float16"],
+            "artifact_launches": launches}
+
+
+def check_f16_raises(torch, root: str, tmp: str) -> dict:
+    """Phase 20 (d): on the card, `fit` with train.kernels=pallas (and the
+    legacy train.use_pallas) at model.dtype=float16, and a config-5 fit
+    with detector.dtype=float16, raise NotImplementedError naming their
+    ROADMAP items before any step: no kernel launched, no checkpoint
+    written."""
+    from nafae_torch.config import load_config
+    from nafae_torch.train import fit
+
+    runs = {"pallas": (train_cfg(root, os.path.join(tmp, "ck_f16_p"),
+                                 "float16", 1, "pallas"), "item 16"),
+            "use_pallas": (train_cfg(root, os.path.join(tmp, "ck_f16_u"),
+                                     "float16", 1, "auto",
+                                     ["train.use_pallas=true"]), "item 16"),
+            "detector": (load_config(preset_name="config5", overrides=[
+                "detector.dtype=float16", "data.from_videos=true",
+                f"data.annotations={os.path.join(tmp, 'none.jsonl')}",
+                f"train.ckpt_dir={os.path.join(tmp, 'ck_f16_d')}"]),
+                "item 17")}
+    out = {}
+    for name, (cfg, item) in runs.items():
+        zero_counts()
+        try:
+            fit(cfg, device="cuda")
+        except NotImplementedError as e:
+            msg = str(e)
+        else:
+            fail(f"phase 20: {name} at float16 trained on the card")
+        if f"Queue 1 {item}" not in msg or any(read_counts().values()) or \
+                os.path.exists(cfg.train.ckpt_dir):
+            fail(f"phase 20: {name} at float16 raised {msg!r} after "
+                 f"launching {read_counts()}")
+        out[name] = msg
+    log("phase 20 (d): on the card, before any step: " + "; ".join(
+        f"{k}: NotImplementedError({v!r})" for k, v in out.items()))
+    return out
+
+
+def f16_kernel_times(torch) -> dict:
+    """Phase 20 (e): device ms (device_ms) of K1f, K1fr, K1b and K1br at
+    F16_TIMED on ctx_inputs' random masks, bf16 and f16 in turns (bf16,
+    f16, f16, bf16; medians of each pair), each f16 time beside its bound,
+    its plain version's (torch.profiler, as any_timings) and, for K1f, the
+    SDPA yardstick at f16."""
+    from nafae_torch.ops.kernels import ctx_mix as K
+
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(SEED + 25)
+    out = {}
+    for name, (b, t, r, e, w) in F16_TIMED.items():
+        v32, fm, rm = ctx_inputs(torch, gen, b, t, r, e, w, dev)
+        du = torch.randn(b, t, r, e, generator=gen).to(dev)
+        vs = {"bf16": v32.to(torch.bfloat16), "f16": v32.half()}
+        alphas = {k: K.launch_fwd(v, fm, w, 0.1, rm, residual=True)[1]
+                  for k, v in vs.items()}
+        fns = {key: {k: f(v, alphas[k]) for k, v in vs.items()}
+               for key, f in (
+                   ("fwd", lambda v, a: lambda: K.launch_fwd(v, fm, w, 0.1,
+                                                             rm)),
+                   ("fwd_res", lambda v, a: lambda: K.launch_fwd(
+                       v, fm, w, 0.1, rm, residual=True)),
+                   ("bwd", lambda v, a: lambda: K.launch_bwd(v, fm, w, 0.1,
+                                                             rm, du)),
+                   ("bwd_res", lambda v, a: lambda: K.launch_bwd(
+                       v, fm, w, 0.1, rm, du, a)))}
+        res = out[name] = {"shapes": {"B": b, "T": t, "R": r, "E": e,
+                                      "w": w}}
+        for key, by in fns.items():
+            ms = {k: [] for k in by}
+            for k in ("bf16", "f16", "f16", "bf16"):
+                ms[k].append(device_ms(torch, by[k]))
+            for k, v in ms.items():
+                res[f"{key}_ms_{k}"] = statistics.mean(v)
+                res[f"{key}_ms_{k}_runs"] = v
+        v = vs["f16"]
+        for key, bnd in (("fwd", fwd_bound_ms(torch, v, fm, rm, w)),
+                         ("fwd_res", fwd_bound_ms(torch, v, fm, rm, w, True)),
+                         ("bwd", bwd_bound_ms(torch, v, fm, rm, w, False)),
+                         ("bwd_res", bwd_bound_ms(torch, v, fm, rm, w,
+                                                  True))):
+            res[key + "_bound_ms_f16"], res[key + "_bound_by_f16"] = bnd
+        with torch.no_grad():
+            res["plain_fwd_ms_f16"] = profile_forward(
+                torch, lambda: K.context_mix_plain(v32, fm, w, 0.1,
+                                                   dtype=torch.float16,
+                                                   rm_ext=rm))[1]
+        vp = v32.detach().clone().requires_grad_()
+        res["plain_fwd_res_ms_f16"] = profile_forward(
+            torch, lambda: K.context_mix_plain(vp, fm, w, 0.1,
+                                               dtype=torch.float16,
+                                               rm_ext=rm))[1]
+        up, _ = K.context_mix_plain(vp, fm, w, 0.1, dtype=torch.float16,
+                                    rm_ext=rm)
+        res["plain_bwd_ms_f16"] = profile_forward(
+            torch, lambda: torch.autograd.grad(up, vp, du,
+                                               retain_graph=True))[1]
+        del up, vp
+        res["library_fwd_ms_f16"] = device_ms(
+            torch, lambda: sdpa_mix(torch, v, fm, rm, w, 0.1))
+        with torch.no_grad():
+            want, _ = K.context_mix_plain(v, fm, w, 0.1, rm_ext=rm)
+            res["library_fwd_err_f16"] = (sdpa_mix(torch, v, fm, rm, w, 0.1)
+                                          - want).abs().max().item()
+        torch.cuda.empty_cache()
+    card = card_line()
+    for name, res in out.items():
+        log(f"phase 20 (e): context mix at {res['shapes']} (device ms, bf16 "
+            "-> f16; f16 bound; f16 plain): " + "; ".join(
+                f"{k} {res[key + '_ms_bf16']:.4f} -> "
+                f"{res[key + '_ms_f16']:.4f} ({res[key + '_bound_ms_f16']:.4f}"
+                f", {res[key + '_bound_by_f16']}; "
+                f"{res['plain_' + pk + '_ms_f16']:.4f})"
+                for k, key, pk in (("K1f", "fwd", "fwd"),
+                                   ("K1fr", "fwd_res", "fwd_res"),
+                                   ("K1b", "bwd", "bwd"),
+                                   ("K1br", "bwd_res", "bwd")))
+            + f"; K1f's SDPA yardstick at f16 {res['library_fwd_ms_f16']:.4f}"
+            f" (max |err| vs plain {res['library_fwd_err_f16']:.3e}) — "
+            f"{card}")
+    return out
+
+
+def f16_step_times(torch, root: str) -> dict:
+    """Phase 20 (e): the config-4 auto step from the device cache, graphed,
+    at model.dtype float32, bfloat16 and float16 (prec_step_times: host to
+    host in interleaved rounds, then busy and idle from torch.profiler)."""
+    idx_cache, idxs = prec_cache(torch, root, 20)
+    cfgs = {dt: cache_cfg(root, "", "auto", ["train.steps=1000",
+                                             f"model.dtype={dt}"])
+            for dt in F16_DTYPES}
+    progs, states = prec_programs(torch, cfgs, idx_cache)
+    out = prec_step_times(torch, progs, states, idxs, F16_DTYPES)
+    log("phase 20 (e): config4 auto step from the cache, graphed, host to "
+        "host median (device busy; idle share): " + "; ".join(
+            f"{dt} {v['host_ms']:.4f} ms ({v['device_busy_ms']:.4f} ms; "
+            f"{100 * v['idle_share']:.1f}%)" for dt, v in out.items())
+        + f" — {card_line()}")
+    return {dt: {k: v for k, v in r.items() if k != "kernels"}
+            for dt, r in out.items()}
+
+
+def check_f16(torch, tmp: str) -> dict:
+    """Phase 20: model.dtype=float16 on the card. (a) check_f16_kernels;
+    (b) check_f16_fits on phase 5's data; (c) check_f16_serving on the
+    serving phase's requests made again under tmp; (d) check_f16_raises;
+    (e) f16_kernel_times and f16_step_times."""
+    t0 = time.perf_counter()
+    kernels = check_f16_kernels(torch, torch.device("cuda"))
+    fits = check_f16_fits(torch, tmp, tmp)
+    segs, _ = make_requests(os.path.join(tmp, "f16_reqs"))
+    serving = check_f16_serving(torch, oracle_params(), segs, tmp)
+    raises = check_f16_raises(torch, tmp, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = f16_kernel_times(torch)
+    steps = f16_step_times(torch, tmp)
+    wall = time.perf_counter() - t0
+    log(f"phase 20 took {wall:.1f} s")
+    return {"kernels": kernels, "fits": fits, "serving": serving,
+            "raises": raises, "times": times, "step_times": steps,
+            "phase_s": wall}
+
+
+def f16_child(tmp: str) -> None:
+    """`python3 chip_smoke.py --f16-child TMP`: phase 20 (check_f16) in a
+    process of its own (its traces whole, as phase 17's), on phase 5's
+    data in TMP; writes its results to TMP/F16_RESULT."""
+    import torch
+
+    from nafae_torch.ops.kernels import _build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    _build.build_all(SOURCES)
+    out = check_f16(torch, tmp)
+    with open(os.path.join(tmp, F16_RESULT), "w") as f:
+        json.dump(out, f, default=float)
+
+
+def f16_keys(f16p: dict, name: str, key: str, pkey: str,
+             fit: str | None) -> dict:
+    """A context-mix kernel's phase-20 numbers for its JSON entry: its f16
+    launches a step in the phase-20 fit that runs it, its max |error|
+    against plain at f16, and at each shape of F16_TIMED its f16 device ms
+    (beside bf16's, timed in turns), bound and plain ms (K1f also its SDPA
+    yardstick's ms at f16)."""
+    k = f16p["kernels"]["worst"]
+    out = {"max_abs_err_f16": k[name][2],
+           "max_rel_err_f16": k[name][0],
+           "launches_f16": (f16p["fits"][fit]["launches"][name]
+                            if fit else None)}
+    for shape, res in f16p["times"].items():
+        out[f"f16_{shape}"] = {
+            "shapes": res["shapes"], "ms_f16": res[key + "_ms_f16"],
+            "ms_bf16": res[key + "_ms_bf16"],
+            "bound_ms_f16": res[key + "_bound_ms_f16"],
+            "bound_by_f16": res[key + "_bound_by_f16"],
+            "plain_ms_f16": res["plain_" + pkey + "_ms_f16"],
+            **({"library_ms_f16": res["library_fwd_ms_f16"]}
+               if key == "fwd" else {})}
+    return out
+
+
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
                  by, library_ms=None, **more) -> dict:
     return {"name": name, "route": "cuda", "source": source,
@@ -7371,6 +7928,10 @@ def main() -> None:
         # the JAX package's orbax checkpoint restored, served, evaluated
         # and resumed on the card (phase 19), on data of its own
         orb = check_orbax(torch, tmp)
+
+        # model.dtype=float16 (phase 20), on phase 5's data and the
+        # serving phase's requests made again, in a process of its own
+        f16p = run_child(torch, tmp, "--f16-child", F16_RESULT, "phase 20")
     shutdown()
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
@@ -7604,7 +8165,9 @@ def main() -> None:
             launches_int8={k: v["launches_ctx_mix_fwd"]
                            for k, v in q8.items()},
             launches_artifact={k: v["launches_ctx_mix_fwd"]
-                               for k, v in art["kinds"].items()}),
+                               for k, v in art["kinds"].items()},
+            # f16 (phase 20): K1f runs on the recompute route's f16 fit
+            **f16_keys(f16p, "ctx_mix_fwd", "fwd", "fwd", "recompute")),
         *(kernel_entry(
             name, src, rep, launches, launches / n,
             max(gerrs["float32"][name], tt["errs"][name]),
@@ -7620,6 +8183,8 @@ def main() -> None:
             launches_orbax={r: f["launches"][name]
                             for r, f in orb["fits"].items()},
             **any_keys(anyp, name, key, pkey),
+            **f16_keys(f16p, name, key, pkey,
+                       "streaming" if name.endswith("_res") else "recompute"),
             **({"launches_per_step_sp": sp_launch[name],
                 "ms_sp": sp_k[sp_key[name] + "_ms"],
                 "plain_ms_sp": sp_k[sp_key[name] + "_plain_ms"],
@@ -7812,6 +8377,7 @@ def main() -> None:
                        if k not in ("times", "fused_times")},
         "precision": precp,
         "orbax": orb,
+        "float16": {k: v for k, v in f16p.items() if k != "times"},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)
@@ -7827,5 +8393,7 @@ if __name__ == "__main__":
         any_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--precision-child":
         precision_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--f16-child":
+        f16_child(sys.argv[2])
     else:
         main()

@@ -15,6 +15,9 @@ sources, on one card, in one process, on the main path's own inputs:
   chip_smoke.fused_timings runs them;
 - K2: the first config-5 batch's detector planes (320 rows x 24,000
   anchors, num_keep 20), from the f32 and from the bf16 detector;
+- f16 against bf16 (f16_ab): this tree's K1f / K1fr / K1br / K1b, both
+  instantiations of one source through one path, on the first config-4
+  training batch and at R=36, E=1024, w=3, timed in turns;
 - the general variants at phase 17's shapes (B=16, T=20): K1f / K1fr /
   K1br / K1b at R=36, E=1024, w=3 and R=20, E=50, w=20
   (chip_smoke.ANY_TIMED) on chip_smoke.ctx_inputs' random masks, K3 on
@@ -114,7 +117,11 @@ def bind(torch, libs: dict):
     temp, alpha) -> dv, fwd(v, fm, rm, w, temp, residual) -> (u, alpha or
     None), K4f, K4b, K3) for one version's libraries, any interface; K4f,
     K4b and K3 take and give what the tree's diag.launch_fwd / launch_bwd
-    and cross_mil.launch do."""
+    and cross_mil.launch do. The context mix's dtype argument is
+    ctx_mix.DTYPE_CODES' code (0 f32, 1 bf16; 2 f16, which versions before
+    the f16 kernels read as bf16: give them no f16 tensor)."""
+    from nafae_torch.ops.kernels.ctx_mix import DTYPE_CODES
+
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ln, lb, lf = libs["nms"], libs["ctx_mix_bwd"], libs["ctx_mix"]
     lf.nafae_ctx_mix_fwd.argtypes = [vp, i, vp, vp, vp, vp] + [i] * 5 + [f, vp]
@@ -162,7 +169,7 @@ def bind(torch, libs: dict):
     def bwd(v, fm, rm, du, w, temp, alpha=None):
         b, te, r, e = v.shape
         dv = torch.empty(v.shape, device=v.device)
-        bf = int(v.dtype == torch.bfloat16)
+        bf = DTYPE_CODES[v.dtype]
         scr = []
         if scratched:
             s = torch.empty(lb.nafae_ctx_mix_bwd_scratch(b, te - 2 * w, r, e,
@@ -185,7 +192,7 @@ def bind(torch, libs: dict):
         alpha = (torch.empty(b, t, 2 * w, r, r, dtype=v.dtype, device=v.device)
                  if residual or alpha_always else None)
         err = lf.nafae_ctx_mix_fwd(
-            v.data_ptr(), int(v.dtype == torch.bfloat16), fm.data_ptr(),
+            v.data_ptr(), DTYPE_CODES[v.dtype], fm.data_ptr(),
             rm.data_ptr() if rm is not None else None, u.data_ptr(),
             alpha.data_ptr() if alpha is not None else None, b, t, r, e, w,
             temp, stream())
@@ -535,6 +542,30 @@ def any_ab(torch, others: dict, tmp: str) -> dict:
     return res
 
 
+def f16_ab(torch, tree, v32, fm, rm, w, temp, du, tag: str) -> dict:
+    """This tree's K1f, K1fr, K1br (on its own K1fr alpha) and K1b through
+    one path (`bind`'s wrapper of this tree's libraries) on one input in
+    bf16 and in f16, timed in turns (bf16, f16, f16, bf16: a_b); keys
+    "{kernel}_f16_vs_bf16_" + tag, each {"bf16": [ms, ms], "f16": [ms,
+    ms]}. The two instantiations are one template: the same bytes, the
+    same tensor-core rate."""
+    _, tb, tf, *_ = tree
+    vs = {"bf16": v32.to(torch.bfloat16), "f16": v32.half()}
+    alphas = {k: tf(v, fm, rm, w, temp, True)[1] for k, v in vs.items()}
+    res = {}
+    for kname, make in (
+            ("K1f", lambda k: lambda: tf(vs[k], fm, rm, w, temp)),
+            ("K1fr", lambda k: lambda: tf(vs[k], fm, rm, w, temp, True)),
+            ("K1br", lambda k: lambda: tb(vs[k], fm, rm, du, w, temp,
+                                          alphas[k])),
+            ("K1b", lambda k: lambda: tb(vs[k], fm, rm, du, w, temp))):
+        ms = a_b(torch, {"tree": make("f16"), "bf16": make("bf16")})
+        key = f"{kname}_f16_vs_bf16_{tag}"
+        res[key] = {"bf16": ms["bf16"], "f16": ms["tree"]}
+        CS.log(f"{kname} f16 vs bf16, {tag}: {res[key]}")
+    return res
+
+
 def a_b(torch, fns: dict) -> dict:
     """Device ms of each fn, others then this tree twice then others
     reversed: {name: [ms, ms]}."""
@@ -605,6 +636,15 @@ def main() -> None:
                                                        srv, batch)
         CS.log(f"serving batch host to host: {res['serving_batch_host_ms']}")
         res.update(bwd_ab(torch, others, v32, fm, rm, w, temp, du))
+        res.update(f16_ab(torch, tree, v32, fm, rm, w, temp, du, "config4"))
+        b36, t36, r36, e36, w36 = CS.ANY_TIMED["R36_E1024_w3"]
+        v36, fm36, rm36 = CS.ctx_inputs(
+            torch, torch.Generator().manual_seed(CS.SEED + 18), b36, t36,
+            r36, e36, w36, torch.device("cuda"))
+        du36 = torch.randn(b36, t36, r36, e36).cuda()
+        res.update(f16_ab(torch, tree, v36, fm36, rm36, w36, 0.1, du36,
+                          "R36_E1024_w3"))
+        del v36, fm36, rm36, du36
         res.update(any_ab(torch, others, tmp))
         ann = CS.write_c5_videos(tmp, CS.C5_SEGMENTS, 640, CS.SEED)
         cfg5 = CS.c5_cfg(ann, os.path.join(tmp, "ck5"), "float32", 1)

@@ -31,6 +31,8 @@ class ModelConfig:
     dtype: str = "float32"         # compute dtype of the similarity and
                                    # projection products: "float32" |
                                    # "bfloat16" (bf16 operands, f32 sums)
+                                   # | "float16" (f16 operands, f32 sums,
+                                   # in training; serving and eval in f32)
     matmul_precision: str = "highest"  # "highest": exact f32 products;
                                    # "default": TF32 for the f32 products of
                                    # the training step's losses and their

@@ -17,7 +17,10 @@
 //
 // With bf16 input the products use the bf16 values and sum in f32, and alpha
 // is rounded to bf16 before the mix, as the reference's bf16 mode does
-// (preferred_element_type=f32 with bf16 operands). u is always f32.
+// (preferred_element_type=f32 with bf16 operands); f16 input the same with
+// f16 values (model.dtype=float16 in training). u is always f32. Every
+// kernel is a template on the input's type: the bf16 and f16 kernels are one
+// code, on mma.sync's bf16 or f16 form (the same fragments and rate).
 //
 // Design: two kernels, one call, with alpha [B, T, 2w, R, R] in v's dtype
 // as the hand-off between them. K1fr keeps that alpha as the backward's
@@ -33,7 +36,8 @@
 //          the masked softmax of its rows, alpha of (t+o, -o), when t+o is
 //          one, that of its columns. The w left halo frames start blocks
 //          too, so that a centre frame's pair with a valid left halo frame
-//          is computed. 1,104 independent blocks at config4.
+//          is computed. 1,104 independent blocks at config4. (bf16 here
+//          and below: either 16-bit type, f16 alike.)
 //   mix    one block per (centre frame t, video b) walks t's valid offsets
 //          in order; each step's neighbour frame (cp.async) and alpha
 //          (through registers) land in a ring of three shared-memory slots
@@ -82,7 +86,7 @@ namespace {
 using namespace nafae_ctx;
 
 // A frame's rows [0, rows) and columns [0, cols) into shared rows of stride
-// ld (zero beyond R and E), by cp.async: 16-byte copies, or for bf16 rows
+// ld (zero beyond R and E), by cp.async: 16-byte copies, or for 16-bit rows
 // that are not 16-byte aligned (E % 8 != 0) 8-byte copies.
 template <typename Tin>
 __device__ __forceinline__ void stage_frame_async(Tin* dst, const Tin* src,
@@ -100,9 +104,9 @@ __device__ __forceinline__ void stage_frame_async(Tin* dst, const Tin* src,
 // scores of both directions [2][32][32] and the two region masks [2][32].
 template <typename Tin>
 __host__ __device__ inline int pairs_frame_bytes(int R, int E) {
-  constexpr bool kBf16 = sizeof(Tin) == 2;
-  const int ld = kBf16 ? ((E + 15) & ~15) + 8 : E + 4;
-  return ((kBf16 ? 32 : R) * ld * (int)sizeof(Tin) + 15) / 16 * 16;
+  constexpr bool k16 = sizeof(Tin) == 2;
+  const int ld = k16 ? ((E + 15) & ~15) + 8 : E + 4;
+  return ((k16 ? 32 : R) * ld * (int)sizeof(Tin) + 15) / 16 * 16;
 }
 
 template <typename Tin>
@@ -127,11 +131,11 @@ ctx_mix_fwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
                   Tin* __restrict__ alpha,           // [B, T, 2w, R, R]
                   int T, int R, int E, int w, float temp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool kBf16 = sizeof(Tin) == 2;
+  constexpr bool k16 = sizeof(Tin) == 2;
   const int ep = (E + 15) & ~15;
-  const int ld = kBf16 ? ep + 8 : E + 4;
-  const int rows = kBf16 ? 32 : R;               // staged rows (zero past R)
-  const int cols = kBf16 ? ep : E;               // staged columns (zero past E)
+  const int ld = k16 ? ep + 8 : E + 4;
+  const int rows = k16 ? 32 : R;                 // staged rows (zero past R)
+  const int cols = k16 ? ep : E;                 // staged columns (zero past E)
   const int fb = pairs_frame_bytes<Tin>(R, E);
   Tin* C = reinterpret_cast<Tin*>(smem_raw);             // v_c
   Tin* N = reinterpret_cast<Tin*>(smem_raw + fb);        // v_n
@@ -185,7 +189,7 @@ ctx_mix_fwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
     S[r * 32 + s] = live_n[s] > 0.f ? d / temp : kNeg;
     S2[s * 32 + r] = live_c[r] > 0.f ? d / temp : kNeg;
   };
-  if constexpr (kBf16)
+  if constexpr (k16)
     pair_products_mma<false>(C, C, N, ep, ld, score);
   else
     pair_products<false>(C, C, N, R, E, ld, score);
@@ -398,21 +402,22 @@ size_t mix_smem_f32(int R, int E, int rh) {
   return (size_t)kSlots * (R * (E + 4) + R * kRowGroups * rh4) * 4;
 }
 
-// bf16 (tensor cores): u[t] from block t, one warp per 64 columns (at least
-// four warps): each step one product alpha_o (32 x 32, R padded with
-// zeros) times the neighbour frame's 64 columns (32 x 64), mma.sync
-// m16n8k16 with f32 accumulators; the B fragments come from the staged
-// row-major frame through ldmatrix.trans.
+// 16-bit (tensor cores, T16 bf16 or f16): u[t] from block t, one warp per
+// 64 columns (at least four warps): each step one product alpha_o (32 x 32,
+// R padded with zeros) times the neighbour frame's 64 columns (32 x 64),
+// mma.sync m16n8k16 with f32 accumulators; the B fragments come from the
+// staged row-major frame through ldmatrix.trans.
+template <typename T16>
 __global__ void __launch_bounds__(256)
-ctx_mix_fwd_mix_mma(const __nv_bfloat16* __restrict__ v_ext,
+ctx_mix_fwd_mix_mma(const T16* __restrict__ v_ext,
                     const float* __restrict__ fm_ext,
-                    const __nv_bfloat16* __restrict__ alpha,  // [B,T,2w,R,R]
+                    const T16* __restrict__ alpha,  // [B,T,2w,R,R]
                     float* __restrict__ u, int T, int R, int E, int w) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* smem = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  T16* smem = reinterpret_cast<T16*>(smem_raw);
   const int cols = (E + kSlice - 1) / kSlice * kSlice;
   const int ld = cols + 8;                        // 16-byte rows, skewed
-  const int frame_h = 32 * ld;                    // bf16 of a staged frame
+  const int frame_h = 32 * ld;                    // elements of a staged frame
   const int slot_h = frame_h + 32 * kMatLd;
 
   const int t = blockIdx.x;
@@ -422,7 +427,7 @@ ctx_mix_fwd_mix_mma(const __nv_bfloat16* __restrict__ v_ext,
   const size_t frame = (size_t)R * E;
   const int rr = R * R;
   const float* fm = fm_ext + (size_t)b * t_ext;
-  const __nv_bfloat16* ab = alpha + ((size_t)b * T + t) * 2 * w * rr;
+  const T16* ab = alpha + ((size_t)b * T + t) * 2 * w * rr;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g4 = lane >> 2, tig = lane & 3;
   const int col0 = warp * kSlice;                 // this warp's columns
@@ -439,7 +444,7 @@ ctx_mix_fwd_mix_mma(const __nv_bfloat16* __restrict__ v_ext,
   }
   float cnt;
   const unsigned live = live_offsets(cnt, fm, c, w);
-  MatLoader<__nv_bfloat16> mat(R), mat1(R);
+  MatLoader<T16> mat(R), mat1(R);
   auto stage = [&](int j) {
     const int oi = nth_offset(live, j);
     if (oi >= 0)
@@ -449,14 +454,14 @@ ctx_mix_fwd_mix_mma(const __nv_bfloat16* __restrict__ v_ext,
           0, cols, ld);
     cp_async_commit();
   };
-  auto load_mat = [&](int j, MatLoader<__nv_bfloat16>& m) {
+  auto load_mat = [&](int j, MatLoader<T16>& m) {
     const int oi = nth_offset(live, j);
     if (oi >= 0) m.load(ab + (size_t)oi * rr, rr);
   };
-  auto put_mat = [&](int j, const MatLoader<__nv_bfloat16>& m) {
+  auto put_mat = [&](int j, const MatLoader<T16>& m) {
     if (nth_offset(live, j) < 0) return;
-    __nv_bfloat16* A = smem + (j % kSlots) * slot_h + frame_h;
-    m.store(R, [&](int r, int s, __nv_bfloat16 x) { A[r * kMatLd + s] = x; });
+    T16* A = smem + (j % kSlots) * slot_h + frame_h;
+    m.store(R, [&](int r, int s, T16 x) { A[r * kMatLd + s] = x; });
   };
 
   float acc[2][8][4];
@@ -480,8 +485,8 @@ ctx_mix_fwd_mix_mma(const __nv_bfloat16* __restrict__ v_ext,
     __syncthreads();
     stage(j + 2);
     load_mat(j + 2, mat);
-    const __nv_bfloat16* Y = smem + (j % kSlots) * slot_h;
-    const __nv_bfloat16* A = Y + frame_h;
+    const T16* Y = smem + (j % kSlots) * slot_h;
+    const T16* A = Y + frame_h;
     if (col0 < E) {              // warp-uniform
       for (int kk = 0; kk < ks; ++kk) {
         uint32_t x[2][4];
@@ -495,8 +500,8 @@ ctx_mix_fwd_mix_mma(const __nv_bfloat16* __restrict__ v_ext,
 #pragma unroll
           for (int mi = 0; mi < 2; ++mi) {
             if (mi >= mt) continue;              // block-uniform
-            mma_bf16(acc[mi][2 * nt], x[mi], y[0], y[1]);
-            mma_bf16(acc[mi][2 * nt + 1], x[mi], y[2], y[3]);
+            mma16<T16>(acc[mi][2 * nt], x[mi], y[0], y[1]);
+            mma16<T16>(acc[mi][2 * nt + 1], x[mi], y[2], y[3]);
           }
         }
       }
@@ -520,10 +525,10 @@ ctx_mix_fwd_mix_mma(const __nv_bfloat16* __restrict__ v_ext,
       }
 }
 
-int mix_threads_bf16(int E) {
+int mix_threads_16(int E) {
   return 32 * max(4, (E + kSlice - 1) / kSlice);
 }
-size_t mix_smem_bf16(int E) {
+size_t mix_smem_16(int E) {
   const int cols = (E + kSlice - 1) / kSlice * kSlice;
   return (size_t)kSlots * (32 * (cols + 8) + 32 * kMatLd) * 2;
 }
@@ -601,11 +606,12 @@ int launch_mix_f32(const float* v, const float* fm_ext, const float* a,
 //          / max(cnt, 1). It is launched as a programmatic dependent of
 //          the pairs kernel, as the mix above.
 //
-// The scores are summed on CUDA cores in bf16 too, as the pairs kernel
-// above does in f32 and the plain version does: products of bf16 values are
-// exact in f32, and their IEEE sums round alpha to bf16 as the plain
-// version does. Summed by mma.sync instead (which truncates its sums), a
-// few entries of alpha rounded to the neighbouring bf16 value, which moved
+// The scores are summed on CUDA cores in bf16 (and f16, the same code) too,
+// as the pairs kernel above does in f32 and the plain version does:
+// products of 16-bit values are exact in f32, and their IEEE sums round
+// alpha to the 16-bit type as the plain version does. Summed by mma.sync
+// instead (which truncates its sums), a few entries of alpha rounded to the
+// neighbouring bf16 value, which moved
 // K1fr's u by 1.26e-4 at E = 50, past the bf16 tolerance of chip_smoke.py's
 // phase 17 (PERF.md). The mix keeps mma.sync: its operands are already
 // bf16 and its sums feed u alone.
@@ -708,7 +714,7 @@ ctx_mix_fwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   }
 
   // thread (ty, tx): rows ty + 16 i, columns tx + 16 j (i, j < MT), on
-  // CUDA cores in both dtypes (bf16 x bf16 products are exact in f32)
+  // CUDA cores in every dtype (16-bit products are exact in f32)
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   float acc[MT][MT];
 #pragma unroll
@@ -774,7 +780,7 @@ ctx_mix_fwd_mix_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
                     const Tin* __restrict__ alpha,     // [B, T, 2w, R, R]
                     float* __restrict__ u,             // [B, T, R, E]
                     int T, int R, int E, int w) {
-  constexpr bool kBf16 = sizeof(Tin) == 2;
+  constexpr bool k16 = sizeof(Tin) == 2;
   constexpr int RP = 16 * MT;
   constexpr int lda = stage_ld<Tin>(RP);         // alpha_o [RP][lda]
   constexpr int ldy = stage_ld<Tin>(kMixCols);   // the slice [RP][ldy]
@@ -841,7 +847,7 @@ ctx_mix_fwd_mix_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   const float den = fmaxf(cnt_s, 1.f);
   float* ub = u + ((size_t)b * T + t) * frame;
 
-  if constexpr (kBf16) {
+  if constexpr (k16) {
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int g = lane >> 2, tig = lane & 3;
     const int n0 = warp * 16;                    // this warp's columns
@@ -857,8 +863,8 @@ ctx_mix_fwd_mix_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
       stage_y(j + 2);                // into the slot of step j - 1
       stage_a(j + 2);
       cp_async_commit();
-      const __nv_bfloat16* A = slots + (j % kMixSlots) * kSlot;
-      const __nv_bfloat16* Y = A + RP * lda;
+      const Tin* A = slots + (j % kMixSlots) * kSlot;
+      const Tin* Y = A + RP * lda;
       if (e0 + n0 < E) {             // warp-uniform
 #pragma unroll
         for (int k = 0; k < RP; k += 16) {
@@ -869,8 +875,8 @@ ctx_mix_fwd_mix_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
             if (mi * 16 >= R) continue;          // block-uniform
             uint32_t x[4];
             frag_a(x, A, lda, mi * 16, k);
-            mma_bf16(acc[mi][0], x, y[0], y[1]);
-            mma_bf16(acc[mi][1], x, y[2], y[3]);
+            mma16<Tin>(acc[mi][0], x, y[0], y[1]);
+            mma16<Tin>(acc[mi][1], x, y[2], y[3]);
           }
         }
       }
@@ -1151,10 +1157,10 @@ int run(const void* v_ext, const float* fm_ext, const float* rm_ext,
       static_cast<Tin*>(alpha), T, R, E, w, temp);
   if (err != 0) return err;
   if constexpr (sizeof(Tin) == 2) {
-    return launch_dyn(ctx_mix_fwd_mix_mma, dim3(T, B), mix_threads_bf16(E),
-                      mix_smem_bf16(E), stream, true,
-                      static_cast<const __nv_bfloat16*>(v_ext), fm_ext,
-                      static_cast<const __nv_bfloat16*>(alpha), u, T, R, E, w);
+    return launch_dyn(ctx_mix_fwd_mix_mma<Tin>, dim3(T, B), mix_threads_16(E),
+                      mix_smem_16(E), stream, true,
+                      static_cast<const Tin*>(v_ext), fm_ext,
+                      static_cast<const Tin*>(alpha), u, T, R, E, w);
   } else {
     return launch_mix_f32(static_cast<const float*>(v_ext), fm_ext,
                           static_cast<const float*>(alpha), u, B, T, R, E, w,
@@ -1167,8 +1173,9 @@ int run(const void* v_ext, const float* fm_ext, const float* rm_ext,
 extern "C" {
 
 // Launches the two kernels on `stream` and returns the cudaError_t of the
-// launches (0 = ok). v_ext is float* when v_is_bf16 == 0, __nv_bfloat16*
-// otherwise; rm_ext may be null; alpha, of v_ext's type and shape
+// launches (0 = ok). v_ext is float* when dtype == 0, __nv_bfloat16* when
+// it is 1, __half* when it is 2 (by_dtype; any other code is
+// cudaErrorInvalidValue); rm_ext may be null; alpha, of v_ext's type and shape
 // [B, T, 2w, R, R], is written whole: the residual for K1fr, a scratch for
 // K1f. All tensors are contiguous; v_ext is 16-byte aligned. Shapes with
 // R <= 32, E a multiple of 4 in [4, 512] and w <= 16 take the kernels
@@ -1176,7 +1183,7 @@ extern "C" {
 // z or y), and, in the general variant, T + w and T ceil(E/128) below 2^31
 // up to R = 64 and w = 512, T 2w ceil(R/32) and T ceil(R/32) ceil(E/64)
 // past them (the grids' x); R, E, w, T >= 1.
-int nafae_ctx_mix_fwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
+int nafae_ctx_mix_fwd(const void* v_ext, int dtype, const float* fm_ext,
                       const float* rm_ext, float* u, void* alpha, int B,
                       int T, int R, int E, int w, float temp, void* stream) {
   if (R < 1 || E < 1 || w < 1 || B < 0 || B > 65535 || T < 0 ||
@@ -1184,10 +1191,10 @@ int nafae_ctx_mix_fwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return v_is_bf16
-      ? run<__nv_bfloat16>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w,
-                           temp, s)
-      : run<float>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w, temp, s);
+  return by_dtype(dtype, (int)cudaErrorInvalidValue, [&](auto x) {
+    return run<decltype(x)>(v_ext, fm_ext, rm_ext, u, alpha, B, T, R, E, w,
+                            temp, s);
+  });
 }
 
 }  // extern "C"

@@ -19,6 +19,10 @@
 // In bf16 mode du_n, ds and the alpha of the products are rounded to bf16
 // and every product sums in f32, as the TPU kernel does; the residual route
 // reads alpha as stored (bf16), the recompute route recomputes it in f32.
+// f16 (model.dtype=float16 in training) the same in f16, subnormals kept:
+// du_n at gradient scale lies below f16's normals. Every kernel is a
+// template on the input's type; bf16 and f16 are one code, on mma.sync's
+// bf16 or f16 form (bf16 below: either 16-bit type).
 // dv_ext is f32 [B, T+2w, R, E], halo frames included.
 //
 // Design: two kernels, one call.
@@ -99,12 +103,12 @@ struct PairsSmem {
 
 template <typename Tin>
 __host__ __device__ inline PairsSmem pairs_smem(int R, int E, bool scores) {
-  constexpr bool kBf16 = sizeof(Tin) == 2;
+  constexpr bool k16 = sizeof(Tin) == 2;
   PairsSmem p;
   // f32: R rows of E + 4; bf16 (tensor cores): 32 rows of E padded to the
   // MMA's depth, + 8, zero beyond R and E
-  p.ld = kBf16 ? ((E + 15) & ~15) + 8 : E + 4;
-  p.frame_bytes = ((kBf16 ? 32 : R) * p.ld * (int)sizeof(Tin) + 15) / 16 * 16;
+  p.ld = k16 ? ((E + 15) & ~15) + 8 : E + 4;
+  p.frame_bytes = ((k16 ? 32 : R) * p.ld * (int)sizeof(Tin) + 15) / 16 * 16;
   p.u = 0;
   p.c = p.u + p.frame_bytes;
   p.n = p.c + (scores ? p.frame_bytes : 0);
@@ -132,7 +136,7 @@ ctx_mix_bwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
                   int T, int R, int E, int w, float temp) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr bool kScores = !kResidual;
-  constexpr bool kBf16 = sizeof(Tin) == 2;
+  constexpr bool k16 = sizeof(Tin) == 2;
   constexpr int kVec = 4;                        // 16 bytes f32, 8 bytes bf16
   const PairsSmem L = pairs_smem<Tin>(R, E, kScores);
   Tin* U = reinterpret_cast<Tin*>(smem_raw + L.u);       // du_n of frame t
@@ -144,8 +148,8 @@ ctx_mix_bwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   float* live = reinterpret_cast<float*>(smem_raw + L.live);
   const int ld = L.ld;
   const int ep = (E + 15) & ~15;
-  const int rows = kBf16 ? 32 : R;               // staged rows (zero past R)
-  const int cols = kBf16 ? ep : E;               // staged columns (zero past E)
+  const int rows = k16 ? 32 : R;                 // staged rows (zero past R)
+  const int cols = k16 ? ep : E;                 // staged columns (zero past E)
 
   const int oi = blockIdx.x;
   const int t = blockIdx.y;
@@ -159,7 +163,7 @@ ctx_mix_bwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   const int RS = (R + 7) & ~7;                   // the scratch's row length
   Tin* ds_p = ds_out + pair_id * R * RS;
   Tin* alpha_p = alpha_out + pair_id * R * RS;
-  Tin* dst_p = kBf16 ? nullptr : dst_out + pair_id * R * RS;
+  Tin* dst_p = k16 ? nullptr : dst_out + pair_id * R * RS;
   const float* fm = fm_ext + (size_t)b * t_ext;
   const Tin* vb = v_ext + (size_t)b * t_ext * frame;
   if (fm[c] == 0.f || fm[n] == 0.f) return;      // nv_o = 0: nothing read
@@ -178,7 +182,7 @@ ctx_mix_bwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
                            ld);
   stage_tile_async<kVec>(N, vb + (size_t)n * frame, rows, R, E, 0, cols, ld);
   const float* du_t = du + ((size_t)b * T + t) * frame;
-  if constexpr (kBf16) {
+  if constexpr (k16) {
     // du_n rounded to bf16 before its products, as the reference does;
     // the first live pair's block also writes it out for the gather
     Tin* dun = oi == first ? dun_out + ((size_t)b * T + t) * frame : nullptr;
@@ -220,7 +224,7 @@ ctx_mix_bwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   cp_async_wait(0);
   __syncthreads();
 
-  if constexpr (kBf16)          // du_n is scaled already; r, s < 32
+  if constexpr (k16)            // du_n is scaled already; r, s < 32
     pair_products_mma<kScores>(U, C, N, ep, ld,
                                [&](int r, int s, float da, float sc) {
                                  G[r * 32 + s] = da;
@@ -270,7 +274,7 @@ ctx_mix_bwd_pairs(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
                             ? (a[q] * g[q] - a[q] * sum) / temp : 0.f;
         store_as(ds_p + r * RS + s, d);
         store_as(alpha_p + r * RS + s, a[q]);
-        if (!kBf16 && s < R) store_as(dst_p + s * RS + r, d);
+        if (!k16 && s < R) store_as(dst_p + s * RS + r, d);
       }
     }
   }
@@ -483,7 +487,7 @@ ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
                            blockIdx.y * kSlice, T, R, E, w, dus, vs, A, D);
 }
 
-// bf16 (tensor cores): dv[f] for columns [64 y, 64 y + 64) as one product a
+// 16-bit (tensor cores): dv[f] for columns [64 y, 64 y + 64) as one product a
 // neighbour: [alpha_gf^T | ds_gf^T | ds_fg] (32 x 96, R padded to 32 with
 // zeros) times [du_n[g]; v[g]; v[g]] (96 x 64), mma.sync m16n8k16 with f32
 // accumulators. Four warps, 16 columns each; the B fragments come from the
@@ -491,16 +495,14 @@ ctx_mix_bwd_gather(const float* __restrict__ v_ext,   // [B, T+2w, R, E]
 // The slices and matrices of a neighbour arrive by cp.async one neighbour
 // ahead; ds_fg lands where the MMA reads it, the two transposed matrices
 // are built from their copies. kHalo: as gather_sums'.
-template <bool kHalo>
+template <typename T16, bool kHalo>
 __device__ __forceinline__ void gather_mma_sums(
-    const __nv_bfloat16* __restrict__ v_ext, const float* __restrict__ fm,
-    const __nv_bfloat16* __restrict__ alpha,
-    const __nv_bfloat16* __restrict__ ds,
-    const __nv_bfloat16* __restrict__ dun, float* __restrict__ dv, int f,
-    int b, int col0, int T, int R, int E, int w,
-    __nv_bfloat16 (*xs)[32 * kMmaLd],
-    __nv_bfloat16 (*ys)[32 * kMmaLd], __nv_bfloat16 (*raw)[2][32 * 32],
-    __nv_bfloat16 (*fg)[32 * kMatLd], __nv_bfloat16 (*am)[32 * kMatLd]) {
+    const T16* __restrict__ v_ext, const float* __restrict__ fm,
+    const T16* __restrict__ alpha, const T16* __restrict__ ds,
+    const T16* __restrict__ dun, float* __restrict__ dv, int f, int b,
+    int col0, int T, int R, int E, int w, T16 (*xs)[32 * kMmaLd],
+    T16 (*ys)[32 * kMmaLd], T16 (*raw)[2][32 * 32], T16 (*fg)[32 * kMatLd],
+    T16 (*am)[32 * kMatLd]) {
   const int t_ext = T + 2 * w;
   const int RS = (R + 7) & ~7;                   // the scratch's row length
   const size_t frame = (size_t)R * E;
@@ -556,8 +558,8 @@ __device__ __forceinline__ void gather_mma_sums(
 
 #pragma unroll
     for (int blk = 0; blk < 3; ++blk) {
-      const __nv_bfloat16* bsrc = blk == 0 ? xs[q] : ys[q];
-      const __nv_bfloat16* asrc = blk == 2 ? fg[q] : am[blk];
+      const T16* bsrc = blk == 0 ? xs[q] : ys[q];
+      const T16* asrc = blk == 2 ? fg[q] : am[blk];
       for (int kk = 0; kk < ks; ++kk) {
         // B fragments of the two n8 tiles of this warp's 16 columns
         uint32_t y[4];
@@ -567,8 +569,8 @@ __device__ __forceinline__ void gather_mma_sums(
           if (mi >= mt) continue;                // block-uniform
           uint32_t x[4];
           frag_a(x, asrc, kMatLd, mi * 16, kk * 16);
-          mma_bf16(acc[mi][0], x, y[0], y[1]);
-          mma_bf16(acc[mi][1], x, y[2], y[3]);
+          mma16<T16>(acc[mi][0], x, y[0], y[1]);
+          mma16<T16>(acc[mi][1], x, y[2], y[3]);
         }
       }
     }
@@ -590,34 +592,35 @@ __device__ __forceinline__ void gather_mma_sums(
       }
 }
 
+template <typename T16>
 __global__ void __launch_bounds__(128)
-ctx_mix_bwd_gather_mma(const __nv_bfloat16* __restrict__ v_ext,
+ctx_mix_bwd_gather_mma(const T16* __restrict__ v_ext,
                        const float* __restrict__ fm_ext,
-                       const __nv_bfloat16* __restrict__ alpha,  // padded
-                       const __nv_bfloat16* __restrict__ ds,     // padded
-                       const __nv_bfloat16* __restrict__ dun,    // [B,T,R,E]
+                       const T16* __restrict__ alpha,  // padded
+                       const T16* __restrict__ ds,     // padded
+                       const T16* __restrict__ dun,    // [B,T,R,E]
                        float* __restrict__ dv, int T, int R, int E, int w) {
-  __shared__ __align__(16) __nv_bfloat16 xs[2][32 * kMmaLd];  // du_n[g]
-  __shared__ __align__(16) __nv_bfloat16 ys[2][32 * kMmaLd];  // v[g]
-  __shared__ __align__(16) __nv_bfloat16 raw[2][2][32 * 32];  // alpha, ds_gf
-  __shared__ __align__(16) __nv_bfloat16 fg[2][32 * kMatLd];  // ds_fg [a][b]
-  __shared__ __align__(16) __nv_bfloat16 am[2][32 * kMatLd];  // their ^T
+  __shared__ __align__(16) T16 xs[2][32 * kMmaLd];  // du_n[g]
+  __shared__ __align__(16) T16 ys[2][32 * kMmaLd];  // v[g]
+  __shared__ __align__(16) T16 raw[2][2][32 * 32];  // alpha, ds_gf
+  __shared__ __align__(16) T16 fg[2][32 * kMatLd];  // ds_fg [a][b]
+  __shared__ __align__(16) T16 am[2][32 * kMatLd];  // their ^T
 
   const int f = blockIdx.x;
   const int b = blockIdx.z;
   const float* fm = fm_ext + (size_t)b * (T + 2 * w);
   // rows and columns past R stay zero in the transposed matrices
   for (int i = threadIdx.x; i < 2 * 32 * kMatLd; i += blockDim.x)
-    (&am[0][0])[i] = __float2bfloat16_rn(0.f);
+    store_as(&am[0][0] + i, 0.f);
 
   if (touches_halo(fm, f, T, w))
-    gather_mma_sums<true>(v_ext, fm, alpha, ds, dun, dv, f, b,
-                          blockIdx.y * kSlice, T, R, E, w, xs, ys, raw, fg,
-                          am);
+    gather_mma_sums<T16, true>(v_ext, fm, alpha, ds, dun, dv, f, b,
+                               blockIdx.y * kSlice, T, R, E, w, xs, ys, raw,
+                               fg, am);
   else
-    gather_mma_sums<false>(v_ext, fm, alpha, ds, dun, dv, f, b,
-                           blockIdx.y * kSlice, T, R, E, w, xs, ys, raw, fg,
-                           am);
+    gather_mma_sums<T16, false>(v_ext, fm, alpha, ds, dun, dv, f, b,
+                                blockIdx.y * kSlice, T, R, E, w, xs, ys, raw,
+                                fg, am);
 }
 
 template <int RB>
@@ -634,14 +637,16 @@ int launch_gather(const float* v_ext, const float* fm_ext,
 // The scratch, in elements of v_ext's type: ds and alpha as [B, T, 2w, R,
 // RS] (rows padded to RS = R rounded up to 8, so every row of every pair is
 // 16-byte aligned for the gather's copies), then, for f32, ds transposed in
-// the same layout, for bf16 du_n [B, T, R, E] at a 16-byte boundary.
+// the same layout, for 16-bit du_n [B, T, R, E] at a 16-byte boundary.
 size_t mats_elems(int B, int T, int R, int w) {
   return (size_t)B * T * 2 * w * R * ((R + 7) & ~7);
 }
 
-size_t scratch_elems(int B, int T, int R, int E, int w, bool bf16) {
+template <typename Tin>
+size_t scratch_elems(int B, int T, int R, int E, int w) {
   const size_t mats = mats_elems(B, T, R, w);
-  return bf16 ? (2 * mats + 7) / 8 * 8 + (size_t)B * T * R * E : 3 * mats;
+  return sizeof(Tin) == 2 ? (2 * mats + 7) / 8 * 8 + (size_t)B * T * R * E
+                          : 3 * mats;
 }
 
 template <typename Tin, bool kResidual>
@@ -649,12 +654,12 @@ int run_typed(const void* v_ext, const float* fm_ext, const float* rm_ext,
               const void* alpha, const float* du, float* dv, void* scratch,
               int B, int T, int R, int E, int w, float temp,
               cudaStream_t stream) {
-  constexpr bool kBf16 = sizeof(Tin) == 2;
+  constexpr bool k16 = sizeof(Tin) == 2;
   const size_t mats = mats_elems(B, T, R, w);
   Tin* ds = static_cast<Tin*>(scratch);
   Tin* alpha_s = ds + mats;
-  Tin* dst = kBf16 ? nullptr : ds + 2 * mats;
-  Tin* dun = kBf16 ? ds + (2 * mats + 7) / 8 * 8 : nullptr;
+  Tin* dst = k16 ? nullptr : ds + 2 * mats;
+  Tin* dun = k16 ? ds + (2 * mats + 7) / 8 * 8 : nullptr;
   const size_t smem = pairs_smem<Tin>(R, E, !kResidual).total;
   auto pairs = ctx_mix_bwd_pairs<Tin, kResidual>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -666,9 +671,9 @@ int run_typed(const void* v_ext, const float* fm_ext, const float* rm_ext,
       temp);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if constexpr (kBf16) {
+  if constexpr (k16) {
     const dim3 grid(T + 2 * w, (E + kSlice - 1) / kSlice, B);
-    ctx_mix_bwd_gather_mma<<<grid, 128, 0, stream>>>(
+    ctx_mix_bwd_gather_mma<Tin><<<grid, 128, 0, stream>>>(
         static_cast<const Tin*>(v_ext), fm_ext, alpha_s, ds, dun, dv, T, R,
         E, w);
     return (int)cudaGetLastError();
@@ -801,7 +806,7 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
                       Tin* __restrict__ mats,            // the slots
                       Tin* __restrict__ dun,             // [B, T, R, E] bf16
                       int T, int R, int E, int w, float temp) {
-  constexpr bool kBf16 = sizeof(Tin) == 2;
+  constexpr bool k16 = sizeof(Tin) == 2;
   constexpr bool kScores = !kResidual;
   constexpr int RP = 16 * MT;                    // R padded
   constexpr int ld = stage_ld<Tin>(kStageK);
@@ -867,7 +872,7 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
       const int k0 = ks * kStageK;
       stage_tile_any(d, Vc, RP, R, E, k0, kStageK, ld);
       stage_tile_any(d + kTile, Vn, RP, R, E, k0, kStageK, ld);
-      if constexpr (kBf16) {
+      if constexpr (k16) {
         copy_du(ks);                             // into the f32 buffer
       } else {                                   // f32: du as stored
         stage_tile_any(d + 2 * kTile, Uc, RP, fw ? R : 0, E, k0, kStageK, ld);
@@ -909,8 +914,8 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   const float scale_c = 1.f / fmaxf(cnt_s[0], 1.f);   // fm[c] is 1 here
   const float scale_n = 1.f / fmaxf(cnt_s[1], 1.f);
 
-  const bool wr_c = kBf16 && fw && offset_of(first_s[0], w) == o;
-  const bool wr_n = kBf16 && bw && offset_of(first_s[1], w) == -o;
+  const bool wr_c = k16 && fw && offset_of(first_s[0], w) == o;
+  const bool wr_n = k16 && bw && offset_of(first_s[1], w) == -o;
   auto round_du = [&](int ks) {                  // this thread's copies
     Tin* d = ring + (ks % kStages) * kStage + 2 * kTile;
     for (int p = threadIdx.x; p < 2 * RP * per_row; p += kPairThreads) {
@@ -931,7 +936,7 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
     }
   };
 
-  if constexpr (kBf16) {
+  if constexpr (k16) {
     cp_async_wait(0);
     round_du(0);
   }
@@ -944,8 +949,8 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
   const int g4 = lane >> 2, tig = lane & 3;
   constexpr int M3 = kScores ? MT : 1;
-  constexpr int MF = kBf16 ? 1 : MT;             // the f32 register tile
-  constexpr int MB = kBf16 ? MT : 1;             // the bf16 m16 tiles
+  constexpr int MF = k16 ? 1 : MT;               // the f32 register tile
+  constexpr int MB = k16 ? MT : 1;               // the bf16 m16 tiles
   float a1[MF][MF], a2[MF][MF], a3[kScores ? MF : 1][kScores ? MF : 1];
   float m1[MB][4], m2[MB][4], m3[kScores ? MB : 1][4];
 #pragma unroll
@@ -967,12 +972,12 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
     const Tin* sVn = sVc + kTile;
     const Tin* sUc = sVc + 2 * kTile;
     const Tin* sUn = sVc + 3 * kTile;
-    if constexpr (kBf16) {
+    if constexpr (k16) {
       if (warp < 2 * MT) {                       // warp-uniform
 #pragma unroll
         for (int k = 0; k < kStageK; k += 16) {
-          const __nv_bfloat16* qv = sVn + (8 * warp + g4) * ld + k + 2 * tig;
-          const __nv_bfloat16* qu = sUn + (8 * warp + g4) * ld + k + 2 * tig;
+          const Tin* qv = sVn + (8 * warp + g4) * ld + k + 2 * tig;
+          const Tin* qu = sUn + (8 * warp + g4) * ld + k + 2 * tig;
           const uint32_t v0 = lds32(qv), v1 = lds32(qv + 8);
           const uint32_t u0 = lds32(qu), u1 = lds32(qu + 8);
 #pragma unroll
@@ -980,10 +985,10 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
             if (mi * 16 >= R) continue;          // padding rows
             uint32_t x[4];
             frag_a(x, sUc, ld, mi * 16, k);
-            mma_bf16(m1[mi], x, v0, v1);         // da_cn
+            mma16<Tin>(m1[mi], x, v0, v1);       // da_cn
             frag_a(x, sVc, ld, mi * 16, k);
-            mma_bf16(m2[mi], x, u0, u1);         // da_nc^T
-            if constexpr (kScores) mma_bf16(m3[mi], x, v0, v1);
+            mma16<Tin>(m2[mi], x, u0, u1);       // da_nc^T
+            if constexpr (kScores) mma16<Tin>(m3[mi], x, v0, v1);
           }
         }
       }
@@ -1010,7 +1015,7 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
         }
       }
     }
-    if constexpr (kBf16) {                       // the slot of ks - 1 is read
+    if constexpr (k16) {                         // the slot of ks - 1 is read
       if (ks + 1 < nk) {
         cp_async_wait(0);
         round_du(ks + 1);
@@ -1026,7 +1031,7 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   float* A2 = A1 + RP * lds;     // alpha of (n, -o), transposed
   float* S = A2 + RP * lds;      // the scores (K1b)
   for (int i = threadIdx.x; i < RP * lds; i += blockDim.x) A1[i] = A2[i] = 0.f;
-  if constexpr (kBf16) {
+  if constexpr (k16) {
     if (warp < 2 * MT)
 #pragma unroll
       for (int mi = 0; mi < MT; ++mi)
@@ -1131,7 +1136,7 @@ ctx_mix_bwd_pairs_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   for (int i = threadIdx.x; i < kMat; i += blockDim.x) {
     const int r = i / RP, s = i - r * RP;
     const int rs = r * lds + s, sr = s * lds + r;
-    if constexpr (kBf16) {
+    if constexpr (k16) {
       store_as(Pc + i, A2[rs]);                  // alpha_nc^T
       store_as(Pc + kMat + i, G1[rs]);           // ds_cn
       store_as(Pc + 2 * kMat + i, G2[rs]);       // ds_nc^T
@@ -1156,7 +1161,7 @@ ctx_mix_bwd_gather_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
                        const Tin* __restrict__ dun,       // bf16 du_n, as du
                        float* __restrict__ dv,            // [B, T+2w, R, E]
                        int T, int R, int E, int w) {
-  constexpr bool kBf16 = sizeof(Tin) == 2;
+  constexpr bool k16 = sizeof(Tin) == 2;
   constexpr int RP = 16 * MT;
   constexpr int kCols = kGatherCols;
   constexpr int lda = stage_ld<Tin>(RP);         // the matrices' rows
@@ -1209,7 +1214,7 @@ ctx_mix_bwd_gather_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
       const int g = nbr[j];
       stage_tile_any(s + kY, v_ext + ((size_t)b * t_ext + g) * frame, RP, R,
                      E, e0, kCols, ldy);
-      if constexpr (!kBf16) {                    // du[g]: zeros past a halo
+      if constexpr (!k16) {                      // du[g]: zeros past a halo
         const bool gc = is_centre(g, T, w);
         stage_tile_any(s + kX, gc ? du + ((size_t)b * T + g - w) * frame : du,
                        RP, gc ? R : 0, E, e0, kCols, ldy);
@@ -1221,7 +1226,7 @@ ctx_mix_bwd_gather_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
       Tin* s = slots + (j % kSlots) * kSlot;
       stage_tile_any(s, mats + slot_of(b, f, idx[j], T, w) * kMats * RP * RP,
                      kMats * RP, kMats * RP, RP, 0, RP, lda);
-      if constexpr (kBf16) {
+      if constexpr (k16) {
         const int g = nbr[j];
         const bool gc = is_centre(g, T, w);
         stage_tile_any(s + kX,
@@ -1246,7 +1251,7 @@ ctx_mix_bwd_gather_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
   float* dvb = dv + ((size_t)b * t_ext + f) * frame;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
 
-  if constexpr (kBf16) {
+  if constexpr (k16) {
     const int g4 = lane >> 2, tig = lane & 3;
     const int n0 = warp * 16;                    // this warp's columns
     float acc[MT][2][4];
@@ -1262,9 +1267,9 @@ ctx_mix_bwd_gather_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
       stage_y(j + kSlots - 1);       // into the slot of step j - 1
       stage_a(j + kSlots - 1);
       cp_async_commit();
-      const __nv_bfloat16* M = slots + (j % kSlots) * kSlot;
-      const __nv_bfloat16* X = M + kX;
-      const __nv_bfloat16* Y = M + kY;
+      const Tin* M = slots + (j % kSlots) * kSlot;
+      const Tin* X = M + kX;
+      const Tin* Y = M + kY;
       if (e0 + n0 < E) {             // warp-uniform
 #pragma unroll
         for (int k = 0; k < RP; k += 16) {
@@ -1276,14 +1281,14 @@ ctx_mix_bwd_gather_any(const Tin* __restrict__ v_ext,     // [B, T+2w, R, E]
             if (mi * 16 >= R) continue;          // block-uniform
             uint32_t x[4];
             frag_a(x, M, lda, mi * 16, k);                  // alpha_gf^T
-            mma_bf16(acc[mi][0], x, yx[0], yx[1]);
-            mma_bf16(acc[mi][1], x, yx[2], yx[3]);
+            mma16<Tin>(acc[mi][0], x, yx[0], yx[1]);
+            mma16<Tin>(acc[mi][1], x, yx[2], yx[3]);
             frag_a(x, M + RP * lda, lda, mi * 16, k);       // ds_fg
-            mma_bf16(acc[mi][0], x, yv[0], yv[1]);
-            mma_bf16(acc[mi][1], x, yv[2], yv[3]);
+            mma16<Tin>(acc[mi][0], x, yv[0], yv[1]);
+            mma16<Tin>(acc[mi][1], x, yv[2], yv[3]);
             frag_a(x, M + 2 * RP * lda, lda, mi * 16, k);   // ds_gf^T
-            mma_bf16(acc[mi][0], x, yv[0], yv[1]);
-            mma_bf16(acc[mi][1], x, yv[2], yv[3]);
+            mma16<Tin>(acc[mi][0], x, yv[0], yv[1]);
+            mma16<Tin>(acc[mi][1], x, yv[2], yv[3]);
           }
         }
       }
@@ -1694,7 +1699,7 @@ int run_any(const void* v_ext, const float* fm_ext, const float* rm_ext,
 }
 
 template <bool kResidual>
-int run(const void* v_ext, int v_is_bf16, const float* fm_ext,
+int run(const void* v_ext, int dtype, const float* fm_ext,
         const float* rm_ext, const void* alpha, const float* du, float* dv,
         void* scratch, int B, int T, int R, int E, int w, float temp,
         void* stream) {
@@ -1703,19 +1708,15 @@ int run(const void* v_ext, int v_is_bf16, const float* fm_ext,
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!in_envelope(T, R, E, w))
-    return v_is_bf16
-        ? run_any<__nv_bfloat16, kResidual>(v_ext, fm_ext, rm_ext, alpha, du,
-                                            dv, scratch, B, T, R, E, w, temp,
-                                            s)
-        : run_any<float, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv,
-                                    scratch, B, T, R, E, w, temp, s);
-  return v_is_bf16
-      ? run_typed<__nv_bfloat16, kResidual>(v_ext, fm_ext, rm_ext, alpha, du,
-                                            dv, scratch, B, T, R, E, w, temp,
-                                            s)
-      : run_typed<float, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv,
-                                    scratch, B, T, R, E, w, temp, s);
+  const bool special = in_envelope(T, R, E, w);
+  return by_dtype(dtype, (int)cudaErrorInvalidValue, [&](auto x) {
+    using Tin = decltype(x);
+    return special
+        ? run_typed<Tin, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv,
+                                    scratch, B, T, R, E, w, temp, s)
+        : run_any<Tin, kResidual>(v_ext, fm_ext, rm_ext, alpha, du, dv,
+                                  scratch, B, T, R, E, w, temp, s);
+  });
 }
 
 // An empty kernel: launched with a real kernel's grid, block and shared
@@ -1744,15 +1745,16 @@ extern "C" {
 // programmatic dependent up to R = 64 and w = 512 (in stream order past
 // them): the launch floor its measured times are judged against. Returns
 // cudaErrorInvalidValue for shapes the specialised kernels take.
-int nafae_ctx_mix_bwd_floor(int v_is_bf16, int B, int T, int R, int E, int w,
+int nafae_ctx_mix_bwd_floor(int dtype, int B, int T, int R, int E, int w,
                             void* stream) {
   if (R < 1 || E < 1 || w < 1 || B < 1 || B > 65535 || T < 1 ||
       in_envelope(T, R, E, w))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (staged(R, w))
-    return v_is_bf16 ? floor_staged<__nv_bfloat16>(B, T, R, E, w, s)
-                     : floor_staged<float>(B, T, R, E, w, s);
+    return by_dtype(dtype, (int)cudaErrorInvalidValue, [&](auto x) {
+      return floor_staged<decltype(x)>(B, T, R, E, w, s);
+    });
   const size_t tiles = (R + kAnyRows - 1) / kAnyRows;
   const size_t slices = (E + kAnyCols - 1) / kAnyCols;
   null_kernel<<<dim3((unsigned)(T * 2 * w * tiles), B), kAnyThreads, 0,
@@ -1764,46 +1766,49 @@ int nafae_ctx_mix_bwd_floor(int v_is_bf16, int B, int T, int R, int E, int w,
   return (int)cudaGetLastError();
 }
 
-// Elements of v_ext's type that the scratch of one call must hold.
+// Elements of v_ext's type that the scratch of one call must hold (0 for
+// an unknown dtype code).
 size_t nafae_ctx_mix_bwd_scratch(int B, int T, int R, int E, int w,
-                                 int v_is_bf16) {
-  if (in_envelope(T, R, E, w))
-    return scratch_elems(B, T, R, E, w, v_is_bf16 != 0);
-  if (staged(R, w))
-    return v_is_bf16 ? staged_scratch<__nv_bfloat16>(B, T, R, E, w)
-                     : staged_scratch<float>(B, T, R, E, w);
-  return 2 * wide_mats(B, T, R, w) * (v_is_bf16 ? 2 : 1);   // two f32 arrays
+                                 int dtype) {
+  return by_dtype(dtype, (size_t)0, [&](auto x) {
+    using Tin = decltype(x);
+    if (in_envelope(T, R, E, w)) return scratch_elems<Tin>(B, T, R, E, w);
+    if (staged(R, w)) return staged_scratch<Tin>(B, T, R, E, w);
+    // two f32 arrays
+    return 2 * wide_mats(B, T, R, w) * (sizeof(float) / sizeof(Tin));
+  });
 }
 
 // Both launch the two kernels on `stream` and return the cudaError_t of the
-// launches (0 = ok). v_ext is float* when v_is_bf16 == 0, __nv_bfloat16*
-// otherwise, and alpha (K1br only) has v_ext's type; rm_ext may be null; du
+// launches (0 = ok). v_ext is float* when dtype == 0, __nv_bfloat16* when
+// it is 1, __half* when it is 2 (any other code: cudaErrorInvalidValue), and
+// alpha (K1br only) has v_ext's type; rm_ext may be null; du
 // is f32 [B, T, R, E]; dv is written whole, f32 [B, T+2w, R, E]. scratch
 // holds nafae_ctx_mix_bwd_scratch(...) elements of v_ext's type, 16-byte
 // aligned. All tensors are contiguous and v_ext, du and dv 16-byte aligned.
 // Shapes with R <= 32, E a multiple of 4 in [4, 512], w <= 16 and T <=
 // 65535 take the kernels above, every other the general variant. Limits:
 // B <= 65535 (the grids' z or y), and, in the general variant, T + w and
-// (T + 2w) ceil(E/64) (f32) or ceil(E/128) (bf16) below 2^31 up to R = 64
+// (T + 2w) ceil(E/64) (f32) or ceil(E/128) (16-bit) below 2^31 up to R = 64
 // and w = 512, T 2w ceil(R/32) and (T + 2w) ceil(R/32) ceil(E/64) past them
 // (the grids' x); R, E, w, T >= 1.
 
 // K1b: alpha recomputed from the scores.
-int nafae_ctx_mix_bwd(const void* v_ext, int v_is_bf16, const float* fm_ext,
+int nafae_ctx_mix_bwd(const void* v_ext, int dtype, const float* fm_ext,
                       const float* rm_ext, const float* du, float* dv,
                       void* scratch, int B, int T, int R, int E, int w,
                       float temp, void* stream) {
-  return run<false>(v_ext, v_is_bf16, fm_ext, rm_ext, nullptr, du, dv,
+  return run<false>(v_ext, dtype, fm_ext, rm_ext, nullptr, du, dv,
                     scratch, B, T, R, E, w, temp, stream);
 }
 
 // K1br: alpha read from the forward's residual [B, T, 2w, R, R].
-int nafae_ctx_mix_bwd_res(const void* v_ext, int v_is_bf16,
-                          const float* fm_ext, const float* rm_ext,
-                          const void* alpha, const float* du, float* dv,
-                          void* scratch, int B, int T, int R, int E, int w,
-                          float temp, void* stream) {
-  return run<true>(v_ext, v_is_bf16, fm_ext, rm_ext, alpha, du, dv, scratch,
+int nafae_ctx_mix_bwd_res(const void* v_ext, int dtype, const float* fm_ext,
+                          const float* rm_ext, const void* alpha,
+                          const float* du, float* dv, void* scratch, int B,
+                          int T, int R, int E, int w, float temp,
+                          void* stream) {
+  return run<true>(v_ext, dtype, fm_ext, rm_ext, alpha, du, dv, scratch,
                    B, T, R, E, w, temp, stream);
 }
 

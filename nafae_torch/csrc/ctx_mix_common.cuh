@@ -4,14 +4,16 @@
 // roi_align.cu), for NVIDIA Hopper (sm_90a).
 //
 // Frames [R, E] are staged in shared memory as f32 rows of stride ld = E + 4
-// (float4 reads of distinct rows fall in distinct banks), or, for the bf16
-// tensor-core products, as 32 bf16 rows of the padded E + 8. Every helper is
+// (float4 reads of distinct rows fall in distinct banks), or, for the 16-bit
+// tensor-core products (bf16 or f16: the context mix's kernels are templates
+// on the type, every 16-bit helper below takes both), as 32 rows of the
+// padded E + 8 in the input's type. Every helper is
 // called by all threads of the block (blockDim.x a multiple of 32, at least
 // R): the shuffles below name the full warp.
 //
 // Both directions of the context mix split their work the same way: a pairs
 // kernel with one block per (video, frame pair) computes the R x R products
-// of the two frames (pair_products, or pair_products_mma in bf16) and the
+// of the two frames (pair_products, or pair_products_mma in 16 bits) and the
 // masked softmax (row_softmax), and a second kernel with one block per frame
 // (the backward: and slice of kSlice columns) sums the pairs' matrices
 // times the neighbours' frames, streamed ahead of the sums.
@@ -19,8 +21,10 @@
 #pragma once
 
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -30,8 +34,8 @@ constexpr float kNeg = -1e9f;    // the reference's masked-logit fill (NEG)
 constexpr int kMaxThreads = 512;
 constexpr int kPairThreads = 256;   // a pairs block: 8 warps
 constexpr int kSlice = 64;          // columns of a per-frame block
-constexpr int kMmaLd = kSlice + 8;  // bf16 slice rows: 144 bytes
-constexpr int kMatLd = 32 + 8;      // bf16 R x R matrix rows: 80 bytes
+constexpr int kMmaLd = kSlice + 8;  // 16-bit slice rows: 144 bytes
+constexpr int kMatLd = 32 + 8;      // 16-bit R x R matrix rows: 80 bytes
 
 // Offset index i in [0, 2w) -> offset o in {-w..-1, 1..w}.
 __device__ __forceinline__ int offset_of(int i, int w) {
@@ -39,26 +43,38 @@ __device__ __forceinline__ int offset_of(int i, int w) {
 }
 
 // x rounded to the compute dtype's precision, kept as f32 (identity for f32):
-// bf16 x bf16 products are exact in f32, so rounding the operands and
-// summing in f32 is the reference's preferred_element_type=f32 contract.
+// bf16 x bf16 and f16 x f16 products are exact in f32, so rounding the
+// operands and summing in f32 is the reference's preferred_element_type=f32
+// contract.
 __device__ __forceinline__ float as_operand(float x, const float*) {
   return x;
 }
 __device__ __forceinline__ float as_operand(float x, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
+// f16 rounds to nearest, subnormals kept (no flush: the build has no
+// --use_fast_math, and du_n at gradient scale lies below f16's normals)
+__device__ __forceinline__ float as_operand(float x, const __half*) {
+  return __half2float(__float2half_rn(x));
+}
 
 __device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
 __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16_rn(x);
+}
+__device__ __forceinline__ void store_as(__half* p, float x) {
+  *p = __float2half_rn(x);
 }
 
 __device__ __forceinline__ float load1(const float* p) { return *p; }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
+__device__ __forceinline__ float load1(const __half* p) {
+  return __half2float(*p);
+}
 
-// Four consecutive elements as f32 (16-byte f32 or 8-byte bf16 loads).
+// Four consecutive elements as f32 (16-byte f32 or 8-byte 16-bit loads).
 __device__ __forceinline__ float4 load4(const float* p, int i) {
   return reinterpret_cast<const float4*>(p)[i];
 }
@@ -69,6 +85,24 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p, int i) {
   const float2 c = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&raw.y));
   return make_float4(a.x, a.y, c.x, c.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p, int i) {
+  const uint2 raw = reinterpret_cast<const uint2*>(p)[i];
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&raw.x));
+  const float2 c = __half22float2(*reinterpret_cast<const __half2*>(&raw.y));
+  return make_float4(a.x, a.y, c.x, c.y);
+}
+
+// v_ext's type by the C entry points' dtype code (0: f32, 1: bf16, 2: f16):
+// f(T{}) for that type T, `bad` for any other code.
+template <typename R, typename F>
+R by_dtype(int code, R bad, F f) {
+  switch (code) {
+    case 0: return f(float{});
+    case 1: return f(__nv_bfloat16{});
+    case 2: return f(__half{});
+    default: return bad;
+  }
 }
 
 // One frame [R, E] from global memory into shared rows of stride ld, as f32.
@@ -158,7 +192,7 @@ __device__ __forceinline__ void stage_tile_async(T* __restrict__ dst,
 
 // stage_tile_async for rows of any alignment: the widest copy (16, 8 or 4
 // bytes) that a row of E elements allows, the rows' base being 16-byte
-// aligned; where a row is not even 4-byte aligned (bf16 at odd E), plain
+// aligned; where a row is not even 4-byte aligned (16-bit at odd E), plain
 // loads and stores, which are complete at the caller's next barrier. kw, k0
 // and ld are multiples of 16 bytes' worth of elements. Block-uniform.
 template <typename T>
@@ -189,6 +223,9 @@ __device__ __forceinline__ float4 lds4(const float* p, int q) {
   return reinterpret_cast<const float4*>(p)[q];
 }
 __device__ __forceinline__ float4 lds4(const __nv_bfloat16* p, int q) {
+  return load4(p, q);
+}
+__device__ __forceinline__ float4 lds4(const __half* p, int q) {
   return load4(p, q);
 }
 
@@ -286,16 +323,40 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&x)[4],
       : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(y0), "r"(y1));
 }
 
-__device__ __forceinline__ uint32_t lds32(const __nv_bfloat16* p) {
+// The same with f16 operands: the same fragment layout and rate, three more
+// mantissa bits, and f16 subnormals taken as they are.
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&x)[4],
+                                        uint32_t y0, uint32_t y1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(x[0]), "r"(x[1]), "r"(x[2]), "r"(x[3]), "r"(y0), "r"(y1));
+}
+
+// mma_bf16 or mma_f16 by the operands' type T16.
+template <typename T16>
+__device__ __forceinline__ void mma16(float (&c)[4], const uint32_t (&x)[4],
+                                      uint32_t y0, uint32_t y1) {
+  static_assert(sizeof(T16) == 2, "16-bit operands");
+  if constexpr (std::is_same_v<T16, __half>)
+    mma_f16(c, x, y0, y1);
+  else
+    mma_bf16(c, x, y0, y1);
+}
+
+// Two consecutive 16-bit elements (bf16 or f16) as one register.
+template <typename T16>
+__device__ __forceinline__ uint32_t lds32(const T16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// The A fragment (16 x 16 at row m0, column k) of a row-major bf16 tile.
-__device__ __forceinline__ void frag_a(uint32_t (&x)[4],
-                                       const __nv_bfloat16* p, int ld,
+// The A fragment (16 x 16 at row m0, column k) of a row-major 16-bit tile.
+template <typename T16>
+__device__ __forceinline__ void frag_a(uint32_t (&x)[4], const T16* p, int ld,
                                        int m0, int k) {
   const int g = (threadIdx.x & 31) >> 2, tig = threadIdx.x & 3;
-  const __nv_bfloat16* q = p + (m0 + g) * ld + k + 2 * tig;
+  const T16* q = p + (m0 + g) * ld + k + 2 * tig;
   x[0] = lds32(q);
   x[1] = lds32(q + 8 * ld);
   x[2] = lds32(q + 8);
@@ -303,13 +364,13 @@ __device__ __forceinline__ void frag_a(uint32_t (&x)[4],
 }
 
 // The B fragments of two n8 tiles (16 rows k0.., 16 columns n0..) of a
-// row-major bf16 tile of stride ld, by ldmatrix.trans: y[0], y[1] for
+// row-major 16-bit tile of stride ld, by ldmatrix.trans: y[0], y[1] for
 // columns n0..n0+7, y[2], y[3] for n0+8..n0+15.
-__device__ __forceinline__ void frag_b2_trans(uint32_t (&y)[4],
-                                             const __nv_bfloat16* p, int ld,
-                                             int k0, int n0) {
+template <typename T16>
+__device__ __forceinline__ void frag_b2_trans(uint32_t (&y)[4], const T16* p,
+                                             int ld, int k0, int n0) {
   const int lane = threadIdx.x & 31;
-  const __nv_bfloat16* q = p + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8;
+  const T16* q = p + (k0 + (lane & 15)) * ld + n0 + (lane >> 4) * 8;
   const unsigned addr = (unsigned)__cvta_generic_to_shared(q);
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
@@ -318,28 +379,29 @@ __device__ __forceinline__ void frag_b2_trans(uint32_t (&y)[4],
       : "r"(addr));
 }
 
-// bf16 (tensor cores): the row dots U[r] . N[s] (and, with kScores,
+// 16-bit (tensor cores): the row dots U[r] . N[s] (and, with kScores,
 // C[r] . N[s]) for r, s < 32 of frames staged as 32 rows of stride ld, zero
 // beyond R and E; epi(r, s, dot_u, dot_c) once for each r, s < 32 (rows and
 // columns beyond R hold zeros). Eight warps, one m16 x n8 tile each of the
 // 32 x 32 outputs, f32 accumulators over the padded E (ep, a multiple of 16).
-template <bool kScores, typename Epi>
-__device__ __forceinline__ void pair_products_mma(
-    const __nv_bfloat16* __restrict__ U, const __nv_bfloat16* __restrict__ C,
-    const __nv_bfloat16* __restrict__ N, int ep, int ld, Epi epi) {
+template <bool kScores, typename T16, typename Epi>
+__device__ __forceinline__ void pair_products_mma(const T16* __restrict__ U,
+                                                  const T16* __restrict__ C,
+                                                  const T16* __restrict__ N,
+                                                  int ep, int ld, Epi epi) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   const int m0 = (warp & 1) * 16, n0 = (warp >> 1) * 8;
   float d[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
   for (int k = 0; k < ep; k += 16) {
-    const __nv_bfloat16* q = N + (n0 + g) * ld + k + 2 * tig;
+    const T16* q = N + (n0 + g) * ld + k + 2 * tig;
     const uint32_t y0 = lds32(q), y1 = lds32(q + 8);
     uint32_t x[4];
     frag_a(x, U, ld, m0, k);
-    mma_bf16(d, x, y0, y1);
+    mma16<T16>(d, x, y0, y1);
     if (kScores) {
       frag_a(x, C, ld, m0, k);
-      mma_bf16(c, x, y0, y1);
+      mma16<T16>(c, x, y0, y1);
     }
   }
 #pragma unroll

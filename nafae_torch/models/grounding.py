@@ -21,7 +21,8 @@ from nafae_torch.ops.grounding import (ground_forward, int8_weight,
 
 FRAME_POOLS = ("attention", "mean", "context", "learned")
 SIMILARITIES = ("cosine", "bilinear")
-COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                  "float16": torch.float16}
 
 
 def _validate_choices(cfg: ModelConfig) -> None:
@@ -267,10 +268,13 @@ class GroundingModel(nn.Module):
         params: run on these instead of the held ones (the exported
         program takes its params as an argument)."""
         c = self.cfg
+        # bf16 at bfloat16, else f32, as the reference's serve.py chooses:
+        # a float16 model trains in f16 and answers in f32
         return ground_forward(
             self.param_dict() if params is None else params, feats,
             word_ids, frame_mask, word_mask,
             temp=c.frame_attn_temp, pool=c.frame_pool,
             ctx_window=self.ctx_window, ctx_temp=self.ctx_temp,
-            compute_dtype=COMPUTE_DTYPES[c.dtype], region_mask=region_mask,
+            compute_dtype=(torch.bfloat16 if c.dtype == "bfloat16"
+                           else torch.float32), region_mask=region_mask,
             feats_scale=feats_scale)

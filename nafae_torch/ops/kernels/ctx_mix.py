@@ -30,9 +30,13 @@ backward's scratch then two f32 [B,T,2w,R,R] arrays). Left are B <=
 65535, the general variant's grids (the forward's T + w and
 T·ceil(E/128) blocks up to R = 64 and w = 512, else T·2w·ceil(R/32)
 and T·ceil(R/32)·ceil(E/64); the backward's T + w and
-(T+2w)·ceil(E/64) (bf16: ceil(E/128)) up to R = 64 and w = 512, else
+(T+2w)·ceil(E/64) (16-bit: ceil(E/128)) up to R = 64 and w = 512, else
 T·2w·ceil(R/32) and (T+2w)·ceil(R/32)·ceil(E/64); each under 2^31) and
-device memory. Both count under the same `launches` keys. The plain
+device memory. Both count under the same `launches` keys. Every kernel
+is a template on v_ext's type, instantiated for f32, bf16 and f16 (the
+f16 kernels run the bf16 kernels' code: 16-bit operands on the tensor
+cores, f32 sums, alpha, du_n and ds rounded to f16); `DTYPE_CODES` is the
+entry points' dtype argument. The plain
 version, `context_mix_plain`, is a port of
 `nafae_tpu.ops.grounding.context_mix` (impl="offset"); under autograd it is
 the plain version of all four.
@@ -75,6 +79,10 @@ ALPHA_MAX_BYTES = 256 << 20
 
 launches = {"ctx_mix_fwd": 0, "ctx_mix_fwd_res": 0,
             "ctx_mix_bwd": 0, "ctx_mix_bwd_res": 0}
+
+# v_ext's type as the C entry points take it (their int argument): each
+# source's kernels are templates on it, one instantiation each
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _offsets(window: int) -> list[int]:
@@ -147,6 +155,48 @@ def context_alpha_plain(v_ext: torch.Tensor, fm_ext: torch.Tensor,
         .to(v_ext.dtype).to(dt) for o in _offsets(window)], dim=2)
 
 
+def context_mix_bwd_plain(v_ext: torch.Tensor, fm_ext: torch.Tensor,
+                          window: int, temp: float, du: torch.Tensor,
+                          dtype=None, rm_ext: torch.Tensor | None = None,
+                          alpha: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of K1b (alpha None: recomputed in f32) and K1br (alpha:
+    K1fr's residual [B,T,2w,R,R]) as the kernels, and the TPU kernels,
+    round: dv_ext [B,T+2w,R,E] f32 from du [B,T,R,E] f32, with du_n =
+    scale·du, the alpha of the products and ds rounded to the compute
+    dtype (`dtype`, None: v_ext's) and every product summed in f32.
+    Autograd through context_mix_plain computes the same function but
+    rounds at its casts instead (the products' outputs), which at a
+    16-bit dtype differs from the kernels by a few of its ulps, and by
+    more where du_n is an f16 subnormal (du at gradient scale): this form
+    differs from them by the order of the f32 sums alone."""
+    dt = dtype if dtype is not None else v_ext.dtype
+    rnd = ((lambda x: x) if dt == torch.float32
+           else (lambda x: x.to(dt).float()))
+    cdt = None if dt == torch.float32 else dt
+    w = window
+    t = v_ext.shape[1] - 2 * w
+    v = rnd(v_ext.float())
+    nbr = nbr_valid_of(fm_ext, w)
+    scale = fm_ext[:, w:w + t] / torch.clamp(nbr.sum(-1), min=1.0)
+    du_n = rnd(du * scale[:, :, None, None])
+    dv = torch.zeros(v_ext.shape, dtype=torch.float32, device=v_ext.device)
+    for i, o in enumerate(_offsets(w)):
+        v_c, v_o = v[:, w:w + t], v[:, w + o:w + o + t]
+        a = (_offset_alpha(v_ext, fm_ext, w, temp, cdt, rm_ext, o)[0]
+             if alpha is None else alpha[:, :, i].float())
+        ad = a * torch.einsum("btre,btse->btrs", du_n, v_o)
+        ds = (ad - a * ad.sum(-1, keepdim=True)) / temp
+        if rm_ext is not None:   # no valid region in t+o: the uniform alpha
+            live = (rm_ext[:, w + o:w + o + t] > 0).any(-1)
+            ds = torch.where(live[:, :, None, None], ds, 0.0)
+        ds = rnd(ds)
+        dv[:, w + o:w + o + t] += (
+            torch.einsum("btrs,btre->btse", rnd(a), du_n)
+            + torch.einsum("btrs,btre->btse", ds, v_c))
+        dv[:, w:w + t] += torch.einsum("btrs,btse->btre", ds, v_o)
+    return dv
+
+
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ctx_mix")
@@ -180,8 +230,9 @@ def _check_inputs(v_ext, fm_ext, window, rm_ext) -> tuple[int, int, int, int]:
         raise ValueError(f"v_ext must be [B,T+2w,R,E], got {tuple(v_ext.shape)}")
     b, t_ext, r, e = v_ext.shape
     t = t_ext - 2 * window
-    if v_ext.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"v_ext must be float32 or bfloat16, got {v_ext.dtype}")
+    if v_ext.dtype not in DTYPE_CODES:
+        raise TypeError(f"v_ext must be float32, bfloat16 or float16, got "
+                        f"{v_ext.dtype}")
     if window < 1 or t < 1 or r < 1 or e < 1:
         raise ValueError(f"ctx_mix takes window, T, R and E >= 1; got "
                          f"window={window}, T+2w={t_ext}, R={r}, E={e}")
@@ -217,8 +268,7 @@ def launch_fwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
                         device=dev)
     with torch.cuda.device(dev):
         err = lib.nafae_ctx_mix_fwd(
-            v_ext.data_ptr(), int(v_ext.dtype == torch.bfloat16),
-            fm_ext.data_ptr(), _ptr(rm_ext), u.data_ptr(), alpha.data_ptr(),
+            v_ext.data_ptr(), DTYPE_CODES[v_ext.dtype], fm_ext.data_ptr(), _ptr(rm_ext), u.data_ptr(), alpha.data_ptr(),
             b, t, r, e, window, float(temp),
             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -237,7 +287,7 @@ def launch_bwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
     call runs the source's two kernels (pairs, then gather) through a
     scratch in v_ext's dtype, as large as the C function
     nafae_ctx_mix_bwd_scratch says for the shape (the pairs' matrices and,
-    in bf16, du_n)."""
+    in 16 bits, du_n)."""
     b, t, r, e = _check_inputs(v_ext, fm_ext, window, rm_ext)
     dev = v_ext.device
     _check("du", du, (b, t, r, e), torch.float32, dev, vector=True)
@@ -245,19 +295,19 @@ def launch_bwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
         _check("alpha", alpha, (b, t, 2 * window, r, r), v_ext.dtype, dev)
     lib = _lib_bwd()
     dv = torch.empty(v_ext.shape, dtype=torch.float32, device=dev)
-    is_bf16 = int(v_ext.dtype == torch.bfloat16)
+    code = DTYPE_CODES[v_ext.dtype]
     scratch = torch.empty(lib.nafae_ctx_mix_bwd_scratch(
-        b, t, r, e, window, is_bf16), dtype=v_ext.dtype, device=dev)
+        b, t, r, e, window, code), dtype=v_ext.dtype, device=dev)
     common = (fm_ext.data_ptr(), _ptr(rm_ext))
     tail = (du.data_ptr(), dv.data_ptr(), scratch.data_ptr(), b, t, r, e,
             window, float(temp), torch.cuda.current_stream(dev).cuda_stream)
     with torch.cuda.device(dev):
         if alpha is None:
-            err = lib.nafae_ctx_mix_bwd(v_ext.data_ptr(), is_bf16, *common,
+            err = lib.nafae_ctx_mix_bwd(v_ext.data_ptr(), code, *common,
                                         *tail)
         else:
-            err = lib.nafae_ctx_mix_bwd_res(v_ext.data_ptr(), is_bf16,
-                                            *common, alpha.data_ptr(), *tail)
+            err = lib.nafae_ctx_mix_bwd_res(v_ext.data_ptr(), code, *common,
+                                            alpha.data_ptr(), *tail)
     if err != 0:
         raise RuntimeError(f"ctx_mix backward kernel launch failed: "
                            f"cudaError_t {err}")
@@ -267,7 +317,7 @@ def launch_bwd(v_ext: torch.Tensor, fm_ext: torch.Tensor, window: int,
 
 
 def launch_floor_bwd(b: int, t: int, r: int, e: int, window: int,
-                     bf16: bool, device) -> None:
+                     dtype: torch.dtype, device) -> None:
     """Launches empty kernels with the grids, block size and shared memory
     that `launch_bwd`'s general variant (K1b or K1br) uses for these sizes,
     on the current stream: the launch floor a measured time of it is
@@ -275,7 +325,7 @@ def launch_floor_bwd(b: int, t: int, r: int, e: int, window: int,
     launch of the kernel: `launches` does not count it."""
     with torch.cuda.device(device):
         err = _lib_bwd().nafae_ctx_mix_bwd_floor(
-            int(bf16), b, t, r, e, window,
+            DTYPE_CODES[dtype], b, t, r, e, window,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ctx_mix backward floor launch failed: "

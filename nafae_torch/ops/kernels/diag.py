@@ -83,8 +83,8 @@ launches = {"diag_epilogue": 0, "diag_epilogue_bwd": 0}
 def _rounder(dtype):
     """x rounded to the compute dtype's precision, kept f32 (identity for
     f32)."""
-    if dtype == torch.bfloat16:
-        return lambda x: x.to(torch.bfloat16).float()
+    if dtype != torch.float32:
+        return lambda x: x.to(dtype).float()
     return lambda x: x
 
 

@@ -634,6 +634,29 @@ def train_step(state: TrainState, batch: dict, cfg: Config,
                    centers=centers), metrics
 
 
+# train.kernels=pallas at model.dtype=float16 on the card: K3, K4f and K4b
+# have no f16 kernels yet (the context mix's have)
+F16_FUSED_REFUSAL = ("train.kernels=pallas at model.dtype=float16 is not "
+                     "ported to the card yet: ROADMAP Queue 1 item 16 (K3, "
+                     "K4f and K4b at f16); use train.kernels=auto, or "
+                     "bfloat16")
+
+
+def unported_reason(cfg: Config, device) -> str | None:
+    """Why the port cannot run these settings on this device yet (the
+    ROADMAP item that will), or None. `fit` and `build_train_fn` raise
+    NotImplementedError with it before any step; nothing falls back to
+    another dtype, route or device. On the CPU the fused route runs its
+    plain versions at f16."""
+    from nafae_torch.models.detector.faster_rcnn import F16_REFUSAL
+    if cfg.data.from_videos and cfg.detector.dtype == "float16":
+        return F16_REFUSAL
+    if (torch.device(device).type == "cuda" and cfg.model.dtype == "float16"
+            and cfg.train.resolved_kernels() == "pallas"):
+        return F16_FUSED_REFUSAL
+    return None
+
+
 def eager_reason(cfg: Config, device, mesh=None,
                  debug_nans: bool = False) -> str | None:
     """Why `build_train_fn` runs the step eagerly on these settings, or
@@ -697,6 +720,9 @@ class TrainFn:
     def __init__(self, cfg: Config, tx: Optimizer, device, mesh=None,
                  extractor=None, debug_nans: bool = False, cache=None):
         self.cfg, self.tx, self.device = cfg, tx, torch.device(device)
+        reason = unported_reason(cfg, self.device)
+        if reason is not None:
+            raise NotImplementedError(reason)
         self.extractor, self.debug_nans, self.cache = (extractor, debug_nans,
                                                        cache)
         self.eager_reason = eager_reason(cfg, self.device, mesh, debug_nans)
@@ -969,6 +995,9 @@ def fit(cfg: Config, device: str | torch.device | None = None,
         lead = torch.distributed.get_rank() == 0
     else:
         device = resolve_device(device)
+    reason = unported_reason(cfg, device)
+    if reason is not None:
+        raise NotImplementedError(reason)
     if cfg.data.from_videos:
         from nafae_torch.data.video_dataset import VideoSegmentDataset
         from nafae_torch.data.vocab import vocab_from_config

@@ -125,7 +125,7 @@ def capture_stream(device: str | torch.device) -> torch.cuda.Stream:
         torch.cuda.empty_cache()
         stream = torch.cuda.Stream(device)
         with torch.cuda.stream(stream), torch.enable_grad():
-            for dt in (torch.float32, torch.bfloat16):
+            for dt in (torch.float32, torch.bfloat16, torch.float16):
                 x = torch.ones(16, 16, device=device, dtype=dt,
                                requires_grad=True)
                 torch.nn.functional.linear(x, x, x[0]).sum().backward()

@@ -135,8 +135,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="temp"):
         K.ctx_mix(v_ext, fm_ext, 1, 0.01)
     fm = torch.ones(1, 5)
-    for bad, match in ((torch.zeros(1, 5, 4, 8, dtype=torch.float16),
-                        "float32 or bfloat16"),
+    for bad, match in ((torch.zeros(1, 5, 4, 8, dtype=torch.float64),
+                        "float32, bfloat16 or float16"),
                        (torch.zeros(1, 5, 8, 4).transpose(2, 3), "contiguous"),
                        (torch.zeros(1, 5, 0, 8), "R")):
         with pytest.raises((ValueError, TypeError), match=match):

@@ -2,8 +2,8 @@
 
 On the card, `chip_smoke.traced_replay` counts the kernels a replayed step
 or serving batch runs by substrings of their names (TRACE_NAMES,
-ANY_TRACE_NAMES, and the specialised kernels `any_fit_names` says must not
-run). A name that no kernel has any more fails only there, deep into the
+ANY_TRACE_NAMES, F16_TRACE, and the specialised kernels `any_fit_names`
+says must not run). A name that no kernel has any more fails only there, deep into the
 run. Here every such substring must name at least one `__global__`
 function of `nafae_torch/csrc/*.cu`, by the same substring rule."""
 
@@ -47,9 +47,12 @@ def test_kernels_are_found():
         assert name in KERNELS, KERNELS
 
 
-@pytest.mark.parametrize("table", ["TRACE_NAMES", "ANY_TRACE_NAMES"])
+@pytest.mark.parametrize("table", ["TRACE_NAMES", "ANY_TRACE_NAMES",
+                                   "F16_TRACE"])
 def test_trace_names_exist(table):
-    subs = {s for names in getattr(CS, table).values() for s in names}
+    # a tuple names an instantiation: its kernel is its first substring
+    subs = {s if isinstance(s, str) else s[0]
+            for names in getattr(CS, table).values() for s in names}
     assert not _missing(subs), f"{table}: no kernel named {_missing(subs)}"
 
 
