@@ -279,13 +279,44 @@ are made from seeds. Phases, each of which fails loudly (exit code != 0):
    gradients within F16_GRAD_TOL of the CPU's (the card's bf16 step
    outside); (c) a config4 server at float16 and its exported artifact
    bit for bit the f32 server (serving computes in f32 at float16, as the
-   reference's does), K1f launched as often; (d) train.kernels=pallas at
-   float16 and detector.dtype=float16 raise NotImplementedError naming
-   their ROADMAP items before any step; (e) the four kernels' device ms at
-   f16 beside bf16's (in turns), bound, plain and K1f's SDPA yardstick at
-   f16, at config 4 and R = 36 / E = 1024 / w = 3, and the cached config4
-   step's host, busy and idle at f32, bf16 and f16. Each K1 kernel's entry
-   of the kernels line carries its f16 numbers (*_f16, f16_<shape>).
+   reference's does), K1f launched as often; (e) the four kernels' device
+   ms at f16 beside bf16's (in turns), bound, plain and K1f's SDPA
+   yardstick at f16, at config 4 and R = 36 / E = 1024 / w = 3, and the
+   cached config4 step's host, busy and idle at f32, bf16 and f16. Each K1
+   kernel's entry of the kernels line carries its f16 numbers (*_f16,
+   f16_<shape>).
+21. The fused route and the detector at float16 (run after phase 20, in a
+   child process of its own, on phase 5's data, phase 9's videos and
+   phase 10's VGG16 checkpoint): (a) K3, K4f and K4b launched on f16
+   operands against their plain versions at f16 over phase 3's, phase
+   17's, config 4's K = 40 and the DP ranks' shapes, K4b with dctx as
+   drawn and at the config-4 step's scale (F16B_STEP_DCTX: ds an f16
+   subnormal), each output within F16B_REL (ctx F16B_REL_CTX) of its norm
+   and F16B_MAX of its largest entry, the bf16 plain versions outside;
+   idx, r* and c* equal where clear of ties; (b) config4 `fit` with
+   train.kernels=pallas at float16, streaming (steps_per_call 3) and
+   cached: graphed bit for bit the eager chain, K3 twice and K4f, K4b,
+   K1fr, K1br once a step, a traced replay naming the `__half`
+   instantiations, rows against a CPU re-run, one step's gradients card
+   against CPU within F16_GRAD_TOL (bf16 outside), and one step with
+   train.use_pallas=true; (c) K5 on the f16 detector's first config-5 map
+   and NMS boxes and on phase 9's edge cases against its plain version at
+   f16 (bf16 control outside), and K2 on that detector's planes; (d)
+   config-5 fits at detector.dtype=float16 at full width, 4 steps graphed
+   each: ResNet-50 with a f32 model and roi_impl separable, ResNet-50 and
+   VGG16 (B=16) with an f16 model and roi_impl=pallas: the loss falls,
+   bit for bit the eager chain, K2 (and K5) launched a step, the
+   backbone's largest |activation| against f16's 65504; the f16 step card
+   against CPU at a reduced size, stage by stage (the bf16 detector
+   outside); VGG16's fc6/fc7 at f16 with and without cuBLAS's
+   reduced-precision f16 sums; one `python -m nafae_torch.extract` at
+   detector.dtype=float16 against the inline detector; (e) K3, K4f, K4b
+   and K5 device ms at f16 beside bf16's (in turns), bound, plain at f16
+   and K3's matmul + max at f16; the config4 pallas step from the cache
+   and the config-5 step with a bf16 and an f16 detector (host to host,
+   resident, busy, idle), in turns. K3's, K4f's, K4b's and K5's entries
+   of the kernels line carry their f16 numbers (max_abs_err_f16,
+   launches_f16, f16_times).
 
 The line before the last is the card as `nvidia-smi` names it; the one
 before that is a JSON object with each kernel's numbers; the last is
@@ -2787,7 +2818,6 @@ def fused_kernel_times(torch, ins, dense: bool = True) -> dict:
     for tag, dt in (("", torch.float32), ("_bf16", torch.bfloat16)):
         wf = w_emb.reshape(m, e).to(dt).contiguous()
         wk, v, uu = w_emb.to(dt), v_emb.to(dt), u.to(dt)
-        bf16 = dt == torch.bfloat16
         row = e * v.element_size()                    # one region of v̂ or u
         # K3: a and idx of every (video, word, frame) from the live regions;
         # an all-masked frame's a and idx need no region
@@ -2806,14 +2836,14 @@ def fused_kernel_times(torch, ins, dense: bool = True) -> dict:
         # an empty kernel with K3's grid, block and shared memory: the floor
         # that any kernel launched in that shape pays
         res["cross_mil_floor_ms" + tag] = device_ms(
-            torch, lambda: K3.launch_floor(b, m, t, r, e, bf16, dev))
+            torch, lambda: K3.launch_floor(b, m, t, r, e, dt, dev))
         res["cross_mil_bound_ms" + tag], res["cross_mil_bound_by" + tag] = \
             bound(torch, nbytes(wf, fm, rm) + live * row + 2 * b * m * t * 4,
                   2 * m * e * live, dt)
         res["diag_floor_ms" + tag] = device_ms(
-            torch, lambda: K4.launch_floor_fwd(b, k, t, r, e, kc, bf16, dev))
+            torch, lambda: K4.launch_floor_fwd(b, k, t, r, e, kc, dt, dev))
         res["diag_bwd_floor_ms" + tag] = device_ms(
-            torch, lambda: K4.launch_floor_bwd(b, k, t, r, e, bf16, dev))
+            torch, lambda: K4.launch_floor_bwd(b, k, t, r, e, dt, dev))
         gen = torch.Generator().manual_seed(SEED + 5)
         dctx = torch.rand((b, k, t), generator=gen).to(dev)
         dclu = torch.rand((b, k, t), generator=gen).to(dev)
@@ -6217,13 +6247,14 @@ def any_fit_names(e: int, ctx_any: bool, dt: str) -> tuple[dict, tuple]:
     """(the kernels a traced replay of a phase-17 fit at embedding width e
     names, each once a launch: ANY_TRACE_NAMES, with the context mix's
     specialised kernels where not ctx_any and K3's specialised kernel of
-    dt where csrc/cross_mil.cu takes it (f32 any E; bf16 E a multiple of 4
-    up to 512); the specialised kernels the replay must not name: K4f's
-    and K4b's, and K3's of dt where its general variant runs)."""
+    dt where csrc/cross_mil.cu takes it (f32 any E; bf16 and f16 E a
+    multiple of 4 up to 512: cross_mil_mma); the specialised kernels the
+    replay must not name: K4f's and K4b's, and K3's of dt where its
+    general variant runs)."""
     names = dict(ANY_TRACE_NAMES)
     if not ctx_any:
         names.update({k: TRACE_NAMES[k] for k in CTX_KEYS})
-    spec = "cross_mil_bf16" if dt == "bfloat16" else "cross_mil_f32"
+    spec = "cross_mil_f32" if dt == "float32" else "cross_mil_mma"
     absent = ("diag_fwd_kernel", "diag_bwd_kernel")
     if dt == "float32" or (e % 4 == 0 and e <= 512):
         names["cross_mil"] = (spec,)
@@ -7376,27 +7407,29 @@ def json_keys(d: dict) -> dict:
             for k, v in d.items()}
 
 
-def f16_grads(torch, cfg, batch) -> dict:
-    """Phase 20 (b): one f16 step's gradients from the initial state,
-    card (K1fr, K1br) against CPU (the plain versions at f16) within
-    F16_GRAD_TOL; the card's bf16 step must fall outside it."""
+def f16_grads(torch, cfg, batch, kernels: str = "auto",
+              phase: str = "phase 20") -> dict:
+    """Phase 20 (b) (and 21 (b), kernels="pallas"): one f16 step's
+    gradients from the initial state, card (the kernels) against CPU (the
+    plain versions at f16) within F16_GRAD_TOL; the card's bf16 step must
+    fall outside it."""
     from nafae_torch.train import TrainState
 
     want = step_grads(torch, cfg, TrainState.create(cfg, device="cpu"),
-                      batch, "auto")[1]
+                      batch, kernels)[1]
     out = {}
     for dt in ("float16", "bfloat16"):
         c = replace(cfg, model=replace(cfg.model, dtype=dt))
         got = step_grads(torch, c, TrainState.create(c, device="cuda"),
-                         batch, "auto")[1]
+                         batch, kernels)[1]
         worst, bad = grad_gap(torch, got, want, F16_GRAD_TOL)
         out[dt] = {"rel_diff": worst, "outside": bad}
     if out["float16"]["outside"]:
-        fail(f"phase 20: f16 gradients of {out['float16']['outside']}: card "
+        fail(f"{phase}: f16 gradients of {out['float16']['outside']}: card "
              f"and CPU differ by up to {out['float16']['rel_diff']:.3e} of "
              f"the largest entry (limit {F16_GRAD_TOL[1]})")
     if not out["bfloat16"]["outside"]:
-        fail(f"phase 20: the card's bf16 step is within {F16_GRAD_TOL[1]} of "
+        fail(f"{phase}: the card's bf16 step is within {F16_GRAD_TOL[1]} of "
              "the CPU's f16 step: the limit does not tell them apart")
     return out
 
@@ -7520,44 +7553,6 @@ def check_f16_serving(torch, params, segs, tmp: str) -> dict:
             "artifact_launches": launches}
 
 
-def check_f16_raises(torch, root: str, tmp: str) -> dict:
-    """Phase 20 (d): on the card, `fit` with train.kernels=pallas (and the
-    legacy train.use_pallas) at model.dtype=float16, and a config-5 fit
-    with detector.dtype=float16, raise NotImplementedError naming their
-    ROADMAP items before any step: no kernel launched, no checkpoint
-    written."""
-    from nafae_torch.config import load_config
-    from nafae_torch.train import fit
-
-    runs = {"pallas": (train_cfg(root, os.path.join(tmp, "ck_f16_p"),
-                                 "float16", 1, "pallas"), "item 16"),
-            "use_pallas": (train_cfg(root, os.path.join(tmp, "ck_f16_u"),
-                                     "float16", 1, "auto",
-                                     ["train.use_pallas=true"]), "item 16"),
-            "detector": (load_config(preset_name="config5", overrides=[
-                "detector.dtype=float16", "data.from_videos=true",
-                f"data.annotations={os.path.join(tmp, 'none.jsonl')}",
-                f"train.ckpt_dir={os.path.join(tmp, 'ck_f16_d')}"]),
-                "item 17")}
-    out = {}
-    for name, (cfg, item) in runs.items():
-        zero_counts()
-        try:
-            fit(cfg, device="cuda")
-        except NotImplementedError as e:
-            msg = str(e)
-        else:
-            fail(f"phase 20: {name} at float16 trained on the card")
-        if f"Queue 1 {item}" not in msg or any(read_counts().values()) or \
-                os.path.exists(cfg.train.ckpt_dir):
-            fail(f"phase 20: {name} at float16 raised {msg!r} after "
-                 f"launching {read_counts()}")
-        out[name] = msg
-    log("phase 20 (d): on the card, before any step: " + "; ".join(
-        f"{k}: NotImplementedError({v!r})" for k, v in out.items()))
-    return out
-
-
 def f16_kernel_times(torch) -> dict:
     """Phase 20 (e): device ms (device_ms) of K1f, K1fr, K1b and K1br at
     F16_TIMED on ctx_inputs' random masks, bf16 and f16 in turns (bf16,
@@ -7664,14 +7659,14 @@ def f16_step_times(torch, root: str) -> dict:
 def check_f16(torch, tmp: str) -> dict:
     """Phase 20: model.dtype=float16 on the card. (a) check_f16_kernels;
     (b) check_f16_fits on phase 5's data; (c) check_f16_serving on the
-    serving phase's requests made again under tmp; (d) check_f16_raises;
-    (e) f16_kernel_times and f16_step_times."""
+    serving phase's requests made again under tmp; (e) f16_kernel_times
+    and f16_step_times ((d), the refusals at float16, went when phase 21
+    took those settings on)."""
     t0 = time.perf_counter()
     kernels = check_f16_kernels(torch, torch.device("cuda"))
     fits = check_f16_fits(torch, tmp, tmp)
     segs, _ = make_requests(os.path.join(tmp, "f16_reqs"))
     serving = check_f16_serving(torch, oracle_params(), segs, tmp)
-    raises = check_f16_raises(torch, tmp, tmp)
     gc.collect()
     torch.cuda.empty_cache()
     times = f16_kernel_times(torch)
@@ -7679,8 +7674,7 @@ def check_f16(torch, tmp: str) -> dict:
     wall = time.perf_counter() - t0
     log(f"phase 20 took {wall:.1f} s")
     return {"kernels": kernels, "fits": fits, "serving": serving,
-            "raises": raises, "times": times, "step_times": steps,
-            "phase_s": wall}
+            "times": times, "step_times": steps, "phase_s": wall}
 
 
 def f16_child(tmp: str) -> None:
@@ -7721,6 +7715,893 @@ def f16_keys(f16p: dict, name: str, key: str, pkey: str,
             **({"library_ms_f16": res["library_fwd_ms_f16"]}
                if key == "fwd" else {})}
     return out
+
+
+# ---------------- phase 21: the fused route and the detector at float16
+
+# K3, K4f, K4b and K5 on f16 tensors against their plain versions at f16.
+# Both round where the TPU kernels round (K4f's ctx terms and centers, K4b's
+# dctx, ds and df, K5's weights; f16 products are exact in f32), so they
+# differ by the order of the f32 sums and, in ctx, a term that rounds the
+# other way: ||got - want|| / ||want|| within F16B_REL (F16B_REL_CTX for
+# ctx) and max |got - want| within F16B_MAX of max |want| (K3's a over
+# frames with a valid region; clu and f where r* and c* are clear of ties).
+# The bf16-rounded control, the plain versions at bf16 on the same inputs,
+# must exceed that limit wherever it differs from the f16 ones (on an
+# H100 its smallest was 1.37e-4, clu's, and ctx's 1.06e-3, where the
+# kernel's ctx came within 2.8e-5: a term of a frame with few regions may
+# round the other way); a value read as another type's bits, or an f16
+# subnormal flushed to zero, lands far past them.
+F16B_REL = 2e-5
+F16B_REL_CTX = 1e-4
+F16B_MAX = 1e-3
+# K4b's dctx at the config-4 step's own scale: ctx_weight · wm / Σ(m3 ·
+# rsum) over up to B·K·T·R = 51,200 terms, about 2e-5, so that 2·dctx·d
+# lies below f16's smallest normal (6.1e-5), where bf16 keeps it normal
+F16B_STEP_DCTX = 2e-5
+# phase 21's K3 cases: phase 3's edge cases, phase 17's (R = 36 / E =
+# 1024, E = 50 and the general variant's edges), config 4 at K = 40 (M =
+# 640 words) and the DP ranks' shapes (I = 8 and 4 videos against M = 128)
+F16B_CROSS_CASES = (CROSS_CASES + CROSS_ANY_CASES
+                    + [(16, 640, 20, 20, 256, True, (), False),
+                       (8, 128, 20, 20, 256, True, (), False),
+                       (4, 128, 20, 20, 256, True, (), False)])
+# ... and K4f / K4b's: phase 3's, phase 17's and config 4 at K = 40
+F16B_DIAG_CASES = (DIAG_CASES + DIAG_ANY_CASES
+                   + [(16, 40, 20, 20, 256, 67, True, (), (), False)])
+F16B_KEYS = ("a", "ctx", "clu", "f", "d", "dw", "dv", "dw_step", "dv_step",
+             "roi_align")
+
+
+def f16b_hold(torch, key, got, want, ctrl, case, res) -> None:
+    """One output of a phase-21 kernel against its plain version at f16
+    (F16B_REL, F16B_MAX) and the bf16-rounded control `ctrl` outside
+    F16B_REL wherever it differs; the worst gaps go to res."""
+    if not torch.isfinite(got).all():
+        fail(f"phase 21: f16 {key} gave non-finite values: {case}")
+    if got.numel() == 0:
+        return
+    lim = F16B_REL_CTX if key == "ctx" else F16B_REL
+    rel, top = f16_gap(torch, got, want)
+    if rel > lim or top > F16B_MAX:
+        fail(f"phase 21: f16 {key} differs from its plain version by "
+             f"{rel:.3e} of its norm, {top:.3e} of its largest entry "
+             f"(limits {lim}, {F16B_MAX}): {case}")
+    w_ = res["worst"].setdefault(key, [0.0, 0.0, 0.0])
+    res["worst"][key] = [max(w_[0], rel), max(w_[1], top), max(
+        w_[2], (got.float() - want.float()).abs().max().item())]
+    if ctrl is not None and not torch.equal(ctrl.float(), want.float()):
+        crel = f16_gap(torch, ctrl, want)[0]
+        if crel <= lim:
+            fail(f"phase 21: the bf16-rounded {key} is within {crel:.3e} of "
+                 f"the f16 plain version: the limit {lim} does not tell "
+                 f"them apart: {case}")
+        res["control_min_rel"][key] = min(
+            res["control_min_rel"].get(key, float("inf")), crel)
+
+
+def twice(torch, fn, case: str):
+    """fn() launched twice: the two results must be equal bit for bit."""
+    one, two = fn(), fn()
+    torch.cuda.synchronize()
+    one_t = one if isinstance(one, tuple) else (one,)
+    two_t = two if isinstance(two, tuple) else (two,)
+    if not all(torch.equal(x, y) for x, y in zip(one_t, two_t)):
+        fail(f"phase 21: two launches on one input differ: {case}")
+    return one
+
+
+def check_f16_cross(torch, device, res: dict) -> None:
+    """Phase 21 (a): K3 on f16 operands at F16B_CROSS_CASES against
+    cross_mil_plain at f16 (a over frames with a valid region; the -1e9 of
+    all-masked frames and the 0 of invalid ones equal), idx equal where the
+    top two scores are clear of ties, exact ties to the first region."""
+    from nafae_torch.ops.kernels import cross_mil as K3
+
+    gen = torch.Generator().manual_seed(SEED + 26)
+    for i, m, t, r, e, with_rm, ties, dead_video in F16B_CROSS_CASES:
+        w = unit_rows(torch, gen, m, e)
+        v = unit_rows(torch, gen, i, t, r, e)
+        fm, rm = frame_region_masks(torch, gen, i, t, r)
+        for first, later in ties:
+            v[:, :, later] = v[:, :, first]
+            rm[:, :, later] = rm[:, :, first]
+        if dead_video:
+            fm[1] = 0.0
+        fm, rm = fm.to(device), rm.to(device) if with_rm else None
+        w16, v16 = w.half().to(device), v.half().to(device)
+        case = (f"K3 I={i} M={m} T={t} R={r} E={e} rm={with_rm} "
+                f"ties={ties} dead_video={dead_video}")
+        a, idx = twice(torch, lambda: K3.launch(w16, v16, fm, rm), case)
+        ap, idxp = K3.cross_mil_plain(w16, v16, fm, rm)
+        ac, _ = K3.cross_mil_plain(w.bfloat16().to(device),
+                                   v.bfloat16().to(device), fm, rm)
+        live = ap > K3.NEG / 2
+        if not torch.equal(a[~live], ap[~live]):
+            fail(f"phase 21: f16 cross_mil differs at all-masked frames: "
+                 f"{case}")
+        f16b_hold(torch, "a", a[live], ap[live], ac[live], case, res)
+        s = torch.einsum("me,itre->imtr", w16.float(), v16.float())
+        if rm is not None:
+            s = torch.where(rm[:, None] > 0, s, K3.NEG)
+        clear = clear_of_ties(torch, s)
+        if not torch.equal(idx[clear], idxp[clear]):
+            fail(f"phase 21: f16 cross_mil idx differs where the top two "
+                 f"scores are clear of ties: {case}")
+        if any((idx == later).any() for _, later in ties):
+            fail(f"phase 21: f16 cross_mil resolved an exact tie to the "
+                 f"later region: {case}")
+        res["cases"]["cross_mil"] = res["cases"].get("cross_mil", 0) + 1
+
+
+def check_f16_diag(torch, device, res: dict) -> None:
+    """Phase 21 (a): K4f on f16 operands at F16B_DIAG_CASES against
+    diag_fwd_plain at f16 (ctx and d everywhere, clu and f where r* and c*
+    are clear of ties; r* and c* equal there; exact ties to the first
+    index), and K4b on K4f's residuals against diag_bwd_plain at f16 on
+    them, with dctx as drawn and at the step's scale (F16B_STEP_DCTX: ds
+    an f16 subnormal)."""
+    from nafae_torch.ops.grounding import l2_normalize
+    from nafae_torch.ops.kernels import diag as K4
+
+    gen = torch.Generator().manual_seed(SEED + 27)
+    rnd = K4._rounder(torch.float16)
+    for b, k, t, r, e, kc, with_rm, ties_r, ties_c, dead, *off in \
+            F16B_DIAG_CASES:
+        w = unit_rows(torch, gen, b, k, e)
+        v = unit_rows(torch, gen, b, t, r, e)
+        u = 0.5 * torch.randn(b, t, r, e, generator=gen)
+        centers = unit_rows(torch, gen, kc, e)
+        fm, rm = frame_region_masks(torch, gen, b, t, r)
+        hc = (torch.rand(b, t, generator=gen) > 0.2).float()
+        for first, later in ties_r:
+            v[:, :, later] = v[:, :, first]
+            rm[:, :, later] = rm[:, :, first]
+        for first, later in ties_c:
+            centers[later] = centers[first]
+        if dead:
+            fm[1] = 0.0
+        if off and off[0]:
+            hc[:, 1::2] = 0.0
+        dctx = torch.rand(b, k, t, generator=gen).to(device)
+        dclu = torch.rand(b, k, t, generator=gen).to(device)
+        centers, fm, hc = (x.to(device) for x in (centers, fm, hc))
+        rm = rm.to(device) if with_rm else None
+        x16 = [x.half().to(device) for x in (w, v, u)]
+        xbf = [x.bfloat16().to(device) for x in (w, v, u)]
+        case = (f"K4 B={b} K={k} T={t} R={r} E={e} Kc={kc} rm={with_rm} "
+                f"ties={ties_r}/{ties_c} dead_video={dead}"
+                + (" half without context" if off and off[0] else ""))
+        got = twice(torch, lambda: K4.launch_fwd(*x16, centers, fm, hc, rm),
+                    case)
+        want = K4.diag_fwd_plain(*x16, centers, fm, hc, rm)
+        ctrl = K4.diag_fwd_plain(*xbf, centers, fm, hc, rm)
+        ctx, clu, f, d, rstar, cstar = got
+        s = torch.einsum("bke,btre->bktr", x16[0].float(), x16[1].float())
+        if rm is not None:
+            s = torch.where(rm[:, None] > 0, s, K4.NEG)
+        clear_r = clear_of_ties(torch, s)
+        both = clear_r & clear_of_ties(torch, torch.einsum(
+            "btke,ce->bktc", want[2], rnd(l2_normalize(centers))))
+        if not torch.equal(rstar[clear_r], want[4][clear_r]) or \
+                not torch.equal(cstar[both], want[5][both]):
+            fail(f"phase 21: f16 diag_epilogue r* or c* differ from the "
+                 f"plain version where clear of ties: {case}")
+        if any((rstar == x).any() for _, x in ties_r) or \
+                any((cstar == x).any() for _, x in ties_c):
+            fail(f"phase 21: f16 diag_epilogue resolved an exact tie to "
+                 f"the later index: {case}")
+        pf = [x.permute(0, 2, 1, 3) for x in (f, want[2], ctrl[2])]
+        f16b_hold(torch, "ctx", ctx, want[0], ctrl[0], case, res)
+        f16b_hold(torch, "d", d, want[3], ctrl[3], case, res)
+        f16b_hold(torch, "clu", clu[both], want[1][both], ctrl[1][both],
+                  case, res)
+        f16b_hold(torch, "f", pf[0][both], pf[1][both], pf[2][both], case,
+                  res)
+        for tag, dc in (("", dctx), ("_step", dctx * F16B_STEP_DCTX)):
+            args = (centers, d, rstar, cstar, f, dc, dclu)
+            dw, dv = twice(torch, lambda: K4.launch_bwd(*x16[:2], *args),
+                           case + " K4b" + tag)
+            pdw, pdv = K4.diag_bwd_plain(*x16[:2], *args)
+            cdw, cdv = K4.diag_bwd_plain(*xbf[:2], *args)
+            f16b_hold(torch, "dw" + tag, dw, pdw, cdw, case, res)
+            f16b_hold(torch, "dv" + tag, dv, pdv, cdv, case, res)
+        res["cases"]["diag"] = res["cases"].get("diag", 0) + 1
+
+
+def check_f16_roi(torch, feat, boxes, res: dict) -> None:
+    """Phase 21 (c): K5 on f16 features against roi_align_plain at f16:
+    the f16 detector's own map of phase 9's first batch with its NMS
+    boxes, then phase 9's edge cases; the control the plain version on
+    the same features in bf16."""
+    from nafae_torch.ops.kernels import roi_align as K5
+
+    gen = torch.Generator().manual_seed(SEED + 7)
+    cases = [("config5 f16 detector", feat, boxes, 1 / 16, 2)]
+    cases += [(n, f.cuda(), b.cuda(), s, sr)
+              for n, f, b, s, sr in roi_edge_cases(torch, gen)]
+    for name, f, b, scale, sr in cases:
+        f16 = f.half().contiguous()
+        got = twice(torch, lambda: K5.launch(f16, b, scale, sr), name)
+        want = K5.roi_align_plain(f16, b, 7, scale, sr)
+        ctrl = K5.roi_align_plain(f.bfloat16().contiguous(), b, 7, scale,
+                                  sr)
+        f16b_hold(torch, "roi_align", got, want, ctrl, "K5 " + name, res)
+        res["cases"]["roi_align"] = res["cases"].get("roi_align", 0) + 1
+
+
+def f16b_log(res: dict, what: str) -> None:
+    log(f"phase 21 ({what}): f16 kernels vs plain at f16 over "
+        f"{res['cases']} cases: " + "; ".join(
+            f"{k} ||err||/||want|| {v[0]:.3e}, max |err| / max |want| "
+            f"{v[1]:.3e}, max |err| {v[2]:.3e}"
+            for k, v in res["worst"].items())
+        + f" (limits {F16B_REL}, ctx {F16B_REL_CTX}, {F16B_MAX}); the "
+        "bf16-rounded control's "
+        "smallest ||err||/||want||: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in res["control_min_rel"].items())
+        + "; every launch twice, equal bit for bit; idx, r* and c* equal "
+        "where clear of ties")
+
+
+# a traced replay of an f16 pallas step names the f16 instantiations, and
+# no other, of each kernel it launches
+F16B_TRACE = {
+    **{k: F16_TRACE[k] for k in ("ctx_mix_fwd_res", "ctx_mix_bwd_res")},
+    "cross_mil": ("cross_mil_mma", ("cross_mil_mma", "__half")),
+    "diag_epilogue": ("diag_centers_kernel", "diag_fwd_kernel",
+                      ("diag_centers_kernel", "__half"),
+                      ("diag_fwd_kernel", "__half")),
+    "diag_epilogue_bwd": ("diag_bwd_kernel", ("diag_bwd_kernel", "__half"))}
+# ... and of a config-5 step with an f16 detector, K2 (f32 scores and boxes
+# in every detector dtype) and, with roi_impl=pallas, K5 at f16
+F16B_C5_TRACE = {"nms": ("nms_kernel",),
+                 "roi_align": ("roi_align_kernel",
+                               ("roi_align_kernel", "__half"))}
+# phase 21's config-5 runs at detector.dtype=float16: name -> (overrides on
+# the preset, the VGG16 checkpoint's?); each F16B_C5_STEPS steps graphed
+F16B_C5_RUNS = {"resnet_f32_model": (["detector.dtype=float16"], False),
+                "resnet_pallas_roi_f16_model": (
+                    ["detector.dtype=float16", "detector.roi_impl=pallas",
+                     "model.dtype=float16"], False),
+                "vgg_pallas_roi_f16_model": (
+                    [*VGG_OVERRIDES, "detector.dtype=float16",
+                     "detector.roi_impl=pallas", "model.dtype=float16"],
+                    True)}
+F16B_C5_STEPS = 4
+F16B_C5_TRACED = "resnet_pallas_roi_f16_model"
+# the config-5 step at f16 on the card against the CPU at C5_CPU's size,
+# stage by stage on the card's inputs: with random weights the RPN's
+# objectness is nearly flat, and f16's objectness on the two devices
+# (1.2e-3 to 1.5e-3 apart on an H100) sends greedy NMS to other boxes in
+# every frame, so the whole step is not comparable. f16 rounds every
+# layer's output in another order on each device: C4 and the pooled RoIs
+# within 4e-3 of the largest entry (1.9e-3 and 1.5e-3 seen), the head on
+# the same RoIs within 1e-3 (2.1e-4); the bf16 detector outside each
+# (1.2e-2, 1.2e-2, 1.8e-3)
+F16B_C5_TOL = {"c4": 4e-3, "pooled": 4e-3, "head": 1e-3}
+F16_LIMIT = 65504.0              # the largest finite f16
+F16B_INPUT = "f16b_in.json"      # phase 21's inputs, in the run's tmp
+F16B_RESULT = "f16b.json"        # ... and its results
+EXTRACT_FRAMES = 8               # extract_segments' frames a detector call
+
+
+def check_f16b_fits(torch, root: str, tmp: str) -> dict:
+    """Phase 21 (b): config-4 `fit` with train.kernels=pallas at
+    model.dtype=float16, streaming at steps_per_call 3 and from the device
+    cache, GRAPH_STEPS steps refreshing every 3: each captured (two
+    graphs, a replay a step), rows and state bit for bit the eager
+    train_step chain over the same batches, launches per_step_launches a
+    step (K3 twice; K4f, K4b, K1fr, K1br once), one more replay traced
+    naming the f16 instantiations (F16B_TRACE); the cached run's first
+    CPU_STEPS rows against a CPU re-run (CPU_METRIC_TOL); one step's
+    gradients card against CPU (F16_GRAD_TOL, the card's bf16 step
+    outside). With train.use_pallas=true, the legacy flag, one step takes
+    the same route."""
+    runs = {"streaming_spc3": graph_cfg(root, os.path.join(
+                tmp, "ck_f16b_s"), "float16", "pallas", 3, False),
+            "cached": graph_cfg(root, os.path.join(tmp, "ck_f16b_c"),
+                                "float16", "pallas", 1, True)}
+    per = per_step_launches("pallas")
+    out = {}
+    for name, cfg in runs.items():
+        steps = cfg.train.steps
+        zero_counts()                           # main path starts here
+        run = traced_fit(torch, cfg)
+        counts = read_counts()                  # ... and ends here
+        if counts != {k: n * steps for k, n in per.items()}:
+            fail(f"phase 21 fit ({name}) launched {counts}, expected {per} "
+                 "a step")
+        st = expect_graphed(run, f"phase 21 fit ({name})", 2, steps)
+        prog = run["programs"][0]
+        eager = eager_chain(torch, cfg, run["seen"], prog.cache)
+        bad = rows_differ(run["logs"], eager["rows"])
+        bad += state_diffs(torch, run["state"], eager["state"])
+        if bad:
+            fail(f"phase 21 fit ({name}) differs from the eager train_step "
+                 f"chain in {bad}")
+        traced = traced_replay(
+            torch, prog, lambda: prog(run["state"], run["seen"][-1]), per,
+            os.path.join(tmp, f"f16b_replay_{name}.json"), F16B_TRACE)
+        out[name] = {**st, "launches": counts, "wall_s": run["wall_s"],
+                     "traced_replay": json_keys(traced),
+                     "loss_first_last": [run["logs"][0]["loss"],
+                                         run["logs"][-1]["loss"]]}
+        if name == "cached":
+            cpu_cfg = replace(cfg, train=replace(
+                cfg.train, steps=CPU_STEPS,
+                ckpt_dir=os.path.join(tmp, "ck_f16b_cpu")))
+            out[name]["cpu_metric_rel_diff"] = cpu_rows_agree(
+                run["logs"], run_fit(torch, cpu_cfg, "cpu"),
+                f"phase 21 fit ({name})")
+        log(f"phase 21 (b): pallas fit at f16, {name} ({steps} steps): "
+            f"{st['graphs']} graphs, {st['replays']} replays, rows and state "
+            f"bit for bit the eager chain; launches {counts}; a traced "
+            f"replay names {json_keys(traced)}"
+            + (f"; CPU re-run rows max relative diff "
+               f"{out[name]['cpu_metric_rel_diff']:.3e} (limit "
+               f"{CPU_METRIC_TOL})" if name == "cached" else ""))
+        del run, eager, prog
+        torch.cuda.empty_cache()
+    legacy = train_cfg(root, os.path.join(tmp, "ck_f16b_u"), "float16", 1,
+                       "auto", ["train.use_pallas=true"])
+    zero_counts()
+    run_fit(torch, legacy)
+    if read_counts() != per:
+        fail(f"phase 21: train.use_pallas=true at float16 launched "
+             f"{read_counts()}, expected {per}")
+    out["use_pallas_launches"] = per
+    out["grads"] = f16_grads(torch, runs["cached"], first_batch(root),
+                             "pallas", "phase 21")
+    log("phase 21 (b): one pallas step's gradients, card against CPU, max "
+        "|diff| / largest entry: " + ", ".join(
+            f"{k} {v['rel_diff']:.3e}" + (" (outside)" if v["outside"] else "")
+            for k, v in out["grads"].items())
+        + f" (limit {F16_GRAD_TOL[1]} x largest entry); train.use_pallas=true"
+        f" at float16 launched {per} in its step")
+    return out
+
+
+def check_f16b_c5(torch, info: dict, tmp: str) -> dict:
+    """Phase 21 (d): config-5 `fit` at detector.dtype=float16 at full
+    width (640x640, B=16, T=20), one run each of F16B_C5_RUNS, F16B_C5_STEPS
+    steps graphed: launches c5_launches a step (K2; K5 with
+    roi_impl=pallas), captured (two graphs, a replay a step), the loss
+    lowered, rows and state bit for bit the eager train_step chain with
+    the same detector; peak device memory; the largest |activation| of
+    the backbone's features on the first batch against F16_LIMIT; one
+    replay of F16B_C5_TRACED traced (K2, K5 at f16, K1fr and K1br at f16)."""
+    ann = info["ann"]
+    out = {}
+    for run, (extra, vgg) in F16B_C5_RUNS.items():
+        more = [*extra, *([f"detector.weights={info['vgg_pth']}"]
+                          if vgg else [])]
+        cfg = c5_cfg(ann, os.path.join(tmp, f"ck5_f16b_{run}"), "float32",
+                     F16B_C5_STEPS, more)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()                           # main path starts here
+        fitted = traced_fit(torch, cfg)
+        counts = read_counts()                  # ... and ends here
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        peak_reserved = torch.cuda.max_memory_reserved() / 2 ** 30
+        per = c5_launches(cfg)
+        if counts != {k: n * F16B_C5_STEPS for k, n in per.items()}:
+            fail(f"phase 21 config-5 fit ({run}) launched {counts}, "
+                 f"expected {per} a step")
+        st = expect_graphed(fitted, f"phase 21 config-5 fit ({run})", 2,
+                            F16B_C5_STEPS)
+        logs = fitted["logs"]
+        first = statistics.mean(m["loss"] for m in logs[:2])
+        last = statistics.mean(m["loss"] for m in logs[-2:])
+        if not all(np.isfinite(v) for m in logs for v in m.values()) or \
+                not last < first:
+            fail(f"phase 21 config-5 fit ({run}) logged {logs}: not finite, "
+                 f"or the loss did not fall ({first} -> {last})")
+        prog, seen, state = (fitted["programs"][0], fitted["seen"],
+                             fitted["state"])
+        final = state_copy(torch, state)
+        entry = {**st, "launches": counts, "peak_gib": peak,
+                 "peak_reserved_gib": peak_reserved,
+                 "wall_s": fitted["wall_s"], "loss_first_last": [
+                     logs[0]["loss"], logs[-1]["loss"]]}
+        if run == F16B_C5_TRACED:
+            names = {**f16_names(True), **F16B_C5_TRACE}
+            entry["traced_replay"] = json_keys(traced_replay(
+                torch, prog, lambda: prog(state, seen[-1]), per,
+                os.path.join(tmp, f"f16b_replay_c5_{run}.json"), names))
+        frames = seen[0]["frames"]
+        del fitted, prog, state
+        torch.cuda.empty_cache()
+        det = c5_detector(torch, cfg)
+        with torch.no_grad():
+            x = torch.from_numpy(frames.reshape((-1,) + frames.shape[2:]))
+            feat = torch.cat([det.backbone(x[i:i + 40].cuda()).float()
+                              for i in range(0, x.shape[0], 40)])
+        entry["feat_abs_max"] = feat.abs().max().item()
+        entry["feat_finite"] = bool(torch.isfinite(feat).all())
+        del feat
+        eager = eager_chain(torch, cfg, seen, extractor=det)
+        bad = rows_differ(logs, eager["rows"])
+        bad += state_diffs(torch, final, eager["state"])
+        if bad:
+            fail(f"phase 21 config-5 fit ({run}) differs from the eager "
+                 f"train_step chain in {bad}")
+        del eager, final, det, seen
+        torch.cuda.empty_cache()
+        out[run] = entry
+        log(f"phase 21 (d): config-5 fit ({run}, {cfg.detector.backbone} "
+            f"detector float16, model {cfg.model.dtype}, roi_impl "
+            f"{cfg.detector.roi_impl}, B={cfg.data.batch_size}, "
+            f"{F16B_C5_STEPS} steps graphed): loss {logs[0]['loss']:.5f} -> "
+            f"{logs[-1]['loss']:.5f}; rows and state bit for bit the eager "
+            f"chain; launches {counts}; {st['graphs']} graphs, "
+            f"{st['replays']} replays; peak device memory {peak:.2f} GiB "
+            f"allocated, {peak_reserved:.2f} GiB reserved; the backbone's "
+            f"largest |activation| on the first batch "
+            f"{entry['feat_abs_max']:.1f} (f16's limit {F16_LIMIT:.0f}; "
+            f"finite {entry['feat_finite']})"
+            + (f"; a traced replay names {entry['traced_replay']}"
+               if run == F16B_C5_TRACED else ""))
+    return out
+
+
+def check_f16b_c5_cpu(torch, info: dict, tmp: str) -> dict:
+    """Phase 21 (d): the config-5 step at detector.dtype=float16 and
+    model.dtype=float16 (ResNet-50), card against CPU at C5_CPU's size,
+    stage by stage on the card's inputs (F16B_C5_TOL): C4, proposals from
+    the card's RPN outputs, the pooled RoIs of each device's own C4 at the
+    card's boxes, the head on the card's pooled RoIs, the step on the card
+    detector's outputs (CPU_METRIC_TOL); the bf16 detector, the control,
+    outside each limit. Then VGG16's fc6/fc7 at f16 on random RoIs, card
+    against CPU, with and without cuBLAS's reduced-precision f16 sums
+    (torch's default allows them; XLA sums f16 products in f32)."""
+    from nafae_torch.models.detector.faster_rcnn import STRIDE
+    from nafae_torch.models.detector.rpn import select_proposals_batched
+    from nafae_torch.models.detector.vgg import VGG16RoIHead
+    from nafae_torch.ops import roi_align as RA
+    from nafae_torch.train import TrainState, batch_to_device, train_step
+
+    def top(got, want):
+        return ((got.float().cpu() - want.float()).abs().max()
+                / want.float().abs().max()).item()
+
+    small = [f"detector.image_size={C5_CPU['image']}",
+             f"data.batch_size={C5_CPU['batch']}",
+             f"data.max_frames={C5_CPU['frames']}"]
+    out = {}
+    for dt in ("float16", "bfloat16"):
+        cfg = c5_cfg(info["ann_small"], os.path.join(tmp, "ck5_f16b_cpu"),
+                     "float32", 1, [*small, f"detector.dtype={dt}",
+                                    f"model.dtype={dt}"])
+        dc = cfg.detector
+        batch = c5_first_batch(cfg)
+        x = torch.from_numpy(batch["frames"].reshape(
+            (-1,) + batch["frames"].shape[2:]))
+        det = {d: c5_detector(torch, cfg, d) for d in ("cuda", "cpu")}
+        with torch.no_grad():
+            c4 = {d: m.backbone(x.to(d)) for d, m in det.items()}
+            obj, raw = det["cuda"].rpn(c4["cuda"], raw=True)
+            sel = {d: select_proposals_batched(
+                obj.to(d), None,
+                det[d].anchors(c4[d].shape[1], c4[d].shape[2], d),
+                dc.image_size, dc.rpn_pre_nms_topk, dc.num_proposals,
+                dc.nms_iou_thresh, nms_impl=impl, topk_impl="none",
+                deltas_raw=raw.to(d))
+                for d, impl in (("cuda", "pallas"), ("cpu", "jnp"))}
+            boxes = sel["cuda"][0]
+            pooled = {d: RA.roi_align_matmul(
+                c4[d], boxes.to(d), 7, 1.0 / STRIDE).reshape(
+                    -1, 7, 7, c4[d].shape[-1]) for d in det}
+            head = {d: m.head(pooled["cuda"].to(d)) for d, m in det.items()}
+            det_out = det["cuda"](x.cuda())
+        gaps = {"c4": top(c4["cuda"], c4["cpu"]),
+                "pooled": top(pooled["cuda"], pooled["cpu"]),
+                "head": top(head["cuda"], head["cpu"])}
+        entry = {"gaps": gaps}
+        if dt == "float16":
+            box_err = (boxes.cpu() - sel["cpu"][0]).abs().max().item()
+            if not torch.equal(sel["cuda"][2].cpu(), sel["cpu"][2]) or \
+                    box_err > C5_BOX_TOL:
+                fail(f"phase 21: the CPU's proposals from the card's f16 RPN "
+                     f"outputs differ (boxes by {box_err} px)")
+            off = [k for k, g in gaps.items() if g > F16B_C5_TOL[k]]
+            if off:
+                fail(f"phase 21: the f16 detector's {off}, card against CPU, "
+                     f"lie {gaps} of the largest entry apart (limits "
+                     f"{F16B_C5_TOL})")
+            b_, t_ = batch["frames"].shape[:2]
+            fb = {k: v for k, v in batch.items() if k != "frames"}
+            fb["feats"] = det_out["feats"].reshape(
+                b_, t_, *det_out["feats"].shape[1:]).cpu().numpy()
+            fb["boxes"] = det_out["boxes"].reshape(b_, t_, -1, 4).cpu().numpy()
+            fb["region_mask"] = det_out["region_valid"].reshape(
+                b_, t_, -1).float().cpu().numpy()
+            cfgf = replace(cfg, data=replace(cfg.data, from_videos=False))
+            metrics = {}
+            for d in ("cuda", "cpu"):
+                _, m = train_step(TrainState.create(cfgf, device=d),
+                                  batch_to_device(fb, torch.device(d)), cfgf)
+                metrics[d] = {k: float(v) for k, v in m.items()}
+            rtol, atol = CPU_METRIC_TOL
+            bad = [k for k, c in metrics["cpu"].items()
+                   if not np.isclose(metrics["cuda"][k], c, rtol=rtol,
+                                     atol=atol)]
+            if bad:
+                fail(f"phase 21: the f16 step on the card detector's outputs,"
+                     f" card {metrics['cuda']} against CPU {metrics['cpu']}")
+            entry.update(box_abs_diff=box_err, metric_rel_diff=max(
+                abs(metrics["cuda"][k] - c) / max(abs(c), 1e-30)
+                for k, c in metrics["cpu"].items()))
+        elif any(g <= F16B_C5_TOL[k] for k, g in gaps.items()):
+            fail(f"phase 21: the bf16 detector, card against CPU, lies "
+                 f"within {F16B_C5_TOL} ({gaps}): the limits do not tell "
+                 "f16 from bf16")
+        out[dt] = entry
+        del det, c4, pooled, head, det_out
+        torch.cuda.empty_cache()
+    log(f"phase 21 (d): config-5 step at f16 (ResNet-50, {C5_CPU}), card "
+        f"against CPU on the card's inputs, largest |diff| / largest entry: "
+        f"{out['float16']['gaps']} (limits {F16B_C5_TOL}; the bf16 detector "
+        f"{out['bfloat16']['gaps']}); proposals from the card's RPN outputs "
+        f"the same (boxes within {out['float16']['box_abs_diff']:.3e} px); "
+        f"the step on the card detector's outputs within "
+        f"{out['float16']['metric_rel_diff']:.3e} (rtol {CPU_METRIC_TOL[0]})")
+    head = VGG16RoIHead(dtype=torch.float16)
+    gen = torch.Generator().manual_seed(SEED + 28)
+    for fc in (head.Dense_0, head.Dense_1):
+        fc.weight.data = torch.randn(fc.weight.shape, generator=gen) * (
+            2.0 / fc.weight.shape[1]) ** 0.5
+    rois = torch.rand(64, 7, 7, 512, generator=gen)
+    flag = torch.backends.cuda.matmul.allow_fp16_reduced_precision_reduction
+    res = {}
+    with torch.no_grad():
+        want = head(rois)
+        head.cuda()
+        try:
+            for allow in (True, False):
+                torch.backends.cuda.matmul \
+                    .allow_fp16_reduced_precision_reduction = allow
+                res[f"reduced_{allow}"] = f16_gap(torch, head(rois.cuda()),
+                                                  want.cuda())
+        finally:
+            torch.backends.cuda.matmul \
+                .allow_fp16_reduced_precision_reduction = flag
+    out["vgg_fc"] = res
+    log("phase 21 (d): VGG16's fc6/fc7 at f16 on 64 random RoIs, card "
+        "against CPU (||diff|| / ||CPU||, max |diff| / max |CPU|), cuBLAS's "
+        "reduced-precision f16 sums allowed or not: " + "; ".join(
+            f"{k} {v[0]:.3e}, {v[1]:.3e}" for k, v in res.items()))
+    return out
+
+
+def check_f16b_extract(torch, info: dict, tmp: str) -> dict:
+    """Phase 21 (d): `python -m nafae_torch.extract --override
+    detector.dtype=float16` on one segment of phase 9's videos, as a user
+    runs it: its boxes and f16 feats equal the inline f16 detector's (the
+    same seeded weights) on the same frames, fed as extract_segments feeds
+    them (EXTRACT_FRAMES a call, the last call zero-padded), at f16
+    rounding. An f16 detector's objectness is nearly flat at random
+    weights, so another frame count a call (other convolution kernels,
+    other f16 roundings) sends greedy NMS to other boxes."""
+    from nafae_torch.extract import decode_segment
+
+    with open(info["ann"]) as f:
+        first = f.readline()
+    ann1 = os.path.join(tmp, "f16b_extract.jsonl")
+    with open(ann1, "w") as f:
+        f.write(first)
+    meta = json.loads(first)
+    out_dir = os.path.join(tmp, "f16bx", "train")
+    cmd = [sys.executable, "-m", "nafae_torch.extract", "--annotations", ann1,
+           "--out", out_dir, "--override", "detector.dtype=float16"]
+    t0 = time.perf_counter()
+    run = subprocess.run(cmd, cwd=os.path.dirname(os.path.abspath(__file__)),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0:
+        fail(f"extract CLI at float16 failed ({run.returncode}): "
+             f"{run.stderr[-2000:]}")
+    cfg = c5_cfg(info["ann"], os.path.join(tmp, "ck5_f16bx"), "float32", 1,
+                 ["detector.dtype=float16"])
+    with np.load(os.path.join(out_dir, meta["id"] + ".npz")) as z:
+        got, got_boxes = z["feats"].astype(np.float32), z["boxes"]
+    frames = decode_segment(meta["video"], cfg.detector.frame_rate,
+                            cfg.data.max_frames, cfg.detector.image_size)
+    det = c5_detector(torch, cfg)
+    n, fb = frames.shape[0], EXTRACT_FRAMES
+    padded = np.zeros((-(-n // fb) * fb,) + frames.shape[1:], np.float32)
+    padded[:n] = frames
+    with torch.no_grad():
+        outs = [det(torch.from_numpy(padded[lo:lo + fb]).cuda())
+                for lo in range(0, n, fb)]
+    want = torch.cat([o["feats"] for o in outs])[:n].float().cpu().numpy()
+    boxes = torch.cat([o["boxes"] for o in outs])[:n].cpu().numpy()
+    scale = float(np.abs(want).max())
+    err = float(np.abs(got - want).max()) / scale
+    box_err = float(np.abs(got_boxes - boxes).max())
+    if got.shape != want.shape or box_err > C5_BOX_TOL or not np.allclose(
+            got, want, rtol=2 ** -10, atol=1e-6 * scale):
+        fail(f"the f16 extract CLI's feats {got.shape} differ from the "
+             f"inline f16 detector's {want.shape} beyond f16 rounding: {err} "
+             f"of the largest entry (boxes {box_err} px apart)")
+    log(f"phase 21 (d): extract CLI at detector.dtype=float16, one segment "
+        f"({frames.shape[0]} frames) in {wall:.1f} s incl. start-up: boxes "
+        f"within {box_err:.3e} px and feats equal the inline f16 detector's "
+        f"({EXTRACT_FRAMES} frames a call) at f16 rounding (max |diff| / "
+        f"largest {err:.3e})")
+    return {"frames": int(frames.shape[0]), "wall_s": wall,
+            "max_rel_diff": err, "box_abs_diff": box_err}
+
+
+def f16b_kernel_times(torch, root: str, tmp: str, feat, boxes) -> dict:
+    """Phase 21 (e): device ms (device_ms) of K3, K4f and K4b on the first
+    config-4 training batch's fused-route inputs (fused_inputs) and of K5
+    on the f16 detector's first config-5 batch (its map and NMS boxes),
+    bf16 and f16 through one path in turns (bf16, f16, f16, bf16; means of
+    each pair); each f16 time beside its bound (bf16's: the same bytes and
+    tensor-core rate), its plain version's at f16 and, for K3, torch.matmul
+    + torch.max at f16."""
+    from nafae_torch.ops.kernels import cross_mil as K3
+    from nafae_torch.ops.kernels import diag as K4
+    from nafae_torch.ops.kernels import roi_align as K5
+
+    w_emb, v_emb, u, centers, fm, rm, hc = fused_inputs(torch, root, tmp)
+    b, t, r, e = v_emb.shape
+    k = w_emb.shape[1]
+    m = b * k
+    gen = torch.Generator().manual_seed(SEED + 29)
+    dctx = torch.rand((b, k, t), generator=gen).cuda()
+    dclu = torch.rand((b, k, t), generator=gen).cuda()
+    dts = {"bf16": torch.bfloat16, "f16": torch.float16}
+    ins = {}
+    for tag, dt in dts.items():
+        wf = w_emb.reshape(m, e).to(dt).contiguous()
+        wk, v, uu = w_emb.to(dt), v_emb.to(dt), u.to(dt)
+        fwd = K4.launch_fwd(wk, v, uu, centers, fm, hc, rm)
+        ins[tag] = (wf, wk, v, uu, fwd, feat.to(dt).contiguous())
+    torch.cuda.synchronize()
+    fns = {
+        "cross_mil": lambda x: lambda: K3.launch(x[0], x[2], fm, rm),
+        "diag_epilogue": lambda x: lambda: K4.launch_fwd(
+            x[1], x[2], x[3], centers, fm, hc, rm),
+        "diag_epilogue_bwd": lambda x: lambda: K4.launch_bwd(
+            x[1], x[2], centers, x[4][3], x[4][4], x[4][5], x[4][2], dctx,
+            dclu),
+        "roi_align": lambda x: lambda: K5.launch(x[5], boxes, 1 / 16)}
+    res = {"shapes": {"B": b, "K": k, "T": t, "R": r, "E": e,
+                      "Kc": centers.shape[0], "roi_feat": list(feat.shape),
+                      "roi_boxes": list(boxes.shape)}}
+    for name, make in fns.items():
+        ms = {tag: [] for tag in dts}
+        reps = (2, 11) if name == "roi_align" else (10, 21)
+        for tag in ("bf16", "f16", "f16", "bf16"):
+            ms[tag].append(device_ms(torch, make(ins[tag]), *reps))
+        for tag, v in ms.items():
+            res[f"{name}_ms_{tag}"] = statistics.mean(v)
+            res[f"{name}_ms_{tag}_runs"] = v
+    wf, wk, v, uu, fwd, f16map = ins["f16"]
+    live = int((rm > 0).sum())
+    row = e * v.element_size()
+    dw, dv = K4.launch_bwd(wk, v, centers, fwd[3], fwd[4], fwd[5], fwd[2],
+                           dctx, dclu)
+    res["cross_mil_bound_ms"], res["cross_mil_bound_by"] = bound(
+        torch, nbytes(wf, fm, rm) + live * row + 2 * b * m * t * 4,
+        2 * m * e * live, v.dtype)
+    (res["diag_epilogue_bound_ms"], res["diag_epilogue_bound_by"]), \
+        (res["diag_epilogue_bwd_bound_ms"],
+         res["diag_epilogue_bwd_bound_by"]) = diag_bounds(
+            torch, wk, v, centers, fm, hc, rm, fwd, dctx, dclu, dw, dv)
+    res["roi_align_bound_ms"], res["roi_align_bound_by"] = roi_bound_ms(
+        torch, f16map, boxes)
+    res_args = (wk, v, centers, fwd[3], fwd[4], fwd[5], fwd[2], dctx, dclu)
+    res["cross_mil_plain_ms"] = device_ms(
+        torch, lambda: K3.cross_mil_plain(wf, v, fm, rm))
+    res["diag_epilogue_plain_ms"] = device_ms(
+        torch, lambda: K4.diag_fwd_plain(wk, v, uu, centers, fm, hc, rm))
+    res["diag_epilogue_bwd_plain_ms"] = device_ms(
+        torch, lambda: K4.diag_bwd_plain(*res_args))
+    res["roi_align_plain_ms"] = profile_forward(
+        torch, lambda: K5.roi_align_plain(f16map, boxes, 7, 1 / 16),
+        reps=2)[1]
+    v2 = v.reshape(b, t * r, e)
+    res["cross_mil_library_ms"] = device_ms(
+        torch, lambda: torch.max(torch.matmul(v2, wf.T).reshape(b, t, r, m),
+                                 dim=2))
+    card = card_line()
+    log("phase 21 (e): f16 kernels (device ms, bf16 -> f16 in turns; f16 "
+        "bound; f16 plain) on the first config-4 batch's fused inputs "
+        f"{res['shapes']}: " + "; ".join(
+            f"{n} {res[n + '_ms_bf16']:.4f} -> {res[n + '_ms_f16']:.4f} "
+            f"({res[n + '_bound_ms']:.4f}, {res[n + '_bound_by']}; "
+            f"{res[n + '_plain_ms']:.4f})" for n in fns)
+        + f"; K3's torch.matmul + torch.max at f16 "
+        f"{res['cross_mil_library_ms']:.4f} — {card}")
+    return res
+
+
+def f16b_step_times(torch, root: str, info: dict, tmp: str) -> dict:
+    """Phase 21 (e): the config-4 pallas step from the device cache,
+    graphed, at model.dtype bfloat16 and float16 (prec_step_times: host to
+    host in interleaved rounds, then busy and idle from torch.profiler);
+    and the config-5 step (ResNet-50, model f32) with a bf16 and an f16
+    detector, graphed, on the first batch: host to host (the numpy batch
+    in) and on a resident batch in interleaved rounds (bf16, f16, f16,
+    bf16), then each step's device busy time and idle share."""
+    from nafae_torch.train import (TrainState, batch_to_device,
+                                   build_train_fn, make_optimizer)
+
+    dts = ("bfloat16", "float16")
+    idx_cache, idxs = prec_cache(torch, root, 20)
+    cfgs = {dt: cache_cfg(root, "", "pallas", ["train.steps=1000",
+                                               f"model.dtype={dt}"])
+            for dt in dts}
+    progs, states = prec_programs(torch, cfgs, idx_cache)
+    c4 = prec_step_times(torch, progs, states, idxs, dts)
+    del progs, states, idx_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    dev = torch.device("cuda")
+    cfg5 = {dt: c5_cfg(info["ann"], "", "float32", 1000,
+                       [f"detector.dtype={dt}"]) for dt in dts}
+    batch = c5_first_batch(cfg5["float16"])
+    tb = batch_to_device(batch, dev)
+    progs, states = {}, {}
+    for dt, cfg in cfg5.items():
+        progs[dt] = build_train_fn(cfg, make_optimizer(cfg), dev,
+                                   extractor=c5_detector(torch, cfg))
+        states[dt] = TrainState.create(cfg, device=dev)
+    res = {dt: {"host": [], "resident": []} for dt in dts}
+
+    def step(dt, b):
+        states[dt], m = progs[dt](states[dt], b)
+        return m
+
+    for dt in dts:
+        step(dt, tb)
+    for i in range(GRAPH_C5_ROUNDS):
+        for dt in dts + dts[::-1]:
+            for kind, b in (("host", batch), ("resident", tb)):
+                t0 = time.perf_counter()
+                float(step(dt, b)["loss"])
+                res[dt][kind].append((time.perf_counter() - t0) * 1e3)
+    c5 = {}
+    for dt in dts:
+        _, busy, ops = profile_forward(torch, lambda: step(dt, tb), reps=2)
+        host = statistics.median(res[dt]["host"])
+        c5[dt] = {"host_ms": host, "host_ms_all": res[dt]["host"],
+                  "resident_ms": statistics.median(res[dt]["resident"]),
+                  "device_busy_ms": busy, "device_ops": ops,
+                  "idle_share": 1 - busy / host,
+                  "program": dict(progs[dt].stats)}
+    del progs, states
+    gc.collect()
+    torch.cuda.empty_cache()
+    card = card_line()
+    log("phase 21 (e): config4 pallas step from the cache, graphed, host to "
+        "host median (device busy; idle share): " + "; ".join(
+            f"{dt} {v['host_ms']:.4f} ms ({v['device_busy_ms']:.4f} ms; "
+            f"{100 * v['idle_share']:.1f}%)" for dt, v in c4.items())
+        + f" — {card}")
+    log(f"phase 21 (e): config-5 step (ResNet-50, model f32, B=16 T=20 "
+        f"640x640, graphed; {int(batch['frame_mask'].sum())} valid frames), "
+        "bf16 and f16 detector in turns: " + "; ".join(
+            f"{dt} host to host {v['host_ms']:.2f} ms, resident batch "
+            f"{v['resident_ms']:.2f} ms, busy {v['device_busy_ms']:.2f} ms "
+            f"in {v['device_ops']:.0f} operations (idle "
+            f"{100 * v['idle_share']:.1f}%)" for dt, v in c5.items())
+        + f" — {card}")
+    return {"config4_pallas": {dt: {k: x for k, x in r.items()
+                                    if k != "kernels"}
+                               for dt, r in c4.items()},
+            "config5": c5}
+
+
+def check_f16b(torch, tmp: str) -> dict:
+    """Phase 21: the fused route and the detector at float16 on the card.
+    (a) check_f16_cross, check_f16_diag; (b) check_f16b_fits on phase 5's
+    data; (c) check_f16_roi and K2 (nms_vs_plain) on the f16 detector's
+    first config-5 batch;
+    (d) check_f16b_c5, check_f16b_c5_cpu, check_f16b_extract on phase 9's
+    videos (and phase 10's VGG16 checkpoint); (e) f16b_kernel_times,
+    f16b_step_times."""
+    t0 = time.perf_counter()
+    with open(os.path.join(tmp, F16B_INPUT)) as f:
+        info = json.load(f)
+    dev = torch.device("cuda")
+    parts = {}
+
+    def part(name):
+        parts[name] = time.perf_counter() - t0 - sum(parts.values())
+
+    kern = {"worst": {}, "control_min_rel": {}, "cases": {}}
+    check_f16_cross(torch, dev, kern)
+    check_f16_diag(torch, dev, kern)
+    f16b_log(kern, "a")
+    part("a")
+    fits = check_f16b_fits(torch, tmp, tmp)
+    part("b")
+    cfg = c5_cfg(info["ann"], "", "float32", 1, ["detector.dtype=float16"])
+    frames = torch.from_numpy(c5_first_batch(cfg)["frames"]).cuda()
+    planes, scores, feat, boxes = detector_inputs(
+        torch, c5_detector(torch, cfg),
+        frames.reshape((-1,) + frames.shape[2:]))
+    del frames
+    roi = {"worst": {}, "control_min_rel": {}, "cases": {}}
+    check_f16_roi(torch, feat, boxes, roi)
+    f16b_log(roi, "c")
+    nms = dict(zip(("max_abs_err", "valid_slots", "continuation_rows"),
+                   nms_vs_plain(torch, "config5 f16 detector", *planes,
+                                scores, 0.7)))
+    log(f"phase 21 (c): K2 on the f16 detector's planes (f32 scores and "
+        f"boxes) against its plain version: survivors exactly equal "
+        f"({nms})")
+    del planes, scores
+    torch.cuda.empty_cache()
+    part("c")
+    c5 = check_f16b_c5(torch, info, tmp)
+    c5_cpu = check_f16b_c5_cpu(torch, info, tmp)
+    extract = check_f16b_extract(torch, info, tmp)
+    gc.collect()
+    torch.cuda.empty_cache()
+    part("d")
+    times = f16b_kernel_times(torch, tmp, tmp, feat, boxes)
+    del feat, boxes
+    torch.cuda.empty_cache()
+    steps = f16b_step_times(torch, tmp, info, tmp)
+    part("e")
+    wall = time.perf_counter() - t0
+    log(f"phase 21 took {wall:.1f} s (" + ", ".join(
+        f"({k}) {v:.1f} s" for k, v in parts.items()) + ")")
+    return {"kernels": kern, "roi_align": roi, "nms": nms, "fits": fits,
+            "config5": c5, "config5_cpu": c5_cpu, "extract": extract,
+            "times": times, "step_times": steps, "phase_s": wall,
+            "parts_s": parts}
+
+
+def f16b_child(tmp: str) -> None:
+    """`python3 chip_smoke.py --f16b-child TMP`: phase 21 (check_f16b) in
+    a process of its own (its traces whole, as phase 17's), on phase 5's
+    data and the videos and checkpoint TMP/F16B_INPUT names; writes its
+    results to TMP/F16B_RESULT."""
+    import torch
+
+    from nafae_torch.ops.kernels import _build
+
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    _build.build_all(SOURCES)
+    out = check_f16b(torch, tmp)
+    with open(os.path.join(tmp, F16B_RESULT), "w") as f:
+        json.dump(out, f, default=float)
+
+
+def f16b_keys(f16b: dict, name: str) -> dict:
+    """K3's, K4f's, K4b's or K5's phase-21 numbers for its JSON entry: its
+    f16 launches in the phase-21 run that takes it (the cached pallas fit;
+    K5: the config-5 fit with roi_impl=pallas and an f16 model), its
+    largest |error| against plain at f16, and its f16 device ms beside
+    bf16's (in turns), bound, plain ms (K3 also torch.matmul + torch.max's
+    at f16)."""
+    outs = {"cross_mil": ("a",), "diag_epilogue": ("ctx", "clu", "f", "d"),
+            "diag_epilogue_bwd": ("dw", "dv", "dw_step", "dv_step"),
+            "roi_align": ("roi_align",)}[name]
+    src = f16b["roi_align" if name == "roi_align" else "kernels"]["worst"]
+    launches = (f16b["config5"][F16B_C5_TRACED]["launches"][name]
+                if name == "roi_align"
+                else f16b["fits"]["cached"]["launches"][name])
+    t = f16b["times"]
+    return {"max_abs_err_f16": max(src[o][2] for o in outs),
+            "max_rel_err_f16": max(src[o][0] for o in outs),
+            "launches_f16": launches,
+            "f16_times": {"shapes": t["shapes"],
+                          "ms_f16": t[name + "_ms_f16"],
+                          "ms_bf16": t[name + "_ms_bf16"],
+                          "bound_ms_f16": t[name + "_bound_ms"],
+                          "bound_by_f16": t[name + "_bound_by"],
+                          "plain_ms_f16": t[name + "_plain_ms"],
+                          **({"library_ms_f16": t["cross_mil_library_ms"]}
+                             if name == "cross_mil" else {})}}
 
 
 def kernel_entry(name, source, replaces, launches, per, err, ms, plain, bound,
@@ -7932,6 +8813,14 @@ def main() -> None:
         # model.dtype=float16 (phase 20), on phase 5's data and the
         # serving phase's requests made again, in a process of its own
         f16p = run_child(torch, tmp, "--f16-child", F16_RESULT, "phase 20")
+
+        # the fused route and the detector at float16 (phase 21), on phase
+        # 5's data, phase 9's videos and phase 10's VGG16 checkpoint, in a
+        # process of its own
+        with open(os.path.join(tmp, F16B_INPUT), "w") as f:
+            json.dump({"ann": ann, "ann_small": ann_small,
+                       "vgg_pth": vgg_pth}, f)
+        f16b = run_child(torch, tmp, "--f16b-child", F16B_RESULT, "phase 21")
     shutdown()
     log(f"ctx_mix device time on the first serving batch: f32 kernel "
         f"{tm['ms']:.4f} ms, plain {tm['plain_ms']:.4f} ms, bound "
@@ -8230,6 +9119,8 @@ def main() -> None:
             shapes=tf["shapes"], path="training f32, kernels=pallas",
             launches_orbax=orb["fits"]["pallas"]["launches"][name],
             **fused_any_keys(anyp, key),
+            # f16 (phase 21): the pallas fits at model.dtype=float16
+            **f16b_keys(f16b, name),
             launches_per_step_sp=sp_launch[name],
             **({"ms_sp": sp_k[sp_key[name] + "_ms"],
                 "plain_ms_sp": sp_k[sp_key[name] + "_plain_ms"],
@@ -8269,7 +9160,12 @@ def main() -> None:
                             ("bound_ms", "bound_ms"),
                             ("bound_by", "bound_by"))
                for d in ("", "_bf16")},
-            shapes_vgg=t10m["shapes"], shapes_vgg_bf16=t10m["shapes_bf16"])
+            shapes_vgg=t10m["shapes"], shapes_vgg_bf16=t10m["shapes_bf16"],
+            # f16 (phase 21): config 5 at detector.dtype=float16
+            **(f16b_keys(f16b, name) if name == "roi_align" else {
+                "max_abs_err_f16": f16b["nms"]["max_abs_err"],
+                "launches_f16": f16b["config5"][F16B_C5_TRACED][
+                    "launches"][name]}))
           for name, rep, run, err in (
               ("nms", "nafae_tpu/ops/pallas/nms.py:36",   # _kernel
                "float32",
@@ -8378,6 +9274,8 @@ def main() -> None:
         "precision": precp,
         "orbax": orb,
         "float16": {k: v for k, v in f16p.items() if k != "times"},
+        "float16_fused_detector": {k: v for k, v in f16b.items()
+                                   if k != "times"},
         "script_s": time.perf_counter() - t_start,
     }), flush=True)
     print(card, flush=True)
@@ -8395,5 +9293,7 @@ if __name__ == "__main__":
         precision_child(sys.argv[2])
     elif len(sys.argv) == 3 and sys.argv[1] == "--f16-child":
         f16_child(sys.argv[2])
+    elif len(sys.argv) == 3 and sys.argv[1] == "--f16b-child":
+        f16b_child(sys.argv[2])
     else:
         main()

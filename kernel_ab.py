@@ -1,8 +1,9 @@
 """Times this tree's context mix (K1f and K1fr, csrc/ctx_mix.cu; K1br and
 K1b, csrc/ctx_mix_bwd.cu), greedy NMS (K2, csrc/nms.cu), fused cross-MIL
-(K3, csrc/cross_mil.cu) and diagonal epilogue (K4f, csrc/diag_epilogue.cu;
-K4b, csrc/diag_epilogue_bwd.cu) against other versions of the same
-sources, on one card, in one process, on the main path's own inputs:
+(K3, csrc/cross_mil.cu), diagonal epilogue (K4f, csrc/diag_epilogue.cu;
+K4b, csrc/diag_epilogue_bwd.cu) and RoIAlign (K5, csrc/roi_align.cu)
+against other versions of the same sources, on one card, in one process,
+on the main path's own inputs:
 
 - K1f: the first config-4 serving batch (B=16, T=20, R=20, E=256, w=3,
   planted-signal oracle weights, chip_smoke.timings' inputs), v_ext in f32
@@ -13,11 +14,14 @@ sources, on one card, in one process, on the main path's own inputs:
   (chip_smoke.fused_inputs: I=B=16, M=128, K=8, Kc=67) in f32 and bf16, K4b
   on this tree's K4f residuals with cotangents from a seed, as
   chip_smoke.fused_timings runs them;
-- K2: the first config-5 batch's detector planes (320 rows x 24,000
-  anchors, num_keep 20), from the f32 and from the bf16 detector;
-- f16 against bf16 (f16_ab): this tree's K1f / K1fr / K1br / K1b, both
-  instantiations of one source through one path, on the first config-4
-  training batch and at R=36, E=1024, w=3, timed in turns;
+- K2 and K5: the first config-5 batch's detector planes (320 rows x
+  24,000 anchors, num_keep 20), map [320, 40, 40, 1024] and NMS boxes,
+  from the f32 and from the bf16 detector;
+- f16 against bf16 (f16_ab, f16_fused_ab): this tree's K1f / K1fr / K1br
+  / K1b, K3, K4f, K4b and K5, both instantiations of one source through
+  one path, K1 on the first config-4 training batch and at R=36, E=1024,
+  w=3, K3 / K4 on that batch's fused-route inputs, K5 on the f32
+  detector's map cast to each type, timed in turns;
 - the general variants at phase 17's shapes (B=16, T=20): K1f / K1fr /
   K1br / K1b at R=36, E=1024, w=3 and R=20, E=50, w=20
   (chip_smoke.ANY_TIMED) on chip_smoke.ctx_inputs' random masks, K3 on
@@ -29,9 +33,9 @@ sources, on one card, in one process, on the main path's own inputs:
     python3 kernel_ab.py DIR [DIR ...]
 
 Each DIR holds another version's ctx_mix.cu, ctx_mix_bwd.cu, nms.cu,
-cross_mil.cu, diag_epilogue.cu and diag_epilogue_bwd.cu (with the
-ctx_mix_common.cuh
-they include), for example `git archive <commit> nafae_torch/csrc`
+cross_mil.cu, diag_epilogue.cu, diag_epilogue_bwd.cu and roi_align.cu
+(with the ctx_mix_common.cuh they include), for example `git archive
+<commit> nafae_torch/csrc`
 unpacked under the git-ignored build/. Each C interface in use since the
 first port is taken (a forward whose alpha is null for K1f, or one that
 always takes alpha and refuses a null one; a backward with or without a
@@ -39,10 +43,10 @@ scratch; NMS with or without tiers; K4f with or without the normalised
 centers' scratch). Every version is first held to this tree's output
 (K1f/K1fr within chip_smoke.CTX_TOL and ALPHA_TOL, K1b/K1br within
 GRAD_TOL, K2 exactly, K3 within CROSS_TOL with idx equal where clear of
-ties, K4f/K4b within DIAG_TOL with r* and c* equal where clear of ties;
-whether K1's, K3's and K4's outputs are bit for bit this tree's is
-recorded), then timed with CUDA graphs (chip_smoke.device_ms) in the
-order others, tree, tree, others reversed. Then one f32 serving batch is
+ties, K4f/K4b within DIAG_TOL with r* and c* equal where clear of ties, K5
+within ROI_TOL; whether K1's, K3's, K4's and K5's outputs are bit for bit
+this tree's is recorded), then timed with CUDA graphs
+(chip_smoke.device_ms) in the order others, tree, tree, others reversed. Then one f32 serving batch is
 timed host to host (numpy in, numpy out) with each version's K1f swapped
 into the server, beside the batch's copy to the card alone, in
 interleaved rounds (serving_host_ab). Also records each version's
@@ -68,7 +72,11 @@ ROOT = Path(__file__).resolve().parent
 
 
 SOURCES = ("ctx_mix", "ctx_mix_bwd", "nms", "cross_mil", "diag_epilogue",
-           "diag_epilogue_bwd")
+           "diag_epilogue_bwd", "roi_align")
+# K5 of another version against this tree's: the same weights and order of
+# f32 sums in every version since its redesign, so equal but for an FMA
+# contracted otherwise
+ROI_TOL = dict(rtol=1e-5, atol=1e-6)
 
 
 def ptxas_usage(log: str) -> dict[str, str]:
@@ -115,12 +123,13 @@ def build(dirs: list[Path]) -> tuple[dict[str, dict], dict[str, dict]]:
 def bind(torch, libs: dict):
     """(nms(x1, y1, x2, y2, sc) -> (idx, valid), bwd(v, fm, rm, du, w,
     temp, alpha) -> dv, fwd(v, fm, rm, w, temp, residual) -> (u, alpha or
-    None), K4f, K4b, K3) for one version's libraries, any interface; K4f,
-    K4b and K3 take and give what the tree's diag.launch_fwd / launch_bwd
-    and cross_mil.launch do. The context mix's dtype argument is
-    ctx_mix.DTYPE_CODES' code (0 f32, 1 bf16; 2 f16, which versions before
-    the f16 kernels read as bf16: give them no f16 tensor)."""
-    from nafae_torch.ops.kernels.ctx_mix import DTYPE_CODES
+    None), K4f, K4b, K3, K5) for one version's libraries, any interface;
+    K4f, K4b, K3 and K5 take and give what the tree's diag.launch_fwd /
+    launch_bwd, cross_mil.launch and roi_align.launch do. Every dtype
+    argument is ops.kernels.DTYPE_CODES' code (0 f32, 1 bf16; 2 f16, which
+    versions before their f16 kernels read as bf16: give them no f16
+    tensor)."""
+    from nafae_torch.ops.kernels import DTYPE_CODES
 
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ln, lb, lf = libs["nms"], libs["ctx_mix_bwd"], libs["ctx_mix"]
@@ -200,12 +209,15 @@ def bind(torch, libs: dict):
             CS.fail(f"ctx_mix launch failed: {err}")
         return u, alpha if residual else None
 
-    return nms, bwd, fwd, *bind_diag(torch, libs), bind_cross(torch, libs)
+    return (nms, bwd, fwd, *bind_diag(torch, libs), bind_cross(torch, libs),
+            bind_roi(torch, libs))
 
 
 def bind_cross(torch, libs: dict):
     """K3 of one version's cross_mil library (one interface since the
     first port): (w_flat, v, fm, rm) -> (a, idx)."""
+    from nafae_torch.ops.kernels import DTYPE_CODES
+
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib = libs["cross_mil"]
     lib.nafae_cross_mil.argtypes = [vp, vp, i, vp, vp, vp, vp] + [i] * 5 + [vp]
@@ -216,7 +228,7 @@ def bind_cross(torch, libs: dict):
         a = torch.empty((n, m, t), device=v.device)
         idx = torch.empty((n, m, t), dtype=torch.int32, device=v.device)
         err = lib.nafae_cross_mil(
-            w.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),
+            w.data_ptr(), v.data_ptr(), DTYPE_CODES[v.dtype],
             fm.data_ptr(), rm.data_ptr(), a.data_ptr(), idx.data_ptr(), n, m,
             t, v.shape[2], v.shape[3],
             torch.cuda.current_stream().cuda_stream)
@@ -243,7 +255,7 @@ def cross_ab(torch, others: dict, ins, tag: str) -> dict:
         "me,itre->imtr", w.float(), v.float()), K3.NEG)
     clear = CS.clear_of_ties(torch, s)
     equal = {}
-    for name, (*_, ok3) in others.items():
+    for name, (*_, ok3, _) in others.items():
         fns[name] = lambda ok3=ok3: ok3(w, v, fm, rm)
         got_a, got_i = fns[name]()
         if not (torch.allclose(got_a, want_a, rtol=rtol, atol=atol)
@@ -258,9 +270,56 @@ def cross_ab(torch, others: dict, ins, tag: str) -> dict:
     return {f"K3_{tag}": res}
 
 
+def bind_roi(torch, libs: dict):
+    """K5 of one version's roi_align library (one interface since the
+    first port): (feat, boxes, scale, sr) -> [F·R, 7, 7, C] f32."""
+    from nafae_torch.ops.kernels import DTYPE_CODES
+
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib = libs["roi_align"]
+    lib.nafae_roi_align.argtypes = [vp, i, vp, vp] + [i] * 5 + [f, i, vp]
+    lib.nafae_roi_align.restype = i
+
+    def k5(feat, boxes, scale=1 / 16, sr=2):
+        n, h, w, c = feat.shape
+        r = boxes.shape[1]
+        out = torch.empty((n * r, 7, 7, c), device=feat.device)
+        err = lib.nafae_roi_align(
+            feat.data_ptr(), DTYPE_CODES[feat.dtype], boxes.data_ptr(),
+            out.data_ptr(), n, r, h, w, c, scale, sr,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            CS.fail(f"roi_align launch failed: {err}")
+        return out
+
+    return k5
+
+
+def roi_ab(torch, others: dict, feat, boxes, tag: str) -> dict:
+    """K5 of this tree against the other versions on one detector's first
+    config-5 map and NMS boxes: each version's output within ROI_TOL of
+    this tree's; whether bit for bit this tree's, and the a_b times."""
+    from nafae_torch.ops.kernels import roi_align as K5
+
+    fns = {"tree": lambda: K5.launch(feat, boxes, 1 / 16)}
+    want = fns["tree"]()
+    equal = {}
+    for name, (*_, ok5) in others.items():
+        fns[name] = lambda ok5=ok5: ok5(feat, boxes)
+        got = fns[name]()
+        if not torch.allclose(got, want, **ROI_TOL):
+            CS.fail(f"K5 {tag}: {name} differs from this tree")
+        equal[name] = bool(torch.equal(got, want))
+    res = {"ms": a_b(torch, fns), "bitwise_equal_to_tree": equal}
+    CS.log(f"K5 {tag}: {res}")
+    return {f"K5_{tag}": res}
+
+
 def bind_diag(torch, libs: dict):
     """(K4f, K4b) of one version's diag_epilogue libraries: with or without
     the normalised centers' scratch (the forward's floor came with it)."""
+    from nafae_torch.ops.kernels import DTYPE_CODES
+
     vp, i = ctypes.c_void_p, ctypes.c_int
     lf, lb = libs["diag_epilogue"], libs["diag_epilogue_bwd"]
     scratch = hasattr(lf, "nafae_diag_fwd_floor")
@@ -284,7 +343,7 @@ def bind_diag(torch, libs: dict):
                 if scratch else [])
         err = lf.nafae_diag_fwd(
             w.data_ptr(), v.data_ptr(), u.data_ptr(),
-            int(v.dtype == torch.bfloat16), centers.data_ptr(), *chat,
+            DTYPE_CODES[v.dtype], centers.data_ptr(), *chat,
             fm.data_ptr(), hc.data_ptr(), rm.data_ptr(),
             *(x.data_ptr() for x in outs), b, k, t, r, e, kc,
             torch.cuda.current_stream().cuda_stream)
@@ -297,7 +356,7 @@ def bind_diag(torch, libs: dict):
         dw = torch.empty((b, w.shape[1], e), device=v.device)
         dv = torch.empty((b, t, r, e), device=v.device)
         err = lb.nafae_diag_bwd(
-            w.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),
+            w.data_ptr(), v.data_ptr(), DTYPE_CODES[v.dtype],
             *(x.data_ptr() for x in (centers, d, rstar, cstar, f, dctx, dclu,
                                      dw, dv)),
             b, w.shape[1], t, r, e, torch.cuda.current_stream().cuda_stream)
@@ -338,7 +397,7 @@ def diag_ab(torch, others: dict, ins, tag: str, own: bool = False) -> dict:
     fns = {"tree": lambda: K4.launch_fwd(w, v, u, centers, fm, hc, rm)}
     bfns = {"tree": lambda: K4.launch_bwd(*res_args)}
     equal = {}
-    for name, (_, _, _, ofwd, obwd, _) in others.items():
+    for name, (_, _, _, ofwd, obwd, _, _) in others.items():
         fns[name] = lambda ofwd=ofwd: ofwd(w, v, u, centers, fm, hc, rm)
         got = fns[name]()
         args = ((w, v, centers, got[3], got[4], got[5], got[2], dctx, dclu)
@@ -566,6 +625,41 @@ def f16_ab(torch, tree, v32, fm, rm, w, temp, du, tag: str) -> dict:
     return res
 
 
+def f16_fused_ab(torch, tree, ins, feat, boxes) -> dict:
+    """This tree's K3, K4f, K4b (on its own K4f residuals at each type)
+    and K5 through one path (`bind`'s wrappers of this tree's libraries),
+    bf16 and f16 on one input, timed in turns as f16_ab: K3 and K4 on the
+    first config-4 training batch's fused-route inputs, K5 on the f32
+    detector's first config-5 map (cast to each type) and NMS boxes; keys
+    "{kernel}_f16_vs_bf16", each {"bf16": [ms, ms], "f16": [ms, ms]}."""
+    *_, k4f, k4b, k3, k5 = tree
+    w_emb, v_emb, u, centers, fm, rm, hc = ins
+    gen = torch.Generator().manual_seed(CS.SEED + 5)
+    dctx = torch.rand(w_emb.shape[:2] + v_emb.shape[1:2],
+                      generator=gen).cuda()
+    dclu = torch.rand(dctx.shape, generator=gen).cuda()
+    xs = {}
+    for k, dt in (("bf16", torch.bfloat16), ("f16", torch.float16)):
+        w, v, uu = (x.to(dt) for x in (w_emb, v_emb, u))
+        fwd = k4f(w, v, uu, centers, fm, hc, rm)
+        xs[k] = (w.reshape(-1, w.shape[-1]).contiguous(), w, v, uu, fwd,
+                 feat.to(dt).contiguous())
+    res = {}
+    for kname, make in (
+            ("K3", lambda x: lambda: k3(x[0], x[2], fm, rm)),
+            ("K4f", lambda x: lambda: k4f(x[1], x[2], x[3], centers, fm, hc,
+                                          rm)),
+            ("K4b", lambda x: lambda: k4b(x[1], x[2], centers, x[4][3],
+                                          x[4][4], x[4][5], x[4][2], dctx,
+                                          dclu)),
+            ("K5", lambda x: lambda: k5(x[5], boxes))):
+        ms = a_b(torch, {"tree": make(xs["f16"]), "bf16": make(xs["bf16"])})
+        key = f"{kname}_f16_vs_bf16"
+        res[key] = {"bf16": ms["bf16"], "f16": ms["tree"]}
+        CS.log(f"{kname} f16 vs bf16: {res[key]}")
+    return res
+
+
 def a_b(torch, fns: dict) -> dict:
     """Device ms of each fn, others then this tree twice then others
     reversed: {name: [ms, ms]}."""
@@ -653,8 +747,12 @@ def main() -> None:
         for run in ("float32", "bfloat16"):
             det = CS.c5_detector(torch, CS.c5_cfg(
                 ann, os.path.join(tmp, "ck5"), run, 1))
-            planes, sc, _, _ = CS.detector_inputs(torch, det, frames)
+            planes, sc, feat, boxes = CS.detector_inputs(torch, det, frames)
             del det
+            res.update(roi_ab(torch, others, feat, boxes, run))
+            if run == "float32":
+                res.update(f16_fused_ab(torch, tree, ins, feat, boxes))
+            del feat, boxes
             tiers = torch.zeros(sc.shape[0], dtype=torch.int32,
                                 device=sc.device)
             wi, wv = K2.launch(*planes, sc, 20, 0.7, tiers=tiers)

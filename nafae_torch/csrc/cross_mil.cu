@@ -13,8 +13,9 @@
 //     idx        = the FIRST r that reaches the max (jnp.argmax's ties); a
 //                  valid frame with no valid region gives a = -1e9, idx 0
 //
-// With bf16 input the products use the bf16 values and sum in f32 (the
-// reference's preferred_element_type=f32). Only a [I, M, T] and idx [I, M, T]
+// With 16-bit input (bf16 or f16) the products use the 16-bit values and sum
+// in f32 (the reference's preferred_element_type=f32; bf16 x bf16 and f16 x
+// f16 products are exact in f32). Only a [I, M, T] and idx [I, M, T]
 // reach device memory, never the [I, M, T, R] scores: that is the point of
 // the TPU kernel, kept here.
 //
@@ -45,17 +46,18 @@
 // on each of the 132 SMs (without the split the busiest scheduler ran two
 // long warps one after the other).
 //
-// bf16 operands (cross_mil_bf16): tensor cores, mma.sync m16n8k16 with f32
-// accumulators (bf16 x bf16 products are exact in f32: the contract of
+// 16-bit operands (cross_mil_mma, a template on bf16 or f16: one code, the
+// mma.sync of the type): tensor cores, mma.sync m16n8k16 with f32
+// accumulators (16-bit products are exact in f32: the contract of
 // as_operand). 64 words x 80 columns a block, 4 warps of 32 words x 40
-// columns (2 x 5 MMA tiles). The operands stay bf16 in shared memory, whole
+// columns (2 x 5 MMA tiles). The operands stay 16-bit in shared memory, whole
 // rows of E (stride E + 8 elements: conflict-free fragment loads), copied by
 // cp.async in four groups of columns so that the first MMAs start when a
 // quarter has landed. At config 4: 5 x 2 x 16 = 160 blocks of 97 KB, two an
 // SM. Every output element sees the same k loop, so ties stay exact.
 //
-// Any E (cross_mil_any): the bf16 kernel above needs E a multiple of 4 up to
-// 512. Every other bf16 shape (GloVe-50d's E = 50; E = 1024) takes a
+// Any E (cross_mil_any): the 16-bit kernel above needs E a multiple of 4 up
+// to 512. Every other 16-bit shape (GloVe-50d's E = 50; E = 1024) takes a
 // general variant with the same blocks, scores tile and epilogue whose
 // tensor-core product streams E through a ring of three stages of 64
 // columns (see below). At R = 36, E = 1024 its 3.0 GFLOP are bound by the
@@ -65,7 +67,8 @@
 // E=256): 2*M*I*T*R*E = 419 MFLOP, ~6.3 us at 67 TFLOP/s f32 on CUDA cores,
 // against ~7.0 MB moved (v 6.6 MB, w, masks, a and idx), ~2.1 us at 3.35
 // TB/s: bound by operations in f32. In bf16 the same flops on tensor cores
-// (989 TFLOP/s) take ~0.4 us and the 3.6 MB take ~1.1 us: bound by bytes.
+// (989 TFLOP/s) take ~0.4 us and the 3.6 MB take ~1.1 us: bound by bytes
+// (f16 the same: the same bytes and tensor-core rate).
 // These count every region as live; the function needs the rows and dots of
 // live regions only, so chip_smoke.py counts the bound from a batch's masks.
 // PERF.md has the measured times of this design and of the one it replaced.
@@ -92,7 +95,7 @@ constexpr int kBk = 32;                      // columns of E a group takes
 constexpr int kLd = kSplit * kBk + 4;        // floats of a staged row
 static_assert(kTx * kColsPer == kCols, "the thread tiles cover the columns");
 
-// bf16: 2 x 2 warps, 32 words x 40 columns each
+// 16-bit: 2 x 2 warps, 32 words x 40 columns each
 constexpr int kWordsH = 64;
 constexpr int kThreadsH = 128;
 constexpr int kGroups = 4;                   // cp.async groups over E
@@ -251,23 +254,23 @@ cross_mil_f32(const float* __restrict__ w,    // [M, E]
   }
 }
 
-// bf16: c += the products of a warp's 32 words (rows wm.., two m16 tiles of
-// ws) and 40 columns (rows wn.. of vs, five n8 tiles) over the k16 steps k0,
-// k0 + kStep, ... below k1 of the staged columns (rows of stride ld), one
-// mma.sync a tile and step, k increasing; tiles at or past nc columns are
-// skipped (warp-uniform).
-template <int kStep = 16>
+// 16-bit: c += the products of a warp's 32 words (rows wm.., two m16 tiles
+// of ws) and 40 columns (rows wn.. of vs, five n8 tiles) over the k16 steps
+// k0, k0 + kStep, ... below k1 of the staged columns (rows of stride ld), one
+// mma.sync of the type T16 a tile and step, k increasing; tiles at or past nc
+// columns are skipped (warp-uniform).
+template <typename T16, int kStep = 16>
 __device__ __forceinline__ void mma_words_cols(
-    float (&c)[2][5][4], const __nv_bfloat16* __restrict__ ws,
-    const __nv_bfloat16* __restrict__ vs, int ld, int k0, int k1, int wm,
-    int wn, int nc) {
+    float (&c)[2][5][4], const T16* __restrict__ ws,
+    const T16* __restrict__ vs, int ld, int k0, int k1, int wm, int wn,
+    int nc) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, tig = lane & 3;
   for (int k = k0; k < k1; k += kStep) {
     uint32_t x[2][4];
 #pragma unroll
     for (int mi = 0; mi < 2; ++mi) {
-      const __nv_bfloat16* p = ws + (wm + mi * 16 + g) * ld + k + 2 * tig;
+      const T16* p = ws + (wm + mi * 16 + g) * ld + k + 2 * tig;
       x[mi][0] = *reinterpret_cast<const uint32_t*>(p);
       x[mi][1] = *reinterpret_cast<const uint32_t*>(p + 8 * ld);
       x[mi][2] = *reinterpret_cast<const uint32_t*>(p + 8);
@@ -276,16 +279,16 @@ __device__ __forceinline__ void mma_words_cols(
 #pragma unroll
     for (int ni = 0; ni < 5; ++ni) {
       if (wn + ni * 8 >= nc) continue;    // dead columns: warp-uniform
-      const __nv_bfloat16* p = vs + (wn + ni * 8 + g) * ld + k + 2 * tig;
+      const T16* p = vs + (wn + ni * 8 + g) * ld + k + 2 * tig;
       const uint32_t y0 = *reinterpret_cast<const uint32_t*>(p);
       const uint32_t y1 = *reinterpret_cast<const uint32_t*>(p + 8);
-      mma_bf16(c[0][ni], x[0], y0, y1);
-      mma_bf16(c[1][ni], x[1], y0, y1);
+      mma16<T16>(c[0][ni], x[0], y0, y1);
+      mma16<T16>(c[1][ni], x[1], y0, y1);
     }
   }
 }
 
-// bf16: c += the raw sums a later group left in the scores tile.
+// 16-bit: c += the raw sums a later group left in the scores tile.
 __device__ __forceinline__ void add_scores(float (&c)[2][5][4],
                                            const float* __restrict__ sc,
                                            int wm, int wn) {
@@ -303,7 +306,7 @@ __device__ __forceinline__ void add_scores(float (&c)[2][5][4],
       }
 }
 
-// bf16: a warp's accumulators into the scores tile, -1e9 where a column's
+// 16-bit: a warp's accumulators into the scores tile, -1e9 where a column's
 // region is masked.
 __device__ __forceinline__ void store_scores(float* __restrict__ sc,
                                              const float (&c)[2][5][4],
@@ -323,17 +326,18 @@ __device__ __forceinline__ void store_scores(float* __restrict__ sc,
       }
 }
 
+template <typename T16>
 __global__ void __launch_bounds__(kThreadsH)
-cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
-               const __nv_bfloat16* __restrict__ v,   // [I, T, R, E]
-               const float* __restrict__ fm, const float* __restrict__ rm,
-               float* __restrict__ a, int* __restrict__ idx, int M, int T,
-               int R, int E) {
+cross_mil_mma(const T16* __restrict__ w,   // [M, E]
+              const T16* __restrict__ v,   // [I, T, R, E]
+              const float* __restrict__ fm, const float* __restrict__ rm,
+              float* __restrict__ a, int* __restrict__ idx, int M, int T,
+              int R, int E) {
   extern __shared__ __align__(16) float smem[];
   const int ep = (E + 15) & ~15;              // E padded to the MMA's depth
   const int ld = ep + 8;                      // elements; rows 16-byte aligned
-  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [kWordsH][ld]
-  __nv_bfloat16* vs = ws + kWordsH * ld;                       // [kCols][ld]
+  T16* ws = reinterpret_cast<T16*>(smem);     // [kWordsH][ld]
+  T16* vs = ws + kWordsH * ld;                // [kCols][ld]
   float* sc = reinterpret_cast<float*>(vs + kCols * ld);  // [kWordsH][kLdSc]
   float* live = sc + kWordsH * kLdSc;                     // [kCols]
 
@@ -344,7 +348,7 @@ cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
   const int warp = threadIdx.x >> 5;
   const int wm = (warp & 1) * 32, wn = (warp >> 1) * 40;
   const int kg = ((ep / 16 + kGroups - 1) / kGroups) * 16;  // columns a group
-  const __nv_bfloat16* wsrc = w + (size_t)m0 * E;
+  const T16* wsrc = w + (size_t)m0 * E;
   float best = -CUDART_INF_F;
   int arg = INT_MAX;
 
@@ -352,7 +356,7 @@ cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
     const int c0 = ch * kCols;
     const int nc = sp.multi ? min(kCols, R - c0) : sp.nf * R;
     const size_t col0 = ((size_t)i * T + sp.t0) * R + c0;
-    const __nv_bfloat16* vsrc = v + col0 * E;
+    const T16* vsrc = v + col0 * E;
     __syncthreads();                 // the last chunk's vs, sc and live
     for (int c = threadIdx.x; c < kCols; c += blockDim.x)
       live[c] = (c < nc && rm) ? rm[col0 + c] : 1.f;
@@ -393,12 +397,12 @@ cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
   }
 }
 
-// The general variant, for every bf16 shape outside the kernel above: E not
+// The general variant, for every 16-bit shape outside the kernel above: E not
 // a multiple of 4 (rows not 8-byte aligned) or above 512 (whole rows no
 // longer fit in shared memory). The same blocks (whole frames, or a long
 // frame in chunks), the same scores tile and the same segmented first
 // maximum, with E streamed so that shared memory does not grow with it.
-// The product is the bf16 kernel's (64 words x 80 columns, warps of 32
+// The product is the 16-bit kernel's (64 words x 80 columns, warps of 32
 // x 40, mma.sync m16n8k16, f32 accumulators) over E in stages of kChunkH
 // columns, a ring of kStagesH stages in shared memory (16-, 8- or 4-byte
 // cp.async as the rows allow; plain loads for odd E), each stage copied
@@ -417,26 +421,27 @@ cross_mil_bf16(const __nv_bfloat16* __restrict__ w,   // [M, E]
 // resolve to the first region. Bound at R = 36, E = 1024 (I = 16, M = 128,
 // T = 20, every region live): 3.0 GFLOP, ~3 us on bf16 tensor cores,
 // against 23.6 MB of bf16 v, ~7 us: bound by bytes.
-constexpr int kChunkH = 64;                  // columns of E a bf16 stage
+constexpr int kChunkH = 64;                  // columns of E a 16-bit stage
 constexpr int kLdH = kChunkH + 8;            // 144-byte rows: conflict-free
 constexpr int kStagesH = 3;
-constexpr int kStageH = (kWordsH + kCols) * kLdH;   // bf16 of a stage
+constexpr int kStageH = (kWordsH + kCols) * kLdH;   // elements of a stage
 constexpr int kSplitH = 2;                   // groups of 4 warps over k16
 constexpr int kThreadsG = kThreadsH * kSplitH;
 
+template <typename T16>
 __global__ void __launch_bounds__(kThreadsG)
-cross_mil_any(const __nv_bfloat16* __restrict__ w,   // [M, E]
-              const __nv_bfloat16* __restrict__ v,   // [I, T, R, E]
+cross_mil_any(const T16* __restrict__ w,   // [M, E]
+              const T16* __restrict__ v,   // [I, T, R, E]
               const float* __restrict__ fm, const float* __restrict__ rm,
               float* __restrict__ a, int* __restrict__ idx, int M, int T,
               int R, int E) {
   extern __shared__ __align__(16) float smem[];
-  __nv_bfloat16* stages = reinterpret_cast<__nv_bfloat16*>(smem);
+  T16* stages = reinterpret_cast<T16*>(smem);
   // the scores tile reuses the stages once the products are done
   float* sc = reinterpret_cast<float*>(stages);   // [kWordsH][kLdSc]
   float* live = reinterpret_cast<float*>(stages + kStagesH * kStageH);
   static_assert(kWordsH * kLdSc * sizeof(float) <=
-                kStagesH * kStageH * sizeof(__nv_bfloat16),
+                kStagesH * kStageH * sizeof(T16),
                 "the scores tile fits in the stages");
 
   const Span sp = block_span(T, R);
@@ -446,7 +451,7 @@ cross_mil_any(const __nv_bfloat16* __restrict__ w,   // [M, E]
   const int warp = threadIdx.x >> 5 & 3, grp = threadIdx.x >> 7;
   const int wm = (warp & 1) * 32, wn = (warp >> 1) * 40;
   const int nk = (E + kChunkH - 1) / kChunkH;
-  const __nv_bfloat16* wsrc = w + (size_t)m0 * E;
+  const T16* wsrc = w + (size_t)m0 * E;
   float best = -CUDART_INF_F;
   int arg = INT_MAX;
 
@@ -454,13 +459,13 @@ cross_mil_any(const __nv_bfloat16* __restrict__ w,   // [M, E]
     const int c0 = ch * kCols;
     const int nc = sp.multi ? min(kCols, R - c0) : sp.nf * R;
     const size_t col0 = ((size_t)i * T + sp.t0) * R + c0;
-    const __nv_bfloat16* vsrc = v + col0 * E;
+    const T16* vsrc = v + col0 * E;
     __syncthreads();               // the last chunk's sc and live
     for (int c = threadIdx.x; c < kCols; c += blockDim.x)
       live[c] = (c < nc && rm) ? rm[col0 + c] : 1.f;
     auto stage = [&](int ks) {     // one group a stage, empty past E
       if (ks < nk) {
-        __nv_bfloat16* d = stages + (ks % kStagesH) * kStageH;
+        T16* d = stages + (ks % kStagesH) * kStageH;
         stage_tile_any(d, wsrc, kWordsH, mw, E, ks * kChunkH, kChunkH,
                        kLdH);
         stage_tile_any(d + kWordsH * kLdH, vsrc, kCols, nc, E,
@@ -481,9 +486,9 @@ cross_mil_any(const __nv_bfloat16* __restrict__ w,   // [M, E]
       cp_async_wait(kStagesH - 2); // stage ks; the later ones may fly
       __syncthreads();             // ... for every thread; ks - 1 is read
       stage(ks + kStagesH - 1);    // into the slot of stage ks - 1
-      const __nv_bfloat16* d = stages + (ks % kStagesH) * kStageH;
-      mma_words_cols<16 * kSplitH>(c, d, d + kWordsH * kLdH, kLdH,
-                                   16 * grp, kChunkH, wm, wn, nc);
+      const T16* d = stages + (ks % kStagesH) * kStageH;
+      mma_words_cols<T16, 16 * kSplitH>(c, d, d + kWordsH * kLdH, kLdH,
+                                        16 * grp, kChunkH, wm, wn, nc);
     }
     cp_async_wait(0);              // (empty groups past E)
     __syncthreads();               // every warp's products are done
@@ -501,27 +506,26 @@ cross_mil_any(const __nv_bfloat16* __restrict__ w,   // [M, E]
 }
 
 // Whether the two kernels above take these sizes: f32 any E (E is staged
-// 64 columns at a time), bf16 E a multiple of 4 up to 512 (whole rows in
-// shared memory, 8- or 16-byte aligned). Every other bf16 shape takes
+// 64 columns at a time), 16-bit E a multiple of 4 up to 512 (whole rows in
+// shared memory, 8- or 16-byte aligned). Every other 16-bit shape takes
 // cross_mil_any.
-bool in_envelope(int is_bf16, int E) {
-  return !is_bf16 || (E >= 4 && E % 4 == 0 && E <= 512);
+bool in_envelope(bool wide, int E) {
+  return wide || (E >= 4 && E % 4 == 0 && E <= 512);
 }
 
 // Dynamic shared memory of one block, in bytes: 71,616 B in f32 at any E;
-// in bf16 97,088 B at E = 256 and 170,816 B at E = 512; 62,528 B in the
+// in 16 bits 97,088 B at E = 256 and 170,816 B at E = 512; 62,528 B in the
 // general variant at any E (three blocks an SM).
-size_t smem_any_bf16() {
-  return (size_t)kStagesH * kStageH * sizeof(__nv_bfloat16) +
-         (size_t)kCols * sizeof(float);
+size_t smem_any_16() {
+  return (size_t)kStagesH * kStageH * 2 + (size_t)kCols * sizeof(float);
 }
 size_t smem_f32() {
   return (size_t)(2 * (kWordsF + kCols) * kLd + kWordsF * kLdSc + kCols) *
          sizeof(float);
 }
-size_t smem_bf16(int E) {
+size_t smem_16(int E) {
   const int ld = ((E + 15) & ~15) + 8;
-  return (size_t)(kWordsH + kCols) * ld * sizeof(__nv_bfloat16) +
+  return (size_t)(kWordsH + kCols) * ld * 2 +
          (size_t)(kWordsH * kLdSc + kCols) * sizeof(float);
 }
 
@@ -544,34 +548,47 @@ int launch(Kern kern, int words, int threads, size_t smem, const void* w,
   return (int)cudaGetLastError();
 }
 
+// The kernel of these sizes for operands of type Tin.
+template <typename Tin>
+int run(const void* w, const void* v, const float* fm, const float* rm,
+        float* a, int* idx, int I, int M, int T, int R, int E,
+        cudaStream_t s) {
+  if constexpr (sizeof(Tin) == 4) {
+    return launch<float>(cross_mil_f32, kWordsF, kThreadsF, smem_f32(), w, v,
+                         fm, rm, a, idx, I, M, T, R, E, s);
+  } else {
+    if (!in_envelope(false, E))
+      return launch<Tin>(cross_mil_any<Tin>, kWordsH, kThreadsG,
+                         smem_any_16(), w, v, fm, rm, a, idx, I, M, T, R, E,
+                         s);
+    return launch<Tin>(cross_mil_mma<Tin>, kWordsH, kThreadsH, smem_16(E), w,
+                       v, fm, rm, a, idx, I, M, T, R, E, s);
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// w [M, E] and v [I, T, R, E] are float* when is_bf16 == 0 and
-// __nv_bfloat16* otherwise; fm [I, T] and rm [I, T, R] (may be null: every
-// region valid) are f32; a [I, M, T] f32 and idx [I, M, T] int32 are written
-// whole. All tensors are contiguous; w and v are 16-byte aligned. Shapes
-// in_envelope takes run the kernels above, every other the general variant.
-// Limits (the grid's): R >= 1, E >= 1, I <= 65535, ceil(M / 32) <= 65535.
-int nafae_cross_mil(const void* w, const void* v, int is_bf16, const float* fm,
+// w [M, E] and v [I, T, R, E] are of the type of the dtype code: float* (0),
+// __nv_bfloat16* (1) or __half* (2; any other code is refused); fm [I, T]
+// and rm [I, T, R] (may be null: every region valid) are f32; a [I, M, T]
+// f32 and idx [I, M, T] int32 are written whole. All tensors are
+// contiguous; w and v are 16-byte aligned. Shapes in_envelope takes run the
+// kernels above, every other the general variant. Limits (the grid's):
+// R >= 1, E >= 1, I <= 65535, ceil(M / 32) <= 65535.
+int nafae_cross_mil(const void* w, const void* v, int dtype, const float* fm,
                     const float* rm, float* a, int* idx, int I, int M, int T,
                     int R, int E, void* stream) {
   if (R < 1 || E < 1 || I < 0 || I > 65535 || M < 0 || T < 0 ||
-      (M + kWordsF - 1) / kWordsF > 65535)
+      (M + kWordsF - 1) / kWordsF > 65535 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   if (I == 0 || M == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!in_envelope(is_bf16, E))
-    return launch<__nv_bfloat16>(cross_mil_any, kWordsH, kThreadsG,
-                                 smem_any_bf16(), w, v, fm, rm, a, idx, I, M,
-                                 T, R, E, s);
-  return is_bf16
-      ? launch<__nv_bfloat16>(cross_mil_bf16, kWordsH, kThreadsH, smem_bf16(E),
-                              w, v, fm, rm, a, idx, I, M, T, R, E, s)
-      : launch<float>(cross_mil_f32, kWordsF, kThreadsF, smem_f32(), w, v, fm,
-                      rm, a, idx, I, M, T, R, E, s);
+  return by_dtype(dtype, (int)cudaErrorInvalidValue, [&](auto tag) {
+    return run<decltype(tag)>(w, v, fm, rm, a, idx, I, M, T, R, E, s);
+  });
 }
 
 
@@ -579,17 +596,16 @@ int nafae_cross_mil(const void* w, const void* v, int is_bf16, const float* fm,
 // memory that nafae_cross_mil would use for these sizes (the general
 // variant's where it would take it): the launch floor the measured times are
 // judged against. Same limits and return value.
-int nafae_cross_mil_floor(int is_bf16, int I, int M, int T, int R, int E,
+int nafae_cross_mil_floor(int dtype, int I, int M, int T, int R, int E,
                           void* stream) {
   if (R < 1 || E < 1 || I < 1 || I > 65535 || M < 1 || T < 1 ||
-      (M + kWordsF - 1) / kWordsF > 65535)
+      (M + kWordsF - 1) / kWordsF > 65535 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
-  const bool spec = in_envelope(is_bf16, E);
-  const int words = is_bf16 ? kWordsH : kWordsF;
-  const int threads = !is_bf16 ? kThreadsF : spec ? kThreadsH : kThreadsG;
-  const size_t smem = !is_bf16 ? smem_f32()
-                      : spec     ? smem_bf16(E)
-                                 : smem_any_bf16();
+  const bool wide = dtype == 0;               // f32 operands
+  const bool spec = in_envelope(wide, E);
+  const int words = wide ? kWordsF : kWordsH;
+  const int threads = wide ? kThreadsF : spec ? kThreadsH : kThreadsG;
+  const size_t smem = wide ? smem_f32() : spec ? smem_16(E) : smem_any_16();
   cudaError_t err = cudaFuncSetAttribute(
       null_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

@@ -65,6 +65,15 @@ __device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) {
 __device__ __forceinline__ void store_as(__half* p, float x) {
   *p = __float2half_rn(x);
 }
+// Two consecutive 16-bit elements from f32, one 4-byte store (p 4-byte
+// aligned).
+__device__ __forceinline__ void store2_as(__nv_bfloat16* p, float x,
+                                          float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store2_as(__half* p, float x, float y) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(x, y);
+}
 
 __device__ __forceinline__ float load1(const float* p) { return *p; }
 __device__ __forceinline__ float load1(const __nv_bfloat16* p) {

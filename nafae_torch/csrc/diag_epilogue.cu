@@ -9,14 +9,15 @@
 //
 //   s[r]  = w[k] . v[t, r],   sh[r] = w[k] . u[t, r]     (u: stop-gradient)
 //   live  = rm[t, r] > 0;     m[r] = live && fm[t] > 0 && hc[t] > 0
-//   ctx   = sum_r m ? (s - sh)^2 : 0     (each term rounded to bf16 in bf16
-//                                          mode, as fused_ctx.py::_sel_dot)
+//   ctx   = sum_r m ? (s - sh)^2 : 0     (each term rounded to the 16-bit
+//                                          type in bf16 or f16 mode, as
+//                                          fused_ctx.py::_sel_dot)
 //   r*    = first argmax_r of (live ? s : -1e9)  (frame validity ignored; an
 //           all-masked frame picks region 0)
 //   f     = v[t, r*]                                     (exact, f32)
 //   c*    = first argmax_c of f . ch[c],  ch[c] = C[c] / sqrt(|C[c]|^2 + 1e-8)
-//           (ch rounded to bf16 in bf16 mode)
-//   clu   = |f - C[c*]|^2     (C[c*] rounded to bf16 in bf16 mode)
+//           (ch rounded to the 16-bit type in bf16 or f16 mode)
+//   clu   = |f - C[c*]|^2     (C[c*] rounded the same way)
 //
 // Outputs ctx, clu [B, K, T] f32 and f [B, T, K, E] f32, and the residuals
 // that the backward (diag_epilogue_bwd.cu) reads instead of re-running this
@@ -43,13 +44,14 @@
 //                the lower index on equal values.
 //            (b) Centers: f = v[t, r*] goes to shared memory (and to f);
 //                the 3 workers share a ring of chunks of ch copied by
-//                cp.async (f32: 4 slots of 20 centers; bf16: 3 of 32; all
-//                of config4's 67 are in flight at once). f32: each warp takes
-//                the centers j = warp (mod 4) with the pass's f in
+//                cp.async (f32: 4 slots of 20 centers; 16-bit: 3 of 32;
+//                all of config4's 67 are in flight at once). f32: each warp
+//                takes the centers j = warp (mod 4) with the pass's f in
 //                registers, 8 FFMA dots and one transposed butterfly a
-//                center. bf16: mma.sync m16n8k16 on the tensor cores, the
-//                words as A (8 rows of zeros below), a warp an n8 tile of
-//                centers, f32 accumulators; f is a row of v, exact in bf16.
+//                center. bf16 and f16 (one code, a template on the type):
+//                mma.sync m16n8k16 on the tensor cores, the words as A (8
+//                rows of zeros below), a warp an n8 tile of centers, f32
+//                accumulators; f is a row of v, exact in its type.
 //                Each lane keeps a running first maximum, the 4 warps'
 //                maxima meet in shared memory (the lower index on equal
 //                values), and a warp per word sums |f - C[c*]|^2.
@@ -70,12 +72,12 @@
 // E=256, Kc=67, f32): 2*2*B*K*T*R*E + 2*B*K*T*Kc*E = 140 MFLOP (~2.1 us at
 // 67 TFLOP/s) against ~15.8 MB moved (v and u 6.6 MB each, f 1.3 MB, the
 // residuals, w, centers, masks), ~4.7 us at 3.35 TB/s: bound by bytes. In
-// bf16, v and u are half the bytes: ~2.7 us. These count every region as
-// live and the residuals as needed; the function needs only ctx, clu and f
-// written, v at live regions (region 0 of an all-masked frame) and u at the
-// ctx mask, so chip_smoke.py counts the bound from a batch's masks, without
-// the residuals. What is left above the bound: the two launches, and on
-// each SM three frames' dots with 12 warps to hide the latency of the
+// bf16 and f16, v and u are half the bytes: ~2.7 us. These count every
+// region as live and the residuals as needed; the function needs only ctx,
+// clu and f written, v at live regions (region 0 of an all-masked frame)
+// and u at the ctx mask, so chip_smoke.py counts the bound from a batch's
+// masks, without the residuals. What is left above the bound: the two
+// launches, and on each SM three frames' dots with 12 warps to hide the latency of the
 // dependent butterflies and loads (the 8 x 67 sims of a frame are most of
 // the f32 work). PERF.md has the measured times.
 
@@ -93,24 +95,21 @@ constexpr int kCenterThreads = 256;   // the centers kernel: a warp a center
 constexpr int kRegions = 32;    // regions of a chunk: one lane each in the scan
 
 // The ring of ch chunks in shared memory. f32: 20 centers a slot, rows of
-// E padded to 128, 4 slots. bf16 (tensor cores): 32 centers a slot (one n8
-// tile a warp), rows of E padded to 16 and 8 more (no bank conflicts in the
-// fragment loads), 3 slots. Either way config4's 67 centers are in flight
-// at once.
+// E padded to 128, 4 slots. 16-bit (tensor cores): 32 centers a slot (one
+// n8 tile a warp), rows of E padded to 16 and 8 more (no bank conflicts in
+// the fragment loads), 3 slots. Either way config4's 67 centers are in
+// flight at once.
 template <typename Tin>
 struct RingOf {
-  static constexpr int rows = 20, slots = 4;
-};
-template <>
-struct RingOf<__nv_bfloat16> {
-  static constexpr int rows = 32, slots = 3;
+  static constexpr int rows = sizeof(Tin) == 2 ? 32 : 20;
+  static constexpr int slots = sizeof(Tin) == 2 ? 3 : 4;
 };
 
 __host__ __device__ __forceinline__ int padded16(int E) {
   return (E + 15) & ~15;
 }
 
-// Elements of a row of the ring (and of the bf16 rows of f): f32 rows are
+// Elements of a row of the ring (and of the 16-bit rows of f): f32 rows are
 // padded with zeros to whole 128-column steps of the lanes' quads, so the
 // sims read every quad unguarded.
 template <typename Tin>
@@ -221,8 +220,8 @@ __host__ __device__ __forceinline__ int worker_floats(int K, int E, int kw) {
          ~3;
 }
 
-// Bytes of a worker's shared memory: the floats, and in bf16 the pass's f
-// as 16 bf16 rows (the A operand of the sims; rows kW.. zero).
+// Bytes of a worker's shared memory: the floats, and in 16 bits the pass's
+// f as 16 rows of the type (the A operand of the sims; rows kW.. zero).
 template <typename Tin>
 __host__ __device__ __forceinline__ int worker_bytes(int K, int E, int kw) {
   return worker_floats(K, E, kw) * 4 +
@@ -237,7 +236,7 @@ __host__ __device__ __forceinline__ int ring_bytes(int E) {
 }
 
 // Chunk i of ch (its rows of ch, zero beyond Kc and E) into ring slot
-// i % slots by cp.async, 16-byte copies (8-byte for bf16 rows that are not
+// i % slots by cp.async, 16-byte copies (8-byte for 16-bit rows that are not
 // 16-byte aligned); every thread commits one group, empty past the end.
 template <typename Tin>
 __device__ __forceinline__ void fetch_centers(Tin* __restrict__ ring,
@@ -302,6 +301,7 @@ diag_fwd_kernel(const Tin* __restrict__ w,          // [B, K, E]
   const int wt = threadIdx.x - worker * kWorker;   // thread of the worker
   constexpr int kRows = RingOf<Tin>::rows, kSlots = RingOf<Tin>::slots;
   constexpr bool kMma = sizeof(Tin) == 2;   // the sims on tensor cores
+  using T16 = std::conditional_t<kMma, Tin, __nv_bfloat16>;   // f's rows
   const int ld = ring_ld<Tin>(E);
   Tin* ring = reinterpret_cast<Tin*>(smem);   // [kSlots][kRows][ld] ch
   float* fs = reinterpret_cast<float*>(
@@ -316,8 +316,8 @@ diag_fwd_kernel(const Tin* __restrict__ w,          // [B, K, E]
   int* arg = reinterpret_cast<int*>(gbest + kWarps * kW);   // [K] r*
   int* garg = arg + K;                      // [kWarps][kW]       their c
   int* cs = garg + kWarps * kW;             // [kW]               c*
-  __nv_bfloat16* fsh = reinterpret_cast<__nv_bfloat16*>(
-      fs + worker_floats(K, E, kW));      // bf16: [16][ld]     f, as bf16
+  T16* fsh = reinterpret_cast<T16*>(
+      fs + worker_floats(K, E, kW));      // 16-bit: [16][ld]   f, as T16
 
   const int frame = blockIdx.x * kFrames + worker;   // (b, t) of the worker
   const bool live = frame < B * T;
@@ -338,7 +338,7 @@ diag_fwd_kernel(const Tin* __restrict__ w,          // [B, K, E]
   }
   if (kMma && live)                   // the padding rows and columns of f
     for (int p = wt; p < 16 * ld; p += kWorker)
-      fsh[p] = __float2bfloat16_rn(0.f);
+      store_as(fsh + p, 0.f);
 
   // (a) s, sh, the ctx terms, the residual and the first-max region, kW
   // words a pass; each worker on its own frame
@@ -446,11 +446,9 @@ diag_fwd_kernel(const Tin* __restrict__ w,          // [B, K, E]
           reinterpret_cast<float4*>(fs + kk * E)[q] = x;
           reinterpret_cast<float4*>(f + (bt * K + k) * E)[q] = x;
         }
-        if (kMma) {                   // exact: x is a bf16 value
-          __nv_bfloat162* h =
-              reinterpret_cast<__nv_bfloat162*>(fsh + kk * ld + 4 * q);
-          h[0] = __floats2bfloat162_rn(x.x, x.y);
-          h[1] = __floats2bfloat162_rn(x.z, x.w);
+        if (kMma) {                   // exact: x is a value of type Tin
+          store2_as(fsh + kk * ld + 4 * q, x.x, x.y);
+          store2_as(fsh + kk * ld + 4 * q + 2, x.z, x.w);
         }
       }
     }
@@ -479,8 +477,8 @@ diag_fwd_kernel(const Tin* __restrict__ w,          // [B, K, E]
           for (int k = 0; k < padded16(E); k += 16) {
             uint32_t a[4];
             frag_a(a, fsh, ld, 0, k);
-            const __nv_bfloat16* q = ring + (n0 + g) * ld + k + 2 * tig;
-            mma_bf16(d, a, lds32(q), lds32(q + 8));
+            const Tin* q = ring + (n0 + g) * ld + k + 2 * tig;
+            mma16<Tin>(d, a, lds32(q), lds32(q + 8));
           }
           const int c = n0 + 2 * tig;  // in order: the first max
           if (c < cc && d[0] > top) {
@@ -688,11 +686,12 @@ int run(const void* w, const void* v, const void* u, const float* centers,
 //           normalised centers a pass (all of config 4's 67) once, writes f
 //           from the staged rows, and forms the sims: f32 on CUDA cores (a
 //           thread 4 rows x 2 centers, one fmaf order for every output, so
-//           equal rows of ch tie), bf16 on mma.sync with f32 accumulators
-//           (a warp one or two n8 tiles of centers, as the main kernel's
-//           bf16 sims; f is a row of v, exact in bf16, and ch is rounded as
-//           the reference rounds it). c* is the first maximum ((value, index)
-//           butterflies, the lower center on equal values); then clu =
+//           equal rows of ch tie), bf16 and f16 on mma.sync with f32
+//           accumulators (a warp one or two n8 tiles of centers, as the
+//           main kernel's 16-bit sims; f is a row of v, exact in its type,
+//           and ch is rounded as the reference rounds it). c* is the
+//           first maximum ((value, index) butterflies, the lower center on
+//           equal values); then clu =
 //           |f - C[c*]|^2 (C[c*] rounded where the reference rounds it), a
 //           warp a row, from f as this block wrote it.
 //
@@ -928,7 +927,7 @@ diag_sims_any(const Tin* __restrict__ v, const Tin* __restrict__ chat,
               const int* __restrict__ rstar, float* __restrict__ clu,
               float* __restrict__ f, int* __restrict__ cstar, int B, int K,
               int T, int R, int E, int Kc) {
-  constexpr bool kMma = sizeof(Tin) == 2;        // bf16 sims on mma.sync
+  constexpr bool kMma = sizeof(Tin) == 2;        // 16-bit sims on mma.sync
   constexpr int ld = stage_ld<Tin>(kGenK);
   constexpr int NR = kSimRows;
   constexpr int kWarps = kGenThreads / 32;
@@ -951,7 +950,7 @@ diag_sims_any(const Tin* __restrict__ v, const Tin* __restrict__ chat,
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tr = threadIdx.x >> 6;               // f32: rows 4 tr..
   const int tc = threadIdx.x & 63;               // ... centers tc, tc + 64
-  const int g4 = lane >> 2, tig = lane & 3;      // bf16: fragment lanes
+  const int g4 = lane >> 2, tig = lane & 3;      // 16-bit: fragment lanes
 
   wait_for_primary();                            // r* (and ch) are written
   for (int i = threadIdx.x; i < NR; i += blockDim.x) {
@@ -979,9 +978,9 @@ diag_sims_any(const Tin* __restrict__ v, const Tin* __restrict__ chat,
       }
       cp_async_commit();
     };
-    // f32: a thread's 4 rows x its centers tc and tc + 64; bf16: a warp's
+    // f32: a thread's 4 rows x its centers tc and tc + 64; 16-bit: a warp's
     // n8 tiles of centers warp, warp + 8 (all 16 rows, one m16 tile)
-    float acc[4][2], mac[2][4];                  // f32, bf16
+    float acc[4][2], mac[2][4];                  // f32, 16-bit
     for (auto& x : acc) x[0] = x[1] = 0.f;
     for (auto& x : mac) x[0] = x[1] = x[2] = x[3] = 0.f;
     const bool two = kMma ? 8 * (warp + kWarps) < cc : tc + 64 < cc;
@@ -1003,11 +1002,11 @@ diag_sims_any(const Tin* __restrict__ v, const Tin* __restrict__ chat,
         for (int k = 0; k < kGenK; k += 16) {
           uint32_t x[4];
           frag_a(x, F, ld, 0, k);
-          const __nv_bfloat16* q = C + (8 * warp + g4) * ld + k + 2 * tig;
-          mma_bf16(mac[0], x, lds32(q), lds32(q + 8));
+          const Tin* q = C + (8 * warp + g4) * ld + k + 2 * tig;
+          mma16<Tin>(mac[0], x, lds32(q), lds32(q + 8));
           if (two) {
             q += 8 * kWarps * ld;
-            mma_bf16(mac[1], x, lds32(q), lds32(q + 8));
+            mma16<Tin>(mac[1], x, lds32(q), lds32(q + 8));
           }
         }
       } else {
@@ -1199,16 +1198,16 @@ extern "C" {
 
 // Launches the kernels (two, or three in the general variant) on `stream`
 // and returns the cudaError_t of the launches (0 = ok). w [B, K, E], v and
-// u [B, T, R, E] and the scratch chat [Kc, E] are float* when is_bf16 == 0
-// and __nv_bfloat16* otherwise;
-// centers [Kc, E], fm and hc [B, T] and rm [B, T, R] (may be null: every
-// region valid) are f32. Written whole: ctx, clu [B, K, T] f32, f
-// [B, T, K, E] f32, dres [B, K, T, R] f32, rstar and cstar [B, K, T] int32.
-// All tensors are contiguous; w, v, u, centers, chat and f are 16-byte
-// aligned. Shapes in_envelope takes run the kernels above, every other the
-// general variant. Limits: K, R, Kc, E >= 1, B <= 65535, B T < 2^31 and
-// B T K / 16 < 2^31.
-int nafae_diag_fwd(const void* w, const void* v, const void* u, int is_bf16,
+// u [B, T, R, E] and the scratch chat [Kc, E] are of the type of the dtype
+// code: float* (0), __nv_bfloat16* (1) or __half* (2; any other code is
+// refused); centers [Kc, E], fm and hc [B, T] and rm [B, T, R] (may be
+// null: every region valid) are f32. Written whole: ctx, clu [B, K, T] f32,
+// f [B, T, K, E] f32, dres [B, K, T, R] f32, rstar and cstar [B, K, T]
+// int32. All tensors are contiguous; w, v, u, centers, chat and f are
+// 16-byte aligned. Shapes in_envelope takes run the kernels above, every
+// other the general variant. Limits: K, R, Kc, E >= 1, B <= 65535,
+// B T < 2^31 and B T K / 16 < 2^31.
+int nafae_diag_fwd(const void* w, const void* v, const void* u, int dtype,
                    const float* centers, void* chat, const float* fm,
                    const float* hc, const float* rm, float* ctx, float* clu,
                    float* f, float* dres, int* rstar, int* cstar, int B, int K,
@@ -1217,17 +1216,14 @@ int nafae_diag_fwd(const void* w, const void* v, const void* u, int is_bf16,
     return (int)cudaErrorInvalidValue;
   if (B == 0 || T == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!in_envelope(K, E))
-    return is_bf16
-        ? run_any<__nv_bfloat16>(w, v, u, centers, chat, fm, hc, rm, ctx, clu,
-                                 f, dres, rstar, cstar, B, K, T, R, E, Kc, s)
-        : run_any<float>(w, v, u, centers, chat, fm, hc, rm, ctx, clu, f,
-                         dres, rstar, cstar, B, K, T, R, E, Kc, s);
-  return is_bf16
-      ? run<__nv_bfloat16>(w, v, u, centers, chat, fm, hc, rm, ctx, clu, f,
+  const bool spec = in_envelope(K, E);
+  return by_dtype(dtype, (int)cudaErrorInvalidValue, [&](auto tag) {
+    using Tin = decltype(tag);
+    return spec ? run<Tin>(w, v, u, centers, chat, fm, hc, rm, ctx, clu, f,
                            dres, rstar, cstar, B, K, T, R, E, Kc, s)
-      : run<float>(w, v, u, centers, chat, fm, hc, rm, ctx, clu, f, dres,
-                   rstar, cstar, B, K, T, R, E, Kc, s);
+                : run_any<Tin>(w, v, u, centers, chat, fm, hc, rm, ctx, clu,
+                               f, dres, rstar, cstar, B, K, T, R, E, Kc, s);
+  });
 }
 
 // Launches empty kernels with the grids, block sizes and dynamic shared
@@ -1235,29 +1231,26 @@ int nafae_diag_fwd(const void* w, const void* v, const void* u, int is_bf16,
 // as the programmatic dependent of the one before (two kernels, or three in
 // the general variant): the launch floor the measured times are judged
 // against. Same limits and return value.
-int nafae_diag_fwd_floor(int is_bf16, int B, int K, int T, int R, int E,
+int nafae_diag_fwd_floor(int dtype, int B, int K, int T, int R, int E,
                          int Kc, void* stream) {
   if (bad_sizes(B, K, T, R, E, Kc) || B < 1 || T < 1)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int err = launch_dyn(null_kernel, centers_grid(Kc), kCenterThreads,
-                             0, s, false);
-  if (err != 0) return err;
-  if (!in_envelope(K, E)) {
-    const size_t smem = is_bf16 ? scores_smem<__nv_bfloat16>(K, R)
-                                : scores_smem<float>(K, R);
-    const int e2 = launch_dyn(null_kernel, dim3((unsigned)(B * T)),
-                              kGenThreads, smem, s, true);
-    if (e2 != 0) return e2;
-    return launch_dyn(null_kernel, sims_grid(B, K, T), kGenThreads,
-                      is_bf16 ? sims_smem<__nv_bfloat16>(Kc)
-                              : sims_smem<float>(Kc),
-                      s, true);
-  }
-  return launch_dyn(null_kernel, main_grid(B, T), kThreads,
-                    is_bf16 ? smem_bytes<__nv_bfloat16>(K, E)
-                            : smem_bytes<float>(K, E),
-                    s, true);
+  return by_dtype(dtype, (int)cudaErrorInvalidValue, [&](auto tag) {
+    using Tin = decltype(tag);
+    const int err = launch_dyn(null_kernel, centers_grid(Kc), kCenterThreads,
+                               0, s, false);
+    if (err != 0) return err;
+    if (!in_envelope(K, E)) {
+      const int e2 = launch_dyn(null_kernel, dim3((unsigned)(B * T)),
+                                kGenThreads, scores_smem<Tin>(K, R), s, true);
+      if (e2 != 0) return e2;
+      return launch_dyn(null_kernel, sims_grid(B, K, T), kGenThreads,
+                        sims_smem<Tin>(Kc), s, true);
+    }
+    return launch_dyn(null_kernel, main_grid(B, T), kThreads,
+                      smem_bytes<Tin>(K, E), s, true);
+  });
 }
 
 }  // extern "C"

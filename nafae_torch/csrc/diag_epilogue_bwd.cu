@@ -8,10 +8,12 @@
 // residuals d = m ? s - sh : 0 [B, K, T, R], r* and c* [B, K, T] and its
 // output f [B, T, K, E], per video b, word k, frame t:
 //
-//   ds[r]     = (2 dctx[k, t]) d[k, t, r]    (dctx and then ds rounded to bf16
-//                                            in bf16 mode, as _bwd_kernel)
-//   df        = (2 dclu[k, t]) (f[t, k] - C[c*])      (rounded to bf16 in bf16
-//                                            mode; C[c*] too, as the forward)
+//   ds[r]     = (2 dctx[k, t]) d[k, t, r]    (dctx and then ds rounded to the
+//                                            16-bit type in bf16 or f16 mode,
+//                                            as _bwd_kernel; f16 subnormals
+//                                            kept, no flush to zero)
+//   df        = (2 dclu[k, t]) (f[t, k] - C[c*])      (rounded the same way;
+//                                            C[c*] too, as the forward)
 //   dw[k]     = sum_t sum_r ds[r] v[t, r]
 //   dv[t, r]  = sum_k ds[r] w[k] + sum_{k : r*[k, t] = r} df
 //
@@ -330,7 +332,7 @@ int launch(const void* w, const void* v, const float* centers,
 //       (rounded where the reference rounds it) into shared memory. The
 //       listed rows of v stream through a ring of kDwStages stages of 32
 //       rows. Thread (quad, word octet, row group) sums 8 words x 4 columns
-//       over its rows on CUDA cores, in bf16 too (2 B K T R E = 94 MFLOP at
+//       over its rows on CUDA cores, in 16 bits too (2 B K T R E = 94 MFLOP at
 //       R = 36, E = 1024: 1.4 us at the f32 rate), and the row groups' sums
 //       meet in shared memory in a fixed order. Where the grid would have
 //       fewer than kDwBlocksMin dw blocks (E = 50: 16), P = 2, 4 or 8 blocks
@@ -902,15 +904,16 @@ bool bad_sizes(int B, int K, int T, int R, int E) {
 extern "C" {
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// w [B, K, E] and v [B, T, R, E] are float* when is_bf16 == 0 and
-// __nv_bfloat16* otherwise; centers [Kc, E], dres [B, K, T, R], f
-// [B, T, K, E], dctx and dclu [B, K, T] are f32, rstar and cstar [B, K, T]
-// int32 (the forward's). Written whole: dw [B, K, E] and dv [B, T, R, E],
-// f32. All tensors are contiguous; w, v, centers, f, dw and dv are 16-byte
-// aligned. Shapes in_envelope takes run the kernel above, every other the
-// general variant. Limits: K, R, E >= 1, B <= 65535, T R < 2^31 and
+// w [B, K, E] and v [B, T, R, E] are of the type of the dtype code: float*
+// (0), __nv_bfloat16* (1) or __half* (2; any other code is refused);
+// centers [Kc, E], dres [B, K, T, R], f [B, T, K, E], dctx and dclu
+// [B, K, T] are f32, rstar and cstar [B, K, T] int32 (the forward's).
+// Written whole: dw [B, K, E] and dv [B, T, R, E], f32. All tensors are
+// contiguous; w, v, centers, f, dw and dv are 16-byte aligned. Shapes
+// in_envelope takes run the kernel above, every other the general variant.
+// Limits: K, R, E >= 1, B <= 65535, T R < 2^31 and
 // B (T + 9) ceil(E / 64) < 2^31.
-int nafae_diag_bwd(const void* w, const void* v, int is_bf16,
+int nafae_diag_bwd(const void* w, const void* v, int dtype,
                    const float* centers, const float* dres, const int* rstar,
                    const int* cstar, const float* f, const float* dctx,
                    const float* dclu, float* dw, float* dv, int B, int K,
@@ -918,41 +921,39 @@ int nafae_diag_bwd(const void* w, const void* v, int is_bf16,
   if (bad_sizes(B, K, T, R, E)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!in_envelope(K, E))
-    return is_bf16
-        ? launch_any<__nv_bfloat16>(w, v, centers, dres, rstar, cstar, f,
-                                    dctx, dclu, dw, dv, B, K, T, R, E, s)
-        : launch_any<float>(w, v, centers, dres, rstar, cstar, f, dctx, dclu,
-                            dw, dv, B, K, T, R, E, s);
-  return is_bf16
-      ? launch<__nv_bfloat16>(w, v, centers, dres, rstar, cstar, f, dctx,
+  const bool spec = in_envelope(K, E);
+  return by_dtype(dtype, (int)cudaErrorInvalidValue, [&](auto tag) {
+    using Tin = decltype(tag);
+    return spec ? launch<Tin>(w, v, centers, dres, rstar, cstar, f, dctx,
                               dclu, dw, dv, B, K, T, R, E, s)
-      : launch<float>(w, v, centers, dres, rstar, cstar, f, dctx, dclu, dw,
-                      dv, B, K, T, R, E, s);
+                : launch_any<Tin>(w, v, centers, dres, rstar, cstar, f, dctx,
+                                  dclu, dw, dv, B, K, T, R, E, s);
+  });
 }
 
 // Launches an empty kernel with the grid, block size and dynamic shared
 // memory that nafae_diag_bwd would use for these sizes (the general
 // variant's where it would take it): the launch floor the measured times are
 // judged against. Same limits and return value.
-int nafae_diag_bwd_floor(int is_bf16, int B, int K, int T, int R, int E,
+int nafae_diag_bwd_floor(int dtype, int B, int K, int T, int R, int E,
                          void* stream) {
   if (bad_sizes(B, K, T, R, E) || B < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!in_envelope(K, E)) {
-    const int err = launch_clusters(
-        null_kernel, grid_any(B, K, T, E),
-        is_bf16 ? smem_any<__nv_bfloat16>(B, K, R, E)
-                : smem_any<float>(B, K, R, E),
-        dw_parts(B, K, E), s);
-    return err != 0 ? err : (int)cudaGetLastError();
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      null_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem_bytes(K, E));
-  if (err != cudaSuccess) return (int)err;
-  null_kernel<<<grid_of(B, T, E), kThreads, smem_bytes(K, E), s>>>();
-  return (int)cudaGetLastError();
+  return by_dtype(dtype, (int)cudaErrorInvalidValue, [&](auto tag) {
+    using Tin = decltype(tag);
+    if (!in_envelope(K, E)) {
+      const int err = launch_clusters(null_kernel, grid_any(B, K, T, E),
+                                      smem_any<Tin>(B, K, R, E),
+                                      dw_parts(B, K, E), s);
+      return err != 0 ? err : (int)cudaGetLastError();
+    }
+    cudaError_t err = cudaFuncSetAttribute(
+        null_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem_bytes(K, E));
+    if (err != cudaSuccess) return (int)err;
+    null_kernel<<<grid_of(B, T, E), kThreads, smem_bytes(K, E), s>>>();
+    return (int)cudaGetLastError();
+  });
 }
 
 }  // extern "C"

@@ -12,9 +12,11 @@
 // lo + (p + (s + 0.5) / sr) * cell clipped to [0, size - 1] after - 0.5, and
 // the weight the mean over the sr samples of relu(1 - |pt - h|). They are
 // built here in the reference's order of f32 operations (no FMA), and with
-// bf16 features rounded to bf16 as the reference rounds them. Sums are f32
-// and the output is f32 in both dtypes, [F * R, P, P, C]: a C5 head reads it
-// as channels_last [N, C, P, P] without a copy.
+// 16-bit features (bf16 or f16) rounded to the features' type as the
+// reference rounds them. Sums are f32 and the output is f32 in every dtype,
+// [F * R, P, P, C]: a C5 head reads it as channels_last [N, C, P, P]
+// without a copy. The kernel is a template on the features' type: f16 runs
+// bf16's code, with its weights rounded to f16.
 //
 // Design: the TPU computes two dense MXU contractions over the whole map; here
 // each output cell sums only over its support, at most 2 * sr rows and 2 * sr
@@ -28,7 +30,7 @@
 // index, at most 2 * sr (the reference's order of f32 operations, no FMA).
 // The work item is one output column (box, q). A team of 8 lanes takes it,
 // each lane 4 channels (one 16-byte shared load a tap in f32, 8 bytes in
-// bf16), with 7 x 4 register accumulators. For each p and each row h of p's
+// 16 bits), with 7 x 4 register accumulators. For each p and each row h of p's
 // entries, in increasing h, it forms st = sum_w wx[q, w] * feat[h, w, c] over
 // q's entries in increasing w, then acc[p] = fmaf(wy[p, h], st, acc[p]): the
 // reference's order (over w, then over h), so the output equals the earlier
@@ -37,15 +39,15 @@
 // the same bits). Each (p, q) of a box is one 128-byte store a team.
 //
 // Which sizes take which way. The touched part of a [40, 40] map (config 5) in
-// a slice of 32 channels is at most 204,800 B in f32 and 102,400 B in bf16 and
-// is staged whole, beside 10 KB of weights for 20 boxes: one block an SM in
-// f32, two in bf16. Slices of 16 f32 channels (two blocks an SM, 64-byte
+// a slice of 32 channels is at most 204,800 B in f32 and 102,400 B in 16
+// bits and is staged whole, beside 10 KB of weights for 20 boxes: one block an SM in
+// f32, two in 16 bits. Slices of 16 f32 channels (two blocks an SM, 64-byte
 // segments) measured slower, as did 8 channels a lane and 256 or 512 threads;
 // 384 threads are 48 teams, so 20 boxes' 140 items take 3 turns (PERF.md has
 // the numbers). When the
 // frame's touched part does not fit in the block's shared memory (above about
-// 1,700 touched cells in f32, 3,400 in bf16), it is staged in bands of as many
-// rows as fit, the teams carrying their accumulators across bands, once for
+// 1,700 touched cells in f32, 3,400 in 16 bits), it is staged in bands of
+// as many rows as fit, the teams carrying their accumulators across bands, once for
 // each group of as many items as the block has teams. When the weights of all
 // R boxes do not fit beside one row of the map (large sr or R), the boxes are
 // taken in groups. A row of more than about 1,700 f32 columns does not fit
@@ -59,6 +61,7 @@
 // tap of every output is one shared load (up to 28 x 28 a box and channel).
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <algorithm>
@@ -80,12 +83,13 @@ constexpr int kSlice = 32;        // channels of a block
 constexpr int kSliceWide = 16;    // ... for f32 rows too wide for kSlice
 constexpr int kMaxDynSmem = 232448 - 1024;   // opt-in limit less the statics
 
-// One axis of a box: the reference's _weights in its f32 order.
+// One axis of a box: the reference's _weights in its f32 order, for
+// features of type Tin.
+template <typename Tin>
 struct Axis {
   float lo, cell, top;
   const float* off;   // [sr] sample offsets (s + 0.5) / sr within a cell
   int sr;
-  bool bf16;
 
   // sample point s of output cell p, clipped to the map
   __device__ float point(int p, int s) const {
@@ -93,7 +97,8 @@ struct Axis {
         __fadd_rn(lo, __fmul_rn(__fadd_rn((float)p, off[s]), cell));
     return fminf(fmaxf(__fsub_rn(pt, 0.5f), 0.f), top);
   }
-  // the weight of index h for output cell p, rounded to bf16 for bf16 features
+  // the weight of index h for output cell p, rounded to the features' type
+  // (as the reference's astype(feat.dtype); identity for f32)
   __device__ float weight(int p, int h) const {
     float acc = 0.f;
     for (int s = 0; s < sr; ++s)
@@ -101,7 +106,7 @@ struct Axis {
           acc, fmaxf(__fsub_rn(1.f, fabsf(__fsub_rn(point(p, s), (float)h))),
                      0.f));
     const float w = __fdiv_rn(acc, (float)sr);
-    return bf16 ? __bfloat162float(__float2bfloat16_rn(w)) : w;
+    return nafae_ctx::as_operand(w, static_cast<const Tin*>(nullptr));
   }
   // the indices that can carry a non-zero weight of cell p: [first, last]
   __device__ int first(int p) const { return (int)point(p, 0); }
@@ -110,15 +115,15 @@ struct Axis {
   }
 };
 
-__device__ __forceinline__ Axis make_axis(float lo, float hi, int size, int sr,
-                                          const float* off, bool bf16) {
-  Axis a;
+template <typename Tin>
+__device__ __forceinline__ Axis<Tin> make_axis(float lo, float hi, int size,
+                                               int sr, const float* off) {
+  Axis<Tin> a;
   a.off = off;
   a.lo = lo;
   a.cell = __fdiv_rn(fmaxf(__fsub_rn(hi, lo), 1.f), (float)kP);
   a.top = (float)(size - 1);
   a.sr = sr;
-  a.bf16 = bf16;
   return a;
 }
 
@@ -127,6 +132,9 @@ __device__ __forceinline__ float4 load_ch4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 __device__ __forceinline__ float4 load_ch4(const __nv_bfloat16* p) {
+  return nafae_ctx::load4(p, 0);
+}
+__device__ __forceinline__ float4 load_ch4(const __half* p) {
   return nafae_ctx::load4(p, 0);
 }
 
@@ -155,7 +163,6 @@ roi_align_kernel(const Tin* __restrict__ feat,     // [F, H, W, C]
                  int group, int tile_bytes, int vec, int slices,
                  long long blocks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  constexpr bool bf16 = sizeof(Tin) == 2;
   constexpr int kCell = kCs * (int)sizeof(Tin);    // bytes of a staged cell
   constexpr int kLanes = kCs / 4;                  // lanes of a team
   constexpr int kTeams = kThreads / kLanes;
@@ -179,12 +186,12 @@ roi_align_kernel(const Tin* __restrict__ feat,     // [F, H, W, C]
   const float* fbox = boxes + f * R * 4;
   const Tin* fmap = feat + f * (size_t)H * W * C;
 
-  auto axes = [&](int r, Axis& y, Axis& x) {
+  auto axes = [&](int r, Axis<Tin>& y, Axis<Tin>& x) {
     const float* b = fbox + r * 4;
-    y = make_axis(__fmul_rn(b[1], scale), __fmul_rn(b[3], scale), H, sr, offs,
-                  bf16);
-    x = make_axis(__fmul_rn(b[0], scale), __fmul_rn(b[2], scale), W, sr, offs,
-                  bf16);
+    y = make_axis<Tin>(__fmul_rn(b[1], scale), __fmul_rn(b[3], scale), H, sr,
+                       offs);
+    x = make_axis<Tin>(__fmul_rn(b[0], scale), __fmul_rn(b[2], scale), W, sr,
+                       offs);
   };
   // the rows and columns boxes [b0, b1) touch, into reg (all threads call)
   auto touched = [&](int b0, int b1) {
@@ -194,7 +201,7 @@ roi_align_kernel(const Tin* __restrict__ feat,     // [F, H, W, C]
     }
     __syncthreads();
     for (int r = b0 + threadIdx.x; r < b1; r += kThreads) {
-      Axis y, x;
+      Axis<Tin> y, x;
       axes(r, y, x);
       atomicMin(&reg[0], y.first(0));
       atomicMax(&reg[1], y.last(kP - 1));
@@ -250,9 +257,9 @@ roi_align_kernel(const Tin* __restrict__ feat,     // [F, H, W, C]
     // one thread a list: the non-zero weights of (box, axis, p), in order
     for (int i = threadIdx.x; i < nb * 2 * kP; i += kThreads) {
       const int b = i / (2 * kP), l = i % (2 * kP);
-      Axis y, x;
+      Axis<Tin> y, x;
       axes(g0 + b, y, x);
-      const Axis& ax = l < kP ? y : x;
+      const Axis<Tin>& ax = l < kP ? y : x;
       const int p = l < kP ? l : l - kP;
       int* li = lists + b * per_box + l * K;
       float* lw = reinterpret_cast<float*>(lists + b * per_box + 2 * kP * K) +
@@ -423,22 +430,27 @@ int launch(const void* feat, const float* boxes, float* out, int F, int R,
 extern "C" {
 
 // Launches on `stream` and returns the cudaError_t of the launch (0 = ok).
-// feat [F, H, W, C] is float* when is_bf16 == 0 and __nv_bfloat16* otherwise;
-// boxes [F, R, 4] f32 in image coordinates; out [F * R, 7, 7, C] f32 is
-// written whole. All contiguous.
+// feat [F, H, W, C] is of the type of the dtype code: float* (0),
+// __nv_bfloat16* (1) or __half* (2; any other code is refused); boxes
+// [F, R, 4] f32 in image coordinates; out [F * R, 7, 7, C] f32 is written
+// whole. All contiguous.
 // Limits: out_size 7, 1 <= sr <= 64, 1 <= H, W <= 2048, C >= 1,
 // F * R < 2^31.
-int nafae_roi_align(const void* feat, int is_bf16, const float* boxes,
+int nafae_roi_align(const void* feat, int dtype, const float* boxes,
                     float* out, int F, int R, int H, int W, int C, float scale,
                     int sr, void* stream) {
   if (F < 0 || R < 0 || H < 1 || W < 1 || H > kMaxSize || W > kMaxSize ||
-      C < 1 || sr < 1 || sr > kMaxSr || (long long)F * R >= (1LL << 31))
+      C < 1 || sr < 1 || sr > kMaxSr || (long long)F * R >= (1LL << 31) ||
+      dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   if (F == 0 || R == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16)
+  if (dtype == 1)
     return launch<__nv_bfloat16, kSlice>(feat, boxes, out, F, R, H, W, C, scale,
                                          sr, s);
+  if (dtype == 2)
+    return launch<__half, kSlice>(feat, boxes, out, F, R, H, W, C, scale, sr,
+                                  s);
   // a row of the map must fit beside one team's weights
   const size_t row = (size_t)W * kSlice * sizeof(float);
   if (row + list_bytes(1, std::min(2 * sr, std::max(H, W))) <=

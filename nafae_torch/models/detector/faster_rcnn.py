@@ -40,11 +40,8 @@ from nafae_torch.ops import roi_align as RA
 from nafae_torch.ops.kernels import roi_align as K5
 
 STRIDE = 16
-DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
-# detector.dtype=float16, which the reference runs: not yet on any device
-F16_REFUSAL = ("detector.dtype=float16 is not ported yet: ROADMAP Queue 1 "
-               "item 17 (K5 at f16 and f16 convolutions over ResNet-50 and "
-               "VGG16); use float32 or bfloat16")
+DTYPES = {"float32": None, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 class FasterRCNNExtractor(nn.Module):
@@ -55,8 +52,6 @@ class FasterRCNNExtractor(nn.Module):
         if cfg.backbone not in (*RESNET_BLOCKS, "vgg16"):
             raise ValueError(f"unknown detector.backbone {cfg.backbone!r}; "
                              "resnet50 | resnet101 | vgg16")
-        if cfg.dtype == "float16":
-            raise NotImplementedError(F16_REFUSAL)
         if cfg.dtype not in DTYPES:
             raise ValueError(f"unknown detector.dtype {cfg.dtype!r}; "
                              f"{' | '.join(DTYPES)}")

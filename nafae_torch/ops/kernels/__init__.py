@@ -7,6 +7,11 @@ count per kernel), and sends CPU tensors to the plain version.
 
 import torch
 
+# The C entry points' dtype argument, one table for every source: the
+# operands' type (float*, __nv_bfloat16* or __half*); each source's kernels
+# are templates on it, one instantiation each
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+
 
 def check_tensor(name: str, x: torch.Tensor, shape: tuple, dtype, device,
                  vector: bool = False) -> None:

@@ -14,13 +14,14 @@ kernels of `nafae_tpu/ops/pallas/fused_ground.py`:
 The kernel treats a video as a [M,E] x [E,T·R] product with a segmented
 max over each frame's R columns as its epilogue: f32 operands on CUDA cores
 with 8 x 5 register tiles and a cp.async double buffer (full f32, no
-TF32), bf16 operands on tensor cores (`mma.sync` m16n8k16, f32
-accumulators). Blocks take whole frames (80 columns: 4 frames at R = 20),
-so no dead region slot is multiplied; every dot is summed over E in one
+TF32), bf16 and f16 operands on tensor cores (`mma.sync` m16n8k16, f32
+accumulators; one template, the mma of the type). Blocks take whole
+frames (80 columns: 4 frames at R = 20), so no dead region slot is
+multiplied; every dot is summed over E in one
 order wherever it sits in a tile, so exact ties stay ties and the first
 region wins. The f32 kernel takes any E (its stages land by 16-, 8- or
-4-byte copies as the rows allow); bf16 shapes outside its kernel (E not a
-multiple of 4, or above 512) take a general variant in the same source,
+4-byte copies as the rows allow); 16-bit shapes outside its kernel (E not
+a multiple of 4, or above 512) take a general variant in the same source,
 same blocks and epilogue, whose tensor-core product streams E through a
 ring of stages: every E the reference takes. The source note of
 `csrc/cross_mil.cu` has the design and the bound, PERF.md the measured
@@ -47,7 +48,7 @@ import functools
 import torch
 
 from nafae_torch.device import matmul_precision
-from nafae_torch.ops.kernels import _build
+from nafae_torch.ops.kernels import DTYPE_CODES, _build
 from nafae_torch.ops.kernels import check_tensor as _check
 
 NEG = -1e9
@@ -117,8 +118,9 @@ def _check_inputs(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
                          f"{tuple(w_flat.shape)} and {tuple(v.shape)}")
     i, t, r, e = v.shape
     m = w_flat.shape[0]
-    if v.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"v must be float32 or bfloat16, got {v.dtype}")
+    if v.dtype not in DTYPE_CODES:
+        raise TypeError(f"v must be float32, bfloat16 or float16, got "
+                        f"{v.dtype}")
     if r < 1 or e < 1:
         raise ValueError(f"cross_mil kernel takes R >= 1 and E >= 1, got "
                          f"R={r}, E={e}")
@@ -147,7 +149,7 @@ def launch(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
     idx = torch.empty((i, m, t), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         err = lib.nafae_cross_mil(
-            w_flat.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),
+            w_flat.data_ptr(), v.data_ptr(), DTYPE_CODES[v.dtype],
             fm.data_ptr(), rm.data_ptr() if rm is not None else None,
             a.data_ptr(), idx.data_ptr(), i, m, t, r, e,
             torch.cuda.current_stream(dev).cuda_stream)
@@ -158,15 +160,15 @@ def launch(w_flat: torch.Tensor, v: torch.Tensor, fm: torch.Tensor,
     return a, idx
 
 
-def launch_floor(i: int, m: int, t: int, r: int, e: int, bf16: bool,
-                 device) -> None:
+def launch_floor(i: int, m: int, t: int, r: int, e: int,
+                 dtype: torch.dtype, device) -> None:
     """Launches an empty kernel with the grid, block size and shared memory
     that `launch` uses for these sizes, on the current stream: the launch
     floor a measured time of the kernel is judged against. Not a launch of
     the kernel: `launches` does not count it."""
     with torch.cuda.device(device):
         err = _lib().nafae_cross_mil_floor(
-            int(bf16), i, m, t, r, e,
+            DTYPE_CODES[dtype], i, m, t, r, e,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"cross_mil floor launch failed: cudaError_t {err}")
@@ -207,8 +209,9 @@ def cross_mil(w_emb: torch.Tensor, v_emb: torch.Tensor,
     """Fused a[i,j,k,t] = masked max_r ŵ[j,k]·v̂[i,t,r] (the reference's
     `fused_ground.cross_mil`): w_emb [J,K,E], v_emb [I,T,R,E], frame_mask
     [I,T], region_mask [I,T,R] or None (every region valid) -> [I,J,K,T]
-    f32. dtype (None: v_emb's; e.g. bfloat16) casts both operands; the sums
-    stay f32 and the gradients flow back through the casts."""
+    f32. dtype (None: v_emb's; e.g. bfloat16, float16) casts both
+    operands; the sums stay f32 and the gradients flow back through the
+    casts."""
     j, k, e = w_emb.shape
     dt = dtype if dtype is not None else v_emb.dtype
     w_flat = w_emb.to(dt).reshape(j * k, e).contiguous()

@@ -62,7 +62,7 @@ import functools
 
 import torch
 
-from nafae_torch.ops.kernels import _build
+from nafae_torch.ops.kernels import DTYPE_CODES, _build
 from nafae_torch.ops.kernels import check_tensor as _check
 
 NEG = -1e9            # masked-logit fill, as in the reference softmax
@@ -79,10 +79,6 @@ ALPHA_MAX_BYTES = 256 << 20
 
 launches = {"ctx_mix_fwd": 0, "ctx_mix_fwd_res": 0,
             "ctx_mix_bwd": 0, "ctx_mix_bwd_res": 0}
-
-# v_ext's type as the C entry points take it (their int argument): each
-# source's kernels are templates on it, one instantiation each
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def _offsets(window: int) -> list[int]:

@@ -23,8 +23,8 @@ a frame). Each warp takes one region at a time for the 2 x 8 word dots, the
 words in registers and lanes over the columns, with one transposed
 butterfly across the warp; the 3 workers then share a ring of the
 normalised centers in shared memory for the cosine sims (f32: FFMA, a
-butterfly a center; bf16: `mma.sync` on the tensor cores), and r* and c*
-come from first-index (value, index) butterflies. K4b is one launch of two
+butterfly a center; bf16 and f16: `mma.sync` on the tensor cores), and
+r* and c* come from first-index (value, index) butterflies. K4b is one launch of two
 kinds of block: per frame, dv from the words, the frame's ds and df staged
 once (no v read); per video and 32-column slice, dw as ds [K, T·R] · v
 [T·R, E], so v is read once. Shapes outside those kernels (K > 32, E not
@@ -48,11 +48,12 @@ config4), so the backward neither re-reads u nor recomputes the cluster
 sims, where the TPU backward re-runs the whole forward. Selection ignores
 frame validity (region mask only); the centers are normalised as
 c·rsqrt(Σc² + 1e-8); ŝ, the centers and both argmaxes are stop-gradients and
-f is returned stop-gradient. In bf16 mode the operands are bf16 with f32
-sums, and the plain versions round where the TPU kernels round: each ctx
-term (s−ŝ)²·m, the normalised centers and the target center in the
-forward; dctx, ds and df in the backward. The gradients are f32 until
-autograd casts them to the inputs' dtypes. Every output has one order of
+f is returned stop-gradient. In bf16 and f16 mode the operands are 16-bit
+with f32 sums, and the kernels and the plain versions round to that type
+where the TPU kernels round: each ctx term (s−ŝ)²·m, the normalised centers
+and the target center in the forward; dctx, ds and df in the backward
+(f16 subnormals kept: at config 4's step dctx lies below f16's normals).
+The gradients are f32 until autograd casts them to the inputs' dtypes. Every output has one order of
 sums and no float atomics, so two launches give the same bits.
 
 `diag_epilogue` sends CPU tensors to the plain versions; on CUDA tensors it
@@ -69,7 +70,7 @@ import functools
 import torch
 
 from nafae_torch.ops.grounding import l2_normalize
-from nafae_torch.ops.kernels import _build
+from nafae_torch.ops.kernels import DTYPE_CODES, _build
 from nafae_torch.ops.kernels import check_tensor as _check
 
 NEG = -1e9
@@ -169,8 +170,9 @@ def _check_inputs(w, v, centers,
                          f"{tuple(centers.shape)}")
     b, t, r, e = v.shape
     k, kc = w.shape[1], centers.shape[0]
-    if v.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"v must be float32 or bfloat16, got {v.dtype}")
+    if v.dtype not in DTYPE_CODES:
+        raise TypeError(f"v must be float32, bfloat16 or float16, got "
+                        f"{v.dtype}")
     if k < 1 or r < 1 or e < 1 or kc < 1:
         raise ValueError(f"diag kernels take K, R, E and Kc >= 1, got K={k}, "
                          f"R={r}, E={e}, Kc={kc}")
@@ -186,7 +188,7 @@ def _check_inputs(w, v, centers,
                          f"B*(T+9)*ceil(E/64) <= {MAX_BLOCKS}, got B={b}, "
                          f"T={t}, R={r}, E={e}")
     dev = v.device
-    # rows are read 16 (f32) or 8 (bf16) bytes at a time
+    # rows are read 16 (f32) or 8 (16-bit) bytes at a time
     _check("v", v, (b, t, r, e), v.dtype, dev, vector=True)
     _check("w", w, (b, k, e), v.dtype, dev, vector=True)
     _check("centers", centers, (kc, e), torch.float32, dev, vector=True)
@@ -220,7 +222,7 @@ def launch_fwd(w, v, u, centers, fm, hc, rm):
     with torch.cuda.device(dev):
         err = lib.nafae_diag_fwd(
             w.data_ptr(), v.data_ptr(), u.data_ptr(),
-            int(v.dtype == torch.bfloat16), centers.data_ptr(),
+            DTYPE_CODES[v.dtype], centers.data_ptr(),
             chat.data_ptr(), fm.data_ptr(), hc.data_ptr(),
             rm.data_ptr() if rm is not None else None, ctx.data_ptr(),
             clu.data_ptr(), f.data_ptr(), d.data_ptr(), rstar.data_ptr(),
@@ -250,7 +252,7 @@ def launch_bwd(w, v, centers, d, rstar, cstar, f, dctx, dclu):
     dv = torch.empty((b, t, r, e), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.nafae_diag_bwd(
-            w.data_ptr(), v.data_ptr(), int(v.dtype == torch.bfloat16),
+            w.data_ptr(), v.data_ptr(), DTYPE_CODES[v.dtype],
             centers.data_ptr(), d.data_ptr(), rstar.data_ptr(),
             cstar.data_ptr(), f.data_ptr(), dctx.data_ptr(), dclu.data_ptr(),
             dw.data_ptr(), dv.data_ptr(), b, k, t, r, e, _stream(dev))
@@ -263,26 +265,26 @@ def launch_bwd(w, v, centers, d, rstar, cstar, f, dctx, dclu):
 
 
 def launch_floor_fwd(b: int, k: int, t: int, r: int, e: int, kc: int,
-                     bf16: bool, device) -> None:
+                     dtype: torch.dtype, device) -> None:
     """Launches empty kernels with the grids, block size and shared memory
     that `launch_fwd` uses for these sizes (the second as the first's
     programmatic dependent), on the current stream: the launch floor a
     measured time of K4f is judged against. Not a launch of the kernel:
     `launches` does not count it."""
     with torch.cuda.device(device):
-        err = _lib().nafae_diag_fwd_floor(int(bf16), b, k, t, r, e, kc,
-                                          _stream(device))
+        err = _lib().nafae_diag_fwd_floor(DTYPE_CODES[dtype], b, k, t, r, e,
+                                          kc, _stream(device))
     if err != 0:
         raise RuntimeError(f"diag_epilogue floor launch failed: "
                            f"cudaError_t {err}")
 
 
-def launch_floor_bwd(b: int, k: int, t: int, r: int, e: int, bf16: bool,
-                     device) -> None:
+def launch_floor_bwd(b: int, k: int, t: int, r: int, e: int,
+                     dtype: torch.dtype, device) -> None:
     """The same for `launch_bwd` (K4b): one empty kernel of its grid."""
     with torch.cuda.device(device):
-        err = _lib_bwd().nafae_diag_bwd_floor(int(bf16), b, k, t, r, e,
-                                              _stream(device))
+        err = _lib_bwd().nafae_diag_bwd_floor(DTYPE_CODES[dtype], b, k, t, r,
+                                              e, _stream(device))
     if err != 0:
         raise RuntimeError(f"diag_epilogue_bwd floor launch failed: "
                            f"cudaError_t {err}")

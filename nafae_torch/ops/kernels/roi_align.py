@@ -4,8 +4,8 @@ its wrapper and its plain PyTorch version.
 Replaces the TPU kernel `nafae_tpu/ops/pallas/roi_align.py::_kernel` (:43),
 reached through `roi_align_pallas` (:74): the `detector.roi_impl=pallas`
 route. It computes out[p,q,c] = Σ_h Σ_w wy[p,h]·wx[q,w]·feat[h,w,c] with
-the reference's `_weights` (rounded to the feature's dtype in bf16) and f32
-sums, and returns f32 in both dtypes.
+the reference's `_weights` (rounded to the feature's dtype in bf16 and
+f16) and f32 sums, and returns f32 in every dtype.
 
 The TPU kernel makes two dense MXU contractions over the whole map, one
 box per grid step. On this card each output cell has at most 2·sr non-zero
@@ -31,7 +31,7 @@ import functools
 
 import torch
 
-from nafae_torch.ops.kernels import _build
+from nafae_torch.ops.kernels import DTYPE_CODES, _build
 from nafae_torch.ops.kernels import check_tensor as _check
 from nafae_torch.ops.roi_align import _by_frames, _weights
 
@@ -45,7 +45,7 @@ def roi_align_plain(feat: torch.Tensor, boxes: torch.Tensor,
                     out_size: int = OUT_SIZE, spatial_scale: float = 1.0,
                     sampling_ratio: int = 2) -> torch.Tensor:
     """Plain version of the kernel, the TPU kernel's separable form: feat
-    [F,H,W,C] (f32 or bf16), boxes [F,R,4] -> [F·R,P,P,C] f32; weights
+    [F,H,W,C] (f32, bf16 or f16), boxes [F,R,4] -> [F·R,P,P,C] f32; weights
     rounded to feat's dtype, stage 1 over w then stage 2 over h, f32 sums,
     in the separable form's frame chunks (its [F,R,H,P,C] f32 intermediate
     about 0.7 GB at config 5)."""
@@ -82,8 +82,9 @@ def launch(feat: torch.Tensor, boxes: torch.Tensor,
                          f"{tuple(feat.shape)} and {tuple(boxes.shape)}")
     f, h, w, c = feat.shape
     r = boxes.shape[1]
-    if feat.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"feat must be float32 or bfloat16, got {feat.dtype}")
+    if feat.dtype not in DTYPE_CODES:
+        raise TypeError(f"feat must be float32, bfloat16 or float16, got "
+                        f"{feat.dtype}")
     if not (1 <= h <= MAX_SIZE and 1 <= w <= MAX_SIZE):
         raise ValueError(f"roi_align kernel takes 1 <= H, W <= {MAX_SIZE}, "
                          f"got H={h}, W={w}")
@@ -101,7 +102,7 @@ def launch(feat: torch.Tensor, boxes: torch.Tensor,
                       device=dev)
     with torch.cuda.device(dev):
         err = lib.nafae_roi_align(
-            feat.data_ptr(), int(feat.dtype == torch.bfloat16),
+            feat.data_ptr(), DTYPE_CODES[feat.dtype],
             boxes.data_ptr(), out.data_ptr(), f, r, h, w, c,
             float(spatial_scale), sampling_ratio,
             torch.cuda.current_stream(dev).cuda_stream)

@@ -286,8 +286,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     unaligned = torch.zeros(2 * 3 * 4 * 8 + 1)[1:].view(2, 3, 4, 8)
     for bad_w, bad_v, bad_fm, match in (
             (w, torch.zeros(2, 3, 0, 8), fm, "R"),
-            (w.half(), torch.zeros(2, 3, 4, 8, dtype=torch.float16), fm,
-             "float32 or bfloat16"),
+            (w.double(), torch.zeros(2, 3, 4, 8, dtype=torch.float64), fm,
+             "float32, bfloat16 or float16"),
             (w, torch.zeros(2, 3, 8, 4).transpose(2, 3), fm, "contiguous"),
             (w, unaligned, fm, "aligned"),
             (w.bfloat16(), torch.zeros(2, 3, 4, 8), fm, "w_flat"),

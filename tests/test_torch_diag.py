@@ -255,7 +255,8 @@ def test_wrapper_rejects_what_the_kernels_do_not_take():
     for bad, match in (((w, torch.zeros(b, t, 0, e), c), "R"),
                        ((torch.zeros(b, 0, e), v, c), "K"),
                        ((w, v, torch.zeros(0, e)), "Kc"),
-                       ((w.half(), v.half(), c), "float32 or bfloat16"),
+                       ((w.double(), v.double(), c),
+                        "float32, bfloat16 or float16"),
                        ((w, v.bfloat16(), c), "w"),
                        ((w, v, c.double()), "centers"),
                        ((w, torch.zeros(b, t, e, r).transpose(2, 3), c),

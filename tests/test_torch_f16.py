@@ -24,12 +24,13 @@ the port's bf16 on the same inputs, that must fall outside it.
 - Serving, the exported artifact and eval at float16 compute in f32: bit
   for bit the port's float32 ones, and the JAX server at float16 within
   the f32 tolerance (1e-5).
-- What the card does not run at f16 yet raises NotImplementedError naming
-  its ROADMAP item (`train.unported_reason`), decided from the config and
-  the device before any step.
+- The fused route (train.kernels=pallas) and the detector at float16 build
+  and run; an unknown dtype raises ValueError. tests/test_torch_f16_fused.py
+  holds the fused route's kernels' plain versions, K5's and the detector at
+  f16 to the JAX package at f16.
 
 The f16 CUDA kernels themselves run only on a GPU: the `cuda` test skips
-here, and chip_smoke.py's phase 20 holds them on the card.
+here, and chip_smoke.py's phases 20 and 21 hold them on the card.
 """
 
 import jax
@@ -258,33 +259,38 @@ def test_eval_at_f16_is_the_f32_eval(synth_root):
     EV._assert_same_result(got["float16"], want)
 
 
-def test_what_the_card_lacks_at_f16_raises(synth_root):
-    """train.kernels=pallas at float16 on the card (K3, K4f and K4b have
-    no f16 kernels yet) and detector.dtype=float16 anywhere raise
-    NotImplementedError naming their ROADMAP items, before any step; the
-    CPU runs the fused route's plain versions at f16."""
+def test_what_the_card_lacks_at_f16_raises(synth_root, tmp_path):
+    """Nothing the reference accepts at float16 is refused any more:
+    train.kernels=pallas (and the legacy train.use_pallas) at
+    model.dtype=float16 builds its step and trains (here on the CPU, where
+    the fused route runs its plain versions at f16; on the card K3, K4f and
+    K4b launch their f16 kernels), and detector.dtype=float16 builds the
+    detector. An unknown dtype still raises ValueError."""
     def cfg(*extra):
-        return tcfg.load_config(preset_name="config4", overrides=[
-            f"data.root={synth_root}", *extra])
+        return TR._cfgs(synth_root, "config4", extra)[1]
 
-    pallas16 = cfg("model.dtype=float16", "train.kernels=pallas")
-    assert "Queue 1 item 16" in TT.unported_reason(pallas16, "cuda")
-    legacy = cfg("model.dtype=float16", "train.use_pallas=true")
-    assert TT.unported_reason(legacy, "cuda") == TT.F16_FUSED_REFUSAL
-    for ok in ((pallas16, "cpu"), (cfg("model.dtype=float16"), "cuda"),
-               (cfg("model.dtype=bfloat16", "train.kernels=pallas"), "cuda")):
-        assert TT.unported_reason(*ok) is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 16"):
-        TT.build_train_fn(pallas16, TT.make_optimizer(pallas16), "cuda")
+    pallas16 = cfg("model.dtype=float16", "train.kernels=pallas",
+                   "train.steps=2", "train.log_every=1",
+                   f"train.ckpt_dir={tmp_path / 'p'}")
+    legacy = cfg("model.dtype=float16", "train.kernels=auto",
+                 "train.use_pallas=true")
+    for c in (pallas16, legacy):
+        assert c.train.resolved_kernels() == "pallas"
+        TT.build_train_fn(c, TT.make_optimizer(c), "cpu")
+    rows = []
+    state, _ = TT.fit(pallas16, device="cpu", log_fn=rows.append)
+    assert int(state.step) == 2
+    assert [r["step"] for r in rows] == [1, 2]
+    assert all(np.isfinite(r["loss"]) for r in rows)
     det16 = tcfg.load_config(preset_name="config5", overrides=[
-        "detector.dtype=float16", "data.from_videos=true",
-        "data.annotations=none.jsonl"])
-    for dev in ("cpu", "cuda"):
-        assert "Queue 1 item 17" in TT.unported_reason(det16, dev)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        TT.fit(det16, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 17"):
-        FasterRCNNExtractor(det16.detector)
+        "detector.dtype=float16", "detector.image_size=64"])
+    assert FasterRCNNExtractor(det16.detector).backbone.dtype == torch.float16
+    with pytest.raises(ValueError, match="detector.dtype"):
+        FasterRCNNExtractor(tcfg.load_config(
+            preset_name="config5",
+            overrides=["detector.dtype=float64"]).detector)
+    with pytest.raises(ValueError, match="model.dtype"):
+        TT.TrainState.create(cfg("model.dtype=float64"), device="cpu")
 
 
 @pytest.fixture

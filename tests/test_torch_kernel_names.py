@@ -2,10 +2,11 @@
 
 On the card, `chip_smoke.traced_replay` counts the kernels a replayed step
 or serving batch runs by substrings of their names (TRACE_NAMES,
-ANY_TRACE_NAMES, F16_TRACE, and the specialised kernels `any_fit_names`
-says must not run). A name that no kernel has any more fails only there, deep into the
-run. Here every such substring must name at least one `__global__`
-function of `nafae_torch/csrc/*.cu`, by the same substring rule."""
+ANY_TRACE_NAMES, F16_TRACE, F16B_TRACE, F16B_C5_TRACE, and the
+specialised kernels `any_fit_names` says must not run). A name that no
+kernel has any more fails only there, deep into the run. Here every
+such substring must name at least one `__global__` function of
+`nafae_torch/csrc/*.cu`, by the same substring rule."""
 
 import importlib.util
 import pathlib
@@ -48,7 +49,8 @@ def test_kernels_are_found():
 
 
 @pytest.mark.parametrize("table", ["TRACE_NAMES", "ANY_TRACE_NAMES",
-                                   "F16_TRACE"])
+                                   "F16_TRACE", "F16B_TRACE",
+                                   "F16B_C5_TRACE"])
 def test_trace_names_exist(table):
     # a tuple names an instantiation: its kernel is its first substring
     subs = {s if isinstance(s, str) else s[0]

@@ -232,8 +232,8 @@ def test_launch_rejects_what_the_kernel_does_not_take():
     b = torch.zeros(2, 3, 4)
     with pytest.raises(ValueError, match="feat"):
         K.launch(torch.zeros(4, 4, 8), b)
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        K.launch(f.half(), b)
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        K.launch(f.double(), b)
     with pytest.raises(ValueError, match="H, W"):
         K.launch(torch.zeros(1, 4, 3000, 8), torch.zeros(1, 3, 4))
     with pytest.raises(ValueError, match="sampling_ratio"):
